@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py [--out details.json]
 
@@ -14,19 +15,36 @@ check does not hold:
      bf16 operands, ragged lengths including 0, 1 and T;
   3. fused_encoder_layer forward, the same at the PAM shape (B=128, T=600,
      d=84, ffn=136) on out, attn and lse;
-  4. an InferenceServer for PAM at full width (random weights from a seed)
+  4. flash_mha_packed backward at the same shapes, dropout 0 and 0.2: the
+     forward with dropout, then dq, dk, dv of the two backward kernels
+     against the plain backward, finite, zero on the length-0 sample, and
+     bit-equal on a repeat;
+  5. fused_encoder_layer backward at the PAM shape, the same grid: dx and
+     the 12 weight gradients against the plain backward, bit-equal on a
+     repeat;
+  6. an InferenceServer for PAM at full width (random weights from a seed)
      answering predict on 1, 5, 128 and 200 rows, submit from 4 threads,
      predict_stream and the bf16 wire format, held against the same server
      on the dense plain path; it must have gone through the fused-layer
      kernel;
-  5. the same for P12, which must have gone through flash_mha_packed.
+  7. the same for P12, which must have gone through flash_mha_packed;
+  8. a Trainer for PAM at full width and depth (B=128, lr 1e-4, shipped
+     dropout 0.2) on a synthetic split resident on the card: one epoch and
+     a padded predict; finite losses, backward launches of the preset's
+     kernel, dead parameters bit-identical and live ones changed, the same
+     epoch twice bit-equal, the first step's loss and gradient norm against
+     the dense path at dropout 0, and a falling loss on a fixed batch;
+  9. the same for P12.
 
 Times are CUDA-event means over repeated launches after a warm-up. Bounds
 use the H100 SXM data-sheet peaks (3.35 TB/s; 67 TFLOP/s f32 outside the
 tensor cores, 989 TFLOP/s dense bf16); the card's power limit is printed
-beside them. The line before the last is the kernels' JSON record, the
-last line the result. `--out PATH` also writes every number to PATH as
-JSON.
+beside them. Gradients are compared relative to max(1, the plain
+gradient's largest value): 1e-4 with f32 operands (another summation
+order), 2e-2 with bf16 operands; the fused layer's plain backward takes
+the kernel's relu branches (fused_bwd_phase says why). The line before the last is the kernels'
+JSON record, the last line the result. `--out PATH` also writes every
+number to PATH as JSON.
 """
 
 from __future__ import annotations
@@ -215,6 +233,174 @@ def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
                 qkv_roundtrip_bytes=qkv_bytes)
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1.0))
+
+
+SEED = 20231
+
+
+def flash_bwd_phase(label, B, T, d, H, dtype, rate, device="cuda", seed=0):
+    """Kernels vs plain for flash_mha_packed's forward with dropout and its
+    backward at one shape."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, g = (torch.randn((B, T, d), generator=gen, device=device)
+                  for _ in range(4))
+    lengths = ragged_lengths(gen, B, T, device)
+    cd = None if dtype == "float32" else dtype
+    od = fa.operand_dtype(cd)
+    o_k, lse_k = fa._packed_fwd(q, k, v, lengths, SEED, rate, cd, H)
+    o_p, lse_p = fa._packed_fwd_plain(q, k, v, lengths, H, od, SEED, rate)
+    fwd_err = max(max_err(o_k, o_p), max_err(lse_k, lse_p))
+    args = (q, k, v, lengths, SEED, rate, H, od, o_k, lse_k, g)
+    got = fa._packed_bwd_cuda(*args)
+    again = fa._packed_bwd_cuda(*args)
+    want = fa._packed_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+    err = max(errs.values())
+    print(f"[flash_bwd] {label} {dtype} dropout {rate}: forward max_abs_err "
+          f"{fwd_err:.3e}, gradients rel err {errs} (tol {TOL[dtype]:g})", flush=True)
+    if fwd_err > TOL[dtype] or err > TOL[dtype]:
+        raise AssertionError(f"flash_mha_packed backward disagrees at {label} {dtype}")
+    for a, a2 in zip(got, again):
+        if not bool(torch.isfinite(a).all()) or not torch.equal(a, a2):
+            raise AssertionError(f"flash backward not finite or not bit-equal "
+                                 f"on a repeat at {label} {dtype}")
+        if not bool((a[0] == 0).all()):
+            raise AssertionError("flash backward: the length-0 sample is not zero")
+
+    qo, ko, vo = (x.to(od) for x in (q, k, v))
+    targs = (qo, ko, vo, lengths, SEED, rate, H, od, o_k, lse_k, g)
+    ms = time_ms(lambda: fa._packed_bwd_cuda(*targs))
+    plain_ms = time_ms(lambda: fa._packed_bwd_plain(*targs), reps=5, warmup=1)
+    live = lengths > 0
+    hd = d // H
+    qh, kh, vh = (x[live].reshape(-1, T, H, hd).transpose(1, 2).contiguous()
+                  .requires_grad_() for x in (qo, ko, vo))
+    keep = (torch.arange(T, device=device)[None, :]
+            < lengths[live][:, None])[:, None, None, :]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=keep, dropout_p=rate)
+    gh = g[live].to(od).reshape(-1, T, H, hd).transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
+                                                     retain_graph=True))
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = (4 * B * T * d * esize + 3 * B * T * d * 4 + 2 * B * H * T * 4 + B * 4)
+    flops = 10.0 * T * hd * H * float(lengths.sum())
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    print(f"[flash_bwd] {label} {dtype} dropout {rate}: kernels {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return dict(label=label, dtype=dtype, rate=rate, max_abs_err=err,
+                fwd_max_abs_err=fwd_err, errs=errs, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops)
+
+
+def fused_bwd_phase(label, B, T, d, ffn, H, dtype, rate, device="cuda", seed=0):
+    """Kernels vs plain for fused_encoder_layer's forward with dropout and
+    its backward (dx and the 12 weight gradients) at one shape."""
+    import torch
+    from raindrop_tpu_torch.ops import fused_encoder as fe
+    from raindrop_tpu_torch.ops.flash_attention import operand_dtype
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = random_layer(gen, d, ffn, device)
+    x, g = (torch.randn((B, T, d), generator=gen, device=device) for _ in range(2))
+    lengths = ragged_lengths(gen, B, T, device)
+    cd = None if dtype == "float32" else dtype
+    od = operand_dtype(cd)
+    fwd_k = fe._fused_fwd(p, x, lengths, SEED, rate, cd, H)
+    fwd_p = fe._fused_fwd_plain(p, x, lengths, H, od, SEED, rate)
+    fwd_err = max(max_err(a, b) for a, b in zip(fwd_k, fwd_p))
+    _, attn, lse = fwd_k
+    ws = fe._flatten(p)
+    args = (x, lengths, SEED, rate, H, od, attn, lse, g)
+    scratch = {}
+    dx, dws = fe._fused_bwd_cuda(ws, *args, scratch_out=scratch)
+    dx2, dws2 = fe._fused_bwd_cuda(ws, *args)
+    # The layer has a relu. A pre-activation within rounding of zero can
+    # fall on either side in the kernel and in the plain version, and the
+    # branch moves single gradient elements by O(1) whatever the
+    # arithmetic's precision (at this shape about one of 10.4 million
+    # elements does). So the plain backward is given the kernel's branches,
+    # which makes the comparison one of arithmetic; the branches themselves
+    # are held to differ only where the plain pre-activation is within the
+    # tolerance of zero, and so for no more than that share of the elements.
+    ffn_on = scratch["f"].reshape(B, T, ffn) > 0
+    scratch.clear()
+    f_pre = fe._recompute(
+        p, x, fwd_p[1], lambda t: t.to(od).to(torch.float32),
+        fe._site_keeps(SEED, rate, B, T, d, ffn, device))[4]
+    if rate > 0.0:
+        kept = fe._site_keep(SEED, B, fe.SITE_FFN_MID, T, ffn, rate, device)
+    else:
+        kept = torch.ones_like(ffn_on)
+    flips = ffn_on != ((f_pre > 0) & kept)
+    n_flips = int(flips.sum())
+    flip_pre = float(f_pre[flips].abs().max()) if n_flips else 0.0
+    del f_pre, kept
+    pdx, pdws = fe._fused_bwd_plain(p, *args, relu_on=ffn_on)
+    torch.cuda.synchronize()
+    names = ["dx"] + ["/".join(path) for path in fe._WEIGHTS]
+    errs = {n: rel_err(a, b) for n, a, b in zip(names, [dx, *dws], [pdx, *pdws])}
+    err = max(errs.values())
+    print(f"[fused_bwd] {label} {dtype} dropout {rate}: forward max_abs_err "
+          f"{fwd_err:.3e}, gradients rel err {errs} (tol {TOL[dtype]:g}); relu "
+          f"branches that differ from the plain version's: {n_flips} of "
+          f"{flips.numel()}, largest |pre-activation| among them {flip_pre:.3e}",
+          flush=True)
+    if (fwd_err > TOL[dtype] or err > TOL[dtype] or flip_pre > TOL[dtype]
+            or n_flips > TOL[dtype] * flips.numel()):
+        raise AssertionError(f"fused_encoder_layer backward disagrees at {label} {dtype}")
+    for name, a, a2 in zip(names, [dx, *dws], [dx2, *dws2]):
+        if not bool(torch.isfinite(a).all()) or not torch.equal(a, a2):
+            raise AssertionError(f"fused backward {name} not finite or not "
+                                 f"bit-equal on a repeat at {label} {dtype}")
+    del pdx, pdws, fwd_p
+
+    ms = time_ms(lambda: fe._fused_bwd_cuda(ws, *args), reps=10, warmup=2)
+    plain_ms = time_ms(lambda: fe._fused_bwd_plain(p, *args), reps=3, warmup=1)
+    layer = torch.nn.TransformerEncoderLayer(
+        d, H, ffn, dropout=rate, batch_first=True, device=device, dtype=od).train()
+    live = lengths > 0
+    xl = x[live].to(od).requires_grad_()
+    pad = (torch.arange(T, device=device)[None, :] >= lengths[live][:, None])
+    out = layer(xl, src_key_padding_mask=pad)
+    wrt = (xl, *layer.parameters())
+    gl = g[live].to(od)
+    library_ms = time_ms(lambda: torch.autograd.grad(out, wrt, gl, retain_graph=True),
+                         reps=10, warmup=2)
+    hd = d // H
+    esize = 2 if dtype == "bfloat16" else 4
+    n_w = 4 * d * d + 2 * d * ffn
+    n_v = 9 * d + ffn
+    nbytes = (B * T * d * 4 * 4 + B * H * T * 4 + B * 4
+              + n_w * esize + n_v * 4 + (n_w + n_v) * 4)
+    # every forward product is recomputed and has two backward products;
+    # the attention has five against the forward's two
+    dense = 3 * 2.0 * B * T * (4 * d * d + 2 * d * ffn)
+    flops = dense + 10.0 * T * hd * H * float(lengths.sum())
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    scratch = fe.bwd_scratch_floats(B, T, d, ffn, H)
+    scratch_mb = {k: 4 * n / 1e6 for k, n in scratch.items()}
+    print(f"[fused_bwd] {label} {dtype} dropout {rate}: kernels {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, TransformerEncoderLayer backward {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}); intermediates in device "
+          f"memory {sum(scratch_mb.values()):.1f} MB", flush=True)
+    return dict(label=label, dtype=dtype, rate=rate, max_abs_err=err,
+                fwd_max_abs_err=fwd_err, errs=errs, relu_flips=n_flips,
+                ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops, scratch_mb=scratch_mb)
+
+
 # ----------------------------------------------------------------- serving
 def make_requests(cfg, n, seed):
     """Synthetic batch-major requests: ragged lengths in 1..T, zero times
@@ -328,12 +514,37 @@ def serve_phase(dataset, kernel_fn, wrappers, device="cuda", seed=0,
                           **timing)
 
 
+def profile_device(fn, n):
+    """Run fn() under torch.profiler: (wall ms, device ms, idle share, top
+    device operations), all per one of the `n` units of work fn does."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    kernels = {}
+    for evt in prof.key_averages():
+        # kernels and copies only: an annotation such as the optimizer's
+        # step is mirrored on the device timeline and would count twice
+        if (getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)
+                and not evt.key.startswith("Optimizer.")):
+            us = getattr(evt, "self_device_time_total", 0.0)
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / (1e3 * n)
+    device_ms = sum(kernels.values())
+    top_k = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
+    idle = 1.0 - device_ms / wall_ms if device_ms > 0 else None
+    return wall_ms, device_ms, idle, top_k
+
+
 def serve_timing(dataset, server, P, times, static, reps=7):
     """Request latency by bucket (host clock around predict, which ends in
     the device-to-host copy) and a profile of the top bucket: device time
     by kernel and the device's idle share of the request's wall time."""
-    import torch
-
     latency = {}
     for n in server.buckets:
         args = (P[:n], times[:n], _rows(static, slice(0, n)))
@@ -346,20 +557,8 @@ def serve_timing(dataset, server, P, times, static, reps=7):
         latency[n] = float(np.median(ts))
     top = server.buckets[-1]
     args = (P[:top], times[:top], _rows(static, slice(0, top)))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            server.predict(*args)
-        wall_ms = 1e3 * (time.perf_counter() - t0) / 3
-    kernels = {}
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            us = getattr(evt, "self_device_time_total", 0.0)
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 3e3
-    device_ms = sum(kernels.values())
-    top_k = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
-    idle = 1.0 - device_ms / wall_ms if device_ms > 0 else None
+    wall_ms, device_ms, idle, top_k = profile_device(
+        lambda: [server.predict(*args) for _ in range(3)], 3)
     print(f"[serve] {dataset}: predict latency ms by bucket {latency}; top "
           f"bucket profiled: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, "
           f"idle share {idle}", flush=True)
@@ -368,6 +567,178 @@ def serve_timing(dataset, server, P, times, static, reps=7):
     return dict(latency_ms=latency, profile_wall_ms=wall_ms,
                 profile_device_ms=device_ms, idle_share=idle,
                 device_ms_by_kernel=top_k)
+
+
+# ---------------------------------------------------------------- training
+def make_split(cfg, n, seed, device):
+    """A synthetic labelled split resident on `device`, batch-major:
+    make_requests plus labels cycling through the classes."""
+    import torch
+
+    P, times, static = make_requests(cfg, n, seed)
+    y = (np.arange(n) % cfg.n_classes).astype(np.int64)
+    data = {"P": torch.from_numpy(P), "time": torch.from_numpy(times),
+            "y": torch.from_numpy(y)}
+    if static is not None:
+        data["static"] = torch.from_numpy(static)
+    return {k: v.to(device) for k, v in data.items()}, y
+
+
+def grad_norm(trainer):
+    import torch
+
+    return float(torch.sqrt(sum((t.grad.double() ** 2).sum()
+                                for _, t in trainer.live)))
+
+
+def train_phase(dataset, kernel_fn, wrappers, device="cuda", seed=0, batch=128,
+                cfg_overrides=None):
+    """Train one preset at full width and depth and check it. Every
+    wrapper's counts are set to 0 just before the epoch and the predict and
+    read just after; returns the forward and backward counts by wrapper
+    name. `kernel_fn` is the wrapper this preset's training must go
+    through, forward and backward."""
+    import torch
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.data.sampler import balanced_batches
+    from raindrop_tpu_torch.nn.transformer import encoder_rung
+    from raindrop_tpu_torch.train.trainer import Trainer, flatten_params
+    from raindrop_tpu_torch.utils.dropout import DropoutSeeds
+
+    kw = dict(cfg_overrides or {})
+    cfg = dataset_config(dataset, **kw)
+    strategy = 3 if cfg.n_classes > 2 else 2
+    tcfg = TrainConfig(dataset=dataset, learning_rate=1e-4, batch_size=batch,
+                       batching_strategy=strategy, seed=seed + 1)
+    rung = encoder_rung(cfg.attention_backend, cfg.max_len, cfg.d_transformer,
+                        cfg.nhead, True)
+    n = 5 * batch
+    data, y = make_split(cfg, n, seed + 2, device)
+    idx_np = np.stack(list(balanced_batches(
+        y, batch, strategy, np.random.default_rng(seed),
+        n_batches=6 if strategy == 3 else None)))
+    idx = torch.from_numpy(idx_np).to(device)
+    steps = idx.shape[0]
+    print(f"[train] {dataset}: T={cfg.max_len} d={cfg.d_transformer} "
+          f"ffn={cfg.ffn_dim} nlayers={cfg.nlayers} dropout={cfg.dropout} "
+          f"operands {cfg.attention_score_dtype}; encoder rung: {rung}; "
+          f"{steps} steps of {batch} from {n} samples (strategy {strategy})",
+          flush=True)
+    if steps < 5:
+        raise AssertionError(f"{dataset}: an epoch of {steps} steps, need 5")
+
+    trainer = Trainer(cfg, tcfg, device=device)
+    before = {path: t.detach().clone() for path, t in flatten_params(trainer.params)}
+    t0 = time.perf_counter()
+    for fn in wrappers:
+        fn.launches = fn.bwd_launches = 0
+    losses, _ = trainer.train_epoch(data, idx)
+    n_pred = min(200, n)    # two chunks of 100: the second is a padded tail
+    P_host, time_host = (data[k][:n_pred].cpu().numpy() for k in ("P", "time"))
+    static_host = data["static"][:n_pred].cpu().numpy() if "static" in data else None
+    logits = trainer.predict(None, P_host, time_host, static_host)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    bwd_launches = {fn.__name__: fn.bwd_launches for fn in wrappers}
+    train_s = time.perf_counter() - t0
+    print(f"[train] {dataset}: epoch + predict in {train_s:.3f} s; losses "
+          f"{[round(float(x), 6) for x in losses]}; forward launches {launches}, "
+          f"backward launches {bwd_launches}", flush=True)
+    if not bool(torch.isfinite(losses).all()) or not np.isfinite(logits).all():
+        raise AssertionError(f"{dataset}: a loss or a predicted logit is not finite")
+    if logits.shape != (n_pred, cfg.n_classes):
+        raise AssertionError(f"{dataset}: predict gave {logits.shape}")
+    if bwd_launches[kernel_fn.__name__] <= 0 or launches[kernel_fn.__name__] <= 0:
+        raise AssertionError(f"{dataset}: training never launched "
+                             f"{kernel_fn.__name__} forward and backward")
+    live = {path for path, _ in trainer.live}
+    for path, t in flatten_params(trainer.params):
+        same = torch.equal(t.detach(), before[path])
+        if same == (path in live):
+            raise AssertionError(f"{dataset}: parameter {path} is "
+                                 f"{'unchanged' if same else 'changed'} after an epoch")
+    if len(trainer.optimizer.state) != len(trainer.live):
+        raise AssertionError(f"{dataset}: optimizer state for a dead parameter")
+
+    # the same epoch from the same seeds: bit-equal losses
+    again, _ = Trainer(cfg, tcfg, device=device).train_epoch(data, idx)
+    if not torch.equal(again, losses):
+        raise AssertionError(f"{dataset}: the same epoch twice gave {losses} "
+                             f"and {again}")
+
+    # first step's loss and gradient norm against the dense path, dropout 0
+    first = {k: v[idx[0]] for k, v in data.items()}
+    checks, limits = {}, {}
+    for score, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        pair = []
+        for backend in (cfg.attention_backend, "dense"):
+            c = dataset_config(dataset, **{**kw, "dropout": 0.0,
+                                           "attention_backend": backend,
+                                           "attention_score_dtype": score})
+            tr_ = Trainer(c, tcfg, device=device, params=trainer.params)
+            loss, _ = tr_._backward(first, None)
+            pair.append((float(loss), grad_norm(tr_)))
+            del tr_
+        (lk, gk), (ld, gd) = pair
+        checks[f"loss_vs_dense_{score}"] = abs(lk - ld) / abs(ld)
+        checks[f"grad_norm_vs_dense_{score}"] = abs(gk - gd) / gd
+        limits[f"loss_vs_dense_{score}"] = limits[f"grad_norm_vs_dense_{score}"] = tol
+        print(f"[train] {dataset}: first step, {score} operands, dropout 0: loss "
+              f"{lk:.7f} (dense {ld:.7f}), gradient norm {gk:.7f} (dense {gd:.7f})",
+              flush=True)
+    bad = {k: v for k, v in checks.items() if not v <= limits[k]}
+    if bad:
+        raise AssertionError(f"{dataset}: against the dense path: {bad} "
+                             f"(limits {limits})")
+
+    # lr 1e-3 on one fixed batch: the loss falls over 10 steps (measured
+    # before and after under one fixed set of masks)
+    fit = Trainer(cfg, tcfg, device=device, params=trainer.params)
+    fit.learning_rate = 1e-3
+    fixed = DropoutSeeds.draw(torch.Generator().manual_seed(seed), cfg.nlayers)
+    with torch.no_grad():
+        loss0 = float(fit.loss_fn(first, fixed)[0])
+    fit_losses = [float(fit.train_step(first)[0]) for _ in range(10)]
+    with torch.no_grad():
+        loss1 = float(fit.loss_fn(first, fixed)[0])
+    print(f"[train] {dataset}: fixed batch at lr 1e-3: loss {loss0:.6f} -> "
+          f"{loss1:.6f} after 10 steps; step losses "
+          f"{[round(x, 5) for x in fit_losses]}", flush=True)
+    if not loss1 < loss0:
+        raise AssertionError(f"{dataset}: the loss did not fall: {loss0} -> {loss1}")
+    del fit
+
+    # timings: CUDA events around each step, then a profiled epoch
+    timed = Trainer(cfg, tcfg, device=device, params=trainer.params)
+    timed.train_epoch(data, idx[:2])
+    step_ms = []
+    for k in range(steps):
+        b = {name: t[idx[k]] for name, t in data.items()}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        timed.train_step(b)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    timed.train_epoch(data, idx)
+    epoch_ms = 1e3 * (time.perf_counter() - t0)
+    wall_ms, device_ms, idle, top_k = profile_device(
+        lambda: timed.train_epoch(data, idx), steps)
+    step_med = float(np.median(step_ms))
+    sps = batch * steps / (epoch_ms / 1e3)
+    print(f"[train] {dataset}: step {step_med:.3f} ms (median of {steps}, CUDA "
+          f"events; all {[round(x, 3) for x in step_ms]}); epoch of {steps} steps "
+          f"{epoch_ms:.3f} ms by the host clock = {sps:.1f} samples/s; profiled: "
+          f"wall {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step, idle "
+          f"share {idle}", flush=True)
+    for name, ms in top_k.items():
+        print(f"[train] {dataset}:   {ms:8.4f} ms/step  {name[:100]}", flush=True)
+    return launches, bwd_launches, dict(
+        rung=rung, steps=steps, train_s=train_s, losses=[float(x) for x in losses],
+        checks=checks, limits=limits, fixed_batch=(loss0, loss1),
+        fixed_batch_losses=fit_losses, step_ms=step_ms, step_ms_median=step_med,
+        epoch_ms=epoch_ms, samples_per_s=sps, profile_wall_ms=wall_ms,
+        profile_device_ms=device_ms, idle_share=idle, device_ms_by_kernel=top_k)
 
 
 # --------------------------------------------------------------------- main
@@ -413,16 +784,25 @@ def main(argv=None) -> int:
     flash += [flash_phase("eICU", 128, 300, 72, 2, dt) for dt in ("float32", "bfloat16")]
     fused = [fused_phase("PAM", 128, 600, 84, 136, 2, dt)
              for dt in ("float32", "bfloat16")]
+    grid = [(dt, rate) for dt in ("float32", "bfloat16") for rate in (0.0, 0.2)]
+    flash_bwd = [flash_bwd_phase("P12", 128, 215, 160, 2, dt, rate) for dt, rate in grid]
+    flash_bwd += [flash_bwd_phase("eICU", 128, 300, 72, 2, dt, rate) for dt, rate in grid]
+    fused_bwd = [fused_bwd_phase("PAM", 128, 600, 84, 136, 2, dt, rate)
+                 for dt, rate in grid]
+    torch.cuda.empty_cache()
 
     wrappers = (flash_mha_packed, fused_encoder_layer)
     pam_launches, pam = serve_phase("PAM", fused_encoder_layer, wrappers)
     p12_launches, p12 = serve_phase("P12", flash_mha_packed, wrappers)
+    pam_tf, pam_tb, pam_train = train_phase("PAM", fused_encoder_layer, wrappers)
+    p12_tf, p12_tb, p12_train = train_phase("P12", flash_mha_packed, wrappers)
 
-    # the kernels' record at the main path's shapes and operand dtype
-    # (attention_score_dtype defaults to bfloat16)
-    def record(name, source, replaces, launches, runs, label):
+    # the kernels' record at the main paths' shapes and operand dtype
+    # (attention_score_dtype defaults to bfloat16; training runs the shipped
+    # dropout 0.2, serving none)
+    def record(name, source, replaces, launches, runs, label, rate=None):
         main_run = next(r for r in runs if r["label"] == label
-                        and r["dtype"] == "bfloat16")
+                        and r["dtype"] == "bfloat16" and r.get("rate") == rate)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in runs),
@@ -434,16 +814,26 @@ def main(argv=None) -> int:
     kernels = [
         record("flash_mha_packed_fwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
                "raindrop_tpu/ops/flash_attention.py:566",
-               p12_launches["flash_mha_packed"], flash,
-               "P12"),
+               p12_launches["flash_mha_packed"], flash, "P12"),
+        record("flash_mha_packed_bwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
+               "raindrop_tpu/ops/flash_attention.py:610",
+               p12_tb["flash_mha_packed"], flash_bwd, "P12", 0.2),
         record("fused_encoder_layer_fwd", "raindrop_tpu_torch/csrc/fused_encoder.cu",
                "raindrop_tpu/ops/fused_encoder.py:131",
-               pam_launches["fused_encoder_layer"], fused,
-               "PAM"),
+               pam_launches["fused_encoder_layer"], fused, "PAM"),
+        record("fused_encoder_layer_bwd",
+               "raindrop_tpu_torch/csrc/fused_encoder_bwd.cu",
+               "raindrop_tpu/ops/fused_encoder.py:183",
+               pam_tb["fused_encoder_layer"], fused_bwd, "PAM", 0.2),
     ]
     detail = {"card": card, "build_s": build_s, "flash": flash, "fused": fused,
+              "flash_bwd": flash_bwd, "fused_bwd": fused_bwd,
               "serve": {"PAM": {"launches": pam_launches, **pam},
                         "P12": {"launches": p12_launches, **p12}},
+              "train": {"PAM": {"launches": pam_tf, "bwd_launches": pam_tb,
+                                **pam_train},
+                        "P12": {"launches": p12_tf, "bwd_launches": p12_tb,
+                                **p12_train}},
               "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,9 +1,9 @@
-"""Model configuration for the PyTorch port.
+"""Model and training configuration for the PyTorch port.
 
-Its own copy of `raindrop_tpu/config.py`'s `RaindropConfig`, `DATASETS` and
-`dataset_config`: every field with the same default, so a config serialised
-by the JAX package (`to_json`) loads here unchanged. The port imports
-nothing of the JAX package. `TrainConfig` comes with the training slice.
+Its own copy of `raindrop_tpu/config.py`'s `RaindropConfig`, `TrainConfig`,
+`DATASETS` and `dataset_config`: every field with the same default, so a
+config serialised by the JAX package (`to_json`) loads here unchanged. The
+port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -79,6 +79,68 @@ class RaindropConfig:
     @staticmethod
     def from_json(s: str) -> "RaindropConfig":
         return RaindropConfig(**json.loads(s))
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training protocol (reference code/Raindrop.py:105-160, 255-307).
+    Every field of the JAX package's TrainConfig with its default; the
+    fields of routes the port does not run yet raise when set."""
+
+    dataset: str = "P12"
+    num_epochs: int = 20
+    learning_rate: float = 1e-4
+    batch_size: int = 128
+    n_splits: int = 5
+    n_runs: int = 1
+    # class-balance strategy: 2 = half/half with 3x-expanded positives
+    # (binary), 3 = uniform random batches (multiclass)
+    batching_strategy: int = 2
+    n_batches_strategy3: int = 30
+    # ReduceLROnPlateau on val AUPRC (read by the protocol slice)
+    plateau_factor: float = 0.1
+    plateau_patience: int = 1
+    plateau_threshold: float = 1e-4
+    plateau_min_lr: float = 1e-8
+    split_type: str = "random"            # 'random' | 'age' | 'gender'
+    reverse: bool = False
+    feature_removal_level: str = "no_removal"
+    missing_ratio: float = 0.0
+    predictive_label: str = "mortality"
+    seed: int = 1
+    # kept for config round trips; the port's epoch is a Python loop of
+    # steps over the device-resident split either way
+    scan_epoch: bool = True
+    input_pipeline: str = "resident"      # 'streaming' comes later
+    prefetch_depth: int = 2
+    measure_mfu: bool = False
+    checkpoint_dir: str = "checkpoints"
+    log_path: Optional[str] = None
+    # weight on the model's aux output in the train loss; Raindrop's
+    # alpha-distance stays excluded at 0.0 like the reference
+    aux_loss_weight: float = 0.0
+    diag_frozen_params: bool = False
+    resplit_per_run: bool = False
+    # scale-out routes: not ported yet
+    context_parallel: str = "none"
+    pipeline_microbatches: int = 0
+    edge_partition: bool = False
+    # split each batch into N chunks, average their gradients, one Adam
+    # update: numerically the full-batch step (mean of chunk means)
+    grad_microbatches: int = 1
+
+    def __post_init__(self):
+        if (self.context_parallel != "none" or self.pipeline_microbatches > 0
+                or self.edge_partition):
+            raise NotImplementedError(
+                "context_parallel, pipeline_microbatches and edge_partition "
+                "come with the scale-out slice")
+        if self.input_pipeline != "resident":
+            raise NotImplementedError(
+                f"input_pipeline={self.input_pipeline!r} comes with a later "
+                f"slice; the port trains from a device-resident split")
+        if self.grad_microbatches < 1:
+            raise ValueError("grad_microbatches must be >= 1")
 
 
 # Per-dataset presets, reference code/Raindrop.py:109-148.

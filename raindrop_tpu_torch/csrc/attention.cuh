@@ -1,8 +1,11 @@
-// Device code shared by the two forward kernels of the serving path:
-// streaming packed-heads attention over one 64-row query block, a
-// row-block matrix product against a weight in global memory, and a
-// row LayerNorm. Scalar f32 FMA throughout; tensor cores are later work.
+// Device code shared by the forward kernels: streaming packed-heads
+// attention over one 64-row query block, a row-block matrix product
+// against a weight in global memory, a row LayerNorm, and the counter
+// hash of the dropout masks. Scalar f32 FMA throughout; tensor cores are
+// later work.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,6 +32,39 @@ __device__ __forceinline__ float opnd(float x) {
   }
 }
 
+// Dropout keep bits: a counter hash of (seed, bh, row, col), the same
+// bits the plain version and the reference draw (xorshift-multiply
+// finalizer). `base` folds the seed and bh terms; an element is kept when
+// its hash is >= thr = rate * 2^32, and kept values are scaled by inv =
+// 1 / (1 - rate).
+struct Drop {
+  uint32_t base;
+  uint32_t thr;
+  float inv;
+};
+
+__host__ __device__ __forceinline__ uint32_t drop_base(int seed, uint32_t bh) {
+  return (uint32_t)seed * 0x9E3779B9u ^ (bh + 1u) * 0x85EBCA6Bu;
+}
+
+__device__ __forceinline__ bool keep_bit(const Drop& dr, uint32_t row, uint32_t col) {
+  uint32_t x = dr.base ^ row * 0xC2B2AE35u ^ col * 0x27D4EB2Fu;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x >= dr.thr;
+}
+
+inline Drop make_drop(double rate) {
+  Drop dr;
+  dr.base = 0u;
+  dr.thr = (uint32_t)(rate * 4294967296.0);
+  dr.inv = (float)(1.0 / (1.0 - rate));
+  return dr;
+}
+
 // Shared floats attend_rows needs for head dim hd.
 inline int attn_smem_floats(int hd) { return 3 * BQ * (hd + 1) + BQ * (BK + 1); }
 
@@ -42,13 +78,15 @@ inline int attn_smem_floats(int hd) { return 3 * BQ * (hd + 1) + BQ * (BK + 1); 
 // past `length` are never read. A sample with length 0 gives o = 0 and
 // lse = NEG_INF, as the TPU kernel does. ROUND_P rounds the
 // probabilities to bf16 before the PV product (the TPU kernel's
-// p.astype(v.dtype)); the row sum l uses the unrounded values.
-template <int MAXD, bool ROUND_P, typename TIn>
+// p.astype(v.dtype)); the row sum l uses the unrounded values. With DROP
+// the PV operand is p * keep / (1 - rate), keyed on (query row, key
+// column) under dr.base; l still sums the undropped p.
+template <int MAXD, bool ROUND_P, bool DROP, typename TIn>
 __device__ void attend_rows(const TIn* __restrict__ q, const TIn* __restrict__ k,
                             const TIn* __restrict__ v, long row_stride, int T,
                             int length, int q0, int hd, float scale2,
                             float* smem, float* out, long out_stride,
-                            float* lse) {
+                            float* lse, Drop dr) {
   const int tid = threadIdx.x, r = tid >> 2, j = tid & 3;
   const int HP = hd + 1, PP = BK + 1;
   float* Qs = smem;
@@ -111,7 +149,11 @@ __device__ void attend_rows(const TIn* __restrict__ q, const TIn* __restrict__ k
       const int kk = j + 4 * i;
       const float p = kk < nk ? exp2f(s[i] - m_new) : 0.f;
       psum += p;
-      Ps[r * PP + kk] = opnd<ROUND_P>(p);
+      float pw = p;
+      if constexpr (DROP) {
+        pw = keep_bit(dr, (uint32_t)(q0 + r), (uint32_t)(k0 + kk)) ? p * dr.inv : 0.f;
+      }
+      Ps[r * PP + kk] = opnd<ROUND_P>(pw);
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -146,12 +188,15 @@ __device__ void attend_rows(const TIn* __restrict__ q, const TIn* __restrict__ k
 // an odd row stride; W is a torch-layout [N, K] weight in global memory
 // (it stays in L2 across the grid). Thread t owns row t % 64 and columns
 // 4 at a time; the 32 lanes of a warp share their columns, so each weight
-// load is one broadcast. resid may be null.
-template <bool BF, bool RELU>
+// load is one broadcast. resid may be null. With DROP the value is dropped
+// (after the bias and relu, before the residual) by the keep bit of
+// (drop_row0 + r, n) under dr.
+template <bool BF, bool RELU, bool DROP = false>
 __device__ void row_gemm(const float* A, int lda, int K,
                          const float* __restrict__ W,
                          const float* __restrict__ bias, int N, float* C,
-                         long ldc, const float* resid, long ldr, int nrows) {
+                         long ldc, const float* resid, long ldr, int nrows,
+                         Drop dr = Drop{}, uint32_t drop_row0 = 0) {
   constexpr int NG = NT / BQ;
   const int r = threadIdx.x % BQ, g = threadIdx.x / BQ;
   const float* a = A + r * lda;
@@ -171,6 +216,9 @@ __device__ void row_gemm(const float* A, int lda, int K,
         if (n < N) {
           float y = acc[u] + bias[n];
           if (RELU) y = fmaxf(y, 0.f);
+          if constexpr (DROP) {
+            y = keep_bit(dr, drop_row0 + (uint32_t)r, (uint32_t)n) ? y * dr.inv : 0.f;
+          }
           if (resid != nullptr) y = resid[r * ldr + n] + y;
           C[r * ldc + n] = y;
         }

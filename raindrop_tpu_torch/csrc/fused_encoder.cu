@@ -29,6 +29,12 @@
 // No atomics, no score in device memory. With bf16 operands every product
 // operand is rounded to bf16 (q, k, v after their bias, as the TPU kernel
 // casts them), accumulation stays f32.
+//
+// Dropout (training) is a template flag; with rate 0 the kernels carry no
+// mask code. The attention probabilities are keyed (seed, b * nhead + h),
+// the three site masks (seed, b) with the row term site * t8 + row, t8 = T
+// padded to 8 (the reference's padded row count), sites 101 (attention
+// out), 102 (FFN hidden, after relu) and 103 (FFN out).
 #include "attention.cuh"
 
 namespace {
@@ -58,7 +64,7 @@ qkv_proj_kernel(const float* __restrict__ x, const float* __restrict__ w_in,
   }
 }
 
-template <int MAXD, bool BF>
+template <int MAXD, bool BF, bool DROP>
 __global__ void __launch_bounds__(rd::NT)
 layer_rows_kernel(const float* __restrict__ x, const float* __restrict__ qkv,
                   const int* __restrict__ lengths, const float* __restrict__ wo,
@@ -68,7 +74,8 @@ layer_rows_kernel(const float* __restrict__ x, const float* __restrict__ qkv,
                   const float* __restrict__ bf2, const float* __restrict__ g2,
                   const float* __restrict__ be2, float* __restrict__ out,
                   float* __restrict__ attn, float* __restrict__ lse, int T,
-                  int d, int ffn, int nhead, float scale2) {
+                  int d, int ffn, int nhead, float scale2, int seed,
+                  rd::Drop dr) {
   extern __shared__ float smem[];
   const int q0 = blockIdx.x * rd::BQ, b = blockIdx.y;
   const int nrows = min(rd::BQ, T - q0);
@@ -82,40 +89,46 @@ layer_rows_kernel(const float* __restrict__ x, const float* __restrict__ qkv,
   const float* qs = qkv + (long)b * T * 3 * d;
   for (int h = 0; h < nhead; ++h) {
     const float* qh = qs + h * hd;
-    rd::attend_rows<MAXD, BF, float>(qh, qh + d, qh + 2 * d, 3 * d, T, length,
-                                     q0, hd, scale2, U, As + h * hd, DP,
-                                     lse + ((long)b * nhead + h) * T);
+    dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
+    rd::attend_rows<MAXD, BF, DROP, float>(
+        qh, qh + d, qh + 2 * d, 3 * d, T, length, q0, hd, scale2, U,
+        As + h * hd, DP, lse + ((long)b * nhead + h) * T, dr);
   }
+  dr.base = rd::drop_base(seed, (uint32_t)b);
+  const uint32_t t8 = (uint32_t)((T + 7) / 8 * 8);
   __syncthreads();
   for (int idx = threadIdx.x; idx < nrows * d; idx += rd::NT) {
     const int r = idx / d, c = idx - r * d;
     attn[(row0 + r) * d + c] = As[r * DP + c];
   }
-  rd::row_gemm<BF, false>(As, DP, d, wo, bo, d, Xs, DP, x + row0 * d, d, nrows);
+  rd::row_gemm<BF, false, DROP>(As, DP, d, wo, bo, d, Xs, DP, x + row0 * d, d,
+                                nrows, dr, 101u * t8 + q0);
   __syncthreads();
   rd::layer_norm_rows(Xs, DP, d, g1, be1, nrows, Xs, DP);
   __syncthreads();
-  rd::row_gemm<BF, true>(Xs, DP, d, w1, bf1, ffn, U, FP, nullptr, 0, nrows);
+  rd::row_gemm<BF, true, DROP>(Xs, DP, d, w1, bf1, ffn, U, FP, nullptr, 0, nrows,
+                               dr, 102u * t8 + q0);
   __syncthreads();
-  rd::row_gemm<BF, false>(U, FP, ffn, w2, bf2, d, As, DP, Xs, DP, nrows);
+  rd::row_gemm<BF, false, DROP>(U, FP, ffn, w2, bf2, d, As, DP, Xs, DP, nrows,
+                                dr, 103u * t8 + q0);
   __syncthreads();
   rd::layer_norm_rows(As, DP, d, g2, be2, nrows, out + row0 * d, d);
 }
 
-template <int MAXD, bool BF>
+template <int MAXD, bool BF, bool DROP>
 int launch(const float* x, const float* w_in, const float* b_in,
            const float* wo, const float* bo, const float* g1, const float* be1,
            const float* w1, const float* bf1, const float* w2, const float* bf2,
            const float* g2, const float* be2, const int* lengths, float* qkv,
            float* out, float* attn, float* lse, int B, int T, int d, int ffn,
-           int nhead, float scale2, cudaStream_t stream) {
+           int nhead, float scale2, int seed, rd::Drop dr, cudaStream_t stream) {
   const long M = (long)B * T;
   const int bytes_a = rd::BQ * ((d + 1) + (3 * d + 1)) * (int)sizeof(float);
   const int u = max(rd::attn_smem_floats(d / nhead), rd::BQ * (ffn + 1));
   const int bytes_b = (2 * rd::BQ * (d + 1) + u) * (int)sizeof(float);
   if (bytes_a > rd::MAX_SMEM || bytes_b > rd::MAX_SMEM) return (int)cudaErrorInvalidValue;
   auto ka = qkv_proj_kernel<BF>;
-  auto kb = layer_rows_kernel<MAXD, BF>;
+  auto kb = layer_rows_kernel<MAXD, BF, DROP>;
   cudaError_t err = cudaFuncSetAttribute(
       ka, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes_a);
   if (err != cudaSuccess) return (int)err;
@@ -128,7 +141,7 @@ int launch(const float* x, const float* w_in, const float* b_in,
   dim3 grid((T + rd::BQ - 1) / rd::BQ, B);
   kb<<<grid, rd::NT, bytes_b, stream>>>(x, qkv, lengths, wo, bo, g1, be1, w1,
                                         bf1, w2, bf2, g2, be2, out, attn, lse,
-                                        T, d, ffn, nhead, scale2);
+                                        T, d, ffn, nhead, scale2, seed, dr);
   return (int)cudaGetLastError();
 }
 
@@ -140,19 +153,26 @@ extern "C" int rd_fused_layer_fwd(
     const void* bf1, const void* w2, const void* bf2, const void* g2,
     const void* be2, const void* lengths, void* qkv, void* out, void* attn,
     void* lse, int B, int T, int d, int ffn, int nhead, float scale2, int bf16,
-    void* stream) {
-  if (B <= 0 || B > 65535 || T <= 0 || nhead <= 0 || d % nhead != 0 || ffn <= 0)
+    int seed, double rate, void* stream) {
+  if (B <= 0 || B > 65535 || T <= 0 || nhead <= 0 || d % nhead != 0 || ffn <= 0 ||
+      !(rate >= 0.0 && rate < 1.0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const rd::Drop dr = rd::make_drop(rate);
 #define RD_ARGS                                                            \
   (const float*)x, (const float*)w_in, (const float*)b_in,                 \
       (const float*)wo, (const float*)bo, (const float*)g1,                \
       (const float*)be1, (const float*)w1, (const float*)bf1,              \
       (const float*)w2, (const float*)bf2, (const float*)g2,               \
       (const float*)be2, (const int*)lengths, (float*)qkv, (float*)out,    \
-      (float*)attn, (float*)lse, B, T, d, ffn, nhead, scale2, s
+      (float*)attn, (float*)lse, B, T, d, ffn, nhead, scale2, seed, dr, s
   RD_DISPATCH_HD(d / nhead, {
-    return bf16 ? launch<MAXD, true>(RD_ARGS) : launch<MAXD, false>(RD_ARGS);
+    if (rate > 0.0) {
+      return bf16 ? launch<MAXD, true, true>(RD_ARGS)
+                  : launch<MAXD, false, true>(RD_ARGS);
+    }
+    return bf16 ? launch<MAXD, true, false>(RD_ARGS)
+                : launch<MAXD, false, false>(RD_ARGS);
   });
 #undef RD_ARGS
 }

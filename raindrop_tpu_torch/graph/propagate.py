@@ -3,8 +3,9 @@
 Port of the parts of `raindrop_tpu/graph/propagate.py` that the serving
 path of the shipped config reaches: the full parameter set
 (`ob_propagation_init`, so checkpoints round-trip), the dense
-complete-graph layer and the alpha-distance regularizer. The COO, Pallas
-and use_beta paths come with later slices.
+complete-graph layer (with its softmax-weight dropout in training) and the
+alpha-distance regularizer. The COO, Pallas and use_beta paths come with
+later slices.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from raindrop_tpu_torch.nn.init import glorot, torch_linear_params, uniform
 from raindrop_tpu_torch.nn.linear import linear_apply
+from raindrop_tpu_torch.utils.dropout import dropout
 
 
 def ob_propagation_init(gen, in_channels: int, out_channels: int,
@@ -46,6 +48,7 @@ def ob_propagate_dense_complete(
     adj_weights: torch.Tensor,    # [n_nodes, n_nodes] w[s, t] or [B, n, n]
     *,
     dropout_rate: float = 0.0,
+    seed=None,
     train: bool = False,
     uniform: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -54,21 +57,21 @@ def ob_propagate_dense_complete(
     softmax_s(w[s, t]).
 
     uniform=True asserts all-ones weights: the softmax is exactly uniform
-    and sums to 1, so out IS relu(lin_value(x)) and the rescale is skipped.
+    and sums to 1, so out IS relu(lin_value(x)) and the rescale is skipped,
+    unless training drops softmax weights (dropout_rate > 0 with a `seed`,
+    the uint32 seed of utils/dropout.dropout on g [B, n, n]).
     Returns (out [B, n, D], alpha [B, n*n]) with alpha the pre-softmax
     weights in row-major (source-major) order.
     """
-    if train and dropout_rate > 0.0:
-        raise NotImplementedError(
-            "propagation dropout in training comes with the training slice")
     B = x.shape[0]
     msg = torch.relu(linear_apply(params["lin_value"], x))   # [B, n, D]
-    if uniform:
+    if uniform and not (train and dropout_rate > 0.0):
         n = x.shape[1]
         return msg, torch.ones((B, n * n), dtype=x.dtype, device=x.device)
     if adj_weights.dim() == 2:
         adj_weights = adj_weights[None].expand((B,) + tuple(adj_weights.shape))
     g = torch.softmax(adj_weights, dim=1)                     # over sources
+    g = dropout(seed, g, dropout_rate, train)
     out = msg * g.sum(dim=1)[..., None]
     return out, adj_weights.reshape(B, -1)
 

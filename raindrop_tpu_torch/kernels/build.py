@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("flash_packed", "fused_encoder")
+SOURCES = ("flash_packed", "fused_encoder", "fused_encoder_bwd")
 
 _lock = threading.Lock()          # guards builds and _libs
 _count_lock = threading.Lock()    # guards the wrappers' launch counts
@@ -110,7 +110,8 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA error {err} launching {what}")
 
 
-def count_launch(fn) -> None:
-    """Add one to a wrapper's launch count (a plain int attribute)."""
+def count_launch(fn, attr: str = "launches") -> None:
+    """Add one to a wrapper's launch count (a plain int attribute):
+    `launches` for the forward, `bwd_launches` for the backward."""
     with _count_lock:
-        fn.launches += 1
+        setattr(fn, attr, getattr(fn, attr) + 1)

@@ -1,9 +1,9 @@
-"""Raindrop (v2) eval forward (port of raindrop_tpu/models/raindrop.py).
+"""Raindrop (v2) forward (port of raindrop_tpu/models/raindrop.py).
 
-The serving path of the shipped config: the complete all-ones sensor
-graph (graph propagation reduces to relu(lin_value(x)) twice), the time
-PE, the temporal encoder, masked mean pooling, the static embedding and
-the MLP head. Parameters are nested dicts of tensors with the JAX
+The serving and training path of the shipped config: the complete
+all-ones sensor graph (graph propagation reduces to relu(lin_value(x))
+twice), the time PE, the temporal encoder, masked mean pooling, the static
+embedding and the MLP head. Parameters are nested dicts of tensors with the JAX
 package's tree and layouts (nn/*, bridge.py).
 
 Input contract, as the JAX function's:
@@ -12,10 +12,15 @@ Input contract, as the JAX function's:
   times   [T, B]      timestamps in hours (0 = padding)
   lengths [B]         number of non-zero timestamps per sample
 
-What this slice does not serve raises NotImplementedError naming the
-slice that brings it: training, use_beta, sensor_wise_mask,
-compute_dtype, the coo/pallas propagation backends, a custom global_adj
-and the scale-out routes.
+With train=True and a `DropoutSeeds` the embedding, the propagation's
+softmax weights (when prop_dropout > 0) and every encoder layer drop with
+the counter-hash masks of utils/dropout.py. The function records a graph
+for autograd; callers that only infer run it under torch.no_grad().
+
+What the port does not run yet raises NotImplementedError naming the
+slice that brings it: use_beta, sensor_wise_mask, compute_dtype, the
+coo/pallas propagation backends, a custom global_adj and the scale-out
+routes.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from raindrop_tpu_torch.nn.linear import linear_apply, mlp_apply, mlp_init
 from raindrop_tpu_torch.nn.transformer import (
     transformer_encoder_apply, transformer_encoder_init)
 from raindrop_tpu_torch.ops.pe import time_positional_encoding
+from raindrop_tpu_torch.utils.dropout import DropoutSeeds, dropout
 
 
 def _dtype(cfg: RaindropConfig) -> torch.dtype:
@@ -98,9 +104,39 @@ def _from_node_features(x: torch.Tensor, T: int, d_ob: int) -> torch.Tensor:
     return x.reshape(B, F, T, d_ob).permute(0, 2, 1, 3).reshape(B, T, F * d_ob)
 
 
-def _refuse(cfg: RaindropConfig, train: bool, global_adj, scale_out: bool):
-    if train:
-        raise NotImplementedError("train=True comes with the training slice")
+def raindrop_param_mask(cfg: RaindropConfig):
+    """True for every parameter the forward uses (the tree of
+    raindrop_init). The dead ones (the unused `encoder`, and all of a
+    propagation layer but lin_value when use_beta is off) get no gradient,
+    so the optimizer must never touch them."""
+    def prop_mask():
+        dead = {"w": False, "b": False}
+        beta = {"w": cfg.use_beta, "b": cfg.use_beta}
+        return {"lin_key": dict(dead), "lin_query": dict(dead),
+                "lin_value": {"w": True, "b": True}, "lin_skip": dict(dead),
+                "weight": False, "bias": False, "nodewise_weights": False,
+                "increase_dim": beta, "map_weights": cfg.use_beta}
+
+    def like(tree, value):
+        if isinstance(tree, dict):
+            return {k: like(v, value) for k, v in tree.items()}
+        return value
+
+    params = raindrop_init(None, cfg, device="meta")
+    mask = {
+        "R_u": True,
+        "encoder": like(params["encoder"], False),
+        "ob_propagation": prop_mask(),
+        "ob_propagation_layer2": prop_mask(),
+        "transformer_encoder": like(params["transformer_encoder"], True),
+        "mlp_static": like(params["mlp_static"], True),
+    }
+    if cfg.static:
+        mask["emb"] = like(params["emb"], True)
+    return mask
+
+
+def _refuse(cfg: RaindropConfig, global_adj, scale_out: bool):
     if scale_out:
         raise NotImplementedError(
             "context_parallel, pipeline_parallel and edge_partition come "
@@ -117,7 +153,6 @@ def _refuse(cfg: RaindropConfig, train: bool, global_adj, scale_out: bool):
             "come with the graph-kernel slice")
 
 
-@torch.no_grad()
 def raindrop_apply(
     params,
     cfg: RaindropConfig,
@@ -127,14 +162,21 @@ def raindrop_apply(
     lengths: torch.Tensor,                  # [B]
     *,
     train: bool = False,
+    seeds: Optional[DropoutSeeds] = None,
     global_adj: Optional[torch.Tensor] = None,
     context_parallel: str = "none",
     pipeline_parallel: int = 0,
     edge_partition: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval forward. Returns (logits [B, n_classes], distance scalar)."""
-    _refuse(cfg, train, global_adj,
+    """Forward pass. Returns (logits [B, n_classes], distance scalar).
+    train=True needs `seeds` when the config has any dropout."""
+    _refuse(cfg, global_adj,
             context_parallel != "none" or bool(pipeline_parallel) or edge_partition)
+    if train and seeds is None and (cfg.dropout > 0.0 or cfg.prop_dropout > 0.0):
+        raise ValueError("train=True with dropout needs seeds=DropoutSeeds "
+                         "(DropoutSeeds.draw(generator, cfg.nlayers))")
+    if not train:
+        seeds = None
     F_, d_ob, T = cfg.d_inp, cfg.d_ob, cfg.max_len
     dtype = _dtype(cfg)
     values = src[:, :, :F_].to(dtype)                     # [T, B, F]
@@ -143,6 +185,8 @@ def raindrop_apply(
     # sensor-level gated embedding: repeat_interleave by d_ob, times R_u
     h = torch.relu(values.repeat_interleave(d_ob, dim=-1) * params["R_u"])
     pe = time_positional_encoding(times, cfg.d_pe, T, dtype)   # [T, B, d_pe]
+    if seeds is not None:   # on the time-major tensor, as the hash indexes it
+        h = dropout(seeds.embed, h, cfg.dropout, train)
     h_b = h.transpose(0, 1)                                # [B, T, F*d_ob]
     pe_b = pe.transpose(0, 1)                              # [B, T, d_pe]
 
@@ -150,11 +194,13 @@ def raindrop_apply(
     # edge weights are layer 1's pre-softmax alpha, the same ones
     x_nodes = _to_node_features(h_b, F_, d_ob)             # [B, F, T*d_ob]
     adj = torch.ones((F_, F_), dtype=dtype, device=src.device)
+    prop = dict(dropout_rate=cfg.prop_dropout, train=train, uniform=True)
     out1, alpha1 = ob_propagate_dense_complete(
-        params["ob_propagation"], x_nodes, adj, uniform=True)
+        params["ob_propagation"], x_nodes, adj,
+        seed=None if seeds is None else seeds.prop1, **prop)
     out2, alpha_all = ob_propagate_dense_complete(
         params["ob_propagation_layer2"], out1, alpha1.reshape(B, F_, F_),
-        uniform=True)
+        seed=None if seeds is None else seeds.prop2, **prop)
     distance = alpha_pairwise_distance(alpha_all)
     output = _from_node_features(out2, T, d_ob)            # [B, T, F*d_ob]
     output = torch.cat([output, pe_b], dim=-1)             # [B, T, F*d_ob+d_pe]
@@ -162,9 +208,10 @@ def raindrop_apply(
     mask = padding_mask(lengths, T)                        # [B, T] True = pad
     r_out = transformer_encoder_apply(
         params["transformer_encoder"], output, mask, cfg.nhead,
-        dropout_rate=cfg.dropout, train=False,
+        dropout_rate=cfg.dropout, train=train,
         backend=cfg.attention_backend,
-        score_dtype=cfg.attention_score_dtype)
+        score_dtype=cfg.attention_score_dtype,
+        seeds=None if seeds is None else seeds.layers)
 
     pooled = masked_mean_pool(r_out, lengths)
     if cfg.static and static is not None:

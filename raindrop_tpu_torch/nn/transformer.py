@@ -3,8 +3,12 @@
 Post-LN torch TransformerEncoderLayer semantics, built by hand over a
 parameter dict: `torch.nn.TransformerEncoder` gives NaN on samples whose
 keys are all padded, where this encoder gives zero attention. Layout
-[B, T, d] inside the encoder. Eval only in this slice: train=True with
-dropout, and the context-parallel backends, raise.
+[B, T, d] inside the encoder. In training each layer takes a `LayerSeeds`
+(utils/dropout.py): the dense rung drops the attention probabilities
+[B, H, T, T] and the three sites of the unfused layer with the counter-hash
+dropout, the flash and fused-layer rungs hand their int32 seed to the
+kernels. Without seeds, or in eval, the rate is 0. The context-parallel
+backends raise.
 
 Encoder ladder. `backend="auto"` on a CUDA tensor keeps the JAX package's
 structure and thresholds: the fused-layer kernel when d % nhead == 0,
@@ -19,7 +23,7 @@ versions run).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -27,6 +31,7 @@ from raindrop_tpu_torch.nn.init import torch_linear_params, xavier_uniform
 from raindrop_tpu_torch.nn.linear import linear_apply
 from raindrop_tpu_torch.ops.flash_attention import MAX_FUSED_T, flash_mha_packed
 from raindrop_tpu_torch.ops.fused_encoder import fused_encoder_layer
+from raindrop_tpu_torch.utils.dropout import LayerSeeds, dropout
 
 BACKENDS = ("auto", "dense", "flash", "fused_layer")
 
@@ -78,16 +83,36 @@ def _score_dtype(score_dtype):
     return None if score_dtype in (None, "float32") else str(score_dtype)
 
 
-def _refuse(train: bool, dropout_rate: float, backend: str):
+def _refuse(backend: str):
     if backend not in BACKENDS:
         if backend in ("sp", "ring"):
             raise NotImplementedError(
                 f"the context-parallel backend {backend!r} comes with the "
                 f"scale-out slice")
         raise ValueError(f"unknown attention backend {backend!r}")
-    if train and dropout_rate > 0.0:
-        raise NotImplementedError(
-            "the encoder with dropout in training comes with the training slice")
+
+
+def _fits(T: int) -> bool:
+    return -(-T // 8) * 8 <= MAX_FUSED_T
+
+
+def _attention_rung(backend: str, T: int, on_cuda: bool) -> str:
+    """'flash' or 'dense' for the attention of an unfused layer."""
+    _refuse(backend)
+    if backend == "flash" or (backend == "auto" and on_cuda and T >= 128
+                              and _fits(T)):
+        return "flash"
+    return "dense"
+
+
+def encoder_rung(backend: str, T: int, d: int, nhead: int, on_cuda: bool) -> str:
+    """The rung of the ladder one layer takes: 'fused_layer', 'flash' or
+    'dense'."""
+    _refuse(backend)
+    if d % nhead == 0 and (backend == "fused_layer" or (
+            backend == "auto" and on_cuda and T >= 384 and _fits(T))):
+        return "fused_layer"
+    return _attention_rung(backend, T, on_cuda)
 
 
 def multihead_self_attention(
@@ -99,19 +124,18 @@ def multihead_self_attention(
     train: bool = False,
     backend: str = "auto",
     score_dtype: Optional[str] = "bfloat16",
+    seeds: Optional[LayerSeeds] = None,
 ) -> torch.Tensor:
-    _refuse(train, dropout_rate, backend)
     B, T, d = x.shape
     hd = d // nhead
+    rung = _attention_rung(backend, T, x.is_cuda)
+    rate = dropout_rate if (train and seeds is not None) else 0.0
     qkv = x @ p["in_proj_w"].T + p["in_proj_b"]           # [B, T, 3d]
     q, k, v = qkv.split(d, dim=-1)
-    t8 = -(-T // 8) * 8
-    if backend == "auto":
-        backend = ("flash" if x.is_cuda and T >= 128 and t8 <= MAX_FUSED_T
-                   else "dense")
-    if backend == "flash":
+    if rung == "flash":
         out = flash_mha_packed(q, k, v, _lengths(key_padding_mask, B, T, x.device),
-                               None, 0.0, _score_dtype(score_dtype), nhead)
+                               seeds.kernel if rate > 0.0 else None, rate,
+                               _score_dtype(score_dtype), nhead)
         return linear_apply(p["out_proj"], out)
 
     def heads(t):  # [B, T, d] -> [B, nhead, T, hd]
@@ -127,6 +151,8 @@ def multihead_self_attention(
         # an all-padded sample softmaxes over all -inf (NaN): give it zeros
         all_pad = key_padding_mask.all(dim=-1)[:, None, None, None]
         attn = torch.where(all_pad, torch.zeros_like(attn), attn)
+    if rate > 0.0:
+        attn = dropout(seeds.attn, attn, rate)
     out = (attn @ v).transpose(1, 2).reshape(B, T, d)
     return linear_apply(p["out_proj"], out)
 
@@ -140,22 +166,28 @@ def transformer_encoder_layer_apply(
     train: bool = False,
     backend: str = "auto",
     score_dtype: Optional[str] = "bfloat16",
+    seeds: Optional[LayerSeeds] = None,
 ) -> torch.Tensor:
     """One post-LN encoder layer; backend 'fused_layer' (and 'auto' on CUDA
     at T >= 384) runs the whole layer through ops/fused_encoder.py."""
-    _refuse(train, dropout_rate, backend)
     B, T, d = x.shape
-    use_fused = d % nhead == 0 and (
-        backend == "fused_layer"
-        or (backend == "auto" and x.is_cuda and T >= 384
-            and -(-T // 8) * 8 <= MAX_FUSED_T))
-    if use_fused:
+    rate = dropout_rate if (train and seeds is not None) else 0.0
+    if encoder_rung(backend, T, d, nhead, x.is_cuda) == "fused_layer":
         return fused_encoder_layer(p, x, _lengths(key_padding_mask, B, T, x.device),
-                                   None, 0.0, _score_dtype(score_dtype), nhead)
+                                   seeds.kernel if rate > 0.0 else None, rate,
+                                   _score_dtype(score_dtype), nhead)
     attn = multihead_self_attention(p, x, key_padding_mask, nhead,
-                                    dropout_rate, train, backend, score_dtype)
+                                    dropout_rate, train, backend, score_dtype,
+                                    seeds)
+    if rate > 0.0:
+        attn = dropout(seeds.post_attn, attn, rate)
     x = _layer_norm(p["ln1"], x + attn)
-    h = linear_apply(p["lin2"], torch.relu(linear_apply(p["lin1"], x)))
+    h = torch.relu(linear_apply(p["lin1"], x))
+    if rate > 0.0:
+        h = dropout(seeds.ffn, h, rate)
+    h = linear_apply(p["lin2"], h)
+    if rate > 0.0:
+        h = dropout(seeds.post_ffn, h, rate)
     return _layer_norm(p["ln2"], x + h)
 
 
@@ -168,9 +200,14 @@ def transformer_encoder_apply(
     train: bool = False,
     backend: str = "auto",
     score_dtype: Optional[str] = "bfloat16",
+    seeds: Optional[Sequence[LayerSeeds]] = None,
 ) -> torch.Tensor:
+    """`seeds`: one LayerSeeds per layer (DropoutSeeds.layers) for
+    training with dropout."""
+    if seeds is not None and len(seeds) != len(params):
+        raise ValueError(f"{len(seeds)} layer seeds for {len(params)} layers")
     for i in range(len(params)):
         x = transformer_encoder_layer_apply(
             params[f"layer{i}"], x, key_padding_mask, nhead, dropout_rate,
-            train, backend, score_dtype)
+            train, backend, score_dtype, None if seeds is None else seeds[i])
     return x

@@ -1,26 +1,35 @@
-"""Packed-heads flash attention forward (port of the `flash_mha_packed`
-forward in raindrop_tpu/ops/flash_attention.py).
+"""Packed-heads flash attention, forward and backward (port of
+`flash_mha_packed` in raindrop_tpu/ops/flash_attention.py).
 
 q, k, v [B, T, d] with d = nhead * hd stay in the model's natural layout;
 o [B, T, d] f32; lse [B, nhead, T] f32 in base 2 (log2(e) folded into the
 score scale, as on the TPU). Keys at t >= lengths[b] are masked; a sample
-with length 0 gives o = 0 and lse = NEG_INF.
+with length 0 gives o = 0, lse = NEG_INF and zero gradients.
 
-On a CUDA tensor `_packed_fwd` launches the hand-written kernel in
-`csrc/flash_packed.cu` (or raises); on a CPU tensor it runs
-`_packed_fwd_plain`, the same function in plain PyTorch, which the CPU
-tests hold against the JAX package and `chip_smoke.py` holds the kernel
-against on the card. Dropout, the backward and the split-head `flash_mha`
-(T > 1024) come with later slices.
+Dropout on the probabilities draws its keep bits from a counter hash of
+(seed, b * nhead + h, query row, key column) (`_dropout_keep_hash`), the
+one the JAX package uses off the TPU, so forward and backward regenerate
+the same mask and the tests compare with JAX exactly. The row sum `l`
+takes the undropped probabilities; only the PV operand is dropped.
+
+`flash_mha_packed` is a `torch.autograd.Function`. On CUDA tensors its
+forward and backward launch the hand-written kernels in
+`csrc/flash_packed.cu` (or raise); on CPU tensors they run
+`_packed_fwd_plain` and `_packed_bwd_plain`, the same functions in plain
+PyTorch, which the CPU tests hold against the JAX package and
+`chip_smoke.py` holds the kernels against on the card. The split-head
+`flash_mha` (T > 1024) comes with a later slice.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+
 import torch
 
 from raindrop_tpu_torch.kernels import build
+from raindrop_tpu_torch.utils.dropout import M32, _mul32, finalize32, threshold32
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -38,52 +47,94 @@ def operand_dtype(compute_dtype) -> torch.dtype:
     raise ValueError(f"unsupported flash compute_dtype {compute_dtype}")
 
 
-def refuse_dropout(dropout_rate: float, what: str) -> None:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            f"{what} with dropout_rate > 0 comes with the training slice")
+def pad8(T: int) -> int:
+    """T padded to a multiple of 8: the row count the JAX kernels hash
+    their site masks with."""
+    return -(-T // 8) * 8
 
 
-def flash_mha_packed(q, k, v, lengths, seed=None, dropout_rate=0.0,
-                     compute_dtype=None, nhead=1) -> torch.Tensor:
-    """Packed-heads attention: q, k, v [B, T, d] -> o [B, T, d] f32."""
-    o, _ = _packed_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype,
-                       nhead)
-    return o
+def _dropout_keep_hash(seed, bh, iq: int, ik: int, shape, rate: float,
+                       device=None) -> torch.Tensor:
+    """Keep mask (bool) of a `shape` = (rows, cols) block at block
+    coordinates (iq, ik), one per entry of `bh` (an int or an int64 tensor
+    of any shape): returns bh.shape + shape. `rows`/`cols` enter the hash,
+    so pass the padded shape the JAX kernel was called with."""
+    rows, cols = shape
+    bh = torch.as_tensor(bh, dtype=torch.int64, device=device)
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    seed = 0 if seed is None else int(seed)
+    x = (_mul32(torch.as_tensor(seed & M32, dtype=torch.int64, device=device),
+                0x9E3779B9)
+         ^ _mul32((bh[..., None, None] + 1) & M32, 0x85EBCA6B)
+         ^ _mul32((((iq * rows) & M32) + r) & M32, 0xC2B2AE35)
+         ^ _mul32((((ik * cols) & M32) + c) & M32, 0x27D4EB2F))
+    return finalize32(x) >= threshold32(rate)
 
 
-flash_mha_packed.launches = 0
+def _attn_keep(seed, B, T, nhead, rate, device) -> torch.Tensor:
+    """[B, nhead, T, T] keep mask of the attention probabilities."""
+    bh = torch.arange(B * nhead, dtype=torch.int64, device=device)
+    t8 = pad8(T)
+    keep = _dropout_keep_hash(seed, bh.reshape(B, nhead), 0, 0, (t8, t8), rate,
+                              device)
+    return keep[:, :, :T, :T]
 
 
-def _packed_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype, nhead):
-    """Returns (o [B, T, d] f32, lse [B, nhead, T] f32, base 2)."""
-    refuse_dropout(dropout_rate, "flash_mha_packed")
+def _check(q, k, v, lengths, nhead):
     B, T, d = q.shape
     if d % nhead:
         raise ValueError(f"d={d} not divisible by nhead={nhead}")
-    if -(-T // 8) * 8 > MAX_FUSED_T:
+    if pad8(T) > MAX_FUSED_T:
         raise NotImplementedError(
             f"flash_mha for T={T} > {MAX_FUSED_T} comes with a later slice")
     if k.shape != q.shape or v.shape != q.shape or lengths.shape != (B,):
         raise ValueError("q, k, v must be [B, T, d] and lengths [B]")
+
+
+def _check_rate(dropout_rate: float) -> float:
+    rate = float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    return rate
+
+
+def _seed_int(seed) -> int:
+    """The kernels' int32 seed; None means 0, as in the JAX package."""
+    if seed is None:
+        return 0
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 31:
+        raise ValueError(f"the kernel seed must fit int32, got {seed}")
+    return seed
+
+
+def _packed_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype, nhead):
+    """Returns (o [B, T, d] f32, lse [B, nhead, T] f32, base 2)."""
+    _check(q, k, v, lengths, nhead)
+    rate = _check_rate(dropout_rate)
     od = operand_dtype(compute_dtype)
     if q.is_cuda:
-        return _packed_fwd_cuda(q, k, v, lengths, nhead, od)
-    return _packed_fwd_plain(q, k, v, lengths, nhead, od)
+        return _packed_fwd_cuda(q, k, v, lengths, _seed_int(seed), rate, nhead, od)
+    return _packed_fwd_plain(q, k, v, lengths, nhead, od, _seed_int(seed), rate)
 
 
-def _packed_fwd_plain(q, k, v, lengths, nhead, od):
+def _heads(x, nhead, od):
+    """[B, T, d] -> [B, H, T, hd] in f32 from operands rounded to od."""
+    B, T, d = x.shape
+    return (x.to(od).to(torch.float32).reshape(B, T, nhead, d // nhead)
+            .transpose(1, 2))
+
+
+def _packed_fwd_plain(q, k, v, lengths, nhead, od, seed=0, rate=0.0):
     """The kernel's function in plain PyTorch: scores in f32 from operands
-    rounded to `od`, probabilities rounded to `od` before the PV product,
-    the PV output normalised by the row sum (as the TPU kernel does)."""
+    rounded to `od`, probabilities (dropped and rescaled when rate > 0)
+    rounded to `od` before the PV product, the PV output normalised by the
+    row sum of the undropped probabilities (as the TPU kernel does)."""
     B, T, d = q.shape
     hd = d // nhead
     scale2 = (1.0 / math.sqrt(hd)) * LOG2E
-
-    def heads(x):  # [B, T, d] -> [B, H, T, hd] in f32 from od operands
-        return x.to(od).to(torch.float32).reshape(B, T, nhead, hd).transpose(1, 2)
-
-    qh, kh, vh = heads(q), heads(k), heads(v)
+    qh, kh, vh = (_heads(x, nhead, od) for x in (q, k, v))
     lengths = lengths.to(torch.int64)
     s = (qh @ kh.transpose(-1, -2)) * scale2
     col = torch.arange(T, device=q.device)
@@ -92,6 +143,8 @@ def _packed_fwd_plain(q, k, v, lengths, nhead, od):
     mx = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - mx)
     l = p.sum(dim=-1, keepdim=True)
+    if rate > 0.0:
+        p = p * _attn_keep(seed, B, T, nhead, rate, q.device) / (1.0 - rate)
     o = (p.to(od).to(torch.float32) @ vh) / l
     valid = (lengths > 0)[:, None, None]
     lse = torch.where(valid, mx[..., 0] + torch.log2(l[..., 0]),
@@ -101,35 +154,165 @@ def _packed_fwd_plain(q, k, v, lengths, nhead, od):
     return o, lse
 
 
-def _packed_fwd_cuda(q, k, v, lengths, nhead, od):
+def _packed_bwd_plain(q, k, v, lengths, seed, rate, nhead, od, o, lse, g):
+    """The backward kernels' function in plain PyTorch, with their
+    rounding points: the incoming gradient cast to `od`; delta = per-head
+    sum of do * o in f32; p recomputed from the saved base-2 lse; ds and
+    the dropped p rounded to `od` before their products; dq and dk scaled
+    by 1/sqrt(hd). A sample with length 0 gets exact zeros (the exponent
+    is never evaluated there). Returns dq, dk, dv [B, T, d] f32."""
     B, T, d = q.shape
-    dev = q.device
-    for name, x in (("k", k), ("v", v), ("lengths", lengths)):
+    hd = d // nhead
+    scale = 1.0 / math.sqrt(hd)
+    do = g.to(od)
+    delta = ((do.to(torch.float32) * o).reshape(B, T, nhead, hd).sum(-1)
+             .transpose(1, 2))                                  # [B, H, T]
+    return _attention_bwd_plain(q, k, v, do, delta, lengths, seed, rate, nhead,
+                                od, lse, scale)
+
+
+def _attention_bwd_plain(q, k, v, do, delta, lengths, seed, rate, nhead, od,
+                         lse, scale):
+    """dq, dk, dv from od-rounded q, k, v, do [B, T, d], the saved lse and
+    delta [B, H, T] (shared with the fused layer's backward)."""
+    B, T, d = q.shape
+    qh, kh, vh, doh = (_heads(x, nhead, od) for x in (q, k, v, do))
+    lengths = lengths.to(torch.int64)
+    valid = (lengths > 0)[:, None, None, None]
+    col = torch.arange(T, device=q.device)
+    live = (col[None, :] < lengths[:, None])[:, None, None, :]   # [B,1,1,T]
+    s = (qh @ kh.transpose(-1, -2)) * (scale * LOG2E)
+    arg = torch.where(live & valid, s - lse[..., None],
+                      torch.full_like(s, -float("inf")))
+    p = torch.exp2(arg)
+    dp = doh @ vh.transpose(-1, -2)
+    if rate > 0.0:
+        keep = _attn_keep(seed, B, T, nhead, rate, q.device)
+        p_drop = p * keep / (1.0 - rate)
+        dp = dp * keep / (1.0 - rate)
+    else:
+        p_drop = p
+    ds = (p * (dp - delta[..., None])).to(od).to(torch.float32)
+    dq = ds @ kh
+    dk = ds.transpose(-1, -2) @ qh
+    dv = p_drop.to(od).to(torch.float32).transpose(-1, -2) @ doh
+    vf = valid.to(torch.float32)
+
+    def merge(x, factor):
+        return (x * factor).transpose(1, 2).reshape(B, T, d)
+
+    return merge(dq, scale * vf), merge(dk, scale * vf), merge(dv, vf)
+
+
+class _FlashPacked(torch.autograd.Function):
+    """flash_mha_packed with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, seed, dropout_rate, compute_dtype, nhead):
+        o, lse = _packed_fwd(q, k, v, lengths, seed, dropout_rate,
+                             compute_dtype, nhead)
+        od = operand_dtype(compute_dtype)
+        ctx.save_for_backward(q.to(od), k.to(od), v.to(od), lengths, o, lse)
+        ctx.args = (_seed_int(seed), float(dropout_rate), nhead, od)
+        ctx.in_dtypes = (q.dtype, k.dtype, v.dtype)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, lengths, o, lse = ctx.saved_tensors
+        seed, rate, nhead, od = ctx.args
+        if g.is_cuda:
+            dq, dk, dv = _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead,
+                                          od, o, lse, g)
+        else:
+            dq, dk, dv = _packed_bwd_plain(q, k, v, lengths, seed, rate, nhead,
+                                           od, o, lse, g)
+        dq, dk, dv = (x.to(t) for x, t in zip((dq, dk, dv), ctx.in_dtypes))
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_mha_packed(q, k, v, lengths, seed=None, dropout_rate=0.0,
+                     compute_dtype=None, nhead=1) -> torch.Tensor:
+    """Packed-heads attention: q, k, v [B, T, d] -> o [B, T, d] f32.
+    `seed` is the int32 seed of the dropout mask (None means 0);
+    differentiable in q, k and v."""
+    return _FlashPacked.apply(q, k, v, lengths, seed, dropout_rate,
+                              compute_dtype, nhead)
+
+
+# forward launches; `bwd_launches` counts the backward's
+flash_mha_packed.launches = 0
+flash_mha_packed.bwd_launches = 0
+
+
+def _same_device(dev, **tensors):
+    for name, x in tensors.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
+
+
+def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od):
+    B, T, d = q.shape
+    dev = q.device
+    _same_device(dev, k=k, v=v, lengths=lengths)
     for x in (q, k, v):
         if not x.is_floating_point():
             raise TypeError(f"q, k, v must be floating point, got {x.dtype}")
-    q, k, v = (x.to(od).contiguous() for x in (q, k, v))
+    q, k, v = (x.detach().to(od).contiguous() for x in (q, k, v))
     lens = lengths.to(torch.int32).contiguous()
     o = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     lse = torch.empty((B, nhead, T), dtype=torch.float32, device=dev)
-    fn = _lib().rd_packed_fwd
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-             o.data_ptr(), lse.data_ptr(), B, T, d, nhead,
-             (1.0 / math.sqrt(d // nhead)) * LOG2E,
-             int(od == torch.bfloat16), stream)
+    err = _lib().rd_packed_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), B, T, d, nhead,
+        (1.0 / math.sqrt(d // nhead)) * LOG2E, int(od == torch.bfloat16),
+        seed, rate, stream)
     build.check(err, "flash_mha_packed forward")
     build.count_launch(flash_mha_packed)
     return o, lse
 
 
+def _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead, od, o, lse, g):
+    """dq, dk, dv through the two backward kernels (one CTA per 64 query
+    rows for dq, one per 64 key rows for dk and dv). delta is prepared
+    here in torch ops, as the JAX package prepares it outside its kernel."""
+    B, T, d = q.shape
+    dev = q.device
+    _same_device(dev, k=k, v=v, lengths=lengths, o=o, lse=lse, g=g)
+    if g.shape != q.shape:
+        raise ValueError(f"the incoming gradient is {tuple(g.shape)}, "
+                         f"expected {tuple(q.shape)}")
+    hd = d // nhead
+    q, k, v = (x.detach().to(od).contiguous() for x in (q, k, v))
+    do = g.detach().to(od).contiguous()
+    delta = ((do.to(torch.float32) * o).reshape(B, T, nhead, hd).sum(-1)
+             .transpose(1, 2).contiguous())
+    lens = lengths.to(torch.int32).contiguous()
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty((B, T, d), dtype=torch.float32, device=dev)
+                  for _ in range(3))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scale = 1.0 / math.sqrt(hd)
+    err = _lib().rd_packed_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), lens.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, T, d, nhead, scale,
+        int(od == torch.bfloat16), seed, rate, stream)
+    build.check(err, "flash_mha_packed backward")
+    build.count_launch(flash_mha_packed, "bwd_launches")
+    return dq, dk, dv
+
+
 def _lib():
     lib = build.load("flash_packed")
-    fn = lib.rd_packed_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    if lib.rd_packed_fwd.argtypes is None:
+        tail = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                ctypes.c_void_p]
+        lib.rd_packed_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                                      + tail)
+        lib.rd_packed_fwd.restype = ctypes.c_int
+        lib.rd_packed_bwd.argtypes = ([ctypes.c_void_p] * 10
+                                      + [ctypes.c_int] * 4 + tail)
+        lib.rd_packed_bwd.restype = ctypes.c_int
     return lib

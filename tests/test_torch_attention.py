@@ -57,8 +57,11 @@ def test_packed_fwd_bf16_matches_jax(T):
 def test_packed_fwd_refuses_what_this_slice_does_not_serve():
     q = torch.zeros((1, 8, 4))
     lengths = torch.tensor([8])
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa.flash_mha_packed(q, q, q, lengths, None, 0.1, None, 2)
+    # dropout is served now (tests/test_torch_attention_bwd.py holds it
+    # against JAX); a rate outside [0, 1) is refused
+    assert torch.isfinite(fa.flash_mha_packed(q, q, q, lengths, None, 0.1, None, 2)).all()
+    with pytest.raises(ValueError, match="dropout_rate"):
+        fa.flash_mha_packed(q, q, q, lengths, None, 1.5, None, 2)
     big = torch.zeros((1, 1025, 4))
     with pytest.raises(NotImplementedError, match="later slice"):
         fa.flash_mha_packed(big, big, big, lengths, None, 0.0, None, 2)

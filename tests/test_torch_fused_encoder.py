@@ -87,7 +87,13 @@ def test_fused_layer_equals_the_unfused_layer():
 
 
 def test_fused_layer_refuses_dropout():
+    """The refusal is lifted: dropout runs (held against JAX in
+    tests/test_torch_fused_encoder_bwd.py); only a rate outside [0, 1)
+    is refused."""
     p = _torch(_layer(0))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fe.fused_encoder_layer(p, torch.zeros((1, 8, D)), torch.tensor([8]),
-                               None, 0.1, None, NHEAD)
+    x, lengths = torch.ones((1, 8, D)), torch.tensor([8])
+    out = fe.fused_encoder_layer(p, x, lengths, None, 0.1, None, NHEAD)
+    base = fe.fused_encoder_layer(p, x, lengths, None, 0.0, None, NHEAD)
+    assert torch.isfinite(out).all() and not torch.equal(out, base)
+    with pytest.raises(ValueError, match="dropout_rate"):
+        fe.fused_encoder_layer(p, x, lengths, None, 1.0, None, NHEAD)

@@ -23,6 +23,16 @@ def _port_modules():
     return mods
 
 
+def test_the_module_list_covers_the_training_slice():
+    mods = set(_port_modules())
+    assert mods >= {"raindrop_tpu_torch.utils.dropout",
+                    "raindrop_tpu_torch.data.sampler",
+                    "raindrop_tpu_torch.train.trainer",
+                    "raindrop_tpu_torch.ops.flash_attention",
+                    "raindrop_tpu_torch.ops.fused_encoder",
+                    "raindrop_tpu_torch.bridge", "raindrop_tpu_torch.config"}
+
+
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import sys\n"
@@ -65,6 +75,11 @@ def test_entry_points_refuse_missing_cuda():
     params = raindrop_init(0, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceServer(cfg, params)
+    from raindrop_tpu_torch.config import TrainConfig
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, TrainConfig(), params=params)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

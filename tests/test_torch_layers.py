@@ -128,10 +128,23 @@ def test_dense_encoder_with_an_all_padded_sample():
 
 
 def test_encoder_refuses_what_this_slice_does_not_serve():
+    from raindrop_tpu_torch.utils.dropout import LayerSeeds
+
     p = tr.transformer_encoder_init(torch.Generator(), 8, 2, 16, 1, device="cpu")
     x = torch.zeros((1, 4, 8))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tr.transformer_encoder_apply(p, x, None, 2, dropout_rate=0.1, train=True)
+    # training is served now: without seeds the rate is 0 (the eval
+    # output), with seeds the masks apply
+    x = torch.ones((1, 4, 8))
+    ev = tr.transformer_encoder_apply(p, x, None, 2)
+    assert torch.equal(
+        tr.transformer_encoder_apply(p, x, None, 2, dropout_rate=0.1, train=True), ev)
+    seeds = [LayerSeeds(1, 2, 3, 4, 5)]
+    assert not torch.equal(
+        tr.transformer_encoder_apply(p, x, None, 2, dropout_rate=0.5, train=True,
+                                     seeds=seeds), ev)
+    with pytest.raises(ValueError, match="layer seeds"):
+        tr.transformer_encoder_apply(p, x, None, 2, dropout_rate=0.5, train=True,
+                                     seeds=seeds * 2)
     with pytest.raises(NotImplementedError, match="scale-out"):
         tr.transformer_encoder_apply(p, x, None, 2, backend="ring")
     with pytest.raises(ValueError):

@@ -21,6 +21,7 @@ from raindrop_tpu.models.raindrop import raindrop_init as jax_raindrop_init
 from raindrop_tpu_torch.bridge import params_from_jax
 from raindrop_tpu_torch.config import dataset_config
 from raindrop_tpu_torch.models.raindrop import raindrop_apply, raindrop_init
+from raindrop_tpu_torch.utils.dropout import DropoutSeeds
 
 MAX_LEN = 40
 
@@ -91,5 +92,15 @@ def test_refuses_what_this_slice_does_not_serve(change, kw):
         call["global_adj"] = torch.ones((cfg.d_inp, cfg.d_inp))
     else:
         call["context_parallel"] = "ring"
+    if change == "train":
+        # training is served now (tests/test_torch_train_forward.py); with
+        # dropout in the config it asks for its seeds
+        with pytest.raises(ValueError, match="seeds"):
+            raindrop_apply(params, cfg, src, static, times, lengths, **call)
+        seeds = DropoutSeeds.draw(torch.Generator().manual_seed(0), cfg.nlayers)
+        logits, _ = raindrop_apply(params, cfg, src, static, times, lengths,
+                                   seeds=seeds, **call)
+        assert torch.isfinite(logits).all()
+        return
     with pytest.raises(NotImplementedError):
         raindrop_apply(params, cfg, src, static, times, lengths, **call)
