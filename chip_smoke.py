@@ -34,7 +34,26 @@ check does not hold:
      kernel, dead parameters bit-identical and live ones changed, the same
      epoch twice bit-equal, the first step's loss and gradient norm against
      the dense path at dropout 0, and a falling loss on a fixed batch;
-  9. the same for P12.
+  9. the same for P12;
+ 10. spmm_segment_softmax, kernels against their plain PyTorch versions,
+     forward (out, w) and backward (dx, dgamma, cotangents on both
+     outputs): the complete sensor graphs of P12 (B=128, N=36, E=1296,
+     D=860) and PAM (N=17, E=289, D=2400) with the messages gathered at
+     the target and at the source, and a kNN graph (N=128, k=6, E=768,
+     D=240, edges shuffled, one node without an incoming edge); zero rows
+     exact, bit-equal on a repeat;
+ 11. sddmm forward and backward on the same graphs at D=860 and D=120, and
+     at the shape the self-attention phase gives it;
+ 12. an InferenceServer for P12 with prop_backend='pallas' (every check of
+     phase 7, held against the dense plain path: dense attention and dense
+     propagation), which must launch the SpMM kernel twice per forward;
+     and one raindrop_apply with a random global_adj in [0.5, 2],
+     'pallas' against 'coo';
+ 13. a Trainer for P12 with prop_backend='pallas' (every check of phase 9;
+     the SpMM backward must have been launched);
+ 14. ob_propagate_selfattention (N=36, D=860, 2 heads) on a kNN and on the
+     complete graph, score_backend 'sddmm' against 'gather', value and
+     gradient w.r.t. x.
 
 Times are CUDA-event means over repeated launches after a warm-up. Bounds
 use the H100 SXM data-sheet peaks (3.35 TB/s; 67 TFLOP/s f32 outside the
@@ -42,8 +61,10 @@ tensor cores, 989 TFLOP/s dense bf16); the card's power limit is printed
 beside them. Gradients are compared relative to max(1, the plain
 gradient's largest value): 1e-4 with f32 operands (another summation
 order), 2e-2 with bf16 operands; the fused layer's plain backward takes
-the kernel's relu branches (fused_bwd_phase says why). The line before the last is the kernels'
-JSON record, the last line the result. `--out PATH` also writes every
+the kernel's relu branches (fused_bwd_phase says why). The sparse-graph
+kernels are f32 throughout and are held to 1e-5 relative to max(1, |plain|).
+The line before the last is the kernels' JSON record (eight records), the
+last line the result. `--out PATH` also writes every
 number to PATH as JSON.
 """
 
@@ -401,6 +422,300 @@ def fused_bwd_phase(label, B, T, d, ffn, H, dtype, rate, device="cuda", seed=0):
                 bytes=nbytes, flops=flops, scratch_mb=scratch_mb)
 
 
+# ------------------------------------------------------------ graph kernels
+GRAPH_TOL = 1e-5    # f32 throughout, another summation order
+
+
+def graph_topology(kind, device="cuda", seed=0):
+    """(src, dst, N, complete) int64 on the card. 'P12' and 'PAM': the
+    model's complete sensor graph in source-major order, so the
+    destinations are not sorted. 'kNN': each of N=128 random points sends
+    an edge to its 6 nearest neighbours (E=768), the edges into the last
+    node redirected so it has no incoming edge, in shuffled order. 'kNN36'
+    the same with 36 points."""
+    import torch
+
+    if kind in ("P12", "PAM"):
+        N = 36 if kind == "P12" else 17
+        idx = torch.arange(N, device=device)
+        return idx.repeat_interleave(N), idx.repeat(N), N, True
+    N, k = (128, 6) if kind == "kNN" else (36, 6)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pts = torch.rand((N, 2), generator=gen, device=device)
+    dist = torch.cdist(pts, pts) + 10.0 * torch.eye(N, device=device)
+    dst = dist.topk(k, largest=False).indices.reshape(-1)
+    src = torch.arange(N, device=device).repeat_interleave(k)
+    dst = torch.where(dst == N - 1, torch.zeros_like(dst), dst)
+    order = torch.randperm(N * k, generator=gen, device=device)
+    return src[order], dst[order], N, False
+
+
+def _equal_and_finite(pairs, what):
+    import torch
+
+    for name, a, a2 in pairs:
+        if not bool(torch.isfinite(a).all()) or not torch.equal(a, a2):
+            raise AssertionError(f"{what}: {name} not finite or not bit-equal "
+                                 f"on a repeat")
+
+
+def _spmm_library(x, gamma, N, gather_target):
+    """The complete graph's dense form: one softmax over the [N, N] grid of
+    logits and one bmm. Returns (out, w)."""
+    import torch
+
+    B = x.shape[0]
+    W = torch.softmax(gamma.reshape(B, N, N), dim=1)           # [b, s, n]
+    A = torch.diag_embed(W.sum(1)) if gather_target else W.transpose(1, 2)
+    return torch.bmm(A, x), W.reshape(B, N * N)
+
+
+def spmm_phase(label, B, D, gather_target, device="cuda", seed=0):
+    """Kernels vs plain for spmm_segment_softmax, forward and backward, on
+    one graph. Returns (forward run, backward run)."""
+    import torch
+    from raindrop_tpu_torch.ops import sparse as sp
+
+    src, dst, N, complete = graph_topology(label, device, seed)
+    E = src.numel()
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    x, g_out = (torch.randn((B, N, D), generator=gen, device=device) for _ in range(2))
+    gamma, g_w = (torch.randn((B, E), generator=gen, device=device) for _ in range(2))
+    topo = sp.topology(src, dst, N)
+    what = f"spmm {label} gather_target={gather_target}"
+
+    out, w = sp._spmm_fwd_cuda(x, gamma, topo, gather_target)
+    out2, w2 = sp._spmm_fwd_cuda(x, gamma, topo, gather_target)
+    dx, dgamma = sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gather_target)
+    dx2, dgamma2 = sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gather_target)
+    # the model's form: constant edge weights, no cotangent on them
+    dx_only, _ = sp._spmm_bwd_cuda(g_out, None, x, w, topo, gather_target,
+                                   need_dgamma=False)
+    p_out, p_w = sp._spmm_fwd_plain(x, gamma, src, dst, N, gather_target)
+    p_dx, p_dgamma = sp._spmm_bwd_plain(g_out, g_w, x, w, src, dst, N, gather_target)
+    torch.cuda.synchronize()
+    errs = {"out": rel_err(out, p_out), "w": rel_err(w, p_w)}
+    bwd_errs = {"dx": rel_err(dx, p_dx), "dgamma": rel_err(dgamma, p_dgamma)}
+    empty = torch.bincount(dst, minlength=N) == 0
+    print(f"[spmm] {label} B={B} N={N} E={E} D={D} gather_target={gather_target}: "
+          f"forward rel err {errs}, backward rel err {bwd_errs} (tol {GRAPH_TOL:g}); "
+          f"{int(empty.sum())} nodes without an incoming edge", flush=True)
+    if max(*errs.values(), *bwd_errs.values()) > GRAPH_TOL:
+        raise AssertionError(f"{what}: the kernels disagree with the plain version")
+    _equal_and_finite([("out", out, out2), ("w", w, w2), ("dx", dx, dx2),
+                       ("dgamma", dgamma, dgamma2), ("dx alone", dx_only, dx)], what)
+    if not bool((out[:, empty] == 0).all()):
+        raise AssertionError(f"{what}: a node without incoming edges is not zero")
+    if not complete and int(empty.sum()) < 1:
+        raise AssertionError(f"{what}: the graph has no empty segment")
+    del p_out, p_w, p_dx, p_dgamma
+
+    ms = time_ms(lambda: sp._spmm_fwd_cuda(x, gamma, topo, gather_target))
+    plain_ms = time_ms(lambda: sp._spmm_fwd_plain(x, gamma, src, dst, N, gather_target),
+                       reps=5, warmup=1)
+    bwd_ms = time_ms(lambda: sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gather_target))
+    dx_ms = time_ms(lambda: sp._spmm_bwd_cuda(g_out, None, x, w, topo, gather_target,
+                                              need_dgamma=False))
+    bwd_plain_ms = time_ms(lambda: sp._spmm_bwd_plain(g_out, g_w, x, w, src, dst, N,
+                                                      gather_target), reps=5, warmup=1)
+    library_ms = bwd_library_ms = None
+    if complete:
+        l_out, l_w = _spmm_library(x, gamma, N, gather_target)
+        lib_err = max(rel_err(out, l_out), rel_err(w, l_w))
+        if lib_err > GRAPH_TOL:
+            raise AssertionError(f"{what}: the dense softmax + bmm form differs "
+                                 f"by {lib_err}")
+        library_ms = time_ms(lambda: _spmm_library(x, gamma, N, gather_target))
+        xr, gr = x.clone().requires_grad_(), gamma.clone().requires_grad_()
+        outs = _spmm_library(xr, gr, N, gather_target)
+        bwd_library_ms = time_ms(lambda: torch.autograd.grad(
+            outs, (xr, gr), (g_out, g_w), retain_graph=True))
+        del outs, xr, gr
+    # bytes: each array once; of x only the rows some edge gathers
+    gidx = dst if gather_target else src
+    rows = int(torch.unique(gidx).numel())
+    index_bytes = (3 * E + N + 1) * 4
+    fwd_bytes = (B * rows * D + B * N * D + 2 * B * E) * 4 + index_bytes
+    fwd_flops = 2.0 * B * E * D + 4.0 * B * E
+    bound_ms, bound_by = bound(fwd_bytes, fwd_flops, "float32")
+    # backward: g_out, x, w, g_w in; dx, dgamma out
+    bwd_bytes = (B * N * D + B * rows * D + 2 * B * E + B * N * D + B * E) * 4 + 2 * index_bytes
+    bwd_bound_ms, bwd_bound_by = bound(bwd_bytes, 4.0 * B * E * D + 4.0 * B * E, "float32")
+    # dx alone: g_out and w in, dx out
+    dx_bytes = (2 * B * N * D + B * E) * 4 + index_bytes
+    dx_bound_ms, dx_bound_by = bound(dx_bytes, 2.0 * B * E * D, "float32")
+    print(f"[spmm] {label} gather_target={gather_target}: forward {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, softmax+bmm {library_ms}, bound {bound_ms:.4f} ms "
+          f"({bound_by}); backward {bwd_ms:.4f} ms (dx alone {dx_ms:.4f} ms, bound "
+          f"{dx_bound_ms:.4f}), plain {bwd_plain_ms:.4f} ms, softmax+bmm backward "
+          f"{bwd_library_ms}, bound {bwd_bound_ms:.4f} ms ({bwd_bound_by})", flush=True)
+    shape = dict(label=label, gather_target=gather_target, B=B, N=N, E=E, D=D)
+    fwd = dict(**shape, max_abs_err=max(errs.values()), errs=errs, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=fwd_bytes, flops=fwd_flops)
+    bwd = dict(**shape, max_abs_err=max(bwd_errs.values()), errs=bwd_errs, ms=bwd_ms,
+               plain_ms=bwd_plain_ms, library_ms=bwd_library_ms,
+               bound_ms=bwd_bound_ms, bound_by=bwd_bound_by, bytes=bwd_bytes,
+               dx_only_ms=dx_ms, dx_only_bound_ms=dx_bound_ms,
+               dx_only_bound_by=dx_bound_by)
+    return fwd, bwd
+
+
+def sddmm_phase(label, B, D, device="cuda", seed=0):
+    """Kernels vs plain for sddmm, forward and backward, on one graph.
+    Returns (forward run, backward run)."""
+    import torch
+    from raindrop_tpu_torch.ops import sparse as sp
+
+    src, dst, N, complete = graph_topology(label, device, seed)
+    E = src.numel()
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    q, k = (torch.randn((B, N, D), generator=gen, device=device) for _ in range(2))
+    d_alpha = torch.randn((B, E), generator=gen, device=device)
+    topo = sp.topology(src, dst, N)
+    scale = D ** -0.5
+    what = f"sddmm {label} D={D}"
+    alpha = sp._sddmm_fwd_cuda(q, k, topo, scale)
+    alpha2 = sp._sddmm_fwd_cuda(q, k, topo, scale)
+    dq, dk = sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale)
+    dq2, dk2 = sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale)
+    p_alpha = sp._sddmm_fwd_plain(q, k, src, dst, scale)
+    p_dq, p_dk = sp._sddmm_bwd_plain(d_alpha, q, k, src, dst, scale)
+    torch.cuda.synchronize()
+    err = rel_err(alpha, p_alpha)
+    bwd_errs = {"dq": rel_err(dq, p_dq), "dk": rel_err(dk, p_dk)}
+    print(f"[sddmm] {label} B={B} N={N} E={E} D={D}: forward rel err {err:.3e}, "
+          f"backward rel err {bwd_errs} (tol {GRAPH_TOL:g})", flush=True)
+    if max(err, *bwd_errs.values()) > GRAPH_TOL:
+        raise AssertionError(f"{what}: the kernels disagree with the plain version")
+    _equal_and_finite([("alpha", alpha, alpha2), ("dq", dq, dq2), ("dk", dk, dk2)], what)
+    del p_alpha, p_dq, p_dk
+
+    ms = time_ms(lambda: sp._sddmm_fwd_cuda(q, k, topo, scale))
+    plain_ms = time_ms(lambda: sp._sddmm_fwd_plain(q, k, src, dst, scale),
+                       reps=5, warmup=1)
+    bwd_ms = time_ms(lambda: sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale))
+    bwd_plain_ms = time_ms(lambda: sp._sddmm_bwd_plain(d_alpha, q, k, src, dst, scale),
+                           reps=5, warmup=1)
+    library_ms = bwd_library_ms = None
+    if complete:
+        # source-major edges: alpha[b, s * N + n] = scale * k[b, s] . q[b, n]
+        def lib(q_, k_):
+            return (torch.bmm(k_, q_.transpose(1, 2)) * scale).reshape(B, E)
+
+        if rel_err(alpha, lib(q, k)) > GRAPH_TOL:
+            raise AssertionError(f"{what}: the dense bmm form differs")
+        library_ms = time_ms(lambda: lib(q, k))
+        qr, kr = q.clone().requires_grad_(), k.clone().requires_grad_()
+        a = lib(qr, kr)
+        bwd_library_ms = time_ms(lambda: torch.autograd.grad(a, (qr, kr), d_alpha,
+                                                             retain_graph=True))
+        del a, qr, kr
+    q_rows, k_rows = int(torch.unique(dst).numel()), int(torch.unique(src).numel())
+    index_bytes = 2 * E * 4
+    fwd_bytes = (B * (q_rows + k_rows) * D + B * E) * 4 + index_bytes
+    bound_ms, bound_by = bound(fwd_bytes, 2.0 * B * E * D, "float32")
+    bwd_bytes = (B * (q_rows + k_rows) * D + B * E + 2 * B * N * D) * 4 \
+        + 2 * index_bytes + 2 * (E + N + 1) * 4
+    bwd_bound_ms, bwd_bound_by = bound(bwd_bytes, 4.0 * B * E * D, "float32")
+    print(f"[sddmm] {label} D={D}: forward {ms:.4f} ms, plain {plain_ms:.4f} ms, bmm "
+          f"{library_ms}, bound {bound_ms:.4f} ms ({bound_by}); backward {bwd_ms:.4f} "
+          f"ms, plain {bwd_plain_ms:.4f} ms, bmm backward {bwd_library_ms}, bound "
+          f"{bwd_bound_ms:.4f} ms ({bwd_bound_by})", flush=True)
+    shape = dict(label=label, B=B, N=N, E=E, D=D)
+    fwd = dict(**shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=fwd_bytes)
+    bwd = dict(**shape, max_abs_err=max(bwd_errs.values()), errs=bwd_errs, ms=bwd_ms,
+               plain_ms=bwd_plain_ms, library_ms=bwd_library_ms,
+               bound_ms=bwd_bound_ms, bound_by=bwd_bound_by, bytes=bwd_bytes)
+    return fwd, bwd
+
+
+def global_adj_phase(wrappers, device="cuda", seed=0, B=32):
+    """raindrop_apply at P12 full width with random edge weights in
+    [0.5, 2]: prop_backend 'pallas' (the SpMM kernel) against 'coo' (the
+    segment ops), f32 attention operands, logits within 1e-4."""
+    import torch
+    from raindrop_tpu_torch.config import dataset_config
+    from raindrop_tpu_torch.models.raindrop import raindrop_apply, raindrop_init
+    from raindrop_tpu_torch.ops.sparse import spmm_segment_softmax
+
+    cfgs = {b: dataset_config("P12", prop_backend=b, attention_score_dtype="float32")
+            for b in ("pallas", "coo")}
+    cfg = cfgs["pallas"]
+    params = raindrop_init(seed, cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    W = 0.5 + 1.5 * torch.rand((cfg.d_inp, cfg.d_inp), generator=gen, device=device)
+    P, times, static = (torch.from_numpy(a).to(device)
+                        for a in make_requests(cfg, B, seed + 4))
+    src, tm = P.transpose(0, 1), times.transpose(0, 1)
+    lengths = (tm > 0).sum(dim=0)
+    out = {}
+    with torch.no_grad():
+        for name, c in cfgs.items():
+            for fn in wrappers:
+                fn.launches = 0
+            logits, dist = raindrop_apply(params, c, src, static, tm, lengths,
+                                          global_adj=W)
+            out[name] = (logits, float(dist), spmm_segment_softmax.launches)
+    torch.cuda.synchronize()
+    diff = max_err(out["pallas"][0], out["coo"][0])
+    print(f"[global_adj] P12 B={B}, weights in [0.5, 2]: pallas vs coo logits max "
+          f"abs diff {diff:.3e} (tol 1e-4), distance {out['pallas'][1]:.6f} vs "
+          f"{out['coo'][1]:.6f}; SpMM launches {out['pallas'][2]} (pallas), "
+          f"{out['coo'][2]} (coo)", flush=True)
+    if not diff <= 1e-4 or not bool(torch.isfinite(out["pallas"][0]).all()):
+        raise AssertionError("raindrop_apply(global_adj): pallas and coo disagree")
+    if out["pallas"][2] != 2 or out["coo"][2] != 0:
+        raise AssertionError("raindrop_apply(global_adj): 'pallas' must launch the "
+                             "SpMM kernel twice, 'coo' never")
+    return dict(max_abs_diff=diff, launches=out["pallas"][2])
+
+
+def selfattention_phase(wrappers, device="cuda", seed=0, N=36, D=860, heads=2):
+    """ob_propagate_selfattention with score_backend 'sddmm' (the kernel)
+    against 'gather', value and gradient w.r.t. x, on a kNN graph and on the
+    complete one. Returns sddmm's forward and backward launch counts."""
+    import torch
+    from raindrop_tpu_torch.graph.propagate import (
+        ob_propagate_selfattention, ob_propagation_init)
+    from raindrop_tpu_torch.ops.sparse import sddmm
+
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    params = ob_propagation_init(gen, D, D // heads, N, 4, heads=heads, device=device)
+    x0 = torch.randn((N, D), generator=gen, device=device)
+    cot = torch.randn((N, D), generator=gen, device=device)
+    for fn in wrappers:
+        fn.launches = fn.bwd_launches = 0
+    checks = {}
+    for kind in ("kNN36", "P12"):
+        src, dst, n, _ = graph_topology(kind, device, seed)
+        assert n == N
+        ei = torch.stack([src, dst])
+        res = {}
+        for backend in ("sddmm", "gather"):
+            x = x0.clone().requires_grad_()
+            out, (_, alpha) = ob_propagate_selfattention(
+                params, x, ei, heads=heads, n_nodes=N, score_backend=backend)
+            out.backward(cot)
+            res[backend] = (out.detach(), alpha.detach(), x.grad)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("out", "alpha", "dx"), res["sddmm"], res["gather"]):
+            checks[f"{kind}_{name}"] = rel_err(a, b)
+    counts = (sddmm.launches, sddmm.bwd_launches)
+    print(f"[selfattention] N={N} D={D} heads={heads}: sddmm vs gather rel err "
+          f"{checks} (tol {GRAPH_TOL:g}); sddmm launches {counts[0]} forward, "
+          f"{counts[1]} backward", flush=True)
+    bad = {k: v for k, v in checks.items() if not v <= GRAPH_TOL}
+    if bad:
+        raise AssertionError(f"selfattention: sddmm and gather disagree: {bad}")
+    if counts != (2 * heads, 2 * heads):
+        raise AssertionError(f"selfattention: expected {2 * heads} sddmm launches "
+                             f"each way, got {counts}")
+    return counts[0], counts[1], checks
+
+
 # ----------------------------------------------------------------- serving
 def make_requests(cfg, n, seed):
     """Synthetic batch-major requests: ragged lengths in 1..T, zero times
@@ -422,12 +737,18 @@ def _rows(x, sl):
     return None if x is None else x[sl]
 
 
-def serve_phase(dataset, kernel_fn, wrappers, device="cuda", seed=0,
-                cfg_overrides=None, buckets=(1, 8, 32, 128)):
+PLAIN_ATTENTION = {"attention_backend": "dense"}
+PLAIN_ALL = {"attention_backend": "dense", "prop_backend": "auto"}
+
+
+def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
+                cfg_overrides=None, plain_overrides=PLAIN_ATTENTION,
+                buckets=(1, 8, 32, 128)):
     """Serve one preset at full width and check it. Every wrapper's launch
     count is set to 0 just before the served requests and read just after;
-    returns those counts by wrapper name. `kernel_fn` is the wrapper this
-    preset's path must go through."""
+    returns those counts by wrapper name. `kernel_fns` are the wrappers
+    this path must go through; `plain_overrides` turn its config into the
+    plain path it is held against."""
     from raindrop_tpu_torch.config import dataset_config
     from raindrop_tpu_torch.models.raindrop import raindrop_init
     from raindrop_tpu_torch.serve import InferenceServer
@@ -492,7 +813,7 @@ def serve_phase(dataset, kernel_fn, wrappers, device="cuda", seed=0,
     # f32 attention operands
     for score, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
         c_k = dataset_config(dataset, **{**kw, "attention_score_dtype": score})
-        c_d = dataset_config(dataset, **{**kw, "attention_backend": "dense",
+        c_d = dataset_config(dataset, **{**kw, **plain_overrides,
                                          "attention_score_dtype": score})
         s_k = InferenceServer(c_k, server.params, buckets=buckets, device=device)
         s_d = InferenceServer(c_d, server.params, buckets=buckets, device=device)
@@ -505,9 +826,10 @@ def serve_phase(dataset, kernel_fn, wrappers, device="cuda", seed=0,
     if bad:
         raise AssertionError(f"{dataset}: checks over their limits: {bad} "
                              f"(limits {limits})")
-    if launches[kernel_fn.__name__] <= 0:
-        raise AssertionError(f"{dataset}: the served path never launched "
-                             f"{kernel_fn.__name__}")
+    for fn in kernel_fns:
+        if launches[fn.__name__] <= 0:
+            raise AssertionError(f"{dataset}: the served path never launched "
+                                 f"{fn.__name__}")
     timing = serve_timing(dataset, server, P, times, static)
     server.close()
     return launches, dict(served_s=served_s, checks=checks, limits=limits,
@@ -591,13 +913,14 @@ def grad_norm(trainer):
                                 for _, t in trainer.live)))
 
 
-def train_phase(dataset, kernel_fn, wrappers, device="cuda", seed=0, batch=128,
-                cfg_overrides=None):
+def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
+                cfg_overrides=None, plain_overrides=PLAIN_ATTENTION):
     """Train one preset at full width and depth and check it. Every
     wrapper's counts are set to 0 just before the epoch and the predict and
     read just after; returns the forward and backward counts by wrapper
-    name. `kernel_fn` is the wrapper this preset's training must go
-    through, forward and backward."""
+    name. `kernel_fns` are the wrappers this training must go through,
+    forward and backward; `plain_overrides` turn its config into the plain
+    path its first step is held against."""
     import torch
     from raindrop_tpu_torch.config import TrainConfig, dataset_config
     from raindrop_tpu_torch.data.sampler import balanced_batches
@@ -647,9 +970,10 @@ def train_phase(dataset, kernel_fn, wrappers, device="cuda", seed=0, batch=128,
         raise AssertionError(f"{dataset}: a loss or a predicted logit is not finite")
     if logits.shape != (n_pred, cfg.n_classes):
         raise AssertionError(f"{dataset}: predict gave {logits.shape}")
-    if bwd_launches[kernel_fn.__name__] <= 0 or launches[kernel_fn.__name__] <= 0:
-        raise AssertionError(f"{dataset}: training never launched "
-                             f"{kernel_fn.__name__} forward and backward")
+    for fn in kernel_fns:
+        if bwd_launches[fn.__name__] <= 0 or launches[fn.__name__] <= 0:
+            raise AssertionError(f"{dataset}: training never launched "
+                                 f"{fn.__name__} forward and backward")
     live = {path for path, _ in trainer.live}
     for path, t in flatten_params(trainer.params):
         same = torch.equal(t.detach(), before[path])
@@ -670,9 +994,8 @@ def train_phase(dataset, kernel_fn, wrappers, device="cuda", seed=0, batch=128,
     checks, limits = {}, {}
     for score, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
         pair = []
-        for backend in (cfg.attention_backend, "dense"):
-            c = dataset_config(dataset, **{**kw, "dropout": 0.0,
-                                           "attention_backend": backend,
+        for plain in ({}, plain_overrides):
+            c = dataset_config(dataset, **{**kw, "dropout": 0.0, **plain,
                                            "attention_score_dtype": score})
             tr_ = Trainer(c, tcfg, device=device, params=trainer.params)
             loss, _ = tr_._backward(first, None)
@@ -763,6 +1086,8 @@ def main(argv=None) -> int:
         from raindrop_tpu_torch.kernels import build
         from raindrop_tpu_torch.ops.flash_attention import flash_mha_packed
         from raindrop_tpu_torch.ops.fused_encoder import fused_encoder_layer
+        from raindrop_tpu_torch.ops.sparse import (
+            sddmm, spmm_segment_softmax, topology)
     except ImportError as e:
         print(f"chip_smoke: the raindrop_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -790,12 +1115,47 @@ def main(argv=None) -> int:
     fused_bwd = [fused_bwd_phase("PAM", 128, 600, 84, 136, 2, dt, rate)
                  for dt, rate in grid]
     torch.cuda.empty_cache()
+    spmm_runs = [spmm_phase(label, 128, D, gt)
+                 for label, D in (("P12", 860), ("PAM", 2400), ("kNN", 240))
+                 for gt in (True, False)]
+    spmm_fwd, spmm_bwd = ([r[i] for r in spmm_runs] for i in (0, 1))
+    # B=1, N=36, D=430: what ob_propagate_selfattention hands the kernel
+    # (one sample, one call per head); the others are batch-scale shapes
+    sddmm_runs = [sddmm_phase("P12", 1, 430)]
+    sddmm_runs += [sddmm_phase(label, 128, D) for label in ("P12", "PAM", "kNN")
+                   for D in (860, 120)]
+    sddmm_fwd, sddmm_bwd = ([r[i] for r in sddmm_runs] for i in (0, 1))
+    torch.cuda.empty_cache()
 
-    wrappers = (flash_mha_packed, fused_encoder_layer)
-    pam_launches, pam = serve_phase("PAM", fused_encoder_layer, wrappers)
-    p12_launches, p12 = serve_phase("P12", flash_mha_packed, wrappers)
-    pam_tf, pam_tb, pam_train = train_phase("PAM", fused_encoder_layer, wrappers)
-    p12_tf, p12_tb, p12_train = train_phase("P12", flash_mha_packed, wrappers)
+    wrappers = (flash_mha_packed, fused_encoder_layer, spmm_segment_softmax, sddmm)
+    pam_launches, pam = serve_phase("PAM", [fused_encoder_layer], wrappers)
+    p12_launches, p12 = serve_phase("P12", [flash_mha_packed], wrappers)
+    pam_tf, pam_tb, pam_train = train_phase("PAM", [fused_encoder_layer], wrappers)
+    p12_tf, p12_tb, p12_train = train_phase("P12", [flash_mha_packed], wrappers)
+    torch.cuda.empty_cache()
+
+    # the sparse-graph path: P12 with prop_backend='pallas', held against
+    # the plain path with dense attention and dense propagation
+    graph = {"prop_backend": "pallas"}
+    graph_fns = [flash_mha_packed, spmm_segment_softmax]
+    builds = topology.builds
+    g12_launches, g12 = serve_phase("P12", graph_fns, wrappers, cfg_overrides=graph,
+                                    plain_overrides=PLAIN_ALL)
+    if g12_launches["spmm_segment_softmax"] != g12_launches["flash_mha_packed"]:
+        raise AssertionError(f"P12 pallas: two SpMM launches per forward expected, "
+                             f"as many as flash launches: {g12_launches}")
+    adj = global_adj_phase(wrappers)
+    g12_tf, g12_tb, g12_train = train_phase("P12", graph_fns, wrappers,
+                                            cfg_overrides=graph,
+                                            plain_overrides=PLAIN_ALL)
+    # every server and trainer above shares the model's edge tensors: the
+    # graph was sorted for the kernels once, when the first was built
+    builds = topology.builds - builds
+    print(f"[graph] the model's sensor graph was sorted {builds} time(s) over "
+          f"the P12 pallas serving, global_adj and training phases", flush=True)
+    if builds != 1:
+        raise AssertionError(f"the topology cache missed: {builds} builds")
+    sd_f, sd_b, selfatt = selfattention_phase(wrappers)
 
     # the kernels' record at the main paths' shapes and operand dtype
     # (attention_score_dtype defaults to bfloat16; training runs the shipped
@@ -826,14 +1186,50 @@ def main(argv=None) -> int:
                "raindrop_tpu/ops/fused_encoder.py:183",
                pam_tb["fused_encoder_layer"], fused_bwd, "PAM", 0.2),
     ]
+
+    def graph_record(name, line, launches, runs, ms_key="ms", bound_key="bound"):
+        """The run at the main path's shape: the first of `runs`."""
+        r = runs[0]
+        return {"name": name, "route": "cuda",
+                "source": "raindrop_tpu_torch/csrc/sparse_graph.cu",
+                "replaces": f"raindrop_tpu/ops/sparse_pallas.py:{line}",
+                "launches": launches,
+                "max_abs_err": max(x["max_abs_err"] for x in runs),
+                "ms": r[ms_key], "plain_ms": r["plain_ms"],
+                "bound_ms": r[f"{bound_key}_ms"], "bound_by": r[f"{bound_key}_by"],
+                "library_ms": r["library_ms"]}
+
+    # SpMM at the P12 model shape with the target's features gathered; its
+    # backward as the model runs it (constant edge weights: dx alone), the
+    # plain and library times beside it being those of the full backward
+    kernels += [
+        graph_record("spmm_segment_softmax_fwd", 64,
+                     g12_launches["spmm_segment_softmax"], spmm_fwd),
+        graph_record("spmm_segment_softmax_bwd", 110,
+                     g12_tb["spmm_segment_softmax"], spmm_bwd, "dx_only_ms",
+                     "dx_only_bound"),
+        graph_record("sddmm_fwd", 195, sd_f, sddmm_fwd),
+        graph_record("sddmm_bwd", 230, sd_b, sddmm_bwd),
+    ]
+    for rec in kernels:
+        if rec["launches"] <= 0:
+            raise AssertionError(f"{rec['name']} was never launched on its path")
     detail = {"card": card, "build_s": build_s, "flash": flash, "fused": fused,
               "flash_bwd": flash_bwd, "fused_bwd": fused_bwd,
+              "spmm_fwd": spmm_fwd, "spmm_bwd": spmm_bwd,
+              "sddmm_fwd": sddmm_fwd, "sddmm_bwd": sddmm_bwd,
               "serve": {"PAM": {"launches": pam_launches, **pam},
-                        "P12": {"launches": p12_launches, **p12}},
+                        "P12": {"launches": p12_launches, **p12},
+                        "P12_pallas": {"launches": g12_launches, **g12}},
               "train": {"PAM": {"launches": pam_tf, "bwd_launches": pam_tb,
                                 **pam_train},
                         "P12": {"launches": p12_tf, "bwd_launches": p12_tb,
-                                **p12_train}},
+                                **p12_train},
+                        "P12_pallas": {"launches": g12_tf, "bwd_launches": g12_tb,
+                                       **g12_train}},
+              "global_adj": adj,
+              "selfattention": {"launches": sd_f, "bwd_launches": sd_b,
+                                "checks": selfatt},
               "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

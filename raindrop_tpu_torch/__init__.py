@@ -1,7 +1,8 @@
 """raindrop_tpu_torch: the PyTorch and CUDA port of the JAX package.
 
-Serves Raindrop v2 on an NVIDIA H100 through hand-written CUDA kernels
-(csrc/) for the temporal encoder. The JAX package `raindrop_tpu` is the
+Serves and trains Raindrop v2 on an NVIDIA H100 through hand-written CUDA
+kernels (csrc/) for the temporal encoder and the sensor-graph
+propagation. The JAX package `raindrop_tpu` is the
 reference it is tested against; this package imports nothing of it.
 """
 

@@ -47,8 +47,11 @@ class RaindropConfig:
     # operand dtype inside the attention kernels (scores and softmax
     # statistics stay f32); only the flash and fused-layer rungs read it
     attention_score_dtype: str = "bfloat16"
-    # graph-propagation backend: the port serves 'auto' (the dense
-    # complete-graph path); 'coo' and 'pallas' come with later slices
+    # graph-propagation backend (models/raindrop.prop_branch): 'auto' takes
+    # the dense complete-graph path unless a global_adj is passed; 'coo'
+    # the segment-op path over the edge list; 'pallas' selects the
+    # hand-written CUDA SpMM + segment-softmax kernel of ops/sparse.py (the
+    # value keeps the JAX package's name so configs carry over)
     prop_backend: str = "auto"
 
     @property

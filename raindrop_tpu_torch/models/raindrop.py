@@ -1,10 +1,21 @@
 """Raindrop (v2) forward (port of raindrop_tpu/models/raindrop.py).
 
-The serving and training path of the shipped config: the complete
-all-ones sensor graph (graph propagation reduces to relu(lin_value(x))
-twice), the time PE, the temporal encoder, masked mean pooling, the static
-embedding and the MLP head. Parameters are nested dicts of tensors with the JAX
-package's tree and layouts (nn/*, bridge.py).
+The serving and training path: the sensor-level embedding, two layers of
+graph propagation, the time PE, the temporal encoder, masked mean pooling,
+the static embedding and the MLP head. Parameters are nested dicts of
+tensors with the JAX package's tree and layouts (nn/*, bridge.py).
+
+Graph propagation runs on the complete sensor graph with per-edge weights
+`global_adj` [F, F] (default all ones; a zero is a logit of 0, not a
+missing edge), by one of three branches (`prop_branch`):
+  * 'dense'  (prop_backend 'auto', no global_adj): with all-ones weights
+    the layer reduces to relu(lin_value(x));
+  * 'pallas' (prop_backend 'pallas'): the sparse-graph kernels of
+    ops/sparse.py, on the card the hand-written CUDA SpMM + segment
+    softmax; softmax-weight dropout in training is not in the kernel, so
+    such a step falls through to 'dense' (no global_adj) or 'coo';
+  * 'coo'    (prop_backend 'coo', or a global_adj without 'pallas'): the
+    segment ops of ops/segment.py over the edge list.
 
 Input contract, as the JAX function's:
   src     [T, B, 2F]  z-scored values (cols :F) ++ observed mask (cols F:2F)
@@ -18,26 +29,29 @@ the counter-hash masks of utils/dropout.py. The function records a graph
 for autograd; callers that only infer run it under torch.no_grad().
 
 What the port does not run yet raises NotImplementedError naming the
-slice that brings it: use_beta, sensor_wise_mask, compute_dtype, the
-coo/pallas propagation backends, a custom global_adj and the scale-out
-routes.
+slice that brings it: use_beta, sensor_wise_mask, compute_dtype and the
+scale-out routes.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
 
 from raindrop_tpu_torch.config import RaindropConfig
 from raindrop_tpu_torch.graph.propagate import (
-    alpha_pairwise_distance, ob_propagate_dense_complete, ob_propagation_init)
+    alpha_pairwise_distance, ob_propagate_coo, ob_propagate_dense_complete,
+    ob_propagation_init)
+from raindrop_tpu_torch.graph.structure import complete_graph_edges
 from raindrop_tpu_torch.nn.aggregate import masked_mean_pool, padding_mask
 from raindrop_tpu_torch.nn.init import glorot, tiny_uniform, torch_linear_params
 from raindrop_tpu_torch.nn.linear import linear_apply, mlp_apply, mlp_init
 from raindrop_tpu_torch.nn.transformer import (
     transformer_encoder_apply, transformer_encoder_init)
 from raindrop_tpu_torch.ops.pe import time_positional_encoding
+from raindrop_tpu_torch.ops.sparse import spmm_segment_softmax, topology
 from raindrop_tpu_torch.utils.dropout import DropoutSeeds, dropout
 
 
@@ -136,7 +150,57 @@ def raindrop_param_mask(cfg: RaindropConfig):
     return mask
 
 
-def _refuse(cfg: RaindropConfig, global_adj, scale_out: bool):
+def _complete_edges(F_: int, device):
+    """(src, dst) [F*F] int64 of the complete graph in source-major order,
+    the same two tensors on every call so ops/sparse.py sorts them once."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:   # 'cuda' is 'cuda:N'
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _complete_edges_on(F_, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _complete_edges_on(F_: int, device: torch.device):
+    edge_index, _ = complete_graph_edges(F_)
+    ei = torch.from_numpy(edge_index).to(device, torch.int64)
+    return ei[0].contiguous(), ei[1].contiguous()
+
+
+def _edge_list(F_: int, global_adj, dtype, device):
+    """The complete graph's (src, dst) and per-edge weights [F*F]: from
+    global_adj when given, else ones. Shared by the COO and kernel
+    branches, so their inputs are the same by construction."""
+    src, dst = _complete_edges(F_, device)
+    if global_adj is not None:
+        if tuple(global_adj.shape) != (F_, F_):
+            raise ValueError(f"global_adj must be [{F_}, {F_}], got "
+                             f"{tuple(global_adj.shape)}")
+        return src, dst, global_adj[src, dst].to(dtype)
+    return src, dst, torch.ones((F_ * F_,), dtype=dtype, device=device)
+
+
+def prop_branch(cfg: RaindropConfig, train: bool, has_global_adj: bool) -> str:
+    """Which propagation branch a forward takes: 'pallas', 'dense' or 'coo'."""
+    if cfg.prop_backend not in ("auto", "coo", "pallas"):
+        raise ValueError(f"prop_backend must be 'auto', 'coo' or 'pallas', "
+                         f"got {cfg.prop_backend!r}")
+    if cfg.prop_backend == "pallas" and not (train and cfg.prop_dropout > 0.0):
+        return "pallas"
+    if not has_global_adj and cfg.prop_backend != "coo":
+        return "dense"
+    return "coo"
+
+
+def warm_propagation(cfg: RaindropConfig, device) -> None:
+    """Sort the sensor graph for the kernels now (ops/sparse.topology: two
+    sorts and one host sync, cached) and not inside the first forward.
+    Nothing to do off the card or off the kernel branch."""
+    device = torch.device(device)
+    if device.type == "cuda" and prop_branch(cfg, False, False) == "pallas":
+        topology(*_complete_edges(cfg.d_inp, device), cfg.d_inp)
+
+
+def _refuse(cfg: RaindropConfig, scale_out: bool):
     if scale_out:
         raise NotImplementedError(
             "context_parallel, pipeline_parallel and edge_partition come "
@@ -147,10 +211,6 @@ def _refuse(cfg: RaindropConfig, global_adj, scale_out: bool):
     if cfg.compute_dtype is not None and cfg.compute_dtype != cfg.dtype:
         raise NotImplementedError(
             "compute_dtype comes with the mixed-precision slice")
-    if cfg.prop_backend != "auto" or global_adj is not None:
-        raise NotImplementedError(
-            "the coo/pallas propagation backends and a custom global_adj "
-            "come with the graph-kernel slice")
 
 
 def raindrop_apply(
@@ -169,9 +229,9 @@ def raindrop_apply(
     edge_partition: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward pass. Returns (logits [B, n_classes], distance scalar).
-    train=True needs `seeds` when the config has any dropout."""
-    _refuse(cfg, global_adj,
-            context_parallel != "none" or bool(pipeline_parallel) or edge_partition)
+    train=True needs `seeds` when the config has any dropout; `global_adj`
+    [F, F] is a tensor on the parameters' device."""
+    _refuse(cfg, context_parallel != "none" or bool(pipeline_parallel) or edge_partition)
     if train and seeds is None and (cfg.dropout > 0.0 or cfg.prop_dropout > 0.0):
         raise ValueError("train=True with dropout needs seeds=DropoutSeeds "
                          "(DropoutSeeds.draw(generator, cfg.nlayers))")
@@ -190,17 +250,48 @@ def raindrop_apply(
     h_b = h.transpose(0, 1)                                # [B, T, F*d_ob]
     pe_b = pe.transpose(0, 1)                              # [B, T, d_pe]
 
-    # two propagation layers on the complete all-ones graph; layer 2's
-    # edge weights are layer 1's pre-softmax alpha, the same ones
+    # two propagation layers; layer 2's edge weights are layer 1's
+    # pre-softmax alpha, which are the input edge weights again
     x_nodes = _to_node_features(h_b, F_, d_ob)             # [B, F, T*d_ob]
-    adj = torch.ones((F_, F_), dtype=dtype, device=src.device)
-    prop = dict(dropout_rate=cfg.prop_dropout, train=train, uniform=True)
-    out1, alpha1 = ob_propagate_dense_complete(
-        params["ob_propagation"], x_nodes, adj,
-        seed=None if seeds is None else seeds.prop1, **prop)
-    out2, alpha_all = ob_propagate_dense_complete(
-        params["ob_propagation_layer2"], out1, alpha1.reshape(B, F_, F_),
-        seed=None if seeds is None else seeds.prop2, **prop)
+    branch = prop_branch(cfg, train, global_adj is not None)
+    p1, p2 = params["ob_propagation"], params["ob_propagation_layer2"]
+    if branch == "pallas":
+        # each layer is the use_beta=False step on the kernel: messages
+        # gather the TARGET's features, the softmax groups by target
+        e_src, e_dst, edge_weights = _edge_list(F_, global_adj, dtype, src.device)
+        gamma = edge_weights[None].expand(B, -1)            # read in place
+        v1 = torch.relu(linear_apply(p1["lin_value"], x_nodes))
+        out1, _ = spmm_segment_softmax(v1, gamma, e_src, e_dst, n_nodes=F_,
+                                       gather_target=True)
+        v2 = torch.relu(linear_apply(p2["lin_value"], out1))
+        out2, _ = spmm_segment_softmax(v2, gamma, e_src, e_dst, n_nodes=F_,
+                                       gather_target=True)
+        alpha_all = gamma                                   # pre-softmax alpha
+    elif branch == "dense":
+        adj = torch.ones((F_, F_), dtype=dtype, device=src.device)
+        prop = dict(dropout_rate=cfg.prop_dropout, train=train, uniform=True)
+        out1, alpha1 = ob_propagate_dense_complete(
+            p1, x_nodes, adj, seed=None if seeds is None else seeds.prop1, **prop)
+        out2, alpha_all = ob_propagate_dense_complete(
+            p2, out1, alpha1.reshape(B, F_, F_),
+            seed=None if seeds is None else seeds.prop2, **prop)
+    else:
+        e_src, e_dst, edge_weights = _edge_list(F_, global_adj, dtype, src.device)
+        rows1 = rows2 = None
+        if seeds is not None and cfg.prop_dropout > 0.0:
+            rows1, rows2 = seeds.prop1_rows, seeds.prop2_rows
+            if len(rows1) != B or len(rows2) != B:
+                raise ValueError(
+                    f"the COO branch drops softmax weights with one seed per "
+                    f"sample: DropoutSeeds.draw(generator, nlayers, rows={B})")
+        prop = dict(ob_dim=d_ob, n_nodes=F_, dropout_rate=cfg.prop_dropout,
+                    train=train)
+        edge_index = torch.stack([e_src, e_dst])
+        out1, (_, a1) = ob_propagate_coo(p1, x_nodes, None, edge_index,
+                                         edge_weights, seed=rows1, **prop)
+        out2, (_, a2) = ob_propagate_coo(p2, out1, None, edge_index,
+                                         a1[..., 0], seed=rows2, **prop)
+        alpha_all = a2[..., 0]                              # [B, F*F]
     distance = alpha_pairwise_distance(alpha_all)
     output = _from_node_features(out2, T, d_ob)            # [B, T, F*d_ob]
     output = torch.cat([output, pe_b], dim=-1)             # [B, T, F*d_ob+d_pe]

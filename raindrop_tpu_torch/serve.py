@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from raindrop_tpu_torch.config import RaindropConfig, dataset_config
-from raindrop_tpu_torch.models.raindrop import raindrop_apply, raindrop_init
+from raindrop_tpu_torch.models.raindrop import (
+    raindrop_apply, raindrop_init, warm_propagation)
 
 _WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -88,6 +89,7 @@ class InferenceServer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
+        warm_propagation(cfg, self.device)
         self.buckets = sorted(buckets)
         self.transfer_dtype = _WIRE[transfer_dtype]
         self._apply = apply_fn or (

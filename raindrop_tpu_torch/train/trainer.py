@@ -15,7 +15,7 @@ its optimizer and updates them in place; an epoch is a Python loop of
 steps with one device-to-host copy, of the losses, at its end.
 
 The per-split protocol (`train_split`, `run_splits`: validation metrics,
-the plateau scheduler, checkpoint saving, resume) comes with the next
+the plateau scheduler, checkpoint saving, resume) comes with the protocol
 slice and raises NotImplementedError.
 """
 
@@ -28,7 +28,8 @@ import torch
 
 from raindrop_tpu_torch.config import RaindropConfig, TrainConfig
 from raindrop_tpu_torch.models.raindrop import (
-    raindrop_apply, raindrop_init, raindrop_param_mask)
+    prop_branch, raindrop_apply, raindrop_init, raindrop_param_mask,
+    warm_propagation)
 from raindrop_tpu_torch.serve import resolve_device
 from raindrop_tpu_torch.utils.dropout import DropoutSeeds
 
@@ -67,6 +68,7 @@ class Trainer:
         if params is None:
             params = raindrop_init(tcfg.seed, cfg, device=self.device)
         self.set_params(params)
+        warm_propagation(cfg, self.device)
 
     # ---- parameters and optimizer ---------------------------------------
     def set_params(self, params) -> None:
@@ -100,10 +102,15 @@ class Trainer:
         for group in self.optimizer.param_groups:
             group["lr"] = float(lr)
 
-    def draw_seeds(self) -> Seeds:
-        """The seeds one train_step consumes, from the trainer's stream."""
+    def draw_seeds(self, rows: int = 0) -> Seeds:
+        """The seeds one train_step on a batch of `rows` samples consumes,
+        from the trainer's stream. Only the COO propagation branch with
+        prop_dropout reads per-sample seeds, so only then are they drawn."""
         n = self.tcfg.grad_microbatches
-        draws = [DropoutSeeds.draw(self._seed_gen, self.cfg.nlayers)
+        per_sample = (self.cfg.prop_dropout > 0.0
+                      and prop_branch(self.cfg, True, False) == "coo")
+        draws = [DropoutSeeds.draw(self._seed_gen, self.cfg.nlayers,
+                                   rows // n if per_sample else 0)
                  for _ in range(n)]
         return draws[0] if n == 1 else draws
 
@@ -161,7 +168,7 @@ class Trainer:
         draws from the trainer's own stream. Returns (loss, logits) on the
         device, without synchronising."""
         if seeds is None and (self.cfg.dropout > 0.0 or self.cfg.prop_dropout > 0.0):
-            seeds = self.draw_seeds()
+            seeds = self.draw_seeds(batch["P"].shape[0])
         loss, logits = self._backward(batch, seeds)
         self.optimizer.step()
         return loss, logits

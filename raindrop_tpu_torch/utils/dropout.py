@@ -61,6 +61,23 @@ def dropout(seed32, x: torch.Tensor, rate: float, train: bool = True) -> torch.T
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+def dropout_rows(seeds, x: torch.Tensor, rate: float, train: bool = True) -> torch.Tensor:
+    """`dropout` on each row of x [B, ...] with that row's own seed: row b
+    hashes the flat index within x[b] with seeds[b]. This is what mapping
+    `dropout` over a batch with one key per sample gives."""
+    if not train or rate <= 0.0 or seeds is None:
+        return x
+    if len(seeds) != x.shape[0]:
+        raise ValueError(f"{len(seeds)} seeds for {x.shape[0]} rows")
+    size = x[0].numel()
+    idx = torch.arange(size, dtype=torch.int64, device=x.device)
+    s = torch.tensor([int(v) & M32 for v in seeds], dtype=torch.int64,
+                     device=x.device)
+    bits = finalize32(_mul32(idx, 0x9E3779B9)[None, :] ^ s[:, None])
+    keep = (bits >= threshold32(rate)).reshape(x.shape)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 @dataclass(frozen=True)
 class LayerSeeds:
     """Seeds of one encoder layer: `kernel` (int32, >= 0) feeds the flash
@@ -77,20 +94,27 @@ class LayerSeeds:
 class DropoutSeeds:
     """Every seed one training forward consumes, mirroring the JAX key
     tree: the embedding dropout, the two propagation layers and, per
-    encoder layer, a LayerSeeds."""
+    encoder layer, a LayerSeeds. The COO propagation branch maps over the
+    samples with one key each: `prop1_rows` and `prop2_rows` hold those
+    per-sample seeds (empty unless asked for)."""
     embed: int
     prop1: int
     prop2: int
     layers: Tuple[LayerSeeds, ...]
+    prop1_rows: Tuple[int, ...] = ()
+    prop2_rows: Tuple[int, ...] = ()
 
     @staticmethod
-    def draw(generator: torch.Generator, nlayers: int) -> "DropoutSeeds":
+    def draw(generator: torch.Generator, nlayers: int,
+             rows: int = 0) -> "DropoutSeeds":
         """Fill every field from `generator` (a CPU generator draws
-        without touching the card)."""
+        without touching the card); `rows` > 0 also draws that many
+        per-sample seeds for each propagation layer."""
         n = 3 + 5 * nlayers
-        raw = torch.randint(0, 2 ** 32, (n,), generator=generator,
+        raw = torch.randint(0, 2 ** 32, (n + 2 * rows,), generator=generator,
                             dtype=torch.int64, device=generator.device).tolist()
         layers = tuple(
             LayerSeeds(raw[3 + 5 * i] % (2 ** 31 - 1), *raw[4 + 5 * i: 8 + 5 * i])
             for i in range(nlayers))
-        return DropoutSeeds(raw[0], raw[1], raw[2], layers)
+        return DropoutSeeds(raw[0], raw[1], raw[2], layers,
+                            tuple(raw[n: n + rows]), tuple(raw[n + rows:]))

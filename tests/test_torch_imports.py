@@ -30,6 +30,10 @@ def test_the_module_list_covers_the_training_slice():
                     "raindrop_tpu_torch.train.trainer",
                     "raindrop_tpu_torch.ops.flash_attention",
                     "raindrop_tpu_torch.ops.fused_encoder",
+                    "raindrop_tpu_torch.ops.segment",
+                    "raindrop_tpu_torch.ops.sparse",
+                    "raindrop_tpu_torch.graph.structure",
+                    "raindrop_tpu_torch.graph.propagate",
                     "raindrop_tpu_torch.bridge", "raindrop_tpu_torch.config"}
 
 

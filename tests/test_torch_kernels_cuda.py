@@ -5,7 +5,8 @@ runs inside the fixture, never at import). On the card:
     python -m pytest tests/test_torch_kernels_cuda.py -q
 Tolerances: 1e-4 with f32 operands (another summation order), 2e-2 with
 bf16 operands (8-bit mantissas, rounding at other points of the sums);
-gradients are compared relative to max(1, the plain gradient's max).
+gradients are compared relative to max(1, the plain gradient's max). The
+sparse-graph kernels are all f32: 1e-5 relative to max(1, |plain|).
 """
 
 import pytest
@@ -13,6 +14,7 @@ import torch
 
 from raindrop_tpu_torch.ops import flash_attention as fa
 from raindrop_tpu_torch.ops import fused_encoder as fe
+from raindrop_tpu_torch.ops import sparse as sp
 from raindrop_tpu_torch.nn.transformer import _layer_init
 
 TOL = {None: 1e-4, "bfloat16": 2e-2}
@@ -161,3 +163,101 @@ def test_wrappers_refuse_bad_inputs(gen):
     with pytest.raises(ValueError):
         fa._packed_fwd(q, q[:, :4], q, torch.tensor([8, 8], device="cuda"),
                        None, 0.0, None, 2)
+
+
+def _graph(gen, kind):
+    """(src, dst, N) on the card: edges in shuffled order; 'knn' leaves the
+    last two nodes without an incoming edge, 'skewed' gives one node a
+    segment longer than a CTA's staging buffer."""
+    if kind == "complete":
+        N = 17
+        src = torch.arange(N, device="cuda").repeat_interleave(N)
+        dst = torch.arange(N, device="cuda").repeat(N)
+        return src, dst, N
+    if kind == "knn":
+        N, k = 40, 6
+        dst = torch.arange(N - 2, device="cuda").repeat_interleave(k)
+    else:
+        N = 12
+        dst = torch.cat([torch.full((700,), 3, device="cuda"),
+                         torch.randint(0, N, (60,), generator=gen, device="cuda")])
+    src = torch.randint(0, N, (dst.numel(),), generator=gen, device="cuda")
+    order = torch.randperm(dst.numel(), generator=gen, device="cuda")
+    return src[order], dst[order], N
+
+
+@pytest.mark.parametrize("gather_target", [False, True])
+@pytest.mark.parametrize("D", [7, 240, 1100])
+@pytest.mark.parametrize("kind", ["complete", "knn", "skewed"])
+def test_spmm_kernels_match_plain(gen, kind, D, gather_target):
+    src, dst, N = _graph(gen, kind)
+    B, E = 5, src.numel()
+    x, g_out = (torch.randn((B, N, D), generator=gen, device="cuda") for _ in range(2))
+    gamma, g_w = (torch.randn((B, E), generator=gen, device="cuda") for _ in range(2))
+    topo = sp.topology(src, dst, N)
+    before = (sp.spmm_segment_softmax.launches, sp.spmm_segment_softmax.bwd_launches)
+    out, w = sp._spmm_fwd_cuda(x, gamma, topo, gather_target)
+    dx, dgamma = sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gather_target)
+    assert (sp.spmm_segment_softmax.launches,
+            sp.spmm_segment_softmax.bwd_launches) == (before[0] + 1, before[1] + 1)
+    out2, w2 = sp._spmm_fwd_cuda(x, gamma, topo, gather_target)
+    dx2, dgamma2 = sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gather_target)
+    p_out, p_w = sp._spmm_fwd_plain(x, gamma, src, dst, N, gather_target)
+    p_dx, p_dgamma = sp._spmm_bwd_plain(g_out, g_w, x, w, src, dst, N, gather_target)
+    torch.cuda.synchronize()
+    for name, a, a2, b in (("out", out, out2, p_out), ("w", w, w2, p_w),
+                           ("dx", dx, dx2, p_dx), ("dgamma", dgamma, dgamma2, p_dgamma)):
+        assert torch.isfinite(a).all() and torch.equal(a, a2), name
+        assert _rel_err(a, b) <= 1e-5, (name, _rel_err(a, b))
+    empty = torch.bincount(dst, minlength=N) == 0
+    assert (out[:, empty] == 0).all()
+    # one row of logits broadcast over the batch is read in place
+    row = gamma[0]
+    out_b, w_b = sp._spmm_fwd_cuda(x, row[None].expand(B, -1), topo, gather_target)
+    out_c, w_c = sp._spmm_fwd_cuda(x, row[None].repeat(B, 1), topo, gather_target)
+    assert torch.equal(out_b, out_c) and torch.equal(w_b, w_c)
+    # no gradient for gamma, no cotangent on the weights
+    dx3, none = sp._spmm_bwd_cuda(g_out, None, x, w, topo, gather_target,
+                                  need_dgamma=False)
+    assert none is None and torch.equal(dx3, dx)
+
+
+@pytest.mark.parametrize("D", [7, 120, 860])
+@pytest.mark.parametrize("kind", ["complete", "knn", "skewed"])
+def test_sddmm_kernels_match_plain(gen, kind, D):
+    src, dst, N = _graph(gen, kind)
+    B, E = 4, src.numel()
+    q, k = (torch.randn((B, N, D), generator=gen, device="cuda") for _ in range(2))
+    d_alpha = torch.randn((B, E), generator=gen, device="cuda")
+    topo = sp.topology(src, dst, N)
+    scale = D ** -0.5
+    before = (sp.sddmm.launches, sp.sddmm.bwd_launches)
+    alpha = sp._sddmm_fwd_cuda(q, k, topo, scale)
+    dq, dk = sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale)
+    assert (sp.sddmm.launches, sp.sddmm.bwd_launches) == (before[0] + 1, before[1] + 1)
+    dq2, dk2 = sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale)
+    p_alpha = sp._sddmm_fwd_plain(q, k, src, dst, scale)
+    p_dq, p_dk = sp._sddmm_bwd_plain(d_alpha, q, k, src, dst, scale)
+    torch.cuda.synchronize()
+    assert _rel_err(alpha, p_alpha) <= 1e-5
+    for name, a, a2, b in (("dq", dq, dq2, p_dq), ("dk", dk, dk2, p_dk)):
+        assert torch.isfinite(a).all() and torch.equal(a, a2), name
+        assert _rel_err(a, b) <= 1e-5, (name, _rel_err(a, b))
+
+
+def test_sparse_autograd_reaches_the_backward_kernels(gen):
+    src, dst, N = _graph(gen, "knn")
+    x = torch.randn((3, N, 24), generator=gen, device="cuda", requires_grad=True)
+    gamma = torch.randn((3, src.numel()), generator=gen, device="cuda",
+                        requires_grad=True)
+    before = (sp.spmm_segment_softmax.bwd_launches, sp.sddmm.bwd_launches)
+    out, w = sp.spmm_segment_softmax(x, gamma, src, dst, n_nodes=N)
+    alpha = sp.sddmm(out, x, src, dst, 0.5)
+    (alpha.square().sum() + w.sin().sum()).backward()
+    assert (sp.spmm_segment_softmax.bwd_launches,
+            sp.sddmm.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(x.grad).all() and torch.isfinite(gamma.grad).all()
+    with pytest.raises(ValueError):      # node features on another device
+        sp.spmm_segment_softmax(x.cpu(), gamma.cpu(), src, dst, n_nodes=N)
+    with pytest.raises(TypeError):
+        sp.sddmm(x.double(), x.double(), src, dst)

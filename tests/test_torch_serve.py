@@ -85,6 +85,26 @@ def test_probabilities_equal_the_jax_server(small):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("prop_backend", ["pallas", "coo"])
+def test_graph_backends_equal_the_jax_server(small, prop_backend):
+    """The server takes the config as it is: prop_backend 'pallas' (the
+    SpMM wrapper, its plain version here) and 'coo' serve the same
+    probabilities as the JAX server with that backend."""
+    _, params, jparams, _ = small
+    kw = dict(max_len=8, prop_backend=prop_backend)
+    server = InferenceServer(dataset_config("P19", **kw), params, buckets=BUCKETS,
+                             device="cpu")
+    jserver = JaxInferenceServer(jax_dataset_config("P19", **kw), jparams,
+                                 buckets=BUCKETS, precompile=False)
+    P, times, static = _request(server.cfg, 5, seed=4)
+    try:
+        np.testing.assert_allclose(server.predict(P, times, static),
+                                   jserver.predict(P, times, static),
+                                   rtol=1e-5, atol=1e-6)
+    finally:
+        server.close()
+
+
 def test_concurrent_submit_matches_predict(small):
     cfg, _, _, server = small
     reqs = [_request(cfg, 1 + i % 3, seed=20 + i) for i in range(8)]

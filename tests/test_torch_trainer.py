@@ -98,7 +98,26 @@ def _setup(preset, dropout, **cfg_kw):
     ("P19", 0.0, "auto"), ("P19", 0.2, "auto"), ("PAM", 0.2, "auto"),
     ("P12", 0.2, "flash"), ("PAM", 0.2, "fused_layer")])
 def test_three_steps_match_the_jax_trainer(preset, dropout, backend):
-    jtr, jparams, tr, cfg = _setup(preset, dropout, attention_backend=backend)
+    _three_steps(preset, dropout, attention_backend=backend)
+
+
+@pytest.mark.parametrize("prop_backend,prop_dropout", [
+    ("pallas", 0.0), ("pallas", 0.1), ("coo", 0.1)])
+def test_three_steps_with_a_graph_backend_match_the_jax_trainer(prop_backend,
+                                                                prop_dropout):
+    """prop_backend='pallas': the SpMM wrapper forward and backward (its
+    plain version here); with prop_dropout > 0 a training step falls
+    through to the dense branch, as in the JAX package. 'coo' with
+    prop_dropout drops softmax weights with one seed per sample."""
+    from raindrop_tpu_torch.ops.sparse import spmm_segment_softmax
+
+    _three_steps("P19", 0.2, prop_backend=prop_backend, prop_dropout=prop_dropout)
+    # on the CPU the wrapper runs its plain version: nothing was launched
+    assert spmm_segment_softmax.launches == spmm_segment_softmax.bwd_launches == 0
+
+
+def _three_steps(preset, dropout, **cfg_kw):
+    jtr, jparams, tr, cfg = _setup(preset, dropout, **cfg_kw)
     split = _split(cfg, 24)
     start = params_to_numpy(tr.params)
     opt_state = jtr.optimizer.init(jparams)
@@ -110,7 +129,7 @@ def test_three_steps_match_the_jax_trainer(preset, dropout, backend):
         jparams, opt_state, jloss, jlogits = jtr._train_step(
             jparams, opt_state, {k: jnp.asarray(v) for k, v in b.items()}, key)
         loss, logits = tr.train_step(_torch_batch(b),
-                                     seeds_from_jax_key(key, cfg.nlayers))
+                                     seeds_from_jax_key(key, cfg.nlayers, rows=B))
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                    rtol=1e-4, atol=1e-5)
@@ -124,6 +143,19 @@ def test_three_steps_match_the_jax_trainer(preset, dropout, backend):
             assert not np.array_equal(got, before[path]), path
         else:
             np.testing.assert_array_equal(got, before[path], err_msg=path)
+
+
+def test_the_trainer_draws_per_sample_seeds_only_for_the_coo_branch():
+    _, _, tr, cfg = _setup("P19", 0.2, prop_backend="coo", prop_dropout=0.1)
+    seeds = tr.draw_seeds(B)
+    assert len(seeds.prop1_rows) == len(seeds.prop2_rows) == B
+    batch = _torch_batch(_batch_np(_split(cfg, 12), np.arange(B)))
+    loss, _ = tr.train_step(batch)            # draws its own, one per sample
+    assert torch.isfinite(loss)
+    for kw in (dict(prop_backend="pallas", prop_dropout=0.1),
+               dict(prop_backend="coo"), {}):
+        _, _, other, _ = _setup("P19", 0.2, **kw)
+        assert other.draw_seeds(B).prop1_rows == ()
 
 
 def test_dead_parameters_are_untouched_and_stateless():
