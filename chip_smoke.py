@@ -53,7 +53,32 @@ check does not hold:
      the SpMM backward must have been launched);
  14. ob_propagate_selfattention (N=36, D=860, 2 heads) on a kNN and on the
      complete graph, score_backend 'sddmm' against 'gather', value and
-     gradient w.r.t. x.
+     gradient w.r.t. x;
+ 15. flash_mha (split heads, any T) forward and backward, kernels against
+     their plain PyTorch versions, f32 and bf16 operands, dropout 0 and
+     0.2, ragged lengths including 0, at B=128, H=2, D=42 and T=600 (the
+     JAX package's one-program regime) and T=2048 (its streaming regime),
+     on the strided head views the model hands it; finite, zero on the
+     length-0 sample, bit-equal on a repeat. At T=2048 the plain version
+     runs on 8 samples at a time (its [B, H, T, T] int64 mask would take
+     8.6 GB at B=128);
+ 16. the public op at T=600 with dropout 0.2 through autograd, held against
+     flash_mha_packed on the same [B, T, d] tensors and seed (both hash
+     b * H + h, the global row and column): output and gradients;
+ 17. an InferenceServer for PAM's width on a 2048-step window
+     (dataset_config("PAM", max_len=2048), full width and depth; every
+     check of phase 6, held against the dense plain path), which must
+     launch flash_mha twice per forward;
+ 18. the trainer protocol on that configuration: train_split on
+     synthetic_split("PAM", T=2048) (B=128, sampler strategy 3, dropout
+     0.2) for 2 epochs with checkpoints, resumed from the `_last` file for
+     a third, and the uninterrupted 3-epoch run, whose history the resumed
+     one must equal bit for bit; finite records, metrics in [0, 1], the
+     best file reloads, forward launches = 2 x (steps + predict chunks),
+     backward launches = 2 x steps; the first step's loss and gradient norm
+     against the dense path at dropout 0 on 16 samples; step ms, samples/s
+     and the idle share;
+ 19. run_splits, 2 splits of 1 epoch, for the summary's shape.
 
 Times are CUDA-event means over repeated launches after a warm-up. Bounds
 use the H100 SXM data-sheet peaks (3.35 TB/s; 67 TFLOP/s f32 outside the
@@ -63,7 +88,7 @@ gradient's largest value): 1e-4 with f32 operands (another summation
 order), 2e-2 with bf16 operands; the fused layer's plain backward takes
 the kernel's relu branches (fused_bwd_phase says why). The sparse-graph
 kernels are f32 throughout and are held to 1e-5 relative to max(1, |plain|).
-The line before the last is the kernels' JSON record (eight records), the
+The line before the last is the kernels' JSON record (twelve records), the
 last line the result. `--out PATH` also writes every
 number to PATH as JSON.
 """
@@ -422,6 +447,156 @@ def fused_bwd_phase(label, B, T, d, ffn, H, dtype, rate, device="cuda", seed=0):
                 bytes=nbytes, flops=flops, scratch_mb=scratch_mb)
 
 
+def _head_views(gen, B, H, T, D, n, device):
+    """n [B, H, T, D] views of one [B, T, n*H*D] projection: the strides
+    nn/transformer.py hands flash_mha."""
+    import torch
+
+    proj = torch.randn((B, T, n * H * D), generator=gen, device=device)
+    return [t.reshape(B, T, H, D).transpose(1, 2) for t in proj.split(H * D, dim=-1)]
+
+
+def _in_chunks(fn, B, step):
+    """fn(slice) over the batch in chunks of `step` samples."""
+    return [fn(slice(b0, min(b0 + step, B))) for b0 in range(0, B, step)]
+
+
+def flash_mha_phase(label, B, H, T, D, dtype, rate, device="cuda", seed=0):
+    """Kernels vs plain for flash_mha, forward (with dropout when rate > 0)
+    and backward, at one shape. The plain version runs on `chunk` samples
+    at a time; b * H + h keys the dropout mask, so a chunk's plain masks
+    are the kernel's only for the first chunk, which is the one compared
+    (it holds the samples of length 0, 1 and T). Returns (forward run,
+    backward run)."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, g = _head_views(gen, B, H, T, D, 4, device)
+    lengths = ragged_lengths(gen, B, T, device)
+    cd = None if dtype == "float32" else dtype
+    od = fa.operand_dtype(cd)
+    chunk = B if T <= 1024 else 8
+    c0 = slice(0, chunk)
+    o, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
+    o2, lse2 = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
+    args = (q, k, v, lengths, SEED, rate, od, o, lse, g)
+    got = fa._flash_bwd_cuda(*args)
+    again = fa._flash_bwd_cuda(*args)
+    o_p, lse_p = fa._flash_fwd_plain(q[c0], k[c0], v[c0], lengths[c0], od, SEED, rate)
+    want = fa._flash_bwd_plain(q[c0], k[c0], v[c0], lengths[c0], SEED, rate, od,
+                               o[c0], lse[c0], g[c0])
+    torch.cuda.synchronize()
+    fwd_err = max(max_err(o[c0], o_p), max_err(lse[c0], lse_p))
+    errs = {n: rel_err(a[c0], b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+    err = max(errs.values())
+    print(f"[flash_mha] {label} {dtype} B={B} H={H} T={T} D={D} dropout {rate}: "
+          f"forward max_abs_err {fwd_err:.3e}, gradients rel err {errs} (tol "
+          f"{TOL[dtype]:g}; plain version on the first {chunk} samples)", flush=True)
+    if fwd_err > TOL[dtype] or err > TOL[dtype]:
+        raise AssertionError(f"flash_mha kernels disagree at {label} {dtype}")
+    _equal_and_finite([("o", o, o2), ("lse", lse, lse2)]
+                      + [(n, a, a2) for n, a, a2 in zip(("dq", "dk", "dv"), got, again)],
+                      f"flash_mha {label} {dtype}")
+    for a in (o, *got):
+        if not bool((a[0] == 0).all()):
+            raise AssertionError("flash_mha: the length-0 sample is not zero")
+    del o_p, lse_p, want, again, o2, lse2
+
+    # inputs already in the operand dtype, so the timed calls are the launches
+    qo, ko, vo = (x.to(od) for x in (q, k, v))
+    reps = dict(reps=20, warmup=3) if T <= 1024 else dict(reps=5, warmup=1)
+    ms = time_ms(lambda: fa._flash_fwd(qo, ko, vo, lengths, SEED, rate, cd), **reps)
+    targs = (qo, ko, vo, lengths, SEED, rate, od, o, lse, g)
+    bwd_ms = time_ms(lambda: fa._flash_bwd_cuda(*targs), **reps)
+    plain_ms = time_ms(lambda: _in_chunks(
+        lambda c: fa._flash_fwd_plain(qo[c], ko[c], vo[c], lengths[c], od, SEED, rate),
+        B, chunk), reps=2, warmup=1)
+    bwd_plain_ms = time_ms(lambda: _in_chunks(
+        lambda c: fa._flash_bwd_plain(qo[c], ko[c], vo[c], lengths[c], SEED, rate, od,
+                                      o[c], lse[c], g[c]), B, chunk), reps=2, warmup=1)
+    live = lengths > 0
+    qh, kh, vh = (x[live].contiguous().requires_grad_() for x in (qo, ko, vo))
+    keep = (torch.arange(T, device=device)[None, :]
+            < lengths[live][:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        library_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=keep, dropout_p=rate),
+                             **reps)
+    out = sdpa(qh, kh, vh, attn_mask=keep, dropout_p=rate)
+    gh = g[live].to(od)
+    bwd_library_ms = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
+                                                         retain_graph=True), **reps)
+    del out, qh, kh, vh
+    esize = 2 if dtype == "bfloat16" else 4
+    n_el = B * H * T * D
+    total = float(lengths.sum())
+    fwd_bytes = 3 * n_el * esize + n_el * 4 + B * H * T * 4 + B * 4
+    fwd_flops = 4.0 * T * D * H * total
+    bwd_bytes = 4 * n_el * esize + 3 * n_el * 4 + 2 * B * H * T * 4 + B * 4
+    bwd_flops = 10.0 * T * D * H * total
+    bound_ms, bound_by = bound(fwd_bytes, fwd_flops, dtype)
+    bwd_bound_ms, bwd_bound_by = bound(bwd_bytes, bwd_flops, dtype)
+    print(f"[flash_mha] {label} {dtype} dropout {rate}: forward {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); backward {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, sdpa "
+          f"backward {bwd_library_ms:.4f} ms, bound {bwd_bound_ms:.4f} ms "
+          f"({bwd_bound_by}); {fwd_flops / 1e9:.1f} / {bwd_flops / 1e9:.1f} GFLOP",
+          flush=True)
+    shape = dict(label=label, dtype=dtype, rate=rate, B=B, H=H, T=T, D=D)
+    fwd = dict(**shape, max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=fwd_bytes, flops=fwd_flops)
+    bwd = dict(**shape, max_abs_err=err, errs=errs, ms=bwd_ms, plain_ms=bwd_plain_ms,
+               library_ms=bwd_library_ms, bound_ms=bwd_bound_ms,
+               bound_by=bwd_bound_by, bytes=bwd_bytes, flops=bwd_flops)
+    return fwd, bwd
+
+
+def flash_mha_op_phase(wrappers, device="cuda", seed=0, B=128, T=600, H=2, D=42,
+                       rate=0.2):
+    """The public op through autograd at a length the packed kernel also
+    takes, f32 operands, dropout on: flash_mha on the head views against
+    flash_mha_packed on the same [B, T, d] tensors and seed. Both hash
+    b * H + h, the global row and the global column, so they draw the same
+    masks and agree to rounding (1e-5). Returns flash_mha's forward and
+    backward launch counts and the differences."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    q, k, v, g = (torch.randn((B, T, H * D), generator=gen, device=device)
+                  for _ in range(4))
+    lengths = ragged_lengths(gen, B, T, device)
+
+    def heads(x):
+        return x.reshape(B, T, H, D).transpose(1, 2)
+
+    for fn in wrappers:
+        fn.launches = fn.bwd_launches = 0
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = fa.flash_mha(*(heads(x) for x in leaves), lengths, SEED, rate, None)
+    o.backward(heads(g))
+    counts = (fa.flash_mha.launches, fa.flash_mha.bwd_launches)
+    p_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_p = fa.flash_mha_packed(*p_leaves, lengths, SEED, rate, None, H)
+    o_p.backward(g)
+    torch.cuda.synchronize()
+    checks = {"o": max_err(o.detach().transpose(1, 2).reshape(B, T, H * D),
+                           o_p.detach())}
+    for n, a, b in zip(("dq", "dk", "dv"), leaves, p_leaves):
+        checks[n] = rel_err(a.grad, b.grad)
+    print(f"[flash_mha] public op at B={B} T={T} H={H} D={D} dropout {rate}, f32: "
+          f"against flash_mha_packed {checks} (tol 1e-5); launches {counts[0]} "
+          f"forward, {counts[1]} backward", flush=True)
+    bad = {n: x for n, x in checks.items() if not x <= 1e-5}
+    if bad or not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"flash_mha and flash_mha_packed disagree: {bad}")
+    if counts != (1, 1):
+        raise AssertionError(f"flash_mha: expected one launch each way, got {counts}")
+    return counts[0], counts[1], checks
+
+
 # ------------------------------------------------------------ graph kernels
 GRAPH_TOL = 1e-5    # f32 throughout, another summation order
 
@@ -459,15 +634,25 @@ def _equal_and_finite(pairs, what):
                                  f"on a repeat")
 
 
-def _spmm_library(x, gamma, N, gather_target):
-    """The complete graph's dense form: one softmax over the [N, N] grid of
-    logits and one bmm. Returns (out, w)."""
+def _spmm_library(x, gamma, N, gather_target, src=None, dst=None):
+    """The dense form: one softmax over the [N, N] grid of logits and one
+    bmm. Returns (out, w). A complete graph in source-major order is the
+    grid itself; any other graph gives `src` and `dst`, and its logits are
+    scattered into a grid of -inf first (a masked softmax; a node without
+    incoming edges softmaxes to NaN and is set to 0; duplicate edges would
+    overwrite each other, so the caller compares only without them)."""
     import torch
 
     B = x.shape[0]
-    W = torch.softmax(gamma.reshape(B, N, N), dim=1)           # [b, s, n]
+    if src is None:
+        W = torch.softmax(gamma.reshape(B, N, N), dim=1)           # [b, s, n]
+    else:
+        grid = torch.full((B, N, N), float("-inf"), dtype=x.dtype, device=x.device)
+        grid[:, src, dst] = gamma
+        W = torch.nan_to_num(torch.softmax(grid, dim=1), nan=0.0)
     A = torch.diag_embed(W.sum(1)) if gather_target else W.transpose(1, 2)
-    return torch.bmm(A, x), W.reshape(B, N * N)
+    w = W.reshape(B, N * N) if src is None else W[:, src, dst]
+    return torch.bmm(A, x), w
 
 
 def spmm_phase(label, B, D, gather_target, device="cuda", seed=0):
@@ -518,19 +703,23 @@ def spmm_phase(label, B, D, gather_target, device="cuda", seed=0):
                                               need_dgamma=False))
     bwd_plain_ms = time_ms(lambda: sp._spmm_bwd_plain(g_out, g_w, x, w, src, dst, N,
                                                       gather_target), reps=5, warmup=1)
-    library_ms = bwd_library_ms = None
-    if complete:
-        l_out, l_w = _spmm_library(x, gamma, N, gather_target)
-        lib_err = max(rel_err(out, l_out), rel_err(w, l_w))
-        if lib_err > GRAPH_TOL:
-            raise AssertionError(f"{what}: the dense softmax + bmm form differs "
-                                 f"by {lib_err}")
-        library_ms = time_ms(lambda: _spmm_library(x, gamma, N, gather_target))
-        xr, gr = x.clone().requires_grad_(), gamma.clone().requires_grad_()
-        outs = _spmm_library(xr, gr, N, gather_target)
-        bwd_library_ms = time_ms(lambda: torch.autograd.grad(
-            outs, (xr, gr), (g_out, g_w), retain_graph=True))
-        del outs, xr, gr
+    # the library yardstick: the dense [N, N] form, masked for a sparse graph
+    lib_edges = () if complete else (src, dst)
+    dups = E - int(torch.unique(src * N + dst).numel())
+    l_out, l_w = _spmm_library(x, gamma, N, gather_target, *lib_edges)
+    lib_err = max(rel_err(out, l_out), rel_err(w, l_w))
+    if dups == 0 and lib_err > GRAPH_TOL:
+        raise AssertionError(f"{what}: the dense softmax + bmm form differs "
+                             f"by {lib_err}")
+    if dups:
+        print(f"[spmm] {label}: {dups} duplicate edges, which the dense form "
+              f"merges: it is timed, not compared", flush=True)
+    library_ms = time_ms(lambda: _spmm_library(x, gamma, N, gather_target, *lib_edges))
+    xr, gr = x.clone().requires_grad_(), gamma.clone().requires_grad_()
+    outs = _spmm_library(xr, gr, N, gather_target, *lib_edges)
+    bwd_library_ms = time_ms(lambda: torch.autograd.grad(
+        outs, (xr, gr), (g_out, g_w), retain_graph=True))
+    del outs, xr, gr, l_out, l_w
     # bytes: each array once; of x only the rows some edge gathers
     gidx = dst if gather_target else src
     rows = int(torch.unique(gidx).numel())
@@ -597,20 +786,21 @@ def sddmm_phase(label, B, D, device="cuda", seed=0):
     bwd_ms = time_ms(lambda: sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale))
     bwd_plain_ms = time_ms(lambda: sp._sddmm_bwd_plain(d_alpha, q, k, src, dst, scale),
                            reps=5, warmup=1)
-    library_ms = bwd_library_ms = None
-    if complete:
-        # source-major edges: alpha[b, s * N + n] = scale * k[b, s] . q[b, n]
-        def lib(q_, k_):
-            return (torch.bmm(k_, q_.transpose(1, 2)) * scale).reshape(B, E)
+    # the library yardstick, one bmm over all N x N pairs: on the complete
+    # graph in source-major order alpha[b, s * N + n] = scale * k[b, s] . q[b, n]
+    # is the product itself, on a sparse graph its E entries are read out
+    def lib(q_, k_):
+        grid = torch.bmm(k_, q_.transpose(1, 2)) * scale
+        return grid.reshape(B, E) if complete else grid[:, src, dst]
 
-        if rel_err(alpha, lib(q, k)) > GRAPH_TOL:
-            raise AssertionError(f"{what}: the dense bmm form differs")
-        library_ms = time_ms(lambda: lib(q, k))
-        qr, kr = q.clone().requires_grad_(), k.clone().requires_grad_()
-        a = lib(qr, kr)
-        bwd_library_ms = time_ms(lambda: torch.autograd.grad(a, (qr, kr), d_alpha,
-                                                             retain_graph=True))
-        del a, qr, kr
+    if rel_err(alpha, lib(q, k)) > GRAPH_TOL:
+        raise AssertionError(f"{what}: the dense bmm form differs")
+    library_ms = time_ms(lambda: lib(q, k))
+    qr, kr = q.clone().requires_grad_(), k.clone().requires_grad_()
+    a = lib(qr, kr)
+    bwd_library_ms = time_ms(lambda: torch.autograd.grad(a, (qr, kr), d_alpha,
+                                                         retain_graph=True))
+    del a, qr, kr
     q_rows, k_rows = int(torch.unique(dst).numel()), int(torch.unique(src).numel())
     index_bytes = 2 * E * 4
     fwd_bytes = (B * (q_rows + k_rows) * D + B * E) * 4 + index_bytes
@@ -787,6 +977,8 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
     wire_probs = wire.predict(P[:top], times[:top], _rows(static, slice(0, top)))
     launches = {fn.__name__: fn.launches for fn in wrappers}
     served_s = time.perf_counter() - t0
+    # model forwards behind those requests, for the launches-per-forward checks
+    forwards = server.health()["batches"] + wire.health()["batches"]
     wire.close()
     print(f"[serve] {dataset}: served in {served_s:.3f} s, launches "
           f"{launches}; health {server.health()}", flush=True)
@@ -832,8 +1024,8 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
                                  f"{fn.__name__}")
     timing = serve_timing(dataset, server, P, times, static)
     server.close()
-    return launches, dict(served_s=served_s, checks=checks, limits=limits,
-                          **timing)
+    return launches, dict(served_s=served_s, forwards=forwards, checks=checks,
+                          limits=limits, **timing)
 
 
 def profile_device(fn, n):
@@ -1064,6 +1256,224 @@ def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
         profile_device_ms=device_ms, idle_share=idle, device_ms_by_kernel=top_k)
 
 
+# ----------------------------------------------------------------- protocol
+LONG = {"max_len": 2048}
+
+
+def _history(result):
+    return [{k: v for k, v in rec.items() if k != "elapsed_s"}
+            for rec in result.history]
+
+
+def _check_result(what, result, cfg, epochs):
+    if len(result.history) != epochs:
+        raise AssertionError(f"{what}: {len(result.history)} records for {epochs} epochs")
+    for rec in result.history:
+        if not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"{what}: a record is not finite: {rec}")
+        if not (0.0 <= rec["val_auroc"] <= 1.0 and 0.0 <= rec["val_auprc"] <= 1.0):
+            raise AssertionError(f"{what}: validation metrics outside [0, 1]: {rec}")
+    if not all(0.0 <= v <= 1.0 for v in result.test_metrics.values()):
+        raise AssertionError(f"{what}: test metrics outside [0, 1]: {result.test_metrics}")
+    if result.test_confusion.shape != (cfg.n_classes, cfg.n_classes):
+        raise AssertionError(f"{what}: confusion matrix {result.test_confusion.shape}")
+
+
+def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=3):
+    """train_split with checkpoints, resume and the uninterrupted run on
+    PAM's width at max_len 2048; the first step against the dense path; the
+    step's time. Returns flash_mha's forward and backward launch counts
+    over the checkpointed 2-epoch run, and the details."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.data.datasets import synthetic_split
+    from raindrop_tpu_torch.nn.transformer import encoder_rung
+    from raindrop_tpu_torch.ops.flash_attention import flash_mha
+    from raindrop_tpu_torch.train.checkpoint import load_checkpoint
+    from raindrop_tpu_torch.train.trainer import Trainer, flatten_params
+
+    cfg = dataset_config("PAM", **LONG)
+    tcfg = TrainConfig(dataset="PAM", num_epochs=3, learning_rate=1e-4,
+                       batch_size=batch, batching_strategy=3,
+                       n_batches_strategy3=n_batches, seed=seed + 1)
+    T, d, H = cfg.max_len, cfg.d_transformer, cfg.nhead
+    rung = encoder_rung(cfg.attention_backend, T, d, H, True)
+    trainer = Trainer(cfg, tcfg, device=device)
+    n_all = sum(t.numel() for _, t in flatten_params(trainer.params))
+    n_live = sum(t.numel() for _, t in trainer.live)
+    side = T * cfg.d_ob
+    print(f"[protocol] PAM at max_len {T}: d={d}, ffn={cfg.ffn_dim}, {H} heads of "
+          f"{d // H}, {cfg.nlayers} layers, {cfg.n_classes} classes; each propagation "
+          f"layer holds 13 matrices' worth of {side}^2 f32 = "
+          f"{13 * side * side * 4 / 1e9:.2f} GB; {n_all / 1e6:.1f} M parameters "
+          f"({4 * n_all / 1e9:.2f} GB), {n_live / 1e6:.1f} M live, Adam moments "
+          f"{8 * n_live / 1e9:.2f} GB; attention: B*H = {batch * H} heads of {T} x {T}; "
+          f"encoder rung: {rung}", flush=True)
+    if rung != "flash_mha":
+        raise AssertionError(f"max_len {T} must take the flash_mha rung, got {rung}")
+    t0 = time.perf_counter()
+    split = synthetic_split("PAM", n, seed, T=T)
+    n_train, n_val, n_test = len(split.ytrain), len(split.yval), len(split.ytest)
+    print(f"[protocol] synthetic_split: {n_train} train, {n_val} val, {n_test} test, "
+          f"made in {time.perf_counter() - t0:.1f} s; {n_batches} batches of {batch} "
+          f"an epoch (sampler strategy 3), dropout {cfg.dropout}, operands "
+          f"{cfg.attention_score_dtype}", flush=True)
+
+    def chunks(m):          # predict's chunks of 100 rows
+        return -(-m // 100)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pam2048")
+        # 2 epochs with checkpoints: the run that gets interrupted
+        trainer.tcfg = dataclasses.replace(tcfg, num_epochs=2)
+        for fn in wrappers:
+            fn.launches = fn.bwd_launches = 0
+        t0 = time.perf_counter()
+        cut = trainer.train_split(split, checkpoint_path=path, verbose=False)
+        cut_s = time.perf_counter() - t0
+        fwd, bwd = flash_mha.launches, flash_mha.bwd_launches
+        _check_result("train_split, 2 epochs", cut, cfg, 2)
+        steps = 2 * n_batches
+        want_fwd = cfg.nlayers * (steps + 2 * chunks(n_val) + chunks(n_test))
+        sizes = {f: os.path.getsize(os.path.join(tmp, f)) for f in sorted(os.listdir(tmp))}
+        print(f"[protocol] 2 epochs + test in {cut_s:.1f} s: history {_history(cut)}; "
+              f"test {cut.test_metrics}; flash_mha launches {fwd} forward (expected "
+              f"{want_fwd}), {bwd} backward (expected {cfg.nlayers * steps}); "
+              f"files {sizes}", flush=True)
+        if fwd != want_fwd or bwd != cfg.nlayers * steps:
+            raise AssertionError("train_split: flash_mha launch counts are off")
+        best, _, meta = load_checkpoint(path, trainer.params)
+        for (name, a), (_, b) in zip(flatten_params(best), flatten_params(cut.params)):
+            if not torch.equal(a, b.detach()):
+                raise AssertionError(f"the best file does not reload: {name}")
+        if meta["config"]["max_len"] != T:
+            raise AssertionError("the best file's sidecar lost its config")
+        del best, cut
+        # a fresh trainer picks the run up for its third epoch
+        del trainer
+        torch.cuda.empty_cache()
+        trainer = Trainer(cfg, tcfg, device=device)
+        t0 = time.perf_counter()
+        resumed = trainer.train_split(split, checkpoint_path=path,
+                                      resume_from=path + "_last", verbose=False)
+        resume_s = time.perf_counter() - t0
+    _check_result("train_split, resumed", resumed, cfg, 3)
+    # the same trainer, from scratch again, uninterrupted and without files
+    t0 = time.perf_counter()
+    full = trainer.train_split(split, verbose=False)
+    full_s = time.perf_counter() - t0
+    _check_result("train_split, 3 epochs", full, cfg, 3)
+    print(f"[protocol] resumed third epoch in {resume_s:.1f} s, uninterrupted 3 "
+          f"epochs in {full_s:.1f} s ({full.samples_per_sec:.1f} samples/s with "
+          f"validation): history {_history(full)}; test {full.test_metrics}", flush=True)
+    if _history(resumed) != _history(full) or resumed.test_metrics != full.test_metrics:
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: "
+                             f"{_history(resumed)} vs {_history(full)}")
+    del resumed
+
+    # first step's loss and gradient norm against the dense path, dropout 0,
+    # on 16 samples (dense attention keeps [B, H, T, T] scores for its backward)
+    data = {"P": torch.from_numpy(split.Ptrain[:16]).to(device),
+            "time": torch.from_numpy(split.Ptrain_time[:16]).to(device),
+            "y": torch.from_numpy(split.ytrain[:16]).to(device).long()}
+    checks, limits = {}, {}
+    for score, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        pair = []
+        for plain in ({}, PLAIN_ATTENTION):
+            c = dataset_config("PAM", **{**LONG, "dropout": 0.0, **plain,
+                                        "attention_score_dtype": score})
+            tr_ = Trainer(c, tcfg, device=device, params=trainer.params)
+            loss, _ = tr_._backward(data, None)
+            pair.append((float(loss), grad_norm(tr_)))
+            del tr_
+        (lk, gk), (ld, gd) = pair
+        checks[f"loss_vs_dense_{score}"] = abs(lk - ld) / abs(ld)
+        checks[f"grad_norm_vs_dense_{score}"] = abs(gk - gd) / gd
+        limits[f"loss_vs_dense_{score}"] = limits[f"grad_norm_vs_dense_{score}"] = tol
+        print(f"[protocol] first step on 16 samples, {score} operands, dropout 0: loss "
+              f"{lk:.7f} (dense {ld:.7f}), gradient norm {gk:.7f} (dense {gd:.7f})",
+              flush=True)
+    bad = {k: v for k, v in checks.items() if not v <= limits[k]}
+    if bad:
+        raise AssertionError(f"PAM-2048 against the dense path: {bad} (limits {limits})")
+    torch.cuda.empty_cache()
+
+    # timings: CUDA events around each step, then an epoch, then a profile
+    train_dev = {"P": torch.from_numpy(split.Ptrain).to(device),
+                 "time": torch.from_numpy(split.Ptrain_time).to(device),
+                 "y": torch.from_numpy(split.ytrain).to(device).long()}
+    idx = torch.stack([torch.randperm(n_train, generator=torch.Generator().manual_seed(i))
+                       [:batch] for i in range(n_batches)]).to(device)
+    trainer.train_epoch(train_dev, idx[:1])
+    step_ms = []
+    for k in range(n_batches):
+        b = {name: t[idx[k]] for name, t in train_dev.items()}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        trainer.train_step(b)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    trainer.train_epoch(train_dev, idx)
+    epoch_ms = 1e3 * (time.perf_counter() - t0)
+    wall_ms, device_ms, idle, top_k = profile_device(
+        lambda: trainer.train_epoch(train_dev, idx), n_batches)
+    step_med = float(np.median(step_ms))
+    sps = batch * n_batches / (epoch_ms / 1e3)
+    print(f"[protocol] PAM-2048: step {step_med:.3f} ms (median of {n_batches}, CUDA "
+          f"events; all {[round(x, 3) for x in step_ms]}); epoch of {n_batches} steps "
+          f"{epoch_ms:.3f} ms by the host clock = {sps:.1f} samples/s; profiled: wall "
+          f"{wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step, idle share {idle}",
+          flush=True)
+    for name, ms in top_k.items():
+        print(f"[protocol] PAM-2048:   {ms:8.4f} ms/step  {name[:100]}", flush=True)
+    return fwd, bwd, dict(
+        rung=rung, params=n_all, live_params=n_live, split=(n_train, n_val, n_test),
+        cut_s=cut_s, resume_s=resume_s, full_s=full_s, files=sizes,
+        history=_history(full), test=full.test_metrics, checks=checks, limits=limits,
+        step_ms=step_ms, step_ms_median=step_med, epoch_ms=epoch_ms,
+        samples_per_s=sps, profile_wall_ms=wall_ms, profile_device_ms=device_ms,
+        idle_share=idle, device_ms_by_kernel=top_k)
+
+
+def run_splits_phase(device="cuda", seed=0, batch=128, n=320, n_batches=2):
+    """run_splits on the 2048 configuration: 2 splits of 1 epoch, for the
+    summary's shape."""
+    import tempfile
+
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.data.datasets import synthetic_split
+    from raindrop_tpu_torch.train.trainer import run_splits
+
+    cfg = dataset_config("PAM", **LONG)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainConfig(dataset="PAM", num_epochs=1, learning_rate=1e-4,
+                           batch_size=batch, batching_strategy=3,
+                           n_batches_strategy3=n_batches, n_splits=2, seed=seed + 1,
+                           checkpoint_dir=tmp)
+        out = run_splits(lambda k: synthetic_split("PAM", n, seed + k, T=cfg.max_len),
+                         cfg, tcfg, device=device, verbose=False)
+        files = sorted(os.listdir(tmp))
+    took = time.perf_counter() - t0
+    print(f"[protocol] run_splits, 2 splits of 1 epoch, in {took:.1f} s: summary "
+          f"{out['summary']}; files {files}", flush=True)
+    names = {"accuracy", "auroc", "auprc", "precision", "recall", "f1"}
+    if set(out["summary"]) != names or len(out["per_split"]) != 2:
+        raise AssertionError(f"run_splits: summary {sorted(out['summary'])}")
+    for name, s_ in out["summary"].items():
+        if len(s_["per_split"]) != 2 or not (0.0 <= s_["mean"] <= 100.0
+                                             and np.isfinite(s_["std"])):
+            raise AssertionError(f"run_splits: {name} = {s_}")
+    if len([f for f in files if f.endswith("_last.npz")]) != 2:
+        raise AssertionError(f"run_splits: checkpoints {files}")
+    return dict(seconds=took, summary=out["summary"])
+
+
 # --------------------------------------------------------------------- main
 def main(argv=None) -> int:
     import argparse
@@ -1084,7 +1494,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     try:
         from raindrop_tpu_torch.kernels import build
-        from raindrop_tpu_torch.ops.flash_attention import flash_mha_packed
+        from raindrop_tpu_torch.ops.flash_attention import flash_mha, flash_mha_packed
         from raindrop_tpu_torch.ops.fused_encoder import fused_encoder_layer
         from raindrop_tpu_torch.ops.sparse import (
             sddmm, spmm_segment_softmax, topology)
@@ -1127,7 +1537,8 @@ def main(argv=None) -> int:
     sddmm_fwd, sddmm_bwd = ([r[i] for r in sddmm_runs] for i in (0, 1))
     torch.cuda.empty_cache()
 
-    wrappers = (flash_mha_packed, fused_encoder_layer, spmm_segment_softmax, sddmm)
+    wrappers = (flash_mha_packed, fused_encoder_layer, spmm_segment_softmax, sddmm,
+                flash_mha)
     pam_launches, pam = serve_phase("PAM", [fused_encoder_layer], wrappers)
     p12_launches, p12 = serve_phase("P12", [flash_mha_packed], wrappers)
     pam_tf, pam_tb, pam_train = train_phase("PAM", [fused_encoder_layer], wrappers)
@@ -1156,6 +1567,26 @@ def main(argv=None) -> int:
     if builds != 1:
         raise AssertionError(f"the topology cache missed: {builds} builds")
     sd_f, sd_b, selfatt = selfattention_phase(wrappers)
+    torch.cuda.empty_cache()
+
+    # long sequences: the split-head flash_mha at the one-program regime's
+    # shape (T=600) and the streaming regime's (T=2048), then the paths
+    mha_runs = [flash_mha_phase(label, 128, 2, T, 42, dt, rate)
+                for label, T in (("PAM-600", 600), ("PAM-2048", 2048))
+                for dt, rate in grid]
+    mha_fwd, mha_bwd = ([r[i] for r in mha_runs] for i in (0, 1))
+    op_f, op_b, op_checks = flash_mha_op_phase(wrappers)
+    torch.cuda.empty_cache()
+    long_launches, long_serve = serve_phase("PAM", [flash_mha], wrappers,
+                                            cfg_overrides=LONG)
+    if long_launches["flash_mha"] != 2 * long_serve["forwards"]:
+        raise AssertionError(
+            f"PAM-2048: two flash_mha launches per forward expected, got "
+            f"{long_launches['flash_mha']} for {long_serve['forwards']} forwards")
+    torch.cuda.empty_cache()
+    long_tf, long_tb, long_train = protocol_phase(wrappers)
+    torch.cuda.empty_cache()
+    splits = run_splits_phase()
 
     # the kernels' record at the main paths' shapes and operand dtype
     # (attention_score_dtype defaults to bfloat16; training runs the shipped
@@ -1185,6 +1616,21 @@ def main(argv=None) -> int:
                "raindrop_tpu_torch/csrc/fused_encoder_bwd.cu",
                "raindrop_tpu/ops/fused_encoder.py:183",
                pam_tb["fused_encoder_layer"], fused_bwd, "PAM", 0.2),
+    ]
+
+    split_src = "raindrop_tpu_torch/csrc/flash_split.cu"
+    jax_flash = "raindrop_tpu/ops/flash_attention.py"
+    # the served 2048 path runs no dropout, the trained one the shipped 0.2;
+    # the public op at T=600 ran 0.2 both ways
+    kernels += [
+        record("flash_mha_fwd", split_src, f"{jax_flash}:191",
+               long_launches["flash_mha"], mha_fwd, "PAM-2048", 0.0),
+        {**record("flash_mha_bwd", split_src, f"{jax_flash}:237", long_tb, mha_bwd,
+                  "PAM-2048", 0.2), "replaces_also": [f"{jax_flash}:275"]},
+        record("flash_mha_fused_regime_fwd", split_src, f"{jax_flash}:121", op_f,
+               mha_fwd, "PAM-600", 0.2),
+        record("flash_mha_fused_regime_bwd", split_src, f"{jax_flash}:146", op_b,
+               mha_bwd, "PAM-600", 0.2),
     ]
 
     def graph_record(name, line, launches, runs, ms_key="ms", bound_key="bound"):
@@ -1230,6 +1676,13 @@ def main(argv=None) -> int:
               "global_adj": adj,
               "selfattention": {"launches": sd_f, "bwd_launches": sd_b,
                                 "checks": selfatt},
+              "flash_mha_fwd": mha_fwd, "flash_mha_bwd": mha_bwd,
+              "flash_mha_op": {"launches": op_f, "bwd_launches": op_b,
+                               "checks": op_checks},
+              "long": {"serve": {"launches": long_launches, **long_serve},
+                       "train": {"launches": long_tf, "bwd_launches": long_tb,
+                                 **long_train},
+                       "run_splits": splits},
               "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -100,7 +100,7 @@ class TrainConfig:
     # (binary), 3 = uniform random batches (multiclass)
     batching_strategy: int = 2
     n_batches_strategy3: int = 30
-    # ReduceLROnPlateau on val AUPRC (read by the protocol slice)
+    # ReduceLROnPlateau on val AUPRC
     plateau_factor: float = 0.1
     plateau_patience: int = 1
     plateau_threshold: float = 1e-4

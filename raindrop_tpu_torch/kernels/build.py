@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("flash_packed", "fused_encoder", "fused_encoder_bwd", "sparse_graph")
+SOURCES = ("flash_packed", "flash_split", "fused_encoder", "fused_encoder_bwd",
+           "sparse_graph")
 
 _lock = threading.Lock()          # guards builds and _libs
 _count_lock = threading.Lock()    # guards the wrappers' launch counts

@@ -12,13 +12,15 @@ backends raise.
 
 Encoder ladder. `backend="auto"` on a CUDA tensor keeps the JAX package's
 structure and thresholds: the fused-layer kernel when d % nhead == 0,
-T >= 384 and T (padded to 8) <= 1024; the packed flash kernel when
-128 <= T and T (padded to 8) <= 1024; dense otherwise. The thresholds are
-the JAX package's, measured on a TPU v5e, not on the H100: the card's own
-crossover is an open question (PERF.md). On a CPU tensor `auto` is dense,
-as the JAX ladder is off the TPU. An explicit "dense" | "flash" |
-"fused_layer" works on both devices (on the CPU the kernels' plain
-versions run).
+T >= 384 and T (padded to 8) <= 1024; flash attention at every other
+T >= 128; dense below. The flash rung runs the packed-heads kernel while
+T (padded to 8) <= 1024 and the split-head `flash_mha` beyond ('flash_mha'
+in `encoder_rung`'s words). The thresholds are the JAX package's, measured
+on a TPU v5e, not on the H100: the card's own crossover is an open
+question (PERF.md). On a CPU tensor `auto` is dense, as the JAX ladder is
+off the TPU. An explicit "dense" | "flash" | "fused_layer" works on both
+devices (on the CPU the kernels' plain versions run); "fused_layer" beyond
+T = 1024 raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch
 
 from raindrop_tpu_torch.nn.init import torch_linear_params, xavier_uniform
 from raindrop_tpu_torch.nn.linear import linear_apply
-from raindrop_tpu_torch.ops.flash_attention import MAX_FUSED_T, flash_mha_packed
+from raindrop_tpu_torch.ops.flash_attention import (
+    MAX_FUSED_T, flash_mha, flash_mha_packed)
 from raindrop_tpu_torch.ops.fused_encoder import fused_encoder_layer
 from raindrop_tpu_torch.utils.dropout import LayerSeeds, dropout
 
@@ -97,17 +100,18 @@ def _fits(T: int) -> bool:
 
 
 def _attention_rung(backend: str, T: int, on_cuda: bool) -> str:
-    """'flash' or 'dense' for the attention of an unfused layer."""
+    """The attention of an unfused layer: 'flash' (the packed-heads
+    kernel), 'flash_mha' (the split-head one, beyond the packed kernel's
+    T) or 'dense'."""
     _refuse(backend)
-    if backend == "flash" or (backend == "auto" and on_cuda and T >= 128
-                              and _fits(T)):
-        return "flash"
+    if backend == "flash" or (backend == "auto" and on_cuda and T >= 128):
+        return "flash" if _fits(T) else "flash_mha"
     return "dense"
 
 
 def encoder_rung(backend: str, T: int, d: int, nhead: int, on_cuda: bool) -> str:
-    """The rung of the ladder one layer takes: 'fused_layer', 'flash' or
-    'dense'."""
+    """The rung of the ladder one layer takes: 'fused_layer', 'flash',
+    'flash_mha' or 'dense'."""
     _refuse(backend)
     if d % nhead == 0 and (backend == "fused_layer" or (
             backend == "auto" and on_cuda and T >= 384 and _fits(T))):
@@ -132,14 +136,22 @@ def multihead_self_attention(
     rate = dropout_rate if (train and seeds is not None) else 0.0
     qkv = x @ p["in_proj_w"].T + p["in_proj_b"]           # [B, T, 3d]
     q, k, v = qkv.split(d, dim=-1)
-    if rung == "flash":
-        out = flash_mha_packed(q, k, v, _lengths(key_padding_mask, B, T, x.device),
-                               seeds.kernel if rate > 0.0 else None, rate,
-                               _score_dtype(score_dtype), nhead)
-        return linear_apply(p["out_proj"], out)
 
-    def heads(t):  # [B, T, d] -> [B, nhead, T, hd]
+    def heads(t):  # [B, T, d] -> [B, nhead, T, hd], a view
         return t.reshape(B, T, nhead, hd).transpose(1, 2)
+
+    if rung in ("flash", "flash_mha"):
+        lengths = _lengths(key_padding_mask, B, T, x.device)
+        seed = seeds.kernel if rate > 0.0 else None
+        cd = _score_dtype(score_dtype)
+        if rung == "flash":
+            out = flash_mha_packed(q, k, v, lengths, seed, rate, cd, nhead)
+        else:
+            # the kernels read the head views in place and write o merged,
+            # so neither side of the call copies
+            out = flash_mha(heads(q), heads(k), heads(v), lengths, seed, rate,
+                            cd).transpose(1, 2).reshape(B, T, d)
+        return linear_apply(p["out_proj"], out)
 
     q, k, v = heads(q) * (hd ** -0.5), heads(k), heads(v)
     logits = q @ k.transpose(-1, -2)

@@ -62,8 +62,12 @@ def test_packed_fwd_refuses_what_this_slice_does_not_serve():
     assert torch.isfinite(fa.flash_mha_packed(q, q, q, lengths, None, 0.1, None, 2)).all()
     with pytest.raises(ValueError, match="dropout_rate"):
         fa.flash_mha_packed(q, q, q, lengths, None, 1.5, None, 2)
+    # past the packed kernel's T the JAX function raises ValueError and
+    # points to flash_mha; so does the port's
     big = torch.zeros((1, 1025, 4))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fa.flash_mha_packed(big, big, big, lengths, None, 0.0, None, 2)
+    with pytest.raises(ValueError, match="use flash_mha"):
+        fa.flash_mha_packed(big, big, big, torch.tensor([1025]), None, 0.0, None, 2)
+    heads = big.reshape(1, 1025, 2, 2).transpose(1, 2)
+    assert fa.flash_mha(heads, heads, heads, torch.tensor([1025])).shape == (1, 2, 1025, 2)
     with pytest.raises(ValueError):
         fa.flash_mha_packed(q, q, q, lengths, None, 0.0, "float16", 2)

@@ -88,5 +88,6 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path):
     assert got.keys() == want.keys()
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    with pytest.raises(NotImplementedError):
-        load_checkpoint(path, params, opt_state_template={})
+    # the optimizer state is restored now; a key the file lacks is named
+    with pytest.raises(KeyError, match="opt/count"):
+        load_checkpoint(path, params, opt_state_template={"count": np.zeros(())})

@@ -34,7 +34,15 @@ def test_the_module_list_covers_the_training_slice():
                     "raindrop_tpu_torch.ops.sparse",
                     "raindrop_tpu_torch.graph.structure",
                     "raindrop_tpu_torch.graph.propagate",
-                    "raindrop_tpu_torch.bridge", "raindrop_tpu_torch.config"}
+                    "raindrop_tpu_torch.bridge", "raindrop_tpu_torch.config",
+                    # the protocol slice
+                    "raindrop_tpu_torch.train.metrics",
+                    "raindrop_tpu_torch.train.plateau",
+                    "raindrop_tpu_torch.train.checkpoint",
+                    "raindrop_tpu_torch.utils.tracking",
+                    "raindrop_tpu_torch.utils.diagnostics",
+                    "raindrop_tpu_torch.data.normalize",
+                    "raindrop_tpu_torch.data.datasets"}
 
 
 def test_every_module_imports_with_jax_blocked():

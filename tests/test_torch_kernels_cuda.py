@@ -261,3 +261,66 @@ def test_sparse_autograd_reaches_the_backward_kernels(gen):
         sp.spmm_segment_softmax(x.cpu(), gamma.cpu(), src, dst, n_nodes=N)
     with pytest.raises(TypeError):
         sp.sddmm(x.double(), x.double(), src, dst)
+
+
+def _head_inputs(gen, B, H, T, D, layout, n=3):
+    """n random [B, H, T, D] tensors: contiguous, or the strided head views
+    of one [B, T, n*H*D] projection (the model's layout)."""
+    if layout == "contiguous":
+        return [torch.randn((B, H, T, D), generator=gen, device="cuda")
+                for _ in range(n)]
+    proj = torch.randn((B, T, n * H * D), generator=gen, device="cuda")
+    return [t.reshape(B, T, H, D).transpose(1, 2) for t in proj.split(H * D, dim=-1)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("layout", ["contiguous", "projection"])
+@pytest.mark.parametrize("T,H,D", [(13, 2, 8), (70, 2, 42), (600, 2, 42),
+                                   (1152, 2, 42), (200, 1, 128)])
+def test_flash_mha_kernels_match_plain(gen, T, H, D, layout, cd, rate):
+    """Forward, dq and dk+dv of flash_mha in both of the JAX package's
+    regimes (T <= 1024 and beyond), through the autograd function."""
+    B = 4
+    q, k, v = (x.requires_grad_() for x in _head_inputs(gen, B, H, T, D, layout))
+    g = torch.randn((B, H, T, D), generator=gen, device="cuda")
+    lengths = _lengths(gen, B, T)
+    od = fa.operand_dtype(cd)
+    f0, b0 = fa.flash_mha.launches, fa.flash_mha.bwd_launches
+    o = fa.flash_mha(q, k, v, lengths, SEED, rate, cd)
+    got = torch.autograd.grad(o, (q, k, v), g, retain_graph=True)
+    again = torch.autograd.grad(o, (q, k, v), g)
+    assert (fa.flash_mha.launches, fa.flash_mha.bwd_launches) == (f0 + 1, b0 + 2)
+    _, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
+    po, plse = fa._flash_fwd_plain(q, k, v, lengths, od, SEED, rate)
+    want = fa._flash_bwd_plain(q.detach(), k.detach(), v.detach(), lengths, SEED,
+                               rate, od, o.detach(), lse, g)
+    torch.cuda.synchronize()
+    assert (o - po).abs().max().item() <= TOL[cd]
+    assert (lse - plse).abs().max().item() <= TOL[cd]
+    assert (o[0] == 0).all()
+    for a, a2, b in zip(got, again, want):
+        assert torch.isfinite(a).all() and torch.equal(a, a2)
+        assert (a[0] == 0).all()               # the length-0 sample
+        assert _rel_err(a, b) <= TOL[cd]
+
+
+def test_flash_mha_matches_the_packed_kernel(gen):
+    """Both hash b * H + h, the global row and the global column: the same
+    seed gives the same masks, so the outputs agree to rounding."""
+    B, T, H, D = 4, 215, 2, 80
+    q, k, v = (torch.randn((B, T, H * D), generator=gen, device="cuda")
+               for _ in range(3))
+    lengths = _lengths(gen, B, T)
+    packed = fa.flash_mha_packed(q, k, v, lengths, SEED, 0.2, None, H)
+    split = fa.flash_mha(*(x.reshape(B, T, H, D).transpose(1, 2) for x in (q, k, v)),
+                         lengths, SEED, 0.2, None)
+    torch.cuda.synchronize()
+    assert split.transpose(1, 2).is_contiguous()
+    assert (split.transpose(1, 2).reshape(B, T, H * D) - packed).abs().max() <= 1e-5
+
+
+def test_flash_mha_refuses_a_head_dim_past_the_kernels(gen):
+    q = torch.randn((1, 1, 16, 136), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="128"):
+        fa.flash_mha(q, q, q, torch.tensor([16], device="cuda"))

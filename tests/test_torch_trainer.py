@@ -271,11 +271,13 @@ def test_sampler_copy_draws_the_same_batches():
 
 
 def test_what_the_protocol_slice_brings_raises():
-    _, _, tr, _ = _setup("P19", 0.0)
-    with pytest.raises(NotImplementedError, match="protocol slice"):
+    # train_split and run_splits are served now (tests/test_torch_protocol.py
+    # holds them against JAX); of the protocol only the MFU telemetry waits
+    assert not hasattr(Trainer, "run_splits")       # module-level, as in JAX
+    tr = Trainer(dataset_config("P19", max_len=8), TrainConfig(measure_mfu=True),
+                 device="cpu")
+    with pytest.raises(NotImplementedError, match="diagnostics slice"):
         tr.train_split(None)
-    with pytest.raises(NotImplementedError, match="protocol slice"):
-        tr.run_splits(None)
     for kw in ({"context_parallel": "ring"}, {"pipeline_microbatches": 2},
                {"edge_partition": True}, {"input_pipeline": "streaming"}):
         with pytest.raises(NotImplementedError):
