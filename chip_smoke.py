@@ -9,52 +9,63 @@ check does not hold:
 
   1. set-up: TF32 off for matmuls and cuDNN (the reference semantics are
      full f32), the card's name and power limit, the kernels built from
-     raindrop_tpu_torch/csrc/ with nvcc (build seconds printed);
+     raindrop_tpu_torch/csrc/ with nvcc (build seconds printed); then the
+     SASS check: cuobjdump -sass on the flash_packed library must find
+     HGMMA (wgmma) instructions in each tensor-core kernel family;
   2. flash_mha_packed forward, kernel against its plain PyTorch version at
      the P12 (B=128, T=215, d=160) and eICU (T=300, d=72) shapes, f32 and
-     bf16 operands, ragged lengths including 0, 1 and T;
+     bf16 operands, ragged lengths including 0, 1 and T; in bf16 the
+     tensor-core kernel is timed in turns with the previous design (the
+     scalar kernel, prev_ms), and each time's share of the bound printed;
   3. fused_encoder_layer forward, the same at the PAM shape (B=128, T=600,
      d=84, ffn=136) on out, attn and lse;
   4. flash_mha_packed backward at the same shapes, dropout 0 and 0.2: the
      forward with dropout, then dq, dk, dv of the two backward kernels
      against the plain backward, finite, zero on the length-0 sample, and
-     bit-equal on a repeat;
-  5. fused_encoder_layer backward at the PAM shape, the same grid: dx and
+     bit-equal on a repeat (prev_ms as in phase 2);
+  5. flash_mha_packed in bf16 at the edge shapes, B=4, 2 heads: head dims
+     8, 42 (4-byte copies), 84 and 128, T = 64, 65 and 1024, dropout 0 and
+     0.2: the tensor-core kernels forward and backward against the plain
+     version and against the scalar kernels, bit-equal on a repeat, exact
+     zeros for the length-0 sample;
+  6. fused_encoder_layer backward at the PAM shape, the same grid: dx and
      the 12 weight gradients against the plain backward, bit-equal on a
      repeat;
-  6. an InferenceServer for PAM at full width (random weights from a seed)
+  7. an InferenceServer for PAM at full width (random weights from a seed)
      answering predict on 1, 5, 128 and 200 rows, submit from 4 threads,
      predict_stream and the bf16 wire format, held against the same server
      on the dense plain path; it must have gone through the fused-layer
      kernel;
-  7. the same for P12, which must have gone through flash_mha_packed;
-  8. a Trainer for PAM at full width and depth (B=128, lr 1e-4, shipped
+  8. the same for P12, which must have gone through flash_mha_packed,
+     every launch on the tensor-core route (bf16 operands);
+  9. a Trainer for PAM at full width and depth (B=128, lr 1e-4, shipped
      dropout 0.2) on a synthetic split resident on the card: one epoch and
      a padded predict; finite losses, backward launches of the preset's
      kernel, dead parameters bit-identical and live ones changed, the same
      epoch twice bit-equal, the first step's loss and gradient norm against
      the dense path at dropout 0, and a falling loss on a fixed batch;
-  9. the same for P12;
- 10. spmm_segment_softmax, kernels against their plain PyTorch versions,
+ 10. the same for P12 (every flash_mha_packed launch, forward and
+     backward, on the tensor-core route);
+ 11. spmm_segment_softmax, kernels against their plain PyTorch versions,
      forward (out, w) and backward (dx, dgamma, cotangents on both
      outputs): the complete sensor graphs of P12 (B=128, N=36, E=1296,
      D=860) and PAM (N=17, E=289, D=2400) with the messages gathered at
      the target and at the source, and a kNN graph (N=128, k=6, E=768,
      D=240, edges shuffled, one node without an incoming edge); zero rows
      exact, bit-equal on a repeat;
- 11. sddmm forward and backward on the same graphs at D=860 and D=120, and
+ 12. sddmm forward and backward on the same graphs at D=860 and D=120, and
      at the shape the self-attention phase gives it;
- 12. an InferenceServer for P12 with prop_backend='pallas' (every check of
-     phase 7, held against the dense plain path: dense attention and dense
+ 13. an InferenceServer for P12 with prop_backend='pallas' (every check of
+     phase 8, held against the dense plain path: dense attention and dense
      propagation), which must launch the SpMM kernel twice per forward;
      and one raindrop_apply with a random global_adj in [0.5, 2],
      'pallas' against 'coo';
- 13. a Trainer for P12 with prop_backend='pallas' (every check of phase 9;
+ 14. a Trainer for P12 with prop_backend='pallas' (every check of phase 10;
      the SpMM backward must have been launched);
- 14. ob_propagate_selfattention (N=36, D=860, 2 heads) on a kNN and on the
+ 15. ob_propagate_selfattention (N=36, D=860, 2 heads) on a kNN and on the
      complete graph, score_backend 'sddmm' against 'gather', value and
      gradient w.r.t. x;
- 15. flash_mha (split heads, any T) forward and backward, kernels against
+ 16. flash_mha (split heads, any T) forward and backward, kernels against
      their plain PyTorch versions, f32 and bf16 operands, dropout 0 and
      0.2, ragged lengths including 0, at B=128, H=2, D=42 and T=600 (the
      JAX package's one-program regime) and T=2048 (its streaming regime),
@@ -62,14 +73,14 @@ check does not hold:
      length-0 sample, bit-equal on a repeat. At T=2048 the plain version
      runs on 8 samples at a time (its [B, H, T, T] int64 mask would take
      8.6 GB at B=128);
- 16. the public op at T=600 with dropout 0.2 through autograd, held against
+ 17. the public op at T=600 with dropout 0.2 through autograd, held against
      flash_mha_packed on the same [B, T, d] tensors and seed (both hash
      b * H + h, the global row and column): output and gradients;
- 17. an InferenceServer for PAM's width on a 2048-step window
+ 18. an InferenceServer for PAM's width on a 2048-step window
      (dataset_config("PAM", max_len=2048), full width and depth; every
-     check of phase 6, held against the dense plain path), which must
+     check of phase 7, held against the dense plain path), which must
      launch flash_mha twice per forward;
- 18. the trainer protocol on that configuration: train_split on
+ 19. the trainer protocol on that configuration: train_split on
      synthetic_split("PAM", T=2048) (B=128, sampler strategy 3, dropout
      0.2) for 2 epochs with checkpoints, resumed from the `_last` file for
      a third, and the uninterrupted 3-epoch run, whose history the resumed
@@ -78,7 +89,7 @@ check does not hold:
      backward launches = 2 x steps; the first step's loss and gradient norm
      against the dense path at dropout 0 on 16 samples; step ms, samples/s
      and the idle share;
- 19. run_splits, 2 splits of 1 epoch, for the summary's shape.
+ 20. run_splits, 2 splits of 1 epoch, for the summary's shape.
 
 Times are CUDA-event means over repeated launches after a warm-up. Bounds
 use the H100 SXM data-sheet peaks (3.35 TB/s; 67 TFLOP/s f32 outside the
@@ -153,6 +164,47 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def time_designs(run, dtype, reps=20):
+    """Times of run(impl): the plan's route ("auto") and, in bf16, the
+    previous design (the scalar kernels, "scalar"), timed in turns scalar,
+    tc, tc, scalar so that the card's clocks favour neither. f32 takes the
+    scalar route either way: its prev_ms is None. ms are CUDA-event means
+    over `reps` calls; device_ms the profiler's device time of a call
+    (the kernels alone, without the host's gaps between launches)."""
+    if dtype != "bfloat16":
+        return dict(ms=time_ms(lambda: run("auto"), reps), prev_ms=None,
+                    device_ms=device_ms(lambda: run("auto")), prev_device_ms=None)
+    t = {"auto": [], "scalar": []}
+    for impl in ("scalar", "auto", "auto", "scalar"):
+        t[impl].append(time_ms(lambda: run(impl), reps))
+    return dict(ms=sum(t["auto"]) / 2, prev_ms=sum(t["scalar"]) / 2,
+                device_ms=device_ms(lambda: run("auto")),
+                prev_device_ms=device_ms(lambda: run("scalar")))
+
+
+def device_ms(fn, reps=20) -> float:
+    """Device time of one fn() call by torch.profiler, after a warm-up."""
+    fn()
+    return profile_device(lambda: [fn() for _ in range(reps)], reps)[1]
+
+
+def device_line(times) -> str:
+    parts = [f"kernel {times['device_ms']:.4f} ms"]
+    if times["prev_device_ms"] is not None:
+        parts.append(f"previous design {times['prev_device_ms']:.4f} ms")
+    parts.append(f"library {times['library_device_ms']:.4f} ms")
+    return ", ".join(parts)
+
+
+def design_line(ms, prev_ms, bound_ms) -> str:
+    """The shares of the bound, and the previous design's time beside."""
+    line = f"{bound_ms / ms:.1%} of the bound"
+    if prev_ms is not None:
+        line += (f"; previous design {prev_ms:.4f} ms ({bound_ms / prev_ms:.1%} of "
+                 f"the bound, {prev_ms / ms:.2f}x)")
+    return line
+
+
 # ----------------------------------------------------------------- kernels
 def flash_phase(label, B, T, d, H, dtype, device="cuda", seed=0):
     """Kernel vs plain for flash_mha_packed's forward at one shape."""
@@ -177,7 +229,9 @@ def flash_phase(label, B, T, d, H, dtype, device="cuda", seed=0):
 
     # inputs already in the operand dtype, so the timed call is the launch
     qo, ko, vo = (x.to(od) for x in (q, k, v))
-    ms = time_ms(lambda: fa._packed_fwd(qo, ko, vo, lengths, None, 0.0, cd, H))
+    times = time_designs(
+        lambda impl: fa._packed_fwd_cuda(qo, ko, vo, lengths, 0, 0.0, H, od, impl), dtype)
+    ms, prev_ms = times["ms"], times["prev_ms"]
     plain_ms = time_ms(lambda: fa._packed_fwd_plain(qo, ko, vo, lengths, H, od))
     live = lengths > 0
     hd = d // H
@@ -187,14 +241,15 @@ def flash_phase(label, B, T, d, H, dtype, device="cuda", seed=0):
             < lengths[live][:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=keep))
+    times["library_device_ms"] = device_ms(lambda: sdpa(qh, kh, vh, attn_mask=keep))
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = 3 * B * T * d * esize + B * T * d * 4 + B * H * T * 4 + B * 4
     flops = 4.0 * T * hd * H * float(lengths.sum())
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    print(f"[flash] {label} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
-    return dict(label=label, dtype=dtype, max_abs_err=err, ms=ms,
+    print(f"[flash] {label} {dtype}: kernel {ms:.4f} ms, {design_line(ms, prev_ms, bound_ms)}, "
+          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); device time {device_line(times)}", flush=True)
+    return dict(label=label, dtype=dtype, max_abs_err=err, **times,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bytes=nbytes, flops=flops)
 
@@ -323,7 +378,8 @@ def flash_bwd_phase(label, B, T, d, H, dtype, rate, device="cuda", seed=0):
 
     qo, ko, vo = (x.to(od) for x in (q, k, v))
     targs = (qo, ko, vo, lengths, SEED, rate, H, od, o_k, lse_k, g)
-    ms = time_ms(lambda: fa._packed_bwd_cuda(*targs))
+    times = time_designs(lambda impl: fa._packed_bwd_cuda(*targs, impl), dtype)
+    ms, prev_ms = times["ms"], times["prev_ms"]
     plain_ms = time_ms(lambda: fa._packed_bwd_plain(*targs), reps=5, warmup=1)
     live = lengths > 0
     hd = d // H
@@ -336,17 +392,101 @@ def flash_bwd_phase(label, B, T, d, H, dtype, rate, device="cuda", seed=0):
     gh = g[live].to(od).reshape(-1, T, H, hd).transpose(1, 2)
     library_ms = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
                                                      retain_graph=True))
+    times["library_device_ms"] = device_ms(
+        lambda: torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True))
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = (4 * B * T * d * esize + 3 * B * T * d * 4 + 2 * B * H * T * 4 + B * 4)
     flops = 10.0 * T * hd * H * float(lengths.sum())
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    print(f"[flash_bwd] {label} {dtype} dropout {rate}: kernels {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    print(f"[flash_bwd] {label} {dtype} dropout {rate}: kernels {ms:.4f} ms, "
+          f"{design_line(ms, prev_ms, bound_ms)}, plain {plain_ms:.4f} ms, sdpa backward "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); device time "
+          f"{device_line(times)}", flush=True)
     return dict(label=label, dtype=dtype, rate=rate, max_abs_err=err,
-                fwd_max_abs_err=fwd_err, errs=errs, ms=ms, plain_ms=plain_ms,
+                fwd_max_abs_err=fwd_err, errs=errs, **times, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, flops=flops)
+
+
+def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
+    """flash_mha_packed in bf16 at an edge shape (head dims 8, 42, 84, 128;
+    T = 64, 65, 1024): the tensor-core kernels against the plain version and
+    against the previous design (the scalar kernels), forward and backward,
+    bit-equal on a repeat, exact zeros for the length-0 sample."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, od, tol = H * hd, torch.bfloat16, TOL["bfloat16"]
+    q, k, v, g = (torch.randn((B, T, d), generator=gen, device=device)
+                  for _ in range(4))
+    lengths = ragged_lengths(gen, B, T, device)
+    plan = fa.packed_plan(B, T, d, H, od)
+    fwd = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, H, od)
+    fwd2 = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, H, od)
+    prev = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, H, od, "scalar")
+    plain = fa._packed_fwd_plain(q, k, v, lengths, H, od, SEED, rate)
+    args = (q, k, v, lengths, SEED, rate, H, od, *fwd, g)
+    got = fa._packed_bwd_cuda(*args)
+    again = fa._packed_bwd_cuda(*args)
+    prev_b = fa._packed_bwd_cuda(*args, "scalar")
+    plain_b = fa._packed_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs = {"fwd_vs_plain": max(max_err(a, b) for a, b in zip(fwd, plain)),
+            "fwd_vs_prev": max(max_err(a, b) for a, b in zip(fwd, prev)),
+            "bwd_vs_plain": max(rel_err(a, b) for a, b in zip(got, plain_b)),
+            "bwd_vs_prev": max(rel_err(a, b) for a, b in zip(got, prev_b))}
+    print(f"[flash_edge] hd={hd} T={T} dropout {rate} (copy {plan.copy_bytes} B, "
+          f"hd padded {plan.hd_k}/{plan.hd_n}): {errs} (tol {tol:g})", flush=True)
+    if max(errs.values()) > tol:
+        raise AssertionError(f"flash_mha_packed tc kernels disagree at hd={hd} T={T}")
+    for a, a2 in zip((*fwd, *got), (*fwd2, *again)):
+        if not bool(torch.isfinite(a).all()) or not torch.equal(a, a2):
+            raise AssertionError(f"flash tc kernels not finite or not bit-equal on a "
+                                 f"repeat at hd={hd} T={T}")
+    zero = [fwd[0][0], *(x[0] for x in got)]
+    if not all(bool((z == 0).all()) for z in zero) or not bool((fwd[1][0] == fa.NEG_INF).all()):
+        raise AssertionError(f"flash tc kernels: the length-0 sample is not zero at "
+                             f"hd={hd} T={T}")
+    return dict(hd=hd, T=T, rate=rate, copy_bytes=plan.copy_bytes, **errs)
+
+
+def sass_phase():
+    """Count the tensor-core instructions in the built flash_packed library
+    (cuobjdump -sass): HGMMA (wgmma) and HMMA (mma.sync) per kernel family.
+    Fails when a packed bf16 tensor-core kernel has none; without cuobjdump
+    on the machine it says so and checks nothing."""
+    import re
+    import shutil
+    from raindrop_tpu_torch.kernels import build
+
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("[sass] cuobjdump is not on this machine: the SASS check did not run",
+              flush=True)
+        return None
+    build.load("flash_packed")
+    lib = str(build._lib_path("flash_packed"))
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    counts, fam = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : \S*?(packed_\w+?_(?:tc|kernel))", line)
+        if m:
+            fam = counts.setdefault(m.group(1), {"functions": 0, "HGMMA": 0, "HMMA": 0})
+            fam["functions"] += 1
+        elif fam is not None and "Function : " in line:
+            fam = None
+        elif fam is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    fam[op] += 1
+    print(f"[sass] {os.path.basename(lib)}: {counts}", flush=True)
+    for name in ("packed_fwd_tc", "packed_dq_tc", "packed_dkv_tc"):
+        if counts.get(name, {}).get("HGMMA", 0) <= 0:
+            raise AssertionError(f"no HGMMA instruction in {name}: {counts.get(name)}")
+    return counts
 
 
 def fused_bwd_phase(label, B, T, d, ffn, H, dtype, rate, device="cuda", seed=0):
@@ -931,6 +1071,36 @@ PLAIN_ATTENTION = {"attention_backend": "dense"}
 PLAIN_ALL = {"attention_backend": "dense", "prop_backend": "auto"}
 
 
+COUNTS = ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches")
+
+
+def reset_counts(wrappers):
+    """Set every launch count of the wrappers to 0 (flash_mha_packed also
+    counts its tensor-core launches apart, as tc_launches / tc_bwd_launches)."""
+    for fn in wrappers:
+        for attr in COUNTS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
+
+
+def read_counts(wrappers, attr):
+    """{wrapper name: count}, plus "<name>.tc" where the wrapper counts its
+    tensor-core launches apart."""
+    out = {fn.__name__: getattr(fn, attr) for fn in wrappers}
+    out.update({f"{fn.__name__}.tc": getattr(fn, f"tc_{attr}") for fn in wrappers
+                if hasattr(fn, f"tc_{attr}")})
+    return out
+
+
+def check_tc(what, *counts):
+    """Every flash_mha_packed launch in these counts took the tensor-core
+    route (the model's attention operands are bf16)."""
+    for c in counts:
+        if c["flash_mha_packed"] <= 0 or c["flash_mha_packed.tc"] != c["flash_mha_packed"]:
+            raise AssertionError(f"{what}: flash_mha_packed launches off the "
+                                 f"tensor-core route: {c}")
+
+
 def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
                 cfg_overrides=None, plain_overrides=PLAIN_ATTENTION,
                 buckets=(1, 8, 32, 128)):
@@ -951,8 +1121,7 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
     P, times, static = make_requests(cfg, top + 72, seed + 1)
 
     t0 = time.perf_counter()
-    for fn in wrappers:
-        fn.launches = 0
+    reset_counts(wrappers)
     outs = {n: server.predict(P[:n], times[:n], _rows(static, slice(0, n)))
             for n in (1, 5, top, top + 72)}
     results = [None] * 4
@@ -975,7 +1144,7 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
     wire = InferenceServer(cfg, server.params, buckets=buckets, device=device,
                            transfer_dtype="bfloat16")
     wire_probs = wire.predict(P[:top], times[:top], _rows(static, slice(0, top)))
-    launches = {fn.__name__: fn.launches for fn in wrappers}
+    launches = read_counts(wrappers, "launches")
     served_s = time.perf_counter() - t0
     # model forwards behind those requests, for the launches-per-forward checks
     forwards = server.health()["batches"] + wire.health()["batches"]
@@ -1145,15 +1314,14 @@ def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
     trainer = Trainer(cfg, tcfg, device=device)
     before = {path: t.detach().clone() for path, t in flatten_params(trainer.params)}
     t0 = time.perf_counter()
-    for fn in wrappers:
-        fn.launches = fn.bwd_launches = 0
+    reset_counts(wrappers)
     losses, _ = trainer.train_epoch(data, idx)
     n_pred = min(200, n)    # two chunks of 100: the second is a padded tail
     P_host, time_host = (data[k][:n_pred].cpu().numpy() for k in ("P", "time"))
     static_host = data["static"][:n_pred].cpu().numpy() if "static" in data else None
     logits = trainer.predict(None, P_host, time_host, static_host)
-    launches = {fn.__name__: fn.launches for fn in wrappers}
-    bwd_launches = {fn.__name__: fn.bwd_launches for fn in wrappers}
+    launches = read_counts(wrappers, "launches")
+    bwd_launches = read_counts(wrappers, "bwd_launches")
     train_s = time.perf_counter() - t0
     print(f"[train] {dataset}: epoch + predict in {train_s:.3f} s; losses "
           f"{[round(float(x), 6) for x in losses]}; forward launches {launches}, "
@@ -1514,6 +1682,7 @@ def main(argv=None) -> int:
     build.build()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s for {list(build.SOURCES)}", flush=True)
+    sass = sass_phase()
 
     flash = [flash_phase("P12", 128, 215, 160, 2, dt) for dt in ("float32", "bfloat16")]
     flash += [flash_phase("eICU", 128, 300, 72, 2, dt) for dt in ("float32", "bfloat16")]
@@ -1522,6 +1691,8 @@ def main(argv=None) -> int:
     grid = [(dt, rate) for dt in ("float32", "bfloat16") for rate in (0.0, 0.2)]
     flash_bwd = [flash_bwd_phase("P12", 128, 215, 160, 2, dt, rate) for dt, rate in grid]
     flash_bwd += [flash_bwd_phase("eICU", 128, 300, 72, 2, dt, rate) for dt, rate in grid]
+    edges = [flash_edge_phase(hd, T, rate) for hd in (8, 42, 84, 128)
+             for T in (64, 65, 1024) for rate in (0.0, 0.2)]
     fused_bwd = [fused_bwd_phase("PAM", 128, 600, 84, 136, 2, dt, rate)
                  for dt, rate in grid]
     torch.cuda.empty_cache()
@@ -1543,6 +1714,7 @@ def main(argv=None) -> int:
     p12_launches, p12 = serve_phase("P12", [flash_mha_packed], wrappers)
     pam_tf, pam_tb, pam_train = train_phase("PAM", [fused_encoder_layer], wrappers)
     p12_tf, p12_tb, p12_train = train_phase("P12", [flash_mha_packed], wrappers)
+    check_tc("P12 serving and training", p12_launches, p12_tf, p12_tb)
     torch.cuda.empty_cache()
 
     # the sparse-graph path: P12 with prop_backend='pallas', held against
@@ -1552,6 +1724,7 @@ def main(argv=None) -> int:
     builds = topology.builds
     g12_launches, g12 = serve_phase("P12", graph_fns, wrappers, cfg_overrides=graph,
                                     plain_overrides=PLAIN_ALL)
+    check_tc("P12 pallas serving", g12_launches)
     if g12_launches["spmm_segment_softmax"] != g12_launches["flash_mha_packed"]:
         raise AssertionError(f"P12 pallas: two SpMM launches per forward expected, "
                              f"as many as flash launches: {g12_launches}")
@@ -1559,6 +1732,7 @@ def main(argv=None) -> int:
     g12_tf, g12_tb, g12_train = train_phase("P12", graph_fns, wrappers,
                                             cfg_overrides=graph,
                                             plain_overrides=PLAIN_ALL)
+    check_tc("P12 pallas training", g12_tf, g12_tb)
     # every server and trainer above shares the model's edge tensors: the
     # graph was sorted for the kernels once, when the first was built
     builds = topology.builds - builds
@@ -1590,14 +1764,16 @@ def main(argv=None) -> int:
 
     # the kernels' record at the main paths' shapes and operand dtype
     # (attention_score_dtype defaults to bfloat16; training runs the shipped
-    # dropout 0.2, serving none)
+    # dropout 0.2, serving none); flash_mha_packed's also carry prev_ms, the
+    # previous design (scalar kernels) timed in turns with it
     def record(name, source, replaces, launches, runs, label, rate=None):
         main_run = next(r for r in runs if r["label"] == label
                         and r["dtype"] == "bfloat16" and r.get("rate") == rate)
+        prev = {"prev_ms": main_run["prev_ms"]} if "prev_ms" in main_run else {}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in runs),
-                "ms": main_run["ms"], "plain_ms": main_run["plain_ms"],
+                "ms": main_run["ms"], **prev, "plain_ms": main_run["plain_ms"],
                 "bound_ms": main_run["bound_ms"],
                 "bound_by": main_run["bound_by"],
                 "library_ms": main_run["library_ms"]}
@@ -1660,8 +1836,9 @@ def main(argv=None) -> int:
     for rec in kernels:
         if rec["launches"] <= 0:
             raise AssertionError(f"{rec['name']} was never launched on its path")
-    detail = {"card": card, "build_s": build_s, "flash": flash, "fused": fused,
-              "flash_bwd": flash_bwd, "fused_bwd": fused_bwd,
+    detail = {"card": card, "build_s": build_s, "sass": sass, "flash": flash,
+              "fused": fused, "flash_bwd": flash_bwd, "flash_edge": edges,
+              "fused_bwd": fused_bwd,
               "spmm_fwd": spmm_fwd, "spmm_bwd": spmm_bwd,
               "sddmm_fwd": sddmm_fwd, "sddmm_bwd": sddmm_bwd,
               "serve": {"PAM": {"launches": pam_launches, **pam},

@@ -7,14 +7,26 @@
 // Backward: + do [B, T, d] (operand type), lse, delta [B, nhead, T] f32
 // -> dq, dk, dv [B, T, d] f32.
 //
-// What bounds it: at the training and serving shapes (P12: T=215, hd=80;
-// eICU: T=300, hd=36) the forward's work is 4*B*H*T^2*hd FLOPs against
-// 4*B*T*d*4 bytes, about 55 FLOP/byte, and the backward's 10*B*H*T^2*hd
-// against 7 such arrays, about 80 FLOP/byte: under the H100's bf16 ridge,
-// so the memory rate bounds the ideal kernels. These first kernels do
-// their products in scalar f32 FMA out of shared memory, so the FMA and
-// shared-memory throughput bound them instead; tensor cores (wgmma) are
-// later work.
+// What bounds it: at the training and serving shapes (P12: T=215, hd=80,
+// d=160; eICU: T=300, hd=36, d=72) the forward's work is 4*B*H*T^2*hd FLOPs
+// against 3 bf16 inputs and an f32 output, about 55 FLOP/byte, and the
+// backward's 10*B*H*T^2*hd against 4 bf16 inputs and 3 f32 outputs, about
+// 80 FLOP/byte: far under the H100's bf16 ridge (about 295), so the memory
+// rate bounds the ideal kernels (P12, B=128: 44 MB forward, 13 us; 88 MB
+// backward, 26 us). The first kernels did every product in scalar f32 FMA
+// out of shared memory with one-element synchronous loads, 20x off that.
+//
+// Two routes, chosen by the wrapper's launch plan (packed_plan in
+// ops/flash_attention.py), which the entry points check:
+// - "tc", bf16 operands: attention_tc.cuh, launched from
+//   flash_packed_{fwd,dq,dkv}_tc.cu. The products run on the tensor cores
+//   (wgmma m64nNk16, bf16 in, f32 accumulate; one warpgroup per 64 rows,
+//   two CTAs per key block in the dk/dv pass), and the streamed tiles come through a
+//   two-stage cp.async ring, the next tile in flight while the current one
+//   is multiplied, with a copy width the alignment allows.
+// - "scalar", f32 operands (and bf16 on request, to measure the previous
+//   design): attend_rows / attn_dq_rows / attn_dkv_rows, scalar f32 FMA.
+//   TF32 would not hold the f32 route's 1e-4.
 //
 // Design: the TPU kernels hold one sample's [T, T] score tile in VMEM and
 // isolate heads with lane masks. Neither carries over. Here one CTA takes
@@ -28,9 +40,17 @@
 // padded keys), and the ragged edge of T is masked instead of padding T to
 // 8. Dropout is a template flag: with rate 0 the forward is the kernel
 // without any mask code.
+#include <algorithm>
+#include <cstring>
+#include <initializer_list>
+
 #include "attention_bwd.cuh"
+#include "flash_packed.cuh"
 
 namespace {
+
+using rd::packed::Plan;
+using rd::packed::allow_smem;
 
 template <int MAXD, bool DROP, typename TIn>
 __global__ void __launch_bounds__(rd::NT)
@@ -93,22 +113,66 @@ packed_dkv_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
       dk + base, dv + base, d);
 }
 
-template <typename K>
-cudaError_t allow_smem(K kern, int bytes) {
-  if (bytes > rd::MAX_SMEM) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// The plan this file would make for the call, the copy width aside (the
+// wrapper lowers it to the pointers' alignment; copy_ok checks it).
+Plan expected_plan(int B, int T, int d, int nhead, int bf16, int route) {
+  const int hd = d / nhead;
+  Plan p{};
+  p.route = route;
+  if (route == 1) {
+    p.hd_k = rd::tc::pad16(hd);
+    p.hd_n = (hd + 7) / 8 * 8;
+    p.smem_fwd = rd::tc::fwd_smem_bytes(hd);
+    p.smem_dq = rd::tc::dq_smem_bytes(hd);
+    p.smem_dkv = rd::tc::dkv_smem_bytes(hd);
+    p.threads_fwd = p.threads_dq = p.threads_dkv = rd::tc::WG;
+  } else {
+    p.hd_k = p.hd_n = hd;
+    p.copy_bytes = bf16 ? 2 : 4;
+    p.smem_fwd = rd::attn_smem_floats(hd) * (int)sizeof(float);
+    p.smem_dq = rd::attn_dq_smem_floats(hd) * (int)sizeof(float);
+    p.smem_dkv = rd::attn_dkv_smem_floats(hd) * (int)sizeof(float);
+    p.threads_fwd = p.threads_dq = p.threads_dkv = rd::NT;
+  }
+  p.grid_x = (T + rd::BQ - 1) / rd::BQ;
+  p.grid_y = nhead;
+  p.grid_z = B;
+  return p;
+}
+
+bool copy_ok(int W, int hd, int d, std::initializer_list<const void*> ptrs) {
+  if (W != 2 && W != 4 && W != 8 && W != 16) return false;
+  if ((hd * 2) % W != 0 || (d * 2) % W != 0) return false;
+  for (const void* ptr : ptrs) {
+    if ((uintptr_t)ptr % W != 0) return false;
+  }
+  return true;
+}
+
+// The plan matches this call: the route is legal for the operand type, every
+// size is what this file computes, the copy width fits the pointers.
+bool plan_ok(const Plan& p, int B, int T, int d, int nhead, int bf16,
+             std::initializer_list<const void*> operands) {
+  if (p.route != 0 && p.route != 1) return false;
+  if (p.route == 1 && !bf16) return false;
+  Plan e = expected_plan(B, T, d, nhead, bf16, p.route);
+  if (p.route == 1) {
+    if (!copy_ok(p.copy_bytes, d / nhead, d, operands)) return false;
+    e.copy_bytes = p.copy_bytes;
+  }
+  if (std::max({e.smem_fwd, e.smem_dq, e.smem_dkv}) > rd::MAX_SMEM) return false;
+  return std::memcmp(&e, &p, sizeof(Plan)) == 0;
 }
 
 template <int MAXD, bool DROP, typename TIn>
 int launch_fwd(const void* q, const void* k, const void* v, const void* lengths,
-               void* o, void* lse, int B, int T, int d, int nhead, float scale2,
+               void* o, void* lse, const Plan& p, int T, int d, int nhead, float scale2,
                int seed, rd::Drop dr, cudaStream_t stream) {
-  const int bytes = rd::attn_smem_floats(d / nhead) * (int)sizeof(float);
   auto kern = packed_fwd_kernel<MAXD, DROP, TIn>;
-  cudaError_t err = allow_smem(kern, bytes);
+  cudaError_t err = allow_smem(kern, p.smem_fwd);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + rd::BQ - 1) / rd::BQ, nhead, B);
-  kern<<<grid, rd::NT, bytes, stream>>>(
+  dim3 grid(p.grid_x, p.grid_y, p.grid_z);
+  kern<<<grid, p.threads_fwd, p.smem_fwd, stream>>>(
       (const TIn*)q, (const TIn*)k, (const TIn*)v, (const int*)lengths,
       (float*)o, (float*)lse, T, d, nhead, scale2, seed, dr);
   return (int)cudaGetLastError();
@@ -117,25 +181,22 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* lengths,
 template <int MAXD, bool DROP, typename TIn>
 int launch_bwd(const void* q, const void* k, const void* v, const void* d_o,
                const void* lse, const void* delta, const void* lengths, void* dq,
-               void* dk, void* dv, int B, int T, int d, int nhead, float scale,
+               void* dk, void* dv, const Plan& p, int T, int d, int nhead, float scale,
                int seed, rd::Drop dr, cudaStream_t stream) {
-  const int hd = d / nhead;
-  const int bytes_q = rd::attn_dq_smem_floats(hd) * (int)sizeof(float);
-  const int bytes_kv = rd::attn_dkv_smem_floats(hd) * (int)sizeof(float);
   auto kq = packed_dq_kernel<MAXD, DROP, TIn>;
   auto kkv = packed_dkv_kernel<MAXD, DROP, TIn>;
-  cudaError_t err = allow_smem(kq, bytes_q);
+  cudaError_t err = allow_smem(kq, p.smem_dq);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(kkv, bytes_kv);
+  err = allow_smem(kkv, p.smem_dkv);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + rd::BQ - 1) / rd::BQ, nhead, B);
-  kq<<<grid, rd::NT, bytes_q, stream>>>(
+  dim3 grid(p.grid_x, p.grid_y, p.grid_z);
+  kq<<<grid, p.threads_dq, p.smem_dq, stream>>>(
       (const TIn*)q, (const TIn*)k, (const TIn*)v, (const TIn*)d_o,
       (const float*)lse, (const float*)delta, (const int*)lengths, (float*)dq,
       T, d, nhead, scale, seed, dr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kkv<<<grid, rd::NT, bytes_kv, stream>>>(
+  kkv<<<grid, p.threads_dkv, p.smem_dkv, stream>>>(
       (const TIn*)q, (const TIn*)k, (const TIn*)v, (const TIn*)d_o,
       (const float*)lse, (const float*)delta, (const int*)lengths, (float*)dk,
       (float*)dv, T, d, nhead, scale, seed, dr);
@@ -160,14 +221,22 @@ bool bad_shape(int B, int T, int d, int nhead, double rate) {
                   : F<MAXD, false, float>(__VA_ARGS__);                       \
   })
 
+// plan: the wrapper's launch plan, 13 ints (flash_packed.cuh struct Plan).
 extern "C" int rd_packed_fwd(const void* q, const void* k, const void* v,
                              const void* lengths, void* o, void* lse, int B,
                              int T, int d, int nhead, float scale2, int bf16,
-                             int seed, double rate, void* stream) {
+                             int seed, double rate, const int* plan, void* stream) {
   if (bad_shape(B, T, d, nhead, rate)) return (int)cudaErrorInvalidValue;
+  Plan p;
+  std::memcpy(&p, plan, sizeof(Plan));
+  if (!plan_ok(p, B, T, d, nhead, bf16, {q, k, v})) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (p.route == 1) {
+    return rd::packed::launch_fwd_tc(q, k, v, lengths, o, lse, p, T, d, nhead, scale2, seed,
+                                     rate, s);
+  }
   const rd::Drop dr = rd::make_drop(rate);
-  RD_DISPATCH(launch_fwd, d / nhead, rate, bf16, q, k, v, lengths, o, lse, B, T,
+  RD_DISPATCH(launch_fwd, d / nhead, rate, bf16, q, k, v, lengths, o, lse, p, T,
               d, nhead, scale2, seed, dr, s);
 }
 
@@ -176,10 +245,21 @@ extern "C" int rd_packed_bwd(const void* q, const void* k, const void* v,
                              const void* d_o, const void* lse, const void* delta,
                              const void* lengths, void* dq, void* dk, void* dv,
                              int B, int T, int d, int nhead, float scale,
-                             int bf16, int seed, double rate, void* stream) {
+                             int bf16, int seed, double rate, const int* plan,
+                             void* stream) {
   if (bad_shape(B, T, d, nhead, rate)) return (int)cudaErrorInvalidValue;
+  Plan p;
+  std::memcpy(&p, plan, sizeof(Plan));
+  if (!plan_ok(p, B, T, d, nhead, bf16, {q, k, v, d_o})) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (p.route == 1) {
+    const int err = rd::packed::launch_dq_tc(q, k, v, d_o, lse, delta, lengths, dq, p, T, d,
+                                             nhead, scale, seed, rate, s);
+    if (err != 0) return err;
+    return rd::packed::launch_dkv_tc(q, k, v, d_o, lse, delta, lengths, dk, dv, p, T, d,
+                                     nhead, scale, seed, rate, s);
+  }
   const rd::Drop dr = rd::make_drop(rate);
   RD_DISPATCH(launch_bwd, d / nhead, rate, bf16, q, k, v, d_o, lse, delta,
-              lengths, dq, dk, dv, B, T, d, nhead, scale, seed, dr, s);
+              lengths, dq, dk, dv, p, T, d, nhead, scale, seed, dr, s);
 }

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each `raindrop_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` at first use
-into `raindrop_tpu_torch/kernels/_build/<name>-<hash>.so` (the hash covers
-the source and every header in csrc/, so an edited source rebuilds) and
+Each library `<name>` is compiled by `nvcc` at first use from
+`raindrop_tpu_torch/csrc/<name>.cu` (and, for flash_packed, the units in
+PARTS, each compiled by its own nvcc process and linked after) into
+`raindrop_tpu_torch/kernels/_build/<name>-<hash>.so` (the hash covers the
+sources and every header in csrc/, so an edited source rebuilds) and
 loaded with ctypes. The sources have a plain C interface and include no
-PyTorch header, so a build takes seconds. Nothing here runs at import time.
+PyTorch header. Nothing here runs at import time.
 
 Every C entry point returns `cudaGetLastError()` after its launches;
 `check` raises if it is not 0. Nothing falls back: a missing `nvcc` or a
@@ -28,6 +30,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("flash_packed", "flash_split", "fused_encoder", "fused_encoder_bwd",
            "sparse_graph")
+# libraries built from several units: flash_packed's tensor-core kernels
+# (96 instantiations) would take minutes in one nvcc process
+PARTS = {"flash_packed": ("flash_packed", "flash_packed_fwd_tc",
+                          "flash_packed_dq_tc", "flash_packed_dkv_tc")}
 
 _lock = threading.Lock()          # guards builds and _libs
 _count_lock = threading.Lock()    # guards the wrappers' launch counts
@@ -43,9 +49,13 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _units(name: str):
+    return [CSRC / f"{u}.cu" for u in PARTS.get(name, (name,))]
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for p in sorted(CSRC.glob("*.cuh")) + _units(name):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -53,31 +63,48 @@ def _lib_path(name: str) -> Path:
 
 
 def _start_build(name: str):
+    """Start one nvcc process per unit of the library: straight to the
+    shared library for one unit, to object files for several (linked in
+    _finish_build). Returns (processes, their outputs, the temporary
+    library, the library), or None when it is built already."""
     out = _lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    units = _units(name)
+    if len(units) == 1:
+        outs = [tmp]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                 str(units[0])]]
+    else:
+        outs = [tmp.with_name(f"{tmp.name}.{u.stem}.o") for u in units]
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        cmds = [[_nvcc(), *flags, "-I", str(CSRC), "-c", "-o", str(o), str(u)]
+                for u, o in zip(units, outs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for c in cmds]
+    return procs, outs, tmp, out
 
 
 def _finish_build(job) -> None:
     if job is None:
         return
-    proc, tmp, out = job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
+    procs, outs, tmp, out = job
+    for proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
+    if outs != [tmp]:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, outs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking {out.name} failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, out)
 
 
 def build(names: Iterable[str] = SOURCES) -> None:
-    """Compile the named sources, all nvcc processes started together."""
+    """Compile the named libraries, all nvcc processes started together."""
     with _lock:
         jobs = []
         try:
@@ -86,11 +113,14 @@ def build(names: Iterable[str] = SOURCES) -> None:
             for job in jobs:
                 _finish_build(job)
         finally:
-            for job in jobs:
-                if job is not None and job[0].poll() is None:
-                    job[0].kill()
-                    job[0].wait()
-                    job[1].unlink(missing_ok=True)
+            for job in filter(None, jobs):
+                procs, outs, tmp, _ = job
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                for f in {*outs, tmp}:
+                    f.unlink(missing_ok=True)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -17,7 +17,9 @@ takes the undropped probabilities; only the PV operand is dropped.
 
 Both are `torch.autograd.Function`s. On CUDA tensors their forward and
 backward launch the hand-written kernels in `csrc/flash_packed.cu` and
-`csrc/flash_split.cu` (or raise); on CPU tensors they run
+`csrc/flash_split.cu` (or raise); `flash_mha_packed` takes the route of
+its launch plan (`packed_plan`): the tensor-core kernels for bf16
+operands, the scalar ones for f32. On CPU tensors they run
 `_packed_fwd_plain` / `_packed_bwd_plain` and `_flash_fwd_plain` /
 `_flash_bwd_plain`, the same functions in plain PyTorch, which the CPU
 tests hold against the JAX package and `chip_smoke.py` holds the kernels
@@ -34,7 +36,9 @@ the global (row, column), so one mask function serves both as well.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -48,8 +52,12 @@ LOG2E = 1.4426950408889634
 # runs the split-head flash_mha.
 MAX_FUSED_T = 1024
 # The largest head dim the kernels take (csrc/attention.cuh RD_DISPATCH_HD:
-# a thread holds hd / 4 output columns in registers).
+# a thread holds hd / 4 output columns in registers; the tensor-core kernels
+# hold hd / 2 and take wgmma widths up to 128).
 MAX_HEAD_DIM = 128
+# Shared memory a block may use on sm_90 (csrc/attention.cuh MAX_SMEM).
+MAX_SMEM = 232448
+_ROWS = 64              # rows of a CTA's block and of a streamed tile
 
 
 def operand_dtype(compute_dtype) -> torch.dtype:
@@ -65,6 +73,81 @@ def pad8(T: int) -> int:
     """T padded to a multiple of 8: the row count the JAX kernels hash
     their site masks with."""
     return -(-T // 8) * 8
+
+
+@dataclass(frozen=True)
+class PackedPlan:
+    """What surrounds a flash_mha_packed launch, computed on the host and
+    checked by the C entry points (csrc/flash_packed.cu `Plan`).
+
+    route: "tc" (tensor cores, bf16 operands) or "scalar" (f32 FMA);
+    hd_k / hd_n: the head dim padded for the K depth of the score products
+    (16) and the N width of the output products (8), hd itself on the
+    scalar route; copy_bytes: the width of one tile copy; smem: shared
+    bytes of the forward, dq and dk/dv kernels; threads: their block sizes;
+    grid: (query or key blocks, heads, samples); the tensor-core dk/dv pass
+    runs two CTAs a key block (dv and dk), 2 * grid[0] along x."""
+
+    route: str
+    hd: int
+    hd_k: int
+    hd_n: int
+    copy_bytes: int
+    smem: tuple
+    threads: tuple
+    grid: tuple
+
+    @functools.cached_property
+    def as_ints(self):
+        """The plan as the C entry points take it: 13 ints."""
+        vals = ((1 if self.route == "tc" else 0), self.hd_k, self.hd_n,
+                self.copy_bytes, *self.smem, *self.threads, *self.grid)
+        return (ctypes.c_int * len(vals))(*vals)
+
+
+def _align(*ptrs) -> int:
+    """The largest power of two up to 16 that divides every address."""
+    a = 16
+    while a > 1 and any(p % a for p in ptrs):
+        a //= 2
+    return a
+
+
+@functools.lru_cache(maxsize=256)
+def packed_plan(B, T, d, nhead, od, impl="auto", align=16) -> PackedPlan:
+    """The launch plan of flash_mha_packed's kernels for [B, T, d] operands
+    of dtype `od` on the card: bf16 takes the tensor-core route, f32 the
+    scalar one (TF32 would miss its 1e-4); impl="scalar" asks for the scalar
+    kernels in bf16 too (the previous design, for measurement). `align` is
+    the operands' address alignment in bytes: with the row stride (2 d
+    bytes) and the head offset (2 hd bytes per head) it bounds the copy
+    width, 16, 8, 4 or 2 bytes (eICU, hd 36: 8; hd 42: 4). Raises for a
+    head dim past MAX_HEAD_DIM."""
+    if impl not in ("auto", "scalar"):
+        raise ValueError(f"impl must be 'auto' or 'scalar', got {impl!r}")
+    if d % nhead:
+        raise ValueError(f"d={d} not divisible by nhead={nhead}")
+    hd = d // nhead
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"the flash_mha_packed kernels take head dims up to "
+                         f"{MAX_HEAD_DIM}, got hd={hd}")
+    grid = (-(-T // _ROWS), nhead, B)
+    if od == torch.bfloat16 and impl == "auto":
+        hd_k, hd_n = -(-hd // 16) * 16, -(-hd // 8) * 8
+        width = 16
+        while width > 2 and ((2 * hd) % width or (2 * d) % width
+                             or align % width):
+            width //= 2
+        tile = _ROWS * hd_k * 2
+        smem = (5 * tile, 6 * tile, 6 * tile + 4 * _ROWS * 4)
+        return PackedPlan("tc", hd, hd_k, hd_n, width, smem, (128, 128, 128),
+                          grid)
+    # csrc/attention.cuh attn_smem_floats, attention_bwd.cuh attn_*_floats
+    rows = _ROWS * (hd + 1)
+    smem = (4 * (3 * rows + _ROWS * (_ROWS + 1)),
+            4 * (4 * rows + _ROWS * (_ROWS + 1)),
+            4 * (4 * rows + 2 * _ROWS * (_ROWS + 1) + 2 * _ROWS))
+    return PackedPlan("scalar", hd, hd, hd, od.itemsize, smem, (256,) * 3, grid)
 
 
 def _dropout_keep_hash(seed, bh, iq: int, ik: int, shape, rate: float,
@@ -269,9 +352,12 @@ def flash_mha_packed(q, k, v, lengths, seed=None, dropout_rate=0.0,
                               compute_dtype, nhead)
 
 
-# forward launches; `bwd_launches` counts the backward's
+# forward launches; `bwd_launches` counts the backward's; the tc_ counts
+# those of the two on the tensor-core route
 flash_mha_packed.launches = 0
 flash_mha_packed.bwd_launches = 0
+flash_mha_packed.tc_launches = 0
+flash_mha_packed.tc_bwd_launches = 0
 
 
 def _same_device(dev, **tensors):
@@ -280,7 +366,17 @@ def _same_device(dev, **tensors):
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
 
 
-def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od):
+def _count(plan, attr):
+    """One launch on `attr` and, on the tensor-core route, on tc_<attr>."""
+    build.count_launch(flash_mha_packed, attr)
+    if plan.route == "tc":
+        build.count_launch(flash_mha_packed, f"tc_{attr}")
+
+
+def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od, impl="auto"):
+    """The forward kernel of the plan's route. `impl="scalar"` reaches the
+    scalar kernel with bf16 operands (the previous design, measured beside
+    the tensor-core one); the model never passes it."""
     B, T, d = q.shape
     dev = q.device
     _same_device(dev, k=k, v=v, lengths=lengths)
@@ -288,6 +384,8 @@ def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od):
         if not x.is_floating_point():
             raise TypeError(f"q, k, v must be floating point, got {x.dtype}")
     q, k, v = (x.detach().to(od).contiguous() for x in (q, k, v))
+    plan = packed_plan(B, T, d, nhead, od, impl,
+                       _align(*(x.data_ptr() for x in (q, k, v))))
     lens = lengths.to(torch.int32).contiguous()
     o = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     lse = torch.empty((B, nhead, T), dtype=torch.float32, device=dev)
@@ -296,16 +394,18 @@ def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         o.data_ptr(), lse.data_ptr(), B, T, d, nhead,
         (1.0 / math.sqrt(d // nhead)) * LOG2E, int(od == torch.bfloat16),
-        seed, rate, stream)
+        seed, rate, plan.as_ints, stream)
     build.check(err, "flash_mha_packed forward")
-    build.count_launch(flash_mha_packed)
+    _count(plan, "launches")
     return o, lse
 
 
-def _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead, od, o, lse, g):
-    """dq, dk, dv through the two backward kernels (one CTA per 64 query
-    rows for dq, one per 64 key rows for dk and dv). delta is prepared
-    here in torch ops, as the JAX package prepares it outside its kernel."""
+def _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead, od, o, lse, g,
+                     impl="auto"):
+    """dq, dk, dv through the two backward kernels of the plan's route (one
+    CTA per 64 query rows for dq, one per 64 key rows for dk and dv). delta
+    is prepared here in torch ops, as the JAX package prepares it outside
+    its kernel. `impl` as in `_packed_fwd_cuda`."""
     B, T, d = q.shape
     dev = q.device
     _same_device(dev, k=k, v=v, lengths=lengths, o=o, lse=lse, g=g)
@@ -315,7 +415,11 @@ def _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead, od, o, lse, g):
     hd = d // nhead
     q, k, v = (x.detach().to(od).contiguous() for x in (q, k, v))
     do = g.detach().to(od).contiguous()
-    delta = ((do.to(torch.float32) * o).reshape(B, T, nhead, hd).sum(-1)
+    plan = packed_plan(B, T, d, nhead, od, impl,
+                       _align(*(x.data_ptr() for x in (q, k, v, do))))
+    # do * o promotes do to f32 exactly: the same delta as do.to(f32) * o
+    # without a copy of do
+    delta = ((do * o).reshape(B, T, nhead, hd).sum(-1)
              .transpose(1, 2).contiguous())
     lens = lengths.to(torch.int32).contiguous()
     lse = lse.contiguous()
@@ -327,9 +431,9 @@ def _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead, od, o, lse, g):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), lens.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, T, d, nhead, scale,
-        int(od == torch.bfloat16), seed, rate, stream)
+        int(od == torch.bfloat16), seed, rate, plan.as_ints, stream)
     build.check(err, "flash_mha_packed backward")
-    build.count_launch(flash_mha_packed, "bwd_launches")
+    _count(plan, "bwd_launches")
     return dq, dk, dv
 
 
@@ -337,7 +441,7 @@ def _lib():
     lib = build.load("flash_packed")
     if lib.rd_packed_fwd.argtypes is None:
         tail = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                ctypes.c_void_p]
+                ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         lib.rd_packed_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                                       + tail)
         lib.rd_packed_fwd.restype = ctypes.c_int

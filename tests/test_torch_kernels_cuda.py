@@ -19,6 +19,10 @@ from raindrop_tpu_torch.nn.transformer import _layer_init
 
 TOL = {None: 1e-4, "bfloat16": 2e-2}
 SEED = 20231
+# flash_mha_packed's shapes: hd 8, 36 (eICU), 80 (P12), 84, 42 (4-byte
+# copies) and 128, T within a tile, one row past it, and the longest
+PACKED_SHAPES = [(13, 16, 2), (130, 72, 2), (215, 160, 2), (70, 84, 1), (64, 84, 2),
+                 (65, 256, 2), (1024, 84, 2), (1024, 256, 2)]
 pytestmark = pytest.mark.cuda
 
 
@@ -43,8 +47,7 @@ def _rel_err(got, want):
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
-@pytest.mark.parametrize("T,d,nhead", [(13, 16, 2), (130, 72, 2), (215, 160, 2),
-                                       (70, 84, 1)])
+@pytest.mark.parametrize("T,d,nhead", PACKED_SHAPES)
 def test_flash_kernel_matches_plain(gen, T, d, nhead, cd, rate):
     B = 5
     q, k, v = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(3))
@@ -61,8 +64,7 @@ def test_flash_kernel_matches_plain(gen, T, d, nhead, cd, rate):
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
-@pytest.mark.parametrize("T,d,nhead", [(13, 16, 2), (130, 72, 2), (215, 160, 2),
-                                       (70, 84, 1)])
+@pytest.mark.parametrize("T,d,nhead", PACKED_SHAPES)
 def test_flash_backward_matches_plain(gen, T, d, nhead, cd, rate):
     B = 5
     q, k, v, g = (torch.randn((B, T, d), generator=gen, device="cuda")
@@ -90,6 +92,47 @@ def test_flash_autograd_reaches_the_backward_kernels(gen):
     fa.flash_mha_packed(q, k, v, lengths, SEED, 0.2, None, 2).square().sum().backward()
     assert fa.flash_mha_packed.bwd_launches == before + 1
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("T,d,nhead", PACKED_SHAPES)
+def test_flash_tensor_core_kernels_match_the_scalar_ones(gen, T, d, nhead, rate):
+    """bf16: the tensor-core route against the previous design (the scalar
+    kernels, same operands): forward, dq, dk, dv."""
+    B = 5
+    q, k, v, g = (torch.randn((B, T, d), generator=gen, device="cuda")
+                  for _ in range(4))
+    lengths = _lengths(gen, B, T)
+    od = torch.bfloat16
+    tc0 = (fa.flash_mha_packed.tc_launches, fa.flash_mha_packed.tc_bwd_launches)
+    o, lse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, nhead, od)
+    so, slse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, impl="scalar")
+    got = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
+    want = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g,
+                               impl="scalar")
+    assert (fa.flash_mha_packed.tc_launches,
+            fa.flash_mha_packed.tc_bwd_launches) == (tc0[0] + 1, tc0[1] + 1)
+    torch.cuda.synchronize()
+    assert (o - so).abs().max().item() <= TOL["bfloat16"]
+    assert (lse - slse).abs().max().item() <= TOL["bfloat16"]
+    assert (o[0] == 0).all() and (lse[0] == fa.NEG_INF).all()
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= TOL["bfloat16"]
+
+
+def test_flash_autograd_in_bf16_reaches_the_tensor_core_kernels(gen):
+    q, k, v = (torch.randn((3, 215, 160), generator=gen, device="cuda",
+                           requires_grad=True) for _ in range(3))
+    lengths = torch.tensor([215, 70, 0], device="cuda")
+    f0 = (fa.flash_mha_packed.launches, fa.flash_mha_packed.tc_launches)
+    b0 = (fa.flash_mha_packed.bwd_launches, fa.flash_mha_packed.tc_bwd_launches)
+    fa.flash_mha_packed(q, k, v, lengths, SEED, 0.2, "bfloat16", 2).square().sum().backward()
+    assert (fa.flash_mha_packed.launches, fa.flash_mha_packed.tc_launches) == (
+        f0[0] + 1, f0[1] + 1)
+    assert (fa.flash_mha_packed.bwd_launches, fa.flash_mha_packed.tc_bwd_launches) == (
+        b0[0] + 1, b0[1] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    assert all((t.grad[2] == 0).all() for t in (q, k, v))
 
 
 def _random_layer(gen, d, ffn):
@@ -163,6 +206,10 @@ def test_wrappers_refuse_bad_inputs(gen):
     with pytest.raises(ValueError):
         fa._packed_fwd(q, q[:, :4], q, torch.tensor([8, 8], device="cuda"),
                        None, 0.0, None, 2)
+    wide = torch.randn((1, 16, 272), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="128"):
+        fa._packed_fwd(wide, wide, wide, torch.tensor([16], device="cuda"), None, 0.0,
+                       "bfloat16", 2)
 
 
 def _graph(gen, kind):
