@@ -1,0 +1,220 @@
+#!/usr/bin/env python3
+"""Compare checkouts of the PyTorch port on one NVIDIA GPU, in turns.
+
+    python3 chip_ab.py --run ROOT:TASKS [--run ROOT:TASKS ...] [--out FILE]
+
+Each --run is one process on the checkout at ROOT (a directory holding
+chip_smoke.py and raindrop_tpu_torch/), doing the comma-separated TASKS in
+order with that checkout's own code:
+
+  build       nvcc-build the flash_packed library from a clean build
+              directory (seconds, wall clock);
+  one_unit    compile every unit of flash_packed in a single nvcc process
+              (seconds; where the library is built from several units);
+  kernels     flash_mha_packed in bf16 at P12 (B=128, T=215, d=160),
+              eICU (T=300, d=72) and P12 at B=1 (the smallest served
+              bucket), 2 heads, ragged lengths: the forward
+              (dropout 0) and the backward (dropout 0.2), checked against
+              the plain version, timed by CUDA events (20 calls) and by
+              torch.profiler device time, plus the host time of a call;
+  serve_train chip_smoke.serve_phase and train_phase for P12 (latency by
+              bucket, step ms, device ms, idle share);
+  latency     a P12 server (random weights from seed 0): request latency
+              by bucket, the median of 31 requests, and the top bucket's
+              device time and idle share (chip_smoke.serve_timing).
+
+Give the runs in an order that favours no checkout (A B B A). Each task
+prints `TASK name {...}` when it ends and each run `RESULT {...}`; --out
+writes the runs as a JSON list. A run that fails is recorded with its
+error and the tasks it finished, and the others go on.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+SHAPES = (("P12", 128, 215, 160, 2), ("eICU", 128, 300, 72, 2), ("P12-B1", 1, 215, 160, 2))
+
+
+def _load_smoke(root):
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def task_build(root, cs):
+    from raindrop_tpu_torch.kernels import build
+
+    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    build.build(["flash_packed"])
+    return {"build_s": time.perf_counter() - t0}
+
+
+def task_one_unit(root, cs):
+    from raindrop_tpu_torch.kernels import build
+
+    units = [str(u) for u in build._units("flash_packed")]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "one_unit.cu")
+        with open(src, "w") as f:
+            f.writelines(f'#include "{u}"\n' for u in units)
+        t0 = time.perf_counter()
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+                               "-o", os.path.join(tmp, "one_unit.so"), src],
+                              capture_output=True, text=True)
+        took = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"one-unit build failed:\n{proc.stdout}{proc.stderr}")
+    return {"units": len(units), "one_unit_build_s": took}
+
+
+def task_kernels(root, cs):
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    od = torch.bfloat16
+    out = {}
+    for label, B, T, d, H in SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, g = (torch.randn((B, T, d), generator=gen, device="cuda").to(od)
+                      for _ in range(4))
+        lengths = (cs.ragged_lengths(gen, B, T, "cuda") if B >= 3
+                   else torch.full((B,), T, dtype=torch.int32, device="cuda"))
+        o, lse = fa._packed_fwd_cuda(q, k, v, lengths, cs.SEED, 0.2, H, od)
+        want = fa._packed_fwd_plain(q, k, v, lengths, H, od, cs.SEED, 0.2)
+        err = max(cs.max_err(o, want[0]), cs.max_err(lse, want[1]))
+        if err > cs.TOL["bfloat16"]:
+            raise AssertionError(f"{label}: forward disagrees with the plain version: {err}")
+        calls = {
+            "fwd": lambda: fa._packed_fwd_cuda(q, k, v, lengths, 0, 0.0, H, od),
+            "bwd": lambda: fa._packed_bwd_cuda(q, k, v, lengths, cs.SEED, 0.2, H, od,
+                                               o, lse, g),
+        }
+        for name, fn in calls.items():
+            ms = cs.time_ms(fn)
+            fn()
+            device_ms = cs.profile_device(lambda: [fn() for _ in range(20)], 20)[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            host_ms = 1e3 * (time.perf_counter() - t0) / 50
+            torch.cuda.synchronize()
+            out[f"{label}_{name}"] = {"ms": ms, "device_ms": device_ms,
+                                      "host_ms": host_ms}
+            print(f"[ab] {root}: {label} bf16 {name}: {ms:.4f} ms by events, device "
+                  f"{device_ms:.4f} ms, host {host_ms:.4f} ms a call", flush=True)
+    return out
+
+
+def task_serve_train(root, cs):
+    from raindrop_tpu_torch.ops.flash_attention import flash_mha, flash_mha_packed
+    from raindrop_tpu_torch.ops.fused_encoder import fused_encoder_layer
+    from raindrop_tpu_torch.ops.sparse import sddmm, spmm_segment_softmax
+
+    wrappers = (flash_mha_packed, fused_encoder_layer, spmm_segment_softmax, sddmm,
+                flash_mha)
+    launches, serve = cs.serve_phase("P12", [flash_mha_packed], wrappers)
+    tf, tb, train = cs.train_phase("P12", [flash_mha_packed], wrappers)
+    keep = ("profile_wall_ms", "profile_device_ms", "idle_share", "device_ms_by_kernel")
+    return {"serve": {"launches": launches,
+                      **{k: serve[k] for k in ("latency_ms", *keep)}},
+            "train": {"launches": tf, "bwd_launches": tb,
+                      **{k: train[k] for k in ("step_ms", "step_ms_median", "epoch_ms",
+                                               "samples_per_s", *keep)}}}
+
+
+def task_latency(root, cs):
+    from raindrop_tpu_torch.config import dataset_config
+    from raindrop_tpu_torch.models.raindrop import raindrop_init
+    from raindrop_tpu_torch.serve import InferenceServer
+
+    cfg = dataset_config("P12")
+    server = InferenceServer(cfg, raindrop_init(0, cfg, device="cuda"),
+                             buckets=(1, 8, 32, 128), device="cuda")
+    P, times, static = cs.make_requests(cfg, 128, 1)
+    timing = cs.serve_timing("P12", server, P, times, static, reps=31)
+    server.close()
+    return {k: timing[k] for k in ("latency_ms", "profile_wall_ms", "profile_device_ms",
+                                   "idle_share")}
+
+
+TASKS = {"build": task_build, "one_unit": task_one_unit, "kernels": task_kernels,
+         "serve_train": task_serve_train, "latency": task_latency}
+
+
+def worker(root, tasks):
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cs = _load_smoke(root)
+    result = {"root": root, "tasks": tasks}
+    for name in tasks:
+        result[name] = TASKS[name](root, cs)
+        print(f"TASK {name} " + json.dumps(result[name]), flush=True)
+    print("RESULT " + json.dumps(result), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--run", action="append", default=[],
+                    help="ROOT:TASKS, TASKS comma-separated from " + ", ".join(TASKS))
+    ap.add_argument("--worker", nargs=2, metavar=("ROOT", "TASKS"), help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if args.worker:
+        worker(args.worker[0], args.worker[1].split(","))
+        return 0
+    try:
+        import torch
+    except ImportError:
+        print("chip_ab: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device; this script runs on the GPU only", file=sys.stderr)
+        return 2
+    runs, failed = [], 0
+    for spec in args.run:
+        root, tasks = spec.rsplit(":", 1)
+        unknown = set(tasks.split(",")) - set(TASKS)
+        if unknown:
+            raise SystemExit(f"unknown tasks {sorted(unknown)}")
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
+                               tasks], capture_output=True, text=True)
+        sys.stdout.write(proc.stdout)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+        if proc.returncode != 0 or not lines:
+            failed += 1
+            done = {}
+            for ln in proc.stdout.splitlines():
+                if ln.startswith("TASK "):
+                    name, _, rec = ln[len("TASK "):].partition(" ")
+                    done[name] = json.loads(rec)
+            runs.append({"root": root, "tasks": tasks, **done,
+                         "error": proc.stderr[-4000:]})
+            print(f"[ab] {root}:{tasks} failed:\n{proc.stderr[-4000:]}", flush=True)
+        else:
+            runs.append(json.loads(lines[-1][len("RESULT "):]))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(runs, f, indent=1)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

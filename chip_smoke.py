@@ -24,7 +24,8 @@ check does not hold:
      against the plain backward, finite, zero on the length-0 sample, and
      bit-equal on a repeat (prev_ms as in phase 2);
   5. flash_mha_packed in bf16 at the edge shapes, B=4, 2 heads: head dims
-     8, 42 (4-byte copies), 84 and 128, T = 64, 65 and 1024, dropout 0 and
+     3 and 13 (odd: 2-byte plain loads, unpaired stores), 8, 42 (4-byte
+     copies), 84 and 128, T = 64, 65 and 1024, dropout 0 and
      0.2: the tensor-core kernels forward and backward against the plain
      version and against the scalar kernels, bit-equal on a repeat, exact
      zeros for the length-0 sample;
@@ -151,6 +152,20 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def attention_bytes(lengths, T, d, H, esize, backward=False) -> float:
+    """Bytes an attention kernel must move over [B, T, d] operands: q (and
+    do) of the samples with a live key, k and v below each length only (the
+    kernels never read past it), the f32 outputs over all of T (o; or dq,
+    dk and dv), the [B, H, T] f32 statistics (lse written for every sample;
+    lse and delta read for the live ones) and the lengths."""
+    B = lengths.numel()
+    live, keys = int((lengths > 0).sum()), float(lengths.sum())
+    if backward:
+        return (2 * live * T * d * esize + 2 * keys * d * esize + 3 * B * T * d * 4
+                + 2 * live * H * T * 4 + B * 4)
+    return live * T * d * esize + 2 * keys * d * esize + B * T * d * 4 + B * H * T * 4 + B * 4
+
+
 def ragged_lengths(gen, B, T, device):
     import torch
 
@@ -243,7 +258,7 @@ def flash_phase(label, B, T, d, H, dtype, device="cuda", seed=0):
     library_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=keep))
     times["library_device_ms"] = device_ms(lambda: sdpa(qh, kh, vh, attn_mask=keep))
     esize = 2 if dtype == "bfloat16" else 4
-    nbytes = 3 * B * T * d * esize + B * T * d * 4 + B * H * T * 4 + B * 4
+    nbytes = attention_bytes(lengths, T, d, H, esize)
     flops = 4.0 * T * hd * H * float(lengths.sum())
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     print(f"[flash] {label} {dtype}: kernel {ms:.4f} ms, {design_line(ms, prev_ms, bound_ms)}, "
@@ -395,7 +410,7 @@ def flash_bwd_phase(label, B, T, d, H, dtype, rate, device="cuda", seed=0):
     times["library_device_ms"] = device_ms(
         lambda: torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True))
     esize = 2 if dtype == "bfloat16" else 4
-    nbytes = (4 * B * T * d * esize + 3 * B * T * d * 4 + 2 * B * H * T * 4 + B * 4)
+    nbytes = attention_bytes(lengths, T, d, H, esize, backward=True)
     flops = 10.0 * T * hd * H * float(lengths.sum())
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     print(f"[flash_bwd] {label} {dtype} dropout {rate}: kernels {ms:.4f} ms, "
@@ -409,8 +424,8 @@ def flash_bwd_phase(label, B, T, d, H, dtype, rate, device="cuda", seed=0):
 
 
 def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
-    """flash_mha_packed in bf16 at an edge shape (head dims 8, 42, 84, 128;
-    T = 64, 65, 1024): the tensor-core kernels against the plain version and
+    """flash_mha_packed in bf16 at an edge shape (head dims 3, 8, 13, 42,
+    84, 128; T = 64, 65, 1024): the tensor-core kernels against the plain version and
     against the previous design (the scalar kernels), forward and backward,
     bit-equal on a repeat, exact zeros for the length-0 sample."""
     import torch
@@ -437,7 +452,7 @@ def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
             "bwd_vs_plain": max(rel_err(a, b) for a, b in zip(got, plain_b)),
             "bwd_vs_prev": max(rel_err(a, b) for a, b in zip(got, prev_b))}
     print(f"[flash_edge] hd={hd} T={T} dropout {rate} (copy {plan.copy_bytes} B, "
-          f"hd padded {plan.hd_k}/{plan.hd_n}): {errs} (tol {tol:g})", flush=True)
+          f"hd padded {plan.hd_pad}): {errs} (tol {tol:g})", flush=True)
     if max(errs.values()) > tol:
         raise AssertionError(f"flash_mha_packed tc kernels disagree at hd={hd} T={T}")
     for a, a2 in zip((*fwd, *got), (*fwd2, *again)):
@@ -669,11 +684,10 @@ def flash_mha_phase(label, B, H, T, D, dtype, rate, device="cuda", seed=0):
                                                          retain_graph=True), **reps)
     del out, qh, kh, vh
     esize = 2 if dtype == "bfloat16" else 4
-    n_el = B * H * T * D
     total = float(lengths.sum())
-    fwd_bytes = 3 * n_el * esize + n_el * 4 + B * H * T * 4 + B * 4
+    fwd_bytes = attention_bytes(lengths, T, H * D, H, esize)
     fwd_flops = 4.0 * T * D * H * total
-    bwd_bytes = 4 * n_el * esize + 3 * n_el * 4 + 2 * B * H * T * 4 + B * 4
+    bwd_bytes = attention_bytes(lengths, T, H * D, H, esize, backward=True)
     bwd_flops = 10.0 * T * D * H * total
     bound_ms, bound_by = bound(fwd_bytes, fwd_flops, dtype)
     bwd_bound_ms, bwd_bound_by = bound(bwd_bytes, bwd_flops, dtype)
@@ -1691,7 +1705,7 @@ def main(argv=None) -> int:
     grid = [(dt, rate) for dt in ("float32", "bfloat16") for rate in (0.0, 0.2)]
     flash_bwd = [flash_bwd_phase("P12", 128, 215, 160, 2, dt, rate) for dt, rate in grid]
     flash_bwd += [flash_bwd_phase("eICU", 128, 300, 72, 2, dt, rate) for dt, rate in grid]
-    edges = [flash_edge_phase(hd, T, rate) for hd in (8, 42, 84, 128)
+    edges = [flash_edge_phase(hd, T, rate) for hd in (3, 8, 13, 42, 84, 128)
              for T in (64, 65, 1024) for rate in (0.0, 0.2)]
     fused_bwd = [fused_bwd_phase("PAM", 128, 600, 84, 136, 2, dt, rate)
                  for dt, rate in grid]
@@ -1765,15 +1779,18 @@ def main(argv=None) -> int:
     # the kernels' record at the main paths' shapes and operand dtype
     # (attention_score_dtype defaults to bfloat16; training runs the shipped
     # dropout 0.2, serving none); flash_mha_packed's also carry prev_ms, the
-    # previous design (scalar kernels) timed in turns with it
+    # previous design (scalar kernels) timed in turns with it, and the
+    # profiler's device times of the kernel, the previous design and the
+    # library call (CUDA events around a short call time the host too)
     def record(name, source, replaces, launches, runs, label, rate=None):
         main_run = next(r for r in runs if r["label"] == label
                         and r["dtype"] == "bfloat16" and r.get("rate") == rate)
-        prev = {"prev_ms": main_run["prev_ms"]} if "prev_ms" in main_run else {}
+        extra = {k: main_run[k] for k in ("prev_ms", "device_ms", "prev_device_ms",
+                                          "library_device_ms") if k in main_run}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in runs),
-                "ms": main_run["ms"], **prev, "plain_ms": main_run["plain_ms"],
+                "ms": main_run["ms"], **extra, "plain_ms": main_run["plain_ms"],
                 "bound_ms": main_run["bound_ms"],
                 "bound_by": main_run["bound_by"],
                 "library_ms": main_run["library_ms"]}

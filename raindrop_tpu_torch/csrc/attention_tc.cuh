@@ -8,9 +8,10 @@
 // :_packed_bwd_kernel (:610). The design that shipped is the wgmma one (the
 // mma.sync fallback was not needed).
 //
-// Bound on this card: bytes. At B=128 the forward moves 44 MB at P12 (13
-// us at 3.35 TB/s) and 28 MB at eICU (8 us), the backward 88 and 56 MB (26
-// and 17 us); its FLOPs take 2-5 us of tensor-core time. What the scalar
+// Bound on this card: bytes. At B=128, with lengths uniform on 0..T (k and
+// v are read below each length only), the forward moves about 35 MB at P12
+// (11 us at 3.35 TB/s) and 22 MB at eICU (7 us), the backward 80 and 50 MB
+// (24 and 15 us); its FLOPs take 2-5 us of tensor-core time. What the scalar
 // kernels lost to FMA out of shared memory the tensor cores take back; what
 // is left is latency: a 64-row tile is a few microseconds of copies,
 // softmax and barriers for one warpgroup, so the design streams tiles
@@ -31,10 +32,10 @@
 // (8 rows of 16 bytes), no swizzle, column block major: element (r, c) at
 // byte (c / 8) * 1024 + (r / 8) * 128 + (r % 8) * 16 + (c % 8) * 2. A row of
 // 80 bf16 is not a multiple of a 128-byte swizzle atom, and this layout
-// takes any multiple of 8 columns. The output products use N = HDN = hd
-// padded to 8. Pad columns are zeroed once; rows past a tile's limit are
-// filled with zeros by the copy itself (a NaN bit pattern in shared memory
-// times a probability of 0 would be NaN).
+// takes any multiple of 8 columns. The output products use N = HDK too, so
+// one padded width serves every product. Pad columns are zeroed once; rows
+// past a tile's limit are filled with zeros by the copy itself (a NaN bit
+// pattern in shared memory times a probability of 0 would be NaN).
 //
 // Copies: the streamed tiles go through a ring of two stages filled by
 // cp.async, the next tile in flight while the current one is multiplied.
@@ -129,21 +130,10 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(acc));
 }
 
-// D[64 x N] += A[64 x 16] B[16 x N]: A bf16 in registers (the fragment of
-// frag_a), B MN-major in shared memory.
+// D[64 x N] += A[64 x 16] B[16 x N], N = 16, 32, ..., 128: A bf16 in
+// registers (the fragment of frag_a), B MN-major in shared memory.
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void mma_rs<8>(float (&d)[4], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 template <>
 __device__ __forceinline__ void mma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
                                             uint64_t db) {
@@ -154,18 +144,6 @@ __device__ __forceinline__ void mma_rs<16>(float (&d)[8], const uint32_t (&a)[4]
       "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
-__device__ __forceinline__ void mma_rs<24>(float (&d)[12], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
-      "{%12, %13, %14, %15}, %16, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 template <>
@@ -182,21 +160,6 @@ __device__ __forceinline__ void mma_rs<32>(float (&d)[16], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 template <>
-__device__ __forceinline__ void mma_rs<40>(float (&d)[20], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19}, "
-      "{%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
 __device__ __forceinline__ void mma_rs<48>(float (&d)[24], const uint32_t (&a)[4],
                                             uint64_t db) {
   asm volatile(
@@ -209,22 +172,6 @@ __device__ __forceinline__ void mma_rs<48>(float (&d)[24], const uint32_t (&a)[4
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
-__device__ __forceinline__ void mma_rs<56>(float (&d)[28], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "
-      "{%28, %29, %30, %31}, %32, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 template <>
@@ -246,24 +193,6 @@ __device__ __forceinline__ void mma_rs<64>(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 template <>
-__device__ __forceinline__ void mma_rs<72>(float (&d)[36], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35}, "
-      "{%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
 __device__ __forceinline__ void mma_rs<80>(float (&d)[40], const uint32_t (&a)[4],
                                             uint64_t db) {
   asm volatile(
@@ -280,26 +209,6 @@ __device__ __forceinline__ void mma_rs<80>(float (&d)[40], const uint32_t (&a)[4
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
-__device__ __forceinline__ void mma_rs<88>(float (&d)[44], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43}, "
-      "{%44, %45, %46, %47}, %48, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 template <>
@@ -324,28 +233,6 @@ __device__ __forceinline__ void mma_rs<96>(float (&d)[48], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 template <>
-__device__ __forceinline__ void mma_rs<104>(float (&d)[52], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51}, "
-      "{%52, %53, %54, %55}, %56, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
 __device__ __forceinline__ void mma_rs<112>(float (&d)[56], const uint32_t (&a)[4],
                                             uint64_t db) {
   asm volatile(
@@ -366,30 +253,6 @@ __device__ __forceinline__ void mma_rs<112>(float (&d)[56], const uint32_t (&a)[
         "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
-__device__ __forceinline__ void mma_rs<120>(float (&d)[60], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59}, "
-      "{%60, %61, %62, %63}, %64, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 template <>
@@ -589,13 +452,13 @@ __device__ __forceinline__ void store_rows(const float (&acc)[N / 2], float* __r
 // against keys 0 .. length-1, online softmax in base 2. out points at row
 // q0; lse at the (sample, head)'s [T]. The row sum l takes the unrounded
 // f32 p; the PV operand is p (dropped and rescaled with DROP) in bf16.
-template <int HDN, bool DROP>
+template <int HDK, bool DROP>
 __device__ void attend_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                const bf16* __restrict__ v, long row_stride, int T, int length,
                                int q0, int hd, int W, float scale2, uint8_t* smem,
                                float* __restrict__ out, long out_stride,
                                float* __restrict__ lse, Drop dr) {
-  constexpr int HDK = pad16(HDN), TB = tile_bytes(HDK);
+  constexpr int TB = tile_bytes(HDK);
   const int tid = threadIdx.x;
   const int nrows = min(ROWS, T - q0);
   if (length <= 0) {
@@ -615,9 +478,9 @@ __device__ void attend_rows_tc(const bf16* __restrict__ q, const bf16* __restric
 
   const int lane = tid & 31, w = tid >> 5, g = lane >> 2, t = lane & 3;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[HDN / 2];
+  float o[HDK / 2];
 #pragma unroll
-  for (int i = 0; i < HDN / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDK / 2; ++i) o[i] = 0.f;
   const uint32_t qa = smem_addr(Qs);
   const int ntiles = (length + ROWS - 1) / ROWS;
   for (int jt = 0; jt < ntiles; ++jt) {
@@ -672,8 +535,8 @@ __device__ void attend_rows_tc(const bf16* __restrict__ q, const bf16* __restric
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + psum[i];
 #pragma unroll
-    for (int x = 0; x < HDN / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
-    mma_acc_rows<HDN>(o, s, smem_addr(Kt + TB));
+    for (int x = 0; x < HDK / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+    mma_acc_rows<HDK>(o, s, smem_addr(Kt + TB));
     __syncthreads();  // the stage is read before the next copy refills it
   }
 #pragma unroll
@@ -685,8 +548,8 @@ __device__ void attend_rows_tc(const bf16* __restrict__ q, const bf16* __restric
   // element
   const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
-  for (int x = 0; x < HDN / 2; ++x) o[x] *= inv_l[(x >> 1) & 1];
-  store_rows<HDN>(o, out, out_stride, nrows, hd, 1.f);
+  for (int x = 0; x < HDK / 2; ++x) o[x] *= inv_l[(x >> 1) & 1];
+  store_rows<HDK>(o, out, out_stride, nrows, hd, 1.f);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = 16 * w + g + 8 * i;
@@ -697,7 +560,7 @@ __device__ void attend_rows_tc(const bf16* __restrict__ q, const bf16* __restric
 // ------------------------------------------------------------- backward
 // attn_dq_rows (attention_bwd.cuh) on the tensor cores, one warpgroup: dq
 // of query rows q0 .. q0+63 (dq points at the head's row 0).
-template <int HDN, bool DROP>
+template <int HDK, bool DROP>
 __device__ void attn_dq_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 const bf16* __restrict__ v, long row_stride,
                                 const bf16* __restrict__ d_o, long do_stride,
@@ -705,7 +568,7 @@ __device__ void attn_dq_rows_tc(const bf16* __restrict__ q, const bf16* __restri
                                 const float* __restrict__ delta, int T, int length, int q0,
                                 int hd, int W, float scale2, float scale, Drop dr,
                                 uint8_t* smem, float* __restrict__ dq, long dq_stride) {
-  constexpr int HDK = pad16(HDN), TB = tile_bytes(HDK);
+  constexpr int TB = tile_bytes(HDK);
   const int tid = threadIdx.x;
   const int nrows = min(ROWS, T - q0);
   if (length <= 0) {
@@ -733,9 +596,9 @@ __device__ void attn_dq_rows_tc(const bf16* __restrict__ q, const bf16* __restri
     lse_r[i] = rok[i] ? lse[q0 + r] : 0.f;
     delta_r[i] = rok[i] ? delta[q0 + r] : 0.f;
   }
-  float acc[HDN / 2];
+  float acc[HDK / 2];
 #pragma unroll
-  for (int i = 0; i < HDN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HDK / 2; ++i) acc[i] = 0.f;
   const uint32_t qa = smem_addr(smem), oa = smem_addr(smem + TB);
   const int ntiles = (length + ROWS - 1) / ROWS;
   for (int jt = 0; jt < ntiles; ++jt) {
@@ -771,10 +634,10 @@ __device__ void attn_dq_rows_tc(const bf16* __restrict__ q, const bf16* __restri
       }
       s[x] = p * (dpv - delta_r[i]);
     }
-    mma_acc_rows<HDN>(acc, s, smem_addr(Kt));
+    mma_acc_rows<HDK>(acc, s, smem_addr(Kt));
     __syncthreads();
   }
-  store_rows<HDN>(acc, dq + (long)q0 * dq_stride, dq_stride, nrows, hd, scale);
+  store_rows<HDK>(acc, dq + (long)q0 * dq_stride, dq_stride, nrows, hd, scale);
 }
 
 // attn_dkv_rows (attention_bwd.cuh) on the tensor cores, one warpgroup:
@@ -787,7 +650,7 @@ __device__ void attn_dq_rows_tc(const bf16* __restrict__ q, const bf16* __restri
 // without using it, so that no wgmma sits on a branch (ptxas then
 // serialises every wgmma of the kernel). out is dv or dk at the head's
 // row 0.
-template <int HDN, bool DROP>
+template <int HDK, bool DROP>
 __device__ void attn_dkv_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                  const bf16* __restrict__ v, long row_stride,
                                  const bf16* __restrict__ d_o, long do_stride,
@@ -796,7 +659,7 @@ __device__ void attn_dkv_rows_tc(const bf16* __restrict__ q, const bf16* __restr
                                  int hd, int W, float scale2, float scale, Drop dr,
                                  uint8_t* smem, int role, float* __restrict__ out,
                                  long out_stride) {
-  constexpr int HDK = pad16(HDN), TB = tile_bytes(HDK);
+  constexpr int TB = tile_bytes(HDK);
   const int tid = threadIdx.x;
   const int nkeys = min(ROWS, T - k0);
   if (k0 >= length) {  // also every block of a sample with length 0
@@ -823,9 +686,9 @@ __device__ void attn_dkv_rows_tc(const bf16* __restrict__ q, const bf16* __restr
   bool key_ok[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) key_ok[i] = k0 + 16 * w + g + 8 * i < length;
-  float acc[HDN / 2];
+  float acc[HDK / 2];
 #pragma unroll
-  for (int i = 0; i < HDN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HDK / 2; ++i) acc[i] = 0.f;
   const uint32_t ka = smem_addr(smem), va = smem_addr(smem + TB);
   const int ntiles = (T + ROWS - 1) / ROWS;
   for (int jt = 0; jt < ntiles; ++jt) {
@@ -871,10 +734,10 @@ __device__ void attn_dkv_rows_tc(const bf16* __restrict__ q, const bf16* __restr
         s[x] = p * (dpv - dl[c]);
       }
     }
-    mma_acc_rows<HDN>(acc, s, smem_addr(role == 0 ? Qt + TB : Qt));
+    mma_acc_rows<HDK>(acc, s, smem_addr(role == 0 ? Qt + TB : Qt));
     __syncthreads();
   }
-  store_rows<HDN>(acc, out + (long)k0 * out_stride, out_stride, nkeys, hd,
+  store_rows<HDK>(acc, out + (long)k0 * out_stride, out_stride, nkeys, hd,
                   role == 0 ? 1.f : scale);
 }
 

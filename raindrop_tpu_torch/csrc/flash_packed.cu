@@ -8,12 +8,13 @@
 // -> dq, dk, dv [B, T, d] f32.
 //
 // What bounds it: at the training and serving shapes (P12: T=215, hd=80,
-// d=160; eICU: T=300, hd=36, d=72) the forward's work is 4*B*H*T^2*hd FLOPs
-// against 3 bf16 inputs and an f32 output, about 55 FLOP/byte, and the
-// backward's 10*B*H*T^2*hd against 4 bf16 inputs and 3 f32 outputs, about
-// 80 FLOP/byte: far under the H100's bf16 ridge (about 295), so the memory
-// rate bounds the ideal kernels (P12, B=128: 44 MB forward, 13 us; 88 MB
-// backward, 26 us). The first kernels did every product in scalar f32 FMA
+// d=160; eICU: T=300, hd=36, d=72) the forward's work is 4*H*T*hd FLOPs a
+// live key against 3 bf16 inputs (k and v below each length only) and an
+// f32 output, about 55 FLOP/byte, and the backward's 10*H*T*hd against 4
+// bf16 inputs and 3 f32 outputs, about 60 FLOP/byte: far under the H100's
+// bf16 ridge (about 295), so the memory rate bounds the ideal kernels (P12,
+// B=128, lengths uniform on 0..T: about 35 MB forward, 11 us; 80 MB
+// backward, 24 us). The first kernels did every product in scalar f32 FMA
 // out of shared memory with one-element synchronous loads, 20x off that.
 //
 // Two routes, chosen by the wrapper's launch plan (packed_plan in
@@ -120,14 +121,13 @@ Plan expected_plan(int B, int T, int d, int nhead, int bf16, int route) {
   Plan p{};
   p.route = route;
   if (route == 1) {
-    p.hd_k = rd::tc::pad16(hd);
-    p.hd_n = (hd + 7) / 8 * 8;
+    p.hd_pad = rd::tc::pad16(hd);
     p.smem_fwd = rd::tc::fwd_smem_bytes(hd);
     p.smem_dq = rd::tc::dq_smem_bytes(hd);
     p.smem_dkv = rd::tc::dkv_smem_bytes(hd);
     p.threads_fwd = p.threads_dq = p.threads_dkv = rd::tc::WG;
   } else {
-    p.hd_k = p.hd_n = hd;
+    p.hd_pad = hd;
     p.copy_bytes = bf16 ? 2 : 4;
     p.smem_fwd = rd::attn_smem_floats(hd) * (int)sizeof(float);
     p.smem_dq = rd::attn_dq_smem_floats(hd) * (int)sizeof(float);
@@ -221,7 +221,7 @@ bool bad_shape(int B, int T, int d, int nhead, double rate) {
                   : F<MAXD, false, float>(__VA_ARGS__);                       \
   })
 
-// plan: the wrapper's launch plan, 13 ints (flash_packed.cuh struct Plan).
+// plan: the wrapper's launch plan, 12 ints (flash_packed.cuh struct Plan).
 extern "C" int rd_packed_fwd(const void* q, const void* k, const void* v,
                              const void* lengths, void* o, void* lse, int B,
                              int T, int d, int nhead, float scale2, int bf16,

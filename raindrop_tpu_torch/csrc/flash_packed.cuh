@@ -1,7 +1,7 @@
 // What the compilation units of the flash_packed library share: the launch
 // plan and the launchers of the tensor-core kernels. Each tensor-core
 // kernel family (forward, dq, dk/dv) is a unit of its own
-// (flash_packed_{fwd,dq,dkv}_tc.cu, 32 instantiations each: 16 padded head
+// (flash_packed_{fwd,dq,dkv}_tc.cu, 16 instantiations each: 8 padded head
 // dims, with and without dropout), so nvcc builds the three beside
 // flash_packed.cu, which holds the entry points.
 #pragma once
@@ -17,13 +17,13 @@ namespace packed {
 // field for field; flash_packed.cu checks it against the call.
 struct Plan {
   int route;       // 0 scalar, 1 tensor cores
-  int hd_k, hd_n;  // head dim padded for the K depth and the N width
+  int hd_pad;      // head dim padded to 16 (tensor cores), hd (scalar)
   int copy_bytes;  // width of one tile copy
   int smem_fwd, smem_dq, smem_dkv;
   int threads_fwd, threads_dq, threads_dkv;
   int grid_x, grid_y, grid_z;
 };
-static_assert(sizeof(Plan) == 13 * sizeof(int), "Plan is 13 ints");
+static_assert(sizeof(Plan) == 12 * sizeof(int), "Plan is 12 ints");
 
 template <typename K>
 cudaError_t allow_smem(K kern, int bytes) {
@@ -31,15 +31,15 @@ cudaError_t allow_smem(K kern, int bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// f(std::integral_constant<int, HDN>) for the run-time padded head dim
-// hd_n = 8, 16, ..., 128.
-template <int N = 8, typename F>
-int with_hdn(int hd_n, F&& f) {
+// f(std::integral_constant<int, HDK>) for the run-time padded head dim
+// hd_pad = 16, 32, ..., 128.
+template <int N = 16, typename F>
+int with_hd_pad(int hd_pad, F&& f) {
   if constexpr (N > 128) {
     return (int)cudaErrorInvalidValue;
   } else {
-    if (hd_n == N) return f(std::integral_constant<int, N>{});
-    return with_hdn<N + 8>(hd_n, f);
+    if (hd_pad == N) return f(std::integral_constant<int, N>{});
+    return with_hd_pad<N + 16>(hd_pad, f);
   }
 }
 

@@ -8,7 +8,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-template <int HDN, bool DROP>
+template <int HDK, bool DROP>
 __global__ void __launch_bounds__(rd::tc::WG)
 packed_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ d_o,
@@ -22,7 +22,7 @@ packed_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long base = (long)b * T * d + (long)h * hd;
   const long stat = ((long)b * nhead + h) * T;
   dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
-  rd::tc::attn_dq_rows_tc<HDN, DROP>(q + base, k + base, v + base, d, d_o + base, d,
+  rd::tc::attn_dq_rows_tc<HDK, DROP>(q + base, k + base, v + base, d, d_o + base, d,
                                      lse + stat, delta + stat, T, length, q0, hd, W,
                                      scale * 1.4426950408889634f, scale, dr, smem_tc,
                                      dq + base, d);
@@ -35,9 +35,9 @@ int rd::packed::launch_dq_tc(const void* q, const void* k, const void* v, const 
                              void* dq, const Plan& p, int T, int d, int nhead, float scale,
                              int seed, double rate, cudaStream_t stream) {
   const Drop dr = make_drop(rate);
-  return with_hdn(p.hd_n, [&](auto n) {
-    constexpr int HDN = decltype(n)::value;
-    auto kern = rate > 0.0 ? packed_dq_tc<HDN, true> : packed_dq_tc<HDN, false>;
+  return with_hd_pad(p.hd_pad, [&](auto n) {
+    constexpr int HDK = decltype(n)::value;
+    auto kern = rate > 0.0 ? packed_dq_tc<HDK, true> : packed_dq_tc<HDK, false>;
     cudaError_t err = allow_smem(kern, p.smem_dq);
     if (err != cudaSuccess) return (int)err;
     kern<<<dim3(p.grid_x, p.grid_y, p.grid_z), p.threads_dq, p.smem_dq, stream>>>(

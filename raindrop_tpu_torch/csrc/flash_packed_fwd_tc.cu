@@ -8,7 +8,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-template <int HDN, bool DROP>
+template <int HDK, bool DROP>
 __global__ void __launch_bounds__(rd::tc::WG)
 packed_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const int* __restrict__ lengths,
@@ -20,7 +20,7 @@ packed_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int length = min(max(lengths[b], 0), T);
   const long base = (long)b * T * d + (long)h * hd;
   dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
-  rd::tc::attend_rows_tc<HDN, DROP>(q + base, k + base, v + base, d, T, length, q0, hd, W,
+  rd::tc::attend_rows_tc<HDK, DROP>(q + base, k + base, v + base, d, T, length, q0, hd, W,
                                     scale2, smem_tc, o + base + (long)q0 * d, d,
                                     lse + ((long)b * nhead + h) * T, dr);
 }
@@ -32,9 +32,9 @@ int rd::packed::launch_fwd_tc(const void* q, const void* k, const void* v,
                               int d, int nhead, float scale2, int seed, double rate,
                               cudaStream_t stream) {
   const Drop dr = make_drop(rate);
-  return with_hdn(p.hd_n, [&](auto n) {
-    constexpr int HDN = decltype(n)::value;
-    auto kern = rate > 0.0 ? packed_fwd_tc<HDN, true> : packed_fwd_tc<HDN, false>;
+  return with_hd_pad(p.hd_pad, [&](auto n) {
+    constexpr int HDK = decltype(n)::value;
+    auto kern = rate > 0.0 ? packed_fwd_tc<HDK, true> : packed_fwd_tc<HDK, false>;
     cudaError_t err = allow_smem(kern, p.smem_fwd);
     if (err != cudaSuccess) return (int)err;
     kern<<<dim3(p.grid_x, p.grid_y, p.grid_z), p.threads_fwd, p.smem_fwd, stream>>>(

@@ -30,8 +30,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("flash_packed", "flash_split", "fused_encoder", "fused_encoder_bwd",
            "sparse_graph")
-# libraries built from several units: flash_packed's tensor-core kernels
-# (96 instantiations) would take minutes in one nvcc process
+# libraries built from several units: flash_packed's 48 tensor-core
+# kernels take nvcc far longer in one process than as three units in
+# parallel (chip_ab.py, task one_unit)
 PARTS = {"flash_packed": ("flash_packed", "flash_packed_fwd_tc",
                           "flash_packed_dq_tc", "flash_packed_dkv_tc")}
 

@@ -81,17 +81,16 @@ class PackedPlan:
     checked by the C entry points (csrc/flash_packed.cu `Plan`).
 
     route: "tc" (tensor cores, bf16 operands) or "scalar" (f32 FMA);
-    hd_k / hd_n: the head dim padded for the K depth of the score products
-    (16) and the N width of the output products (8), hd itself on the
-    scalar route; copy_bytes: the width of one tile copy; smem: shared
+    hd_pad: the head dim padded to 16, the K depth of the score products
+    and the N width of the output products, hd itself on the scalar route;
+    copy_bytes: the width of one tile copy; smem: shared
     bytes of the forward, dq and dk/dv kernels; threads: their block sizes;
     grid: (query or key blocks, heads, samples); the tensor-core dk/dv pass
     runs two CTAs a key block (dv and dk), 2 * grid[0] along x."""
 
     route: str
     hd: int
-    hd_k: int
-    hd_n: int
+    hd_pad: int
     copy_bytes: int
     smem: tuple
     threads: tuple
@@ -99,9 +98,9 @@ class PackedPlan:
 
     @functools.cached_property
     def as_ints(self):
-        """The plan as the C entry points take it: 13 ints."""
-        vals = ((1 if self.route == "tc" else 0), self.hd_k, self.hd_n,
-                self.copy_bytes, *self.smem, *self.threads, *self.grid)
+        """The plan as the C entry points take it: 12 ints."""
+        vals = ((1 if self.route == "tc" else 0), self.hd_pad, self.copy_bytes,
+                *self.smem, *self.threads, *self.grid)
         return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -133,21 +132,20 @@ def packed_plan(B, T, d, nhead, od, impl="auto", align=16) -> PackedPlan:
                          f"{MAX_HEAD_DIM}, got hd={hd}")
     grid = (-(-T // _ROWS), nhead, B)
     if od == torch.bfloat16 and impl == "auto":
-        hd_k, hd_n = -(-hd // 16) * 16, -(-hd // 8) * 8
+        hd_pad = -(-hd // 16) * 16
         width = 16
         while width > 2 and ((2 * hd) % width or (2 * d) % width
                              or align % width):
             width //= 2
-        tile = _ROWS * hd_k * 2
+        tile = _ROWS * hd_pad * 2
         smem = (5 * tile, 6 * tile, 6 * tile + 4 * _ROWS * 4)
-        return PackedPlan("tc", hd, hd_k, hd_n, width, smem, (128, 128, 128),
-                          grid)
+        return PackedPlan("tc", hd, hd_pad, width, smem, (128, 128, 128), grid)
     # csrc/attention.cuh attn_smem_floats, attention_bwd.cuh attn_*_floats
     rows = _ROWS * (hd + 1)
     smem = (4 * (3 * rows + _ROWS * (_ROWS + 1)),
             4 * (4 * rows + _ROWS * (_ROWS + 1)),
             4 * (4 * rows + 2 * _ROWS * (_ROWS + 1) + 2 * _ROWS))
-    return PackedPlan("scalar", hd, hd, hd, od.itemsize, smem, (256,) * 3, grid)
+    return PackedPlan("scalar", hd, hd, od.itemsize, smem, (256,) * 3, grid)
 
 
 def _dropout_keep_hash(seed, bh, iq: int, ik: int, shape, rate: float,

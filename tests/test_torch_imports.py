@@ -51,7 +51,7 @@ def test_every_module_imports_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['raindrop_tpu'] = None\n"
         "import importlib\n"
-        f"for m in {_port_modules() + ['chip_smoke']!r}:\n"
+        f"for m in {_port_modules() + ['chip_smoke', 'chip_ab']!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'raindrop_tpu' or m.startswith('raindrop_tpu.'))\n"
@@ -66,7 +66,7 @@ def test_every_module_imports_with_jax_blocked():
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PKG.rglob("*")
-     if p.suffix in (".py", ".cu", ".cuh")] + ["chip_smoke.py"]))
+     if p.suffix in (".py", ".cu", ".cuh")] + ["chip_smoke.py", "chip_ab.py"]))
 def test_source_names_no_jax(path):
     text = (ROOT / path).read_text()
     assert "raindrop_tpu." not in text.replace("raindrop_tpu_torch.", "")

@@ -20,9 +20,10 @@ from raindrop_tpu_torch.nn.transformer import _layer_init
 TOL = {None: 1e-4, "bfloat16": 2e-2}
 SEED = 20231
 # flash_mha_packed's shapes: hd 8, 36 (eICU), 80 (P12), 84, 42 (4-byte
-# copies) and 128, T within a tile, one row past it, and the longest
+# copies), 128, and 13 and 3 (odd: 2-byte plain loads, unpaired stores),
+# T within a tile, one row past it, and the longest
 PACKED_SHAPES = [(13, 16, 2), (130, 72, 2), (215, 160, 2), (70, 84, 1), (64, 84, 2),
-                 (65, 256, 2), (1024, 84, 2), (1024, 256, 2)]
+                 (65, 256, 2), (1024, 84, 2), (1024, 256, 2), (100, 26, 2), (65, 6, 2)]
 pytestmark = pytest.mark.cuda
 
 

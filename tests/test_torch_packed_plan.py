@@ -28,11 +28,10 @@ def test_route_follows_the_operand_dtype():
 def test_padded_head_dims(hd):
     plan = fa.packed_plan(4, 65, 2 * hd, 2, BF16)
     assert plan.hd == hd
-    assert plan.hd_k % 16 == 0 and hd <= plan.hd_k < hd + 16
-    assert plan.hd_n % 8 == 0 and hd <= plan.hd_n < hd + 8
-    assert plan.hd_n <= plan.hd_k
+    assert plan.hd_pad % 16 == 0 and hd <= plan.hd_pad < hd + 16
+    assert plan.as_ints[1] == plan.hd_pad
     scalar = fa.packed_plan(4, 65, 2 * hd, 2, F32)
-    assert (scalar.hd_k, scalar.hd_n) == (hd, hd)
+    assert scalar.hd_pad == hd
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
@@ -53,7 +52,7 @@ def test_tensor_core_sizes():
     assert plan.smem == (5 * tile, 6 * tile, 6 * tile + 1024)
     assert plan.threads == (128, 128, 128)
     assert plan.grid == (4, 2, 128)
-    assert list(plan.as_ints) == [1, 80, 80, 16, *plan.smem, 128, 128, 128, 4, 2, 128]
+    assert list(plan.as_ints) == [1, 80, 16, *plan.smem, 128, 128, 128, 4, 2, 128]
 
 
 @pytest.mark.parametrize("hd,d,width", [
