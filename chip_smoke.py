@@ -14,24 +14,33 @@ check does not hold:
      HGMMA (wgmma) instructions in each tensor-core kernel family;
   2. flash_mha_packed forward, kernel against its plain PyTorch version at
      the P12 (B=128, T=215, d=160) and eICU (T=300, d=72) shapes, f32 and
-     bf16 operands, ragged lengths including 0, 1 and T; in bf16 the
+     bf16 operands, ragged lengths including 0, 1 and T, bit-equal on a
+     repeat, exact zeros for the length-0 sample; in bf16 the
      tensor-core kernel is timed in turns with the previous design (the
      scalar kernel, prev_ms), and each time's share of the bound printed;
   3. fused_encoder_layer forward, the same at the PAM shape (B=128, T=600,
-     d=84, ffn=136) on out, attn and lse;
+     d=84, ffn=136) on out, attn and lse (attn zero for the length-0
+     sample);
   4. flash_mha_packed backward at the same shapes, dropout 0 and 0.2: the
      forward with dropout, then dq, dk, dv of the two backward kernels
      against the plain backward, finite, zero on the length-0 sample, and
      bit-equal on a repeat (prev_ms as in phase 2);
   5. flash_mha_packed in bf16 at the edge shapes, B=4, 2 heads: head dims
      3 and 13 (odd: 2-byte plain loads, unpaired stores), 8, 42 (4-byte
-     copies), 84 and 128, T = 64, 65 and 1024, dropout 0 and
-     0.2: the tensor-core kernels forward and backward against the plain
-     version and against the scalar kernels, bit-equal on a repeat, exact
-     zeros for the length-0 sample;
+     copies), 84, 128, 129, 140 and 144 (tensor cores up to a padded 144),
+     170 and 360 (the scalar kernels, Narrow and Wide geometry), T = 64,
+     65 and 1024, dropout 0 and 0.2: the plan's route forward and backward
+     against the plain version and against the scalar kernels, bit-equal
+     on a repeat, exact zeros for the length-0 sample;
   6. fused_encoder_layer backward at the PAM shape, the same grid: dx and
      the 12 weight gradients against the plain backward, bit-equal on a
-     repeat;
+     repeat, a zero attention gradient for the length-0 sample;
+ 6b. phases 2, 4, 3 and 6 at the sensor-wise widths (sensor_wise_mask:
+     d = d_inp * (d_ob + d_pe), 2 heads), B=128: P12-sw (T=215, d=720, hd
+     360: the scalar route in both dtypes) and eICU-sw (T=300, d=280, hd
+     140: tensor cores in bf16) forward and backward, PAM-sw's fused
+     layer (T=600, d=340, ffn=136, hd 170) forward and backward; each
+     route checked;
   7. an InferenceServer for PAM at full width (random weights from a seed)
      answering predict on 1, 5, 128 and 200 rows, submit from 4 threads,
      predict_stream and the bf16 wire format, held against the same server
@@ -47,6 +56,12 @@ check does not hold:
      the dense path at dropout 0, and a falling loss on a fixed batch;
  10. the same for P12 (every flash_mha_packed launch, forward and
      backward, on the tensor-core route);
+ 10b. phases 7 and 8 with sensor_wise_mask for P19 (the dense rung at
+     T=60: no kernel launched), P12 (every flash_mha_packed launch on the
+     scalar route), eICU (every launch on the tensor cores) and PAM (the
+     fused layer), a row's probabilities held across batches to
+     BATCH_LIMIT_SW; and phase 9 for P12, eICU and PAM with it, the
+     fixed-batch check at the rate FIT_LR_SW gives;
  11. spmm_segment_softmax, kernels against their plain PyTorch versions,
      forward (out, w) and backward (dx, dgamma, cotangents on both
      outputs): the complete sensor graphs of P12 (B=128, N=36, E=1296,
@@ -100,8 +115,9 @@ gradient's largest value): 1e-4 with f32 operands (another summation
 order), 2e-2 with bf16 operands; the fused layer's plain backward takes
 the kernel's relu branches (fused_bwd_phase says why). The sparse-graph
 kernels are f32 throughout and are held to 1e-5 relative to max(1, |plain|).
-The line before the last is the kernels' JSON record (twelve records), the
-last line the result. `--out PATH` also writes every
+The line before the last is the kernels' JSON record (eighteen records:
+twelve kernels at the main paths' shapes, and the packed pair and the
+fused layer again at the sensor-wise widths), the last line the result. `--out PATH` also writes every
 number to PATH as JSON.
 """
 
@@ -233,14 +249,20 @@ def flash_phase(label, B, T, d, H, dtype, device="cuda", seed=0):
     cd = None if dtype == "float32" else dtype
     od = fa.operand_dtype(cd)
     o_k, lse_k = fa._packed_fwd(q, k, v, lengths, None, 0.0, cd, H)
+    o_k2, lse_k2 = fa._packed_fwd(q, k, v, lengths, None, 0.0, cd, H)
     o_p, lse_p = fa._packed_fwd_plain(q, k, v, lengths, H, od)
     torch.cuda.synchronize()
+    route = fa.packed_plan(B, T, d, H, od).route
     err = max(max_err(o_k, o_p), max_err(lse_k, lse_p))
     ok = err <= TOL[dtype] and bool(torch.isfinite(o_k).all())
-    print(f"[flash] {label} {dtype} B={B} T={T} d={d} H={H}: max_abs_err "
-          f"{err:.3e} (tol {TOL[dtype]:g})", flush=True)
+    print(f"[flash] {label} {dtype} B={B} T={T} d={d} H={H} ({route} route): "
+          f"max_abs_err {err:.3e} (tol {TOL[dtype]:g})", flush=True)
     if not ok:
         raise AssertionError(f"flash_mha_packed kernel disagrees at {label} {dtype}")
+    if not (torch.equal(o_k, o_k2) and torch.equal(lse_k, lse_k2)):
+        raise AssertionError(f"flash forward not bit-equal on a repeat at {label} {dtype}")
+    if not (bool((o_k[0] == 0).all()) and bool((lse_k[0] == fa.NEG_INF).all())):
+        raise AssertionError(f"flash forward: the length-0 sample is not zero at {label}")
 
     # inputs already in the operand dtype, so the timed call is the launch
     qo, ko, vo = (x.to(od) for x in (q, k, v))
@@ -264,7 +286,7 @@ def flash_phase(label, B, T, d, H, dtype, device="cuda", seed=0):
     print(f"[flash] {label} {dtype}: kernel {ms:.4f} ms, {design_line(ms, prev_ms, bound_ms)}, "
           f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}); device time {device_line(times)}", flush=True)
-    return dict(label=label, dtype=dtype, max_abs_err=err, **times,
+    return dict(label=label, dtype=dtype, route=route, max_abs_err=err, **times,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bytes=nbytes, flops=flops)
 
@@ -300,6 +322,7 @@ def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
     cd = None if dtype == "float32" else dtype
     od = operand_dtype(cd)
     got = fe._fused_fwd(p, x, lengths, None, 0.0, cd, H)
+    again = fe._fused_fwd(p, x, lengths, None, 0.0, cd, H)
     want = fe._fused_fwd_plain(p, x, lengths, H, od)
     torch.cuda.synchronize()
     errs = {n: max_err(a, b) for n, a, b in zip(("out", "attn", "lse"), got, want)}
@@ -308,6 +331,12 @@ def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
           f"max_abs_err {errs} (tol {TOL[dtype]:g})", flush=True)
     if err > TOL[dtype] or not bool(torch.isfinite(got[0]).all()):
         raise AssertionError(f"fused_encoder_layer kernel disagrees at {label} {dtype}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"fused forward not bit-equal on a repeat at {label} {dtype}")
+    # the length-0 sample attends to nothing: attention output 0, lse NEG_INF
+    if not (bool((got[1][0] == 0).all()) and bool((got[2][0] == -1e30).all())):
+        raise AssertionError(f"fused forward: the length-0 sample's attention is not "
+                             f"zero at {label}")
 
     ms = time_ms(lambda: fe._fused_fwd(p, x, lengths, None, 0.0, cd, H))
     plain_ms = time_ms(lambda: fe._fused_fwd_plain(p, x, lengths, H, od))
@@ -425,9 +454,11 @@ def flash_bwd_phase(label, B, T, d, H, dtype, rate, device="cuda", seed=0):
 
 def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
     """flash_mha_packed in bf16 at an edge shape (head dims 3, 8, 13, 42,
-    84, 128; T = 64, 65, 1024): the tensor-core kernels against the plain version and
-    against the previous design (the scalar kernels), forward and backward,
-    bit-equal on a repeat, exact zeros for the length-0 sample."""
+    84, 128, and 129, 140, 144, 170, 360 of the sensor-wise widths; T = 64,
+    65, 1024): the plan's route (the tensor-core kernels up to hd_pad 144,
+    the scalar ones beyond) against the plain version and against the
+    scalar kernels, forward and backward, bit-equal on a repeat, exact
+    zeros for the length-0 sample."""
     import torch
     from raindrop_tpu_torch.ops import flash_attention as fa
 
@@ -451,8 +482,9 @@ def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
             "fwd_vs_prev": max(max_err(a, b) for a, b in zip(fwd, prev)),
             "bwd_vs_plain": max(rel_err(a, b) for a, b in zip(got, plain_b)),
             "bwd_vs_prev": max(rel_err(a, b) for a, b in zip(got, prev_b))}
-    print(f"[flash_edge] hd={hd} T={T} dropout {rate} (copy {plan.copy_bytes} B, "
-          f"hd padded {plan.hd_pad}): {errs} (tol {tol:g})", flush=True)
+    print(f"[flash_edge] hd={hd} T={T} dropout {rate} ({plan.route} route, copy "
+          f"{plan.copy_bytes} B, hd padded {plan.hd_pad}, {plan.rows}-row blocks): "
+          f"{errs} (tol {tol:g})", flush=True)
     if max(errs.values()) > tol:
         raise AssertionError(f"flash_mha_packed tc kernels disagree at hd={hd} T={T}")
     for a, a2 in zip((*fwd, *got), (*fwd2, *again)):
@@ -463,7 +495,8 @@ def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
     if not all(bool((z == 0).all()) for z in zero) or not bool((fwd[1][0] == fa.NEG_INF).all()):
         raise AssertionError(f"flash tc kernels: the length-0 sample is not zero at "
                              f"hd={hd} T={T}")
-    return dict(hd=hd, T=T, rate=rate, copy_bytes=plan.copy_bytes, **errs)
+    return dict(hd=hd, T=T, rate=rate, route=plan.route, copy_bytes=plan.copy_bytes,
+                **errs)
 
 
 def sass_phase():
@@ -535,6 +568,9 @@ def fused_bwd_phase(label, B, T, d, ffn, H, dtype, rate, device="cuda", seed=0):
     # are held to differ only where the plain pre-activation is within the
     # tolerance of zero, and so for no more than that share of the elements.
     ffn_on = scratch["f"].reshape(B, T, ffn) > 0
+    if not bool((scratch["dqkv"].reshape(B, T, 3 * d)[0] == 0).all()):
+        raise AssertionError(f"fused backward: the length-0 sample's attention "
+                             f"gradient is not zero at {label} {dtype}")
     scratch.clear()
     f_pre = fe._recompute(
         p, x, fwd_p[1], lambda t: t.to(od).to(torch.float32),
@@ -1082,6 +1118,23 @@ def _rows(x, sl):
 
 
 PLAIN_ATTENTION = {"attention_backend": "dense"}
+# The served rows' batch-composition limit with sensor_wise_mask. Another
+# bucket gives cuBLAS another GEMM algorithm upstream of the encoder; a
+# last-bit difference there can flip a bf16 rounding of an attention
+# operand (the kernels themselves give a row the same bits at every batch
+# size), and the sensor-wise pool weighs a sensor's steps by up to T (600
+# at PAM), so a row's probabilities move up to T times further than
+# without the mask. serve_phase prints the dense plain server's own
+# difference (f32 attention) beside.
+BATCH_LIMIT_SW = 1e-4
+# The fixed-batch falling-loss check's rate with sensor_wise_mask. The
+# reference's sensor-wise pool sums the unobserved steps over (#observed +
+# 1), so a sensor never observed in a sample weighs up to T (215 at P12)
+# and the head sees inputs of that size; Adam's first, sign-like steps then
+# overshoot: at lr 1e-3 the loss on one batch jumps within the first steps
+# and need not end below where it started. train_phase runs the fit at
+# 1e-3 beside this rate and prints both; it checks this one.
+FIT_LR_SW = 1e-5
 PLAIN_ALL = {"attention_backend": "dense", "prop_backend": "auto"}
 
 
@@ -1115,14 +1168,27 @@ def check_tc(what, *counts):
                                  f"tensor-core route: {c}")
 
 
+def check_scalar(what, *counts):
+    """Every flash_mha_packed launch in these counts took the scalar route
+    (a head dim past the tensor-core kernels' widths: P12's sensor-wise
+    hd 360)."""
+    for c in counts:
+        if c["flash_mha_packed"] <= 0 or c["flash_mha_packed.tc"] != 0:
+            raise AssertionError(f"{what}: flash_mha_packed launches off the "
+                                 f"scalar route: {c}")
+
+
 def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
                 cfg_overrides=None, plain_overrides=PLAIN_ATTENTION,
-                buckets=(1, 8, 32, 128)):
+                buckets=(1, 8, 32, 128), batch_limit=1e-5):
     """Serve one preset at full width and check it. Every wrapper's launch
     count is set to 0 just before the served requests and read just after;
     returns those counts by wrapper name. `kernel_fns` are the wrappers
     this path must go through; `plain_overrides` turn its config into the
-    plain path it is held against."""
+    plain path it is held against; `batch_limit` bounds how far a row's
+    probabilities may move with the batch it is served in (other buckets
+    give cuBLAS other GEMM algorithms: the last bits move). The dense plain
+    server's own stream-against-predict difference is printed beside."""
     from raindrop_tpu_torch.config import dataset_config
     from raindrop_tpu_torch.models.raindrop import raindrop_init
     from raindrop_tpu_torch.serve import InferenceServer
@@ -1180,9 +1246,10 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
         "stream_vs_predict": float(np.abs(np.concatenate(streamed) - full[:48]).max()),
         "bf16_wire_vs_f32": float(np.abs(wire_probs - outs[top]).max()),
     }
-    limits = {"alone_vs_full_bucket": 1e-5, "predict_vs_chunked": 1e-5,
-              "submit_vs_predict": 1e-5, "stream_vs_predict": 1e-5,
+    limits = {"alone_vs_full_bucket": batch_limit, "predict_vs_chunked": batch_limit,
+              "submit_vs_predict": batch_limit, "stream_vs_predict": batch_limit,
               "bf16_wire_vs_f32": 5e-2}
+    plain_batch = None
 
     # the same params on the dense plain path, and the kernel path with
     # f32 attention operands
@@ -1196,7 +1263,13 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
         b = s_d.predict(P[:top], times[:top], _rows(static, slice(0, top)))
         checks[f"kernel_vs_dense_{score}"] = float(np.abs(a - b).max())
         limits[f"kernel_vs_dense_{score}"] = tol
-    print(f"[serve] {dataset}: checks {checks}", flush=True)
+        if score == "float32":
+            plain_batch = float(np.abs(np.concatenate(
+                list(s_d.predict_stream(reqs, depth=3))) - b[:48]).max())
+        s_k.close()
+        s_d.close()
+    print(f"[serve] {dataset}: checks {checks}; the dense plain server's "
+          f"stream_vs_predict {plain_batch}", flush=True)
     bad = {k: v for k, v in checks.items() if not v <= limits[k]}
     if bad:
         raise AssertionError(f"{dataset}: checks over their limits: {bad} "
@@ -1208,7 +1281,8 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
     timing = serve_timing(dataset, server, P, times, static)
     server.close()
     return launches, dict(served_s=served_s, forwards=forwards, checks=checks,
-                          limits=limits, **timing)
+                          limits=limits, plain_stream_vs_predict=plain_batch,
+                          **timing)
 
 
 def profile_device(fn, n):
@@ -1289,13 +1363,16 @@ def grad_norm(trainer):
 
 
 def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
-                cfg_overrides=None, plain_overrides=PLAIN_ATTENTION):
+                cfg_overrides=None, plain_overrides=PLAIN_ATTENTION, fit_lr=1e-3,
+                also_fit_lr=None):
     """Train one preset at full width and depth and check it. Every
     wrapper's counts are set to 0 just before the epoch and the predict and
     read just after; returns the forward and backward counts by wrapper
     name. `kernel_fns` are the wrappers this training must go through,
     forward and backward; `plain_overrides` turn its config into the plain
-    path its first step is held against."""
+    path its first step is held against; `fit_lr` is the learning rate of
+    the falling-loss check on one fixed batch, `also_fit_lr` a rate whose
+    fit is measured beside it and not checked."""
     import torch
     from raindrop_tpu_torch.config import TrainConfig, dataset_config
     from raindrop_tpu_torch.data.sampler import balanced_batches
@@ -1387,22 +1464,27 @@ def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
         raise AssertionError(f"{dataset}: against the dense path: {bad} "
                              f"(limits {limits})")
 
-    # lr 1e-3 on one fixed batch: the loss falls over 10 steps (measured
+    # fit_lr on one fixed batch: the loss falls over 10 steps (measured
     # before and after under one fixed set of masks)
-    fit = Trainer(cfg, tcfg, device=device, params=trainer.params)
-    fit.learning_rate = 1e-3
     fixed = DropoutSeeds.draw(torch.Generator().manual_seed(seed), cfg.nlayers)
-    with torch.no_grad():
-        loss0 = float(fit.loss_fn(first, fixed)[0])
-    fit_losses = [float(fit.train_step(first)[0]) for _ in range(10)]
-    with torch.no_grad():
-        loss1 = float(fit.loss_fn(first, fixed)[0])
-    print(f"[train] {dataset}: fixed batch at lr 1e-3: loss {loss0:.6f} -> "
-          f"{loss1:.6f} after 10 steps; step losses "
-          f"{[round(x, 5) for x in fit_losses]}", flush=True)
+
+    def fit_batch(lr):
+        fit = Trainer(cfg, tcfg, device=device, params=trainer.params)
+        fit.learning_rate = lr
+        with torch.no_grad():
+            before = float(fit.loss_fn(first, fixed)[0])
+        steps = [float(fit.train_step(first)[0]) for _ in range(10)]
+        with torch.no_grad():
+            after = float(fit.loss_fn(first, fixed)[0])
+        print(f"[train] {dataset}: fixed batch at lr {lr:g}: loss {before:.6f} -> "
+              f"{after:.6f} after 10 steps; step losses "
+              f"{[round(x, 5) for x in steps]}", flush=True)
+        return before, after, steps
+
+    loss0, loss1, fit_losses = fit_batch(fit_lr)
     if not loss1 < loss0:
         raise AssertionError(f"{dataset}: the loss did not fall: {loss0} -> {loss1}")
-    del fit
+    also_fit = fit_batch(also_fit_lr) if also_fit_lr is not None else None
 
     # timings: CUDA events around each step, then a profiled epoch
     timed = Trainer(cfg, tcfg, device=device, params=trainer.params)
@@ -1433,7 +1515,8 @@ def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
     return launches, bwd_launches, dict(
         rung=rung, steps=steps, train_s=train_s, losses=[float(x) for x in losses],
         checks=checks, limits=limits, fixed_batch=(loss0, loss1),
-        fixed_batch_losses=fit_losses, step_ms=step_ms, step_ms_median=step_med,
+        fixed_batch_losses=fit_losses, fit_lr=fit_lr, also_fit_lr=also_fit_lr,
+        also_fit=also_fit, step_ms=step_ms, step_ms_median=step_med,
         epoch_ms=epoch_ms, samples_per_s=sps, profile_wall_ms=wall_ms,
         profile_device_ms=device_ms, idle_share=idle, device_ms_by_kernel=top_k)
 
@@ -1705,10 +1788,29 @@ def main(argv=None) -> int:
     grid = [(dt, rate) for dt in ("float32", "bfloat16") for rate in (0.0, 0.2)]
     flash_bwd = [flash_bwd_phase("P12", 128, 215, 160, 2, dt, rate) for dt, rate in grid]
     flash_bwd += [flash_bwd_phase("eICU", 128, 300, 72, 2, dt, rate) for dt, rate in grid]
-    edges = [flash_edge_phase(hd, T, rate) for hd in (3, 8, 13, 42, 84, 128)
+    edges = [flash_edge_phase(hd, T, rate)
+             for hd in (3, 8, 13, 42, 84, 128, 129, 140, 144, 170, 360)
              for T in (64, 65, 1024) for rate in (0.0, 0.2)]
     fused_bwd = [fused_bwd_phase("PAM", 128, 600, 84, 136, 2, dt, rate)
                  for dt, rate in grid]
+    torch.cuda.empty_cache()
+    # the sensor-wise widths (d_inp * (d_ob + d_pe), 2 heads): P12 hd 360 on
+    # the scalar route in both dtypes, eICU hd 140 on the tensor cores in
+    # bf16, PAM's fused layer at d=340, hd 170
+    sw_shapes = (("P12-sw", 215, 720), ("eICU-sw", 300, 280))
+    sw_flash = [flash_phase(label, 128, T, d, 2, dt) for label, T, d in sw_shapes
+                for dt in ("float32", "bfloat16")]
+    sw_flash_bwd = [flash_bwd_phase(label, 128, T, d, 2, dt, rate)
+                    for label, T, d in sw_shapes for dt, rate in grid]
+    sw_fused = [fused_phase("PAM-sw", 128, 600, 340, 136, 2, dt)
+                for dt in ("float32", "bfloat16")]
+    sw_fused_bwd = [fused_bwd_phase("PAM-sw", 128, 600, 340, 136, 2, dt, rate)
+                    for dt, rate in grid]
+    for r in sw_flash:
+        want = "tc" if r["label"] == "eICU-sw" and r["dtype"] == "bfloat16" else "scalar"
+        if r["route"] != want:
+            raise AssertionError(f"{r['label']} {r['dtype']} took the {r['route']} "
+                                 f"route, expected {want}")
     torch.cuda.empty_cache()
     spmm_runs = [spmm_phase(label, 128, D, gt)
                  for label, D in (("P12", 860), ("PAM", 2400), ("kNN", 240))
@@ -1729,6 +1831,28 @@ def main(argv=None) -> int:
     pam_tf, pam_tb, pam_train = train_phase("PAM", [fused_encoder_layer], wrappers)
     p12_tf, p12_tb, p12_train = train_phase("P12", [flash_mha_packed], wrappers)
     check_tc("P12 serving and training", p12_launches, p12_tf, p12_tb)
+    torch.cuda.empty_cache()
+
+    # sensor_wise_mask on every preset: P19 stays on the dense rung (T=60),
+    # P12 and eICU take flash_mha_packed (scalar at hd 360, tensor cores at
+    # hd 140), PAM the fused layer at d=340
+    sw = {"sensor_wise_mask": True}
+    sw_serve = {
+        name: serve_phase(name, fns, wrappers, cfg_overrides=sw,
+                          batch_limit=BATCH_LIMIT_SW)
+        for name, fns in (("P19", []), ("P12", [flash_mha_packed]),
+                          ("eICU", [flash_mha_packed]),
+                          ("PAM", [fused_encoder_layer]))}
+    if any(sw_serve["P19"][0].values()):
+        raise AssertionError(f"P19-sw serving launched a kernel: {sw_serve['P19'][0]}")
+    sw_train = {
+        name: train_phase(name, [fn], wrappers, cfg_overrides=sw, fit_lr=FIT_LR_SW,
+                          also_fit_lr=1e-3)
+        for name, fn in (("P12", flash_mha_packed), ("eICU", flash_mha_packed),
+                         ("PAM", fused_encoder_layer))}
+    check_scalar("P12-sw serving and training", sw_serve["P12"][0],
+                 *sw_train["P12"][:2])
+    check_tc("eICU-sw serving and training", sw_serve["eICU"][0], *sw_train["eICU"][:2])
     torch.cuda.empty_cache()
 
     # the sparse-graph path: P12 with prop_backend='pallas', held against
@@ -1850,12 +1974,42 @@ def main(argv=None) -> int:
         graph_record("sddmm_fwd", 195, sd_f, sddmm_fwd),
         graph_record("sddmm_bwd", 230, sd_b, sddmm_bwd),
     ]
+    # the same kernels at the sensor-wise widths, launch counts from those
+    # serving (forward) and training (backward) runs
+    sw_src = "raindrop_tpu_torch/csrc/flash_packed.cu"
+    kernels += [
+        record("flash_mha_packed_fwd_P12_sw", sw_src,
+               "raindrop_tpu/ops/flash_attention.py:566",
+               sw_serve["P12"][0]["flash_mha_packed"], sw_flash, "P12-sw"),
+        record("flash_mha_packed_bwd_P12_sw", sw_src,
+               "raindrop_tpu/ops/flash_attention.py:610",
+               sw_train["P12"][1]["flash_mha_packed"], sw_flash_bwd, "P12-sw", 0.2),
+        record("flash_mha_packed_fwd_eICU_sw", sw_src,
+               "raindrop_tpu/ops/flash_attention.py:566",
+               sw_serve["eICU"][0]["flash_mha_packed"], sw_flash, "eICU-sw"),
+        record("flash_mha_packed_bwd_eICU_sw", sw_src,
+               "raindrop_tpu/ops/flash_attention.py:610",
+               sw_train["eICU"][1]["flash_mha_packed"], sw_flash_bwd, "eICU-sw", 0.2),
+        record("fused_encoder_layer_fwd_PAM_sw", "raindrop_tpu_torch/csrc/fused_encoder.cu",
+               "raindrop_tpu/ops/fused_encoder.py:131",
+               sw_serve["PAM"][0]["fused_encoder_layer"], sw_fused, "PAM-sw"),
+        record("fused_encoder_layer_bwd_PAM_sw",
+               "raindrop_tpu_torch/csrc/fused_encoder_bwd.cu",
+               "raindrop_tpu/ops/fused_encoder.py:183",
+               sw_train["PAM"][1]["fused_encoder_layer"], sw_fused_bwd, "PAM-sw", 0.2),
+    ]
     for rec in kernels:
         if rec["launches"] <= 0:
             raise AssertionError(f"{rec['name']} was never launched on its path")
     detail = {"card": card, "build_s": build_s, "sass": sass, "flash": flash,
               "fused": fused, "flash_bwd": flash_bwd, "flash_edge": edges,
               "fused_bwd": fused_bwd,
+              "sensor_wise": {
+                  "flash": sw_flash, "flash_bwd": sw_flash_bwd, "fused": sw_fused,
+                  "fused_bwd": sw_fused_bwd,
+                  "serve": {k: {"launches": v[0], **v[1]} for k, v in sw_serve.items()},
+                  "train": {k: {"launches": v[0], "bwd_launches": v[1], **v[2]}
+                            for k, v in sw_train.items()}},
               "spmm_fwd": spmm_fwd, "spmm_bwd": spmm_bwd,
               "sddmm_fwd": sddmm_fwd, "sddmm_bwd": sddmm_bwd,
               "serve": {"PAM": {"launches": pam_launches, **pam},

@@ -1,5 +1,5 @@
 // Device code shared by the forward kernels: streaming packed-heads
-// attention over one 64-row query block, a row-block matrix product
+// attention over one block of query rows, a row-block matrix product
 // against a weight in global memory, a row LayerNorm, and the counter
 // hash of the dropout masks. Scalar f32 FMA throughout; tensor cores are
 // later work.
@@ -17,6 +17,41 @@ constexpr int BK = 64;    // keys per streamed tile
 constexpr int NT = 256;   // threads per CTA: 4 per query row
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
+
+// The shape of one CTA's work in the scalar attention routines (attend_rows
+// here, attn_dq_rows and attn_dkv_rows in attention_bwd.cuh): ROWS rows of
+// its own side (queries; keys in the dk/dv pass), KEYS rows of the other
+// side per streamed tile, TPR = NT / ROWS threads a row. Each routine keeps
+// its own rows and one tile of each streamed operand in shared memory at
+// stride hd + 1, so the bytes grow with hd. Narrow (64 x 64, 4 threads a
+// row) runs up to hd 192 (its dk/dv pass fits up to 193, and 48 columns a
+// thread hold 192); Wide (32 x 32, 8 threads a row) halves every tile and
+// fits up to hd 368 (197,632 bytes at the most). Halving the tiles
+// keeps the per-thread work the same (TPR doubles) and the register count
+// bounded: a thread owns ceil(hd / TPR) output columns, at most 48 either
+// way. Narrow is what every head dim up to 128 has always run, so those
+// results keep their bits.
+template <int ROWS_, int KEYS_>
+struct Geom {
+  static constexpr int ROWS = ROWS_, KEYS = KEYS_, TPR = NT / ROWS_;
+  static_assert(NT % ROWS_ == 0 && KEYS_ % (NT / ROWS_) == 0, "bad geometry");
+};
+using Narrow = Geom<BQ, BK>;
+using Wide = Geom<32, 32>;
+constexpr int NARROW_MAX_HD = 192;
+constexpr int SCALAR_MAX_HD = 368;
+
+// Sum (or max, with MAX) over the TPR lanes of a row group, lane distance
+// 1, 2, 4 in that order.
+template <int TPR, bool MAX = false>
+__device__ __forceinline__ float row_reduce(float x) {
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = MAX ? fmaxf(x, y) : x + y;
+  }
+  return x;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -66,34 +101,39 @@ inline Drop make_drop(double rate) {
 }
 
 // Shared floats attend_rows needs for head dim hd.
-inline int attn_smem_floats(int hd) { return 3 * BQ * (hd + 1) + BQ * (BK + 1); }
+template <typename G = Narrow>
+inline int attn_smem_floats(int hd) {
+  return (G::ROWS + 2 * G::KEYS) * (hd + 1) + G::ROWS * (G::KEYS + 1);
+}
 
-// Attention of query rows q0 .. q0+63 of one (sample, head) against keys
+// Attention of query rows q0 .. q0+G::ROWS-1 of one (sample, head) against keys
 // 0 .. length-1, softmax in base 2 (scale2 = log2(e)/sqrt(hd)).
 //   q, k, v: element (t, c) of this head at [t * row_stride + c], c < hd
 //   out:     local row r, column c at [r * out_stride + c]  (o = pv / l)
 //   lse:     [T] for this (sample, head), base 2
-// Thread (r = tid/4, j = tid%4) owns query row r, the keys j, j+4, ... of
-// each tile for the scores, and the output columns j, j+4, ... . Keys
+// Thread (r = tid/TPR, j = tid%TPR) owns query row r, the keys j, j+TPR,
+// ... of each tile for the scores, and the output columns j, j+TPR, ... .
+// Keys
 // past `length` are never read. A sample with length 0 gives o = 0 and
 // lse = NEG_INF, as the TPU kernel does. ROUND_P rounds the
 // probabilities to bf16 before the PV product (the TPU kernel's
 // p.astype(v.dtype)); the row sum l uses the unrounded values. With DROP
 // the PV operand is p * keep / (1 - rate), keyed on (query row, key
 // column) under dr.base; l still sums the undropped p.
-template <int MAXD, bool ROUND_P, bool DROP, typename TIn>
+template <int MAXD, bool ROUND_P, bool DROP, typename TIn, typename G = Narrow>
 __device__ void attend_rows(const TIn* __restrict__ q, const TIn* __restrict__ k,
                             const TIn* __restrict__ v, long row_stride, int T,
                             int length, int q0, int hd, float scale2,
                             float* smem, float* out, long out_stride,
                             float* lse, Drop dr) {
-  const int tid = threadIdx.x, r = tid >> 2, j = tid & 3;
-  const int HP = hd + 1, PP = BK + 1;
+  constexpr int RQ = G::ROWS, KT = G::KEYS, TPR = G::TPR, NS = KT / TPR;
+  const int tid = threadIdx.x, r = tid / TPR, j = tid % TPR;
+  const int HP = hd + 1, PP = KT + 1;
   float* Qs = smem;
-  float* Ks = Qs + BQ * HP;
-  float* Vs = Ks + BK * HP;
-  float* Ps = Vs + BK * HP;
-  const int nrows = min(BQ, T - q0);
+  float* Ks = Qs + RQ * HP;
+  float* Vs = Ks + KT * HP;
+  float* Ps = Vs + KT * HP;
+  const int nrows = min(RQ, T - q0);
   __syncthreads();  // the caller may still read smem from a previous head
   if (length <= 0) {
     for (int idx = tid; idx < nrows * hd; idx += NT) {
@@ -103,7 +143,7 @@ __device__ void attend_rows(const TIn* __restrict__ q, const TIn* __restrict__ k
     for (int rr = tid; rr < nrows; rr += NT) lse[q0 + rr] = NEG_INF;
     return;
   }
-  for (int idx = tid; idx < BQ * hd; idx += NT) {
+  for (int idx = tid; idx < RQ * hd; idx += NT) {
     const int rr = idx / hd, c = idx - rr * hd;
     Qs[rr * HP + c] = rr < nrows ? to_f(q[(long)(q0 + rr) * row_stride + c]) : 0.f;
   }
@@ -112,10 +152,10 @@ __device__ void attend_rows(const TIn* __restrict__ q, const TIn* __restrict__ k
 #pragma unroll
   for (int i = 0; i < MAXD; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < length; k0 += BK) {
-    const int nk = min(BK, length - k0);
+  for (int k0 = 0; k0 < length; k0 += KT) {
+    const int nk = min(KT, length - k0);
     __syncthreads();  // previous tile consumed
-    for (int idx = tid; idx < BK * hd; idx += NT) {
+    for (int idx = tid; idx < KT * hd; idx += NT) {
       const int kk = idx / hd, c = idx - kk * hd;
       const bool ok = kk < nk;
       const long g = (long)(k0 + kk) * row_stride + c;
@@ -124,29 +164,28 @@ __device__ void attend_rows(const TIn* __restrict__ q, const TIn* __restrict__ k
     }
     __syncthreads();
 
-    float s[BK / 4];
+    float s[NS];
 #pragma unroll
-    for (int i = 0; i < BK / 4; ++i) s[i] = 0.f;
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
     const float* qr = Qs + r * HP;
     for (int c = 0; c < hd; ++c) {
       const float qv = qr[c];
 #pragma unroll
-      for (int i = 0; i < BK / 4; ++i) s[i] = fmaf(qv, Ks[(j + 4 * i) * HP + c], s[i]);
+      for (int i = 0; i < NS; ++i) s[i] = fmaf(qv, Ks[(j + TPR * i) * HP + c], s[i]);
     }
     float tmax = NEG_INF;
 #pragma unroll
-    for (int i = 0; i < BK / 4; ++i) {
+    for (int i = 0; i < NS; ++i) {
       s[i] *= scale2;
-      if (j + 4 * i < nk) tmax = fmaxf(tmax, s[i]);
+      if (j + TPR * i < nk) tmax = fmaxf(tmax, s[i]);
     }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    tmax = row_reduce<TPR, true>(tmax);
     const float m_new = fmaxf(m, tmax);
     const float alpha = exp2f(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int i = 0; i < BK / 4; ++i) {
-      const int kk = j + 4 * i;
+    for (int i = 0; i < NS; ++i) {
+      const int kk = j + TPR * i;
       const float p = kk < nk ? exp2f(s[i] - m_new) : 0.f;
       psum += p;
       float pw = p;
@@ -155,11 +194,10 @@ __device__ void attend_rows(const TIn* __restrict__ q, const TIn* __restrict__ k
       }
       Ps[r * PP + kk] = opnd<ROUND_P>(pw);
     }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    psum = row_reduce<TPR>(psum);
     l = l * alpha + psum;
     m = m_new;
-    __syncwarp();  // row r's probabilities come from the 4 lanes of its group
+    __syncwarp();  // row r's probabilities come from the TPR lanes of its group
 #pragma unroll
     for (int i = 0; i < MAXD; ++i) acc[i] *= alpha;
     const float* pr = Ps + r * PP;
@@ -168,7 +206,7 @@ __device__ void attend_rows(const TIn* __restrict__ q, const TIn* __restrict__ k
       const float* vr = Vs + kk * HP;
 #pragma unroll
       for (int i = 0; i < MAXD; ++i) {
-        const int c = j + 4 * i;
+        const int c = j + TPR * i;
         if (c < hd) acc[i] = fmaf(p, vr[c], acc[i]);
       }
     }
@@ -176,7 +214,7 @@ __device__ void attend_rows(const TIn* __restrict__ q, const TIn* __restrict__ k
   if (r < nrows) {
 #pragma unroll
     for (int i = 0; i < MAXD; ++i) {
-      const int c = j + 4 * i;
+      const int c = j + TPR * i;
       if (c < hd) out[r * out_stride + c] = acc[i] / l;
     }
     if (j == 0) lse[q0 + r] = m + log2f(l);
@@ -266,6 +304,39 @@ __device__ inline void layer_norm_rows(const float* in, long ldi, int d,
       __VA_ARGS__;                                    \
     } else if (rd_nd_ <= 32) {                        \
       constexpr int MAXD = 32;                        \
+      __VA_ARGS__;                                    \
+    } else {                                          \
+      return (int)cudaErrorInvalidValue;              \
+    }                                                 \
+  } while (0)
+
+// Instantiate F<MAXD, G> for head dim hd on the packed and fused-layer
+// routines: the Narrow geometry up to hd 192 (MAXD = ceil(hd / 4) columns
+// a thread, rounded up to 12, 20, 32 or 48: the first three are the
+// instantiations of RD_DISPATCH_HD), Wide from 193 to 368 (ceil(hd / 8) <=
+// 46, so MAXD 48).
+#define RD_DISPATCH_GEOM(hd, ...)                     \
+  do {                                                \
+    const int rd_hd_ = (hd);                          \
+    if (rd_hd_ <= 48) {                               \
+      using G = rd::Narrow;                           \
+      constexpr int MAXD = 12;                        \
+      __VA_ARGS__;                                    \
+    } else if (rd_hd_ <= 80) {                        \
+      using G = rd::Narrow;                           \
+      constexpr int MAXD = 20;                        \
+      __VA_ARGS__;                                    \
+    } else if (rd_hd_ <= 128) {                       \
+      using G = rd::Narrow;                           \
+      constexpr int MAXD = 32;                        \
+      __VA_ARGS__;                                    \
+    } else if (rd_hd_ <= rd::NARROW_MAX_HD) {         \
+      using G = rd::Narrow;                           \
+      constexpr int MAXD = 48;                        \
+      __VA_ARGS__;                                    \
+    } else if (rd_hd_ <= rd::SCALAR_MAX_HD) {         \
+      using G = rd::Wide;                             \
+      constexpr int MAXD = 48;                        \
       __VA_ARGS__;                                    \
     } else {                                          \
       return (int)cudaErrorInvalidValue;              \

@@ -25,9 +25,12 @@
 //   two CTAs per key block in the dk/dv pass), and the streamed tiles come through a
 //   two-stage cp.async ring, the next tile in flight while the current one
 //   is multiplied, with a copy width the alignment allows.
-// - "scalar", f32 operands (and bf16 on request, to measure the previous
-//   design): attend_rows / attn_dq_rows / attn_dkv_rows, scalar f32 FMA.
-//   TF32 would not hold the f32 route's 1e-4.
+// - "scalar", f32 operands, bf16 past the tensor-core kernels' widths
+//   (hd_pad 144: P12's sensor-wise hd 360), and bf16 on request to measure
+//   the previous design: attend_rows / attn_dq_rows / attn_dkv_rows, scalar
+//   f32 FMA, in the Narrow geometry up to hd 192 and the Wide one (32-row
+//   blocks and tiles, attention.cuh says why) up to hd 368. TF32 would not
+//   hold the f32 route's 1e-4.
 //
 // Design: the TPU kernels hold one sample's [T, T] score tile in VMEM and
 // isolate heads with lane masks. Neither carries over. Here one CTA takes
@@ -53,25 +56,25 @@ namespace {
 using rd::packed::Plan;
 using rd::packed::allow_smem;
 
-template <int MAXD, bool DROP, typename TIn>
+template <int MAXD, typename G, bool DROP, typename TIn>
 __global__ void __launch_bounds__(rd::NT)
 packed_fwd_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                   const TIn* __restrict__ v, const int* __restrict__ lengths,
                   float* __restrict__ o, float* __restrict__ lse, int T, int d,
                   int nhead, float scale2, int seed, rd::Drop dr) {
   extern __shared__ float smem[];
-  const int q0 = blockIdx.x * rd::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * G::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hd = d / nhead;
   const int length = min(max(lengths[b], 0), T);
   const long base = (long)b * T * d + (long)h * hd;
   constexpr bool kBf16 = sizeof(TIn) == 2;
   dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
-  rd::attend_rows<MAXD, kBf16, DROP, TIn>(
+  rd::attend_rows<MAXD, kBf16, DROP, TIn, G>(
       q + base, k + base, v + base, d, T, length, q0, hd, scale2, smem,
       o + base + (long)q0 * d, d, lse + ((long)b * nhead + h) * T, dr);
 }
 
-template <int MAXD, bool DROP, typename TIn>
+template <int MAXD, typename G, bool DROP, typename TIn>
 __global__ void __launch_bounds__(rd::NT)
 packed_dq_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                  const TIn* __restrict__ v, const TIn* __restrict__ d_o,
@@ -79,20 +82,20 @@ packed_dq_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                  const int* __restrict__ lengths, float* __restrict__ dq, int T,
                  int d, int nhead, float scale, int seed, rd::Drop dr) {
   extern __shared__ float smem[];
-  const int q0 = blockIdx.x * rd::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * G::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hd = d / nhead;
   const int length = min(max(lengths[b], 0), T);
   const long base = (long)b * T * d + (long)h * hd;
   const long stat = ((long)b * nhead + h) * T;
   constexpr bool kBf16 = sizeof(TIn) == 2;
   dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
-  rd::attn_dq_rows<MAXD, kBf16, DROP, TIn>(
+  rd::attn_dq_rows<MAXD, kBf16, DROP, TIn, G>(
       q + base, k + base, v + base, d, d_o + base, d, lse + stat, delta + stat,
       T, length, q0, hd, scale * 1.4426950408889634f, scale, dr, smem,
       dq + base, d);
 }
 
-template <int MAXD, bool DROP, typename TIn>
+template <int MAXD, typename G, bool DROP, typename TIn>
 __global__ void __launch_bounds__(rd::NT)
 packed_dkv_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                   const TIn* __restrict__ v, const TIn* __restrict__ d_o,
@@ -101,17 +104,25 @@ packed_dkv_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                   float* __restrict__ dv, int T, int d, int nhead, float scale,
                   int seed, rd::Drop dr) {
   extern __shared__ float smem[];
-  const int k0 = blockIdx.x * rd::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * G::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hd = d / nhead;
   const int length = min(max(lengths[b], 0), T);
   const long base = (long)b * T * d + (long)h * hd;
   const long stat = ((long)b * nhead + h) * T;
   constexpr bool kBf16 = sizeof(TIn) == 2;
   dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
-  rd::attn_dkv_rows<MAXD, kBf16, DROP, TIn>(
+  rd::attn_dkv_rows<MAXD, kBf16, DROP, TIn, G>(
       q + base, k + base, v + base, d, d_o + base, d, lse + stat, delta + stat,
       T, length, k0, hd, scale * 1.4426950408889634f, scale, dr, smem,
       dk + base, dv + base, d);
+}
+
+template <typename G>
+void scalar_smem(Plan& p, int hd) {
+  p.rows = G::ROWS;
+  p.smem_fwd = rd::attn_smem_floats<G>(hd) * (int)sizeof(float);
+  p.smem_dq = rd::attn_dq_smem_floats<G>(hd) * (int)sizeof(float);
+  p.smem_dkv = rd::attn_dkv_smem_floats<G>(hd) * (int)sizeof(float);
 }
 
 // The plan this file would make for the call, the copy width aside (the
@@ -122,6 +133,7 @@ Plan expected_plan(int B, int T, int d, int nhead, int bf16, int route) {
   p.route = route;
   if (route == 1) {
     p.hd_pad = rd::tc::pad16(hd);
+    p.rows = rd::tc::ROWS;
     p.smem_fwd = rd::tc::fwd_smem_bytes(hd);
     p.smem_dq = rd::tc::dq_smem_bytes(hd);
     p.smem_dkv = rd::tc::dkv_smem_bytes(hd);
@@ -129,12 +141,14 @@ Plan expected_plan(int B, int T, int d, int nhead, int bf16, int route) {
   } else {
     p.hd_pad = hd;
     p.copy_bytes = bf16 ? 2 : 4;
-    p.smem_fwd = rd::attn_smem_floats(hd) * (int)sizeof(float);
-    p.smem_dq = rd::attn_dq_smem_floats(hd) * (int)sizeof(float);
-    p.smem_dkv = rd::attn_dkv_smem_floats(hd) * (int)sizeof(float);
+    if (hd <= rd::NARROW_MAX_HD) {
+      scalar_smem<rd::Narrow>(p, hd);
+    } else {
+      scalar_smem<rd::Wide>(p, hd);
+    }
     p.threads_fwd = p.threads_dq = p.threads_dkv = rd::NT;
   }
-  p.grid_x = (T + rd::BQ - 1) / rd::BQ;
+  p.grid_x = (T + p.rows - 1) / p.rows;
   p.grid_y = nhead;
   p.grid_z = B;
   return p;
@@ -154,7 +168,9 @@ bool copy_ok(int W, int hd, int d, std::initializer_list<const void*> ptrs) {
 bool plan_ok(const Plan& p, int B, int T, int d, int nhead, int bf16,
              std::initializer_list<const void*> operands) {
   if (p.route != 0 && p.route != 1) return false;
-  if (p.route == 1 && !bf16) return false;
+  if (p.route == 1 && (!bf16 || rd::tc::pad16(d / nhead) > rd::packed::TC_MAX_HD_PAD))
+    return false;
+  if (p.route == 0 && d / nhead > rd::SCALAR_MAX_HD) return false;
   Plan e = expected_plan(B, T, d, nhead, bf16, p.route);
   if (p.route == 1) {
     if (!copy_ok(p.copy_bytes, d / nhead, d, operands)) return false;
@@ -164,11 +180,11 @@ bool plan_ok(const Plan& p, int B, int T, int d, int nhead, int bf16,
   return std::memcmp(&e, &p, sizeof(Plan)) == 0;
 }
 
-template <int MAXD, bool DROP, typename TIn>
+template <int MAXD, typename G, bool DROP, typename TIn>
 int launch_fwd(const void* q, const void* k, const void* v, const void* lengths,
                void* o, void* lse, const Plan& p, int T, int d, int nhead, float scale2,
                int seed, rd::Drop dr, cudaStream_t stream) {
-  auto kern = packed_fwd_kernel<MAXD, DROP, TIn>;
+  auto kern = packed_fwd_kernel<MAXD, G, DROP, TIn>;
   cudaError_t err = allow_smem(kern, p.smem_fwd);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(p.grid_x, p.grid_y, p.grid_z);
@@ -178,13 +194,13 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* lengths,
   return (int)cudaGetLastError();
 }
 
-template <int MAXD, bool DROP, typename TIn>
+template <int MAXD, typename G, bool DROP, typename TIn>
 int launch_bwd(const void* q, const void* k, const void* v, const void* d_o,
                const void* lse, const void* delta, const void* lengths, void* dq,
                void* dk, void* dv, const Plan& p, int T, int d, int nhead, float scale,
                int seed, rd::Drop dr, cudaStream_t stream) {
-  auto kq = packed_dq_kernel<MAXD, DROP, TIn>;
-  auto kkv = packed_dkv_kernel<MAXD, DROP, TIn>;
+  auto kq = packed_dq_kernel<MAXD, G, DROP, TIn>;
+  auto kkv = packed_dkv_kernel<MAXD, G, DROP, TIn>;
   cudaError_t err = allow_smem(kq, p.smem_dq);
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(kkv, p.smem_dkv);
@@ -210,18 +226,18 @@ bool bad_shape(int B, int T, int d, int nhead, double rate) {
 
 }  // namespace
 
-// F<MAXD, DROP, TIn>(args...) for the run-time head dim, rate and type.
+// F<MAXD, G, DROP, TIn>(args...) for the run-time head dim, rate and type.
 #define RD_DISPATCH(F, hd, rate, bf16, ...)                                   \
-  RD_DISPATCH_HD(hd, {                                                        \
+  RD_DISPATCH_GEOM(hd, {                                                      \
     if ((rate) > 0.0) {                                                       \
-      return (bf16) ? F<MAXD, true, __nv_bfloat16>(__VA_ARGS__)               \
-                    : F<MAXD, true, float>(__VA_ARGS__);                      \
+      return (bf16) ? F<MAXD, G, true, __nv_bfloat16>(__VA_ARGS__)            \
+                    : F<MAXD, G, true, float>(__VA_ARGS__);                   \
     }                                                                         \
-    return (bf16) ? F<MAXD, false, __nv_bfloat16>(__VA_ARGS__)                \
-                  : F<MAXD, false, float>(__VA_ARGS__);                       \
+    return (bf16) ? F<MAXD, G, false, __nv_bfloat16>(__VA_ARGS__)             \
+                  : F<MAXD, G, false, float>(__VA_ARGS__);                    \
   })
 
-// plan: the wrapper's launch plan, 12 ints (flash_packed.cuh struct Plan).
+// plan: the wrapper's launch plan, 13 ints (flash_packed.cuh struct Plan).
 extern "C" int rd_packed_fwd(const void* q, const void* k, const void* v,
                              const void* lengths, void* o, void* lse, int B,
                              int T, int d, int nhead, float scale2, int bf16,

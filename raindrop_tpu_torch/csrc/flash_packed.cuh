@@ -1,7 +1,7 @@
 // What the compilation units of the flash_packed library share: the launch
 // plan and the launchers of the tensor-core kernels. Each tensor-core
 // kernel family (forward, dq, dk/dv) is a unit of its own
-// (flash_packed_{fwd,dq,dkv}_tc.cu, 16 instantiations each: 8 padded head
+// (flash_packed_{fwd,dq,dkv}_tc.cu, 18 instantiations each: 9 padded head
 // dims, with and without dropout), so nvcc builds the three beside
 // flash_packed.cu, which holds the entry points.
 #pragma once
@@ -19,11 +19,19 @@ struct Plan {
   int route;       // 0 scalar, 1 tensor cores
   int hd_pad;      // head dim padded to 16 (tensor cores), hd (scalar)
   int copy_bytes;  // width of one tile copy
+  int rows;        // rows of a CTA's block: 64, or 32 (scalar, Wide geometry)
   int smem_fwd, smem_dq, smem_dkv;
   int threads_fwd, threads_dq, threads_dkv;
   int grid_x, grid_y, grid_z;
 };
-static_assert(sizeof(Plan) == 12 * sizeof(int), "Plan is 12 ints");
+static_assert(sizeof(Plan) == 13 * sizeof(int), "Plan is 13 ints");
+
+// The widest padded head dim of the tensor-core kernels: eICU's sensor-wise
+// hd 140. Past it the forward's five tiles stop fitting a block's shared
+// memory at hd_pad 368 (P12's sensor-wise hd 360: 235,520 bytes), and a
+// 64 x 368 f32 accumulator would take 184 registers a thread; those widths
+// run the scalar kernels.
+constexpr int TC_MAX_HD_PAD = 144;
 
 template <typename K>
 cudaError_t allow_smem(K kern, int bytes) {
@@ -32,10 +40,10 @@ cudaError_t allow_smem(K kern, int bytes) {
 }
 
 // f(std::integral_constant<int, HDK>) for the run-time padded head dim
-// hd_pad = 16, 32, ..., 128.
+// hd_pad = 16, 32, ..., 144.
 template <int N = 16, typename F>
 int with_hd_pad(int hd_pad, F&& f) {
-  if constexpr (N > 128) {
+  if constexpr (N > TC_MAX_HD_PAD) {
     return (int)cudaErrorInvalidValue;
   } else {
     if (hd_pad == N) return f(std::integral_constant<int, N>{});

@@ -19,14 +19,16 @@
 // and float atomics would change the sums' order from run to run. So the
 // backward is a chain of launches, each with a fixed summation order:
 //   A  qkv = x W_in^T + b_in again (as the forward's first launch);
-//   B  per 32-row block, row-local: recompute x1, the FFN hidden f and
+//   B  per 32-row block, row-local (five [32, d] buffers in shared memory,
+//      218,496 bytes at d = 340): recompute x1, the FFN hidden f and
 //      both LayerNorms' statistics; LN2 backward, FFN backward, LN1
 //      backward, out-projection backward; write the row-wise operands of
 //      the weight gradients (x1, f, df2, dfpre, dao), dh1, d_attn and
 //      delta = sum_head(d_attn * attn); write per-CTA column sums for the
 //      bias and LayerNorm gradients;
 //   C  attention backward on the recomputed q, k, v with do = d_attn (the
-//      two kernels of attention_bwd.cuh) into dqkv;
+//      two kernels of attention_bwd.cuh, in the geometry of the head dim:
+//      Narrow up to hd 192, Wide to 368) into dqkv;
 //   D  per 32-row block: dx = dh1 + dqkv W_in, and the column sums of dqkv;
 //   E  weight gradients dW = G^T A over a fixed split of the B*T rows into
 //      512-row chunks, one partial per chunk, then one pass that adds the
@@ -35,47 +37,17 @@
 // device memory between launches are allocated by the wrapper, which lists
 // their sizes (ops/fused_encoder.py: bwd_scratch_floats).
 #include "attention_bwd.cuh"
+#include "fused_rows.cuh"
 
 namespace {
 
-constexpr int BR = 32;      // rows per CTA of the row-local kernels
+using rd::BR;
+using rd::qkv_rows_kernel;
+using rd::row_gemm_br;
+
 constexpr int WT = 64;      // weight-gradient tile (WT x WT outputs per CTA)
 constexpr int WM = 16;      // rows staged per step of the weight gradient
 constexpr float LN_EPS = 1e-5f;
-
-// epi(r, n, sum_k rd(A[r][k]) * rd(w(n, k))) for the rows r < nrows of a
-// BR-row block in shared memory. WKN = false: W is [N, K] (y = a W^T, a
-// forward product); WKN = true: W is [K, N] (y = a W, the backward product
-// through the same torch-layout weight). Thread t owns row t % BR and
-// columns 4 at a time; the lanes of a warp share their columns, so a
-// weight load is one broadcast.
-template <bool BF, bool WKN, typename Epi>
-__device__ __forceinline__ void row_gemm_br(const float* A, int lda, int K,
-                                            const float* __restrict__ W, int N,
-                                            int nrows, Epi epi) {
-  constexpr int NG = rd::NT / BR;
-  const int r = threadIdx.x % BR, g = threadIdx.x / BR;
-  const float* a = A + r * lda;
-  for (int n0 = 4 * g; n0 < N; n0 += 4 * NG) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int kk = 0; kk < K; ++kk) {
-      const float av = rd::opnd<BF>(a[kk]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (n0 + u < N) {
-          const float* w = WKN ? W + (long)kk * N + (n0 + u) : W + (long)(n0 + u) * K + kk;
-          acc[u] = fmaf(av, rd::opnd<BF>(__ldg(w)), acc[u]);
-        }
-      }
-    }
-    if (r < nrows) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (n0 + u < N) epi(r, n0 + u, acc[u]);
-      }
-    }
-  }
-}
 
 __device__ __forceinline__ float warp_sum(float s) {
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -142,30 +114,15 @@ __device__ void col_sums(float* __restrict__ dst, const float* P, const float* Q
   }
 }
 
-// Launch A: qkv = rd(x) rd(W_in)^T + b_in, rounded to the operand type.
-template <bool BF>
-__global__ void __launch_bounds__(rd::NT)
-qkv_rows_kernel(const float* __restrict__ x, const float* __restrict__ w_in,
-                const float* __restrict__ b_in, float* __restrict__ qkv, long M,
-                int d) {
-  extern __shared__ float smem[];
-  const int DP = d + 1;
-  const long row0 = (long)blockIdx.x * BR;
-  const long rest = M - row0;
-  const int nrows = rest < BR ? (int)rest : BR;
-  for (int idx = threadIdx.x; idx < BR * d; idx += rd::NT) {
-    const int r = idx / d, c = idx - r * d;
-    smem[r * DP + c] = r < nrows ? x[(row0 + r) * d + c] : 0.f;
-  }
-  __syncthreads();
-  row_gemm_br<BF, false>(smem, DP, d, w_in, 3 * d, nrows, [&](int r, int n, float acc) {
-    qkv[(row0 + r) * 3 * d + n] = rd::opnd<BF>(acc + b_in[n]);
-  });
-}
-
 // Per-CTA column sums: [dg2 d][dbe2 d][dbf2 d][dbf1 ffn][dg1 d][dbe1 d]
 // [dbo d][dbqkv 3d]; launch B fills the first 6d + ffn, launch D the rest.
 __host__ __device__ inline int part_floats(int d, int ffn) { return 9 * d + ffn; }
+
+// Shared floats of launch B: the attn rows (the FFN hidden after them),
+// four more [BR, d + 1] buffers and two row statistics.
+__host__ __device__ inline int bwd_rows_floats(int d, int ffn) {
+  return BR * (d > ffn ? d + 1 : ffn + 1) + 4 * BR * (d + 1) + 2 * BR;
+}
 
 // Launch B: the row-local recompute and backward of one 32-row block.
 template <bool BF, bool DROP>
@@ -186,13 +143,16 @@ layer_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ att
   const int q0 = blockIdx.x * BR, b = blockIdx.y;
   const int nrows = min(BR, T - q0);
   const int DP = d + 1, FP = ffn + 1;
+  // A is read by the out-projection alone (delta reads attn again from
+  // device memory), so the FFN hidden takes its place after it: at PAM's
+  // sensor-wise width (d=340) a sixth buffer would not fit.
   float* A = smem;             // attn rows
-  float* X = A + BR * DP;      // x + ao, then x1, then d_attn
+  float* F = A;                // f, then dfpre (after the out-projection)
+  float* X = A + BR * max(DP, FP);  // x + ao, then x1, then d_attn
   float* XH1 = X + BR * DP;    // xhat1
   float* H2 = XH1 + BR * DP;   // h2, xhat2, df2, dx1, dh1
   float* G = H2 + BR * DP;     // g, dh2, dao
-  float* F = G + BR * DP;      // f, then dfpre
-  float* rs1 = F + BR * FP;
+  float* rs1 = G + BR * DP;
   float* rs2 = rs1 + BR;
   const long row0 = (long)b * T + q0;
   float* part = partials + ((long)b * gridDim.x + blockIdx.x) * part_floats(d, ffn);
@@ -207,7 +167,7 @@ layer_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ att
     }
   };
 
-  for (int idx = threadIdx.x; idx < 5 * BR * DP + BR * FP + 2 * BR; idx += rd::NT) {
+  for (int idx = threadIdx.x; idx < bwd_rows_floats(d, ffn); idx += rd::NT) {
     smem[idx] = 0.f;
   }
   __syncthreads();
@@ -293,46 +253,48 @@ layer_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ att
   for (int idx = threadIdx.x; idx < nrows * nhead; idx += rd::NT) {
     const int r = idx / nhead, h = idx - r * nhead;
     float s = 0.f;
-    for (int c = h * hd; c < (h + 1) * hd; ++c) s += X[r * DP + c] * A[r * DP + c];
+    const float* a = attn + (row0 + r) * d;
+    for (int c = h * hd; c < (h + 1) * hd; ++c) s += X[r * DP + c] * a[c];
     delta[((long)b * nhead + h) * T + q0 + r] = s;
   }
 }
 
-// Launch C: the attention backward on qkv [B, T, 3d] with do = d_attn.
-template <int MAXD, bool BF, bool DROP>
+// Launch C: the attention backward on qkv [B, T, 3d] with do = d_attn, in
+// the geometry G of the head dim (attention.cuh).
+template <int MAXD, typename G, bool BF, bool DROP>
 __global__ void __launch_bounds__(rd::NT)
 fused_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 const int* __restrict__ lengths, float* __restrict__ dqkv, int T,
                 int d, int nhead, float scale, int seed, rd::Drop dr) {
   extern __shared__ float smem[];
-  const int q0 = blockIdx.x * rd::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * G::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hd = d / nhead;
   const int length = min(max(lengths[b], 0), T);
   const float* qh = qkv + (long)b * T * 3 * d + h * hd;
   const long stat = ((long)b * nhead + h) * T;
   dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
-  rd::attn_dq_rows<MAXD, BF, DROP, float>(
+  rd::attn_dq_rows<MAXD, BF, DROP, float, G>(
       qh, qh + d, qh + 2 * d, 3 * d, dattn + (long)b * T * d + h * hd, d,
       lse + stat, delta + stat, T, length, q0, hd, scale * 1.4426950408889634f,
       scale, dr, smem, dqkv + (long)b * T * 3 * d + h * hd, 3 * d);
 }
 
-template <int MAXD, bool BF, bool DROP>
+template <int MAXD, typename G, bool BF, bool DROP>
 __global__ void __launch_bounds__(rd::NT)
 fused_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  const int* __restrict__ lengths, float* __restrict__ dqkv, int T,
                  int d, int nhead, float scale, int seed, rd::Drop dr) {
   extern __shared__ float smem[];
-  const int k0 = blockIdx.x * rd::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * G::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hd = d / nhead;
   const int length = min(max(lengths[b], 0), T);
   const float* qh = qkv + (long)b * T * 3 * d + h * hd;
   float* out = dqkv + (long)b * T * 3 * d + h * hd;
   const long stat = ((long)b * nhead + h) * T;
   dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
-  rd::attn_dkv_rows<MAXD, BF, DROP, float>(
+  rd::attn_dkv_rows<MAXD, BF, DROP, float, G>(
       qh, qh + d, qh + 2 * d, 3 * d, dattn + (long)b * T * d + h * hd, d,
       lse + stat, delta + stat, T, length, k0, hd, scale * 1.4426950408889634f,
       scale, dr, smem, out + d, out + 2 * d, 3 * d);
@@ -466,19 +428,19 @@ int weight_grad(const Args& a, const float* G, int ldg, int N, const float* A,
   return (int)cudaGetLastError();
 }
 
-template <int MAXD, bool BF, bool DROP>
+template <int MAXD, typename G, bool BF, bool DROP>
 int launch(const Args& a) {
   const int d = a.d, ffn = a.ffn, T = a.T, B = a.B, hd = a.d / a.nhead;
   const long M = (long)B * T;
   const int bytes_a = BR * (d + 1) * (int)sizeof(float);
-  const int bytes_b = (5 * BR * (d + 1) + BR * (ffn + 1) + 2 * BR) * (int)sizeof(float);
-  const int bytes_q = rd::attn_dq_smem_floats(hd) * (int)sizeof(float);
-  const int bytes_kv = rd::attn_dkv_smem_floats(hd) * (int)sizeof(float);
+  const int bytes_b = bwd_rows_floats(d, ffn) * (int)sizeof(float);
+  const int bytes_q = rd::attn_dq_smem_floats<G>(hd) * (int)sizeof(float);
+  const int bytes_kv = rd::attn_dkv_smem_floats<G>(hd) * (int)sizeof(float);
   const int bytes_d = BR * (3 * d + 1) * (int)sizeof(float);
   auto ka = qkv_rows_kernel<BF>;
   auto kb = layer_bwd_rows_kernel<BF, DROP>;
-  auto kq = fused_dq_kernel<MAXD, BF, DROP>;
-  auto kkv = fused_dkv_kernel<MAXD, BF, DROP>;
+  auto kq = fused_dq_kernel<MAXD, G, BF, DROP>;
+  auto kkv = fused_dkv_kernel<MAXD, G, BF, DROP>;
   auto kd = dx_rows_kernel<BF>;
   RD_TRY(allow_smem(ka, bytes_a));
   RD_TRY(allow_smem(kb, bytes_b));
@@ -495,7 +457,7 @@ int launch(const Args& a) {
       a.x1, a.f, a.df2, a.dfpre, a.dao, a.dattn, a.dh1, a.delta, a.rowpart, T, d,
       ffn, a.nhead, a.seed, a.dr);
   RD_TRY(cudaGetLastError());
-  dim3 blocks((T + rd::BQ - 1) / rd::BQ, a.nhead, B);
+  dim3 blocks((T + G::ROWS - 1) / G::ROWS, a.nhead, B);
   kq<<<blocks, rd::NT, bytes_q, a.stream>>>(a.qkv, a.dattn, a.lse, a.delta,
                                             a.lengths, a.dqkv, T, d, a.nhead,
                                             a.scale, a.seed, a.dr);
@@ -561,10 +523,10 @@ extern "C" int rd_fused_layer_bwd(
   a.B = B; a.T = T; a.d = d; a.ffn = ffn; a.nhead = nhead; a.seed = seed;
   a.chunk = chunk; a.scale = scale; a.dr = rd::make_drop(rate);
   a.stream = (cudaStream_t)stream;
-  RD_DISPATCH_HD(d / nhead, {
+  RD_DISPATCH_GEOM(d / nhead, {
     if (rate > 0.0) {
-      return bf16 ? launch<MAXD, true, true>(a) : launch<MAXD, false, true>(a);
+      return bf16 ? launch<MAXD, G, true, true>(a) : launch<MAXD, G, false, true>(a);
     }
-    return bf16 ? launch<MAXD, true, false>(a) : launch<MAXD, false, false>(a);
+    return bf16 ? launch<MAXD, G, true, false>(a) : launch<MAXD, G, false, false>(a);
   });
 }

@@ -17,6 +17,10 @@ missing edge), by one of three branches (`prop_branch`):
   * 'coo'    (prop_backend 'coo', or a global_adj without 'pallas'): the
     segment ops of ops/segment.py over the edge list.
 
+With `sensor_wise_mask` the time PE joins each sensor's embedding (the
+encoder runs at d_inp * (d_ob + d_pe)) and the pooling is per sensor,
+weighted by the observed mask (nn/aggregate.sensor_wise_pool).
+
 Input contract, as the JAX function's:
   src     [T, B, 2F]  z-scored values (cols :F) ++ observed mask (cols F:2F)
   static  [B, d_static] or None
@@ -29,8 +33,7 @@ the counter-hash masks of utils/dropout.py. The function records a graph
 for autograd; callers that only infer run it under torch.no_grad().
 
 What the port does not run yet raises NotImplementedError naming the
-slice that brings it: use_beta, sensor_wise_mask, compute_dtype and the
-scale-out routes.
+slice that brings it: use_beta, compute_dtype and the scale-out routes.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ from raindrop_tpu_torch.graph.propagate import (
     alpha_pairwise_distance, ob_propagate_coo, ob_propagate_dense_complete,
     ob_propagation_init)
 from raindrop_tpu_torch.graph.structure import complete_graph_edges
-from raindrop_tpu_torch.nn.aggregate import masked_mean_pool, padding_mask
+from raindrop_tpu_torch.nn.aggregate import (
+    masked_mean_pool, padding_mask, sensor_wise_pool)
 from raindrop_tpu_torch.nn.init import glorot, tiny_uniform, torch_linear_params
 from raindrop_tpu_torch.nn.linear import linear_apply, mlp_apply, mlp_init
 from raindrop_tpu_torch.nn.transformer import (
@@ -205,9 +209,10 @@ def _refuse(cfg: RaindropConfig, scale_out: bool):
         raise NotImplementedError(
             "context_parallel, pipeline_parallel and edge_partition come "
             "with the scale-out slice")
-    if cfg.use_beta or cfg.sensor_wise_mask:
+    if cfg.use_beta:
         raise NotImplementedError(
-            "use_beta and sensor_wise_mask come with the capability slice")
+            "use_beta (time-conditioned edge attention and pruning) comes "
+            "with a later capability slice")
     if cfg.compute_dtype is not None and cfg.compute_dtype != cfg.dtype:
         raise NotImplementedError(
             "compute_dtype comes with the mixed-precision slice")
@@ -240,6 +245,7 @@ def raindrop_apply(
     F_, d_ob, T = cfg.d_inp, cfg.d_ob, cfg.max_len
     dtype = _dtype(cfg)
     values = src[:, :, :F_].to(dtype)                     # [T, B, F]
+    observed = src[:, :, F_:2 * F_].to(dtype)             # [T, B, F]
     B = values.shape[1]
 
     # sensor-level gated embedding: repeat_interleave by d_ob, times R_u
@@ -294,7 +300,13 @@ def raindrop_apply(
         alpha_all = a2[..., 0]                              # [B, F*F]
     distance = alpha_pairwise_distance(alpha_all)
     output = _from_node_features(out2, T, d_ob)            # [B, T, F*d_ob]
-    output = torch.cat([output, pe_b], dim=-1)             # [B, T, F*d_ob+d_pe]
+    if cfg.sensor_wise_mask:
+        # the time PE beside each sensor's embedding: [B, T, F*(d_ob+d_pe)]
+        ext_pe = pe_b[:, :, None, :].expand(B, T, F_, cfg.d_pe)
+        output = torch.cat([output.reshape(B, T, F_, d_ob), ext_pe],
+                           dim=-1).reshape(B, T, F_ * (d_ob + cfg.d_pe))
+    else:
+        output = torch.cat([output, pe_b], dim=-1)         # [B, T, F*d_ob+d_pe]
 
     mask = padding_mask(lengths, T)                        # [B, T] True = pad
     r_out = transformer_encoder_apply(
@@ -304,7 +316,11 @@ def raindrop_apply(
         score_dtype=cfg.attention_score_dtype,
         seeds=None if seeds is None else seeds.layers)
 
-    pooled = masked_mean_pool(r_out, lengths)
+    if cfg.sensor_wise_mask:
+        pooled = sensor_wise_pool(r_out.reshape(B, T, F_, d_ob + cfg.d_pe),
+                                  observed.transpose(0, 1))
+    else:
+        pooled = masked_mean_pool(r_out, lengths)
     if cfg.static and static is not None:
         emb = linear_apply(params["emb"], static.to(dtype))
         pooled = torch.cat([pooled, emb], dim=1)

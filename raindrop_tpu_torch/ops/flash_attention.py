@@ -19,7 +19,9 @@ Both are `torch.autograd.Function`s. On CUDA tensors their forward and
 backward launch the hand-written kernels in `csrc/flash_packed.cu` and
 `csrc/flash_split.cu` (or raise); `flash_mha_packed` takes the route of
 its launch plan (`packed_plan`): the tensor-core kernels for bf16
-operands, the scalar ones for f32. On CPU tensors they run
+operands up to a padded head dim of 144, the scalar ones for f32 and for
+wider heads (up to 368, the sensor-wise P12's 360). `flash_mha` takes
+head dims up to 128 on the card. On CPU tensors they run
 `_packed_fwd_plain` / `_packed_bwd_plain` and `_flash_fwd_plain` /
 `_flash_bwd_plain`, the same functions in plain PyTorch, which the CPU
 tests hold against the JAX package and `chip_smoke.py` holds the kernels
@@ -51,10 +53,19 @@ LOG2E = 1.4426950408889634
 # port's encoder ladder keeps it (nn/transformer.py): beyond it the model
 # runs the split-head flash_mha.
 MAX_FUSED_T = 1024
-# The largest head dim the kernels take (csrc/attention.cuh RD_DISPATCH_HD:
-# a thread holds hd / 4 output columns in registers; the tensor-core kernels
-# hold hd / 2 and take wgmma widths up to 128).
-MAX_HEAD_DIM = 128
+# The largest head dim flash_mha_packed's kernels take (csrc/attention.cuh
+# SCALAR_MAX_HD): the scalar kernels in the Wide geometry, a thread holding
+# hd / 8 output columns in registers.
+MAX_HEAD_DIM = 368
+# The scalar kernels' Narrow geometry (64-row blocks and tiles) fits a
+# block's shared memory up to this head dim; the Wide one (32) beyond.
+NARROW_MAX_HD = 192
+# The widest padded head dim of the tensor-core kernels
+# (csrc/flash_packed.cuh TC_MAX_HD_PAD): eICU's sensor-wise hd 140.
+TC_MAX_HD_PAD = 144
+# The largest head dim flash_mha's kernels take on the card
+# (csrc/attention.cuh RD_DISPATCH_HD).
+MAX_SPLIT_HEAD_DIM = 128
 # Shared memory a block may use on sm_90 (csrc/attention.cuh MAX_SMEM).
 MAX_SMEM = 232448
 _ROWS = 64              # rows of a CTA's block and of a streamed tile
@@ -83,24 +94,27 @@ class PackedPlan:
     route: "tc" (tensor cores, bf16 operands) or "scalar" (f32 FMA);
     hd_pad: the head dim padded to 16, the K depth of the score products
     and the N width of the output products, hd itself on the scalar route;
-    copy_bytes: the width of one tile copy; smem: shared
-    bytes of the forward, dq and dk/dv kernels; threads: their block sizes;
-    grid: (query or key blocks, heads, samples); the tensor-core dk/dv pass
-    runs two CTAs a key block (dv and dk), 2 * grid[0] along x."""
+    copy_bytes: the width of one tile copy; rows: the rows of a CTA's block
+    and of a streamed tile (64; 32 in the scalar kernels' Wide geometry,
+    past hd 192); smem: shared bytes of the forward, dq and dk/dv kernels;
+    threads: their block sizes; grid: (query or key blocks, heads,
+    samples); the tensor-core dk/dv pass runs two CTAs a key block (dv and
+    dk), 2 * grid[0] along x."""
 
     route: str
     hd: int
     hd_pad: int
     copy_bytes: int
+    rows: int
     smem: tuple
     threads: tuple
     grid: tuple
 
     @functools.cached_property
     def as_ints(self):
-        """The plan as the C entry points take it: 12 ints."""
+        """The plan as the C entry points take it: 13 ints."""
         vals = ((1 if self.route == "tc" else 0), self.hd_pad, self.copy_bytes,
-                *self.smem, *self.threads, *self.grid)
+                self.rows, *self.smem, *self.threads, *self.grid)
         return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -112,16 +126,46 @@ def _align(*ptrs) -> int:
     return a
 
 
+def tc_smem(hd_pad):
+    """Shared bytes of the tensor-core forward, dq and dk/dv kernels
+    (csrc/attention_tc.cuh *_smem_bytes): five 64 x hd_pad bf16 tiles
+    forward (Q, two stages of K and V), six in each backward pass, plus two
+    stages of lse and delta rows in the dk/dv pass."""
+    tile = _ROWS * hd_pad * 2
+    return (5 * tile, 6 * tile, 6 * tile + 4 * _ROWS * 4)
+
+
+def scalar_rows(hd):
+    """Rows of a CTA's block and of a streamed tile in the scalar kernels:
+    64 (the Narrow geometry) up to hd NARROW_MAX_HD, 32 (Wide) beyond."""
+    return _ROWS if hd <= NARROW_MAX_HD else _ROWS // 2
+
+
+def scalar_smem(hd, rows):
+    """Shared bytes of the scalar forward, dq and dk/dv kernels in the
+    geometry of `rows` (64 Narrow, 32 Wide: as many rows in a streamed
+    tile), csrc/attention.cuh attn_smem_floats and attention_bwd.cuh
+    attn_*_floats: own rows and streamed tiles at stride hd + 1, the
+    probability or ds tiles at stride rows + 1."""
+    hp, pp = hd + 1, rows + 1
+    return (4 * (3 * rows * hp + rows * pp),
+            4 * (4 * rows * hp + rows * pp),
+            4 * (4 * rows * hp + 2 * rows * pp + 2 * rows))
+
+
 @functools.lru_cache(maxsize=256)
 def packed_plan(B, T, d, nhead, od, impl="auto", align=16) -> PackedPlan:
     """The launch plan of flash_mha_packed's kernels for [B, T, d] operands
-    of dtype `od` on the card: bf16 takes the tensor-core route, f32 the
-    scalar one (TF32 would miss its 1e-4); impl="scalar" asks for the scalar
-    kernels in bf16 too (the previous design, for measurement). `align` is
-    the operands' address alignment in bytes: with the row stride (2 d
-    bytes) and the head offset (2 hd bytes per head) it bounds the copy
-    width, 16, 8, 4 or 2 bytes (eICU, hd 36: 8; hd 42: 4). Raises for a
-    head dim past MAX_HEAD_DIM."""
+    of dtype `od` on the card: bf16 takes the tensor-core route while the
+    padded head dim is at most TC_MAX_HD_PAD (and its tiles fit a block's
+    shared memory), f32 (TF32 would miss its 1e-4) and wider bf16 heads
+    the scalar one, in the Narrow geometry up to hd NARROW_MAX_HD and the
+    Wide one beyond; impl="scalar" asks for the scalar kernels in bf16 too
+    (the previous design, for measurement). `align` is the operands'
+    address alignment in bytes: with the row stride (2 d bytes) and the
+    head offset (2 hd bytes per head) it bounds the copy width, 16, 8, 4 or
+    2 bytes (eICU, hd 36: 8; hd 42: 4). Raises for a head dim past
+    MAX_HEAD_DIM."""
     if impl not in ("auto", "scalar"):
         raise ValueError(f"impl must be 'auto' or 'scalar', got {impl!r}")
     if d % nhead:
@@ -130,22 +174,18 @@ def packed_plan(B, T, d, nhead, od, impl="auto", align=16) -> PackedPlan:
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"the flash_mha_packed kernels take head dims up to "
                          f"{MAX_HEAD_DIM}, got hd={hd}")
-    grid = (-(-T // _ROWS), nhead, B)
-    if od == torch.bfloat16 and impl == "auto":
-        hd_pad = -(-hd // 16) * 16
+    hd_pad = -(-hd // 16) * 16
+    if (od == torch.bfloat16 and impl == "auto" and hd_pad <= TC_MAX_HD_PAD
+            and max(tc_smem(hd_pad)) <= MAX_SMEM):
         width = 16
         while width > 2 and ((2 * hd) % width or (2 * d) % width
                              or align % width):
             width //= 2
-        tile = _ROWS * hd_pad * 2
-        smem = (5 * tile, 6 * tile, 6 * tile + 4 * _ROWS * 4)
-        return PackedPlan("tc", hd, hd_pad, width, smem, (128, 128, 128), grid)
-    # csrc/attention.cuh attn_smem_floats, attention_bwd.cuh attn_*_floats
-    rows = _ROWS * (hd + 1)
-    smem = (4 * (3 * rows + _ROWS * (_ROWS + 1)),
-            4 * (4 * rows + _ROWS * (_ROWS + 1)),
-            4 * (4 * rows + 2 * _ROWS * (_ROWS + 1) + 2 * _ROWS))
-    return PackedPlan("scalar", hd, hd, od.itemsize, smem, (256,) * 3, grid)
+        return PackedPlan("tc", hd, hd_pad, width, _ROWS, tc_smem(hd_pad),
+                          (128, 128, 128), (-(-T // _ROWS), nhead, B))
+    rows = scalar_rows(hd)
+    return PackedPlan("scalar", hd, hd, od.itemsize, rows, scalar_smem(hd, rows),
+                      (256,) * 3, (-(-T // rows), nhead, B))
 
 
 def _dropout_keep_hash(seed, bh, iq: int, ik: int, shape, rate: float,
@@ -547,9 +587,11 @@ def _empty_heads(B, H, T, D, device):
 
 def _check_flash_cuda(q, k, v):
     B, H, T, D = q.shape
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"the flash_mha kernels take head dims up to "
-                         f"{MAX_HEAD_DIM}, got D={D}")
+    if D > MAX_SPLIT_HEAD_DIM:
+        raise NotImplementedError(
+            f"the flash_mha kernels take head dims up to {MAX_SPLIT_HEAD_DIM} "
+            f"on the card (got D={D}); wider heads come with the next slice "
+            f"(flash_mha above hd 128)")
     if B > 65535 or H > 65535:
         raise ValueError(f"the flash_mha kernels take up to 65535 samples "
                          f"and heads (grid dimensions), got B={B}, H={H}")

@@ -16,8 +16,10 @@ TPU; its two-heads-per-draw hardware generator has no counterpart here.
 `fused_encoder_layer` is a `torch.autograd.Function` over x and the 12
 weights. On CUDA tensors forward and backward launch the hand-written
 kernels in `csrc/fused_encoder.cu` and `csrc/fused_encoder_bwd.cu` (or
-raise); on CPU tensors they run `_fused_fwd_plain` and `_fused_bwd_plain`,
-the same functions in plain PyTorch.
+raise: `fused_smem` lists each launch's shared memory, which bounds the
+widths they take, d = 340 with ffn = 136 and 2 heads at PAM's sensor-wise
+width among them); on CPU tensors they run `_fused_fwd_plain` and
+`_fused_bwd_plain`, the same functions in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ import torch
 
 from raindrop_tpu_torch.kernels import build
 from raindrop_tpu_torch.ops.flash_attention import (
-    LOG2E, MAX_FUSED_T, _attention_bwd_plain, _check_rate, _dropout_keep_hash,
-    _packed_fwd_plain, _seed_int, operand_dtype, pad8)
+    LOG2E, MAX_FUSED_T, MAX_HEAD_DIM, MAX_SMEM, _attention_bwd_plain,
+    _check_rate, _dropout_keep_hash, _packed_fwd_plain, _seed_int,
+    operand_dtype, pad8, scalar_rows, scalar_smem)
 
 _EPS = 1e-5
 SITE_ATTN_OUT, SITE_FFN_MID, SITE_FFN_OUT = 101, 102, 103
@@ -283,6 +286,7 @@ def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od):
     B, T, d = x.shape
     dev = x.device
     ws, xf, lens, ffn = _prepare(ws, x, lengths)
+    _check_fits(d, ffn, nhead)
     qkv = torch.empty((B, T, 3 * d), dtype=torch.float32, device=dev)
     out = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     attn = torch.empty((B, T, d), dtype=torch.float32, device=dev)
@@ -301,9 +305,38 @@ def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od):
 # rows of [B*T] one CTA of the weight-gradient kernel sums; the split is a
 # function of the shape alone, so the result is the same bits every run
 WGRAD_CHUNK = 512
-# rows per CTA of the row-local backward kernels (BR in
-# csrc/fused_encoder_bwd.cu)
+# rows per CTA of the qkv projection and the row-local backward kernels (BR
+# in csrc/fused_rows.cuh); the forward's row-local tail takes 64
 BWD_ROWS = 32
+_TAIL_ROWS = 64
+
+
+def fused_smem(d, ffn, nhead):
+    """Shared bytes of each launch of the fused layer's kernels at one
+    width (csrc/fused_encoder.cu, csrc/fused_encoder_bwd.cu): the qkv
+    projection, the attention forward and backward (the scalar routines
+    in the geometry of the head dim), the forward's row-local tail, the
+    backward's row-local kernel (the attn rows, later the FFN hidden, and
+    four more buffers) and its dx kernel."""
+    hd = d // nhead
+    attn_fwd, attn_dq, attn_dkv = scalar_smem(hd, scalar_rows(hd))
+    R, dp = BWD_ROWS, d + 1
+    return {"qkv": 4 * R * dp, "attn_fwd": attn_fwd,
+            "tail": 4 * (2 * _TAIL_ROWS * dp + _TAIL_ROWS * (ffn + 1)),
+            "bwd_rows": 4 * (R * max(dp, ffn + 1) + 4 * R * dp + 2 * R),
+            "attn_dq": attn_dq, "attn_dkv": attn_dkv, "dx": 4 * R * (3 * d + 1)}
+
+
+def _check_fits(d, ffn, nhead):
+    """Raise for a width the kernels do not take (the C entry points refuse
+    it too)."""
+    if d // nhead > MAX_HEAD_DIM:
+        raise ValueError(f"the fused layer's kernels take head dims up to "
+                         f"{MAX_HEAD_DIM}, got {d // nhead}")
+    over = {k: v for k, v in fused_smem(d, ffn, nhead).items() if v > MAX_SMEM}
+    if over:
+        raise ValueError(f"the fused layer's kernels do not fit d={d}, "
+                         f"ffn={ffn}: shared bytes {over} past {MAX_SMEM}")
 
 
 def bwd_scratch_floats(B, T, d, ffn, nhead):
@@ -336,6 +369,7 @@ def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
     ws, xf, lens, ffn = _prepare(ws, x, lengths)
+    _check_fits(d, ffn, nhead)
     gf = g.detach().to(torch.float32).contiguous()
     attn, lse = attn.contiguous(), lse.contiguous()
     sizes = bwd_scratch_floats(B, T, d, ffn, nhead)

@@ -56,6 +56,20 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _resolve(fut, result=None, exc=None):
+    """Set a caller's future once: whichever of the fetch stage and close()
+    comes second finds it done and leaves it."""
+    from concurrent.futures import InvalidStateError
+
+    try:
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(result)
+    except InvalidStateError:
+        pass
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -109,6 +123,10 @@ class InferenceServer:
         self._pipeline_depth = 4
         self._fetch_pool = None
         self._inflight = threading.Semaphore(self._pipeline_depth)
+        # groups taken off the queue and not yet resolved; close() fails
+        # what is still here when its time is up
+        self._pending: Dict[int, list] = {}
+        self._shutdown = threading.Event()
 
     @torch.no_grad()
     def _forward(self, P: torch.Tensor, times: torch.Tensor,
@@ -261,7 +279,10 @@ class InferenceServer:
     def _dispatch_group(self, group):
         """Concatenate a group's tensors and launch its buckets; fetching
         and resolving the futures runs on the fetch pool. At most
-        _pipeline_depth groups are in flight."""
+        _pipeline_depth groups are in flight; a group waiting for a slot
+        fails with 'server closed' once close() gives up waiting."""
+        with self._lock:
+            self._pending[id(group)] = group
         try:
             P = np.concatenate([g[0] for g in group if g[0].shape[0]]
                                or [group[0][0]])
@@ -274,9 +295,12 @@ class InferenceServer:
             if n == 0:
                 empty = np.zeros((0, self.cfg.n_classes), np.float32)
                 for g in group:
-                    g[3].set_result(empty)
+                    _resolve(g[3], empty)
+                self._done(group)
                 return
-            self._inflight.acquire()
+            while not self._inflight.acquire(timeout=0.05):
+                if self._shutdown.is_set():
+                    raise RuntimeError("server closed")
             try:
                 top = self.buckets[-1]
                 launches = []
@@ -309,17 +333,24 @@ class InferenceServer:
             off = 0
             for g in group:
                 k = g[0].shape[0]
-                g[3].set_result(all_probs[off:off + k])
+                _resolve(g[3], all_probs[off:off + k])
                 off += k
+            self._done(group)
         except Exception as e:  # noqa: BLE001 — delivered to the callers
             self._fail_or_retry(group, e)
 
+    def _done(self, group):
+        with self._lock:
+            self._pending.pop(id(group), None)
+
     def _fail_or_retry(self, group, err):
         """A coalesced launch failed as a unit: retry each member alone so
-        only the offending request sees the error."""
-        if len(group) == 1:
-            if not group[0][3].done():
-                group[0][3].set_exception(err)
+        only the offending request sees the error. After close() has given
+        up waiting, every member fails instead."""
+        if len(group) == 1 or self._shutdown.is_set():
+            for g in group:
+                _resolve(g[3], exc=err)
+            self._done(group)
             return
         for g in group:
             if g[3].done():
@@ -328,13 +359,20 @@ class InferenceServer:
                 probs, n_launches = self._run_batches(g[0], g[1], g[2])
                 with self._lock:
                     self.stats["batches"] += n_launches
-                g[3].set_result(probs)
+                _resolve(g[3], probs)
             except Exception as e:  # noqa: BLE001
-                g[3].set_exception(e)
+                _resolve(g[3], exc=e)
+        self._done(group)
 
-    def close(self):
-        """Stop the batcher. Queued and in-flight requests complete;
-        anything that races in after the drain fails with 'server closed'."""
+    def close(self, timeout: float = 10.0):
+        """Stop the batcher and return within `timeout` seconds. Queued and
+        in-flight requests complete if they can within that time; every
+        future still pending then (queued, waiting for a pipeline slot, or
+        behind a readback that does not return) fails with 'server closed',
+        and anything that races in after the drain fails the same way. The
+        fetch pool is shut down without waiting: a readback that hangs
+        keeps its thread until it returns, but no caller waits on it."""
+        deadline = time.monotonic() + timeout
         with self._lock:
             if self._closed:
                 return
@@ -342,16 +380,28 @@ class InferenceServer:
             self._submit_q.put(None)
         t = self._batcher_thread
         if t is not None and t.is_alive():
-            t.join(timeout=10.0)
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        with self._lock:
+            futs = [g[3] for grp in self._pending.values() for g in grp]
+        if futs:
+            from concurrent.futures import wait
+            wait(futs, timeout=max(0.0, deadline - time.monotonic()))
+        self._shutdown.set()
         if self._fetch_pool is not None:
-            self._fetch_pool.shutdown(wait=True)
+            self._fetch_pool.shutdown(wait=False, cancel_futures=True)
+        closed = RuntimeError("server closed")
+        with self._lock:
+            pending = [g for grp in self._pending.values() for g in grp]
+            self._pending.clear()
+        for g in pending:
+            _resolve(g[3], exc=closed)
         while True:
             try:
                 item = self._submit_q.get_nowait()
             except queue.Empty:
                 break
-            if item is not None and not item[3].done():
-                item[3].set_exception(RuntimeError("server closed"))
+            if item is not None:
+                _resolve(item[3], exc=closed)
 
     def predict_stream(self, requests, *, depth: int = 4):
         """Yield probs [n_i, C] for each request (P_i, times_i, static_i|None)

@@ -21,9 +21,13 @@ TOL = {None: 1e-4, "bfloat16": 2e-2}
 SEED = 20231
 # flash_mha_packed's shapes: hd 8, 36 (eICU), 80 (P12), 84, 42 (4-byte
 # copies), 128, and 13 and 3 (odd: 2-byte plain loads, unpaired stores),
-# T within a tile, one row past it, and the longest
+# T within a tile, one row past it, and the longest; the sensor-wise head
+# dims 140 (eICU: tensor cores at hd_pad 144 in bf16), 170 (PAM: the
+# scalar kernels' Narrow geometry at 48 columns a thread) and 360 (P12:
+# the Wide geometry, 32-row tiles), and 129 (one past the old limit)
 PACKED_SHAPES = [(13, 16, 2), (130, 72, 2), (215, 160, 2), (70, 84, 1), (64, 84, 2),
-                 (65, 256, 2), (1024, 84, 2), (1024, 256, 2), (100, 26, 2), (65, 6, 2)]
+                 (65, 256, 2), (1024, 84, 2), (1024, 256, 2), (100, 26, 2), (65, 6, 2),
+                 (300, 280, 2), (65, 340, 2), (215, 720, 2), (33, 720, 2), (64, 258, 2)]
 pytestmark = pytest.mark.cuda
 
 
@@ -152,7 +156,8 @@ def _random_layer(gen, d, ffn):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
 @pytest.mark.parametrize("T,d,ffn,nhead", [(13, 16, 32, 2), (600, 84, 136, 2),
-                                           (70, 24, 48, 3), (60, 152, 272, 2)])
+                                           (70, 24, 48, 3), (60, 152, 272, 2),
+                                           (600, 340, 136, 2), (33, 340, 136, 2)])
 def test_fused_backward_matches_plain(gen, T, d, ffn, nhead, cd, rate):
     B = 4
     p = _random_layer(gen, d, ffn)
@@ -184,7 +189,8 @@ def test_fused_backward_matches_plain(gen, T, d, ffn, nhead, cd, rate):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
 @pytest.mark.parametrize("T,d,ffn,nhead", [(13, 16, 32, 2), (600, 84, 136, 2),
-                                           (70, 24, 48, 3)])
+                                           (70, 24, 48, 3), (600, 340, 136, 2),
+                                           (33, 340, 136, 2)])
 def test_fused_kernel_matches_plain(gen, T, d, ffn, nhead, cd, rate):
     B = 4
     p = _random_layer(gen, d, ffn)
@@ -207,10 +213,29 @@ def test_wrappers_refuse_bad_inputs(gen):
     with pytest.raises(ValueError):
         fa._packed_fwd(q, q[:, :4], q, torch.tensor([8, 8], device="cuda"),
                        None, 0.0, None, 2)
-    wide = torch.randn((1, 16, 272), generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="128"):
-        fa._packed_fwd(wide, wide, wide, torch.tensor([16], device="cuda"), None, 0.0,
-                       "bfloat16", 2)
+    # head dims up to 368 are taken (hd 136 was refused before the
+    # sensor-wise slice); past it the packed kernels refuse
+    lens = torch.tensor([16], device="cuda")
+    taken = torch.randn((1, 16, 272), generator=gen, device="cuda")
+    assert torch.isfinite(fa._packed_fwd(taken, taken, taken, lens, None, 0.0,
+                                         "bfloat16", 2)[0]).all()
+    wide = torch.randn((1, 16, 2 * (fa.MAX_HEAD_DIM + 8)), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match=str(fa.MAX_HEAD_DIM)):
+        fa._packed_fwd(wide, wide, wide, lens, None, 0.0, "bfloat16", 2)
+
+
+def test_flash_mha_refuses_wide_heads_on_the_card(gen):
+    """flash_mha (T > 1024 on the model's path) takes hd <= 128 on the card
+    for now; above it raises NotImplementedError naming the next slice,
+    forward and backward (the plain version on the CPU takes any hd)."""
+    x = torch.randn((1, 2, 8, 136), generator=gen, device="cuda")
+    lengths = torch.tensor([8], device="cuda")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        fa.flash_mha(x, x, x, lengths)
+    o = torch.zeros_like(x)
+    lse = torch.zeros((1, 2, 8), device="cuda")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        fa._flash_bwd_cuda(x, x, x, lengths, 0, 0.0, torch.float32, o, lse, x)
 
 
 def _graph(gen, kind):

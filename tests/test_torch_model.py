@@ -79,7 +79,9 @@ def test_eval_forward_matches_jax(preset, backend):
 @pytest.mark.parametrize("change,kw", [
     ("train", {}),
     ("cfg", {"use_beta": True}),
-    ("cfg", {"sensor_wise_mask": True}),
+    # sensor_wise_mask is served now (tests/test_torch_sensor_wise.py);
+    # with use_beta beside it the config is still refused
+    ("cfg", {"use_beta": True, "sensor_wise_mask": True}),
     ("cfg", {"compute_dtype": "bfloat16"}),
     ("scale_out", {}),
 ])

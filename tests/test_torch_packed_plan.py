@@ -28,10 +28,16 @@ def test_route_follows_the_operand_dtype():
 def test_padded_head_dims(hd):
     plan = fa.packed_plan(4, 65, 2 * hd, 2, BF16)
     assert plan.hd == hd
-    assert plan.hd_pad % 16 == 0 and hd <= plan.hd_pad < hd + 16
+    if hd <= fa.TC_MAX_HD_PAD:
+        # bf16 on the tensor cores while the padded width is a wgmma width
+        # the kernels are built for
+        assert plan.route == "tc"
+        assert plan.hd_pad % 16 == 0 and hd <= plan.hd_pad < hd + 16
+    else:
+        assert plan.route == "scalar" and plan.hd_pad == hd
     assert plan.as_ints[1] == plan.hd_pad
     scalar = fa.packed_plan(4, 65, 2 * hd, 2, F32)
-    assert scalar.hd_pad == hd
+    assert scalar.route == "scalar" and scalar.hd_pad == hd
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
@@ -41,7 +47,7 @@ def test_shared_memory_fits_every_head_dim(T, dtype):
         plan = fa.packed_plan(8, T, 3 * hd, 3, dtype)
         assert len(plan.smem) == 3 and all(0 < b <= fa.MAX_SMEM for b in plan.smem)
         assert plan.smem == fa.packed_plan(8, 8, 3 * hd, 3, dtype).smem  # T streams
-        assert plan.grid == (-(-T // 64), 3, 8)
+        assert plan.grid == (-(-T // plan.rows), 3, 8)
 
 
 def test_tensor_core_sizes():
@@ -52,7 +58,7 @@ def test_tensor_core_sizes():
     assert plan.smem == (5 * tile, 6 * tile, 6 * tile + 1024)
     assert plan.threads == (128, 128, 128)
     assert plan.grid == (4, 2, 128)
-    assert list(plan.as_ints) == [1, 80, 16, *plan.smem, 128, 128, 128, 4, 2, 128]
+    assert list(plan.as_ints) == [1, 80, 16, 64, *plan.smem, 128, 128, 128, 4, 2, 128]
 
 
 @pytest.mark.parametrize("hd,d,width", [
@@ -80,8 +86,47 @@ def test_alignment_of_addresses():
 
 
 def test_head_dim_past_the_limit_raises():
-    with pytest.raises(ValueError, match="128"):
-        fa.packed_plan(1, 16, 272, 2, BF16)
-    with pytest.raises(ValueError, match="128"):
-        fa.packed_plan(1, 16, 129, 1, F32)
-    fa.packed_plan(1, 16, 256, 2, BF16)       # hd = 128 is taken
+    # the limit was 128 before the sensor-wise slice; it is 368 now
+    with pytest.raises(ValueError, match="368"):
+        fa.packed_plan(1, 16, 2 * 369, 2, BF16)
+    with pytest.raises(ValueError, match="368"):
+        fa.packed_plan(1, 16, 369, 1, F32)
+    fa.packed_plan(1, 16, 2 * 368, 2, BF16)   # hd = 368 is taken
+    fa.packed_plan(1, 16, 129, 1, F32)        # and so is hd = 129
+
+
+@pytest.mark.parametrize("od", [BF16, F32])
+def test_sensor_wise_routes(od):
+    """The sensor-wise widths (2 heads): eICU's hd 140 keeps the tensor
+    cores in bf16 at hd_pad 144; P12's hd 360 takes the scalar kernels in
+    both dtypes, in the Wide geometry (32-row tiles); PAM's hd 170 (the
+    fused layer's attention) the Narrow one."""
+    eicu = fa.packed_plan(128, 300, 280, 2, od)
+    if od == BF16:
+        assert (eicu.route, eicu.hd_pad, eicu.rows) == ("tc", 144, 64)
+        assert eicu.smem == (92160, 110592, 111616)
+        assert max(eicu.smem) <= fa.MAX_SMEM
+    else:
+        assert (eicu.route, eicu.rows, eicu.smem) == ("scalar", 64, (124928, 161024, 178176))
+    p12 = fa.packed_plan(128, 215, 720, 2, od)
+    assert (p12.route, p12.hd_pad, p12.rows) == ("scalar", 360, 32)
+    assert p12.copy_bytes == od.itemsize
+    assert p12.smem == (142848, 189056, 193536)
+    assert p12.threads == (256, 256, 256) and p12.grid == (7, 2, 128)
+    pam = fa.packed_plan(128, 600, 340, 2, F32)
+    assert (pam.route, pam.rows, pam.smem) == ("scalar", 64, (147968, 191744, 208896))
+
+
+def test_scalar_geometry_switches_where_narrow_stops_fitting():
+    # the dk/dv pass of the Narrow geometry fits up to hd 193 (exactly the
+    # block's 232,448 bytes there), and its 48 columns a thread hold 192;
+    # the Wide one takes the rest up to 368
+    assert fa.scalar_smem(193, 64)[2] == fa.MAX_SMEM < fa.scalar_smem(194, 64)[2]
+    assert max(fa.scalar_smem(fa.MAX_HEAD_DIM, 32)) <= fa.MAX_SMEM
+    assert fa.packed_plan(1, 16, 192, 1, F32).rows == 64
+    assert fa.packed_plan(1, 16, 193, 1, F32).rows == 32
+    # P12's hd 360 on the tensor cores would need five 64 x 368 tiles
+    assert fa.tc_smem(368)[0] == 235520 > fa.MAX_SMEM
+    assert fa.packed_plan(1, 16, 2 * 145, 2, BF16).route == "scalar"
+    # the Narrow sizes are the ones every head dim up to 128 always had
+    assert fa.scalar_smem(80, 64) == fa.packed_plan(1, 16, 160, 2, F32).smem

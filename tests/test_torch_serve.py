@@ -172,3 +172,47 @@ def test_http_round_trip(small):
         httpd.server_close()
         th.join(timeout=10)
     assert not th.is_alive()
+
+
+@pytest.mark.parametrize("depth", [4, 1])
+def test_close_returns_in_time_when_a_readback_hangs(small, depth):
+    """A readback that never returns: close() still returns within its
+    timeout and fails every pending caller with 'server closed'. With a
+    pipeline depth of 1 the second group waits for a slot behind the hung
+    one (in _dispatch_group) and fails the same way."""
+    import time
+    from concurrent.futures import wait
+
+    cfg, params, _, _ = small
+    server = InferenceServer(cfg, params, buckets=BUCKETS, device="cpu")
+    server._pipeline_depth = depth
+    server._inflight = threading.Semaphore(depth)
+    release = threading.Event()
+    server._fetch = lambda dev: (release.wait(), dev.numpy())[1]
+    P, times, static = _request(cfg, 3, seed=11)
+
+    def pending(n):   # wait until the batcher holds n groups
+        deadline = time.monotonic() + 30
+        while len(server._pending) < n and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert len(server._pending) == n
+
+    # the second request arrives after the first was dispatched: two groups
+    first = server.submit_async(P[:2], times[:2], static[:2])
+    pending(1)
+    second = server.submit_async(P[2:], times[2:], static[2:])
+    pending(2)
+    try:
+        t0 = time.monotonic()
+        server.close(timeout=1.0)
+        took = time.monotonic() - t0
+        assert took < 1.0 + 0.5, took
+        done, _ = wait([first, second], timeout=0)
+        assert len(done) == 2
+        for fut in (first, second):
+            with pytest.raises(RuntimeError, match="server closed"):
+                fut.result(timeout=0)
+        with pytest.raises(RuntimeError, match="server closed"):
+            server.submit_async(P[:1], times[:1], static[:1])
+    finally:
+        release.set()      # let the hung pool thread end
