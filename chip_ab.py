@@ -21,7 +21,11 @@ order with that checkout's own code:
               bucket, step ms, device ms, idle share);
   latency     a P12 server (random weights from seed 0): request latency
               by bucket, the median of 31 requests, and the top bucket's
-              device time and idle share (chip_smoke.serve_timing).
+              device time and idle share (chip_smoke.serve_timing);
+  ptxas       compile every unit of the five kernel libraries with
+              `-Xptxas -v` (all nvcc processes together): registers, stack
+              frame and spill bytes of each kernel, the spilling ones
+              printed.
 
 Give the runs in an order that favours no checkout (A B B A). Each task
 prints `TASK name {...}` when it ends and each run `RESULT {...}`; --out
@@ -150,8 +154,53 @@ def task_latency(root, cs):
                                    "idle_share")}
 
 
+def task_ptxas(root, cs):
+    import re
+    from raindrop_tpu_torch.kernels import build
+
+    units = [u for name in build.SOURCES for u in build._units(name)]
+    flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([build._nvcc(), *flags, "-Xptxas", "-v", "-I",
+                                   str(build.CSRC), "-c", "-o",
+                                   os.path.join(tmp, f"{u.stem}.o"), str(u)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for u in units]
+        logs = [proc.communicate()[0] for proc in procs]
+    for u, proc, log in zip(units, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed for {u.name}:\n{log}")
+    kernels, name = {}, None
+    for u, log in zip(units, logs):
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                name = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and name:
+                kernels[name] = dict(unit=u.stem, stack=int(m[1]), spill_stores=int(m[2]),
+                                     spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name in kernels:
+                kernels[name]["registers"] = int(m[1])
+    names = list(kernels)
+    filt = shutil.which("cu++filt", path=os.path.dirname(build._nvcc())) or shutil.which("c++filt")
+    if filt:
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            kernels = {d: kernels[n] for n, d in zip(names, out.stdout.splitlines())}
+    spilling = {k: v for k, v in kernels.items() if v["spill_stores"] or v["spill_loads"]}
+    for k, v in spilling.items():
+        print(f"[ptxas] spills: {v} {k[:160]}", flush=True)
+    return {"kernels": len(kernels), "spilling": len(spilling),
+            "max_registers": max(v.get("registers", 0) for v in kernels.values()),
+            "by_kernel": kernels}
+
+
 TASKS = {"build": task_build, "one_unit": task_one_unit, "kernels": task_kernels,
-         "serve_train": task_serve_train, "latency": task_latency}
+         "serve_train": task_serve_train, "latency": task_latency, "ptxas": task_ptxas}
 
 
 def worker(root, tasks):

@@ -15,12 +15,13 @@ check does not hold:
   2. flash_mha_packed forward, kernel against its plain PyTorch version at
      the P12 (B=128, T=215, d=160) and eICU (T=300, d=72) shapes, f32 and
      bf16 operands, ragged lengths including 0, 1 and T, bit-equal on a
-     repeat, exact zeros for the length-0 sample; in bf16 the
+     repeat and for 8 samples launched alone, exact zeros for the
+     length-0 sample; in bf16 the
      tensor-core kernel is timed in turns with the previous design (the
      scalar kernel, prev_ms), and each time's share of the bound printed;
   3. fused_encoder_layer forward, the same at the PAM shape (B=128, T=600,
      d=84, ffn=136) on out, attn and lse (attn zero for the length-0
-     sample);
+     sample, 8 samples alone bit-equal);
   4. flash_mha_packed backward at the same shapes, dropout 0 and 0.2: the
      forward with dropout, then dq, dk, dv of the two backward kernels
      against the plain backward, finite, zero on the length-0 sample, and
@@ -44,8 +45,10 @@ check does not hold:
   7. an InferenceServer for PAM at full width (random weights from a seed)
      answering predict on 1, 5, 128 and 200 rows, submit from 4 threads,
      predict_stream and the bf16 wire format, held against the same server
-     on the dense plain path; it must have gone through the fused-layer
-     kernel;
+     on the dense plain path; a row's probabilities across batches within
+     1e-5 on the kernel path with f32 operands too, and within the same
+     limit on the kernels' plain versions in bf16 (each server's own batch
+     dependence printed); it must have gone through the fused-layer kernel;
   8. the same for P12, which must have gone through flash_mha_packed,
      every launch on the tensor-core route (bf16 operands);
   9. a Trainer for PAM at full width and depth (B=128, lr 1e-4, shipped
@@ -53,15 +56,19 @@ check does not hold:
      a padded predict; finite losses, backward launches of the preset's
      kernel, dead parameters bit-identical and live ones changed, the same
      epoch twice bit-equal, the first step's loss and gradient norm against
-     the dense path at dropout 0, and a falling loss on a fixed batch;
+     the dense path at dropout 0, a falling loss on a fixed batch, and on
+     that batch at lr 1e-3 and dropout 0 ten steps beside the dense path's,
+     the loss before and after the first one held to it (f32 and bf16
+     operands);
  10. the same for P12 (every flash_mha_packed launch, forward and
      backward, on the tensor-core route);
  10b. phases 7 and 8 with sensor_wise_mask for P19 (the dense rung at
      T=60: no kernel launched), P12 (every flash_mha_packed launch on the
      scalar route), eICU (every launch on the tensor cores) and PAM (the
      fused layer), a row's probabilities held across batches to
-     BATCH_LIMIT_SW; and phase 9 for P12, eICU and PAM with it, the
-     fixed-batch check at the rate FIT_LR_SW gives;
+     BATCH_LIMIT_SW with bf16 operands, on the kernels and on their plain
+     versions; and phase 9 for P12, eICU and PAM
+     with it, the falling-loss check at the rate FIT_LR_SW gives;
  11. spmm_segment_softmax, kernels against their plain PyTorch versions,
      forward (out, w) and backward (dx, dgamma, cotangents on both
      outputs): the complete sensor graphs of P12 (B=128, N=36, E=1296,
@@ -123,6 +130,7 @@ number to PATH as JSON.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -263,6 +271,11 @@ def flash_phase(label, B, T, d, H, dtype, device="cuda", seed=0):
         raise AssertionError(f"flash forward not bit-equal on a repeat at {label} {dtype}")
     if not (bool((o_k[0] == 0).all()) and bool((lse_k[0] == fa.NEG_INF).all())):
         raise AssertionError(f"flash forward: the length-0 sample is not zero at {label}")
+    # a sample's bits do not depend on the batch it is launched in
+    o_s, lse_s = fa._packed_fwd(q[:8], k[:8], v[:8], lengths[:8], None, 0.0, cd, H)
+    if not (torch.equal(o_s, o_k[:8]) and torch.equal(lse_s, lse_k[:8])):
+        raise AssertionError(f"flash forward: 8 samples alone differ from the same "
+                             f"samples in a batch of {B} at {label} {dtype}")
 
     # inputs already in the operand dtype, so the timed call is the launch
     qo, ko, vo = (x.to(od) for x in (q, k, v))
@@ -337,6 +350,10 @@ def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
     if not (bool((got[1][0] == 0).all()) and bool((got[2][0] == -1e30).all())):
         raise AssertionError(f"fused forward: the length-0 sample's attention is not "
                              f"zero at {label}")
+    alone = fe._fused_fwd(p, x[:8], lengths[:8], None, 0.0, cd, H)
+    if not all(torch.equal(a, b[:8]) for a, b in zip(alone, got)):
+        raise AssertionError(f"fused forward: 8 samples alone differ from the same "
+                             f"samples in a batch of {B} at {label} {dtype}")
 
     ms = time_ms(lambda: fe._fused_fwd(p, x, lengths, None, 0.0, cd, H))
     plain_ms = time_ms(lambda: fe._fused_fwd_plain(p, x, lengths, H, od))
@@ -1118,22 +1135,25 @@ def _rows(x, sl):
 
 
 PLAIN_ATTENTION = {"attention_backend": "dense"}
-# The served rows' batch-composition limit with sensor_wise_mask. Another
-# bucket gives cuBLAS another GEMM algorithm upstream of the encoder; a
-# last-bit difference there can flip a bf16 rounding of an attention
-# operand (the kernels themselves give a row the same bits at every batch
-# size), and the sensor-wise pool weighs a sensor's steps by up to T (600
-# at PAM), so a row's probabilities move up to T times further than
-# without the mask. serve_phase prints the dense plain server's own
-# difference (f32 attention) beside.
+# The served rows' batch-composition limit with sensor_wise_mask and bf16
+# attention operands. Another bucket gives cuBLAS another GEMM algorithm
+# upstream of the encoder; a last-bit difference there can flip a bf16
+# rounding of an attention operand (the kernels give a sample the same
+# bits in any batch: flash_phase and fused_phase check it), and the
+# sensor-wise pool weighs a sensor's steps by up to T (600 at PAM), so a
+# row's probabilities move up to T times further than without the mask.
+# serve_phase holds the kernel path with f32 operands to 1e-5, and the
+# kernels' plain versions in bf16 (plain_kernels) to this limit: at PAM-sw
+# on an H100 their rows move as far as the kernels' (4.6e-5 against 4.7e-5).
 BATCH_LIMIT_SW = 1e-4
 # The fixed-batch falling-loss check's rate with sensor_wise_mask. The
 # reference's sensor-wise pool sums the unobserved steps over (#observed +
 # 1), so a sensor never observed in a sample weighs up to T (215 at P12)
 # and the head sees inputs of that size; Adam's first, sign-like steps then
 # overshoot: at lr 1e-3 the loss on one batch jumps within the first steps
-# and need not end below where it started. train_phase runs the fit at
-# 1e-3 beside this rate and prints both; it checks this one.
+# and need not end below where it started. train_phase fits the dense
+# path at 1e-3 on the same batch beside the kernel path (dropout 0): its
+# loss does the same.
 FIT_LR_SW = 1e-5
 PLAIN_ALL = {"attention_backend": "dense", "prop_backend": "auto"}
 
@@ -1176,6 +1196,29 @@ def check_scalar(what, *counts):
         if c["flash_mha_packed"] <= 0 or c["flash_mha_packed.tc"] != 0:
             raise AssertionError(f"{what}: flash_mha_packed launches off the "
                                  f"scalar route: {c}")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The encoder's kernel rungs run their wrappers' plain versions on the
+    card, operands rounded as the kernels round them: the plain path at the
+    kernels' precision (the dense rung attends in f32), which serve_phase
+    serves beside the kernels to see how far its rows move across batches."""
+    from raindrop_tpu_torch.nn import transformer as tr
+    from raindrop_tpu_torch.ops import flash_attention as fa
+    from raindrop_tpu_torch.ops import fused_encoder as fe
+
+    saved = tr.flash_mha_packed, tr.fused_encoder_layer
+    tr.flash_mha_packed = lambda q, k, v, lengths, seed, rate, cd, nhead: (
+        fa._packed_fwd_plain(q, k, v, lengths, nhead, fa.operand_dtype(cd),
+                             fa._seed_int(seed), rate)[0])
+    tr.fused_encoder_layer = lambda p, x, lengths, seed, rate, cd, nhead: (
+        fe._fused_fwd_plain(p, x, lengths, nhead, fa.operand_dtype(cd),
+                            fa._seed_int(seed), rate)[0])
+    try:
+        yield
+    finally:
+        tr.flash_mha_packed, tr.fused_encoder_layer = saved
 
 
 def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
@@ -1249,10 +1292,12 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
     limits = {"alone_vs_full_bucket": batch_limit, "predict_vs_chunked": batch_limit,
               "submit_vs_predict": batch_limit, "stream_vs_predict": batch_limit,
               "bf16_wire_vs_f32": 5e-2}
-    plain_batch = None
+    batch = {}
 
     # the same params on the dense plain path, and the kernel path with
-    # f32 attention operands
+    # f32 attention operands; each one's rows streamed 8 at a time against
+    # the same rows in the top bucket (its own batch dependence), and the
+    # kernels' plain versions in bf16 beside
     for score, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
         c_k = dataset_config(dataset, **{**kw, "attention_score_dtype": score})
         c_d = dataset_config(dataset, **{**kw, **plain_overrides,
@@ -1263,13 +1308,24 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
         b = s_d.predict(P[:top], times[:top], _rows(static, slice(0, top)))
         checks[f"kernel_vs_dense_{score}"] = float(np.abs(a - b).max())
         limits[f"kernel_vs_dense_{score}"] = tol
-        if score == "float32":
-            plain_batch = float(np.abs(np.concatenate(
-                list(s_d.predict_stream(reqs, depth=3))) - b[:48]).max())
+        for path, srv, top_probs in (("kernel", s_k, a), ("dense", s_d, b)):
+            batch[f"{path}_{score}"] = float(np.abs(np.concatenate(
+                list(srv.predict_stream(reqs, depth=3))) - top_probs[:48]).max())
+        if score == "bfloat16":
+            with plain_kernels():
+                c = s_k.predict(P[:top], times[:top], _rows(static, slice(0, top)))
+                batch["plain_bfloat16"] = float(np.abs(np.concatenate(
+                    list(s_k.predict_stream(reqs, depth=3))) - c[:48]).max())
+            batch["kernel_vs_plain_bfloat16"] = float(np.abs(a - c).max())
         s_k.close()
         s_d.close()
-    print(f"[serve] {dataset}: checks {checks}; the dense plain server's "
-          f"stream_vs_predict {plain_batch}", flush=True)
+    checks["kernel_float32_stream_vs_predict"] = batch["kernel_float32"]
+    limits["kernel_float32_stream_vs_predict"] = 1e-5
+    # the plain path at the kernels' precision holds the batch limit too
+    checks["plain_bfloat16_stream_vs_predict"] = batch["plain_bfloat16"]
+    limits["plain_bfloat16_stream_vs_predict"] = batch_limit
+    print(f"[serve] {dataset}: checks {checks}; stream_vs_predict by path and "
+          f"operand dtype {batch}", flush=True)
     bad = {k: v for k, v in checks.items() if not v <= limits[k]}
     if bad:
         raise AssertionError(f"{dataset}: checks over their limits: {bad} "
@@ -1281,8 +1337,7 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
     timing = serve_timing(dataset, server, P, times, static)
     server.close()
     return launches, dict(served_s=served_s, forwards=forwards, checks=checks,
-                          limits=limits, plain_stream_vs_predict=plain_batch,
-                          **timing)
+                          limits=limits, stream_vs_predict_by_path=batch, **timing)
 
 
 def profile_device(fn, n):
@@ -1363,16 +1418,15 @@ def grad_norm(trainer):
 
 
 def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
-                cfg_overrides=None, plain_overrides=PLAIN_ATTENTION, fit_lr=1e-3,
-                also_fit_lr=None):
+                cfg_overrides=None, plain_overrides=PLAIN_ATTENTION, fit_lr=1e-3):
     """Train one preset at full width and depth and check it. Every
     wrapper's counts are set to 0 just before the epoch and the predict and
     read just after; returns the forward and backward counts by wrapper
     name. `kernel_fns` are the wrappers this training must go through,
     forward and backward; `plain_overrides` turn its config into the plain
-    path its first step is held against; `fit_lr` is the learning rate of
-    the falling-loss check on one fixed batch, `also_fit_lr` a rate whose
-    fit is measured beside it and not checked."""
+    path its first step and its steps at lr 1e-3 on one batch are held
+    against; `fit_lr` is the learning rate of the falling-loss check on
+    that batch."""
     import torch
     from raindrop_tpu_torch.config import TrainConfig, dataset_config
     from raindrop_tpu_torch.data.sampler import balanced_batches
@@ -1484,7 +1538,33 @@ def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
     loss0, loss1, fit_losses = fit_batch(fit_lr)
     if not loss1 < loss0:
         raise AssertionError(f"{dataset}: the loss did not fall: {loss0} -> {loss1}")
-    also_fit = fit_batch(also_fit_lr) if also_fit_lr is not None else None
+
+    # lr 1e-3 on that batch at dropout 0, ten steps on the kernel path and
+    # on the dense one: the loss before and after the first step agree (the
+    # first-step tolerances); past a jump of the loss the two part as the
+    # JAX trainer parts from itself (tests/test_torch_sensor_wise.py), and
+    # whether the dense path's loss falls there is FIT_LR_SW's witness
+    follow = {}
+    for score, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        runs = []
+        for plain in ({}, plain_overrides):
+            c = dataset_config(dataset, **{**kw, "dropout": 0.0, **plain,
+                                           "attention_score_dtype": score})
+            fit = Trainer(c, tcfg, device=device, params=trainer.params)
+            fit.learning_rate = 1e-3
+            runs.append([float(fit.train_step(first)[0]) for _ in range(10)])
+            del fit
+        (lk, ld) = runs
+        follow[score] = dict(kernel=lk, dense=ld, first_two=max(
+            abs(a - b) / abs(b) for a, b in zip(lk[:2], ld[:2])), limit=tol)
+        print(f"[train] {dataset}: lr 1e-3, dropout 0, {score} operands, step "
+              f"losses {[round(x, 5) for x in lk]}, dense {[round(x, 5) for x in ld]}: "
+              f"the first two {follow[score]['first_two']:.3e} apart (limit {tol:g})",
+              flush=True)
+    bad = {k: v["first_two"] for k, v in follow.items() if not v["first_two"] <= v["limit"]}
+    if bad:
+        raise AssertionError(f"{dataset}: at lr 1e-3 the first step's losses part "
+                             f"from the dense path's: {bad}")
 
     # timings: CUDA events around each step, then a profiled epoch
     timed = Trainer(cfg, tcfg, device=device, params=trainer.params)
@@ -1515,8 +1595,8 @@ def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
     return launches, bwd_launches, dict(
         rung=rung, steps=steps, train_s=train_s, losses=[float(x) for x in losses],
         checks=checks, limits=limits, fixed_batch=(loss0, loss1),
-        fixed_batch_losses=fit_losses, fit_lr=fit_lr, also_fit_lr=also_fit_lr,
-        also_fit=also_fit, step_ms=step_ms, step_ms_median=step_med,
+        fixed_batch_losses=fit_losses, fit_lr=fit_lr, lr_1e3_vs_dense=follow,
+        step_ms=step_ms, step_ms_median=step_med,
         epoch_ms=epoch_ms, samples_per_s=sps, profile_wall_ms=wall_ms,
         profile_device_ms=device_ms, idle_share=idle, device_ms_by_kernel=top_k)
 
@@ -1846,8 +1926,7 @@ def main(argv=None) -> int:
     if any(sw_serve["P19"][0].values()):
         raise AssertionError(f"P19-sw serving launched a kernel: {sw_serve['P19'][0]}")
     sw_train = {
-        name: train_phase(name, [fn], wrappers, cfg_overrides=sw, fit_lr=FIT_LR_SW,
-                          also_fit_lr=1e-3)
+        name: train_phase(name, [fn], wrappers, cfg_overrides=sw, fit_lr=FIT_LR_SW)
         for name, fn in (("P12", flash_mha_packed), ("eICU", flash_mha_packed),
                          ("PAM", fused_encoder_layer))}
     check_scalar("P12-sw serving and training", sw_serve["P12"][0],

@@ -163,21 +163,28 @@ bool copy_ok(int W, int hd, int d, std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-// The plan matches this call: the route is legal for the operand type, every
-// size is what this file computes, the copy width fits the pointers.
-bool plan_ok(const Plan& p, int B, int T, int d, int nhead, int bf16,
-             std::initializer_list<const void*> operands) {
-  if (p.route != 0 && p.route != 1) return false;
-  if (p.route == 1 && (!bf16 || rd::tc::pad16(d / nhead) > rd::packed::TC_MAX_HD_PAD))
-    return false;
-  if (p.route == 0 && d / nhead > rd::SCALAR_MAX_HD) return false;
-  Plan e = expected_plan(B, T, d, nhead, bf16, p.route);
-  if (p.route == 1) {
-    if (!copy_ok(p.copy_bytes, d / nhead, d, operands)) return false;
-    e.copy_bytes = p.copy_bytes;
+bool route_ok(int route, int hd, int bf16) {
+  if (route == 1) return bf16 && rd::tc::pad16(hd) <= rd::packed::TC_MAX_HD_PAD;
+  return route == 0 && hd <= rd::SCALAR_MAX_HD;
+}
+
+// The launch plan of this call, from the wrapper's PLAN_INTS ints: false
+// unless the route is legal for the operand type, every field is what
+// this file computes, the copy width fits the pointers and each kernel's
+// shared memory fits a block.
+bool make_plan(const int* ints, int B, int T, int d, int nhead, int bf16,
+               std::initializer_list<const void*> operands, Plan* p) {
+  const int route = ints[0];
+  if (!route_ok(route, d / nhead, bf16)) return false;
+  Plan e = expected_plan(B, T, d, nhead, bf16, route);
+  if (route == 1) {
+    if (!copy_ok(ints[2], d / nhead, d, operands)) return false;
+    e.copy_bytes = ints[2];
   }
   if (std::max({e.smem_fwd, e.smem_dq, e.smem_dkv}) > rd::MAX_SMEM) return false;
-  return std::memcmp(&e, &p, sizeof(Plan)) == 0;
+  if (std::memcmp(&e, ints, rd::packed::PLAN_INTS * sizeof(int)) != 0) return false;
+  *p = e;
+  return true;
 }
 
 template <int MAXD, typename G, bool DROP, typename TIn>
@@ -237,15 +244,32 @@ bool bad_shape(int B, int T, int d, int nhead, double rate) {
                   : F<MAXD, G, false, float>(__VA_ARGS__);                    \
   })
 
-// plan: the wrapper's launch plan, 13 ints (flash_packed.cuh struct Plan).
+// The shared bytes of the forward, dq and dk/dv kernels on a route (0
+// scalar, 1 tensor cores) for [B, T, d] operands, as the entry points below
+// launch them; cudaErrorInvalidValue for a route the call cannot take or
+// a kernel that would not fit a block.
+extern "C" int rd_packed_smem(int B, int T, int d, int nhead, int bf16, int route,
+                              int* out) {
+  if (bad_shape(B, T, d, nhead, 0.0) || !route_ok(route, d / nhead, bf16))
+    return (int)cudaErrorInvalidValue;
+  const Plan e = expected_plan(B, T, d, nhead, bf16, route);
+  out[0] = e.smem_fwd;
+  out[1] = e.smem_dq;
+  out[2] = e.smem_dkv;
+  return std::max({e.smem_fwd, e.smem_dq, e.smem_dkv}) > rd::MAX_SMEM
+             ? (int)cudaErrorInvalidValue : 0;
+}
+
+// plan: the wrapper's launch plan, PLAN_INTS ints (flash_packed.cuh struct
+// Plan).
 extern "C" int rd_packed_fwd(const void* q, const void* k, const void* v,
                              const void* lengths, void* o, void* lse, int B,
                              int T, int d, int nhead, float scale2, int bf16,
                              int seed, double rate, const int* plan, void* stream) {
   if (bad_shape(B, T, d, nhead, rate)) return (int)cudaErrorInvalidValue;
   Plan p;
-  std::memcpy(&p, plan, sizeof(Plan));
-  if (!plan_ok(p, B, T, d, nhead, bf16, {q, k, v})) return (int)cudaErrorInvalidValue;
+  if (!make_plan(plan, B, T, d, nhead, bf16, {q, k, v}, &p))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (p.route == 1) {
     return rd::packed::launch_fwd_tc(q, k, v, lengths, o, lse, p, T, d, nhead, scale2, seed,
@@ -265,8 +289,8 @@ extern "C" int rd_packed_bwd(const void* q, const void* k, const void* v,
                              void* stream) {
   if (bad_shape(B, T, d, nhead, rate)) return (int)cudaErrorInvalidValue;
   Plan p;
-  std::memcpy(&p, plan, sizeof(Plan));
-  if (!plan_ok(p, B, T, d, nhead, bf16, {q, k, v, d_o})) return (int)cudaErrorInvalidValue;
+  if (!make_plan(plan, B, T, d, nhead, bf16, {q, k, v, d_o}, &p))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (p.route == 1) {
     const int err = rd::packed::launch_dq_tc(q, k, v, d_o, lse, delta, lengths, dq, p, T, d,

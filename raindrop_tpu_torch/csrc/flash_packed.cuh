@@ -13,18 +13,20 @@
 namespace rd {
 namespace packed {
 
-// The wrapper's launch plan (ops/flash_attention.py PackedPlan.as_ints),
-// field for field; flash_packed.cu checks it against the call.
+// A launch plan: the wrapper's (ops/flash_attention.py PackedPlan.as_ints,
+// the first PLAN_INTS fields), which flash_packed.cu checks against the
+// call, and the shared bytes of each kernel, which flash_packed.cu computes.
 struct Plan {
   int route;       // 0 scalar, 1 tensor cores
   int hd_pad;      // head dim padded to 16 (tensor cores), hd (scalar)
   int copy_bytes;  // width of one tile copy
   int rows;        // rows of a CTA's block: 64, or 32 (scalar, Wide geometry)
-  int smem_fwd, smem_dq, smem_dkv;
   int threads_fwd, threads_dq, threads_dkv;
   int grid_x, grid_y, grid_z;
+  int smem_fwd, smem_dq, smem_dkv;
 };
-static_assert(sizeof(Plan) == 13 * sizeof(int), "Plan is 13 ints");
+constexpr int PLAN_INTS = 10;
+static_assert(sizeof(Plan) == (PLAN_INTS + 3) * sizeof(int), "Plan is 13 ints");
 
 // The widest padded head dim of the tensor-core kernels: eICU's sensor-wise
 // hd 140. Past it the forward's five tiles stop fitting a block's shared

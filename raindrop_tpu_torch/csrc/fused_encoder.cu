@@ -42,6 +42,8 @@
 // the three site masks (seed, b) with the row term site * t8 + row, t8 = T
 // padded to 8 (the reference's padded row count), sites 101 (attention
 // out), 102 (FFN hidden, after relu) and 103 (FFN out).
+#include <algorithm>
+
 #include "fused_rows.cuh"
 
 namespace {
@@ -111,6 +113,17 @@ cudaError_t allow_smem(K kern, int bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// Shared bytes of the three launches at one width: the qkv projection, the
+// attention (the scalar routine in geometry G), the row-local tail.
+template <typename G>
+int fwd_smem(int d, int ffn, int nhead, int* bytes) {
+  bytes[0] = rd::BR * (d + 1) * (int)sizeof(float);
+  bytes[1] = rd::attn_smem_floats<G>(d / nhead) * (int)sizeof(float);
+  bytes[2] = tail_floats(d, ffn) * (int)sizeof(float);
+  return std::max({bytes[0], bytes[1], bytes[2]}) > rd::MAX_SMEM
+             ? (int)cudaErrorInvalidValue : 0;
+}
+
 template <int MAXD, typename G, bool BF, bool DROP>
 int launch(const float* x, const float* w_in, const float* b_in,
            const float* wo, const float* bo, const float* g1, const float* be1,
@@ -119,9 +132,9 @@ int launch(const float* x, const float* w_in, const float* b_in,
            float* out, float* attn, float* lse, int B, int T, int d, int ffn,
            int nhead, float scale2, int seed, rd::Drop dr, cudaStream_t stream) {
   const long M = (long)B * T;
-  const int bytes_a = rd::BR * (d + 1) * (int)sizeof(float);
-  const int bytes_b = rd::attn_smem_floats<G>(d / nhead) * (int)sizeof(float);
-  const int bytes_c = tail_floats(d, ffn) * (int)sizeof(float);
+  int bytes[3];
+  if (fwd_smem<G>(d, ffn, nhead, bytes) != 0) return (int)cudaErrorInvalidValue;
+  const int bytes_a = bytes[0], bytes_b = bytes[1], bytes_c = bytes[2];
   auto ka = rd::qkv_rows_kernel<BF>;
   auto kb = attn_rows_kernel<MAXD, G, BF, DROP>;
   auto kc = layer_tail_kernel<BF, DROP>;
@@ -145,6 +158,17 @@ int launch(const float* x, const float* w_in, const float* b_in,
 }
 
 }  // namespace
+
+// The shared bytes of the forward's launches (qkv projection, attention,
+// row-local tail) at one width; cudaErrorInvalidValue where one would not
+// fit a block or no geometry takes the head dim.
+extern "C" int rd_fused_layer_fwd_smem(int d, int ffn, int nhead, int* bytes) {
+  if (nhead <= 0 || d % nhead != 0 || ffn <= 0) return (int)cudaErrorInvalidValue;
+  RD_DISPATCH_GEOM(d / nhead, {
+    (void)MAXD;
+    return fwd_smem<G>(d, ffn, nhead, bytes);
+  });
+}
 
 extern "C" int rd_fused_layer_fwd(
     const void* x, const void* w_in, const void* b_in, const void* wo,

@@ -36,6 +36,8 @@
 // No atomics anywhere: two runs give the same bits. The buffers that reach
 // device memory between launches are allocated by the wrapper, which lists
 // their sizes (ops/fused_encoder.py: bwd_scratch_floats).
+#include <algorithm>
+
 #include "attention_bwd.cuh"
 #include "fused_rows.cuh"
 
@@ -428,15 +430,29 @@ int weight_grad(const Args& a, const float* G, int ldg, int N, const float* A,
   return (int)cudaGetLastError();
 }
 
+// Shared bytes of the five row and attention launches at one width: the
+// qkv projection, the row-local backward, dq, dk/dv (the scalar routines in
+// geometry G) and dx.
+template <typename G>
+int bwd_smem(int d, int ffn, int nhead, int* bytes) {
+  const int hd = d / nhead;
+  bytes[0] = BR * (d + 1) * (int)sizeof(float);
+  bytes[1] = bwd_rows_floats(d, ffn) * (int)sizeof(float);
+  bytes[2] = rd::attn_dq_smem_floats<G>(hd) * (int)sizeof(float);
+  bytes[3] = rd::attn_dkv_smem_floats<G>(hd) * (int)sizeof(float);
+  bytes[4] = BR * (3 * d + 1) * (int)sizeof(float);
+  return *std::max_element(bytes, bytes + 5) > rd::MAX_SMEM
+             ? (int)cudaErrorInvalidValue : 0;
+}
+
 template <int MAXD, typename G, bool BF, bool DROP>
 int launch(const Args& a) {
-  const int d = a.d, ffn = a.ffn, T = a.T, B = a.B, hd = a.d / a.nhead;
+  const int d = a.d, ffn = a.ffn, T = a.T, B = a.B;
   const long M = (long)B * T;
-  const int bytes_a = BR * (d + 1) * (int)sizeof(float);
-  const int bytes_b = bwd_rows_floats(d, ffn) * (int)sizeof(float);
-  const int bytes_q = rd::attn_dq_smem_floats<G>(hd) * (int)sizeof(float);
-  const int bytes_kv = rd::attn_dkv_smem_floats<G>(hd) * (int)sizeof(float);
-  const int bytes_d = BR * (3 * d + 1) * (int)sizeof(float);
+  int bytes[5];
+  if (bwd_smem<G>(d, ffn, a.nhead, bytes) != 0) return (int)cudaErrorInvalidValue;
+  const int bytes_a = bytes[0], bytes_b = bytes[1], bytes_q = bytes[2],
+            bytes_kv = bytes[3], bytes_d = bytes[4];
   auto ka = qkv_rows_kernel<BF>;
   auto kb = layer_bwd_rows_kernel<BF, DROP>;
   auto kq = fused_dq_kernel<MAXD, G, BF, DROP>;
@@ -486,6 +502,17 @@ int launch(const Args& a) {
 }
 
 }  // namespace
+
+// The shared bytes of the backward's launches (qkv projection, row-local
+// backward, dq, dk/dv, dx) at one width; cudaErrorInvalidValue where one
+// would not fit a block or no geometry takes the head dim.
+extern "C" int rd_fused_layer_bwd_smem(int d, int ffn, int nhead, int* bytes) {
+  if (nhead <= 0 || d % nhead != 0 || ffn <= 0) return (int)cudaErrorInvalidValue;
+  RD_DISPATCH_GEOM(d / nhead, {
+    (void)MAXD;
+    return bwd_smem<G>(d, ffn, nhead, bytes);
+  });
+}
 
 // Pointers: x, the 12 weights (in_proj_w, in_proj_b, out_proj w, b, ln1
 // scale, bias, lin1 w, b, lin2 w, b, ln2 scale, bias), lengths, attn, lse,

@@ -53,12 +53,14 @@ LOG2E = 1.4426950408889634
 # port's encoder ladder keeps it (nn/transformer.py): beyond it the model
 # runs the split-head flash_mha.
 MAX_FUSED_T = 1024
-# The largest head dim flash_mha_packed's kernels take (csrc/attention.cuh
-# SCALAR_MAX_HD): the scalar kernels in the Wide geometry, a thread holding
-# hd / 8 output columns in registers.
+# The launch plan's routing limits, the widths the kernels are instantiated
+# for (the C entry points refuse a plan past them; the shared memory of
+# each launch is theirs to compute, `packed_smem`). The largest head dim
+# flash_mha_packed's kernels take (csrc/attention.cuh SCALAR_MAX_HD): the
+# scalar kernels in the Wide geometry.
 MAX_HEAD_DIM = 368
-# The scalar kernels' Narrow geometry (64-row blocks and tiles) fits a
-# block's shared memory up to this head dim; the Wide one (32) beyond.
+# The scalar kernels' Narrow geometry (64-row blocks and tiles) up to this
+# head dim (attention.cuh NARROW_MAX_HD); the Wide one (32) beyond.
 NARROW_MAX_HD = 192
 # The widest padded head dim of the tensor-core kernels
 # (csrc/flash_packed.cuh TC_MAX_HD_PAD): eICU's sensor-wise hd 140.
@@ -66,8 +68,6 @@ TC_MAX_HD_PAD = 144
 # The largest head dim flash_mha's kernels take on the card
 # (csrc/attention.cuh RD_DISPATCH_HD).
 MAX_SPLIT_HEAD_DIM = 128
-# Shared memory a block may use on sm_90 (csrc/attention.cuh MAX_SMEM).
-MAX_SMEM = 232448
 _ROWS = 64              # rows of a CTA's block and of a streamed tile
 
 
@@ -89,32 +89,31 @@ def pad8(T: int) -> int:
 @dataclass(frozen=True)
 class PackedPlan:
     """What surrounds a flash_mha_packed launch, computed on the host and
-    checked by the C entry points (csrc/flash_packed.cu `Plan`).
+    checked by the C entry points (csrc/flash_packed.cu `Plan`), which add
+    each kernel's shared memory (`packed_smem`).
 
     route: "tc" (tensor cores, bf16 operands) or "scalar" (f32 FMA);
     hd_pad: the head dim padded to 16, the K depth of the score products
     and the N width of the output products, hd itself on the scalar route;
     copy_bytes: the width of one tile copy; rows: the rows of a CTA's block
     and of a streamed tile (64; 32 in the scalar kernels' Wide geometry,
-    past hd 192); smem: shared bytes of the forward, dq and dk/dv kernels;
-    threads: their block sizes; grid: (query or key blocks, heads,
-    samples); the tensor-core dk/dv pass runs two CTAs a key block (dv and
-    dk), 2 * grid[0] along x."""
+    past hd 192); threads: the forward's, dq's and dk/dv's block sizes;
+    grid: (query or key blocks, heads, samples); the tensor-core dk/dv pass
+    runs two CTAs a key block (dv and dk), 2 * grid[0] along x."""
 
     route: str
     hd: int
     hd_pad: int
     copy_bytes: int
     rows: int
-    smem: tuple
     threads: tuple
     grid: tuple
 
     @functools.cached_property
     def as_ints(self):
-        """The plan as the C entry points take it: 13 ints."""
+        """The plan as the C entry points take it: 10 ints."""
         vals = ((1 if self.route == "tc" else 0), self.hd_pad, self.copy_bytes,
-                self.rows, *self.smem, *self.threads, *self.grid)
+                self.rows, *self.threads, *self.grid)
         return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -126,40 +125,18 @@ def _align(*ptrs) -> int:
     return a
 
 
-def tc_smem(hd_pad):
-    """Shared bytes of the tensor-core forward, dq and dk/dv kernels
-    (csrc/attention_tc.cuh *_smem_bytes): five 64 x hd_pad bf16 tiles
-    forward (Q, two stages of K and V), six in each backward pass, plus two
-    stages of lse and delta rows in the dk/dv pass."""
-    tile = _ROWS * hd_pad * 2
-    return (5 * tile, 6 * tile, 6 * tile + 4 * _ROWS * 4)
-
-
 def scalar_rows(hd):
     """Rows of a CTA's block and of a streamed tile in the scalar kernels:
     64 (the Narrow geometry) up to hd NARROW_MAX_HD, 32 (Wide) beyond."""
     return _ROWS if hd <= NARROW_MAX_HD else _ROWS // 2
 
 
-def scalar_smem(hd, rows):
-    """Shared bytes of the scalar forward, dq and dk/dv kernels in the
-    geometry of `rows` (64 Narrow, 32 Wide: as many rows in a streamed
-    tile), csrc/attention.cuh attn_smem_floats and attention_bwd.cuh
-    attn_*_floats: own rows and streamed tiles at stride hd + 1, the
-    probability or ds tiles at stride rows + 1."""
-    hp, pp = hd + 1, rows + 1
-    return (4 * (3 * rows * hp + rows * pp),
-            4 * (4 * rows * hp + rows * pp),
-            4 * (4 * rows * hp + 2 * rows * pp + 2 * rows))
-
-
 @functools.lru_cache(maxsize=256)
 def packed_plan(B, T, d, nhead, od, impl="auto", align=16) -> PackedPlan:
     """The launch plan of flash_mha_packed's kernels for [B, T, d] operands
     of dtype `od` on the card: bf16 takes the tensor-core route while the
-    padded head dim is at most TC_MAX_HD_PAD (and its tiles fit a block's
-    shared memory), f32 (TF32 would miss its 1e-4) and wider bf16 heads
-    the scalar one, in the Narrow geometry up to hd NARROW_MAX_HD and the
+    padded head dim is at most TC_MAX_HD_PAD, f32 (TF32 would miss its
+    1e-4) and wider bf16 heads the scalar one, in the Narrow geometry up to hd NARROW_MAX_HD and the
     Wide one beyond; impl="scalar" asks for the scalar kernels in bf16 too
     (the previous design, for measurement). `align` is the operands'
     address alignment in bytes: with the row stride (2 d bytes) and the
@@ -175,17 +152,31 @@ def packed_plan(B, T, d, nhead, od, impl="auto", align=16) -> PackedPlan:
         raise ValueError(f"the flash_mha_packed kernels take head dims up to "
                          f"{MAX_HEAD_DIM}, got hd={hd}")
     hd_pad = -(-hd // 16) * 16
-    if (od == torch.bfloat16 and impl == "auto" and hd_pad <= TC_MAX_HD_PAD
-            and max(tc_smem(hd_pad)) <= MAX_SMEM):
+    if od == torch.bfloat16 and impl == "auto" and hd_pad <= TC_MAX_HD_PAD:
         width = 16
         while width > 2 and ((2 * hd) % width or (2 * d) % width
                              or align % width):
             width //= 2
-        return PackedPlan("tc", hd, hd_pad, width, _ROWS, tc_smem(hd_pad),
-                          (128, 128, 128), (-(-T // _ROWS), nhead, B))
+        return PackedPlan("tc", hd, hd_pad, width, _ROWS, (128, 128, 128),
+                          (-(-T // _ROWS), nhead, B))
     rows = scalar_rows(hd)
-    return PackedPlan("scalar", hd, hd, od.itemsize, rows, scalar_smem(hd, rows),
-                      (256,) * 3, (-(-T // rows), nhead, B))
+    return PackedPlan("scalar", hd, hd, od.itemsize, rows, (256,) * 3,
+                      (-(-T // rows), nhead, B))
+
+
+def packed_smem(B, T, d, nhead, od, impl="auto"):
+    """Shared bytes of the forward, dq and dk/dv kernels that the plan of
+    these arguments launches, as csrc/flash_packed.cu computes them (it
+    builds the kernels: on the card only). Raises ValueError where one
+    would not fit a block."""
+    plan = packed_plan(B, T, d, nhead, od, impl)
+    out = (ctypes.c_int * 3)()
+    err = _lib().rd_packed_smem(B, T, d, nhead, int(od == torch.bfloat16),
+                                int(plan.route == "tc"), out)
+    if err:
+        raise ValueError(f"flash_mha_packed's {plan.route} kernels do not fit "
+                         f"hd={plan.hd}: shared bytes {tuple(out)}")
+    return tuple(out)
 
 
 def _dropout_keep_hash(seed, bh, iq: int, ik: int, shape, rate: float,
@@ -486,6 +477,9 @@ def _lib():
         lib.rd_packed_bwd.argtypes = ([ctypes.c_void_p] * 10
                                       + [ctypes.c_int] * 4 + tail)
         lib.rd_packed_bwd.restype = ctypes.c_int
+        lib.rd_packed_smem.argtypes = ([ctypes.c_int] * 6
+                                       + [ctypes.POINTER(ctypes.c_int)])
+        lib.rd_packed_smem.restype = ctypes.c_int
     return lib
 
 

@@ -16,24 +16,24 @@ TPU; its two-heads-per-draw hardware generator has no counterpart here.
 `fused_encoder_layer` is a `torch.autograd.Function` over x and the 12
 weights. On CUDA tensors forward and backward launch the hand-written
 kernels in `csrc/fused_encoder.cu` and `csrc/fused_encoder_bwd.cu` (or
-raise: `fused_smem` lists each launch's shared memory, which bounds the
-widths they take, d = 340 with ffn = 136 and 2 heads at PAM's sensor-wise
-width among them); on CPU tensors they run `_fused_fwd_plain` and
+raise: `fused_smem` reads each launch's shared memory from them, which
+bounds the widths they take, d = 340 with ffn = 136 and 2 heads at PAM's
+sensor-wise width among them); on CPU tensors they run `_fused_fwd_plain` and
 `_fused_bwd_plain`, the same functions in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from raindrop_tpu_torch.kernels import build
 from raindrop_tpu_torch.ops.flash_attention import (
-    LOG2E, MAX_FUSED_T, MAX_HEAD_DIM, MAX_SMEM, _attention_bwd_plain,
-    _check_rate, _dropout_keep_hash, _packed_fwd_plain, _seed_int,
-    operand_dtype, pad8, scalar_rows, scalar_smem)
+    LOG2E, MAX_FUSED_T, _attention_bwd_plain, _check_rate, _dropout_keep_hash,
+    _packed_fwd_plain, _seed_int, operand_dtype, pad8)
 
 _EPS = 1e-5
 SITE_ATTN_OUT, SITE_FFN_MID, SITE_FFN_OUT = 101, 102, 103
@@ -306,37 +306,33 @@ def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od):
 # function of the shape alone, so the result is the same bits every run
 WGRAD_CHUNK = 512
 # rows per CTA of the qkv projection and the row-local backward kernels (BR
-# in csrc/fused_rows.cuh); the forward's row-local tail takes 64
+# in csrc/fused_rows.cuh)
 BWD_ROWS = 32
-_TAIL_ROWS = 64
 
 
 def fused_smem(d, ffn, nhead):
-    """Shared bytes of each launch of the fused layer's kernels at one
-    width (csrc/fused_encoder.cu, csrc/fused_encoder_bwd.cu): the qkv
-    projection, the attention forward and backward (the scalar routines
-    in the geometry of the head dim), the forward's row-local tail, the
-    backward's row-local kernel (the attn rows, later the FFN hidden, and
-    four more buffers) and its dx kernel."""
-    hd = d // nhead
-    attn_fwd, attn_dq, attn_dkv = scalar_smem(hd, scalar_rows(hd))
-    R, dp = BWD_ROWS, d + 1
-    return {"qkv": 4 * R * dp, "attn_fwd": attn_fwd,
-            "tail": 4 * (2 * _TAIL_ROWS * dp + _TAIL_ROWS * (ffn + 1)),
-            "bwd_rows": 4 * (R * max(dp, ffn + 1) + 4 * R * dp + 2 * R),
-            "attn_dq": attn_dq, "attn_dkv": attn_dkv, "dx": 4 * R * (3 * d + 1)}
+    """(shared bytes of each launch of the fused layer's kernels at one
+    width, whether the kernels take it), as csrc/fused_encoder.cu and
+    csrc/fused_encoder_bwd.cu compute them (it builds the kernels: on the
+    card only): the qkv projection, the attention (the scalar routines in
+    the geometry of the head dim), the forward's row-local tail, the
+    backward's row-local kernel, dq, dk/dv and dx. Every byte 0 where no
+    geometry takes the head dim."""
+    fwd, bwd = (ctypes.c_int * 3)(), (ctypes.c_int * 5)()
+    err = (_lib().rd_fused_layer_fwd_smem(d, ffn, nhead, fwd)
+           | _lib_bwd().rd_fused_layer_bwd_smem(d, ffn, nhead, bwd))
+    names = ("qkv", "attn_fwd", "tail", "bwd_rows", "attn_dq", "attn_dkv", "dx")
+    return dict(zip(names, (*fwd, *bwd[1:]))), err == 0
 
 
+@functools.lru_cache(maxsize=64)
 def _check_fits(d, ffn, nhead):
     """Raise for a width the kernels do not take (the C entry points refuse
     it too)."""
-    if d // nhead > MAX_HEAD_DIM:
-        raise ValueError(f"the fused layer's kernels take head dims up to "
-                         f"{MAX_HEAD_DIM}, got {d // nhead}")
-    over = {k: v for k, v in fused_smem(d, ffn, nhead).items() if v > MAX_SMEM}
-    if over:
-        raise ValueError(f"the fused layer's kernels do not fit d={d}, "
-                         f"ffn={ffn}: shared bytes {over} past {MAX_SMEM}")
+    smem, fits = fused_smem(d, ffn, nhead)
+    if not fits:
+        raise ValueError(f"the fused layer's kernels do not take d={d}, ffn={ffn}, "
+                         f"{nhead} heads: shared bytes {smem}")
 
 
 def bwd_scratch_floats(B, T, d, ffn, nhead):
@@ -404,6 +400,7 @@ def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
 
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_double,
          ctypes.c_void_p]
+_SMEM_ARGS = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
 
 
 def _lib():
@@ -412,6 +409,8 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + _TAIL
         fn.restype = ctypes.c_int
+        lib.rd_fused_layer_fwd_smem.argtypes = _SMEM_ARGS
+        lib.rd_fused_layer_fwd_smem.restype = ctypes.c_int
     return lib
 
 
@@ -423,4 +422,6 @@ def _lib_bwd():
         # gradients, vec; B, T, d, ffn, nhead, chunk
         fn.argtypes = [ctypes.c_void_p] * 35 + [ctypes.c_int] * 6 + _TAIL
         fn.restype = ctypes.c_int
+        lib.rd_fused_layer_bwd_smem.argtypes = _SMEM_ARGS
+        lib.rd_fused_layer_bwd_smem.restype = ctypes.c_int
     return lib

@@ -79,6 +79,9 @@ def _to_device(tree, device):
 class InferenceServer:
     """Bucketed batch inference for a Raindrop model on one device."""
 
+    # close() returns within this many seconds (the batcher's join timeout)
+    _close_timeout_s = 10.0
+
     def __init__(
         self,
         cfg: RaindropConfig,
@@ -364,15 +367,15 @@ class InferenceServer:
                 _resolve(g[3], exc=e)
         self._done(group)
 
-    def close(self, timeout: float = 10.0):
-        """Stop the batcher and return within `timeout` seconds. Queued and
+    def close(self):
+        """Stop the batcher and return within _close_timeout_s. Queued and
         in-flight requests complete if they can within that time; every
         future still pending then (queued, waiting for a pipeline slot, or
         behind a readback that does not return) fails with 'server closed',
         and anything that races in after the drain fails the same way. The
         fetch pool is shut down without waiting: a readback that hangs
         keeps its thread until it returns, but no caller waits on it."""
-        deadline = time.monotonic() + timeout
+        deadline = time.monotonic() + self._close_timeout_s
         with self._lock:
             if self._closed:
                 return

@@ -102,13 +102,16 @@ def test_flash_autograd_reaches_the_backward_kernels(gen):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("T,d,nhead", PACKED_SHAPES)
 def test_flash_tensor_core_kernels_match_the_scalar_ones(gen, T, d, nhead, rate):
-    """bf16: the tensor-core route against the previous design (the scalar
-    kernels, same operands): forward, dq, dk, dv."""
+    """bf16: the plan's route (the tensor cores up to hd_pad 144) against the
+    previous design (the scalar kernels, same operands): forward, dq, dk,
+    dv; past hd_pad 144 the plan takes the scalar kernels themselves."""
     B = 5
     q, k, v, g = (torch.randn((B, T, d), generator=gen, device="cuda")
                   for _ in range(4))
     lengths = _lengths(gen, B, T)
     od = torch.bfloat16
+    tc = int(fa.packed_plan(B, T, d, nhead, od).route == "tc")
+    assert tc == (d // nhead <= fa.TC_MAX_HD_PAD)
     tc0 = (fa.flash_mha_packed.tc_launches, fa.flash_mha_packed.tc_bwd_launches)
     o, lse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, nhead, od)
     so, slse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, impl="scalar")
@@ -116,7 +119,7 @@ def test_flash_tensor_core_kernels_match_the_scalar_ones(gen, T, d, nhead, rate)
     want = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g,
                                impl="scalar")
     assert (fa.flash_mha_packed.tc_launches,
-            fa.flash_mha_packed.tc_bwd_launches) == (tc0[0] + 1, tc0[1] + 1)
+            fa.flash_mha_packed.tc_bwd_launches) == (tc0[0] + tc, tc0[1] + tc)
     torch.cuda.synchronize()
     assert (o - so).abs().max().item() <= TOL["bfloat16"]
     assert (lse - slse).abs().max().item() <= TOL["bfloat16"]
@@ -224,18 +227,21 @@ def test_wrappers_refuse_bad_inputs(gen):
         fa._packed_fwd(wide, wide, wide, lens, None, 0.0, "bfloat16", 2)
 
 
-def test_flash_mha_refuses_wide_heads_on_the_card(gen):
-    """flash_mha (T > 1024 on the model's path) takes hd <= 128 on the card
-    for now; above it raises NotImplementedError naming the next slice,
-    forward and backward (the plain version on the CPU takes any hd)."""
-    x = torch.randn((1, 2, 8, 136), generator=gen, device="cuda")
-    lengths = torch.tensor([8], device="cuda")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        fa.flash_mha(x, x, x, lengths)
-    o = torch.zeros_like(x)
-    lse = torch.zeros((1, 2, 8), device="cuda")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        fa._flash_bwd_cuda(x, x, x, lengths, 0, 0.0, torch.float32, o, lse, x)
+def test_fused_layer_fits_pam_sensor_wise_on_the_card(gen):
+    """Every launch of the fused layer fits a block's 232,448 bytes at PAM's
+    sensor-wise width (d = 340, ffn = 136, 2 heads), as the C library
+    computes them; the forward's attention and row-local tail in one CTA,
+    as before their split, would need 322,560. P19's sensor-wise width
+    (d = 680) does not fit: the model runs the dense rung there."""
+    smem, fits = fe.fused_smem(340, 136, 2)
+    assert fits and max(smem.values()) <= 232448
+    assert smem["tail"] + smem["attn_fwd"] - 4 * 64 * 137 == 322560
+    assert smem["bwd_rows"] == 218496
+    assert not fe.fused_smem(680, 272, 2)[1]
+    x = torch.randn((1, 8, 680), generator=gen, device="cuda")
+    p = _random_layer(gen, 680, 272)
+    with pytest.raises(ValueError, match="do not take"):
+        fe._fused_fwd(p, x, torch.tensor([8], device="cuda"), None, 0.0, None, 2)
 
 
 def _graph(gen, kind):
@@ -394,6 +400,14 @@ def test_flash_mha_matches_the_packed_kernel(gen):
 
 
 def test_flash_mha_refuses_a_head_dim_past_the_kernels(gen):
+    """flash_mha (T > 1024 on the model's path) takes hd <= 128 on the card
+    for now; above it raises NotImplementedError naming the next slice,
+    forward and backward (the plain version on the CPU takes any hd)."""
     q = torch.randn((1, 1, 16, 136), generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="128"):
-        fa.flash_mha(q, q, q, torch.tensor([16], device="cuda"))
+    lengths = torch.tensor([16], device="cuda")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        fa.flash_mha(q, q, q, lengths)
+    o = torch.zeros_like(q)
+    lse = torch.zeros((1, 1, 16), device="cuda")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        fa._flash_bwd_cuda(q, q, q, lengths, 0, 0.0, torch.float32, o, lse, q)

@@ -68,28 +68,28 @@ def _adam_trees(opt_state):
     return conv(adam.mu), conv(adam.nu), int(adam.count)
 
 
-def _assert_params_close(tr, want):
+def _assert_params_close(tr, want, lr=LR):
     for path, t in flatten_params(tr.params):
         got, ref = t.detach().numpy(), want[path]
         if path.endswith("in_proj_b"):
             d = got.shape[0] // 3
             np.testing.assert_allclose(got[d:2 * d], ref[d:2 * d], rtol=0,
-                                       atol=3 * LR, err_msg=path)
+                                       atol=3 * lr, err_msg=path)
             got, ref = np.delete(got, np.s_[d:2 * d]), np.delete(ref, np.s_[d:2 * d])
         np.testing.assert_allclose(got, ref, rtol=0, atol=5e-5, err_msg=path)
         off = np.abs(got - ref) > 2e-6 + 1e-4 * np.abs(ref)
         assert off.mean() <= 1e-4, (path, int(off.sum()), off.size)
 
 
-def _setup(preset, dropout, **cfg_kw):
+def _setup(preset, dropout, lr=LR, **cfg_kw):
     kw = dict(max_len=MAX_LEN, dropout=dropout, attention_score_dtype="float32",
               **cfg_kw)
     jcfg, cfg = jax_dataset_config(preset, **kw), dataset_config(preset, **kw)
-    jtr = JaxTrainer(jcfg, JaxTrainConfig(dataset=preset, learning_rate=LR,
+    jtr = JaxTrainer(jcfg, JaxTrainConfig(dataset=preset, learning_rate=lr,
                                           batch_size=B))
     jparams = jtr._init(jax.random.PRNGKey(0))
     tree = jax.device_get(jparams)
-    tr = Trainer(cfg, TrainConfig(dataset=preset, learning_rate=LR, batch_size=B),
+    tr = Trainer(cfg, TrainConfig(dataset=preset, learning_rate=lr, batch_size=B),
                  device="cpu", params=params_from_jax(tree, cfg, device="cpu"))
     return jtr, jparams, tr, cfg
 
@@ -116,8 +116,8 @@ def test_three_steps_with_a_graph_backend_match_the_jax_trainer(prop_backend,
     assert spmm_segment_softmax.launches == spmm_segment_softmax.bwd_launches == 0
 
 
-def _three_steps(preset, dropout, **cfg_kw):
-    jtr, jparams, tr, cfg = _setup(preset, dropout, **cfg_kw)
+def _three_steps(preset, dropout, lr=LR, **cfg_kw):
+    jtr, jparams, tr, cfg = _setup(preset, dropout, lr, **cfg_kw)
     split = _split(cfg, 24)
     start = params_to_numpy(tr.params)
     opt_state = jtr.optimizer.init(jparams)
@@ -136,7 +136,7 @@ def _three_steps(preset, dropout, **cfg_kw):
     want = dict(flatten_params(jax.device_get(jparams)))
     before = dict(flatten_params(start))
     live = {path for path, _ in tr.live}
-    _assert_params_close(tr, want)
+    _assert_params_close(tr, want, lr)
     for path, t in flatten_params(tr.params):
         got = t.detach().numpy()
         if path in live:
