@@ -22,10 +22,19 @@ order with that checkout's own code:
   latency     a P12 server (random weights from seed 0): request latency
               by bucket, the median of 31 requests, and the top bucket's
               device time and idle share (chip_smoke.serve_timing);
+  split       flash_mha at PAM's width on a 2048-step window (B=128, H=2,
+              D=42, bf16, ragged lengths): the forward (dropout 0) and the
+              backward (dropout 0.2) timed by CUDA events (10 calls);
+  bits        flash_mha forward and backward at head dims 8, 42 and 128
+              (each column count of the Narrow geometry), T 600 and 2048,
+              f32 and bf16 operands, dropout 0.2, B=8, H=2: a SHA-256 of
+              the bytes of o, lse, dq, dk and dv, to compare checkouts bit
+              for bit;
   ptxas       compile every unit of the five kernel libraries with
               `-Xptxas -v` (all nvcc processes together): registers, stack
               frame and spill bytes of each kernel, the spilling ones
-              printed.
+              printed, and every flash_mha kernel (split_*_kernel, each
+              geometry and column count) printed.
 
 Give the runs in an order that favours no checkout (A B B A). Each task
 prints `TASK name {...}` when it ends and each run `RESULT {...}`; --out
@@ -154,6 +163,49 @@ def task_latency(root, cs):
                                    "idle_share")}
 
 
+def task_split(root, cs):
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    B, H, T, D, od = 128, 2, 2048, 42, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, g = (x.to(od) for x in cs._head_views(gen, B, H, T, D, 4, "cuda"))
+    lengths = cs.ragged_lengths(gen, B, T, "cuda")
+    o, lse = fa._flash_fwd_cuda(q, k, v, lengths, cs.SEED, 0.2, od)
+    out = {
+        "fwd_ms": cs.time_ms(lambda: fa._flash_fwd_cuda(q, k, v, lengths, 0, 0.0, od),
+                             reps=10, warmup=2),
+        "bwd_ms": cs.time_ms(lambda: fa._flash_bwd_cuda(q, k, v, lengths, cs.SEED, 0.2, od,
+                                                        o, lse, g), reps=10, warmup=2)}
+    print(f"[ab] {root}: flash_mha B={B} T={T} D={D} bf16: forward {out['fwd_ms']:.4f} ms, "
+          f"backward {out['bwd_ms']:.4f} ms", flush=True)
+    return out
+
+
+def task_bits(root, cs):
+    import hashlib
+
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for D in (8, 42, 128):
+        for T in (600, 2048):
+            gen = torch.Generator(device="cuda").manual_seed(D + T)
+            q, k, v, g = cs._head_views(gen, 8, 2, T, D, 4, "cuda")
+            lengths = cs.ragged_lengths(gen, 8, T, "cuda")
+            for cd in (None, "bfloat16"):
+                o, lse = fa._flash_fwd(q, k, v, lengths, cs.SEED, 0.2, cd)
+                grads = fa._flash_bwd_cuda(q, k, v, lengths, cs.SEED, 0.2,
+                                           fa.operand_dtype(cd), o, lse, g)
+                h = hashlib.sha256()
+                for x in (o, lse, *grads):
+                    h.update(x.contiguous().cpu().numpy().tobytes())
+                out[f"D{D}_T{T}_{cd or 'float32'}"] = h.hexdigest()
+    print(f"[ab] {root}: bits {out}", flush=True)
+    return out
+
+
 def task_ptxas(root, cs):
     import re
     from raindrop_tpu_torch.kernels import build
@@ -194,13 +246,20 @@ def task_ptxas(root, cs):
     spilling = {k: v for k, v in kernels.items() if v["spill_stores"] or v["spill_loads"]}
     for k, v in spilling.items():
         print(f"[ptxas] spills: {v} {k[:160]}", flush=True)
+    split = {k: v for k, v in kernels.items() if "split_" in k}
+    for k, v in split.items():
+        print(f"[ptxas] flash_mha: {v} {k[:160]}", flush=True)
     return {"kernels": len(kernels), "spilling": len(spilling),
             "max_registers": max(v.get("registers", 0) for v in kernels.values()),
+            "split_kernels": len(split),
+            "split_spilling": sum(1 for v in split.values()
+                                  if v["spill_stores"] or v["spill_loads"]),
             "by_kernel": kernels}
 
 
 TASKS = {"build": task_build, "one_unit": task_one_unit, "kernels": task_kernels,
-         "serve_train": task_serve_train, "latency": task_latency, "ptxas": task_ptxas}
+         "serve_train": task_serve_train, "latency": task_latency, "split": task_split,
+         "bits": task_bits, "ptxas": task_ptxas}
 
 
 def worker(root, tasks):

@@ -105,14 +105,38 @@ check does not hold:
      launch flash_mha twice per forward;
  19. the trainer protocol on that configuration: train_split on
      synthetic_split("PAM", T=2048) (B=128, sampler strategy 3, dropout
-     0.2) for 2 epochs with checkpoints, resumed from the `_last` file for
-     a third, and the uninterrupted 3-epoch run, whose history the resumed
+     0.2) for 1 epoch with checkpoints, resumed from the `_last` file for
+     a second, and the uninterrupted 2-epoch run, whose history the resumed
      one must equal bit for bit; finite records, metrics in [0, 1], the
      best file reloads, forward launches = 2 x (steps + predict chunks),
      backward launches = 2 x steps; the first step's loss and gradient norm
      against the dense path at dropout 0 on 16 samples; step ms, samples/s
      and the idle share;
- 20. run_splits, 2 splits of 1 epoch, for the summary's shape.
+ 20. run_splits, 2 splits of 1 epoch, for the summary's shape;
+ 21. flash_mha past hd 128 as phase 16 does it at T=2048: PAM-sw's head
+     (hd 170, d_inp * (d_ob + d_pe) = 340 over 2 heads: the Narrow
+     geometry at 48 columns a thread) and hd 360 (the Wide geometry,
+     32-row blocks), f32 and bf16 operands, dropout 0 and 0.2, SDPA with a
+     key mask beside; then the edge shapes, B=5, hd 129, 170, 192, 193,
+     200, 360 and 368 x T 65, 1025 and 2048 x dropout 0 and 0.2, both
+     operand dtypes, one length ending 45 rows into a 64-row block: forward
+     and backward against the plain version, bit-equal on a repeat, exact
+     zeros for the length-0 sample;
+ 22. phase 18 for PAM with sensor_wise_mask at max_len 2048 (PAM-sw-2048,
+     hd 170): exactly two flash_mha launches per forward and no other
+     kernel, a row's probabilities across batches held to BATCH_LIMIT_SW
+     in bf16 (the kernels' plain versions too: plain_kernels swaps
+     flash_mha's in), the f32 kernel server to 1e-5;
+ 23. phase 9 on that configuration (B=128; the checks against the dense
+     path and the falling-loss check at FIT_LR_SW on 16 rows of the first
+     batch), through flash_mha forward and backward;
+ 24. phase 19 on that configuration, 2 epochs with checkpoints and a third
+     resumed, bit-equal to the uninterrupted 3-epoch run, the launch
+     counts, the first step against the dense path, step ms, samples/s and
+     the idle share.
+
+Every phase's seconds are printed as `[phase] name: s` and kept under
+"phase_s" in the --out file.
 
 Times are CUDA-event means over repeated launches after a warm-up. Bounds
 use the H100 SXM data-sheet peaks (3.35 TB/s; 67 TFLOP/s f32 outside the
@@ -122,10 +146,11 @@ gradient's largest value): 1e-4 with f32 operands (another summation
 order), 2e-2 with bf16 operands; the fused layer's plain backward takes
 the kernel's relu branches (fused_bwd_phase says why). The sparse-graph
 kernels are f32 throughout and are held to 1e-5 relative to max(1, |plain|).
-The line before the last is the kernels' JSON record (eighteen records:
-twelve kernels at the main paths' shapes, and the packed pair and the
-fused layer again at the sensor-wise widths), the last line the result. `--out PATH` also writes every
-number to PATH as JSON.
+The line before the last is the kernels' JSON record (twenty records:
+twelve kernels at the main paths' shapes, the packed pair and the fused
+layer again at the sensor-wise widths, and flash_mha forward and backward
+at PAM-sw-2048's hd 170), the last line the result. `--out PATH` also
+writes every number to PATH as JSON.
 """
 
 from __future__ import annotations
@@ -242,6 +267,16 @@ def design_line(ms, prev_ms, bound_ms) -> str:
         line += (f"; previous design {prev_ms:.4f} ms ({bound_ms / prev_ms:.1%} of "
                  f"the bound, {prev_ms / ms:.2f}x)")
     return line
+
+
+@contextlib.contextmanager
+def phase(seconds, name):
+    """Time one phase of main by the host clock: print its seconds and keep
+    them in the dict `seconds` under `name`."""
+    t0 = time.perf_counter()
+    yield
+    seconds[name] = time.perf_counter() - t0
+    print(f"[phase] {name}: {seconds[name]:.1f} s", flush=True)
 
 
 # ----------------------------------------------------------------- kernels
@@ -804,6 +839,48 @@ def flash_mha_op_phase(wrappers, device="cuda", seed=0, B=128, T=600, H=2, D=42,
     return counts[0], counts[1], checks
 
 
+def flash_mha_edge_phase(hd, T, rate, B=5, H=2, device="cuda", seed=0):
+    """flash_mha at an edge shape past hd 128 (129, 170, 192: the Narrow
+    geometry at 48 columns a thread; 193, 200, 360, 368: the Wide one,
+    32-row blocks; T = 65, 1025, 2048) on the projection's head views, f32
+    and bf16 operands: forward and backward against the plain version,
+    bit-equal on a repeat, exact zeros for the length-0 sample; one length
+    ends 45 rows into a 64-row block."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(seed + hd + T)
+    q, k, v, g = _head_views(gen, B, H, T, hd, 4, device)
+    lengths = ragged_lengths(gen, B, T, device)
+    lengths[3] = min(T, 64 * (T // 128) + 45)
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        cd = None if dtype == "float32" else dtype
+        od = fa.operand_dtype(cd)
+        o, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
+        o2, lse2 = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
+        args = (q, k, v, lengths, SEED, rate, od, o, lse, g)
+        got = fa._flash_bwd_cuda(*args)
+        again = fa._flash_bwd_cuda(*args)
+        o_p, lse_p = fa._flash_fwd_plain(q, k, v, lengths, od, SEED, rate)
+        want = fa._flash_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs[dtype] = {"fwd": max(max_err(o, o_p), max_err(lse, lse_p)),
+                       "bwd": max(rel_err(a, b) for a, b in zip(got, want))}
+        if max(errs[dtype].values()) > TOL[dtype]:
+            raise AssertionError(f"flash_mha kernels disagree at hd={hd} T={T} {dtype}: "
+                                 f"{errs[dtype]}")
+        _equal_and_finite([("o", o, o2), ("lse", lse, lse2)]
+                          + [(n, a, a2) for n, a, a2 in zip(("dq", "dk", "dv"), got, again)],
+                          f"flash_mha hd={hd} T={T} {dtype}")
+        if not all(bool((a[0] == 0).all()) for a in (o, *got)):
+            raise AssertionError(f"flash_mha: the length-0 sample is not zero at hd={hd}")
+    rows = fa.scalar_rows(hd)
+    print(f"[flash_mha_edge] hd={hd} T={T} dropout {rate} ({rows}-row blocks): {errs} "
+          f"(tol {TOL})", flush=True)
+    return dict(hd=hd, T=T, rate=rate, rows=rows, errs=errs)
+
+
 # ------------------------------------------------------------ graph kernels
 GRAPH_TOL = 1e-5    # f32 throughout, another summation order
 
@@ -1208,17 +1285,20 @@ def plain_kernels():
     from raindrop_tpu_torch.ops import flash_attention as fa
     from raindrop_tpu_torch.ops import fused_encoder as fe
 
-    saved = tr.flash_mha_packed, tr.fused_encoder_layer
+    saved = tr.flash_mha_packed, tr.fused_encoder_layer, tr.flash_mha
     tr.flash_mha_packed = lambda q, k, v, lengths, seed, rate, cd, nhead: (
         fa._packed_fwd_plain(q, k, v, lengths, nhead, fa.operand_dtype(cd),
                              fa._seed_int(seed), rate)[0])
     tr.fused_encoder_layer = lambda p, x, lengths, seed, rate, cd, nhead: (
         fe._fused_fwd_plain(p, x, lengths, nhead, fa.operand_dtype(cd),
                             fa._seed_int(seed), rate)[0])
+    tr.flash_mha = lambda q, k, v, lengths, seed, rate, cd: (
+        fa._flash_fwd_plain(q, k, v, lengths, fa.operand_dtype(cd),
+                            fa._seed_int(seed), rate)[0])
     try:
         yield
     finally:
-        tr.flash_mha_packed, tr.fused_encoder_layer = saved
+        tr.flash_mha_packed, tr.fused_encoder_layer, tr.flash_mha = saved
 
 
 def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
@@ -1340,6 +1420,18 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
                           limits=limits, stream_vs_predict_by_path=batch, **timing)
 
 
+def check_two_a_forward(label, launches, serve):
+    """A served 2048-step path launched flash_mha twice a forward (once a
+    layer) and no other kernel."""
+    if launches["flash_mha"] != 2 * serve["forwards"]:
+        raise AssertionError(
+            f"{label}: two flash_mha launches per forward expected, got "
+            f"{launches['flash_mha']} for {serve['forwards']} forwards")
+    others = {k: v for k, v in launches.items() if k != "flash_mha" and v}
+    if others:
+        raise AssertionError(f"{label}: the served path launched other kernels: {others}")
+
+
 def profile_device(fn, n):
     """Run fn() under torch.profiler: (wall ms, device ms, idle share, top
     device operations), all per one of the `n` units of work fn does."""
@@ -1418,7 +1510,8 @@ def grad_norm(trainer):
 
 
 def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
-                cfg_overrides=None, plain_overrides=PLAIN_ATTENTION, fit_lr=1e-3):
+                cfg_overrides=None, plain_overrides=PLAIN_ATTENTION, fit_lr=1e-3,
+                check_rows=None):
     """Train one preset at full width and depth and check it. Every
     wrapper's counts are set to 0 just before the epoch and the predict and
     read just after; returns the forward and backward counts by wrapper
@@ -1426,7 +1519,9 @@ def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
     forward and backward; `plain_overrides` turn its config into the plain
     path its first step and its steps at lr 1e-3 on one batch are held
     against; `fit_lr` is the learning rate of the falling-loss check on
-    that batch."""
+    that batch; `check_rows` cuts that batch to its first rows (the dense
+    rung keeps [B, H, T, T] scores for its backward: 4 GB a tensor at
+    B=128 and T=2048, as protocol_phase says)."""
     import torch
     from raindrop_tpu_torch.config import TrainConfig, dataset_config
     from raindrop_tpu_torch.data.sampler import balanced_batches
@@ -1495,7 +1590,7 @@ def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
                              f"and {again}")
 
     # first step's loss and gradient norm against the dense path, dropout 0
-    first = {k: v[idx[0]] for k, v in data.items()}
+    first = {k: v[idx[0][:check_rows]] for k, v in data.items()}
     checks, limits = {}, {}
     for score, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
         pair = []
@@ -1624,11 +1719,14 @@ def _check_result(what, result, cfg, epochs):
         raise AssertionError(f"{what}: confusion matrix {result.test_confusion.shape}")
 
 
-def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=3):
+def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=3,
+                   overrides=LONG, label="PAM-2048", epochs=3):
     """train_split with checkpoints, resume and the uninterrupted run on
-    PAM's width at max_len 2048; the first step against the dense path; the
-    step's time. Returns flash_mha's forward and backward launch counts
-    over the checkpointed 2-epoch run, and the details."""
+    PAM's width with `overrides` (max_len 2048; with sensor_wise_mask too):
+    epochs - 1 epochs with checkpoints, the last epoch resumed from the
+    `_last` file, the uninterrupted run of `epochs`; the first step against
+    the dense path; the step's time. Returns flash_mha's forward and
+    backward launch counts over the checkpointed run, and the details."""
     import dataclasses
     import tempfile
 
@@ -1640,8 +1738,8 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
     from raindrop_tpu_torch.train.checkpoint import load_checkpoint
     from raindrop_tpu_torch.train.trainer import Trainer, flatten_params
 
-    cfg = dataset_config("PAM", **LONG)
-    tcfg = TrainConfig(dataset="PAM", num_epochs=3, learning_rate=1e-4,
+    cfg = dataset_config("PAM", **overrides)
+    tcfg = TrainConfig(dataset="PAM", num_epochs=epochs, learning_rate=1e-4,
                        batch_size=batch, batching_strategy=3,
                        n_batches_strategy3=n_batches, seed=seed + 1)
     T, d, H = cfg.max_len, cfg.d_transformer, cfg.nhead
@@ -1650,7 +1748,8 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
     n_all = sum(t.numel() for _, t in flatten_params(trainer.params))
     n_live = sum(t.numel() for _, t in trainer.live)
     side = T * cfg.d_ob
-    print(f"[protocol] PAM at max_len {T}: d={d}, ffn={cfg.ffn_dim}, {H} heads of "
+    print(f"[protocol] {label}: PAM at max_len {T}, sensor_wise_mask "
+          f"{cfg.sensor_wise_mask}: d={d}, ffn={cfg.ffn_dim}, {H} heads of "
           f"{d // H}, {cfg.nlayers} layers, {cfg.n_classes} classes; each propagation "
           f"layer holds 13 matrices' worth of {side}^2 f32 = "
           f"{13 * side * side * 4 / 1e9:.2f} GB; {n_all / 1e6:.1f} M parameters "
@@ -1662,7 +1761,7 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
     t0 = time.perf_counter()
     split = synthetic_split("PAM", n, seed, T=T)
     n_train, n_val, n_test = len(split.ytrain), len(split.yval), len(split.ytest)
-    print(f"[protocol] synthetic_split: {n_train} train, {n_val} val, {n_test} test, "
+    print(f"[protocol] {label}: synthetic_split: {n_train} train, {n_val} val, {n_test} test, "
           f"made in {time.perf_counter() - t0:.1f} s; {n_batches} batches of {batch} "
           f"an epoch (sampler strategy 3), dropout {cfg.dropout}, operands "
           f"{cfg.attention_score_dtype}", flush=True)
@@ -1671,25 +1770,27 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
         return -(-m // 100)
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "pam2048")
-        # 2 epochs with checkpoints: the run that gets interrupted
-        trainer.tcfg = dataclasses.replace(tcfg, num_epochs=2)
+        path = os.path.join(tmp, label)
+        # epochs - 1 epochs with checkpoints: the run that gets interrupted
+        cut_epochs = epochs - 1
+        trainer.tcfg = dataclasses.replace(tcfg, num_epochs=cut_epochs)
         for fn in wrappers:
             fn.launches = fn.bwd_launches = 0
         t0 = time.perf_counter()
         cut = trainer.train_split(split, checkpoint_path=path, verbose=False)
         cut_s = time.perf_counter() - t0
         fwd, bwd = flash_mha.launches, flash_mha.bwd_launches
-        _check_result("train_split, 2 epochs", cut, cfg, 2)
-        steps = 2 * n_batches
-        want_fwd = cfg.nlayers * (steps + 2 * chunks(n_val) + chunks(n_test))
+        _check_result(f"{label} train_split, {cut_epochs} epochs", cut, cfg, cut_epochs)
+        steps = cut_epochs * n_batches
+        want_fwd = cfg.nlayers * (steps + cut_epochs * chunks(n_val) + chunks(n_test))
         sizes = {f: os.path.getsize(os.path.join(tmp, f)) for f in sorted(os.listdir(tmp))}
-        print(f"[protocol] 2 epochs + test in {cut_s:.1f} s: history {_history(cut)}; "
+        print(f"[protocol] {label}: {cut_epochs} epochs + test in {cut_s:.1f} s: "
+              f"history {_history(cut)}; "
               f"test {cut.test_metrics}; flash_mha launches {fwd} forward (expected "
               f"{want_fwd}), {bwd} backward (expected {cfg.nlayers * steps}); "
               f"files {sizes}", flush=True)
         if fwd != want_fwd or bwd != cfg.nlayers * steps:
-            raise AssertionError("train_split: flash_mha launch counts are off")
+            raise AssertionError(f"{label} train_split: flash_mha launch counts are off")
         best, _, meta = load_checkpoint(path, trainer.params)
         for (name, a), (_, b) in zip(flatten_params(best), flatten_params(cut.params)):
             if not torch.equal(a, b.detach()):
@@ -1697,7 +1798,7 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
         if meta["config"]["max_len"] != T:
             raise AssertionError("the best file's sidecar lost its config")
         del best, cut
-        # a fresh trainer picks the run up for its third epoch
+        # a fresh trainer picks the run up for its last epoch
         del trainer
         torch.cuda.empty_cache()
         trainer = Trainer(cfg, tcfg, device=device)
@@ -1705,17 +1806,17 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
         resumed = trainer.train_split(split, checkpoint_path=path,
                                       resume_from=path + "_last", verbose=False)
         resume_s = time.perf_counter() - t0
-    _check_result("train_split, resumed", resumed, cfg, 3)
+    _check_result(f"{label} train_split, resumed", resumed, cfg, epochs)
     # the same trainer, from scratch again, uninterrupted and without files
     t0 = time.perf_counter()
     full = trainer.train_split(split, verbose=False)
     full_s = time.perf_counter() - t0
-    _check_result("train_split, 3 epochs", full, cfg, 3)
-    print(f"[protocol] resumed third epoch in {resume_s:.1f} s, uninterrupted 3 "
-          f"epochs in {full_s:.1f} s ({full.samples_per_sec:.1f} samples/s with "
+    _check_result(f"{label} train_split, {epochs} epochs", full, cfg, epochs)
+    print(f"[protocol] {label}: resumed last epoch in {resume_s:.1f} s, uninterrupted "
+          f"{epochs} epochs in {full_s:.1f} s ({full.samples_per_sec:.1f} samples/s with "
           f"validation): history {_history(full)}; test {full.test_metrics}", flush=True)
     if _history(resumed) != _history(full) or resumed.test_metrics != full.test_metrics:
-        raise AssertionError(f"the resumed run differs from the uninterrupted one: "
+        raise AssertionError(f"{label}: the resumed run differs from the uninterrupted one: "
                              f"{_history(resumed)} vs {_history(full)}")
     del resumed
 
@@ -1728,7 +1829,7 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
     for score, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
         pair = []
         for plain in ({}, PLAIN_ATTENTION):
-            c = dataset_config("PAM", **{**LONG, "dropout": 0.0, **plain,
+            c = dataset_config("PAM", **{**overrides, "dropout": 0.0, **plain,
                                         "attention_score_dtype": score})
             tr_ = Trainer(c, tcfg, device=device, params=trainer.params)
             loss, _ = tr_._backward(data, None)
@@ -1738,12 +1839,13 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
         checks[f"loss_vs_dense_{score}"] = abs(lk - ld) / abs(ld)
         checks[f"grad_norm_vs_dense_{score}"] = abs(gk - gd) / gd
         limits[f"loss_vs_dense_{score}"] = limits[f"grad_norm_vs_dense_{score}"] = tol
-        print(f"[protocol] first step on 16 samples, {score} operands, dropout 0: loss "
+        print(f"[protocol] {label}: first step on 16 samples, {score} operands, "
+              f"dropout 0: loss "
               f"{lk:.7f} (dense {ld:.7f}), gradient norm {gk:.7f} (dense {gd:.7f})",
               flush=True)
     bad = {k: v for k, v in checks.items() if not v <= limits[k]}
     if bad:
-        raise AssertionError(f"PAM-2048 against the dense path: {bad} (limits {limits})")
+        raise AssertionError(f"{label} against the dense path: {bad} (limits {limits})")
     torch.cuda.empty_cache()
 
     # timings: CUDA events around each step, then an epoch, then a profile
@@ -1769,15 +1871,16 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
         lambda: trainer.train_epoch(train_dev, idx), n_batches)
     step_med = float(np.median(step_ms))
     sps = batch * n_batches / (epoch_ms / 1e3)
-    print(f"[protocol] PAM-2048: step {step_med:.3f} ms (median of {n_batches}, CUDA "
+    print(f"[protocol] {label}: step {step_med:.3f} ms (median of {n_batches}, CUDA "
           f"events; all {[round(x, 3) for x in step_ms]}); epoch of {n_batches} steps "
           f"{epoch_ms:.3f} ms by the host clock = {sps:.1f} samples/s; profiled: wall "
           f"{wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step, idle share {idle}",
           flush=True)
     for name, ms in top_k.items():
-        print(f"[protocol] PAM-2048:   {ms:8.4f} ms/step  {name[:100]}", flush=True)
+        print(f"[protocol] {label}:   {ms:8.4f} ms/step  {name[:100]}", flush=True)
     return fwd, bwd, dict(
-        rung=rung, params=n_all, live_params=n_live, split=(n_train, n_val, n_test),
+        label=label, epochs=epochs, rung=rung, params=n_all, live_params=n_live,
+        split=(n_train, n_val, n_test),
         cut_s=cut_s, resume_s=resume_s, full_s=full_s, files=sizes,
         history=_history(full), test=full.test_metrics, checks=checks, limits=limits,
         step_ms=step_ms, step_ms_median=step_med, epoch_ms=epoch_ms,
@@ -1827,6 +1930,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every number measured to this JSON file")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1859,57 +1963,63 @@ def main(argv=None) -> int:
     build.build()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s for {list(build.SOURCES)}", flush=True)
-    sass = sass_phase()
+    phase_s = {}
+    with phase(phase_s, "sass"):
+        sass = sass_phase()
 
-    flash = [flash_phase("P12", 128, 215, 160, 2, dt) for dt in ("float32", "bfloat16")]
-    flash += [flash_phase("eICU", 128, 300, 72, 2, dt) for dt in ("float32", "bfloat16")]
-    fused = [fused_phase("PAM", 128, 600, 84, 136, 2, dt)
-             for dt in ("float32", "bfloat16")]
     grid = [(dt, rate) for dt in ("float32", "bfloat16") for rate in (0.0, 0.2)]
-    flash_bwd = [flash_bwd_phase("P12", 128, 215, 160, 2, dt, rate) for dt, rate in grid]
-    flash_bwd += [flash_bwd_phase("eICU", 128, 300, 72, 2, dt, rate) for dt, rate in grid]
-    edges = [flash_edge_phase(hd, T, rate)
-             for hd in (3, 8, 13, 42, 84, 128, 129, 140, 144, 170, 360)
-             for T in (64, 65, 1024) for rate in (0.0, 0.2)]
-    fused_bwd = [fused_bwd_phase("PAM", 128, 600, 84, 136, 2, dt, rate)
-                 for dt, rate in grid]
+    with phase(phase_s, "packed and fused-layer kernels"):
+        flash = [flash_phase("P12", 128, 215, 160, 2, dt) for dt in ("float32", "bfloat16")]
+        flash += [flash_phase("eICU", 128, 300, 72, 2, dt) for dt in ("float32", "bfloat16")]
+        fused = [fused_phase("PAM", 128, 600, 84, 136, 2, dt)
+                 for dt in ("float32", "bfloat16")]
+        flash_bwd = [flash_bwd_phase("P12", 128, 215, 160, 2, dt, rate) for dt, rate in grid]
+        flash_bwd += [flash_bwd_phase("eICU", 128, 300, 72, 2, dt, rate) for dt, rate in grid]
+        edges = [flash_edge_phase(hd, T, rate)
+                 for hd in (3, 8, 13, 42, 84, 128, 129, 140, 144, 170, 360)
+                 for T in (64, 65, 1024) for rate in (0.0, 0.2)]
+        fused_bwd = [fused_bwd_phase("PAM", 128, 600, 84, 136, 2, dt, rate)
+                     for dt, rate in grid]
     torch.cuda.empty_cache()
     # the sensor-wise widths (d_inp * (d_ob + d_pe), 2 heads): P12 hd 360 on
     # the scalar route in both dtypes, eICU hd 140 on the tensor cores in
     # bf16, PAM's fused layer at d=340, hd 170
-    sw_shapes = (("P12-sw", 215, 720), ("eICU-sw", 300, 280))
-    sw_flash = [flash_phase(label, 128, T, d, 2, dt) for label, T, d in sw_shapes
-                for dt in ("float32", "bfloat16")]
-    sw_flash_bwd = [flash_bwd_phase(label, 128, T, d, 2, dt, rate)
-                    for label, T, d in sw_shapes for dt, rate in grid]
-    sw_fused = [fused_phase("PAM-sw", 128, 600, 340, 136, 2, dt)
-                for dt in ("float32", "bfloat16")]
-    sw_fused_bwd = [fused_bwd_phase("PAM-sw", 128, 600, 340, 136, 2, dt, rate)
-                    for dt, rate in grid]
+    with phase(phase_s, "packed and fused-layer kernels, sensor-wise widths"):
+        sw_shapes = (("P12-sw", 215, 720), ("eICU-sw", 300, 280))
+        sw_flash = [flash_phase(label, 128, T, d, 2, dt) for label, T, d in sw_shapes
+                    for dt in ("float32", "bfloat16")]
+        sw_flash_bwd = [flash_bwd_phase(label, 128, T, d, 2, dt, rate)
+                        for label, T, d in sw_shapes for dt, rate in grid]
+        sw_fused = [fused_phase("PAM-sw", 128, 600, 340, 136, 2, dt)
+                    for dt in ("float32", "bfloat16")]
+        sw_fused_bwd = [fused_bwd_phase("PAM-sw", 128, 600, 340, 136, 2, dt, rate)
+                        for dt, rate in grid]
     for r in sw_flash:
         want = "tc" if r["label"] == "eICU-sw" and r["dtype"] == "bfloat16" else "scalar"
         if r["route"] != want:
             raise AssertionError(f"{r['label']} {r['dtype']} took the {r['route']} "
                                  f"route, expected {want}")
     torch.cuda.empty_cache()
-    spmm_runs = [spmm_phase(label, 128, D, gt)
-                 for label, D in (("P12", 860), ("PAM", 2400), ("kNN", 240))
-                 for gt in (True, False)]
-    spmm_fwd, spmm_bwd = ([r[i] for r in spmm_runs] for i in (0, 1))
-    # B=1, N=36, D=430: what ob_propagate_selfattention hands the kernel
-    # (one sample, one call per head); the others are batch-scale shapes
-    sddmm_runs = [sddmm_phase("P12", 1, 430)]
-    sddmm_runs += [sddmm_phase(label, 128, D) for label in ("P12", "PAM", "kNN")
-                   for D in (860, 120)]
-    sddmm_fwd, sddmm_bwd = ([r[i] for r in sddmm_runs] for i in (0, 1))
+    with phase(phase_s, "graph kernels"):
+        spmm_runs = [spmm_phase(label, 128, D, gt)
+                     for label, D in (("P12", 860), ("PAM", 2400), ("kNN", 240))
+                     for gt in (True, False)]
+        spmm_fwd, spmm_bwd = ([r[i] for r in spmm_runs] for i in (0, 1))
+        # B=1, N=36, D=430: what ob_propagate_selfattention hands the kernel
+        # (one sample, one call per head); the others are batch-scale shapes
+        sddmm_runs = [sddmm_phase("P12", 1, 430)]
+        sddmm_runs += [sddmm_phase(label, 128, D) for label in ("P12", "PAM", "kNN")
+                       for D in (860, 120)]
+        sddmm_fwd, sddmm_bwd = ([r[i] for r in sddmm_runs] for i in (0, 1))
     torch.cuda.empty_cache()
 
     wrappers = (flash_mha_packed, fused_encoder_layer, spmm_segment_softmax, sddmm,
                 flash_mha)
-    pam_launches, pam = serve_phase("PAM", [fused_encoder_layer], wrappers)
-    p12_launches, p12 = serve_phase("P12", [flash_mha_packed], wrappers)
-    pam_tf, pam_tb, pam_train = train_phase("PAM", [fused_encoder_layer], wrappers)
-    p12_tf, p12_tb, p12_train = train_phase("P12", [flash_mha_packed], wrappers)
+    with phase(phase_s, "serve and train PAM, P12"):
+        pam_launches, pam = serve_phase("PAM", [fused_encoder_layer], wrappers)
+        p12_launches, p12 = serve_phase("P12", [flash_mha_packed], wrappers)
+        pam_tf, pam_tb, pam_train = train_phase("PAM", [fused_encoder_layer], wrappers)
+        p12_tf, p12_tb, p12_train = train_phase("P12", [flash_mha_packed], wrappers)
     check_tc("P12 serving and training", p12_launches, p12_tf, p12_tb)
     torch.cuda.empty_cache()
 
@@ -1917,18 +2027,19 @@ def main(argv=None) -> int:
     # P12 and eICU take flash_mha_packed (scalar at hd 360, tensor cores at
     # hd 140), PAM the fused layer at d=340
     sw = {"sensor_wise_mask": True}
-    sw_serve = {
-        name: serve_phase(name, fns, wrappers, cfg_overrides=sw,
-                          batch_limit=BATCH_LIMIT_SW)
-        for name, fns in (("P19", []), ("P12", [flash_mha_packed]),
-                          ("eICU", [flash_mha_packed]),
-                          ("PAM", [fused_encoder_layer]))}
-    if any(sw_serve["P19"][0].values()):
-        raise AssertionError(f"P19-sw serving launched a kernel: {sw_serve['P19'][0]}")
-    sw_train = {
-        name: train_phase(name, [fn], wrappers, cfg_overrides=sw, fit_lr=FIT_LR_SW)
-        for name, fn in (("P12", flash_mha_packed), ("eICU", flash_mha_packed),
-                         ("PAM", fused_encoder_layer))}
+    with phase(phase_s, "serve and train, sensor-wise"):
+        sw_serve = {
+            name: serve_phase(name, fns, wrappers, cfg_overrides=sw,
+                              batch_limit=BATCH_LIMIT_SW)
+            for name, fns in (("P19", []), ("P12", [flash_mha_packed]),
+                              ("eICU", [flash_mha_packed]),
+                              ("PAM", [fused_encoder_layer]))}
+        if any(sw_serve["P19"][0].values()):
+            raise AssertionError(f"P19-sw serving launched a kernel: {sw_serve['P19'][0]}")
+        sw_train = {
+            name: train_phase(name, [fn], wrappers, cfg_overrides=sw, fit_lr=FIT_LR_SW)
+            for name, fn in (("P12", flash_mha_packed), ("eICU", flash_mha_packed),
+                             ("PAM", fused_encoder_layer))}
     check_scalar("P12-sw serving and training", sw_serve["P12"][0],
                  *sw_train["P12"][:2])
     check_tc("eICU-sw serving and training", sw_serve["eICU"][0], *sw_train["eICU"][:2])
@@ -1939,45 +2050,80 @@ def main(argv=None) -> int:
     graph = {"prop_backend": "pallas"}
     graph_fns = [flash_mha_packed, spmm_segment_softmax]
     builds = topology.builds
-    g12_launches, g12 = serve_phase("P12", graph_fns, wrappers, cfg_overrides=graph,
-                                    plain_overrides=PLAIN_ALL)
-    check_tc("P12 pallas serving", g12_launches)
-    if g12_launches["spmm_segment_softmax"] != g12_launches["flash_mha_packed"]:
-        raise AssertionError(f"P12 pallas: two SpMM launches per forward expected, "
-                             f"as many as flash launches: {g12_launches}")
-    adj = global_adj_phase(wrappers)
-    g12_tf, g12_tb, g12_train = train_phase("P12", graph_fns, wrappers,
-                                            cfg_overrides=graph,
-                                            plain_overrides=PLAIN_ALL)
-    check_tc("P12 pallas training", g12_tf, g12_tb)
-    # every server and trainer above shares the model's edge tensors: the
-    # graph was sorted for the kernels once, when the first was built
-    builds = topology.builds - builds
-    print(f"[graph] the model's sensor graph was sorted {builds} time(s) over "
-          f"the P12 pallas serving, global_adj and training phases", flush=True)
-    if builds != 1:
-        raise AssertionError(f"the topology cache missed: {builds} builds")
-    sd_f, sd_b, selfatt = selfattention_phase(wrappers)
+    with phase(phase_s, "graph paths"):
+        g12_launches, g12 = serve_phase("P12", graph_fns, wrappers, cfg_overrides=graph,
+                                        plain_overrides=PLAIN_ALL)
+        check_tc("P12 pallas serving", g12_launches)
+        if g12_launches["spmm_segment_softmax"] != g12_launches["flash_mha_packed"]:
+            raise AssertionError(f"P12 pallas: two SpMM launches per forward expected, "
+                                 f"as many as flash launches: {g12_launches}")
+        adj = global_adj_phase(wrappers)
+        g12_tf, g12_tb, g12_train = train_phase("P12", graph_fns, wrappers,
+                                                cfg_overrides=graph,
+                                                plain_overrides=PLAIN_ALL)
+        check_tc("P12 pallas training", g12_tf, g12_tb)
+        # every server and trainer above shares the model's edge tensors: the
+        # graph was sorted for the kernels once, when the first was built
+        builds = topology.builds - builds
+        print(f"[graph] the model's sensor graph was sorted {builds} time(s) over "
+              f"the P12 pallas serving, global_adj and training phases", flush=True)
+        if builds != 1:
+            raise AssertionError(f"the topology cache missed: {builds} builds")
+        sd_f, sd_b, selfatt = selfattention_phase(wrappers)
     torch.cuda.empty_cache()
 
     # long sequences: the split-head flash_mha at the one-program regime's
     # shape (T=600) and the streaming regime's (T=2048), then the paths
-    mha_runs = [flash_mha_phase(label, 128, 2, T, 42, dt, rate)
-                for label, T in (("PAM-600", 600), ("PAM-2048", 2048))
-                for dt, rate in grid]
-    mha_fwd, mha_bwd = ([r[i] for r in mha_runs] for i in (0, 1))
-    op_f, op_b, op_checks = flash_mha_op_phase(wrappers)
+    with phase(phase_s, "flash_mha kernels"):
+        mha_runs = [flash_mha_phase(label, 128, 2, T, 42, dt, rate)
+                    for label, T in (("PAM-600", 600), ("PAM-2048", 2048))
+                    for dt, rate in grid]
+        mha_fwd, mha_bwd = ([r[i] for r in mha_runs] for i in (0, 1))
+        op_f, op_b, op_checks = flash_mha_op_phase(wrappers)
     torch.cuda.empty_cache()
-    long_launches, long_serve = serve_phase("PAM", [flash_mha], wrappers,
-                                            cfg_overrides=LONG)
-    if long_launches["flash_mha"] != 2 * long_serve["forwards"]:
-        raise AssertionError(
-            f"PAM-2048: two flash_mha launches per forward expected, got "
-            f"{long_launches['flash_mha']} for {long_serve['forwards']} forwards")
+    with phase(phase_s, "serve PAM-2048"):
+        long_launches, long_serve = serve_phase("PAM", [flash_mha], wrappers,
+                                                cfg_overrides=LONG)
+    check_two_a_forward("PAM-2048", long_launches, long_serve)
     torch.cuda.empty_cache()
-    long_tf, long_tb, long_train = protocol_phase(wrappers)
+    with phase(phase_s, "protocol PAM-2048"):
+        # two epochs, the second resumed (three before PAM-sw-2048's run
+        # joined the script: the 7 GB checkpoint files take most of it)
+        long_tf, long_tb, long_train = protocol_phase(wrappers, epochs=2)
     torch.cuda.empty_cache()
-    splits = run_splits_phase()
+    with phase(phase_s, "run_splits PAM-2048"):
+        splits = run_splits_phase()
+    torch.cuda.empty_cache()
+
+    # flash_mha past hd 128: PAM-sw's head (170, the Narrow geometry at 48
+    # columns a thread) and 360 (Wide) on a 2048-step window, the edge
+    # shapes of both geometries, then PAM-sw at max_len 2048 served,
+    # trained and run through train_split
+    with phase(phase_s, "flash_mha kernels past hd 128"):
+        sw_mha_runs = [flash_mha_phase(label, 128, 2, 2048, D, dt, rate)
+                       for label, D in (("PAM-sw-2048", 170), ("hd360-2048", 360))
+                       for dt, rate in grid]
+        sw_mha_fwd, sw_mha_bwd = ([r[i] for r in sw_mha_runs] for i in (0, 1))
+        mha_edges = [flash_mha_edge_phase(hd, T, rate)
+                     for hd in (129, 170, 192, 193, 200, 360, 368)
+                     for T in (65, 1025, 2048) for rate in (0.0, 0.2)]
+    torch.cuda.empty_cache()
+    sw_long = {**sw, **LONG}
+    with phase(phase_s, "serve PAM-sw-2048"):
+        sw_long_launches, sw_long_serve = serve_phase(
+            "PAM", [flash_mha], wrappers, cfg_overrides=sw_long,
+            batch_limit=BATCH_LIMIT_SW)
+    check_two_a_forward("PAM-sw-2048", sw_long_launches, sw_long_serve)
+    torch.cuda.empty_cache()
+    with phase(phase_s, "train PAM-sw-2048"):
+        sw_long_tf, sw_long_tb, sw_long_train = train_phase(
+            "PAM", [flash_mha], wrappers, cfg_overrides=sw_long, fit_lr=FIT_LR_SW,
+            check_rows=16)
+    torch.cuda.empty_cache()
+    with phase(phase_s, "protocol PAM-sw-2048"):
+        sw_long_pf, sw_long_pb, sw_long_protocol = protocol_phase(
+            wrappers, overrides=sw_long, label="PAM-sw-2048")
+    torch.cuda.empty_cache()
 
     # the kernels' record at the main paths' shapes and operand dtype
     # (attention_score_dtype defaults to bfloat16; training runs the shipped
@@ -2077,6 +2223,15 @@ def main(argv=None) -> int:
                "raindrop_tpu/ops/fused_encoder.py:183",
                sw_train["PAM"][1]["fused_encoder_layer"], sw_fused_bwd, "PAM-sw", 0.2),
     ]
+    # flash_mha past hd 128 at PAM-sw's head dim (170) on its 2048-step
+    # window: launches from that configuration's server (forward) and its
+    # train_split run (backward); max_abs_err over hd 170 and 360
+    kernels += [
+        record("flash_mha_fwd_PAM_sw", split_src, f"{jax_flash}:191",
+               sw_long_launches["flash_mha"], sw_mha_fwd, "PAM-sw-2048", 0.0),
+        {**record("flash_mha_bwd_PAM_sw", split_src, f"{jax_flash}:237", sw_long_pb,
+                  sw_mha_bwd, "PAM-sw-2048", 0.2), "replaces_also": [f"{jax_flash}:275"]},
+    ]
     for rec in kernels:
         if rec["launches"] <= 0:
             raise AssertionError(f"{rec['name']} was never launched on its path")
@@ -2110,6 +2265,15 @@ def main(argv=None) -> int:
                        "train": {"launches": long_tf, "bwd_launches": long_tb,
                                  **long_train},
                        "run_splits": splits},
+              "long_sensor_wise": {
+                  "flash_mha_fwd": sw_mha_fwd, "flash_mha_bwd": sw_mha_bwd,
+                  "flash_mha_edge": mha_edges,
+                  "serve": {"launches": sw_long_launches, **sw_long_serve},
+                  "train": {"launches": sw_long_tf, "bwd_launches": sw_long_tb,
+                            **sw_long_train},
+                  "protocol": {"launches": sw_long_pf, "bwd_launches": sw_long_pb,
+                               **sw_long_protocol}},
+              "phase_s": phase_s, "total_s": time.perf_counter() - t_start,
               "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2117,6 +2281,8 @@ def main(argv=None) -> int:
             json.dump(detail, f, indent=1)
 
     name = torch.cuda.get_device_name(0)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
+          f"{build_s:.1f} s of it", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -291,30 +291,10 @@ __device__ inline void layer_norm_rows(const float* in, long ldi, int d,
 
 }  // namespace rd
 
-// Instantiate F<MAXD> for the per-thread column count of head dim hd
-// (columns j, j+4, ... of hd), up to hd = 128.
-#define RD_DISPATCH_HD(hd, ...)                       \
-  do {                                                \
-    const int rd_nd_ = ((hd) + 3) / 4;                \
-    if (rd_nd_ <= 12) {                               \
-      constexpr int MAXD = 12;                        \
-      __VA_ARGS__;                                    \
-    } else if (rd_nd_ <= 20) {                        \
-      constexpr int MAXD = 20;                        \
-      __VA_ARGS__;                                    \
-    } else if (rd_nd_ <= 32) {                        \
-      constexpr int MAXD = 32;                        \
-      __VA_ARGS__;                                    \
-    } else {                                          \
-      return (int)cudaErrorInvalidValue;              \
-    }                                                 \
-  } while (0)
-
-// Instantiate F<MAXD, G> for head dim hd on the packed and fused-layer
-// routines: the Narrow geometry up to hd 192 (MAXD = ceil(hd / 4) columns
-// a thread, rounded up to 12, 20, 32 or 48: the first three are the
-// instantiations of RD_DISPATCH_HD), Wide from 193 to 368 (ceil(hd / 8) <=
-// 46, so MAXD 48).
+// Instantiate F<MAXD, G> for head dim hd on the packed, split-head and
+// fused-layer routines: the Narrow geometry up to hd 192 (MAXD =
+// ceil(hd / 4) columns a thread, rounded up to 12, 20, 32 or 48), Wide
+// from 193 to 368 (ceil(hd / 8) <= 46, so MAXD 48).
 #define RD_DISPATCH_GEOM(hd, ...)                     \
   do {                                                \
     const int rd_hd_ = (hd);                          \

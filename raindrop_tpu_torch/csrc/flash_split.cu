@@ -24,17 +24,22 @@
 //
 // Design: the TPU's two regimes exist because its fast memory holds a
 // whole [1024, 1024] tile; an SM's 227 KB holds none the model uses, so
-// there is one regime. One CTA takes one (block of 64 rows, head, sample)
-// and streams 64-row tiles of the other side through shared memory with
-// the device code of the packed-heads kernels (attention.cuh,
-// attention_bwd.cuh): an online softmax in base 2 forward; p recomputed
+// there is one regime. One CTA takes one (block of G::ROWS rows, head,
+// sample) and streams G::KEYS-row tiles of the other side through shared
+// memory with the device code of the packed-heads kernels (attention.cuh,
+// attention_bwd.cuh), in the geometry G that RD_DISPATCH_GEOM picks by the
+// head dim: Narrow (64-row blocks and tiles, 4 threads a row) up to hd 192,
+// Wide (32, 8 threads a row) up to 368, so every preset's sensor-wise head
+// (PAM-sw 170, P12-sw 360) runs here. Operands are read one element at a
+// time, so a head may start at any element offset of a row (hd 170 bf16:
+// 340 bytes a head). An online softmax in base 2 forward; p recomputed
 // from the saved lse in two launches backward, dq per query block and dk,
 // dv per key block, with fixed summation orders and no atomics. Key tiles
 // stop at the sample's length; T is padded neither to 8 nor to 128 and D
 // not to 128 (TPU tiling). The dropout mask is the counter hash of
 // (seed, b * H + h, global row, global column), which is what both TPU
 // regimes draw (their block coordinates times the block size plus the
-// in-block index is the global index).
+// in-block index is the global index); the geometry does not enter it.
 #include "attention_bwd.cuh"
 
 namespace {
@@ -48,7 +53,7 @@ __device__ __forceinline__ long head_base(const Strides& s, int b, int h) {
   return (long)b * s.b + (long)h * s.h;
 }
 
-template <int MAXD, bool DROP, typename TIn>
+template <int MAXD, typename G, bool DROP, typename TIn>
 __global__ void __launch_bounds__(rd::NT)
 split_fwd_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                  const TIn* __restrict__ v, const int* __restrict__ lengths,
@@ -56,18 +61,18 @@ split_fwd_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                  Strides s_out, int H, int T, int D, float scale2, int seed,
                  rd::Drop dr) {
   extern __shared__ float smem[];
-  const int q0 = blockIdx.x * rd::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * G::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int length = min(max(lengths[b], 0), T);
   const long in = head_base(s_in, b, h);
   constexpr bool kBf16 = sizeof(TIn) == 2;
   dr.base = rd::drop_base(seed, (uint32_t)(b * H + h));
-  rd::attend_rows<MAXD, kBf16, DROP, TIn>(
+  rd::attend_rows<MAXD, kBf16, DROP, TIn, G>(
       q + in, k + in, v + in, s_in.t, T, length, q0, D, scale2, smem,
       o + head_base(s_out, b, h) + (long)q0 * s_out.t, s_out.t,
       lse + ((long)b * H + h) * T, dr);
 }
 
-template <int MAXD, bool DROP, typename TIn>
+template <int MAXD, typename G, bool DROP, typename TIn>
 __global__ void __launch_bounds__(rd::NT)
 split_dq_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                 const TIn* __restrict__ v, const TIn* __restrict__ d_o,
@@ -76,19 +81,19 @@ split_dq_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                 Strides s_in, Strides s_do, Strides s_out, int H, int T, int D,
                 float scale, int seed, rd::Drop dr) {
   extern __shared__ float smem[];
-  const int q0 = blockIdx.x * rd::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * G::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int length = min(max(lengths[b], 0), T);
   const long in = head_base(s_in, b, h);
   const long stat = ((long)b * H + h) * T;
   constexpr bool kBf16 = sizeof(TIn) == 2;
   dr.base = rd::drop_base(seed, (uint32_t)(b * H + h));
-  rd::attn_dq_rows<MAXD, kBf16, DROP, TIn>(
+  rd::attn_dq_rows<MAXD, kBf16, DROP, TIn, G>(
       q + in, k + in, v + in, s_in.t, d_o + head_base(s_do, b, h), s_do.t,
       lse + stat, delta + stat, T, length, q0, D, scale * 1.4426950408889634f,
       scale, dr, smem, dq + head_base(s_out, b, h), s_out.t);
 }
 
-template <int MAXD, bool DROP, typename TIn>
+template <int MAXD, typename G, bool DROP, typename TIn>
 __global__ void __launch_bounds__(rd::NT)
 split_dkv_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                  const TIn* __restrict__ v, const TIn* __restrict__ d_o,
@@ -98,14 +103,14 @@ split_dkv_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                  Strides s_out, int H, int T, int D, float scale, int seed,
                  rd::Drop dr) {
   extern __shared__ float smem[];
-  const int k0 = blockIdx.x * rd::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * G::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int length = min(max(lengths[b], 0), T);
   const long in = head_base(s_in, b, h);
   const long out = head_base(s_out, b, h);
   const long stat = ((long)b * H + h) * T;
   constexpr bool kBf16 = sizeof(TIn) == 2;
   dr.base = rd::drop_base(seed, (uint32_t)(b * H + h));
-  rd::attn_dkv_rows<MAXD, kBf16, DROP, TIn>(
+  rd::attn_dkv_rows<MAXD, kBf16, DROP, TIn, G>(
       q + in, k + in, v + in, s_in.t, d_o + head_base(s_do, b, h), s_do.t,
       lse + stat, delta + stat, T, length, k0, D, scale * 1.4426950408889634f,
       scale, dr, smem, dk + out, dv + out, s_out.t);
@@ -117,48 +122,71 @@ cudaError_t allow_smem(K kern, int bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int MAXD, bool DROP, typename TIn>
+// Shared bytes of the forward, dq and dk/dv kernels at head dim D in the
+// geometry G: the one sizing the launches below and rd_split_smem use.
+template <typename G>
+void smem_bytes(int D, int* out) {
+  out[0] = rd::attn_smem_floats<G>(D) * (int)sizeof(float);
+  out[1] = rd::attn_dq_smem_floats<G>(D) * (int)sizeof(float);
+  out[2] = rd::attn_dkv_smem_floats<G>(D) * (int)sizeof(float);
+}
+
+// One CTA per G::ROWS rows: in the Wide geometry a grid sized by Narrow's
+// 64 would leave rows 32-63 of every block unwritten.
+template <typename G>
+dim3 grid_of(int B, int H, int T) {
+  return dim3((T + G::ROWS - 1) / G::ROWS, H, B);
+}
+
+template <int MAXD, typename G, bool DROP, typename TIn>
 int launch_fwd(const void* q, const void* k, const void* v, const void* lengths,
                void* o, void* lse, Strides s_in, Strides s_out, int B, int H,
                int T, int D, float scale2, int seed, rd::Drop dr,
                cudaStream_t stream) {
-  const int bytes = rd::attn_smem_floats(D) * (int)sizeof(float);
-  auto kern = split_fwd_kernel<MAXD, DROP, TIn>;
-  cudaError_t err = allow_smem(kern, bytes);
+  int bytes[3];
+  smem_bytes<G>(D, bytes);
+  auto kern = split_fwd_kernel<MAXD, G, DROP, TIn>;
+  cudaError_t err = allow_smem(kern, bytes[0]);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + rd::BQ - 1) / rd::BQ, H, B);
-  kern<<<grid, rd::NT, bytes, stream>>>(
+  kern<<<grid_of<G>(B, H, T), rd::NT, bytes[0], stream>>>(
       (const TIn*)q, (const TIn*)k, (const TIn*)v, (const int*)lengths,
       (float*)o, (float*)lse, s_in, s_out, H, T, D, scale2, seed, dr);
   return (int)cudaGetLastError();
 }
 
-template <int MAXD, bool DROP, typename TIn>
+template <int MAXD, typename G, bool DROP, typename TIn>
 int launch_bwd(const void* q, const void* k, const void* v, const void* d_o,
                const void* lse, const void* delta, const void* lengths, void* dq,
                void* dk, void* dv, Strides s_in, Strides s_do, Strides s_out,
                int B, int H, int T, int D, float scale, int seed, rd::Drop dr,
                cudaStream_t stream) {
-  const int bytes_q = rd::attn_dq_smem_floats(D) * (int)sizeof(float);
-  const int bytes_kv = rd::attn_dkv_smem_floats(D) * (int)sizeof(float);
-  auto kq = split_dq_kernel<MAXD, DROP, TIn>;
-  auto kkv = split_dkv_kernel<MAXD, DROP, TIn>;
-  cudaError_t err = allow_smem(kq, bytes_q);
+  int bytes[3];
+  smem_bytes<G>(D, bytes);
+  auto kq = split_dq_kernel<MAXD, G, DROP, TIn>;
+  auto kkv = split_dkv_kernel<MAXD, G, DROP, TIn>;
+  cudaError_t err = allow_smem(kq, bytes[1]);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(kkv, bytes_kv);
+  err = allow_smem(kkv, bytes[2]);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + rd::BQ - 1) / rd::BQ, H, B);
-  kq<<<grid, rd::NT, bytes_q, stream>>>(
+  const dim3 grid = grid_of<G>(B, H, T);
+  kq<<<grid, rd::NT, bytes[1], stream>>>(
       (const TIn*)q, (const TIn*)k, (const TIn*)v, (const TIn*)d_o,
       (const float*)lse, (const float*)delta, (const int*)lengths, (float*)dq,
       s_in, s_do, s_out, H, T, D, scale, seed, dr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kkv<<<grid, rd::NT, bytes_kv, stream>>>(
+  kkv<<<grid, rd::NT, bytes[2], stream>>>(
       (const TIn*)q, (const TIn*)k, (const TIn*)v, (const TIn*)d_o,
       (const float*)lse, (const float*)delta, (const int*)lengths, (float*)dk,
       (float*)dv, s_in, s_do, s_out, H, T, D, scale, seed, dr);
   return (int)cudaGetLastError();
+}
+
+template <int MAXD, typename G>
+int smem_of(int D, int* out) {
+  smem_bytes<G>(D, out);
+  return (out[0] > rd::MAX_SMEM || out[1] > rd::MAX_SMEM || out[2] > rd::MAX_SMEM)
+             ? (int)cudaErrorInvalidValue : 0;
 }
 
 // grid.y = H and grid.z = B are capped at 65535
@@ -173,16 +201,25 @@ Strides strides_at(const long long* s, int i) {
 
 }  // namespace
 
-// F<MAXD, DROP, TIn>(args...) for the run-time head dim, rate and type.
+// F<MAXD, G, DROP, TIn>(args...) for the run-time head dim, rate and type:
+// the Narrow geometry up to hd 192, Wide up to 368 (RD_DISPATCH_GEOM).
 #define RD_DISPATCH(F, hd, rate, bf16, ...)                                   \
-  RD_DISPATCH_HD(hd, {                                                        \
+  RD_DISPATCH_GEOM(hd, {                                                      \
     if ((rate) > 0.0) {                                                       \
-      return (bf16) ? F<MAXD, true, __nv_bfloat16>(__VA_ARGS__)               \
-                    : F<MAXD, true, float>(__VA_ARGS__);                      \
+      return (bf16) ? F<MAXD, G, true, __nv_bfloat16>(__VA_ARGS__)            \
+                    : F<MAXD, G, true, float>(__VA_ARGS__);                   \
     }                                                                         \
-    return (bf16) ? F<MAXD, false, __nv_bfloat16>(__VA_ARGS__)                \
-                  : F<MAXD, false, float>(__VA_ARGS__);                       \
+    return (bf16) ? F<MAXD, G, false, __nv_bfloat16>(__VA_ARGS__)             \
+                  : F<MAXD, G, false, float>(__VA_ARGS__);                    \
   })
+
+// The shared bytes of the forward, dq and dk/dv kernels at head dim D, in
+// the geometry the entry points below launch; cudaErrorInvalidValue for a
+// head dim they do not take or a kernel that would not fit a block.
+extern "C" int rd_split_smem(int D, int* out) {
+  if (D <= 0) return (int)cudaErrorInvalidValue;
+  RD_DISPATCH_GEOM(D, return smem_of<MAXD, G>(D, out));
+}
 
 // strides: (batch, head, row) of q/k/v, then of o; host memory, int64.
 extern "C" int rd_split_fwd(const void* q, const void* k, const void* v,

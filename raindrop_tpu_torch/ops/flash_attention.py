@@ -21,7 +21,8 @@ backward launch the hand-written kernels in `csrc/flash_packed.cu` and
 its launch plan (`packed_plan`): the tensor-core kernels for bf16
 operands up to a padded head dim of 144, the scalar ones for f32 and for
 wider heads (up to 368, the sensor-wise P12's 360). `flash_mha` takes
-head dims up to 128 on the card. On CPU tensors they run
+the same head dims on the card (the sensor-wise PAM's 170 past 1024
+steps), in the scalar kernels' geometries. On CPU tensors they run
 `_packed_fwd_plain` / `_packed_bwd_plain` and `_flash_fwd_plain` /
 `_flash_bwd_plain`, the same functions in plain PyTorch, which the CPU
 tests hold against the JAX package and `chip_smoke.py` holds the kernels
@@ -31,8 +32,9 @@ The JAX `flash_mha` has two regimes, one program per head while a [T, T]
 score tile fits the TPU's VMEM (T padded to 8 <= 1024) and 128-row blocks
 with an online softmax beyond. No [T, T] tile fits an SM's shared memory
 at any T the model uses, so here one set of kernels (forward, dq, dk+dv)
-streams 64-key tiles at every T. Both regimes hash the dropout mask from
-the global (row, column), so one mask function serves both as well.
+streams key tiles at every T (64 rows up to hd NARROW_MAX_HD, 32 beyond).
+Both regimes hash the dropout mask from the global (row, column), so one
+mask function serves both as well.
 """
 
 from __future__ import annotations
@@ -55,9 +57,10 @@ LOG2E = 1.4426950408889634
 MAX_FUSED_T = 1024
 # The launch plan's routing limits, the widths the kernels are instantiated
 # for (the C entry points refuse a plan past them; the shared memory of
-# each launch is theirs to compute, `packed_smem`). The largest head dim
-# flash_mha_packed's kernels take (csrc/attention.cuh SCALAR_MAX_HD): the
-# scalar kernels in the Wide geometry.
+# each launch is theirs to compute, `packed_smem`, `split_smem`). The
+# largest head dim flash_mha_packed's and flash_mha's kernels take
+# (csrc/attention.cuh SCALAR_MAX_HD): the scalar kernels in the Wide
+# geometry. No preset reaches past it (the widest is P12-sw's 360).
 MAX_HEAD_DIM = 368
 # The scalar kernels' Narrow geometry (64-row blocks and tiles) up to this
 # head dim (attention.cuh NARROW_MAX_HD); the Wide one (32) beyond.
@@ -65,9 +68,6 @@ NARROW_MAX_HD = 192
 # The widest padded head dim of the tensor-core kernels
 # (csrc/flash_packed.cuh TC_MAX_HD_PAD): eICU's sensor-wise hd 140.
 TC_MAX_HD_PAD = 144
-# The largest head dim flash_mha's kernels take on the card
-# (csrc/attention.cuh RD_DISPATCH_HD).
-MAX_SPLIT_HEAD_DIM = 128
 _ROWS = 64              # rows of a CTA's block and of a streamed tile
 
 
@@ -581,11 +581,12 @@ def _empty_heads(B, H, T, D, device):
 
 def _check_flash_cuda(q, k, v):
     B, H, T, D = q.shape
-    if D > MAX_SPLIT_HEAD_DIM:
+    if D > MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"the flash_mha kernels take head dims up to {MAX_SPLIT_HEAD_DIM} "
-            f"on the card (got D={D}); wider heads come with the next slice "
-            f"(flash_mha above hd 128)")
+            f"the flash_mha kernels take head dims up to {MAX_HEAD_DIM} on the "
+            f"card, got D={D}; no preset's head is that wide (P12 with "
+            f"sensor_wise_mask, the widest, is 360)")
+    split_smem(D)                 # raises where a launch would not fit a block
     if B > 65535 or H > 65535:
         raise ValueError(f"the flash_mha kernels take up to 65535 samples "
                          f"and heads (grid dimensions), got B={B}, H={H}")
@@ -616,8 +617,9 @@ def _flash_fwd_cuda(q, k, v, lengths, seed, rate, od):
 
 
 def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g):
-    """dq, dk, dv through the two backward kernels (one CTA per 64 query
-    rows for dq, one per 64 key rows for dk and dv). delta is prepared here
+    """dq, dk, dv through the two backward kernels (one CTA per block of
+    query rows for dq, one per block of key rows for dk and dv: 64 rows up
+    to hd NARROW_MAX_HD, 32 beyond). delta is prepared here
     in torch ops, as the JAX package prepares it outside its kernels."""
     B, H, T, D = q.shape
     dev = q.device
@@ -646,6 +648,19 @@ def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g):
     return dq, dk, dv
 
 
+@functools.lru_cache(maxsize=64)
+def split_smem(D):
+    """Shared bytes of flash_mha's forward, dq and dk/dv kernels at head dim
+    D, as csrc/flash_split.cu computes them for its launches (it builds the
+    kernels: on the card only). Raises ValueError for a head dim the
+    kernels do not take."""
+    out = (ctypes.c_int * 3)()
+    if _split_lib().rd_split_smem(D, out):
+        raise ValueError(f"the flash_mha kernels do not take hd={D}: shared "
+                         f"bytes {tuple(out)}")
+    return tuple(out)
+
+
 def _split_lib():
     lib = build.load("flash_split")
     if lib.rd_split_fwd.argtypes is None:
@@ -656,4 +671,6 @@ def _split_lib():
         lib.rd_split_fwd.restype = ctypes.c_int
         lib.rd_split_bwd.argtypes = [ctypes.c_void_p] * 10 + tail
         lib.rd_split_bwd.restype = ctypes.c_int
+        lib.rd_split_smem.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.rd_split_smem.restype = ctypes.c_int
     return lib

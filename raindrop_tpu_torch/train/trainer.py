@@ -80,9 +80,11 @@ class Trainer:
         run from (default `raindrop_init` on the device)."""
         self.cfg = cfg
         self.tcfg = tcfg
-        self.device = resolve_device(device)
-        self._init = init_fn or (
-            lambda seed: raindrop_init(seed, cfg, device=self.device))
+        self.device = dev = resolve_device(device)
+        # the default init closes over the device, not over self: a cycle
+        # would keep a dropped trainer's parameters (7 GB at PAM's width on
+        # a 2048-step window) alive until the cyclic collector runs
+        self._init = init_fn or (lambda seed: raindrop_init(seed, cfg, device=dev))
         # the trainer's own seed stream (dropout masks), on the host so a
         # draw never waits for the card
         self._seed_gen = torch.Generator().manual_seed(tcfg.seed)
@@ -92,10 +94,12 @@ class Trainer:
     # ---- parameters and optimizer ---------------------------------------
     def set_params(self, params) -> None:
         """Adopt `params` and start a fresh optimizer over its live leaves."""
+        device = self.device      # not self: `own` is in a cycle with itself
+
         def own(tree):
             if isinstance(tree, dict):
                 return {k: own(v) for k, v in tree.items()}
-            return tree.detach().to(self.device).clone()
+            return tree.detach().to(device).clone()
 
         self.params = own(params)
         mask = dict(flatten_params(raindrop_param_mask(self.cfg)))

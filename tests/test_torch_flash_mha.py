@@ -7,7 +7,11 @@ exact with dropout too.
 
 The streaming regime runs at a real T = 1152 once, and at T = 200 with the
 JAX module's MAX_FUSED_T patched down to 64 for the grid of operand types
-and rates (the port has one regime, so nothing is patched there).
+and rates (the port has one regime, so nothing is patched there). Both
+regimes run again at the sensor-wise head dims past 128, PAM-sw's 170 and
+P12-sw's 360 (the JAX kernels pad them to 256 and 384; on the card the
+port runs them in the Narrow and Wide geometries), and the streaming one
+at a real T = 1152 at hd 170.
 
 Tolerances: 1e-5 in f32 (the same arithmetic, summed in another order);
 2e-2 with bf16 operands. The JAX one-program backward evaluates
@@ -85,6 +89,32 @@ def test_streaming_regime_matches_jax_vjp(monkeypatch, cd, rate):
 def test_streaming_regime_at_a_real_length_matches_jax_vjp():
     T = jfa.MAX_FUSED_T + 128
     q, k, v, g, _ = _inputs(2, 1, T, 8, seed=11)
+    _compare(q, k, v, g, np.array([T - 200, T], np.int32), 0.3, None)
+
+
+# the sensor-wise head dims: PAM-sw (2 heads of d_inp * (d_ob + d_pe) =
+# 340) and P12-sw (720)
+WIDE_HD = [170, 360]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("D", WIDE_HD)
+def test_fused_regime_matches_jax_vjp_at_wide_heads(D, cd, rate):
+    _compare(*_inputs(3, 2, 70, D, seed=D), rate, cd)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("D", WIDE_HD)
+def test_streaming_regime_matches_jax_vjp_at_wide_heads(monkeypatch, D, cd, rate):
+    monkeypatch.setattr(jfa, "MAX_FUSED_T", 64)
+    _compare(*_inputs(3, 2, 200, D, seed=D + 1), rate, cd)
+
+
+def test_streaming_regime_at_a_real_length_and_pam_sw_head_dim():
+    T = jfa.MAX_FUSED_T + 128
+    q, k, v, g, _ = _inputs(2, 1, T, 170, seed=13)
     _compare(q, k, v, g, np.array([T - 200, T], np.int32), 0.3, None)
 
 

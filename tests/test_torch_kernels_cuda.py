@@ -399,15 +399,98 @@ def test_flash_mha_matches_the_packed_kernel(gen):
     assert (split.transpose(1, 2).reshape(B, T, H * D) - packed).abs().max() <= 1e-5
 
 
+# flash_mha past hd 128: the Narrow geometry at 48 columns a thread (129,
+# PAM-sw's 170, 192 its last), the Wide one (32-row blocks and tiles: 193
+# its first, 200, P12-sw's 360, 368 its last); T one row past a block, one
+# past the JAX package's one-program regime, and PAM-sw's window
+WIDE_SPLIT_HD = [129, 170, 192, 193, 200, 360, 368]
+
+
+def _wide_lengths(gen, B, T):
+    """Lengths 0, 1, T, one that ends 45 rows into a 64-row block (past
+    row 32: a block's second half in the Narrow geometry, the next block
+    in the Wide one) and one at random."""
+    lengths = _lengths(gen, B, T)
+    lengths[2] = min(T, 64 * (T // 128) + 45)
+    return lengths
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("layout", ["contiguous", "projection"])
+@pytest.mark.parametrize("T", [65, 1025, 2048])
+@pytest.mark.parametrize("D", WIDE_SPLIT_HD)
+def test_flash_mha_kernels_match_plain_at_wide_heads(gen, D, T, layout, cd, rate):
+    """flash_mha past hd 128, forward, dq and dk+dv through the autograd
+    function, B = 5, H = 2: against the plain version, bit-equal on a
+    repeat, exact zeros for the length-0 sample; every row of every block
+    is compared (o is torch.empty: a row no CTA wrote would differ)."""
+    B, H = 5, 2
+    q, k, v = (x.requires_grad_() for x in _head_inputs(gen, B, H, T, D, layout))
+    g = torch.randn((B, H, T, D), generator=gen, device="cuda")
+    lengths = _wide_lengths(gen, B, T)
+    od = fa.operand_dtype(cd)
+    f0, b0 = fa.flash_mha.launches, fa.flash_mha.bwd_launches
+    o = fa.flash_mha(q, k, v, lengths, SEED, rate, cd)
+    o2 = fa.flash_mha(q, k, v, lengths, SEED, rate, cd)
+    got = torch.autograd.grad(o, (q, k, v), g, retain_graph=True)
+    again = torch.autograd.grad(o, (q, k, v), g)
+    assert (fa.flash_mha.launches, fa.flash_mha.bwd_launches) == (f0 + 2, b0 + 2)
+    _, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
+    po, plse = fa._flash_fwd_plain(q, k, v, lengths, od, SEED, rate)
+    want = fa._flash_bwd_plain(q.detach(), k.detach(), v.detach(), lengths, SEED,
+                               rate, od, o.detach(), lse, g)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
+    assert (o - po).abs().max().item() <= TOL[cd]
+    assert (lse - plse).abs().max().item() <= TOL[cd]
+    assert (o[0] == 0).all() and (lse[0] == fa.NEG_INF).all()
+    for a, a2, b in zip(got, again, want):
+        assert torch.isfinite(a).all() and torch.equal(a, a2)
+        assert (a[0] == 0).all()               # the length-0 sample
+        assert _rel_err(a, b) <= TOL[cd]
+
+
+@pytest.mark.parametrize("D", [1, 42, 128, *WIDE_SPLIT_HD])
+def test_flash_mha_shared_memory_fits_a_block(gen, D):
+    """The shared bytes of flash_mha's three launches, as the C library
+    computes them, fit a block (232,448 bytes) at every head dim it takes;
+    the Narrow geometry's dk/dv pass is the largest at hd 192, the Wide
+    one's at 368."""
+    smem = fa.split_smem(D)
+    assert len(smem) == 3 and 0 < min(smem) and max(smem) <= 232448
+    if D == 192:
+        assert smem[2] == 4 * (2 * 128 * 193 + 2 * 64 * 65 + 128)
+    if D == 368:
+        assert smem[2] == 4 * (2 * 64 * 369 + 2 * 32 * 33 + 64)
+    with pytest.raises(ValueError, match=str(fa.MAX_HEAD_DIM + 1)):
+        fa.split_smem(fa.MAX_HEAD_DIM + 1)
+
+
+@pytest.mark.parametrize("D", [170, 360])
+def test_flash_mha_matches_the_packed_kernel_at_wide_heads(gen, D):
+    """As test_flash_mha_matches_the_packed_kernel, at PAM-sw's head dim
+    (the Narrow geometry) and P12-sw's (Wide), f32 operands, dropout 0.2."""
+    B, T, H = 4, 215, 2
+    q, k, v = (torch.randn((B, T, H * D), generator=gen, device="cuda")
+               for _ in range(3))
+    lengths = _wide_lengths(gen, B, T)
+    packed = fa.flash_mha_packed(q, k, v, lengths, SEED, 0.2, None, H)
+    split = fa.flash_mha(*(x.reshape(B, T, H, D).transpose(1, 2) for x in (q, k, v)),
+                         lengths, SEED, 0.2, None)
+    torch.cuda.synchronize()
+    assert (split.transpose(1, 2).reshape(B, T, H * D) - packed).abs().max() <= 1e-5
+
+
 def test_flash_mha_refuses_a_head_dim_past_the_kernels(gen):
-    """flash_mha (T > 1024 on the model's path) takes hd <= 128 on the card
-    for now; above it raises NotImplementedError naming the next slice,
-    forward and backward (the plain version on the CPU takes any hd)."""
-    q = torch.randn((1, 1, 16, 136), generator=gen, device="cuda")
+    """flash_mha takes head dims up to MAX_HEAD_DIM (368) on the card; above
+    it raises NotImplementedError naming the head dim, forward and
+    backward (the plain version on the CPU takes any hd)."""
+    q = torch.randn((1, 1, 16, 376), generator=gen, device="cuda")
     lengths = torch.tensor([16], device="cuda")
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="D=376; no preset"):
         fa.flash_mha(q, q, q, lengths)
     o = torch.zeros_like(q)
     lse = torch.zeros((1, 1, 16), device="cuda")
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="D=376; no preset"):
         fa._flash_bwd_cuda(q, q, q, lengths, 0, 0.0, torch.float32, o, lse, q)

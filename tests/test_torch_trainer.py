@@ -285,3 +285,30 @@ def test_what_the_protocol_slice_brings_raises():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(dataset_config("P19", max_len=8), TrainConfig())
+
+
+def test_a_dropped_trainer_frees_its_parameters_without_the_cyclic_collector():
+    """A Trainer is in no reference cycle, so its parameters (7 GB at PAM's
+    width on a 2048-step window) go when the last reference does, not when
+    the cyclic collector next runs: on the default init path, on the
+    params= path and after a step. A first Trainer is made beforehand: the
+    process's first meta-device arithmetic (raindrop_param_mask) keeps the
+    frames then on the stack alive."""
+    import gc
+    import weakref
+
+    cfg = dataset_config("P19", max_len=MAX_LEN)
+    tcfg = TrainConfig(dataset="P19", batch_size=B)
+    first = Trainer(cfg, tcfg, device="cpu")
+    batch = _torch_batch(_batch_np(_split(cfg, B), np.arange(B)))
+    gc.collect()
+    gc.disable()
+    try:
+        for params in (None, first.params):
+            tr = Trainer(cfg, tcfg, device="cpu", params=params)
+            tr.train_step(batch)
+            ref = weakref.ref(tr.params["R_u"])
+            del tr
+            assert ref() is None
+    finally:
+        gc.enable()
