@@ -30,6 +30,14 @@ order with that checkout's own code:
               f32 and bf16 operands, dropout 0.2, B=8, H=2: a SHA-256 of
               the bytes of o, lse, dq, dk and dv, to compare checkouts bit
               for bit;
+  sample_err  the largest chip_smoke.sample_err of o and of each gradient
+              against the plain version, by test and operand dtype, on the
+              inputs of the attention tests in
+              tests/test_torch_kernels_cuda.py (flash_mha_packed backward,
+              its tensor-core route against the scalar one, flash_mha at
+              hd <= 128 and past it) and at the main path's shape (B=16,
+              H=2, T=2048, hd 42, 170 and 360, dropout 0 and 0.2, the plain
+              version on 8 samples): the readings SAMPLE_TOL is set from;
   ptxas       compile every unit of the five kernel libraries with
               `-Xptxas -v` (all nvcc processes together): registers, stack
               frame and spill bytes of each kernel, the spilling ones
@@ -206,6 +214,75 @@ def task_bits(root, cs):
     return out
 
 
+def task_sample_err(root, cs):
+    import itertools
+
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    spec = importlib.util.spec_from_file_location(
+        "card_tests", os.path.join(root, "tests", "test_torch_kernels_cuda.py"))
+    tk = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tk)
+    out = {}
+
+    def note(test, cd, names, got, want, lengths):
+        for n, a, b in zip(names, got, want):
+            key = f"{test} {cd or 'float32'} {n}"
+            out[key] = max(out.get(key, 0.0), cs.sample_err(a, b, lengths))
+
+    def gen():          # the tests' fixture: a generator seeded 0 per case
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    for (T, d, nh), cd, rate in itertools.product(tk.PACKED_SHAPES, (None, "bfloat16"),
+                                                  (0.0, 0.2)):
+        g_ = gen()
+        q, k, v, g = (torch.randn((5, T, d), generator=g_, device="cuda") for _ in range(4))
+        L = tk._lengths(g_, 5, T)
+        od = fa.operand_dtype(cd)
+        o, lse = fa._packed_fwd(q, k, v, L, cs.SEED, rate, cd, nh)
+        args = (q, k, v, L, cs.SEED, rate, nh, od, o, lse, g)
+        note("packed", cd, ("dq", "dk", "dv"), fa._packed_bwd_cuda(*args),
+             fa._packed_bwd_plain(*args), L)
+        if cd:
+            note("tc_vs_scalar", cd, ("dq", "dk", "dv"), fa._packed_bwd_cuda(*args),
+                 fa._packed_bwd_cuda(*args, impl="scalar"), L)
+
+    def split(test, B, H, T, D, layout, cd, rate, lengths_fn):
+        g_ = gen()
+        q, k, v = tk._head_inputs(g_, B, H, T, D, layout)
+        g = torch.randn((B, H, T, D), generator=g_, device="cuda")
+        L = lengths_fn(g_, B, T)
+        od = fa.operand_dtype(cd)
+        o, lse = fa._flash_fwd(q, k, v, L, cs.SEED, rate, cd)
+        args = (q, k, v, L, cs.SEED, rate, od, o, lse, g)
+        note(test, cd, ("o", "dq", "dk", "dv"), (o, *fa._flash_bwd_cuda(*args)),
+             (fa._flash_fwd_plain(q, k, v, L, od, cs.SEED, rate)[0],
+              *fa._flash_bwd_plain(*args)), L)
+
+    for (T, H, D), layout, cd, rate in itertools.product(
+            ((13, 2, 8), (70, 2, 42), (600, 2, 42), (1152, 2, 42), (200, 1, 128)),
+            ("contiguous", "projection"), (None, "bfloat16"), (0.0, 0.2)):
+        split("split", 4, H, T, D, layout, cd, rate, tk._lengths)
+    for D, T, layout, cd, rate in itertools.product(
+            tk.WIDE_SPLIT_HD, (65, 1025, 2048), ("contiguous", "projection"),
+            (None, "bfloat16"), (0.0, 0.2)):
+        split("wide", 5, 2, T, D, layout, cd, rate, tk._wide_lengths)
+    for D, dtype, rate in itertools.product((42, 170, 360), ("float32", "bfloat16"),
+                                            (0.0, 0.2)):
+        gen_ = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, g = cs._head_views(gen_, 16, 2, 2048, D, 4, "cuda")
+        L = cs.ragged_lengths(gen_, 16, 2048, "cuda")
+        errs = cs.check_flash_mha(q, k, v, g, L, dtype, rate, 8, f"hd={D}")[3]
+        for n, e in errs.items():
+            key = f"T2048_hd{D} {dtype} {n}"
+            out[key] = max(out.get(key, 0.0), e)
+        torch.cuda.empty_cache()
+    for key, e in out.items():
+        print(f"[ab] sample_err {key}: {e:.3e}", flush=True)
+    return out
+
+
 def task_ptxas(root, cs):
     import re
     from raindrop_tpu_torch.kernels import build
@@ -259,7 +336,7 @@ def task_ptxas(root, cs):
 
 TASKS = {"build": task_build, "one_unit": task_one_unit, "kernels": task_kernels,
          "serve_train": task_serve_train, "latency": task_latency, "split": task_split,
-         "bits": task_bits, "ptxas": task_ptxas}
+         "bits": task_bits, "sample_err": task_sample_err, "ptxas": task_ptxas}
 
 
 def worker(root, tasks):

@@ -182,13 +182,6 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* d_o,
   return (int)cudaGetLastError();
 }
 
-template <int MAXD, typename G>
-int smem_of(int D, int* out) {
-  smem_bytes<G>(D, out);
-  return (out[0] > rd::MAX_SMEM || out[1] > rd::MAX_SMEM || out[2] > rd::MAX_SMEM)
-             ? (int)cudaErrorInvalidValue : 0;
-}
-
 // grid.y = H and grid.z = B are capped at 65535
 bool bad_shape(int B, int H, int T, int D, double rate) {
   return B <= 0 || B > 65535 || H <= 0 || H > 65535 || T <= 0 || D <= 0 ||
@@ -218,7 +211,11 @@ Strides strides_at(const long long* s, int i) {
 // head dim they do not take or a kernel that would not fit a block.
 extern "C" int rd_split_smem(int D, int* out) {
   if (D <= 0) return (int)cudaErrorInvalidValue;
-  RD_DISPATCH_GEOM(D, return smem_of<MAXD, G>(D, out));
+  RD_DISPATCH_GEOM(D, {
+    smem_bytes<G>(D, out);
+    return (out[0] > rd::MAX_SMEM || out[1] > rd::MAX_SMEM ||
+            out[2] > rd::MAX_SMEM) ? (int)cudaErrorInvalidValue : 0;
+  });
 }
 
 // strides: (batch, head, row) of q/k/v, then of o; host memory, int64.

@@ -586,7 +586,6 @@ def _check_flash_cuda(q, k, v):
             f"the flash_mha kernels take head dims up to {MAX_HEAD_DIM} on the "
             f"card, got D={D}; no preset's head is that wide (P12 with "
             f"sensor_wise_mask, the widest, is 360)")
-    split_smem(D)                 # raises where a launch would not fit a block
     if B > 65535 or H > 65535:
         raise ValueError(f"the flash_mha kernels take up to 65535 samples "
                          f"and heads (grid dimensions), got B={B}, H={H}")

@@ -4,9 +4,15 @@ Marked `cuda`: each test skips when no CUDA device is present (the check
 runs inside the fixture, never at import). On the card:
     python -m pytest tests/test_torch_kernels_cuda.py -q
 Tolerances: 1e-4 with f32 operands (another summation order), 2e-2 with
-bf16 operands (8-bit mantissas, rounding at other points of the sums);
-gradients are compared relative to max(1, the plain gradient's max). The
-sparse-graph kernels are all f32: 1e-5 relative to max(1, |plain|).
+bf16 operands (8-bit mantissas, rounding at other points of the sums).
+The attention kernels' gradients, and flash_mha's o besides, are compared
+sample by sample relative to that sample's largest plain value
+(_sample_err): 1e-5 f32, 5e-3 bf16 (chip_smoke.SAMPLE_TOL; on these
+inputs an H100 reads at most 1.1e-6 / 2.0e-3 for gradients and 2.3e-6 /
+2.6e-3 for o: `python3 chip_ab.py --run .:sample_err`). The fused
+layer's gradients are compared relative to max(1, the plain gradient's
+max). The sparse-graph kernels are all f32: 1e-5 relative to
+max(1, |plain|).
 """
 
 import pytest
@@ -18,6 +24,7 @@ from raindrop_tpu_torch.ops import sparse as sp
 from raindrop_tpu_torch.nn.transformer import _layer_init
 
 TOL = {None: 1e-4, "bfloat16": 2e-2}
+SAMPLE_TOL = {None: 1e-5, "bfloat16": 5e-3}
 SEED = 20231
 # flash_mha_packed's shapes: hd 8, 36 (eICU), 80 (P12), 84, 42 (4-byte
 # copies), 128, and 13 and 3 (odd: 2-byte plain loads, unpaired stores),
@@ -48,6 +55,17 @@ def _lengths(gen, B, T):
 
 def _rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
+
+
+def _sample_err(got, want, lengths):
+    """Per sample, max |got - want| over that sample's max |want|; samples
+    of length 0 or 1 over the largest max |want| of all (with one key
+    p = 1: their dq and dk are rounding noise about 0)."""
+    B = got.shape[0]
+    diff = (got - want).abs().reshape(B, -1).amax(1)
+    scale = want.abs().reshape(B, -1).amax(1)
+    scale = torch.where(lengths > 1, scale, scale.max())
+    return (diff / scale.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
@@ -86,7 +104,7 @@ def test_flash_backward_matches_plain(gen, T, d, nhead, cd, rate):
     for a, a2, b in zip(got, again, want):
         assert torch.isfinite(a).all() and torch.equal(a, a2)
         assert (a[0] == 0).all()                 # the length-0 sample
-        assert _rel_err(a, b) <= TOL[cd]
+        assert _sample_err(a, b, lengths) <= SAMPLE_TOL[cd]
 
 
 def test_flash_autograd_reaches_the_backward_kernels(gen):
@@ -125,7 +143,7 @@ def test_flash_tensor_core_kernels_match_the_scalar_ones(gen, T, d, nhead, rate)
     assert (lse - slse).abs().max().item() <= TOL["bfloat16"]
     assert (o[0] == 0).all() and (lse[0] == fa.NEG_INF).all()
     for a, b in zip(got, want):
-        assert _rel_err(a, b) <= TOL["bfloat16"]
+        assert _sample_err(a, b, lengths) <= SAMPLE_TOL["bfloat16"]
 
 
 def test_flash_autograd_in_bf16_reaches_the_tensor_core_kernels(gen):
@@ -377,11 +395,12 @@ def test_flash_mha_kernels_match_plain(gen, T, H, D, layout, cd, rate):
     torch.cuda.synchronize()
     assert (o - po).abs().max().item() <= TOL[cd]
     assert (lse - plse).abs().max().item() <= TOL[cd]
+    assert _sample_err(o, po, lengths) <= SAMPLE_TOL[cd]
     assert (o[0] == 0).all()
     for a, a2, b in zip(got, again, want):
         assert torch.isfinite(a).all() and torch.equal(a, a2)
         assert (a[0] == 0).all()               # the length-0 sample
-        assert _rel_err(a, b) <= TOL[cd]
+        assert _sample_err(a, b, lengths) <= SAMPLE_TOL[cd]
 
 
 def test_flash_mha_matches_the_packed_kernel(gen):
@@ -444,11 +463,12 @@ def test_flash_mha_kernels_match_plain_at_wide_heads(gen, D, T, layout, cd, rate
     assert torch.equal(o, o2)
     assert (o - po).abs().max().item() <= TOL[cd]
     assert (lse - plse).abs().max().item() <= TOL[cd]
+    assert _sample_err(o, po, lengths) <= SAMPLE_TOL[cd]
     assert (o[0] == 0).all() and (lse[0] == fa.NEG_INF).all()
     for a, a2, b in zip(got, again, want):
         assert torch.isfinite(a).all() and torch.equal(a, a2)
         assert (a[0] == 0).all()               # the length-0 sample
-        assert _rel_err(a, b) <= TOL[cd]
+        assert _sample_err(a, b, lengths) <= SAMPLE_TOL[cd]
 
 
 @pytest.mark.parametrize("D", [1, 42, 128, *WIDE_SPLIT_HD])
