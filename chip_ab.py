@@ -17,6 +17,10 @@ order with that checkout's own code:
               (dropout 0) and the backward (dropout 0.2), checked against
               the plain version, timed by CUDA events (20 calls) and by
               torch.profiler device time, plus the host time of a call;
+              then fused_encoder_layer in bf16 at PAM (B=128, T=600, d=84,
+              ffn=136) and PAM-sw (d=340), 2 heads: the forward (dropout
+              0; out against the plain version) and the backward (dropout
+              0.2), the same three times (5 and 3 calls);
   serve_train chip_smoke.serve_phase and train_phase for P12 (latency by
               bucket, step ms, device ms, idle share);
   latency     a P12 server (random weights from seed 0): request latency
@@ -28,8 +32,11 @@ order with that checkout's own code:
   bits        flash_mha forward and backward at head dims 8, 42 and 128
               (each column count of the Narrow geometry), T 600 and 2048,
               f32 and bf16 operands, dropout 0.2, B=8, H=2: a SHA-256 of
-              the bytes of o, lse, dq, dk and dv, to compare checkouts bit
-              for bit;
+              the bytes of o, lse, dq, dk and dv; and fused_encoder_layer
+              with f32 operands at PAM's width (d=84) and PAM-sw's (340),
+              ffn=136, 2 heads, T 100 and 600, dropout 0 and 0.2, B=8: a
+              SHA-256 of out, attn, lse, dx and the 12 weight gradients;
+              to compare checkouts bit for bit;
   sample_err  the largest chip_smoke.sample_err of o and of each gradient
               against the plain version, by test and operand dtype, on the
               inputs of the attention tests in
@@ -42,7 +49,8 @@ order with that checkout's own code:
               `-Xptxas -v` (all nvcc processes together): registers, stack
               frame and spill bytes of each kernel, the spilling ones
               printed, and every flash_mha kernel (split_*_kernel, each
-              geometry and column count) printed.
+              geometry and column count) and every tensor-core kernel of
+              the fused layer (*_tc*, pack_weights_kernel) printed.
 
 Give the runs in an order that favours no checkout (A B B A). Each task
 prints `TASK name {...}` when it ends and each run `RESULT {...}`; --out
@@ -136,6 +144,49 @@ def task_kernels(root, cs):
                                       "host_ms": host_ms}
             print(f"[ab] {root}: {label} bf16 {name}: {ms:.4f} ms by events, device "
                   f"{device_ms:.4f} ms, host {host_ms:.4f} ms a call", flush=True)
+    out.update(_fused_times(root, cs))
+    return out
+
+
+def _fused_times(root, cs):
+    """fused_encoder_layer in bf16 at PAM and PAM-sw, B=128: forward and
+    backward by events, device time and host time a call."""
+    import torch
+    from raindrop_tpu_torch.ops import fused_encoder as fe
+
+    out, od = {}, torch.bfloat16
+    for label, d in (("PAM", 84), ("PAM-sw", 340)):
+        B, T, ffn, H = 128, 600, 136, 2
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = cs.random_layer(gen, d, ffn, "cuda")
+        x, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(2))
+        lengths = cs.ragged_lengths(gen, B, T, "cuda")
+        ws = fe._flatten(p)
+        got = fe._fused_fwd_cuda(ws, x, lengths, 0, 0.0, H, od)
+        want = fe._fused_fwd_plain(p, x, lengths, H, od)
+        err = cs.sample_err(got[0], want[0], lengths)
+        if err > cs.SAMPLE_TOL["bfloat16"]:
+            raise AssertionError(f"fused {label}: out disagrees with the plain version: {err}")
+        _, attn, lse = fe._fused_fwd_cuda(ws, x, lengths, cs.SEED, 0.2, H, od)
+        calls = {
+            "fused_fwd": (lambda: fe._fused_fwd_cuda(ws, x, lengths, 0, 0.0, H, od), 5),
+            "fused_bwd": (lambda: fe._fused_bwd_cuda(ws, x, lengths, cs.SEED, 0.2, H, od,
+                                                     attn, lse, g), 3),
+        }
+        for name, (fn, reps) in calls.items():
+            ms = cs.time_ms(fn, reps=reps, warmup=1)
+            fn()
+            device_ms = cs.profile_device(lambda: [fn() for _ in range(reps)], reps)[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host_ms = 1e3 * (time.perf_counter() - t0) / reps
+            torch.cuda.synchronize()
+            out[f"{label}_{name}"] = {"ms": ms, "device_ms": device_ms, "host_ms": host_ms}
+            print(f"[ab] {root}: {label} bf16 {name}: {ms:.4f} ms by events, device "
+                  f"{device_ms:.4f} ms, host {host_ms:.4f} ms a call", flush=True)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -210,7 +261,36 @@ def task_bits(root, cs):
                 for x in (o, lse, *grads):
                     h.update(x.contiguous().cpu().numpy().tobytes())
                 out[f"D{D}_T{T}_{cd or 'float32'}"] = h.hexdigest()
+    out.update(_fused_bits(cs))
     print(f"[ab] {root}: bits {out}", flush=True)
+    return out
+
+
+def _fused_bits(cs):
+    """SHA-256 of the f32 fused layer's out, attn, lse, dx and 12 weight
+    gradients at PAM's and PAM-sw's widths."""
+    import hashlib
+
+    import torch
+    from raindrop_tpu_torch.ops import fused_encoder as fe
+
+    out = {}
+    for d in (84, 340):
+        for T in (100, 600):
+            for rate in (0.0, 0.2):
+                gen = torch.Generator(device="cuda").manual_seed(d + T)
+                p = cs.random_layer(gen, d, 136, "cuda")
+                x, g = (torch.randn((8, T, d), generator=gen, device="cuda")
+                        for _ in range(2))
+                lengths = cs.ragged_lengths(gen, 8, T, "cuda")
+                lengths[3] = 45
+                fwd = fe._fused_fwd(p, x, lengths, cs.SEED, rate, None, 2)
+                dx, dws = fe._fused_bwd_cuda(fe._flatten(p), x, lengths, cs.SEED, rate, 2,
+                                             torch.float32, fwd[1], fwd[2], g)
+                h = hashlib.sha256()
+                for t in (*fwd, dx, *dws):
+                    h.update(t.contiguous().cpu().numpy().tobytes())
+                out[f"fused_d{d}_T{T}_rate{rate}_float32"] = h.hexdigest()
     return out
 
 
@@ -326,11 +406,18 @@ def task_ptxas(root, cs):
     split = {k: v for k, v in kernels.items() if "split_" in k}
     for k, v in split.items():
         print(f"[ptxas] flash_mha: {v} {k[:160]}", flush=True)
+    fused = {k: v for k, v in kernels.items() if v["unit"].startswith("fused_encoder")
+             and ("_tc" in k or "pack_weights" in k)}
+    for k, v in fused.items():
+        print(f"[ptxas] fused tensor cores: {v} {k[:160]}", flush=True)
     return {"kernels": len(kernels), "spilling": len(spilling),
             "max_registers": max(v.get("registers", 0) for v in kernels.values()),
             "split_kernels": len(split),
             "split_spilling": sum(1 for v in split.values()
                                   if v["spill_stores"] or v["spill_loads"]),
+            "fused_tc_kernels": len(fused),
+            "fused_tc_spilling": sum(1 for v in fused.values()
+                                     if v["spill_stores"] or v["spill_loads"]),
             "by_kernel": kernels}
 
 

@@ -10,8 +10,10 @@ check does not hold:
   1. set-up: TF32 off for matmuls and cuDNN (the reference semantics are
      full f32), the card's name and power limit, the kernels built from
      raindrop_tpu_torch/csrc/ with nvcc (build seconds printed); then the
-     SASS check: cuobjdump -sass on the flash_packed library must find
-     HGMMA (wgmma) instructions in each tensor-core kernel family;
+     SASS check: cuobjdump -sass on the flash_packed library and the fused
+     layer's two must find HGMMA (wgmma) instructions in each tensor-core
+     kernel family (SASS_FAMILIES: the packed attention's three, and every
+     bf16 row product of the fused layer with its attention);
   2. flash_mha_packed forward, kernel against its plain PyTorch version at
      the P12 (B=128, T=215, d=160) and eICU (T=300, d=72) shapes, f32 and
      bf16 operands, ragged lengths including 0, 1 and T, bit-equal on a
@@ -20,8 +22,10 @@ check does not hold:
      tensor-core kernel is timed in turns with the previous design (the
      scalar kernel, prev_ms), and each time's share of the bound printed;
   3. fused_encoder_layer forward, the same at the PAM shape (B=128, T=600,
-     d=84, ffn=136) on out, attn and lse (attn zero for the length-0
-     sample, 8 samples alone bit-equal);
+     d=84, ffn=136): out and attn sample by sample, lse (attn zero for the
+     length-0 sample, 8 samples alone bit-equal); in bf16 the tensor-core
+     route (every row product on wgmma, the attention too at hd 42) timed
+     in turns with the previous design (the scalar kernels);
   4. flash_mha_packed backward at the same shapes, dropout 0 and 0.2: the
      forward with dropout, then dq, dk, dv of the two backward kernels
      against the plain backward, finite, zero on the length-0 sample, and
@@ -33,9 +37,16 @@ check does not hold:
      65 and 1024, dropout 0 and 0.2: the plan's route forward and backward
      against the plain version and against the scalar kernels, bit-equal
      on a repeat, exact zeros for the length-0 sample;
-  6. fused_encoder_layer backward at the PAM shape, the same grid: dx and
-     the 12 weight gradients against the plain backward, bit-equal on a
-     repeat, a zero attention gradient for the length-0 sample;
+  6. fused_encoder_layer backward at the PAM shape, the same grid: dx (sample
+     by sample) and the 12 weight gradients against the plain backward,
+     bit-equal on a repeat, a zero attention gradient for the length-0
+     sample, the tensor-core route timed in turns with the previous design;
+ 6a. the fused layer at an edge shape, B=4, T=100 (ending inside a 64-row
+     tile), lengths 0, 1, 45 and 100, PAM's and PAM-sw's widths, f32 and
+     bf16, dropout 0 and 0.2: forward and backward against the plain
+     version and (bf16) the previous design, bit-equal on a repeat, exact
+     zeros for the length-0 sample; every fused run's routes checked (bf16
+     tensor cores, the attention scalar at PAM-sw's hd 170; f32 scalar);
  6b. phases 2, 4, 3 and 6 at the sensor-wise widths (sensor_wise_mask:
      d = d_inp * (d_ob + d_pe), 2 heads), B=128: P12-sw (T=215, d=720, hd
      360: the scalar route in both dtypes) and eICU-sw (T=300, d=280, hd
@@ -68,7 +79,9 @@ check does not hold:
      fused layer), a row's probabilities held across batches to
      BATCH_LIMIT_SW with bf16 operands, on the kernels and on their plain
      versions; and phase 9 for P12, eICU and PAM
-     with it, the falling-loss check at the rate FIT_LR_SW gives;
+     with it, the falling-loss check at the rate FIT_LR_SW gives; PAM and
+     PAM-sw served and trained with every fused_encoder_layer launch on the
+     tensor-core route;
  11. spmm_segment_softmax, kernels against their plain PyTorch versions,
      forward (out, w) and backward (dx, dgamma, cotangents on both
      outputs): the complete sensor graphs of P12 (B=128, N=36, E=1296,
@@ -144,16 +157,19 @@ use the H100 SXM data-sheet peaks (3.35 TB/s; 67 TFLOP/s f32 outside the
 tensor cores, 989 TFLOP/s dense bf16); the card's power limit is printed
 beside them. Outputs are held to max_abs_err 1e-4 with f32 operands
 (another summation order) and 2e-2 with bf16 operands. The attention
-kernels' gradients, and flash_mha's o besides, are held sample by sample
-to SAMPLE_TOL (1e-5 f32, 5e-3 bf16) of each sample's largest plain value
-(sample_err); the fused layer's gradients to TOL relative to max(1, the
-plain gradient's largest value), its plain backward taking the kernel's
-relu branches (fused_bwd_phase says why). The sparse-graph kernels are
+kernels' gradients, flash_mha's o, and the fused layer's out, attn and dx
+are held sample by sample to SAMPLE_TOL (1e-5 f32, 5e-3 bf16) of each
+sample's largest plain value (sample_err); the fused layer's weight
+gradients, sums over every row, to TOL relative to max(1, the plain
+gradient's largest value), its plain backward taking the kernel's relu
+branches (fused_bwd_phase says why). The sparse-graph kernels are
 f32 throughout and are held to 1e-5 relative to max(1, |plain|).
 The line before the last is the kernels' JSON record (twenty records:
 twelve kernels at the main paths' shapes, the packed pair and the fused
 layer again at the sensor-wise widths, and flash_mha forward and backward
-at PAM-sw-2048's hd 170), the last line the result. `--out PATH` also
+at PAM-sw-2048's hd 170; the fused layer's list the CUDA kernels of its
+tensor-core route and of the previous design, and its launches are the
+tensor-core ones), the last line the result. `--out PATH` also
 writes every number to PATH as JSON.
 """
 
@@ -164,6 +180,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -368,7 +385,10 @@ def random_layer(gen, d, ffn, device):
 
 
 def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
-    """Kernel vs plain for fused_encoder_layer's forward at one shape."""
+    """Kernel vs plain for fused_encoder_layer's forward at one shape: out
+    and attn held sample by sample (sample_err) to SAMPLE_TOL, lse to TOL;
+    in bf16 the tensor-core route timed in turns with the previous design
+    (the scalar kernels)."""
     import torch
     from raindrop_tpu_torch.ops import fused_encoder as fe
     from raindrop_tpu_torch.ops.flash_attention import operand_dtype
@@ -379,15 +399,21 @@ def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
     lengths = ragged_lengths(gen, B, T, device)
     cd = None if dtype == "float32" else dtype
     od = operand_dtype(cd)
+    plan = fe.fused_plan(d, ffn, H, od)
     got = fe._fused_fwd(p, x, lengths, None, 0.0, cd, H)
     again = fe._fused_fwd(p, x, lengths, None, 0.0, cd, H)
     want = fe._fused_fwd_plain(p, x, lengths, H, od)
     torch.cuda.synchronize()
-    errs = {n: max_err(a, b) for n, a, b in zip(("out", "attn", "lse"), got, want)}
-    err = max(errs.values())
-    print(f"[fused] {label} {dtype} B={B} T={T} d={d} ffn={ffn} H={H}: "
-          f"max_abs_err {errs} (tol {TOL[dtype]:g})", flush=True)
-    if err > TOL[dtype] or not bool(torch.isfinite(got[0]).all()):
+    errs = {"out": sample_err(got[0], want[0], lengths),
+            "attn": sample_err(got[1], want[1], lengths),
+            "lse": max_err(got[2], want[2])}
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    print(f"[fused] {label} {dtype} B={B} T={T} d={d} ffn={ffn} H={H} ({plan.route} "
+          f"route, attention {plan.attn_route}): sample_err out {errs['out']:.3e}, attn "
+          f"{errs['attn']:.3e} (tol {SAMPLE_TOL[dtype]:g}), lse max_abs_err "
+          f"{errs['lse']:.3e} (tol {TOL[dtype]:g}); max_abs_err {err:.3e}", flush=True)
+    if (max(errs["out"], errs["attn"]) > SAMPLE_TOL[dtype] or errs["lse"] > TOL[dtype]
+            or not bool(torch.isfinite(got[0]).all())):
         raise AssertionError(f"fused_encoder_layer kernel disagrees at {label} {dtype}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"fused forward not bit-equal on a repeat at {label} {dtype}")
@@ -400,7 +426,10 @@ def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
         raise AssertionError(f"fused forward: 8 samples alone differ from the same "
                              f"samples in a batch of {B} at {label} {dtype}")
 
-    ms = time_ms(lambda: fe._fused_fwd(p, x, lengths, None, 0.0, cd, H))
+    ws = fe._flatten(p)
+    times = time_designs(
+        lambda impl: fe._fused_fwd_cuda(ws, x, lengths, 0, 0.0, H, od, impl), dtype)
+    ms, prev_ms = times["ms"], times["prev_ms"]
     plain_ms = time_ms(lambda: fe._fused_fwd_plain(p, x, lengths, H, od))
     layer = torch.nn.TransformerEncoderLayer(
         d, H, ffn, dropout=0.0, batch_first=True, device=device).eval()
@@ -421,6 +450,7 @@ def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
     pad = (torch.arange(T, device=device)[None, :] >= lengths[live][:, None])
     with torch.no_grad():
         library_ms = time_ms(lambda: layer(xl, src_key_padding_mask=pad))
+        times["library_device_ms"] = device_ms(lambda: layer(xl, src_key_padding_mask=pad))
     hd = d // H
     esize = 2 if dtype == "bfloat16" else 4
     weights = (4 * d * d + 2 * d * ffn) * esize + (3 * d + 6 * d + ffn) * 4
@@ -428,16 +458,16 @@ def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
     dense = 2.0 * B * T * (3 * d * d + d * d + 2 * d * ffn)
     flops = dense + 4.0 * T * hd * H * float(lengths.sum())
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    # the qkv intermediate the two-launch design writes and reads back
-    qkv_bytes = 2 * B * T * 3 * d * 4
-    print(f"[fused] {label} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, TransformerEncoderLayer {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}); qkv round trip {qkv_bytes / 1e6:.1f} MB",
-          flush=True)
-    return dict(label=label, dtype=dtype, max_abs_err=err, errs=errs, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bytes=nbytes, flops=flops,
-                qkv_roundtrip_bytes=qkv_bytes)
+    # the qkv intermediate A writes and B reads back (bf16 on the tensor cores)
+    qkv_bytes = 2 * B * T * 3 * d * (2 if plan.route == "tc" else 4)
+    print(f"[fused] {label} {dtype}: kernel {ms:.4f} ms, {design_line(ms, prev_ms, bound_ms)}, "
+          f"plain {plain_ms:.4f} ms, TransformerEncoderLayer {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); device time {device_line(times)}; qkv round "
+          f"trip {qkv_bytes / 1e6:.1f} MB", flush=True)
+    return dict(label=label, dtype=dtype, route=plan.route, attn_route=plan.attn_route,
+                max_abs_err=err, errs=errs, **times, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops, qkv_roundtrip_bytes=qkv_bytes)
 
 
 def rel_err(got, want) -> float:
@@ -580,11 +610,48 @@ def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
                 **errs)
 
 
+# the tensor-core kernel families of each library whose SASS must hold
+# HGMMA (wgmma): the packed attention's three and, on the fused layer's bf16
+# route, every row product (qkv, the forward's tail, the backward's row
+# kernel, dx, the weight gradients) and the attention at PAM's head dim
+SASS_FAMILIES = {
+    "flash_packed": ("packed_fwd_tc", "packed_dq_tc", "packed_dkv_tc"),
+    "fused_encoder": ("qkv_rows_tc_kernel", "layer_tail_tc", "fused_attn_fwd_tc"),
+    "fused_encoder_bwd": ("qkv_rows_tc_kernel", "layer_bwd_rows_tc", "dx_rows_tc",
+                          "wgrad_tc", "fused_dq_tc", "fused_dkv_tc"),
+}
+
+
+# the CUDA kernels a fused-layer call launches on the bf16 tensor-core route
+# (the kernels' JSON record lists them beside the wrapper's); the previous
+# design's, timed in turns with them as prev_ms, stay on the f32 route
+FUSED_FWD_KERNELS = {
+    "sources_also": ["raindrop_tpu_torch/csrc/rows_tc.cuh",
+                     "raindrop_tpu_torch/csrc/fused_encoder_attn_tc.cu",
+                     "raindrop_tpu_torch/csrc/attention_tc.cuh"],
+    "kernels_tc": ["pack_weights_kernel", "qkv_rows_tc_kernel",
+                   "fused_attn_fwd_tc (hd_pad <= 144; attn_rows_kernel on bf16 beyond)",
+                   "layer_tail_tc"],
+    "kernels_previous": ["qkv_rows_kernel", "attn_rows_kernel", "layer_tail_kernel"]}
+FUSED_BWD_KERNELS = {
+    "sources_also": ["raindrop_tpu_torch/csrc/rows_tc.cuh",
+                     "raindrop_tpu_torch/csrc/fused_encoder_dq_tc.cu",
+                     "raindrop_tpu_torch/csrc/fused_encoder_dkv_tc.cu",
+                     "raindrop_tpu_torch/csrc/attention_tc.cuh"],
+    "kernels_tc": ["pack_weights_kernel", "qkv_rows_tc_kernel", "layer_bwd_rows_tc",
+                   "fused_dq_tc, fused_dkv_tc (hd_pad <= 144; fused_dq_kernel, "
+                   "fused_dkv_kernel on bf16 beyond)", "dx_rows_tc", "wgrad_tc",
+                   "reduce_kernel"],
+    "kernels_previous": ["qkv_rows_kernel", "layer_bwd_rows_kernel", "fused_dq_kernel",
+                         "fused_dkv_kernel", "dx_rows_kernel", "wgrad_kernel",
+                         "reduce_kernel"]}
+
+
 def sass_phase():
-    """Count the tensor-core instructions in the built flash_packed library
-    (cuobjdump -sass): HGMMA (wgmma) and HMMA (mma.sync) per kernel family.
-    Fails when a packed bf16 tensor-core kernel has none; without cuobjdump
-    on the machine it says so and checks nothing."""
+    """Count the tensor-core instructions in the built libraries (cuobjdump
+    -sass): HGMMA (wgmma) and HMMA (mma.sync) per kernel family. Fails when
+    a kernel of SASS_FAMILIES has none; without cuobjdump on the machine it
+    says so and checks nothing."""
     import re
     import shutil
     from raindrop_tpu_torch.kernels import build
@@ -595,32 +662,59 @@ def sass_phase():
         print("[sass] cuobjdump is not on this machine: the SASS check did not run",
               flush=True)
         return None
-    build.load("flash_packed")
-    lib = str(build._lib_path("flash_packed"))
-    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
-                         check=True, timeout=300).stdout
-    counts, fam = {}, None
-    for line in out.splitlines():
-        m = re.search(r"Function : \S*?(packed_\w+?_(?:tc|kernel))", line)
-        if m:
-            fam = counts.setdefault(m.group(1), {"functions": 0, "HGMMA": 0, "HMMA": 0})
-            fam["functions"] += 1
-        elif fam is not None and "Function : " in line:
-            fam = None
-        elif fam is not None:
-            for op in ("HGMMA", "HMMA"):
-                if re.search(rf"\b{op}\.", line):
-                    fam[op] += 1
-    print(f"[sass] {os.path.basename(lib)}: {counts}", flush=True)
-    for name in ("packed_fwd_tc", "packed_dq_tc", "packed_dkv_tc"):
-        if counts.get(name, {}).get("HGMMA", 0) <= 0:
-            raise AssertionError(f"no HGMMA instruction in {name}: {counts.get(name)}")
-    return counts
+    out_counts = {}
+    procs = {}
+    tmp = tempfile.TemporaryDirectory()
+    # one cuobjdump a library, all at once, each into a file (a pipe would
+    # stall the others until its reader came)
+    for name in SASS_FAMILIES:
+        build.load(name)
+        with open(os.path.join(tmp.name, name), "w") as sink:
+            procs[name] = subprocess.Popen([tool, "-sass", str(build._lib_path(name))],
+                                           stdout=sink)
+    try:
+        for name, families in SASS_FAMILIES.items():
+            lib = str(build._lib_path(name))
+            if procs[name].wait(timeout=300) != 0:
+                raise RuntimeError(f"cuobjdump -sass failed on {lib}")
+            with open(os.path.join(tmp.name, name)) as f:
+                out = f.read()
+            alts = [r"packed_\w+?_(?:tc|kernel)"] + [f for f in families
+                                                      if not f.startswith("packed")]
+            pattern = re.compile(r"Function : \S*?(" + "|".join(alts) + ")")
+            counts, fam = {}, None
+            for line in out.splitlines():
+                m = pattern.search(line)
+                if m:
+                    fam = counts.setdefault(m.group(1), {"functions": 0, "HGMMA": 0, "HMMA": 0})
+                    fam["functions"] += 1
+                elif fam is not None and "Function : " in line:
+                    fam = None
+                elif fam is not None:
+                    for op in ("HGMMA", "HMMA"):
+                        if re.search(rf"\b{op}\.", line):
+                            fam[op] += 1
+            print(f"[sass] {os.path.basename(lib)}: {counts}", flush=True)
+            for fam_name in families:
+                if counts.get(fam_name, {}).get("HGMMA", 0) <= 0:
+                    raise AssertionError(f"no HGMMA instruction in {fam_name} ({name}): "
+                                         f"{counts.get(fam_name)}")
+            out_counts[name] = counts
+    finally:                        # no dump outlives the phase
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        tmp.cleanup()
+    return out_counts
 
 
 def fused_bwd_phase(label, B, T, d, ffn, H, dtype, rate, device="cuda", seed=0):
     """Kernels vs plain for fused_encoder_layer's forward with dropout and
-    its backward (dx and the 12 weight gradients) at one shape."""
+    its backward at one shape: dx held sample by sample (sample_err) to
+    SAMPLE_TOL, the 12 weight gradients (sums over every row) to TOL
+    relative to max(1, the plain gradient's largest value); in bf16 the
+    tensor-core route timed in turns with the previous design."""
     import torch
     from raindrop_tpu_torch.ops import fused_encoder as fe
     from raindrop_tpu_torch.ops.flash_attention import operand_dtype
@@ -631,9 +725,12 @@ def fused_bwd_phase(label, B, T, d, ffn, H, dtype, rate, device="cuda", seed=0):
     lengths = ragged_lengths(gen, B, T, device)
     cd = None if dtype == "float32" else dtype
     od = operand_dtype(cd)
+    plan = fe.fused_plan(d, ffn, H, od)
     fwd_k = fe._fused_fwd(p, x, lengths, SEED, rate, cd, H)
     fwd_p = fe._fused_fwd_plain(p, x, lengths, H, od, SEED, rate)
-    fwd_err = max(max_err(a, b) for a, b in zip(fwd_k, fwd_p))
+    fwd_err = max(sample_err(fwd_k[0], fwd_p[0], lengths),
+                  sample_err(fwd_k[1], fwd_p[1], lengths))
+    lse_err = max_err(fwd_k[2], fwd_p[2])
     _, attn, lse = fwd_k
     ws = fe._flatten(p)
     args = (x, lengths, SEED, rate, H, od, attn, lse, g)
@@ -666,24 +763,30 @@ def fused_bwd_phase(label, B, T, d, ffn, H, dtype, rate, device="cuda", seed=0):
     del f_pre, kept
     pdx, pdws = fe._fused_bwd_plain(p, *args, relu_on=ffn_on)
     torch.cuda.synchronize()
-    names = ["dx"] + ["/".join(path) for path in fe._WEIGHTS]
-    errs = {n: rel_err(a, b) for n, a, b in zip(names, [dx, *dws], [pdx, *pdws])}
-    err = max(errs.values())
-    print(f"[fused_bwd] {label} {dtype} dropout {rate}: forward max_abs_err "
-          f"{fwd_err:.3e}, gradients rel err {errs} (tol {TOL[dtype]:g}); relu "
-          f"branches that differ from the plain version's: {n_flips} of "
-          f"{flips.numel()}, largest |pre-activation| among them {flip_pre:.3e}",
-          flush=True)
-    if (fwd_err > TOL[dtype] or err > TOL[dtype] or flip_pre > TOL[dtype]
-            or n_flips > TOL[dtype] * flips.numel()):
+    names = ["/".join(path) for path in fe._WEIGHTS]
+    errs = {"dx": sample_err(dx, pdx, lengths)}
+    errs.update({n: rel_err(a, b) for n, a, b in zip(names, dws, pdws)})
+    werr = max(errs[n] for n in names)
+    err = max(max_err(a, b) for a, b in zip([dx, *dws], [pdx, *pdws]))
+    print(f"[fused_bwd] {label} {dtype} dropout {rate} ({plan.route} route, attention "
+          f"{plan.attn_route}): forward sample_err {fwd_err:.3e}, lse {lse_err:.3e}; dx "
+          f"sample_err {errs['dx']:.3e} (tol {SAMPLE_TOL[dtype]:g}), weight gradients rel "
+          f"err {werr:.3e} (tol {TOL[dtype]:g}) {errs}; relu branches that differ from the "
+          f"plain version's: {n_flips} of {flips.numel()}, largest |pre-activation| "
+          f"among them {flip_pre:.3e}", flush=True)
+    if (fwd_err > SAMPLE_TOL[dtype] or lse_err > TOL[dtype]
+            or errs["dx"] > SAMPLE_TOL[dtype] or werr > TOL[dtype]
+            or flip_pre > TOL[dtype] or n_flips > TOL[dtype] * flips.numel()):
         raise AssertionError(f"fused_encoder_layer backward disagrees at {label} {dtype}")
-    for name, a, a2 in zip(names, [dx, *dws], [dx2, *dws2]):
+    for name, a, a2 in zip(["dx"] + names, [dx, *dws], [dx2, *dws2]):
         if not bool(torch.isfinite(a).all()) or not torch.equal(a, a2):
             raise AssertionError(f"fused backward {name} not finite or not "
                                  f"bit-equal on a repeat at {label} {dtype}")
     del pdx, pdws, fwd_p
 
-    ms = time_ms(lambda: fe._fused_bwd_cuda(ws, *args), reps=10, warmup=2)
+    times = time_designs(lambda impl: fe._fused_bwd_cuda(ws, *args, impl=impl), dtype,
+                         reps=10)
+    ms, prev_ms = times["ms"], times["prev_ms"]
     plain_ms = time_ms(lambda: fe._fused_bwd_plain(p, *args), reps=3, warmup=1)
     layer = torch.nn.TransformerEncoderLayer(
         d, H, ffn, dropout=rate, batch_first=True, device=device, dtype=od).train()
@@ -695,6 +798,8 @@ def fused_bwd_phase(label, B, T, d, ffn, H, dtype, rate, device="cuda", seed=0):
     gl = g[live].to(od)
     library_ms = time_ms(lambda: torch.autograd.grad(out, wrt, gl, retain_graph=True),
                          reps=10, warmup=2)
+    times["library_device_ms"] = device_ms(
+        lambda: torch.autograd.grad(out, wrt, gl, retain_graph=True), reps=10)
     hd = d // H
     esize = 2 if dtype == "bfloat16" else 4
     n_w = 4 * d * d + 2 * d * ffn
@@ -706,17 +811,80 @@ def fused_bwd_phase(label, B, T, d, ffn, H, dtype, rate, device="cuda", seed=0):
     dense = 3 * 2.0 * B * T * (4 * d * d + 2 * d * ffn)
     flops = dense + 10.0 * T * hd * H * float(lengths.sum())
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    scratch = fe.bwd_scratch_floats(B, T, d, ffn, H)
+    scratch = fe.bwd_scratch_floats(B, T, d, ffn, H, plan)
     scratch_mb = {k: 4 * n / 1e6 for k, n in scratch.items()}
-    print(f"[fused_bwd] {label} {dtype} dropout {rate}: kernels {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, TransformerEncoderLayer backward {library_ms:.4f} "
-          f"ms, bound {bound_ms:.4f} ms ({bound_by}); intermediates in device "
+    print(f"[fused_bwd] {label} {dtype} dropout {rate}: kernels {ms:.4f} ms, "
+          f"{design_line(ms, prev_ms, bound_ms)}, plain {plain_ms:.4f} ms, "
+          f"TransformerEncoderLayer backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); device time {device_line(times)}; intermediates in device "
           f"memory {sum(scratch_mb.values()):.1f} MB", flush=True)
-    return dict(label=label, dtype=dtype, rate=rate, max_abs_err=err,
-                fwd_max_abs_err=fwd_err, errs=errs, relu_flips=n_flips,
-                ms=ms, plain_ms=plain_ms,
+    return dict(label=label, dtype=dtype, rate=rate, route=plan.route,
+                attn_route=plan.attn_route, max_abs_err=err, fwd_sample_err=fwd_err,
+                errs=errs, relu_flips=n_flips, **times, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, flops=flops, scratch_mb=scratch_mb)
+
+
+def fused_edge_phase(label, d, ffn, H, dtype, rate, T=100, device="cuda", seed=0):
+    """fused_encoder_layer at an edge shape: T = 100 ends 36 rows into a
+    64-row tile, lengths 0, 1, 45 (inside a tile) and T; forward and
+    backward against the plain version (out, attn and dx by sample_err,
+    the weight gradients by rel_err; the plain backward takes the kernel's
+    relu branches), in bf16 also against the previous design (the scalar
+    kernels), bit-equal on a repeat, exact zeros for the length-0 sample."""
+    import torch
+    from raindrop_tpu_torch.ops import fused_encoder as fe
+    from raindrop_tpu_torch.ops.flash_attention import operand_dtype
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = random_layer(gen, d, ffn, device)
+    B = 4
+    x, g = (torch.randn((B, T, d), generator=gen, device=device) for _ in range(2))
+    lengths = torch.tensor([0, 1, 45, T], dtype=torch.int32, device=device)
+    cd = None if dtype == "float32" else dtype
+    od = operand_dtype(cd)
+    plan = fe.fused_plan(d, ffn, H, od)
+    ws = fe._flatten(p)
+    fwd = fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, H, od)
+    fwd2 = fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, H, od)
+    plain = fe._fused_fwd_plain(p, x, lengths, H, od, SEED, rate)
+    args = (x, lengths, SEED, rate, H, od, fwd[1], fwd[2], g)
+    scratch = {}
+    dx, dws = fe._fused_bwd_cuda(ws, *args, scratch_out=scratch)
+    dx2, dws2 = fe._fused_bwd_cuda(ws, *args)
+    pdx, pdws = fe._fused_bwd_plain(p, *args,
+                                    relu_on=scratch["f"].reshape(B, T, ffn) > 0)
+    errs = {"out": sample_err(fwd[0], plain[0], lengths),
+            "attn": sample_err(fwd[1], plain[1], lengths),
+            "dx": sample_err(dx, pdx, lengths),
+            "weights": max(rel_err(a, b) for a, b in zip(dws, pdws))}
+    limits = {"out": SAMPLE_TOL[dtype], "attn": SAMPLE_TOL[dtype],
+              "dx": SAMPLE_TOL[dtype], "weights": TOL[dtype]}
+    if dtype == "bfloat16":
+        prev = fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, H, od, "scalar")
+        pdx_s, pdws_s = fe._fused_bwd_cuda(ws, *args, impl="scalar")
+        errs["out_vs_prev"] = sample_err(fwd[0], prev[0], lengths)
+        errs["dx_vs_prev"] = sample_err(dx, pdx_s, lengths)
+        errs["weights_vs_prev"] = max(rel_err(a, b) for a, b in zip(dws, pdws_s))
+        limits.update(out_vs_prev=SAMPLE_TOL[dtype], dx_vs_prev=SAMPLE_TOL[dtype],
+                      weights_vs_prev=TOL[dtype])
+    torch.cuda.synchronize()
+    print(f"[fused_edge] {label} {dtype} dropout {rate} T={T} lengths 0, 1, 45, {T} "
+          f"({plan.route} route, attention {plan.attn_route}): {errs} (limits {limits})",
+          flush=True)
+    if any(errs[n] > limits[n] for n in errs):
+        raise AssertionError(f"fused_encoder_layer disagrees at the edge shape {label} "
+                             f"{dtype} dropout {rate}")
+    for a, a2 in zip((*fwd, dx, *dws), (*fwd2, dx2, *dws2)):
+        if not bool(torch.isfinite(a).all()) or not torch.equal(a, a2):
+            raise AssertionError(f"fused layer not finite or not bit-equal on a repeat "
+                                 f"at the edge shape {label} {dtype}")
+    if not (bool((fwd[1][0] == 0).all()) and bool((fwd[2][0] == -1e30).all())
+            and bool((scratch["dqkv"].reshape(B, T, 3 * d)[0] == 0).all())):
+        raise AssertionError(f"fused layer: the length-0 sample's attention is not zero "
+                             f"at the edge shape {label} {dtype}")
+    return dict(label=label, dtype=dtype, rate=rate, T=T, route=plan.route,
+                attn_route=plan.attn_route, **errs)
 
 
 def _head_views(gen, B, H, T, D, n, device):
@@ -1295,6 +1463,16 @@ def check_tc(what, *counts):
     for c in counts:
         if c["flash_mha_packed"] <= 0 or c["flash_mha_packed.tc"] != c["flash_mha_packed"]:
             raise AssertionError(f"{what}: flash_mha_packed launches off the "
+                                 f"tensor-core route: {c}")
+
+
+def check_fused_tc(what, *counts):
+    """Every fused_encoder_layer launch in these counts took the
+    tensor-core route (bf16 operands: PAM's and PAM-sw's widths)."""
+    for c in counts:
+        if (c["fused_encoder_layer"] <= 0
+                or c["fused_encoder_layer.tc"] != c["fused_encoder_layer"]):
+            raise AssertionError(f"{what}: fused_encoder_layer launches off the "
                                  f"tensor-core route: {c}")
 
 
@@ -2013,6 +2191,12 @@ def main(argv=None) -> int:
         fused_bwd = [fused_bwd_phase("PAM", 128, 600, 84, 136, 2, dt, rate)
                      for dt, rate in grid]
     torch.cuda.empty_cache()
+    # the fused layer at an edge shape (T and a length ending inside a
+    # 64-row tile, lengths 0 and 1) at PAM's width and its sensor-wise one
+    with phase(phase_s, "fused-layer edge shapes"):
+        fused_edges = [fused_edge_phase(label, d, 136, 2, dt, rate)
+                       for label, d in (("PAM", 84), ("PAM-sw", 340))
+                       for dt, rate in grid]
     # the sensor-wise widths (d_inp * (d_ob + d_pe), 2 heads): P12 hd 360 on
     # the scalar route in both dtypes, eICU hd 140 on the tensor cores in
     # bf16, PAM's fused layer at d=340, hd 170
@@ -2031,6 +2215,15 @@ def main(argv=None) -> int:
         if r["route"] != want:
             raise AssertionError(f"{r['label']} {r['dtype']} took the {r['route']} "
                                  f"route, expected {want}")
+    # the fused layer: bf16 row products on the tensor cores at both widths,
+    # the attention too at PAM's hd 42 (scalar at PAM-sw's 170); f32 scalar
+    for r in (*fused, *fused_bwd, *sw_fused, *sw_fused_bwd, *fused_edges):
+        bf = r["dtype"] == "bfloat16"
+        want = ("tc" if bf else "scalar",
+                "tc" if bf and not r["label"].endswith("-sw") else "scalar")
+        if (r["route"], r["attn_route"]) != want:
+            raise AssertionError(f"fused layer {r['label']} {r['dtype']} took the "
+                                 f"{r['route']}/{r['attn_route']} routes, expected {want}")
     torch.cuda.empty_cache()
     with phase(phase_s, "graph kernels"):
         spmm_runs = [spmm_phase(label, 128, D, gt)
@@ -2053,6 +2246,7 @@ def main(argv=None) -> int:
         pam_tf, pam_tb, pam_train = train_phase("PAM", [fused_encoder_layer], wrappers)
         p12_tf, p12_tb, p12_train = train_phase("P12", [flash_mha_packed], wrappers)
     check_tc("P12 serving and training", p12_launches, p12_tf, p12_tb)
+    check_fused_tc("PAM serving and training", pam_launches, pam_tf, pam_tb)
     torch.cuda.empty_cache()
 
     # sensor_wise_mask on every preset: P19 stays on the dense rung (T=60),
@@ -2075,6 +2269,7 @@ def main(argv=None) -> int:
     check_scalar("P12-sw serving and training", sw_serve["P12"][0],
                  *sw_train["P12"][:2])
     check_tc("eICU-sw serving and training", sw_serve["eICU"][0], *sw_train["eICU"][:2])
+    check_fused_tc("PAM-sw serving and training", sw_serve["PAM"][0], *sw_train["PAM"][:2])
     torch.cuda.empty_cache()
 
     # the sparse-graph path: P12 with prop_backend='pallas', held against
@@ -2165,7 +2360,10 @@ def main(argv=None) -> int:
         main_run = next(r for r in runs if r["label"] == label
                         and r["dtype"] == "bfloat16" and r.get("rate") == rate)
         extra = {k: main_run[k] for k in ("prev_ms", "device_ms", "prev_device_ms",
-                                          "library_device_ms") if k in main_run}
+                                          "library_device_ms", "attn_route")
+                 if k in main_run}
+        if "route" in main_run:     # the launch plan's; "route" below is the language's
+            extra["plan_route"] = main_run["route"]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in runs),
@@ -2181,13 +2379,15 @@ def main(argv=None) -> int:
         record("flash_mha_packed_bwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
                "raindrop_tpu/ops/flash_attention.py:610",
                p12_tb["flash_mha_packed"], flash_bwd, "P12", 0.2),
-        record("fused_encoder_layer_fwd", "raindrop_tpu_torch/csrc/fused_encoder.cu",
-               "raindrop_tpu/ops/fused_encoder.py:131",
-               pam_launches["fused_encoder_layer"], fused, "PAM"),
-        record("fused_encoder_layer_bwd",
-               "raindrop_tpu_torch/csrc/fused_encoder_bwd.cu",
-               "raindrop_tpu/ops/fused_encoder.py:183",
-               pam_tb["fused_encoder_layer"], fused_bwd, "PAM", 0.2),
+        {**record("fused_encoder_layer_fwd", "raindrop_tpu_torch/csrc/fused_encoder.cu",
+                  "raindrop_tpu/ops/fused_encoder.py:131",
+                  pam_launches["fused_encoder_layer.tc"], fused, "PAM"),
+         **FUSED_FWD_KERNELS},
+        {**record("fused_encoder_layer_bwd",
+                  "raindrop_tpu_torch/csrc/fused_encoder_bwd.cu",
+                  "raindrop_tpu/ops/fused_encoder.py:183",
+                  pam_tb["fused_encoder_layer.tc"], fused_bwd, "PAM", 0.2),
+         **FUSED_BWD_KERNELS},
     ]
 
     split_src = "raindrop_tpu_torch/csrc/flash_split.cu"
@@ -2245,13 +2445,16 @@ def main(argv=None) -> int:
         record("flash_mha_packed_bwd_eICU_sw", sw_src,
                "raindrop_tpu/ops/flash_attention.py:610",
                sw_train["eICU"][1]["flash_mha_packed"], sw_flash_bwd, "eICU-sw", 0.2),
-        record("fused_encoder_layer_fwd_PAM_sw", "raindrop_tpu_torch/csrc/fused_encoder.cu",
-               "raindrop_tpu/ops/fused_encoder.py:131",
-               sw_serve["PAM"][0]["fused_encoder_layer"], sw_fused, "PAM-sw"),
-        record("fused_encoder_layer_bwd_PAM_sw",
-               "raindrop_tpu_torch/csrc/fused_encoder_bwd.cu",
-               "raindrop_tpu/ops/fused_encoder.py:183",
-               sw_train["PAM"][1]["fused_encoder_layer"], sw_fused_bwd, "PAM-sw", 0.2),
+        {**record("fused_encoder_layer_fwd_PAM_sw",
+                  "raindrop_tpu_torch/csrc/fused_encoder.cu",
+                  "raindrop_tpu/ops/fused_encoder.py:131",
+                  sw_serve["PAM"][0]["fused_encoder_layer.tc"], sw_fused, "PAM-sw"),
+         **FUSED_FWD_KERNELS},
+        {**record("fused_encoder_layer_bwd_PAM_sw",
+                  "raindrop_tpu_torch/csrc/fused_encoder_bwd.cu",
+                  "raindrop_tpu/ops/fused_encoder.py:183",
+                  sw_train["PAM"][1]["fused_encoder_layer.tc"], sw_fused_bwd, "PAM-sw", 0.2),
+         **FUSED_BWD_KERNELS},
     ]
     # flash_mha past hd 128 at PAM-sw's head dim (170) on its 2048-step
     # window: launches from that configuration's server (forward) and its
@@ -2267,7 +2470,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{rec['name']} was never launched on its path")
     detail = {"card": card, "build_s": build_s, "sass": sass, "flash": flash,
               "fused": fused, "flash_bwd": flash_bwd, "flash_edge": edges,
-              "fused_bwd": fused_bwd,
+              "fused_bwd": fused_bwd, "fused_edge": fused_edges,
               "sensor_wise": {
                   "flash": sw_flash, "flash_bwd": sw_flash_bwd, "fused": sw_fused,
                   "fused_bwd": sw_fused_bwd,

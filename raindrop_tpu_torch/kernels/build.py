@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Each library `<name>` is compiled by `nvcc` at first use from
-`raindrop_tpu_torch/csrc/<name>.cu` (and, for flash_packed, the units in
-PARTS, each compiled by its own nvcc process and linked after) into
+`raindrop_tpu_torch/csrc/<name>.cu` (and, for flash_packed and the fused
+layer's two libraries, the units in PARTS, each compiled by its own nvcc
+process and linked after) into
 `raindrop_tpu_torch/kernels/_build/<name>-<hash>.so` (the hash covers the
 sources and every header in csrc/, so an edited source rebuilds) and
 loaded with ctypes. The sources have a plain C interface and include no
@@ -32,9 +33,13 @@ SOURCES = ("flash_packed", "flash_split", "fused_encoder", "fused_encoder_bwd",
            "sparse_graph")
 # libraries built from several units: flash_packed's 48 tensor-core
 # kernels take nvcc far longer in one process than as three units in
-# parallel (chip_ab.py, task one_unit)
+# parallel (chip_ab.py, task one_unit); the fused layer's tensor-core
+# attention kernels (18 a family) are units of their own the same way
 PARTS = {"flash_packed": ("flash_packed", "flash_packed_fwd_tc",
-                          "flash_packed_dq_tc", "flash_packed_dkv_tc")}
+                          "flash_packed_dq_tc", "flash_packed_dkv_tc"),
+         "fused_encoder": ("fused_encoder", "fused_encoder_attn_tc"),
+         "fused_encoder_bwd": ("fused_encoder_bwd", "fused_encoder_dq_tc",
+                               "fused_encoder_dkv_tc")}
 
 _lock = threading.Lock()          # guards builds and _libs
 _count_lock = threading.Lock()    # guards the wrappers' launch counts

@@ -126,31 +126,36 @@ def raindrop_param_mask(cfg: RaindropConfig):
     """True for every parameter the forward uses (the tree of
     raindrop_init). The dead ones (the unused `encoder`, and all of a
     propagation layer but lin_value when use_beta is off) get no gradient,
-    so the optimizer must never touch them."""
+    so the optimizer must never touch them. Built from the config alone: no
+    tensor is made (a tree of shapes on the meta device would be the first
+    meta arithmetic of a process, which on some torch builds keeps the
+    frames then on the stack, and so the first Trainer, alive)."""
+    def linear(value):
+        return {"w": value, "b": value}
+
     def prop_mask():
-        dead = {"w": False, "b": False}
-        beta = {"w": cfg.use_beta, "b": cfg.use_beta}
-        return {"lin_key": dict(dead), "lin_query": dict(dead),
-                "lin_value": {"w": True, "b": True}, "lin_skip": dict(dead),
+        beta = linear(cfg.use_beta)
+        return {"lin_key": linear(False), "lin_query": linear(False),
+                "lin_value": linear(True), "lin_skip": linear(False),
                 "weight": False, "bias": False, "nodewise_weights": False,
                 "increase_dim": beta, "map_weights": cfg.use_beta}
 
-    def like(tree, value):
-        if isinstance(tree, dict):
-            return {k: like(v, value) for k, v in tree.items()}
-        return value
+    def layer_mask():   # nn/transformer._layer_init's tree
+        return {"in_proj_w": True, "in_proj_b": True, "out_proj": linear(True),
+                "lin1": linear(True), "lin2": linear(True),
+                "ln1": {"scale": True, "bias": True},
+                "ln2": {"scale": True, "bias": True}}
 
-    params = raindrop_init(None, cfg, device="meta")
     mask = {
         "R_u": True,
-        "encoder": like(params["encoder"], False),
+        "encoder": linear(False),
         "ob_propagation": prop_mask(),
         "ob_propagation_layer2": prop_mask(),
-        "transformer_encoder": like(params["transformer_encoder"], True),
-        "mlp_static": like(params["mlp_static"], True),
+        "transformer_encoder": {f"layer{i}": layer_mask() for i in range(cfg.nlayers)},
+        "mlp_static": {f"lin{i}": linear(True) for i in range(2)},
     }
     if cfg.static:
-        mask["emb"] = like(params["emb"], True)
+        mask["emb"] = linear(True)
     return mask
 
 

@@ -16,10 +16,14 @@ TPU; its two-heads-per-draw hardware generator has no counterpart here.
 `fused_encoder_layer` is a `torch.autograd.Function` over x and the 12
 weights. On CUDA tensors forward and backward launch the hand-written
 kernels in `csrc/fused_encoder.cu` and `csrc/fused_encoder_bwd.cu` (or
-raise: `fused_smem` reads each launch's shared memory from them, which
-bounds the widths they take, d = 340 with ffn = 136 and 2 heads at PAM's
-sensor-wise width among them); on CPU tensors they run `_fused_fwd_plain` and
-`_fused_bwd_plain`, the same functions in plain PyTorch.
+raise) by the route of their launch plan (`fused_plan`): with bf16
+operands every row product on the tensor cores (`csrc/rows_tc.cuh`) and
+the attention too up to a padded head dim of 144, with f32 operands (and
+where a tensor-core tile would not fit) the scalar kernels; the widths
+they take are those whose kernels fit a block's shared memory, d = 340
+with ffn = 136 and 2 heads at PAM's sensor-wise width among them. On CPU
+tensors they run `_fused_fwd_plain` and `_fused_bwd_plain`, the same
+functions in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -27,13 +31,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
 from raindrop_tpu_torch.kernels import build
 from raindrop_tpu_torch.ops.flash_attention import (
-    LOG2E, MAX_FUSED_T, _attention_bwd_plain, _check_rate, _dropout_keep_hash,
-    _packed_fwd_plain, _seed_int, operand_dtype, pad8)
+    LOG2E, MAX_FUSED_T, MAX_HEAD_DIM, NARROW_MAX_HD, TC_MAX_HD_PAD, _align,
+    _attention_bwd_plain, _check_rate, _dropout_keep_hash, _packed_fwd_plain,
+    _seed_int, operand_dtype, pad8)
 
 _EPS = 1e-5
 SITE_ATTN_OUT, SITE_FFN_MID, SITE_FFN_OUT = 101, 102, 103
@@ -256,9 +262,199 @@ def fused_encoder_layer(p, x, lengths, seed=None, dropout_rate=0.0,
                              nhead, *_flatten(p))
 
 
-# forward calls that launched the kernels; `bwd_launches` counts backwards
+# forward calls that launched the kernels; `bwd_launches` counts backwards;
+# the tc_ counts those of the two on the tensor-core route
 fused_encoder_layer.launches = 0
 fused_encoder_layer.bwd_launches = 0
+fused_encoder_layer.tc_launches = 0
+fused_encoder_layer.tc_bwd_launches = 0
+
+
+SMEM = 232448             # shared bytes a block may use on sm_90
+# The fused layer's launches, in the order of the plan
+# (csrc/fused_plan.cuh): the qkv projection, the attention forward, the
+# forward's row-local tail, the backward's row kernel, dq, dk/dv, dx and
+# the weight gradients.
+LAUNCHES = ("qkv", "attn_fwd", "tail", "bwd_rows", "attn_dq", "attn_dkv",
+            "dx", "wgrad")
+# rows of [B*T] one CTA of the weight-gradient kernel sums; the split is a
+# function of the shape alone, so the result is the same bits every run
+WGRAD_CHUNK = 512
+# rows per CTA of the scalar qkv projection, row-local backward and dx
+# kernels (BR in csrc/fused_rows.cuh); 64 on the tensor cores
+BWD_ROWS = 32
+_TC_ROWS = 64                  # rows of a tensor-core tile (wgmma M)
+_TC_THREADS = 256              # two warpgroups a CTA (rows_tc.cuh NTH)
+_RING = 2 * 2 * 64 * 64 * 2    # two steps of two 64 x 64 bf16 weight panels
+_STAGE = 64 * 132 * 4          # a step's two 64-column chunks, f32, staged
+_WGRAD = 2 * 2 * 64 * 64 * 2   # two stages of a G^T and an A^T tile (one warpgroup)
+
+
+@dataclass(frozen=True)
+class FusedLaunch:
+    """One launch of the plan: its route ("tc" or "scalar"), the rows of a
+    CTA's tile (the output tile's rows for the weight gradients), the copy
+    width in bytes (16 for the tensor cores' weight panels, the attention
+    tiles' width on its tensor-core route, the operand size on the scalar
+    one), the threads of a CTA and its shared bytes."""
+
+    route: str
+    rows: int
+    copy_bytes: int
+    threads: int
+    smem: int
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """What surrounds the fused layer's launches at one width, computed on
+    the host and checked field for field by both C entry points
+    (csrc/fused_plan.cuh `Plan`). `route` is the row products' (qkv, tail,
+    backward rows, dx, weight gradients), `attn_route` the attention's;
+    `launches` follow LAUNCHES."""
+
+    route: str
+    attn_route: str
+    launches: tuple
+
+    def __getitem__(self, name) -> FusedLaunch:
+        return self.launches[LAUNCHES.index(name)]
+
+    @functools.cached_property
+    def as_ints(self):
+        """The plan as the C entry points take it: 5 ints a launch."""
+        vals = [v for l in self.launches
+                for v in (int(l.route == "tc"), l.rows, l.copy_bytes, l.threads, l.smem)]
+        return (ctypes.c_int * len(vals))(*vals)
+
+
+def _pad(x, m):
+    return -(-x // m) * m
+
+
+def _tile(k):          # a [64, k] bf16 operand tile, k padded to 64
+    return _TC_ROWS * _pad(k, 64) * 2
+
+
+def _f32_rows(n):      # a [64, n] f32 row buffer
+    return _pad(_TC_ROWS * n * 4, 128)
+
+
+def _scalar_attn(hd, es):
+    """The scalar attention's three launches (Narrow geometry up to hd
+    NARROW_MAX_HD, Wide beyond): attention.cuh attn_smem_floats and
+    attention_bwd.cuh attn_dq/dkv_smem_floats."""
+    r = k = 64 if hd <= NARROW_MAX_HD else 32
+    return (FusedLaunch("scalar", r, es, 256, ((r + 2 * k) * (hd + 1) + r * (k + 1)) * 4),
+            FusedLaunch("scalar", r, es, 256, (2 * (r + k) * (hd + 1) + r * (k + 1)) * 4),
+            FusedLaunch("scalar", r, es, 256,
+                        (2 * (r + k) * (hd + 1) + 2 * r * (k + 1) + 2 * k) * 4))
+
+
+def _launches(d, ffn, nhead, es, tc, copy):
+    """The eight launches of a route, or None where one would not fit."""
+    hd = d // nhead
+    if tc:
+        th = _TC_THREADS
+        rows = (FusedLaunch("tc", 64, 16, th, _tile(d) + _RING + _STAGE),
+                FusedLaunch("tc", 64, 16, th,
+                            _f32_rows(d) + _tile(d) + _tile(ffn) + _RING),
+                FusedLaunch("tc", 64, 16, th, _f32_rows(d) + _tile(d) + _tile(ffn)
+                            + _f32_rows(ffn) + _RING + 4 * 64 * 4),
+                FusedLaunch("tc", 64, 16, th, _tile(3 * d) + _RING + _STAGE),
+                FusedLaunch("tc", 64, 16, 128, _WGRAD))
+    else:
+        rows = (FusedLaunch("scalar", BWD_ROWS, es, 256, BWD_ROWS * (d + 1) * 4),
+                FusedLaunch("scalar", 64, es, 256, (2 * 64 * (d + 1) + 64 * (ffn + 1)) * 4),
+                FusedLaunch("scalar", BWD_ROWS, es, 256, (BWD_ROWS * max(d + 1, ffn + 1)
+                                                           + 4 * BWD_ROWS * (d + 1)
+                                                           + 2 * BWD_ROWS) * 4),
+                FusedLaunch("scalar", BWD_ROWS, es, 256, BWD_ROWS * (3 * d + 1) * 4),
+                FusedLaunch("scalar", 64, es, 256, 2 * 16 * 64 * 4))
+    hdk = _pad(hd, 16)
+    if tc and hdk <= TC_MAX_HD_PAD:
+        tile = 64 * hdk * 2
+        attn = (FusedLaunch("tc", 64, copy, 128, 5 * tile),
+                FusedLaunch("tc", 64, copy, 128, 6 * tile),
+                FusedLaunch("tc", 64, copy, 128, 6 * tile + 2 * 2 * 64 * 4))
+    else:
+        attn = _scalar_attn(hd, es)
+    qkv, tail, bwd_rows, dx, wgrad = rows
+    launches = (qkv, attn[0], tail, bwd_rows, attn[1], attn[2], dx, wgrad)
+    if max(l.smem for l in launches) > SMEM:
+        return None
+    return launches
+
+
+@functools.lru_cache(maxsize=256)
+def fused_plan(d, ffn, nhead, od, impl="auto", align=16) -> FusedPlan:
+    """The launch plan of the fused layer's kernels at one width for
+    operands of dtype `od` on the card. bf16 takes the tensor-core route
+    wherever its tiles fit a block and the head dim is at most
+    NARROW_MAX_HD (PAM's d = 84 and its sensor-wise 340 among them; the
+    attention there up to a padded head dim of TC_MAX_HD_PAD, the scalar
+    one's Narrow geometry on bf16 operands beyond), f32 and other bf16
+    widths the scalar route of PRs 1-7; impl="scalar" asks for the
+    scalar kernels in bf16 too (the previous design, for measurement).
+    `align` is the alignment in bytes of the qkv and d_attn buffers: with
+    the head's offset in a row (2 hd bytes) and the row strides (6 d and 2
+    d) it bounds the tensor-core attention's copy width, 16, 8, 4 or 2
+    bytes (PAM, hd 42: 4). Raises ValueError for a width no route takes,
+    as the kernels' shared memory decides (d = 680 at 2 heads)."""
+    if impl not in ("auto", "scalar"):
+        raise ValueError(f"impl must be 'auto' or 'scalar', got {impl!r}")
+    if nhead <= 0 or d % nhead or ffn <= 0:
+        raise ValueError(f"d={d} not divisible by nhead={nhead}, or ffn={ffn} < 1")
+    hd = d // nhead
+    es = od.itemsize
+    if hd <= MAX_HEAD_DIM:
+        if od == torch.bfloat16 and impl == "auto" and hd <= NARROW_MAX_HD:
+            copy = 16
+            while copy > 2 and ((2 * hd) % copy or (2 * d) % copy or align % copy):
+                copy //= 2
+            launches = _launches(d, ffn, nhead, es, True, copy)
+            if launches is not None:
+                return FusedPlan("tc", launches[1].route, launches)
+        launches = _launches(d, ffn, nhead, es, False, es)
+        if launches is not None:
+            return FusedPlan("scalar", "scalar", launches)
+    raise ValueError(f"the fused layer's kernels do not take d={d}, ffn={ffn}, "
+                     f"{nhead} heads (hd {hd}; at most {MAX_HEAD_DIM}, and every "
+                     f"launch within {SMEM} shared bytes)")
+
+
+def c_plan(d, ffn, nhead, od, route, copy_bytes):
+    """(the C library's plan ints for a route, whether it takes the width):
+    rd_fused_plan in csrc/fused_encoder.cu, which both entry points check
+    FusedPlan.as_ints against (it builds the kernels: on the card only)."""
+    out = (ctypes.c_int * (5 * len(LAUNCHES)))()
+    err = _lib().rd_fused_plan(d, ffn, nhead, int(od == torch.bfloat16),
+                               int(route == "tc"), copy_bytes, out)
+    return tuple(out), err == 0
+
+
+def fused_smem(d, ffn, nhead, od=torch.float32, route="scalar", copy_bytes=None):
+    """({launch: shared bytes}, whether the route takes the width), as the C
+    library computes its plan; copy_bytes: the tensor-core attention's copy
+    width (the operand size by default)."""
+    ints, ok = c_plan(d, ffn, nhead, od, route,
+                      od.itemsize if copy_bytes is None else copy_bytes)
+    return dict(zip(LAUNCHES, ints[4::5])), ok
+
+
+def _packed_elems(d, ffn, n):
+    """bf16 elements of the first n packed weights (csrc/fused_plan.cuh
+    packed_layout): the forward's four, the backward's eight."""
+    shapes = ((3 * d, d), (d, d), (ffn, d), (d, ffn), (ffn, d), (d, ffn), (d, d),
+              (d, 3 * d))
+    return sum(_pad(N, 128) * _pad(K, 64) for N, K in shapes[:n])
+
+
+def _count(plan, attr):
+    """One launch on `attr` and, on the tensor-core route, on tc_<attr>."""
+    build.count_launch(fused_encoder_layer, attr)
+    if plan.route == "tc":
+        build.count_launch(fused_encoder_layer, f"tc_{attr}")
 
 
 def _prepare(ws, x, lengths):
@@ -282,12 +478,19 @@ def _prepare(ws, x, lengths):
             lengths.to(torch.int32).contiguous(), ffn)
 
 
-def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od):
+def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od, impl="auto"):
+    """The forward kernels of the plan's route. `impl="scalar"` reaches the
+    scalar kernels with bf16 operands (the previous design, measured beside
+    the tensor-core one); the model never passes it."""
     B, T, d = x.shape
     dev = x.device
     ws, xf, lens, ffn = _prepare(ws, x, lengths)
-    _check_fits(d, ffn, nhead)
-    qkv = torch.empty((B, T, 3 * d), dtype=torch.float32, device=dev)
+    tc = fused_plan(d, ffn, nhead, od, impl).route == "tc"   # raises for a width no route takes
+    qkv = torch.empty((B, T, 3 * d), dtype=torch.bfloat16 if tc else torch.float32,
+                      device=dev)
+    plan = fused_plan(d, ffn, nhead, od, impl, _align(qkv.data_ptr()))
+    wpack = (torch.empty((_packed_elems(d, ffn, 4),), dtype=torch.bfloat16, device=dev)
+             if tc else None)
     out = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     attn = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     lse = torch.empty((B, nhead, T), dtype=torch.float32, device=dev)
@@ -295,67 +498,60 @@ def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od):
     err = _lib().rd_fused_layer_fwd(
         xf.data_ptr(), *(w.data_ptr() for w in ws), lens.data_ptr(),
         qkv.data_ptr(), out.data_ptr(), attn.data_ptr(), lse.data_ptr(),
+        0 if wpack is None else wpack.data_ptr(),
         B, T, d, ffn, nhead, (1.0 / math.sqrt(d // nhead)) * LOG2E,
-        int(od == torch.bfloat16), seed, rate, stream)
+        int(od == torch.bfloat16), seed, rate, plan.as_ints, stream)
     build.check(err, "fused_encoder_layer forward")
-    build.count_launch(fused_encoder_layer)
+    _count(plan, "launches")
     return out, attn, lse
 
 
-# rows of [B*T] one CTA of the weight-gradient kernel sums; the split is a
-# function of the shape alone, so the result is the same bits every run
-WGRAD_CHUNK = 512
-# rows per CTA of the qkv projection and the row-local backward kernels (BR
-# in csrc/fused_rows.cuh)
-BWD_ROWS = 32
+# what the backward keeps in device memory between its launches, in the
+# order the C entry point takes it; on the tensor-core route the first
+# seven are bf16 where a product alone reads them (qkv, x1, f, df2, dfpre,
+# dao, d_attn) and h1 and the packed weights join
+_SCRATCH = ("qkv", "x1", "f", "df2", "dfpre", "dao", "d_attn", "dh1", "dqkv",
+            "delta", "row_partials", "wgrad_partials", "h1", "wpack")
 
 
-def fused_smem(d, ffn, nhead):
-    """(shared bytes of each launch of the fused layer's kernels at one
-    width, whether the kernels take it), as csrc/fused_encoder.cu and
-    csrc/fused_encoder_bwd.cu compute them (it builds the kernels: on the
-    card only): the qkv projection, the attention (the scalar routines in
-    the geometry of the head dim), the forward's row-local tail, the
-    backward's row-local kernel, dq, dk/dv and dx. Every byte 0 where no
-    geometry takes the head dim."""
-    fwd, bwd = (ctypes.c_int * 3)(), (ctypes.c_int * 5)()
-    err = (_lib().rd_fused_layer_fwd_smem(d, ffn, nhead, fwd)
-           | _lib_bwd().rd_fused_layer_bwd_smem(d, ffn, nhead, bwd))
-    names = ("qkv", "attn_fwd", "tail", "bwd_rows", "attn_dq", "attn_dkv", "dx")
-    return dict(zip(names, (*fwd, *bwd[1:]))), err == 0
-
-
-@functools.lru_cache(maxsize=64)
-def _check_fits(d, ffn, nhead):
-    """Raise for a width the kernels do not take (the C entry points refuse
-    it too)."""
-    smem, fits = fused_smem(d, ffn, nhead)
-    if not fits:
-        raise ValueError(f"the fused layer's kernels do not take d={d}, ffn={ffn}, "
-                         f"{nhead} heads: shared bytes {smem}")
-
-
-def bwd_scratch_floats(B, T, d, ffn, nhead):
-    """Per-buffer float counts of what the backward keeps in device memory
-    between its launches (also what PERF.md lists)."""
+def bwd_scratch(B, T, d, ffn, nhead, plan=None):
+    """{buffer: (elements, dtype)} of what the backward keeps in device
+    memory between its launches on the plan's route (the scalar route's
+    f32 buffers when plan is None)."""
     M = B * T
-    blocks = B * (-(-T // BWD_ROWS))
+    tc = plan is not None and plan.route == "tc"
+    rows = _TC_ROWS if tc else BWD_ROWS
+    blocks = B * (-(-T // rows))
     chunks = -(-M // WGRAD_CHUNK)
-    return {
-        "qkv": M * 3 * d, "x1": M * d, "f": M * ffn, "df2": M * d,
-        "dfpre": M * ffn, "dao": M * d, "d_attn": M * d, "dh1": M * d,
-        "dqkv": M * 3 * d, "delta": B * nhead * T,
-        "row_partials": blocks * (9 * d + ffn),
-        "wgrad_partials": chunks * max(3 * d * d, d * ffn),
+    op = torch.bfloat16 if tc else torch.float32
+    f32 = torch.float32
+    out = {
+        "qkv": (M * 3 * d, op), "x1": (M * d, op), "f": (M * ffn, op),
+        "df2": (M * d, op), "dfpre": (M * ffn, op), "dao": (M * d, op),
+        "d_attn": (M * d, op), "dh1": (M * d, f32), "dqkv": (M * 3 * d, f32),
+        "delta": (B * nhead * T, f32), "row_partials": (blocks * (9 * d + ffn), f32),
+        "wgrad_partials": (chunks * max(3 * d * d, d * ffn), f32),
     }
+    if tc:
+        out["h1"] = (M * d, f32)
+        out["wpack"] = (_packed_elems(d, ffn, 8), torch.bfloat16)
+    return out
+
+
+def bwd_scratch_floats(B, T, d, ffn, nhead, plan=None):
+    """Per-buffer sizes of `bwd_scratch` in 4-byte floats (what PERF.md
+    lists)."""
+    return {k: -(-n * dt.itemsize // 4)
+            for k, (n, dt) in bwd_scratch(B, T, d, ffn, nhead, plan).items()}
 
 
 def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
-                    scratch_out=None):
-    """dx and the 12 weight gradients through the backward kernels; every
-    intermediate buffer is allocated here and listed by
-    `bwd_scratch_floats`. A dict passed as `scratch_out` receives those
-    buffers (flat f32), for a check that wants to look at them."""
+                    scratch_out=None, impl="auto"):
+    """dx and the 12 weight gradients through the backward kernels of the
+    plan's route; every intermediate buffer is allocated here and listed by
+    `bwd_scratch`. A dict passed as `scratch_out` receives those buffers
+    (flat, in their dtypes), for a check that wants to look at them.
+    `impl` as in `_fused_fwd_cuda`."""
     B, T, d = x.shape
     dev = x.device
     if g.shape != x.shape:
@@ -365,12 +561,13 @@ def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
     ws, xf, lens, ffn = _prepare(ws, x, lengths)
-    _check_fits(d, ffn, nhead)
+    route = fused_plan(d, ffn, nhead, od, impl)
     gf = g.detach().to(torch.float32).contiguous()
     attn, lse = attn.contiguous(), lse.contiguous()
-    sizes = bwd_scratch_floats(B, T, d, ffn, nhead)
-    scratch = {k: torch.empty((n,), dtype=torch.float32, device=dev)
-               for k, n in sizes.items()}
+    sizes = bwd_scratch(B, T, d, ffn, nhead, route)
+    scratch = {k: torch.empty((n,), dtype=dt, device=dev) for k, (n, dt) in sizes.items()}
+    plan = fused_plan(d, ffn, nhead, od, impl,
+                      _align(scratch["qkv"].data_ptr(), scratch["d_attn"].data_ptr()))
     dx = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     dw_in, dwo, dw1, dw2 = (torch.empty(ws[i].shape, dtype=torch.float32, device=dev)
                             for i in (0, 2, 6, 8))
@@ -378,18 +575,16 @@ def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
     # [dg2, dbe2, dbf2, dbf1 (ffn), dg1, dbe1, dbo, db_in (3d)]
     vec = torch.empty((9 * d + ffn,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    order = ("qkv", "x1", "f", "df2", "dfpre", "dao", "d_attn", "dh1", "dqkv",
-             "delta", "row_partials", "wgrad_partials")
     err = _lib_bwd().rd_fused_layer_bwd(
         xf.data_ptr(), *(w.data_ptr() for w in ws), lens.data_ptr(),
         attn.data_ptr(), lse.data_ptr(), gf.data_ptr(),
-        *(scratch[k].data_ptr() for k in order), dx.data_ptr(),
-        dw_in.data_ptr(), dwo.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-        vec.data_ptr(), B, T, d, ffn, nhead, WGRAD_CHUNK,
+        *(scratch[k].data_ptr() if k in scratch else 0 for k in _SCRATCH),
+        dx.data_ptr(), dw_in.data_ptr(), dwo.data_ptr(), dw1.data_ptr(),
+        dw2.data_ptr(), vec.data_ptr(), B, T, d, ffn, nhead, WGRAD_CHUNK,
         1.0 / math.sqrt(d // nhead), int(od == torch.bfloat16), seed, rate,
-        stream)
+        plan.as_ints, stream)
     build.check(err, "fused_encoder_layer backward")
-    build.count_launch(fused_encoder_layer, "bwd_launches")
+    _count(plan, "bwd_launches")
     if scratch_out is not None:
         scratch_out.update(scratch)
     dg2, dbe2, dbf2, dbf1, dg1, dbe1, dbo, db_in = vec.split(
@@ -399,18 +594,19 @@ def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
 
 
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-         ctypes.c_void_p]
-_SMEM_ARGS = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
 
 
 def _lib():
     lib = build.load("fused_encoder")
     fn = lib.rd_fused_layer_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + _TAIL
+        # x, 12 weights, lengths, qkv, out, attn, lse, packed weights; B, T,
+        # d, ffn, nhead
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + _TAIL
         fn.restype = ctypes.c_int
-        lib.rd_fused_layer_fwd_smem.argtypes = _SMEM_ARGS
-        lib.rd_fused_layer_fwd_smem.restype = ctypes.c_int
+        lib.rd_fused_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        lib.rd_fused_plan.restype = ctypes.c_int
     return lib
 
 
@@ -418,10 +614,8 @@ def _lib_bwd():
     lib = build.load("fused_encoder_bwd")
     fn = lib.rd_fused_layer_bwd
     if fn.argtypes is None:
-        # x, 12 weights, lengths, attn, lse, g; 12 scratch; dx, 4 weight
+        # x, 12 weights, lengths, attn, lse, g; 14 scratch; dx, 4 weight
         # gradients, vec; B, T, d, ffn, nhead, chunk
-        fn.argtypes = [ctypes.c_void_p] * 35 + [ctypes.c_int] * 6 + _TAIL
+        fn.argtypes = [ctypes.c_void_p] * 37 + [ctypes.c_int] * 6 + _TAIL
         fn.restype = ctypes.c_int
-        lib.rd_fused_layer_bwd_smem.argtypes = _SMEM_ARGS
-        lib.rd_fused_layer_bwd_smem.restype = ctypes.c_int
     return lib

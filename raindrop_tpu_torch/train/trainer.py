@@ -34,6 +34,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+# torch.optim.Optimizer imports torch._dynamo lazily, at the first
+# add_param_group of a process, and on this torch that first import keeps
+# every frame then on the stack alive: the first Trainer (its __init__
+# frame holds self) would never be freed. Imported here, the frames kept are
+# the importer's.
+import torch._dynamo  # noqa: F401
 
 from raindrop_tpu_torch import bridge
 from raindrop_tpu_torch.config import RaindropConfig, TrainConfig

@@ -10,8 +10,9 @@ sample by sample relative to that sample's largest plain value
 (_sample_err): 1e-5 f32, 5e-3 bf16 (chip_smoke.SAMPLE_TOL; on these
 inputs an H100 reads at most 1.1e-6 / 2.0e-3 for gradients and 2.3e-6 /
 2.6e-3 for o: `python3 chip_ab.py --run .:sample_err`). The fused
-layer's gradients are compared relative to max(1, the plain gradient's
-max). The sparse-graph kernels are all f32: 1e-5 relative to
+layer's out, attn and dx are held sample by sample too (the same limits),
+its weight gradients, sums over every row, relative to max(1, the plain
+gradient's max). The sparse-graph kernels are all f32: 1e-5 relative to
 max(1, |plain|).
 """
 
@@ -174,24 +175,40 @@ def _random_layer(gen, d, ffn):
     return p
 
 
+# the fused layer's widths: d 16, 24 (3 heads), 84 (PAM), 152, 340 (PAM-sw:
+# the tensor cores' row products with the scalar attention at hd 170);
+# T = 100 ends 36 rows into a 64-row tile, with lengths 0, 1, 45 and 100
+FUSED_SHAPES = [(13, 16, 32, 2), (600, 84, 136, 2), (70, 24, 48, 3), (600, 340, 136, 2),
+                (33, 340, 136, 2), (100, 84, 136, 2), (100, 340, 136, 2)]
+
+
+def _fused_lengths(gen, B, T):
+    lengths = _lengths(gen, B, T)
+    if T == 100:
+        lengths[2] = 45
+    return lengths
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
-@pytest.mark.parametrize("T,d,ffn,nhead", [(13, 16, 32, 2), (600, 84, 136, 2),
-                                           (70, 24, 48, 3), (60, 152, 272, 2),
-                                           (600, 340, 136, 2), (33, 340, 136, 2)])
+@pytest.mark.parametrize("T,d,ffn,nhead", FUSED_SHAPES + [(60, 152, 272, 2)])
 def test_fused_backward_matches_plain(gen, T, d, ffn, nhead, cd, rate):
     B = 4
     p = _random_layer(gen, d, ffn)
     x, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(2))
-    lengths = _lengths(gen, B, T)
+    lengths = _fused_lengths(gen, B, T)
     od = fa.operand_dtype(cd)
     _, attn, lse = fe._fused_fwd(p, x, lengths, SEED, rate, cd, nhead)
     ws = fe._flatten(p)
     before = fe.fused_encoder_layer.bwd_launches
+    before_tc = fe.fused_encoder_layer.tc_bwd_launches
     scratch = {}
     dx, dws = fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, nhead, od, attn, lse, g,
                                  scratch_out=scratch)
     assert fe.fused_encoder_layer.bwd_launches == before + 1
+    tc = fe.fused_plan(d, ffn, nhead, od).route == "tc"
+    assert tc == (cd == "bfloat16")
+    assert fe.fused_encoder_layer.tc_bwd_launches == before_tc + tc
     dx2, dws2 = fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, nhead, od, attn, lse, g)
     # a relu pre-activation within rounding of zero may take the other
     # branch on the two sides, an O(1) change of single elements: the plain
@@ -200,8 +217,11 @@ def test_fused_backward_matches_plain(gen, T, d, ffn, nhead, cd, rate):
     pdx, pdws = fe._fused_bwd_plain(p, x, lengths, SEED, rate, nhead, od, attn, lse, g,
                                     relu_on=relu_on)
     torch.cuda.synchronize()
-    names = ["dx"] + ["/".join(path) for path in fe._WEIGHTS]
-    for name, a, a2, b in zip(names, [dx, *dws], [dx2, *dws2], [pdx, *pdws]):
+    assert torch.isfinite(dx).all() and torch.equal(dx, dx2)
+    assert _sample_err(dx, pdx, lengths) <= SAMPLE_TOL[cd]
+    assert (scratch["dqkv"].reshape(B, T, 3 * d)[0] == 0).all()
+    names = ["/".join(path) for path in fe._WEIGHTS]
+    for name, a, a2, b in zip(names, dws, dws2, pdws):
         assert a.shape == b.shape, name
         assert torch.isfinite(a).all() and torch.equal(a, a2), name
         assert _rel_err(a, b) <= TOL[cd], (name, _rel_err(a, b))
@@ -209,22 +229,78 @@ def test_fused_backward_matches_plain(gen, T, d, ffn, nhead, cd, rate):
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
-@pytest.mark.parametrize("T,d,ffn,nhead", [(13, 16, 32, 2), (600, 84, 136, 2),
-                                           (70, 24, 48, 3), (600, 340, 136, 2),
-                                           (33, 340, 136, 2)])
+@pytest.mark.parametrize("T,d,ffn,nhead", FUSED_SHAPES)
 def test_fused_kernel_matches_plain(gen, T, d, ffn, nhead, cd, rate):
     B = 4
     p = _random_layer(gen, d, ffn)
     x = torch.randn((B, T, d), generator=gen, device="cuda")
-    lengths = _lengths(gen, B, T)
+    lengths = _fused_lengths(gen, B, T)
     before = fe.fused_encoder_layer.launches
+    before_tc = fe.fused_encoder_layer.tc_launches
     got = fe._fused_fwd(p, x, lengths, SEED, rate, cd, nhead)
     assert fe.fused_encoder_layer.launches == before + 1
+    assert fe.fused_encoder_layer.tc_launches == before_tc + (cd == "bfloat16")
+    again = fe._fused_fwd(p, x, lengths, SEED, rate, cd, nhead)
     want = fe._fused_fwd_plain(p, x, lengths, nhead, fa.operand_dtype(cd), SEED,
                                rate)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert (a - b).abs().max().item() <= TOL[cd]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _sample_err(got[0], want[0], lengths) <= SAMPLE_TOL[cd]
+    assert _sample_err(got[1], want[1], lengths) <= SAMPLE_TOL[cd]
+    assert (got[2] - want[2]).abs().max().item() <= TOL[cd]
+    assert (got[1][0] == 0).all() and (got[2][0] == fa.NEG_INF).all()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("T,d,ffn,nhead", FUSED_SHAPES)
+def test_fused_tensor_core_route_matches_the_scalar_one(gen, T, d, ffn, nhead, rate):
+    """bf16: the tensor-core route against the previous design's scalar
+    kernels (impl="scalar"), forward and backward."""
+    B, od = 4, torch.bfloat16
+    p = _random_layer(gen, d, ffn)
+    x, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(2))
+    lengths = _fused_lengths(gen, B, T)
+    ws = fe._flatten(p)
+    tc = fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, nhead, od)
+    sc = fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, nhead, od, "scalar")
+    for a, b in zip(tc[:2], sc[:2]):
+        assert _sample_err(a, b, lengths) <= SAMPLE_TOL["bfloat16"]
+    scratch = {}
+    dx, dws = fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, nhead, od, *tc[1:], g,
+                                 scratch_out=scratch)
+    sdx, sdws = fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, nhead, od, *tc[1:], g,
+                                   impl="scalar")
+    torch.cuda.synchronize()
+    assert _sample_err(dx, sdx, lengths) <= SAMPLE_TOL["bfloat16"]
+    for a, b in zip(dws, sdws):
+        assert _rel_err(a, b) <= TOL["bfloat16"]
+
+
+def test_fused_autograd_in_bf16_reaches_the_tensor_core_kernels(gen):
+    B, T, d, ffn, nhead = 3, 100, 84, 136, 2
+    p = _random_layer(gen, d, ffn)
+    x = torch.randn((B, T, d), generator=gen, device="cuda", requires_grad=True)
+    lengths = torch.tensor([0, 45, T], dtype=torch.int32, device="cuda")
+    counts = [fe.fused_encoder_layer.tc_launches, fe.fused_encoder_layer.tc_bwd_launches]
+    out = fe.fused_encoder_layer(p, x, lengths, SEED, 0.2, "bfloat16", nhead)
+    out.sum().backward()
+    assert fe.fused_encoder_layer.tc_launches == counts[0] + 1
+    assert fe.fused_encoder_layer.tc_bwd_launches == counts[1] + 1
+    assert torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("impl", ["auto", "scalar"])
+@pytest.mark.parametrize("od", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,ffn,nhead", [(16, 32, 2), (24, 48, 3), (84, 136, 2),
+                                         (152, 272, 2), (340, 136, 2), (72, 136, 2),
+                                         (26, 48, 2)])
+def test_fused_plan_is_the_c_librarys(gen, d, ffn, nhead, od, impl):
+    """The wrapper's launch plan (fused_plan) is the one the C entry points
+    recompute, field for field: route, tile rows, copy width, threads and
+    shared bytes of all eight launches."""
+    plan = fe.fused_plan(d, ffn, nhead, od, impl)
+    ints, ok = fe.c_plan(d, ffn, nhead, od, plan.route, plan["attn_fwd"].copy_bytes)
+    assert ok and ints == tuple(plan.as_ints)
 
 
 def test_wrappers_refuse_bad_inputs(gen):
@@ -248,18 +324,30 @@ def test_wrappers_refuse_bad_inputs(gen):
 def test_fused_layer_fits_pam_sensor_wise_on_the_card(gen):
     """Every launch of the fused layer fits a block's 232,448 bytes at PAM's
     sensor-wise width (d = 340, ffn = 136, 2 heads), as the C library
-    computes them; the forward's attention and row-local tail in one CTA,
-    as before their split, would need 322,560. P19's sensor-wise width
-    (d = 680) does not fit: the model runs the dense rung there."""
+    computes them, on both routes. The tensor-core route's backward row
+    kernel (an f32 [64, d] buffer, the d-wide and FFN bf16 tiles padded to
+    64 columns, an f32 [64, ffn] buffer, two steps of two 8 KB weight
+    panels, four row statistics) takes 229,376; the scalar route's forward
+    attention and tail in one CTA, as before their split, would need
+    322,560. P19's
+    sensor-wise width (d = 680) fits neither: the model runs the dense rung
+    there."""
+    bf16 = torch.bfloat16
+    smem, fits = fe.fused_smem(340, 136, 2, bf16, "tc", 2)
+    assert fits and max(smem.values()) <= 232448
+    assert smem["bwd_rows"] == 87040 + 49152 + 24576 + 34816 + 32768 + 1024 == 229376
+    assert smem["tail"] == 193536 and smem["dx"] == 163840 + 33792
     smem, fits = fe.fused_smem(340, 136, 2)
     assert fits and max(smem.values()) <= 232448
     assert smem["tail"] + smem["attn_fwd"] - 4 * 64 * 137 == 322560
     assert smem["bwd_rows"] == 218496
     assert not fe.fused_smem(680, 272, 2)[1]
+    assert not fe.fused_smem(680, 272, 2, bf16, "tc", 16)[1]
     x = torch.randn((1, 8, 680), generator=gen, device="cuda")
     p = _random_layer(gen, 680, 272)
-    with pytest.raises(ValueError, match="do not take"):
-        fe._fused_fwd(p, x, torch.tensor([8], device="cuda"), None, 0.0, None, 2)
+    for cd in (None, "bfloat16"):
+        with pytest.raises(ValueError, match="do not take"):
+            fe._fused_fwd(p, x, torch.tensor([8], device="cuda"), None, 0.0, cd, 2)
 
 
 def _graph(gen, kind):

@@ -312,3 +312,73 @@ def test_a_dropped_trainer_frees_its_parameters_without_the_cyclic_collector():
             assert ref() is None
     finally:
         gc.enable()
+
+
+_FIRST_TRAINER = r"""
+import gc, sys, weakref
+import numpy as np
+import torch
+from raindrop_tpu_torch.config import TrainConfig, dataset_config
+from raindrop_tpu_torch.train.trainer import Trainer
+
+gc.disable()
+cfg = dataset_config("P19", max_len=16)
+B, T, F = 6, cfg.max_len, cfg.d_inp
+rng = np.random.default_rng(0)
+mask = (rng.uniform(size=(B, T, F)) > 0.5).astype(np.float32)
+P = np.concatenate([rng.normal(size=(B, T, F)).astype(np.float32) * mask, mask], -1)
+batch = {"P": torch.from_numpy(P),
+         "time": torch.from_numpy(np.cumsum(rng.uniform(0.1, 1.0, (B, T)), 1)
+                                  .astype(np.float32)),
+         "y": torch.from_numpy(rng.integers(0, cfg.n_classes, B).astype(np.int32)),
+         "static": torch.from_numpy(rng.normal(size=(B, cfg.d_static)).astype(np.float32))}
+tr = Trainer(cfg, TrainConfig(dataset="P19", batch_size=B), device="cpu")
+tr.train_step(batch)
+ref = weakref.ref(tr.params["R_u"])
+del tr
+print("freed" if ref() is None else "alive")
+"""
+
+
+def test_the_first_trainer_of_a_process_is_freed_without_the_cyclic_collector():
+    """In a fresh process with the cyclic collector off, the first Trainer
+    (initialised and stepped) goes with its last reference:
+    raindrop_param_mask makes no meta tensor, whose first arithmetic in a
+    process kept the frames then on the stack alive on this torch."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    out = subprocess.run([sys.executable, "-c", _FIRST_TRAINER], capture_output=True,
+                         text=True, env=env, cwd=root, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "freed", out.stdout
+
+
+@pytest.mark.parametrize("preset,overrides", [
+    ("P19", {}), ("P12", {}), ("PAM", {}), ("P12", {"use_beta": True}),
+    ("PAM", {"sensor_wise_mask": True})])
+def test_param_mask_has_the_init_tree_built_from_the_config_alone(preset, overrides):
+    """raindrop_param_mask gives, from the config alone, a boolean for every
+    leaf of raindrop_init's tree: the unused encoder and the propagation
+    layers' dead weights False, every other leaf True."""
+    from raindrop_tpu_torch.models.raindrop import raindrop_init, raindrop_param_mask
+
+    cfg = dataclasses.replace(dataset_config(preset, max_len=8), **overrides)
+    params = raindrop_init(0, cfg, device="cpu")
+    mask = raindrop_param_mask(cfg)
+    live = {"lin_value"} | ({"increase_dim", "map_weights"} if cfg.use_beta else set())
+
+    def expect(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: expect(v, path + (k,)) for k, v in tree.items()}
+        if path[0] == "encoder":
+            return False
+        if path[0].startswith("ob_propagation"):
+            return path[1] in live
+        return True
+
+    assert mask == expect(params)
+    assert list(mask) == list(params)
