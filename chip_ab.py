@@ -12,8 +12,10 @@ order with that checkout's own code:
   one_unit    compile every unit of flash_packed in a single nvcc process
               (seconds; where the library is built from several units);
   kernels     flash_mha_packed in bf16 at P12 (B=128, T=215, d=160),
-              eICU (T=300, d=72) and P12 at B=1 (the smallest served
-              bucket), 2 heads, ragged lengths: the forward
+              eICU (T=300, d=72), P12 at B=1 (the smallest served
+              bucket) and P12-sw (T=215, d=720: hd 360, the two-warpgroup
+              route past hd_pad 144; the scalar Wide kernels in a
+              checkout without it), 2 heads, ragged lengths: the forward
               (dropout 0) and the backward (dropout 0.2), checked against
               the plain version, timed by CUDA events (20 calls) and by
               torch.profiler device time, plus the host time of a call;
@@ -32,7 +34,11 @@ order with that checkout's own code:
   bits        flash_mha forward and backward at head dims 8, 42 and 128
               (each column count of the Narrow geometry), T 600 and 2048,
               f32 and bf16 operands, dropout 0.2, B=8, H=2: a SHA-256 of
-              the bytes of o, lse, dq, dk and dv; and fused_encoder_layer
+              the bytes of o, lse, dq, dk and dv; the same of
+              flash_mha_packed at P12 (T=215, d=160), eICU (T=300, d=72)
+              and eICU-sw (d=280) in bf16 (the one-warpgroup tensor-core
+              route) and at P12-sw (d=720) in f32 (the scalar route),
+              dropout 0 and 0.2, B=8, 2 heads; and fused_encoder_layer
               with f32 operands at PAM's width (d=84) and PAM-sw's (340),
               ffn=136, 2 heads, T 100 and 600, dropout 0 and 0.2, B=8: a
               SHA-256 of out, attn, lse, dx and the 12 weight gradients;
@@ -49,8 +55,9 @@ order with that checkout's own code:
               `-Xptxas -v` (all nvcc processes together): registers, stack
               frame and spill bytes of each kernel, the spilling ones
               printed, and every flash_mha kernel (split_*_kernel, each
-              geometry and column count) and every tensor-core kernel of
-              the fused layer (*_tc*, pack_weights_kernel) printed.
+              geometry and column count), every tensor-core kernel of
+              the fused layer (*_tc*, pack_weights_kernel) and every
+              two-warpgroup packed kernel (packed_*_wide) printed.
 
 Give the runs in an order that favours no checkout (A B B A). Each task
 prints `TASK name {...}` when it ends and each run `RESULT {...}`; --out
@@ -70,7 +77,8 @@ import sys
 import tempfile
 import time
 
-SHAPES = (("P12", 128, 215, 160, 2), ("eICU", 128, 300, 72, 2), ("P12-B1", 1, 215, 160, 2))
+SHAPES = (("P12", 128, 215, 160, 2), ("eICU", 128, 300, 72, 2), ("P12-B1", 1, 215, 160, 2),
+          ("P12-sw", 128, 215, 720, 2))
 
 
 def _load_smoke(root):
@@ -261,8 +269,36 @@ def task_bits(root, cs):
                 for x in (o, lse, *grads):
                     h.update(x.contiguous().cpu().numpy().tobytes())
                 out[f"D{D}_T{T}_{cd or 'float32'}"] = h.hexdigest()
+    out.update(_packed_bits(cs))
     out.update(_fused_bits(cs))
     print(f"[ab] {root}: bits {out}", flush=True)
+    return out
+
+
+def _packed_bits(cs):
+    """SHA-256 of flash_mha_packed's o, lse, dq, dk and dv on the routes
+    this comparison holds still: the one-warpgroup tensor cores (bf16 at
+    P12, eICU, eICU-sw) and the scalar kernels (f32 at P12-sw)."""
+    import hashlib
+
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for label, T, d, cd in (("P12", 215, 160, "bfloat16"), ("eICU", 300, 72, "bfloat16"),
+                            ("eICU-sw", 300, 280, "bfloat16"), ("P12-sw", 215, 720, None)):
+        for rate in (0.0, 0.2):
+            gen = torch.Generator(device="cuda").manual_seed(d + T)
+            q, k, v, g = (torch.randn((8, T, d), generator=gen, device="cuda")
+                          for _ in range(4))
+            lengths = cs.ragged_lengths(gen, 8, T, "cuda")
+            o, lse = fa._packed_fwd(q, k, v, lengths, cs.SEED, rate, cd, 2)
+            grads = fa._packed_bwd_cuda(q, k, v, lengths, cs.SEED, rate, 2,
+                                        fa.operand_dtype(cd), o, lse, g)
+            h = hashlib.sha256()
+            for x in (o, lse, *grads):
+                h.update(x.contiguous().cpu().numpy().tobytes())
+            out[f"packed_{label}_rate{rate}_{cd or 'float32'}"] = h.hexdigest()
     return out
 
 
@@ -300,6 +336,9 @@ def task_sample_err(root, cs):
     import torch
     from raindrop_tpu_torch.ops import flash_attention as fa
 
+    # the card tests import test_torch_packed_plan's mirror, as pytest
+    # would with tests/ on the path
+    sys.path.insert(0, os.path.join(root, "tests"))
     spec = importlib.util.spec_from_file_location(
         "card_tests", os.path.join(root, "tests", "test_torch_kernels_cuda.py"))
     tk = importlib.util.module_from_spec(spec)
@@ -410,6 +449,9 @@ def task_ptxas(root, cs):
              and ("_tc" in k or "pack_weights" in k)}
     for k, v in fused.items():
         print(f"[ptxas] fused tensor cores: {v} {k[:160]}", flush=True)
+    wide = {k: v for k, v in kernels.items() if v["unit"].endswith("_wide")}
+    for k, v in wide.items():
+        print(f"[ptxas] packed past hd_pad 144: {v} {k[:160]}", flush=True)
     return {"kernels": len(kernels), "spilling": len(spilling),
             "max_registers": max(v.get("registers", 0) for v in kernels.values()),
             "split_kernels": len(split),
@@ -418,6 +460,9 @@ def task_ptxas(root, cs):
             "fused_tc_kernels": len(fused),
             "fused_tc_spilling": sum(1 for v in fused.values()
                                      if v["spill_stores"] or v["spill_loads"]),
+            "packed_wide_kernels": len(wide),
+            "packed_wide_spilling": sum(1 for v in wide.values()
+                                        if v["spill_stores"] or v["spill_loads"]),
             "by_kernel": kernels}
 
 

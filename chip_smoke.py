@@ -12,15 +12,17 @@ check does not hold:
      raindrop_tpu_torch/csrc/ with nvcc (build seconds printed); then the
      SASS check: cuobjdump -sass on the flash_packed library and the fused
      layer's two must find HGMMA (wgmma) instructions in each tensor-core
-     kernel family (SASS_FAMILIES: the packed attention's three, and every
-     bf16 row product of the fused layer with its attention);
+     kernel family (SASS_FAMILIES: the packed attention's three on one
+     warpgroup and three on two (past hd_pad 144), and every bf16 row
+     product of the fused layer with its attention);
   2. flash_mha_packed forward, kernel against its plain PyTorch version at
      the P12 (B=128, T=215, d=160) and eICU (T=300, d=72) shapes, f32 and
      bf16 operands, ragged lengths including 0, 1 and T, bit-equal on a
      repeat and for 8 samples launched alone, exact zeros for the
      length-0 sample; in bf16 the
-     tensor-core kernel is timed in turns with the previous design (the
-     scalar kernel, prev_ms), and each time's share of the bound printed;
+     tensor-core kernel is held against the previous design (the scalar
+     kernel) and timed in turns with it (prev_ms), and each time's share of
+     the bound printed;
   3. fused_encoder_layer forward, the same at the PAM shape (B=128, T=600,
      d=84, ffn=136): out and attn sample by sample, lse (attn zero for the
      length-0 sample, 8 samples alone bit-equal); in bf16 the tensor-core
@@ -28,15 +30,17 @@ check does not hold:
      in turns with the previous design (the scalar kernels);
   4. flash_mha_packed backward at the same shapes, dropout 0 and 0.2: the
      forward with dropout, then dq, dk, dv of the two backward kernels
-     against the plain backward, finite, zero on the length-0 sample, and
-     bit-equal on a repeat (prev_ms as in phase 2);
+     against the plain backward, finite, zero on the length-0 sample,
+     bit-equal on a repeat and for 8 samples launched alone, in bf16 also
+     against the scalar kernels sample by sample (prev_ms as in phase 2);
   5. flash_mha_packed in bf16 at the edge shapes, B=4, 2 heads: head dims
      3 and 13 (odd: 2-byte plain loads, unpaired stores), 8, 42 (4-byte
-     copies), 84, 128, 129, 140 and 144 (tensor cores up to a padded 144),
-     170 and 360 (the scalar kernels, Narrow and Wide geometry), T = 64,
-     65 and 1024, dropout 0 and 0.2: the plan's route forward and backward
-     against the plain version and against the scalar kernels, bit-equal
-     on a repeat, exact zeros for the length-0 sample;
+     copies), 84, 128, 129, 140 and 144 (tensor cores on one warpgroup up
+     to a padded 144), 160, 170, 192, 193 (odd), 256, 360 and 368 (on two
+     warpgroups past it), T = 64, 65 and 1024, dropout 0 and 0.2: the
+     plan's route forward and backward against the plain version and
+     against the scalar kernels (the previous design), bit-equal on a
+     repeat, exact zeros for the length-0 sample;
   6. fused_encoder_layer backward at the PAM shape, the same grid: dx (sample
      by sample) and the 12 weight gradients against the plain backward,
      bit-equal on a repeat, a zero attention gradient for the length-0
@@ -49,8 +53,9 @@ check does not hold:
      tensor cores, the attention scalar at PAM-sw's hd 170; f32 scalar);
  6b. phases 2, 4, 3 and 6 at the sensor-wise widths (sensor_wise_mask:
      d = d_inp * (d_ob + d_pe), 2 heads), B=128: P12-sw (T=215, d=720, hd
-     360: the scalar route in both dtypes) and eICU-sw (T=300, d=280, hd
-     140: tensor cores in bf16) forward and backward, PAM-sw's fused
+     360: the two-warpgroup tensor-core route "tc_wide" in bf16, timed in
+     turns with the previous design, the scalar route in f32) and eICU-sw
+     (T=300, d=280, hd 140: tensor cores in bf16) forward and backward, PAM-sw's fused
      layer (T=600, d=340, ffn=136, hd 170) forward and backward; each
      route checked;
   7. an InferenceServer for PAM at full width (random weights from a seed)
@@ -75,7 +80,8 @@ check does not hold:
      backward, on the tensor-core route);
  10b. phases 7 and 8 with sensor_wise_mask for P19 (the dense rung at
      T=60: no kernel launched), P12 (every flash_mha_packed launch on the
-     scalar route), eICU (every launch on the tensor cores) and PAM (the
+     two-warpgroup tensor-core route), eICU (every launch on the tensor
+     cores) and PAM (the
      fused layer), a row's probabilities held across batches to
      BATCH_LIMIT_SW with bf16 operands, on the kernels and on their plain
      versions; and phase 9 for P12, eICU and PAM
@@ -192,7 +198,8 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # sample_err's limits for the attention kernels' gradients (and
 # flash_mha's o), f32 / bf16 operands. The largest readings on an H100,
 # here and in chip_ab.py's task sample_err (the card tests' inputs):
-# gradients 1.1e-6 / 3.2e-3 (flash_mha_packed at eICU, B=128; flash_mha's
+# gradients 1.1e-6 / 3.8e-3 (flash_mha_packed's dv at P12-sw, B=128,
+# dropout 0.2, on the two-warpgroup route; at eICU 3.2e-3; flash_mha's
 # 2.0e-3), o 2.3e-6 / 2.6e-3.
 SAMPLE_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -338,6 +345,16 @@ def flash_phase(label, B, T, d, H, dtype, device="cuda", seed=0):
     if not (torch.equal(o_s, o_k[:8]) and torch.equal(lse_s, lse_k[:8])):
         raise AssertionError(f"flash forward: 8 samples alone differ from the same "
                              f"samples in a batch of {B} at {label} {dtype}")
+    vs_prev = None
+    if dtype == "bfloat16":       # the plan's route against the previous design
+        o_v, lse_v = fa._packed_fwd_cuda(q, k, v, lengths, 0, 0.0, H, od, "scalar")
+        vs_prev = max(max_err(o_k, o_v), max_err(lse_k, lse_v))
+        print(f"[flash] {label} {dtype}: against the scalar kernels max_abs_err "
+              f"{vs_prev:.3e} (tol {TOL[dtype]:g}); o sample_err against the plain "
+              f"version {sample_err(o_k, o_p, lengths):.3e}", flush=True)
+        if vs_prev > TOL[dtype]:
+            raise AssertionError(f"flash forward disagrees with the scalar kernels at "
+                                 f"{label}")
 
     # inputs already in the operand dtype, so the timed call is the launch
     qo, ko, vo = (x.to(od) for x in (q, k, v))
@@ -361,9 +378,10 @@ def flash_phase(label, B, T, d, H, dtype, device="cuda", seed=0):
     print(f"[flash] {label} {dtype}: kernel {ms:.4f} ms, {design_line(ms, prev_ms, bound_ms)}, "
           f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}); device time {device_line(times)}", flush=True)
-    return dict(label=label, dtype=dtype, route=route, max_abs_err=err, **times,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bytes=nbytes, flops=flops)
+    return dict(label=label, dtype=dtype, route=route, max_abs_err=err,
+                vs_prev_max_abs_err=vs_prev, **times, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops)
 
 
 def random_layer(gen, d, ffn, device):
@@ -528,6 +546,20 @@ def flash_bwd_phase(label, B, T, d, H, dtype, rate, device="cuda", seed=0):
                                  f"on a repeat at {label} {dtype}")
         if not bool((a[0] == 0).all()):
             raise AssertionError("flash backward: the length-0 sample is not zero")
+    alone = fa._packed_bwd_cuda(*(x[:8] for x in args[:4]), *args[4:8],
+                                *(x[:8] for x in args[8:]))
+    if not all(torch.equal(a, b[:8]) for a, b in zip(alone, got)):
+        raise AssertionError(f"flash backward: 8 samples alone differ from the same "
+                             f"samples in a batch of {B} at {label} {dtype}")
+    if dtype == "bfloat16":       # the plan's route against the previous design
+        prev = fa._packed_bwd_cuda(*args, "scalar")
+        errs.update({f"{n}_vs_prev": sample_err(a, b, lengths)
+                     for n, a, b in zip(("dq", "dk", "dv"), got, prev)})
+        print(f"[flash_bwd] {label} {dtype} dropout {rate}: against the scalar kernels "
+              f"sample_err {errs} (tol {SAMPLE_TOL[dtype]:g})", flush=True)
+        if max(errs.values()) > SAMPLE_TOL[dtype]:
+            raise AssertionError(f"flash backward disagrees with the scalar kernels at "
+                                 f"{label} {dtype}")
 
     qo, ko, vo = (x.to(od) for x in (q, k, v))
     targs = (qo, ko, vo, lengths, SEED, rate, H, od, o_k, lse_k, g)
@@ -563,11 +595,11 @@ def flash_bwd_phase(label, B, T, d, H, dtype, rate, device="cuda", seed=0):
 
 def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
     """flash_mha_packed in bf16 at an edge shape (head dims 3, 8, 13, 42,
-    84, 128, and 129, 140, 144, 170, 360 of the sensor-wise widths; T = 64,
-    65, 1024): the plan's route (the tensor-core kernels up to hd_pad 144,
-    the scalar ones beyond) against the plain version and against the
-    scalar kernels, forward and backward, bit-equal on a repeat, exact
-    zeros for the length-0 sample."""
+    84, 128, and 129-368 of the sensor-wise widths; T = 64, 65, 1024): the
+    plan's route (the tensor-core kernels on one warpgroup up to hd_pad 144,
+    on two beyond) against the plain version and against the scalar
+    kernels, forward and backward, bit-equal on a repeat, exact zeros for
+    the length-0 sample."""
     import torch
     from raindrop_tpu_torch.ops import flash_attention as fa
 
@@ -598,6 +630,10 @@ def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
           f"{errs} (limits {limits})", flush=True)
     if any(errs[n] > limits[n] for n in errs):
         raise AssertionError(f"flash_mha_packed tc kernels disagree at hd={hd} T={T}")
+    want = "tc" if -(-hd // 16) * 16 <= fa.TC_MAX_HD_PAD else "tc_wide"
+    if plan.route != want:
+        raise AssertionError(f"flash_mha_packed bf16 at hd={hd} took the {plan.route} "
+                             f"route, expected {want}")
     for a, a2 in zip((*fwd, *got), (*fwd2, *again)):
         if not bool(torch.isfinite(a).all()) or not torch.equal(a, a2):
             raise AssertionError(f"flash tc kernels not finite or not bit-equal on a "
@@ -611,11 +647,13 @@ def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
 
 
 # the tensor-core kernel families of each library whose SASS must hold
-# HGMMA (wgmma): the packed attention's three and, on the fused layer's bf16
-# route, every row product (qkv, the forward's tail, the backward's row
-# kernel, dx, the weight gradients) and the attention at PAM's head dim
+# HGMMA (wgmma): the packed attention's three on one warpgroup and three on
+# two (past hd_pad 144) and, on the fused layer's bf16 route, every row
+# product (qkv, the forward's tail, the backward's row kernel, dx, the
+# weight gradients) and the attention at PAM's head dim
 SASS_FAMILIES = {
-    "flash_packed": ("packed_fwd_tc", "packed_dq_tc", "packed_dkv_tc"),
+    "flash_packed": ("packed_fwd_tc", "packed_dq_tc", "packed_dkv_tc",
+                     "packed_fwd_wide", "packed_dq_wide", "packed_dkv_wide"),
     "fused_encoder": ("qkv_rows_tc_kernel", "layer_tail_tc", "fused_attn_fwd_tc"),
     "fused_encoder_bwd": ("qkv_rows_tc_kernel", "layer_bwd_rows_tc", "dx_rows_tc",
                           "wgrad_tc", "fused_dq_tc", "fused_dkv_tc"),
@@ -679,7 +717,7 @@ def sass_phase():
                 raise RuntimeError(f"cuobjdump -sass failed on {lib}")
             with open(os.path.join(tmp.name, name)) as f:
                 out = f.read()
-            alts = [r"packed_\w+?_(?:tc|kernel)"] + [f for f in families
+            alts = [r"packed_\w+?_(?:tc|wide|kernel)"] + [f for f in families
                                                       if not f.startswith("packed")]
             pattern = re.compile(r"Function : \S*?(" + "|".join(alts) + ")")
             counts, fam = {}, None
@@ -1436,12 +1474,17 @@ FIT_LR_SW = 1e-5
 PLAIN_ALL = {"attention_backend": "dense", "prop_backend": "auto"}
 
 
-COUNTS = ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches")
+COUNTS = ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches",
+          "tc_wide_launches", "tc_wide_bwd_launches")
+# the routes a wrapper counts apart: "<name>.tc" from tc_<attr>; and
+# flash_mha_packed's two-warpgroup route past hd_pad 144, "<name>.tc_wide"
+ROUTE_COUNTS = ("tc", "tc_wide")
 
 
 def reset_counts(wrappers):
     """Set every launch count of the wrappers to 0 (flash_mha_packed also
-    counts its tensor-core launches apart, as tc_launches / tc_bwd_launches)."""
+    counts its tensor-core launches apart, as tc_launches / tc_bwd_launches
+    and tc_wide_launches / tc_wide_bwd_launches)."""
     for fn in wrappers:
         for attr in COUNTS:
             if hasattr(fn, attr):
@@ -1449,11 +1492,11 @@ def reset_counts(wrappers):
 
 
 def read_counts(wrappers, attr):
-    """{wrapper name: count}, plus "<name>.tc" where the wrapper counts its
-    tensor-core launches apart."""
+    """{wrapper name: count}, plus "<name>.tc" and "<name>.tc_wide" where
+    the wrapper counts its launches on those routes apart."""
     out = {fn.__name__: getattr(fn, attr) for fn in wrappers}
-    out.update({f"{fn.__name__}.tc": getattr(fn, f"tc_{attr}") for fn in wrappers
-                if hasattr(fn, f"tc_{attr}")})
+    out.update({f"{fn.__name__}.{r}": getattr(fn, f"{r}_{attr}") for fn in wrappers
+                for r in ROUTE_COUNTS if hasattr(fn, f"{r}_{attr}")})
     return out
 
 
@@ -1476,14 +1519,15 @@ def check_fused_tc(what, *counts):
                                  f"tensor-core route: {c}")
 
 
-def check_scalar(what, *counts):
-    """Every flash_mha_packed launch in these counts took the scalar route
-    (a head dim past the tensor-core kernels' widths: P12's sensor-wise
-    hd 360)."""
+def check_tc_wide(what, *counts):
+    """Every flash_mha_packed launch in these counts took the two-warpgroup
+    tensor-core route (bf16 operands past hd_pad 144: P12's sensor-wise hd
+    360)."""
     for c in counts:
-        if c["flash_mha_packed"] <= 0 or c["flash_mha_packed.tc"] != 0:
+        if (c["flash_mha_packed"] <= 0
+                or c["flash_mha_packed.tc_wide"] != c["flash_mha_packed"]):
             raise AssertionError(f"{what}: flash_mha_packed launches off the "
-                                 f"scalar route: {c}")
+                                 f"tc_wide route: {c}")
 
 
 @contextlib.contextmanager
@@ -2186,7 +2230,8 @@ def main(argv=None) -> int:
         flash_bwd = [flash_bwd_phase("P12", 128, 215, 160, 2, dt, rate) for dt, rate in grid]
         flash_bwd += [flash_bwd_phase("eICU", 128, 300, 72, 2, dt, rate) for dt, rate in grid]
         edges = [flash_edge_phase(hd, T, rate)
-                 for hd in (3, 8, 13, 42, 84, 128, 129, 140, 144, 170, 360)
+                 for hd in (3, 8, 13, 42, 84, 128, 129, 140, 144, 160, 170, 192, 193,
+                            256, 360, 368)
                  for T in (64, 65, 1024) for rate in (0.0, 0.2)]
         fused_bwd = [fused_bwd_phase("PAM", 128, 600, 84, 136, 2, dt, rate)
                      for dt, rate in grid]
@@ -2198,8 +2243,9 @@ def main(argv=None) -> int:
                        for label, d in (("PAM", 84), ("PAM-sw", 340))
                        for dt, rate in grid]
     # the sensor-wise widths (d_inp * (d_ob + d_pe), 2 heads): P12 hd 360 on
-    # the scalar route in both dtypes, eICU hd 140 on the tensor cores in
-    # bf16, PAM's fused layer at d=340, hd 170
+    # the two-warpgroup tensor cores in bf16 (scalar in f32), eICU hd 140 on
+    # the one-warpgroup tensor cores in bf16, PAM's fused layer at d=340,
+    # hd 170
     with phase(phase_s, "packed and fused-layer kernels, sensor-wise widths"):
         sw_shapes = (("P12-sw", 215, 720), ("eICU-sw", 300, 280))
         sw_flash = [flash_phase(label, 128, T, d, 2, dt) for label, T, d in sw_shapes
@@ -2211,7 +2257,8 @@ def main(argv=None) -> int:
         sw_fused_bwd = [fused_bwd_phase("PAM-sw", 128, 600, 340, 136, 2, dt, rate)
                         for dt, rate in grid]
     for r in sw_flash:
-        want = "tc" if r["label"] == "eICU-sw" and r["dtype"] == "bfloat16" else "scalar"
+        want = ("scalar" if r["dtype"] != "bfloat16" else
+                "tc" if r["label"] == "eICU-sw" else "tc_wide")
         if r["route"] != want:
             raise AssertionError(f"{r['label']} {r['dtype']} took the {r['route']} "
                                  f"route, expected {want}")
@@ -2250,8 +2297,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # sensor_wise_mask on every preset: P19 stays on the dense rung (T=60),
-    # P12 and eICU take flash_mha_packed (scalar at hd 360, tensor cores at
-    # hd 140), PAM the fused layer at d=340
+    # P12 and eICU take flash_mha_packed (tensor cores on two warpgroups at
+    # hd 360, on one at hd 140), PAM the fused layer at d=340
     sw = {"sensor_wise_mask": True}
     with phase(phase_s, "serve and train, sensor-wise"):
         sw_serve = {
@@ -2266,8 +2313,8 @@ def main(argv=None) -> int:
             name: train_phase(name, [fn], wrappers, cfg_overrides=sw, fit_lr=FIT_LR_SW)
             for name, fn in (("P12", flash_mha_packed), ("eICU", flash_mha_packed),
                              ("PAM", fused_encoder_layer))}
-    check_scalar("P12-sw serving and training", sw_serve["P12"][0],
-                 *sw_train["P12"][:2])
+    check_tc_wide("P12-sw serving and training", sw_serve["P12"][0],
+                  *sw_train["P12"][:2])
     check_tc("eICU-sw serving and training", sw_serve["eICU"][0], *sw_train["eICU"][:2])
     check_fused_tc("PAM-sw serving and training", sw_serve["PAM"][0], *sw_train["PAM"][:2])
     torch.cuda.empty_cache()
@@ -2430,15 +2477,24 @@ def main(argv=None) -> int:
         graph_record("sddmm_bwd", 230, sd_b, sddmm_bwd),
     ]
     # the same kernels at the sensor-wise widths, launch counts from those
-    # serving (forward) and training (backward) runs
+    # serving (forward) and training (backward) runs; P12-sw's on the
+    # two-warpgroup route (launches counted there), its previous design the
+    # scalar Wide kernels (prev_ms)
     sw_src = "raindrop_tpu_torch/csrc/flash_packed.cu"
+    wide_src = "raindrop_tpu_torch/csrc/attention_tc_wide.cuh"
     kernels += [
-        record("flash_mha_packed_fwd_P12_sw", sw_src,
-               "raindrop_tpu/ops/flash_attention.py:566",
-               sw_serve["P12"][0]["flash_mha_packed"], sw_flash, "P12-sw"),
-        record("flash_mha_packed_bwd_P12_sw", sw_src,
-               "raindrop_tpu/ops/flash_attention.py:610",
-               sw_train["P12"][1]["flash_mha_packed"], sw_flash_bwd, "P12-sw", 0.2),
+        {**record("flash_mha_packed_fwd_P12_sw",
+                  "raindrop_tpu_torch/csrc/flash_packed_fwd_wide.cu",
+                  "raindrop_tpu/ops/flash_attention.py:566",
+                  sw_serve["P12"][0]["flash_mha_packed.tc_wide"], sw_flash, "P12-sw"),
+         "sources_also": [wide_src, sw_src]},
+        {**record("flash_mha_packed_bwd_P12_sw",
+                  "raindrop_tpu_torch/csrc/flash_packed_dq_wide.cu",
+                  "raindrop_tpu/ops/flash_attention.py:610",
+                  sw_train["P12"][1]["flash_mha_packed.tc_wide"], sw_flash_bwd, "P12-sw",
+                  0.2),
+         "sources_also": ["raindrop_tpu_torch/csrc/flash_packed_dkv_wide.cu", wide_src,
+                          sw_src]},
         record("flash_mha_packed_fwd_eICU_sw", sw_src,
                "raindrop_tpu/ops/flash_attention.py:566",
                sw_serve["eICU"][0]["flash_mha_packed"], sw_flash, "eICU-sw"),

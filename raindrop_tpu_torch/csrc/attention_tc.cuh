@@ -55,7 +55,7 @@ constexpr int ROWS = 64;   // rows of every tile, the wgmma M of a warpgroup
 constexpr int WG = 128;    // threads of a warpgroup
 
 __host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
-__host__ __device__ constexpr int tile_bytes(int hdk) { return ROWS * hdk * 2; }
+__host__ __device__ constexpr int tile_bytes(int hdk, int rows = ROWS) { return rows * hdk * 2; }
 
 // Shared bytes of the three routines for head dim hd (keep in step with
 // packed_plan in ops/flash_attention.py).
@@ -65,8 +65,11 @@ inline int dkv_smem_bytes(int hd) {
   return 6 * tile_bytes(pad16(hd)) + 2 * 2 * ROWS * (int)sizeof(float);
 }
 
+// Byte of element (r, c) in a tile of R rows (64; 32 for the streamed
+// tiles of attention_tc_wide.cuh): a column block of 8 is R * 16 bytes.
+template <int R = ROWS>
 __device__ __forceinline__ int tile_off(int r, int c) {
-  return (c >> 3) * (ROWS * 16) + (r >> 3) * 128 + (r & 7) * 16 + (c & 7) * 2;
+  return (c >> 3) * (R * 16) + (r >> 3) * 128 + (r & 7) * 16 + (c & 7) * 2;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -81,14 +84,19 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)(sbo >> 4) << 32);
 }
 
-// K-major operand (tile rows = M or N, tile columns = K), k-step kk.
+// K-major operand (tile rows = M or N, tile columns = K), k-step kk, of a
+// tile of R rows.
+template <int R = ROWS>
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return make_desc(tile + kk * 2 * ROWS * 16, ROWS * 16, 128);
+  return make_desc(tile + kk * 2 * R * 16, R * 16, 128);
 }
 
-// MN-major B operand (tile rows = K, tile columns = N), k-step kk.
+// MN-major B operand (tile rows = K, tile columns = N), k-step kk, of a
+// tile of R rows. Columns c0 .. of it (c0 a multiple of 8) start
+// c0 / 8 * R * 16 bytes in: a column slice is a descriptor offset.
+template <int R = ROWS>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return make_desc(tile + kk * 2 * 128, 128, ROWS * 16);
+  return make_desc(tile + kk * 2 * 128, 128, R * 16);
 }
 
 __device__ __forceinline__ void mma_fence() {
@@ -130,8 +138,24 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(acc));
 }
 
-// D[64 x N] += A[64 x 16] B[16 x N], N = 16, 32, ..., 144: A bf16 in
-// registers (the fragment of frag_a), B MN-major in shared memory.
+// D[64 x 32] (+)= A[64 x 16] B[32 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N]: A bf16 in registers (the fragment of
+// frag_a), B MN-major in shared memory. N = 16, 32, ..., 144 (one
+// warpgroup's whole padded head), and 88, 104, ..., 184 (the half of a
+// padded head of 176, 208, ..., 368 that each of two warpgroups owns in
+// attention_tc_wide.cuh).
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
 template <>
@@ -308,6 +332,185 @@ __device__ __forceinline__ void mma_rs<144>(float (&d)[72], const uint32_t (&a)[
         "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+template <>
+__device__ __forceinline__ void mma_rs<88>(float (&d)[44], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43}, "
+      "{%44, %45, %46, %47}, %48, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<104>(float (&d)[52], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51}, "
+      "{%52, %53, %54, %55}, %56, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<120>(float (&d)[60], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59}, "
+      "{%60, %61, %62, %63}, %64, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<136>(float (&d)[68], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %73, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67}, "
+      "{%68, %69, %70, %71}, %72, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<152>(float (&d)[76], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %81, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n152k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75}, "
+      "{%76, %77, %78, %79}, %80, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<168>(float (&d)[84], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %89, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n168k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83}, "
+      "{%84, %85, %86, %87}, %88, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<184>(float (&d)[92], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %97, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n184k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91}, "
+      "{%92, %93, %94, %95}, %96, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 // ---------------------------------------------------------------- copies
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
@@ -330,16 +533,16 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool ok)
   }
 }
 
-// Rows row0 .. row0+63 of a [*, hd] head view (row stride `stride`
-// elements) into a tile; rows at or past `limit` become zero. W = 2 (odd hd)
-// has no cp.async: plain loads and stores.
+// Rows row0 .. row0+R-1 of a [*, hd] head view (row stride `stride`
+// elements) into a tile of R rows; rows at or past `limit` become zero.
+// W = 2 (odd hd) has no cp.async: plain loads and stores.
 // Copy idx goes to row 8 (idx / (8 per_row)) + idx % 8 and copy
 // (idx / 8) % per_row of that row: eight neighbouring lanes fill the eight
 // rows of one core matrix (no shared-memory bank conflict at W = 16), and
 // a warp reads a few whole 32-byte sectors of each row. The coordinates
 // advance by the block size without a division per copy: with four warps
 // on an SM's four schedulers nothing hides an integer division's latency.
-template <int W>
+template <int W, int R = ROWS>
 __device__ __forceinline__ void load_tile_w(uint8_t* tile, const bf16* __restrict__ src,
                                             long stride, int row0, int limit, int hd, int tid,
                                             int nthr) {
@@ -348,14 +551,14 @@ __device__ __forceinline__ void load_tile_w(uint8_t* tile, const bf16* __restric
   const int step_blk = nthr / per_blk, step_rest = nthr - step_blk * per_blk;
   const uint32_t base = smem_addr(tile);
   int blk = tid / per_blk, rest = tid - blk * per_blk;
-  for (int idx = tid; idx < ROWS * per_row; idx += nthr) {
+  for (int idx = tid; idx < R * per_row; idx += nthr) {
     const int r = 8 * blk + (rest & 7), c = (rest >> 3) * E;
     const bool ok = row0 + r < limit;
     const bf16* g = src + (ok ? (long)(row0 + r) * stride + c : 0);
     if constexpr (W >= 4) {
-      cp_async<W>(base + tile_off(r, c), g, ok);
+      cp_async<W>(base + tile_off<R>(r, c), g, ok);
     } else {
-      *reinterpret_cast<bf16*>(tile + tile_off(r, c)) = ok ? *g : __float2bfloat16(0.f);
+      *reinterpret_cast<bf16*>(tile + tile_off<R>(r, c)) = ok ? *g : __float2bfloat16(0.f);
     }
     blk += step_blk;
     rest += step_rest;
@@ -366,34 +569,37 @@ __device__ __forceinline__ void load_tile_w(uint8_t* tile, const bf16* __restric
   }
 }
 
+template <int R = ROWS>
 __device__ __forceinline__ void load_tile(int W, uint8_t* tile, const bf16* __restrict__ src,
                                           long stride, int row0, int limit, int hd, int tid,
                                           int nthr) {
   switch (W) {
-    case 16: load_tile_w<16>(tile, src, stride, row0, limit, hd, tid, nthr); break;
-    case 8: load_tile_w<8>(tile, src, stride, row0, limit, hd, tid, nthr); break;
-    case 4: load_tile_w<4>(tile, src, stride, row0, limit, hd, tid, nthr); break;
-    default: load_tile_w<2>(tile, src, stride, row0, limit, hd, tid, nthr); break;
+    case 16: load_tile_w<16, R>(tile, src, stride, row0, limit, hd, tid, nthr); break;
+    case 8: load_tile_w<8, R>(tile, src, stride, row0, limit, hd, tid, nthr); break;
+    case 4: load_tile_w<4, R>(tile, src, stride, row0, limit, hd, tid, nthr); break;
+    default: load_tile_w<2, R>(tile, src, stride, row0, limit, hd, tid, nthr); break;
   }
 }
 
-// 64 floats x[row0 ..] (zeros at or past limit) by 4-byte cp.async.
+// N floats x[row0 ..] (zeros at or past limit) by 4-byte cp.async.
+template <int N = ROWS>
 __device__ __forceinline__ void load_vec(float* dst, const float* __restrict__ src, int row0,
                                          int limit, int tid, int nthr) {
-  for (int r = tid; r < ROWS; r += nthr) {
+  for (int r = tid; r < N; r += nthr) {
     const bool ok = row0 + r < limit;
     cp_async<4>(smem_addr(dst + r), src + (ok ? row0 + r : 0), ok);
   }
 }
 
-// Zero the pad columns hd .. HDK-1 of n consecutive tiles, a row a thread.
-template <int HDK>
+// Zero the pad columns hd .. HDK-1 of n consecutive tiles of R rows, a row
+// a thread.
+template <int HDK, int R = ROWS>
 __device__ __forceinline__ void zero_pad(uint8_t* tiles, int n, int hd, int tid, int nthr) {
-  for (int row = tid; row < n * ROWS; row += nthr) {
-    uint8_t* tile = tiles + (row / ROWS) * tile_bytes(HDK);
-    const int r = row % ROWS;
+  for (int row = tid; row < n * R; row += nthr) {
+    uint8_t* tile = tiles + (row / R) * tile_bytes(HDK, R);
+    const int r = row % R;
     for (int c = hd; c < HDK; ++c) {
-      *reinterpret_cast<bf16*>(tile + tile_off(r, c)) = __float2bfloat16(0.f);
+      *reinterpret_cast<bf16*>(tile + tile_off<R>(r, c)) = __float2bfloat16(0.f);
     }
   }
 }
@@ -413,27 +619,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // The A operand of k-step kk (columns 16 kk .. 16 kk + 15) of an m64n64
-// accumulator, rounded to bf16: the register layout of wgmma's A fragment
-// is that of the accumulator, two 8-column blocks at a time.
-__device__ __forceinline__ void frag_a(const float (&x)[32], int kk, uint32_t (&a)[4]) {
+// (NX = 32) or m64n32 (NX = 16) accumulator, rounded to bf16: the register
+// layout of wgmma's A fragment is that of the accumulator, two 8-column
+// blocks at a time.
+template <int NX>
+__device__ __forceinline__ void frag_a(const float (&x)[NX], int kk, uint32_t (&a)[4]) {
   a[0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
   a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
   a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
   a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
 }
 
-// acc[64 x N] += X[64 x 64] B[64 x N]: X from an m64n64 accumulator (bf16
-// rounded), B rows 0..63 of an MN-major tile.
-template <int N>
-__device__ __forceinline__ void mma_acc_rows(float (&acc)[N / 2], const float (&x)[32],
+// acc[64 x N] += X[64 x K] B[K x N]: X from an m64nK accumulator (NX =
+// K / 2 floats a thread, bf16 rounded; K = 64 or 32), B the K rows of an
+// MN-major tile of K rows (btile may point at a column slice of it).
+template <int N, int NX>
+__device__ __forceinline__ void mma_acc_rows(float (&acc)[N / 2], const float (&x)[NX],
                                              uint32_t btile) {
-  uint32_t a[4][4];
+  constexpr int KS = NX / 8, R = 2 * NX;
+  uint32_t a[KS][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) frag_a(x, kk, a[kk]);
+  for (int kk = 0; kk < KS; ++kk) frag_a(x, kk, a[kk]);
   reg_fence(acc);
   mma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) mma_rs<N>(acc, a[kk], desc_mn(btile, kk));
+  for (int kk = 0; kk < KS; ++kk) mma_rs<N>(acc, a[kk], desc_mn<R>(btile, kk));
   mma_commit();
   mma_wait();
   reg_fence(acc);

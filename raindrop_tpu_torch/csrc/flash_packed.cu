@@ -17,20 +17,23 @@
 // backward, 24 us). The first kernels did every product in scalar f32 FMA
 // out of shared memory with one-element synchronous loads, 20x off that.
 //
-// Two routes, chosen by the wrapper's launch plan (packed_plan in
+// Three routes, chosen by the wrapper's launch plan (packed_plan in
 // ops/flash_attention.py), which the entry points check:
-// - "tc", bf16 operands: attention_tc.cuh, launched from
+// - "tc", bf16 operands up to hd_pad 144: attention_tc.cuh, launched from
 //   flash_packed_{fwd,dq,dkv}_tc.cu. The products run on the tensor cores
 //   (wgmma m64nNk16, bf16 in, f32 accumulate; one warpgroup per 64 rows,
 //   two CTAs per key block in the dk/dv pass), and the streamed tiles come through a
 //   two-stage cp.async ring, the next tile in flight while the current one
 //   is multiplied, with a copy width the alignment allows.
-// - "scalar", f32 operands, bf16 past the tensor-core kernels' widths
-//   (hd_pad 144: P12's sensor-wise hd 360), and bf16 on request to measure
-//   the previous design: attend_rows / attn_dq_rows / attn_dkv_rows, scalar
-//   f32 FMA, in the Narrow geometry up to hd 192 and the Wide one (32-row
-//   blocks and tiles, attention.cuh says why) up to hd 368. TF32 would not
-//   hold the f32 route's 1e-4.
+// - "tc_wide", bf16 operands at hd 145-368 (P12's sensor-wise hd 360):
+//   attention_tc_wide.cuh, launched from flash_packed_{fwd,dq,dkv}_wide.cu.
+//   The same products on two warpgroups a CTA, each owning half of the
+//   output's columns, with 32-row streamed tiles (that header says why).
+// - "scalar", f32 operands, and bf16 on request to measure the previous
+//   design: attend_rows / attn_dq_rows / attn_dkv_rows, scalar f32 FMA, in
+//   the Narrow geometry up to hd 192 and the Wide one (32-row blocks and
+//   tiles, attention.cuh says why) up to hd 368. TF32 would not hold the
+//   f32 route's 1e-4.
 //
 // Design: the TPU kernels hold one sample's [T, T] score tile in VMEM and
 // isolate heads with lane masks. Neither carries over. Here one CTA takes
@@ -138,6 +141,13 @@ Plan expected_plan(int B, int T, int d, int nhead, int bf16, int route) {
     p.smem_dq = rd::tc::dq_smem_bytes(hd);
     p.smem_dkv = rd::tc::dkv_smem_bytes(hd);
     p.threads_fwd = p.threads_dq = p.threads_dkv = rd::tc::WG;
+  } else if (route == 2) {
+    p.hd_pad = rd::tc::wide_pad(hd);
+    p.rows = rd::tc::ROWS;
+    p.smem_fwd = rd::tc::wide_fwd_smem_bytes(hd);
+    p.smem_dq = rd::tc::wide_dq_smem_bytes(hd);
+    p.smem_dkv = rd::tc::wide_dkv_smem_bytes(hd);
+    p.threads_fwd = p.threads_dq = p.threads_dkv = rd::tc::WIDE_THREADS;
   } else {
     p.hd_pad = hd;
     p.copy_bytes = bf16 ? 2 : 4;
@@ -165,6 +175,10 @@ bool copy_ok(int W, int hd, int d, std::initializer_list<const void*> ptrs) {
 
 bool route_ok(int route, int hd, int bf16) {
   if (route == 1) return bf16 && rd::tc::pad16(hd) <= rd::packed::TC_MAX_HD_PAD;
+  if (route == 2) {
+    return bf16 && rd::tc::pad16(hd) > rd::packed::TC_MAX_HD_PAD &&
+           hd <= rd::tc::WIDE_MAX_HD_PAD;
+  }
   return route == 0 && hd <= rd::SCALAR_MAX_HD;
 }
 
@@ -177,7 +191,7 @@ bool make_plan(const int* ints, int B, int T, int d, int nhead, int bf16,
   const int route = ints[0];
   if (!route_ok(route, d / nhead, bf16)) return false;
   Plan e = expected_plan(B, T, d, nhead, bf16, route);
-  if (route == 1) {
+  if (route != 0) {
     if (!copy_ok(ints[2], d / nhead, d, operands)) return false;
     e.copy_bytes = ints[2];
   }
@@ -245,7 +259,8 @@ bool bad_shape(int B, int T, int d, int nhead, double rate) {
   })
 
 // The shared bytes of the forward, dq and dk/dv kernels on a route (0
-// scalar, 1 tensor cores) for [B, T, d] operands, as the entry points below
+// scalar, 1 tensor cores, 2 tensor cores past hd_pad 144) for [B, T, d]
+// operands, as the entry points below
 // launch them; cudaErrorInvalidValue for a route the call cannot take or
 // a kernel that would not fit a block.
 extern "C" int rd_packed_smem(int B, int T, int d, int nhead, int bf16, int route,
@@ -275,6 +290,10 @@ extern "C" int rd_packed_fwd(const void* q, const void* k, const void* v,
     return rd::packed::launch_fwd_tc(q, k, v, lengths, o, lse, p, T, d, nhead, scale2, seed,
                                      rate, s);
   }
+  if (p.route == 2) {
+    return rd::packed::launch_fwd_wide(q, k, v, lengths, o, lse, p, T, d, nhead, scale2, seed,
+                                       rate, s);
+  }
   const rd::Drop dr = rd::make_drop(rate);
   RD_DISPATCH(launch_fwd, d / nhead, rate, bf16, q, k, v, lengths, o, lse, p, T,
               d, nhead, scale2, seed, dr, s);
@@ -298,6 +317,13 @@ extern "C" int rd_packed_bwd(const void* q, const void* k, const void* v,
     if (err != 0) return err;
     return rd::packed::launch_dkv_tc(q, k, v, d_o, lse, delta, lengths, dk, dv, p, T, d,
                                      nhead, scale, seed, rate, s);
+  }
+  if (p.route == 2) {
+    const int err = rd::packed::launch_dq_wide(q, k, v, d_o, lse, delta, lengths, dq, p, T, d,
+                                               nhead, scale, seed, rate, s);
+    if (err != 0) return err;
+    return rd::packed::launch_dkv_wide(q, k, v, d_o, lse, delta, lengths, dk, dv, p, T, d,
+                                       nhead, scale, seed, rate, s);
   }
   const rd::Drop dr = rd::make_drop(rate);
   RD_DISPATCH(launch_bwd, d / nhead, rate, bf16, q, k, v, d_o, lse, delta,

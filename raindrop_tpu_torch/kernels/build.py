@@ -33,10 +33,13 @@ SOURCES = ("flash_packed", "flash_split", "fused_encoder", "fused_encoder_bwd",
            "sparse_graph")
 # libraries built from several units: flash_packed's 48 tensor-core
 # kernels take nvcc far longer in one process than as three units in
-# parallel (chip_ab.py, task one_unit); the fused layer's tensor-core
-# attention kernels (18 a family) are units of their own the same way
+# parallel (chip_ab.py, task one_unit), and its 42 kernels past hd_pad 144
+# are three units more; the fused layer's tensor-core attention kernels
+# (18 a family) are units of their own the same way
 PARTS = {"flash_packed": ("flash_packed", "flash_packed_fwd_tc",
-                          "flash_packed_dq_tc", "flash_packed_dkv_tc"),
+                          "flash_packed_dq_tc", "flash_packed_dkv_tc",
+                          "flash_packed_fwd_wide", "flash_packed_dq_wide",
+                          "flash_packed_dkv_wide"),
          "fused_encoder": ("fused_encoder", "fused_encoder_attn_tc"),
          "fused_encoder_bwd": ("fused_encoder_bwd", "fused_encoder_dq_tc",
                                "fused_encoder_dkv_tc")}

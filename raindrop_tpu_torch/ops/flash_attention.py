@@ -18,9 +18,9 @@ takes the undropped probabilities; only the PV operand is dropped.
 Both are `torch.autograd.Function`s. On CUDA tensors their forward and
 backward launch the hand-written kernels in `csrc/flash_packed.cu` and
 `csrc/flash_split.cu` (or raise); `flash_mha_packed` takes the route of
-its launch plan (`packed_plan`): the tensor-core kernels for bf16
-operands up to a padded head dim of 144, the scalar ones for f32 and for
-wider heads (up to 368, the sensor-wise P12's 360). `flash_mha` takes
+its launch plan (`packed_plan`): for bf16 operands the tensor-core kernels
+on one warpgroup up to a padded head dim of 144 and on two past it (up to
+368, the sensor-wise P12's 360), the scalar ones for f32. `flash_mha` takes
 the same head dims on the card (the sensor-wise PAM's 170 past 1024
 steps), in the scalar kernels' geometries. On CPU tensors they run
 `_packed_fwd_plain` / `_packed_bwd_plain` and `_flash_fwd_plain` /
@@ -65,10 +65,16 @@ MAX_HEAD_DIM = 368
 # The scalar kernels' Narrow geometry (64-row blocks and tiles) up to this
 # head dim (attention.cuh NARROW_MAX_HD); the Wide one (32) beyond.
 NARROW_MAX_HD = 192
-# The widest padded head dim of the tensor-core kernels
-# (csrc/flash_packed.cuh TC_MAX_HD_PAD): eICU's sensor-wise hd 140.
+# The widest padded head dim of the one-warpgroup tensor-core kernels
+# (csrc/flash_packed.cuh TC_MAX_HD_PAD, which the fused layer's attention
+# shares): eICU's sensor-wise hd 140.
 TC_MAX_HD_PAD = 144
-_ROWS = 64              # rows of a CTA's block and of a streamed tile
+# The two-warpgroup tensor-core kernels past it ("tc_wide",
+# csrc/attention_tc_wide.cuh): bf16 heads padded to 176, 208, ..., 368
+# (hd 145-176 to 176; P12's sensor-wise 360 to 368).
+TC_WIDE_MIN_HD_PAD, TC_WIDE_STEP, TC_WIDE_MAX_HD_PAD = 176, 32, 368
+_ROUTES = {"scalar": 0, "tc": 1, "tc_wide": 2}
+_ROWS = 64              # rows of a CTA's block (and of a streamed tile on "tc")
 
 
 def operand_dtype(compute_dtype) -> torch.dtype:
@@ -92,11 +98,14 @@ class PackedPlan:
     checked by the C entry points (csrc/flash_packed.cu `Plan`), which add
     each kernel's shared memory (`packed_smem`).
 
-    route: "tc" (tensor cores, bf16 operands) or "scalar" (f32 FMA);
-    hd_pad: the head dim padded to 16, the K depth of the score products
-    and the N width of the output products, hd itself on the scalar route;
-    copy_bytes: the width of one tile copy; rows: the rows of a CTA's block
-    and of a streamed tile (64; 32 in the scalar kernels' Wide geometry,
+    route: "tc" (tensor cores, bf16 operands, one warpgroup a CTA),
+    "tc_wide" (the same past hd_pad 144 on two warpgroups, each owning
+    half of the output's columns) or "scalar" (f32 FMA);
+    hd_pad: the head dim padded to 16 ("tc") or to 176 + 32 j
+    ("tc_wide"), the K depth of the score products and the N width of the
+    output products (each warpgroup's half of it on "tc_wide"), hd itself
+    on the scalar route; copy_bytes: the width of one tile copy; rows: the
+    rows of a CTA's block (64; 32 in the scalar kernels' Wide geometry,
     past hd 192); threads: the forward's, dq's and dk/dv's block sizes;
     grid: (query or key blocks, heads, samples); the tensor-core dk/dv pass
     runs two CTAs a key block (dv and dk), 2 * grid[0] along x."""
@@ -112,8 +121,8 @@ class PackedPlan:
     @functools.cached_property
     def as_ints(self):
         """The plan as the C entry points take it: 10 ints."""
-        vals = ((1 if self.route == "tc" else 0), self.hd_pad, self.copy_bytes,
-                self.rows, *self.threads, *self.grid)
+        vals = (_ROUTES[self.route], self.hd_pad, self.copy_bytes, self.rows,
+                *self.threads, *self.grid)
         return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -134,15 +143,15 @@ def scalar_rows(hd):
 @functools.lru_cache(maxsize=256)
 def packed_plan(B, T, d, nhead, od, impl="auto", align=16) -> PackedPlan:
     """The launch plan of flash_mha_packed's kernels for [B, T, d] operands
-    of dtype `od` on the card: bf16 takes the tensor-core route while the
-    padded head dim is at most TC_MAX_HD_PAD, f32 (TF32 would miss its
-    1e-4) and wider bf16 heads the scalar one, in the Narrow geometry up to hd NARROW_MAX_HD and the
-    Wide one beyond; impl="scalar" asks for the scalar kernels in bf16 too
-    (the previous design, for measurement). `align` is the operands'
-    address alignment in bytes: with the row stride (2 d bytes) and the
-    head offset (2 hd bytes per head) it bounds the copy width, 16, 8, 4 or
-    2 bytes (eICU, hd 36: 8; hd 42: 4). Raises for a head dim past
-    MAX_HEAD_DIM."""
+    of dtype `od` on the card: bf16 takes the tensor-core route "tc" while
+    the head dim padded to 16 is at most TC_MAX_HD_PAD and "tc_wide" past
+    it; f32 (TF32 would miss its 1e-4) takes the scalar one, in the Narrow
+    geometry up to hd NARROW_MAX_HD and the Wide one beyond; impl="scalar"
+    asks for the scalar kernels in bf16 too (the previous design, for
+    measurement). `align` is the operands' address alignment in bytes:
+    with the row stride (2 d bytes) and the head offset (2 hd bytes per
+    head) it bounds the copy width, 16, 8, 4 or 2 bytes (eICU, hd 36: 8;
+    hd 42: 4). Raises for a head dim past MAX_HEAD_DIM."""
     if impl not in ("auto", "scalar"):
         raise ValueError(f"impl must be 'auto' or 'scalar', got {impl!r}")
     if d % nhead:
@@ -152,16 +161,27 @@ def packed_plan(B, T, d, nhead, od, impl="auto", align=16) -> PackedPlan:
         raise ValueError(f"the flash_mha_packed kernels take head dims up to "
                          f"{MAX_HEAD_DIM}, got hd={hd}")
     hd_pad = -(-hd // 16) * 16
-    if od == torch.bfloat16 and impl == "auto" and hd_pad <= TC_MAX_HD_PAD:
+    if od == torch.bfloat16 and impl == "auto":
         width = 16
         while width > 2 and ((2 * hd) % width or (2 * d) % width
                              or align % width):
             width //= 2
-        return PackedPlan("tc", hd, hd_pad, width, _ROWS, (128, 128, 128),
-                          (-(-T // _ROWS), nhead, B))
+        grid = (-(-T // _ROWS), nhead, B)
+        if hd_pad <= TC_MAX_HD_PAD:
+            return PackedPlan("tc", hd, hd_pad, width, _ROWS, (128,) * 3, grid)
+        if wide_pad(hd) <= TC_WIDE_MAX_HD_PAD:
+            return PackedPlan("tc_wide", hd, wide_pad(hd), width, _ROWS,
+                              (256,) * 3, grid)
     rows = scalar_rows(hd)
     return PackedPlan("scalar", hd, hd, od.itemsize, rows, (256,) * 3,
                       (-(-T // rows), nhead, B))
+
+
+def wide_pad(hd):
+    """The padded head dim of the "tc_wide" route for hd 145 .. 368
+    (csrc/attention_tc_wide.cuh wide_pad)."""
+    steps = -(-max(hd - TC_WIDE_MIN_HD_PAD, 0) // TC_WIDE_STEP)
+    return TC_WIDE_MIN_HD_PAD + TC_WIDE_STEP * steps
 
 
 def packed_smem(B, T, d, nhead, od, impl="auto"):
@@ -172,7 +192,7 @@ def packed_smem(B, T, d, nhead, od, impl="auto"):
     plan = packed_plan(B, T, d, nhead, od, impl)
     out = (ctypes.c_int * 3)()
     err = _lib().rd_packed_smem(B, T, d, nhead, int(od == torch.bfloat16),
-                                int(plan.route == "tc"), out)
+                                _ROUTES[plan.route], out)
     if err:
         raise ValueError(f"flash_mha_packed's {plan.route} kernels do not fit "
                          f"hd={plan.hd}: shared bytes {tuple(out)}")
@@ -382,11 +402,14 @@ def flash_mha_packed(q, k, v, lengths, seed=None, dropout_rate=0.0,
 
 
 # forward launches; `bwd_launches` counts the backward's; the tc_ counts
-# those of the two on the tensor-core route
+# those of the two on the tensor-core route up to hd_pad 144, the tc_wide_
+# counts those on the route past it
 flash_mha_packed.launches = 0
 flash_mha_packed.bwd_launches = 0
 flash_mha_packed.tc_launches = 0
 flash_mha_packed.tc_bwd_launches = 0
+flash_mha_packed.tc_wide_launches = 0
+flash_mha_packed.tc_wide_bwd_launches = 0
 
 
 def _same_device(dev, **tensors):
@@ -396,10 +419,11 @@ def _same_device(dev, **tensors):
 
 
 def _count(plan, attr):
-    """One launch on `attr` and, on the tensor-core route, on tc_<attr>."""
+    """One launch on `attr` and, on a tensor-core route, on <route>_<attr>
+    (tc_<attr>, tc_wide_<attr>)."""
     build.count_launch(flash_mha_packed, attr)
-    if plan.route == "tc":
-        build.count_launch(flash_mha_packed, f"tc_{attr}")
+    if plan.route != "scalar":
+        build.count_launch(flash_mha_packed, f"{plan.route}_{attr}")
 
 
 def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od, impl="auto"):

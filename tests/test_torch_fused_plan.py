@@ -201,3 +201,24 @@ def test_tensor_cores_stop_at_hd_192():
     assert fe.fused_plan(2 * 192, 16, 2, BF16).route == "tc"
     plan = fe.fused_plan(200, 16, 1, BF16)              # hd 200: the Wide geometry
     assert plan.route == "scalar" and plan["attn_fwd"].rows == 32
+
+
+def test_pam_sensor_wise_plan_is_unchanged_by_the_wide_packed_route():
+    """flash_mha_packed takes its two-warpgroup tensor-core kernels past
+    hd_pad 144 in bf16; the fused layer shares TC_MAX_HD_PAD with it but not
+    that route: at PAM-sw (d=340, hd 170) its attention launches stay the
+    scalar Narrow kernels on bf16 operands, and every field of the plan the
+    C entry points check is what it was before that route existed."""
+    plan = fe.fused_plan(340, 136, 2, BF16)
+    assert fe.TC_MAX_HD_PAD == 144
+    assert list(plan.as_ints) == [
+        1, 64, 16, 256, 115712,      # qkv
+        0, 64, 2, 256, 147968,       # attn_fwd: scalar
+        1, 64, 16, 256, 193536,      # tail
+        1, 64, 16, 256, 229376,      # bwd_rows
+        0, 64, 2, 256, 191744,       # attn_dq: scalar
+        0, 64, 2, 256, 208896,       # attn_dkv: scalar
+        1, 64, 16, 256, 197632,      # dx
+        1, 64, 16, 128, 32768]       # wgrad
+    for name in ATTN_LAUNCHES:
+        assert plan[name].route == "scalar" and plan[name].threads == 256

@@ -8,7 +8,7 @@ bf16 operands (8-bit mantissas, rounding at other points of the sums).
 The attention kernels' gradients, and flash_mha's o besides, are compared
 sample by sample relative to that sample's largest plain value
 (_sample_err): 1e-5 f32, 5e-3 bf16 (chip_smoke.SAMPLE_TOL; on these
-inputs an H100 reads at most 1.1e-6 / 2.0e-3 for gradients and 2.3e-6 /
+inputs an H100 reads at most 1.1e-6 / 2.9e-3 for gradients and 2.3e-6 /
 2.6e-3 for o: `python3 chip_ab.py --run .:sample_err`). The fused
 layer's out, attn and dx are held sample by sample too (the same limits),
 its weight gradients, sums over every row, relative to max(1, the plain
@@ -23,6 +23,7 @@ from raindrop_tpu_torch.ops import flash_attention as fa
 from raindrop_tpu_torch.ops import fused_encoder as fe
 from raindrop_tpu_torch.ops import sparse as sp
 from raindrop_tpu_torch.nn.transformer import _layer_init
+from test_torch_packed_plan import wide_smem
 
 TOL = {None: 1e-4, "bfloat16": 2e-2}
 SAMPLE_TOL = {None: 1e-5, "bfloat16": 5e-3}
@@ -30,12 +31,18 @@ SEED = 20231
 # flash_mha_packed's shapes: hd 8, 36 (eICU), 80 (P12), 84, 42 (4-byte
 # copies), 128, and 13 and 3 (odd: 2-byte plain loads, unpaired stores),
 # T within a tile, one row past it, and the longest; the sensor-wise head
-# dims 140 (eICU: tensor cores at hd_pad 144 in bf16), 170 (PAM: the
-# scalar kernels' Narrow geometry at 48 columns a thread) and 360 (P12:
-# the Wide geometry, 32-row tiles), and 129 (one past the old limit)
+# dims 140 (eICU: tensor cores at hd_pad 144 in bf16), 170 (PAM) and 360
+# (P12), and 129 (one past the old limit). Past hd_pad 144 bf16 takes the
+# two-warpgroup kernels ("tc_wide"; f32 the scalar Narrow geometry up to
+# hd 192, Wide beyond): hd 145, 193 and 199 (odd: 2-byte loads), 150
+# (4-byte copies), 160, 176 (the first wide width), 192, 256 and 368 (the
+# last), T 33, 64, 65, 100, 215 and 1024 (a 32-row key tile ending inside
+# a 64-row block, and the longest)
 PACKED_SHAPES = [(13, 16, 2), (130, 72, 2), (215, 160, 2), (70, 84, 1), (64, 84, 2),
                  (65, 256, 2), (1024, 84, 2), (1024, 256, 2), (100, 26, 2), (65, 6, 2),
-                 (300, 280, 2), (65, 340, 2), (215, 720, 2), (33, 720, 2), (64, 258, 2)]
+                 (300, 280, 2), (65, 340, 2), (215, 720, 2), (33, 720, 2), (64, 258, 2),
+                 (65, 290, 2), (33, 320, 2), (100, 300, 2), (215, 352, 2), (64, 384, 2),
+                 (65, 386, 2), (1024, 512, 2), (215, 736, 2), (1024, 736, 2), (64, 199, 1)]
 pytestmark = pytest.mark.cuda
 
 
@@ -121,29 +128,37 @@ def test_flash_autograd_reaches_the_backward_kernels(gen):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("T,d,nhead", PACKED_SHAPES)
 def test_flash_tensor_core_kernels_match_the_scalar_ones(gen, T, d, nhead, rate):
-    """bf16: the plan's route (the tensor cores up to hd_pad 144) against the
-    previous design (the scalar kernels, same operands): forward, dq, dk,
-    dv; past hd_pad 144 the plan takes the scalar kernels themselves."""
+    """bf16: the plan's route (the tensor cores on one warpgroup up to
+    hd_pad 144, on two past it) against the previous design (the scalar
+    kernels, same operands): forward, dq, dk, dv, each launch counted on
+    its route, bit-equal on a repeat, exact zeros for the length-0 sample."""
     B = 5
     q, k, v, g = (torch.randn((B, T, d), generator=gen, device="cuda")
                   for _ in range(4))
     lengths = _lengths(gen, B, T)
     od = torch.bfloat16
-    tc = int(fa.packed_plan(B, T, d, nhead, od).route == "tc")
-    assert tc == (d // nhead <= fa.TC_MAX_HD_PAD)
-    tc0 = (fa.flash_mha_packed.tc_launches, fa.flash_mha_packed.tc_bwd_launches)
+    route = fa.packed_plan(B, T, d, nhead, od).route
+    assert route == ("tc" if -(-(d // nhead) // 16) * 16 <= fa.TC_MAX_HD_PAD else "tc_wide")
+    names = ("tc_launches", "tc_bwd_launches", "tc_wide_launches", "tc_wide_bwd_launches")
+    before = [getattr(fa.flash_mha_packed, n) for n in names]
     o, lse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, nhead, od)
+    o2, lse2 = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, nhead, od)
     so, slse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, impl="scalar")
     got = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
+    again = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
     want = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g,
                                impl="scalar")
-    assert (fa.flash_mha_packed.tc_launches,
-            fa.flash_mha_packed.tc_bwd_launches) == (tc0[0] + tc, tc0[1] + tc)
+    tc, wide = int(route == "tc"), int(route == "tc_wide")
+    assert [getattr(fa.flash_mha_packed, n) - b for n, b in zip(names, before)] == [
+        2 * tc, 2 * tc, 2 * wide, 2 * wide]
     torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     assert (o - so).abs().max().item() <= TOL["bfloat16"]
     assert (lse - slse).abs().max().item() <= TOL["bfloat16"]
     assert (o[0] == 0).all() and (lse[0] == fa.NEG_INF).all()
-    for a, b in zip(got, want):
+    for a, a2, b in zip(got, again, want):
+        assert torch.isfinite(a).all() and torch.equal(a, a2)
+        assert (a[0] == 0).all()
         assert _sample_err(a, b, lengths) <= SAMPLE_TOL["bfloat16"]
 
 
@@ -160,6 +175,33 @@ def test_flash_autograd_in_bf16_reaches_the_tensor_core_kernels(gen):
         b0[0] + 1, b0[1] + 1)
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
     assert all((t.grad[2] == 0).all() for t in (q, k, v))
+
+
+def test_flash_autograd_in_bf16_reaches_the_wide_kernels(gen):
+    """P12's sensor-wise head (hd 360, d 720) in bf16 through autograd: one
+    forward and one backward launch, both on the two-warpgroup route."""
+    q, k, v = (torch.randn((3, 215, 720), generator=gen, device="cuda",
+                           requires_grad=True) for _ in range(3))
+    lengths = torch.tensor([215, 70, 0], device="cuda")
+    f0 = (fa.flash_mha_packed.launches, fa.flash_mha_packed.tc_wide_launches)
+    b0 = (fa.flash_mha_packed.bwd_launches, fa.flash_mha_packed.tc_wide_bwd_launches)
+    fa.flash_mha_packed(q, k, v, lengths, SEED, 0.2, "bfloat16", 2).square().sum().backward()
+    assert (fa.flash_mha_packed.launches, fa.flash_mha_packed.tc_wide_launches) == (
+        f0[0] + 1, f0[1] + 1)
+    assert (fa.flash_mha_packed.bwd_launches, fa.flash_mha_packed.tc_wide_bwd_launches) == (
+        b0[0] + 1, b0[1] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    assert all((t.grad[2] == 0).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("hd", [145, 150, 176, 177, 193, 256, 360, 368])
+def test_wide_shared_memory_is_the_mirror(gen, hd):
+    """rd_packed_smem on the "tc_wide" route equals the Python mirror
+    (tests/test_torch_packed_plan.py wide_smem), which the CPU tests hold
+    within a block at every width."""
+    plan = fa.packed_plan(8, 215, 2 * hd, 2, torch.bfloat16)
+    assert plan.route == "tc_wide"
+    assert fa.packed_smem(8, 215, 2 * hd, 2, torch.bfloat16) == wide_smem(plan.hd_pad)
 
 
 def _random_layer(gen, d, ffn):

@@ -16,6 +16,18 @@ from raindrop_tpu_torch.ops import flash_attention as fa
 
 BF16, F32 = torch.bfloat16, torch.float32
 SMEM = 232448      # shared bytes a block may use on sm_90
+WIDE_PADS = (176, 208, 240, 272, 304, 336, 368)   # the "tc_wide" route's widths
+
+
+def wide_smem(hd_pad):
+    """Shared bytes of the "tc_wide" forward, dq and dk/dv kernels at a
+    padded head dim (csrc/attention_tc_wide.cuh): 64-row tiles of the own
+    side (Q; Q and dO; K and V) and a two-stage ring of 32-row tiles of the
+    streamed side (K and V; K and V; Q and dO), plus two stages of 32 lse
+    and 32 delta floats in the dk/dv pass."""
+    own, streamed = 64 * hd_pad * 2, 32 * hd_pad * 2
+    return (own + 4 * streamed, 2 * own + 4 * streamed,
+            2 * own + 4 * streamed + 2 * 2 * 32 * 4)
 
 
 @pytest.fixture
@@ -44,7 +56,9 @@ def test_padded_head_dims(hd):
         assert plan.route == "tc"
         assert plan.hd_pad % 16 == 0 and hd <= plan.hd_pad < hd + 16
     else:
-        assert plan.route == "scalar" and plan.hd_pad == hd
+        # past it on two warpgroups, at one of the wide route's widths
+        assert plan.route == "tc_wide"
+        assert plan.hd_pad in WIDE_PADS and hd <= plan.hd_pad < hd + 32
     assert plan.as_ints[1] == plan.hd_pad
     scalar = fa.packed_plan(4, 65, 2 * hd, 2, F32)
     assert scalar.route == "scalar" and scalar.hd_pad == hd
@@ -124,18 +138,24 @@ def test_head_dim_past_the_limit_raises():
 @pytest.mark.parametrize("od", [BF16, F32])
 def test_sensor_wise_routes(od):
     """The sensor-wise widths (2 heads): eICU's hd 140 keeps the tensor
-    cores in bf16 at hd_pad 144; P12's hd 360 takes the scalar kernels in
-    both dtypes, in the Wide geometry (32-row tiles); PAM's hd 170 (the
-    fused layer's attention) the Narrow one."""
+    cores in bf16 at hd_pad 144; P12's hd 360 takes the two-warpgroup
+    tensor-core kernels in bf16 at hd_pad 368 and the scalar ones in f32,
+    in the Wide geometry (32-row blocks); PAM's hd 170 (the fused layer's
+    attention) the Narrow one in f32."""
     eicu = fa.packed_plan(128, 300, 280, 2, od)
     if od == BF16:
         assert (eicu.route, eicu.hd_pad, eicu.rows) == ("tc", 144, 64)
     else:
         assert (eicu.route, eicu.rows) == ("scalar", 64)
     p12 = fa.packed_plan(128, 215, 720, 2, od)
-    assert (p12.route, p12.hd_pad, p12.rows) == ("scalar", 360, 32)
-    assert p12.copy_bytes == od.itemsize
-    assert p12.threads == (256, 256, 256) and p12.grid == (7, 2, 128)
+    if od == BF16:
+        assert (p12.route, p12.hd_pad, p12.rows, p12.copy_bytes) == ("tc_wide", 368, 64, 16)
+        assert p12.threads == (256, 256, 256) and p12.grid == (4, 2, 128)
+        assert list(p12.as_ints) == [2, 368, 16, 64, 256, 256, 256, 4, 2, 128]
+    else:
+        assert (p12.route, p12.hd_pad, p12.rows) == ("scalar", 360, 32)
+        assert p12.copy_bytes == od.itemsize
+        assert p12.threads == (256, 256, 256) and p12.grid == (7, 2, 128)
     pam = fa.packed_plan(128, 600, 340, 2, F32)
     assert (pam.route, pam.rows) == ("scalar", 64)
 
@@ -155,9 +175,11 @@ def test_sensor_wise_shared_memory(card):
     assert fa.packed_smem(128, 300, 280, 2, BF16) == (92160, 110592, 111616)
     assert fa.packed_smem(128, 300, 280, 2, F32) == scalar(140, 64) == (
         124928, 161024, 178176)
-    for od in (BF16, F32):
-        assert fa.packed_smem(128, 215, 720, 2, od) == scalar(360, 32) == (
-            142848, 189056, 193536)
+    assert fa.packed_smem(128, 215, 720, 2, F32) == scalar(360, 32) == (
+        142848, 189056, 193536)
+    assert fa.packed_smem(128, 215, 720, 2, BF16, impl="scalar") == scalar(360, 32)
+    assert fa.packed_smem(128, 215, 720, 2, BF16) == wide_smem(368) == (
+        141312, 188416, 188928)
     assert fa.packed_smem(128, 600, 340, 2, F32) == scalar(170, 64) == (
         147968, 191744, 208896)
     # the Narrow geometry's dk/dv pass at its widest head dim, 192; the
@@ -176,8 +198,47 @@ def test_scalar_geometry_switches_where_narrow_stops_fitting():
     assert fa.packed_plan(1, 16, 192, 1, F32).rows == 64
     assert fa.packed_plan(1, 16, 193, 1, F32).rows == 32
     assert fa.packed_plan(1, 16, fa.MAX_HEAD_DIM, 1, F32).rows == 32
-    # P12's hd 360 on the tensor cores would need five 64 x 368 bf16 tiles,
-    # 235,520 bytes: past hd_pad 144 bf16 takes the scalar kernels
+    # P12's hd 360 on the one-warpgroup tensor-core kernels would need five
+    # 64 x 368 bf16 tiles, 235,520 bytes: past hd_pad 144 bf16 takes the
+    # two-warpgroup kernels, which stream 32-row tiles, and no longer the
+    # scalar ones
     assert 5 * 64 * 368 * 2 == 235520 > SMEM
     assert fa.packed_plan(1, 16, 2 * 144, 2, BF16).route == "tc"
-    assert fa.packed_plan(1, 16, 2 * 145, 2, BF16).route == "scalar"
+    assert fa.packed_plan(1, 16, 2 * 145, 2, BF16).route == "tc_wide"
+    assert fa.packed_plan(1, 16, 2 * 145, 2, BF16, impl="scalar").route == "scalar"
+
+
+@pytest.mark.parametrize("hd", range(fa.TC_MAX_HD_PAD + 1, fa.MAX_HEAD_DIM + 1))
+def test_wide_heads_take_the_two_warpgroup_kernels_in_bf16(hd):
+    """Every bf16 head dim past hd_pad 144 (hd 145-368) takes "tc_wide":
+    the smallest wide width at or above hd, 256 threads (two warpgroups)
+    in each launch, 64-row blocks; f32 and impl="scalar" keep the scalar
+    kernels as they were (rows by geometry, the hd itself)."""
+    T, d = 215, 2 * hd
+    plan = fa.packed_plan(128, T, d, 2, BF16)
+    want_pad = min(p for p in WIDE_PADS if p >= hd)
+    assert (plan.route, plan.hd, plan.hd_pad, plan.rows) == ("tc_wide", hd, want_pad, 64)
+    assert plan.hd_pad == fa.wide_pad(hd)
+    assert plan.threads == (256, 256, 256) and plan.grid == (4, 2, 128)
+    assert list(plan.as_ints)[:2] == [2, want_pad]
+    assert plan.copy_bytes == (16 if hd % 8 == 0 else 8 if hd % 4 == 0
+                               else 4 if hd % 2 == 0 else 2)
+    rows = 64 if hd <= fa.NARROW_MAX_HD else 32
+    for f32 in (fa.packed_plan(128, T, d, 2, F32),
+                fa.packed_plan(128, T, d, 2, BF16, impl="scalar")):
+        assert (f32.route, f32.hd_pad, f32.rows, f32.threads) == (
+            "scalar", hd, rows, (256, 256, 256))
+        assert f32.grid == (-(-T // rows), 2, 128)
+
+
+@pytest.mark.parametrize("hd_pad", WIDE_PADS)
+def test_wide_kernels_fit_a_block_at_every_width(hd_pad):
+    """The mirror of the "tc_wide" kernels' shared bytes: within a block's
+    232,448 at every width (one CTA an SM), the widest at hd_pad 368 (P12's
+    sensor-wise head), where five 64-row tiles would not fit."""
+    fwd, dq, dkv = wide_smem(hd_pad)
+    assert max(fwd, dq, dkv) <= SMEM
+    assert fwd < dq < dkv
+    if hd_pad == 368:
+        assert (fwd, dq, dkv) == (141312, 188416, 188928)
+        assert 5 * 64 * hd_pad * 2 > SMEM
