@@ -28,21 +28,38 @@ order with that checkout's own code:
   latency     a P12 server (random weights from seed 0): request latency
               by bucket, the median of 31 requests, and the top bucket's
               device time and idle share (chip_smoke.serve_timing);
-  split       flash_mha at PAM's width on a 2048-step window (B=128, H=2,
-              D=42, bf16, ragged lengths): the forward (dropout 0) and the
-              backward (dropout 0.2) timed by CUDA events (10 calls);
+  split       flash_mha on a 2048-step window (B=128, H=2, bf16, ragged
+              lengths) at PAM's head dim (42), PAM-sw's (170) and 360: the
+              forward (dropout 0) and the backward (dropout 0.2) timed by
+              CUDA events (5 calls) on the operands as the checkout's model
+              path casts them (into heads zero-padded to 8 columns where the
+              checkout has `_flash_operands`) and there on a plain cast too
+              (dense heads: 4-byte copies at hd 42 and 170);
+  long        PAM at max_len 2048, without and with sensor_wise_mask (hd 42
+              and 170): a training step at B=128 (CUDA events, median of 3,
+              and device time) and a server's latency by bucket with the
+              top bucket's device time;
   bits        flash_mha forward and backward at head dims 8, 42 and 128
               (each column count of the Narrow geometry), T 600 and 2048,
-              f32 and bf16 operands, dropout 0.2, B=8, H=2: a SHA-256 of
+              f32 and bf16 operands (the bf16 hashes move with the route:
+              the tensor cores against the scalar kernels), and at 170 and
+              360 (T 2048, f32), dropout 0.2, B=8, H=2: a SHA-256 of
               the bytes of o, lse, dq, dk and dv; the same of
               flash_mha_packed at P12 (T=215, d=160), eICU (T=300, d=72)
               and eICU-sw (d=280) in bf16 (the one-warpgroup tensor-core
-              route) and at P12-sw (d=720) in f32 (the scalar route),
+              route) and at P12-sw (d=720) in bf16 (the two-warpgroup
+              route) and f32 (the scalar route),
               dropout 0 and 0.2, B=8, 2 heads; and fused_encoder_layer
               with f32 operands at PAM's width (d=84) and PAM-sw's (340),
               ffn=136, 2 heads, T 100 and 600, dropout 0 and 0.2, B=8: a
               SHA-256 of out, attn, lse, dx and the 12 weight gradients;
               to compare checkouts bit for bit;
+  ds_rounding where bf16 gradients' sample_err comes from at its largest
+              reading (flash_mha, T=600, hd 42, B=128, dropout 0): the
+              tensor-core and scalar kernels and the plain backward in f32
+              and in f64 (all rounding ds and p to bf16 before their
+              products) against one another, and the share of ds elements
+              whose bf16 value the f32 and f64 evaluations round apart;
   sample_err  the largest chip_smoke.sample_err of o and of each gradient
               against the plain version, by test and operand dtype, on the
               inputs of the attention tests in
@@ -55,7 +72,8 @@ order with that checkout's own code:
               `-Xptxas -v` (all nvcc processes together): registers, stack
               frame and spill bytes of each kernel, the spilling ones
               printed, and every flash_mha kernel (split_*_kernel, each
-              geometry and column count), every tensor-core kernel of
+              geometry and column count; split_*_tc and split_*_wide
+              counted apart), every tensor-core kernel of
               the fused layer (*_tc*, pack_weights_kernel) and every
               two-warpgroup packed kernel (packed_*_wide) printed.
 
@@ -101,7 +119,10 @@ def task_build(root, cs):
 def task_one_unit(root, cs):
     from raindrop_tpu_torch.kernels import build
 
-    units = [str(u) for u in build._units("flash_packed")]
+    # the packed pair's entry points and its tensor-core kernels (flash_mha's
+    # entry points, a unit of the same library, share helper names with
+    # flash_packed.cu and cannot join it in one file)
+    units = [str(u) for u in build._units("flash_packed") if u.stem != "flash_split"]
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "one_unit.cu")
         with open(src, "w") as f:
@@ -234,18 +255,100 @@ def task_split(root, cs):
     import torch
     from raindrop_tpu_torch.ops import flash_attention as fa
 
-    B, H, T, D, od = 128, 2, 2048, 42, torch.bfloat16
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, g = (x.to(od) for x in cs._head_views(gen, B, H, T, D, 4, "cuda"))
-    lengths = cs.ragged_lengths(gen, B, T, "cuda")
-    o, lse = fa._flash_fwd_cuda(q, k, v, lengths, cs.SEED, 0.2, od)
-    out = {
-        "fwd_ms": cs.time_ms(lambda: fa._flash_fwd_cuda(q, k, v, lengths, 0, 0.0, od),
-                             reps=10, warmup=2),
-        "bwd_ms": cs.time_ms(lambda: fa._flash_bwd_cuda(q, k, v, lengths, cs.SEED, 0.2, od,
-                                                        o, lse, g), reps=10, warmup=2)}
-    print(f"[ab] {root}: flash_mha B={B} T={T} D={D} bf16: forward {out['fwd_ms']:.4f} ms, "
-          f"backward {out['bwd_ms']:.4f} ms", flush=True)
+    B, H, T, od = 128, 2, 2048, torch.bfloat16
+    out = {}
+    for D in (42, 170, 360):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, g = cs._head_views(gen, B, H, T, D, 4, "cuda")
+        lengths = cs.ragged_lengths(gen, B, T, "cuda")
+        # the operands as this checkout's model path casts them (the padded
+        # cast where the checkout has one), and a plain cast
+        # (each with the columns its heads hold, which that checkout's
+        # wrappers take as `cols`)
+        prep = getattr(fa, "_flash_operands", None)
+        plain = [x.to(od) for x in (q, k, v, g)]
+        casts = {"model": (plain, None)}
+        if prep:
+            casts = {"model": prep((q, k, v, g), od), "plain_cast": (plain, None)}
+        del q, k, v, g, plain
+        for name, ((qo, ko, vo, go), cols) in casts.items():
+            kw = {} if cols is None else dict(cols=cols)
+            bkw = {} if cols is None else dict(cols=cols, g_cols=cols)
+            o, lse = fa._flash_fwd_cuda(qo, ko, vo, lengths, cs.SEED, 0.2, od, **kw)
+            fwd = cs.time_ms(lambda: fa._flash_fwd_cuda(qo, ko, vo, lengths, 0, 0.0, od, **kw),
+                             reps=5, warmup=1)
+            bwd = cs.time_ms(lambda: fa._flash_bwd_cuda(qo, ko, vo, lengths, cs.SEED, 0.2, od,
+                                                        o, lse, go, **bkw), reps=5, warmup=1)
+            key = f"D{D}" + ("" if name == "model" else f"_{name}")
+            out[f"{key}_fwd_ms"], out[f"{key}_bwd_ms"] = fwd, bwd
+            print(f"[ab] {root}: flash_mha B={B} T={T} D={D} bf16 ({name}): forward "
+                  f"{fwd:.4f} ms (dropout 0), backward {bwd:.4f} ms (dropout 0.2)", flush=True)
+        del casts
+        torch.cuda.empty_cache()
+    return out
+
+
+def task_long(root, cs):
+    """PAM's width on a 2048-step window, without and with sensor_wise_mask
+    (hd 42 and 170, full width and depth, random weights): a training step
+    at B=128 on synthetic_split("PAM", 320, T=2048) batches (sampler
+    strategy 3), CUDA events around each of 3 steps after a warm-up epoch
+    and the profiler's device time of an epoch; then a server's request
+    latency by bucket and the top bucket's device time
+    (chip_smoke.serve_timing)."""
+    import numpy as np
+    import torch
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.data.datasets import synthetic_split
+    from raindrop_tpu_torch.models.raindrop import raindrop_init
+    from raindrop_tpu_torch.serve import InferenceServer
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    out, batch, n_batches = {}, 128, 3
+    for label, over in (("PAM-2048", cs.LONG),
+                        ("PAM-sw-2048", {**cs.LONG, "sensor_wise_mask": True})):
+        cfg = dataset_config("PAM", **over)
+        tcfg = TrainConfig(dataset="PAM", num_epochs=1, learning_rate=1e-4,
+                           batch_size=batch, batching_strategy=3,
+                           n_batches_strategy3=n_batches, seed=1)
+        trainer = Trainer(cfg, tcfg, device="cuda")
+        split = synthetic_split("PAM", 320, 0, T=cfg.max_len)
+        data = {"P": torch.from_numpy(split.Ptrain).to("cuda"),
+                "time": torch.from_numpy(split.Ptrain_time).to("cuda"),
+                "y": torch.from_numpy(split.ytrain).to("cuda").long()}
+        n_train = len(split.ytrain)
+        idx = torch.stack([torch.randperm(n_train, generator=torch.Generator().manual_seed(i))
+                           [:batch] for i in range(n_batches)]).to("cuda")
+        trainer.train_epoch(data, idx)
+        step_ms = []
+        for k in range(n_batches):
+            b = {name: t[idx[k]] for name, t in data.items()}
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            trainer.train_step(b)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        wall_ms, device_ms, idle, top_k = cs.profile_device(
+            lambda: trainer.train_epoch(data, idx), n_batches)
+        del trainer, data
+        torch.cuda.empty_cache()
+        server = InferenceServer(cfg, raindrop_init(0, cfg, device="cuda"),
+                                 buckets=(1, 8, 32, 128), device="cuda")
+        P, times, static = cs.make_requests(cfg, 128, 1)
+        timing = cs.serve_timing(label, server, P, times, static)
+        server.close()
+        del server
+        torch.cuda.empty_cache()
+        out[label] = {"step_ms": step_ms, "step_ms_median": float(np.median(step_ms)),
+                      "step_device_ms": device_ms, "step_idle_share": idle,
+                      "step_device_ms_by_kernel": top_k,
+                      **{k: timing[k] for k in ("latency_ms", "profile_device_ms",
+                                                "idle_share", "device_ms_by_kernel")}}
+        print(f"[ab] {root}: {label} step {out[label]['step_ms_median']:.3f} ms (CUDA "
+              f"events, median of {n_batches}), device {device_ms:.3f} ms a step; top "
+              f"bucket {timing['latency_ms'][128]:.3f} ms, device "
+              f"{timing['profile_device_ms']:.3f} ms", flush=True)
     return out
 
 
@@ -256,19 +359,20 @@ def task_bits(root, cs):
     from raindrop_tpu_torch.ops import flash_attention as fa
 
     out = {}
-    for D in (8, 42, 128):
-        for T in (600, 2048):
-            gen = torch.Generator(device="cuda").manual_seed(D + T)
-            q, k, v, g = cs._head_views(gen, 8, 2, T, D, 4, "cuda")
-            lengths = cs.ragged_lengths(gen, 8, T, "cuda")
-            for cd in (None, "bfloat16"):
-                o, lse = fa._flash_fwd(q, k, v, lengths, cs.SEED, 0.2, cd)
-                grads = fa._flash_bwd_cuda(q, k, v, lengths, cs.SEED, 0.2,
-                                           fa.operand_dtype(cd), o, lse, g)
-                h = hashlib.sha256()
-                for x in (o, lse, *grads):
-                    h.update(x.contiguous().cpu().numpy().tobytes())
-                out[f"D{D}_T{T}_{cd or 'float32'}"] = h.hexdigest()
+    shapes = [(D, T, (None, "bfloat16")) for D in (8, 42, 128) for T in (600, 2048)]
+    shapes += [(D, 2048, (None,)) for D in (170, 360)]
+    for D, T, cds in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(D + T)
+        q, k, v, g = cs._head_views(gen, 8, 2, T, D, 4, "cuda")
+        lengths = cs.ragged_lengths(gen, 8, T, "cuda")
+        for cd in cds:
+            o, lse = fa._flash_fwd(q, k, v, lengths, cs.SEED, 0.2, cd)
+            grads = fa._flash_bwd_cuda(q, k, v, lengths, cs.SEED, 0.2,
+                                       fa.operand_dtype(cd), o, lse, g)
+            h = hashlib.sha256()
+            for x in (o, lse, *grads):
+                h.update(x.contiguous().cpu().numpy().tobytes())
+            out[f"D{D}_T{T}_{cd or 'float32'}"] = h.hexdigest()
     out.update(_packed_bits(cs))
     out.update(_fused_bits(cs))
     print(f"[ab] {root}: bits {out}", flush=True)
@@ -276,9 +380,9 @@ def task_bits(root, cs):
 
 
 def _packed_bits(cs):
-    """SHA-256 of flash_mha_packed's o, lse, dq, dk and dv on the routes
-    this comparison holds still: the one-warpgroup tensor cores (bf16 at
-    P12, eICU, eICU-sw) and the scalar kernels (f32 at P12-sw)."""
+    """SHA-256 of flash_mha_packed's o, lse, dq, dk and dv on every route:
+    the one-warpgroup tensor cores (bf16 at P12, eICU, eICU-sw), the two
+    (bf16 at P12-sw) and the scalar kernels (f32 at P12-sw)."""
     import hashlib
 
     import torch
@@ -286,7 +390,8 @@ def _packed_bits(cs):
 
     out = {}
     for label, T, d, cd in (("P12", 215, 160, "bfloat16"), ("eICU", 300, 72, "bfloat16"),
-                            ("eICU-sw", 300, 280, "bfloat16"), ("P12-sw", 215, 720, None)):
+                            ("eICU-sw", 300, 280, "bfloat16"), ("P12-sw", 215, 720, None),
+                            ("P12-sw", 215, 720, "bfloat16")):
         for rate in (0.0, 0.2):
             gen = torch.Generator(device="cuda").manual_seed(d + T)
             q, k, v, g = (torch.randn((8, T, d), generator=gen, device="cuda")
@@ -402,6 +507,94 @@ def task_sample_err(root, cs):
     return out
 
 
+def _plain_bwd(q, k, v, do, delta, lengths, lse, od, acc, round_ds=True):
+    """flash_mha's plain backward at dropout 0 (fa._heads_bwd_plain's
+    function and rounding points) with every product and ds in the dtype
+    `acc`; ds (and p for dv) rounded to `od` before their products unless
+    round_ds is False. q, k, v, do hold values already rounded to `od`."""
+    import math
+
+    import torch
+
+    T, D = q.shape[-2:]
+    scale = 1.0 / math.sqrt(D)
+    qa, ka, va, da = (x.to(acc) for x in (q, k, v, do))
+    live = (torch.arange(T, device=q.device)[None, :]
+            < lengths.to(torch.int64)[:, None])[:, None, None, :]
+    s = (qa @ ka.transpose(-1, -2)) * (scale * 1.4426950408889634)
+    p = torch.exp2(torch.where(live, s - lse[..., None].to(acc),
+                               torch.full_like(s, -float("inf"))))
+    ds = p * ((da @ va.transpose(-1, -2)) - delta[..., None].to(acc))
+    if round_ds:
+        ds, pr = ds.to(od).to(acc), p.to(od).to(acc)
+    else:
+        pr = p
+    valid = (lengths > 0).to(acc)[:, None, None, None]
+    return ((ds @ ka) * scale * valid, (ds.transpose(-1, -2) @ qa) * scale * valid,
+            (pr.transpose(-1, -2) @ da) * valid), ds
+
+
+def task_ds_rounding(root, cs):
+    """Where the bf16 gradients' sample_err comes from, at the shape of the
+    largest reading (flash_mha, T=600, hd 42, B=128, H=2, dropout 0, the
+    inputs of chip_smoke.flash_mha_phase): the kernels (tensor-core route
+    and scalar) and the plain backward in f32 and in f64, each rounding ds
+    and p to bf16 before their products, held against one another by
+    chip_smoke.sample_err; and the share of live ds elements whose bf16
+    value differs between the f32 and the f64 evaluation. "plain_tf32" is
+    the f32 evaluation with TF32 matmuls: the operands hold bf16 values,
+    which TF32 keeps exactly, so it differs from "plain_f32" only in running
+    its products on cuBLAS's tensor-core kernels (their accumulation).
+    Also the sample (and its length) of the largest tensor-core dq reading."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    B, H, T, D, od = 128, 2, 600, 42, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, g = cs._head_views(gen, B, H, T, D, 4, "cuda")
+    lengths = cs.ragged_lengths(gen, B, T, "cuda")
+    o, lse = fa._flash_fwd(q, k, v, lengths, cs.SEED, 0.0, "bfloat16")
+    grads = {"tc": fa._flash_bwd_cuda(q, k, v, lengths, cs.SEED, 0.0, od, o, lse, g),
+             "scalar": fa._flash_bwd_cuda(q, k, v, lengths, cs.SEED, 0.0, od, o, lse, g,
+                                          "scalar")}
+    qr, kr, vr, dr = (x.to(od).float() for x in (q, k, v, g))
+    delta = (dr * o).sum(-1)
+    ds = {}
+    for name, acc, rnd in (("plain_f32", torch.float32, True),
+                           ("plain_f64", torch.float64, True),
+                           ("plain_f32_ds_unrounded", torch.float32, False),
+                           ("plain_tf32", torch.float32, True)):
+        torch.backends.cuda.matmul.allow_tf32 = name == "plain_tf32"
+        try:
+            grads[name], d = _plain_bwd(qr, kr, vr, dr, delta, lengths, lse, od, acc, rnd)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        if name in ("plain_f32", "plain_f64"):
+            ds[name] = d.to(od)
+        del d
+    live = ds["plain_f32"] != 0
+    out = {"ds_bf16_flips_f32_vs_f64": float(
+        ((ds["plain_f32"] != ds["plain_f64"]) & live).sum() / live.sum())}
+    del ds
+    pairs = [("tc", "plain_f32"), ("scalar", "plain_f32"), ("plain_f64", "plain_f32"),
+             ("tc", "plain_f64"), ("scalar", "plain_f64"), ("tc", "scalar"),
+             ("tc", "plain_f32_ds_unrounded"), ("scalar", "plain_f32_ds_unrounded"),
+             ("plain_tf32", "plain_f64"), ("tc", "plain_tf32")]
+    for a, b in pairs:
+        for n, x, y in zip(("dq", "dk", "dv"), grads[a], grads[b]):
+            out[f"{a}_vs_{b} {n}"] = cs.sample_err(x, y.float(), lengths)
+    x, y = grads["tc"][0], grads["plain_f64"][0].float()
+    diff = (x - y).abs().reshape(B, -1).amax(1)
+    scale = y.abs().reshape(B, -1).amax(1)
+    scale = torch.where(lengths > 1, scale, scale.max())
+    worst = int((diff / scale.clamp(min=torch.finfo(torch.float32).tiny)).argmax())
+    out["tc_vs_plain_f64 dq worst sample"] = worst
+    out["tc_vs_plain_f64 dq worst sample length"] = int(lengths[worst])
+    for key, e in out.items():
+        print(f"[ab] ds_rounding {key}: {e:.3e}", flush=True)
+    return out
+
+
 def task_ptxas(root, cs):
     import re
     from raindrop_tpu_torch.kernels import build
@@ -445,6 +638,8 @@ def task_ptxas(root, cs):
     split = {k: v for k, v in kernels.items() if "split_" in k}
     for k, v in split.items():
         print(f"[ptxas] flash_mha: {v} {k[:160]}", flush=True)
+    # the tensor-core kernels that flash_mha_packed and flash_mha share
+    tc = {k: v for k, v in kernels.items() if v["unit"].startswith("flash_packed_")}
     fused = {k: v for k, v in kernels.items() if v["unit"].startswith("fused_encoder")
              and ("_tc" in k or "pack_weights" in k)}
     for k, v in fused.items():
@@ -457,6 +652,9 @@ def task_ptxas(root, cs):
             "split_kernels": len(split),
             "split_spilling": sum(1 for v in split.values()
                                   if v["spill_stores"] or v["spill_loads"]),
+            "tc_kernels": len(tc),
+            "tc_spilling": sum(1 for v in tc.values() if v["spill_stores"] or v["spill_loads"]),
+            "tc_max_registers": max((v.get("registers", 0) for v in tc.values()), default=0),
             "fused_tc_kernels": len(fused),
             "fused_tc_spilling": sum(1 for v in fused.values()
                                      if v["spill_stores"] or v["spill_loads"]),
@@ -467,7 +665,9 @@ def task_ptxas(root, cs):
 
 
 TASKS = {"build": task_build, "one_unit": task_one_unit, "kernels": task_kernels,
+         "ds_rounding": task_ds_rounding,
          "serve_train": task_serve_train, "latency": task_latency, "split": task_split,
+         "long": task_long,
          "bits": task_bits, "sample_err": task_sample_err, "ptxas": task_ptxas}
 
 

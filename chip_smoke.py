@@ -12,9 +12,10 @@ check does not hold:
      raindrop_tpu_torch/csrc/ with nvcc (build seconds printed); then the
      SASS check: cuobjdump -sass on the flash_packed library and the fused
      layer's two must find HGMMA (wgmma) instructions in each tensor-core
-     kernel family (SASS_FAMILIES: the packed attention's three on one
-     warpgroup and three on two (past hd_pad 144), and every bf16 row
-     product of the fused layer with its attention);
+     kernel family (SASS_FAMILIES: the attention's three on one warpgroup
+     and three on two (past hd_pad 144), which flash_mha_packed and
+     flash_mha both launch, and every bf16 row product of the fused layer
+     with its attention);
   2. flash_mha_packed forward, kernel against its plain PyTorch version at
      the P12 (B=128, T=215, d=160) and eICU (T=300, d=72) shapes, f32 and
      bf16 operands, ragged lengths including 0, 1 and T, bit-equal on a
@@ -112,48 +113,58 @@ check does not hold:
      0.2, ragged lengths including 0, at B=128, H=2, D=42 and T=600 (the
      JAX package's one-program regime) and T=2048 (its streaming regime),
      on the strided head views the model hands it; finite, zero on the
-     length-0 sample, bit-equal on a repeat. At T=2048 the plain version
-     runs on 8 samples at a time (its [B, H, T, T] int64 mask would take
-     8.6 GB at B=128);
+     length-0 sample, bit-equal on a repeat. In bf16 the launch plan's
+     tensor-core route (every launch counted there) on the
+     model's padded cast, held against the scalar kernels (the previous
+     design) sample by sample and bit-equal on a plain cast's dense heads,
+     timed in turns with both (prev_ms, dense_ms), device times by the
+     profiler at T=600, SDPA with a key mask beside; the route printed. At T=2048
+     the plain version runs on 8 samples at a time (its [B, H, T, T] int64
+     mask would take 8.6 GB at B=128);
  17. the public op at T=600 with dropout 0.2 through autograd, held against
      flash_mha_packed on the same [B, T, d] tensors and seed (both hash
-     b * H + h, the global row and column): output and gradients;
+     b * H + h, the global row and column): output and gradients, within
+     1e-5 with f32 operands, bit-equal with bf16 (the same device routine);
  18. an InferenceServer for PAM's width on a 2048-step window
      (dataset_config("PAM", max_len=2048), full width and depth; every
      check of phase 7, held against the dense plain path), which must
-     launch flash_mha twice per forward;
+     launch flash_mha twice per forward, every launch on the tensor-core
+     route (hd 42);
  19. the trainer protocol on that configuration: train_split on
      synthetic_split("PAM", T=2048) (B=128, sampler strategy 3, dropout
      0.2) for 1 epoch with checkpoints, resumed from the `_last` file for
      a second, and the uninterrupted 2-epoch run, whose history the resumed
      one must equal bit for bit; finite records, metrics in [0, 1], the
      best file reloads, forward launches = 2 x (steps + predict chunks),
-     backward launches = 2 x steps; the first step's loss and gradient norm
-     against the dense path at dropout 0 on DENSE_ROWS (16) samples; step
-     ms, samples/s and the idle share;
+     backward launches = 2 x steps, all on the tensor-core route; the first
+     step's loss and gradient norm against the dense path at dropout 0 on
+     DENSE_ROWS (16) samples; step ms, samples/s and the idle share;
  20. run_splits, 2 splits of 1 epoch, for the summary's shape;
  21. flash_mha past hd 128 as phase 16 does it at T=2048: PAM-sw's head
-     (hd 170, d_inp * (d_ob + d_pe) = 340 over 2 heads: the Narrow
-     geometry at 48 columns a thread) and hd 360 (the Wide geometry,
-     32-row blocks), f32 and bf16 operands, dropout 0 and 0.2, SDPA with a
-     key mask beside; then the edge shapes, B=5, hd 129, 170, 192, 193,
-     200, 360 and 368 x T 65, 1025 and 2048 x dropout 0 and 0.2, both
-     operand dtypes, one length ending 45 rows into a 64-row block: forward
-     and backward against the plain version, bit-equal on a repeat, exact
-     zeros for the length-0 sample;
+     (hd 170, d_inp * (d_ob + d_pe) = 340 over 2 heads) and hd 360, in
+     bf16 on the two-warpgroup tensor-core route ("tc_wide", padded to 176
+     and 368), in f32 on the scalar kernels (the Narrow geometry at 170,
+     Wide at 360), dropout 0 and 0.2, timed in turns with the previous
+     design, SDPA with a key mask beside; then the edge shapes, B=5, hd 8,
+     13, 42, 128, 144 (one warpgroup in bf16) and 129, 170, 192, 193, 200,
+     360 and 368 x T 65, 1025 and 2048 x dropout 0 and 0.2, both operand
+     dtypes, one length ending 45 rows into a 64-row block: forward and
+     backward against the plain version and (bf16) the scalar kernels,
+     bit-equal on a repeat and on a plain cast, exact zeros for the
+     length-0 sample;
  22. phase 18 for PAM with sensor_wise_mask at max_len 2048 (PAM-sw-2048,
      hd 170): exactly two flash_mha launches per forward and no other
-     kernel, a row's probabilities across batches held to phase 18's 1e-5
-     (in bf16 and f32, and on the kernels' plain versions in bf16:
-     plain_kernels swaps flash_mha's in);
+     kernel, every one on "tc_wide", a row's probabilities across batches
+     held to phase 18's 1e-5 (in bf16 and f32, and on the kernels' plain
+     versions in bf16: plain_kernels swaps flash_mha's in);
  23. phase 9 on that configuration (B=128; the checks against the dense
      path and the falling-loss check at FIT_LR_SW on the first batch's
      first DENSE_ROWS rows, as past 1024 steps always), through flash_mha
-     forward and backward;
+     forward and backward, every launch on "tc_wide";
  24. phase 19 on that configuration, 2 epochs with checkpoints and a third
      resumed, bit-equal to the uninterrupted 3-epoch run, the launch
-     counts, the first step against the dense path, step ms, samples/s and
-     the idle share.
+     counts (all on "tc_wide"), the first step against the dense path,
+     step ms, samples/s and the idle share.
 
 Every phase's seconds are printed as `[phase] name: s` and kept under
 "phase_s" in the --out file.
@@ -174,8 +185,8 @@ The line before the last is the kernels' JSON record (twenty records:
 twelve kernels at the main paths' shapes, the packed pair and the fused
 layer again at the sensor-wise widths, and flash_mha forward and backward
 at PAM-sw-2048's hd 170; the fused layer's list the CUDA kernels of its
-tensor-core route and of the previous design, and its launches are the
-tensor-core ones), the last line the result. `--out PATH` also
+tensor-core route and of the previous design, and its launches, and
+flash_mha's, are the tensor-core ones), the last line the result. `--out PATH` also
 writes every number to PATH as JSON.
 """
 
@@ -198,9 +209,13 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # sample_err's limits for the attention kernels' gradients (and
 # flash_mha's o), f32 / bf16 operands. The largest readings on an H100,
 # here and in chip_ab.py's task sample_err (the card tests' inputs):
-# gradients 1.1e-6 / 3.8e-3 (flash_mha_packed's dv at P12-sw, B=128,
-# dropout 0.2, on the two-warpgroup route; at eICU 3.2e-3; flash_mha's
-# 2.0e-3), o 2.3e-6 / 2.6e-3.
+# gradients 1.1e-6 / 4.4e-3 (flash_mha's dq at T=600, hd 42, B=128,
+# dropout 0, on the tensor-core route, against the plain version and the
+# scalar kernels alike; flash_mha_packed's dv at P12-sw 3.8e-3), o 2.3e-6 /
+# 2.6e-3. chip_ab.py's task ds_rounding traces the 4.4e-3 to the tensor
+# cores' f32 accumulation: the plain backward run on cuBLAS's TF32
+# tensor-core kernels reads the same against an f64 evaluation, the f32
+# evaluation 9.4e-4.
 SAMPLE_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -647,8 +662,9 @@ def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
 
 
 # the tensor-core kernel families of each library whose SASS must hold
-# HGMMA (wgmma): the packed attention's three on one warpgroup and three on
-# two (past hd_pad 144) and, on the fused layer's bf16 route, every row
+# HGMMA (wgmma): the attention's three on one warpgroup and three on two
+# (past hd_pad 144), which flash_mha_packed and flash_mha both launch and,
+# on the fused layer's bf16 route, every row
 # product (qkv, the forward's tail, the backward's row kernel, dx, the
 # weight gradients) and the attention at PAM's head dim
 SASS_FAMILIES = {
@@ -939,25 +955,53 @@ def _in_chunks(fn, B, step):
     return [fn(slice(b0, min(b0 + step, B))) for b0 in range(0, B, step)]
 
 
+def _split_counts():
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    return {a: getattr(fa.flash_mha, a) for a in COUNTS}
+
+
+def _check_split_launches(before, route, fwd, bwd, what):
+    """fwd forward and bwd backward flash_mha launches since `before`, every
+    one counted on `route` (none on a tensor-core route for "scalar")."""
+    got = {a: n - before[a] for a, n in _split_counts().items()}
+    want = {a: 0 for a in COUNTS}
+    want.update(launches=fwd, bwd_launches=bwd)
+    if route != "scalar":
+        want.update({f"{route}_launches": fwd, f"{route}_bwd_launches": bwd})
+    if got != want:
+        raise AssertionError(f"flash_mha at {what}: launches {got}, expected {want}")
+
+
 def check_flash_mha(q, k, v, g, lengths, dtype, rate, n_plain, what):
     """flash_mha's kernels at one shape, forward and backward, each twice,
-    against the plain version on the first `n_plain` samples (b * H + h
-    keys the dropout mask, so a slice's plain masks are the kernel's only
-    from sample 0): o and lse to TOL, o and each gradient to SAMPLE_TOL
-    by sample_err; bit-equal on a repeat and finite; exact zeros for
-    sample 0, of length 0. Returns (o, lse, forward max_abs_err, the
-    sample_err of o, dq, dk and dv)."""
+    on the launch plan's route (split_route: bf16 on the tensor cores, the
+    operands in the padded cast the model's path makes), against the plain
+    version on the first `n_plain` samples (b * H + h keys the dropout
+    mask, so a slice's plain masks are the kernel's only from sample 0): o
+    and lse to TOL, o and each gradient to SAMPLE_TOL by sample_err;
+    bit-equal on a repeat and finite; exact zeros for sample 0, of length
+    0. In bf16 also against the scalar kernels (the previous design; its
+    backward on the same o and lse) on every sample by sample_err, and the
+    same kernels on a plain cast of the operands (dense heads: the copy
+    width their strides allow, 2 bytes at odd hd, 4 at hd 42 and 170)
+    bit-equal to the padded cast's. Returns (o, lse, forward max_abs_err,
+    the sample_err of o, dq, dk and dv, and in bf16 of each against the
+    scalar kernels, "<name>_vs_prev")."""
     import torch
     from raindrop_tpu_torch.ops import flash_attention as fa
 
     cd = None if dtype == "float32" else dtype
     od = fa.operand_dtype(cd)
     c = slice(0, n_plain)
+    route = split_route(q.shape[-1], dtype)
+    before = _split_counts()
     o, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
     o2, lse2 = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
     args = (q, k, v, lengths, SEED, rate, od, o, lse, g)
     got = fa._flash_bwd_cuda(*args)
     again = fa._flash_bwd_cuda(*args)
+    _check_split_launches(before, route, 2, 2, what)
     o_p, lse_p = fa._flash_fwd_plain(q[c], k[c], v[c], lengths[c], od, SEED, rate)
     want = fa._flash_bwd_plain(q[c], k[c], v[c], lengths[c], SEED, rate, od,
                                o[c], lse[c], g[c])
@@ -965,6 +1009,21 @@ def check_flash_mha(q, k, v, g, lengths, dtype, rate, n_plain, what):
     fwd_err = max(max_err(o[c], o_p), max_err(lse[c], lse_p))
     errs = {n: sample_err(a[c], b, lengths[c])
             for n, a, b in zip(("o", "dq", "dk", "dv"), (o, *got), (o_p, *want))}
+    del o_p, lse_p, want
+    if cd is not None:
+        prev_o, _ = fa._flash_fwd_cuda(q, k, v, lengths, SEED, rate, od, "scalar")
+        prev = fa._flash_bwd_cuda(*args, "scalar")
+        dense = [x.to(od) for x in (q, k, v, g)]
+        d_o, d_lse = fa._flash_fwd_cuda(*dense[:3], lengths, SEED, rate, od)
+        d_grads = fa._flash_bwd_cuda(*dense[:3], lengths, SEED, rate, od, o, lse, dense[3])
+        torch.cuda.synchronize()
+        errs.update({f"{n}_vs_prev": sample_err(a, b, lengths) for n, a, b in
+                     zip(("o", "dq", "dk", "dv"), (o, *got), (prev_o, *prev))})
+        if not all(torch.equal(a, b) for a, b in zip((o, lse, *got),
+                                                      (d_o, d_lse, *d_grads))):
+            raise AssertionError(f"flash_mha at {what}: the plain cast's operands give "
+                                 f"other bits than the padded cast's")
+        del prev_o, prev, dense, d_o, d_lse, d_grads
     if fwd_err > TOL[dtype] or max(errs.values()) > SAMPLE_TOL[dtype]:
         raise AssertionError(
             f"flash_mha kernels disagree at {what}: forward max_abs_err {fwd_err:.3e} "
@@ -981,7 +1040,12 @@ def flash_mha_phase(label, B, H, T, D, dtype, rate, device="cuda", seed=0):
     """Kernels vs plain for flash_mha, forward (with dropout when rate > 0)
     and backward, at one shape (check_flash_mha; the plain version on the
     first `chunk` samples, which hold the lengths 0, 1 and T), then their
-    times. Returns (forward run, backward run)."""
+    times. In bf16 the plan's tensor-core route on the padded cast the
+    model makes is timed in turns with the previous design (the scalar
+    kernels on a plain cast, prev_ms) and with the same route on the plain
+    cast (dense_ms: the copy width the dense heads allow), order scalar,
+    tc, dense, dense, tc, scalar; device times by the profiler up to T=1024;
+    SDPA with a key mask beside. Returns (forward run, backward run)."""
     import torch
     from raindrop_tpu_torch.ops import flash_attention as fa
 
@@ -991,26 +1055,57 @@ def flash_mha_phase(label, B, H, T, D, dtype, rate, device="cuda", seed=0):
     cd = None if dtype == "float32" else dtype
     od = fa.operand_dtype(cd)
     chunk = B if T <= 1024 else 8
+    route = split_route(D, dtype)
     o, lse, fwd_err, errs = check_flash_mha(q, k, v, g, lengths, dtype, rate, chunk,
                                             f"{label} {dtype} dropout {rate}")
     err = max(errs[n] for n in ("dq", "dk", "dv"))
-    print(f"[flash_mha] {label} {dtype} B={B} H={H} T={T} D={D} dropout {rate}: "
-          f"forward max_abs_err {fwd_err:.3e} (tol {TOL[dtype]:g}), sample_err "
+    print(f"[flash_mha] {label} {dtype} B={B} H={H} T={T} D={D} dropout {rate} ({route} "
+          f"route): forward max_abs_err {fwd_err:.3e} (tol {TOL[dtype]:g}), sample_err "
           f"{errs} (tol {SAMPLE_TOL[dtype]:g}; plain version on the first {chunk} "
-          f"samples)", flush=True)
+          f"samples, the scalar kernels on all)", flush=True)
 
-    # inputs already in the operand dtype, so the timed calls are the launches
-    qo, ko, vo = (x.to(od) for x in (q, k, v))
+    # inputs already in the operand dtype, so the timed calls are the
+    # launches: the tensor-core route on the model's padded cast ("tc"), the
+    # same on a plain cast ("dense"), the previous design ("scalar")
+    plain_cast = [x.to(od) for x in (q, k, v, g)]
+    padded, pad_cols = fa._flash_operands((q, k, v, g), od)
+    ops = {"tc": padded, "dense": plain_cast, "scalar": plain_cast}
+    cols = {"tc": pad_cols, "dense": None, "scalar": None}
+    impl = {"tc": "auto", "dense": "auto", "scalar": "scalar"}
+    names = ("scalar", "tc", "dense") if cd is not None else ("tc",)
     reps = dict(reps=20, warmup=3) if T <= 1024 else dict(reps=5, warmup=1)
-    ms = time_ms(lambda: fa._flash_fwd(qo, ko, vo, lengths, SEED, rate, cd), **reps)
-    targs = (qo, ko, vo, lengths, SEED, rate, od, o, lse, g)
-    bwd_ms = time_ms(lambda: fa._flash_bwd_cuda(*targs), **reps)
+
+    def fwd_run(n):
+        qo, ko, vo, _ = ops[n]
+        return fa._flash_fwd_cuda(qo, ko, vo, lengths, SEED, rate, od, impl[n], cols[n])
+
+    def bwd_run(n):
+        qo, ko, vo, go = ops[n]
+        return fa._flash_bwd_cuda(qo, ko, vo, lengths, SEED, rate, od, o, lse, go, impl[n],
+                                  cols[n], cols[n])
+
+    def in_turns(run):
+        t = {n: [] for n in names}
+        for n in (*names, *reversed(names)):
+            t[n].append(time_ms(lambda: run(n), **reps))
+        means = {n: sum(x) / len(x) for n, x in t.items()}
+        # past 1024 steps a launch takes a millisecond or more, so the
+        # events time the device; there the profiler has lost kernel
+        # records (readings of 0 or two launches in three), so it is not read
+        dev = ({n: device_ms(lambda: run(n)) for n in names if n != "dense"}
+               if T <= 1024 else {})
+        return dict(ms=means["tc"], prev_ms=means.get("scalar"), dense_ms=means.get("dense"),
+                    device_ms=dev.get("tc"), prev_device_ms=dev.get("scalar"))
+
+    ft, bt = in_turns(fwd_run), in_turns(bwd_run)
+    qo, ko, vo, go = ops["tc"]
     plain_ms = time_ms(lambda: _in_chunks(
         lambda c: fa._flash_fwd_plain(qo[c], ko[c], vo[c], lengths[c], od, SEED, rate),
         B, chunk), reps=2, warmup=1)
     bwd_plain_ms = time_ms(lambda: _in_chunks(
         lambda c: fa._flash_bwd_plain(qo[c], ko[c], vo[c], lengths[c], SEED, rate, od,
                                       o[c], lse[c], g[c]), B, chunk), reps=2, warmup=1)
+    del ops, plain_cast
     live = lengths > 0
     qh, kh, vh = (x[live].contiguous().requires_grad_() for x in (qo, ko, vo))
     keep = (torch.arange(T, device=device)[None, :]
@@ -1023,7 +1118,7 @@ def flash_mha_phase(label, B, H, T, D, dtype, rate, device="cuda", seed=0):
     gh = g[live].to(od)
     bwd_library_ms = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
                                                          retain_graph=True), **reps)
-    del out, qh, kh, vh
+    del out, qh, kh, vh, qo, ko, vo, go
     esize = 2 if dtype == "bfloat16" else 4
     total = float(lengths.sum())
     fwd_bytes = attention_bytes(lengths, T, H * D, H, esize)
@@ -1032,30 +1127,39 @@ def flash_mha_phase(label, B, H, T, D, dtype, rate, device="cuda", seed=0):
     bwd_flops = 10.0 * T * D * H * total
     bound_ms, bound_by = bound(fwd_bytes, fwd_flops, dtype)
     bwd_bound_ms, bwd_bound_by = bound(bwd_bytes, bwd_flops, dtype)
-    print(f"[flash_mha] {label} {dtype} dropout {rate}: forward {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}); backward {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, sdpa "
-          f"backward {bwd_library_ms:.4f} ms, bound {bwd_bound_ms:.4f} ms "
-          f"({bwd_bound_by}); {fwd_flops / 1e9:.1f} / {bwd_flops / 1e9:.1f} GFLOP",
-          flush=True)
-    shape = dict(label=label, dtype=dtype, rate=rate, B=B, H=H, T=T, D=D)
-    fwd = dict(**shape, max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms,
+    print(f"[flash_mha] {label} {dtype} dropout {rate} ({route} route): forward "
+          f"{ft['ms']:.4f} ms (device {ft['device_ms']}; {design_line(ft['ms'], ft['prev_ms'], bound_ms)}"
+          + (f"; plain cast {ft['dense_ms']:.4f} ms" if ft["dense_ms"] else "")
+          + f"), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); backward {bt['ms']:.4f} ms (device {bt['device_ms']}; "
+          f"{design_line(bt['ms'], bt['prev_ms'], bwd_bound_ms)}"
+          + (f"; plain cast {bt['dense_ms']:.4f} ms" if bt["dense_ms"] else "")
+          + f"), plain {bwd_plain_ms:.4f} ms, sdpa backward {bwd_library_ms:.4f} ms, bound "
+          f"{bwd_bound_ms:.4f} ms ({bwd_bound_by}); {fwd_flops / 1e9:.1f} / "
+          f"{bwd_flops / 1e9:.1f} GFLOP", flush=True)
+    shape = dict(label=label, dtype=dtype, rate=rate, B=B, H=H, T=T, D=D, route=route)
+    fwd = dict(**shape, max_abs_err=fwd_err, **ft, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               bytes=fwd_bytes, flops=fwd_flops)
-    bwd = dict(**shape, max_abs_err=err, errs=errs, ms=bwd_ms, plain_ms=bwd_plain_ms,
+               bound_share=bound_ms / ft["ms"], bytes=fwd_bytes, flops=fwd_flops)
+    bwd = dict(**shape, max_abs_err=err, errs=errs, **bt, plain_ms=bwd_plain_ms,
                library_ms=bwd_library_ms, bound_ms=bwd_bound_ms,
-               bound_by=bwd_bound_by, bytes=bwd_bytes, flops=bwd_flops)
+               bound_by=bwd_bound_by, bound_share=bwd_bound_ms / bt["ms"],
+               bytes=bwd_bytes, flops=bwd_flops)
     return fwd, bwd
 
 
 def flash_mha_op_phase(wrappers, device="cuda", seed=0, B=128, T=600, H=2, D=42,
                        rate=0.2):
     """The public op through autograd at a length the packed kernel also
-    takes, f32 operands, dropout on: flash_mha on the head views against
+    takes, dropout on: flash_mha on the head views against
     flash_mha_packed on the same [B, T, d] tensors and seed. Both hash
     b * H + h, the global row and the global column, so they draw the same
-    masks and agree to rounding (1e-5). Returns flash_mha's forward and
-    backward launch counts and the differences."""
+    masks: with f32 operands (the scalar kernels of both) they agree to
+    rounding (1e-5); with bf16 operands both run attention_tc.cuh's
+    routines at the same padded head dim on the same values, and o and the
+    gradients are bit-equal. Returns flash_mha's bf16 forward and backward
+    launch counts (every one on the tensor-core route) and the
+    differences."""
     import torch
     from raindrop_tpu_torch.ops import flash_attention as fa
 
@@ -1067,37 +1171,53 @@ def flash_mha_op_phase(wrappers, device="cuda", seed=0, B=128, T=600, H=2, D=42,
     def heads(x):
         return x.reshape(B, T, H, D).transpose(1, 2)
 
-    for fn in wrappers:
-        fn.launches = fn.bwd_launches = 0
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    o = fa.flash_mha(*(heads(x) for x in leaves), lengths, SEED, rate, None)
-    o.backward(heads(g))
-    counts = (fa.flash_mha.launches, fa.flash_mha.bwd_launches)
-    p_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    o_p = fa.flash_mha_packed(*p_leaves, lengths, SEED, rate, None, H)
-    o_p.backward(g)
-    torch.cuda.synchronize()
-    checks = {"o": max_err(o.detach().transpose(1, 2).reshape(B, T, H * D),
-                           o_p.detach())}
-    for n, a, b in zip(("dq", "dk", "dv"), leaves, p_leaves):
-        checks[n] = rel_err(a.grad, b.grad)
-    print(f"[flash_mha] public op at B={B} T={T} H={H} D={D} dropout {rate}, f32: "
-          f"against flash_mha_packed {checks} (tol 1e-5); launches {counts[0]} "
-          f"forward, {counts[1]} backward", flush=True)
-    bad = {n: x for n, x in checks.items() if not x <= 1e-5}
-    if bad or not bool(torch.isfinite(o).all()):
+    checks, counts = {}, {}
+    for cd in (None, "bfloat16"):
+        reset_counts(wrappers)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fa.flash_mha(*(heads(x) for x in leaves), lengths, SEED, rate, cd)
+        o.backward(heads(g))
+        counts[cd] = _split_counts()
+        p_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o_p = fa.flash_mha_packed(*p_leaves, lengths, SEED, rate, cd, H)
+        o_p.backward(g)
+        torch.cuda.synchronize()
+        merged = o.detach().transpose(1, 2).reshape(B, T, H * D)
+        name = cd or "float32"
+        if cd is None:
+            checks["float32"] = {"o": max_err(merged, o_p.detach())}
+            for n, a, b in zip(("dq", "dk", "dv"), leaves, p_leaves):
+                checks["float32"][n] = rel_err(a.grad, b.grad)
+        else:
+            checks[name] = {n: bool(torch.equal(a, b)) for n, a, b in zip(
+                ("o", "dq", "dk", "dv"), (merged, *(x.grad for x in leaves)),
+                (o_p.detach(), *(x.grad for x in p_leaves)))}
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"flash_mha public op: o not finite ({name})")
+    print(f"[flash_mha] public op at B={B} T={T} H={H} D={D} dropout {rate}: against "
+          f"flash_mha_packed {checks} (f32 tol 1e-5, bf16 bit-equal); launches "
+          f"{counts}", flush=True)
+    bad = {n: x for n, x in checks["float32"].items() if not x <= 1e-5}
+    bad.update({n: x for n, x in checks["bfloat16"].items() if not x})
+    if bad:
         raise AssertionError(f"flash_mha and flash_mha_packed disagree: {bad}")
-    if counts != (1, 1):
-        raise AssertionError(f"flash_mha: expected one launch each way, got {counts}")
-    return counts[0], counts[1], checks
+    f32, bf = counts[None], counts["bfloat16"]
+    if (f32["launches"], f32["bwd_launches"], f32["tc_launches"]) != (1, 1, 0):
+        raise AssertionError(f"flash_mha f32: expected one scalar launch each way: {f32}")
+    if (bf["launches"], bf["bwd_launches"], bf["tc_launches"], bf["tc_bwd_launches"]) != (
+            1, 1, 1, 1):
+        raise AssertionError(f"flash_mha bf16: expected one tensor-core launch each way: {bf}")
+    return bf["tc_launches"], bf["tc_bwd_launches"], checks
 
 
 def flash_mha_edge_phase(hd, T, rate, B=5, H=2, device="cuda", seed=0):
-    """flash_mha at an edge shape past hd 128 (129, 170, 192: the Narrow
-    geometry at 48 columns a thread; 193, 200, 360, 368: the Wide one,
-    32-row blocks; T = 65, 1025, 2048) on the projection's head views, f32
-    and bf16 operands, by check_flash_mha on every sample; one length ends
-    45 rows into a 64-row block."""
+    """flash_mha at an edge shape (hd 8, 13 (odd: 2-byte loads on a plain
+    cast), 42, 128 and 144 on the one-warpgroup tensor-core route in bf16;
+    129 too, and 170, 192, 193, 200, 360 and 368 on two warpgroups past
+    hd_pad 144; the scalar kernels' Narrow geometry to hd 192 and Wide past
+    it in f32; T = 65, 1025, 2048) on the projection's head views, f32 and
+    bf16 operands, by check_flash_mha on every sample; one length ends 45
+    rows into a 64-row block."""
     import torch
     from raindrop_tpu_torch.ops import flash_attention as fa
 
@@ -1111,9 +1231,11 @@ def flash_mha_edge_phase(hd, T, rate, B=5, H=2, device="cuda", seed=0):
                                              f"hd={hd} T={T} {dtype} dropout {rate}")
         errs[dtype] = {"fwd": fwd_err, **rel}
     rows = fa.scalar_rows(hd)
-    print(f"[flash_mha_edge] hd={hd} T={T} dropout {rate} ({rows}-row blocks): {errs} "
-          f"(tol: fwd {TOL}, sample_err {SAMPLE_TOL})", flush=True)
-    return dict(hd=hd, T=T, rate=rate, rows=rows, errs=errs)
+    route = split_route(hd, "bfloat16")
+    print(f"[flash_mha_edge] hd={hd} T={T} dropout {rate} (bf16 {route} route, f32 "
+          f"scalar in {rows}-row blocks): {errs} (tol: fwd {TOL}, sample_err "
+          f"{SAMPLE_TOL})", flush=True)
+    return dict(hd=hd, T=T, rate=rate, rows=rows, route=route, errs=errs)
 
 
 # ------------------------------------------------------------ graph kernels
@@ -1477,14 +1599,15 @@ PLAIN_ALL = {"attention_backend": "dense", "prop_backend": "auto"}
 COUNTS = ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches",
           "tc_wide_launches", "tc_wide_bwd_launches")
 # the routes a wrapper counts apart: "<name>.tc" from tc_<attr>; and
-# flash_mha_packed's two-warpgroup route past hd_pad 144, "<name>.tc_wide"
+# flash_mha_packed's and flash_mha's two-warpgroup route past hd_pad 144,
+# "<name>.tc_wide"
 ROUTE_COUNTS = ("tc", "tc_wide")
 
 
 def reset_counts(wrappers):
-    """Set every launch count of the wrappers to 0 (flash_mha_packed also
-    counts its tensor-core launches apart, as tc_launches / tc_bwd_launches
-    and tc_wide_launches / tc_wide_bwd_launches)."""
+    """Set every launch count of the wrappers to 0 (flash_mha_packed and
+    flash_mha also count their tensor-core launches apart, as tc_launches /
+    tc_bwd_launches and tc_wide_launches / tc_wide_bwd_launches)."""
     for fn in wrappers:
         for attr in COUNTS:
             if hasattr(fn, attr):
@@ -1675,14 +1798,35 @@ def serve_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0,
                           limits=limits, stream_vs_predict_by_path=batch, **timing)
 
 
+def split_route(hd, dtype):
+    """The route of flash_mha's launch plan at head dim hd: the tensor cores
+    in bf16 (one warpgroup to hd_pad 144, "tc"; two past it, "tc_wide"),
+    the scalar kernels in f32."""
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    if dtype != "bfloat16":
+        return "scalar"
+    return "tc" if -(-hd // 16) * 16 <= fa.TC_MAX_HD_PAD else "tc_wide"
+
+
+def check_split_route(what, route, *counts):
+    """Every flash_mha launch in these counts (forward or backward; the
+    model's operands are bf16) took `route`: no bf16 launch on another."""
+    for c in counts:
+        if c["flash_mha"] <= 0 or c[f"flash_mha.{route}"] != c["flash_mha"]:
+            raise AssertionError(f"{what}: flash_mha launches off the {route} route: {c}")
+
+
 def check_two_a_forward(label, launches, serve):
     """A served 2048-step path launched flash_mha twice a forward (once a
-    layer) and no other kernel."""
+    layer) and no other kernel (its route counts, flash_mha.tc and
+    flash_mha.tc_wide, are those launches again)."""
     if launches["flash_mha"] != 2 * serve["forwards"]:
         raise AssertionError(
             f"{label}: two flash_mha launches per forward expected, got "
             f"{launches['flash_mha']} for {serve['forwards']} forwards")
-    others = {k: v for k, v in launches.items() if k != "flash_mha" and v}
+    others = {k: v for k, v in launches.items()
+              if k != "flash_mha" and not k.startswith("flash_mha.") and v}
     if others:
         raise AssertionError(f"{label}: the served path launched other kernels: {others}")
 
@@ -1974,13 +2118,16 @@ def _check_result(what, result, cfg, epochs):
 
 
 def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=3,
-                   overrides=LONG, label="PAM-2048", epochs=3):
+                   overrides=LONG, label="PAM-2048", epochs=3, route="tc"):
     """train_split with checkpoints, resume and the uninterrupted run on
     PAM's width with `overrides` (max_len 2048; with sensor_wise_mask too):
     epochs - 1 epochs with checkpoints, the last epoch resumed from the
     `_last` file, the uninterrupted run of `epochs`; the first step against
-    the dense path; the step's time. Returns flash_mha's forward and
-    backward launch counts over the checkpointed run, and the details."""
+    the dense path; the step's time. Every flash_mha launch of the
+    checkpointed run, forward and backward, must take `route` (the bf16
+    operands' tensor-core route at the configuration's head dim). Returns
+    flash_mha's forward and backward launch counts over the checkpointed
+    run, and the details (route_launches: those on `route`)."""
     import dataclasses
     import tempfile
 
@@ -2028,12 +2175,13 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
         # epochs - 1 epochs with checkpoints: the run that gets interrupted
         cut_epochs = epochs - 1
         trainer.tcfg = dataclasses.replace(tcfg, num_epochs=cut_epochs)
-        for fn in wrappers:
-            fn.launches = fn.bwd_launches = 0
+        reset_counts(wrappers)
         t0 = time.perf_counter()
         cut = trainer.train_split(split, checkpoint_path=path, verbose=False)
         cut_s = time.perf_counter() - t0
         fwd, bwd = flash_mha.launches, flash_mha.bwd_launches
+        on_route = (getattr(flash_mha, f"{route}_launches"),
+                    getattr(flash_mha, f"{route}_bwd_launches"))
         _check_result(f"{label} train_split, {cut_epochs} epochs", cut, cfg, cut_epochs)
         steps = cut_epochs * n_batches
         want_fwd = cfg.nlayers * (steps + cut_epochs * chunks(n_val) + chunks(n_test))
@@ -2045,6 +2193,9 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
               f"files {sizes}", flush=True)
         if fwd != want_fwd or bwd != cfg.nlayers * steps:
             raise AssertionError(f"{label} train_split: flash_mha launch counts are off")
+        if on_route != (fwd, bwd):
+            raise AssertionError(f"{label} train_split: flash_mha launches off the {route} "
+                                 f"route: {on_route} of {(fwd, bwd)}")
         best, _, meta = load_checkpoint(path, trainer.params)
         for (name, a), (_, b) in zip(flatten_params(best), flatten_params(cut.params)):
             if not torch.equal(a, b.detach()):
@@ -2133,7 +2284,8 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
     for name, ms in top_k.items():
         print(f"[protocol] {label}:   {ms:8.4f} ms/step  {name[:100]}", flush=True)
     return fwd, bwd, dict(
-        label=label, epochs=epochs, rung=rung, params=n_all, live_params=n_live,
+        label=label, epochs=epochs, rung=rung, route=route, route_launches=on_route,
+        params=n_all, live_params=n_live,
         split=(n_train, n_val, n_test),
         cut_s=cut_s, resume_s=resume_s, full_s=full_s, files=sizes,
         history=_history(full), test=full.test_metrics, checks=checks, limits=limits,
@@ -2359,11 +2511,12 @@ def main(argv=None) -> int:
         long_launches, long_serve = serve_phase("PAM", [flash_mha], wrappers,
                                                 cfg_overrides=LONG)
     check_two_a_forward("PAM-2048", long_launches, long_serve)
+    check_split_route("PAM-2048 serving", "tc", long_launches)
     torch.cuda.empty_cache()
     with phase(phase_s, "protocol PAM-2048"):
         # two epochs, the second resumed (three before PAM-sw-2048's run
         # joined the script: the 7 GB checkpoint files take most of it)
-        long_tf, long_tb, long_train = protocol_phase(wrappers, epochs=2)
+        long_tf, long_tb, long_train = protocol_phase(wrappers, epochs=2, route="tc")
     torch.cuda.empty_cache()
     with phase(phase_s, "run_splits PAM-2048"):
         splits = run_splits_phase()
@@ -2379,7 +2532,7 @@ def main(argv=None) -> int:
                        for dt, rate in grid]
         sw_mha_fwd, sw_mha_bwd = ([r[i] for r in sw_mha_runs] for i in (0, 1))
         mha_edges = [flash_mha_edge_phase(hd, T, rate)
-                     for hd in (129, 170, 192, 193, 200, 360, 368)
+                     for hd in (8, 13, 42, 128, 144, 129, 170, 192, 193, 200, 360, 368)
                      for T in (65, 1025, 2048) for rate in (0.0, 0.2)]
     torch.cuda.empty_cache()
     sw_long = {**sw, **LONG}
@@ -2387,14 +2540,16 @@ def main(argv=None) -> int:
         sw_long_launches, sw_long_serve = serve_phase(
             "PAM", [flash_mha], wrappers, cfg_overrides=sw_long)
     check_two_a_forward("PAM-sw-2048", sw_long_launches, sw_long_serve)
+    check_split_route("PAM-sw-2048 serving", "tc_wide", sw_long_launches)
     torch.cuda.empty_cache()
     with phase(phase_s, "train PAM-sw-2048"):
         sw_long_tf, sw_long_tb, sw_long_train = train_phase(
             "PAM", [flash_mha], wrappers, cfg_overrides=sw_long, fit_lr=FIT_LR_SW)
+    check_split_route("PAM-sw-2048 training", "tc_wide", sw_long_tf, sw_long_tb)
     torch.cuda.empty_cache()
     with phase(phase_s, "protocol PAM-sw-2048"):
         sw_long_pf, sw_long_pb, sw_long_protocol = protocol_phase(
-            wrappers, overrides=sw_long, label="PAM-sw-2048")
+            wrappers, overrides=sw_long, label="PAM-sw-2048", route="tc_wide")
     torch.cuda.empty_cache()
 
     # the kernels' record at the main paths' shapes and operand dtype
@@ -2407,7 +2562,8 @@ def main(argv=None) -> int:
         main_run = next(r for r in runs if r["label"] == label
                         and r["dtype"] == "bfloat16" and r.get("rate") == rate)
         extra = {k: main_run[k] for k in ("prev_ms", "device_ms", "prev_device_ms",
-                                          "library_device_ms", "attn_route")
+                                          "library_device_ms", "attn_route", "dense_ms",
+                                          "bound_share")
                  if k in main_run}
         if "route" in main_run:     # the launch plan's; "route" below is the language's
             extra["plan_route"] = main_run["route"]
@@ -2437,19 +2593,25 @@ def main(argv=None) -> int:
          **FUSED_BWD_KERNELS},
     ]
 
-    split_src = "raindrop_tpu_torch/csrc/flash_split.cu"
+    csrc = "raindrop_tpu_torch/csrc"
+    split_src = f"{csrc}/flash_split.cu"
     jax_flash = "raindrop_tpu/ops/flash_attention.py"
+    tc_fwd = {"sources_also": [f"{csrc}/attention_tc.cuh", split_src]}
+    tc_bwd = {"sources_also": [f"{csrc}/flash_packed_dkv_tc.cu", f"{csrc}/attention_tc.cuh",
+                               split_src]}
     # the served 2048 path runs no dropout, the trained one the shipped 0.2;
-    # the public op at T=600 ran 0.2 both ways
+    # the public op at T=600 ran 0.2 both ways; every bf16 launch on the
+    # tensor-core route (the launches counted there)
     kernels += [
-        record("flash_mha_fwd", split_src, f"{jax_flash}:191",
-               long_launches["flash_mha"], mha_fwd, "PAM-2048", 0.0),
-        {**record("flash_mha_bwd", split_src, f"{jax_flash}:237", long_tb, mha_bwd,
-                  "PAM-2048", 0.2), "replaces_also": [f"{jax_flash}:275"]},
-        record("flash_mha_fused_regime_fwd", split_src, f"{jax_flash}:121", op_f,
-               mha_fwd, "PAM-600", 0.2),
-        record("flash_mha_fused_regime_bwd", split_src, f"{jax_flash}:146", op_b,
-               mha_bwd, "PAM-600", 0.2),
+        {**record("flash_mha_fwd", f"{csrc}/flash_packed_fwd_tc.cu", f"{jax_flash}:191",
+                  long_launches["flash_mha.tc"], mha_fwd, "PAM-2048", 0.0), **tc_fwd},
+        {**record("flash_mha_bwd", f"{csrc}/flash_packed_dq_tc.cu", f"{jax_flash}:237",
+                  long_train["route_launches"][1], mha_bwd, "PAM-2048", 0.2),
+         "replaces_also": [f"{jax_flash}:275"], **tc_bwd},
+        {**record("flash_mha_fused_regime_fwd", f"{csrc}/flash_packed_fwd_tc.cu",
+                  f"{jax_flash}:121", op_f, mha_fwd, "PAM-600", 0.2), **tc_fwd},
+        {**record("flash_mha_fused_regime_bwd", f"{csrc}/flash_packed_dq_tc.cu",
+                  f"{jax_flash}:146", op_b, mha_bwd, "PAM-600", 0.2), **tc_bwd},
     ]
 
     def graph_record(name, line, launches, runs, ms_key="ms", bound_key="bound"):
@@ -2516,10 +2678,16 @@ def main(argv=None) -> int:
     # window: launches from that configuration's server (forward) and its
     # train_split run (backward); max_abs_err over hd 170 and 360
     kernels += [
-        record("flash_mha_fwd_PAM_sw", split_src, f"{jax_flash}:191",
-               sw_long_launches["flash_mha"], sw_mha_fwd, "PAM-sw-2048", 0.0),
-        {**record("flash_mha_bwd_PAM_sw", split_src, f"{jax_flash}:237", sw_long_pb,
-                  sw_mha_bwd, "PAM-sw-2048", 0.2), "replaces_also": [f"{jax_flash}:275"]},
+        {**record("flash_mha_fwd_PAM_sw", f"{csrc}/flash_packed_fwd_wide.cu",
+                  f"{jax_flash}:191", sw_long_launches["flash_mha.tc_wide"], sw_mha_fwd,
+                  "PAM-sw-2048", 0.0),
+         "sources_also": [f"{csrc}/attention_tc_wide.cuh", split_src]},
+        {**record("flash_mha_bwd_PAM_sw", f"{csrc}/flash_packed_dq_wide.cu",
+                  f"{jax_flash}:237", sw_long_protocol["route_launches"][1], sw_mha_bwd,
+                  "PAM-sw-2048", 0.2),
+         "replaces_also": [f"{jax_flash}:275"],
+         "sources_also": [f"{csrc}/flash_packed_dkv_wide.cu", f"{csrc}/attention_tc_wide.cuh",
+                          split_src]},
     ]
     for rec in kernels:
         if rec["launches"] <= 0:

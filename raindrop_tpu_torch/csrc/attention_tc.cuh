@@ -1,12 +1,14 @@
 // Tensor-core device code of the packed-heads attention for bf16 operands:
 // the forward over one 64-row query block, the dq pass over one 64-row query
 // block and the dk/dv pass over one 64-row key block, of one (sample, head).
-// It takes base pointers and a row stride, as attend_rows does, so a later
-// kernel (flash_mha, the fused layer) can adopt it. With the kernels of
-// flash_packed_{fwd,dq,dkv}_tc.cu it replaces, on the bf16 route,
+// It takes base pointers and a row stride, as attend_rows does, so the
+// fused layer's attention and flash_mha's kernels run it too. With the
+// kernels of flash_packed_{fwd,dq,dkv}_tc.cu it replaces, on the bf16 route,
 // raindrop_tpu/ops/flash_attention.py:_packed_fwd_kernel (:566) and
-// :_packed_bwd_kernel (:610). The design that shipped is the wgmma one (the
-// mma.sync fallback was not needed).
+// :_packed_bwd_kernel (:610), and, launched by flash_split.cu through the
+// same kernels, the five flash_mha kernels (:121, :146, :191, :237, :275)
+// at any T. The design
+// that shipped is the wgmma one (the mma.sync fallback was not needed).
 //
 // Bound on this card: bytes. At B=128, with lengths uniform on 0..T (k and
 // v are read below each length only), the forward moves about 35 MB at P12
@@ -43,6 +45,10 @@
 // alignment of the base pointers, the row stride and the head offset: at
 // eICU (hd 36, d 72) head 1 starts 72 bytes into a row, so W = 8 there; at
 // hd 42 it is 4. The wrapper's launch plan picks it and the C entry checks it.
+// Each routine's last argument, `cols` (0: hd), is the number of columns a
+// copy reads from each row: flash_mha casts its operands into heads padded
+// with zeros to a multiple of 8 columns, so that hd 42 and 170 copy 48 and
+// 176 columns by 16 bytes; the stores still write hd columns.
 #pragma once
 
 #include "attention.cuh"
@@ -695,9 +701,9 @@ __device__ void attend_rows_tc(const bf16* __restrict__ q, const bf16* __restric
                                const bf16* __restrict__ v, long row_stride, int T, int length,
                                int q0, int hd, int W, float scale2, uint8_t* smem,
                                float* __restrict__ out, long out_stride,
-                               float* __restrict__ lse, Drop dr) {
+                               float* __restrict__ lse, Drop dr, int cols = 0) {
   constexpr int TB = tile_bytes(HDK);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, ld = cols > 0 ? cols : hd;
   const int nrows = min(ROWS, T - q0);
   if (length <= 0) {
     for (int idx = tid; idx < nrows * hd; idx += WG) {
@@ -708,10 +714,10 @@ __device__ void attend_rows_tc(const bf16* __restrict__ q, const bf16* __restric
     return;
   }
   uint8_t* Qs = smem;  // then stage s: K at smem + (1 + 2 s) TB, V after it
-  if (HDK > hd) zero_pad<HDK>(smem, 5, hd, tid, WG);
-  load_tile(W, Qs, q, row_stride, q0, T, hd, tid, WG);
-  load_tile(W, smem + TB, k, row_stride, 0, length, hd, tid, WG);
-  load_tile(W, smem + 2 * TB, v, row_stride, 0, length, hd, tid, WG);
+  if (HDK > ld) zero_pad<HDK>(smem, 5, ld, tid, WG);
+  load_tile(W, Qs, q, row_stride, q0, T, ld, tid, WG);
+  load_tile(W, smem + TB, k, row_stride, 0, length, ld, tid, WG);
+  load_tile(W, smem + 2 * TB, v, row_stride, 0, length, ld, tid, WG);
   cp_commit();
 
   const int lane = tid & 31, w = tid >> 5, g = lane >> 2, t = lane & 3;
@@ -726,8 +732,8 @@ __device__ void attend_rows_tc(const bf16* __restrict__ q, const bf16* __restric
     uint8_t* Kt = smem + (1 + 2 * (jt & 1)) * TB;
     if (jt + 1 < ntiles) {
       uint8_t* Kn = smem + (1 + 2 * ((jt + 1) & 1)) * TB;
-      load_tile(W, Kn, k, row_stride, k0 + ROWS, length, hd, tid, WG);
-      load_tile(W, Kn + TB, v, row_stride, k0 + ROWS, length, hd, tid, WG);
+      load_tile(W, Kn, k, row_stride, k0 + ROWS, length, ld, tid, WG);
+      load_tile(W, Kn + TB, v, row_stride, k0 + ROWS, length, ld, tid, WG);
       cp_commit();
       tiles_ready<1>();
     } else {
@@ -805,9 +811,10 @@ __device__ void attn_dq_rows_tc(const bf16* __restrict__ q, const bf16* __restri
                                 const float* __restrict__ lse,
                                 const float* __restrict__ delta, int T, int length, int q0,
                                 int hd, int W, float scale2, float scale, Drop dr,
-                                uint8_t* smem, float* __restrict__ dq, long dq_stride) {
+                                uint8_t* smem, float* __restrict__ dq, long dq_stride,
+                                int cols = 0) {
   constexpr int TB = tile_bytes(HDK);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, ld = cols > 0 ? cols : hd;
   const int nrows = min(ROWS, T - q0);
   if (length <= 0) {
     for (int idx = tid; idx < nrows * hd; idx += WG) {
@@ -817,11 +824,11 @@ __device__ void attn_dq_rows_tc(const bf16* __restrict__ q, const bf16* __restri
     return;
   }
   // Q, dO, then stage s: K at smem + (2 + 2 s) TB, V after it
-  if (HDK > hd) zero_pad<HDK>(smem, 6, hd, tid, WG);
-  load_tile(W, smem, q, row_stride, q0, T, hd, tid, WG);
-  load_tile(W, smem + TB, d_o, do_stride, q0, T, hd, tid, WG);
-  load_tile(W, smem + 2 * TB, k, row_stride, 0, length, hd, tid, WG);
-  load_tile(W, smem + 3 * TB, v, row_stride, 0, length, hd, tid, WG);
+  if (HDK > ld) zero_pad<HDK>(smem, 6, ld, tid, WG);
+  load_tile(W, smem, q, row_stride, q0, T, ld, tid, WG);
+  load_tile(W, smem + TB, d_o, do_stride, q0, T, ld, tid, WG);
+  load_tile(W, smem + 2 * TB, k, row_stride, 0, length, ld, tid, WG);
+  load_tile(W, smem + 3 * TB, v, row_stride, 0, length, ld, tid, WG);
   cp_commit();
 
   const int lane = tid & 31, w = tid >> 5, g = lane >> 2, t = lane & 3;
@@ -844,8 +851,8 @@ __device__ void attn_dq_rows_tc(const bf16* __restrict__ q, const bf16* __restri
     uint8_t* Kt = smem + (2 + 2 * (jt & 1)) * TB;
     if (jt + 1 < ntiles) {
       uint8_t* Kn = smem + (2 + 2 * ((jt + 1) & 1)) * TB;
-      load_tile(W, Kn, k, row_stride, k0 + ROWS, length, hd, tid, WG);
-      load_tile(W, Kn + TB, v, row_stride, k0 + ROWS, length, hd, tid, WG);
+      load_tile(W, Kn, k, row_stride, k0 + ROWS, length, ld, tid, WG);
+      load_tile(W, Kn + TB, v, row_stride, k0 + ROWS, length, ld, tid, WG);
       cp_commit();
       tiles_ready<1>();
     } else {
@@ -896,9 +903,9 @@ __device__ void attn_dkv_rows_tc(const bf16* __restrict__ q, const bf16* __restr
                                  const float* __restrict__ delta, int T, int length, int k0,
                                  int hd, int W, float scale2, float scale, Drop dr,
                                  uint8_t* smem, int role, float* __restrict__ out,
-                                 long out_stride) {
+                                 long out_stride, int cols = 0) {
   constexpr int TB = tile_bytes(HDK);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, ld = cols > 0 ? cols : hd;
   const int nkeys = min(ROWS, T - k0);
   if (k0 >= length) {  // also every block of a sample with length 0
     for (int idx = tid; idx < nkeys * hd; idx += WG) {
@@ -911,11 +918,11 @@ __device__ void attn_dkv_rows_tc(const bf16* __restrict__ q, const bf16* __restr
   // stages' lse and delta rows
   float* Ls = reinterpret_cast<float*>(smem + 6 * TB);  // [2][64]
   float* Dl = Ls + 2 * ROWS;                            // [2][64]
-  if (HDK > hd) zero_pad<HDK>(smem, 6, hd, tid, WG);
-  load_tile(W, smem, k, row_stride, k0, length, hd, tid, WG);
-  load_tile(W, smem + TB, v, row_stride, k0, length, hd, tid, WG);
-  load_tile(W, smem + 2 * TB, q, row_stride, 0, T, hd, tid, WG);
-  load_tile(W, smem + 3 * TB, d_o, do_stride, 0, T, hd, tid, WG);
+  if (HDK > ld) zero_pad<HDK>(smem, 6, ld, tid, WG);
+  load_tile(W, smem, k, row_stride, k0, length, ld, tid, WG);
+  load_tile(W, smem + TB, v, row_stride, k0, length, ld, tid, WG);
+  load_tile(W, smem + 2 * TB, q, row_stride, 0, T, ld, tid, WG);
+  load_tile(W, smem + 3 * TB, d_o, do_stride, 0, T, ld, tid, WG);
   load_vec(Ls, lse, 0, T, tid, WG);
   load_vec(Dl, delta, 0, T, tid, WG);
   cp_commit();
@@ -935,8 +942,8 @@ __device__ void attn_dkv_rows_tc(const bf16* __restrict__ q, const bf16* __restr
     if (jt + 1 < ntiles) {
       const int sn = (jt + 1) & 1;
       uint8_t* Qn = smem + (2 + 2 * sn) * TB;
-      load_tile(W, Qn, q, row_stride, t0 + ROWS, T, hd, tid, WG);
-      load_tile(W, Qn + TB, d_o, do_stride, t0 + ROWS, T, hd, tid, WG);
+      load_tile(W, Qn, q, row_stride, t0 + ROWS, T, ld, tid, WG);
+      load_tile(W, Qn + TB, d_o, do_stride, t0 + ROWS, T, ld, tid, WG);
       load_vec(Ls + sn * ROWS, lse, t0 + ROWS, T, tid, WG);
       load_vec(Dl + sn * ROWS, delta, t0 + ROWS, T, tid, WG);
       cp_commit();

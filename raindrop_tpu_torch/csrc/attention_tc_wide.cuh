@@ -3,10 +3,13 @@
 // the forward over one 64-row query block, the dq pass over one 64-row
 // query block and the dk/dv pass over one 64-row key block, of one (sample,
 // head), on two warpgroups. Like attention_tc.cuh's routines they take base
-// pointers and a row stride, so the fused layer and flash_mha can adopt
-// them. With the kernels of flash_packed_{fwd,dq,dkv}_wide.cu they replace,
-// at those widths, raindrop_tpu/ops/flash_attention.py:_packed_fwd_kernel
-// (:566) and :_packed_bwd_kernel (:610).
+// pointers and a row stride (and the columns a copy reads, `cols`), so
+// flash_mha runs them too. With the kernels of
+// flash_packed_{fwd,dq,dkv}_wide.cu they replace, at those widths,
+// raindrop_tpu/ops/flash_attention.py:_packed_fwd_kernel (:566) and
+// :_packed_bwd_kernel (:610), and, launched by flash_split.cu through the
+// same kernels, the flash_mha kernels (:121, :146, :191, :237, :275) at any
+// T.
 //
 // What bounds it: bytes, as at hd <= 144 (P12-sw, B=128, lengths uniform on
 // 0..T: about 161 MB forward, 48 us at 3.35 TB/s; 356 MB backward, 106 us;
@@ -91,10 +94,10 @@ __device__ void attend_rows_tc_wide(const bf16* __restrict__ q, const bf16* __re
                                     const bf16* __restrict__ v, long row_stride, int T,
                                     int length, int q0, int hd, int W, float scale2,
                                     uint8_t* smem, float* __restrict__ out, long out_stride,
-                                    float* __restrict__ lse, Drop dr) {
+                                    float* __restrict__ lse, Drop dr, int cols = 0) {
   constexpr int KT = WIDE_KEYS, NH = HDK / 2, NTH = WIDE_THREADS;
   constexpr int TQ = tile_bytes(HDK), TK = tile_bytes(HDK, KT);
-  const int tid = threadIdx.x, wg = tid / WG;
+  const int tid = threadIdx.x, wg = tid / WG, ld = cols > 0 ? cols : hd;
   const int nrows = min(ROWS, T - q0);
   if (length <= 0) {
     for (int idx = tid; idx < nrows * hd; idx += NTH) {
@@ -105,13 +108,13 @@ __device__ void attend_rows_tc_wide(const bf16* __restrict__ q, const bf16* __re
     return;
   }
   // Q, then stage s: K at smem + TQ + 2 s TK, V after it
-  if (HDK > hd) {
-    zero_pad<HDK>(smem, 1, hd, tid, NTH);
-    zero_pad<HDK, KT>(smem + TQ, 4, hd, tid, NTH);
+  if (HDK > ld) {
+    zero_pad<HDK>(smem, 1, ld, tid, NTH);
+    zero_pad<HDK, KT>(smem + TQ, 4, ld, tid, NTH);
   }
-  load_tile(W, smem, q, row_stride, q0, T, hd, tid, NTH);
-  load_tile<KT>(W, smem + TQ, k, row_stride, 0, length, hd, tid, NTH);
-  load_tile<KT>(W, smem + TQ + TK, v, row_stride, 0, length, hd, tid, NTH);
+  load_tile(W, smem, q, row_stride, q0, T, ld, tid, NTH);
+  load_tile<KT>(W, smem + TQ, k, row_stride, 0, length, ld, tid, NTH);
+  load_tile<KT>(W, smem + TQ + TK, v, row_stride, 0, length, ld, tid, NTH);
   cp_commit();
 
   const int lane = tid & 31, w = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
@@ -127,8 +130,8 @@ __device__ void attend_rows_tc_wide(const bf16* __restrict__ q, const bf16* __re
     uint8_t* Kt = smem + TQ + 2 * (jt & 1) * TK;
     if (jt + 1 < ntiles) {
       uint8_t* Kn = smem + TQ + 2 * ((jt + 1) & 1) * TK;
-      load_tile<KT>(W, Kn, k, row_stride, k0 + KT, length, hd, tid, NTH);
-      load_tile<KT>(W, Kn + TK, v, row_stride, k0 + KT, length, hd, tid, NTH);
+      load_tile<KT>(W, Kn, k, row_stride, k0 + KT, length, ld, tid, NTH);
+      load_tile<KT>(W, Kn + TK, v, row_stride, k0 + KT, length, ld, tid, NTH);
       cp_commit();
       tiles_ready<1>();
     } else {
@@ -203,10 +206,11 @@ __device__ void attn_dq_rows_tc_wide(const bf16* __restrict__ q, const bf16* __r
                                      const float* __restrict__ lse,
                                      const float* __restrict__ delta, int T, int length,
                                      int q0, int hd, int W, float scale2, float scale, Drop dr,
-                                     uint8_t* smem, float* __restrict__ dq, long dq_stride) {
+                                     uint8_t* smem, float* __restrict__ dq, long dq_stride,
+                                     int cols = 0) {
   constexpr int KT = WIDE_KEYS, NH = HDK / 2, NTH = WIDE_THREADS;
   constexpr int TQ = tile_bytes(HDK), TK = tile_bytes(HDK, KT);
-  const int tid = threadIdx.x, wg = tid / WG;
+  const int tid = threadIdx.x, wg = tid / WG, ld = cols > 0 ? cols : hd;
   const int nrows = min(ROWS, T - q0);
   if (length <= 0) {
     for (int idx = tid; idx < nrows * hd; idx += NTH) {
@@ -216,14 +220,14 @@ __device__ void attn_dq_rows_tc_wide(const bf16* __restrict__ q, const bf16* __r
     return;
   }
   // Q, dO, then stage s: K at smem + 2 TQ + 2 s TK, V after it
-  if (HDK > hd) {
-    zero_pad<HDK>(smem, 2, hd, tid, NTH);
-    zero_pad<HDK, KT>(smem + 2 * TQ, 4, hd, tid, NTH);
+  if (HDK > ld) {
+    zero_pad<HDK>(smem, 2, ld, tid, NTH);
+    zero_pad<HDK, KT>(smem + 2 * TQ, 4, ld, tid, NTH);
   }
-  load_tile(W, smem, q, row_stride, q0, T, hd, tid, NTH);
-  load_tile(W, smem + TQ, d_o, do_stride, q0, T, hd, tid, NTH);
-  load_tile<KT>(W, smem + 2 * TQ, k, row_stride, 0, length, hd, tid, NTH);
-  load_tile<KT>(W, smem + 2 * TQ + TK, v, row_stride, 0, length, hd, tid, NTH);
+  load_tile(W, smem, q, row_stride, q0, T, ld, tid, NTH);
+  load_tile(W, smem + TQ, d_o, do_stride, q0, T, ld, tid, NTH);
+  load_tile<KT>(W, smem + 2 * TQ, k, row_stride, 0, length, ld, tid, NTH);
+  load_tile<KT>(W, smem + 2 * TQ + TK, v, row_stride, 0, length, ld, tid, NTH);
   cp_commit();
 
   const int lane = tid & 31, w = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
@@ -247,8 +251,8 @@ __device__ void attn_dq_rows_tc_wide(const bf16* __restrict__ q, const bf16* __r
     uint8_t* Kt = smem + 2 * TQ + 2 * (jt & 1) * TK;
     if (jt + 1 < ntiles) {
       uint8_t* Kn = smem + 2 * TQ + 2 * ((jt + 1) & 1) * TK;
-      load_tile<KT>(W, Kn, k, row_stride, k0 + KT, length, hd, tid, NTH);
-      load_tile<KT>(W, Kn + TK, v, row_stride, k0 + KT, length, hd, tid, NTH);
+      load_tile<KT>(W, Kn, k, row_stride, k0 + KT, length, ld, tid, NTH);
+      load_tile<KT>(W, Kn + TK, v, row_stride, k0 + KT, length, ld, tid, NTH);
       cp_commit();
       tiles_ready<1>();
     } else {
@@ -293,10 +297,11 @@ __device__ void attn_dkv_rows_tc_wide(const bf16* __restrict__ q, const bf16* __
                                       const float* __restrict__ delta, int T, int length,
                                       int k0, int hd, int W, float scale2, float scale,
                                       Drop dr, uint8_t* smem, int role,
-                                      float* __restrict__ out, long out_stride) {
+                                      float* __restrict__ out, long out_stride,
+                                      int cols = 0) {
   constexpr int KT = WIDE_KEYS, NH = HDK / 2, NTH = WIDE_THREADS;
   constexpr int TQ = tile_bytes(HDK), TK = tile_bytes(HDK, KT);
-  const int tid = threadIdx.x, wg = tid / WG;
+  const int tid = threadIdx.x, wg = tid / WG, ld = cols > 0 ? cols : hd;
   const int nkeys = min(ROWS, T - k0);
   if (k0 >= length) {  // also every block of a sample with length 0
     for (int idx = tid; idx < nkeys * hd; idx += NTH) {
@@ -309,14 +314,14 @@ __device__ void attn_dkv_rows_tc_wide(const bf16* __restrict__ q, const bf16* __
   // stages' lse and delta values
   float* Ls = reinterpret_cast<float*>(smem + 2 * TQ + 4 * TK);  // [2][32]
   float* Dl = Ls + 2 * KT;                                       // [2][32]
-  if (HDK > hd) {
-    zero_pad<HDK>(smem, 2, hd, tid, NTH);
-    zero_pad<HDK, KT>(smem + 2 * TQ, 4, hd, tid, NTH);
+  if (HDK > ld) {
+    zero_pad<HDK>(smem, 2, ld, tid, NTH);
+    zero_pad<HDK, KT>(smem + 2 * TQ, 4, ld, tid, NTH);
   }
-  load_tile(W, smem, k, row_stride, k0, length, hd, tid, NTH);
-  load_tile(W, smem + TQ, v, row_stride, k0, length, hd, tid, NTH);
-  load_tile<KT>(W, smem + 2 * TQ, q, row_stride, 0, T, hd, tid, NTH);
-  load_tile<KT>(W, smem + 2 * TQ + TK, d_o, do_stride, 0, T, hd, tid, NTH);
+  load_tile(W, smem, k, row_stride, k0, length, ld, tid, NTH);
+  load_tile(W, smem + TQ, v, row_stride, k0, length, ld, tid, NTH);
+  load_tile<KT>(W, smem + 2 * TQ, q, row_stride, 0, T, ld, tid, NTH);
+  load_tile<KT>(W, smem + 2 * TQ + TK, d_o, do_stride, 0, T, ld, tid, NTH);
   load_vec<KT>(Ls, lse, 0, T, tid, NTH);
   load_vec<KT>(Dl, delta, 0, T, tid, NTH);
   cp_commit();
@@ -337,8 +342,8 @@ __device__ void attn_dkv_rows_tc_wide(const bf16* __restrict__ q, const bf16* __
     if (jt + 1 < ntiles) {
       const int sn = (jt + 1) & 1;
       uint8_t* Qn = smem + 2 * TQ + 2 * sn * TK;
-      load_tile<KT>(W, Qn, q, row_stride, t0 + KT, T, hd, tid, NTH);
-      load_tile<KT>(W, Qn + TK, d_o, do_stride, t0 + KT, T, hd, tid, NTH);
+      load_tile<KT>(W, Qn, q, row_stride, t0 + KT, T, ld, tid, NTH);
+      load_tile<KT>(W, Qn + TK, d_o, do_stride, t0 + KT, T, ld, tid, NTH);
       load_vec<KT>(Ls + sn * KT, lse, t0 + KT, T, tid, NTH);
       load_vec<KT>(Dl + sn * KT, delta, t0 + KT, T, tid, NTH);
       cp_commit();

@@ -29,6 +29,8 @@
 //   attention_tc_wide.cuh, launched from flash_packed_{fwd,dq,dkv}_wide.cu.
 //   The same products on two warpgroups a CTA, each owning half of the
 //   output's columns, with 32-row streamed tiles (that header says why).
+//   The tensor-core kernels take (batch, head, row) strides: flash_split.cu
+//   (flash_mha) launches them too, on its own.
 // - "scalar", f32 operands, and bf16 on request to measure the previous
 //   design: attend_rows / attn_dq_rows / attn_dkv_rows, scalar f32 FMA, in
 //   the Narrow geometry up to hd 192 and the Wide one (32-row blocks and
@@ -158,6 +160,7 @@ Plan expected_plan(int B, int T, int d, int nhead, int bf16, int route) {
     }
     p.threads_fwd = p.threads_dq = p.threads_dkv = rd::NT;
   }
+  p.cols = hd;
   p.grid_x = (T + p.rows - 1) / p.rows;
   p.grid_y = nhead;
   p.grid_z = B;
@@ -245,6 +248,11 @@ bool bad_shape(int B, int T, int d, int nhead, double rate) {
          d % nhead != 0 || !(rate >= 0.0 && rate < 1.0);
 }
 
+// [B, T, d] as [B, nhead, T, hd]: the strides the tensor-core launchers take
+rd::packed::Strides packed_strides(int T, int d, int nhead) {
+  return rd::packed::Strides{(long)T * d, (long)(d / nhead), (long)d};
+}
+
 }  // namespace
 
 // F<MAXD, G, DROP, TIn>(args...) for the run-time head dim, rate and type.
@@ -286,13 +294,10 @@ extern "C" int rd_packed_fwd(const void* q, const void* k, const void* v,
   if (!make_plan(plan, B, T, d, nhead, bf16, {q, k, v}, &p))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (p.route == 1) {
-    return rd::packed::launch_fwd_tc(q, k, v, lengths, o, lse, p, T, d, nhead, scale2, seed,
-                                     rate, s);
-  }
-  if (p.route == 2) {
-    return rd::packed::launch_fwd_wide(q, k, v, lengths, o, lse, p, T, d, nhead, scale2, seed,
-                                       rate, s);
+  if (p.route == 1 || p.route == 2) {
+    const rd::packed::Strides st = packed_strides(T, d, nhead);
+    return (p.route == 1 ? rd::packed::launch_fwd_tc : rd::packed::launch_fwd_wide)(
+        q, k, v, lengths, o, lse, st, st, p, nhead, T, d / nhead, scale2, seed, rate, s);
   }
   const rd::Drop dr = rd::make_drop(rate);
   RD_DISPATCH(launch_fwd, d / nhead, rate, bf16, q, k, v, lengths, o, lse, p, T,
@@ -311,19 +316,16 @@ extern "C" int rd_packed_bwd(const void* q, const void* k, const void* v,
   if (!make_plan(plan, B, T, d, nhead, bf16, {q, k, v, d_o}, &p))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (p.route == 1) {
-    const int err = rd::packed::launch_dq_tc(q, k, v, d_o, lse, delta, lengths, dq, p, T, d,
-                                             nhead, scale, seed, rate, s);
+  if (p.route == 1 || p.route == 2) {
+    const bool tc = p.route == 1;
+    const rd::packed::Strides st = packed_strides(T, d, nhead);
+    const int err = (tc ? rd::packed::launch_dq_tc : rd::packed::launch_dq_wide)(
+        q, k, v, d_o, lse, delta, lengths, dq, st, st, st, p, nhead, T, d / nhead, scale, seed,
+        rate, s);
     if (err != 0) return err;
-    return rd::packed::launch_dkv_tc(q, k, v, d_o, lse, delta, lengths, dk, dv, p, T, d,
-                                     nhead, scale, seed, rate, s);
-  }
-  if (p.route == 2) {
-    const int err = rd::packed::launch_dq_wide(q, k, v, d_o, lse, delta, lengths, dq, p, T, d,
-                                               nhead, scale, seed, rate, s);
-    if (err != 0) return err;
-    return rd::packed::launch_dkv_wide(q, k, v, d_o, lse, delta, lengths, dk, dv, p, T, d,
-                                       nhead, scale, seed, rate, s);
+    return (tc ? rd::packed::launch_dkv_tc : rd::packed::launch_dkv_wide)(
+        q, k, v, d_o, lse, delta, lengths, dk, dv, st, st, st, p, nhead, T, d / nhead, scale,
+        seed, rate, s);
   }
   const rd::Drop dr = rd::make_drop(rate);
   RD_DISPATCH(launch_bwd, d / nhead, rate, bf16, q, k, v, d_o, lse, delta,

@@ -1,10 +1,14 @@
-// What the compilation units of the flash_packed library share: the launch
-// plan and the launchers of the tensor-core kernels. Each tensor-core
-// kernel family (forward, dq, dk/dv) is a unit of its own: up to hd_pad 144
+// What the compilation units of the flash_packed library share: the strides
+// and launch plan of a call and the launchers of the tensor-core kernels.
+// The library holds two entry-point files, flash_packed.cu
+// (flash_mha_packed, [B, T, d] operands) and flash_split.cu (flash_mha,
+// [B, H, T, D] operands with any (batch, head, row) strides), and one set of
+// tensor-core kernels that both launch. Each kernel family (forward, dq,
+// dk/dv) is a unit of its own: up to hd_pad 144
 // flash_packed_{fwd,dq,dkv}_tc.cu (18 instantiations each: 9 padded head
 // dims, with and without dropout), past it flash_packed_{fwd,dq,dkv}_wide.cu
-// (14 each: 7 padded head dims), so nvcc builds the six beside
-// flash_packed.cu, which holds the entry points.
+// (14 each: 7 padded head dims), so nvcc builds the six beside the two
+// entry-point files.
 #pragma once
 
 #include <type_traits>
@@ -14,9 +18,19 @@
 namespace rd {
 namespace packed {
 
+// (batch, head, row) strides in elements of one [B, H, T, hd] array; the
+// [B, T, d] layout of flash_mha_packed is (T * d, hd, d)
+struct Strides {
+  long b, h, t;
+};
+
+__host__ __device__ __forceinline__ long head_base(const Strides& s, int b, int h) {
+  return (long)b * s.b + (long)h * s.h;
+}
+
 // A launch plan: the wrapper's (ops/flash_attention.py PackedPlan.as_ints,
-// the first PLAN_INTS fields), which flash_packed.cu checks against the
-// call, and the shared bytes of each kernel, which flash_packed.cu computes.
+// the first PLAN_INTS fields), which the entry points check against the
+// call, the columns a copy reads and the shared bytes of each kernel.
 struct Plan {
   int route;       // 0 scalar, 1 tensor cores, 2 tensor cores past hd_pad 144
   int hd_pad;      // head dim padded to 16 (route 1), to 176 + 32 j (route 2), hd (0)
@@ -24,10 +38,13 @@ struct Plan {
   int rows;        // rows of a CTA's block: 64, or 32 (scalar, Wide geometry)
   int threads_fwd, threads_dq, threads_dkv;
   int grid_x, grid_y, grid_z;
+  int cols;        // columns a copy reads from each row: hd; for flash_mha the
+                   // wrapper's int after the first PLAN_INTS (SplitPlan.cols):
+                   // hd, or hd padded to 8 where its cast zeroed the pad columns
   int smem_fwd, smem_dq, smem_dkv;
 };
 constexpr int PLAN_INTS = 10;
-static_assert(sizeof(Plan) == (PLAN_INTS + 3) * sizeof(int), "Plan is 13 ints");
+static_assert(sizeof(Plan) == (PLAN_INTS + 4) * sizeof(int), "Plan is 14 ints");
 
 // The widest padded head dim of the one-warpgroup tensor-core kernels
 // (route 1; also the fused layer's attention, fused_plan.cuh): eICU's
@@ -68,31 +85,33 @@ int with_wide_pad(int hd_pad, F&& f) {
   }
 }
 
-// The tensor-core kernels on [B, T, d] bf16 operands, launched on `stream`
-// as the plan says (_tc: route 1, _wide: route 2); each returns
-// cudaGetLastError(). scale2 = log2(e)/sqrt(hd), scale = 1/sqrt(hd).
+// The tensor-core kernels on [B, H, T, D] bf16 operands with the given
+// strides (q, k, v: s_in; do: s_do; the f32 outputs: s_out), launched on
+// `stream` as the plan says (_tc: route 1, _wide: route 2; the dk/dv pass
+// as two CTAs a key block, 2 * grid_x); each returns cudaGetLastError().
+// lse and delta are [B, H, T]. scale2 = log2(e)/sqrt(D), scale = 1/sqrt(D).
 int launch_fwd_tc(const void* q, const void* k, const void* v, const void* lengths, void* o,
-                  void* lse, const Plan& p, int T, int d, int nhead, float scale2, int seed,
-                  double rate, cudaStream_t stream);
+                  void* lse, Strides s_in, Strides s_out, const Plan& p, int H, int T, int D,
+                  float scale2, int seed, double rate, cudaStream_t stream);
 int launch_dq_tc(const void* q, const void* k, const void* v, const void* d_o,
                  const void* lse, const void* delta, const void* lengths, void* dq,
-                 const Plan& p, int T, int d, int nhead, float scale, int seed, double rate,
-                 cudaStream_t stream);
+                 Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H, int T, int D,
+                 float scale, int seed, double rate, cudaStream_t stream);
 int launch_dkv_tc(const void* q, const void* k, const void* v, const void* d_o,
                   const void* lse, const void* delta, const void* lengths, void* dk, void* dv,
-                  const Plan& p, int T, int d, int nhead, float scale, int seed, double rate,
-                  cudaStream_t stream);
+                  Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H, int T,
+                  int D, float scale, int seed, double rate, cudaStream_t stream);
 int launch_fwd_wide(const void* q, const void* k, const void* v, const void* lengths, void* o,
-                    void* lse, const Plan& p, int T, int d, int nhead, float scale2, int seed,
-                    double rate, cudaStream_t stream);
+                    void* lse, Strides s_in, Strides s_out, const Plan& p, int H, int T, int D,
+                    float scale2, int seed, double rate, cudaStream_t stream);
 int launch_dq_wide(const void* q, const void* k, const void* v, const void* d_o,
                    const void* lse, const void* delta, const void* lengths, void* dq,
-                   const Plan& p, int T, int d, int nhead, float scale, int seed, double rate,
-                   cudaStream_t stream);
+                   Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H, int T,
+                   int D, float scale, int seed, double rate, cudaStream_t stream);
 int launch_dkv_wide(const void* q, const void* k, const void* v, const void* d_o,
                     const void* lse, const void* delta, const void* lengths, void* dk,
-                    void* dv, const Plan& p, int T, int d, int nhead, float scale, int seed,
-                    double rate, cudaStream_t stream);
+                    void* dv, Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H,
+                    int T, int D, float scale, int seed, double rate, cudaStream_t stream);
 
 }  // namespace packed
 }  // namespace rd

@@ -1,39 +1,42 @@
-// flash_mha_packed's tensor-core dq pass (bf16 operands): the kernel over
-// one (64-row query block, head, sample) and its launcher. flash_packed.cu
-// holds the entry point and says what the kernels replace and what bounds
-// them; attention_tc.cuh the device code.
+// The tensor-core dq pass of flash_mha_packed and flash_mha (bf16
+// operands, hd_pad <= 144): the kernel over one (64-row query block, head,
+// sample) on strided operands, as in flash_packed_fwd_tc.cu, and its
+// launcher. attention_tc.cuh holds the device code.
 #include "flash_packed.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using rd::packed::Strides;
+using rd::packed::head_base;
 
 template <int HDK, bool DROP>
 __global__ void __launch_bounds__(rd::tc::WG)
 packed_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ d_o,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             const int* __restrict__ lengths, float* __restrict__ dq, int T, int d,
-             int nhead, float scale, int seed, rd::Drop dr, int W) {
+             const int* __restrict__ lengths, float* __restrict__ dq, Strides s_in,
+             Strides s_do, Strides s_out, int H, int T, int D, int cols, float scale, int seed,
+             rd::Drop dr, int W) {
   extern __shared__ __align__(128) uint8_t smem_tc[];
-  const int q0 = blockIdx.x * rd::BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hd = d / nhead;
+  const int q0 = blockIdx.x * rd::tc::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int length = min(max(lengths[b], 0), T);
-  const long base = (long)b * T * d + (long)h * hd;
-  const long stat = ((long)b * nhead + h) * T;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
-  rd::tc::attn_dq_rows_tc<HDK, DROP>(q + base, k + base, v + base, d, d_o + base, d,
-                                     lse + stat, delta + stat, T, length, q0, hd, W,
-                                     scale * 1.4426950408889634f, scale, dr, smem_tc,
-                                     dq + base, d);
+  const long in = head_base(s_in, b, h);
+  const long stat = ((long)b * H + h) * T;
+  dr.base = rd::drop_base(seed, (uint32_t)(b * H + h));
+  rd::tc::attn_dq_rows_tc<HDK, DROP>(
+      q + in, k + in, v + in, s_in.t, d_o + head_base(s_do, b, h), s_do.t, lse + stat,
+      delta + stat, T, length, q0, D, W, scale * 1.4426950408889634f, scale, dr, smem_tc,
+      dq + head_base(s_out, b, h), s_out.t, cols);
 }
 
 }  // namespace
 
 int rd::packed::launch_dq_tc(const void* q, const void* k, const void* v, const void* d_o,
                              const void* lse, const void* delta, const void* lengths,
-                             void* dq, const Plan& p, int T, int d, int nhead, float scale,
-                             int seed, double rate, cudaStream_t stream) {
+                             void* dq, Strides s_in, Strides s_do, Strides s_out,
+                             const Plan& p, int H, int T, int D, float scale, int seed,
+                             double rate, cudaStream_t stream) {
   const Drop dr = make_drop(rate);
   return with_hd_pad(p.hd_pad, [&](auto n) {
     constexpr int HDK = decltype(n)::value;
@@ -42,8 +45,8 @@ int rd::packed::launch_dq_tc(const void* q, const void* k, const void* v, const 
     if (err != cudaSuccess) return (int)err;
     kern<<<dim3(p.grid_x, p.grid_y, p.grid_z), p.threads_dq, p.smem_dq, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)d_o, (const float*)lse,
-        (const float*)delta, (const int*)lengths, (float*)dq, T, d, nhead, scale, seed, dr,
-        p.copy_bytes);
+        (const float*)delta, (const int*)lengths, (float*)dq, s_in, s_do, s_out, H, T, D,
+        p.cols, scale, seed, dr, p.copy_bytes);
     return (int)cudaGetLastError();
   });
 }

@@ -29,14 +29,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("flash_packed", "flash_split", "fused_encoder", "fused_encoder_bwd",
-           "sparse_graph")
+SOURCES = ("flash_packed", "fused_encoder", "fused_encoder_bwd", "sparse_graph")
 # libraries built from several units: flash_packed's 48 tensor-core
 # kernels take nvcc far longer in one process than as three units in
 # parallel (chip_ab.py, task one_unit), and its 42 kernels past hd_pad 144
-# are three units more; the fused layer's tensor-core attention kernels
-# (18 a family) are units of their own the same way
-PARTS = {"flash_packed": ("flash_packed", "flash_packed_fwd_tc",
+# are three units more; flash_mha's entry points (flash_split) launch the
+# same tensor-core kernels on their own strides, so they are a unit of this
+# library too; the fused layer's tensor-core attention kernels (18 a
+# family) are units of their own the same way
+PARTS = {"flash_packed": ("flash_packed", "flash_split", "flash_packed_fwd_tc",
                           "flash_packed_dq_tc", "flash_packed_dkv_tc",
                           "flash_packed_fwd_wide", "flash_packed_dq_wide",
                           "flash_packed_dkv_wide"),

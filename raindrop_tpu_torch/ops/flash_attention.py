@@ -17,12 +17,13 @@ takes the undropped probabilities; only the PV operand is dropped.
 
 Both are `torch.autograd.Function`s. On CUDA tensors their forward and
 backward launch the hand-written kernels in `csrc/flash_packed.cu` and
-`csrc/flash_split.cu` (or raise); `flash_mha_packed` takes the route of
-its launch plan (`packed_plan`): for bf16 operands the tensor-core kernels
+`csrc/flash_split.cu` (or raise), each on the route of its launch plan
+(`packed_plan`, `split_plan`): for bf16 operands the tensor-core kernels
 on one warpgroup up to a padded head dim of 144 and on two past it (up to
-368, the sensor-wise P12's 360), the scalar ones for f32. `flash_mha` takes
-the same head dims on the card (the sensor-wise PAM's 170 past 1024
-steps), in the scalar kernels' geometries. On CPU tensors they run
+368, the sensor-wise P12's 360), the scalar ones for f32. `flash_mha`
+casts f32 operands into heads zero-padded to a multiple of 8 columns
+(`_padded_cast`), so its tensor-core copies move 16 bytes at hd 42 and
+170. On CPU tensors they run
 `_packed_fwd_plain` / `_packed_bwd_plain` and `_flash_fwd_plain` /
 `_flash_bwd_plain`, the same functions in plain PyTorch, which the CPU
 tests hold against the JAX package and `chip_smoke.py` holds the kernels
@@ -32,7 +33,8 @@ The JAX `flash_mha` has two regimes, one program per head while a [T, T]
 score tile fits the TPU's VMEM (T padded to 8 <= 1024) and 128-row blocks
 with an online softmax beyond. No [T, T] tile fits an SM's shared memory
 at any T the model uses, so here one set of kernels (forward, dq, dk+dv)
-streams key tiles at every T (64 rows up to hd NARROW_MAX_HD, 32 beyond).
+streams key tiles at every T (on the scalar route 64 rows up to hd
+NARROW_MAX_HD, 32 beyond).
 Both regimes hash the dropout mask from the global (row, column), so one
 mask function serves both as well.
 """
@@ -118,11 +120,23 @@ class PackedPlan:
     threads: tuple
     grid: tuple
 
+    @property
+    def dkv_grid(self):
+        """The dk/dv pass's grid: two CTAs a key block on a tensor-core
+        route (dv and dk), one on the scalar route."""
+        if self.route == "scalar":
+            return self.grid
+        return (2 * self.grid[0], *self.grid[1:])
+
+    def _ints(self):
+        return (_ROUTES[self.route], self.hd_pad, self.copy_bytes, self.rows,
+                *self.threads, *self.grid)
+
     @functools.cached_property
     def as_ints(self):
-        """The plan as the C entry points take it: 10 ints."""
-        vals = (_ROUTES[self.route], self.hd_pad, self.copy_bytes, self.rows,
-                *self.threads, *self.grid)
+        """The plan as the C entry points take it: 10 ints (11 for a
+        SplitPlan)."""
+        vals = self._ints()
         return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -182,6 +196,65 @@ def wide_pad(hd):
     (csrc/attention_tc_wide.cuh wide_pad)."""
     steps = -(-max(hd - TC_WIDE_MIN_HD_PAD, 0) // TC_WIDE_STEP)
     return TC_WIDE_MIN_HD_PAD + TC_WIDE_STEP * steps
+
+
+@dataclass(frozen=True)
+class SplitPlan(PackedPlan):
+    """What surrounds a flash_mha launch, computed on the host and checked
+    by the C entry points (csrc/flash_split.cu `make_plan`), which add each
+    kernel's shared memory (`split_smem`). The fields of PackedPlan, and
+    cols: the columns a tile copy reads from each row, D, or D padded to 8
+    where the operands are `_padded_cast`'s zero-padded heads. Its launches
+    run the tensor-core kernels of flash_mha_packed's plan on strided
+    operands."""
+
+    cols: int
+
+    def _ints(self):
+        return (*super()._ints(), self.cols)
+
+
+def pad8_cols(D):
+    """D padded to a multiple of 8 columns (16 bytes of bf16)."""
+    return -(-D // 8) * 8
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(B, H, T, D, od, strides=(), align=16, impl="auto", padded=False):
+    """The launch plan of flash_mha's kernels for [B, H, T, D] operands of
+    dtype `od` on the card: bf16 takes the tensor-core route "tc" while D
+    padded to 16 is at most TC_MAX_HD_PAD and "tc_wide" past it (as
+    packed_plan does); f32 the scalar kernels, in the Narrow geometry up
+    to hd NARROW_MAX_HD and the Wide one beyond; impl="scalar" asks for the
+    scalar kernels in bf16 too (the previous design, for measurement).
+    `strides`: the (batch, head, row) element strides of each operand set
+    (q, k, v; and do in the backward); `align`: the operands' address
+    alignment in bytes; `padded`: the operands are heads zero-padded to
+    pad8_cols(D) columns, so a copy reads those. The copy width is the
+    largest of 16, 8, 4, 2 bytes dividing the columns' bytes, every stride
+    in bytes and `align` (the model's dense bf16 cast at hd 42 or 170: 4;
+    padded: 16). The tensor-core dk/dv pass runs two CTAs a key block, so
+    its grid is 2 * grid[0] along x. Raises for D past MAX_HEAD_DIM."""
+    if impl not in ("auto", "scalar"):
+        raise ValueError(f"impl must be 'auto' or 'scalar', got {impl!r}")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"the flash_mha kernels take head dims up to "
+                         f"{MAX_HEAD_DIM}, got D={D}")
+    hd_pad = -(-D // 16) * 16
+    if od == torch.bfloat16 and impl == "auto":
+        cols = pad8_cols(D) if padded else D
+        width = 16
+        while width > 2 and ((2 * cols) % width or align % width
+                             or any((2 * x) % width for s3 in strides for x in s3)):
+            width //= 2
+        grid = (-(-T // _ROWS), H, B)
+        if hd_pad <= TC_MAX_HD_PAD:
+            return SplitPlan("tc", D, hd_pad, width, _ROWS, (128,) * 3, grid, cols)
+        return SplitPlan("tc_wide", D, wide_pad(D), width, _ROWS, (256,) * 3, grid,
+                         cols)
+    rows = scalar_rows(D)
+    return SplitPlan("scalar", D, D, od.itemsize, rows, (256,) * 3,
+                     (-(-T // rows), H, B), D)
 
 
 def packed_smem(B, T, d, nhead, od, impl="auto"):
@@ -418,12 +491,12 @@ def _same_device(dev, **tensors):
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
 
 
-def _count(plan, attr):
-    """One launch on `attr` and, on a tensor-core route, on <route>_<attr>
-    (tc_<attr>, tc_wide_<attr>)."""
-    build.count_launch(flash_mha_packed, attr)
+def _count(plan, attr, fn=flash_mha_packed):
+    """One launch of the wrapper `fn` on `attr` and, on a tensor-core
+    route, on <route>_<attr> (tc_<attr>, tc_wide_<attr>)."""
+    build.count_launch(fn, attr)
     if plan.route != "scalar":
-        build.count_launch(flash_mha_packed, f"{plan.route}_{attr}")
+        build.count_launch(fn, f"{plan.route}_{attr}")
 
 
 def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od, impl="auto"):
@@ -520,13 +593,15 @@ def _rounded(x, od):
     return x.to(od).to(torch.float32)
 
 
-def _flash_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype):
-    """Returns (o [B, H, T, D] f32, lse [B, H, T] f32, base 2)."""
+def _flash_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype, cols=None):
+    """Returns (o [B, H, T, D] f32, lse [B, H, T] f32, base 2). `cols` as in
+    `_flash_fwd_cuda`."""
     _check_heads(q, k, v, lengths)
     rate = _check_rate(dropout_rate)
     od = operand_dtype(compute_dtype)
     if q.is_cuda:
-        return _flash_fwd_cuda(q, k, v, lengths, _seed_int(seed), rate, od)
+        return _flash_fwd_cuda(q, k, v, lengths, _seed_int(seed), rate, od,
+                               cols=cols)
     return _flash_fwd_plain(q, k, v, lengths, od, _seed_int(seed), rate)
 
 
@@ -547,23 +622,35 @@ def _flash_bwd_plain(q, k, v, lengths, seed, rate, od, o, lse, g):
 
 
 class _FlashSplit(torch.autograd.Function):
-    """flash_mha with its hand-written backward."""
+    """flash_mha with its hand-written backward. On the card the operands
+    are cast once (`_flash_operands`: heads zero-padded to 8 columns on the
+    bf16 tensor-core route) and saved cast for the backward, with the
+    columns they hold (`ctx.cols`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, seed, dropout_rate, compute_dtype):
-        o, lse = _flash_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype)
         od = operand_dtype(compute_dtype)
+        ctx.in_dtypes = (q.dtype, k.dtype, v.dtype)
+        ctx.cols = None
+        if q.is_cuda:
+            _check_heads(q, k, v, lengths)
+            (q, k, v), ctx.cols = _flash_operands((q, k, v), od)
+        o, lse = _flash_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype,
+                            ctx.cols)
         ctx.save_for_backward(q.to(od), k.to(od), v.to(od), lengths, o, lse)
         ctx.args = (_seed_int(seed), float(dropout_rate), od)
-        ctx.in_dtypes = (q.dtype, k.dtype, v.dtype)
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, lengths, o, lse = ctx.saved_tensors
         seed, rate, od = ctx.args
-        fn = _flash_bwd_cuda if g.is_cuda else _flash_bwd_plain
-        dq, dk, dv = fn(q, k, v, lengths, seed, rate, od, o, lse, g)
+        if g.is_cuda:
+            dq, dk, dv = _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse,
+                                         g, cols=ctx.cols)
+        else:
+            dq, dk, dv = _flash_bwd_plain(q, k, v, lengths, seed, rate, od, o,
+                                          lse, g)
         dq, dk, dv = (x.to(t) for x, t in zip((dq, dk, dv), ctx.in_dtypes))
         return dq, dk, dv, None, None, None, None
 
@@ -573,9 +660,9 @@ def flash_mha(q, k, v, lengths, seed=None, dropout_rate=0.0,
     """softmax(q k^T / sqrt(D) + key mask) v per head, at any T.
 
     q, k, v [B, H, T, D] (any strides with a contiguous last dim: the
-    [B, T, H, D] view of a projection works without a copy); lengths [B]
-    valid key counts, shared by a sample's heads; `seed` the int32 seed of
-    the dropout mask on the probabilities (None means 0); compute_dtype
+    [B, T, H, D] view of a projection works without a copy in f32); lengths
+    [B] valid key counts, shared by a sample's heads; `seed` the int32 seed
+    of the dropout mask on the probabilities (None means 0); compute_dtype
     None keeps f32 operands, "bfloat16" rounds the operands of every
     product to bf16 (f32 accumulation and softmax statistics). Returns o
     [B, H, T, D] f32; on the card its memory is laid out [B, T, H, D], so
@@ -584,17 +671,59 @@ def flash_mha(q, k, v, lengths, seed=None, dropout_rate=0.0,
                              compute_dtype)
 
 
+# forward launches; `bwd_launches` counts the backward's; the tc_ counts
+# those of the two on the tensor-core route up to hd_pad 144, the tc_wide_
+# counts those on the route past it (the rest ran the scalar kernels)
 flash_mha.launches = 0
 flash_mha.bwd_launches = 0
+flash_mha.tc_launches = 0
+flash_mha.tc_bwd_launches = 0
+flash_mha.tc_wide_launches = 0
+flash_mha.tc_wide_bwd_launches = 0
 
 
-def _head_strides(*xs):
-    """The [B, H, T, D] tensors `xs` as the kernels take them, with a unit
-    last stride and one (batch, head, row) stride triple for all (copies
-    when they differ), and that triple in elements."""
+def _padded_cast(xs, od):
+    """The [B, H, T, D] tensors `xs` cast to `od` into one buffer laid out
+    [len(xs), B, T, H, pad8_cols(D)] whose pad columns are zeros; returns
+    the [B, H, T, D] views of it (one stride triple for all, a head
+    starting at a multiple of 16 bytes). The cast copies anyway, so the
+    padding costs only the zeroing of the pad columns: it lets a
+    tensor-core tile copy read pad8_cols(D) columns by 16 bytes where D
+    columns would take 4-byte copies (hd 42, 170)."""
+    B, H, T, D = xs[0].shape
+    cols = pad8_cols(D)
+    buf = torch.empty((len(xs), B, T, H, cols), dtype=od, device=xs[0].device)
+    if cols > D:
+        buf[..., D:].zero_()
+    views = buf[..., :D].transpose(2, 3).unbind(0)
+    for view, x in zip(views, xs):
+        view.copy_(x.detach())
+    return views
+
+
+def _flash_operands(xs, od, impl="auto"):
+    """The operands `xs` in `od` for the kernels, and the columns a kernel
+    copy may read from each of their rows: f32 cast to bf16 on the
+    tensor-core route goes through `_padded_cast` (pad8_cols(D) columns);
+    operands already in `od` stay as they are, and f32 and impl="scalar"
+    (the previous design) take a plain cast (D columns: their copy width
+    is what their strides allow)."""
+    D = xs[0].shape[-1]
+    if all(x.dtype == od for x in xs):
+        return tuple(xs), D
+    if od == torch.bfloat16 and impl == "auto":
+        return _padded_cast(xs, od), pad8_cols(D)
+    return tuple(x.detach().to(od) for x in xs), D
+
+
+def _head_strides(xs, cols):
+    """The [B, H, T, D] tensors `xs`, holding `cols` columns a row, as the
+    kernels take them, with a unit last stride and one (batch, head, row)
+    stride triple for all: (tensors, that triple in elements, columns).
+    Where the strides differ it copies them into dense heads of D columns."""
     if any(x.stride(-1) != 1 or x.stride() != xs[0].stride() for x in xs):
-        xs = tuple(x.contiguous() for x in xs)
-    return xs, xs[0].stride()[:3]
+        xs, cols = tuple(x.contiguous() for x in xs), xs[0].shape[-1]
+    return xs, xs[0].stride()[:3], cols
 
 
 def _empty_heads(B, H, T, D, device):
@@ -618,12 +747,28 @@ def _check_flash_cuda(q, k, v):
             raise TypeError(f"q, k, v must be floating point, got {x.dtype}")
 
 
-def _flash_fwd_cuda(q, k, v, lengths, seed, rate, od):
+def _flash_plan(xs, od, impl, strides, B, H, T, D, cols):
+    """The launch plan for operands `xs` (the kernels' tensors, each with
+    the stride triples in `strides`, holding `cols` columns a row): padded
+    when cols is past D."""
+    return split_plan(B, H, T, D, od, tuple(strides),
+                      _align(*(x.data_ptr() for x in xs)), impl, cols > D)
+
+
+def _flash_fwd_cuda(q, k, v, lengths, seed, rate, od, impl="auto", cols=None):
+    """The forward kernel of the plan's route. `impl="scalar"` reaches the
+    scalar kernel with bf16 operands (the previous design, measured beside
+    the tensor-core one); the model never passes it. `cols`: the columns
+    q, k and v hold a row when the caller cast them already
+    (`_flash_operands`); None casts them here."""
     B, H, T, D = q.shape
     dev = q.device
     _same_device(dev, k=k, v=v, lengths=lengths)
     _check_flash_cuda(q, k, v)
-    (q, k, v), s_in = _head_strides(*(x.detach().to(od) for x in (q, k, v)))
+    if cols is None:
+        (q, k, v), cols = _flash_operands((q, k, v), od, impl)
+    (q, k, v), s_in, cols = _head_strides((q, k, v), cols)
+    plan = _flash_plan((q, k, v), od, impl, (s_in,), B, H, T, D, cols)
     lens = lengths.to(torch.int32).contiguous()
     o = _empty_heads(B, H, T, D, dev)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
@@ -633,17 +778,20 @@ def _flash_fwd_cuda(q, k, v, lengths, seed, rate, od):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         o.data_ptr(), lse.data_ptr(), strides, B, H, T, D,
         (1.0 / math.sqrt(D)) * LOG2E, int(od == torch.bfloat16), seed, rate,
-        stream)
+        plan.as_ints, stream)
     build.check(err, "flash_mha forward")
-    build.count_launch(flash_mha)
+    _count(plan, "launches", flash_mha)
     return o, lse
 
 
-def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g):
-    """dq, dk, dv through the two backward kernels (one CTA per block of
-    query rows for dq, one per block of key rows for dk and dv: 64 rows up
-    to hd NARROW_MAX_HD, 32 beyond). delta is prepared here
-    in torch ops, as the JAX package prepares it outside its kernels."""
+def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g, impl="auto",
+                    cols=None, g_cols=None):
+    """dq, dk, dv through the two backward kernels of the plan's route (one
+    CTA per block of query rows for dq; for dk and dv one per block of key
+    rows on the scalar route, two on the tensor-core ones). delta is
+    prepared here in torch ops, as the JAX package prepares it outside its
+    kernels. `impl` and `cols` (of q, k, v) as in `_flash_fwd_cuda`;
+    `g_cols` the same of g."""
     B, H, T, D = q.shape
     dev = q.device
     _same_device(dev, k=k, v=v, lengths=lengths, o=o, lse=lse, g=g)
@@ -651,9 +799,17 @@ def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g):
     if g.shape != q.shape:
         raise ValueError(f"the incoming gradient is {tuple(g.shape)}, "
                          f"expected {tuple(q.shape)}")
-    (q, k, v), s_in = _head_strides(*(x.detach().to(od) for x in (q, k, v)))
-    (do,), s_do = _head_strides(g.detach().to(od))
-    delta = (do.to(torch.float32) * o).sum(-1).contiguous()      # [B, H, T]
+    if cols is None:
+        (q, k, v), cols = _flash_operands((q, k, v), od, impl)
+    (q, k, v), s_in, cols = _head_strides((q, k, v), cols)
+    if g_cols is None:
+        (g,), g_cols = _flash_operands((g,), od, impl)
+    (do,), s_do, g_cols = _head_strides((g,), g_cols)
+    plan = _flash_plan((q, k, v, do), od, impl, (s_in, s_do), B, H, T, D,
+                       min(cols, g_cols))
+    # do * o promotes do to f32 exactly: the same delta as do.to(f32) * o
+    # without a copy of do
+    delta = (do.detach() * o).sum(-1).contiguous()              # [B, H, T]
     lens = lengths.to(torch.int32).contiguous()
     lse = lse.contiguous()
     # one allocation, so the three gradients share their strides
@@ -665,35 +821,37 @@ def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), lens.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), strides, B, H, T, D,
-        1.0 / math.sqrt(D), int(od == torch.bfloat16), seed, rate, stream)
+        1.0 / math.sqrt(D), int(od == torch.bfloat16), seed, rate,
+        plan.as_ints, stream)
     build.check(err, "flash_mha backward")
-    build.count_launch(flash_mha, "bwd_launches")
+    _count(plan, "bwd_launches", flash_mha)
     return dq, dk, dv
 
 
 @functools.lru_cache(maxsize=64)
-def split_smem(D):
+def split_smem(D, route="scalar"):
     """Shared bytes of flash_mha's forward, dq and dk/dv kernels at head dim
-    D, as csrc/flash_split.cu computes them for its launches (it builds the
-    kernels: on the card only). Raises ValueError for a head dim the
-    kernels do not take."""
+    D on a route ("scalar", "tc", "tc_wide"), as csrc/flash_split.cu
+    computes them for its launches (it builds the kernels: on the card
+    only). Raises ValueError for a head dim the route does not take."""
     out = (ctypes.c_int * 3)()
-    if _split_lib().rd_split_smem(D, out):
-        raise ValueError(f"the flash_mha kernels do not take hd={D}: shared "
-                         f"bytes {tuple(out)}")
+    if _split_lib().rd_split_smem(D, _ROUTES[route], out):
+        raise ValueError(f"the flash_mha {route} kernels do not take hd={D}: "
+                         f"shared bytes {tuple(out)}")
     return tuple(out)
 
 
 def _split_lib():
-    lib = build.load("flash_split")
+    lib = build.load("flash_packed")
     if lib.rd_split_fwd.argtypes is None:
         tail = [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-            ctypes.c_void_p]
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         lib.rd_split_fwd.argtypes = [ctypes.c_void_p] * 6 + tail
         lib.rd_split_fwd.restype = ctypes.c_int
         lib.rd_split_bwd.argtypes = [ctypes.c_void_p] * 10 + tail
         lib.rd_split_bwd.restype = ctypes.c_int
-        lib.rd_split_smem.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.rd_split_smem.argtypes = [ctypes.c_int, ctypes.c_int,
+                                      ctypes.POINTER(ctypes.c_int)]
         lib.rd_split_smem.restype = ctypes.c_int
     return lib

@@ -24,6 +24,7 @@ from raindrop_tpu_torch.ops import fused_encoder as fe
 from raindrop_tpu_torch.ops import sparse as sp
 from raindrop_tpu_torch.nn.transformer import _layer_init
 from test_torch_packed_plan import wide_smem
+from test_torch_split_plan import split_smem_mirror
 
 TOL = {None: 1e-4, "bfloat16": 2e-2}
 SAMPLE_TOL = {None: 1e-5, "bfloat16": 5e-3}
@@ -500,6 +501,47 @@ def _head_inputs(gen, B, H, T, D, layout, n=3):
     return [t.reshape(B, T, H, D).transpose(1, 2) for t in proj.split(H * D, dim=-1)]
 
 
+def _split_route(D, cd):
+    """The route flash_mha's plan takes at head dim D: the tensor cores in
+    bf16 (one warpgroup to hd_pad 144, two past it), scalar in f32."""
+    if cd is None:
+        return "scalar"
+    return "tc" if -(-D // 16) * 16 <= fa.TC_MAX_HD_PAD else "tc_wide"
+
+
+def _split_counts():
+    return {a: getattr(fa.flash_mha, a) for a in (
+        "launches", "bwd_launches", "tc_launches", "tc_bwd_launches",
+        "tc_wide_launches", "tc_wide_bwd_launches")}
+
+
+def _check_split_routes(before, D, cd, fwd, bwd):
+    """fwd forward and bwd backward launches since `before`, every one on
+    the route of D and cd (none counted on a tensor-core route in f32)."""
+    got = {a: n - before[a] for a, n in _split_counts().items()}
+    route = _split_route(D, cd)
+    want = {"launches": fwd, "bwd_launches": bwd, "tc_launches": 0, "tc_bwd_launches": 0,
+            "tc_wide_launches": 0, "tc_wide_bwd_launches": 0}
+    if route != "scalar":
+        want.update({f"{route}_launches": fwd, f"{route}_bwd_launches": bwd})
+    assert got == want
+
+
+def _against_scalar(q, k, v, lengths, cd, rate, o, grads, g):
+    """In bf16, the tensor-core route against the scalar kernels (the
+    previous design) on the same operands, sample by sample."""
+    if cd is None:
+        return
+    od = fa.operand_dtype(cd)
+    so, slse = fa._flash_fwd_cuda(q, k, v, lengths, SEED, rate, od, "scalar")
+    prev = fa._flash_bwd_cuda(q.detach(), k.detach(), v.detach(), lengths, SEED, rate,
+                              od, so, slse, g, "scalar")
+    torch.cuda.synchronize()
+    assert _sample_err(o, so, lengths) <= SAMPLE_TOL[cd]
+    for a, b in zip(grads, prev):
+        assert _sample_err(a, b, lengths) <= SAMPLE_TOL[cd]
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
 @pytest.mark.parametrize("layout", ["contiguous", "projection"])
@@ -507,17 +549,19 @@ def _head_inputs(gen, B, H, T, D, layout, n=3):
                                    (1152, 2, 42), (200, 1, 128)])
 def test_flash_mha_kernels_match_plain(gen, T, H, D, layout, cd, rate):
     """Forward, dq and dk+dv of flash_mha in both of the JAX package's
-    regimes (T <= 1024 and beyond), through the autograd function."""
+    regimes (T <= 1024 and beyond), through the autograd function, on the
+    plan's route (bf16: the tensor cores; f32: the scalar kernels); in bf16
+    also against the scalar kernels."""
     B = 4
     q, k, v = (x.requires_grad_() for x in _head_inputs(gen, B, H, T, D, layout))
     g = torch.randn((B, H, T, D), generator=gen, device="cuda")
     lengths = _lengths(gen, B, T)
     od = fa.operand_dtype(cd)
-    f0, b0 = fa.flash_mha.launches, fa.flash_mha.bwd_launches
+    before = _split_counts()
     o = fa.flash_mha(q, k, v, lengths, SEED, rate, cd)
     got = torch.autograd.grad(o, (q, k, v), g, retain_graph=True)
     again = torch.autograd.grad(o, (q, k, v), g)
-    assert (fa.flash_mha.launches, fa.flash_mha.bwd_launches) == (f0 + 1, b0 + 2)
+    _check_split_routes(before, D, cd, 1, 2)
     _, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
     po, plse = fa._flash_fwd_plain(q, k, v, lengths, od, SEED, rate)
     want = fa._flash_bwd_plain(q.detach(), k.detach(), v.detach(), lengths, SEED,
@@ -531,21 +575,51 @@ def test_flash_mha_kernels_match_plain(gen, T, H, D, layout, cd, rate):
         assert torch.isfinite(a).all() and torch.equal(a, a2)
         assert (a[0] == 0).all()               # the length-0 sample
         assert _sample_err(a, b, lengths) <= SAMPLE_TOL[cd]
+    _against_scalar(q, k, v, lengths, cd, rate, o.detach(), got, g)
+
+
+def _split_vs_packed(gen, B, T, H, D, lengths):
+    """flash_mha on the head views of [B, T, H * D] tensors against
+    flash_mha_packed on the tensors themselves, dropout 0.2, through
+    autograd: f32 operands agree to 1e-5 (both hash b * H + h, the global
+    row and the global column, so the masks are the same; the scalar
+    kernels' geometries differ). In bf16 the two launch the same
+    tensor-core kernels (flash_packed_{fwd,dq,dkv}_{tc,wide}.cu) at the same
+    padded head dim on the same values: flash_mha's operands sit in heads
+    zero-padded to 8 columns where flash_mha_packed's are dense with the pad
+    zeroed in shared memory, so only the strides and the copy width differ,
+    and o, lse, dq, dk and dv are bit-equal (delta is the same per-row sum
+    of do * o in the same memory order)."""
+    q, k, v, g = (torch.randn((B, T, H * D), generator=gen, device="cuda")
+                  for _ in range(4))
+
+    def heads(x):
+        return x.reshape(B, T, H, D).transpose(1, 2)
+
+    for cd in (None, "bfloat16"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        p_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        split = fa.flash_mha(*(heads(x) for x in leaves), lengths, SEED, 0.2, cd)
+        split.backward(heads(g))
+        packed = fa.flash_mha_packed(*p_leaves, lengths, SEED, 0.2, cd, H)
+        packed.backward(g)
+        _, lse = fa._flash_fwd(*(heads(x) for x in (q, k, v)), lengths, SEED, 0.2, cd)
+        _, plse = fa._packed_fwd(q, k, v, lengths, SEED, 0.2, cd, H)
+        torch.cuda.synchronize()
+        assert split.transpose(1, 2).is_contiguous()
+        merged = split.transpose(1, 2).reshape(B, T, H * D)
+        if cd is None:
+            assert (merged - packed).abs().max() <= 1e-5
+            continue
+        assert torch.equal(merged, packed) and torch.equal(lse, plse)
+        for a, b in zip(leaves, p_leaves):
+            assert torch.equal(a.grad, b.grad)
 
 
 def test_flash_mha_matches_the_packed_kernel(gen):
-    """Both hash b * H + h, the global row and the global column: the same
-    seed gives the same masks, so the outputs agree to rounding."""
+    """flash_mha against flash_mha_packed at P12's width (hd 80)."""
     B, T, H, D = 4, 215, 2, 80
-    q, k, v = (torch.randn((B, T, H * D), generator=gen, device="cuda")
-               for _ in range(3))
-    lengths = _lengths(gen, B, T)
-    packed = fa.flash_mha_packed(q, k, v, lengths, SEED, 0.2, None, H)
-    split = fa.flash_mha(*(x.reshape(B, T, H, D).transpose(1, 2) for x in (q, k, v)),
-                         lengths, SEED, 0.2, None)
-    torch.cuda.synchronize()
-    assert split.transpose(1, 2).is_contiguous()
-    assert (split.transpose(1, 2).reshape(B, T, H * D) - packed).abs().max() <= 1e-5
+    _split_vs_packed(gen, B, T, H, D, _lengths(gen, B, T))
 
 
 # flash_mha past hd 128: the Narrow geometry at 48 columns a thread (129,
@@ -571,20 +645,22 @@ def _wide_lengths(gen, B, T):
 @pytest.mark.parametrize("D", WIDE_SPLIT_HD)
 def test_flash_mha_kernels_match_plain_at_wide_heads(gen, D, T, layout, cd, rate):
     """flash_mha past hd 128, forward, dq and dk+dv through the autograd
-    function, B = 5, H = 2: against the plain version, bit-equal on a
-    repeat, exact zeros for the length-0 sample; every row of every block
-    is compared (o is torch.empty: a row no CTA wrote would differ)."""
+    function, B = 5, H = 2, on the plan's route (bf16: "tc_wide" past
+    hd_pad 144, "tc" at 129-144; f32 the scalar kernels): against the plain
+    version and, in bf16, the scalar kernels, bit-equal on a repeat, exact
+    zeros for the length-0 sample; every row of every block is compared (o
+    is torch.empty: a row no CTA wrote would differ)."""
     B, H = 5, 2
     q, k, v = (x.requires_grad_() for x in _head_inputs(gen, B, H, T, D, layout))
     g = torch.randn((B, H, T, D), generator=gen, device="cuda")
     lengths = _wide_lengths(gen, B, T)
     od = fa.operand_dtype(cd)
-    f0, b0 = fa.flash_mha.launches, fa.flash_mha.bwd_launches
+    before = _split_counts()
     o = fa.flash_mha(q, k, v, lengths, SEED, rate, cd)
     o2 = fa.flash_mha(q, k, v, lengths, SEED, rate, cd)
     got = torch.autograd.grad(o, (q, k, v), g, retain_graph=True)
     again = torch.autograd.grad(o, (q, k, v), g)
-    assert (fa.flash_mha.launches, fa.flash_mha.bwd_launches) == (f0 + 2, b0 + 2)
+    _check_split_routes(before, D, cd, 2, 2)
     _, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
     po, plse = fa._flash_fwd_plain(q, k, v, lengths, od, SEED, rate)
     want = fa._flash_bwd_plain(q.detach(), k.detach(), v.detach(), lengths, SEED,
@@ -599,37 +675,66 @@ def test_flash_mha_kernels_match_plain_at_wide_heads(gen, D, T, layout, cd, rate
         assert torch.isfinite(a).all() and torch.equal(a, a2)
         assert (a[0] == 0).all()               # the length-0 sample
         assert _sample_err(a, b, lengths) <= SAMPLE_TOL[cd]
+    _against_scalar(q, k, v, lengths, cd, rate, o.detach(), got, g)
 
 
-@pytest.mark.parametrize("D", [1, 42, 128, *WIDE_SPLIT_HD])
+@pytest.mark.parametrize("D", [1, 42, 128, 144, 145, *WIDE_SPLIT_HD])
 def test_flash_mha_shared_memory_fits_a_block(gen, D):
-    """The shared bytes of flash_mha's three launches, as the C library
-    computes them, fit a block (232,448 bytes) at every head dim it takes;
-    the Narrow geometry's dk/dv pass is the largest at hd 192, the Wide
-    one's at 368."""
+    """The shared bytes of flash_mha's three launches on each route the
+    head dim takes, as the C library computes them, are the mirror's
+    (test_torch_split_plan.split_smem_mirror) and fit a block (232,448
+    bytes); the Narrow geometry's dk/dv pass is the largest at hd 192, the
+    Wide one's at 368; no route takes hd 369."""
+    routes = ["scalar", "tc" if -(-D // 16) * 16 <= fa.TC_MAX_HD_PAD else "tc_wide"]
+    for route in routes:
+        smem = fa.split_smem(D, route)
+        assert smem == split_smem_mirror(route, D)
+        assert len(smem) == 3 and 0 < min(smem) and max(smem) <= 232448
     smem = fa.split_smem(D)
-    assert len(smem) == 3 and 0 < min(smem) and max(smem) <= 232448
     if D == 192:
         assert smem[2] == 4 * (2 * 128 * 193 + 2 * 64 * 65 + 128)
     if D == 368:
         assert smem[2] == 4 * (2 * 64 * 369 + 2 * 32 * 33 + 64)
-    with pytest.raises(ValueError, match=str(fa.MAX_HEAD_DIM + 1)):
-        fa.split_smem(fa.MAX_HEAD_DIM + 1)
+    for route in ("scalar", "tc", "tc_wide"):
+        with pytest.raises(ValueError, match=str(fa.MAX_HEAD_DIM + 1)):
+            fa.split_smem(fa.MAX_HEAD_DIM + 1, route)
+
+
+@pytest.mark.parametrize("D", [42, 170])
+def test_flash_mha_autograd_copies_by_16_bytes(gen, D, monkeypatch):
+    """On the model's path (f32 head views of one projection, bf16
+    operands) the forward and the backward of the autograd function both
+    launch on the padded cast: 16-byte copies of pad8_cols(D) columns. The
+    backward takes the columns from the forward's context, and casts the
+    incoming gradient into padded heads too."""
+    plans = []
+
+    def record(*args, real=fa.split_plan, **kwargs):
+        plans.append(real(*args, **kwargs))
+        return plans[-1]
+
+    monkeypatch.setattr(fa, "split_plan", record)
+    B, H, T = 3, 2, 130
+    q, k, v = (x.requires_grad_() for x in _head_inputs(gen, B, H, T, D, "projection"))
+    g = torch.randn((B, H, T, D), generator=gen, device="cuda")
+    before = _split_counts()
+    o = fa.flash_mha(q, k, v, _lengths(gen, B, T), SEED, 0.2, "bfloat16")
+    o.backward(g)
+    _check_split_routes(before, D, "bfloat16", 1, 1)
+    assert len(plans) == 2
+    for plan in plans:
+        assert (plan.route, plan.copy_bytes, plan.cols) == (
+            _split_route(D, "bfloat16"), 16, fa.pad8_cols(D))
+    assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
 
 
 @pytest.mark.parametrize("D", [170, 360])
 def test_flash_mha_matches_the_packed_kernel_at_wide_heads(gen, D):
     """As test_flash_mha_matches_the_packed_kernel, at PAM-sw's head dim
-    (the Narrow geometry) and P12-sw's (Wide), f32 operands, dropout 0.2."""
+    and P12-sw's: f32 on the scalar kernels (the Narrow geometry at 170,
+    Wide at 360), bf16 on the two-warpgroup tensor-core routines."""
     B, T, H = 4, 215, 2
-    q, k, v = (torch.randn((B, T, H * D), generator=gen, device="cuda")
-               for _ in range(3))
-    lengths = _wide_lengths(gen, B, T)
-    packed = fa.flash_mha_packed(q, k, v, lengths, SEED, 0.2, None, H)
-    split = fa.flash_mha(*(x.reshape(B, T, H, D).transpose(1, 2) for x in (q, k, v)),
-                         lengths, SEED, 0.2, None)
-    torch.cuda.synchronize()
-    assert (split.transpose(1, 2).reshape(B, T, H * D) - packed).abs().max() <= 1e-5
+    _split_vs_packed(gen, B, T, H, D, _wide_lengths(gen, B, T))
 
 
 def test_flash_mha_refuses_a_head_dim_past_the_kernels(gen):
