@@ -39,6 +39,9 @@ order with that checkout's own code:
               and 170): a training step at B=128 (CUDA events, median of 3,
               and device time) and a server's latency by bucket with the
               top bucket's device time;
+  fused_step  the same at PAM's own max_len (600), without and with
+              sensor_wise_mask (d=84 and 340, hd 42 and 170): the fused
+              layer's paths;
   bits        flash_mha forward and backward at head dims 8, 42 and 128
               (each column count of the Narrow geometry), T 600 and 2048,
               f32 and bf16 operands (the bf16 hashes move with the route:
@@ -50,10 +53,11 @@ order with that checkout's own code:
               route) and at P12-sw (d=720) in bf16 (the two-warpgroup
               route) and f32 (the scalar route),
               dropout 0 and 0.2, B=8, 2 heads; and fused_encoder_layer
-              with f32 operands at PAM's width (d=84) and PAM-sw's (340),
-              ffn=136, 2 heads, T 100 and 600, dropout 0 and 0.2, B=8: a
-              SHA-256 of out, attn, lse, dx and the 12 weight gradients;
-              to compare checkouts bit for bit;
+              with f32 and bf16 operands at PAM's width (d=84) and
+              PAM-sw's (340), ffn=136, 2 heads, T 100 and 600, dropout 0
+              and 0.2, B=8: a SHA-256 of out, attn, lse, dx and the 12
+              weight gradients (the bf16 PAM-sw hashes move with the
+              attention's route); to compare checkouts bit for bit;
   ds_rounding where bf16 gradients' sample_err comes from at its largest
               reading (flash_mha, T=600, hd 42, B=128, dropout 0): the
               tensor-core and scalar kernels and the plain backward in f32
@@ -74,8 +78,8 @@ order with that checkout's own code:
               printed, and every flash_mha kernel (split_*_kernel, each
               geometry and column count; split_*_tc and split_*_wide
               counted apart), every tensor-core kernel of
-              the fused layer (*_tc*, pack_weights_kernel) and every
-              two-warpgroup packed kernel (packed_*_wide) printed.
+              the fused layer (*_tc*, *_wide, pack_weights_kernel) and
+              every two-warpgroup packed kernel (packed_*_wide) printed.
 
 Give the runs in an order that favours no checkout (A B B A). Each task
 prints `TASK name {...}` when it ends and each run `RESULT {...}`; --out
@@ -290,12 +294,24 @@ def task_split(root, cs):
 
 def task_long(root, cs):
     """PAM's width on a 2048-step window, without and with sensor_wise_mask
-    (hd 42 and 170, full width and depth, random weights): a training step
-    at B=128 on synthetic_split("PAM", 320, T=2048) batches (sampler
-    strategy 3), CUDA events around each of 3 steps after a warm-up epoch
-    and the profiler's device time of an epoch; then a server's request
-    latency by bucket and the top bucket's device time
-    (chip_smoke.serve_timing)."""
+    (hd 42 and 170): _steps."""
+    return _steps(root, cs, (("PAM-2048", cs.LONG),
+                             ("PAM-sw-2048", {**cs.LONG, "sensor_wise_mask": True})))
+
+
+def task_fused_step(root, cs):
+    """PAM at its own max_len (600: the fused layer), without and with
+    sensor_wise_mask (d=84 and 340): _steps."""
+    return _steps(root, cs, (("PAM", {}), ("PAM-sw", {"sensor_wise_mask": True})))
+
+
+def _steps(root, cs, configs):
+    """For each (label, dataset_config overrides) of PAM (full width and
+    depth, random weights): a training step at B=128 on
+    synthetic_split("PAM", 320, T=max_len) batches (sampler strategy 3),
+    CUDA events around each of 3 steps after a warm-up epoch and the
+    profiler's device time of an epoch; then a server's request latency
+    by bucket and the top bucket's device time (chip_smoke.serve_timing)."""
     import numpy as np
     import torch
     from raindrop_tpu_torch.config import TrainConfig, dataset_config
@@ -305,8 +321,7 @@ def task_long(root, cs):
     from raindrop_tpu_torch.train.trainer import Trainer
 
     out, batch, n_batches = {}, 128, 3
-    for label, over in (("PAM-2048", cs.LONG),
-                        ("PAM-sw-2048", {**cs.LONG, "sensor_wise_mask": True})):
+    for label, over in configs:
         cfg = dataset_config("PAM", **over)
         tcfg = TrainConfig(dataset="PAM", num_epochs=1, learning_rate=1e-4,
                            batch_size=batch, batching_strategy=3,
@@ -408,30 +423,32 @@ def _packed_bits(cs):
 
 
 def _fused_bits(cs):
-    """SHA-256 of the f32 fused layer's out, attn, lse, dx and 12 weight
-    gradients at PAM's and PAM-sw's widths."""
+    """SHA-256 of the fused layer's out, attn, lse, dx and 12 weight
+    gradients at PAM's and PAM-sw's widths, f32 and bf16 operands."""
     import hashlib
 
     import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
     from raindrop_tpu_torch.ops import fused_encoder as fe
 
     out = {}
     for d in (84, 340):
         for T in (100, 600):
             for rate in (0.0, 0.2):
-                gen = torch.Generator(device="cuda").manual_seed(d + T)
-                p = cs.random_layer(gen, d, 136, "cuda")
-                x, g = (torch.randn((8, T, d), generator=gen, device="cuda")
-                        for _ in range(2))
-                lengths = cs.ragged_lengths(gen, 8, T, "cuda")
-                lengths[3] = 45
-                fwd = fe._fused_fwd(p, x, lengths, cs.SEED, rate, None, 2)
-                dx, dws = fe._fused_bwd_cuda(fe._flatten(p), x, lengths, cs.SEED, rate, 2,
-                                             torch.float32, fwd[1], fwd[2], g)
-                h = hashlib.sha256()
-                for t in (*fwd, dx, *dws):
-                    h.update(t.contiguous().cpu().numpy().tobytes())
-                out[f"fused_d{d}_T{T}_rate{rate}_float32"] = h.hexdigest()
+                for cd in (None, "bfloat16"):
+                    gen = torch.Generator(device="cuda").manual_seed(d + T)
+                    p = cs.random_layer(gen, d, 136, "cuda")
+                    x, g = (torch.randn((8, T, d), generator=gen, device="cuda")
+                            for _ in range(2))
+                    lengths = cs.ragged_lengths(gen, 8, T, "cuda")
+                    lengths[3] = 45
+                    fwd = fe._fused_fwd(p, x, lengths, cs.SEED, rate, cd, 2)
+                    dx, dws = fe._fused_bwd_cuda(fe._flatten(p), x, lengths, cs.SEED, rate,
+                                                 2, fa.operand_dtype(cd), fwd[1], fwd[2], g)
+                    h = hashlib.sha256()
+                    for t in (*fwd, dx, *dws):
+                        h.update(t.contiguous().cpu().numpy().tobytes())
+                    out[f"fused_d{d}_T{T}_rate{rate}_{cd or 'float32'}"] = h.hexdigest()
     return out
 
 
@@ -641,10 +658,12 @@ def task_ptxas(root, cs):
     # the tensor-core kernels that flash_mha_packed and flash_mha share
     tc = {k: v for k, v in kernels.items() if v["unit"].startswith("flash_packed_")}
     fused = {k: v for k, v in kernels.items() if v["unit"].startswith("fused_encoder")
-             and ("_tc" in k or "pack_weights" in k)}
+             and ("_tc" in k or "_wide" in k or "pack_weights" in k)}
     for k, v in fused.items():
         print(f"[ptxas] fused tensor cores: {v} {k[:160]}", flush=True)
-    wide = {k: v for k, v in kernels.items() if v["unit"].endswith("_wide")}
+    fused_wide = {k: v for k, v in fused.items() if v["unit"].endswith("_wide")}
+    wide = {k: v for k, v in kernels.items()
+            if v["unit"].startswith("flash_packed_") and v["unit"].endswith("_wide")}
     for k, v in wide.items():
         print(f"[ptxas] packed past hd_pad 144: {v} {k[:160]}", flush=True)
     return {"kernels": len(kernels), "spilling": len(spilling),
@@ -658,6 +677,11 @@ def task_ptxas(root, cs):
             "fused_tc_kernels": len(fused),
             "fused_tc_spilling": sum(1 for v in fused.values()
                                      if v["spill_stores"] or v["spill_loads"]),
+            "fused_wide_kernels": len(fused_wide),
+            "fused_wide_spilling": sum(1 for v in fused_wide.values()
+                                       if v["spill_stores"] or v["spill_loads"]),
+            "fused_wide_max_registers": max((v.get("registers", 0)
+                                             for v in fused_wide.values()), default=0),
             "packed_wide_kernels": len(wide),
             "packed_wide_spilling": sum(1 for v in wide.values()
                                         if v["spill_stores"] or v["spill_loads"]),
@@ -667,7 +691,7 @@ def task_ptxas(root, cs):
 TASKS = {"build": task_build, "one_unit": task_one_unit, "kernels": task_kernels,
          "ds_rounding": task_ds_rounding,
          "serve_train": task_serve_train, "latency": task_latency, "split": task_split,
-         "long": task_long,
+         "long": task_long, "fused_step": task_fused_step,
          "bits": task_bits, "sample_err": task_sample_err, "ptxas": task_ptxas}
 
 

@@ -15,7 +15,7 @@ check does not hold:
      kernel family (SASS_FAMILIES: the attention's three on one warpgroup
      and three on two (past hd_pad 144), which flash_mha_packed and
      flash_mha both launch, and every bf16 row product of the fused layer
-     with its attention);
+     with its attention on one warpgroup and on two);
   2. flash_mha_packed forward, kernel against its plain PyTorch version at
      the P12 (B=128, T=215, d=160) and eICU (T=300, d=72) shapes, f32 and
      bf16 operands, ragged lengths including 0, 1 and T, bit-equal on a
@@ -51,14 +51,19 @@ check does not hold:
      bf16, dropout 0 and 0.2: forward and backward against the plain
      version and (bf16) the previous design, bit-equal on a repeat, exact
      zeros for the length-0 sample; every fused run's routes checked (bf16
-     tensor cores, the attention scalar at PAM-sw's hd 170; f32 scalar);
+     tensor cores, the attention on two warpgroups, "tc_wide", at PAM-sw's
+     hd 170; f32 scalar);
  6b. phases 2, 4, 3 and 6 at the sensor-wise widths (sensor_wise_mask:
      d = d_inp * (d_ob + d_pe), 2 heads), B=128: P12-sw (T=215, d=720, hd
      360: the two-warpgroup tensor-core route "tc_wide" in bf16, timed in
      turns with the previous design, the scalar route in f32) and eICU-sw
      (T=300, d=280, hd 140: tensor cores in bf16) forward and backward, PAM-sw's fused
      layer (T=600, d=340, ffn=136, hd 170) forward and backward; each
-     route checked;
+     route checked; then the fused layer's three attention launches on
+     "tc_wide" alone at PAM-sw, dropout 0 and 0.2 (fused_wide_attn_phase:
+     attn, lse, dq, dk and dv against the plain attention on the very qkv,
+     d_attn and delta the launches read; each launcher's device time in
+     the layer's calls, the plain attention's and SDPA's);
   7. an InferenceServer for PAM at full width (random weights from a seed)
      answering predict on 1, 5, 128 and 200 rows, submit from 4 threads,
      predict_stream and the bf16 wire format, held against the same server
@@ -88,7 +93,7 @@ check does not hold:
      versions; and phase 9 for P12, eICU and PAM
      with it, the falling-loss check at the rate FIT_LR_SW gives; PAM and
      PAM-sw served and trained with every fused_encoder_layer launch on the
-     tensor-core route;
+     tensor-core route, PAM-sw's every one with its attention on "tc_wide";
  11. spmm_segment_softmax, kernels against their plain PyTorch versions,
      forward (out, w) and backward (dx, dgamma, cotangents on both
      outputs): the complete sensor graphs of P12 (B=128, N=36, E=1296,
@@ -181,11 +186,12 @@ gradients, sums over every row, to TOL relative to max(1, the plain
 gradient's largest value), its plain backward taking the kernel's relu
 branches (fused_bwd_phase says why). The sparse-graph kernels are
 f32 throughout and are held to 1e-5 relative to max(1, |plain|).
-The line before the last is the kernels' JSON record (twenty records:
-twelve kernels at the main paths' shapes, the packed pair and the fused
-layer again at the sensor-wise widths, and flash_mha forward and backward
-at PAM-sw-2048's hd 170; the fused layer's list the CUDA kernels of its
-tensor-core route and of the previous design, and its launches, and
+The line before the last is the kernels' JSON record (twenty-three
+records: twelve kernels at the main paths' shapes, the packed pair and the
+fused layer again at the sensor-wise widths, the fused layer's three
+attention launchers on "tc_wide" at PAM-sw, and flash_mha forward and
+backward at PAM-sw-2048's hd 170; the fused layer's list the CUDA kernels
+of its tensor-core route and of the previous design, and its launches, and
 flash_mha's, are the tensor-core ones), the last line the result. `--out PATH` also
 writes every number to PATH as JSON.
 """
@@ -666,13 +672,16 @@ def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
 # (past hd_pad 144), which flash_mha_packed and flash_mha both launch and,
 # on the fused layer's bf16 route, every row
 # product (qkv, the forward's tail, the backward's row kernel, dx, the
-# weight gradients) and the attention at PAM's head dim
+# weight gradients) and the attention on one warpgroup (PAM's head dim) and
+# on two (PAM-sw's)
 SASS_FAMILIES = {
     "flash_packed": ("packed_fwd_tc", "packed_dq_tc", "packed_dkv_tc",
                      "packed_fwd_wide", "packed_dq_wide", "packed_dkv_wide"),
-    "fused_encoder": ("qkv_rows_tc_kernel", "layer_tail_tc", "fused_attn_fwd_tc"),
+    "fused_encoder": ("qkv_rows_tc_kernel", "layer_tail_tc", "fused_attn_fwd_tc",
+                      "fused_attn_fwd_wide"),
     "fused_encoder_bwd": ("qkv_rows_tc_kernel", "layer_bwd_rows_tc", "dx_rows_tc",
-                          "wgrad_tc", "fused_dq_tc", "fused_dkv_tc"),
+                          "wgrad_tc", "fused_dq_tc", "fused_dkv_tc", "fused_dq_wide",
+                          "fused_dkv_wide"),
 }
 
 
@@ -682,19 +691,24 @@ SASS_FAMILIES = {
 FUSED_FWD_KERNELS = {
     "sources_also": ["raindrop_tpu_torch/csrc/rows_tc.cuh",
                      "raindrop_tpu_torch/csrc/fused_encoder_attn_tc.cu",
-                     "raindrop_tpu_torch/csrc/attention_tc.cuh"],
+                     "raindrop_tpu_torch/csrc/attention_tc.cuh",
+                     "raindrop_tpu_torch/csrc/fused_encoder_attn_wide.cu",
+                     "raindrop_tpu_torch/csrc/attention_tc_wide.cuh"],
     "kernels_tc": ["pack_weights_kernel", "qkv_rows_tc_kernel",
-                   "fused_attn_fwd_tc (hd_pad <= 144; attn_rows_kernel on bf16 beyond)",
+                   "fused_attn_fwd_tc (hd_pad <= 144; fused_attn_fwd_wide beyond)",
                    "layer_tail_tc"],
     "kernels_previous": ["qkv_rows_kernel", "attn_rows_kernel", "layer_tail_kernel"]}
 FUSED_BWD_KERNELS = {
     "sources_also": ["raindrop_tpu_torch/csrc/rows_tc.cuh",
                      "raindrop_tpu_torch/csrc/fused_encoder_dq_tc.cu",
                      "raindrop_tpu_torch/csrc/fused_encoder_dkv_tc.cu",
-                     "raindrop_tpu_torch/csrc/attention_tc.cuh"],
+                     "raindrop_tpu_torch/csrc/attention_tc.cuh",
+                     "raindrop_tpu_torch/csrc/fused_encoder_dq_wide.cu",
+                     "raindrop_tpu_torch/csrc/fused_encoder_dkv_wide.cu",
+                     "raindrop_tpu_torch/csrc/attention_tc_wide.cuh"],
     "kernels_tc": ["pack_weights_kernel", "qkv_rows_tc_kernel", "layer_bwd_rows_tc",
-                   "fused_dq_tc, fused_dkv_tc (hd_pad <= 144; fused_dq_kernel, "
-                   "fused_dkv_kernel on bf16 beyond)", "dx_rows_tc", "wgrad_tc",
+                   "fused_dq_tc, fused_dkv_tc (hd_pad <= 144; fused_dq_wide, "
+                   "fused_dkv_wide beyond)", "dx_rows_tc", "wgrad_tc",
                    "reduce_kernel"],
     "kernels_previous": ["qkv_rows_kernel", "layer_bwd_rows_kernel", "fused_dq_kernel",
                          "fused_dkv_kernel", "dx_rows_kernel", "wgrad_kernel",
@@ -939,6 +953,127 @@ def fused_edge_phase(label, d, ffn, H, dtype, rate, T=100, device="cuda", seed=0
                              f"at the edge shape {label} {dtype}")
     return dict(label=label, dtype=dtype, rate=rate, T=T, route=plan.route,
                 attn_route=plan.attn_route, **errs)
+
+
+def fused_wide_attn_phase(label, B, T, d, ffn, H, rate, device="cuda", seed=0):
+    """The fused layer's three attention launches on "tc_wide" (bf16, hd past
+    hd_pad 144) held alone against the plain attention on the very operands
+    they read: attn and lse of a forward against _packed_fwd_plain on the
+    bf16 qkv of a backward (the same qkv launch on the same x: the same
+    bits), and dq, dk, dv (the backward's dqkv) against _attention_bwd_plain
+    on that qkv, its d_attn and delta and the forward's lse, by sample_err.
+    Times: each launcher's device time within layer calls (torch.profiler,
+    by kernel name), the plain attention's by events, SDPA's with a key
+    mask (the forward; its backward computes dq, dk and dv in one call).
+    Returns (forward, dq, dk/dv) records."""
+    import math
+
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+    from raindrop_tpu_torch.ops import fused_encoder as fe
+
+    od = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = random_layer(gen, d, ffn, device)
+    x, g = (torch.randn((B, T, d), generator=gen, device=device) for _ in range(2))
+    lengths = ragged_lengths(gen, B, T, device)
+    plan = fe.fused_plan(d, ffn, H, od)
+    if plan.attn_route != "tc_wide":
+        raise AssertionError(f"{label}: the fused attention took {plan.attn_route}, "
+                             f"expected tc_wide")
+    ws = fe._flatten(p)
+    _, attn, lse = fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, H, od)
+    scratch = {}
+    fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, H, od, attn, lse, g, scratch_out=scratch)
+    q, k, v = scratch["qkv"].reshape(B, T, 3 * d).float().split(d, dim=-1)
+    d_attn = scratch["d_attn"].reshape(B, T, d).float()
+    delta = scratch["delta"].reshape(B, H, T)
+    dq, dk, dv = scratch["dqkv"].reshape(B, T, 3 * d).split(d, dim=-1)
+    scratch.clear()
+    scale = 1.0 / math.sqrt(d // H)
+    want_o, want_lse = fa._packed_fwd_plain(q, k, v, lengths, H, od, SEED, rate)
+    want_g = fa._attention_bwd_plain(q, k, v, d_attn, delta, lengths, SEED, rate, H, od,
+                                     lse, scale)
+    torch.cuda.synchronize()
+    errs = {"attn": sample_err(attn, want_o, lengths), "lse": max_err(lse, want_lse)}
+    errs.update({n: sample_err(a, b, lengths) for n, a, b in zip(("dq", "dk", "dv"),
+                                                                 (dq, dk, dv), want_g)})
+    abs_errs = {"fwd": max(max_err(attn, want_o), errs["lse"]),
+                "dq": max_err(dq, want_g[0]),
+                "dkv": max(max_err(dk, want_g[1]), max_err(dv, want_g[2]))}
+    print(f"[fused_wide] {label} bf16 B={B} T={T} d={d} H={H} dropout {rate} "
+          f"({plan['attn_fwd'].copy_bytes}-byte copies): sample_err "
+          f"{errs} (tol {SAMPLE_TOL['bfloat16']:g}, lse max_abs_err tol "
+          f"{TOL['bfloat16']:g}); max_abs_err {abs_errs}", flush=True)
+    if (max(errs[n] for n in ("attn", "dq", "dk", "dv")) > SAMPLE_TOL["bfloat16"]
+            or errs["lse"] > TOL["bfloat16"]):
+        raise AssertionError(f"the fused layer's tc_wide attention disagrees with the "
+                             f"plain attention at {label} dropout {rate}")
+    del want_o, want_lse, want_g
+
+    names = ("fused_attn_fwd_wide", "fused_dq_wide", "fused_dkv_wide")
+    dev = {}
+    for fn, reps in ((lambda: fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, H, od), 10),
+                     (lambda: fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, H, od, attn,
+                                                 lse, g), 5)):
+        fn()
+        top = profile_device(lambda: [fn() for _ in range(reps)], reps)[3]
+        dev.update({n: sum(ms for key, ms in top.items() if n in key) for n in names
+                    if any(n in key for key in top)})
+    if not all(dev.get(n, 0.0) > 0 for n in names):
+        raise AssertionError(f"{label}: the profiler read no device time of a tc_wide "
+                             f"launcher: {dev}")
+    plain_ms = time_ms(lambda: fa._packed_fwd_plain(q, k, v, lengths, H, od, SEED, rate),
+                       reps=3, warmup=1)
+    bwd_plain_ms = time_ms(lambda: fa._attention_bwd_plain(
+        q, k, v, d_attn, delta, lengths, SEED, rate, H, od, lse, scale), reps=2, warmup=1)
+    live = lengths > 0
+    hd = d // H
+
+    def heads(t):
+        return t[live].reshape(-1, T, H, hd).transpose(1, 2).to(od).contiguous()
+
+    qh, kh, vh = (heads(t).requires_grad_() for t in (q, k, v))
+    keep = (torch.arange(T, device=device)[None, :]
+            < lengths[live][:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        library_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=keep, dropout_p=rate))
+    out = sdpa(qh, kh, vh, attn_mask=keep, dropout_p=rate)
+    gh = heads(d_attn)
+    bwd_library_ms = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
+                                                         retain_graph=True), reps=10)
+    del out, qh, kh, vh, gh
+    n_live, keys = int(live.sum()), float(lengths.sum())
+    # bytes each launch must move: its bf16 inputs once (q and dO over the
+    # live samples' T rows, k and v below each length), lse and delta, its
+    # f32 outputs over all of T; operations: 2 hd per (query, live key)
+    # pair of a head for each product it needs, two in the forward (S, PV),
+    # three for dq (S, dP, dQ), four for dk/dv (S, dP, dV, dK)
+    stats = n_live * H * T * 4
+    fwd_bytes = attention_bytes(lengths, T, d, H, 2)
+    dq_bytes = 2 * n_live * T * d * 2 + 2 * keys * d * 2 + 2 * stats + B * T * d * 4 + B * 4
+    dkv_bytes = 2 * keys * d * 2 + 2 * n_live * T * d * 2 + 2 * stats + 2 * B * T * d * 4 + B * 4
+    per = 2.0 * T * hd * H * keys       # one [T, L] x hd product of every head
+    work = {"fwd": (fwd_bytes, 2 * per), "dq": (dq_bytes, 3 * per), "dkv": (dkv_bytes, 4 * per)}
+    recs = []
+    for name, key, plain, lib in (("fused_attn_fwd_wide", "fwd", plain_ms, library_ms),
+                                  ("fused_dq_wide", "dq", bwd_plain_ms, None),
+                                  ("fused_dkv_wide", "dkv", bwd_plain_ms, None)):
+        nbytes, flops = work[key]
+        bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+        recs.append(dict(label=label, dtype="bfloat16", rate=rate, kernel=name,
+                         max_abs_err=abs_errs[key], errs=errs, ms=dev[name],
+                         plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                         bound_by=bound_by, bound_share=bound_ms / dev[name],
+                         bytes=nbytes, flops=flops, route=plan.attn_route))
+    print(f"[fused_wide] {label} dropout {rate}: device ms a call {dev} (bounds "
+          f"{[round(r['bound_ms'], 4) for r in recs]} ms); plain attention {plain_ms:.4f} / "
+          f"backward {bwd_plain_ms:.4f} ms; SDPA with a key mask {library_ms:.4f} ms, its "
+          f"backward (dq, dk and dv) {bwd_library_ms:.4f} ms", flush=True)
+    for r in recs[1:]:
+        r["library_pair_ms"] = bwd_library_ms
+    return recs
 
 
 def _head_views(gen, B, H, T, D, n, device):
@@ -1640,6 +1775,16 @@ def check_fused_tc(what, *counts):
                 or c["fused_encoder_layer.tc"] != c["fused_encoder_layer"]):
             raise AssertionError(f"{what}: fused_encoder_layer launches off the "
                                  f"tensor-core route: {c}")
+
+
+def check_fused_tc_wide(what, *counts):
+    """Every fused_encoder_layer launch in these counts ran its attention
+    on two warpgroups ("tc_wide": bf16 past hd_pad 144, PAM-sw's hd 170)."""
+    check_fused_tc(what, *counts)
+    for c in counts:
+        if c["fused_encoder_layer.tc_wide"] != c["fused_encoder_layer"]:
+            raise AssertionError(f"{what}: fused_encoder_layer attention launches off "
+                                 f"the tc_wide route: {c}")
 
 
 def check_tc_wide(what, *counts):
@@ -2408,6 +2553,8 @@ def main(argv=None) -> int:
                     for dt in ("float32", "bfloat16")]
         sw_fused_bwd = [fused_bwd_phase("PAM-sw", 128, 600, 340, 136, 2, dt, rate)
                         for dt, rate in grid]
+        sw_wide = [fused_wide_attn_phase("PAM-sw", 128, 600, 340, 136, 2, rate)
+                   for rate in (0.0, 0.2)]
     for r in sw_flash:
         want = ("scalar" if r["dtype"] != "bfloat16" else
                 "tc" if r["label"] == "eICU-sw" else "tc_wide")
@@ -2415,11 +2562,12 @@ def main(argv=None) -> int:
             raise AssertionError(f"{r['label']} {r['dtype']} took the {r['route']} "
                                  f"route, expected {want}")
     # the fused layer: bf16 row products on the tensor cores at both widths,
-    # the attention too at PAM's hd 42 (scalar at PAM-sw's 170); f32 scalar
+    # the attention too, on one warpgroup at PAM's hd 42 and on two at
+    # PAM-sw's 170; f32 scalar
     for r in (*fused, *fused_bwd, *sw_fused, *sw_fused_bwd, *fused_edges):
         bf = r["dtype"] == "bfloat16"
         want = ("tc" if bf else "scalar",
-                "tc" if bf and not r["label"].endswith("-sw") else "scalar")
+                "scalar" if not bf else "tc_wide" if r["label"].endswith("-sw") else "tc")
         if (r["route"], r["attn_route"]) != want:
             raise AssertionError(f"fused layer {r['label']} {r['dtype']} took the "
                                  f"{r['route']}/{r['attn_route']} routes, expected {want}")
@@ -2468,7 +2616,8 @@ def main(argv=None) -> int:
     check_tc_wide("P12-sw serving and training", sw_serve["P12"][0],
                   *sw_train["P12"][:2])
     check_tc("eICU-sw serving and training", sw_serve["eICU"][0], *sw_train["eICU"][:2])
-    check_fused_tc("PAM-sw serving and training", sw_serve["PAM"][0], *sw_train["PAM"][:2])
+    check_fused_tc_wide("PAM-sw serving and training", sw_serve["PAM"][0],
+                        *sw_train["PAM"][:2])
     torch.cuda.empty_cache()
 
     # the sparse-graph path: P12 with prop_backend='pallas', held against
@@ -2674,6 +2823,27 @@ def main(argv=None) -> int:
                   sw_train["PAM"][1]["fused_encoder_layer.tc"], sw_fused_bwd, "PAM-sw", 0.2),
          **FUSED_BWD_KERNELS},
     ]
+    # the fused layer's three attention launchers on "tc_wide" at PAM-sw:
+    # the forward's served (dropout 0), dq's and dk/dv's trained (0.2), the
+    # launches those paths counted there; max_abs_err over both rates
+    def wide_record(i, launches, rate, src):
+        r = next(x[i] for x in sw_wide if x[i]["rate"] == rate)
+        return {"name": r["kernel"], "route": "cuda", "source": f"{csrc}/{src}",
+                "replaces": ("raindrop_tpu/ops/fused_encoder.py:131" if i == 0 else
+                             "raindrop_tpu/ops/fused_encoder.py:183"),
+                "launches": launches,
+                "max_abs_err": max(x[i]["max_abs_err"] for x in sw_wide),
+                "ms": r["ms"], "plan_route": r["route"], "bound_share": r["bound_share"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                **({"library_pair_ms": r["library_pair_ms"]} if i else {}),
+                "sources_also": [f"{csrc}/attention_tc_wide.cuh"]}
+
+    fwd_wide = sw_serve["PAM"][0]["fused_encoder_layer.tc_wide"]
+    bwd_wide = sw_train["PAM"][1]["fused_encoder_layer.tc_wide"]
+    kernels += [wide_record(0, fwd_wide, 0.0, "fused_encoder_attn_wide.cu"),
+                wide_record(1, bwd_wide, 0.2, "fused_encoder_dq_wide.cu"),
+                wide_record(2, bwd_wide, 0.2, "fused_encoder_dkv_wide.cu")]
     # flash_mha past hd 128 at PAM-sw's head dim (170) on its 2048-step
     # window: launches from that configuration's server (forward) and its
     # train_split run (backward); max_abs_err over hd 170 and 360
@@ -2697,7 +2867,7 @@ def main(argv=None) -> int:
               "fused_bwd": fused_bwd, "fused_edge": fused_edges,
               "sensor_wise": {
                   "flash": sw_flash, "flash_bwd": sw_flash_bwd, "fused": sw_fused,
-                  "fused_bwd": sw_fused_bwd,
+                  "fused_bwd": sw_fused_bwd, "fused_wide_attention": sw_wide,
                   "serve": {k: {"launches": v[0], **v[1]} for k, v in sw_serve.items()},
                   "train": {k: {"launches": v[0], "bwd_launches": v[1], **v[2]}
                             for k, v in sw_train.items()}},

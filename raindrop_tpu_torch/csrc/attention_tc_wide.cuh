@@ -9,7 +9,10 @@
 // raindrop_tpu/ops/flash_attention.py:_packed_fwd_kernel (:566) and
 // :_packed_bwd_kernel (:610), and, launched by flash_split.cu through the
 // same kernels, the flash_mha kernels (:121, :146, :191, :237, :275) at any
-// T.
+// T; with those of fused_encoder_{attn,dq,dkv}_wide.cu, the attention of
+// raindrop_tpu/ops/fused_encoder.py:_fwd_kernel (:131) and :_bwd_kernel
+// (:183) at hd 145-192 (PAM's sensor-wise 170), on the head's view of the
+// fused layer's bf16 qkv rows (row stride 3 d, 4-byte copies at d = 340).
 //
 // What bounds it: bytes, as at hd <= 144 (P12-sw, B=128, lengths uniform on
 // 0..T: about 161 MB forward, 48 us at 3.35 TB/s; 356 MB backward, 106 us;

@@ -74,14 +74,15 @@ int with_hd_pad(int hd_pad, F&& f) {
 }
 
 // f(std::integral_constant<int, HDK>) for the run-time padded head dim of
-// the wide route, hd_pad = 176, 208, ..., 368.
-template <int N = tc::WIDE_MIN_HD_PAD, typename F>
+// the wide route, hd_pad = 176, 208, ..., MAX (368; the fused layer's
+// units instantiate up to its own limit, 208).
+template <int N = tc::WIDE_MIN_HD_PAD, int MAX = tc::WIDE_MAX_HD_PAD, typename F>
 int with_wide_pad(int hd_pad, F&& f) {
-  if constexpr (N > tc::WIDE_MAX_HD_PAD) {
+  if constexpr (N > MAX) {
     return (int)cudaErrorInvalidValue;
   } else {
     if (hd_pad == N) return f(std::integral_constant<int, N>{});
-    return with_wide_pad<N + tc::WIDE_STEP>(hd_pad, f);
+    return with_wide_pad<N + tc::WIDE_STEP, MAX>(hd_pad, f);
   }
 }
 

@@ -44,8 +44,11 @@
 //   time), qkv is stored in bf16 (each value is already rounded to it, so
 //   nothing is lost and the round trip halves: 77.4 MB to 38.7 at PAM),
 //   and B runs attend_rows_tc (attention_tc.cuh, in the fused unit
-//   fused_encoder_attn_tc.cu) up to a padded head dim of 144, the scalar
-//   attend_rows on the bf16 qkv beyond (PAM-sw's 170), to hd 192;
+//   fused_encoder_attn_tc.cu, one warpgroup a CTA) up to a padded head dim
+//   of 144 and attend_rows_tc_wide (attention_tc_wide.cuh, in
+//   fused_encoder_attn_wide.cu, two warpgroups each owning half of the
+//   output's columns over 32-row streamed tiles) past it, to hd 192
+//   (PAM-sw's 170 pads to 176);
 // - scalar (f32, and bf16 on request): A in 32-row blocks, B attend_rows in
 //   the geometry of the head dim, C row_gemm, every product scalar FMA.
 //   The f32 route keeps these kernels bit for bit.
@@ -62,18 +65,18 @@ namespace {
 using bf16 = __nv_bfloat16;
 using rd::fused::Plan;
 
-template <int MAXD, typename G, bool BF, bool DROP, typename TIn = float>
+template <int MAXD, typename G, bool BF, bool DROP>
 __global__ void __launch_bounds__(rd::NT)
-attn_rows_kernel(const TIn* __restrict__ qkv, const int* __restrict__ lengths,
+attn_rows_kernel(const float* __restrict__ qkv, const int* __restrict__ lengths,
                  float* __restrict__ attn, float* __restrict__ lse, int T, int d,
                  int nhead, float scale2, int seed, rd::Drop dr) {
   extern __shared__ float smem[];
   const int q0 = blockIdx.x * G::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hd = d / nhead;
   const int length = min(max(lengths[b], 0), T);
-  const TIn* qh = qkv + (long)b * T * 3 * d + h * hd;
+  const float* qh = qkv + (long)b * T * 3 * d + h * hd;
   dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
-  rd::attend_rows<MAXD, BF, DROP, TIn, G>(
+  rd::attend_rows<MAXD, BF, DROP, float, G>(
       qh, qh + d, qh + 2 * d, 3 * d, T, length, q0, hd, scale2, smem,
       attn + ((long)b * T + q0) * d + h * hd, d, lse + ((long)b * nhead + h) * T, dr);
 }
@@ -239,22 +242,6 @@ int launch(const float* x, const float* w_in, const float* b_in,
   return (int)cudaGetLastError();
 }
 
-// The scalar attention on the bf16 qkv of the tensor-core route: only for
-// hd 145-192 (the route stops at 192), the Narrow geometry at 48 columns a
-// thread.
-template <bool DROP>
-cudaError_t launch_attn_scalar_bf16(const bf16* qkv, const int* lengths, float* attn,
-                                    float* lse, const rd::fused::Launch& l, int B, int T,
-                                    int d, int nhead, float scale2, int seed, rd::Drop dr,
-                                    cudaStream_t stream) {
-  auto kern = attn_rows_kernel<48, rd::Narrow, true, DROP, bf16>;
-  cudaError_t err = allow_smem(kern, l.smem);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3((T + l.rows - 1) / l.rows, nhead, B), l.threads, l.smem, stream>>>(
-      qkv, lengths, attn, lse, T, d, nhead, scale2, seed, dr);
-  return cudaGetLastError();
-}
-
 #define RD_TRY(expr)                             \
   do {                                           \
     cudaError_t rd_e_ = (expr);                  \
@@ -279,14 +266,9 @@ int launch_tc(const float* const* w, const float* b_in, const float* bo, const f
                        stream>>>(x, wpack + pk.off[P_IN], b_in, qkv, M, d);
   RD_TRY(cudaGetLastError());
   const Launch& lb = p.l[ATTN_FWD];
-  if (lb.route == 1) {
-    const int err = launch_attn_fwd_tc(qkv, lengths, attn, lse, lb, B, T, d, nhead, scale2,
-                                       seed, rate, stream);
-    if (err != 0) return err;
-  } else {
-    RD_TRY(launch_attn_scalar_bf16<DROP>(qkv, lengths, attn, lse, lb, B, T, d, nhead, scale2,
-                                         seed, dr, stream));
-  }
+  const int err = (lb.route == 1 ? launch_attn_fwd_tc : launch_attn_fwd_wide)(
+      qkv, lengths, attn, lse, lb, B, T, d, nhead, scale2, seed, rate, stream);
+  if (err != 0) return err;
   const Launch& lc = p.l[TAIL];
   auto kc = layer_tail_tc<DROP>;
   RD_TRY(allow_smem(kc, lc.smem));

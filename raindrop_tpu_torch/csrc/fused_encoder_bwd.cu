@@ -38,9 +38,10 @@
 // - tensor cores (bf16, the model's default): the eight packed weights,
 //   A, B (64-row tiles, six products), D and E (G^T A with both operands
 //   staged transposed into K-major tiles) on wgmma (rows_tc.cuh); C on the
-//   tensor-core attention (attention_tc.cuh, in the units
-//   fused_encoder_{dq,dkv}_tc.cu) up to a padded head dim of 144, the
-//   scalar one on bf16 operands beyond (to hd 192, where the route stops);
+//   tensor-core attention, one warpgroup a CTA up to a padded head dim of
+//   144 (attention_tc.cuh, in the units fused_encoder_{dq,dkv}_tc.cu) and
+//   two past it (attention_tc_wide.cuh, in fused_encoder_{dq,dkv}_wide.cu),
+//   to hd 192, where the route stops;
 // - scalar (f32, and bf16 on request): B and D in 32-row blocks (five
 //   [32, d] buffers in shared memory, 218,496 bytes at d = 340), C the two
 //   kernels of attention_bwd.cuh in the geometry of the head dim (Narrow up
@@ -271,11 +272,10 @@ layer_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ att
 }
 
 // Launch C: the attention backward on qkv [B, T, 3d] with do = d_attn, in
-// the geometry G of the head dim (attention.cuh); TIn is f32 on the scalar
-// route, bf16 on the tensor-core route past a padded head dim of 144.
-template <int MAXD, typename G, bool BF, bool DROP, typename TIn = float>
+// the geometry G of the head dim (attention.cuh).
+template <int MAXD, typename G, bool BF, bool DROP>
 __global__ void __launch_bounds__(rd::NT)
-fused_dq_kernel(const TIn* __restrict__ qkv, const TIn* __restrict__ dattn,
+fused_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 const int* __restrict__ lengths, float* __restrict__ dqkv, int T,
                 int d, int nhead, float scale, int seed, rd::Drop dr) {
@@ -283,18 +283,18 @@ fused_dq_kernel(const TIn* __restrict__ qkv, const TIn* __restrict__ dattn,
   const int q0 = blockIdx.x * G::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hd = d / nhead;
   const int length = min(max(lengths[b], 0), T);
-  const TIn* qh = qkv + (long)b * T * 3 * d + h * hd;
+  const float* qh = qkv + (long)b * T * 3 * d + h * hd;
   const long stat = ((long)b * nhead + h) * T;
   dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
-  rd::attn_dq_rows<MAXD, BF, DROP, TIn, G>(
+  rd::attn_dq_rows<MAXD, BF, DROP, float, G>(
       qh, qh + d, qh + 2 * d, 3 * d, dattn + (long)b * T * d + h * hd, d,
       lse + stat, delta + stat, T, length, q0, hd, scale * 1.4426950408889634f,
       scale, dr, smem, dqkv + (long)b * T * 3 * d + h * hd, 3 * d);
 }
 
-template <int MAXD, typename G, bool BF, bool DROP, typename TIn = float>
+template <int MAXD, typename G, bool BF, bool DROP>
 __global__ void __launch_bounds__(rd::NT)
-fused_dkv_kernel(const TIn* __restrict__ qkv, const TIn* __restrict__ dattn,
+fused_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  const int* __restrict__ lengths, float* __restrict__ dqkv, int T,
                  int d, int nhead, float scale, int seed, rd::Drop dr) {
@@ -302,11 +302,11 @@ fused_dkv_kernel(const TIn* __restrict__ qkv, const TIn* __restrict__ dattn,
   const int k0 = blockIdx.x * G::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hd = d / nhead;
   const int length = min(max(lengths[b], 0), T);
-  const TIn* qh = qkv + (long)b * T * 3 * d + h * hd;
+  const float* qh = qkv + (long)b * T * 3 * d + h * hd;
   float* out = dqkv + (long)b * T * 3 * d + h * hd;
   const long stat = ((long)b * nhead + h) * T;
   dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
-  rd::attn_dkv_rows<MAXD, BF, DROP, TIn, G>(
+  rd::attn_dkv_rows<MAXD, BF, DROP, float, G>(
       qh, qh + d, qh + 2 * d, 3 * d, dattn + (long)b * T * d + h * hd, d,
       lse + stat, delta + stat, T, length, k0, hd, scale * 1.4426950408889634f,
       scale, dr, smem, out + d, out + 2 * d, 3 * d);
@@ -883,30 +883,6 @@ int launch(const Args& a, const Plan& p) {
   return (int)cudaGetLastError();
 }
 
-// The scalar attention backward on the bf16 qkv and d_attn of the
-// tensor-core route: only for hd 145-192 (the route stops at 192), the
-// Narrow geometry at 48 columns a thread.
-template <bool DROP>
-int launch_attn_bwd_scalar_bf16(const Args& a, const Plan& p) {
-  using namespace rd::fused;
-  using G = rd::Narrow;
-  auto kq = fused_dq_kernel<48, G, true, DROP, bf16>;
-  auto kkv = fused_dkv_kernel<48, G, true, DROP, bf16>;
-  RD_TRY(allow_smem(kq, p.l[ATTN_DQ].smem));
-  RD_TRY(allow_smem(kkv, p.l[ATTN_DKV].smem));
-  dim3 blocks((a.T + G::ROWS - 1) / G::ROWS, a.nhead, a.B);
-  const bf16* qkv = reinterpret_cast<const bf16*>(a.qkv);
-  const bf16* dattn = reinterpret_cast<const bf16*>(a.dattn);
-  kq<<<blocks, rd::NT, p.l[ATTN_DQ].smem, a.stream>>>(qkv, dattn, a.lse, a.delta, a.lengths,
-                                                      a.dqkv, a.T, a.d, a.nhead, a.scale,
-                                                      a.seed, a.dr);
-  RD_TRY(cudaGetLastError());
-  kkv<<<blocks, rd::NT, p.l[ATTN_DKV].smem, a.stream>>>(qkv, dattn, a.lse, a.delta,
-                                                        a.lengths, a.dqkv, a.T, a.d,
-                                                        a.nhead, a.scale, a.seed, a.dr);
-  return (int)cudaGetLastError();
-}
-
 // The tensor-core route: pack the eight weights, then A-E.
 template <bool DROP>
 int launch_tc(const Args& a, const Plan& p) {
@@ -939,17 +915,15 @@ int launch_tc(const Args& a, const Plan& p) {
       a.seed, a.dr);
   RD_TRY(cudaGetLastError());
 
-  if (p.l[ATTN_DQ].route == 1) {
-    int err = launch_dq_tc(qkv, dattn, a.lse, a.delta, a.lengths, a.dqkv, p.l[ATTN_DQ], B, T,
-                           d, a.nhead, a.scale, a.seed, a.rate, a.stream);
-    if (err) return err;
-    err = launch_dkv_tc(qkv, dattn, a.lse, a.delta, a.lengths, a.dqkv, p.l[ATTN_DKV], B, T,
-                        d, a.nhead, a.scale, a.seed, a.rate, a.stream);
-    if (err) return err;
-  } else {
-    const int err = launch_attn_bwd_scalar_bf16<DROP>(a, p);
-    if (err) return err;
-  }
+  const bool one_wg = p.l[ATTN_DQ].route == 1;
+  int err = (one_wg ? launch_dq_tc : launch_dq_wide)(qkv, dattn, a.lse, a.delta, a.lengths,
+                                                     a.dqkv, p.l[ATTN_DQ], B, T, d, a.nhead,
+                                                     a.scale, a.seed, a.rate, a.stream);
+  if (err) return err;
+  err = (one_wg ? launch_dkv_tc : launch_dkv_wide)(qkv, dattn, a.lse, a.delta, a.lengths,
+                                                   a.dqkv, p.l[ATTN_DKV], B, T, d, a.nhead,
+                                                   a.scale, a.seed, a.rate, a.stream);
+  if (err) return err;
 
   const Launch& ld = p.l[DX];
   RD_TRY(allow_smem(dx_rows_tc, ld.smem));
@@ -963,7 +937,7 @@ int launch_tc(const Args& a, const Plan& p) {
   const bf16* df2 = reinterpret_cast<const bf16*>(a.df2);
   const bf16* x1 = reinterpret_cast<const bf16*>(a.x1);
   const bf16* f = reinterpret_cast<const bf16*>(a.f);
-  int err = weight_grad_tc(a, le, (const float*)a.dqkv, 3 * d, 3 * d, a.x, d, d, a.dw_in);
+  err = weight_grad_tc(a, le, (const float*)a.dqkv, 3 * d, 3 * d, a.x, d, d, a.dw_in);
   if (err) return err;
   err = weight_grad_tc(a, le, dao, d, d, a.attn, d, d, a.dwo);
   if (err) return err;

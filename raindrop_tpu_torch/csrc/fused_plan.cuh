@@ -2,15 +2,16 @@
 // computes it (ops/fused_encoder.py fused_plan, FusedPlan.as_ints) and as
 // both entry points (fused_encoder.cu, fused_encoder_bwd.cu) recompute and
 // check it field for field: per launch the route (0 scalar, 1 tensor
-// cores), the rows of a CTA's tile, the copy width, the threads and the
-// shared bytes. Two routes:
+// cores, 2 the attention on two warpgroups past hd_pad 144), the rows of a
+// CTA's tile, the copy width, the threads and the shared bytes. Two routes
+// for the row products:
 // - tensor cores (bf16 operands, head dims up to 192, where every tile
 //   fits): the row products (qkv, the forward's tail, the backward's row
 //   kernel, dx, the weight gradients) on rows_tc.cuh, qkv in bf16; the
 //   attention on attention_tc.cuh while the head dim pads to at most 144
-//   (PAM's 42), else the scalar attention's Narrow geometry on the bf16
-//   qkv (PAM's sensor-wise 170; its Wide geometry on bf16 operands spilled,
-//   and no preset's head is wider than 170 here);
+//   (PAM's 42), on attention_tc_wide.cuh's two-warpgroup routines past it
+//   (route 2, "tc_wide": PAM's sensor-wise 170, padded to 176; hd 177-192
+//   to 208);
 // - scalar (f32 operands, bf16 where a tensor-core tile does not fit, and
 //   bf16 on request to measure the previous design): the kernels of PRs
 //   1-7, unchanged.
@@ -39,6 +40,9 @@ constexpr int PLAN_INTS = NLAUNCH * 5;
 static_assert(sizeof(Plan) == PLAN_INTS * sizeof(int), "Plan is 40 ints");
 
 constexpr int WGRAD_TILE = 64;  // weight-gradient outputs a CTA: 64 x 64
+// The widest padded head dim of the attention on two warpgroups (route 2):
+// the tensor-core route stops at hd NARROW_MAX_HD (192), which pads to 208.
+constexpr int WIDE_MAX_HD_PAD = tc::wide_pad(NARROW_MAX_HD);
 
 // Shared floats of the scalar kernels: the forward's row-local tail (attn
 // rows, later x1 + FFN; x + attention projection, later x1; the FFN
@@ -66,6 +70,8 @@ void scalar_attn(Plan& p, int hd, int es) {
 // attention's copy width (the wrapper's, from the alignment). False where
 // the route does not take the width: no geometry for the head dim, tensor
 // cores without bf16 operands, or a launch past a block's shared memory.
+// The tensor-core route's attention is route 1 up to hd_pad 144 and route
+// 2 past it (to hd NARROW_MAX_HD, where the tensor-core route stops).
 inline bool expected_plan(int d, int ffn, int nhead, int bf16, int tc, int W, Plan* out) {
   if (nhead <= 0 || d <= 0 || d % nhead != 0 || ffn <= 0) return false;
   const int hd = d / nhead;
@@ -90,6 +96,10 @@ inline bool expected_plan(int d, int ffn, int nhead, int bf16, int tc, int W, Pl
     p.l[ATTN_FWD] = {1, tc::ROWS, W, tc::WG, tc::fwd_smem_bytes(hd)};
     p.l[ATTN_DQ] = {1, tc::ROWS, W, tc::WG, tc::dq_smem_bytes(hd)};
     p.l[ATTN_DKV] = {1, tc::ROWS, W, tc::WG, tc::dkv_smem_bytes(hd)};
+  } else if (tc) {
+    p.l[ATTN_FWD] = {2, tc::ROWS, W, tc::WIDE_THREADS, tc::wide_fwd_smem_bytes(hd)};
+    p.l[ATTN_DQ] = {2, tc::ROWS, W, tc::WIDE_THREADS, tc::wide_dq_smem_bytes(hd)};
+    p.l[ATTN_DKV] = {2, tc::ROWS, W, tc::WIDE_THREADS, tc::wide_dkv_smem_bytes(hd)};
   } else if (hd <= NARROW_MAX_HD) {
     scalar_attn<Narrow>(p, hd, es);
   } else {
@@ -115,7 +125,8 @@ inline bool copy_ok(int W, int hd, int d, std::initializer_list<const void*> ptr
 }
 
 // The wrapper's plan (PLAN_INTS ints) if it is the one this width and
-// route give, with a copy width the pointers allow; false otherwise.
+// route give, with a copy width the pointers allow; false otherwise (a
+// route value other than 0, 1 and 2 among them: no plan holds one).
 inline bool check_plan(const int* ints, int d, int ffn, int nhead, int bf16,
                        std::initializer_list<const void*> attn_operands, Plan* p) {
   const int tc = ints[0];
@@ -123,7 +134,7 @@ inline bool check_plan(const int* ints, int d, int ffn, int nhead, int bf16,
   const int W = ints[ATTN_FWD * 5 + 2];
   Plan e;
   if (!expected_plan(d, ffn, nhead, bf16, tc, W, &e)) return false;
-  if (e.l[ATTN_FWD].route == 1 && !copy_ok(W, d / nhead, d, attn_operands)) return false;
+  if (e.l[ATTN_FWD].route != 0 && !copy_ok(W, d / nhead, d, attn_operands)) return false;
   if (std::memcmp(&e, ints, sizeof(Plan)) != 0) return false;
   *p = e;
   return true;
@@ -165,8 +176,11 @@ inline rows::PackJobs pack_jobs(const Packed& pk, const float* const* w, int n) 
 
 // The tensor-core attention in the fused layer's layout (qkv [B, T, 3d]
 // bf16, d_attn [B, T, d] bf16, dqkv [B, T, 3d] f32), launched as the plan
-// says; each returns cudaGetLastError(). Units fused_encoder_attn_tc.cu,
-// fused_encoder_dq_tc.cu, fused_encoder_dkv_tc.cu.
+// says; each returns cudaGetLastError(). Route 1: units
+// fused_encoder_attn_tc.cu, fused_encoder_dq_tc.cu, fused_encoder_dkv_tc.cu
+// (_tc); route 2: fused_encoder_attn_wide.cu, fused_encoder_dq_wide.cu,
+// fused_encoder_dkv_wide.cu (_wide), whose kernels are instantiated for
+// the padded head dims up to WIDE_MAX_HD_PAD.
 int launch_attn_fwd_tc(const void* qkv, const void* lengths, void* attn, void* lse,
                        const Launch& l, int B, int T, int d, int nhead, float scale2, int seed,
                        double rate, cudaStream_t stream);
@@ -176,6 +190,15 @@ int launch_dq_tc(const void* qkv, const void* dattn, const void* lse, const void
 int launch_dkv_tc(const void* qkv, const void* dattn, const void* lse, const void* delta,
                   const void* lengths, void* dqkv, const Launch& l, int B, int T, int d,
                   int nhead, float scale, int seed, double rate, cudaStream_t stream);
+int launch_attn_fwd_wide(const void* qkv, const void* lengths, void* attn, void* lse,
+                         const Launch& l, int B, int T, int d, int nhead, float scale2,
+                         int seed, double rate, cudaStream_t stream);
+int launch_dq_wide(const void* qkv, const void* dattn, const void* lse, const void* delta,
+                   const void* lengths, void* dqkv, const Launch& l, int B, int T, int d,
+                   int nhead, float scale, int seed, double rate, cudaStream_t stream);
+int launch_dkv_wide(const void* qkv, const void* dattn, const void* lse, const void* delta,
+                    const void* lengths, void* dqkv, const Launch& l, int B, int T, int d,
+                    int nhead, float scale, int seed, double rate, cudaStream_t stream);
 
 }  // namespace fused
 }  // namespace rd

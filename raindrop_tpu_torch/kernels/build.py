@@ -36,14 +36,16 @@ SOURCES = ("flash_packed", "fused_encoder", "fused_encoder_bwd", "sparse_graph")
 # are three units more; flash_mha's entry points (flash_split) launch the
 # same tensor-core kernels on their own strides, so they are a unit of this
 # library too; the fused layer's tensor-core attention kernels (18 a
-# family) are units of their own the same way
+# family on one warpgroup, 4 on two) are units of their own the same way
 PARTS = {"flash_packed": ("flash_packed", "flash_split", "flash_packed_fwd_tc",
                           "flash_packed_dq_tc", "flash_packed_dkv_tc",
                           "flash_packed_fwd_wide", "flash_packed_dq_wide",
                           "flash_packed_dkv_wide"),
-         "fused_encoder": ("fused_encoder", "fused_encoder_attn_tc"),
+         "fused_encoder": ("fused_encoder", "fused_encoder_attn_tc",
+                           "fused_encoder_attn_wide"),
          "fused_encoder_bwd": ("fused_encoder_bwd", "fused_encoder_dq_tc",
-                               "fused_encoder_dkv_tc")}
+                               "fused_encoder_dkv_tc", "fused_encoder_dq_wide",
+                               "fused_encoder_dkv_wide")}
 
 _lock = threading.Lock()          # guards builds and _libs
 _count_lock = threading.Lock()    # guards the wrappers' launch counts

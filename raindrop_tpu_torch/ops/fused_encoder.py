@@ -18,8 +18,10 @@ weights. On CUDA tensors forward and backward launch the hand-written
 kernels in `csrc/fused_encoder.cu` and `csrc/fused_encoder_bwd.cu` (or
 raise) by the route of their launch plan (`fused_plan`): with bf16
 operands every row product on the tensor cores (`csrc/rows_tc.cuh`) and
-the attention too up to a padded head dim of 144, with f32 operands (and
-where a tensor-core tile would not fit) the scalar kernels; the widths
+the attention too, on one warpgroup up to a padded head dim of 144 and on
+two past it (`csrc/attention_tc_wide.cuh`, PAM's sensor-wise hd 170), with
+f32 operands (and where a tensor-core tile would not fit) the scalar
+kernels; the widths
 they take are those whose kernels fit a block's shared memory, d = 340
 with ffn = 136 and 2 heads at PAM's sensor-wise width among them. On CPU
 tensors they run `_fused_fwd_plain` and `_fused_bwd_plain`, the same
@@ -37,9 +39,9 @@ import torch
 
 from raindrop_tpu_torch.kernels import build
 from raindrop_tpu_torch.ops.flash_attention import (
-    LOG2E, MAX_FUSED_T, MAX_HEAD_DIM, NARROW_MAX_HD, TC_MAX_HD_PAD, _align,
+    LOG2E, MAX_FUSED_T, MAX_HEAD_DIM, NARROW_MAX_HD, TC_MAX_HD_PAD, _ROUTES, _align,
     _attention_bwd_plain, _check_rate, _dropout_keep_hash, _packed_fwd_plain,
-    _seed_int, operand_dtype, pad8)
+    _seed_int, operand_dtype, pad8, wide_pad)
 
 _EPS = 1e-5
 SITE_ATTN_OUT, SITE_FFN_MID, SITE_FFN_OUT = 101, 102, 103
@@ -263,11 +265,14 @@ def fused_encoder_layer(p, x, lengths, seed=None, dropout_rate=0.0,
 
 
 # forward calls that launched the kernels; `bwd_launches` counts backwards;
-# the tc_ counts those of the two on the tensor-core route
+# the tc_ counts those of the two on the tensor-core route, the tc_wide_
+# counts those whose attention ran on two warpgroups (past hd_pad 144)
 fused_encoder_layer.launches = 0
 fused_encoder_layer.bwd_launches = 0
 fused_encoder_layer.tc_launches = 0
 fused_encoder_layer.tc_bwd_launches = 0
+fused_encoder_layer.tc_wide_launches = 0
+fused_encoder_layer.tc_wide_bwd_launches = 0
 
 
 SMEM = 232448             # shared bytes a block may use on sm_90
@@ -288,15 +293,17 @@ _TC_THREADS = 256              # two warpgroups a CTA (rows_tc.cuh NTH)
 _RING = 2 * 2 * 64 * 64 * 2    # two steps of two 64 x 64 bf16 weight panels
 _STAGE = 64 * 132 * 4          # a step's two 64-column chunks, f32, staged
 _WGRAD = 2 * 2 * 64 * 64 * 2   # two stages of a G^T and an A^T tile (one warpgroup)
+_WIDE_KEYS = 32                # rows of a streamed tile on "tc_wide"
 
 
 @dataclass(frozen=True)
 class FusedLaunch:
-    """One launch of the plan: its route ("tc" or "scalar"), the rows of a
-    CTA's tile (the output tile's rows for the weight gradients), the copy
-    width in bytes (16 for the tensor cores' weight panels, the attention
-    tiles' width on its tensor-core route, the operand size on the scalar
-    one), the threads of a CTA and its shared bytes."""
+    """One launch of the plan: its route ("tc", "tc_wide" for the attention
+    on two warpgroups past hd_pad 144, or "scalar"), the rows of a CTA's
+    tile (the output tile's rows for the weight gradients), the copy width
+    in bytes (16 for the tensor cores' weight panels, the attention tiles'
+    width on its tensor-core routes, the operand size on the scalar one),
+    the threads of a CTA and its shared bytes."""
 
     route: str
     rows: int
@@ -322,9 +329,10 @@ class FusedPlan:
 
     @functools.cached_property
     def as_ints(self):
-        """The plan as the C entry points take it: 5 ints a launch."""
+        """The plan as the C entry points take it: 5 ints a launch, the
+        route 0 (scalar), 1 (tc) or 2 (tc_wide); KeyError for another."""
         vals = [v for l in self.launches
-                for v in (int(l.route == "tc"), l.rows, l.copy_bytes, l.threads, l.smem)]
+                for v in (_ROUTES[l.route], l.rows, l.copy_bytes, l.threads, l.smem)]
         return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -377,6 +385,16 @@ def _launches(d, ffn, nhead, es, tc, copy):
         attn = (FusedLaunch("tc", 64, copy, 128, 5 * tile),
                 FusedLaunch("tc", 64, copy, 128, 6 * tile),
                 FusedLaunch("tc", 64, copy, 128, 6 * tile + 2 * 2 * 64 * 4))
+    elif tc:
+        # two warpgroups: 64-row tiles of the own side (Q; Q and dO; K and
+        # V), a two-stage ring of 32-row tiles of the streamed side, and in
+        # the dk/dv pass two stages of 32 lse and delta floats
+        # (csrc/attention_tc_wide.cuh wide_*_smem_bytes)
+        own, streamed = 64 * wide_pad(hd) * 2, _WIDE_KEYS * wide_pad(hd) * 2
+        attn = (FusedLaunch("tc_wide", 64, copy, 256, own + 4 * streamed),
+                FusedLaunch("tc_wide", 64, copy, 256, 2 * own + 4 * streamed),
+                FusedLaunch("tc_wide", 64, copy, 256,
+                            2 * own + 4 * streamed + 2 * 2 * _WIDE_KEYS * 4))
     else:
         attn = _scalar_attn(hd, es)
     qkv, tail, bwd_rows, dx, wgrad = rows
@@ -391,16 +409,18 @@ def fused_plan(d, ffn, nhead, od, impl="auto", align=16) -> FusedPlan:
     """The launch plan of the fused layer's kernels at one width for
     operands of dtype `od` on the card. bf16 takes the tensor-core route
     wherever its tiles fit a block and the head dim is at most
-    NARROW_MAX_HD (PAM's d = 84 and its sensor-wise 340 among them; the
-    attention there up to a padded head dim of TC_MAX_HD_PAD, the scalar
-    one's Narrow geometry on bf16 operands beyond), f32 and other bf16
-    widths the scalar route of PRs 1-7; impl="scalar" asks for the
-    scalar kernels in bf16 too (the previous design, for measurement).
-    `align` is the alignment in bytes of the qkv and d_attn buffers: with
-    the head's offset in a row (2 hd bytes) and the row strides (6 d and 2
-    d) it bounds the tensor-core attention's copy width, 16, 8, 4 or 2
-    bytes (PAM, hd 42: 4). Raises ValueError for a width no route takes,
-    as the kernels' shared memory decides (d = 680 at 2 heads)."""
+    NARROW_MAX_HD (PAM's d = 84 and its sensor-wise 340 among them): every
+    row product on the tensor cores, the attention on one warpgroup ("tc")
+    up to a padded head dim of TC_MAX_HD_PAD and on two ("tc_wide",
+    padded to 176 or 208) past it, PAM-sw's hd 170 among them. f32 and
+    other bf16 widths take the scalar route (every product scalar FMA);
+    impl="scalar" asks for the scalar kernels in bf16 too (the previous
+    design, for measurement). `align` is the alignment in bytes of the qkv and d_attn
+    buffers: with the head's offset in a row (2 hd bytes) and the row
+    strides (6 d and 2 d) it bounds the tensor-core attention's copy
+    width, 16, 8, 4 or 2 bytes (PAM, hd 42, and PAM-sw, hd 170: 4). Raises
+    ValueError for a width no route takes, as the kernels' shared memory
+    decides (d = 680 at 2 heads)."""
     if impl not in ("auto", "scalar"):
         raise ValueError(f"impl must be 'auto' or 'scalar', got {impl!r}")
     if nhead <= 0 or d % nhead or ffn <= 0:
@@ -451,10 +471,13 @@ def _packed_elems(d, ffn, n):
 
 
 def _count(plan, attr):
-    """One launch on `attr` and, on the tensor-core route, on tc_<attr>."""
+    """One launch on `attr` and, on the tensor-core route, on tc_<attr>
+    (and on tc_wide_<attr> where the attention ran on two warpgroups)."""
     build.count_launch(fused_encoder_layer, attr)
     if plan.route == "tc":
         build.count_launch(fused_encoder_layer, f"tc_{attr}")
+    if plan.attn_route == "tc_wide":
+        build.count_launch(fused_encoder_layer, f"tc_wide_{attr}")
 
 
 def _prepare(ws, x, lengths):

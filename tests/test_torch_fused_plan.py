@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from raindrop_tpu_torch.ops import fused_encoder as fe
+from raindrop_tpu_torch.ops.flash_attention import wide_pad
+from test_torch_packed_plan import wide_smem
 
 BF16, F32 = torch.bfloat16, torch.float32
 SMEM = 232448      # shared bytes a block may use on sm_90
@@ -20,6 +22,13 @@ ROW_LAUNCHES = ("qkv", "tail", "bwd_rows", "dx", "wgrad")
 ATTN_LAUNCHES = ("attn_fwd", "attn_dq", "attn_dkv")
 # the card tests' widths (d, ffn, nhead), PAM's and PAM's sensor-wise
 WIDTHS = [(16, 32, 2), (24, 48, 3), (84, 136, 2), (152, 272, 2), (340, 136, 2)]
+# the route ints the C entry points take (csrc/fused_plan.cuh Launch.route)
+ROUTE_INTS = {"scalar": 0, "tc": 1, "tc_wide": 2}
+# widths (d, ffn, nhead) of bf16 head dims past hd_pad 144 where every row
+# product's tile fits: hd 145 (the first), 170 (PAM-sw), 176 (the last to
+# pad to 176), 177 (the first to pad to 208) and 192 (the last the
+# tensor-core route takes)
+WIDE_WIDTHS = [(290, 136, 2), (340, 136, 2), (352, 136, 2), (177, 64, 1), (192, 64, 1)]
 
 
 def _parent_takes(d, ffn, nhead):
@@ -66,19 +75,27 @@ def test_pam_takes_the_tensor_cores_throughout():
 
 
 def test_pam_sensor_wise_keeps_the_scalar_attention_past_hd_pad_144():
+    """The name is the previous design's: past hd_pad 144 the fused layer's
+    attention kept the scalar kernels. It now takes the two-warpgroup
+    tensor-core route ("tc_wide") at PAM-sw (d=340, hd 170, padded to 176);
+    the row products are as they were."""
     plan = fe.fused_plan(340, 136, 2, BF16)
-    assert (plan.route, plan.attn_route) == ("tc", "scalar")
+    assert (plan.route, plan.attn_route) == ("tc", "tc_wide")
     for name in ROW_LAUNCHES:
         assert plan[name].route == "tc" and plan[name].rows == 64
-    # hd 170: the Narrow geometry (64-row blocks), bf16 operands
+    # hd 170: 64-row blocks on two warpgroups; a head starts 340 bytes into
+    # a bf16 row, so 4-byte copies
     for name in ATTN_LAUNCHES:
         assert (plan[name].route, plan[name].rows, plan[name].copy_bytes,
-                plan[name].threads) == ("scalar", 64, 2, 256)
+                plan[name].threads) == ("tc_wide", 64, 4, 256)
     assert plan["bwd_rows"].smem == 87040 + 49152 + 24576 + 34816 + 32768 + 1024
     assert plan["bwd_rows"].smem <= SMEM
     assert plan["tail"].smem == 87040 + 49152 + 24576 + 32768
     assert plan["dx"].smem == 64 * 1024 * 2 + 32768 + 33792
-    assert plan["attn_dkv"].smem == (2 * 128 * 171 + 2 * 64 * 65 + 128) * 4
+    # a 64 x 176 own tile (Q; Q and dO; K and V), four 32 x 176 streamed
+    # tiles, and two stages of 32 lse and delta floats in the dk/dv pass
+    assert (plan["attn_fwd"].smem, plan["attn_dq"].smem, plan["attn_dkv"].smem) == \
+        (22528 + 45056, 2 * 22528 + 45056, 2 * 22528 + 45056 + 512) == wide_smem(176)
 
 
 @pytest.mark.parametrize("d,ffn,nhead", WIDTHS)
@@ -113,10 +130,10 @@ def test_bf16_widths_of_the_card_tests_take_the_tensor_cores(d, ffn, nhead):
     plan = fe.fused_plan(d, ffn, nhead, BF16)
     hd_pad = -(-(d // nhead) // 16) * 16
     assert plan.route == "tc"
-    assert plan.attn_route == ("tc" if hd_pad <= fe.TC_MAX_HD_PAD else "scalar")
+    assert plan.attn_route == ("tc" if hd_pad <= fe.TC_MAX_HD_PAD else "tc_wide")
     assert max(l.smem for l in plan.launches) <= SMEM
     assert len(plan.as_ints) == 5 * len(fe.LAUNCHES)
-    assert list(plan.as_ints)[0::5] == [int(l.route == "tc") for l in plan.launches]
+    assert list(plan.as_ints)[0::5] == [ROUTE_INTS[l.route] for l in plan.launches]
 
 
 @pytest.mark.parametrize("hd,align,want", [
@@ -194,31 +211,120 @@ def test_refuses_what_no_route_takes():
 
 
 def test_tensor_cores_stop_at_hd_192():
-    """Past hd 192 bf16 takes the scalar route: the tensor-core route's
-    scalar attention runs the Narrow geometry alone (its Wide geometry on
-    bf16 operands spilled registers); no preset's fused-layer head is wider
-    than PAM-sw's 170."""
+    """Past hd 192 (NARROW_MAX_HD) bf16 takes the scalar route, as before
+    the attention took the tensor cores there: the two-warpgroup attention
+    is built for hd_pad 176 and 208 alone, and no preset's fused-layer head
+    is wider than PAM-sw's 170."""
     assert fe.fused_plan(2 * 192, 16, 2, BF16).route == "tc"
+    assert fe.fused_plan(2 * 192, 16, 2, BF16).attn_route == "tc_wide"
     plan = fe.fused_plan(200, 16, 1, BF16)              # hd 200: the Wide geometry
     assert plan.route == "scalar" and plan["attn_fwd"].rows == 32
 
 
 def test_pam_sensor_wise_plan_is_unchanged_by_the_wide_packed_route():
-    """flash_mha_packed takes its two-warpgroup tensor-core kernels past
-    hd_pad 144 in bf16; the fused layer shares TC_MAX_HD_PAD with it but not
-    that route: at PAM-sw (d=340, hd 170) its attention launches stay the
-    scalar Narrow kernels on bf16 operands, and every field of the plan the
-    C entry points check is what it was before that route existed."""
+    """Every field of PAM-sw's plan (d=340, hd 170) that the C entry points
+    check. The name is the previous design's, when the fused layer's
+    attention kept the scalar kernels there; it now runs flash_mha_packed's
+    two-warpgroup routines ("tc_wide", route int 2) on the fused layer's
+    qkv rows, and the five row launches are unchanged."""
     plan = fe.fused_plan(340, 136, 2, BF16)
     assert fe.TC_MAX_HD_PAD == 144
     assert list(plan.as_ints) == [
         1, 64, 16, 256, 115712,      # qkv
-        0, 64, 2, 256, 147968,       # attn_fwd: scalar
+        2, 64, 4, 256, 67584,        # attn_fwd: tc_wide
         1, 64, 16, 256, 193536,      # tail
         1, 64, 16, 256, 229376,      # bwd_rows
-        0, 64, 2, 256, 191744,       # attn_dq: scalar
-        0, 64, 2, 256, 208896,       # attn_dkv: scalar
+        2, 64, 4, 256, 90112,        # attn_dq: tc_wide
+        2, 64, 4, 256, 90624,        # attn_dkv: tc_wide
         1, 64, 16, 256, 197632,      # dx
         1, 64, 16, 128, 32768]       # wgrad
     for name in ATTN_LAUNCHES:
-        assert plan[name].route == "scalar" and plan[name].threads == 256
+        assert plan[name].route == "tc_wide" and plan[name].threads == 256
+
+
+@pytest.mark.parametrize("d,ffn,nhead", WIDE_WIDTHS)
+def test_bf16_head_dims_past_hd_pad_144_take_tc_wide(d, ffn, nhead):
+    """hd 145-192 in bf16: the row products on the tensor cores as before,
+    the attention on two warpgroups (256 threads, 64-row blocks) with the
+    two-warpgroup routines' shared bytes at the head dim padded to 176 or
+    208 (the mirror tests/test_torch_packed_plan.py holds against the C
+    library)."""
+    hd = d // nhead
+    plan = fe.fused_plan(d, ffn, nhead, BF16)
+    assert (plan.route, plan.attn_route) == ("tc", "tc_wide")
+    assert wide_pad(hd) == (176 if hd <= 176 else 208)
+    smem = wide_smem(wide_pad(hd))
+    for name, want in zip(ATTN_LAUNCHES, smem):
+        assert (plan[name].route, plan[name].rows, plan[name].threads,
+                plan[name].smem) == ("tc_wide", 64, 256, want)
+    for name in ROW_LAUNCHES:
+        assert plan[name].route == "tc"
+    ints = list(plan.as_ints)
+    assert ints[0::5] == [1, 2, 1, 1, 2, 2, 1, 1]
+    assert ints[3::5] == [256, 256, 256, 256, 256, 256, 256, 128]
+    # the copy width: the largest of 16, 8, 4, 2 dividing the head's offset
+    # in a row (2 hd bytes), the row strides (6 d, 2 d) and the alignment
+    want = next(w for w in (16, 8, 4, 2) if (2 * hd) % w == 0 and (2 * d) % w == 0)
+    assert {plan[n].copy_bytes for n in ATTN_LAUNCHES} == {want}
+    assert fe.fused_plan(d, ffn, nhead, BF16, align=2)["attn_dq"].copy_bytes == 2
+
+
+@pytest.mark.parametrize("hd", [8, 42, 128, 140, 144])
+def test_bf16_head_dims_up_to_hd_pad_144_keep_one_warpgroup(hd):
+    """Up to hd_pad 144 the attention keeps the one-warpgroup kernels: 128
+    threads, five, six and six 64-row tiles at the head dim padded to 16."""
+    plan = fe.fused_plan(2 * hd, 136, 2, BF16)
+    assert (plan.route, plan.attn_route) == ("tc", "tc")
+    tile = 64 * (-(-hd // 16) * 16) * 2
+    for name, want in zip(ATTN_LAUNCHES, (5 * tile, 6 * tile, 6 * tile + 1024)):
+        assert (plan[name].route, plan[name].threads, plan[name].smem) == ("tc", 128, want)
+    assert list(plan.as_ints)[0::5] == [1] * 8
+
+
+@pytest.mark.parametrize("d,ffn,nhead", WIDE_WIDTHS)
+def test_f32_and_impl_scalar_keep_the_scalar_attention_past_hd_pad_144(d, ffn, nhead):
+    """f32, and bf16 with impl="scalar", keep the scalar kernels at hd
+    145-192: the Narrow geometry (64-row blocks, 256 threads), every route
+    int 0, the operand size as the copy width."""
+    hd = d // nhead
+    narrow = (((64 + 128) * (hd + 1) + 64 * 65) * 4, (256 * (hd + 1) + 64 * 65) * 4,
+              (256 * (hd + 1) + 2 * 64 * 65 + 128) * 4)
+    for od, impl in ((F32, "auto"), (BF16, "scalar")):
+        plan = fe.fused_plan(d, ffn, nhead, od, impl)
+        assert (plan.route, plan.attn_route) == ("scalar", "scalar")
+        assert list(plan.as_ints)[0::5] == [0] * 8
+        for name, want in zip(ATTN_LAUNCHES, narrow):
+            assert (plan[name].rows, plan[name].copy_bytes, plan[name].threads,
+                    plan[name].smem) == (64, od.itemsize, 256, want)
+
+
+def test_a_route_the_c_side_does_not_know_is_refused():
+    """FusedPlan.as_ints maps routes to the C side's ints (0 scalar, 1 tc, 2
+    tc_wide) and raises for a route it has no int for, so no plan reaches
+    the entry points with one (they refuse any plan whose ints differ from
+    their own, tests/test_torch_kernels_cuda.py)."""
+    plan = fe.fused_plan(340, 136, 2, BF16)
+    assert {l.route: i for l, i in zip(plan.launches, list(plan.as_ints)[0::5])} == \
+        {"tc": 1, "tc_wide": 2}
+    bad = fe.FusedPlan("tc", "tc_huge", tuple(
+        fe.FusedLaunch("tc_huge", l.rows, l.copy_bytes, l.threads, l.smem)
+        if name in ATTN_LAUNCHES else l for name, l in zip(fe.LAUNCHES, plan.launches)))
+    with pytest.raises(KeyError):
+        bad.as_ints
+
+
+def test_tc_wide_launches_are_counted_apart():
+    """A call whose attention ran on two warpgroups adds one to tc_wide_<attr>
+    beside <attr> and tc_<attr>; a one-warpgroup or scalar plan does not."""
+    layer = fe.fused_encoder_layer
+    attrs = ("launches", "tc_launches", "tc_wide_launches", "bwd_launches",
+             "tc_bwd_launches", "tc_wide_bwd_launches")
+    before = {a: getattr(layer, a) for a in attrs}
+    fe._count(fe.fused_plan(340, 136, 2, BF16), "launches")
+    fe._count(fe.fused_plan(84, 136, 2, BF16), "bwd_launches")
+    fe._count(fe.fused_plan(340, 136, 2, F32), "bwd_launches")
+    after = {a: getattr(layer, a) - before[a] for a in attrs}
+    assert after == {"launches": 1, "tc_launches": 1, "tc_wide_launches": 1,
+                     "bwd_launches": 2, "tc_bwd_launches": 1, "tc_wide_bwd_launches": 0}
+    for a in attrs:
+        setattr(layer, a, before[a])

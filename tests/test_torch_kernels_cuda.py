@@ -219,10 +219,22 @@ def _random_layer(gen, d, ffn):
 
 
 # the fused layer's widths: d 16, 24 (3 heads), 84 (PAM), 152, 340 (PAM-sw:
-# the tensor cores' row products with the scalar attention at hd 170);
-# T = 100 ends 36 rows into a 64-row tile, with lengths 0, 1, 45 and 100
+# in bf16 the attention on two warpgroups, "tc_wide", at hd 170), 300 (hd
+# 150, "tc_wide" at hd_pad 176) and 192 at one head (hd 192, "tc_wide" at
+# hd_pad 208); T = 100 ends 36 rows into a 64-row tile, with lengths 0, 1,
+# 45 and 100
 FUSED_SHAPES = [(13, 16, 32, 2), (600, 84, 136, 2), (70, 24, 48, 3), (600, 340, 136, 2),
-                (33, 340, 136, 2), (100, 84, 136, 2), (100, 340, 136, 2)]
+                (33, 340, 136, 2), (100, 84, 136, 2), (100, 340, 136, 2),
+                (100, 300, 136, 2), (100, 192, 64, 1)]
+
+
+def _attn_route(d, ffn, nhead, cd):
+    """The fused plan's attention route for the operands of `cd`; in bf16
+    "tc_wide" exactly where the head dim pads past 144."""
+    route = fe.fused_plan(d, ffn, nhead, fa.operand_dtype(cd)).attn_route
+    hd_pad = -(-(d // nhead) // 16) * 16
+    assert route == ("scalar" if cd is None else "tc" if hd_pad <= 144 else "tc_wide")
+    return route
 
 
 def _fused_lengths(gen, B, T):
@@ -245,6 +257,7 @@ def test_fused_backward_matches_plain(gen, T, d, ffn, nhead, cd, rate):
     ws = fe._flatten(p)
     before = fe.fused_encoder_layer.bwd_launches
     before_tc = fe.fused_encoder_layer.tc_bwd_launches
+    before_wide = fe.fused_encoder_layer.tc_wide_bwd_launches
     scratch = {}
     dx, dws = fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, nhead, od, attn, lse, g,
                                  scratch_out=scratch)
@@ -252,6 +265,8 @@ def test_fused_backward_matches_plain(gen, T, d, ffn, nhead, cd, rate):
     tc = fe.fused_plan(d, ffn, nhead, od).route == "tc"
     assert tc == (cd == "bfloat16")
     assert fe.fused_encoder_layer.tc_bwd_launches == before_tc + tc
+    wide = _attn_route(d, ffn, nhead, cd) == "tc_wide"
+    assert fe.fused_encoder_layer.tc_wide_bwd_launches == before_wide + wide
     dx2, dws2 = fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, nhead, od, attn, lse, g)
     # a relu pre-activation within rounding of zero may take the other
     # branch on the two sides, an O(1) change of single elements: the plain
@@ -280,9 +295,12 @@ def test_fused_kernel_matches_plain(gen, T, d, ffn, nhead, cd, rate):
     lengths = _fused_lengths(gen, B, T)
     before = fe.fused_encoder_layer.launches
     before_tc = fe.fused_encoder_layer.tc_launches
+    before_wide = fe.fused_encoder_layer.tc_wide_launches
     got = fe._fused_fwd(p, x, lengths, SEED, rate, cd, nhead)
     assert fe.fused_encoder_layer.launches == before + 1
     assert fe.fused_encoder_layer.tc_launches == before_tc + (cd == "bfloat16")
+    wide = _attn_route(d, ffn, nhead, cd) == "tc_wide"
+    assert fe.fused_encoder_layer.tc_wide_launches == before_wide + wide
     again = fe._fused_fwd(p, x, lengths, SEED, rate, cd, nhead)
     want = fe._fused_fwd_plain(p, x, lengths, nhead, fa.operand_dtype(cd), SEED,
                                rate)
@@ -336,7 +354,8 @@ def test_fused_autograd_in_bf16_reaches_the_tensor_core_kernels(gen):
 @pytest.mark.parametrize("od", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,ffn,nhead", [(16, 32, 2), (24, 48, 3), (84, 136, 2),
                                          (152, 272, 2), (340, 136, 2), (72, 136, 2),
-                                         (26, 48, 2)])
+                                         (26, 48, 2), (290, 136, 2), (300, 136, 2),
+                                         (352, 136, 2), (177, 64, 1), (192, 64, 1)])
 def test_fused_plan_is_the_c_librarys(gen, d, ffn, nhead, od, impl):
     """The wrapper's launch plan (fused_plan) is the one the C entry points
     recompute, field for field: route, tile rows, copy width, threads and
@@ -344,6 +363,36 @@ def test_fused_plan_is_the_c_librarys(gen, d, ffn, nhead, od, impl):
     plan = fe.fused_plan(d, ffn, nhead, od, impl)
     ints, ok = fe.c_plan(d, ffn, nhead, od, plan.route, plan["attn_fwd"].copy_bytes)
     assert ok and ints == tuple(plan.as_ints)
+
+
+@pytest.mark.parametrize("route", [0, 1, 3])
+def test_fused_entry_points_refuse_another_attention_route(gen, monkeypatch, route):
+    """At PAM-sw (hd 170) the C entry points take the attention on route 2
+    (tc_wide) alone: a plan whose three attention launches carry route 0, 1
+    or a value they do not know (3), every other field as it was, is
+    refused by the forward and the backward."""
+    B, T, d, ffn, nhead, od = 2, 33, 340, 136, 2, torch.bfloat16
+    p = _random_layer(gen, d, ffn)
+    x, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(2))
+    lengths = torch.tensor([0, T], dtype=torch.int32, device="cuda")
+    ws = fe._flatten(p)
+    _, attn, lse = fe._fused_fwd_cuda(ws, x, lengths, SEED, 0.0, nhead, od)
+    real = fe.fused_plan
+
+    class Tampered:
+        def __init__(self, plan):
+            self.route, self.attn_route = plan.route, plan.attn_route
+            ints = list(plan.as_ints)
+            for i in (1, 4, 5):          # attn_fwd, attn_dq, attn_dkv
+                assert ints[5 * i] == 2
+                ints[5 * i] = route
+            self.as_ints = type(plan.as_ints)(*ints)
+
+    monkeypatch.setattr(fe, "fused_plan", lambda *a, **k: Tampered(real(*a, **k)))
+    with pytest.raises(RuntimeError, match="forward"):
+        fe._fused_fwd_cuda(ws, x, lengths, SEED, 0.0, nhead, od)
+    with pytest.raises(RuntimeError, match="backward"):
+        fe._fused_bwd_cuda(ws, x, lengths, SEED, 0.0, nhead, od, attn, lse, g)
 
 
 def test_wrappers_refuse_bad_inputs(gen):
