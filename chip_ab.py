@@ -57,7 +57,26 @@ order with that checkout's own code:
               PAM-sw's (340), ffn=136, 2 heads, T 100 and 600, dropout 0
               and 0.2, B=8: a SHA-256 of out, attn, lse, dx and the 12
               weight gradients (the bf16 PAM-sw hashes move with the
-              attention's route); to compare checkouts bit for bit;
+              attention's route); and the sparse-graph kernels, B=8:
+              spmm_segment_softmax's out, w, dx and dgamma with the
+              target's and the source's row gathered on the P12 (D=860)
+              and PAM (D=2400) graphs, and sddmm's alpha, dq and dk at P12
+              (D=860, and D=430 at B=2) and PAM (D=120), each hashed
+              apart; to compare checkouts bit for bit;
+  graph       the sparse-graph kernels at every shape of chip_smoke's
+              graph phase: spmm_segment_softmax forward, backward (dgamma
+              and dx) and dx alone on the P12, PAM and kNN graphs (B=128,
+              D 860, 2400, 240) with the target's and the source's row
+              gathered, sddmm forward and backward at P12 B=2 and B=1
+              (D=430) and at B=128 on the three graphs (D 860 and 120):
+              chip_smoke.spmm_phase's and sddmm_phase's checks, CUDA-event
+              times, bounds and library times, plus the profiler's device
+              time of each call (20 calls) and the launch plan's route;
+  graph_host  sddmm at the self-attention's shapes (P12 graph, D=430, B=1
+              and 2), forward and backward: the host time a call (300
+              calls without a synchronisation between them), CUDA events
+              over 200 calls and the profiler's device time, the calls
+              where a host-bound time hides the kernel's;
   ds_rounding where bf16 gradients' sample_err comes from at its largest
               reading (flash_mha, T=600, hd 42, B=128, dropout 0): the
               tensor-core and scalar kernels and the plain backward in f32
@@ -390,6 +409,7 @@ def task_bits(root, cs):
             out[f"D{D}_T{T}_{cd or 'float32'}"] = h.hexdigest()
     out.update(_packed_bits(cs))
     out.update(_fused_bits(cs))
+    out.update(_graph_bits(cs))
     print(f"[ab] {root}: bits {out}", flush=True)
     return out
 
@@ -419,6 +439,133 @@ def _packed_bits(cs):
             for x in (o, lse, *grads):
                 h.update(x.contiguous().cpu().numpy().tobytes())
             out[f"packed_{label}_rate{rate}_{cd or 'float32'}"] = h.hexdigest()
+    return out
+
+
+def _graph_bits(cs):
+    """SHA-256 of each sparse-graph kernel output, B=8: spmm's out, w, dx
+    and dgamma (both gathers) at P12 and PAM, sddmm's alpha, dq, dk."""
+    import hashlib
+
+    import torch
+    from raindrop_tpu_torch.ops import sparse as sp
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+    out = {}
+    for label, D in (("P12", 860), ("PAM", 2400)):
+        src, dst, N, _ = cs.graph_topology(label, "cuda", 0)
+        topo = sp.topology(src, dst, N)
+        gen = torch.Generator(device="cuda").manual_seed(D)
+        x, g_out = (torch.randn((8, N, D), generator=gen, device="cuda") for _ in range(2))
+        gamma, g_w = (torch.randn((8, src.numel()), generator=gen, device="cuda")
+                      for _ in range(2))
+        for gt in (True, False):
+            o, w = sp._spmm_fwd_cuda(x, gamma, topo, gt)
+            dx, dgamma = sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gt)
+            side = "target" if gt else "source"
+            for name, t in (("out", o), ("w", w), ("dx", dx), ("dgamma", dgamma)):
+                out[f"spmm_{label}_{side}_{name}"] = digest(t)
+    for label, B, D in (("P12", 8, 860), ("P12", 2, 430), ("PAM", 8, 120)):
+        src, dst, N, _ = cs.graph_topology(label, "cuda", 0)
+        topo = sp.topology(src, dst, N)
+        gen = torch.Generator(device="cuda").manual_seed(D + B)
+        q, k = (torch.randn((B, N, D), generator=gen, device="cuda") for _ in range(2))
+        d_alpha = torch.randn((B, src.numel()), generator=gen, device="cuda")
+        alpha = sp._sddmm_fwd_cuda(q, k, topo, D ** -0.5)
+        dq, dk = sp._sddmm_bwd_cuda(d_alpha, q, k, topo, D ** -0.5)
+        for name, t in (("alpha", alpha), ("dq", dq), ("dk", dk)):
+            out[f"sddmm_{label}_B{B}_D{D}_{name}"] = digest(t)
+    return out
+
+
+def task_graph(root, cs):
+    import torch
+    from raindrop_tpu_torch.ops import sparse as sp
+
+    out = {}
+
+    def device_ms(fn):
+        fn()
+        return cs.profile_device(lambda: [fn() for _ in range(20)], 20)[1]
+
+    for label, D in (("P12", 860), ("PAM", 2400), ("kNN", 240)):
+        src, dst, N, _ = cs.graph_topology(label, "cuda", 0)
+        topo = sp.topology(src, dst, N)
+        for gt in (True, False):
+            fwd, bwd = cs.spmm_phase(label, 128, D, gt)
+            # the phase's inputs again (its generator, seeded 1)
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            x, g_out = (torch.randn((128, N, D), generator=gen, device="cuda")
+                        for _ in range(2))
+            gamma, g_w = (torch.randn((128, src.numel()), generator=gen, device="cuda")
+                          for _ in range(2))
+            w = sp._spmm_fwd_cuda(x, gamma, topo, gt)[1]
+            rec = {"route": fwd.get("route"), "fwd_ms": fwd["ms"], "bwd_ms": bwd["ms"],
+                   "dx_ms": bwd["dx_only_ms"],
+                   "fwd_device_ms": device_ms(lambda: sp._spmm_fwd_cuda(x, gamma, topo, gt)),
+                   "bwd_device_ms": device_ms(
+                       lambda: sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gt)),
+                   "dx_device_ms": device_ms(lambda: sp._spmm_bwd_cuda(
+                       g_out, None, x, w, topo, gt, need_dgamma=False)),
+                   "fwd_bound_ms": fwd["bound_ms"], "bwd_bound_ms": bwd["bound_ms"],
+                   "dx_bound_ms": bwd["dx_only_bound_ms"],
+                   "fwd_library_ms": fwd["library_ms"], "bwd_library_ms": bwd["library_ms"],
+                   "max_abs_err": max(fwd["max_abs_err"], bwd["max_abs_err"])}
+            out[f"spmm_{label}_{'target' if gt else 'source'}"] = rec
+            print(f"[ab] {root}: graph spmm {label} gather_target={gt}: {rec}", flush=True)
+    shapes = [("P12", 2, 430), ("P12", 1, 430)]
+    shapes += [(label, 128, D) for label in ("P12", "PAM", "kNN") for D in (860, 120)]
+    for label, B, D in shapes:
+        fwd, bwd = cs.sddmm_phase(label, B, D)
+        src, dst, N, _ = cs.graph_topology(label, "cuda", 0)
+        topo = sp.topology(src, dst, N)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        q, k = (torch.randn((B, N, D), generator=gen, device="cuda") for _ in range(2))
+        d_alpha = torch.randn((B, src.numel()), generator=gen, device="cuda")
+        scale = D ** -0.5
+        rec = {"route": fwd.get("route"), "fwd_ms": fwd["ms"], "bwd_ms": bwd["ms"],
+               "fwd_device_ms": device_ms(lambda: sp._sddmm_fwd_cuda(q, k, topo, scale)),
+               "bwd_device_ms": device_ms(
+                   lambda: sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale)),
+               "fwd_bound_ms": fwd["bound_ms"], "bwd_bound_ms": bwd["bound_ms"],
+               "fwd_library_ms": fwd["library_ms"], "bwd_library_ms": bwd["library_ms"],
+               "max_abs_err": max(fwd["max_abs_err"], bwd["max_abs_err"])}
+        out[f"sddmm_{label}_B{B}_D{D}"] = rec
+        print(f"[ab] {root}: graph sddmm {label} B={B} D={D}: {rec}", flush=True)
+    return out
+
+
+def task_graph_host(root, cs):
+    import torch
+    from raindrop_tpu_torch.ops import sparse as sp
+
+    def host_ms(fn, n=300):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e3 * (t1 - t0) / n
+
+    out = {}
+    src, dst, N, _ = cs.graph_topology("P12", "cuda", 0)
+    topo = sp.topology(src, dst, N)
+    for B in (1, 2):
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        q, k = (torch.randn((B, N, 430), generator=gen, device="cuda") for _ in range(2))
+        d_alpha = torch.randn((B, src.numel()), generator=gen, device="cuda")
+        calls = {"fwd": lambda: sp._sddmm_fwd_cuda(q, k, topo, 0.1),
+                 "bwd": lambda: sp._sddmm_bwd_cuda(d_alpha, q, k, topo, 0.1)}
+        for name, fn in calls.items():
+            rec = {"host_ms": host_ms(fn), "ms": cs.time_ms(fn, reps=200),
+                   "device_ms": cs.profile_device(lambda: [fn() for _ in range(20)], 20)[1]}
+            out[f"sddmm_B{B}_{name}"] = rec
+            print(f"[ab] {root}: sddmm B={B} D=430 {name}: {rec}", flush=True)
     return out
 
 
@@ -692,7 +839,8 @@ TASKS = {"build": task_build, "one_unit": task_one_unit, "kernels": task_kernels
          "ds_rounding": task_ds_rounding,
          "serve_train": task_serve_train, "latency": task_latency, "split": task_split,
          "long": task_long, "fused_step": task_fused_step,
-         "bits": task_bits, "sample_err": task_sample_err, "ptxas": task_ptxas}
+         "bits": task_bits, "sample_err": task_sample_err, "ptxas": task_ptxas,
+         "graph": task_graph, "graph_host": task_graph_host}
 
 
 def worker(root, tasks):

@@ -98,21 +98,26 @@ check does not hold:
      forward (out, w) and backward (dx, dgamma, cotangents on both
      outputs): the complete sensor graphs of P12 (B=128, N=36, E=1296,
      D=860) and PAM (N=17, E=289, D=2400) with the messages gathered at
-     the target and at the source, and a kNN graph (N=128, k=6, E=768,
-     D=240, edges shuffled, one node without an incoming edge); zero rows
-     exact, bit-equal on a repeat;
- 12. sddmm forward and backward on the same graphs at D=860 and D=120, and
-     at the shape the self-attention phase gives it;
+     the target (every launch on the launch plan's "row" route) and at the
+     source ("tile"), and a kNN graph (N=128, k=6, E=768, D=240, edges
+     shuffled, one node without an incoming edge); zero rows exact,
+     bit-equal on a repeat;
+ 12. sddmm forward and backward on the same graphs at D=860 and D=120, at
+     the shape the self-attention phase gives it (B=2: its heads on the
+     batch axis) and at B=1, every launch on "tile"; then both sides of
+     the plan's cut-over from "tile" to "csr" in N (graph_edge_phase);
  13. an InferenceServer for P12 with prop_backend='pallas' (every check of
      phase 8, held against the dense plain path: dense attention and dense
-     propagation), which must launch the SpMM kernel twice per forward;
+     propagation), which must launch the SpMM kernel twice per forward,
+     every launch on the "row" route;
      and one raindrop_apply with a random global_adj in [0.5, 2],
      'pallas' against 'coo';
  14. a Trainer for P12 with prop_backend='pallas' (every check of phase 10;
-     the SpMM backward must have been launched);
+     the SpMM backward must have been launched; every SpMM launch on
+     "row");
  15. ob_propagate_selfattention (N=36, D=860, 2 heads) on a kNN and on the
      complete graph, score_backend 'sddmm' against 'gather', value and
-     gradient w.r.t. x;
+     gradient w.r.t. x; one sddmm launch a graph each way;
  16. flash_mha (split heads, any T) forward and backward, kernels against
      their plain PyTorch versions, f32 and bf16 operands, dropout 0 and
      0.2, ragged lengths including 0, at B=128, H=2, D=42 and T=600 (the
@@ -1410,6 +1415,23 @@ def _equal_and_finite(pairs, what):
                                  f"on a repeat")
 
 
+def _graph_counts(fn):
+    """A sparse-graph wrapper's launch counts, by route too (GRAPH_COUNTS)."""
+    return {a: getattr(fn, a) for a in GRAPH_COUNTS}
+
+
+def _check_graph_route(fn, before, route, fwd, bwd, what, bwd_route=None):
+    """fwd forward and bwd backward launches of `fn` since `before`
+    (_graph_counts), every forward on `route`, every backward on
+    `bwd_route` (default: `route`)."""
+    got = {a: n - before[a] for a, n in _graph_counts(fn).items()}
+    want = {a: 0 for a in GRAPH_COUNTS}
+    want.update({"launches": fwd, "bwd_launches": bwd, f"{route}_launches": fwd,
+                 f"{bwd_route or route}_bwd_launches": bwd})
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
 def _spmm_library(x, gamma, N, gather_target, src=None, dst=None):
     """The dense form: one softmax over the [N, N] grid of logits and one
     bmm. Returns (out, w). A complete graph in source-major order is the
@@ -1444,6 +1466,9 @@ def spmm_phase(label, B, D, gather_target, device="cuda", seed=0):
     gamma, g_w = (torch.randn((B, E), generator=gen, device=device) for _ in range(2))
     topo = sp.topology(src, dst, N)
     what = f"spmm {label} gather_target={gather_target}"
+    # the model's form gathers each segment's own row: "row"; else "tile"
+    route = "row" if gather_target else "tile"
+    before = _graph_counts(sp.spmm_segment_softmax)
 
     out, w = sp._spmm_fwd_cuda(x, gamma, topo, gather_target)
     out2, w2 = sp._spmm_fwd_cuda(x, gamma, topo, gather_target)
@@ -1452,14 +1477,16 @@ def spmm_phase(label, B, D, gather_target, device="cuda", seed=0):
     # the model's form: constant edge weights, no cotangent on them
     dx_only, _ = sp._spmm_bwd_cuda(g_out, None, x, w, topo, gather_target,
                                    need_dgamma=False)
+    _check_graph_route(sp.spmm_segment_softmax, before, route, 2, 3, what)
     p_out, p_w = sp._spmm_fwd_plain(x, gamma, src, dst, N, gather_target)
     p_dx, p_dgamma = sp._spmm_bwd_plain(g_out, g_w, x, w, src, dst, N, gather_target)
     torch.cuda.synchronize()
     errs = {"out": rel_err(out, p_out), "w": rel_err(w, p_w)}
     bwd_errs = {"dx": rel_err(dx, p_dx), "dgamma": rel_err(dgamma, p_dgamma)}
     empty = torch.bincount(dst, minlength=N) == 0
-    print(f"[spmm] {label} B={B} N={N} E={E} D={D} gather_target={gather_target}: "
-          f"forward rel err {errs}, backward rel err {bwd_errs} (tol {GRAPH_TOL:g}); "
+    print(f"[spmm] {label} B={B} N={N} E={E} D={D} gather_target={gather_target}, "
+          f"route {route}: forward rel err {errs}, backward rel err {bwd_errs} "
+          f"(tol {GRAPH_TOL:g}); "
           f"{int(empty.sum())} nodes without an incoming edge", flush=True)
     if max(*errs.values(), *bwd_errs.values()) > GRAPH_TOL:
         raise AssertionError(f"{what}: the kernels disagree with the plain version")
@@ -1514,7 +1541,8 @@ def spmm_phase(label, B, D, gather_target, device="cuda", seed=0):
           f"({bound_by}); backward {bwd_ms:.4f} ms (dx alone {dx_ms:.4f} ms, bound "
           f"{dx_bound_ms:.4f}), plain {bwd_plain_ms:.4f} ms, softmax+bmm backward "
           f"{bwd_library_ms}, bound {bwd_bound_ms:.4f} ms ({bwd_bound_by})", flush=True)
-    shape = dict(label=label, gather_target=gather_target, B=B, N=N, E=E, D=D)
+    shape = dict(label=label, gather_target=gather_target, B=B, N=N, E=E, D=D,
+                 route=route)
     fwd = dict(**shape, max_abs_err=max(errs.values()), errs=errs, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                bound_by=bound_by, bytes=fwd_bytes, flops=fwd_flops)
@@ -1539,11 +1567,13 @@ def sddmm_phase(label, B, D, device="cuda", seed=0):
     d_alpha = torch.randn((B, E), generator=gen, device=device)
     topo = sp.topology(src, dst, N)
     scale = D ** -0.5
-    what = f"sddmm {label} D={D}"
+    what = f"sddmm {label} B={B} D={D}"
+    before = _graph_counts(sp.sddmm)
     alpha = sp._sddmm_fwd_cuda(q, k, topo, scale)
     alpha2 = sp._sddmm_fwd_cuda(q, k, topo, scale)
     dq, dk = sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale)
     dq2, dk2 = sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale)
+    _check_graph_route(sp.sddmm, before, "tile", 2, 2, what)
     p_alpha = sp._sddmm_fwd_plain(q, k, src, dst, scale)
     p_dq, p_dk = sp._sddmm_bwd_plain(d_alpha, q, k, src, dst, scale)
     torch.cuda.synchronize()
@@ -1588,7 +1618,7 @@ def sddmm_phase(label, B, D, device="cuda", seed=0):
           f"{library_ms}, bound {bound_ms:.4f} ms ({bound_by}); backward {bwd_ms:.4f} "
           f"ms, plain {bwd_plain_ms:.4f} ms, bmm backward {bwd_library_ms}, bound "
           f"{bwd_bound_ms:.4f} ms ({bwd_bound_by})", flush=True)
-    shape = dict(label=label, B=B, N=N, E=E, D=D)
+    shape = dict(label=label, B=B, N=N, E=E, D=D, route="tile")
     fwd = dict(**shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                bytes=fwd_bytes)
@@ -1596,6 +1626,82 @@ def sddmm_phase(label, B, D, device="cuda", seed=0):
                plain_ms=bwd_plain_ms, library_ms=bwd_library_ms,
                bound_ms=bwd_bound_ms, bound_by=bwd_bound_by, bytes=bwd_bytes)
     return fwd, bwd
+
+
+def graph_edge_phase(device="cuda", seed=0, B=3, D=36, k=6):
+    """Both sides of the launch plan's cut-over from "tile" to "csr" in N:
+    for the weighted sums (spmm_segment_softmax forward and backward with
+    the source gathered, sddmm's backward) and for sddmm's forward (edge
+    dot products, no staged CSR), the largest N whose rows fit a tile at 32
+    columns (the shared bytes at their largest) and the next, on graphs of
+    k incoming edges a node from random sources, shuffled (E = k N, past
+    the sums' staging of 1024 CSR positions, the dot products' positions
+    in several parts). Each kernel held against its plain version within GRAPH_TOL and
+    bit-equal on a repeat, the route of every launch checked. Returns one
+    record a graph."""
+    import torch
+    from raindrop_tpu_torch.ops import sparse as sp
+
+    def cut(kind):
+        n = 1
+        while sp.graph_plan(B, n, k * n, D, kind).route == "tile":
+            n += 1
+        return n
+
+    sums, dots = cut("fwd_source"), cut("sddmm_fwd")
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    runs = []
+    for N in sorted({sums - 1, sums, dots - 1, dots}):
+        E = k * N
+        dst = torch.arange(N, device=device).repeat_interleave(k)
+        src = torch.randint(0, N, (E,), generator=gen, device=device)
+        order = torch.randperm(E, generator=gen, device=device)
+        src, dst = src[order], dst[order]
+        x, g_out, q, kk = (torch.randn((B, N, D), generator=gen, device=device)
+                           for _ in range(4))
+        gamma, g_w, d_alpha = (torch.randn((B, E), generator=gen, device=device)
+                               for _ in range(3))
+        topo = sp.topology(src, dst, N)
+        routes = {kind: sp.graph_plan(B, N, E, D, kind).route
+                  for kind in ("fwd_source", "bwd_source", "sddmm_fwd", "sddmm_bwd")}
+        # the backward with the source gathered runs dot products and a sum
+        cuts = {"fwd_source": sums, "sddmm_bwd": sums, "sddmm_fwd": dots,
+                "bwd_source": min(sums, dots)}
+        want = {kind: "tile" if N < cuts[kind] else "csr" for kind in routes}
+        what = f"graph edge N={N} E={E}"
+        if routes != want:
+            raise AssertionError(f"{what}: plan routes {routes}, expected {want}")
+        b_spmm, b_sddmm = _graph_counts(sp.spmm_segment_softmax), _graph_counts(sp.sddmm)
+        outs = [sp._spmm_fwd_cuda(x, gamma, topo, False) for _ in range(2)]
+        w = outs[0][1]
+        grads = [sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, False) for _ in range(2)]
+        alphas = [sp._sddmm_fwd_cuda(q, kk, topo, 0.5) for _ in range(2)]
+        dqk = [sp._sddmm_bwd_cuda(d_alpha, q, kk, topo, 0.5) for _ in range(2)]
+        _check_graph_route(sp.spmm_segment_softmax, b_spmm, routes["fwd_source"], 2, 2,
+                           what, routes["bwd_source"])
+        _check_graph_route(sp.sddmm, b_sddmm, routes["sddmm_fwd"], 2, 2, what,
+                           routes["sddmm_bwd"])
+        p_out, p_w = sp._spmm_fwd_plain(x, gamma, src, dst, N, False)
+        p_dx, p_dgamma = sp._spmm_bwd_plain(g_out, g_w, x, w, src, dst, N, False)
+        p_alpha = sp._sddmm_fwd_plain(q, kk, src, dst, 0.5)
+        p_dq, p_dk = sp._sddmm_bwd_plain(d_alpha, q, kk, src, dst, 0.5)
+        torch.cuda.synchronize()
+        got = {"out": outs[0][0], "w": w, "dx": grads[0][0], "dgamma": grads[0][1],
+               "alpha": alphas[0], "dq": dqk[0][0], "dk": dqk[0][1]}
+        again = {"out": outs[1][0], "w": outs[1][1], "dx": grads[1][0],
+                 "dgamma": grads[1][1], "alpha": alphas[1], "dq": dqk[1][0],
+                 "dk": dqk[1][1]}
+        plain = {"out": p_out, "w": p_w, "dx": p_dx, "dgamma": p_dgamma,
+                 "alpha": p_alpha, "dq": p_dq, "dk": p_dk}
+        errs = {name: rel_err(got[name], plain[name]) for name in got}
+        print(f"[graph edge] B={B} N={N} E={E} D={D}: routes {routes}; rel err {errs} "
+              f"(tol {GRAPH_TOL:g})", flush=True)
+        if max(errs.values()) > GRAPH_TOL:
+            raise AssertionError(f"{what}: the kernels disagree with the plain version")
+        _equal_and_finite([(name, got[name], again[name]) for name in got], what)
+        runs.append(dict(B=B, N=N, E=E, D=D, routes=routes, errs=errs,
+                         max_abs_err=max(errs.values())))
+    return runs
 
 
 def global_adj_phase(wrappers, device="cuda", seed=0, B=32):
@@ -1640,7 +1746,8 @@ def global_adj_phase(wrappers, device="cuda", seed=0, B=32):
 
 
 def selfattention_phase(wrappers, device="cuda", seed=0, N=36, D=860, heads=2):
-    """ob_propagate_selfattention with score_backend 'sddmm' (the kernel)
+    """ob_propagate_selfattention with score_backend 'sddmm' (the kernel,
+    once a call with the heads on its batch axis: B = heads, D = D / heads)
     against 'gather', value and gradient w.r.t. x, on a kNN graph and on the
     complete one. Returns sddmm's forward and backward launch counts."""
     import torch
@@ -1652,8 +1759,7 @@ def selfattention_phase(wrappers, device="cuda", seed=0, N=36, D=860, heads=2):
     params = ob_propagation_init(gen, D, D // heads, N, 4, heads=heads, device=device)
     x0 = torch.randn((N, D), generator=gen, device=device)
     cot = torch.randn((N, D), generator=gen, device=device)
-    for fn in wrappers:
-        fn.launches = fn.bwd_launches = 0
+    reset_counts(wrappers)
     checks = {}
     for kind in ("kNN36", "P12"):
         src, dst, n, _ = graph_topology(kind, device, seed)
@@ -1672,13 +1778,15 @@ def selfattention_phase(wrappers, device="cuda", seed=0, N=36, D=860, heads=2):
     counts = (sddmm.launches, sddmm.bwd_launches)
     print(f"[selfattention] N={N} D={D} heads={heads}: sddmm vs gather rel err "
           f"{checks} (tol {GRAPH_TOL:g}); sddmm launches {counts[0]} forward, "
-          f"{counts[1]} backward", flush=True)
+          f"{counts[1]} backward ({sddmm.tile_launches}, {sddmm.tile_bwd_launches} "
+          f"on route tile)", flush=True)
     bad = {k: v for k, v in checks.items() if not v <= GRAPH_TOL}
     if bad:
         raise AssertionError(f"selfattention: sddmm and gather disagree: {bad}")
-    if counts != (2 * heads, 2 * heads):
-        raise AssertionError(f"selfattention: expected {2 * heads} sddmm launches "
-                             f"each way, got {counts}")
+    # one call a graph each way, the heads on sddmm's batch axis
+    if counts != (2, 2) or (sddmm.tile_launches, sddmm.tile_bwd_launches) != (2, 2):
+        raise AssertionError(f"selfattention: expected 2 sddmm launches each way, "
+                             f"all on route tile, got {counts}")
     return counts[0], counts[1], checks
 
 
@@ -1733,25 +1841,31 @@ PLAIN_ALL = {"attention_backend": "dense", "prop_backend": "auto"}
 
 COUNTS = ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches",
           "tc_wide_launches", "tc_wide_bwd_launches")
+# the sparse-graph wrappers' routes (ops/sparse.py graph_plan), counted apart
+GRAPH_ROUTES = ("row", "tile", "csr")
+GRAPH_COUNTS = ("launches", "bwd_launches",
+                *(f"{r}_{a}" for r in GRAPH_ROUTES for a in ("launches", "bwd_launches")))
 # the routes a wrapper counts apart: "<name>.tc" from tc_<attr>; and
 # flash_mha_packed's and flash_mha's two-warpgroup route past hd_pad 144,
-# "<name>.tc_wide"
-ROUTE_COUNTS = ("tc", "tc_wide")
+# "<name>.tc_wide"; spmm_segment_softmax's and sddmm's "<name>.row",
+# "<name>.tile", "<name>.csr"
+ROUTE_COUNTS = ("tc", "tc_wide", *GRAPH_ROUTES)
 
 
 def reset_counts(wrappers):
     """Set every launch count of the wrappers to 0 (flash_mha_packed and
     flash_mha also count their tensor-core launches apart, as tc_launches /
-    tc_bwd_launches and tc_wide_launches / tc_wide_bwd_launches)."""
+    tc_bwd_launches and tc_wide_launches / tc_wide_bwd_launches; the
+    sparse-graph wrappers each route's)."""
     for fn in wrappers:
-        for attr in COUNTS:
+        for attr in (*COUNTS, *GRAPH_COUNTS):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
 
 def read_counts(wrappers, attr):
-    """{wrapper name: count}, plus "<name>.tc" and "<name>.tc_wide" where
-    the wrapper counts its launches on those routes apart."""
+    """{wrapper name: count}, plus "<name>.<route>" where the wrapper counts
+    its launches on that route apart (ROUTE_COUNTS)."""
     out = {fn.__name__: getattr(fn, attr) for fn in wrappers}
     out.update({f"{fn.__name__}.{r}": getattr(fn, f"{r}_{attr}") for fn in wrappers
                 for r in ROUTE_COUNTS if hasattr(fn, f"{r}_{attr}")})
@@ -1785,6 +1899,16 @@ def check_fused_tc_wide(what, *counts):
         if c["fused_encoder_layer.tc_wide"] != c["fused_encoder_layer"]:
             raise AssertionError(f"{what}: fused_encoder_layer attention launches off "
                                  f"the tc_wide route: {c}")
+
+
+def check_graph_row(what, *counts):
+    """Every spmm_segment_softmax launch in these counts took the "row"
+    route (the model's gather_target=True: each segment's own row)."""
+    for c in counts:
+        n = c["spmm_segment_softmax"]
+        if n <= 0 or c["spmm_segment_softmax.row"] != n:
+            raise AssertionError(f"{what}: spmm_segment_softmax launches off the row "
+                                 f"route: {c}")
 
 
 def check_tc_wide(what, *counts):
@@ -2577,12 +2701,14 @@ def main(argv=None) -> int:
                      for label, D in (("P12", 860), ("PAM", 2400), ("kNN", 240))
                      for gt in (True, False)]
         spmm_fwd, spmm_bwd = ([r[i] for r in spmm_runs] for i in (0, 1))
-        # B=1, N=36, D=430: what ob_propagate_selfattention hands the kernel
-        # (one sample, one call per head); the others are batch-scale shapes
-        sddmm_runs = [sddmm_phase("P12", 1, 430)]
+        # B=2, N=36, D=430: what ob_propagate_selfattention hands the kernel
+        # (its 2 heads on the batch axis); B=1, its one call per head before
+        # the heads were folded; the others are batch-scale shapes
+        sddmm_runs = [sddmm_phase("P12", 2, 430), sddmm_phase("P12", 1, 430)]
         sddmm_runs += [sddmm_phase(label, 128, D) for label in ("P12", "PAM", "kNN")
                        for D in (860, 120)]
         sddmm_fwd, sddmm_bwd = ([r[i] for r in sddmm_runs] for i in (0, 1))
+        graph_edges = graph_edge_phase()
     torch.cuda.empty_cache()
 
     wrappers = (flash_mha_packed, fused_encoder_layer, spmm_segment_softmax, sddmm,
@@ -2632,11 +2758,13 @@ def main(argv=None) -> int:
         if g12_launches["spmm_segment_softmax"] != g12_launches["flash_mha_packed"]:
             raise AssertionError(f"P12 pallas: two SpMM launches per forward expected, "
                                  f"as many as flash launches: {g12_launches}")
+        check_graph_row("P12 pallas serving", g12_launches)
         adj = global_adj_phase(wrappers)
         g12_tf, g12_tb, g12_train = train_phase("P12", graph_fns, wrappers,
                                                 cfg_overrides=graph,
                                                 plain_overrides=PLAIN_ALL)
         check_tc("P12 pallas training", g12_tf, g12_tb)
+        check_graph_row("P12 pallas training", g12_tf, g12_tb)
         # every server and trainer above shares the model's edge tensors: the
         # graph was sorted for the kernels once, when the first was built
         builds = topology.builds - builds
@@ -2771,7 +2899,7 @@ def main(argv=None) -> int:
                 "replaces": f"raindrop_tpu/ops/sparse_pallas.py:{line}",
                 "launches": launches,
                 "max_abs_err": max(x["max_abs_err"] for x in runs),
-                "ms": r[ms_key], "plain_ms": r["plain_ms"],
+                "ms": r[ms_key], "plan_route": r["route"], "plain_ms": r["plain_ms"],
                 "bound_ms": r[f"{bound_key}_ms"], "bound_by": r[f"{bound_key}_by"],
                 "library_ms": r["library_ms"]}
 
@@ -2872,7 +3000,7 @@ def main(argv=None) -> int:
                   "train": {k: {"launches": v[0], "bwd_launches": v[1], **v[2]}
                             for k, v in sw_train.items()}},
               "spmm_fwd": spmm_fwd, "spmm_bwd": spmm_bwd,
-              "sddmm_fwd": sddmm_fwd, "sddmm_bwd": sddmm_bwd,
+              "sddmm_fwd": sddmm_fwd, "sddmm_bwd": sddmm_bwd, "graph_edge": graph_edges,
               "serve": {"PAM": {"launches": pam_launches, **pam},
                         "P12": {"launches": p12_launches, **p12},
                         "P12_pallas": {"launches": g12_launches, **g12}},

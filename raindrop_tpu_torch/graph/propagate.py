@@ -150,11 +150,12 @@ def ob_propagate_selfattention(
     if edge_weights is not None:
         alpha = edge_weights[:, None].expand(-1, heads)
     elif score_backend == "sddmm":
+        # the heads on sddmm's batch axis: one call, [heads, E] -> [E, heads]
         qn = linear_apply(params["lin_query"], x).reshape(n_nodes, heads, C)
         kn = linear_apply(params["lin_key"], x).reshape(n_nodes, heads, C)
-        alpha = torch.stack(
-            [sddmm(qn[None, :, h], kn[None, :, h], edge_index[0], edge_index[1],
-                   scale=1.0 / math.sqrt(C))[0] for h in range(heads)], dim=-1)
+        alpha = sddmm(qn.permute(1, 0, 2).contiguous(),
+                      kn.permute(1, 0, 2).contiguous(), edge_index[0],
+                      edge_index[1], scale=1.0 / math.sqrt(C)).transpose(0, 1)
     else:
         q = linear_apply(params["lin_query"], x[dst]).reshape(-1, heads, C)
         k = linear_apply(params["lin_key"], x[src]).reshape(-1, heads, C)

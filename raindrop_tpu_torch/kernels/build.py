@@ -153,8 +153,10 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA error {err} launching {what}")
 
 
-def count_launch(fn, attr: str = "launches") -> None:
-    """Add one to a wrapper's launch count (a plain int attribute):
-    `launches` for the forward, `bwd_launches` for the backward."""
+def count_launch(fn, *attrs: str) -> None:
+    """Add one to each named launch count of a wrapper (plain int
+    attributes): `launches` for the forward (the default), `bwd_launches`
+    for the backward, and any a wrapper keeps per route."""
     with _count_lock:
-        setattr(fn, attr, getattr(fn, attr) + 1)
+        for attr in attrs or ("launches",):
+            setattr(fn, attr, getattr(fn, attr) + 1)

@@ -23,11 +23,20 @@ worked out once per topology (`topology`: two stable sorts) and cached on
 the identity of the index tensors, so a model that calls with the same
 `src`/`dst` tensors for ever sorts once. Do not write into index tensors
 that were handed to these functions.
+
+Each call on the card follows a launch plan (`graph_plan`, checked by the
+C entry points): route "row" where every edge of a segment gathers the
+segment's own row (the model's `gather_target=True`, forward and dx),
+"tile" for every other gather (a sample's rows staged in shared memory),
+"csr" where a sample's rows do not fit a tile (the previous design). The
+wrappers count their launches on each route apart (`row_launches`,
+`tile_bwd_launches`, ...).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -36,9 +45,23 @@ from typing import Tuple
 import torch
 
 from raindrop_tpu_torch.kernels import build
+from raindrop_tpu_torch.ops.flash_attention import _align
 from raindrop_tpu_torch.ops.segment import segment_max, segment_softmax, segment_sum
 
 MAX_BATCH = 65535       # the kernels put the sample on the grid's y axis
+# the launch plan's constants (csrc/sparse_graph.cu)
+ROUTES = ("row", "tile", "csr")
+KINDS = ("fwd_target", "fwd_source", "bwd_target", "bwd_source", "sddmm_fwd",
+         "sddmm_bwd")
+MAX_SMEM = 232448       # a block's shared memory on the H100
+TARGET_CTAS = 264       # two CTAs on each of the H100's 132 SMs
+EDGE_STAGE = 1024       # CSR positions a tile-route sum stages at a time
+ROW_PAD = 4             # floats between a staged row's chunk and the next row
+SMEM_PREFER = MAX_SMEM // 4   # a tile that lets 4 CTAs share an SM
+MAX_GROUPS = 8          # column groups: a portable cluster's CTAs
+THREADS = 256           # threads per CTA; the row route runs a warp an item
+DOT_PART = 2048         # most CSR positions of a dot-product part (its shared bytes)
+CSR_CHUNK = 1024        # columns of a csr-route CTA (256 threads x 4)
 
 
 @dataclass(frozen=True)
@@ -46,7 +69,10 @@ class Topology:
     """One edge list prepared for the kernels, all int32 on the edges'
     device: `src`, `dst` [E] as given; `dst_perm` [E] the edge ids in
     stable order of dst with `dst_ptr` [N+1] the segment bounds in it; the
-    same by src."""
+    same by src. In CSR order: `dst_nbr` = src[dst_perm] and `dst_seg` =
+    dst[dst_perm] (each position's source, and its segment's node),
+    `src_nbr` = dst[src_perm]; the tile route reads these instead of
+    chasing perm."""
     n_nodes: int
     src: torch.Tensor
     dst: torch.Tensor
@@ -54,6 +80,20 @@ class Topology:
     dst_ptr: torch.Tensor
     src_perm: torch.Tensor
     src_ptr: torch.Tensor
+    dst_nbr: torch.Tensor
+    dst_seg: torch.Tensor
+    src_nbr: torch.Tensor
+
+    @functools.cached_property
+    def table(self) -> int:
+        """The address of the arrays' device pointers in the order of
+        csrc/sparse_graph.cu `Topo`, built once (the entry points take the
+        topology as this one pointer)."""
+        arrays = (self.src, self.dst, self.dst_perm, self.dst_ptr, self.dst_nbr,
+                  self.dst_seg, self.src_perm, self.src_ptr, self.src_nbr)
+        table = (ctypes.c_void_p * len(arrays))(*(t.data_ptr() for t in arrays))
+        object.__setattr__(self, "_table", table)    # kept alive with the topology
+        return ctypes.addressof(table)
 
 
 def _csr(ids: torch.Tensor, n_nodes: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -78,9 +118,12 @@ def build_topology(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                          f"[0, n_nodes={n_nodes})")
     dst_perm, dst_ptr = _csr(edge_dst, n_nodes)
     src_perm, src_ptr = _csr(edge_src, n_nodes)
-    return Topology(n_nodes, edge_src.to(torch.int32).contiguous(),
-                    edge_dst.to(torch.int32).contiguous(),
-                    dst_perm, dst_ptr, src_perm, src_ptr)
+    src = edge_src.to(torch.int32).contiguous()
+    dst = edge_dst.to(torch.int32).contiguous()
+    dst_order, src_order = dst_perm.to(torch.int64), src_perm.to(torch.int64)
+    return Topology(n_nodes, src, dst, dst_perm, dst_ptr, src_perm, src_ptr,
+                    src[dst_order].contiguous(), dst[dst_order].contiguous(),
+                    dst[src_order].contiguous())
 
 
 _TOPO_CACHE_SIZE = 16
@@ -184,31 +227,157 @@ def _sddmm_bwd_plain(d_alpha, q, k, edge_src, edge_dst, scale):
     return dq.transpose(0, 1), dk.transpose(0, 1)
 
 
+# ----------------------------------------------------------- launch plan
+@dataclass(frozen=True)
+class GraphPlan:
+    """A call's launch plan, computed on the host and checked field by
+    field by the C entry points (csrc/sparse_graph.cu `make_graph_plan`).
+    route: "row", "tile" or "csr"; chunk: a warp's columns on "row" (128 or
+    256), a staged tile's on "tile" (32, 64 or 128), 1024 on "csr"; groups:
+    the column chunks of a row on "row", the CTAs (one cluster) a sample's
+    columns are split over on "tile", the grid's z on "csr"; parts: the
+    parts a sample's nodes (weighted sums) or CSR positions (dot products)
+    are split over on "tile" (else 1); smem: the largest dynamic shared
+    bytes of the call's kernels; copy: 16-byte or 4-byte copies and loads;
+    grid: the main kernel's (x, y)."""
+
+    route: str
+    chunk: int
+    groups: int
+    parts: int
+    smem: int
+    copy: int
+    grid: Tuple[int, int]
+
+    @functools.cached_property
+    def as_ints(self):
+        """The plan as the C entry points take it: 8 ints."""
+        vals = (ROUTES.index(self.route), self.chunk, self.groups, self.parts,
+                self.smem, self.copy, *self.grid)
+        return (ctypes.c_int * len(vals))(*vals)
+
+    @functools.cached_property
+    def address(self) -> int:
+        """The address of as_ints, which the entry points read."""
+        return ctypes.addressof(self.as_ints)
+
+
+def sum_smem(N, C, E):
+    """Shared bytes of a weighted sum on the tile route (tile_sum_kernel) at
+    N rows and C columns: two staged buffers of N rows, C + ROW_PAD floats
+    apart; min(E, EDGE_STAGE) staged CSR positions (weight and row offset,
+    8 bytes each); ptr (N + 1 ints); the forward's softmax max and sum (two
+    floats a node)."""
+    return 2 * N * (C + ROW_PAD) * 4 + min(E, EDGE_STAGE) * 8 + (N + 1) * 4 + 8 * N
+
+
+def dot_smem(N, C, per):
+    """Shared bytes of the tile route's edge dot products (tile_dot_kernel):
+    two staged buffers of each operand's N rows, and for a part's `per` CSR
+    positions their partial sums and row offsets (12 bytes each)."""
+    return 4 * N * (C + ROW_PAD) * 4 + 12 * per
+
+
+@functools.lru_cache(maxsize=256)
+def graph_plan(B, N, E, D, kind, align=16) -> GraphPlan:
+    """The launch plan of a call on the card: `kind` is which reduction
+    (KINDS: spmm_segment_softmax's forward and backward with the target's
+    or the source's row gathered, sddmm's forward and backward), `align`
+    the operands' address alignment in bytes. The copy width is 16 bytes
+    where D % 4 == 0 and align is 16, else 4.
+
+    "row" (fwd_target, bwd_target): a warp per (sample, node, chunk of
+    columns), 8 a CTA; the chunk is 256 columns, or 128 where 256 leaves
+    fewer than TARGET_CTAS CTAs.
+
+    "tile" (the rest): a CTA per (column group, part, sample). The target
+    is TARGET_CTAS, three quarters of it for dot products on a light graph
+    (E < 16 N: their tiles leave room for fewer CTAs an SM), half for
+    sddmm_bwd on a denser one (dq and dk share a launch). For each chunk C
+    of 128, 64, 32: groups = min(chunks of D, ceil(target / B),
+    MAX_GROUPS); parts = min(ceil(target / (B groups)), N, ceil(E /
+    THREADS)), and where dot products run (sddmm_fwd, bwd_source) at least
+    ceil(E / DOT_PART), which bounds a part's staged positions; smem the
+    largest of the call's kernels (sum_smem, dot_smem). The plan takes the
+    largest C whose smem is at most SMEM_PREFER and whose B groups parts
+    reaches the target, else the smallest C that fits a block (B=1 splits
+    its columns and parts furthest). "csr" where even 32 columns of the
+    rows do not fit."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    copy = 16 if D % 4 == 0 and align % 16 == 0 else 4
+    if kind in ("fwd_target", "bwd_target"):
+        for cpt in (8, 4):
+            chunks = -(-D // (32 * cpt))
+            ctas = -(-(B * N * chunks) // (THREADS // 32))
+            if ctas >= TARGET_CTAS:
+                break
+        return GraphPlan("row", 32 * cpt, chunks, 1, 0, copy, (ctas, 1))
+    sums = kind != "sddmm_fwd"
+    dots = kind in ("sddmm_fwd", "bwd_source")
+    light = E < 16 * N
+    target = (TARGET_CTAS * 3 // 4 if dots and light else
+              TARGET_CTAS // 2 if kind == "sddmm_bwd" and not light else TARGET_CTAS)
+    plan = None
+    for C in (128, 64, 32):
+        groups = min(-(-D // C), -(-target // B), MAX_GROUPS)
+        parts = min(-(-target // (B * groups)), N, -(-E // THREADS))
+        if dots:
+            parts = max(parts, -(-E // DOT_PART))
+        smem = max(sum_smem(N, C, E) if sums else 0,
+                   dot_smem(N, C, -(-E // parts)) if dots else 0)
+        if smem > MAX_SMEM:
+            continue
+        plan = GraphPlan("tile", C, groups, parts, smem, copy, (groups * parts, B))
+        if smem <= SMEM_PREFER and B * groups * parts >= target:
+            break
+    if plan is None:
+        return GraphPlan("csr", CSR_CHUNK, -(-D // CSR_CHUNK), 1, 0, 4, (N, B))
+    return plan
+
+
 # ----------------------------------------------------------------- CUDA
 def _lib():
     lib = build.load("sparse_graph")
     if lib.rd_spmm_fwd.argtypes is None:
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
-        lib.rd_spmm_fwd.argtypes = [p, p, ll, p, p, p, p, p, i, i, i, i, p]
-        lib.rd_spmm_bwd.argtypes = [p] * 12 + [i] * 4 + [p]
-        lib.rd_sddmm_fwd.argtypes = [p] * 5 + [i] * 4 + [f, p]
-        lib.rd_sddmm_bwd.argtypes = [p] * 11 + [i] * 4 + [f, p]
-        for fn in (lib.rd_spmm_fwd, lib.rd_spmm_bwd, lib.rd_sddmm_fwd,
-                   lib.rd_sddmm_bwd):
+        # pointers, the topology's table and the plan's ints as addresses
+        lib.rd_graph_plan.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        lib.rd_spmm_fwd.argtypes = [p, p, ll, p, p, p] + [i] * 5 + [p, p]
+        lib.rd_spmm_bwd.argtypes = [p] * 7 + [i] * 5 + [p, p]
+        lib.rd_sddmm_fwd.argtypes = [p] * 4 + [i] * 4 + [f, p, p]
+        lib.rd_sddmm_bwd.argtypes = [p] * 6 + [i] * 4 + [f, p, p]
+        for fn in (lib.rd_graph_plan, lib.rd_spmm_fwd, lib.rd_spmm_bwd,
+                   lib.rd_sddmm_fwd, lib.rd_sddmm_bwd):
             fn.restype = ctypes.c_int
     return lib
+
+
+def graph_plan_c(B, N, E, D, kind, align=16) -> GraphPlan:
+    """The plan csrc/sparse_graph.cu makes for these arguments (it builds
+    the library: on the card only); the card tests hold it equal to
+    graph_plan."""
+    out = (ctypes.c_int * 8)()
+    err = _lib().rd_graph_plan(B, N, E, D, KINDS.index(kind), align, out)
+    if err:
+        raise ValueError(f"rd_graph_plan refused B={B} N={N} E={E} D={D} {kind}")
+    return GraphPlan(ROUTES[out[0]], *out[1:6], (out[6], out[7]))
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _count(fn, plan: GraphPlan, attr):
+    """One launch of the wrapper `fn` on `attr` and on <route>_<attr>."""
+    build.count_launch(fn, attr, f"{plan.route}_{attr}")
+
+
 def _spmm_fwd_cuda(x, gamma, topo: Topology, gather_target):
     B, N, D = x.shape
     E = topo.src.shape[0]
-    x = x.detach().contiguous()
-    gamma = gamma.detach()
+    x = x.contiguous()
     # one row of logits broadcast over the batch (a stride-0 expand) is
     # read in place; anything else is made [B, E] contiguous
     if gamma.stride(0) == 0 and (E == 1 or gamma.stride(1) == 1):
@@ -218,13 +387,15 @@ def _spmm_fwd_cuda(x, gamma, topo: Topology, gather_target):
         g_stride = E
     out = torch.empty((B, N, D), dtype=torch.float32, device=x.device)
     w = torch.empty((B, E), dtype=torch.float32, device=x.device)
-    gidx = topo.dst if gather_target else topo.src
+    # the C entry point also holds the outputs, allocated here, to the
+    # alignment: a misaligned one is refused, not misread
+    plan = graph_plan(B, N, E, D, "fwd_target" if gather_target else "fwd_source",
+                      _align(x.data_ptr()))
     err = _lib().rd_spmm_fwd(
-        x.data_ptr(), gamma.data_ptr(), g_stride, gidx.data_ptr(),
-        topo.dst_perm.data_ptr(), topo.dst_ptr.data_ptr(), out.data_ptr(),
-        w.data_ptr(), B, N, E, D, _stream(x))
+        x.data_ptr(), gamma.data_ptr(), g_stride, topo.table, out.data_ptr(),
+        w.data_ptr(), B, N, E, D, int(gather_target), plan.address, _stream(x))
     build.check(err, "spmm_segment_softmax forward")
-    build.count_launch(spmm_segment_softmax)
+    _count(spmm_segment_softmax, plan, "launches")
     return out, w
 
 
@@ -232,55 +403,52 @@ def _spmm_bwd_cuda(g_out, g_w, x, w, topo: Topology, gather_target,
                    need_dgamma=True):
     B, N, D = x.shape
     E = topo.src.shape[0]
-    g_out = g_out.detach().to(torch.float32).contiguous()
+    g_out = g_out.to(torch.float32).contiguous()
     if g_w is not None:
-        g_w = g_w.detach().to(torch.float32).contiguous()
-    x, w = x.detach().contiguous(), w.detach().contiguous()
+        g_w = g_w.to(torch.float32).contiguous()
+    x, w = x.contiguous(), w.contiguous()
     dx = torch.empty((B, N, D), dtype=torch.float32, device=x.device)
     dgamma = (torch.empty((B, E), dtype=torch.float32, device=x.device)
               if need_dgamma else None)
-    if gather_target:
-        gidx, idx_perm, idx_ptr = topo.dst, topo.dst_perm, topo.dst_ptr
-    else:
-        gidx, idx_perm, idx_ptr = topo.src, topo.src_perm, topo.src_ptr
+    plan = graph_plan(B, N, E, D, "bwd_target" if gather_target else "bwd_source",
+                      _align(g_out.data_ptr(), x.data_ptr()))
     err = _lib().rd_spmm_bwd(
         g_out.data_ptr(), None if g_w is None else g_w.data_ptr(), x.data_ptr(),
-        w.data_ptr(), gidx.data_ptr(), topo.dst.data_ptr(),
-        topo.dst_perm.data_ptr(), topo.dst_ptr.data_ptr(), idx_perm.data_ptr(),
-        idx_ptr.data_ptr(), dx.data_ptr(),
-        None if dgamma is None else dgamma.data_ptr(), B, N, E, D, _stream(x))
+        w.data_ptr(), topo.table, dx.data_ptr(),
+        None if dgamma is None else dgamma.data_ptr(), B, N, E, D,
+        int(gather_target), plan.address, _stream(x))
     build.check(err, "spmm_segment_softmax backward")
-    build.count_launch(spmm_segment_softmax, "bwd_launches")
+    _count(spmm_segment_softmax, plan, "bwd_launches")
     return dx, dgamma
 
 
 def _sddmm_fwd_cuda(q, k, topo: Topology, scale):
     B, N, D = q.shape
     E = topo.src.shape[0]
-    q, k = q.detach().contiguous(), k.detach().contiguous()
+    q, k = q.contiguous(), k.contiguous()
     alpha = torch.empty((B, E), dtype=torch.float32, device=q.device)
+    plan = graph_plan(B, N, E, D, "sddmm_fwd", _align(q.data_ptr(), k.data_ptr()))
     err = _lib().rd_sddmm_fwd(
-        q.data_ptr(), k.data_ptr(), topo.src.data_ptr(), topo.dst.data_ptr(),
-        alpha.data_ptr(), B, N, E, D, float(scale), _stream(q))
+        q.data_ptr(), k.data_ptr(), topo.table, alpha.data_ptr(), B, N, E, D,
+        float(scale), plan.address, _stream(q))
     build.check(err, "sddmm forward")
-    build.count_launch(sddmm)
+    _count(sddmm, plan, "launches")
     return alpha
 
 
 def _sddmm_bwd_cuda(d_alpha, q, k, topo: Topology, scale):
     B, N, D = q.shape
     E = topo.src.shape[0]
-    d_alpha = d_alpha.detach().to(torch.float32).contiguous()
-    q, k = q.detach().contiguous(), k.detach().contiguous()
+    d_alpha = d_alpha.to(torch.float32).contiguous()
+    q, k = q.contiguous(), k.contiguous()
     dq = torch.empty((B, N, D), dtype=torch.float32, device=q.device)
     dk = torch.empty((B, N, D), dtype=torch.float32, device=q.device)
+    plan = graph_plan(B, N, E, D, "sddmm_bwd", _align(q.data_ptr(), k.data_ptr()))
     err = _lib().rd_sddmm_bwd(
-        d_alpha.data_ptr(), q.data_ptr(), k.data_ptr(), topo.src.data_ptr(),
-        topo.dst.data_ptr(), topo.dst_perm.data_ptr(), topo.dst_ptr.data_ptr(),
-        topo.src_perm.data_ptr(), topo.src_ptr.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), B, N, E, D, float(scale), _stream(q))
+        d_alpha.data_ptr(), q.data_ptr(), k.data_ptr(), topo.table, dq.data_ptr(),
+        dk.data_ptr(), B, N, E, D, float(scale), plan.address, _stream(q))
     build.check(err, "sddmm backward")
-    build.count_launch(sddmm, "bwd_launches")
+    _count(sddmm, plan, "bwd_launches")
     return dq, dk
 
 
@@ -376,8 +544,11 @@ def sddmm(q: torch.Tensor, k: torch.Tensor, edge_src: torch.Tensor,
     return _Sddmm.apply(q, k, edge_src, edge_dst, float(scale))
 
 
-# forward launches; `bwd_launches` counts the backward's
-spmm_segment_softmax.launches = 0
-spmm_segment_softmax.bwd_launches = 0
-sddmm.launches = 0
-sddmm.bwd_launches = 0
+# forward launches; `bwd_launches` counts the backward's; <route>_launches
+# and <route>_bwd_launches count those on each route of the launch plan
+for _fn in (spmm_segment_softmax, sddmm):
+    for _attr in ("launches", "bwd_launches"):
+        setattr(_fn, _attr, 0)
+        for _route in ROUTES:
+            setattr(_fn, f"{_route}_{_attr}", 0)
+del _fn, _attr, _route

@@ -16,6 +16,8 @@ gradient's max). The sparse-graph kernels are all f32: 1e-5 relative to
 max(1, |plain|).
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -445,7 +447,8 @@ def test_fused_layer_fits_pam_sensor_wise_on_the_card(gen):
 def _graph(gen, kind):
     """(src, dst, N) on the card: edges in shuffled order; 'knn' leaves the
     last two nodes without an incoming edge, 'skewed' gives one node a
-    segment longer than a CTA's staging buffer."""
+    segment longer than a CTA's staging buffer, 'long' one longer than the
+    tile route's staging of 1024 CSR positions (E = 1560)."""
     if kind == "complete":
         N = 17
         src = torch.arange(N, device="cuda").repeat_interleave(N)
@@ -456,27 +459,49 @@ def _graph(gen, kind):
         dst = torch.arange(N - 2, device="cuda").repeat_interleave(k)
     else:
         N = 12
-        dst = torch.cat([torch.full((700,), 3, device="cuda"),
+        n = 700 if kind == "skewed" else 1500
+        dst = torch.cat([torch.full((n,), 3, device="cuda"),
                          torch.randint(0, N, (60,), generator=gen, device="cuda")])
     src = torch.randint(0, N, (dst.numel(),), generator=gen, device="cuda")
     order = torch.randperm(dst.numel(), generator=gen, device="cuda")
     return src[order], dst[order], N
 
 
-@pytest.mark.parametrize("gather_target", [False, True])
-@pytest.mark.parametrize("D", [7, 240, 1100])
-@pytest.mark.parametrize("kind", ["complete", "knn", "skewed"])
-def test_spmm_kernels_match_plain(gen, kind, D, gather_target):
-    src, dst, N = _graph(gen, kind)
-    B, E = 5, src.numel()
+_GRAPH_COUNTS = ("launches", "bwd_launches", *(
+    f"{r}_{a}" for r in sp.ROUTES for a in ("launches", "bwd_launches")))
+
+
+def _graph_counts(fn):
+    return {a: getattr(fn, a) for a in _GRAPH_COUNTS}
+
+
+def _launched(fn, before):
+    """The launch counts of `fn` that moved since `before`."""
+    return {a: n - before[a] for a, n in _graph_counts(fn).items() if n != before[a]}
+
+
+def _want(fwd_route, fwd, bwd_route, bwd):
+    want = {"launches": fwd, f"{fwd_route}_launches": fwd}
+    if bwd:
+        want.update({"bwd_launches": bwd, f"{bwd_route}_bwd_launches": bwd})
+    return want
+
+
+def _check_spmm(gen, src, dst, N, B, D, gather_target):
+    """Both spmm kernels against the plain versions, bit-equal on a
+    repeat, every launch on the plan's route."""
+    E = src.numel()
     x, g_out = (torch.randn((B, N, D), generator=gen, device="cuda") for _ in range(2))
     gamma, g_w = (torch.randn((B, E), generator=gen, device="cuda") for _ in range(2))
     topo = sp.topology(src, dst, N)
-    before = (sp.spmm_segment_softmax.launches, sp.spmm_segment_softmax.bwd_launches)
+    side = "target" if gather_target else "source"
+    routes = [sp.graph_plan(B, N, E, D, f"{d}_{side}").route for d in ("fwd", "bwd")]
+    if gather_target:
+        assert routes == ["row", "row"]
+    before = _graph_counts(sp.spmm_segment_softmax)
     out, w = sp._spmm_fwd_cuda(x, gamma, topo, gather_target)
     dx, dgamma = sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gather_target)
-    assert (sp.spmm_segment_softmax.launches,
-            sp.spmm_segment_softmax.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert _launched(sp.spmm_segment_softmax, before) == _want(routes[0], 1, routes[1], 1)
     out2, w2 = sp._spmm_fwd_cuda(x, gamma, topo, gather_target)
     dx2, dgamma2 = sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gather_target)
     p_out, p_w = sp._spmm_fwd_plain(x, gamma, src, dst, N, gather_target)
@@ -499,27 +524,119 @@ def test_spmm_kernels_match_plain(gen, kind, D, gather_target):
     assert none is None and torch.equal(dx3, dx)
 
 
-@pytest.mark.parametrize("D", [7, 120, 860])
-@pytest.mark.parametrize("kind", ["complete", "knn", "skewed"])
-def test_sddmm_kernels_match_plain(gen, kind, D):
-    src, dst, N = _graph(gen, kind)
-    B, E = 4, src.numel()
+def _check_sddmm(gen, src, dst, N, B, D):
+    """sddmm's kernels against the plain versions, bit-equal on a repeat,
+    every launch on the plan's route."""
+    E = src.numel()
     q, k = (torch.randn((B, N, D), generator=gen, device="cuda") for _ in range(2))
     d_alpha = torch.randn((B, E), generator=gen, device="cuda")
     topo = sp.topology(src, dst, N)
     scale = D ** -0.5
-    before = (sp.sddmm.launches, sp.sddmm.bwd_launches)
+    routes = [sp.graph_plan(B, N, E, D, kind).route for kind in ("sddmm_fwd", "sddmm_bwd")]
+    before = _graph_counts(sp.sddmm)
     alpha = sp._sddmm_fwd_cuda(q, k, topo, scale)
     dq, dk = sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale)
-    assert (sp.sddmm.launches, sp.sddmm.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert _launched(sp.sddmm, before) == _want(routes[0], 1, routes[1], 1)
+    alpha2 = sp._sddmm_fwd_cuda(q, k, topo, scale)
     dq2, dk2 = sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale)
     p_alpha = sp._sddmm_fwd_plain(q, k, src, dst, scale)
     p_dq, p_dk = sp._sddmm_bwd_plain(d_alpha, q, k, src, dst, scale)
     torch.cuda.synchronize()
-    assert _rel_err(alpha, p_alpha) <= 1e-5
-    for name, a, a2, b in (("dq", dq, dq2, p_dq), ("dk", dk, dk2, p_dk)):
+    for name, a, a2, b in (("alpha", alpha, alpha2, p_alpha), ("dq", dq, dq2, p_dq),
+                           ("dk", dk, dk2, p_dk)):
         assert torch.isfinite(a).all() and torch.equal(a, a2), name
         assert _rel_err(a, b) <= 1e-5, (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("gather_target", [False, True])
+@pytest.mark.parametrize("D", [7, 240, 1100])
+@pytest.mark.parametrize("kind", ["complete", "knn", "skewed"])
+def test_spmm_kernels_match_plain(gen, kind, D, gather_target):
+    _check_spmm(gen, *_graph(gen, kind), 5, D, gather_target)
+
+
+@pytest.mark.parametrize("D", [7, 120, 860])
+@pytest.mark.parametrize("kind", ["complete", "knn", "skewed"])
+def test_sddmm_kernels_match_plain(gen, kind, D):
+    _check_sddmm(gen, *_graph(gen, kind), 4, D)
+
+
+# the widths of the graph phases (430: the self-attention's head, 4-byte
+# copies; 860 P12, 2400 PAM) and 7 (odd), at B=1 (columns split over the
+# card), 2 and 128
+@pytest.mark.parametrize("gather_target", [False, True])
+@pytest.mark.parametrize("D", [7, 430, 860, 2400])
+@pytest.mark.parametrize("B", [1, 2, 128])
+@pytest.mark.parametrize("kind", ["complete", "knn", "skewed", "long"])
+def test_spmm_kernels_match_plain_by_batch_and_width(gen, kind, B, D, gather_target):
+    _check_spmm(gen, *_graph(gen, kind), B, D, gather_target)
+
+
+@pytest.mark.parametrize("D", [7, 430, 860, 2400])
+@pytest.mark.parametrize("B", [1, 2, 128])
+@pytest.mark.parametrize("kind", ["complete", "knn", "skewed", "long"])
+def test_sddmm_kernels_match_plain_by_batch_and_width(gen, kind, B, D):
+    _check_sddmm(gen, *_graph(gen, kind), B, D)
+
+
+def _csr_cut(B, D, k, kind):
+    """The least N at which a graph of k edges into each node leaves the
+    tile route for "csr"."""
+    n = 1
+    while sp.graph_plan(B, n, k * n, D, kind).route == "tile":
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("side", [-1, 0])
+@pytest.mark.parametrize("family", ["fwd_source", "sddmm_fwd"])
+def test_graph_kernels_at_the_csr_edge(gen, family, side):
+    """The last N on "tile" (shared bytes at their largest) and the first on
+    "csr", for the weighted sums (fwd_source's cut) and the edge dot
+    products (sddmm_fwd's, bwd_source's too): every kernel against its
+    plain version there, each launch on its kind's route."""
+    B, D, k = 2, 36, 6
+    N = _csr_cut(B, D, k, family) + side
+    plan = sp.graph_plan(B, N, k * N, D, family)
+    assert plan.route == ("tile" if side else "csr")
+    assert plan.smem <= sp.MAX_SMEM
+    dst = torch.arange(N, device="cuda").repeat_interleave(k)
+    src = torch.randint(0, N, (k * N,), generator=gen, device="cuda")
+    order = torch.randperm(k * N, generator=gen, device="cuda")
+    src, dst = src[order], dst[order]
+    _check_spmm(gen, src, dst, N, B, D, False)
+    _check_sddmm(gen, src, dst, N, B, D)
+
+
+def test_graph_plan_of_the_kernels_matches_the_wrappers(gen):
+    """rd_graph_plan (csrc/sparse_graph.cu) makes graph_plan's plan at every
+    graph phase's shape and at the edges; an entry point refuses a plan
+    that differs from its own."""
+    shapes = [(B, N, E, D) for B in (1, 2, 128)
+              for N, E in ((36, 1296), (17, 289), (128, 768), (40, 228), (12, 1560))
+              for D in (7, 120, 240, 430, 860, 1100, 2400)]
+    for kind in ("fwd_source", "sddmm_fwd"):
+        cut = _csr_cut(2, 36, 6, kind)
+        shapes += [(2, n, 6 * n, 36) for n in (cut - 1, cut)]
+    shapes += [(512, 100, 10000, 64), (3, 5000, 6000, 2500)]
+    for shape in shapes:
+        for kind in sp.KINDS:
+            for align in (16, 8, 4):
+                assert sp.graph_plan_c(*shape, kind, align) == sp.graph_plan(
+                    *shape, kind, align), (shape, kind, align)
+    src, dst, N = _graph(gen, "knn")
+    B, D, E = 2, 16, src.numel()
+    x = torch.randn((B, N, D), device="cuda")
+    topo = sp.topology(src, dst, N)
+    out = torch.empty_like(x)
+    w = torch.empty((B, E), device="cuda")
+    good = sp.graph_plan(B, N, E, D, "fwd_source")
+    bad = sp.GraphPlan("csr", *dataclasses.astuple(good)[1:])
+    for plan, ok in ((good, True), (bad, False)):
+        err = sp._lib().rd_spmm_fwd(
+            x.data_ptr(), x.data_ptr(), 0, topo.table, out.data_ptr(), w.data_ptr(), B, N,
+            E, D, 0, plan.address, torch.cuda.current_stream().cuda_stream)
+        assert (err == 0) == ok, (plan, err)
 
 
 def test_sparse_autograd_reaches_the_backward_kernels(gen):
