@@ -84,6 +84,16 @@ check does not hold:
      operands);
  10. the same for P12 (every flash_mha_packed launch, forward and
      backward, on the tensor-core route);
+ 10a. compute_dtype='bfloat16' (mixed precision: f32 master parameters,
+     the forward in bf16) for PAM and P12 at full width and depth
+     (mixed_phase): served on 1, 5, 128 and 200 rows and trained for an
+     epoch, every fused_encoder_layer / flash_mha_packed launch forward and
+     backward on the tensor cores; served probabilities (f32) and the
+     first step's loss and gradient norm (dropout 0) held to 2e-2 against
+     the same configuration on the kernels' plain versions, logits and
+     every gradient f32; request latency by bucket, step ms and samples/s
+     beside the f32 path's in the same run, and the two propagation GEMMs'
+     device time in f32 and bf16 (prop_gemm_phase);
  10b. phases 7 and 8 with sensor_wise_mask for P19 (the dense rung at
      T=60: no kernel launched), P12 (every flash_mha_packed launch on the
      two-warpgroup tensor-core route), eICU (every launch on the tensor
@@ -115,6 +125,22 @@ check does not hold:
  14. a Trainer for P12 with prop_backend='pallas' (every check of phase 10;
      the SpMM backward must have been launched; every SpMM launch on
      "row");
+ 14a. use_beta (the time-conditioned edge attention with top-50%
+     pruning) at P12 with prop_backend='pallas': phases 8 and 10 on that
+     configuration, held against the dense plain path (dense attention,
+     the dense beta block), every flash_mha_packed launch on the tensor
+     cores and no sparse-graph kernel launched (beta routes off the SpMM
+     kernel); then (beta_graph_phase) the dense beta block against two COO
+     layers on the all-ones graph at B=32 (equal kept-edge masks, out and
+     alpha within GRAPH_TOL) and one raindrop_apply with a random
+     global_adj in [0.5, 2] (the COO beta branch) on the kernels against
+     the plain path, 1e-4 with f32 attention operands;
+ 14b. dtype='bfloat16' (parameters and Adam's moments stored in bf16) at
+     P12 (bf16_storage_phase): an epoch (finite losses, every packed launch
+     on the tensor cores), the loss falling on a fixed batch at lr 1e-3, a
+     checkpoint of parameters and optimizer state read back bit-equal, a
+     served request (f32 probabilities summing to 1 within the bf16
+     softmax's 1e-2);
  15. ob_propagate_selfattention (N=36, D=860, 2 heads) on a kNN and on the
      complete graph, score_backend 'sddmm' against 'gather', value and
      gradient w.r.t. x; one sddmm launch a graph each way;
@@ -140,6 +166,12 @@ check does not hold:
      check of phase 7, held against the dense plain path), which must
      launch flash_mha twice per forward, every launch on the tensor-core
      route (hd 42);
+ 18a. that server at compute_dtype='bfloat16' (mixed_long_phase): two
+     flash_mha launches a forward and no other kernel, all on the tensor
+     cores; DENSE_ROWS rows held to 2e-2 against the kernels' plain
+     versions; the top bucket's latency and device time beside phase 18's
+     f32 ones, the propagation GEMMs in both dtypes, and the training step
+     (B=128, 3 batches) in bf16 and f32;
  19. the trainer protocol on that configuration: train_split on
      synthetic_split("PAM", T=2048) (B=128, sampler strategy 3, dropout
      0.2) for 1 epoch with checkpoints, resumed from the `_last` file for
@@ -2328,8 +2360,22 @@ def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
         raise AssertionError(f"{dataset}: at lr 1e-3 the first step's losses part "
                              f"from the dense path's: {bad}")
 
-    # timings: CUDA events around each step, then a profiled epoch
-    timed = Trainer(cfg, tcfg, device=device, params=trainer.params)
+    timing = train_timing(dataset, Trainer(cfg, tcfg, device=device,
+                                           params=trainer.params), data, idx, batch)
+    return launches, bwd_launches, dict(
+        rung=rung, steps=steps, train_s=train_s, losses=[float(x) for x in losses],
+        checks=checks, limits=limits, fixed_batch=(loss0, loss1),
+        fixed_batch_losses=fit_losses, fit_lr=fit_lr, lr_1e3_vs_dense=follow,
+        **timing)
+
+
+def train_timing(label, timed, data, idx, batch):
+    """Step ms by CUDA events around each step of an epoch (median), the
+    epoch's samples/s by the host clock, then a profiled epoch: device ms
+    a step, the idle share and the top kernels."""
+    import torch
+
+    steps = idx.shape[0]
     timed.train_epoch(data, idx[:2])
     step_ms = []
     for k in range(steps):
@@ -2347,20 +2393,17 @@ def train_phase(dataset, kernel_fns, wrappers, device="cuda", seed=0, batch=128,
         lambda: timed.train_epoch(data, idx), steps)
     step_med = float(np.median(step_ms))
     sps = batch * steps / (epoch_ms / 1e3)
-    print(f"[train] {dataset}: step {step_med:.3f} ms (median of {steps}, CUDA "
+    print(f"[train] {label}: step {step_med:.3f} ms (median of {steps}, CUDA "
           f"events; all {[round(x, 3) for x in step_ms]}); epoch of {steps} steps "
           f"{epoch_ms:.3f} ms by the host clock = {sps:.1f} samples/s; profiled: "
           f"wall {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step, idle "
           f"share {idle}", flush=True)
     for name, ms in top_k.items():
-        print(f"[train] {dataset}:   {ms:8.4f} ms/step  {name[:100]}", flush=True)
-    return launches, bwd_launches, dict(
-        rung=rung, steps=steps, train_s=train_s, losses=[float(x) for x in losses],
-        checks=checks, limits=limits, fixed_batch=(loss0, loss1),
-        fixed_batch_losses=fit_losses, fit_lr=fit_lr, lr_1e3_vs_dense=follow,
-        step_ms=step_ms, step_ms_median=step_med,
-        epoch_ms=epoch_ms, samples_per_s=sps, profile_wall_ms=wall_ms,
-        profile_device_ms=device_ms, idle_share=idle, device_ms_by_kernel=top_k)
+        print(f"[train] {label}:   {ms:8.4f} ms/step  {name[:100]}", flush=True)
+    return dict(step_ms=step_ms, step_ms_median=step_med, epoch_ms=epoch_ms,
+                samples_per_s=sps, profile_wall_ms=wall_ms,
+                profile_device_ms=device_ms, idle_share=idle,
+                device_ms_by_kernel=top_k)
 
 
 # ----------------------------------------------------------------- protocol
@@ -2598,6 +2641,424 @@ def run_splits_phase(device="cuda", seed=0, batch=128, n=320, n_batches=2):
 
 
 # --------------------------------------------------------------------- main
+
+# ------------------------------------------- mixed precision and use_beta
+MIXED = {"compute_dtype": "bfloat16"}
+# use_beta's dense block with prop_backend='pallas' asked for: the SpMM
+# kernel's shared topology cannot hold each sample's pruned edges, so the
+# model routes beta off it (models/raindrop.prop_branch)
+BETA = {"use_beta": True, "prop_backend": "pallas"}
+
+
+def _is_gemm(name):
+    low = name.lower()
+    return any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma"))
+
+
+def prop_gemm_phase(label, cfg, params, B, device="cuda", seed=0, reps=5):
+    """The forward's two propagation products (each layer's relu(lin_value
+    x) at [B*F, T*d_ob] x [T*d_ob, T*d_ob], the dense branch) under the
+    profiler, with the weights and x in f32 and in bf16: device ms a
+    forward of the GEMM kernels and of every kernel, by dtype."""
+    import torch
+    from raindrop_tpu_torch.nn.linear import linear_apply
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, cfg.d_inp, cfg.max_len * cfg.d_ob), generator=gen,
+                    device=device)
+    out = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        ws = [{k: v.detach().to(dt) for k, v in params[layer]["lin_value"].items()}
+              for layer in ("ob_propagation", "ob_propagation_layer2")]
+        xd = x.to(dt)
+
+        @torch.no_grad()
+        def forward():
+            for _ in range(reps):
+                h = xd
+                for w in ws:
+                    h = torch.relu(linear_apply(w, h))
+
+        forward()
+        _, device_ms, _, top_k = profile_device(forward, reps)
+        gemm = sum(ms for k, ms in top_k.items() if _is_gemm(k))
+        out[name] = dict(gemm_ms=gemm, device_ms=device_ms, kernels=top_k)
+        print(f"[prop] {label} {name}: the two propagation GEMMs {gemm:.4f} ms "
+              f"device a forward (all kernels {device_ms:.4f}): "
+              f"{ {k[:60]: round(v, 4) for k, v in top_k.items()} }", flush=True)
+        del ws, xd
+    return out
+
+
+def _probs_ok(what, probs, tol=1e-5):
+    """f32 probabilities, finite, summing to 1 within `tol` (a softmax
+    taken in bf16 sums to 1 within its rounding: 1e-2)."""
+    if probs.dtype != np.float32:
+        raise AssertionError(f"{what}: probabilities are {probs.dtype}, not float32")
+    if not np.isfinite(probs).all() or np.abs(probs.sum(-1) - 1).max() > tol:
+        raise AssertionError(f"{what}: probabilities not finite or not summing to 1")
+
+
+def _first_step(cfg, tcfg, params, first, device, plain):
+    """One step's loss, gradient norm and logits' dtype at dropout 0, on the
+    kernels or on their plain versions; every live gradient must be f32
+    (the master parameters' dtype) and finite."""
+    import torch
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    tr_ = Trainer(cfg, tcfg, device=device, params=params)
+    with plain_kernels() if plain else contextlib.nullcontext():
+        loss, logits = tr_._backward(first, None)
+    for path, t in tr_.live:
+        g = t.grad
+        if g is None or g.dtype != torch.float32 or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{cfg.compute_dtype}: the gradient of {path} is "
+                                 f"{None if g is None else g.dtype}, or not finite")
+    out = (float(loss), grad_norm(tr_), logits.dtype)
+    del tr_
+    return out
+
+
+def mixed_phase(dataset, kernel_fns, wrappers, check_route, device="cuda", seed=0,
+                batch=128, buckets=(1, 8, 32, 128)):
+    """compute_dtype='bfloat16' at a preset's full width and depth, served
+    and trained (f32 master parameters, the forward in bf16). Counts are
+    set to 0 just before the served requests and before the epoch and read
+    just after; every launch must take the tensor-core route
+    (`check_route`). Served probabilities and the first step's loss and
+    gradient norm (dropout 0) are held to 2e-2 against the same
+    configuration on the kernels' plain versions; logits and gradients
+    must be f32. Latency by bucket, step ms and samples/s are measured
+    beside the f32 path's, and the propagation GEMMs' device time in both
+    dtypes."""
+    import torch
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.data.sampler import balanced_batches
+    from raindrop_tpu_torch.models.raindrop import raindrop_init
+    from raindrop_tpu_torch.serve import InferenceServer
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    label = f"{dataset}-bf16"
+    cfg32 = dataset_config(dataset)
+    cfg16 = dataset_config(dataset, **MIXED)
+    params = raindrop_init(seed, cfg32, device=device)
+    top = buckets[-1]
+    P, times, static = make_requests(cfg32, top + 72, seed + 1)
+    s16 = InferenceServer(cfg16, params, buckets=buckets, device=device)
+    s32 = InferenceServer(cfg32, params, buckets=buckets, device=device)
+    reset_counts(wrappers)
+    outs = {n: s16.predict(P[:n], times[:n], _rows(static, slice(0, n)))
+            for n in (1, 5, top, top + 72)}
+    launches = read_counts(wrappers, "launches")
+    check_route(f"{label} serving", launches)
+    for fn in kernel_fns:
+        if launches[fn.__name__] <= 0:
+            raise AssertionError(f"{label}: serving never launched {fn.__name__}")
+    for n, pr in outs.items():
+        _probs_ok(f"{label} served {n}", pr)
+    with plain_kernels():
+        plain = s16.predict(P[:top], times[:top], _rows(static, slice(0, top)))
+    f32 = s32.predict(P[:top], times[:top], _rows(static, slice(0, top)))
+    checks = {"kernel_vs_plain": float(np.abs(outs[top] - plain).max()),
+              "alone_vs_full_bucket": float(np.abs(outs[1][0] - outs[top][0]).max()),
+              "predict_vs_chunked": float(np.abs(outs[top] - outs[top + 72][:top]).max()),
+              "bf16_vs_f32": float(np.abs(outs[top] - f32).max())}
+    limits = {"kernel_vs_plain": 2e-2, "alone_vs_full_bucket": 2e-2,
+              "predict_vs_chunked": 2e-2, "bf16_vs_f32": 5e-2}
+    print(f"[mixed] {label}: served launches {launches}; checks {checks}", flush=True)
+    serve16 = serve_timing(label, s16, P, times, static)
+    serve32 = serve_timing(f"{dataset}-f32", s32, P, times, static)
+    s16.close()
+    s32.close()
+
+    strategy = 3 if cfg32.n_classes > 2 else 2
+    tcfg = TrainConfig(dataset=dataset, learning_rate=1e-4, batch_size=batch,
+                       batching_strategy=strategy, seed=seed + 1)
+    n = 5 * batch
+    data, y = make_split(cfg32, n, seed + 2, device)
+    idx = torch.from_numpy(np.stack(list(balanced_batches(
+        y, batch, strategy, np.random.default_rng(seed),
+        n_batches=6 if strategy == 3 else None)))).to(device)
+    trainer = Trainer(cfg16, tcfg, device=device, params=params)
+    reset_counts(wrappers)
+    losses, _ = trainer.train_epoch(data, idx)
+    P_host, time_host = (data[k][:200].cpu().numpy() for k in ("P", "time"))
+    static_host = data["static"][:200].cpu().numpy() if "static" in data else None
+    logits = trainer.predict(None, P_host, time_host, static_host)
+    tf = read_counts(wrappers, "launches")
+    tb = read_counts(wrappers, "bwd_launches")
+    check_route(f"{label} training", tf, tb)
+    for fn in kernel_fns:
+        if tf[fn.__name__] <= 0 or tb[fn.__name__] <= 0:
+            raise AssertionError(f"{label}: training never launched {fn.__name__} "
+                                 f"forward and backward")
+    if not bool(torch.isfinite(losses).all()) or not np.isfinite(logits).all():
+        raise AssertionError(f"{label}: a loss or a predicted logit is not finite")
+    if any(t.dtype != torch.float32 for _, t in trainer.live):
+        raise AssertionError(f"{label}: a master parameter left float32")
+    print(f"[mixed] {label}: epoch losses {[round(float(x), 6) for x in losses]}; "
+          f"forward launches {tf}, backward {tb}", flush=True)
+    del trainer
+
+    first = {k: v[idx[0]] for k, v in data.items()}
+    c0 = dataset_config(dataset, dropout=0.0, **MIXED)
+    (lk, gk, dk), (lp, gp, _) = (_first_step(c0, tcfg, params, first, device, plain)
+                                 for plain in (False, True))
+    if dk != torch.float32:
+        raise AssertionError(f"{label}: logits are {dk}, not float32")
+    checks["loss_vs_plain"] = abs(lk - lp) / abs(lp)
+    checks["grad_norm_vs_plain"] = abs(gk - gp) / gp
+    limits["loss_vs_plain"] = limits["grad_norm_vs_plain"] = 2e-2
+    print(f"[mixed] {label}: first step, dropout 0: loss {lk:.7f} (plain {lp:.7f}), "
+          f"gradient norm {gk:.7f} (plain {gp:.7f}), logits {dk}, gradients f32",
+          flush=True)
+    bad = {k: v for k, v in checks.items() if not v <= limits[k]}
+    if bad:
+        raise AssertionError(f"{label}: checks over their limits: {bad} (limits {limits})")
+
+    train16 = train_timing(label, Trainer(cfg16, tcfg, device=device, params=params),
+                           data, idx, batch)
+    train32 = train_timing(f"{dataset}-f32", Trainer(cfg32, tcfg, device=device,
+                                                     params=params), data, idx, batch)
+    gemm = prop_gemm_phase(dataset, cfg32, params, batch, device, seed)
+    print(f"[mixed] {dataset}: bf16 against f32 in this run: step "
+          f"{train16['step_ms_median']:.3f} / {train32['step_ms_median']:.3f} ms, "
+          f"{train16['samples_per_s']:.1f} / {train32['samples_per_s']:.1f} samples/s, "
+          f"top bucket {serve16['latency_ms'][top]:.3f} / {serve32['latency_ms'][top]:.3f} "
+          f"ms (device {serve16['profile_device_ms']:.3f} / "
+          f"{serve32['profile_device_ms']:.3f}), propagation GEMMs "
+          f"{gemm['bfloat16']['gemm_ms']:.4f} / {gemm['float32']['gemm_ms']:.4f} ms "
+          f"device a forward", flush=True)
+    return dict(serve_launches=launches, train_launches=tf, train_bwd_launches=tb,
+                checks=checks, limits=limits, losses=[float(x) for x in losses],
+                serve_bf16=serve16, serve_f32=serve32, train_bf16=train16,
+                train_f32=train32, prop_gemm=gemm)
+
+
+def mixed_long_phase(wrappers, f32_serve, device="cuda", seed=0,
+                     buckets=(1, 8, 32, 128), steps=3):
+    """The PAM-2048 server at compute_dtype='bfloat16': two flash_mha
+    launches a forward and no other kernel, every one on the tensor cores;
+    DENSE_ROWS rows held to 2e-2 against the kernels' plain versions; the
+    top bucket's latency and device time beside phase 18's f32 ones
+    (`f32_serve`), the propagation GEMMs' device time in both dtypes, and
+    the training step (B=128, `steps` batches) in bf16 and f32."""
+    import torch
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.data.sampler import balanced_batches
+    from raindrop_tpu_torch.models.raindrop import raindrop_init
+    from raindrop_tpu_torch.serve import InferenceServer
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    label = "PAM-2048-bf16"
+    cfg32 = dataset_config("PAM", **LONG)
+    params = raindrop_init(seed, cfg32, device=device)
+    server = InferenceServer(dataset_config("PAM", **LONG, **MIXED), params,
+                             buckets=buckets, device=device)
+    top = buckets[-1]
+    P, times, static = make_requests(cfg32, top, seed + 1)
+    reset_counts(wrappers)
+    outs = {n: server.predict(P[:n], times[:n], _rows(static, slice(0, n)))
+            for n in (1, 5, top)}
+    launches = read_counts(wrappers, "launches")
+    forwards = server.health()["batches"]
+    check_two_a_forward(label, launches, {"forwards": forwards})
+    check_split_route(f"{label} serving", "tc", launches)
+    for n, pr in outs.items():
+        _probs_ok(f"{label} served {n}", pr)
+    rows = slice(0, DENSE_ROWS)
+    a = server.predict(P[rows], times[rows], _rows(static, rows))
+    with plain_kernels():
+        b = server.predict(P[rows], times[rows], _rows(static, rows))
+    checks = {"kernel_vs_plain": float(np.abs(a - b).max()),
+              "alone_vs_full_bucket": float(np.abs(outs[1][0] - outs[top][0]).max())}
+    limits = {"kernel_vs_plain": 2e-2, "alone_vs_full_bucket": 2e-2}
+    print(f"[mixed] {label}: launches {launches} for {forwards} forwards; checks "
+          f"{checks}", flush=True)
+    bad = {k: v for k, v in checks.items() if not v <= limits[k]}
+    if bad:
+        raise AssertionError(f"{label}: checks over their limits: {bad} (limits {limits})")
+    timing = serve_timing(label, server, P, times, static)
+    server.close()
+    del server
+    gemm = prop_gemm_phase("PAM-2048", cfg32, params, top, device, seed)
+    tcfg = TrainConfig(dataset="PAM", learning_rate=1e-4, batch_size=top,
+                       batching_strategy=3, seed=seed + 1)
+    data, y = make_split(cfg32, steps * top, seed + 2, device)
+    idx = torch.from_numpy(np.stack(list(balanced_batches(
+        y, top, 3, np.random.default_rng(seed), n_batches=steps)))).to(device)
+    train = {}
+    for name, c in (("bfloat16", dataset_config("PAM", **LONG, **MIXED)),
+                    ("float32", cfg32)):
+        timed = Trainer(c, tcfg, device=device, params=params)
+        train[name] = train_timing(f"PAM-2048 {name}", timed, data, idx, top)
+        del timed
+        torch.cuda.empty_cache()
+    print(f"[mixed] {label}: top bucket {timing['latency_ms'][top]:.3f} ms (device "
+          f"{timing['profile_device_ms']:.3f}) against f32 "
+          f"{f32_serve['latency_ms'][top]:.3f} ms (device "
+          f"{f32_serve['profile_device_ms']:.3f}, phase 18); step "
+          f"{train['bfloat16']['step_ms_median']:.3f} against "
+          f"{train['float32']['step_ms_median']:.3f} ms", flush=True)
+    return dict(launches=launches, forwards=forwards, checks=checks, limits=limits,
+                prop_gemm=gemm, train=train, **timing)
+
+
+def check_no_graph_kernel(what, *counts):
+    """use_beta never reaches the sparse-graph kernels, 'pallas' or not."""
+    for c in counts:
+        if c["spmm_segment_softmax"] or c["sddmm"]:
+            raise AssertionError(f"{what}: a sparse-graph kernel was launched: {c}")
+
+
+def beta_graph_phase(wrappers, device="cuda", seed=0, B=32):
+    """use_beta's two propagation forms at P12's width (B=32): the dense
+    block (raindrop_propagate_beta_dense, factored on the all-ones graph)
+    against two COO layers on the complete graph's edge list, the kept-edge
+    masks equal and out and alpha within GRAPH_TOL; then one raindrop_apply
+    with a random global_adj in [0.5, 2] (the COO beta branch) on the
+    kernels beside the same global_adj on the plain path (dense
+    attention), 1e-4 apart in f32 attention operands, and no sparse-graph
+    kernel launched."""
+    import torch
+    from raindrop_tpu_torch.config import dataset_config
+    from raindrop_tpu_torch.graph import propagate as prop
+    from raindrop_tpu_torch.models.raindrop import (
+        _complete_edges, raindrop_apply, raindrop_init)
+
+    cfg = dataset_config("P12", **BETA)
+    params = raindrop_init(seed, cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    F, T = cfg.d_inp, cfg.max_len
+    x = torch.randn((B, F, T * cfg.d_ob), generator=gen, device=device)
+    pe = torch.randn((B, T, cfg.d_pe), generator=gen, device=device)
+    p1, p2 = params["ob_propagation"], params["ob_propagation_layer2"]
+    with torch.no_grad():
+        adj = torch.ones((F, F), device=device)
+        out_d, alpha_d, mask = prop.raindrop_propagate_beta_dense(
+            p1, p2, x, pe, adj, ob_dim=cfg.d_ob, uniform_adj=True, return_mask=True)
+        ei = torch.stack(_complete_edges(F, device))
+        kw = dict(ob_dim=cfg.d_ob, n_nodes=F)
+        out1, (ei2, a1) = prop.ob_propagate_coo(p1, x, pe, ei, adj.reshape(-1),
+                                                use_beta=True, **kw)
+        out_c, (_, a2) = prop.ob_propagate_coo(p2, out1, pe, ei2, a1, **kw)
+    kept = torch.zeros((B, F * F), dtype=torch.bool, device=device)
+    kept.scatter_(1, ei2[:, 0] * F + ei2[:, 1], True)
+    same_mask = bool(torch.equal(kept.reshape(B, F, F), mask))
+    err_out = rel_err(out_d, out_c)
+    err_alpha = rel_err(alpha_d, a2[..., 0])
+    print(f"[beta] dense block against COO at B={B}: kept-edge masks equal "
+          f"{same_mask}, out {err_out:.3e}, alpha {err_alpha:.3e}", flush=True)
+    if not same_mask or not err_out <= GRAPH_TOL or not err_alpha <= GRAPH_TOL:
+        raise AssertionError("use_beta: the dense block and COO disagree")
+
+    src, times, static = make_requests(cfg, B, seed + 3)
+    src_t = torch.from_numpy(src).to(device).transpose(0, 1)
+    times_t = torch.from_numpy(times).to(device).transpose(0, 1)
+    static_t = torch.from_numpy(static).to(device)
+    lengths = (times_t > 0).sum(dim=0)
+    w = torch.rand((F, F), generator=gen, device=device) * 1.5 + 0.5
+    outs = {}
+    for name, over in (("kernels", {}), ("plain", PLAIN_ATTENTION)):
+        c = dataset_config("P12", **BETA, **over, attention_score_dtype="float32")
+        reset_counts(wrappers)
+        with torch.no_grad():
+            logits, dist = raindrop_apply(params, c, src_t, static_t, times_t,
+                                          lengths, global_adj=w)
+        counts = read_counts(wrappers, "launches")
+        check_no_graph_kernel(f"use_beta global_adj {name}", counts)
+        if name == "kernels" and counts["flash_mha_packed"] <= 0:
+            raise AssertionError("use_beta global_adj: the encoder's kernel never ran")
+        outs[name] = logits
+    err = max_err(outs["kernels"], outs["plain"])
+    print(f"[beta] raindrop_apply with a random global_adj (COO beta): kernels "
+          f"against the plain path {err:.3e}", flush=True)
+    if not err <= 1e-4 or not bool(torch.isfinite(outs["kernels"]).all()):
+        raise AssertionError(f"use_beta global_adj: {err} against the plain path")
+    return dict(masks_equal=same_mask, out_err=err_out, alpha_err=err_alpha,
+                global_adj_err=err)
+
+
+def bf16_storage_phase(wrappers, device="cuda", seed=0, batch=128):
+    """dtype='bfloat16' at P12: parameters and Adam's moments stored in
+    bf16. An epoch (finite losses, every packed launch on the tensor
+    cores), the loss falling on a fixed batch over 10 steps at lr 1e-3, a
+    checkpoint of parameters and optimizer state written and read back
+    bit-equal, and a served request (f32 probabilities)."""
+    import torch
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.data.sampler import balanced_batches
+    from raindrop_tpu_torch.models.raindrop import raindrop_init
+    from raindrop_tpu_torch.serve import InferenceServer
+    from raindrop_tpu_torch.train.checkpoint import (
+        flatten_params, load_checkpoint, save_checkpoint)
+    from raindrop_tpu_torch.train.trainer import Trainer
+    from raindrop_tpu_torch.utils.dropout import DropoutSeeds
+
+    label = "P12-bf16-storage"
+    cfg = dataset_config("P12", dtype="bfloat16")
+    tcfg = TrainConfig(dataset="P12", learning_rate=1e-4, batch_size=batch,
+                       batching_strategy=2, seed=seed + 1)
+    data, y = make_split(cfg, 5 * batch, seed + 2, device)
+    idx = torch.from_numpy(np.stack(list(balanced_batches(
+        y, batch, 2, np.random.default_rng(seed))))).to(device)
+    trainer = Trainer(cfg, tcfg, device=device)
+    if any(t.dtype != torch.bfloat16 for _, t in flatten_params(trainer.params)):
+        raise AssertionError(f"{label}: a parameter is not stored in bf16")
+    reset_counts(wrappers)
+    losses, _ = trainer.train_epoch(data, idx)
+    tf = read_counts(wrappers, "launches")
+    tb = read_counts(wrappers, "bwd_launches")
+    check_tc(f"{label} training", tf, tb)
+    if not bool(torch.isfinite(losses.float()).all()):
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    moments = [st[k].dtype for st in trainer.optimizer.state.values()
+               for k in ("exp_avg", "exp_avg_sq")]
+    if not moments or any(d != torch.bfloat16 for d in moments):
+        raise AssertionError(f"{label}: Adam's moments are {set(moments)}, not bf16")
+
+    first = {k: v[idx[0]] for k, v in data.items()}
+    fixed = DropoutSeeds.draw(torch.Generator().manual_seed(seed), cfg.nlayers)
+    fit = Trainer(cfg, tcfg, device=device, params=trainer.params)
+    fit.learning_rate = 1e-3
+    with torch.no_grad():
+        before = float(fit.loss_fn(first, fixed)[0])
+    steps = [float(fit.train_step(first)[0]) for _ in range(10)]
+    with torch.no_grad():
+        after = float(fit.loss_fn(first, fixed)[0])
+    print(f"[bf16] {label}: epoch losses {[round(float(x), 5) for x in losses]}; "
+          f"fixed batch at lr 1e-3: {before:.5f} -> {after:.5f} "
+          f"({[round(x, 4) for x in steps]})", flush=True)
+    if not after < before:
+        raise AssertionError(f"{label}: the loss did not fall: {before} -> {after}")
+    del fit
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt")
+        state = trainer.opt_state()
+        save_checkpoint(path, trainer.params, state)
+        params2, state2, _ = load_checkpoint(
+            path, raindrop_init(seed, cfg, device=device), state)
+    same = all(torch.equal(a.detach(), b) for (_, a), (_, b) in
+               zip(flatten_params(trainer.params), flatten_params(params2)))
+    same_opt = all(np.asarray(a).dtype == np.asarray(b).dtype
+                   and np.asarray(a).tobytes() == np.asarray(b).tobytes()
+                   for (_, a), (_, b) in zip(flatten_params(state), flatten_params(state2)))
+    if not same or not same_opt:
+        raise AssertionError(f"{label}: the checkpoint did not read back bit-equal "
+                             f"(params {same}, optimizer {same_opt})")
+    server = InferenceServer(cfg, params2, device=device)
+    P, times, static = make_requests(cfg, 32, seed + 1)
+    probs = server.predict(P, times, static)
+    server.close()
+    _probs_ok(f"{label} served", probs, 1e-2)
+    print(f"[bf16] {label}: checkpoint bit-equal (params and Adam state), "
+          f"served 32 rows", flush=True)
+    return dict(train_launches=tf, train_bwd_launches=tb,
+                losses=[float(x) for x in losses], fixed_batch=(before, after),
+                fixed_batch_losses=steps, checkpoint_bit_equal=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2721,6 +3182,11 @@ def main(argv=None) -> int:
     check_tc("P12 serving and training", p12_launches, p12_tf, p12_tb)
     check_fused_tc("PAM serving and training", pam_launches, pam_tf, pam_tb)
     torch.cuda.empty_cache()
+    with phase(phase_s, "mixed precision PAM, P12"):
+        mixed = {"PAM": mixed_phase("PAM", [fused_encoder_layer], wrappers,
+                                    check_fused_tc),
+                 "P12": mixed_phase("P12", [flash_mha_packed], wrappers, check_tc)}
+    torch.cuda.empty_cache()
 
     # sensor_wise_mask on every preset: P19 stays on the dense rung (T=60),
     # P12 and eICU take flash_mha_packed (tensor cores on two warpgroups at
@@ -2777,6 +3243,20 @@ def main(argv=None) -> int:
 
     # long sequences: the split-head flash_mha at the one-program regime's
     # shape (T=600) and the streaming regime's (T=2048), then the paths
+    with phase(phase_s, "use_beta P12"):
+        beta_launches, beta_serve = serve_phase(
+            "P12", [flash_mha_packed], wrappers, cfg_overrides=BETA,
+            plain_overrides=PLAIN_ALL)
+        beta_tf, beta_tb, beta_train = train_phase(
+            "P12", [flash_mha_packed], wrappers, cfg_overrides=BETA,
+            plain_overrides=PLAIN_ALL)
+        beta_graph = beta_graph_phase(wrappers)
+    check_tc("P12 use_beta serving and training", beta_launches, beta_tf, beta_tb)
+    check_no_graph_kernel("P12 use_beta serving and training", beta_launches,
+                          beta_tf, beta_tb)
+    with phase(phase_s, "bf16 storage P12"):
+        storage = bf16_storage_phase(wrappers)
+    torch.cuda.empty_cache()
     with phase(phase_s, "flash_mha kernels"):
         mha_runs = [flash_mha_phase(label, 128, 2, T, 42, dt, rate)
                     for label, T in (("PAM-600", 600), ("PAM-2048", 2048))
@@ -2789,6 +3269,9 @@ def main(argv=None) -> int:
                                                 cfg_overrides=LONG)
     check_two_a_forward("PAM-2048", long_launches, long_serve)
     check_split_route("PAM-2048 serving", "tc", long_launches)
+    torch.cuda.empty_cache()
+    with phase(phase_s, "serve PAM-2048 bf16"):
+        long_mixed = mixed_long_phase(wrappers, long_serve)
     torch.cuda.empty_cache()
     with phase(phase_s, "protocol PAM-2048"):
         # two epochs, the second resumed (three before PAM-sw-2048's run
@@ -3011,6 +3494,12 @@ def main(argv=None) -> int:
                         "P12_pallas": {"launches": g12_tf, "bwd_launches": g12_tb,
                                        **g12_train}},
               "global_adj": adj,
+              "mixed_precision": {**mixed, "PAM-2048": long_mixed},
+              "use_beta": {"serve": {"launches": beta_launches, **beta_serve},
+                           "train": {"launches": beta_tf, "bwd_launches": beta_tb,
+                                     **beta_train},
+                           "graph": beta_graph},
+              "bf16_storage": storage,
               "selfattention": {"launches": sd_f, "bwd_launches": sd_b,
                                 "checks": selfatt},
               "flash_mha_fwd": mha_fwd, "flash_mha_bwd": mha_bwd,

@@ -13,6 +13,27 @@ import json
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
+
+# the storage and compute dtypes the port runs (models/raindrop.torch_dtype)
+FLOAT_DTYPES = ("float32", "bfloat16", "float16")
+
+
+def check_dtype(field: str, name) -> None:
+    """Refuse a dtype name the port does not run, with the error the JAX
+    package gives for it where it has one: an unknown name is numpy's
+    TypeError, a dtype that is not floating point is `jax.random.uniform`'s
+    ValueError at init. float64 (which the JAX package, without x64, stores
+    as float32) is refused here too."""
+    if name in FLOAT_DTYPES:
+        return
+    kind = np.dtype(name).kind          # TypeError: data type not understood
+    if kind != "f":
+        raise ValueError(f"dtype argument to `uniform` must be a float dtype, "
+                         f"got {name} ({field})")
+    raise ValueError(f"{field}={name!r}: the port stores and computes in "
+                     f"{', '.join(FLOAT_DTYPES)}")
+
 
 @dataclass(frozen=True)
 class RaindropConfig:
@@ -40,7 +61,10 @@ class RaindropConfig:
     prop_dropout: float = 0.0    # attention dropout inside graph propagation
     init_range: float = 1e-10    # encoder/emb tiny-uniform init range
     dtype: str = "float32"       # param storage dtype
-    # mixed-precision forward; the port refuses it until a later slice
+    # mixed precision: the forward runs in this dtype (the live parameters
+    # cast to it), logits and distance return in `dtype`; master
+    # parameters and optimizer state stay in `dtype`. None computes in
+    # `dtype`
     compute_dtype: Optional[str] = None
     # 'auto' | 'dense' | 'flash' | 'fused_layer' (nn/transformer.py)
     attention_backend: str = "auto"
@@ -53,6 +77,11 @@ class RaindropConfig:
     # hand-written CUDA SpMM + segment-softmax kernel of ops/sparse.py (the
     # value keeps the JAX package's name so configs carry over)
     prop_backend: str = "auto"
+
+    def __post_init__(self):
+        check_dtype("dtype", self.dtype)
+        if self.compute_dtype is not None:
+            check_dtype("compute_dtype", self.compute_dtype)
 
     @property
     def d_model(self) -> int:

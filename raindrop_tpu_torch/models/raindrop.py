@@ -8,14 +8,26 @@ tensors with the JAX package's tree and layouts (nn/*, bridge.py).
 Graph propagation runs on the complete sensor graph with per-edge weights
 `global_adj` [F, F] (default all ones; a zero is a logit of 0, not a
 missing edge), by one of three branches (`prop_branch`):
-  * 'dense'  (prop_backend 'auto', no global_adj): with all-ones weights
-    the layer reduces to relu(lin_value(x));
-  * 'pallas' (prop_backend 'pallas'): the sparse-graph kernels of
-    ops/sparse.py, on the card the hand-written CUDA SpMM + segment
-    softmax; softmax-weight dropout in training is not in the kernel, so
-    such a step falls through to 'dense' (no global_adj) or 'coo';
+  * 'dense'  (no global_adj, prop_backend other than 'coo'): with all-ones
+    weights the layer reduces to relu(lin_value(x)); with use_beta the
+    whole two-layer block of graph/propagate.raindrop_propagate_beta_dense
+    (time-conditioned edge attention, top-50% pruning);
+  * 'pallas' (prop_backend 'pallas', no use_beta): the sparse-graph
+    kernels of ops/sparse.py, on the card the hand-written CUDA SpMM +
+    segment softmax, in f32 whatever the compute dtype; softmax-weight
+    dropout in training is not in the kernel, so such a step falls through
+    to 'dense' (no global_adj) or 'coo'; use_beta's per-sample pruned
+    edges do not fit the kernel's shared topology and take the same way;
   * 'coo'    (prop_backend 'coo', or a global_adj without 'pallas'): the
-    segment ops of ops/segment.py over the edge list.
+    segment ops of ops/segment.py over the edge list (use_beta: each
+    sample's kept edges).
+
+Precision: parameters are stored in `cfg.dtype`; with `compute_dtype` the
+forward casts the live leaves to it (`compute_params`: the gradient of the
+cast casts back, so master parameters and gradients stay in `cfg.dtype`)
+and returns logits and distance in `cfg.dtype`. A product of two dtypes
+runs in the promoted one, as in JAX: after the flash kernels' f32 output
+an unfused encoder layer continues in f32.
 
 With `sensor_wise_mask` the time PE joins each sensor's embedding (the
 encoder runs at d_inp * (d_ob + d_pe)) and the pooling is per sensor,
@@ -33,7 +45,7 @@ the counter-hash masks of utils/dropout.py. The function records a graph
 for autograd; callers that only infer run it under torch.no_grad().
 
 What the port does not run yet raises NotImplementedError naming the
-slice that brings it: use_beta, compute_dtype and the scale-out routes.
+slice that brings it: the scale-out routes.
 """
 
 from __future__ import annotations
@@ -46,7 +58,7 @@ import torch
 from raindrop_tpu_torch.config import RaindropConfig
 from raindrop_tpu_torch.graph.propagate import (
     alpha_pairwise_distance, ob_propagate_coo, ob_propagate_dense_complete,
-    ob_propagation_init)
+    ob_propagation_init, raindrop_propagate_beta_dense)
 from raindrop_tpu_torch.graph.structure import complete_graph_edges
 from raindrop_tpu_torch.nn.aggregate import (
     masked_mean_pool, padding_mask, sensor_wise_pool)
@@ -59,12 +71,18 @@ from raindrop_tpu_torch.ops.sparse import spmm_segment_softmax, topology
 from raindrop_tpu_torch.utils.dropout import DropoutSeeds, dropout
 
 
-def _dtype(cfg: RaindropConfig) -> torch.dtype:
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"param dtype {cfg.dtype!r}: the port serves float32 params; "
-            f"other storage dtypes come with the mixed-precision slice")
-    return torch.float32
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name (config.FLOAT_DTYPES)."""
+    return _TORCH_DTYPES[name]
+
+
+def compute_dtype(cfg: RaindropConfig) -> torch.dtype:
+    """The dtype the forward runs in: compute_dtype, else the storage dtype."""
+    return torch_dtype(cfg.compute_dtype or cfg.dtype)
 
 
 def raindrop_init(generator: Union[torch.Generator, int, None],
@@ -79,7 +97,7 @@ def raindrop_init(generator: Union[torch.Generator, int, None],
         gen = torch.Generator(device=device).manual_seed(generator)
     else:
         gen = generator
-    dtype = _dtype(cfg)
+    dtype = torch_dtype(cfg.dtype)
     d_model = cfg.d_model
     in_ch = cfg.max_len * cfg.d_ob
     params = {
@@ -125,20 +143,23 @@ def _from_node_features(x: torch.Tensor, T: int, d_ob: int) -> torch.Tensor:
 def raindrop_param_mask(cfg: RaindropConfig):
     """True for every parameter the forward uses (the tree of
     raindrop_init). The dead ones (the unused `encoder`, and all of a
-    propagation layer but lin_value when use_beta is off) get no gradient,
-    so the optimizer must never touch them. Built from the config alone: no
-    tensor is made (a tree of shapes on the meta device would be the first
-    meta arithmetic of a process, which on some torch builds keeps the
-    frames then on the stack, and so the first Trainer, alive)."""
+    propagation layer but lin_value, and with use_beta the first layer's
+    increase_dim and map_weights too: the second layer runs without beta,
+    as in the reference) get no gradient, so the optimizer must never
+    touch them. The JAX package's mask marks the second layer's beta
+    weights live; their gradient is zero there, so Adam leaves them as they
+    are and the two trainers agree. Built from the config alone: no tensor
+    is made (a tree of shapes on the meta device would be the first meta
+    arithmetic of a process, which on some torch builds keeps the frames
+    then on the stack, and so the first Trainer, alive)."""
     def linear(value):
         return {"w": value, "b": value}
 
-    def prop_mask():
-        beta = linear(cfg.use_beta)
+    def prop_mask(beta):
         return {"lin_key": linear(False), "lin_query": linear(False),
                 "lin_value": linear(True), "lin_skip": linear(False),
                 "weight": False, "bias": False, "nodewise_weights": False,
-                "increase_dim": beta, "map_weights": cfg.use_beta}
+                "increase_dim": linear(beta), "map_weights": beta}
 
     def layer_mask():   # nn/transformer._layer_init's tree
         return {"in_proj_w": True, "in_proj_b": True, "out_proj": linear(True),
@@ -149,14 +170,33 @@ def raindrop_param_mask(cfg: RaindropConfig):
     mask = {
         "R_u": True,
         "encoder": linear(False),
-        "ob_propagation": prop_mask(),
-        "ob_propagation_layer2": prop_mask(),
+        "ob_propagation": prop_mask(cfg.use_beta),
+        "ob_propagation_layer2": prop_mask(False),
         "transformer_encoder": {f"layer{i}": layer_mask() for i in range(cfg.nlayers)},
         "mlp_static": {f"lin{i}": linear(True) for i in range(2)},
     }
     if cfg.static:
         mask["emb"] = linear(True)
     return mask
+
+
+def compute_params(params, cfg: RaindropConfig):
+    """The tree the forward reads: the live leaves (`raindrop_param_mask`)
+    cast to the compute dtype, the dead ones as they are. The JAX forward
+    casts the whole tree and its compiler drops the dead casts; eager
+    PyTorch would read and copy them (most of the tree at a 2048-step
+    window). A leaf already in the compute dtype is itself, so a tree cast
+    once (as `InferenceServer` keeps it) passes through unchanged."""
+    dt = compute_dtype(cfg)
+    if dt == torch_dtype(cfg.dtype):
+        return params
+
+    def walk(tree, mask):
+        if isinstance(tree, dict):
+            return {k: walk(v, mask[k]) for k, v in tree.items()}
+        return tree.to(dt) if mask and tree.is_floating_point() else tree
+
+    return walk(params, raindrop_param_mask(cfg))
 
 
 def _complete_edges(F_: int, device):
@@ -189,11 +229,13 @@ def _edge_list(F_: int, global_adj, dtype, device):
 
 
 def prop_branch(cfg: RaindropConfig, train: bool, has_global_adj: bool) -> str:
-    """Which propagation branch a forward takes: 'pallas', 'dense' or 'coo'."""
+    """Which propagation branch a forward takes: 'pallas', 'dense' or 'coo'
+    (with use_beta, 'dense' is the dense beta block)."""
     if cfg.prop_backend not in ("auto", "coo", "pallas"):
         raise ValueError(f"prop_backend must be 'auto', 'coo' or 'pallas', "
                          f"got {cfg.prop_backend!r}")
-    if cfg.prop_backend == "pallas" and not (train and cfg.prop_dropout > 0.0):
+    if (cfg.prop_backend == "pallas" and not cfg.use_beta
+            and not (train and cfg.prop_dropout > 0.0)):
         return "pallas"
     if not has_global_adj and cfg.prop_backend != "coo":
         return "dense"
@@ -209,18 +251,11 @@ def warm_propagation(cfg: RaindropConfig, device) -> None:
         topology(*_complete_edges(cfg.d_inp, device), cfg.d_inp)
 
 
-def _refuse(cfg: RaindropConfig, scale_out: bool):
+def _refuse(scale_out: bool):
     if scale_out:
         raise NotImplementedError(
             "context_parallel, pipeline_parallel and edge_partition come "
             "with the scale-out slice")
-    if cfg.use_beta:
-        raise NotImplementedError(
-            "use_beta (time-conditioned edge attention and pruning) comes "
-            "with a later capability slice")
-    if cfg.compute_dtype is not None and cfg.compute_dtype != cfg.dtype:
-        raise NotImplementedError(
-            "compute_dtype comes with the mixed-precision slice")
 
 
 def raindrop_apply(
@@ -241,14 +276,15 @@ def raindrop_apply(
     """Forward pass. Returns (logits [B, n_classes], distance scalar).
     train=True needs `seeds` when the config has any dropout; `global_adj`
     [F, F] is a tensor on the parameters' device."""
-    _refuse(cfg, context_parallel != "none" or bool(pipeline_parallel) or edge_partition)
+    _refuse(context_parallel != "none" or bool(pipeline_parallel) or edge_partition)
     if train and seeds is None and (cfg.dropout > 0.0 or cfg.prop_dropout > 0.0):
         raise ValueError("train=True with dropout needs seeds=DropoutSeeds "
                          "(DropoutSeeds.draw(generator, cfg.nlayers))")
     if not train:
         seeds = None
     F_, d_ob, T = cfg.d_inp, cfg.d_ob, cfg.max_len
-    dtype = _dtype(cfg)
+    params = compute_params(params, cfg)
+    dtype = compute_dtype(cfg)
     values = src[:, :, :F_].to(dtype)                     # [T, B, F]
     observed = src[:, :, F_:2 * F_].to(dtype)             # [T, B, F]
     B = values.shape[1]
@@ -268,16 +304,34 @@ def raindrop_apply(
     p1, p2 = params["ob_propagation"], params["ob_propagation_layer2"]
     if branch == "pallas":
         # each layer is the use_beta=False step on the kernel: messages
-        # gather the TARGET's features, the softmax groups by target
+        # gather the TARGET's features, the softmax groups by target; the
+        # kernel runs in f32, cast around it as the JAX model does
+        f32 = torch.float32
         e_src, e_dst, edge_weights = _edge_list(F_, global_adj, dtype, src.device)
-        gamma = edge_weights[None].expand(B, -1)            # read in place
-        v1 = torch.relu(linear_apply(p1["lin_value"], x_nodes))
+        gamma = edge_weights[None].expand(B, -1).to(f32)    # read in place
+        v1 = torch.relu(linear_apply(p1["lin_value"], x_nodes)).to(f32)
         out1, _ = spmm_segment_softmax(v1, gamma, e_src, e_dst, n_nodes=F_,
                                        gather_target=True)
-        v2 = torch.relu(linear_apply(p2["lin_value"], out1))
+        v2 = torch.relu(linear_apply(p2["lin_value"], out1.to(dtype))).to(f32)
         out2, _ = spmm_segment_softmax(v2, gamma, e_src, e_dst, n_nodes=F_,
                                        gather_target=True)
-        alpha_all = gamma                                   # pre-softmax alpha
+        out2 = out2.to(dtype)
+        alpha_all = gamma.to(dtype)                         # pre-softmax alpha
+    elif branch == "dense" and cfg.use_beta:
+        # the whole beta block at once, its softmax factored on the
+        # all-ones graph (the [B, s, t, D] grid only under prop dropout)
+        beta_seeds = None
+        if seeds is not None and cfg.prop_dropout > 0.0:
+            if len(seeds.beta) != 2:
+                raise ValueError(
+                    "the dense use_beta block drops softmax weights with two "
+                    "seeds: DropoutSeeds.draw(generator, nlayers, beta=True)")
+            beta_seeds = seeds.beta
+        adj = torch.ones((F_, F_), dtype=dtype, device=src.device)
+        out2, alpha_all = raindrop_propagate_beta_dense(
+            p1, p2, x_nodes, pe_b, adj, ob_dim=d_ob,
+            dropout_rate=cfg.prop_dropout, seeds=beta_seeds, train=train,
+            uniform_adj=True)
     elif branch == "dense":
         adj = torch.ones((F_, F_), dtype=dtype, device=src.device)
         prop = dict(dropout_rate=cfg.prop_dropout, train=train, uniform=True)
@@ -298,11 +352,15 @@ def raindrop_apply(
         prop = dict(ob_dim=d_ob, n_nodes=F_, dropout_rate=cfg.prop_dropout,
                     train=train)
         edge_index = torch.stack([e_src, e_dst])
-        out1, (_, a1) = ob_propagate_coo(p1, x_nodes, None, edge_index,
-                                         edge_weights, seed=rows1, **prop)
-        out2, (_, a2) = ob_propagate_coo(p2, out1, None, edge_index,
-                                         a1[..., 0], seed=rows2, **prop)
-        alpha_all = a2[..., 0]                              # [B, F*F]
+        # with use_beta, layer 1 prunes each sample to its own E//2 edges
+        # and hands layer 2 their edge lists and mean gamma [B, E//2]
+        out1, (ei2, a1) = ob_propagate_coo(p1, x_nodes, pe_b, edge_index,
+                                           edge_weights, use_beta=cfg.use_beta,
+                                           seed=rows1, **prop)
+        out2, (_, a2) = ob_propagate_coo(p2, out1, pe_b, ei2,
+                                         a1 if cfg.use_beta else a1[..., 0],
+                                         seed=rows2, **prop)
+        alpha_all = a2[..., 0]                              # [B, E or E//2]
     distance = alpha_pairwise_distance(alpha_all)
     output = _from_node_features(out2, T, d_ob)            # [B, T, F*d_ob]
     if cfg.sensor_wise_mask:
@@ -328,5 +386,11 @@ def raindrop_apply(
         pooled = masked_mean_pool(r_out, lengths)
     if cfg.static and static is not None:
         emb = linear_apply(params["emb"], static.to(dtype))
-        pooled = torch.cat([pooled, emb], dim=1)
-    return mlp_apply(params["mlp_static"], pooled), distance
+        dt = torch.promote_types(pooled.dtype, emb.dtype)  # as jnp.concatenate
+        pooled = torch.cat([pooled.to(dt), emb.to(dt)], dim=1)
+    logits = mlp_apply(params["mlp_static"], pooled)
+    if cfg.compute_dtype is not None:
+        # loss and metrics in the storage dtype whatever the compute dtype
+        out_dtype = torch_dtype(cfg.dtype)
+        logits, distance = logits.to(out_dtype), distance.to(out_dtype)
+    return logits, distance

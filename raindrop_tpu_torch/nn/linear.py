@@ -7,9 +7,20 @@ import torch
 from raindrop_tpu_torch.nn.init import torch_linear_params
 
 
+def promoted(x: torch.Tensor, w: torch.Tensor):
+    """x and w in their promoted dtype: a product of f32 and bf16 runs in
+    f32, as `jnp.matmul` promotes (torch's refuses mixed dtypes)."""
+    if x.dtype == w.dtype:
+        return x, w
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
+
+
 def linear_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ w.T + b with w in torch layout [out, in]."""
-    y = x @ params["w"].T
+    """y = x @ w.T + b with w in torch layout [out, in], in the promoted
+    dtype of x and w."""
+    x, w = promoted(x, params["w"])
+    y = x @ w.T
     if "b" in params:
         y = y + params["b"]
     return y

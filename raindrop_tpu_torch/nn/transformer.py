@@ -30,7 +30,7 @@ from typing import Optional, Sequence
 import torch
 
 from raindrop_tpu_torch.nn.init import torch_linear_params, xavier_uniform
-from raindrop_tpu_torch.nn.linear import linear_apply
+from raindrop_tpu_torch.nn.linear import linear_apply, promoted
 from raindrop_tpu_torch.ops.flash_attention import (
     MAX_FUSED_T, flash_mha, flash_mha_packed)
 from raindrop_tpu_torch.ops.fused_encoder import fused_encoder_layer
@@ -134,7 +134,8 @@ def multihead_self_attention(
     hd = d // nhead
     rung = _attention_rung(backend, T, x.is_cuda)
     rate = dropout_rate if (train and seeds is not None) else 0.0
-    qkv = x @ p["in_proj_w"].T + p["in_proj_b"]           # [B, T, 3d]
+    xw, w_in = promoted(x, p["in_proj_w"])
+    qkv = xw @ w_in.T + p["in_proj_b"]                      # [B, T, 3d]
     q, k, v = qkv.split(d, dim=-1)
 
     def heads(t):  # [B, T, d] -> [B, nhead, T, hd], a view

@@ -70,3 +70,44 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
     denom = segment_sum(ex, ids, num_segments)
     denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
     return ex / denom[ids]
+
+
+def _flat_ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """[B, E] per-sample ids -> [B*E] ids into B*num_segments segments."""
+    B = segment_ids.shape[0]
+    offsets = num_segments * torch.arange(B, device=segment_ids.device)[:, None]
+    return (_ids(segment_ids) + offsets).reshape(-1)
+
+
+def segment_sum_rows(data: torch.Tensor, segment_ids: torch.Tensor,
+                     num_segments: int) -> torch.Tensor:
+    """`segment_sum` of each sample over its own edge list: data [B, E, ...],
+    segment_ids [B, E] -> [B, num_segments, ...]. On the card a batched
+    product with each sample's one-hot matrix [N, E] (fixed order, and B
+    times smaller than the one-hot of the flattened batch)."""
+    B, E = segment_ids.shape
+    rest = tuple(data.shape[2:])
+    if data.is_cuda:
+        onehot = torch.zeros((B, num_segments, E), dtype=data.dtype,
+                             device=data.device)
+        onehot.scatter_(1, _ids(segment_ids)[:, None, :], 1.0)
+        return (onehot @ data.reshape(B, E, -1)).reshape((B, num_segments) + rest)
+    out = segment_sum(data.reshape((B * E,) + rest),
+                      _flat_ids(segment_ids, num_segments), B * num_segments)
+    return out.reshape((B, num_segments) + rest)
+
+
+def segment_softmax_rows(logits: torch.Tensor, segment_ids: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """`segment_softmax` of each sample over its own edge list: logits
+    [B, E, ...], segment_ids [B, E] -> [B, E, ...]."""
+    B, E = segment_ids.shape
+    rest = tuple(logits.shape[2:])
+    flat = _flat_ids(segment_ids, num_segments)
+    maxes = segment_max(logits.detach().reshape((B * E,) + rest), flat,
+                        B * num_segments)
+    maxes = torch.where(torch.isfinite(maxes), maxes, torch.zeros_like(maxes))
+    ex = torch.exp(logits - maxes[flat].reshape(logits.shape))
+    denom = segment_sum_rows(ex, segment_ids, num_segments)
+    denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    return ex / denom.reshape((B * num_segments,) + rest)[flat].reshape(logits.shape)

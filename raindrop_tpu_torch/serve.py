@@ -13,8 +13,12 @@ Same surface and semantics as the JAX server:
   * **Pipelined streaming** (`predict_stream`): up to `depth` launches in
     flight, fetched on a thread pool, results in order.
   * **bfloat16 wire format** (`transfer_dtype`): request tensors are cast
-    on the host before the host-to-device copy, then back to the model's
-    dtype on the card.
+    on the host before the host-to-device copy, then to the model's
+    storage dtype (`cfg.dtype`) on the card, the times the lengths are
+    counted from included; probabilities come back as float32 numpy.
+  * **Mixed precision**: under `compute_dtype` the server casts its live
+    parameters to it once (`models/raindrop.compute_params`); the forward
+    then finds them cast, with the bits a per-call cast gives.
 
 `python -m raindrop_tpu_torch.serve --dataset PAM --port 8000` serves a
 stdlib-HTTP JSON endpoint (POST /predict, GET /healthz) on the card;
@@ -34,7 +38,7 @@ import torch
 
 from raindrop_tpu_torch.config import RaindropConfig, dataset_config
 from raindrop_tpu_torch.models.raindrop import (
-    raindrop_apply, raindrop_init, warm_propagation)
+    compute_params, raindrop_apply, raindrop_init, torch_dtype, warm_propagation)
 
 _WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -109,6 +113,13 @@ class InferenceServer:
         warm_propagation(cfg, self.device)
         self.buckets = sorted(buckets)
         self.transfer_dtype = _WIRE[transfer_dtype]
+        self._dtype = torch_dtype(cfg.dtype)
+        # the tree the forward reads: its live leaves in the compute dtype,
+        # cast once (the parameters never change); self.params stays as given
+        self._params = self.params
+        if apply_fn is None:
+            with torch.no_grad():
+                self._params = compute_params(self.params, cfg)
         self._apply = apply_fn or (
             lambda p, src, static, times, lengths:
             raindrop_apply(p, cfg, src, static, times, lengths)[0])
@@ -134,16 +145,17 @@ class InferenceServer:
     @torch.no_grad()
     def _forward(self, P: torch.Tensor, times: torch.Tensor,
                  static: Optional[torch.Tensor]) -> torch.Tensor:
-        """Wire-dtype batch-major tensors on the device -> probabilities."""
-        dt = torch.float32
+        """Wire-dtype batch-major tensors on the device -> float32
+        probabilities (the softmax in the logits' dtype, as in JAX)."""
+        dt = self._dtype
         P = P.to(dt)
         times = times.to(dt)
         static = None if static is None else static.to(dt)
         src = P.transpose(0, 1)
         tm = times.transpose(0, 1)
         lengths = (tm > 0).sum(dim=0)
-        logits = self._apply(self.params, src, static, tm, lengths)
-        return torch.softmax(logits, dim=-1)
+        logits = self._apply(self._params, src, static, tm, lengths)
+        return torch.softmax(logits, dim=-1).to(torch.float32)
 
     # -- inference -----------------------------------------------------------
     def predict(self, P: np.ndarray, times: np.ndarray,

@@ -19,6 +19,11 @@ history and, in place of the JAX trainer's `jax_key`, the state of the
 trainer's dropout-seed generator (`seed_generator_state`, the bytes of a
 torch.Generator state as a list).
 
+A bfloat16 leaf is stored as the JAX package's `np.savez` stores one: a
+raw 2-byte `|V2` array of its bits (`bridge.tensor_to_array`), and a
+`|V2` array reads back as bfloat16 by its bits, so a bf16 checkpoint of
+either package loads bit-equal in the port without `ml_dtypes`.
+
 The JAX package's orbax functions (sharded checkpoints) come with the
 scale-out slice.
 """
@@ -31,6 +36,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from raindrop_tpu_torch.bridge import array_to_tensor, is_bf16_array, tensor_to_array
 
 
 def flatten_params(tree, prefix="") -> List[Tuple[str, Any]]:
@@ -48,7 +55,7 @@ def flatten_params(tree, prefix="") -> List[Tuple[str, Any]]:
 
 
 def _arrays(tree, prefix: str) -> Dict[str, np.ndarray]:
-    return {path: (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+    return {path: (tensor_to_array(leaf) if isinstance(leaf, torch.Tensor)
                    else np.asarray(leaf))
             for path, leaf in flatten_params(tree, prefix)}
 
@@ -92,9 +99,14 @@ def load_checkpoint(path: str, params_template, opt_state_template=None
         if a.size != int(np.prod(shape, dtype=np.int64)):
             raise ValueError(f"{prefix}: {a.shape} does not fit {shape}")
         if isinstance(tree, torch.Tensor):
-            return torch.from_numpy(a.reshape(shape).copy()).to(
+            return array_to_tensor(a.reshape(shape)).to(
                 device=tree.device, dtype=tree.dtype)
-        return np.array(a, dtype=np.asarray(tree).dtype).reshape(shape)
+        want = np.asarray(tree).dtype
+        if is_bf16_array(a) or is_bf16_array(np.zeros(0, want)):
+            # numpy cannot cast to or from raw bf16 bits: through torch
+            dt = array_to_tensor(np.zeros(0, want)).dtype
+            return tensor_to_array(array_to_tensor(a).to(dt)).reshape(shape)
+        return np.array(a, dtype=want).reshape(shape)
 
     params = restore(params_template, "params")
     opt_state = (restore(opt_state_template, "opt")

@@ -3,6 +3,10 @@ step, the epoch over a device-resident split, padded evaluation and the
 reference's experiment protocol (`train_split`, `run_splits`).
 
 Adam + mean cross-entropy on integer labels, as the reference protocol.
+Parameters and Adam's moments live in the config's storage dtype (with
+dtype="bfloat16" both are bf16, as optax keeps its state in the
+parameter's dtype); under compute_dtype the forward casts the live leaves
+and their gradients arrive in the storage dtype.
 The optimizer is `torch.optim.Adam` (betas 0.9/0.999, eps 1e-8, no weight
 decay: optax.adam's update rule) over ONLY the live parameters of
 `raindrop_param_mask`. A dead parameter (one the forward never reads)
@@ -135,7 +139,8 @@ class Trainer:
         """The optimizer's state as a tree of numpy arrays, the form
         `save_checkpoint` writes: the step count, the learning rate, and
         Adam's moments `mu`, `nu` for the live parameters (zeros before
-        the first step)."""
+        the first step), each in its parameter's dtype (bf16 as `|V2`
+        bits, bridge.tensor_to_array)."""
         mu, nu, count = bridge.adam_state_to_numpy(self)
         for path, p in self.live:
             *parents, leaf = path.split("/")
@@ -143,7 +148,7 @@ class Trainer:
                 for k in parents:
                     tree = tree.setdefault(k, {})
                 if leaf not in tree:
-                    tree[leaf] = np.zeros(tuple(p.shape), np.float32)
+                    tree[leaf] = bridge.zeros_array(p.shape, p.dtype)
         return {"count": np.asarray(count, np.int32),
                 "learning_rate": np.asarray(self.learning_rate, np.float64),
                 "mu": mu, "nu": nu}
@@ -174,12 +179,15 @@ class Trainer:
     def draw_seeds(self, rows: int = 0) -> Seeds:
         """The seeds one train_step on a batch of `rows` samples consumes,
         from the trainer's stream. Only the COO propagation branch with
-        prop_dropout reads per-sample seeds, so only then are they drawn."""
+        prop_dropout reads per-sample seeds, and only the dense use_beta
+        block the two of its own, so only then are they drawn."""
         n = self.tcfg.grad_microbatches
-        per_sample = (self.cfg.prop_dropout > 0.0
-                      and prop_branch(self.cfg, True, False) == "coo")
+        branch = prop_branch(self.cfg, True, False)
+        drops = self.cfg.prop_dropout > 0.0
+        per_sample = drops and branch == "coo"
+        beta = drops and branch == "dense" and self.cfg.use_beta
         draws = [DropoutSeeds.draw(self._seed_gen, self.cfg.nlayers,
-                                   rows // n if per_sample else 0)
+                                   rows // n if per_sample else 0, beta)
                  for _ in range(n)]
         return draws[0] if n == 1 else draws
 
@@ -220,15 +228,25 @@ class Trainer:
             raise ValueError(f"grad_microbatches={n_micro} needs that many "
                              f"DropoutSeeds, one per chunk")
         per = rows // n_micro
+        # the chunks' gradients add up in f32 and their mean is taken back
+        # to each parameter's dtype, as the JAX trainer's accumulator does
+        # (a bf16 .grad would round every addition)
+        acc = [None] * len(self.live)
         losses, logits = [], []
         for i in range(n_micro):
             chunk = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
             loss, (lg, _) = self.loss_fn(chunk, seeds[i])
-            # the chunks' gradients add up in .grad; dividing each chunk's
-            # loss by n_micro makes the sum the mean of the chunk means
-            (loss / n_micro).backward()
+            loss.backward()
+            for j, (_, t) in enumerate(self.live):
+                if t.grad is not None:
+                    g = t.grad.to(torch.float32)
+                    acc[j] = g if acc[j] is None else acc[j] + g
+                    t.grad = None
             losses.append(loss.detach())
             logits.append(lg.detach())
+        for a, (_, t) in zip(acc, self.live):
+            if a is not None:
+                t.grad = (a / n_micro).to(t.dtype)
         return torch.stack(losses).mean(), torch.cat(logits)
 
     def train_step(self, batch: Batch, seeds: Seeds = None):
@@ -285,7 +303,7 @@ class Trainer:
                 params, self.cfg, dev(P[idxb]).transpose(0, 1),
                 None if static is None else dev(static[idxb]), times,
                 (times > 0).sum(dim=0), train=False)
-            out[start:end] = logits[:n].cpu().numpy()
+            out[start:end] = logits[:n].to("cpu", torch.float32).numpy()
         return out
 
     # ---- the per-split protocol ------------------------------------------
@@ -378,7 +396,7 @@ class Trainer:
             if verbose and epoch in (start_epoch, tcfg.num_epochs - 1):
                 print(confusion_matrix_np(
                     split.ytrain[idx[-1]],
-                    np.argmax(logits.cpu().numpy(), 1), labels=[0, 1]))
+                    np.argmax(logits.to("cpu", torch.float32).numpy(), 1), labels=[0, 1]))
 
             if snapshot is not None:
                 for name in frozen_param_report(

@@ -96,25 +96,34 @@ class DropoutSeeds:
     tree: the embedding dropout, the two propagation layers and, per
     encoder layer, a LayerSeeds. The COO propagation branch maps over the
     samples with one key each: `prop1_rows` and `prop2_rows` hold those
-    per-sample seeds (empty unless asked for)."""
+    per-sample seeds (empty unless asked for). `beta` holds the two seeds
+    of the dense use_beta block (its layer-1 and layer-2 softmax weights,
+    which the JAX package draws from a key split off the first propagation
+    layer's), empty unless asked for."""
     embed: int
     prop1: int
     prop2: int
     layers: Tuple[LayerSeeds, ...]
     prop1_rows: Tuple[int, ...] = ()
     prop2_rows: Tuple[int, ...] = ()
+    beta: Tuple[int, ...] = ()
 
     @staticmethod
     def draw(generator: torch.Generator, nlayers: int,
-             rows: int = 0) -> "DropoutSeeds":
+             rows: int = 0, beta: bool = False) -> "DropoutSeeds":
         """Fill every field from `generator` (a CPU generator draws
         without touching the card); `rows` > 0 also draws that many
-        per-sample seeds for each propagation layer."""
+        per-sample seeds for each propagation layer, `beta` the two seeds
+        of the dense use_beta block (drawn after the others)."""
         n = 3 + 5 * nlayers
         raw = torch.randint(0, 2 ** 32, (n + 2 * rows,), generator=generator,
                             dtype=torch.int64, device=generator.device).tolist()
         layers = tuple(
             LayerSeeds(raw[3 + 5 * i] % (2 ** 31 - 1), *raw[4 + 5 * i: 8 + 5 * i])
             for i in range(nlayers))
+        pair = (tuple(torch.randint(0, 2 ** 32, (2,), generator=generator,
+                                    dtype=torch.int64,
+                                    device=generator.device).tolist())
+                if beta else ())
         return DropoutSeeds(raw[0], raw[1], raw[2], layers,
-                            tuple(raw[n: n + rows]), tuple(raw[n + rows:]))
+                            tuple(raw[n: n + rows]), tuple(raw[n + rows:]), pair)

@@ -915,3 +915,109 @@ def test_flash_mha_refuses_a_head_dim_past_the_kernels(gen):
     lse = torch.zeros((1, 1, 16), device="cuda")
     with pytest.raises(NotImplementedError, match="D=376; no preset"):
         fa._flash_bwd_cuda(q, q, q, lengths, 0, 0.0, torch.float32, o, lse, q)
+
+
+def _plain_rungs(monkeypatch):
+    """The encoder's kernel rungs on their wrappers' plain versions (the
+    operands rounded as the kernels round them), on the card."""
+    from raindrop_tpu_torch.nn import transformer as tr
+
+    monkeypatch.setattr(tr, "flash_mha_packed", lambda q, k, v, lengths, seed, rate, cd, nhead: (
+        fa._packed_fwd_plain(q, k, v, lengths, nhead, fa.operand_dtype(cd),
+                             fa._seed_int(seed), rate)[0]))
+    monkeypatch.setattr(tr, "fused_encoder_layer", lambda p, x, lengths, seed, rate, cd, nhead: (
+        fe._fused_fwd_plain(p, x, lengths, nhead, fa.operand_dtype(cd),
+                            fa._seed_int(seed), rate)[0]))
+
+
+def _model_step(cfg, params, batch, seeds):
+    """Loss, logits and the live leaves' gradients of one training forward."""
+    from raindrop_tpu_torch.models.raindrop import raindrop_apply, raindrop_param_mask
+    from raindrop_tpu_torch.train.checkpoint import flatten_params
+
+    mask = dict(flatten_params(raindrop_param_mask(cfg)))
+    leaves = {p: t.detach().clone().requires_grad_(mask[p])
+              for p, t in flatten_params(params)}
+    tree = {}
+    for p, t in leaves.items():
+        *parents, leaf = p.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    src, static, times, lengths, y = batch
+    logits, _ = raindrop_apply(tree, cfg, src, static, times, lengths, train=True,
+                               seeds=seeds)
+    loss = torch.nn.functional.cross_entropy(logits, y)
+    loss.backward()
+    return loss, logits, {p: t.grad for p, t in leaves.items() if mask[p]}
+
+
+@pytest.mark.parametrize("preset", ["PAM", "P12"])
+def test_bf16_compute_model_matches_the_plain_kernels(gen, preset, monkeypatch):
+    """compute_dtype='bfloat16' at a preset's full width (B=8, the shipped
+    dropout on the same seeds): every launch, forward and backward, on the
+    tensor cores; logits and gradients f32; loss, logits and each live
+    leaf's gradient within 2e-2 (relative to max(1, |plain|)) of the same
+    step on the kernels' plain versions."""
+    from raindrop_tpu_torch.config import dataset_config
+    from raindrop_tpu_torch.models.raindrop import raindrop_init
+    from raindrop_tpu_torch.utils.dropout import DropoutSeeds
+
+    cfg = dataset_config(preset, compute_dtype="bfloat16")
+    params = raindrop_init(1, cfg, device="cuda")
+    B, T, F = 8, cfg.max_len, cfg.d_inp
+    lengths = _lengths(gen, B, T)
+    live = torch.arange(T, device="cuda")[:, None] < lengths[None, :]
+    obs = (torch.rand((T, B, F), generator=gen, device="cuda") > 0.5) & live[..., None]
+    vals = torch.randn((T, B, F), generator=gen, device="cuda") * obs
+    src = torch.cat([vals, obs.float()], dim=-1)
+    times = torch.cumsum(torch.rand((T, B), generator=gen, device="cuda"), 0) * live
+    static = (torch.randn((B, cfg.d_static), generator=gen, device="cuda")
+              if cfg.static else None)
+    y = torch.arange(B, device="cuda") % cfg.n_classes
+    batch = (src, static, times, lengths, y)
+    seeds = DropoutSeeds.draw(torch.Generator().manual_seed(3), cfg.nlayers)
+    fn = fe.fused_encoder_layer if preset == "PAM" else fa.flash_mha_packed
+    before = (fn.tc_launches, fn.tc_bwd_launches)
+    loss, logits, grads = _model_step(cfg, params, batch, seeds)
+    assert (fn.tc_launches - before[0], fn.tc_bwd_launches - before[1]) == (
+        cfg.nlayers, cfg.nlayers)
+    assert logits.dtype == torch.float32
+    _plain_rungs(monkeypatch)
+    ploss, plogits, pgrads = _model_step(cfg, params, batch, seeds)
+    assert abs(loss.item() - ploss.item()) <= 2e-2 * abs(ploss.item())
+    assert _rel_err(logits, plogits) <= 2e-2
+    for path, g in grads.items():
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), path
+        assert _rel_err(g, pgrads[path]) <= 2e-2, path
+
+
+def test_dense_beta_block_matches_coo_on_the_card(gen):
+    """use_beta at P12's width (B=16): the dense block against two COO
+    layers on the complete graph, the same kept edges, out and alpha within
+    1e-5 relative to max(1, |COO|)."""
+    from raindrop_tpu_torch.config import dataset_config
+    from raindrop_tpu_torch.graph import propagate as prop
+    from raindrop_tpu_torch.models.raindrop import _complete_edges, raindrop_init
+
+    cfg = dataset_config("P12", use_beta=True)
+    params = raindrop_init(2, cfg, device="cuda")
+    B, F, T = 16, cfg.d_inp, cfg.max_len
+    x = torch.randn((B, F, T * cfg.d_ob), generator=gen, device="cuda")
+    pe = torch.randn((B, T, cfg.d_pe), generator=gen, device="cuda")
+    p1, p2 = params["ob_propagation"], params["ob_propagation_layer2"]
+    with torch.no_grad():
+        out_d, alpha_d, mask = prop.raindrop_propagate_beta_dense(
+            p1, p2, x, pe, torch.ones((F, F), device="cuda"), ob_dim=cfg.d_ob,
+            uniform_adj=True, return_mask=True)
+        kw = dict(ob_dim=cfg.d_ob, n_nodes=F)
+        o1, (e2, a1) = prop.ob_propagate_coo(p1, x, pe, torch.stack(_complete_edges(F, "cuda")),
+                                             torch.ones(F * F, device="cuda"),
+                                             use_beta=True, **kw)
+        out_c, (_, a2) = prop.ob_propagate_coo(p2, o1, pe, e2, a1, **kw)
+    kept = torch.zeros((B, F * F), dtype=torch.bool, device="cuda")
+    kept.scatter_(1, e2[:, 0] * F + e2[:, 1], True)
+    assert torch.equal(kept.reshape(B, F, F), mask)
+    assert _rel_err(out_d, out_c) <= 1e-5
+    assert _rel_err(alpha_d, a2[..., 0]) <= 1e-5

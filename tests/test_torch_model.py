@@ -78,11 +78,13 @@ def test_eval_forward_matches_jax(preset, backend):
 
 @pytest.mark.parametrize("change,kw", [
     ("train", {}),
-    ("cfg", {"use_beta": True}),
-    # sensor_wise_mask is served now (tests/test_torch_sensor_wise.py);
-    # with use_beta beside it the config is still refused
-    ("cfg", {"use_beta": True, "sensor_wise_mask": True}),
-    ("cfg", {"compute_dtype": "bfloat16"}),
+    # use_beta, use_beta with sensor_wise_mask and compute_dtype are served
+    # now (tests/test_torch_beta.py, tests/test_torch_mixed_precision.py);
+    # these cases hold what still raises: the other two scale-out routes,
+    # and a parameter dtype neither package runs
+    pytest.param("call", {"pipeline_parallel": 2}, id="cfg-kw1"),
+    pytest.param("call", {"edge_partition": True}, id="cfg-kw2"),
+    ("cfg", {"dtype": "int8"}),
     ("scale_out", {}),
 ])
 def test_refuses_what_this_slice_does_not_serve(change, kw):
@@ -91,7 +93,13 @@ def test_refuses_what_this_slice_does_not_serve(change, kw):
     src, static, times, lengths = (torch.from_numpy(a) for a in _batch(cfg))
     call = dict()
     if change == "cfg":
-        cfg = dataset_config("P19", max_len=8, **kw)
+        # the JAX package's own error: its init refuses a dtype that is
+        # not floating point
+        with pytest.raises(ValueError, match="float dtype"):
+            dataset_config("P19", max_len=8, **kw)
+        return
+    if change == "call":
+        call.update(kw)
     elif change == "train":
         call["train"] = True
     else:

@@ -93,7 +93,9 @@ def test_coo_batched_equals_the_jax_function_mapped_over_samples():
         torch.from_numpy(wb), seed=[seed32(k) for k in keys], **kw)
     assert alpha.shape == (B, ei.shape[1], 1)
     _close(out, jout, 1e-5)
-    with pytest.raises(NotImplementedError, match="capability slice"):
+    # use_beta is served now (tests/test_torch_beta.py): without a time
+    # encoding it has nothing to condition on
+    with pytest.raises(ValueError, match="p_t"):
         prop.ob_propagate_coo(params, torch.from_numpy(xb), None,
                               torch.from_numpy(ei), torch.from_numpy(wb),
                               use_beta=True)

@@ -363,13 +363,17 @@ def test_the_first_trainer_of_a_process_is_freed_without_the_cyclic_collector():
 def test_param_mask_has_the_init_tree_built_from_the_config_alone(preset, overrides):
     """raindrop_param_mask gives, from the config alone, a boolean for every
     leaf of raindrop_init's tree: the unused encoder and the propagation
-    layers' dead weights False, every other leaf True."""
+    layers' dead weights False (with use_beta the first layer's beta
+    weights are live, the second layer's, which runs without beta, dead),
+    every other leaf True."""
     from raindrop_tpu_torch.models.raindrop import raindrop_init, raindrop_param_mask
 
     cfg = dataclasses.replace(dataset_config(preset, max_len=8), **overrides)
     params = raindrop_init(0, cfg, device="cpu")
     mask = raindrop_param_mask(cfg)
-    live = {"lin_value"} | ({"increase_dim", "map_weights"} if cfg.use_beta else set())
+    beta = {"increase_dim", "map_weights"} if cfg.use_beta else set()
+    live = {"ob_propagation": {"lin_value"} | beta,
+            "ob_propagation_layer2": {"lin_value"}}
 
     def expect(tree, path=()):
         if isinstance(tree, dict):
@@ -377,7 +381,7 @@ def test_param_mask_has_the_init_tree_built_from_the_config_alone(preset, overri
         if path[0] == "encoder":
             return False
         if path[0].startswith("ob_propagation"):
-            return path[1] in live
+            return path[1] in live[path[0]]
         return True
 
     assert mask == expect(params)

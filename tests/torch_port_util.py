@@ -33,17 +33,19 @@ def seeds_from_jax_key(rng, nlayers: int, rows: int = 0) -> DropoutSeeds:
     """The seeds `raindrop_apply(train=True, rng=rng)` of the JAX package
     consumes, by the same splits. `rows` = the batch size also reads the
     per-sample seeds of the COO propagation branch (one key per sample,
-    split off each propagation layer's key)."""
+    split off each propagation layer's key); the dense use_beta block's
+    two seeds come from fold_in(r_prop1, 1) split in two."""
     r_drop, r_prop1, r_prop2, r_trans = jax.random.split(rng, 4)
     keys = jax.random.split(r_trans, 4 * nlayers)
 
     def per_sample(key):
         return tuple(seed32(k) for k in jax.random.split(key, rows)) if rows else ()
 
+    beta = tuple(seed32(k) for k in jax.random.split(jax.random.fold_in(r_prop1, 1)))
     return DropoutSeeds(
         seed32(r_drop), seed32(r_prop1), seed32(r_prop2),
         tuple(layer_seeds(keys[4 * i: 4 * i + 4]) for i in range(nlayers)),
-        per_sample(r_prop1), per_sample(r_prop2))
+        per_sample(r_prop1), per_sample(r_prop2), beta)
 
 
 def random_layer(seed: int, d: int, ffn: int):
