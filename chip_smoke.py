@@ -141,6 +141,28 @@ check does not hold:
      checkpoint of parameters and optimizer state read back bit-equal, a
      served request (f32 probabilities summing to 1 within the bf16
      softmax's 1e-2);
+ 14c. the experiment CLI, raindrop_tpu_torch.run.main, through dataset
+     files: a P12 root in the reference's schema (640 samples from --seed,
+     T=215, 36 sensors, 9 statics, a split file and a Setting-2 ranking,
+     write_p12_root), forward imputation, sensors removed at ratio 0.3 by
+     the ranking (--ig-scores), 2 epochs of one split with --measure-mfu:
+     rc 0, finite metrics, every flash_mha_packed launch (forward and
+     backward) on the tensor cores, every epoch record's MFU in (0, 1);
+ 14d. the CLI on synthetic PAM (640 samples) through the streaming input
+     pipeline with --measure-mfu: the fused layer's tensor-core launches
+     counted both ways, every epoch record's MFU in (0, 1); the summary and
+     the epoch records equal to those of the same command line with the
+     resident pipeline;
+ 14e. train_split at P12 (2560 samples, ~22 batches an epoch) and PAM (640,
+     30 batches), 3 epochs, resident and streaming, with measure_mfu off and
+     on, from the same parameters and seed: parameters, best parameters,
+     history and test metrics bit-equal (streaming_phase);
+ 14f. one training step's model FLOPs at P12, PAM and PAM-2048 (B=128),
+     counted with the kernels (FlopCounterMode plus the kernels' credit)
+     and with the plain versions (the dense rung) on the same rows (16 at
+     PAM-2048), held within MFU_TOL (2%); the step's time by CUDA events,
+     its MFU against the card's dense bf16 peak, and the epoch record's MFU
+     of a 1-epoch train_split (mfu_phase);
  15. ob_propagate_selfattention (N=36, D=860, 2 heads) on a kNN and on the
      complete graph, score_backend 'sddmm' against 'gather', value and
      gradient w.r.t. x; one sddmm launch a graph each way;
@@ -3059,12 +3081,319 @@ def bf16_storage_phase(wrappers, device="cuda", seed=0, batch=128):
                 fixed_batch_losses=steps, checkpoint_bit_equal=True)
 
 
+# ------------------------------------------------- the experiment CLI (PR 14)
+CLI_N = 640          # samples of the dataset files and the synthetic runs
+CLI_EPOCHS = 2
+MFU_TOL = 0.02       # step FLOPs with the kernels against the plain count
+
+
+def write_p12_root(root, seed, n=CLI_N):
+    """A P12 dataset root in the schema the reference reads (and the JAX
+    package's data/preprocess.py writes): processed_data/PTdict_list.npy
+    (per-sample dicts: 'arr' [215, 36] values with 0 for missing, 'time'
+    [215, 1] minutes, 'extended_static' [9]), processed_data/
+    arr_outcomes.npy ([n, 6]: length of stay in column 3, in-hospital death
+    last), splits/phy12_split1.npy (idx_train, idx_val, idx_test, 8:1:1) and
+    ig.npy, a Setting-2 ranking ([36, 2] rows of index and name). Every
+    array comes from `seed` with numpy. Returns the ranking's path."""
+    from raindrop_tpu_torch.data.datasets import synthetic_raw
+
+    P, y = synthetic_raw("P12", n, seed, T=215)
+    rng = np.random.default_rng(seed + 1)
+    os.makedirs(os.path.join(root, "processed_data"))
+    os.makedirs(os.path.join(root, "splits"))
+    np.save(os.path.join(root, "processed_data", "PTdict_list.npy"), P,
+            allow_pickle=True)
+    outcomes = np.zeros((n, 6), np.float64)
+    outcomes[:, 0] = 132539 + np.arange(n)
+    outcomes[:, 3] = rng.integers(1, 30, size=n)
+    outcomes[:, -1] = y
+    np.save(os.path.join(root, "processed_data", "arr_outcomes.npy"), outcomes)
+    perm = rng.permutation(n)
+    n_tr, n_va = round(n * 0.8), round(n * 0.1)
+    parts = np.empty(3, dtype=object)
+    parts[:] = [perm[:n_tr], perm[n_tr:n_tr + n_va], perm[n_tr + n_va:]]
+    np.save(os.path.join(root, "splits", "phy12_split1.npy"), parts, allow_pickle=True)
+    ranking = rng.permutation(36)
+    ig = np.array([[int(i), f"sensor{i}"] for i in ranking], dtype=object)
+    ig_path = os.path.join(root, "ig.npy")
+    np.save(ig_path, ig, allow_pickle=True)
+    return ig_path
+
+
+def run_cli(wrappers, argv, label):
+    """raindrop_tpu_torch.run.main(argv) with --out-json and --track-jsonl in
+    a temporary directory (checkpoints there too), every launch count set
+    to 0 just before and read just after. Returns (summary, epoch records,
+    forward counts, backward counts, seconds)."""
+    from raindrop_tpu_torch import run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [a.replace("{tmp}", tmp) for a in argv]
+        out, track = os.path.join(tmp, "out.json"), os.path.join(tmp, "track.jsonl")
+        argv += ["--out-json", out, "--track-jsonl", track,
+                 "--checkpoint-dir", os.path.join(tmp, "ckpt")]
+        print(f"[cli] {label}: python -m raindrop_tpu_torch.run {' '.join(argv)}",
+              flush=True)
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        rc = run.main(argv)
+        took = time.perf_counter() - t0
+        fwd, bwd = (read_counts(wrappers, a) for a in ("launches", "bwd_launches"))
+        if rc != 0:
+            raise AssertionError(f"{label}: the CLI returned {rc}")
+        with open(out) as f:
+            summary = json.load(f)
+        with open(track) as f:
+            events = [json.loads(line) for line in f]
+    records = [e for e in events if e["event"] == "epoch"]
+    return summary, records, fwd, bwd, took
+
+
+def check_cli(label, summary, records, key, epochs=CLI_EPOCHS):
+    """Finite metrics in [0, 100] under `key`; `epochs` epoch records, each
+    with an MFU in (0, 1) and finite TFLOP/s."""
+    metrics = summary.get(key)
+    if not metrics:
+        raise AssertionError(f"{label}: no {key} in the summary {sorted(summary)}")
+    for name, s in metrics.items():
+        if not (np.isfinite(s["mean"]) and 0.0 <= s["mean"] <= 100.0
+                and np.isfinite(s["std"])):
+            raise AssertionError(f"{label}: {name} = {s}")
+    if len(records) != epochs:
+        raise AssertionError(f"{label}: {len(records)} epoch records for {epochs} epochs")
+    for rec in records:
+        m, tf = rec.get("mfu"), rec.get("train_tflops_per_sec")
+        if m is None or not 0.0 < m < 1.0 or not np.isfinite(tf):
+            raise AssertionError(f"{label}: an epoch record's MFU is not in (0, 1): {rec}")
+    print(f"[cli] {label}: " + ", ".join(
+        f"{n} {s['mean']:.2f}" for n, s in metrics.items()) + "; epochs: " + "; ".join(
+        f"loss {r['train_loss']:.4f}, {r['train_tflops_per_sec']:.3f} TFLOP/s, "
+        f"MFU {r['mfu']:.5f}" for r in records), flush=True)
+
+
+def cli_files_phase(wrappers, seed=0):
+    """The CLI through dataset files at P12's full width and depth: a P12
+    root written by write_p12_root (640 samples), then forward imputation,
+    Setting 2 at missing ratio 0.3 with the written ranking (--ig-scores),
+    2 epochs of one split with MFU telemetry. Checks: rc 0, finite metrics,
+    the packed pair's tensor-core launches counted forward and backward,
+    every epoch record's MFU in (0, 1)."""
+    with tempfile.TemporaryDirectory() as root:
+        ig = write_p12_root(root, seed)
+        summary, records, fwd, bwd, took = run_cli(wrappers, [
+            "--dataset", "P12", "--data-root", root, "--n-splits", "1",
+            "--epochs", str(CLI_EPOCHS), "--imputation", "forward",
+            "--feature_removal_level", "set", "--missing-ratio", "0.3",
+            "--ig-scores", ig, "--measure-mfu", "true", "--seed", str(seed + 1)],
+            "P12 files")
+    check_cli("P12 files", summary, records, "missing_0.3")
+    check_tc("P12 files (CLI)", fwd, bwd)
+    print(f"[cli] P12 files in {took:.1f} s; launches {fwd}, backward {bwd}", flush=True)
+    return dict(seconds=took, summary=summary, records=records, launches=fwd,
+                bwd_launches=bwd)
+
+
+def cli_stream_phase(wrappers, seed=0):
+    """The CLI on synthetic PAM (640 samples, full width and depth) through
+    the streaming input pipeline with MFU telemetry, 2 epochs of one split
+    (30 batches each), then the same command line with the resident
+    pipeline. Checks: rc 0, finite metrics, the fused layer's tensor-core
+    launches counted forward and backward, every epoch record's MFU in
+    (0, 1); the two runs' summaries and epoch records (but their wall-clock
+    and MFU fields) equal."""
+    argv = ["--dataset", "PAM", "--synthetic", str(CLI_N), "--measure-mfu", "true",
+            "--epochs", str(CLI_EPOCHS), "--n-splits", "1", "--seed", str(seed + 1)]
+    summary, records, fwd, bwd, took = run_cli(
+        wrappers, argv + ["--input-pipeline", "streaming"], "PAM streaming")
+    check_cli("PAM streaming", summary, records, "missing_0.0")
+    check_fused_tc("PAM streaming (CLI)", fwd, bwd)
+    res_summary, res_records, _, _, res_took = run_cli(
+        wrappers, argv + ["--input-pipeline", "resident"], "PAM resident")
+    timing = ("elapsed_s", "train_tflops_per_sec", "mfu")
+
+    def untimed(recs):
+        return [{k: v for k, v in r.items() if k not in timing} for r in recs]
+
+    if summary != res_summary or untimed(records) != untimed(res_records):
+        raise AssertionError(f"PAM streaming (CLI): not equal to the resident run: "
+                             f"{summary} against {res_summary}; "
+                             f"{untimed(records)} against {untimed(res_records)}")
+    print(f"[cli] PAM streaming in {took:.1f} s (resident {res_took:.1f} s, summary "
+          f"and epoch records equal); launches {fwd}, backward {bwd}", flush=True)
+    return dict(seconds=took, resident_seconds=res_took, summary=summary,
+                records=records, launches=fwd, bwd_launches=bwd)
+
+
+def _train_config(dataset, **kw):
+    from raindrop_tpu_torch.config import TrainConfig
+
+    return TrainConfig(dataset=dataset, batching_strategy=3 if dataset == "PAM" else 2,
+                       **kw)
+
+
+def streaming_phase(device="cuda", seed=0, epochs=3):
+    """At P12 (2560 synthetic samples: about 22 batches an epoch by the
+    sampler's strategy 2) and PAM (640, 30 batches an epoch), full width and depth,
+    one train_split of `epochs` epochs resident and streaming, each with
+    measure_mfu off and on, from the same parameters and seed: the final
+    parameters, the best ones, the history (but its wall-clock and MFU
+    fields) and the test metrics of all four bit-equal. Each streaming run
+    goes through the depth-2 executor's buffers some 70 to 90 times."""
+    import torch
+    from raindrop_tpu_torch.config import dataset_config
+    from raindrop_tpu_torch.data.datasets import synthetic_split
+    from raindrop_tpu_torch.data.sampler import n_batches_per_epoch
+    from raindrop_tpu_torch.train.checkpoint import flatten_params
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    timing = ("elapsed_s", "train_tflops_per_sec", "mfu")
+    out = {}
+    for dataset, n in (("P12", 4 * CLI_N), ("PAM", CLI_N)):
+        cfg = dataset_config(dataset)
+        split = synthetic_split(dataset, n, seed + 7)
+        runs = {}
+        for name, kw in (("resident", {}), ("streaming", {"input_pipeline": "streaming"}),
+                         ("resident_mfu", {"measure_mfu": True}),
+                         ("streaming_mfu", {"input_pipeline": "streaming",
+                                            "measure_mfu": True})):
+            tcfg = _train_config(dataset, num_epochs=epochs, seed=seed + 1, **kw)
+            trainer = Trainer(cfg, tcfg, device=device)
+            t0 = time.perf_counter()
+            res = trainer.train_split(split, verbose=False)
+            took = time.perf_counter() - t0
+            runs[name] = dict(
+                seconds=took,
+                history=[{k: v for k, v in r.items() if k not in timing}
+                         for r in res.history],
+                mfu=[r.get("mfu") for r in res.history],
+                test=res.test_metrics,
+                final=[t.detach().clone() for _, t in flatten_params(trainer.params)],
+                best=[t.detach().clone() for _, t in flatten_params(res.params)])
+            del trainer, res
+        ref = runs["resident"]
+        for name, r in runs.items():
+            same = (r["history"] == ref["history"] and r["test"] == ref["test"]
+                    and all(torch.equal(a, b) for a, b in zip(r["final"], ref["final"]))
+                    and all(torch.equal(a, b) for a, b in zip(r["best"], ref["best"])))
+            if not same:
+                raise AssertionError(f"streaming {dataset}: the {name} run is not "
+                                     f"bit-equal to the resident one")
+        for name in ("resident_mfu", "streaming_mfu"):
+            if any(m is None or not 0.0 < m < 1.0 for m in runs[name]["mfu"]):
+                raise AssertionError(f"streaming {dataset}: {name} MFU {runs[name]['mfu']}")
+        steps = epochs * n_batches_per_epoch(split.ytrain, tcfg.batch_size,
+                                             tcfg.batching_strategy,
+                                             tcfg.n_batches_strategy3)
+        print(f"[streaming] {dataset}: resident, streaming and both with measure_mfu "
+              f"bit-equal over {epochs} epochs, {steps} steps (parameters, best "
+              f"parameters, history, test metrics); seconds " + ", ".join(
+                  f"{k} {v['seconds']:.2f}" for k, v in runs.items()), flush=True)
+        out[dataset] = {k: dict(seconds=v["seconds"], mfu=v["mfu"], history=v["history"],
+                                steps=steps)
+                        for k, v in runs.items()}
+        del runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def mfu_phase(wrappers, card, device="cuda", seed=0, batch=128, reps=5):
+    """One training step's model FLOPs at P12 (the packed pair), PAM (the
+    fused layer) and PAM-2048 (flash_mha), full width and depth, B=128,
+    dropout 0.2: counted with the kernels (FlopCounterMode plus the
+    kernels' credit, Trainer.step_flops; the credit must have launched)
+    and with the plain versions on the card (PLAIN_ATTENTION: the dense
+    rung, every matmul seen by the counter), on the same rows (at PAM-2048
+    on DENSE_ROWS of them: the dense rung's [B, H, T, T] scores), held
+    within MFU_TOL; then the step's CUDA-event time (median of `reps`), its
+    MFU, and the MFU of the epoch record of a 1-epoch train_split with
+    measure_mfu, beside the card's name and power limit."""
+    import dataclasses
+
+    import torch
+    from raindrop_tpu_torch.config import dataset_config
+    from raindrop_tpu_torch.data.datasets import synthetic_split
+    from raindrop_tpu_torch.data.sampler import balanced_batches
+    from raindrop_tpu_torch.train.trainer import Trainer
+    from raindrop_tpu_torch.utils.diagnostics import device_peak_flops
+
+    peak = device_peak_flops(device)
+    if not peak:
+        raise AssertionError(f"no bf16 peak for {torch.cuda.get_device_name(0)}: "
+                             f"add it to utils/diagnostics.PEAK_BF16_FLOPS")
+    out = {}
+    for label, dataset, over, rows in (("P12", "P12", {}, batch),
+                                       ("PAM", "PAM", {}, batch),
+                                       ("PAM-2048", "PAM", LONG, DENSE_ROWS)):
+        cfg = dataset_config(dataset, **over)
+        tcfg = _train_config(dataset, num_epochs=1, n_batches_strategy3=3,
+                             measure_mfu=True, seed=seed + 1)
+        split = synthetic_split(dataset, 320, seed + 3, T=cfg.max_len)
+        trainer = Trainer(cfg, tcfg, device=device)
+        idx = next(balanced_batches(split.ytrain, batch, tcfg.batching_strategy,
+                                    np.random.default_rng(seed)))
+        host = {"P": split.Ptrain, "time": split.Ptrain_time, "y": split.ytrain}
+        if split.Ptrain_static is not None:
+            host["static"] = split.Ptrain_static
+        dev = {k: torch.as_tensor(np.ascontiguousarray(a[idx])).to(
+            device, torch.int64 if k == "y" else torch.float32) for k, a in host.items()}
+        sub = {k: v[:rows] for k, v in dev.items()}
+        reset_counts(wrappers)
+        step_flops = trainer.step_flops(dev)
+        kernel_flops = step_flops if rows == batch else trainer.step_flops(sub)
+        launched = {fn.__name__: (fn.launches, fn.bwd_launches) for fn in wrappers}
+        if not any(f > 0 and b > 0 for f, b in launched.values()):
+            raise AssertionError(f"mfu {label}: no kernel launched in the count: {launched}")
+        trainer.cfg = dataclasses.replace(cfg, **PLAIN_ATTENTION)
+        try:
+            plain_flops = trainer.step_flops(sub)
+        finally:
+            trainer.cfg = cfg
+        rel = abs(kernel_flops - plain_flops) / plain_flops
+        times = []
+        for _ in range(reps + 1):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            trainer.train_step(dev)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        step_ms = float(np.median(times[1:]))
+        step_mfu = step_flops / (step_ms / 1e3) / peak
+        res = trainer.train_split(split, verbose=False)
+        epoch_mfu = res.history[0]["mfu"]
+        print(f"[mfu] {label} ({card}): step {step_flops / 1e9:.3f} GFLOP at B={batch} "
+              f"(kernels {launched}); on {rows} rows kernels {kernel_flops / 1e9:.4f} "
+              f"against plain {plain_flops / 1e9:.4f} GFLOP ({rel:.2e}); step "
+              f"{step_ms:.3f} ms by events, MFU {step_mfu:.5f}; epoch record "
+              f"{res.history[0]['train_tflops_per_sec']:.3f} TFLOP/s, MFU "
+              f"{epoch_mfu:.5f}", flush=True)
+        if not rel <= MFU_TOL:
+            raise AssertionError(f"mfu {label}: kernels {kernel_flops} against plain "
+                                 f"{plain_flops} FLOPs ({rel:.3e} > {MFU_TOL})")
+        if epoch_mfu is None or not 0.0 < epoch_mfu < 1.0 or not 0.0 < step_mfu < 1.0:
+            raise AssertionError(f"mfu {label}: MFU outside (0, 1): step {step_mfu}, "
+                                 f"epoch {epoch_mfu}")
+        out[label] = dict(step_flops=step_flops, compared_rows=rows,
+                          kernel_flops=kernel_flops, plain_flops=plain_flops,
+                          rel_diff=rel, step_ms=step_ms, step_ms_all=times,
+                          step_mfu=step_mfu, epoch_mfu=epoch_mfu,
+                          epoch_tflops_per_sec=res.history[0]["train_tflops_per_sec"],
+                          launches=launched, peak_flops=peak, card=card)
+        del trainer, res, dev, sub
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every number measured to this JSON file")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the CLI phases' dataset files and runs")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     try:
@@ -3256,6 +3585,23 @@ def main(argv=None) -> int:
                           beta_tf, beta_tb)
     with phase(phase_s, "bf16 storage P12"):
         storage = bf16_storage_phase(wrappers)
+    torch.cuda.empty_cache()
+
+    # the experiment CLI (python -m raindrop_tpu_torch.run): P12 from
+    # dataset files, PAM synthetic through the streaming pipeline; the
+    # streaming pipeline and the MFU telemetry bit-equal to the resident
+    # run without it; one step's FLOPs with the kernels against the plain count
+    with phase(phase_s, "CLI P12 files"):
+        cli_files = cli_files_phase(wrappers, args.seed)
+    torch.cuda.empty_cache()
+    with phase(phase_s, "CLI PAM streaming"):
+        cli_stream = cli_stream_phase(wrappers, args.seed)
+    torch.cuda.empty_cache()
+    with phase(phase_s, "streaming and measure_mfu bit-equal"):
+        streaming = streaming_phase(seed=args.seed)
+    torch.cuda.empty_cache()
+    with phase(phase_s, "step FLOPs and MFU"):
+        mfu_runs = mfu_phase(wrappers, card, seed=args.seed)
     torch.cuda.empty_cache()
     with phase(phase_s, "flash_mha kernels"):
         mha_runs = [flash_mha_phase(label, 128, 2, T, 42, dt, rate)
@@ -3500,6 +3846,8 @@ def main(argv=None) -> int:
                                      **beta_train},
                            "graph": beta_graph},
               "bf16_storage": storage,
+              "cli": {"P12_files": cli_files, "PAM_streaming": cli_stream},
+              "streaming": streaming, "mfu": mfu_runs,
               "selfattention": {"launches": sd_f, "bwd_launches": sd_b,
                                 "checks": selfatt},
               "flash_mha_fwd": mha_fwd, "flash_mha_bwd": mha_bwd,

@@ -117,7 +117,8 @@ class RaindropConfig:
 class TrainConfig:
     """Training protocol (reference code/Raindrop.py:105-160, 255-307).
     Every field of the JAX package's TrainConfig with its default; the
-    fields of routes the port does not run yet raise when set."""
+    fields of the scale-out routes, which the port does not run yet, raise
+    when set."""
 
     dataset: str = "P12"
     num_epochs: int = 20
@@ -141,10 +142,16 @@ class TrainConfig:
     predictive_label: str = "mortality"
     seed: int = 1
     # kept for config round trips; the port's epoch is a Python loop of
-    # steps over the device-resident split either way
+    # steps either way
     scan_epoch: bool = True
-    input_pipeline: str = "resident"      # 'streaming' comes later
+    # 'resident': the split on the device, batches gathered there;
+    # 'streaming': batches gathered on the host and copied ahead of the
+    # step (data/prefetch.py), for a split larger than device memory; the
+    # same results
+    input_pipeline: str = "resident"
     prefetch_depth: int = 2
+    # train_split's epoch records get the achieved model TFLOP/s and MFU
+    # (utils/diagnostics.py)
     measure_mfu: bool = False
     checkpoint_dir: str = "checkpoints"
     log_path: Optional[str] = None
@@ -167,10 +174,10 @@ class TrainConfig:
             raise NotImplementedError(
                 "context_parallel, pipeline_microbatches and edge_partition "
                 "come with the scale-out slice")
-        if self.input_pipeline != "resident":
-            raise NotImplementedError(
-                f"input_pipeline={self.input_pipeline!r} comes with a later "
-                f"slice; the port trains from a device-resident split")
+        if self.input_pipeline not in ("resident", "streaming"):
+            raise ValueError(
+                f"unknown input_pipeline {self.input_pipeline!r} "
+                "(expected 'resident' or 'streaming')")
         if self.grad_microbatches < 1:
             raise ValueError("grad_microbatches must be >= 1")
 

@@ -12,10 +12,16 @@ PyTorch header. Nothing here runs at import time.
 Every C entry point returns `cudaGetLastError()` after its launches;
 `check` raises if it is not 0. Nothing falls back: a missing `nvcc` or a
 failed build raises.
+
+Each wrapper counts its launches (`count_launch`) and, while a FLOP count
+is open (`flop_credit`, which utils/diagnostics.counted_flops opens beside
+PyTorch's FlopCounterMode), credits the model FLOPs of the call it launched
+(`credit`): the counter cannot see into a kernel called through ctypes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -48,7 +54,10 @@ PARTS = {"flash_packed": ("flash_packed", "flash_split", "flash_packed_fwd_tc",
                                "fused_encoder_dkv_wide")}
 
 _lock = threading.Lock()          # guards builds and _libs
-_count_lock = threading.Lock()    # guards the wrappers' launch counts
+_count_lock = threading.Lock()    # guards the launch counts and credits
+# the totals of the open FLOP counts; global, not per thread, because a
+# backward on the card runs on autograd's device thread
+_credits: List[List[float]] = []
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -160,3 +169,29 @@ def count_launch(fn, *attrs: str) -> None:
     with _count_lock:
         for attr in attrs or ("launches",):
             setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+@contextlib.contextmanager
+def flop_credit() -> Iterator[List[float]]:
+    """Open a count of the model FLOPs the kernels launched in the scope
+    credit; yields a one-element list holding the running total. The count
+    is process-wide, not the opening thread's (autograd runs the backward
+    on a thread of its own): a kernel another thread launches while it is
+    open (a ModelServer's batcher, a second Trainer) is counted too, so
+    open it only where one thread drives the card."""
+    box = [0.0]
+    with _count_lock:
+        _credits.append(box)
+    try:
+        yield box
+    finally:
+        with _count_lock:
+            _credits.remove(box)
+
+
+def credit(flops: float) -> None:
+    """Add `flops` to every open count (`flop_credit`); a wrapper calls it
+    after its kernel launched, and only then."""
+    with _count_lock:
+        for box in _credits:
+            box[0] += flops

@@ -88,6 +88,15 @@ def operand_dtype(compute_dtype) -> torch.dtype:
     raise ValueError(f"unsupported flash compute_dtype {compute_dtype}")
 
 
+def attention_flops(B: int, T: int, d: int) -> int:
+    """Model FLOPs of one attention forward over B samples of T steps and
+    width d (all heads): q k^T and p v, 2 a multiply-add, over every key
+    position (the plain version's work). The kernels credit it for a
+    forward and twice it for a backward (dq, dk, dp, dv; the backward's
+    recompute of the scores is not credited, the MFU convention)."""
+    return 4 * B * T * T * d
+
+
 def pad8(T: int) -> int:
     """T padded to a multiple of 8: the row count the JAX kernels hash
     their site masks with."""
@@ -523,6 +532,7 @@ def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od, impl="auto"):
         seed, rate, plan.as_ints, stream)
     build.check(err, "flash_mha_packed forward")
     _count(plan, "launches")
+    build.credit(attention_flops(B, T, d))
     return o, lse
 
 
@@ -560,6 +570,7 @@ def _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead, od, o, lse, g,
         int(od == torch.bfloat16), seed, rate, plan.as_ints, stream)
     build.check(err, "flash_mha_packed backward")
     _count(plan, "bwd_launches")
+    build.credit(2 * attention_flops(B, T, d))
     return dq, dk, dv
 
 
@@ -781,6 +792,7 @@ def _flash_fwd_cuda(q, k, v, lengths, seed, rate, od, impl="auto", cols=None):
         plan.as_ints, stream)
     build.check(err, "flash_mha forward")
     _count(plan, "launches", flash_mha)
+    build.credit(attention_flops(B, T, H * D))
     return o, lse
 
 
@@ -825,6 +837,7 @@ def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g, impl="auto",
         plan.as_ints, stream)
     build.check(err, "flash_mha backward")
     _count(plan, "bwd_launches", flash_mha)
+    build.credit(2 * attention_flops(B, T, H * D))
     return dq, dk, dv
 
 

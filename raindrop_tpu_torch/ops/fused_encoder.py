@@ -47,6 +47,15 @@ _EPS = 1e-5
 SITE_ATTN_OUT, SITE_FFN_MID, SITE_FFN_OUT = 101, 102, 103
 
 
+def layer_flops(B: int, T: int, d: int, ffn: int) -> int:
+    """Model FLOPs of one layer forward over B samples: the qkv projection
+    (6 T d^2), the attention (4 T^2 d, `attention_flops`), the output
+    projection (2 T d^2) and the two FFN products (4 T d ffn), 2 a
+    multiply-add. The kernels credit it for a forward and twice it for a
+    backward; the attention inside is not credited again."""
+    return B * (4 * T * T * d + 8 * T * d * d + 4 * T * d * ffn)
+
+
 def _site_keep(seed, B, site, T, n, rate, device) -> torch.Tensor:
     """[B, T, n] keep mask of one dropout site."""
     b = torch.arange(B, dtype=torch.int64, device=device)
@@ -526,6 +535,7 @@ def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od, impl="auto"):
         int(od == torch.bfloat16), seed, rate, plan.as_ints, stream)
     build.check(err, "fused_encoder_layer forward")
     _count(plan, "launches")
+    build.credit(layer_flops(B, T, d, ffn))
     return out, attn, lse
 
 
@@ -608,6 +618,7 @@ def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
         plan.as_ints, stream)
     build.check(err, "fused_encoder_layer backward")
     _count(plan, "bwd_launches")
+    build.credit(2 * layer_flops(B, T, d, ffn))
     if scratch_out is not None:
         scratch_out.update(scratch)
     dg2, dbe2, dbf2, dbf1, dg1, dbe1, dbo, db_in = vec.split(

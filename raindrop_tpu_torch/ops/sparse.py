@@ -365,6 +365,16 @@ def graph_plan_c(B, N, E, D, kind, align=16) -> GraphPlan:
     return GraphPlan(ROUTES[out[0]], *out[1:6], (out[6], out[7]))
 
 
+def edge_flops(B: int, E: int, D: int) -> int:
+    """Model FLOPs of one pass over the edges: a D-wide multiply-add per
+    edge and sample (spmm_segment_softmax's weighted sum, sddmm's dot
+    product), as the dense form over a complete graph (E = N^2) counts
+    them. The kernels credit it once for a forward, once for each of the
+    backward's products they compute (dx, and dgamma where it is needed;
+    dq and dk)."""
+    return 2 * B * E * D
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -396,6 +406,7 @@ def _spmm_fwd_cuda(x, gamma, topo: Topology, gather_target):
         w.data_ptr(), B, N, E, D, int(gather_target), plan.address, _stream(x))
     build.check(err, "spmm_segment_softmax forward")
     _count(spmm_segment_softmax, plan, "launches")
+    build.credit(edge_flops(B, E, D))
     return out, w
 
 
@@ -419,6 +430,7 @@ def _spmm_bwd_cuda(g_out, g_w, x, w, topo: Topology, gather_target,
         int(gather_target), plan.address, _stream(x))
     build.check(err, "spmm_segment_softmax backward")
     _count(spmm_segment_softmax, plan, "bwd_launches")
+    build.credit((1 + need_dgamma) * edge_flops(B, E, D))
     return dx, dgamma
 
 
@@ -433,6 +445,7 @@ def _sddmm_fwd_cuda(q, k, topo: Topology, scale):
         float(scale), plan.address, _stream(q))
     build.check(err, "sddmm forward")
     _count(sddmm, plan, "launches")
+    build.credit(edge_flops(B, E, D))
     return alpha
 
 
@@ -449,6 +462,7 @@ def _sddmm_bwd_cuda(d_alpha, q, k, topo: Topology, scale):
         dk.data_ptr(), B, N, E, D, float(scale), plan.address, _stream(q))
     build.check(err, "sddmm backward")
     _count(sddmm, plan, "bwd_launches")
+    build.credit(2 * edge_flops(B, E, D))
     return dq, dk
 
 

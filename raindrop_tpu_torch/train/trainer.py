@@ -25,7 +25,12 @@ scheduler stepped on val AUPRC, the best checkpoint keyed on val AUROC,
 test metrics from the softmax path with the best parameters, and over the
 splits the best run per split by AUPRC, then mean and std. Beyond the
 reference, the full training state goes to `<path>_last` every epoch and a
-run resumes from it exactly.
+run resumes from it exactly. With `input_pipeline="streaming"` an epoch's
+batches are gathered on the host and copied ahead of each step
+(data/prefetch.py) instead of gathered from the split on the device: the
+same batches, seeds and results. With `measure_mfu` one step's model FLOPs
+are counted once (`step_flops`) and every epoch record gets the achieved
+TFLOP/s and MFU.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch._dynamo  # noqa: F401
 from raindrop_tpu_torch import bridge
 from raindrop_tpu_torch.config import RaindropConfig, TrainConfig
 from raindrop_tpu_torch.data.datasets import Split
+from raindrop_tpu_torch.data.prefetch import PrefetchExecutor
 from raindrop_tpu_torch.data.sampler import balanced_batches, n_batches_per_epoch
 from raindrop_tpu_torch.models.raindrop import (
     prop_branch, raindrop_apply, raindrop_init, raindrop_param_mask,
@@ -58,7 +64,8 @@ from raindrop_tpu_torch.train.checkpoint import (
 from raindrop_tpu_torch.train.metrics import (
     classification_metrics, classification_report_str, confusion_matrix_np)
 from raindrop_tpu_torch.train.plateau import ReduceLROnPlateau
-from raindrop_tpu_torch.utils.diagnostics import frozen_param_report
+from raindrop_tpu_torch.utils.diagnostics import (
+    counted_flops, device_peak_flops, frozen_param_report, mfu)
 from raindrop_tpu_torch.utils.dropout import DropoutSeeds
 from raindrop_tpu_torch.utils.tracking import _SafeTracker
 
@@ -176,20 +183,26 @@ class Trainer:
 
         return walk(self.params, "")
 
-    def draw_seeds(self, rows: int = 0) -> Seeds:
+    def draw_seeds(self, rows: int = 0,
+                   generator: Optional[torch.Generator] = None) -> Seeds:
         """The seeds one train_step on a batch of `rows` samples consumes,
-        from the trainer's stream. Only the COO propagation branch with
-        prop_dropout reads per-sample seeds, and only the dense use_beta
-        block the two of its own, so only then are they drawn."""
+        from the trainer's stream (or from `generator`). Only the COO
+        propagation branch with prop_dropout reads per-sample seeds, and
+        only the dense use_beta block the two of its own, so only then are
+        they drawn."""
+        gen = self._seed_gen if generator is None else generator
         n = self.tcfg.grad_microbatches
         branch = prop_branch(self.cfg, True, False)
         drops = self.cfg.prop_dropout > 0.0
         per_sample = drops and branch == "coo"
         beta = drops and branch == "dense" and self.cfg.use_beta
-        draws = [DropoutSeeds.draw(self._seed_gen, self.cfg.nlayers,
+        draws = [DropoutSeeds.draw(gen, self.cfg.nlayers,
                                    rows // n if per_sample else 0, beta)
                  for _ in range(n)]
         return draws[0] if n == 1 else draws
+
+    def _drops(self) -> bool:
+        return self.cfg.dropout > 0.0 or self.cfg.prop_dropout > 0.0
 
     # ---- the step --------------------------------------------------------
     def loss_fn(self, batch: Batch, seeds: Optional[DropoutSeeds]):
@@ -254,29 +267,59 @@ class Trainer:
         (a sequence of grad_microbatches of them when that is > 1); None
         draws from the trainer's own stream. Returns (loss, logits) on the
         device, without synchronising."""
-        if seeds is None and (self.cfg.dropout > 0.0 or self.cfg.prop_dropout > 0.0):
+        if seeds is None and self._drops():
             seeds = self.draw_seeds(batch["P"].shape[0])
         loss, logits = self._backward(batch, seeds)
         self.optimizer.step()
         return loss, logits
 
-    def train_epoch(self, data: Batch, idx: torch.Tensor,
+    def train_epoch(self, data, idx: Optional[torch.Tensor] = None,
                     seeds: Optional[Sequence[Seeds]] = None):
-        """One epoch over a split resident on the device: `data` holds the
-        whole split batch-major, `idx` [K, B] (on the device) the sample
-        indices of the K batches, gathered there. Returns (losses [K] on
-        the host, the last step's logits on the device); the host waits
-        for the card once, for the losses."""
-        idx = idx.to(self.device)
-        if seeds is not None and len(seeds) != idx.shape[0]:
-            raise ValueError(f"{len(seeds)} seed sets for {idx.shape[0]} steps")
+        """One epoch of optimizer steps over `data`: a split resident on
+        the device (the whole split batch-major, `idx` [K, B] the sample
+        indices of the K batches, gathered there), or, with `idx` None, an
+        iterable of device batches (the streaming pipeline's
+        PrefetchExecutor). Returns (losses [K] on the host, the last step's
+        logits on the device); the host waits for the card once, for the
+        losses."""
+        if idx is not None:
+            idx = idx.to(self.device)
+            if seeds is not None and len(seeds) != idx.shape[0]:
+                raise ValueError(f"{len(seeds)} seed sets for {idx.shape[0]} steps")
+            split = data
+            batches = ({name: t[rows] for name, t in split.items()} for rows in idx)
+        else:
+            batches = data
         losses, logits = [], None
-        for k in range(idx.shape[0]):
-            batch = {name: t[idx[k]] for name, t in data.items()}
+        for k, batch in enumerate(batches):
             loss, logits = self.train_step(
                 batch, None if seeds is None else seeds[k])
             losses.append(loss)
         return torch.stack(losses).cpu(), logits
+
+    def step_flops(self, batch: Batch) -> float:
+        """Model FLOPs of one train_step on `batch` (utils/diagnostics.
+        counted_flops: the matmuls PyTorch runs plus the kernels' credit),
+        counted by running the step's forward and backward once without
+        disturbing the training: the gradients come from
+        torch.autograd.grad (no `.grad` is written), nothing is updated,
+        and the dropout seeds come from a generator of the count's own, not
+        from the trainer's stream. The kernels' launch counts do see it."""
+        rows = batch["P"].shape[0]
+        n_micro = self.tcfg.grad_microbatches
+        seeds = (self.draw_seeds(rows, torch.Generator().manual_seed(0))
+                 if self._drops() else None)
+        chunks = [seeds] if n_micro == 1 else (seeds or [None] * n_micro)
+        live = [t for _, t in self.live]
+        per = rows // n_micro
+
+        def step():
+            for i, chunk_seeds in enumerate(chunks):
+                chunk = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+                loss, _ = self.loss_fn(chunk, chunk_seeds)
+                torch.autograd.grad(loss, live, allow_unused=True)
+
+        return counted_flops(step)
 
     # ---- evaluation ------------------------------------------------------
     @torch.no_grad()
@@ -325,10 +368,6 @@ class Trainer:
         if not isinstance(tracker, _SafeTracker):
             tracker = _SafeTracker(tracker)
         cfg, tcfg = self.cfg, self.tcfg
-        if tcfg.measure_mfu:
-            raise NotImplementedError(
-                "measure_mfu (FLOPs and MFU against the H100 peak) comes "
-                "with the diagnostics slice")
         seed = tcfg.seed if seed is None else seed
         rng_np = np.random.default_rng(seed)
         self._seed_gen.manual_seed(seed)
@@ -368,26 +407,51 @@ class Trainer:
                 if os.path.exists(best_path + ".npz"):
                     best["params"], _, _ = load_checkpoint(best_path, self.params)
 
+        # the training split as the step reads it: on the device, or on the
+        # host for the streaming pipeline (batches gathered there and
+        # copied ahead of the step, data/prefetch.py)
+        host = {"P": split.Ptrain, "time": split.Ptrain_time, "y": split.ytrain}
+        if split.Ptrain_static is not None:
+            host["static"] = split.Ptrain_static
+        dtypes = {"P": torch.float32, "time": torch.float32, "y": torch.int64,
+                  "static": torch.float32}
+        streaming = tcfg.input_pipeline == "streaming"
+        train_dev = None if streaming else {
+            k: torch.as_tensor(np.ascontiguousarray(a)).to(self.device, dtypes[k])
+            for k, a in host.items()}
+
+        # opt-in MFU telemetry: the model FLOPs of one step on a batch of
+        # the split's shape, counted once (on rows of a sampler draw of its
+        # own, so the run's sampler stream is untouched); the epoch records
+        # then carry the achieved TFLOP/s and the MFU
+        step_flops, peak, last_elapsed = None, None, 0.0
+        if tcfg.measure_mfu:
+            rows = next(balanced_batches(split.ytrain, tcfg.batch_size, strategy,
+                                         np.random.default_rng(0), n_batches=1))
+            step_flops = self.step_flops({
+                k: torch.as_tensor(np.ascontiguousarray(a[rows])).to(
+                    self.device, dtypes[k]) for k, a in host.items()})
+            peak = device_peak_flops(self.device)
+
         t0 = time.time()
         snapshot = None
         if tcfg.diag_frozen_params:
             snapshot = {path: t.detach().clone()
                         for path, t in flatten_params(self.params)}
 
-        def dev(a, dtype):
-            return torch.as_tensor(np.ascontiguousarray(a)).to(self.device, dtype)
-
-        train_dev = {"P": dev(split.Ptrain, torch.float32),
-                     "time": dev(split.Ptrain_time, torch.float32),
-                     "y": dev(split.ytrain, torch.int64)}
-        if split.Ptrain_static is not None:
-            train_dev["static"] = dev(split.Ptrain_static, torch.float32)
-
         for epoch in range(start_epoch, tcfg.num_epochs):
             idx = np.stack(list(balanced_batches(
                 split.ytrain, tcfg.batch_size, strategy, rng_np,
                 n_batches=n_batches)))
-            losses, logits = self.train_epoch(train_dev, torch.from_numpy(idx))
+            if streaming:
+                with PrefetchExecutor(host, idx, depth=tcfg.prefetch_depth,
+                                      device=self.device, dtypes=dtypes) as batches:
+                    losses, logits = self.train_epoch(batches)
+                if len(losses) != len(idx):
+                    raise RuntimeError(f"the prefetch executor gave {len(losses)} "
+                                       f"of {len(idx)} batches")
+            else:
+                losses, logits = self.train_epoch(train_dev, torch.from_numpy(idx))
             loss = float(losses[-1])
             n_samples_done += idx.size
 
@@ -415,6 +479,15 @@ class Trainer:
             rec = {"epoch": epoch, "train_loss": loss,
                    "val_auroc": val["auroc"], "val_auprc": val["auprc"],
                    "lr": new_lr, "elapsed_s": time.time() - t0}
+            if step_flops and rec["elapsed_s"] > last_elapsed:
+                # achieved model FLOP/s over the epoch's wall time, which
+                # holds its validation and the previous epoch's checkpoint
+                # writes too (the JAX package's definition)
+                flops_per_sec = (step_flops * n_batches
+                                 / (rec["elapsed_s"] - last_elapsed))
+                rec["train_tflops_per_sec"] = flops_per_sec / 1e12
+                rec["mfu"] = mfu(flops_per_sec, peak)
+            last_elapsed = rec["elapsed_s"]
             history.append(rec)
             tracker.log_epoch(rec)
             if log_file:

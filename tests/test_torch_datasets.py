@@ -90,8 +90,14 @@ def test_normalization_functions_equal(numpy_path, compat):
                                   jnorm.mask_normalize_static(Ps, *jstats))
 
 
-def test_what_the_data_slice_brings_raises():
-    with pytest.raises(NotImplementedError, match="data slice"):
-        ds.load_split("/nowhere", "P12")
-    with pytest.raises(NotImplementedError, match="data slice"):
-        ds.synthetic_split("PAM", 20, 0, T=8, imputation="mean")
+def test_what_the_data_slice_brings_raises(numpy_path, tmp_path):
+    """load_split and imputation, which raised until the data slice, now
+    work: a missing root is numpy's FileNotFoundError, and
+    synthetic_split(imputation="mean") gives the JAX package's arrays
+    (tests/test_torch_load_split.py holds every dataset and imputer)."""
+    with pytest.raises(FileNotFoundError):
+        ds.load_split(str(tmp_path / "nowhere"), "P12")
+    got = ds.synthetic_split("PAM", 20, 0, T=8, imputation="mean")
+    want = jds.synthetic_split("PAM", 20, 0, T=8, imputation="mean")
+    for name, a in _fields(want).items():
+        np.testing.assert_array_equal(_fields(got)[name], a)

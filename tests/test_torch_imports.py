@@ -42,7 +42,12 @@ def test_the_module_list_covers_the_training_slice():
                     "raindrop_tpu_torch.utils.tracking",
                     "raindrop_tpu_torch.utils.diagnostics",
                     "raindrop_tpu_torch.data.normalize",
-                    "raindrop_tpu_torch.data.datasets"}
+                    "raindrop_tpu_torch.data.datasets",
+                    # the experiment CLI's slice
+                    "raindrop_tpu_torch.data.settings",
+                    "raindrop_tpu_torch.data.imputation",
+                    "raindrop_tpu_torch.data.prefetch",
+                    "raindrop_tpu_torch.run"}
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -1021,3 +1021,45 @@ def test_dense_beta_block_matches_coo_on_the_card(gen):
     assert torch.equal(kept.reshape(B, F, F), mask)
     assert _rel_err(out_d, out_c) <= 1e-5
     assert _rel_err(alpha_d, a2[..., 0]) <= 1e-5
+
+
+def test_prefetch_copy_stream_orders_every_batch(gen):
+    """The streaming pipeline's staging on the card: every batch, read on
+    the consumer's stream the moment it comes out (a device-side clone,
+    which would race an unfinished copy without the executor's wait), equals
+    the host gather exactly; 12 MB batches, depth 2, 24 batches, so pinned
+    and device buffers are recycled under the copies."""
+    import numpy as np
+
+    from raindrop_tpu_torch.data.prefetch import PrefetchExecutor
+
+    rng = np.random.default_rng(0)
+    N, T, C = 2048, 64, 96
+    data = {"P": rng.standard_normal((N, T, C), dtype=np.float32),
+            "y": rng.integers(0, 8, N).astype(np.int32)}
+    idx = [rng.integers(0, N, 512) for _ in range(24)]
+    seen = []
+    with PrefetchExecutor(data, idx, depth=2, device="cuda",
+                          dtypes={"y": torch.int64}) as ex:
+        for batch in ex:
+            seen.append({k: v.clone() for k, v in batch.items()})
+    assert len(seen) == len(idx)
+    for i, got in zip(idx, seen):
+        assert got["y"].dtype == torch.int64
+        assert torch.equal(got["P"].cpu(), torch.from_numpy(data["P"][i]))
+        assert torch.equal(got["y"].cpu(), torch.from_numpy(data["y"][i]).long())
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_flop_credit_matches_the_plain_count_on_the_card(gen, case):
+    """Each kernel wrapper's forward and backward on the card: the FLOPs its
+    launches credit (the counter sees no matmul of theirs) against
+    FlopCounterMode's count of the plain PyTorch form on the card, within
+    2% (torch_flops_util.FLOP_TOL; equal at these shapes)."""
+    import torch_flops_util as fu
+
+    name, credit, fn, args = fu.credit_cases()[case]
+    kernel = fn(*args, "cuda", True)
+    plain = fn(*args, "cuda", False)
+    assert kernel == credit, name
+    assert abs(kernel - plain) <= fu.FLOP_TOL * plain, (name, kernel, plain)

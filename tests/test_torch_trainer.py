@@ -271,16 +271,15 @@ def test_sampler_copy_draws_the_same_batches():
 
 
 def test_what_the_protocol_slice_brings_raises():
-    # train_split and run_splits are served now (tests/test_torch_protocol.py
-    # holds them against JAX); of the protocol only the MFU telemetry waits
+    # train_split and run_splits are served (tests/test_torch_protocol.py
+    # holds them against JAX), and so are measure_mfu and the streaming
+    # pipeline (tests/test_torch_diagnostics.py, test_torch_prefetch.py);
+    # the scale-out routes still wait
     assert not hasattr(Trainer, "run_splits")       # module-level, as in JAX
-    tr = Trainer(dataset_config("P19", max_len=8), TrainConfig(measure_mfu=True),
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="diagnostics slice"):
-        tr.train_split(None)
+    TrainConfig(measure_mfu=True, input_pipeline="streaming")
     for kw in ({"context_parallel": "ring"}, {"pipeline_microbatches": 2},
-               {"edge_partition": True}, {"input_pipeline": "streaming"}):
-        with pytest.raises(NotImplementedError):
+               {"edge_partition": True}):
+        with pytest.raises(NotImplementedError, match="scale-out slice"):
             TrainConfig(**kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
