@@ -163,6 +163,21 @@ check does not hold:
      PAM-2048), held within MFU_TOL (2%); the step's time by CUDA events,
      its MFU against the card's dense bf16 peak, and the epoch record's MFU
      of a 1-epoch train_split (mfu_phase);
+ 14g. the baseline families (baselines_phase): each of the ten at P12
+     (published widths, B=128, dropout 0.2, random weights from seed 0)
+     served through InferenceServer(apply_fn=...) on buckets 1 and 128,
+     held against the same server on the kernels' plain versions (2e-2
+     with bf16 attention), and trained for 5 steps (finite losses, the
+     first step twice bit-equal); the transformer, the context-token
+     transformer, the MoE transformer and Raindrop v1 must launch
+     flash_mha_packed forward and backward, every launch on the tensor
+     cores, the six others no kernel; the transformer and v1 again at eICU
+     (hd 15 and 35: 2-byte copies); a transformer step's FLOPs with the
+     kernels against the dense rung's count (MFU_TOL); the CLI with
+     --model transformer on synthetic P12 (640 samples, 2 epochs,
+     --measure-mfu); the packed pair in bf16 at hd 15, 26, 32, 35 and 90,
+     B=128, at the families' T (215, 216, 300), forward and backward
+     against the plain versions (sample_err), timed beside SDPA;
  15. ob_propagate_selfattention (N=36, D=860, 2 heads) on a kNN and on the
      complete graph, score_backend 'sddmm' against 'gather', value and
      gradient w.r.t. x; one sddmm launch a graph each way;
@@ -251,7 +266,9 @@ fused layer again at the sensor-wise widths, the fused layer's three
 attention launchers on "tc_wide" at PAM-sw, and flash_mha forward and
 backward at PAM-sw-2048's hd 170; the fused layer's list the CUDA kernels
 of its tensor-core route and of the previous design, and its launches, and
-flash_mha's, are the tensor-core ones), the last line the result. `--out PATH` also
+flash_mha's, are the tensor-core ones; rows 1 and 2 also carry the
+baseline families' launches and the errors at their head dims), the last
+line the result. `--out PATH` also
 writes every number to PATH as JSON.
 """
 
@@ -3344,11 +3361,8 @@ def mfu_phase(wrappers, card, device="cuda", seed=0, batch=128, reps=5):
         launched = {fn.__name__: (fn.launches, fn.bwd_launches) for fn in wrappers}
         if not any(f > 0 and b > 0 for f, b in launched.values()):
             raise AssertionError(f"mfu {label}: no kernel launched in the count: {launched}")
-        trainer.cfg = dataclasses.replace(cfg, **PLAIN_ATTENTION)
-        try:
-            plain_flops = trainer.step_flops(sub)
-        finally:
-            trainer.cfg = cfg
+        plain_flops = Trainer(dataclasses.replace(cfg, **PLAIN_ATTENTION), tcfg,
+                              device=device, params=trainer.params).step_flops(sub)
         rel = abs(kernel_flops - plain_flops) / plain_flops
         times = []
         for _ in range(reps + 1):
@@ -3383,6 +3397,284 @@ def mfu_phase(wrappers, card, device="cuda", seed=0, batch=128, reps=5):
                           launches=launched, peak_flops=peak, card=card)
         del trainer, res, dev, sub
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- baselines
+# (label, T, hd) the four kernel families hand the packed pair at their
+# presets (2 heads): the transformer and MoE at P12 (d 52) and eICU (d 30),
+# the context-token transformer at T + 1 (d 64), Raindrop v1 (d 180, d 70)
+BASELINE_HEADS = (("transformer P12", 215, 26), ("transformer_ctx P12", 216, 32),
+                  ("raindrop_v1 P12", 215, 90), ("transformer eICU", 300, 15),
+                  ("raindrop_v1 eICU", 300, 35))
+BASELINE_STEPS = 5
+
+
+def baseline_packed_phase(label, T, hd, B=128, H=2, device="cuda", seed=0):
+    """flash_mha_packed in bf16 (the families' operand dtype) at one
+    baseline head dim and T, B=128: the served forward (dropout 0) and the
+    trained backward (0.2) against the plain versions (o and lse to TOL,
+    gradients sample by sample to SAMPLE_TOL), on the "tc" route,
+    bit-equal on a repeat, zeros for the length-0 sample; each timed by
+    CUDA events beside SDPA (a key mask; its backward by autograd) and the
+    bound."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, od = H * hd, torch.bfloat16
+    q, k, v, g = (torch.randn((B, T, d), generator=gen, device=device)
+                  for _ in range(4))
+    lengths = ragged_lengths(gen, B, T, device)
+    plan = fa.packed_plan(B, T, d, H, od)
+    if plan.route != "tc":
+        raise AssertionError(f"{label}: the packed pair took the {plan.route} route")
+    o, lse = fa._packed_fwd_cuda(q, k, v, lengths, 0, 0.0, H, od)
+    o2, _ = fa._packed_fwd_cuda(q, k, v, lengths, 0, 0.0, H, od)
+    po, plse = fa._packed_fwd_plain(q, k, v, lengths, H, od)
+    fo, flse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.2, H, od)
+    args = (q, k, v, lengths, SEED, 0.2, H, od, fo, flse, g)
+    got = fa._packed_bwd_cuda(*args)
+    again = fa._packed_bwd_cuda(*args)
+    want = fa._packed_bwd_plain(*args)
+    torch.cuda.synchronize()
+    fwd_err = max(max_err(o, po), max_err(lse, plse))
+    o_sample = sample_err(o, po, lengths)
+    bwd_err = max(sample_err(a, b, lengths) for a, b in zip(got, want))
+    print(f"[baseline heads] {label} T={T} hd={hd} ({plan.route} route, hd padded "
+          f"{plan.hd_pad}, copy {plan.copy_bytes} B): forward max_abs_err {fwd_err:.3e} "
+          f"(tol {TOL['bfloat16']:g}), o sample_err {o_sample:.3e}; backward (dropout "
+          f"0.2) sample_err {bwd_err:.3e} (tol {SAMPLE_TOL['bfloat16']:g})", flush=True)
+    if fwd_err > TOL["bfloat16"] or bwd_err > SAMPLE_TOL["bfloat16"]:
+        raise AssertionError(f"the packed pair disagrees with its plain version at {label}")
+    if not torch.equal(o, o2) or not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"the packed pair is not bit-equal on a repeat at {label}")
+    if not (bool((o[0] == 0).all()) and all(bool((a[0] == 0).all()) for a in got)
+            and all(bool(torch.isfinite(a).all()) for a in (o, *got))):
+        raise AssertionError(f"the packed pair: not finite, or the length-0 sample is "
+                             f"not zero at {label}")
+    qo, ko, vo = (x.to(od) for x in (q, k, v))
+    fwd_ms = time_ms(lambda: fa._packed_fwd_cuda(qo, ko, vo, lengths, 0, 0.0, H, od))
+    targs = (qo, ko, vo, lengths, SEED, 0.2, H, od, fo, flse, g)
+    bwd_ms = time_ms(lambda: fa._packed_bwd_cuda(*targs))
+    plain_fwd_ms = time_ms(lambda: fa._packed_fwd_plain(qo, ko, vo, lengths, H, od),
+                           reps=5, warmup=1)
+    plain_bwd_ms = time_ms(lambda: fa._packed_bwd_plain(*targs), reps=5, warmup=1)
+    live = lengths > 0
+    qh, kh, vh = (x[live].reshape(-1, T, H, hd).transpose(1, 2).contiguous()
+                  .requires_grad_() for x in (qo, ko, vo))
+    keep = (torch.arange(T, device=device)[None, :]
+            < lengths[live][:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=keep))
+    out = sdpa(qh, kh, vh, attn_mask=keep, dropout_p=0.2)
+    gh = g[live].to(od).reshape(-1, T, H, hd).transpose(1, 2)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
+                                                      retain_graph=True))
+    keys = float(lengths.sum())
+    fwd_bound = bound(attention_bytes(lengths, T, d, H, 2), 4.0 * T * d * keys,
+                      "bfloat16")
+    bwd_bound = bound(attention_bytes(lengths, T, d, H, 2, backward=True),
+                      10.0 * T * d * keys, "bfloat16")
+    print(f"[baseline heads] {label}: forward {fwd_ms:.4f} ms (bound {fwd_bound[0]:.4f} "
+          f"ms, {fwd_bound[1]}; plain {plain_fwd_ms:.4f}, SDPA {sdpa_fwd_ms:.4f}); "
+          f"backward {bwd_ms:.4f} ms (bound {bwd_bound[0]:.4f} ms, {bwd_bound[1]}; "
+          f"plain {plain_bwd_ms:.4f}, SDPA backward {sdpa_bwd_ms:.4f})", flush=True)
+    return dict(label=label, T=T, hd=hd, hd_pad=plan.hd_pad,
+                copy_bytes=plan.copy_bytes, fwd_max_abs_err=fwd_err,
+                o_sample_err=o_sample, bwd_sample_err=bwd_err, fwd_ms=fwd_ms,
+                bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+                sdpa_fwd_ms=sdpa_fwd_ms, sdpa_bwd_ms=sdpa_bwd_ms,
+                fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+
+
+def baseline_family_phase(name, dataset, wrappers, device="cuda", seed=0, batch=128,
+                          steps=BASELINE_STEPS):
+    """One baseline family (baselines/adapters.py) at its preset's
+    published widths, random weights from `seed`, dropout 0.2: served
+    through InferenceServer(apply_fn=...) on buckets 1 and `batch` (the
+    counts set to 0 just before the two requests and read just after),
+    the top bucket's probabilities held against the same server on the
+    kernels' plain versions (plain_kernels: TOL with bf16 attention; 1e-5
+    for a family without kernels, whose two runs are the same code),
+    latency by bucket (host clock, median of 5); then trained: the same
+    first step twice bit-equal (parameters and loss), `steps` steps of
+    B=`batch` with finite losses (counts set to 0 just before, read just
+    after), step ms by CUDA events and a profile of one step (device ms,
+    idle share: the recurrences are host-bound). A kernel
+    family (KERNEL_FAMILIES) must launch flash_mha_packed forward and
+    backward, every launch on the tensor-core route; the others none."""
+    import torch
+    from raindrop_tpu_torch.baselines.adapters import KERNEL_FAMILIES, make_baseline
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.serve import InferenceServer
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    label = f"{name} {dataset}"
+    cfg = dataset_config(dataset)
+    fam = make_baseline(name, cfg, device=device)
+    params = fam.init_fn(seed)
+    kernels = name in KERNEL_FAMILIES
+    P, times, static = make_requests(cfg, batch, seed + 1)
+    requests = {n: (P[:n], times[:n], _rows(static, slice(0, n))) for n in (1, batch)}
+
+    def serve_fn(p, src, st, tm, ln):
+        return fam.apply_fn(p, src, st, tm, ln, False, None)[0]
+
+    server = InferenceServer(cfg, params, buckets=(1, batch), apply_fn=serve_fn,
+                             device=device)
+    try:
+        for req in requests.values():
+            server.predict(*req)
+        reset_counts(wrappers)
+        probs = {n: server.predict(*req) for n, req in requests.items()}
+        served = read_counts(wrappers, "launches")
+        with plain_kernels():
+            plain = server.predict(*requests[batch])
+        latency = {}
+        for n, req in requests.items():
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                server.predict(*req)
+                ts.append(1e3 * (time.perf_counter() - t0))
+            latency[n] = float(np.median(ts))
+    finally:
+        server.close()
+    top = probs[batch]
+    plain_err = float(np.abs(top - plain).max())
+    tol = TOL["bfloat16"] if kernels else 1e-5
+    row_shift = float(np.abs(probs[1][0] - top[0]).max())
+    print(f"[baselines] {label}: served {served}; against the plain kernels "
+          f"{plain_err:.3e} (tol {tol:g}); row 0 alone against in the top bucket "
+          f"{row_shift:.3e}; latency ms by bucket {latency}", flush=True)
+    if not (np.isfinite(top).all() and np.abs(top.sum(1) - 1.0).max() <= 1e-5
+            and plain_err <= tol):
+        raise AssertionError(f"{label}: served probabilities not finite, not summing "
+                             f"to 1, or off the plain path ({plain_err:.3e})")
+
+    tcfg = TrainConfig(dataset=dataset, batch_size=batch, learning_rate=1e-4)
+    data, _ = make_split(cfg, 2 * batch, seed + 2, device)
+    order = np.random.default_rng(seed).permutation(2 * batch)
+    batches = [{k: t[torch.from_numpy(order[(i % 2) * batch:(i % 2 + 1) * batch]).to(
+        device)] for k, t in data.items()} for i in range(steps)]
+
+    def trainer():
+        return Trainer(cfg, tcfg, device=device, params=params, init_fn=fam.init_fn,
+                       apply_fn=fam.apply_fn, draw_seeds=fam.draw_seeds)
+
+    seeds = (fam.draw_seeds(torch.Generator().manual_seed(seed), batch)
+             if fam.draw_seeds else None)
+    twice = [trainer() for _ in range(2)]
+    first = [tr.train_step(batches[0], seeds)[0] for tr in twice]
+    same = torch.equal(first[0], first[1]) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(twice[0].live, twice[1].live))
+    del twice
+    tr = trainer()
+    reset_counts(wrappers)
+    losses, step_ms = [], []
+    for b in batches:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss, _ = tr.train_step(b)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        step_ms.append(start.elapsed_time(end))
+    tf, tb = (read_counts(wrappers, a) for a in ("launches", "bwd_launches"))
+    t_wall, t_dev, t_idle, t_top = profile_device(lambda: tr.train_step(batches[1]), 1)
+    med = float(np.median(step_ms[1:]))
+    print(f"[baselines] {label}: the first step twice bit-equal {same}; losses "
+          f"{[round(x, 5) for x in losses]}; step {med:.3f} ms (median of steps "
+          f"2-{steps}, CUDA events; all {[round(x, 3) for x in step_ms]}); profiled: wall "
+          f"{t_wall:.3f} ms/step, device {t_dev:.3f} ms/step, idle share {t_idle}; "
+          f"launches forward {tf}, backward {tb}", flush=True)
+    for k, ms in list(t_top.items())[:4]:
+        print(f"[baselines] {label}:   {ms:8.4f} ms/step  {k[:100]}", flush=True)
+    if not same or not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: the same step twice differs, or a loss is not "
+                             f"finite: {losses}")
+    if kernels:
+        check_tc(f"{label} serving and training", served, tf, tb)
+        if tb["flash_mha_packed"] <= 0:
+            raise AssertionError(f"{label}: no backward launch: {tb}")
+    elif any(served.values()) or any(tf.values()) or any(tb.values()):
+        raise AssertionError(f"{label}: a kernel launched: {served} {tf} {tb}")
+    del tr
+    torch.cuda.empty_cache()
+    return dict(served=served, train_fwd=tf, train_bwd=tb, plain_err=plain_err,
+                row_shift=row_shift, latency_ms=latency, losses=losses,
+                step_ms=step_ms, step_ms_median=med, train_wall_ms=t_wall,
+                train_device_ms=t_dev, train_idle_share=t_idle,
+                train_device_ms_by_kernel=t_top, bit_equal=same)
+
+
+def baselines_phase(wrappers, card, device="cuda", seed=0, batch=128):
+    """The ten baseline families at P12 (baseline_family_phase), the
+    transformer and Raindrop v1 at eICU (hd 15 and 35, 2-byte copies); a
+    transformer step's FLOPs counted with the kernels against the dense
+    rung's count (MFU_TOL); the CLI with --model transformer on synthetic
+    P12 for CLI_EPOCHS epochs with --measure-mfu (every packed launch on
+    the tensor cores); the packed pair at the families' head dims
+    (baseline_packed_phase)."""
+    import dataclasses
+
+    import torch
+    from raindrop_tpu_torch.baselines.adapters import BASELINES, make_baseline
+
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    out = {"families": {}, "seconds": {}}
+    for name, dataset, steps in ([(n, "P12", BASELINE_STEPS) for n in BASELINES]
+                                 + [("transformer", "eICU", 3), ("raindrop_v1", "eICU", 3)]):
+        t0 = time.perf_counter()
+        out["families"][f"{name} {dataset}"] = baseline_family_phase(
+            name, dataset, wrappers, device, seed, batch, steps)
+        out["seconds"][f"{name} {dataset}"] = took = time.perf_counter() - t0
+        print(f"[baselines] {name} {dataset}: {took:.1f} s", flush=True)
+
+    cfg = dataset_config("P12")
+    tcfg = TrainConfig(dataset="P12", batch_size=batch)
+    data, _ = make_split(cfg, batch, seed + 3, device)
+    counts = {}
+    for label, c in (("kernels", cfg), ("plain", dataclasses.replace(cfg, **PLAIN_ATTENTION))):
+        fam = make_baseline("transformer", c, device=device)
+        tr = Trainer(c, tcfg, device=device, init_fn=fam.init_fn, apply_fn=fam.apply_fn,
+                     draw_seeds=fam.draw_seeds)
+        reset_counts(wrappers)
+        counts[label] = tr.step_flops(data)
+        launched = read_counts(wrappers, "launches")["flash_mha_packed"]
+        if (launched > 0) != (label == "kernels"):
+            raise AssertionError(f"transformer FLOPs ({label}): {launched} launches")
+        del tr
+    rel = abs(counts["kernels"] - counts["plain"]) / counts["plain"]
+    print(f"[baselines] transformer P12 ({card}): a step's FLOPs with the kernels "
+          f"{counts['kernels'] / 1e9:.4f} GFLOP, the dense rung's "
+          f"{counts['plain'] / 1e9:.4f} ({rel:.2e})", flush=True)
+    if not rel <= MFU_TOL:
+        raise AssertionError(f"transformer step FLOPs: kernels {counts['kernels']}, "
+                             f"plain {counts['plain']}")
+    out["step_flops"] = dict(counts, rel_diff=rel)
+    torch.cuda.empty_cache()
+
+    summary, records, fwd, bwd, took = run_cli(
+        wrappers, ["--model", "transformer", "--dataset", "P12", "--synthetic",
+                   str(CLI_N), "--epochs", str(CLI_EPOCHS), "--n-splits", "1",
+                   "--measure-mfu", "true", "--seed", str(seed)], "transformer P12")
+    check_cli("transformer P12", summary, records, "missing_0.0")
+    check_tc("the transformer CLI run", fwd, bwd)
+    print(f"[cli] transformer P12: {took:.1f} s, launches forward {fwd}, backward {bwd}",
+          flush=True)
+    out["cli"] = dict(summary=summary, records=records, launches=fwd, bwd_launches=bwd,
+                      seconds=took)
+    out["seconds"]["cli"] = took
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["heads"] = [baseline_packed_phase(label, T, hd, batch, seed=seed)
+                    for label, T, hd in BASELINE_HEADS]
+    out["seconds"]["heads"] = time.perf_counter() - t0
     return out
 
 
@@ -3603,6 +3895,11 @@ def main(argv=None) -> int:
     with phase(phase_s, "step FLOPs and MFU"):
         mfu_runs = mfu_phase(wrappers, card, seed=args.seed)
     torch.cuda.empty_cache()
+    # the baseline families (baselines/adapters.py): the ten at P12 served
+    # and trained, the four with an attention encoder on the packed pair
+    with phase(phase_s, "baselines"):
+        baselines = baselines_phase(wrappers, card, seed=args.seed)
+    torch.cuda.empty_cache()
     with phase(phase_s, "flash_mha kernels"):
         mha_runs = [flash_mha_phase(label, 128, 2, T, 42, dt, rate)
                     for label, T in (("PAM-600", 600), ("PAM-2048", 2048))
@@ -3681,13 +3978,31 @@ def main(argv=None) -> int:
                 "bound_by": main_run["bound_by"],
                 "library_ms": main_run["library_ms"]}
 
+    # rows 1-2 also carry the baseline families' launches (the served
+    # requests and the training steps, all on the tensor cores) and the
+    # errors at their head dims, which max_abs_err takes in
+    fams = baselines["families"]
+    heads = baselines["heads"]
+
+    def with_baselines(rec, counts, key):
+        launches = {f: sum(r[c]["flash_mha_packed"] for c in counts)
+                    for f, r in fams.items()}
+        err = max(h[key] for h in heads)
+        return {**rec, "max_abs_err": max(rec["max_abs_err"], err),
+                "baseline_launches": {f: n for f, n in launches.items() if n},
+                "baseline_max_abs_err": err}
+
     kernels = [
-        record("flash_mha_packed_fwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
-               "raindrop_tpu/ops/flash_attention.py:566",
-               p12_launches["flash_mha_packed"], flash, "P12"),
-        record("flash_mha_packed_bwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
-               "raindrop_tpu/ops/flash_attention.py:610",
-               p12_tb["flash_mha_packed"], flash_bwd, "P12", 0.2),
+        with_baselines(record(
+            "flash_mha_packed_fwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
+            "raindrop_tpu/ops/flash_attention.py:566",
+            p12_launches["flash_mha_packed"], flash, "P12"),
+            ("served", "train_fwd"), "fwd_max_abs_err"),
+        with_baselines(record(
+            "flash_mha_packed_bwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
+            "raindrop_tpu/ops/flash_attention.py:610",
+            p12_tb["flash_mha_packed"], flash_bwd, "P12", 0.2),
+            ("train_bwd",), "bwd_sample_err"),
         {**record("fused_encoder_layer_fwd", "raindrop_tpu_torch/csrc/fused_encoder.cu",
                   "raindrop_tpu/ops/fused_encoder.py:131",
                   pam_launches["fused_encoder_layer.tc"], fused, "PAM"),
@@ -3847,7 +4162,7 @@ def main(argv=None) -> int:
                            "graph": beta_graph},
               "bf16_storage": storage,
               "cli": {"P12_files": cli_files, "PAM_streaming": cli_stream},
-              "streaming": streaming, "mfu": mfu_runs,
+              "streaming": streaming, "mfu": mfu_runs, "baselines": baselines,
               "selfattention": {"launches": sd_f, "bwd_launches": sd_b,
                                 "checks": selfatt},
               "flash_mha_fwd": mha_fwd, "flash_mha_bwd": mha_bwd,

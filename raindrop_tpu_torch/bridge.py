@@ -1,9 +1,11 @@
 """Parameter bridge between the JAX package's parameter tree and the port.
 
-Both sides keep the same tree: nested dicts whose leaves are arrays, with
-linear weights already in torch layout [out, in]. So the bridge converts
-leaves and checks the tree against the one `raindrop_init` builds for the
-config; it reorders nothing.
+Both sides keep the same tree: nested dicts (and, in two baselines, lists)
+whose leaves are arrays, with linear weights already in torch layout
+[out, in]. So the bridge converts leaves and checks the tree against the
+one the port's init builds for the config (`raindrop_init`, or a
+baseline's); it reorders nothing, and drops the JAX trees' static `_meta`
+entries, which the port keeps outside its parameters.
 
 Leaves keep their dtype both ways. A bfloat16 leaf crosses by its bits,
 with no `ml_dtypes` (which comes with JAX and is not on the card's
@@ -64,6 +66,14 @@ def zeros_array(shape, dtype: torch.dtype) -> np.ndarray:
 
 
 def _check_tree(tree, template, path="") -> None:
+    if isinstance(template, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(template):
+            got = len(tree) if isinstance(tree, (list, tuple)) else type(tree).__name__
+            raise ValueError(f"params{path}: {got} items, expected a list of "
+                             f"{len(template)}")
+        for i, (t, tmpl) in enumerate(zip(tree, template)):
+            _check_tree(t, tmpl, f"{path}/{i}")
+        return
     if isinstance(template, dict):
         if not isinstance(tree, dict) or set(tree) != set(template):
             got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
@@ -79,7 +89,19 @@ def _check_tree(tree, template, path="") -> None:
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def _drop_meta(tree):
+    """The tree without the JAX package's static `_meta` entries (leafless
+    settings objects; the port keeps them outside its parameters)."""
+    if isinstance(tree, dict):
+        return {k: _drop_meta(v) for k, v in tree.items() if k != "_meta"}
+    if isinstance(tree, (list, tuple)):
+        return [_drop_meta(v) for v in tree]
+    return tree
 
 
 def _leaf_from_jax(a) -> torch.Tensor:
@@ -92,18 +114,24 @@ def _leaf_from_jax(a) -> torch.Tensor:
 
 
 def params_from_jax(tree_of_numpy: Dict[str, Any], cfg: RaindropConfig,
-                    device="cuda"):
-    """JAX parameter tree (nested dicts of numpy arrays, e.g.
+                    device="cuda", template=None):
+    """JAX parameter tree (nested dicts and lists of numpy arrays, e.g.
     `jax.device_get(params)`) -> the port's parameters on `device`, each
     leaf in its own dtype: bfloat16 (by its bits) and float16 as they are,
-    anything else as float32."""
-    _check_tree(tree_of_numpy, raindrop_init(None, cfg, device="meta"))
-    return _map(lambda a: _leaf_from_jax(a).to(device), tree_of_numpy)
+    anything else as float32. The tree is checked against `template`: by
+    default `raindrop_init`'s for cfg; a baseline's is its init on the meta
+    device (`make_baseline(name, cfg, hp, device="meta").init_fn(None)`).
+    The JAX package's `_meta` entries are dropped."""
+    tree = _drop_meta(tree_of_numpy)
+    if template is None:
+        template = raindrop_init(None, cfg, device="meta")
+    _check_tree(tree, template)
+    return _map(lambda a: _leaf_from_jax(a).to(device), tree)
 
 
 def params_to_numpy(params) -> Dict[str, Any]:
-    """The port's parameters -> nested dicts of numpy arrays (the JAX
-    package's tree): float32 and float16 as they are, bfloat16 as `|V2`
+    """The port's parameters -> nested dicts and lists of numpy arrays (the
+    JAX package's tree without its `_meta` entries): float32 and float16 as they are, bfloat16 as `|V2`
     arrays of its bits (`tensor_to_array`). Copies: the trainer updates its
     parameters in place, and a CPU tensor's `.numpy()` shares its memory."""
     return _map(tensor_to_array, params)
@@ -111,7 +139,7 @@ def params_to_numpy(params) -> Dict[str, Any]:
 
 def _lookup(tree, path: str):
     for key in path.split("/"):
-        tree = tree[key]
+        tree = tree[int(key)] if isinstance(tree, (list, tuple)) else tree[key]
     return tree
 
 

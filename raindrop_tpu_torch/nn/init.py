@@ -14,6 +14,17 @@ from typing import Optional, Tuple
 import torch
 
 
+def generator_on(generator, device) -> Optional[torch.Generator]:
+    """The generator an init draws from: None on the meta device (the
+    tree's shapes alone), a new one on `device` for an int seed, else
+    `generator` itself."""
+    if torch.device(device).type == "meta":
+        return None
+    if isinstance(generator, int):
+        return torch.Generator(device=device).manual_seed(generator)
+    return generator
+
+
 def uniform(gen: Optional[torch.Generator], shape, minval: float,
             maxval: float, device="cuda", dtype=torch.float32) -> torch.Tensor:
     u = torch.rand(tuple(shape), generator=gen, device=device, dtype=dtype)

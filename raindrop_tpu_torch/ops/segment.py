@@ -111,3 +111,18 @@ def segment_softmax_rows(logits: torch.Tensor, segment_ids: torch.Tensor,
     denom = segment_sum_rows(ex, segment_ids, num_segments)
     denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
     return ex / denom.reshape((B * num_segments,) + rest)[flat].reshape(logits.shape)
+
+
+def gather_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """x[ids] along axis 0 (x [N, ...], ids [E] -> [E, ...]). On the card a
+    product with the ids' one-hot matrix [E, N]: the same values (a copy
+    times 1 plus zeros), and a gradient that adds in a fixed order where
+    x[ids]'s backward adds with float atomics (under TF32 matmuls the copy
+    would round)."""
+    ids = _ids(ids)
+    if not x.is_cuda:
+        return x[ids]
+    N, E = x.shape[0], ids.shape[0]
+    onehot = torch.zeros((E, N), dtype=x.dtype, device=x.device)
+    onehot[torch.arange(E, device=x.device), ids] = 1.0
+    return (onehot @ x.reshape(N, -1)).reshape((E,) + tuple(x.shape[1:]))

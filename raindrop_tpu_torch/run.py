@@ -1,5 +1,5 @@
-"""Experiment CLI: the reference driver's flags, training Raindrop v2 on the
-H100 (the port of raindrop_tpu/run.py).
+"""Experiment CLI: the reference driver's flags, training Raindrop v2, v1
+or a baseline family on the H100 (the port of raindrop_tpu/run.py).
 
 Reference: python code/Raindrop.py --dataset P12 --withmissingratio False
 --splittype random --reverse False --feature_removal_level no_removal
@@ -9,15 +9,20 @@ Usage:
   python -m raindrop_tpu_torch.run --dataset P12 --data-root /path/to/P12data
   python -m raindrop_tpu_torch.run --dataset PAM --synthetic 2000   # no data files
   python -m raindrop_tpu_torch.run --dataset P19 --synthetic 500 --device cpu
+  python -m raindrop_tpu_torch.run --dataset P12 --model transformer ...
 
 The flags and their defaults are the JAX package's, so one command line
 gives both packages the same model and training configurations and the
 same splits; `--device` (default cuda) is the port's own. Without a CUDA
-device the run stops unless --device cpu is given. Flags of routes the
-port does not run yet raise NotImplementedError naming the slice they wait
-for: a --model other than raindrop (the baselines), and --distributed,
---data-parallel, --model-parallel > 1, --context-parallel,
---pipeline-microbatches and --edge-partition (scale-out). The knn and mice
+device the run stops unless --device cpu is given. `--model` takes the
+flagship (raindrop) and every baseline family (baselines/adapters.py),
+with the hyperparameter groups --mtand-*, --mtgnn-*, --dgm2-* and
+--ipnet-*; a baseline runs the JAX CLI's own loop (n_runs per split, the
+best run by AUPRC, the tracker's start, epoch and finish events, no
+checkpoints). The scale-out flags (--distributed, --data-parallel,
+--model-parallel > 1, --context-parallel, --pipeline-microbatches,
+--edge-partition) raise NotImplementedError naming the slice they wait
+for. The knn and mice
 imputers and the information-gain ranking of --feature_removal_level set
 (without --ig-scores) need scikit-learn.
 """
@@ -30,8 +35,9 @@ import sys
 
 import numpy as np
 
-BASELINES = ("raindrop_v1", "transformer", "transformer_ctx", "transformer_moe",
-             "seft", "grud", "grud_bce", "mtand", "mtgnn", "dgm2", "ipnet")
+MODELS = ("raindrop", "raindrop_v1", "transformer", "transformer_ctx",
+          "transformer_moe", "seft", "grud", "grud_bce", "mtand", "mtgnn", "dgm2",
+          "ipnet")
 
 
 def str2bool(v: str) -> bool:
@@ -58,8 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["no_imputation", "mean", "forward",
                             "cubic_spline", "knn", "mice"])
     # explicit versions of the reference's hidden knobs
-    p.add_argument("--model", default="raindrop", choices=["raindrop", *BASELINES],
-                   help="only raindrop runs on the port so far")
+    p.add_argument("--model", default="raindrop", choices=list(MODELS))
     p.add_argument("--use-beta", type=str2bool, default=False)
     p.add_argument("--sensor-wise-mask", type=str2bool, default=False)
     p.add_argument("--max-len", type=int, default=None,
@@ -140,15 +145,65 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference golden-results array ([3, n_splits] "
                         "percent rows acc/auprc/auroc, the format of "
                         "code/results/standard_phy12.npy)")
+
+    # ---- per-baseline hyperparameter groups: every knob the reference
+    # driver scripts expose, at their published defaults
+    g = p.add_argument_group(
+        "mTAND", "reference code/baselines/mTAND/mTAND_baseline.py:21-52")
+    g.add_argument("--mtand-rec-hidden", type=int, default=32)
+    g.add_argument("--mtand-embed-time", type=int, default=128)
+    g.add_argument("--mtand-num-heads", type=int, default=1)
+    g.add_argument("--mtand-num-ref-points", type=int, default=128)
+    g = p.add_argument_group(
+        "MTGNN", "reference code/baselines/MTGNN_baseline.py:281-289 "
+                 "model construction")
+    g.add_argument("--mtgnn-subgraph-size", type=int, default=20)
+    g.add_argument("--mtgnn-gcn-depth", type=int, default=2)
+    g.add_argument("--mtgnn-conv-channels", type=int, default=16)
+    g.add_argument("--mtgnn-residual-channels", type=int, default=16)
+    g.add_argument("--mtgnn-skip-channels", type=int, default=32)
+    g.add_argument("--mtgnn-end-channels", type=int, default=64)
+    g.add_argument("--mtgnn-layers", type=int, default=5)
+    g.add_argument("--mtgnn-dilation-exponential", type=int, default=2)
+    g.add_argument("--mtgnn-tanhalpha", type=float, default=3.0)
+    g.add_argument("--mtgnn-propalpha", type=float, default=0.05)
+    g = p.add_argument_group(
+        "DGM2-O", "reference code/baselines/DGM2_baseline.py:74-84,305-308")
+    g.add_argument("--dgm2-cluster-num", type=int, default=20)
+    g.add_argument("--dgm2-latent-dim", type=int, default=10)
+    g.add_argument("--dgm2-ode-units", type=int, default=10)
+    g = p.add_argument_group(
+        "IP-Net", "reference code/baselines/IP_Net_baseline.py model args")
+    g.add_argument("--ipnet-ref-points", type=int, default=192)
+    g.add_argument("--ipnet-hid", type=int, default=100)
+    g.add_argument("--ipnet-hours-look-ahead", type=float, default=48.0)
     return p
+
+
+_HP_PREFIXES = {"mtand": "mtand_", "mtgnn": "mtgnn_", "dgm2": "dgm2_",
+                "ipnet": "ipnet_"}
+
+
+def baseline_hp(args) -> dict:
+    """The selected family's --<family>-* flags as the adapter's hp dict
+    (the reference's flag names, underscored)."""
+    pre = _HP_PREFIXES.get(args.model)
+    if not pre:
+        return {}
+    return {k[len(pre):]: v for k, v in vars(args).items() if k.startswith(pre)}
+
+
+def make_model_fns(args, cfg, device="cuda"):
+    """The selected model family's functions (baselines/adapters.ModelFns:
+    init_fn, apply_fn, draw_seeds, update_mask)."""
+    from raindrop_tpu_torch.baselines.adapters import make_baseline, make_flagship
+    if args.model == "raindrop":
+        return make_flagship(cfg, device)
+    return make_baseline(args.model, cfg, baseline_hp(args), device)
 
 
 def refuse_unported(args) -> None:
     """Raise for a flag whose route the port does not run yet."""
-    if args.model != "raindrop":
-        raise NotImplementedError(
-            f"--model {args.model} comes with the baselines slice; the port "
-            f"trains raindrop")
     scale_out = [flag for flag, on in (
         ("--distributed", args.distributed),
         ("--data-parallel", args.data_parallel),
@@ -283,6 +338,42 @@ def compare_golden(path, summary) -> dict:
     return deltas
 
 
+def run_baseline(args, cfg, tcfg, split_fn, device, tracker=None):
+    """The JAX CLI's loop for a baseline family: a Trainer with the family's
+    functions, n_runs per split (a new partition each under
+    --resplit-per-run), the best run of a split by test AUPRC, the mean and
+    std over the splits in percent; the tracker's start (with the model's
+    name), epoch and finish events as run_splits gives them."""
+    from raindrop_tpu_torch.train.trainer import Trainer
+    from raindrop_tpu_torch.utils.tracking import _SafeTracker
+
+    tracker = _SafeTracker(tracker)
+    tracker.start({"dataset": tcfg.dataset, "model": args.model,
+                   "model_config": dict(vars(cfg)),
+                   "train_config": dict(vars(tcfg))})
+    fam = make_model_fns(args, cfg, device)
+    trainer = Trainer(cfg, tcfg, device=device, init_fn=fam.init_fn,
+                      apply_fn=fam.apply_fn, draw_seeds=fam.draw_seeds,
+                      update_mask=fam.update_mask)
+    per_split = []
+    for k in range(1, tcfg.n_splits + 1):
+        base = None if tcfg.resplit_per_run else split_fn(k)
+        runs = [trainer.train_split(
+                    split_fn(k, run=m) if tcfg.resplit_per_run else base,
+                    seed=tcfg.seed + m,
+                    resume_from=args.resume_from if k == 1 and m == 0 else None,
+                    tracker=tracker)
+                for m in range(tcfg.n_runs)]
+        per_split.append(max(runs, key=lambda r: r.test_metrics["auprc"]).test_metrics)
+    summary = {
+        name: {"mean": float(np.mean([m[name] for m in per_split]) * 100),
+               "std": float(np.std([m[name] for m in per_split]) * 100),
+               "per_split": [m[name] * 100 for m in per_split]}
+        for name in per_split[0]}
+    tracker.finish(summary)
+    return {"summary": summary, "per_split": per_split}
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     refuse_unported(args)
@@ -301,8 +392,11 @@ def main(argv=None) -> int:
             return make_split(args, cfg, k, _mr, run)
 
         tracker = JSONLTracker(args.track_jsonl) if args.track_jsonl else None
-        results = run_splits(split_fn, cfg, tcfg, device=device,
-                             resume_from=args.resume_from, tracker=tracker)
+        if args.model == "raindrop":
+            results = run_splits(split_fn, cfg, tcfg, device=device,
+                                 resume_from=args.resume_from, tracker=tracker)
+        else:
+            results = run_baseline(args, cfg, tcfg, split_fn, device, tracker)
         all_results[f"missing_{mr}"] = results["summary"]
         for name, s in results["summary"].items():
             print(f"[mr={mr}] {name:>9} = {s['mean']:.1f} +/- {s['std']:.1f}")

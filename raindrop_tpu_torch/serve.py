@@ -36,9 +36,9 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from raindrop_tpu_torch.baselines.adapters import make_flagship
 from raindrop_tpu_torch.config import RaindropConfig, dataset_config
-from raindrop_tpu_torch.models.raindrop import (
-    compute_params, raindrop_apply, raindrop_init, torch_dtype, warm_propagation)
+from raindrop_tpu_torch.models.raindrop import compute_params, raindrop_init, torch_dtype
 
 _WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -77,6 +77,8 @@ def _resolve(fut, result=None, exc=None):
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_device(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -110,19 +112,21 @@ class InferenceServer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
-        warm_propagation(cfg, self.device)
         self.buckets = sorted(buckets)
         self.transfer_dtype = _WIRE[transfer_dtype]
         self._dtype = torch_dtype(cfg.dtype)
-        # the tree the forward reads: its live leaves in the compute dtype,
-        # cast once (the parameters never change); self.params stays as given
+        # the tree the forward reads: for the flagship its live leaves in
+        # the compute dtype, cast once (the parameters never change);
+        # self.params stays as given
         self._params = self.params
         if apply_fn is None:
+            flagship = make_flagship(cfg, self.device)
             with torch.no_grad():
                 self._params = compute_params(self.params, cfg)
-        self._apply = apply_fn or (
-            lambda p, src, static, times, lengths:
-            raindrop_apply(p, cfg, src, static, times, lengths)[0])
+
+            def apply_fn(p, src, static, times, lengths):
+                return flagship.apply_fn(p, src, static, times, lengths, False, None)[0]
+        self._apply = apply_fn
         self._lock = threading.Lock()
         self.stats = {"requests": 0, "samples": 0, "batches": 0,
                       "coalesced_launches": 0, "coalesced_requests": 0,

@@ -41,16 +41,22 @@ from raindrop_tpu_torch.bridge import array_to_tensor, is_bf16_array, tensor_to_
 
 
 def flatten_params(tree, prefix="") -> List[Tuple[str, Any]]:
-    """(path, leaf) pairs of a nested dict in sorted-key order, the order
-    the JAX package flattens its dict trees in; a path joins the keys with
-    '/', which is also the checkpoint's key format."""
+    """(path, leaf) pairs of nested dicts and lists, the order the JAX
+    package flattens its trees in: a dict's keys sorted, a list's items in
+    index order (a baseline's `layers/0`, `layers/1`, ..., `layers/10`); a
+    path joins the keys and indices with '/', which is also the
+    checkpoint's key format."""
+    if isinstance(tree, dict):
+        items = [(k, tree[k]) for k in sorted(tree)]
+    else:
+        items = list(enumerate(tree))
     out = []
-    for k in sorted(tree):
-        path = f"{prefix}/{k}" if prefix else k
-        if isinstance(tree[k], dict):
-            out.extend(flatten_params(tree[k], path))
+    for k, v in items:
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, (dict, list, tuple)):
+            out.extend(flatten_params(v, path))
         else:
-            out.append((path, tree[k]))
+            out.append((path, v))
     return out
 
 
@@ -92,6 +98,8 @@ def load_checkpoint(path: str, params_template, opt_state_template=None
     def restore(tree, prefix):
         if isinstance(tree, dict):
             return {k: restore(v, f"{prefix}/{k}") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [restore(v, f"{prefix}/{i}") for i, v in enumerate(tree)]
         if prefix not in arrays:
             raise KeyError(f"{path}.npz has no {prefix}")
         a = np.asarray(arrays[prefix])

@@ -19,6 +19,13 @@ ones out, one compiled scan per epoch), this one owns its parameters and
 its optimizer and updates them in place; an epoch is a Python loop of
 steps with one device-to-host copy, of the losses, at its end.
 
+The model is pluggable, as in the JAX trainer: the baselines
+(baselines/adapters.py) hand in their `apply_fn`, `init_fn` and
+`draw_seeds`, and every parameter of theirs is live unless an
+`update_mask` says otherwise; without them the trainer runs Raindrop in
+the same form (adapters.make_flagship). The step, `predict`, `step_flops`,
+`train_split` and the checkpoints all go through `apply_fn`.
+
 The protocol, as the reference runs it: Adam + cross-entropy on
 class-balanced batches, validation after every epoch with the plateau
 scheduler stepped on val AUPRC, the best checkpoint keyed on val AUROC,
@@ -51,13 +58,11 @@ import torch
 import torch._dynamo  # noqa: F401
 
 from raindrop_tpu_torch import bridge
+from raindrop_tpu_torch.baselines.adapters import ModelFns, make_flagship
 from raindrop_tpu_torch.config import RaindropConfig, TrainConfig
 from raindrop_tpu_torch.data.datasets import Split
 from raindrop_tpu_torch.data.prefetch import PrefetchExecutor
 from raindrop_tpu_torch.data.sampler import balanced_batches, n_batches_per_epoch
-from raindrop_tpu_torch.models.raindrop import (
-    prop_branch, raindrop_apply, raindrop_init, raindrop_param_mask,
-    warm_propagation)
 from raindrop_tpu_torch.serve import resolve_device
 from raindrop_tpu_torch.train.checkpoint import (
     flatten_params, load_checkpoint, save_checkpoint)
@@ -66,11 +71,12 @@ from raindrop_tpu_torch.train.metrics import (
 from raindrop_tpu_torch.train.plateau import ReduceLROnPlateau
 from raindrop_tpu_torch.utils.diagnostics import (
     counted_flops, device_peak_flops, frozen_param_report, mfu)
-from raindrop_tpu_torch.utils.dropout import DropoutSeeds
+from raindrop_tpu_torch.utils.dropout import DropoutSeeds, ModelSeeds
 from raindrop_tpu_torch.utils.tracking import _SafeTracker
 
 Batch = Dict[str, torch.Tensor]
-Seeds = Union[DropoutSeeds, Sequence[DropoutSeeds], None]
+Seeds = Union[DropoutSeeds, ModelSeeds, Sequence[Union[DropoutSeeds, ModelSeeds]],
+              None]
 
 
 @dataclasses.dataclass
@@ -90,23 +96,37 @@ class Trainer:
     masked-Adam optimizer on `device`; reusable across splits."""
 
     def __init__(self, cfg: RaindropConfig, tcfg: TrainConfig, device="cuda",
-                 params=None, init_fn=None):
+                 params=None, init_fn=None, apply_fn=None, draw_seeds=None,
+                 update_mask=None):
         """`params`: a parameter tree to train (moved to `device`; its
         leaves become the trainer's own), else `init_fn(tcfg.seed)`.
         `init_fn`: seed -> parameter tree, what `train_split` starts every
-        run from (default `raindrop_init` on the device)."""
+        run from (default the model's own).
+
+        The model (baselines/adapters.ModelFns): `apply_fn(params, src,
+        static, times, lengths, train, seeds)` -> (logits, aux),
+        `draw_seeds(generator, rows)` the seeds one of its training
+        forwards consumes (None: it drops nothing); without an apply_fn,
+        Raindrop (adapters.make_flagship). `update_mask`: a tree of bools
+        over the parameters, False for a leaf Adam leaves alone; by default
+        the model's own: raindrop_param_mask for the flagship, every leaf
+        live for an `apply_fn` (the JAX trainer's update_mask=None)."""
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = dev = resolve_device(device)
-        # the default init closes over the device, not over self: a cycle
-        # would keep a dropped trainer's parameters (7 GB at PAM's width on
-        # a 2048-step window) alive until the cyclic collector runs
-        self._init = init_fn or (lambda seed: raindrop_init(seed, cfg, device=dev))
+        # the model's functions close over cfg and the device, not over
+        # self: a cycle would keep a dropped trainer's parameters (7 GB at
+        # PAM's width on a 2048-step window) alive until the cyclic
+        # collector runs
+        model = (make_flagship(cfg, dev) if apply_fn is None
+                 else ModelFns(init_fn, apply_fn, draw_seeds))
+        self._init = init_fn or model.init_fn
+        self._apply, self._draw = model.apply_fn, model.draw_seeds
+        self._update_mask = model.update_mask if update_mask is None else update_mask
         # the trainer's own seed stream (dropout masks), on the host so a
         # draw never waits for the card
         self._seed_gen = torch.Generator().manual_seed(tcfg.seed)
         self.set_params(self._init(tcfg.seed) if params is None else params)
-        warm_propagation(cfg, self.device)
 
     # ---- parameters and optimizer ---------------------------------------
     def set_params(self, params) -> None:
@@ -116,14 +136,19 @@ class Trainer:
         def own(tree):
             if isinstance(tree, dict):
                 return {k: own(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return [own(v) for v in tree]
             return tree.detach().to(device).clone()
 
         self.params = own(params)
-        mask = dict(flatten_params(raindrop_param_mask(self.cfg)))
         leaves = flatten_params(self.params)
+        if self._update_mask is None:
+            mask = {path: True for path, _ in leaves}
+        else:
+            mask = dict(flatten_params(self._update_mask))
         if {path for path, _ in leaves} != set(mask):
-            raise ValueError("params do not have the tree of raindrop_init "
-                             "for this config")
+            raise ValueError("params do not have the tree of the model's "
+                             "update mask")
         self.live = [(path, t) for path, t in leaves if mask[path]]
         self.dead = [(path, t) for path, t in leaves if not mask[path]]
         for _, t in self.live:
@@ -172,48 +197,37 @@ class Trainer:
         live = {path for path, _ in self.live}
 
         def walk(tree, prefix):
-            out = {}
-            for k, v in tree.items():
-                path = f"{prefix}/{k}" if prefix else k
-                if isinstance(v, dict):
-                    out[k] = walk(v, path)
-                else:
-                    out[k] = v.detach().clone() if path in live else v.detach()
-            return out
+            if isinstance(tree, (list, tuple)):
+                return [walk(v, f"{prefix}/{i}") for i, v in enumerate(tree)]
+            if isinstance(tree, dict):
+                return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                        for k, v in tree.items()}
+            return tree.detach().clone() if prefix in live else tree.detach()
 
         return walk(self.params, "")
 
     def draw_seeds(self, rows: int = 0,
                    generator: Optional[torch.Generator] = None) -> Seeds:
         """The seeds one train_step on a batch of `rows` samples consumes,
-        from the trainer's stream (or from `generator`). Only the COO
-        propagation branch with prop_dropout reads per-sample seeds, and
-        only the dense use_beta block the two of its own, so only then are
-        they drawn."""
+        from the trainer's stream (or from `generator`): the model's
+        draw_seeds once per microbatch, None for a model that drops
+        nothing."""
+        if self._draw is None:
+            return None
         gen = self._seed_gen if generator is None else generator
         n = self.tcfg.grad_microbatches
-        branch = prop_branch(self.cfg, True, False)
-        drops = self.cfg.prop_dropout > 0.0
-        per_sample = drops and branch == "coo"
-        beta = drops and branch == "dense" and self.cfg.use_beta
-        draws = [DropoutSeeds.draw(gen, self.cfg.nlayers,
-                                   rows // n if per_sample else 0, beta)
-                 for _ in range(n)]
+        draws = [self._draw(gen, rows // n) for _ in range(n)]
         return draws[0] if n == 1 else draws
 
-    def _drops(self) -> bool:
-        return self.cfg.dropout > 0.0 or self.cfg.prop_dropout > 0.0
-
     # ---- the step --------------------------------------------------------
-    def loss_fn(self, batch: Batch, seeds: Optional[DropoutSeeds]):
+    def loss_fn(self, batch: Batch, seeds):
         """Batch-major batch {"P" [B, T, 2F], "time" [B, T], "y" [B],
         "static" [B, S] (optional)} -> (loss, (logits, aux))."""
         src = batch["P"].transpose(0, 1)
         times = batch["time"].transpose(0, 1)
         lengths = (times > 0).sum(dim=0)
-        logits, aux = raindrop_apply(
-            self.params, self.cfg, src, batch.get("static"), times, lengths,
-            train=True, seeds=seeds)
+        logits, aux = self._apply(self.params, src, batch.get("static"), times,
+                                  lengths, True, seeds)
         loss = torch.nn.functional.cross_entropy(logits, batch["y"].long())
         if self.tcfg.aux_loss_weight:
             loss = loss + self.tcfg.aux_loss_weight * aux.sum()
@@ -225,7 +239,7 @@ class Trainer:
         n_micro = self.tcfg.grad_microbatches
         self.optimizer.zero_grad(set_to_none=True)
         if n_micro == 1:
-            if seeds is not None and not isinstance(seeds, DropoutSeeds):
+            if isinstance(seeds, (list, tuple)):
                 (seeds,) = seeds
             loss, (logits, _) = self.loss_fn(batch, seeds)
             loss.backward()
@@ -237,9 +251,9 @@ class Trainer:
                 f"{n_micro} (strategy-2 batches hold 2*(batch_size//2) samples)")
         if seeds is None:
             seeds = [None] * n_micro
-        if isinstance(seeds, DropoutSeeds) or len(seeds) != n_micro:
+        if not isinstance(seeds, (list, tuple)) or len(seeds) != n_micro:
             raise ValueError(f"grad_microbatches={n_micro} needs that many "
-                             f"DropoutSeeds, one per chunk")
+                             f"seed sets, one per chunk")
         per = rows // n_micro
         # the chunks' gradients add up in f32 and their mean is taken back
         # to each parameter's dtype, as the JAX trainer's accumulator does
@@ -264,10 +278,11 @@ class Trainer:
 
     def train_step(self, batch: Batch, seeds: Seeds = None):
         """One optimizer step on a device batch. `seeds`: a DropoutSeeds
-        (a sequence of grad_microbatches of them when that is > 1); None
-        draws from the trainer's own stream. Returns (loss, logits) on the
+        (a pluggable model's: what its draw_seeds returns; a sequence of
+        grad_microbatches of them when that is > 1); None draws from the
+        trainer's own stream. Returns (loss, logits) on the
         device, without synchronising."""
-        if seeds is None and self._drops():
+        if seeds is None:
             seeds = self.draw_seeds(batch["P"].shape[0])
         loss, logits = self._backward(batch, seeds)
         self.optimizer.step()
@@ -307,8 +322,7 @@ class Trainer:
         from the trainer's stream. The kernels' launch counts do see it."""
         rows = batch["P"].shape[0]
         n_micro = self.tcfg.grad_microbatches
-        seeds = (self.draw_seeds(rows, torch.Generator().manual_seed(0))
-                 if self._drops() else None)
+        seeds = self.draw_seeds(rows, torch.Generator().manual_seed(0))
         chunks = [seeds] if n_micro == 1 else (seeds or [None] * n_micro)
         live = [t for _, t in self.live]
         per = rows // n_micro
@@ -342,10 +356,10 @@ class Trainer:
             idxb = np.concatenate([np.arange(start, end),
                                    np.full(batch_size - n, end - 1, np.int64)])
             times = dev(time[idxb]).transpose(0, 1)
-            logits, _ = raindrop_apply(
-                params, self.cfg, dev(P[idxb]).transpose(0, 1),
+            logits, _ = self._apply(
+                params, dev(P[idxb]).transpose(0, 1),
                 None if static is None else dev(static[idxb]), times,
-                (times > 0).sum(dim=0), train=False)
+                (times > 0).sum(dim=0), False, None)
             out[start:end] = logits[:n].to("cpu", torch.float32).numpy()
         return out
 

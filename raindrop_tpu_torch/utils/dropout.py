@@ -11,13 +11,14 @@ The arithmetic runs in int64 masked to 32 bits (torch's uint32 lacks
 arange, shifts and comparisons on some builds); a product of two values
 below 2**32 wraps modulo 2**64, which leaves its low 32 bits right.
 
-`DropoutSeeds` holds every seed one training forward consumes.
+`DropoutSeeds` holds every seed one training forward of the flagship
+consumes, `ModelSeeds` those of a baseline family's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -127,3 +128,36 @@ class DropoutSeeds:
                 if beta else ())
         return DropoutSeeds(raw[0], raw[1], raw[2], layers,
                             tuple(raw[n: n + rows]), tuple(raw[n + rows:]), pair)
+
+
+@dataclass(frozen=True)
+class ModelSeeds:
+    """Every seed one training forward of a baseline family consumes
+    (baselines/adapters.py), mirroring that family's JAX key tree: `embed`
+    the input dropout, `layers` one LayerSeeds per encoder layer, `steps`
+    one seed per recurrence step (GRU-D) or per layer (MTGNN's
+    fold_in(r_drop, i)), `graph_noise` MTGNN's train-mode U[0, 1) draw
+    [N, N] (the JAX package draws it with `jax.random.uniform`, which no
+    hash reproduces, so it travels as a tensor). A family reads the fields
+    it has."""
+    embed: int = 0
+    layers: Tuple[LayerSeeds, ...] = ()
+    steps: Tuple[int, ...] = ()
+    graph_noise: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def draw(generator: torch.Generator, nlayers: int = 0, steps: int = 0,
+             noise_shape: Optional[Tuple[int, ...]] = None) -> "ModelSeeds":
+        """Fill `embed`, `nlayers` LayerSeeds and `steps` step seeds from
+        `generator`, and with `noise_shape` a U[0, 1) draw of that shape on
+        the generator's device."""
+        n = 1 + 5 * nlayers
+        raw = torch.randint(0, 2 ** 32, (n + steps,), generator=generator,
+                            dtype=torch.int64, device=generator.device).tolist()
+        layers = tuple(
+            LayerSeeds(raw[1 + 5 * i] % (2 ** 31 - 1), *raw[2 + 5 * i: 6 + 5 * i])
+            for i in range(nlayers))
+        noise = (None if noise_shape is None else
+                 torch.rand(tuple(noise_shape), generator=generator,
+                            device=generator.device))
+        return ModelSeeds(raw[0], layers, tuple(raw[n:]), noise)

@@ -22,9 +22,9 @@ B, D, NHEAD, SEED = 3, 16, 2, 424242
 TOL = {None: 1e-5, "bfloat16": 2e-2}
 
 
-def _inputs(T, seed=0):
+def _inputs(T, seed=0, d=D):
     rng = np.random.default_rng(seed)
-    q, k, v, g = (rng.normal(size=(B, T, D)).astype(np.float32) for _ in range(4))
+    q, k, v, g = (rng.normal(size=(B, T, d)).astype(np.float32) for _ in range(4))
     return q, k, v, g, np.array([T, T - 5, 0], np.int32)
 
 
@@ -38,9 +38,12 @@ def _jax(q, k, v, g, lengths, rate, cd):
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
-@pytest.mark.parametrize("T", [16, 37])
-def test_forward_and_gradients_match_jax_vjp(T, cd, rate):
-    q, k, v, g, lengths = _inputs(T, seed=T)
+# hd 8 (D / NHEAD), and the baselines' head dims 15 (the transformer at
+# eICU) and 26 (at P12)
+@pytest.mark.parametrize("T,hd", [(16, 8), (37, 8), (24, 15), (21, 26)],
+                         ids=["16", "37", "24-hd15", "21-hd26"])
+def test_forward_and_gradients_match_jax_vjp(T, hd, cd, rate):
+    q, k, v, g, lengths = _inputs(T, seed=T, d=NHEAD * hd)
     jo, jgrads = _jax(q, k, v, g, lengths, rate, cd)
     assert all(np.isfinite(x).all() for x in jgrads)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))

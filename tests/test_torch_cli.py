@@ -1,10 +1,12 @@
 """The port's experiment CLI (`python -m raindrop_tpu_torch.run`), in process
 on tiny synthetic data and dataset files, on the CPU (--device cpu): the
-raindrop cases of tests/test_cli.py, the flags that wait for later slices,
-and the JAX package's run.py on the same command line: the same model and
-training configurations field for field, and the same splits array for
-array (both packages' run_splits replaced by a recorder, so nothing
-trains)."""
+raindrop cases of tests/test_cli.py, every --model, the flags that wait
+for later slices, and the JAX package's run.py on the same command line:
+the same model and training configurations field for field, and the same
+splits array for array (both packages' run_splits, and for a baseline
+their Trainer, replaced by a recorder, so nothing trains; a baseline's
+recorder also holds the init's tree shapes, so its --<family>-* flags
+reach the model the same way)."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import json
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ import torch
 import raindrop_tpu.train as jtrain
 from raindrop_tpu import run as jrun
 from test_torch_load_split import assert_splits_equal, write_root
+from tests.torch_port_util import without_meta
 
 from raindrop_tpu_torch import run
 from raindrop_tpu_torch.train import trainer as ttrainer
@@ -38,6 +42,29 @@ def _run(tmp_path, *extra, out="out.json"):
     assert rc == 0
     with open(out_path) as f:
         return json.load(f)
+
+
+# smaller hyperparameter groups than the published ones keep these CPU runs
+# short (MTGNN's 5 layers pad T to a receptive field of 187); the recorder
+# case with --mtgnn-layers below checks that a group's flags reach the model
+SMALL_HP = {"mtgnn": ["--mtgnn-layers", "2"],
+            "mtand": ["--mtand-num-ref-points", "16", "--mtand-embed-time", "16"],
+            "ipnet": ["--ipnet-ref-points", "24", "--ipnet-hid", "16"]}
+
+
+@pytest.mark.parametrize("model", run.MODELS[1:])
+def test_cli_every_model_smoke(tmp_path, model):
+    """Each baseline family through the CLI on the CPU: eICU's widths at
+    max_len 16 (Raindrop v1's edges need max_len >= d_inp = 14)."""
+    res = _run(tmp_path, "--model", model, "--dataset", "eICU", "--max-len", "16",
+               "--synthetic", "40", "--track-jsonl", str(tmp_path / "t.jsonl"),
+               *SMALL_HP.get(model, []))
+    acc = res["missing_0.0"]["accuracy"]["mean"]
+    assert np.isfinite(acc) and 0 <= acc <= 100
+    events = [json.loads(ln) for ln in (tmp_path / "t.jsonl").read_text().splitlines()]
+    assert [e["event"] for e in events] == ["start", "epoch", "finish"]
+    assert np.isfinite(events[1]["train_loss"])
+    assert events[0]["config"]["model"] == model
 
 
 def test_cli_raindrop_smoke(tmp_path, capsys):
@@ -109,9 +136,6 @@ def test_cli_track_jsonl_lifecycle(tmp_path):
 def test_cli_refuses_unknown_baseline_and_scale_out(tmp_path):
     with pytest.raises(SystemExit):
         run.main(["--model", "nope"])
-    for model in ("transformer", "grud", "raindrop_v1"):
-        with pytest.raises(NotImplementedError, match="baselines slice"):
-            run.main(["--model", model, "--synthetic", "8", "--device", "cpu"])
     for flags in (["--distributed", "true"], ["--data-parallel", "2"],
                   ["--model-parallel", "2"], ["--context-parallel", "ring"],
                   ["--pipeline-microbatches", "2"], ["--edge-partition", "true"]):
@@ -132,19 +156,45 @@ def test_cli_without_cuda_stops_unless_asked_for_the_cpu(tmp_path):
     assert out.returncode != 0 and not (tmp_path / "o.json").exists()
 
 
+def _shapes(tree):
+    """{path: shape} of a parameter tree of either package (`_meta` left out)."""
+    from raindrop_tpu_torch.train.checkpoint import flatten_params
+
+    return dict(flatten_params(without_meta(tree, lambda a: tuple(np.shape(a)))))
+
+
 def _recorded(monkeypatch, argv):
-    """(cfg, tcfgs, make_split) that each package's main hands run_splits."""
+    """Per package, what its main hands run_splits (cfg, tcfg, make_split)
+    or, for a baseline, its Trainer: (cfg, tcfg, [(split, seed, resume_from)
+    of every train_split call], the init's tree shapes)."""
+    import jax
+
     seen = {}
 
     def recorder(side):
         def fake(make_split, cfg, tcfg, **kw):
-            seen.setdefault(side, []).append((cfg, tcfg, make_split))
+            seen.setdefault(side, []).append((cfg, tcfg, make_split, None))
             return {"summary": {"auroc": {"mean": 50.0, "std": 0.0,
                                           "per_split": [50.0]}}}
         return fake
 
+    def trainer(side):
+        class FakeTrainer:
+            def __init__(self, cfg, tcfg, *a, init_fn=None, **kw):
+                key = jax.random.PRNGKey(0) if side == "jax" else 0
+                self.calls = []
+                seen.setdefault(side, []).append(
+                    (cfg, tcfg, self.calls, _shapes(init_fn(key))))
+
+            def train_split(self, split, *, seed=None, resume_from=None, **kw):
+                self.calls.append((split, seed, resume_from))
+                return SimpleNamespace(test_metrics={"auroc": 0.5, "auprc": 0.5})
+        return FakeTrainer
+
     monkeypatch.setattr(jtrain, "run_splits", recorder("jax"))
     monkeypatch.setattr(ttrainer, "run_splits", recorder("port"))
+    monkeypatch.setattr(jtrain, "Trainer", trainer("jax"))
+    monkeypatch.setattr(ttrainer, "Trainer", trainer("port"))
     assert jrun.main(argv) == 0
     assert run.main([*argv, "--device", "cpu"]) == 0
     return seen["jax"], seen["port"]
@@ -160,16 +210,28 @@ def _recorded(monkeypatch, argv):
      "--sensor-wise-mask", "true", "--prop-backend", "pallas", "--resplit-per-run",
      "true", "--n-runs", "2", "--grad-microbatches", "2", "--seed", "3",
      "--withmissingratio", "true", "--feature_removal_level", "sample"],
+    ["--dataset", "P19", "--synthetic", "40", "--max-len", "8", "--model",
+     "transformer", "--resplit-per-run", "true", "--n-runs", "2", "--n-splits", "2"],
+    ["--dataset", "P19", "--synthetic", "40", "--max-len", "8", "--model", "mtgnn",
+     "--mtgnn-layers", "3", "--n-splits", "2", "--seed", "2"],
 ])
 def test_same_argv_same_configs_and_splits_as_the_jax_cli(monkeypatch, argv):
     monkeypatch.setenv("RAINDROP_TPU_NATIVE", "0")
     jax_calls, port_calls = _recorded(monkeypatch, argv)
     assert len(jax_calls) == len(port_calls) >= 1
-    for (jcfg, jtcfg, jsplit), (cfg, tcfg, split) in zip(jax_calls, port_calls):
+    for (jcfg, jtcfg, jsplit, jshapes), (cfg, tcfg, split, shapes) in zip(
+            jax_calls, port_calls):
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert dataclasses.asdict(tcfg) == dataclasses.asdict(jtcfg)
-        for k, kw in ((1, {}), (2, {}), (1, {"run": 1})):
-            assert_splits_equal(split(k, **kw), jsplit(k, **kw))
+        if jshapes is None:          # the flagship: run_splits's make_split
+            for k, kw in ((1, {}), (2, {}), (1, {"run": 1})):
+                assert_splits_equal(split(k, **kw), jsplit(k, **kw))
+            continue
+        assert shapes == jshapes
+        assert len(split) == len(jsplit) == tcfg.n_splits * tcfg.n_runs
+        for (sp, seed, resume), (jsp, jseed, jresume) in zip(split, jsplit):
+            assert (seed, resume) == (jseed, jresume)
+            assert_splits_equal(sp, jsp)
 
 
 def test_same_argv_same_splits_from_files(monkeypatch, tmp_path):

@@ -47,7 +47,22 @@ def test_the_module_list_covers_the_training_slice():
                     "raindrop_tpu_torch.data.settings",
                     "raindrop_tpu_torch.data.imputation",
                     "raindrop_tpu_torch.data.prefetch",
-                    "raindrop_tpu_torch.run"}
+                    "raindrop_tpu_torch.run",
+                    # the baselines' slice
+                    "raindrop_tpu_torch.baselines",
+                    "raindrop_tpu_torch.baselines.adapters",
+                    "raindrop_tpu_torch.baselines.transformer",
+                    "raindrop_tpu_torch.baselines.transformer_ctx",
+                    "raindrop_tpu_torch.baselines.transformer_moe",
+                    "raindrop_tpu_torch.baselines.seft",
+                    "raindrop_tpu_torch.baselines.grud",
+                    "raindrop_tpu_torch.baselines.mtand",
+                    "raindrop_tpu_torch.baselines.ipnet",
+                    "raindrop_tpu_torch.baselines.mtgnn",
+                    "raindrop_tpu_torch.baselines.dgm2",
+                    "raindrop_tpu_torch.parallel.expert",
+                    "raindrop_tpu_torch.graph.transformer_conv",
+                    "raindrop_tpu_torch.models.raindrop_v1"}
 
 
 def test_every_module_imports_with_jax_blocked():

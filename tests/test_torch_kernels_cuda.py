@@ -118,6 +118,39 @@ def test_flash_backward_matches_plain(gen, T, d, nhead, cd, rate):
         assert _sample_err(a, b, lengths) <= SAMPLE_TOL[cd]
 
 
+# the baselines' head dims at their T (baselines/): the transformer at eICU
+# (hd 15: 2-byte copies) and P12 (hd 26: 4-byte copies), Raindrop v1 at
+# eICU (hd 35, 2 bytes) and P12 (hd 90, 4 bytes)
+BASELINE_HEADS = [(300, 15), (215, 26), (300, 35), (215, 90)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("T,hd", BASELINE_HEADS)
+def test_packed_pair_at_the_baselines_head_dims(gen, T, hd, cd, rate):
+    B, nhead = 8, 2
+    d = nhead * hd
+    q, k, v, g = (torch.randn((B, T, d), generator=gen, device="cuda")
+                  for _ in range(4))
+    lengths = _lengths(gen, B, T)
+    od = fa.operand_dtype(cd)
+    plan = fa.packed_plan(B, T, d, nhead, od)
+    assert plan.route == ("tc" if cd else "scalar")
+    before = (fa.flash_mha_packed.launches, fa.flash_mha_packed.bwd_launches)
+    o, lse = fa._packed_fwd(q, k, v, lengths, SEED, rate, cd, nhead)
+    got = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
+    assert (fa.flash_mha_packed.launches, fa.flash_mha_packed.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    po, plse = fa._packed_fwd_plain(q, k, v, lengths, nhead, od, SEED, rate)
+    want = fa._packed_bwd_plain(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
+    torch.cuda.synchronize()
+    assert (o - po).abs().max().item() <= TOL[cd]
+    assert (lse - plse).abs().max().item() <= TOL[cd]
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and (a[0] == 0).all()
+        assert _sample_err(a, b, lengths) <= SAMPLE_TOL[cd]
+
+
 def test_flash_autograd_reaches_the_backward_kernels(gen):
     q, k, v = (torch.randn((3, 40, 16), generator=gen, device="cuda",
                            requires_grad=True) for _ in range(3))

@@ -85,3 +85,87 @@ def model_batch(cfg, B, seed=1, lengths=None):
     static = (rng.normal(size=(B, cfg.d_static)).astype(np.float32)
               if cfg.static else None)
     return src, static, times, np.asarray(lengths, np.int32)
+
+
+def baseline_seeds_from_jax_key(name, rng, cfg, hp=None):
+    """The ModelSeeds a baseline family's JAX `apply(..., train=True,
+    rng=rng)` consumes, by the same splits (baselines/adapters.py), or None
+    for a family without dropout. MTGNN's graph noise is JAX's own
+    uniform draw."""
+    from raindrop_tpu_torch.utils.dropout import LayerSeeds, ModelSeeds
+
+    n = cfg.nlayers
+
+    def encoder(key):
+        keys = jax.random.split(key, 4 * n)
+        return tuple(layer_seeds(keys[4 * i: 4 * i + 4]) for i in range(n))
+
+    if name == "transformer":
+        r_drop, r_trans = jax.random.split(rng)
+        return ModelSeeds(seed32(r_drop), encoder(r_trans))
+    if name == "transformer_ctx":
+        return ModelSeeds(0, encoder(rng))
+    if name == "transformer_moe":
+        r = jax.random.split(rng, 1 + 3 * n)
+        return ModelSeeds(seed32(r[0]), tuple(
+            LayerSeeds(kernel_seed(r[1 + 3 * i]), seed32(r[1 + 3 * i]),
+                       seed32(r[2 + 3 * i]), 0, seed32(r[3 + 3 * i]))
+            for i in range(n)))
+    if name == "raindrop_v1":
+        r_drop, _, r_trans = jax.random.split(rng, 3)
+        return ModelSeeds(seed32(r_drop), encoder(r_trans))
+    if name in ("grud", "grud_bce"):
+        return ModelSeeds(steps=tuple(seed32(k) for k in
+                                      jax.random.split(rng, cfg.max_len)))
+    if name == "mtgnn":
+        layers = (hp or {}).get("layers", 5)
+        r_adj, r_drop = jax.random.split(rng)
+        noise = np.asarray(jax.random.uniform(r_adj, (cfg.d_inp, cfg.d_inp)))
+        return ModelSeeds(seed32(r_drop),
+                          steps=tuple(seed32(jax.random.fold_in(r_drop, i))
+                                      for i in range(layers)),
+                          graph_noise=torch.from_numpy(noise.copy()))
+    return None
+
+
+def without_meta(tree, leaf=np.asarray):
+    """A JAX baseline tree (nested dicts and lists) without its static
+    `_meta` entries, each leaf through `leaf`: the port's tree."""
+    if isinstance(tree, dict):
+        return {k: without_meta(v, leaf) for k, v in tree.items() if k != "_meta"}
+    if isinstance(tree, (list, tuple)):
+        return [without_meta(v, leaf) for v in tree]
+    return leaf(tree)
+
+
+
+def jax_baseline_params(name, hp=None, seed=0, dataset="eICU", **cfg_kw):
+    """A baseline family's parameters in the JAX package's tree (its
+    `_meta` included), as numpy arrays: the port's init from `seed` laid
+    on the tree of the JAX adapter's init (jax.eval_shape: traced, no
+    program compiled), every leaf's path, shape and dtype checked against
+    it."""
+    from raindrop_tpu.baselines import adapters as jadapters
+    from raindrop_tpu.config import dataset_config as jax_dataset_config
+
+    from raindrop_tpu_torch.baselines import adapters
+    from raindrop_tpu_torch.bridge import params_to_numpy
+    from raindrop_tpu_torch.config import dataset_config
+    from raindrop_tpu_torch.train.checkpoint import flatten_params
+
+    jinit, _ = jadapters.make_baseline(
+        name, jax_dataset_config(dataset, **cfg_kw), dict(hp or {}))
+    port = adapters.make_baseline(name, dataset_config(dataset, **cfg_kw), hp,
+                                  device="cpu").init_fn(seed)
+    leaves = dict(flatten_params(params_to_numpy(port)))
+
+    def leaf(path, want):
+        a = leaves.pop("/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                                for k in path))
+        assert a.shape == want.shape and a.dtype == want.dtype, (path, a.shape, want)
+        return a
+
+    tree = jax.tree_util.tree_map_with_path(
+        leaf, jax.eval_shape(jinit, jax.random.PRNGKey(0)))
+    assert not leaves, sorted(leaves)
+    return tree
