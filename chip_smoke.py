@@ -178,6 +178,22 @@ check does not hold:
      --measure-mfu); the packed pair in bf16 at hd 15, 26, 32, 35 and 90,
      B=128, at the families' T (215, 216, 300), forward and backward
      against the plain versions (sample_err), timed beside SDPA;
+ 14h. reference checkpoints imported (migrate_phase): P12 and PAM at full
+     width and depth, a seeded init written as a reference Raindrop_v2
+     state dict (torch.save), imported by the migrate CLI's main and loaded
+     with load_checkpoint, served on 128 rows: bit-equal to the seeded
+     model's server, within 2e-2 of the dense plain attention, every
+     flash_mha_packed (P12) / fused_encoder_layer (PAM) launch on the
+     tensor cores; 3 Trainer steps of the imported P12 model (the packed
+     backward launched, finite losses); an mTAND state dict in the
+     reference's {'rec_state_dict': ...} wrapper imported the same way and
+     mtand_apply run on variable_time_collate's batch of
+     records_from_dense records, the card against the CPU within 1e-5;
+ 14i. raw PhysioNet-2012 text for RAW_PATIENTS (400) patients from --seed
+     through `preprocess parse` and `splits` (the csv module, no pandas)
+     into the CLI: 1 epoch of P12 at full width and depth, finite loss and
+     metrics, the packed pair launched forward and backward, every launch
+     on the tensor cores, the epoch record's MFU in (0, 1);
  15. ob_propagate_selfattention (N=36, D=860, 2 heads) on a kNN and on the
      complete graph, score_backend 'sddmm' against 'gather', value and
      gradient w.r.t. x; one sddmm launch a graph each way;
@@ -267,7 +283,8 @@ attention launchers on "tc_wide" at PAM-sw, and flash_mha forward and
 backward at PAM-sw-2048's hd 170; the fused layer's list the CUDA kernels
 of its tensor-core route and of the previous design, and its launches, and
 flash_mha's, are the tensor-core ones; rows 1 and 2 also carry the
-baseline families' launches and the errors at their head dims), the last
+baseline families' launches and the errors at their head dims, and rows
+1-3 the launches of phases 14h and 14i under "import_launches"), the last
 line the result. `--out PATH` also
 writes every number to PATH as JSON.
 """
@@ -3678,6 +3695,270 @@ def baselines_phase(wrappers, card, device="cuda", seed=0, batch=128):
     return out
 
 
+# ---------------------------------------- checkpoint import and raw text
+def _linear_sd(sd, name, p):
+    sd[name + ".weight"] = p["w"]
+    if "b" in p:
+        sd[name + ".bias"] = p["b"]
+
+
+def raindrop_state_dict(params):
+    """The reference Raindrop_v2 state dict (code/models_rd.py:208-276) of
+    the port's parameter tree: the inverse of migrate.import_raindrop's
+    names (this script keeps its own copy), the leaves as they are."""
+    sd = {"R_u": params["R_u"]}
+    _linear_sd(sd, "encoder", params["encoder"])
+    for layer in ("ob_propagation", "ob_propagation_layer2"):
+        p = params[layer]
+        for lin in ("lin_key", "lin_query", "lin_value", "lin_skip", "increase_dim"):
+            _linear_sd(sd, f"{layer}.{lin}", p[lin])
+        for k in ("weight", "bias", "nodewise_weights", "map_weights"):
+            sd[f"{layer}.{k}"] = p[k]
+    for name, p in params["transformer_encoder"].items():
+        pre = f"transformer_encoder.layers.{int(name[len('layer'):])}."
+        sd[pre + "self_attn.in_proj_weight"] = p["in_proj_w"]
+        sd[pre + "self_attn.in_proj_bias"] = p["in_proj_b"]
+        _linear_sd(sd, pre + "self_attn.out_proj", p["out_proj"])
+        _linear_sd(sd, pre + "linear1", p["lin1"])
+        _linear_sd(sd, pre + "linear2", p["lin2"])
+        for i in (1, 2):
+            sd[pre + f"norm{i}.weight"] = p[f"ln{i}"]["scale"]
+            sd[pre + f"norm{i}.bias"] = p[f"ln{i}"]["bias"]
+    _linear_sd(sd, "mlp_static.0", params["mlp_static"]["lin0"])
+    _linear_sd(sd, "mlp_static.2", params["mlp_static"]["lin1"])
+    if "emb" in params:
+        _linear_sd(sd, "emb", params["emb"])
+    return sd
+
+
+def mtand_state_dict(params):
+    """The reference enc_mtan_classif state dict (code/baselines/mTAND/
+    models.py:54-100) of the port's mTAND tree: the inverse of
+    migrate.import_mtand's names; the query points are the constructor's
+    linspace, not a state-dict entry."""
+    sd = {}
+    for ours, theirs in (("att_q", "att.linears.0"), ("att_k", "att.linears.1"),
+                         ("att_out", "att.linears.2"), ("periodic", "periodic"),
+                         ("linear", "linear")):
+        _linear_sd(sd, theirs, params[ours])
+    for i, j in ((0, 0), (1, 2), (2, 4)):
+        _linear_sd(sd, f"classifier.{j}", params["classifier"][f"lin{i}"])
+    for k in ("w_ih", "w_hh", "b_ih", "b_hh"):
+        sd[f"enc.{k.replace('w_', 'weight_').replace('b_', 'bias_')}_l0"] = params["gru"][k]
+    return sd
+
+
+def _tree_equal(a, b):
+    import torch
+    from raindrop_tpu_torch.train.checkpoint import flatten_params
+
+    fa, fb = flatten_params(a), flatten_params(b)
+    return [k for k, _ in fa] == [k for k, _ in fb] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(fa, fb))
+
+
+def migrate_phase(wrappers, device="cuda", seed=0, batch=128, steps=3, mtand_rows=16):
+    """Reference checkpoints imported and served (python -m
+    raindrop_tpu_torch.migrate). For P12 and PAM at full width and depth:
+    a seeded init written as a reference Raindrop_v2 state dict
+    (raindrop_state_dict, torch.save), imported with the migrate CLI,
+    loaded with load_checkpoint into another seed's init (the parameters
+    bit-equal to the seeded ones), and served on `batch` requests: the
+    probabilities bit-equal to the seeded model's server (the same
+    parameters through the same kernels) and within TOL['bfloat16'] of
+    the dense plain attention; flash_mha_packed (P12) and
+    fused_encoder_layer (PAM) launched, every launch on the tensor cores.
+    Then `steps` Trainer steps of the imported P12 model (finite losses,
+    flash_mha_packed's backward launched on the tensor cores). Last, an
+    mTAND state dict in the reference's {'rec_state_dict': ...} wrapper
+    imported the same way, and mtand_apply on the card on
+    variable_time_collate's batch of records_from_dense records
+    (`mtand_rows` of P12's requests), held to the CPU's logits within 1e-5
+    relative to max(1, |CPU|). Returns the launch counts and the errors."""
+    import torch
+    from raindrop_tpu_torch import migrate
+    from raindrop_tpu_torch.baselines.adapters import make_baseline
+    from raindrop_tpu_torch.baselines.mtand import mtand_apply
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.data.collate import records_from_dense, variable_time_collate
+    from raindrop_tpu_torch.models.raindrop import raindrop_init
+    from raindrop_tpu_torch.serve import InferenceServer
+    from raindrop_tpu_torch.train.checkpoint import load_checkpoint
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def imported(model, state, template, *extra):
+            pt, base = os.path.join(tmp, f"{model}.pt"), os.path.join(tmp, model)
+            torch.save(state, pt)
+            rc = migrate.main(["--model", model, "--torch", pt, "--out", base, *extra])
+            if rc != 0:
+                raise AssertionError(f"migrate --model {model} returned {rc}")
+            return load_checkpoint(base, template)[0]
+
+        for dataset, check in (("P12", check_tc), ("PAM", check_fused_tc)):
+            cfg = dataset_config(dataset)
+            seeded = raindrop_init(seed, cfg, device=device)
+            sd = {k: v.detach().cpu() for k, v in raindrop_state_dict(seeded).items()}
+            params = imported("raindrop", sd, raindrop_init(seed + 1, cfg, device=device))
+            if not _tree_equal(params, seeded):
+                raise AssertionError(f"imported {dataset}: the parameters are not the "
+                                     f"seeded ones")
+            P, times, static = make_requests(cfg, batch, seed + 1)
+            servers = [InferenceServer(c, p, buckets=(batch,), device=device)
+                       for c, p in ((cfg, seeded), (cfg, params),
+                                    (dataset_config(dataset, **PLAIN_ATTENTION), params))]
+            try:
+                want = servers[0].predict(P, times, static)
+                reset_counts(wrappers)
+                got = servers[1].predict(P, times, static)
+                launches = read_counts(wrappers, "launches")
+                plain = servers[2].predict(P, times, static)
+            finally:
+                for srv in servers:
+                    srv.close()
+            check(f"imported {dataset} serving", launches)
+            plain_err = float(np.abs(got - plain).max())
+            rec = dict(launches=launches, bit_equal=bool(np.array_equal(got, want)),
+                       plain_err=plain_err)
+            print(f"[migrate] {dataset}: served {batch} rows, bit-equal to the seeded "
+                  f"model {rec['bit_equal']}, against the plain attention "
+                  f"{plain_err:.3e}; launches {launches}", flush=True)
+            if not (rec["bit_equal"] and np.isfinite(got).all()
+                    and plain_err <= TOL["bfloat16"]):
+                raise AssertionError(f"imported {dataset}: served probabilities off "
+                                     f"the seeded model's or the plain path's: {rec}")
+            if dataset == "P12":
+                tcfg = TrainConfig(dataset=dataset, batch_size=batch, learning_rate=1e-4)
+                data, _ = make_split(cfg, batch, seed + 2, device)
+                trainer = Trainer(cfg, tcfg, device=device, params=params)
+                reset_counts(wrappers)
+                losses = [float(trainer.train_step(data)[0]) for _ in range(steps)]
+                tf, tb = (read_counts(wrappers, a) for a in ("launches", "bwd_launches"))
+                del trainer
+                check_tc("imported P12 training", tf, tb)
+                print(f"[migrate] P12: {steps} steps of the imported model, losses "
+                      f"{[round(x, 5) for x in losses]}; launches forward {tf}, backward "
+                      f"{tb}", flush=True)
+                if not all(np.isfinite(losses)) or tb["flash_mha_packed"] <= 0:
+                    raise AssertionError(f"imported P12 training: losses {losses}, "
+                                         f"backward launches {tb}")
+                rec.update(losses=losses, train_launches=tf, train_bwd_launches=tb)
+            out[dataset] = rec
+            torch.cuda.empty_cache()
+
+        # mTAND at P12's published widths (the adapter's defaults)
+        cfg = dataset_config("P12")
+        fam = make_baseline("mtand", cfg, device="cpu")
+        source = fam.init_fn(seed)
+        n_ref = int(source["query_points"].shape[0])
+        params = imported("mtand", {"rec_state_dict": mtand_state_dict(source), "epoch": 3},
+                          make_baseline("mtand", cfg, device=device).init_fn(seed + 1),
+                          "--mtand-n-ref", str(n_ref))
+        P, times, _ = make_requests(cfg, mtand_rows, seed + 3)
+        F = cfg.d_inp
+        combined, _ = variable_time_collate(records_from_dense(
+            np.abs(P[..., :F]), times, np.arange(mtand_rows) % 2))
+        x, tt = torch.from_numpy(combined[..., :2 * F]), torch.from_numpy(combined[..., -1])
+        cpu = load_checkpoint(os.path.join(tmp, "mtand"), fam.init_fn(seed + 1))[0]
+        with torch.no_grad():
+            on_card = mtand_apply(params, x.to(device), tt.to(device))[0].cpu()
+            on_cpu = mtand_apply(cpu, x, tt)[0]
+        err = float((on_card - on_cpu).abs().max() / on_cpu.abs().max().clamp(min=1.0))
+        # a state dict carries no query points: the import's linspace
+        want = {**source, "query_points": torch.from_numpy(
+            np.linspace(0.0, 1.0, n_ref, dtype=np.float32))}
+        same = _tree_equal(cpu, want)
+        print(f"[migrate] mTAND ({mtand_rows} records, L={combined.shape[1]}, "
+              f"{2 * F}+1 channels): imported tree equal to the source {same}; logits "
+              f"on the card against the CPU {err:.3e} (limit 1e-5)", flush=True)
+        if not (same and torch.isfinite(on_card).all() and err <= 1e-5):
+            raise AssertionError(f"imported mTAND: tree equal {same}, card against CPU "
+                                 f"{err:.3e}")
+        out["mtand"] = dict(card_vs_cpu=err, tree_equal=same)
+    return out
+
+
+RAW_PATIENTS = 400
+
+
+def write_physionet_raw(root, seed, n=RAW_PATIENTS):
+    """Raw PhysioNet-2012 text for `n` patients from `seed`, in the
+    challenge's layout: root/set-a/<RecordID>.txt (the header, the RecordID
+    line, the 5 statics at 00:00, then 30-180 observations of the 36
+    time-series parameters within 48 h, each parameter at least once
+    across the set) and root/Outcomes-a.txt (in-hospital death for about a
+    third)."""
+    from raindrop_tpu_torch.data.preprocess import STATIC_PARAMS
+    from raindrop_tpu_torch.data.raw_irregular import PHYSIONET_PARAMS
+
+    ts = [p for p in PHYSIONET_PARAMS if p not in STATIC_PARAMS]
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "set-a"))
+    ids = 132539 + np.arange(n)
+    with open(os.path.join(root, "Outcomes-a.txt"), "w") as f:
+        f.write("RecordID,SAPS-I,SOFA,Length_of_stay,Survival,In-hospital_death\n")
+        for rid in ids:
+            f.write(f"{rid},{rng.integers(5, 30)},{rng.integers(0, 15)},"
+                    f"{rng.integers(1, 60)},-1,{int(rng.uniform() < 0.35)}\n")
+    for i, rid in enumerate(ids):
+        lines = ["Time,Parameter,Value", f"00:00,RecordID,{rid}",
+                 f"00:00,Age,{rng.integers(18, 90)}", f"00:00,Gender,{rng.integers(0, 2)}",
+                 f"00:00,Height,{rng.uniform(150, 195):.1f}",
+                 f"00:00,ICUType,{rng.integers(1, 5)}",
+                 f"00:00,Weight,{rng.uniform(45, 130):.1f}"]
+        k = int(rng.integers(30, 181))
+        minutes = np.sort(rng.integers(1, 48 * 60, size=k))
+        params = rng.choice(ts, size=k)
+        if i < len(ts):
+            params[0] = ts[i]
+        for t, p in zip(minutes, params):
+            lines.append(f"{t // 60:02d}:{t % 60:02d},{p},{rng.uniform(0.1, 200):.2f}")
+        with open(os.path.join(root, "set-a", f"{rid}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def raw_physionet_phase(wrappers, seed=0):
+    """Raw PhysioNet-2012 text to training: RAW_PATIENTS patients written
+    from `seed` (write_physionet_raw), `python -m
+    raindrop_tpu_torch.data.preprocess parse` and `splits` on them (no
+    pandas), then the CLI on the result for 1 epoch of one split at P12's
+    full width and depth (load_split on the written root) with MFU
+    telemetry. Checks: the processed arrays' shapes (T=215, 36 sensors, 9
+    statics), rc 0, finite metrics and loss, flash_mha_packed launched
+    forward and backward, every launch on the tensor cores, the epoch
+    record's MFU in (0, 1)."""
+    from raindrop_tpu_torch.data import preprocess
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, root = os.path.join(tmp, "rawdata"), os.path.join(tmp, "P12data")
+        t0 = time.perf_counter()
+        write_physionet_raw(raw, seed)
+        t1 = time.perf_counter()
+        preprocess.main(["parse", "--raw", raw, "--out", os.path.join(root, "processed_data")])
+        preprocess.main(["splits", "--n", str(RAW_PATIENTS), "--out",
+                         os.path.join(root, "splits"), "--seed", str(seed)])
+        parse_s = time.perf_counter() - t1
+        pt = np.load(os.path.join(root, "processed_data", "PTdict_list.npy"),
+                     allow_pickle=True)
+        shapes = {(p["arr"].shape, p["time"].shape, len(p["extended_static"])) for p in pt}
+        if len(pt) != RAW_PATIENTS or shapes != {((215, 36), (215, 1), 9)}:
+            raise AssertionError(f"preprocess parse: {len(pt)} patients, shapes {shapes}")
+        summary, records, fwd, bwd, took = run_cli(wrappers, [
+            "--dataset", "P12", "--data-root", root, "--n-splits", "1", "--epochs", "1",
+            "--measure-mfu", "true", "--seed", str(seed + 1)], "P12 from raw text")
+    check_cli("P12 from raw text", summary, records, "missing_0.0", epochs=1)
+    check_tc("P12 from raw text (CLI)", fwd, bwd)
+    loss = records[0]["train_loss"]
+    if not np.isfinite(loss) or bwd["flash_mha_packed"] <= 0:
+        raise AssertionError(f"P12 from raw text: loss {loss}, backward launches {bwd}")
+    print(f"[raw] P12 from raw text: {RAW_PATIENTS} patients written in {t1 - t0:.1f} s, "
+          f"parse and splits {parse_s:.1f} s, the CLI {took:.1f} s; loss {loss:.5f}; "
+          f"launches forward {fwd}, backward {bwd}", flush=True)
+    return dict(write_s=t1 - t0, parse_s=parse_s, cli_s=took, summary=summary,
+                records=records, launches=fwd, bwd_launches=bwd)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3900,6 +4181,29 @@ def main(argv=None) -> int:
     with phase(phase_s, "baselines"):
         baselines = baselines_phase(wrappers, card, seed=args.seed)
     torch.cuda.empty_cache()
+    # reference checkpoints through the migrate CLI, served and trained; raw
+    # PhysioNet text through preprocess into the experiment CLI
+    with phase(phase_s, "migrate and serve"):
+        migrated = migrate_phase(wrappers, seed=args.seed)
+    torch.cuda.empty_cache()
+    with phase(phase_s, "raw PhysioNet to training"):
+        raw_text = raw_physionet_phase(wrappers, seed=args.seed)
+    torch.cuda.empty_cache()
+    import_launches = {
+        "flash_mha_packed": {"P12 served": migrated["P12"]["launches"]["flash_mha_packed"],
+                             "P12 steps": migrated["P12"]["train_launches"]["flash_mha_packed"],
+                             "raw text CLI": raw_text["launches"]["flash_mha_packed"]},
+        "flash_mha_packed_bwd": {
+            "P12 steps": migrated["P12"]["train_bwd_launches"]["flash_mha_packed"],
+            "raw text CLI": raw_text["bwd_launches"]["flash_mha_packed"]},
+        "fused_encoder_layer": {
+            "PAM served": migrated["PAM"]["launches"]["fused_encoder_layer.tc"]}}
+    print(f"[slice 16] migrate and serve {phase_s['migrate and serve']:.1f} s, raw "
+          f"PhysioNet to training {phase_s['raw PhysioNet to training']:.1f} s; launches "
+          f"{import_launches}; largest errors: served against the plain attention "
+          f"{max(migrated[d]['plain_err'] for d in ('P12', 'PAM')):.3e} (limit "
+          f"{TOL['bfloat16']}), against the seeded model 0 (bit-equal), mTAND card "
+          f"against CPU {migrated['mtand']['card_vs_cpu']:.3e} (limit 1e-5)", flush=True)
     with phase(phase_s, "flash_mha kernels"):
         mha_runs = [flash_mha_phase(label, 128, 2, T, 42, dt, rate)
                     for label, T in (("PAM-600", 600), ("PAM-2048", 2048))
@@ -3992,21 +4296,25 @@ def main(argv=None) -> int:
                 "baseline_launches": {f: n for f, n in launches.items() if n},
                 "baseline_max_abs_err": err}
 
+    # rows 1-3 also carry the launches of the imported models and of the
+    # CLI on the preprocessed raw text (migrate_phase, raw_physionet_phase)
     kernels = [
-        with_baselines(record(
+        {**with_baselines(record(
             "flash_mha_packed_fwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
             "raindrop_tpu/ops/flash_attention.py:566",
             p12_launches["flash_mha_packed"], flash, "P12"),
             ("served", "train_fwd"), "fwd_max_abs_err"),
-        with_baselines(record(
+         "import_launches": import_launches["flash_mha_packed"]},
+        {**with_baselines(record(
             "flash_mha_packed_bwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
             "raindrop_tpu/ops/flash_attention.py:610",
             p12_tb["flash_mha_packed"], flash_bwd, "P12", 0.2),
             ("train_bwd",), "bwd_sample_err"),
+         "import_launches": import_launches["flash_mha_packed_bwd"]},
         {**record("fused_encoder_layer_fwd", "raindrop_tpu_torch/csrc/fused_encoder.cu",
                   "raindrop_tpu/ops/fused_encoder.py:131",
                   pam_launches["fused_encoder_layer.tc"], fused, "PAM"),
-         **FUSED_FWD_KERNELS},
+         **FUSED_FWD_KERNELS, "import_launches": import_launches["fused_encoder_layer"]},
         {**record("fused_encoder_layer_bwd",
                   "raindrop_tpu_torch/csrc/fused_encoder_bwd.cu",
                   "raindrop_tpu/ops/fused_encoder.py:183",
@@ -4163,6 +4471,7 @@ def main(argv=None) -> int:
               "bf16_storage": storage,
               "cli": {"P12_files": cli_files, "PAM_streaming": cli_stream},
               "streaming": streaming, "mfu": mfu_runs, "baselines": baselines,
+              "migrate": migrated, "raw_physionet": raw_text,
               "selfattention": {"launches": sd_f, "bwd_launches": sd_b,
                                 "checks": selfatt},
               "flash_mha_fwd": mha_fwd, "flash_mha_bwd": mha_bwd,

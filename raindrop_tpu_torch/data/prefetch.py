@@ -48,6 +48,14 @@ def assemble_batch(data: Dict[str, np.ndarray],
     return {k: np.ascontiguousarray(arr[idx]) for k, arr in data.items()}
 
 
+def _numpy_dtype(dt: torch.dtype) -> Optional[np.dtype]:
+    """numpy's dtype for a torch dtype, None where numpy has none."""
+    try:
+        return torch.empty(0, dtype=dt).numpy().dtype
+    except TypeError:
+        return None
+
+
 class _Staged:
     """A batch whose copy to the card was issued on the executor's stream;
     `event` completes with the copy."""
@@ -82,6 +90,10 @@ class PrefetchExecutor:
         self._indices = iter(batch_indices)
         self._device = None if device is None else torch.device(device)
         self._dtypes = dict(dtypes or {})
+        # the numpy dtype of each target that has one: the producer casts
+        # in numpy and runs no torch op before the copy (bfloat16, which
+        # numpy lacks, is cast by torch)
+        self._np_dtypes = {k: _numpy_dtype(dt) for k, dt in self._dtypes.items()}
         self._stream = None
         if self._device is not None and self._device.type == "cuda":
             if self._device.index is None:
@@ -98,9 +110,9 @@ class PrefetchExecutor:
         copies are issued on the executor's stream and a _Staged returned."""
         host = {}
         for k, a in batch.items():
-            t = torch.from_numpy(a)
-            dt = self._dtypes.get(k)
-            host[k] = t if dt is None else t.to(dt)
+            np_dt, dt = self._np_dtypes.get(k), self._dtypes.get(k)
+            t = torch.from_numpy(a if np_dt is None else a.astype(np_dt, copy=False))
+            host[k] = t if dt is None or t.dtype == dt else t.to(dt)
         if self._stream is None:
             return {k: t.to(self._device) for k, t in host.items()}
         with torch.cuda.stream(self._stream):

@@ -8,6 +8,9 @@ Three strategies, seeded:
      negatives ++ B/2 positives (binary datasets: P12, P19, eICU)
   3: uniform random batches without replacement, fixed 30 per epoch (PAM)
 
+and `balanced_sample_per_class`, one batch with as many indices of each
+class (the reference's unused 8-class sampler for PAM).
+
 Given the same numpy Generator state, both packages draw the same index
 sequence.
 """
@@ -75,3 +78,18 @@ def balanced_batches(
                                   rng.choice(idx_1, size=half, replace=False)])
     else:
         raise ValueError(f"unknown strategy {strategy}")
+
+
+def balanced_sample_per_class(y: np.ndarray, batch_size: int,
+                              rng: np.random.Generator,
+                              n_classes: int = 8,
+                              replace: bool = False) -> np.ndarray:
+    """One batch of batch_size // n_classes indices of each class, the
+    reference's dormant 8-class balanced sampler for PAM
+    (utils_phy12.py:403-415, random_sample_8; commented out in its
+    drivers, e.g. Transformer_baseline.py:334)."""
+    y = np.asarray(y).reshape(-1)
+    per = batch_size // n_classes
+    return np.concatenate([
+        rng.choice(np.where(y == c)[0], size=per, replace=replace)
+        for c in range(n_classes)])

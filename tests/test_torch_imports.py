@@ -62,14 +62,24 @@ def test_the_module_list_covers_the_training_slice():
                     "raindrop_tpu_torch.baselines.dgm2",
                     "raindrop_tpu_torch.parallel.expert",
                     "raindrop_tpu_torch.graph.transformer_conv",
-                    "raindrop_tpu_torch.models.raindrop_v1"}
+                    "raindrop_tpu_torch.models.raindrop_v1",
+                    # checkpoint import, raw preprocessing, the mTAND extras
+                    "raindrop_tpu_torch.migrate",
+                    "raindrop_tpu_torch.data.preprocess",
+                    "raindrop_tpu_torch.data.collate",
+                    "raindrop_tpu_torch.data.raw_irregular",
+                    "raindrop_tpu_torch.data.toy",
+                    "raindrop_tpu_torch.nn.losses"}
 
 
 def test_every_module_imports_with_jax_blocked():
+    # pandas too: the card's machine has none (data/preprocess.py reads the
+    # raw text with the csv module)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['raindrop_tpu'] = None\n"
+        "sys.modules['pandas'] = None\n"
         "import importlib\n"
         f"for m in {_port_modules() + ['chip_smoke', 'chip_ab']!r}:\n"
         "    importlib.import_module(m)\n"

@@ -1096,3 +1096,46 @@ def test_flop_credit_matches_the_plain_count_on_the_card(gen, case):
     plain = fn(*args, "cuda", False)
     assert kernel == credit, name
     assert abs(kernel - plain) <= fu.FLOP_TOL * plain, (name, kernel, plain)
+
+
+@pytest.mark.parametrize("name", ["mtgnn", "transformer", "transformer_ctx",
+                                  "transformer_moe", "seft", "raindrop_v1", "grud",
+                                  "mtand", "dgm2", "ipnet"])
+def test_a_baseline_step_repeats_bit_for_bit(gen, name):
+    """One Trainer step of a baseline family at P12's published widths
+    (B=64, dropout 0.2, the same seeds), twice from the same state: the loss
+    and every parameter bit-equal, with cuDNN's global determinism flag
+    unset (MTGNN's convolutions are matrix products of the port's own,
+    baselines/mtgnn._conv2d; cuDNN's weight gradient adds with atomics).
+    The families chip_smoke.baselines_phase checks the same way."""
+    from raindrop_tpu_torch.baselines.adapters import make_baseline
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    assert not torch.backends.cudnn.deterministic
+    cfg = dataset_config("P12")
+    fam = make_baseline(name, cfg, device="cuda")
+    params = fam.init_fn(0)
+    B, T, F = 64, cfg.max_len, cfg.d_inp
+    lengths = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
+    live = (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()
+    mask = (torch.rand(B, T, F, generator=gen, device="cuda") > 0.6).float() * live[..., None]
+    values = torch.randn(B, T, F, generator=gen, device="cuda") * mask
+    batch = {"P": torch.cat([values, mask], -1),
+             "time": torch.cumsum(torch.rand(B, T, generator=gen, device="cuda"), 1) * live,
+             "static": torch.randn(B, cfg.d_static, generator=gen, device="cuda"),
+             "y": torch.arange(B, device="cuda") % cfg.n_classes}
+    seeds = (fam.draw_seeds(torch.Generator().manual_seed(0), B)
+             if fam.draw_seeds else None)
+    runs = []
+    for _ in range(2):
+        tr = Trainer(cfg, TrainConfig(dataset="P12", batch_size=B, learning_rate=1e-4),
+                     device="cuda", params=params, init_fn=fam.init_fn,
+                     apply_fn=fam.apply_fn, draw_seeds=fam.draw_seeds)
+        loss, _ = tr.train_step(batch, seeds)
+        runs.append((loss.clone(), [t.detach().clone() for _, t in tr.live]))
+        del tr
+    assert not torch.backends.cudnn.deterministic
+    (l0, p0), (l1, p1) = runs
+    assert torch.isfinite(l0) and torch.equal(l0, l1)
+    assert len(p0) == len(p1) and all(torch.equal(a, b) for a, b in zip(p0, p1))

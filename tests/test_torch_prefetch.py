@@ -161,6 +161,58 @@ def test_streaming_train_split_is_bit_equal_to_the_resident_one(dataset, kw):
     assert all(torch.equal(a, b) for a, b in zip(b0, b1))
 
 
+def test_the_producer_casts_in_numpy(monkeypatch):
+    """A target dtype numpy has is cast by numpy on the producer thread:
+    no torch cast runs there before the copy (bfloat16, which numpy lacks,
+    is still cast by torch)."""
+    data = make_data()
+    data["y"] = data["y"].astype(np.int32)
+    casts = []
+    to = torch.Tensor.to
+
+    def spy(self, *args, **kwargs):
+        if any(isinstance(a, torch.dtype) for a in (*args, *kwargs.values())):
+            casts.append(threading.current_thread().name)
+        return to(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "to", spy)
+    with PrefetchExecutor(data, [np.array([3, 1]), np.array([2])], device="cpu",
+                          dtypes={"y": torch.int64, "time": torch.float64}) as ex:
+        out = list(ex)
+    assert casts == []
+    assert out[0]["y"].dtype == torch.int64 and out[0]["time"].dtype == torch.float64
+    np.testing.assert_array_equal(out[1]["time"].numpy(), data["time"][[2]].astype(np.float64))
+    with PrefetchExecutor(data, [np.array([0])], device="cpu",
+                          dtypes={"P": torch.bfloat16}) as ex:
+        (b,) = list(ex)
+    assert b["P"].dtype == torch.bfloat16 and len(casts) == 1
+    assert torch.equal(b["P"], torch.from_numpy(data["P"][[0]]).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_streaming_is_bit_equal_to_resident_at_each_thread_count(threads):
+    """The pair that once differed on the CPU (P12, B=16, 2 epochs, ROADMAP
+    queue 3): resident and streaming under torch.set_num_threads(threads),
+    parameters, best parameters, history and test metrics bit-equal."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        cfg = dataset_config("P12", max_len=10, d_ob=2, d_pe=4)
+        split = synthetic_split("P12", 96, 4, T=10)
+        runs = []
+        for pipeline in ("resident", "streaming"):
+            tcfg = TrainConfig(dataset="P12", num_epochs=2, batch_size=16, seed=6,
+                               input_pipeline=pipeline, prefetch_depth=2)
+            trainer = Trainer(cfg, tcfg, device="cpu")
+            runs.append(_fields(trainer.train_split(split, verbose=False), trainer))
+    finally:
+        torch.set_num_threads(saved)
+    (h0, t0, p0, b0), (h1, t1, p1, b1) = runs
+    assert h0 == h1 and t0 == t1
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert all(torch.equal(a, b) for a, b in zip(b0, b1))
+
+
 def test_an_unknown_input_pipeline_is_refused():
     with pytest.raises(ValueError, match="input_pipeline"):
         TrainConfig(input_pipeline="bogus")

@@ -169,3 +169,57 @@ def jax_baseline_params(name, hp=None, seed=0, dataset="eICU", **cfg_kw):
         leaf, jax.eval_shape(jinit, jax.random.PRNGKey(0)))
     assert not leaves, sorted(leaves)
     return tree
+
+
+# the reference's state-dict names of the port's trees: the inverse of
+# migrate's importers
+def linear_sd(sd, name, p):
+    sd[name + ".weight"] = p["w"]
+    if "b" in p:
+        sd[name + ".bias"] = p["b"]
+
+
+def raindrop_state_dict(params):
+    """The reference Raindrop_v2 state dict (code/models_rd.py:208-276) of
+    the port's parameter tree: the inverse of migrate.import_raindrop's
+    names (chip_smoke.py keeps its own copy), the leaves as they are."""
+    sd = {"R_u": params["R_u"]}
+    linear_sd(sd, "encoder", params["encoder"])
+    for layer in ("ob_propagation", "ob_propagation_layer2"):
+        p = params[layer]
+        for lin in ("lin_key", "lin_query", "lin_value", "lin_skip", "increase_dim"):
+            linear_sd(sd, f"{layer}.{lin}", p[lin])
+        for k in ("weight", "bias", "nodewise_weights", "map_weights"):
+            sd[f"{layer}.{k}"] = p[k]
+    for name, p in params["transformer_encoder"].items():
+        pre = f"transformer_encoder.layers.{int(name[len('layer'):])}."
+        sd[pre + "self_attn.in_proj_weight"] = p["in_proj_w"]
+        sd[pre + "self_attn.in_proj_bias"] = p["in_proj_b"]
+        linear_sd(sd, pre + "self_attn.out_proj", p["out_proj"])
+        linear_sd(sd, pre + "linear1", p["lin1"])
+        linear_sd(sd, pre + "linear2", p["lin2"])
+        for i in (1, 2):
+            sd[pre + f"norm{i}.weight"] = p[f"ln{i}"]["scale"]
+            sd[pre + f"norm{i}.bias"] = p[f"ln{i}"]["bias"]
+    linear_sd(sd, "mlp_static.0", params["mlp_static"]["lin0"])
+    linear_sd(sd, "mlp_static.2", params["mlp_static"]["lin1"])
+    if "emb" in params:
+        linear_sd(sd, "emb", params["emb"])
+    return sd
+
+
+def mtand_state_dict(params):
+    """The reference enc_mtan_classif state dict (code/baselines/mTAND/
+    models.py:54-100) of the port's mTAND tree: the inverse of
+    migrate.import_mtand's names; the query points are the constructor's
+    linspace, not a state-dict entry."""
+    sd = {}
+    for ours, theirs in (("att_q", "att.linears.0"), ("att_k", "att.linears.1"),
+                         ("att_out", "att.linears.2"), ("periodic", "periodic"),
+                         ("linear", "linear")):
+        linear_sd(sd, theirs, params[ours])
+    for i, j in ((0, 0), (1, 2), (2, 4)):
+        linear_sd(sd, f"classifier.{j}", params["classifier"][f"lin{i}"])
+    for k in ("w_ih", "w_hh", "b_ih", "b_hh"):
+        sd[f"enc.{k.replace('w_', 'weight_').replace('b_', 'bias_')}_l0"] = params["gru"][k]
+    return sd
