@@ -91,6 +91,27 @@ order with that checkout's own code:
               hd <= 128 and past it) and at the main path's shape (B=16,
               H=2, T=2048, hd 42, 170 and 360, dropout 0 and 0.2, the plain
               version on 8 samples): the readings SAMPLE_TOL is set from;
+  delta       the packed backward's row term delta = sum of do * o over
+              each head's columns alone, at P12, eICU and P12-sw (B=128,
+              2 heads, do bf16, o f32), by CUDA events (50 calls) in torch
+              ops: the checkout's plain form (`_packed_delta` where it has
+              one) and three forms side by side, the f32 reduction over the
+              head's columns (before the mesh's slice), f64 products summed
+              in f64, and an f32 halving sum (both tried for a shard's
+              bits); and where the checkout has csrc/row_delta.cuh, that
+              kernel's device time inside the backward (torch.profiler, 20
+              calls) and its delta against the plain form's, bit for bit;
+  mesh_faults two gloo ranks sharing the card, P12 (B=128) as
+              chip_smoke.two_rank_phase runs it, sound and with a fault
+              planted in each rank's process at run time (nothing on disk
+              changes): "no_data_all_reduce" (DP 2x1: every all_reduce
+              the identity), "copy_to_grad_halved" (TP 1x2 in f32 and
+              bf16: the gradient of a column-parallel input halved after
+              its all_reduce, the same on both ranks) and "head_origin_0"
+              (TP in f32 and bf16: every rank's attention dropout hashed
+              as head 0); chip_smoke.two_rank_errors of each run against
+              the one-rank steps: the readings TWO_RANK_TOL and
+              TWO_RANK_BF16_TOL are set from;
   ptxas       compile every unit of the five kernel libraries with
               `-Xptxas -v` (all nvcc processes together): registers, stack
               frame and spill bytes of each kernel, the spilling ones
@@ -835,12 +856,157 @@ def task_ptxas(root, cs):
             "by_kernel": kernels}
 
 
+def task_delta(root, cs):
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    def f32_sum(do, o):
+        return (do.to(torch.float32) * o).sum(-1)
+
+    def f64_sum(do, o):
+        return (do.double() * o.double()).sum(-1).to(torch.float32)
+
+    def halving(do, o):
+        x = do.to(torch.float32) * o
+        while x.shape[-1] > 1:
+            n = x.shape[-1]
+            h = n // 2
+            s = x[..., :h] + x[..., h:2 * h]
+            if n % 2:
+                s[..., :1] += x[..., 2 * h:]
+            x = s
+        return x[..., 0]
+
+    out = {}
+    for label, B, T, d, H in SHAPES:
+        if B < 128:
+            continue
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        do = torch.randn((B, T, H, d // H), generator=gen, device="cuda").to(torch.bfloat16)
+        o = torch.randn((B, T, H, d // H), generator=gen, device="cuda")
+        forms = {"f32_sum": f32_sum, "f64_sum": f64_sum, "halving": halving}
+        if hasattr(fa, "_packed_delta"):
+            forms["checkout"] = lambda a, b: fa._packed_delta(
+                a.reshape(B, T, d), b.reshape(B, T, d), H)
+        ref = f64_sum(do, o)
+        if os.path.exists(os.path.join(root, "raindrop_tpu_torch", "csrc", "row_delta.cuh")):
+            od = torch.bfloat16
+            q, k, v, gh = (torch.randn((B, T, d), generator=gen, device="cuda").to(od)
+                           for _ in range(4))
+            lengths = cs.ragged_lengths(gen, B, T, "cuda")
+            of, lse = fa._packed_fwd_cuda(q, k, v, lengths, cs.SEED, 0.2, H, od)
+            args = (q, k, v, lengths, cs.SEED, 0.2, H, od, of, lse, gh)
+            fa._packed_bwd_cuda(*args)
+            top = cs.profile_device(lambda: [fa._packed_bwd_cuda(*args) for _ in range(20)],
+                                    20)[3]
+            kernel_ms = sum(t for name, t in top.items() if "row_delta" in name)
+            # the entry point as the wrapper calls it, with a delta buffer
+            # of this task's own: the kernel's delta against the plain form
+            plan = fa.packed_plan(B, T, d, H, od, "auto",
+                                  fa._align(*(x.data_ptr() for x in (q, k, v, gh))))
+            delta = torch.empty((B, H, T), dtype=torch.float32, device="cuda")
+            grads = [torch.empty((B, T, d), dtype=torch.float32, device="cuda")
+                     for _ in range(3)]
+            err = fa._lib().rd_packed_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), gh.data_ptr(), of.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
+                *(x.data_ptr() for x in grads), B, T, d, H, 1.0 / (d // H) ** 0.5, 1,
+                cs.SEED, 0.2, 0, 0, H, plan.as_ints,
+                torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f"rd_packed_bwd: {err}")
+            plain = fa._packed_delta(gh, of, H)
+            out[f"{label}_kernel"] = {"device_ms": kernel_ms,
+                                      "bit_equal_to_plain": bool(torch.equal(delta.view(torch.int32),
+                                                                        plain.view(torch.int32))),
+                                      "max_abs_err_vs_plain": cs.max_err(delta, plain)}
+            print(f"[ab] {root}: {label} delta kernel: {kernel_ms:.4f} ms device time "
+                  f"inside the backward; {out[f'{label}_kernel']}", flush=True)
+        for name, fn in forms.items():
+            got = fn(do, o)
+            got = got.transpose(1, 2) if name == "checkout" else got
+            ms = cs.time_ms(lambda: fn(do, o), reps=50)
+            out[f"{label}_{name}"] = {"ms": ms, "max_abs_err_vs_f64": cs.max_err(got, ref)}
+            print(f"[ab] {root}: {label} delta {name}: {ms:.4f} ms, "
+                  f"{out[f'{label}_{name}']['max_abs_err_vs_f64']:.3e} from the f64 sum",
+                  flush=True)
+    return out
+
+
+MESH_FAULTS = {"sound": ("2x1", "1x2", "1x2 bf16"),
+               "no_data_all_reduce": ("2x1",),
+               "copy_to_grad_halved": ("1x2", "1x2 bf16"),
+               "head_origin_0": ("1x2", "1x2 bf16")}
+
+
+def _plant(fault):
+    """Plant `fault` in this process's modules (mesh_faults)."""
+    import torch
+    import raindrop_tpu_torch.nn.transformer as transformer
+    import raindrop_tpu_torch.parallel.tensor as tp
+
+    if fault == "no_data_all_reduce":
+        tp.all_reduce = lambda x, group: x
+    elif fault == "copy_to_grad_halved":
+        class Halved(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, group):
+                ctx.group = group
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                return tp.all_reduce(g.contiguous().clone(), ctx.group) / 2, None
+
+        tp.copy_to = lambda x, group: x if group is None else Halved.apply(x, group)
+    elif fault == "head_origin_0":
+        transformer._kernel_origin = (
+            lambda shard, nhead: None if shard is None else (shard.b0, 0, nhead))
+    elif fault != "sound":
+        raise ValueError(fault)
+
+
+def _fault_worker(rank, root, fault, device, seed, batch):
+    import torch
+
+    cs = _load_smoke(root)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _plant(fault)
+    runs = [r for r in cs.TWO_RANK_RUNS if r[0] in MESH_FAULTS[fault]]
+    return cs._two_rank_steps(device, seed, batch, runs)
+
+
+def task_mesh_faults(root, cs):
+    import torch
+    from raindrop_tpu_torch.parallel.launch import run_ranks
+
+    refs = cs.two_rank_reference("cuda", 0, 128)
+    torch.cuda.empty_cache()
+    out = {}
+    for fault, names in MESH_FAULTS.items():
+        runs = [r for r in cs.TWO_RANK_RUNS if r[0] in names]
+        t0 = time.perf_counter()
+        ranks = run_ranks(_fault_worker, 2, root, fault, "cuda", 0, 128,
+                          backend="gloo", timeout_s=600, threads=4)
+        errors = cs.two_rank_errors(refs, ranks, runs=runs)
+        for name, e in errors.items():
+            for k in ("launches", "bwd_launches", "ref_losses"):
+                e.pop(k, None)
+            print(f"[ab] {root}: mesh fault {fault}, {name}: {json.dumps(e)}", flush=True)
+        out[fault] = {"errors": errors, "seconds": time.perf_counter() - t0}
+    return out
+
+
 TASKS = {"build": task_build, "one_unit": task_one_unit, "kernels": task_kernels,
          "ds_rounding": task_ds_rounding,
          "serve_train": task_serve_train, "latency": task_latency, "split": task_split,
          "long": task_long, "fused_step": task_fused_step,
          "bits": task_bits, "sample_err": task_sample_err, "ptxas": task_ptxas,
-         "graph": task_graph, "graph_host": task_graph_host}
+         "graph": task_graph, "graph_host": task_graph_host, "delta": task_delta,
+         "mesh_faults": task_mesh_faults}
 
 
 def worker(root, tasks):

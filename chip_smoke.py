@@ -259,7 +259,31 @@ check does not hold:
  24. phase 19 on that configuration, 2 epochs with checkpoints and a third
      resumed, bit-equal to the uninterrupted 3-epoch run, the launch
      counts (all on "tc_wide"), the first step against the dense path,
-     step ms, samples/s and the idle share.
+     step ms, samples/s and the idle share;
+ 25. the device mesh (shard_origin_phase): rows 1-2 at P12 (bf16
+     and f32) and rows 3-4 at PAM (bf16), dropout 0.2, launched on a batch
+     shard at its origin (b0, 0, H) and on one head at (b0, h, H): every
+     output and gradient bit-equal to those rows and heads of the full
+     launch, and held to the plain version at the origin (SAMPLE_TOL);
+ 26. mesh_phase: a process group of one rank over NCCL and make_mesh(1, 1);
+     P12 and PAM, 3 steps each at full width (B=128) through
+     Trainer(mesh=...), bit-equal to the Trainer without a mesh (losses,
+     every parameter), every launch on the tensor cores (this slice's
+     launch counts), step ms with and without the mesh in turns; a
+     sharded checkpoint written and read back;
+ 27. two_rank_phase: two gloo ranks sharing the card (NCCL refuses two
+     ranks on one GPU; gloo takes all_reduce and broadcast on CUDA
+     tensors, all the port uses): P12 DP 2x1 and TP 1x2 (one head a rank,
+     flash_mha_packed's launches counted on each), 3 steps with f32
+     attention operands, held to the one-rank steps at the JAX package's
+     mesh tolerances and the first step's gradient (Adam's first moment)
+     at TWO_RANK_TOL; TP 1x2 at P12's bf16 operands (the tensor-core
+     route), its first step's loss, logits and gradient at
+     TWO_RANK_BF16_TOL; run_elastic with a fault at epoch 1 bit-equal to
+     the uninterrupted run;
+ 28. torchrun_cli_phase: the CLI through torchrun (one process, NCCL,
+     --distributed true --data-parallel 1), P12 for 1 epoch from dataset
+     files written from --seed.
 
 Every phase's seconds are printed as `[phase] name: s` and kept under
 "phase_s" in the --out file.
@@ -284,8 +308,11 @@ backward at PAM-sw-2048's hd 170; the fused layer's list the CUDA kernels
 of its tensor-core route and of the previous design, and its launches, and
 flash_mha's, are the tensor-core ones; rows 1 and 2 also carry the
 baseline families' launches and the errors at their head dims, and rows
-1-3 the launches of phases 14h and 14i under "import_launches"), the last
-line the result. `--out PATH` also
+1-3 the launches of phases 14h and 14i under "import_launches", rows 1-4
+those of phase 26 under "mesh_launches", rows 1-2 the TP run's of phase
+27 a rank under "tp_launches_a_rank" and the bf16 TP run's tensor-core
+launches a rank under "tp_bf16_tc_launches_a_rank"), the last line the
+result. `--out PATH` also
 writes every number to PATH as JSON.
 """
 
@@ -353,13 +380,14 @@ def attention_bytes(lengths, T, d, H, esize, backward=False) -> float:
     """Bytes an attention kernel must move over [B, T, d] operands: q (and
     do) of the samples with a live key, k and v below each length only (the
     kernels never read past it), the f32 outputs over all of T (o; or dq,
-    dk and dv), the [B, H, T] f32 statistics (lse written for every sample;
-    lse and delta read for the live ones) and the lengths."""
+    dk and dv), the backward's f32 o of the live samples (its delta is
+    summed from do and o), the [B, H, T] f32 lse (written for every sample,
+    read for the live ones) and the lengths."""
     B = lengths.numel()
     live, keys = int((lengths > 0).sum()), float(lengths.sum())
     if backward:
-        return (2 * live * T * d * esize + 2 * keys * d * esize + 3 * B * T * d * 4
-                + 2 * live * H * T * 4 + B * 4)
+        return (2 * live * T * d * esize + 2 * keys * d * esize + live * T * d * 4
+                + 3 * B * T * d * 4 + live * H * T * 4 + B * 4)
     return live * T * d * esize + 2 * keys * d * esize + B * T * d * 4 + B * H * T * 4 + B * 4
 
 
@@ -2021,15 +2049,15 @@ def plain_kernels():
     from raindrop_tpu_torch.ops import fused_encoder as fe
 
     saved = tr.flash_mha_packed, tr.fused_encoder_layer, tr.flash_mha
-    tr.flash_mha_packed = lambda q, k, v, lengths, seed, rate, cd, nhead: (
+    tr.flash_mha_packed = lambda q, k, v, lengths, seed, rate, cd, nhead, origin=None: (
         fa._packed_fwd_plain(q, k, v, lengths, nhead, fa.operand_dtype(cd),
-                             fa._seed_int(seed), rate)[0])
-    tr.fused_encoder_layer = lambda p, x, lengths, seed, rate, cd, nhead: (
+                             fa._seed_int(seed), rate, origin)[0])
+    tr.fused_encoder_layer = lambda p, x, lengths, seed, rate, cd, nhead, origin=None: (
         fe._fused_fwd_plain(p, x, lengths, nhead, fa.operand_dtype(cd),
-                            fa._seed_int(seed), rate)[0])
-    tr.flash_mha = lambda q, k, v, lengths, seed, rate, cd: (
+                            fa._seed_int(seed), rate, origin)[0])
+    tr.flash_mha = lambda q, k, v, lengths, seed, rate, cd, origin=None: (
         fa._flash_fwd_plain(q, k, v, lengths, fa.operand_dtype(cd),
-                            fa._seed_int(seed), rate)[0])
+                            fa._seed_int(seed), rate, origin)[0])
     try:
         yield
     finally:
@@ -3959,6 +3987,552 @@ def raw_physionet_phase(wrappers, seed=0):
                 records=records, launches=fwd, bwd_launches=bwd)
 
 
+# ------------------------------------------------------------ the mesh
+def shard_origin_phase(device="cuda", seed=0, rate=0.2):
+    """Rows 1-4 launched on a shard at its origin: the packed pair at P12
+    (B=128, T=215, d=160, 2 heads; bf16 and f32) on rows [64:128] at
+    (64, 0, 2) and on rows [32:96], head 1, at (32, 1, 2), the fused layer
+    at PAM (B=128, T=600, d=84, ffn=136; bf16) on rows [64:128] at
+    (64, 0, 2), dropout `rate`: every output and gradient bit-equal to the
+    matching rows (and head) of the full launch, the fused layer's out,
+    attn, lse and dx; and each shard's launch against its plain version at
+    its origin, sample by sample (SAMPLE_TOL). Launches made here are
+    comparisons, not the main path's."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+    from raindrop_tpu_torch.ops import fused_encoder as fe
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {"packed": [], "fused": []}
+    B, T, d, H = 128, 215, 160, 2
+    hd = d // H
+    for dtype in ("bfloat16", "float32"):
+        od = getattr(torch, dtype)
+        q, k, v, g = (torch.randn(B, T, d, generator=gen, device=device)
+                      for _ in range(4))
+        lengths = ragged_lengths(gen, B, T, device)
+        o, lse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, H, od)
+        grads = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, H, od, o, lse, g)
+        for b0, n, h in ((64, 64, None), (32, 64, 1)):
+            rows = slice(b0, b0 + n)
+            cols = slice(None) if h is None else slice(h * hd, (h + 1) * hd)
+            heads = slice(None) if h is None else slice(h, h + 1)
+            nh, origin = (H, (b0, 0, H)) if h is None else (1, (b0, h, H))
+            args = [x[rows][..., cols].contiguous() for x in (q, k, v)]
+            o_s, lse_s = fa._packed_fwd_cuda(*args, lengths[rows], SEED, rate, nh, od,
+                                             origin=origin)
+            g_s = fa._packed_bwd_cuda(*args, lengths[rows], SEED, rate, nh, od, o_s,
+                                      lse_s, g[rows][..., cols].contiguous(),
+                                      origin=origin)
+            torch.cuda.synchronize()
+            equal = (torch.equal(o_s, o[rows][..., cols])
+                     and torch.equal(lse_s, lse[rows][:, heads])
+                     and all(torch.equal(a, w[rows][..., cols])
+                             for a, w in zip(g_s, grads)))
+            if not equal:
+                raise AssertionError(f"P12 {dtype} packed pair at origin {origin}: "
+                                     f"not the full launch's bits")
+            # the plain backward from the kernel's o and lse, as flash_bwd_phase
+            p_o, _ = fa._packed_fwd_plain(*args, lengths[rows], nh, od, SEED, rate,
+                                          origin)
+            p_g = fa._packed_bwd_plain(*args, lengths[rows], SEED, rate, nh, od, o_s,
+                                       lse_s, g[rows][..., cols].contiguous(), origin)
+            errs = [sample_err(a, w, lengths[rows]) for a, w in zip((o_s, *g_s),
+                                                                     (p_o, *p_g))]
+            if max(errs) > SAMPLE_TOL[dtype]:
+                raise AssertionError(f"P12 {dtype} packed pair at origin {origin}: "
+                                     f"{errs} against the plain version "
+                                     f"(limit {SAMPLE_TOL[dtype]})")
+            out["packed"].append({"dtype": dtype, "origin": list(origin), "rows": n,
+                                  "heads": nh, "bit_equal": True,
+                                  "plain_sample_err": max(errs)})
+    B, T, d, ffn = 128, 600, 84, 136
+    p = random_layer(gen, d, ffn, device)
+    ws = fe._flatten(p)
+    x, g = (torch.randn(B, T, d, generator=gen, device=device) for _ in range(2))
+    lengths = ragged_lengths(gen, B, T, device)
+    od = torch.bfloat16
+    full_o, attn, lse = fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, H, od)
+    dx, _ = fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, H, od, attn, lse, g)
+    rows, origin = slice(64, 128), (64, 0, H)
+    o_s, a_s, l_s = fe._fused_fwd_cuda(ws, x[rows], lengths[rows], SEED, rate, H, od,
+                                       origin=origin)
+    dx_s, _ = fe._fused_bwd_cuda(ws, x[rows], lengths[rows], SEED, rate, H, od, a_s, l_s,
+                                 g[rows], origin=origin)
+    torch.cuda.synchronize()
+    if not (torch.equal(o_s, full_o[rows]) and torch.equal(a_s, attn[rows])
+            and torch.equal(l_s, lse[rows]) and torch.equal(dx_s, dx[rows])):
+        raise AssertionError(f"PAM bf16 fused layer at origin {origin}: not the full "
+                             f"launch's bits")
+    p_o, p_a, _ = fe._fused_fwd_plain(p, x[rows], lengths[rows], H, od, SEED, rate, origin)
+    errs = [sample_err(o_s, p_o, lengths[rows]), sample_err(a_s, p_a, lengths[rows])]
+    if max(errs) > SAMPLE_TOL["bfloat16"]:
+        raise AssertionError(f"PAM fused layer at origin {origin}: {errs} against the "
+                             f"plain version (limit {SAMPLE_TOL['bfloat16']})")
+    out["fused"].append({"dtype": "bfloat16", "origin": list(origin), "rows": 64,
+                         "bit_equal": True, "plain_sample_err": max(errs)})
+    print(f"[origin] rows 1-2 at P12 (bf16, f32) and rows 3-4 at PAM (bf16), dropout "
+          f"{rate}: every shard bit-equal to the full launch; against the plain "
+          f"version {max(r['plain_sample_err'] for r in out['packed']):.3e} / "
+          f"{out['fused'][0]['plain_sample_err']:.3e}", flush=True)
+    return out
+
+
+MESH_STEPS = 3
+MESH_REPEATS = 4     # further turns of the runs with and without the mesh, timed
+
+
+def _mesh_run(cfg, tcfg, params, data, idx, seeds, device, mesh=None, first=False):
+    """MESH_STEPS train_epoch steps of a Trainer (on `mesh`) from `params`:
+    (losses, the trainer, ms a step by the host clock around the
+    synchronised steps, and with `first` the first step's logits and
+    Adam's first moment of the full parameters after it, mu = (1 - b1) *
+    the step's gradient, averaged over the data axis and gathered over
+    the model axis: {"logits": [rows, classes], "mu": {path: array}})."""
+    import torch
+    from raindrop_tpu_torch.train.checkpoint import flatten_params
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    tr = Trainer(cfg, tcfg, device=device, params=params, mesh=mesh)
+    parts = (slice(0, 1), slice(1, None)) if first else (slice(None),)
+    losses, took, out = [], 0.0, None
+    for i, part in enumerate(parts):
+        sync()
+        t0 = time.perf_counter()
+        got, logits = tr.train_epoch(data, idx[part], seeds[part])
+        sync()
+        took += time.perf_counter() - t0
+        losses.append(got)
+        if first and i == 0:
+            out = {"logits": logits.float().cpu().numpy(),
+                   "mu": {path: np.asarray(v, np.float32) for path, v in
+                          flatten_params(tr.full_opt_state()["mu"])}}
+    return torch.cat(losses), tr, took * 1e3 / len(seeds), out
+
+
+def _mesh_inputs(dataset, device, seed, batch, overrides=None, n_batches=MESH_STEPS):
+    """(cfg, tcfg, params, split on the device, idx [steps, batch], seeds)
+    at full width, from `seed`."""
+    import torch
+    from raindrop_tpu_torch.config import dataset_config
+    from raindrop_tpu_torch.models.raindrop import raindrop_init
+    from raindrop_tpu_torch.utils.dropout import DropoutSeeds
+
+    cfg = dataset_config(dataset, **(overrides or {}))
+    tcfg = _train_config(dataset, learning_rate=1e-4, batch_size=batch)
+    params = raindrop_init(seed, cfg, device=device)
+    data, _ = make_split(cfg, 2 * batch, seed, device)
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(np.stack([rng.permutation(2 * batch)[:batch]
+                                     for _ in range(n_batches)]))
+    gen = torch.Generator().manual_seed(seed + 7)
+    seeds = [DropoutSeeds.draw(gen, cfg.nlayers) for _ in range(n_batches)]
+    return cfg, tcfg, params, data, idx, seeds
+
+
+def mesh_phase(wrappers, device="cuda", seed=0, batch=128):
+    """The mesh through NCCL at world size 1: a process group of one rank
+    (initialize_distributed, NCCL) and make_mesh(1, 1); P12 (the packed
+    pair) and PAM (the fused layer), each MESH_STEPS steps at full width
+    (B=128, dropout 0.2) through Trainer(mesh=...) against the Trainer
+    without a mesh from the same parameters, batches and seeds: the
+    losses and every parameter bit-equal. Every launch count is set to 0
+    just before the mesh runs and read just after (the counts of this
+    slice's path; all on the tensor cores). The step ms with and without
+    the mesh are taken in turns, MESH_REPEATS + 1 of each after a warm-up
+    run. Then the P12 run's parameters through save_sharded_checkpoint and
+    back, bit-equal. Returns ({dataset: (forward counts, backward
+    counts)}, details)."""
+    import torch
+    import torch.distributed as dist
+    from raindrop_tpu_torch.parallel.mesh import (
+        free_port, initialize_distributed, make_mesh)
+    from raindrop_tpu_torch.parallel.multihost import (
+        load_sharded_checkpoint, save_sharded_checkpoint)
+    from raindrop_tpu_torch.train.checkpoint import flatten_params
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                           timeout_s=300)
+    try:
+        mesh = make_mesh(1, 1)
+        counts, details = {}, {"backend": dist.get_backend()}
+        for dataset in ("P12", "PAM"):
+            cfg, tcfg, params, data, idx, seeds = _mesh_inputs(dataset, device, seed,
+                                                               batch)
+            # the run without a mesh first (it warms the card up), the mesh
+            # run, then the two in turns for their times
+            want, plain_tr, _, _ = _mesh_run(cfg, tcfg, params, data, idx, seeds, device)
+            reset_counts(wrappers)
+            got, tr, ms, _ = _mesh_run(cfg, tcfg, params, data, idx, seeds, device, mesh)
+            counts[dataset] = tuple(read_counts(wrappers, a)
+                                    for a in ("launches", "bwd_launches"))
+            times = {"mesh": [ms], "plain": []}
+            for _ in range(MESH_REPEATS + 1):
+                times["plain"].append(
+                    _mesh_run(cfg, tcfg, params, data, idx, seeds, device)[2])
+                if len(times["mesh"]) <= MESH_REPEATS:
+                    times["mesh"].append(
+                        _mesh_run(cfg, tcfg, params, data, idx, seeds, device, mesh)[2])
+            if not torch.equal(got, want):
+                raise AssertionError(f"{dataset} mesh(1, 1): losses {got.tolist()} "
+                                     f"against {want.tolist()} without the mesh")
+            theirs = dict(flatten_params(plain_tr.params))
+            for path, t in flatten_params(tr.params):
+                if not torch.equal(t, theirs[path]):
+                    raise AssertionError(f"{dataset} mesh(1, 1): parameter {path} "
+                                         f"differs from the run without the mesh")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{dataset} mesh(1, 1): losses {got.tolist()}")
+            details[dataset] = {"losses": got.tolist(),
+                                "step_ms": float(np.median(times["mesh"])),
+                                "step_ms_without_mesh": float(np.median(times["plain"])),
+                                "step_ms_turns": times,
+                                "launches": counts[dataset][0],
+                                "bwd_launches": counts[dataset][1]}
+            if dataset == "P12":
+                with tempfile.TemporaryDirectory() as tmp:
+                    path = os.path.join(tmp, "best")
+                    name = save_sharded_checkpoint(path, tr.params, mesh)
+                    back = load_sharded_checkpoint(path, like=tr.params)
+                    for (p_, a), (_, b) in zip(flatten_params(back),
+                                               flatten_params(tr.params)):
+                        if not torch.equal(a, b):
+                            raise AssertionError(f"sharded checkpoint: {p_} differs")
+                    details["checkpoint"] = os.path.basename(name)
+            del plain_tr, tr, params, data
+            torch.cuda.empty_cache()
+        check_tc("mesh P12", *counts["P12"])
+        check_fused_tc("mesh PAM", *counts["PAM"])
+    finally:
+        dist.destroy_process_group()
+    print(f"[mesh] NCCL world size 1, make_mesh(1, 1): P12 and PAM {MESH_STEPS} steps "
+          f"bit-equal to the Trainer without a mesh (losses, every parameter); "
+          f"step ms, the median of {MESH_REPEATS + 1} turns each, P12 "
+          f"{details['P12']['step_ms']:.3f} (without the mesh "
+          f"{details['P12']['step_ms_without_mesh']:.3f}), PAM "
+          f"{details['PAM']['step_ms']:.3f} ({details['PAM']['step_ms_without_mesh']:.3f}); "
+          f"turns {[details[d]['step_ms_turns'] for d in ('P12', 'PAM')]}; "
+          f"launches P12 {counts['P12']}, PAM {counts['PAM']}; sharded checkpoint "
+          f"{details['checkpoint']} read back bit-equal", flush=True)
+    return counts, details
+
+
+# The two-rank phase holds DP and TP over MESH_STEPS steps with f32
+# attention operands: a data rank's projections run cuBLAS on half the
+# rows (another algorithm, a last bit apart), and with bf16 operands such
+# a bit can flip an operand's rounding; those steps are held at JAX's
+# tolerances for its mesh steps (loss, parameters), and the first step's
+# gradient (Adam's first moment after it, each element against its
+# leaf's largest one-rank |mu|) at "grad". TP at P12's own bf16 operands
+# (the tensor-core route) is held on its first step: the loss, the
+# logits and the gradient at TWO_RANK_BF16_TOL. The limits sit between
+# the sound runs' readings and the planted faults' (chip_ab.py's
+# mesh_faults task, on an H100): gradient 1.0e-6 (DP), 4.0e-4 (TP) and
+# 3.6e-4 (TP bf16) sound, 0.15 to 0.82 under a fault; bf16 TP's first
+# logits 3.4e-6 sound, 1.9e-2 with every rank's dropout hashed as head 0.
+TWO_RANK = {"attention_score_dtype": "float32"}
+TWO_RANK_TOL = {"loss": 2e-5, "params": 2e-4, "grad": 2e-3}
+TWO_RANK_BF16_TOL = {"loss": 2e-5, "logits": 2e-4, "grad": 2e-3}
+# (name, mesh shape, configuration overrides, MESH_STEPS steps held or the first)
+TWO_RANK_RUNS = (("2x1", (2, 1), TWO_RANK, True),
+                 ("1x2", (1, 2), TWO_RANK, True),
+                 ("1x2 bf16", (1, 2), {}, False))
+
+
+def _two_rank_steps(device, seed, batch, runs=TWO_RANK_RUNS):
+    """On each rank of a group of two: for each run of `runs`, P12
+    MESH_STEPS steps on its mesh (_mesh_run with the first step's logits
+    and moment), flash_mha_packed's launches counted around it. Returns
+    {name: details}."""
+    import torch
+    from raindrop_tpu_torch.ops.flash_attention import flash_mha_packed
+    from raindrop_tpu_torch.parallel.mesh import coords, make_mesh
+    from raindrop_tpu_torch.train.checkpoint import flatten_params
+
+    out = {}
+    for name, shape, overrides, _ in runs:
+        cfg, tcfg, params, data, idx, seeds = _mesh_inputs("P12", device, seed, batch,
+                                                           overrides)
+        mesh = make_mesh(*shape)
+        reset_counts([flash_mha_packed])
+        losses, tr, ms, first = _mesh_run(cfg, tcfg, params, data, idx, seeds, device,
+                                          mesh, first=True)
+        full = {p: t.detach().cpu().numpy() for p, t in flatten_params(tr.full_params())}
+        out[name] = {"losses": losses.tolist(), "params": full, "step_ms": ms,
+                     "first": first, "coords": coords(mesh),
+                     "launches": read_counts([flash_mha_packed], "launches"),
+                     "bwd_launches": read_counts([flash_mha_packed], "bwd_launches")}
+        del tr, params, data
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _two_rank_worker(rank, device, seed, batch, split_dir):
+    """One of two gloo ranks sharing the card: _two_rank_steps (DP 2x1,
+    TP 1x2 in f32 and in bf16: one head a rank, flash_mha_packed on its
+    head), then run_elastic on DP 2x1 over a small P12 split,
+    uninterrupted and with a fault at epoch 1."""
+    import torch
+    from raindrop_tpu_torch.config import dataset_config
+    from raindrop_tpu_torch.data.datasets import synthetic_split
+    from raindrop_tpu_torch.parallel.elastic import FaultInjector, run_elastic
+    from raindrop_tpu_torch.parallel.mesh import make_mesh
+    from raindrop_tpu_torch.train.checkpoint import flatten_params
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = _two_rank_steps(device, seed, batch)
+    mesh = make_mesh(2, 1)
+    cfg = dataset_config("P12", **TWO_RANK)
+    split = synthetic_split("P12", 400, seed, T=215)
+    tcfg = _train_config("P12", learning_rate=1e-4, batch_size=batch, num_epochs=3,
+                         seed=seed + 3)
+    runs = {}
+    for name, fail_at in (("full", None), ("hit", 1)):
+        tr = Trainer(cfg, tcfg, device=device, mesh=mesh)
+        t0 = time.perf_counter()
+        result, restarts = run_elastic(
+            tr, split, checkpoint_path=os.path.join(split_dir, name), max_restarts=2,
+            fault_injector=None if fail_at is None else FaultInjector([fail_at]))
+        runs[name] = {"test": result.test_metrics, "restarts": restarts,
+                      "epochs": [r["epoch"] for r in result.history],
+                      "seconds": time.perf_counter() - t0,
+                      "params": {p: t.detach().cpu().numpy()
+                                 for p, t in flatten_params(tr.full_params())}}
+        del tr
+    out["elastic"] = runs
+    return out
+
+
+def two_rank_reference(device="cuda", seed=0, batch=128, runs=TWO_RANK_RUNS):
+    """The one-rank runs the two-rank ones are held to: for each
+    configuration of `runs`, _mesh_run without a mesh (the first
+    step's logits and moment too) -> {overrides key: (losses, parameters,
+    first, ms a step)}."""
+    import torch
+    from raindrop_tpu_torch.train.checkpoint import flatten_params
+
+    refs = {}
+    for _, _, overrides, _ in runs:
+        key = json.dumps(overrides, sort_keys=True)
+        if key in refs:
+            continue
+        cfg, tcfg, params, data, idx, seeds = _mesh_inputs("P12", device, seed, batch,
+                                                           overrides)
+        losses, tr, ms, first = _mesh_run(cfg, tcfg, params, data, idx, seeds, device,
+                                          first=True)
+        refs[key] = (losses.numpy(), {p: t.detach().cpu().numpy()
+                                      for p, t in flatten_params(tr.params)}, first, ms)
+        del tr, params, data
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return refs
+
+
+def two_rank_errors(refs, ranks, lr=1e-4, runs=TWO_RANK_RUNS):
+    """For each run of `runs` in the ranks' results (a list of
+    _two_rank_steps' dicts, one a rank) against its one-rank reference:
+    whether the ranks agree (losses, parameters, the first step's moment
+    bit for bit; the logits of TP ranks too), the largest loss error over
+    the steps and of the first step, the largest parameter error after the
+    steps (the key bias apart: its true gradient is zero, Adam normalises
+    its noise, held to 3 * lr), the first step's largest logit error
+    (the TP runs: every rank holds every row) and its gradient error, the
+    largest |mu - mu_ref| of a leaf over that leaf's largest |mu_ref|.
+    Nothing is asserted here: two_rank_phase holds these to the limits."""
+    out = {}
+    for name, _, overrides, _ in runs:
+        want, ref_params, ref_first, _ = refs[json.dumps(overrides, sort_keys=True)]
+        res = [r[name] for r in ranks]
+        agree = all(
+            r["losses"] == res[0]["losses"]
+            and all(np.array_equal(v, res[0]["params"][p]) for p, v in r["params"].items())
+            and all(np.array_equal(v, res[0]["first"]["mu"][p])
+                    for p, v in r["first"]["mu"].items())
+            for r in res[1:])
+        tp = res[0]["coords"].n_model > 1
+        if tp:
+            agree = agree and all(np.array_equal(r["first"]["logits"],
+                                                 res[0]["first"]["logits"]) for r in res)
+        got = np.asarray(res[0]["losses"])
+        p_err, key_err = 0.0, 0.0
+        for path, v in ref_params.items():
+            g = res[0]["params"][path]
+            if path.endswith("in_proj_b"):
+                d = v.shape[0] // 3
+                key_err = max(key_err, float(np.abs(g[d:2 * d] - v[d:2 * d]).max()))
+                g, v = np.delete(g, np.s_[d:2 * d]), np.delete(v, np.s_[d:2 * d])
+            p_err = max(p_err, float(np.abs(g - v).max()))
+        grad, grad_leaf = 0.0, None
+        for path, m in ref_first["mu"].items():
+            rel = float(np.abs(res[0]["first"]["mu"][path] - m).max()) / max(
+                float(np.abs(m).max()), 1e-30)
+            if rel > grad:
+                grad, grad_leaf = rel, path
+        out[name] = {
+            "ranks_agree": bool(agree),
+            "loss_err": float(np.abs(got - want).max()),
+            "ref_losses": np.asarray(want).tolist(),
+            "first_loss_err": float(abs(got[0] - want[0])),
+            "param_err": p_err, "key_bias_err": key_err, "key_bias_limit": 3 * lr,
+            "logit_err": (float(np.abs(res[0]["first"]["logits"]
+                                       - ref_first["logits"]).max()) if tp else None),
+            "grad_rel_err": grad, "grad_worst_leaf": grad_leaf,
+            "step_ms": [r["step_ms"] for r in res],
+            "launches": [r["launches"] for r in res],
+            "bwd_launches": [r["bwd_launches"] for r in res]}
+    return out
+
+
+def _hold_two_rank(name, e, held):
+    """Raise unless the run's errors (two_rank_errors) are within limits."""
+    if not e["ranks_agree"]:
+        raise AssertionError(f"mesh {name}: the ranks disagree")
+    if held:
+        tol = TWO_RANK_TOL
+        # JAX's rtol and atol: |got - want| <= atol + rtol * |want|
+        checks = (("loss", e["loss_err"], tol["loss"] * (1 + max(np.abs(e["ref_losses"])))),
+                  ("params", e["param_err"], tol["params"]),
+                  ("key bias", e["key_bias_err"], e["key_bias_limit"]),
+                  ("grad", e["grad_rel_err"], tol["grad"]))
+    else:
+        tol = TWO_RANK_BF16_TOL
+        checks = (("first loss", e["first_loss_err"], tol["loss"]),
+                  ("logits", e["logit_err"], tol["logits"]),
+                  ("grad", e["grad_rel_err"], tol["grad"]))
+    for what, err, limit in checks:
+        if not err <= limit:
+            raise AssertionError(f"mesh {name}: {what} error {err:.3e} over {limit:.3e}: {e}")
+
+
+def two_rank_phase(device="cuda", seed=0, batch=128):
+    """Two gloo ranks sharing the card (parallel/launch.run_ranks: NCCL
+    refuses two ranks on one GPU): P12 at full width (B=128, dropout 0.2)
+    on DP 2x1 and TP 1x2 with TWO_RANK's f32 attention operands,
+    MESH_STEPS steps each against the one-rank steps from the same
+    parameters, batches and seeds, at JAX's mesh tolerances (loss rtol
+    and atol 2e-5, parameters 2e-4; the key bias, whose true gradient is
+    zero, 3 * lr) and the first step's gradient at TWO_RANK_TOL["grad"];
+    TP 1x2 at P12's bf16 operands held on its first step (loss, logits,
+    gradient) at TWO_RANK_BF16_TOL, its launches all on the tensor-core
+    route; the ranks agree; the TP runs launch flash_mha_packed forward
+    and backward on every rank (counted there). Then run_elastic on DP
+    2x1 with a fault at epoch 1 restarts once and ends bit-equal to the
+    uninterrupted run (test metrics, every parameter), each rank's shard
+    of the best parameters on disk where an epoch raised the val AUROC.
+    Returns the details."""
+    import torch
+    from raindrop_tpu_torch.parallel.launch import run_ranks
+
+    refs = two_rank_reference(device, seed, batch)
+    one_ms = refs[json.dumps(TWO_RANK, sort_keys=True)][3]
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(_two_rank_worker, 2, device, seed, batch, tmp,
+                          backend="gloo", timeout_s=900, threads=4)
+        shards = sorted(f for f in os.listdir(tmp) if ".shard" in f)
+    took = time.perf_counter() - t0
+    details = {"one_rank_step_ms": one_ms, "seconds": took}
+    errors = two_rank_errors(refs, ranks)
+    for name, _, _, held in TWO_RANK_RUNS:
+        e = errors[name]
+        print(f"[two ranks] {name}: ranks agree {e['ranks_agree']}, loss error "
+              f"{e['loss_err']:.3e} (first step {e['first_loss_err']:.3e}), parameter "
+              f"error {e['param_err']:.3e}, key bias {e['key_bias_err']:.3e}, first "
+              f"step's logit error {e['logit_err']}, gradient error {e['grad_rel_err']:.3e} "
+              f"of the leaf's largest ({e['grad_worst_leaf']})", flush=True)
+        details[name.replace(" ", "_")] = {
+            **e, "losses": ranks[0][name]["losses"],
+            "launches": [c["flash_mha_packed"] for c in e["launches"]],
+            "tc_launches": [c["flash_mha_packed.tc"] for c in e["launches"]],
+            "bwd_launches": [c["flash_mha_packed"] for c in e["bwd_launches"]],
+            "tc_bwd_launches": [c["flash_mha_packed.tc"] for c in e["bwd_launches"]]}
+    for name, _, _, held in TWO_RANK_RUNS:
+        _hold_two_rank(name, errors[name], held)
+    for name in ("1x2", "1x2_bf16"):
+        tp = details[name]
+        if min(tp["launches"]) <= 0 or min(tp["bwd_launches"]) <= 0:
+            raise AssertionError(f"TP {name}: flash_mha_packed launches {tp}")
+    bf = details["1x2_bf16"]
+    if bf["tc_launches"] != bf["launches"] or bf["tc_bwd_launches"] != bf["bwd_launches"]:
+        raise AssertionError(f"TP 1x2 bf16: launches off the tensor-core route {bf}")
+    el = [r["elastic"] for r in ranks]
+    for e in el:
+        full, hit = e["full"], e["hit"]
+        if full["restarts"] != 0 or hit["restarts"] != 1:
+            raise AssertionError(f"run_elastic restarts {full['restarts']}, {hit['restarts']}")
+        if full["epochs"] != [0, 1, 2] or hit["epochs"] != [0, 1, 2]:
+            raise AssertionError(f"run_elastic epochs {full['epochs']}, {hit['epochs']}")
+        if hit["test"] != full["test"] or any(
+                not np.array_equal(v, full["params"][p]) for p, v in hit["params"].items()):
+            raise AssertionError("run_elastic after a fault: not the uninterrupted run")
+    details["elastic"] = {"test": el[0]["full"]["test"], "restarts": 1,
+                          "seconds": [el[0]["full"]["seconds"], el[0]["hit"]["seconds"]]}
+    dp, tp = details["2x1"], details["1x2"]
+    print(f"[two ranks] gloo, 2 ranks on one card, P12: DP 2x1 (f32 attention operands) "
+          f"loss / parameter / gradient error {dp['loss_err']:.3e} / {dp['param_err']:.3e} / "
+          f"{dp['grad_rel_err']:.3e}, TP 1x2 {tp['loss_err']:.3e} / {tp['param_err']:.3e} / "
+          f"{tp['grad_rel_err']:.3e} (limits {TWO_RANK_TOL}); TP 1x2 bf16 first step: loss "
+          f"{bf['first_loss_err']:.3e}, logits {bf['logit_err']:.3e}, gradient "
+          f"{bf['grad_rel_err']:.3e} (limits {TWO_RANK_BF16_TOL}); step ms one rank "
+          f"{one_ms:.3f}, DP {dp['step_ms']}, TP {tp['step_ms']}, TP bf16 {bf['step_ms']}; "
+          f"flash_mha_packed launches a rank: TP {tp['launches']} forward, "
+          f"{tp['bwd_launches']} backward, TP bf16 {bf['tc_launches']} / "
+          f"{bf['tc_bwd_launches']} on the tensor cores; run_elastic restarted "
+          f"once, bit-equal to the uninterrupted run; best-parameter shards {shards}",
+          flush=True)
+    if "hit.shard0-of2.npz" not in shards and "full.shard0-of2.npz" not in shards:
+        # a best epoch writes both ranks' shards; a split whose val AUROC
+        # never rises above 0 writes none
+        print("[two ranks] no epoch improved the val AUROC: no shard file", flush=True)
+    return details
+
+
+def torchrun_cli_phase(seed=0):
+    """The CLI through torchrun, one process (`--distributed true`: the
+    group from torchrun's environment, NCCL; `--data-parallel 1`), P12 for
+    1 epoch at full width from dataset files written from `seed`: exit 0,
+    finite metrics in [0, 100]. Returns (summary, seconds)."""
+    from raindrop_tpu_torch.parallel.mesh import free_port
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "P12data")
+        write_p12_root(root, seed)
+        out = os.path.join(tmp, "out.json")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+               "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+               "-m", "raindrop_tpu_torch.run", "--distributed", "true",
+               "--data-parallel", "1", "--dataset", "P12", "--data-root", root,
+               "--epochs", "1", "--n-splits", "1", "--batch-size", "128",
+               "--seed", str(seed), "--checkpoint-dir", os.path.join(tmp, "ckpt"),
+               "--out-json", out]
+        print(f"[cli] torchrun: {' '.join(cmd[1:])}", flush=True)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [HERE, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
+                              timeout=600)
+        took = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun CLI exit {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(out) as f:
+            summary = json.load(f)["missing_0.0"]
+    for name, s in summary.items():
+        if not (np.isfinite(s["mean"]) and 0.0 <= s["mean"] <= 100.0):
+            raise AssertionError(f"torchrun CLI: {name} = {s}")
+    print(f"[cli] torchrun P12, 1 epoch: {took:.1f} s, "
+          + ", ".join(f"{k} {v['mean']:.2f}" for k, v in summary.items()), flush=True)
+    return summary, took
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4259,6 +4833,25 @@ def main(argv=None) -> int:
             wrappers, overrides=sw_long, label="PAM-sw-2048", route="tc_wide")
     torch.cuda.empty_cache()
 
+    # the mesh: rows 1-4 at shard origins, the NCCL world-size-1
+    # mesh (this slice's path: its launch counts), two gloo ranks sharing
+    # the card, the CLI through torchrun
+    with phase(phase_s, "shard origins"):
+        origins = shard_origin_phase()
+    torch.cuda.empty_cache()
+    with phase(phase_s, "mesh NCCL world size 1"):
+        mesh_counts, mesh_runs = mesh_phase(wrappers)
+    torch.cuda.empty_cache()
+    with phase(phase_s, "two gloo ranks"):
+        two_ranks = two_rank_phase()
+    torch.cuda.empty_cache()
+    with phase(phase_s, "CLI torchrun"):
+        torchrun_summary, torchrun_s = torchrun_cli_phase(args.seed)
+    print(f"[mesh phases] shard origins {phase_s['shard origins']:.1f} s, mesh "
+          f"{phase_s['mesh NCCL world size 1']:.1f} s, two gloo ranks "
+          f"{phase_s['two gloo ranks']:.1f} s, CLI torchrun {phase_s['CLI torchrun']:.1f} s",
+          flush=True)
+
     # the kernels' record at the main paths' shapes and operand dtype
     # (attention_score_dtype defaults to bfloat16; training runs the shipped
     # dropout 0.2, serving none); flash_mha_packed's also carry prev_ms, the
@@ -4298,28 +4891,46 @@ def main(argv=None) -> int:
 
     # rows 1-3 also carry the launches of the imported models and of the
     # CLI on the preprocessed raw text (migrate_phase, raw_physionet_phase)
+    # rows 1-4 also carry the mesh path's launches (mesh_phase, NCCL world
+    # size 1: the counts set to 0 before and read after), rows 1-2 those
+    # of the TP 1x2 run on each of two gloo ranks (one head a rank), and
+    # each its largest error against the plain version at a shard origin
+    p12_mesh, pam_mesh = mesh_counts["P12"], mesh_counts["PAM"]
+    tp_runs = two_ranks["1x2"]
+    packed_origin_err = max(r["plain_sample_err"] for r in origins["packed"])
+    fused_origin_err = origins["fused"][0]["plain_sample_err"]
     kernels = [
         {**with_baselines(record(
             "flash_mha_packed_fwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
             "raindrop_tpu/ops/flash_attention.py:566",
             p12_launches["flash_mha_packed"], flash, "P12"),
             ("served", "train_fwd"), "fwd_max_abs_err"),
-         "import_launches": import_launches["flash_mha_packed"]},
+         "import_launches": import_launches["flash_mha_packed"],
+         "mesh_launches": p12_mesh[0]["flash_mha_packed"],
+         "tp_launches_a_rank": tp_runs["launches"],
+         "tp_bf16_tc_launches_a_rank": two_ranks["1x2_bf16"]["tc_launches"],
+         "origin_sample_err": packed_origin_err},
         {**with_baselines(record(
             "flash_mha_packed_bwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
             "raindrop_tpu/ops/flash_attention.py:610",
             p12_tb["flash_mha_packed"], flash_bwd, "P12", 0.2),
             ("train_bwd",), "bwd_sample_err"),
-         "import_launches": import_launches["flash_mha_packed_bwd"]},
+         "import_launches": import_launches["flash_mha_packed_bwd"],
+         "mesh_launches": p12_mesh[1]["flash_mha_packed"],
+         "tp_launches_a_rank": tp_runs["bwd_launches"],
+         "tp_bf16_tc_launches_a_rank": two_ranks["1x2_bf16"]["tc_bwd_launches"],
+         "origin_sample_err": packed_origin_err},
         {**record("fused_encoder_layer_fwd", "raindrop_tpu_torch/csrc/fused_encoder.cu",
                   "raindrop_tpu/ops/fused_encoder.py:131",
                   pam_launches["fused_encoder_layer.tc"], fused, "PAM"),
-         **FUSED_FWD_KERNELS, "import_launches": import_launches["fused_encoder_layer"]},
+         **FUSED_FWD_KERNELS, "import_launches": import_launches["fused_encoder_layer"],
+         "mesh_launches": pam_mesh[0]["fused_encoder_layer.tc"],
+         "origin_sample_err": fused_origin_err},
         {**record("fused_encoder_layer_bwd",
                   "raindrop_tpu_torch/csrc/fused_encoder_bwd.cu",
                   "raindrop_tpu/ops/fused_encoder.py:183",
                   pam_tb["fused_encoder_layer.tc"], fused_bwd, "PAM", 0.2),
-         **FUSED_BWD_KERNELS},
+         **FUSED_BWD_KERNELS, "mesh_launches": pam_mesh[1]["fused_encoder_layer.tc"]},
     ]
 
     csrc = "raindrop_tpu_torch/csrc"
@@ -4440,7 +5051,7 @@ def main(argv=None) -> int:
                           split_src]},
     ]
     for rec in kernels:
-        if rec["launches"] <= 0:
+        if rec["launches"] <= 0 or rec.get("mesh_launches", 1) <= 0:
             raise AssertionError(f"{rec['name']} was never launched on its path")
     detail = {"card": card, "build_s": build_s, "sass": sass, "flash": flash,
               "fused": fused, "flash_bwd": flash_bwd, "flash_edge": edges,
@@ -4489,6 +5100,9 @@ def main(argv=None) -> int:
                             **sw_long_train},
                   "protocol": {"launches": sw_long_pf, "bwd_launches": sw_long_pb,
                                **sw_long_protocol}},
+              "mesh": {"origins": origins, "mesh": mesh_runs, "two_ranks": two_ranks,
+                       "torchrun_cli": {"summary": torchrun_summary,
+                                        "seconds": torchrun_s}},
               "phase_s": phase_s, "total_s": time.perf_counter() - t_start,
               "kernels": kernels}
     if args.out:

@@ -48,14 +48,15 @@ class ModelFns(NamedTuple):
     update_mask: Any = None
 
 
-def make_flagship(cfg: RaindropConfig, device="cuda") -> ModelFns:
+def make_flagship(cfg: RaindropConfig, device="cuda", mesh=None) -> ModelFns:
     """Raindrop (models/raindrop.py) in the adapters' form: the Trainer's
     and the InferenceServer's model when they are given no apply_fn. Its
     update mask is raindrop_param_mask's (the leaves the forward never
     reads stay dead); only the COO propagation branch with prop_dropout
     reads per-sample seeds, and only the dense use_beta block the two of
     its own. The sensor graph is sorted for the kernels here, not in the
-    first forward (warm_propagation)."""
+    first forward (warm_propagation). `mesh`: the forward runs this
+    rank's rows and part of the model (raindrop_apply's mesh)."""
     from raindrop_tpu_torch.models.raindrop import (
         prop_branch, raindrop_apply, raindrop_init, raindrop_param_mask,
         warm_propagation)
@@ -72,7 +73,7 @@ def make_flagship(cfg: RaindropConfig, device="cuda") -> ModelFns:
     return ModelFns(
         lambda seed: raindrop_init(seed, cfg, device=device),
         lambda p, src, st, tm, ln, train, seeds: raindrop_apply(
-            p, cfg, src, st, tm, ln, train=train, seeds=seeds),
+            p, cfg, src, st, tm, ln, train=train, seeds=seeds, mesh=mesh),
         draw_seeds if cfg.dropout > 0.0 or drops else None,
         raindrop_param_mask(cfg))
 

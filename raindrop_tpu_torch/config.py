@@ -117,8 +117,9 @@ class RaindropConfig:
 class TrainConfig:
     """Training protocol (reference code/Raindrop.py:105-160, 255-307).
     Every field of the JAX package's TrainConfig with its default; the
-    fields of the scale-out routes, which the port does not run yet, raise
-    when set."""
+    fields of the scale-out routes (context parallelism, the pipeline,
+    edge partitioning), which the port does not run yet, raise when set.
+    Data and tensor parallelism take a mesh (Trainer's `mesh`)."""
 
     dataset: str = "P12"
     num_epochs: int = 20
@@ -160,7 +161,7 @@ class TrainConfig:
     aux_loss_weight: float = 0.0
     diag_frozen_params: bool = False
     resplit_per_run: bool = False
-    # scale-out routes: not ported yet
+    # the scale-out routes over the mesh's model axis: not ported yet
     context_parallel: str = "none"
     pipeline_microbatches: int = 0
     edge_partition: bool = False
@@ -173,7 +174,7 @@ class TrainConfig:
                 or self.edge_partition):
             raise NotImplementedError(
                 "context_parallel, pipeline_microbatches and edge_partition "
-                "come with the scale-out slice")
+                "come with slice 18, the scale-out slice of the model-axis routes")
         if self.input_pipeline not in ("resident", "streaming"):
             raise ValueError(
                 f"unknown input_pipeline {self.input_pipeline!r} "

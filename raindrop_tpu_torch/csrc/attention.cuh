@@ -67,15 +67,32 @@ __device__ __forceinline__ float opnd(float x) {
   }
 }
 
+// Where a launch sits in the batch and heads whose dropout mask it draws:
+// a data-parallel rank launches on rows b0.. of the global batch, a
+// tensor-parallel one on heads h0.. of `heads`. {0, 0, H} is the launch
+// itself.
+struct Origin {
+  int b0, h0, heads;
+};
+
 // Dropout keep bits: a counter hash of (seed, bh, row, col), the same
 // bits the plain version and the reference draw (xorshift-multiply
 // finalizer). `base` folds the seed and bh terms; an element is kept when
 // its hash is >= thr = rate * 2^32, and kept values are scaled by inv =
-// 1 / (1 - rate).
+// 1 / (1 - rate). The launch's sample b and head h hash at its origin, as
+// bh = (b0 + b) * heads + h0 + h, so the shards of a batch or of the heads
+// draw the bits of the whole launch.
 struct Drop {
   uint32_t base;
   uint32_t thr;
   float inv;
+  uint32_t b0, h0, heads;
+
+  __host__ __device__ __forceinline__ uint32_t bh(int b, int h) const {
+    return (b0 + (uint32_t)b) * heads + h0 + (uint32_t)h;
+  }
+  // the sample index the fused layer's row-local sites hash
+  __host__ __device__ __forceinline__ uint32_t row(int b) const { return b0 + (uint32_t)b; }
 };
 
 __host__ __device__ __forceinline__ uint32_t drop_base(int seed, uint32_t bh) {
@@ -92,12 +109,22 @@ __device__ __forceinline__ bool keep_bit(const Drop& dr, uint32_t row, uint32_t 
   return x >= dr.thr;
 }
 
-inline Drop make_drop(double rate) {
+inline Drop make_drop(double rate, Origin o) {
   Drop dr;
   dr.base = 0u;
   dr.thr = (uint32_t)(rate * 4294967296.0);
   dr.inv = (float)(1.0 / (1.0 - rate));
+  dr.b0 = (uint32_t)o.b0;
+  dr.h0 = (uint32_t)o.h0;
+  dr.heads = (uint32_t)o.heads;
   return dr;
+}
+
+// An origin that does not place B samples and H heads inside the grid's
+// 65535 samples of at most 65535 heads (the entry points refuse it).
+inline bool bad_origin(Origin o, int B, int H) {
+  return o.b0 < 0 || o.h0 < 0 || o.heads < H || o.heads > 65535 || o.h0 > o.heads - H ||
+         o.b0 > 65535 - B;
 }
 
 // Shared floats attend_rows needs for head dim hd.

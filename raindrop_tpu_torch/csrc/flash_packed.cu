@@ -4,8 +4,9 @@
 //
 // Forward: q, k, v [B, T, d] (f32 or bf16, d = nhead * hd), lengths [B]
 // int32 -> o [B, T, d] f32, lse [B, nhead, T] f32 in base 2.
-// Backward: + do [B, T, d] (operand type), lse, delta [B, nhead, T] f32
-// -> dq, dk, dv [B, T, d] f32.
+// Backward: + do [B, T, d] (operand type), o [B, T, d] f32, lse -> dq, dk,
+// dv [B, T, d] f32, through delta [B, nhead, T] f32 (row_delta.cuh, a
+// launch of its own before dq and dk/dv, into the caller's buffer).
 //
 // What bounds it: at the training and serving shapes (P12: T=215, hd=80,
 // d=160; eICU: T=300, hd=36, d=72) the forward's work is 4*H*T*hd FLOPs a
@@ -55,6 +56,7 @@
 
 #include "attention_bwd.cuh"
 #include "flash_packed.cuh"
+#include "row_delta.cuh"
 
 namespace {
 
@@ -73,7 +75,7 @@ packed_fwd_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
   const int length = min(max(lengths[b], 0), T);
   const long base = (long)b * T * d + (long)h * hd;
   constexpr bool kBf16 = sizeof(TIn) == 2;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::attend_rows<MAXD, kBf16, DROP, TIn, G>(
       q + base, k + base, v + base, d, T, length, q0, hd, scale2, smem,
       o + base + (long)q0 * d, d, lse + ((long)b * nhead + h) * T, dr);
@@ -93,7 +95,7 @@ packed_dq_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
   const long base = (long)b * T * d + (long)h * hd;
   const long stat = ((long)b * nhead + h) * T;
   constexpr bool kBf16 = sizeof(TIn) == 2;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::attn_dq_rows<MAXD, kBf16, DROP, TIn, G>(
       q + base, k + base, v + base, d, d_o + base, d, lse + stat, delta + stat,
       T, length, q0, hd, scale * 1.4426950408889634f, scale, dr, smem,
@@ -115,7 +117,7 @@ packed_dkv_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
   const long base = (long)b * T * d + (long)h * hd;
   const long stat = ((long)b * nhead + h) * T;
   constexpr bool kBf16 = sizeof(TIn) == 2;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::attn_dkv_rows<MAXD, kBf16, DROP, TIn, G>(
       q + base, k + base, v + base, d, d_o + base, d, lse + stat, delta + stat,
       T, length, k0, hd, scale * 1.4426950408889634f, scale, dr, smem,
@@ -288,8 +290,11 @@ extern "C" int rd_packed_smem(int B, int T, int d, int nhead, int bf16, int rout
 extern "C" int rd_packed_fwd(const void* q, const void* k, const void* v,
                              const void* lengths, void* o, void* lse, int B,
                              int T, int d, int nhead, float scale2, int bf16,
-                             int seed, double rate, const int* plan, void* stream) {
-  if (bad_shape(B, T, d, nhead, rate)) return (int)cudaErrorInvalidValue;
+                             int seed, double rate, int b0, int h0, int heads,
+                             const int* plan, void* stream) {
+  const rd::Origin org{b0, h0, heads};
+  if (bad_shape(B, T, d, nhead, rate) || rd::bad_origin(org, B, nhead))
+    return (int)cudaErrorInvalidValue;
   Plan p;
   if (!make_plan(plan, B, T, d, nhead, bf16, {q, k, v}, &p))
     return (int)cudaErrorInvalidValue;
@@ -297,37 +302,42 @@ extern "C" int rd_packed_fwd(const void* q, const void* k, const void* v,
   if (p.route == 1 || p.route == 2) {
     const rd::packed::Strides st = packed_strides(T, d, nhead);
     return (p.route == 1 ? rd::packed::launch_fwd_tc : rd::packed::launch_fwd_wide)(
-        q, k, v, lengths, o, lse, st, st, p, nhead, T, d / nhead, scale2, seed, rate, s);
+        q, k, v, lengths, o, lse, st, st, p, nhead, T, d / nhead, scale2, seed, rate, org, s);
   }
-  const rd::Drop dr = rd::make_drop(rate);
+  const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_fwd, d / nhead, rate, bf16, q, k, v, lengths, o, lse, p, T,
               d, nhead, scale2, seed, dr, s);
 }
 
-// scale = 1/sqrt(hd), without log2(e).
+// scale = 1/sqrt(hd), without log2(e). delta: a [B, nhead, T] f32 buffer
+// this call fills from do and o before the gradients' launches.
 extern "C" int rd_packed_bwd(const void* q, const void* k, const void* v,
-                             const void* d_o, const void* lse, const void* delta,
+                             const void* d_o, const void* o, const void* lse, void* delta,
                              const void* lengths, void* dq, void* dk, void* dv,
                              int B, int T, int d, int nhead, float scale,
-                             int bf16, int seed, double rate, const int* plan,
-                             void* stream) {
-  if (bad_shape(B, T, d, nhead, rate)) return (int)cudaErrorInvalidValue;
+                             int bf16, int seed, double rate, int b0, int h0, int heads,
+                             const int* plan, void* stream) {
+  const rd::Origin org{b0, h0, heads};
+  if (bad_shape(B, T, d, nhead, rate) || rd::bad_origin(org, B, nhead))
+    return (int)cudaErrorInvalidValue;
   Plan p;
   if (!make_plan(plan, B, T, d, nhead, bf16, {q, k, v, d_o}, &p))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const rd::packed::Strides st = packed_strides(T, d, nhead);
+  int err = rd::launch_row_delta(bf16, d_o, o, delta, st, st, B, nhead, T, d / nhead, s);
+  if (err != 0) return err;
   if (p.route == 1 || p.route == 2) {
     const bool tc = p.route == 1;
-    const rd::packed::Strides st = packed_strides(T, d, nhead);
-    const int err = (tc ? rd::packed::launch_dq_tc : rd::packed::launch_dq_wide)(
+    err = (tc ? rd::packed::launch_dq_tc : rd::packed::launch_dq_wide)(
         q, k, v, d_o, lse, delta, lengths, dq, st, st, st, p, nhead, T, d / nhead, scale, seed,
-        rate, s);
+        rate, org, s);
     if (err != 0) return err;
     return (tc ? rd::packed::launch_dkv_tc : rd::packed::launch_dkv_wide)(
         q, k, v, d_o, lse, delta, lengths, dk, dv, st, st, st, p, nhead, T, d / nhead, scale,
-        seed, rate, s);
+        seed, rate, org, s);
   }
-  const rd::Drop dr = rd::make_drop(rate);
+  const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_bwd, d / nhead, rate, bf16, q, k, v, d_o, lse, delta,
               lengths, dq, dk, dv, p, T, d, nhead, scale, seed, dr, s);
 }

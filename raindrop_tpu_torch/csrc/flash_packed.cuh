@@ -93,26 +93,26 @@ int with_wide_pad(int hd_pad, F&& f) {
 // lse and delta are [B, H, T]. scale2 = log2(e)/sqrt(D), scale = 1/sqrt(D).
 int launch_fwd_tc(const void* q, const void* k, const void* v, const void* lengths, void* o,
                   void* lse, Strides s_in, Strides s_out, const Plan& p, int H, int T, int D,
-                  float scale2, int seed, double rate, cudaStream_t stream);
+                  float scale2, int seed, double rate, rd::Origin org, cudaStream_t stream);
 int launch_dq_tc(const void* q, const void* k, const void* v, const void* d_o,
                  const void* lse, const void* delta, const void* lengths, void* dq,
                  Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H, int T, int D,
-                 float scale, int seed, double rate, cudaStream_t stream);
+                 float scale, int seed, double rate, rd::Origin org, cudaStream_t stream);
 int launch_dkv_tc(const void* q, const void* k, const void* v, const void* d_o,
                   const void* lse, const void* delta, const void* lengths, void* dk, void* dv,
                   Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H, int T,
-                  int D, float scale, int seed, double rate, cudaStream_t stream);
+                  int D, float scale, int seed, double rate, rd::Origin org, cudaStream_t stream);
 int launch_fwd_wide(const void* q, const void* k, const void* v, const void* lengths, void* o,
                     void* lse, Strides s_in, Strides s_out, const Plan& p, int H, int T, int D,
-                    float scale2, int seed, double rate, cudaStream_t stream);
+                    float scale2, int seed, double rate, rd::Origin org, cudaStream_t stream);
 int launch_dq_wide(const void* q, const void* k, const void* v, const void* d_o,
                    const void* lse, const void* delta, const void* lengths, void* dq,
                    Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H, int T,
-                   int D, float scale, int seed, double rate, cudaStream_t stream);
+                   int D, float scale, int seed, double rate, rd::Origin org, cudaStream_t stream);
 int launch_dkv_wide(const void* q, const void* k, const void* v, const void* d_o,
                     const void* lse, const void* delta, const void* lengths, void* dk,
                     void* dv, Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H,
-                    int T, int D, float scale, int seed, double rate, cudaStream_t stream);
+                    int T, int D, float scale, int seed, double rate, rd::Origin org, cudaStream_t stream);
 
 }  // namespace packed
 }  // namespace rd

@@ -26,7 +26,7 @@ packed_dkv_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int length = min(max(lengths[b], 0), T);
   const long in = head_base(s_in, b, h);
   const long stat = ((long)b * H + h) * T;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * H + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::tc::attn_dkv_rows_tc_wide<HDK, DROP>(
       q + in, k + in, v + in, s_in.t, d_o + head_base(s_do, b, h), s_do.t, lse + stat,
       delta + stat, T, length, k0, D, W, scale * 1.4426950408889634f, scale, dr, smem_tc, role,
@@ -39,8 +39,8 @@ int rd::packed::launch_dkv_wide(const void* q, const void* k, const void* v, con
                                 const void* lse, const void* delta, const void* lengths,
                                 void* dk, void* dv, Strides s_in, Strides s_do, Strides s_out,
                                 const Plan& p, int H, int T, int D, float scale, int seed,
-                                double rate, cudaStream_t stream) {
-  const Drop dr = make_drop(rate);
+                                double rate, rd::Origin org, cudaStream_t stream) {
+  const Drop dr = make_drop(rate, org);
   return with_wide_pad(p.hd_pad, [&](auto n) {
     constexpr int HDK = decltype(n)::value;
     auto kern = rate > 0.0 ? packed_dkv_wide<HDK, true> : packed_dkv_wide<HDK, false>;

@@ -23,7 +23,7 @@ packed_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = blockIdx.x * rd::tc::ROWS, h = blockIdx.y, b = blockIdx.z;
   const int length = min(max(lengths[b], 0), T);
   const long in = head_base(s_in, b, h);
-  dr.base = rd::drop_base(seed, (uint32_t)(b * H + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::tc::attend_rows_tc<HDK, DROP>(
       q + in, k + in, v + in, s_in.t, T, length, q0, D, W, scale2, smem_tc,
       o + head_base(s_out, b, h) + (long)q0 * s_out.t, s_out.t, lse + ((long)b * H + h) * T, dr,
@@ -35,8 +35,8 @@ packed_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 int rd::packed::launch_fwd_tc(const void* q, const void* k, const void* v,
                               const void* lengths, void* o, void* lse, Strides s_in,
                               Strides s_out, const Plan& p, int H, int T, int D, float scale2,
-                              int seed, double rate, cudaStream_t stream) {
-  const Drop dr = make_drop(rate);
+                              int seed, double rate, rd::Origin org, cudaStream_t stream) {
+  const Drop dr = make_drop(rate, org);
   return with_hd_pad(p.hd_pad, [&](auto n) {
     constexpr int HDK = decltype(n)::value;
     auto kern = rate > 0.0 ? packed_fwd_tc<HDK, true> : packed_fwd_tc<HDK, false>;

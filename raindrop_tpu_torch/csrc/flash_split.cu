@@ -8,8 +8,9 @@
 //
 // Forward: q, k, v [B, H, T, D] (f32 or bf16), lengths [B] int32 ->
 // o [B, H, T, D] f32, lse [B, H, T] f32 in base 2.
-// Backward: + do [B, H, T, D] (operand type), lse, delta [B, H, T] f32 ->
-// dq, dk, dv [B, H, T, D] f32.
+// Backward: + do [B, H, T, D] (operand type), o [B, H, T, D] f32, lse ->
+// dq, dk, dv [B, H, T, D] f32, through delta [B, H, T] f32 (row_delta.cuh,
+// a launch of its own first, into the caller's buffer).
 // Every [B, H, T, D] array comes with its (batch, head, row) strides in
 // elements and a unit last stride, so the [B, T, H, D] view of the model's
 // projection is read in place and o is written merged: the two transposed
@@ -64,6 +65,7 @@
 
 #include "attention_bwd.cuh"
 #include "flash_packed.cuh"
+#include "row_delta.cuh"
 
 namespace {
 
@@ -83,7 +85,7 @@ split_fwd_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
   const int length = min(max(lengths[b], 0), T);
   const long in = head_base(s_in, b, h);
   constexpr bool kBf16 = sizeof(TIn) == 2;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * H + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::attend_rows<MAXD, kBf16, DROP, TIn, G>(
       q + in, k + in, v + in, s_in.t, T, length, q0, D, scale2, smem,
       o + head_base(s_out, b, h) + (long)q0 * s_out.t, s_out.t,
@@ -104,7 +106,7 @@ split_dq_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
   const long in = head_base(s_in, b, h);
   const long stat = ((long)b * H + h) * T;
   constexpr bool kBf16 = sizeof(TIn) == 2;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * H + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::attn_dq_rows<MAXD, kBf16, DROP, TIn, G>(
       q + in, k + in, v + in, s_in.t, d_o + head_base(s_do, b, h), s_do.t,
       lse + stat, delta + stat, T, length, q0, D, scale * 1.4426950408889634f,
@@ -127,7 +129,7 @@ split_dkv_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
   const long out = head_base(s_out, b, h);
   const long stat = ((long)b * H + h) * T;
   constexpr bool kBf16 = sizeof(TIn) == 2;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * H + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::attn_dkv_rows<MAXD, kBf16, DROP, TIn, G>(
       q + in, k + in, v + in, s_in.t, d_o + head_base(s_do, b, h), s_do.t,
       lse + stat, delta + stat, T, length, k0, D, scale * 1.4426950408889634f,
@@ -334,8 +336,10 @@ extern "C" int rd_split_fwd(const void* q, const void* k, const void* v,
                             const void* lengths, void* o, void* lse,
                             const long long* strides, int B, int H, int T, int D,
                             float scale2, int bf16, int seed, double rate,
-                            const int* plan, void* stream) {
-  if (bad_shape(B, H, T, D, rate)) return (int)cudaErrorInvalidValue;
+                            int b0, int h0, int heads, const int* plan, void* stream) {
+  const rd::Origin org{b0, h0, heads};
+  if (bad_shape(B, H, T, D, rate) || rd::bad_origin(org, B, H))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Strides s_in = strides_at(strides, 0), s_out = strides_at(strides, 1);
   Plan p;
@@ -343,9 +347,9 @@ extern "C" int rd_split_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (p.route == 1 || p.route == 2) {
     return (p.route == 1 ? rd::packed::launch_fwd_tc : rd::packed::launch_fwd_wide)(
-        q, k, v, lengths, o, lse, s_in, s_out, p, H, T, D, scale2, seed, rate, s);
+        q, k, v, lengths, o, lse, s_in, s_out, p, H, T, D, scale2, seed, rate, org, s);
   }
-  const rd::Drop dr = rd::make_drop(rate);
+  const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_fwd, D, rate, bf16, q, k, v, lengths, o, lse, s_in, s_out,
               B, H, T, D, scale2, seed, dr, s);
 }
@@ -353,29 +357,33 @@ extern "C" int rd_split_fwd(const void* q, const void* k, const void* v,
 // strides: of q/k/v, of do, of dq/dk/dv. scale = 1/sqrt(D), without log2(e).
 // plan: as in rd_split_fwd.
 extern "C" int rd_split_bwd(const void* q, const void* k, const void* v,
-                            const void* d_o, const void* lse, const void* delta,
+                            const void* d_o, const void* o, const void* lse, void* delta,
                             const void* lengths, void* dq, void* dk, void* dv,
                             const long long* strides, int B, int H, int T, int D,
                             float scale, int bf16, int seed, double rate,
-                            const int* plan, void* stream) {
-  if (bad_shape(B, H, T, D, rate)) return (int)cudaErrorInvalidValue;
+                            int b0, int h0, int heads, const int* plan, void* stream) {
+  const rd::Origin org{b0, h0, heads};
+  if (bad_shape(B, H, T, D, rate) || rd::bad_origin(org, B, H))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Strides s_in = strides_at(strides, 0), s_do = strides_at(strides, 1),
-                s_out = strides_at(strides, 2);
+                s_out = strides_at(strides, 2), s_o = strides_at(strides, 3);
   Plan p;
   if (!make_plan(plan, B, H, T, D, bf16, {s_in, s_do}, {q, k, v, d_o}, &p))
     return (int)cudaErrorInvalidValue;
+  int err = rd::launch_row_delta(bf16, d_o, o, delta, s_do, s_o, B, H, T, D, s);
+  if (err != 0) return err;
   if (p.route == 1 || p.route == 2) {
     const bool tc = p.route == 1;
-    int err = (tc ? rd::packed::launch_dq_tc : rd::packed::launch_dq_wide)(
+    err = (tc ? rd::packed::launch_dq_tc : rd::packed::launch_dq_wide)(
         q, k, v, d_o, lse, delta, lengths, dq, s_in, s_do, s_out, p, H, T, D, scale, seed,
-        rate, s);
+        rate, org, s);
     if (err != 0) return err;
     return (tc ? rd::packed::launch_dkv_tc : rd::packed::launch_dkv_wide)(
         q, k, v, d_o, lse, delta, lengths, dk, dv, s_in, s_do, s_out, p, H, T, D, scale, seed,
-        rate, s);
+        rate, org, s);
   }
-  const rd::Drop dr = rd::make_drop(rate);
+  const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_bwd, D, rate, bf16, q, k, v, d_o, lse, delta, lengths, dq,
               dk, dv, s_in, s_do, s_out, B, H, T, D, scale, seed, dr, s);
 }

@@ -75,7 +75,7 @@ attn_rows_kernel(const float* __restrict__ qkv, const int* __restrict__ lengths,
   const int hd = d / nhead;
   const int length = min(max(lengths[b], 0), T);
   const float* qh = qkv + (long)b * T * 3 * d + h * hd;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::attend_rows<MAXD, BF, DROP, float, G>(
       qh, qh + d, qh + 2 * d, 3 * d, T, length, q0, hd, scale2, smem,
       attn + ((long)b * T + q0) * d + h * hd, d, lse + ((long)b * nhead + h) * T, dr);
@@ -103,7 +103,7 @@ layer_tail_kernel(const float* __restrict__ x, const float* __restrict__ attn,
     const int r = idx / d, c = idx - r * d;
     As[r * DP + c] = r < nrows ? attn[(row0 + r) * d + c] : 0.f;
   }
-  dr.base = rd::drop_base(seed, (uint32_t)b);
+  dr.base = rd::drop_base(seed, dr.row(b));
   const uint32_t t8 = (uint32_t)((T + 7) / 8 * 8);
   __syncthreads();
   rd::row_gemm<BF, false, DROP>(As, DP, d, wo, bo, d, Xs, DP, x + row0 * d, d,
@@ -175,7 +175,7 @@ layer_tail_tc(const float* __restrict__ x, const float* __restrict__ attn,
   uint8_t* Ft = At + tile_bytes(d);                // the FFN hidden
   uint8_t* ring = Ft + tile_bytes(ffn);
   const long row0 = (long)b * T + q0;
-  dr.base = rd::drop_base(seed, (uint32_t)b);
+  dr.base = rd::drop_base(seed, dr.row(b));
   const uint32_t t8 = (uint32_t)((T + 7) / 8 * 8);
   const uint32_t r101 = 101u * t8 + q0, r102 = 102u * t8 + q0, r103 = 103u * t8 + q0;
   // the value after its bias (and relu), dropped by the site's keep bit
@@ -254,9 +254,10 @@ int launch_tc(const float* const* w, const float* b_in, const float* bo, const f
               const float* be1, const float* bf1, const float* bf2, const float* g2,
               const float* be2, const float* x, const int* lengths, bf16* qkv, float* out,
               float* attn, float* lse, bf16* wpack, int B, int T, int d, int ffn, int nhead,
-              float scale2, int seed, double rate, const Plan& p, cudaStream_t stream) {
+              float scale2, int seed, double rate, rd::Origin org, const Plan& p,
+              cudaStream_t stream) {
   using namespace rd::fused;
-  const rd::Drop dr = rd::make_drop(rate);
+  const rd::Drop dr = rd::make_drop(rate, org);
   const Packed pk = packed_layout(d, ffn);
   RD_TRY(pack_weights(pack_jobs(pk, w, P_W2T), wpack, stream));
   const long M = (long)B * T;
@@ -267,7 +268,7 @@ int launch_tc(const float* const* w, const float* b_in, const float* bo, const f
   RD_TRY(cudaGetLastError());
   const Launch& lb = p.l[ATTN_FWD];
   const int err = (lb.route == 1 ? launch_attn_fwd_tc : launch_attn_fwd_wide)(
-      qkv, lengths, attn, lse, lb, B, T, d, nhead, scale2, seed, rate, stream);
+      qkv, lengths, attn, lse, lb, B, T, d, nhead, scale2, seed, rate, org, stream);
   if (err != 0) return err;
   const Launch& lc = p.l[TAIL];
   auto kc = layer_tail_tc<DROP>;
@@ -304,9 +305,12 @@ extern "C" int rd_fused_layer_fwd(
     const void* bf1, const void* w2, const void* bf2, const void* g2,
     const void* be2, const void* lengths, void* qkv, void* out, void* attn,
     void* lse, void* wpack, int B, int T, int d, int ffn, int nhead, float scale2,
-    int bf16, int seed, double rate, const int* plan, void* stream) {
+    int bf16, int seed, double rate, int b0, int h0, int heads, const int* plan,
+    void* stream) {
+  const rd::Origin org{b0, h0, heads};
   if (B <= 0 || B > 65535 || T <= 0 || nhead <= 0 || nhead > 65535 ||
-      d % nhead != 0 || ffn <= 0 || !(rate >= 0.0 && rate < 1.0))
+      d % nhead != 0 || ffn <= 0 || !(rate >= 0.0 && rate < 1.0) ||
+      rd::bad_origin(org, B, nhead))
     return (int)cudaErrorInvalidValue;
   Plan p;
   if (!rd::fused::check_plan(plan, d, ffn, nhead, bf16, {qkv}, &p))
@@ -320,11 +324,11 @@ extern "C" int rd_fused_layer_fwd(
       (const float*)bf1, (const float*)bf2, (const float*)g2, (const float*)be2, \
       (const float*)x, (const int*)lengths, (__nv_bfloat16*)qkv, (float*)out,     \
       (float*)attn, (float*)lse, (__nv_bfloat16*)wpack, B, T, d, ffn, nhead,    \
-      scale2, seed, rate, p, s
+      scale2, seed, rate, org, p, s
     return rate > 0.0 ? launch_tc<true>(RD_TC_ARGS) : launch_tc<false>(RD_TC_ARGS);
 #undef RD_TC_ARGS
   }
-  const rd::Drop dr = rd::make_drop(rate);
+  const rd::Drop dr = rd::make_drop(rate, org);
 #define RD_ARGS                                                            \
   (const float*)x, (const float*)w_in, (const float*)b_in,                 \
       (const float*)wo, (const float*)bo, (const float*)g1,                \

@@ -20,7 +20,7 @@ fused_attn_fwd_tc(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
   const int hd = d / nhead;
   const int length = min(max(lengths[b], 0), T);
   const bf16* qh = qkv + (long)b * T * 3 * d + h * hd;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::tc::attend_rows_tc<HDK, DROP>(qh, qh + d, qh + 2 * d, 3 * d, T, length, q0, hd, W,
                                     scale2, smem_tc, attn + ((long)b * T + q0) * d + h * hd,
                                     d, lse + ((long)b * nhead + h) * T, dr);
@@ -30,8 +30,8 @@ fused_attn_fwd_tc(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
 
 int rd::fused::launch_attn_fwd_tc(const void* qkv, const void* lengths, void* attn, void* lse,
                                   const Launch& l, int B, int T, int d, int nhead,
-                                  float scale2, int seed, double rate, cudaStream_t stream) {
-  const Drop dr = make_drop(rate);
+                                  float scale2, int seed, double rate, rd::Origin org, cudaStream_t stream) {
+  const Drop dr = make_drop(rate, org);
   return packed::with_hd_pad(tc::pad16(d / nhead), [&](auto n) {
     constexpr int HDK = decltype(n)::value;
     auto kern = rate > 0.0 ? fused_attn_fwd_tc<HDK, true> : fused_attn_fwd_tc<HDK, false>;

@@ -168,7 +168,7 @@ layer_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ att
   float* rs2 = rs1 + BR;
   const long row0 = (long)b * T + q0;
   float* part = partials + ((long)b * gridDim.x + blockIdx.x) * part_floats(d, ffn);
-  dr.base = rd::drop_base(seed, (uint32_t)b);
+  dr.base = rd::drop_base(seed, dr.row(b));
   const uint32_t t8 = (uint32_t)((T + 7) / 8 * 8);
   const uint32_t r101 = 101u * t8 + q0, r102 = 102u * t8 + q0, r103 = 103u * t8 + q0;
   auto keep = [&](uint32_t row_base, int r, int n) -> float {
@@ -285,7 +285,7 @@ fused_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
   const int length = min(max(lengths[b], 0), T);
   const float* qh = qkv + (long)b * T * 3 * d + h * hd;
   const long stat = ((long)b * nhead + h) * T;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::attn_dq_rows<MAXD, BF, DROP, float, G>(
       qh, qh + d, qh + 2 * d, 3 * d, dattn + (long)b * T * d + h * hd, d,
       lse + stat, delta + stat, T, length, q0, hd, scale * 1.4426950408889634f,
@@ -305,7 +305,7 @@ fused_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
   const float* qh = qkv + (long)b * T * 3 * d + h * hd;
   float* out = dqkv + (long)b * T * 3 * d + h * hd;
   const long stat = ((long)b * nhead + h) * T;
-  dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::attn_dkv_rows<MAXD, BF, DROP, float, G>(
       qh, qh + d, qh + 2 * d, 3 * d, dattn + (long)b * T * d + h * hd, d,
       lse + stat, delta + stat, T, length, k0, hd, scale * 1.4426950408889634f,
@@ -474,7 +474,7 @@ layer_bwd_rows_tc(const float* __restrict__ x, const float* __restrict__ attn,
   const float* gr = g + row0 * d;
   float* h1r = h1buf + row0 * d;
   float* part = partials + ((long)b * gridDim.x + blockIdx.x) * part_floats(d, ffn);
-  dr.base = rd::drop_base(seed, (uint32_t)b);
+  dr.base = rd::drop_base(seed, dr.row(b));
   const uint32_t t8 = (uint32_t)((T + 7) / 8 * 8);
   const uint32_t r101 = 101u * t8 + q0, r102 = 102u * t8 + q0, r103 = 103u * t8 + q0;
   auto keep = [&](uint32_t row_base, int r, int n) -> float {
@@ -786,6 +786,7 @@ struct Args {
   int B, T, d, ffn, nhead, seed, chunk;
   float scale;
   double rate;
+  rd::Origin org;
   rd::Drop dr;
   cudaStream_t stream;
 };
@@ -918,11 +919,11 @@ int launch_tc(const Args& a, const Plan& p) {
   const bool one_wg = p.l[ATTN_DQ].route == 1;
   int err = (one_wg ? launch_dq_tc : launch_dq_wide)(qkv, dattn, a.lse, a.delta, a.lengths,
                                                      a.dqkv, p.l[ATTN_DQ], B, T, d, a.nhead,
-                                                     a.scale, a.seed, a.rate, a.stream);
+                                                     a.scale, a.seed, a.rate, a.org, a.stream);
   if (err) return err;
   err = (one_wg ? launch_dkv_tc : launch_dkv_wide)(qkv, dattn, a.lse, a.delta, a.lengths,
                                                    a.dqkv, p.l[ATTN_DKV], B, T, d, a.nhead,
-                                                   a.scale, a.seed, a.rate, a.stream);
+                                                   a.scale, a.seed, a.rate, a.org, a.stream);
   if (err) return err;
 
   const Launch& ld = p.l[DX];
@@ -971,10 +972,13 @@ extern "C" int rd_fused_layer_bwd(
     void* dao, void* dattn, void* dh1, void* dqkv, void* delta, void* rowpart,
     void* wpart, void* h1, void* wpack, void* dx, void* dw_in, void* dwo, void* dw1,
     void* dw2, void* vec, int B, int T, int d, int ffn, int nhead, int chunk, float scale,
-    int bf16, int seed, double rate, const int* plan, void* stream) {
+    int bf16, int seed, double rate, int b0, int h0, int heads, const int* plan,
+    void* stream) {
   (void)be2;  // LN2's bias has no part in any gradient but its own
+  const rd::Origin org{b0, h0, heads};
   if (B <= 0 || B > 65535 || T <= 0 || nhead <= 0 || nhead > 65535 ||
-      d % nhead != 0 || ffn <= 0 || chunk <= 0 || !(rate >= 0.0 && rate < 1.0))
+      d % nhead != 0 || ffn <= 0 || chunk <= 0 || !(rate >= 0.0 && rate < 1.0) ||
+      rd::bad_origin(org, B, nhead))
     return (int)cudaErrorInvalidValue;
   Plan p;
   if (!rd::fused::check_plan(plan, d, ffn, nhead, bf16, {qkv, dattn}, &p))
@@ -994,7 +998,8 @@ extern "C" int rd_fused_layer_bwd(
   a.dx = (float*)dx; a.dw_in = (float*)dw_in; a.dwo = (float*)dwo;
   a.dw1 = (float*)dw1; a.dw2 = (float*)dw2; a.vec = (float*)vec;
   a.B = B; a.T = T; a.d = d; a.ffn = ffn; a.nhead = nhead; a.seed = seed;
-  a.chunk = chunk; a.scale = scale; a.rate = rate; a.dr = rd::make_drop(rate);
+  a.chunk = chunk; a.scale = scale; a.rate = rate; a.org = org;
+  a.dr = rd::make_drop(rate, org);
   a.stream = (cudaStream_t)stream;
   if (p.l[rd::fused::QKV].route == 1) {
     return rate > 0.0 ? launch_tc<true>(a, p) : launch_tc<false>(a, p);

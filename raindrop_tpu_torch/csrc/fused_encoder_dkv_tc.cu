@@ -24,7 +24,7 @@ fused_dkv_tc(const bf16* __restrict__ qkv, const bf16* __restrict__ dattn,
   const bf16* qh = qkv + (long)b * T * 3 * d + h * hd;
   const long stat = ((long)b * nhead + h) * T;
   float* out = dqkv + (long)b * T * 3 * d + h * hd + (role == 0 ? 2 * d : d);
-  dr.base = rd::drop_base(seed, (uint32_t)(b * nhead + h));
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
   rd::tc::attn_dkv_rows_tc<HDK, DROP>(
       qh, qh + d, qh + 2 * d, 3 * d, dattn + (long)b * T * d + h * hd, d, lse + stat,
       delta + stat, T, length, k0, hd, W, scale * 1.4426950408889634f, scale, dr, smem_tc,
@@ -36,8 +36,8 @@ fused_dkv_tc(const bf16* __restrict__ qkv, const bf16* __restrict__ dattn,
 int rd::fused::launch_dkv_tc(const void* qkv, const void* dattn, const void* lse,
                              const void* delta, const void* lengths, void* dqkv,
                              const Launch& l, int B, int T, int d, int nhead, float scale,
-                             int seed, double rate, cudaStream_t stream) {
-  const Drop dr = make_drop(rate);
+                             int seed, double rate, rd::Origin org, cudaStream_t stream) {
+  const Drop dr = make_drop(rate, org);
   return packed::with_hd_pad(tc::pad16(d / nhead), [&](auto n) {
     constexpr int HDK = decltype(n)::value;
     auto kern = rate > 0.0 ? fused_dkv_tc<HDK, true> : fused_dkv_tc<HDK, false>;

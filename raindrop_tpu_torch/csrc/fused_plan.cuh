@@ -183,22 +183,22 @@ inline rows::PackJobs pack_jobs(const Packed& pk, const float* const* w, int n) 
 // the padded head dims up to WIDE_MAX_HD_PAD.
 int launch_attn_fwd_tc(const void* qkv, const void* lengths, void* attn, void* lse,
                        const Launch& l, int B, int T, int d, int nhead, float scale2, int seed,
-                       double rate, cudaStream_t stream);
+                       double rate, rd::Origin org, cudaStream_t stream);
 int launch_dq_tc(const void* qkv, const void* dattn, const void* lse, const void* delta,
                  const void* lengths, void* dqkv, const Launch& l, int B, int T, int d,
-                 int nhead, float scale, int seed, double rate, cudaStream_t stream);
+                 int nhead, float scale, int seed, double rate, rd::Origin org, cudaStream_t stream);
 int launch_dkv_tc(const void* qkv, const void* dattn, const void* lse, const void* delta,
                   const void* lengths, void* dqkv, const Launch& l, int B, int T, int d,
-                  int nhead, float scale, int seed, double rate, cudaStream_t stream);
+                  int nhead, float scale, int seed, double rate, rd::Origin org, cudaStream_t stream);
 int launch_attn_fwd_wide(const void* qkv, const void* lengths, void* attn, void* lse,
                          const Launch& l, int B, int T, int d, int nhead, float scale2,
-                         int seed, double rate, cudaStream_t stream);
+                         int seed, double rate, rd::Origin org, cudaStream_t stream);
 int launch_dq_wide(const void* qkv, const void* dattn, const void* lse, const void* delta,
                    const void* lengths, void* dqkv, const Launch& l, int B, int T, int d,
-                   int nhead, float scale, int seed, double rate, cudaStream_t stream);
+                   int nhead, float scale, int seed, double rate, rd::Origin org, cudaStream_t stream);
 int launch_dkv_wide(const void* qkv, const void* dattn, const void* lse, const void* delta,
                     const void* lengths, void* dqkv, const Launch& l, int B, int T, int d,
-                    int nhead, float scale, int seed, double rate, cudaStream_t stream);
+                    int nhead, float scale, int seed, double rate, rd::Origin org, cudaStream_t stream);
 
 }  // namespace fused
 }  // namespace rd

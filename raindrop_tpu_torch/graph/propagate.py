@@ -20,6 +20,11 @@ the softmax groups the edges by target with a per-segment max subtraction.
     kernel of ops/sparse.py;
   * `ob_propagation_init` (the full parameter set, so checkpoints
     round-trip) and the alpha-distance regularizer.
+
+On a mesh a layer's "lin_value" may be a callable (the model's
+column-parallel product, parallel/tensor.column_parallel_linear) and the
+dense layers' `rows` = (b0, batch) place their batch-major dropout masks
+at the rank's rows of the global batch.
 """
 
 from __future__ import annotations
@@ -34,7 +39,14 @@ from raindrop_tpu_torch.nn.linear import linear_apply
 from raindrop_tpu_torch.ops.segment import (
     segment_softmax, segment_softmax_rows, segment_sum, segment_sum_rows)
 from raindrop_tpu_torch.ops.sparse import sddmm
-from raindrop_tpu_torch.utils.dropout import dropout, dropout_rows
+from raindrop_tpu_torch.utils.dropout import batch_block, dropout, dropout_rows
+
+
+def lin_value(params, x: torch.Tensor) -> torch.Tensor:
+    """lin_value(x): the layer's linear, or the callable the model hands in
+    for it on a model axis."""
+    f = params["lin_value"]
+    return f(x) if callable(f) else linear_apply(f, x)
 
 
 def ob_propagation_init(gen, in_channels: int, out_channels: int,
@@ -175,7 +187,7 @@ def _message(params, x_tgt, src, tgt, decompose):
     if decompose:
         nw = params["nodewise_weights"]
         return (x_tgt * nw[src]).sum(-1, keepdim=True) * nw[tgt]
-    return torch.relu(linear_apply(params["lin_value"], x_tgt))
+    return torch.relu(lin_value(params, x_tgt))
 
 
 def _coo_rows(params, xb, p_t, edge_index, edge_weights, use_beta, ob_dim,
@@ -264,7 +276,7 @@ def ob_propagate_selfattention(
         alpha = (q * k).sum(-1) / math.sqrt(C)                   # [E, H]
     alpha = segment_softmax(alpha, dst, n_nodes)
     a = dropout(seed, alpha, dropout_rate, train)
-    msg = linear_apply(params["lin_value"], x[src]).reshape(-1, heads, C)
+    msg = lin_value(params, x[src]).reshape(-1, heads, C)
     msg = msg * a[:, :, None]
     out = segment_sum(msg.reshape(-1, heads * C), dst, n_nodes)
     return out, (edge_index, alpha)
@@ -279,6 +291,7 @@ def ob_propagate_dense_complete(
     seed=None,
     train: bool = False,
     uniform: bool = False,
+    rows=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Complete-graph layer (use_beta=False). Messages carry the target's
     own features, so out[b, t] = relu(lin_value(x[b, t])) * sum_s
@@ -287,19 +300,20 @@ def ob_propagate_dense_complete(
     uniform=True asserts all-ones weights: the softmax is exactly uniform
     and sums to 1, so out IS relu(lin_value(x)) and the rescale is skipped,
     unless training drops softmax weights (dropout_rate > 0 with a `seed`,
-    the uint32 seed of utils/dropout.dropout on g [B, n, n]).
+    the uint32 seed of utils/dropout.dropout on g [B, n, n], hashed at rows
+    `rows` = (b0, batch) of a global batch when given).
     Returns (out [B, n, D], alpha [B, n*n]) with alpha the pre-softmax
     weights in row-major (source-major) order.
     """
     B = x.shape[0]
-    msg = torch.relu(linear_apply(params["lin_value"], x))   # [B, n, D]
+    msg = torch.relu(lin_value(params, x))                   # [B, n, D]
     if uniform and not (train and dropout_rate > 0.0):
         n = x.shape[1]
         return msg, torch.ones((B, n * n), dtype=x.dtype, device=x.device)
     if adj_weights.dim() == 2:
         adj_weights = adj_weights[None].expand((B,) + tuple(adj_weights.shape))
     g = torch.softmax(adj_weights, dim=1)                     # over sources
-    g = dropout(seed, g, dropout_rate, train)
+    g = dropout(seed, g, dropout_rate, train, *batch_block(rows, g.shape))
     out = msg * g.sum(dim=1)[..., None]
     return out, adj_weights.reshape(B, -1)
 
@@ -340,6 +354,7 @@ def raindrop_propagate_beta_dense(
     train: bool = False,
     uniform_adj: bool = False,
     return_mask: bool = False,
+    rows=None,
 ):
     """The whole use_beta two-layer block on the complete graph (layer 1
     with the time-conditioned attention and top-50% pruning, layer 2 over
@@ -364,7 +379,8 @@ def raindrop_propagate_beta_dense(
     products, and the [B, s, t, D] grid is never built. The grid route
     runs for a general adj and under propagation dropout, whose mask is
     per edge and channel. `seeds`: the uint32 seeds of the two dropout
-    sites (layer 1's g1 [B, s, t, D], layer 2's g2 [B, s, t]), or None.
+    sites (layer 1's g1 [B, s, t, D], layer 2's g2 [B, s, t]), or None;
+    `rows` = (b0, batch) hashes them at those rows of a global batch.
 
     Returns (out2 [B, n, D], alpha_all [B, E//2]), and the kept-edge mask
     [B, s, t] after them with return_mask=True.
@@ -382,7 +398,7 @@ def raindrop_propagate_beta_dense(
     alpha_all = -torch.sort(-scores_flat, dim=-1).values[:, :K]
     mask = beta_keep_mask(scores_flat, K).reshape(B, n, n)
 
-    v1 = torch.relu(linear_apply(params1["lin_value"], x))          # [B, t, D]
+    v1 = torch.relu(lin_value(params1, x))                          # [B, t, D]
     drop_active = train and dropout_rate > 0.0 and s1 is not None
     if uniform_adj and not drop_active:
         M = gamma_node.detach().amax(dim=1, keepdim=True)           # [B, 1, D]
@@ -394,12 +410,12 @@ def raindrop_propagate_beta_dense(
     else:
         gamma_grid = gamma_node[:, None, :, :] * adj[None, :, :, None]  # [B, s, t, D]
         g1 = _masked_softmax(gamma_grid, mask[..., None], dim=2)
-        g1 = dropout(s1, g1, dropout_rate, train)
+        g1 = dropout(s1, g1, dropout_rate, train, *batch_block(rows, g1.shape))
         out1 = torch.einsum("bstd,btd->bsd", g1, v1)
 
     g2 = _masked_softmax(scores_grid, mask, dim=1)                  # [B, s, t]
-    g2 = dropout(s2, g2, dropout_rate, train)
-    v2 = torch.relu(linear_apply(params2["lin_value"], out1))
+    g2 = dropout(s2, g2, dropout_rate, train, *batch_block(rows, g2.shape))
+    v2 = torch.relu(lin_value(params2, out1))
     out2 = v2 * g2.sum(dim=1)[..., None]
     if return_mask:
         return out2, alpha_all, mask

@@ -44,8 +44,18 @@ softmax weights (when prop_dropout > 0) and every encoder layer drop with
 the counter-hash masks of utils/dropout.py. The function records a graph
 for autograd; callers that only infer run it under torch.no_grad().
 
+On a mesh (`mesh`, parallel/mesh.py) each rank runs its rows of the
+global batch: every dropout mask hashes at the rows' global coordinates
+(the per-sample seeds of the COO branch are the global batch's, cut to
+the rank's rows), and the alpha distance is taken over the global batch
+(the rows' alphas gathered over the data axis). On a model axis the
+encoder runs Megatron's split (nn/transformer.py) and each propagation
+layer's lin_value is column-parallel, its output gathered whole. The
+logits are the rank's rows.
+
 What the port does not run yet raises NotImplementedError naming the
-slice that brings it: the scale-out routes.
+slice that brings it: the scale-out routes (context parallelism, the
+pipeline and edge partitioning).
 """
 
 from __future__ import annotations
@@ -57,7 +67,7 @@ import torch
 
 from raindrop_tpu_torch.config import RaindropConfig
 from raindrop_tpu_torch.graph.propagate import (
-    alpha_pairwise_distance, ob_propagate_coo, ob_propagate_dense_complete,
+    alpha_pairwise_distance, lin_value, ob_propagate_coo, ob_propagate_dense_complete,
     ob_propagation_init, raindrop_propagate_beta_dense)
 from raindrop_tpu_torch.graph.structure import complete_graph_edges
 from raindrop_tpu_torch.nn.aggregate import (
@@ -68,6 +78,8 @@ from raindrop_tpu_torch.nn.transformer import (
     transformer_encoder_apply, transformer_encoder_init)
 from raindrop_tpu_torch.ops.pe import time_positional_encoding
 from raindrop_tpu_torch.ops.sparse import spmm_segment_softmax, topology
+from raindrop_tpu_torch.parallel import tensor as tp
+from raindrop_tpu_torch.parallel.mesh import Shard
 from raindrop_tpu_torch.utils.dropout import DropoutSeeds, dropout
 
 
@@ -255,7 +267,7 @@ def _refuse(scale_out: bool):
     if scale_out:
         raise NotImplementedError(
             "context_parallel, pipeline_parallel and edge_partition come "
-            "with the scale-out slice")
+            "with slice 18, the scale-out slice of the model-axis routes")
 
 
 def raindrop_apply(
@@ -272,10 +284,13 @@ def raindrop_apply(
     context_parallel: str = "none",
     pipeline_parallel: int = 0,
     edge_partition: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward pass. Returns (logits [B, n_classes], distance scalar).
     train=True needs `seeds` when the config has any dropout; `global_adj`
-    [F, F] is a tensor on the parameters' device."""
+    [F, F] is a tensor on the parameters' device. On a `mesh` the inputs
+    are this rank's rows of the global batch and `params` its part of the
+    tree (parallel/mesh.shard_params)."""
     _refuse(context_parallel != "none" or bool(pipeline_parallel) or edge_partition)
     if train and seeds is None and (cfg.dropout > 0.0 or cfg.prop_dropout > 0.0):
         raise ValueError("train=True with dropout needs seeds=DropoutSeeds "
@@ -288,12 +303,25 @@ def raindrop_apply(
     values = src[:, :, :F_].to(dtype)                     # [T, B, F]
     observed = src[:, :, F_:2 * F_].to(dtype)             # [T, B, F]
     B = values.shape[1]
+    shard = Shard.of(mesh, B)
+    rows = None if shard is None else (shard.b0, shard.batch)
+    if shard is not None and shard.n_model > 1:
+        # propagation's lin_value column-parallel, its output gathered
+        def column(p):
+            return {**p, "lin_value": lambda x, w=p["lin_value"]:
+                    tp.column_parallel_linear(w, x, shard)}
+        params = {**params, "ob_propagation": column(params["ob_propagation"]),
+                  "ob_propagation_layer2": column(params["ob_propagation_layer2"])}
 
     # sensor-level gated embedding: repeat_interleave by d_ob, times R_u
     h = torch.relu(values.repeat_interleave(d_ob, dim=-1) * params["R_u"])
     pe = time_positional_encoding(times, cfg.d_pe, T, dtype)   # [T, B, d_pe]
     if seeds is not None:   # on the time-major tensor, as the hash indexes it
-        h = dropout(seeds.embed, h, cfg.dropout, train)
+        if rows is None:
+            h = dropout(seeds.embed, h, cfg.dropout, train)
+        else:
+            h = dropout(seeds.embed, h, cfg.dropout, train, origin=(0, rows[0], 0),
+                        full_shape=(T, rows[1], h.shape[2]))
     h_b = h.transpose(0, 1)                                # [B, T, F*d_ob]
     pe_b = pe.transpose(0, 1)                              # [B, T, d_pe]
 
@@ -309,10 +337,10 @@ def raindrop_apply(
         f32 = torch.float32
         e_src, e_dst, edge_weights = _edge_list(F_, global_adj, dtype, src.device)
         gamma = edge_weights[None].expand(B, -1).to(f32)    # read in place
-        v1 = torch.relu(linear_apply(p1["lin_value"], x_nodes)).to(f32)
+        v1 = torch.relu(lin_value(p1, x_nodes)).to(f32)
         out1, _ = spmm_segment_softmax(v1, gamma, e_src, e_dst, n_nodes=F_,
                                        gather_target=True)
-        v2 = torch.relu(linear_apply(p2["lin_value"], out1.to(dtype))).to(f32)
+        v2 = torch.relu(lin_value(p2, out1.to(dtype))).to(f32)
         out2, _ = spmm_segment_softmax(v2, gamma, e_src, e_dst, n_nodes=F_,
                                        gather_target=True)
         out2 = out2.to(dtype)
@@ -331,10 +359,11 @@ def raindrop_apply(
         out2, alpha_all = raindrop_propagate_beta_dense(
             p1, p2, x_nodes, pe_b, adj, ob_dim=d_ob,
             dropout_rate=cfg.prop_dropout, seeds=beta_seeds, train=train,
-            uniform_adj=True)
+            uniform_adj=True, rows=rows)
     elif branch == "dense":
         adj = torch.ones((F_, F_), dtype=dtype, device=src.device)
-        prop = dict(dropout_rate=cfg.prop_dropout, train=train, uniform=True)
+        prop = dict(dropout_rate=cfg.prop_dropout, train=train, uniform=True,
+                    rows=rows)
         out1, alpha1 = ob_propagate_dense_complete(
             p1, x_nodes, adj, seed=None if seeds is None else seeds.prop1, **prop)
         out2, alpha_all = ob_propagate_dense_complete(
@@ -345,10 +374,14 @@ def raindrop_apply(
         rows1 = rows2 = None
         if seeds is not None and cfg.prop_dropout > 0.0:
             rows1, rows2 = seeds.prop1_rows, seeds.prop2_rows
-            if len(rows1) != B or len(rows2) != B:
+            Bg = B if shard is None else shard.batch
+            if len(rows1) != Bg or len(rows2) != Bg:
                 raise ValueError(
                     f"the COO branch drops softmax weights with one seed per "
-                    f"sample: DropoutSeeds.draw(generator, nlayers, rows={B})")
+                    f"sample: DropoutSeeds.draw(generator, nlayers, rows={Bg})")
+            if shard is not None:       # the global batch's seeds, these rows'
+                rows1 = rows1[shard.b0:shard.b0 + B]
+                rows2 = rows2[shard.b0:shard.b0 + B]
         prop = dict(ob_dim=d_ob, n_nodes=F_, dropout_rate=cfg.prop_dropout,
                     train=train)
         edge_index = torch.stack([e_src, e_dst])
@@ -361,6 +394,11 @@ def raindrop_apply(
                                          a1 if cfg.use_beta else a1[..., 0],
                                          seed=rows2, **prop)
         alpha_all = a2[..., 0]                              # [B, E or E//2]
+    if shard is not None and shard.data_group is not None:
+        # over the global batch; each rank's copy of the distance reaches
+        # its own rows' alphas only, so their gradient counts n_data times
+        alpha_all = tp.gather_dim(alpha_all, shard.data_rank, shard.n_data,
+                                  shard.data_group, 0, grad_scale=shard.n_data)
     distance = alpha_pairwise_distance(alpha_all)
     output = _from_node_features(out2, T, d_ob)            # [B, T, F*d_ob]
     if cfg.sensor_wise_mask:
@@ -377,7 +415,7 @@ def raindrop_apply(
         dropout_rate=cfg.dropout, train=train,
         backend=cfg.attention_backend,
         score_dtype=cfg.attention_score_dtype,
-        seeds=None if seeds is None else seeds.layers)
+        seeds=None if seeds is None else seeds.layers, shard=shard)
 
     if cfg.sensor_wise_mask:
         pooled = sensor_wise_pool(r_out.reshape(B, T, F_, d_ob + cfg.d_pe),

@@ -10,6 +10,27 @@ dropout, the flash and fused-layer rungs hand their int32 seed to the
 kernels. Without seeds, or in eval, the rate is 0. The context-parallel
 backends raise.
 
+On a mesh (parallel/mesh.py) a layer takes its rank's `Shard`: the
+rank's rows b0.. of the global batch, and on a model axis of n ranks its
+part of the heads and of the FFN, Megatron's split:
+  * in_proj (column-parallel, this rank's heads' rows of q, k and v) ->
+    attention on its nhead / n heads -> out_proj (row-parallel) and one
+    all_reduce; lin1 (column-parallel) -> relu -> lin2 (row-parallel)
+    and one all_reduce; each column-parallel input all_reduces its
+    gradient in the backward (parallel/tensor.py). The packed rung
+    launches flash_mha_packed on the rank's heads, the dense rung runs
+    them in PyTorch;
+  * the fused rung does attention, both LayerNorms and the FFN in one
+    kernel, with no point between its products at which partial sums
+    could be reduced. There every model rank gathers the layer's split
+    weights and runs the fused kernel whole, as GSPMD runs a pallas_call
+    under sharded inputs: the forward is the one-device layer's on the
+    rank's rows, and the gradient a rank keeps of a split weight is its
+    slice of the full weight's gradient (which every rank computes).
+Every dropout mask hashes its elements at their global coordinates (the
+batch row, the head, the FFN column), so the ranks together drop what
+the one-device layer drops.
+
 Encoder ladder. `backend="auto"` on a CUDA tensor keeps the JAX package's
 structure and thresholds: the fused-layer kernel when d % nhead == 0,
 T >= 384 and T (padded to 8) <= 1024; flash attention at every other
@@ -34,6 +55,8 @@ from raindrop_tpu_torch.nn.linear import linear_apply, promoted
 from raindrop_tpu_torch.ops.flash_attention import (
     MAX_FUSED_T, flash_mha, flash_mha_packed)
 from raindrop_tpu_torch.ops.fused_encoder import fused_encoder_layer
+from raindrop_tpu_torch.parallel import tensor as tp
+from raindrop_tpu_torch.parallel.mesh import Shard, shard_blocks
 from raindrop_tpu_torch.utils.dropout import LayerSeeds, dropout
 
 BACKENDS = ("auto", "dense", "flash", "fused_layer")
@@ -91,8 +114,57 @@ def _refuse(backend: str):
         if backend in ("sp", "ring"):
             raise NotImplementedError(
                 f"the context-parallel backend {backend!r} comes with the "
-                f"scale-out slice")
+                f"slice 18, the scale-out slice of the model-axis routes")
         raise ValueError(f"unknown attention backend {backend!r}")
+
+
+def _drop(seed, x, rate, shard: Optional[Shard], split_axis=None):
+    """dropout on a batch-major x of this rank: its rows at shard.b0 of
+    shard.batch and, with split_axis, its part of that axis of the
+    model-axis split; the one-device mask without a shard."""
+    if shard is None:
+        return dropout(seed, x, rate)
+    origin, full = [0] * x.dim(), list(x.shape)
+    origin[0], full[0] = shard.b0, shard.batch
+    if split_axis is not None:
+        origin[split_axis] = shard.model_rank * x.shape[split_axis]
+        full[split_axis] = x.shape[split_axis] * shard.n_model
+    return dropout(seed, x, rate, origin=origin, full_shape=full)
+
+
+def _tp(shard: Optional[Shard]) -> bool:
+    return shard is not None and shard.n_model > 1
+
+
+def _kernel_origin(shard: Optional[Shard], nhead: int):
+    """The kernels' dropout origin (b0, h0, H) of this rank's rows and
+    heads (None off a mesh: the launch's own)."""
+    if shard is None:
+        return None
+    if _tp(shard):
+        h0, _ = shard.part(nhead)
+        return shard.b0, h0, nhead
+    return shard.b0, 0, nhead
+
+
+def gathered_layer(p, shard: Shard):
+    """The whole layer's weights from this rank's parts (the fused rung's
+    input on a model axis): every split leaf gathered over the model
+    group, its backward the rank's blocks of the full gradient."""
+    n, m, g = shard.n_model, shard.model_rank, shard.model_group
+
+    def whole(path, w, dim):
+        shape = [s * n if a == dim else s for a, s in enumerate(w.shape)]
+        return tp.gather(w, shard_blocks(path, shape, dim, n, m), dim, shape, g)
+
+    out = dict(p)
+    out["in_proj_w"] = whole(["in_proj_w"], p["in_proj_w"], 0)
+    out["in_proj_b"] = whole(["in_proj_b"], p["in_proj_b"], 0)
+    out["out_proj"] = {**p["out_proj"], "w": whole(["w"], p["out_proj"]["w"], 1)}
+    out["lin1"] = {"w": whole(["w"], p["lin1"]["w"], 0),
+                   "b": whole(["b"], p["lin1"]["b"], 0)}
+    out["lin2"] = {**p["lin2"], "w": whole(["w"], p["lin2"]["w"], 1)}
+    return out
 
 
 def _fits(T: int) -> bool:
@@ -129,30 +201,47 @@ def multihead_self_attention(
     backend: str = "auto",
     score_dtype: Optional[str] = "bfloat16",
     seeds: Optional[LayerSeeds] = None,
+    shard: Optional[Shard] = None,
 ) -> torch.Tensor:
+    """On a model axis (`shard`) the rank's heads: qkv from its rows of
+    in_proj (q, k, v of its heads), out_proj row-parallel."""
     B, T, d = x.shape
     hd = d // nhead
     rung = _attention_rung(backend, T, x.is_cuda)
     rate = dropout_rate if (train and seeds is not None) else 0.0
+    origin = _kernel_origin(shard, nhead)
+    if _tp(shard):
+        # this rank's heads: its parts of q, k and v, d / n columns each
+        _, n_local = shard.part(nhead)
+        d_out = n_local * hd
+        x = tp.copy_to(x, shard.model_group)
+    else:
+        n_local, d_out = nhead, d
     xw, w_in = promoted(x, p["in_proj_w"])
-    qkv = xw @ w_in.T + p["in_proj_b"]                      # [B, T, 3d]
-    q, k, v = qkv.split(d, dim=-1)
+    qkv = xw @ w_in.T + p["in_proj_b"]                      # [B, T, 3 d_out]
+    q, k, v = qkv.split(d_out, dim=-1)
 
-    def heads(t):  # [B, T, d] -> [B, nhead, T, hd], a view
-        return t.reshape(B, T, nhead, hd).transpose(1, 2)
+    def project(out):
+        if _tp(shard):
+            return tp.row_parallel_linear(p["out_proj"], out, shard)
+        return linear_apply(p["out_proj"], out)
+
+    def heads(t):  # [B, T, d_out] -> [B, n_local, T, hd], a view
+        return t.reshape(B, T, n_local, hd).transpose(1, 2)
 
     if rung in ("flash", "flash_mha"):
         lengths = _lengths(key_padding_mask, B, T, x.device)
         seed = seeds.kernel if rate > 0.0 else None
         cd = _score_dtype(score_dtype)
         if rung == "flash":
-            out = flash_mha_packed(q, k, v, lengths, seed, rate, cd, nhead)
+            out = flash_mha_packed(q, k, v, lengths, seed, rate, cd, n_local,
+                                   origin=origin)
         else:
             # the kernels read the head views in place and write o merged,
             # so neither side of the call copies
             out = flash_mha(heads(q), heads(k), heads(v), lengths, seed, rate,
-                            cd).transpose(1, 2).reshape(B, T, d)
-        return linear_apply(p["out_proj"], out)
+                            cd, origin=origin).transpose(1, 2).reshape(B, T, d_out)
+        return project(out)
 
     q, k, v = heads(q) * (hd ** -0.5), heads(k), heads(v)
     logits = q @ k.transpose(-1, -2)
@@ -165,9 +254,9 @@ def multihead_self_attention(
         all_pad = key_padding_mask.all(dim=-1)[:, None, None, None]
         attn = torch.where(all_pad, torch.zeros_like(attn), attn)
     if rate > 0.0:
-        attn = dropout(seeds.attn, attn, rate)
-    out = (attn @ v).transpose(1, 2).reshape(B, T, d)
-    return linear_apply(p["out_proj"], out)
+        attn = _drop(seeds.attn, attn, rate, shard, 1 if _tp(shard) else None)
+    out = (attn @ v).transpose(1, 2).reshape(B, T, d_out)
+    return project(out)
 
 
 def transformer_encoder_layer_apply(
@@ -180,27 +269,36 @@ def transformer_encoder_layer_apply(
     backend: str = "auto",
     score_dtype: Optional[str] = "bfloat16",
     seeds: Optional[LayerSeeds] = None,
+    shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """One post-LN encoder layer; backend 'fused_layer' (and 'auto' on CUDA
-    at T >= 384) runs the whole layer through ops/fused_encoder.py."""
+    at T >= 384) runs the whole layer through ops/fused_encoder.py. On a
+    mesh `shard` places the rank's rows and, on a model axis, its part of
+    the layer (see the module's docstring)."""
     B, T, d = x.shape
     rate = dropout_rate if (train and seeds is not None) else 0.0
     if encoder_rung(backend, T, d, nhead, x.is_cuda) == "fused_layer":
-        return fused_encoder_layer(p, x, _lengths(key_padding_mask, B, T, x.device),
-                                   seeds.kernel if rate > 0.0 else None, rate,
-                                   _score_dtype(score_dtype), nhead)
+        return fused_encoder_layer(
+            gathered_layer(p, shard) if _tp(shard) else p, x,
+            _lengths(key_padding_mask, B, T, x.device),
+            seeds.kernel if rate > 0.0 else None, rate, _score_dtype(score_dtype),
+            nhead, origin=None if shard is None else (shard.b0, 0, nhead))
     attn = multihead_self_attention(p, x, key_padding_mask, nhead,
                                     dropout_rate, train, backend, score_dtype,
-                                    seeds)
+                                    seeds, shard)
     if rate > 0.0:
-        attn = dropout(seeds.post_attn, attn, rate)
+        attn = _drop(seeds.post_attn, attn, rate, shard)
     x = _layer_norm(p["ln1"], x + attn)
-    h = torch.relu(linear_apply(p["lin1"], x))
+    if _tp(shard):
+        h = torch.relu(linear_apply(p["lin1"], tp.copy_to(x, shard.model_group)))
+    else:
+        h = torch.relu(linear_apply(p["lin1"], x))
     if rate > 0.0:
-        h = dropout(seeds.ffn, h, rate)
-    h = linear_apply(p["lin2"], h)
+        h = _drop(seeds.ffn, h, rate, shard, 2 if _tp(shard) else None)
+    h = (tp.row_parallel_linear(p["lin2"], h, shard) if _tp(shard)
+         else linear_apply(p["lin2"], h))
     if rate > 0.0:
-        h = dropout(seeds.post_ffn, h, rate)
+        h = _drop(seeds.post_ffn, h, rate, shard)
     return _layer_norm(p["ln2"], x + h)
 
 
@@ -214,13 +312,15 @@ def transformer_encoder_apply(
     backend: str = "auto",
     score_dtype: Optional[str] = "bfloat16",
     seeds: Optional[Sequence[LayerSeeds]] = None,
+    shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """`seeds`: one LayerSeeds per layer (DropoutSeeds.layers) for
-    training with dropout."""
+    training with dropout; `shard`: this rank's place on a mesh."""
     if seeds is not None and len(seeds) != len(params):
         raise ValueError(f"{len(seeds)} layer seeds for {len(params)} layers")
     for i in range(len(params)):
         x = transformer_encoder_layer_apply(
             params[f"layer{i}"], x, key_padding_mask, nhead, dropout_rate,
-            train, backend, score_dtype, None if seeds is None else seeds[i])
+            train, backend, score_dtype, None if seeds is None else seeds[i],
+            shard)
     return x

@@ -13,7 +13,11 @@ Dropout on the probabilities draws its keep bits from a counter hash of
 (seed, b * nhead + h, query row, key column) (`_dropout_keep_hash`), the
 one the JAX package uses off the TPU, so forward and backward regenerate
 the same mask and the tests compare with JAX exactly. The row sum `l`
-takes the undropped probabilities; only the PV operand is dropped.
+takes the undropped probabilities; only the PV operand is dropped. A
+launch over a block of a larger batch or of more heads (a rank's shard,
+parallel/mesh.py) passes `origin` = (b0, h0, H): its sample b and head h
+then hash as (b0 + b) * H + h0 + h, the bits of the full launch, whose
+default is (0, 0, nhead).
 
 Both are `torch.autograd.Function`s. On CUDA tensors their forward and
 backward launch the hand-written kernels in `csrc/flash_packed.cu` and
@@ -77,6 +81,9 @@ TC_MAX_HD_PAD = 144
 TC_WIDE_MIN_HD_PAD, TC_WIDE_STEP, TC_WIDE_MAX_HD_PAD = 176, 32, 368
 _ROUTES = {"scalar": 0, "tc": 1, "tc_wide": 2}
 _ROWS = 64              # rows of a CTA's block (and of a streamed tile on "tc")
+# samples and heads on the kernels' grid (its y and z axes); a dropout
+# origin places a launch inside that many
+MAX_BATCH = 65535
 
 
 def operand_dtype(compute_dtype) -> torch.dtype:
@@ -300,12 +307,29 @@ def _dropout_keep_hash(seed, bh, iq: int, ik: int, shape, rate: float,
     return finalize32(x) >= threshold32(rate)
 
 
-def _attn_keep(seed, B, T, nhead, rate, device) -> torch.Tensor:
-    """[B, nhead, T, T] keep mask of the attention probabilities."""
-    bh = torch.arange(B * nhead, dtype=torch.int64, device=device)
+def drop_origin(origin, B, H):
+    """(b0, h0, heads) of a launch over B samples and H heads: `origin` as
+    given, or (0, 0, H) for None. The hashed (sample, head) index
+    (b0 + B) * heads must fit the kernels' grid and 32 bits."""
+    if origin is None:
+        return 0, 0, H
+    b0, h0, heads = (int(v) for v in origin)
+    if b0 < 0 or h0 < 0 or h0 + H > heads or b0 + B > MAX_BATCH or heads > MAX_BATCH:
+        raise ValueError(f"origin {tuple(origin)} does not place {B} samples "
+                         f"and {H} heads inside {MAX_BATCH} samples of "
+                         f"at most {MAX_BATCH} heads")
+    return b0, h0, heads
+
+
+def _attn_keep(seed, B, T, nhead, rate, device, origin=None) -> torch.Tensor:
+    """[B, nhead, T, T] keep mask of the attention probabilities, hashed at
+    `origin` (drop_origin)."""
+    b0, h0, heads = drop_origin(origin, B, nhead)
+    b = torch.arange(b0, b0 + B, dtype=torch.int64, device=device)
+    h = torch.arange(h0, h0 + nhead, dtype=torch.int64, device=device)
     t8 = pad8(T)
-    keep = _dropout_keep_hash(seed, bh.reshape(B, nhead), 0, 0, (t8, t8), rate,
-                              device)
+    keep = _dropout_keep_hash(seed, b[:, None] * heads + h[None, :], 0, 0,
+                              (t8, t8), rate, device)
     return keep[:, :, :T, :T]
 
 
@@ -338,14 +362,18 @@ def _seed_int(seed) -> int:
     return seed
 
 
-def _packed_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype, nhead):
+def _packed_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype, nhead,
+                origin=None):
     """Returns (o [B, T, d] f32, lse [B, nhead, T] f32, base 2)."""
     _check(q, k, v, lengths, nhead)
     rate = _check_rate(dropout_rate)
     od = operand_dtype(compute_dtype)
+    origin = drop_origin(origin, q.shape[0], nhead)
     if q.is_cuda:
-        return _packed_fwd_cuda(q, k, v, lengths, _seed_int(seed), rate, nhead, od)
-    return _packed_fwd_plain(q, k, v, lengths, nhead, od, _seed_int(seed), rate)
+        return _packed_fwd_cuda(q, k, v, lengths, _seed_int(seed), rate, nhead, od,
+                                origin=origin)
+    return _packed_fwd_plain(q, k, v, lengths, nhead, od, _seed_int(seed), rate,
+                             origin)
 
 
 def _heads(x, nhead, od):
@@ -355,16 +383,16 @@ def _heads(x, nhead, od):
             .transpose(1, 2))
 
 
-def _packed_fwd_plain(q, k, v, lengths, nhead, od, seed=0, rate=0.0):
+def _packed_fwd_plain(q, k, v, lengths, nhead, od, seed=0, rate=0.0, origin=None):
     """The packed kernel's function in plain PyTorch (`_heads_fwd_plain` on
     the head views of [B, T, d])."""
     B, T, d = q.shape
     o, lse = _heads_fwd_plain(*(_heads(x, nhead, od) for x in (q, k, v)),
-                              lengths, od, seed, rate)
+                              lengths, od, seed, rate, origin)
     return o.transpose(1, 2).reshape(B, T, d), lse
 
 
-def _heads_fwd_plain(qh, kh, vh, lengths, od, seed=0, rate=0.0):
+def _heads_fwd_plain(qh, kh, vh, lengths, od, seed=0, rate=0.0, origin=None):
     """The forward kernels' function on qh, kh, vh [B, H, T, D] (f32 values
     already rounded to `od`): scores in f32, probabilities (dropped and
     rescaled when rate > 0) rounded to `od` before the PV product, the PV
@@ -381,7 +409,7 @@ def _heads_fwd_plain(qh, kh, vh, lengths, od, seed=0, rate=0.0):
     p = torch.exp2(s - mx)
     l = p.sum(dim=-1, keepdim=True)
     if rate > 0.0:
-        p = p * _attn_keep(seed, B, T, H, rate, qh.device) / (1.0 - rate)
+        p = p * _attn_keep(seed, B, T, H, rate, qh.device, origin) / (1.0 - rate)
     o = (p.to(od).to(torch.float32) @ vh) / l
     valid = (lengths > 0)[:, None, None]
     lse = torch.where(valid, mx[..., 0] + torch.log2(l[..., 0]),
@@ -390,35 +418,61 @@ def _heads_fwd_plain(qh, kh, vh, lengths, od, seed=0, rate=0.0):
     return o, lse
 
 
-def _packed_bwd_plain(q, k, v, lengths, seed, rate, nhead, od, o, lse, g):
+def _row_delta(do, o):
+    """The backward's row term delta = sum over the last dim of do * o, in
+    f32 in the order of the CUDA kernel that computes it on the card
+    (csrc/row_delta.cuh), bit for bit: 32 lanes, lane l summing columns l,
+    l + 32, ... in turn (0 past the last column), then the lanes' sums
+    halved (lanes i and i + 16, then i + 8, ... 1). The order does not
+    depend on the tensor's shape, so a row's delta is the same whatever
+    rows share the launch, and a shard of the batch or of the heads
+    (parallel/mesh.py) gets the full launch's bits."""
+    x = do.to(torch.float32) * o
+    n = x.shape[-1]
+    lanes = torch.nn.functional.pad(x, (0, -n % 32)).unflatten(-1, (-1, 32))
+    acc = lanes[..., 0, :]
+    for j in range(1, lanes.shape[-2]):
+        acc = acc + lanes[..., j, :]
+    for w in (16, 8, 4, 2, 1):
+        acc = acc[..., :w] + acc[..., w:2 * w]
+    return acc[..., 0]
+
+
+def _packed_delta(do, o, nhead):
+    """delta [B, H, T] of [B, T, d] = nhead heads (`_row_delta` per head)."""
+    B, T, d = o.shape
+    hd = d // nhead
+    heads = (B, T, nhead, hd)
+    return _row_delta(do.reshape(heads), o.reshape(heads)).transpose(1, 2)
+
+
+def _packed_bwd_plain(q, k, v, lengths, seed, rate, nhead, od, o, lse, g,
+                      origin=None):
     """The backward kernels' function in plain PyTorch, with their
     rounding points: the incoming gradient cast to `od`; delta = per-head
-    sum of do * o in f32; p recomputed from the saved base-2 lse; ds and
-    the dropped p rounded to `od` before their products; dq and dk scaled
-    by 1/sqrt(hd). A sample with length 0 gets exact zeros (the exponent
+    sum of do * o (`_packed_delta`); p recomputed from the saved base-2
+    lse; ds and the dropped p rounded to `od` before their products; dq
+    and dk scaled by 1/sqrt(hd). A sample with length 0 gets exact zeros (the exponent
     is never evaluated there). Returns dq, dk, dv [B, T, d] f32."""
-    B, T, d = q.shape
-    hd = d // nhead
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(q.shape[2] // nhead)
     do = g.to(od)
-    delta = ((do.to(torch.float32) * o).reshape(B, T, nhead, hd).sum(-1)
-             .transpose(1, 2))                                  # [B, H, T]
+    delta = _packed_delta(do, o, nhead)                         # [B, H, T]
     return _attention_bwd_plain(q, k, v, do, delta, lengths, seed, rate, nhead,
-                                od, lse, scale)
+                                od, lse, scale, origin)
 
 
 def _attention_bwd_plain(q, k, v, do, delta, lengths, seed, rate, nhead, od,
-                         lse, scale):
+                         lse, scale, origin=None):
     """dq, dk, dv from od-rounded q, k, v, do [B, T, d], the saved lse and
     delta [B, H, T] (shared with the fused layer's backward)."""
     B, T, d = q.shape
     grads = _heads_bwd_plain(*(_heads(x, nhead, od) for x in (q, k, v, do)),
-                             delta, lengths, seed, rate, od, lse, scale)
+                             delta, lengths, seed, rate, od, lse, scale, origin)
     return tuple(x.transpose(1, 2).reshape(B, T, d) for x in grads)
 
 
 def _heads_bwd_plain(qh, kh, vh, doh, delta, lengths, seed, rate, od, lse,
-                     scale):
+                     scale, origin=None):
     """The backward kernels' function on [B, H, T, D] views (f32 values
     already rounded to `od`): p recomputed from the saved base-2 lse, ds and
     the dropped p rounded to `od` before their products, dq and dk scaled
@@ -434,7 +488,7 @@ def _heads_bwd_plain(qh, kh, vh, doh, delta, lengths, seed, rate, od, lse,
     p = torch.exp2(arg)
     dp = doh @ vh.transpose(-1, -2)
     if rate > 0.0:
-        keep = _attn_keep(seed, B, T, H, rate, qh.device)
+        keep = _attn_keep(seed, B, T, H, rate, qh.device, origin)
         p_drop = p * keep / (1.0 - rate)
         dp = dp * keep / (1.0 - rate)
     else:
@@ -451,36 +505,40 @@ class _FlashPacked(torch.autograd.Function):
     """flash_mha_packed with its hand-written backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lengths, seed, dropout_rate, compute_dtype, nhead):
+    def forward(ctx, q, k, v, lengths, seed, dropout_rate, compute_dtype, nhead,
+                origin):
+        origin = drop_origin(origin, q.shape[0], nhead)
         o, lse = _packed_fwd(q, k, v, lengths, seed, dropout_rate,
-                             compute_dtype, nhead)
+                             compute_dtype, nhead, origin)
         od = operand_dtype(compute_dtype)
         ctx.save_for_backward(q.to(od), k.to(od), v.to(od), lengths, o, lse)
-        ctx.args = (_seed_int(seed), float(dropout_rate), nhead, od)
+        ctx.args = (_seed_int(seed), float(dropout_rate), nhead, od, origin)
         ctx.in_dtypes = (q.dtype, k.dtype, v.dtype)
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, lengths, o, lse = ctx.saved_tensors
-        seed, rate, nhead, od = ctx.args
+        seed, rate, nhead, od, origin = ctx.args
         if g.is_cuda:
             dq, dk, dv = _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead,
-                                          od, o, lse, g)
+                                          od, o, lse, g, origin=origin)
         else:
             dq, dk, dv = _packed_bwd_plain(q, k, v, lengths, seed, rate, nhead,
-                                           od, o, lse, g)
+                                           od, o, lse, g, origin)
         dq, dk, dv = (x.to(t) for x, t in zip((dq, dk, dv), ctx.in_dtypes))
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_mha_packed(q, k, v, lengths, seed=None, dropout_rate=0.0,
-                     compute_dtype=None, nhead=1) -> torch.Tensor:
+                     compute_dtype=None, nhead=1, origin=None) -> torch.Tensor:
     """Packed-heads attention: q, k, v [B, T, d] -> o [B, T, d] f32.
-    `seed` is the int32 seed of the dropout mask (None means 0);
-    differentiable in q, k and v."""
+    `seed` is the int32 seed of the dropout mask (None means 0); `origin`
+    (b0, h0, H) the place of these B samples and nhead heads in the batch
+    and heads whose mask they draw (drop_origin; None: their own).
+    Differentiable in q, k and v."""
     return _FlashPacked.apply(q, k, v, lengths, seed, dropout_rate,
-                              compute_dtype, nhead)
+                              compute_dtype, nhead, origin)
 
 
 # forward launches; `bwd_launches` counts the backward's; the tc_ counts
@@ -508,7 +566,8 @@ def _count(plan, attr, fn=flash_mha_packed):
         build.count_launch(fn, f"{plan.route}_{attr}")
 
 
-def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od, impl="auto"):
+def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od, impl="auto",
+                     origin=None):
     """The forward kernel of the plan's route. `impl="scalar"` reaches the
     scalar kernel with bf16 operands (the previous design, measured beside
     the tensor-core one); the model never passes it."""
@@ -529,7 +588,7 @@ def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od, impl="auto"):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         o.data_ptr(), lse.data_ptr(), B, T, d, nhead,
         (1.0 / math.sqrt(d // nhead)) * LOG2E, int(od == torch.bfloat16),
-        seed, rate, plan.as_ints, stream)
+        seed, rate, *drop_origin(origin, B, nhead), plan.as_ints, stream)
     build.check(err, "flash_mha_packed forward")
     _count(plan, "launches")
     build.credit(attention_flops(B, T, d))
@@ -537,11 +596,12 @@ def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od, impl="auto"):
 
 
 def _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead, od, o, lse, g,
-                     impl="auto"):
+                     impl="auto", origin=None):
     """dq, dk, dv through the two backward kernels of the plan's route (one
-    CTA per 64 query rows for dq, one per 64 key rows for dk and dv). delta
-    is prepared here in torch ops, as the JAX package prepares it outside
-    its kernel. `impl` as in `_packed_fwd_cuda`."""
+    CTA per 64 query rows for dq, one per 64 key rows for dk and dv), after
+    a launch that sums delta from do and o (csrc/row_delta.cuh; the JAX
+    package prepares delta outside its kernel). `impl` as in
+    `_packed_fwd_cuda`."""
     B, T, d = q.shape
     dev = q.device
     _same_device(dev, k=k, v=v, lengths=lengths, o=o, lse=lse, g=g)
@@ -553,10 +613,8 @@ def _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead, od, o, lse, g,
     do = g.detach().to(od).contiguous()
     plan = packed_plan(B, T, d, nhead, od, impl,
                        _align(*(x.data_ptr() for x in (q, k, v, do))))
-    # do * o promotes do to f32 exactly: the same delta as do.to(f32) * o
-    # without a copy of do
-    delta = ((do * o).reshape(B, T, nhead, hd).sum(-1)
-             .transpose(1, 2).contiguous())
+    o = o.detach().to(torch.float32).contiguous()
+    delta = torch.empty((B, nhead, T), dtype=torch.float32, device=dev)
     lens = lengths.to(torch.int32).contiguous()
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty((B, T, d), dtype=torch.float32, device=dev)
@@ -564,10 +622,11 @@ def _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead, od, o, lse, g,
     stream = torch.cuda.current_stream(dev).cuda_stream
     scale = 1.0 / math.sqrt(hd)
     err = _lib().rd_packed_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), lens.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, T, d, nhead, scale,
-        int(od == torch.bfloat16), seed, rate, plan.as_ints, stream)
+        int(od == torch.bfloat16), seed, rate, *drop_origin(origin, B, nhead),
+        plan.as_ints, stream)
     build.check(err, "flash_mha_packed backward")
     _count(plan, "bwd_launches")
     build.credit(2 * attention_flops(B, T, d))
@@ -578,11 +637,12 @@ def _lib():
     lib = build.load("flash_packed")
     if lib.rd_packed_fwd.argtypes is None:
         tail = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         lib.rd_packed_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                                       + tail)
         lib.rd_packed_fwd.restype = ctypes.c_int
-        lib.rd_packed_bwd.argtypes = ([ctypes.c_void_p] * 10
+        lib.rd_packed_bwd.argtypes = ([ctypes.c_void_p] * 11
                                       + [ctypes.c_int] * 4 + tail)
         lib.rd_packed_bwd.restype = ctypes.c_int
         lib.rd_packed_smem.argtypes = ([ctypes.c_int] * 6
@@ -604,7 +664,8 @@ def _rounded(x, od):
     return x.to(od).to(torch.float32)
 
 
-def _flash_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype, cols=None):
+def _flash_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype, cols=None,
+               origin=None):
     """Returns (o [B, H, T, D] f32, lse [B, H, T] f32, base 2). `cols` as in
     `_flash_fwd_cuda`."""
     _check_heads(q, k, v, lengths)
@@ -612,24 +673,24 @@ def _flash_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype, cols=None):
     od = operand_dtype(compute_dtype)
     if q.is_cuda:
         return _flash_fwd_cuda(q, k, v, lengths, _seed_int(seed), rate, od,
-                               cols=cols)
-    return _flash_fwd_plain(q, k, v, lengths, od, _seed_int(seed), rate)
+                               cols=cols, origin=origin)
+    return _flash_fwd_plain(q, k, v, lengths, od, _seed_int(seed), rate, origin)
 
 
-def _flash_fwd_plain(q, k, v, lengths, od, seed=0, rate=0.0):
+def _flash_fwd_plain(q, k, v, lengths, od, seed=0, rate=0.0, origin=None):
     """flash_mha's forward in plain PyTorch (see `_heads_fwd_plain`)."""
     return _heads_fwd_plain(*(_rounded(x, od) for x in (q, k, v)), lengths, od,
-                            seed, rate)
+                            seed, rate, origin)
 
 
-def _flash_bwd_plain(q, k, v, lengths, seed, rate, od, o, lse, g):
+def _flash_bwd_plain(q, k, v, lengths, seed, rate, od, o, lse, g, origin=None):
     """flash_mha's backward in plain PyTorch, with the kernels' rounding
     points (see `_packed_bwd_plain`). Returns dq, dk, dv [B, H, T, D] f32."""
     do = g.to(od)
-    delta = (do.to(torch.float32) * o).sum(-1)                  # [B, H, T]
+    delta = _row_delta(do, o)                                   # [B, H, T]
     return _heads_bwd_plain(*(_rounded(x, od) for x in (q, k, v, do)), delta,
                             lengths, seed, rate, od, lse,
-                            1.0 / math.sqrt(q.shape[-1]))
+                            1.0 / math.sqrt(q.shape[-1]), origin)
 
 
 class _FlashSplit(torch.autograd.Function):
@@ -639,35 +700,36 @@ class _FlashSplit(torch.autograd.Function):
     columns they hold (`ctx.cols`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lengths, seed, dropout_rate, compute_dtype):
+    def forward(ctx, q, k, v, lengths, seed, dropout_rate, compute_dtype, origin):
         od = operand_dtype(compute_dtype)
         ctx.in_dtypes = (q.dtype, k.dtype, v.dtype)
         ctx.cols = None
+        origin = drop_origin(origin, q.shape[0], q.shape[1])
         if q.is_cuda:
             _check_heads(q, k, v, lengths)
             (q, k, v), ctx.cols = _flash_operands((q, k, v), od)
         o, lse = _flash_fwd(q, k, v, lengths, seed, dropout_rate, compute_dtype,
-                            ctx.cols)
+                            ctx.cols, origin)
         ctx.save_for_backward(q.to(od), k.to(od), v.to(od), lengths, o, lse)
-        ctx.args = (_seed_int(seed), float(dropout_rate), od)
+        ctx.args = (_seed_int(seed), float(dropout_rate), od, origin)
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, lengths, o, lse = ctx.saved_tensors
-        seed, rate, od = ctx.args
+        seed, rate, od, origin = ctx.args
         if g.is_cuda:
             dq, dk, dv = _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse,
-                                         g, cols=ctx.cols)
+                                         g, cols=ctx.cols, origin=origin)
         else:
             dq, dk, dv = _flash_bwd_plain(q, k, v, lengths, seed, rate, od, o,
-                                          lse, g)
+                                          lse, g, origin)
         dq, dk, dv = (x.to(t) for x, t in zip((dq, dk, dv), ctx.in_dtypes))
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_mha(q, k, v, lengths, seed=None, dropout_rate=0.0,
-              compute_dtype=None) -> torch.Tensor:
+              compute_dtype=None, origin=None) -> torch.Tensor:
     """softmax(q k^T / sqrt(D) + key mask) v per head, at any T.
 
     q, k, v [B, H, T, D] (any strides with a contiguous last dim: the
@@ -677,9 +739,10 @@ def flash_mha(q, k, v, lengths, seed=None, dropout_rate=0.0,
     None keeps f32 operands, "bfloat16" rounds the operands of every
     product to bf16 (f32 accumulation and softmax statistics). Returns o
     [B, H, T, D] f32; on the card its memory is laid out [B, T, H, D], so
-    merging the heads afterwards is a view. Differentiable in q, k and v."""
+    merging the heads afterwards is a view. `origin` (b0, h0, H) as in
+    flash_mha_packed. Differentiable in q, k and v."""
     return _FlashSplit.apply(q, k, v, lengths, seed, dropout_rate,
-                             compute_dtype)
+                             compute_dtype, origin)
 
 
 # forward launches; `bwd_launches` counts the backward's; the tc_ counts
@@ -766,7 +829,8 @@ def _flash_plan(xs, od, impl, strides, B, H, T, D, cols):
                       _align(*(x.data_ptr() for x in xs)), impl, cols > D)
 
 
-def _flash_fwd_cuda(q, k, v, lengths, seed, rate, od, impl="auto", cols=None):
+def _flash_fwd_cuda(q, k, v, lengths, seed, rate, od, impl="auto", cols=None,
+                    origin=None):
     """The forward kernel of the plan's route. `impl="scalar"` reaches the
     scalar kernel with bf16 operands (the previous design, measured beside
     the tensor-core one); the model never passes it. `cols`: the columns
@@ -789,7 +853,7 @@ def _flash_fwd_cuda(q, k, v, lengths, seed, rate, od, impl="auto", cols=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         o.data_ptr(), lse.data_ptr(), strides, B, H, T, D,
         (1.0 / math.sqrt(D)) * LOG2E, int(od == torch.bfloat16), seed, rate,
-        plan.as_ints, stream)
+        *drop_origin(origin, B, H), plan.as_ints, stream)
     build.check(err, "flash_mha forward")
     _count(plan, "launches", flash_mha)
     build.credit(attention_flops(B, T, H * D))
@@ -797,13 +861,12 @@ def _flash_fwd_cuda(q, k, v, lengths, seed, rate, od, impl="auto", cols=None):
 
 
 def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g, impl="auto",
-                    cols=None, g_cols=None):
+                    cols=None, g_cols=None, origin=None):
     """dq, dk, dv through the two backward kernels of the plan's route (one
     CTA per block of query rows for dq; for dk and dv one per block of key
-    rows on the scalar route, two on the tensor-core ones). delta is
-    prepared here in torch ops, as the JAX package prepares it outside its
-    kernels. `impl` and `cols` (of q, k, v) as in `_flash_fwd_cuda`;
-    `g_cols` the same of g."""
+    rows on the scalar route, two on the tensor-core ones), after the
+    launch that sums delta from do and o (csrc/row_delta.cuh). `impl` and
+    `cols` (of q, k, v) as in `_flash_fwd_cuda`; `g_cols` the same of g."""
     B, H, T, D = q.shape
     dev = q.device
     _same_device(dev, k=k, v=v, lengths=lengths, o=o, lse=lse, g=g)
@@ -819,22 +882,23 @@ def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g, impl="auto",
     (do,), s_do, g_cols = _head_strides((g,), g_cols)
     plan = _flash_plan((q, k, v, do), od, impl, (s_in, s_do), B, H, T, D,
                        min(cols, g_cols))
-    # do * o promotes do to f32 exactly: the same delta as do.to(f32) * o
-    # without a copy of do
-    delta = (do.detach() * o).sum(-1).contiguous()              # [B, H, T]
+    o = o.detach().to(torch.float32)
+    if o.stride(-1) != 1:
+        o = o.contiguous()
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     lens = lengths.to(torch.int32).contiguous()
     lse = lse.contiguous()
     # one allocation, so the three gradients share their strides
     grads = torch.empty((3, B, T, H, D), dtype=torch.float32, device=dev)
     dq, dk, dv = (x.transpose(1, 2) for x in grads.unbind(0))
-    strides = (ctypes.c_int64 * 9)(*s_in, *s_do, *dq.stride()[:3])
+    strides = (ctypes.c_int64 * 12)(*s_in, *s_do, *dq.stride()[:3], *o.stride()[:3])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _split_lib().rd_split_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), lens.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), strides, B, H, T, D,
         1.0 / math.sqrt(D), int(od == torch.bfloat16), seed, rate,
-        plan.as_ints, stream)
+        *drop_origin(origin, B, H), plan.as_ints, stream)
     build.check(err, "flash_mha backward")
     _count(plan, "bwd_launches", flash_mha)
     build.credit(2 * attention_flops(B, T, H * D))
@@ -859,10 +923,11 @@ def _split_lib():
     if lib.rd_split_fwd.argtypes is None:
         tail = [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         lib.rd_split_fwd.argtypes = [ctypes.c_void_p] * 6 + tail
         lib.rd_split_fwd.restype = ctypes.c_int
-        lib.rd_split_bwd.argtypes = [ctypes.c_void_p] * 10 + tail
+        lib.rd_split_bwd.argtypes = [ctypes.c_void_p] * 11 + tail
         lib.rd_split_bwd.restype = ctypes.c_int
         lib.rd_split_smem.argtypes = [ctypes.c_int, ctypes.c_int,
                                       ctypes.POINTER(ctypes.c_int)]

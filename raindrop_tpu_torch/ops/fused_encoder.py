@@ -11,7 +11,10 @@ probabilities, keyed (seed, b * nhead + h) as in the packed kernel, and
 three site masks keyed (seed, b, site) with sites 101 (attention out),
 102 (FFN hidden) and 103 (FFN out), whose row term is site * t8 + row
 with t8 = T padded to 8. These are the masks the JAX package draws off the
-TPU; its two-heads-per-draw hardware generator has no counterpart here.
+TPU; its two-heads-per-draw hardware generator has no counterpart here. A
+launch over rows b0.. of a larger batch (a data-parallel rank's shard)
+passes `origin` = (b0, 0, nhead): its sample b then hashes as sample
+b0 + b, so the shards draw the full batch's masks.
 
 `fused_encoder_layer` is a `torch.autograd.Function` over x and the 12
 weights. On CUDA tensors forward and backward launch the hand-written
@@ -41,7 +44,7 @@ from raindrop_tpu_torch.kernels import build
 from raindrop_tpu_torch.ops.flash_attention import (
     LOG2E, MAX_FUSED_T, MAX_HEAD_DIM, NARROW_MAX_HD, TC_MAX_HD_PAD, _ROUTES, _align,
     _attention_bwd_plain, _check_rate, _dropout_keep_hash, _packed_fwd_plain,
-    _seed_int, operand_dtype, pad8, wide_pad)
+    _seed_int, drop_origin, operand_dtype, pad8, wide_pad)
 
 _EPS = 1e-5
 SITE_ATTN_OUT, SITE_FFN_MID, SITE_FFN_OUT = 101, 102, 103
@@ -56,9 +59,9 @@ def layer_flops(B: int, T: int, d: int, ffn: int) -> int:
     return B * (4 * T * T * d + 8 * T * d * d + 4 * T * d * ffn)
 
 
-def _site_keep(seed, B, site, T, n, rate, device) -> torch.Tensor:
-    """[B, T, n] keep mask of one dropout site."""
-    b = torch.arange(B, dtype=torch.int64, device=device)
+def _site_keep(seed, B, site, T, n, rate, device, b0=0) -> torch.Tensor:
+    """[B, T, n] keep mask of one dropout site, the samples at b0.."""
+    b = torch.arange(b0, b0 + B, dtype=torch.int64, device=device)
     return _dropout_keep_hash(seed, b, site, 0, (pad8(T), n), rate, device)[:, :T]
 
 
@@ -96,7 +99,8 @@ def _check(x, lengths, nhead):
         raise ValueError("lengths must be [B]")
 
 
-def _fused_fwd(p, x, lengths, seed, dropout_rate, compute_dtype, nhead):
+def _fused_fwd(p, x, lengths, seed, dropout_rate, compute_dtype, nhead,
+               origin=None):
     """Returns (out, attn [B, T, d] f32, lse [B, nhead, T] f32, base 2);
     attn and lse are what the backward reads."""
     _check(x, lengths, nhead)
@@ -104,8 +108,9 @@ def _fused_fwd(p, x, lengths, seed, dropout_rate, compute_dtype, nhead):
     od = operand_dtype(compute_dtype)
     if x.is_cuda:
         return _fused_fwd_cuda(_flatten(p), x, lengths, _seed_int(seed), rate,
-                               nhead, od)
-    return _fused_fwd_plain(p, x, lengths, nhead, od, _seed_int(seed), rate)
+                               nhead, od, origin=origin)
+    return _fused_fwd_plain(p, x, lengths, nhead, od, _seed_int(seed), rate,
+                            origin)
 
 
 def _ln_fwd(h, p):
@@ -144,16 +149,16 @@ def _recompute(p, x, attn, r, keeps):
     return out, x1, xhat1, rstd1, f_pre, f, xhat2, rstd2
 
 
-def _site_keeps(seed, rate, B, T, d, ffn, device):
+def _site_keeps(seed, rate, B, T, d, ffn, device, b0=0):
     """The three site masks scaled by 1/(1-rate), or Nones at rate 0."""
     if rate <= 0.0:
         return None, None, None
     return tuple(
-        _site_keep(seed, B, site, T, n, rate, device).to(torch.float32) / (1.0 - rate)
+        _site_keep(seed, B, site, T, n, rate, device, b0).to(torch.float32) / (1.0 - rate)
         for site, n in ((SITE_ATTN_OUT, d), (SITE_FFN_MID, ffn), (SITE_FFN_OUT, d)))
 
 
-def _fused_fwd_plain(p, x, lengths, nhead, od, seed=0, rate=0.0):
+def _fused_fwd_plain(p, x, lengths, nhead, od, seed=0, rate=0.0, origin=None):
     """The kernels' function in plain PyTorch, with the TPU kernel's
     rounding: every product operand in `od`, q/k/v rounded after their
     bias, f32 accumulation, attention normalising the PV output."""
@@ -165,14 +170,16 @@ def _fused_fwd_plain(p, x, lengths, nhead, od, seed=0, rate=0.0):
 
     qkv = r(x) @ r(p["in_proj_w"]).T + p["in_proj_b"]
     q, k, v = r(qkv).split(d, dim=-1)
-    attn, lse = _packed_fwd_plain(q, k, v, lengths, nhead, od, seed, rate)
-    keeps = _site_keeps(seed, rate, B, T, d, p["lin1"]["w"].shape[0], x.device)
+    origin = drop_origin(origin, B, nhead)
+    attn, lse = _packed_fwd_plain(q, k, v, lengths, nhead, od, seed, rate, origin)
+    keeps = _site_keeps(seed, rate, B, T, d, p["lin1"]["w"].shape[0], x.device,
+                        origin[0])
     out = _recompute(p, x, attn, r, keeps)[0]
     return out, attn, lse
 
 
 def _fused_bwd_plain(p, x, lengths, seed, rate, nhead, od, attn, lse, g,
-                     relu_on=None):
+                     relu_on=None, origin=None):
     """The backward kernels' function in plain PyTorch: recompute the
     forward from x and the saved attn and lse, then the gradient of every
     stage with each product operand rounded to `od` where the TPU kernel
@@ -201,7 +208,8 @@ def _fused_bwd_plain(p, x, lengths, seed, rate, nhead, od, attn, lse, g,
     xo = r(x)
     qkv = xo @ r(p["in_proj_w"]).T + p["in_proj_b"]
     q, k, v = r(qkv).split(d, dim=-1)
-    keeps = _site_keeps(seed, rate, B, T, d, ffn, x.device)
+    origin = drop_origin(origin, B, nhead)
+    keeps = _site_keeps(seed, rate, B, T, d, ffn, x.device, origin[0])
     keep2, keep3, keep4 = keeps
     _, x1, xhat1, rstd1, f_pre, f, xhat2, rstd2 = _recompute(p, x, attn, r, keeps)
 
@@ -227,7 +235,7 @@ def _fused_bwd_plain(p, x, lengths, seed, rate, nhead, od, attn, lse, g,
 
     delta = (d_attn * attn).reshape(B, T, nhead, hd).sum(-1).transpose(1, 2)
     dq, dk, dv = _attention_bwd_plain(q, k, v, r(d_attn), delta, lengths, seed,
-                                      rate, nhead, od, lse, scale)
+                                      rate, nhead, od, lse, scale, origin)
     dqkv = torch.cat([dq, dk, dv], dim=-1)                 # [B, T, 3d]
     dqkvo = r(dqkv)
     dw_in = wgrad(xo, dqkvo)
@@ -242,35 +250,39 @@ class _FusedLayer(torch.autograd.Function):
     backward."""
 
     @staticmethod
-    def forward(ctx, x, lengths, seed, dropout_rate, compute_dtype, nhead, *ws):
+    def forward(ctx, x, lengths, seed, dropout_rate, compute_dtype, nhead, origin,
+                *ws):
+        origin = drop_origin(origin, x.shape[0], nhead)
         out, attn, lse = _fused_fwd(_unflatten(ws), x, lengths, seed,
-                                    dropout_rate, compute_dtype, nhead)
+                                    dropout_rate, compute_dtype, nhead, origin)
         ctx.save_for_backward(x, lengths, attn, lse, *ws)
         ctx.args = (_seed_int(seed), float(dropout_rate), nhead,
-                    operand_dtype(compute_dtype))
+                    operand_dtype(compute_dtype), origin)
         return out.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, lengths, attn, lse, *ws = ctx.saved_tensors
-        seed, rate, nhead, od = ctx.args
+        seed, rate, nhead, od, origin = ctx.args
         if g.is_cuda:
             dx, dws = _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od,
-                                      attn, lse, g)
+                                      attn, lse, g, origin=origin)
         else:
             dx, dws = _fused_bwd_plain(_unflatten(ws), x, lengths, seed, rate,
-                                       nhead, od, attn, lse, g)
+                                       nhead, od, attn, lse, g, origin=origin)
         dws = [dw.to(w.dtype) for dw, w in zip(dws, ws)]
-        return (dx.to(x.dtype), None, None, None, None, None, *dws)
+        return (dx.to(x.dtype), None, None, None, None, None, None, *dws)
 
 
 def fused_encoder_layer(p, x, lengths, seed=None, dropout_rate=0.0,
-                        compute_dtype=None, nhead=1) -> torch.Tensor:
+                        compute_dtype=None, nhead=1, origin=None) -> torch.Tensor:
     """One post-LN encoder layer. x [B, T, d]; lengths [B]; `seed` the
-    int32 seed of the four dropout masks (None means 0). Returns out
-    [B, T, d] in x's dtype; differentiable in x and the layer's weights."""
+    int32 seed of the four dropout masks (None means 0); `origin`
+    (b0, 0, nhead) for rows b0.. of a larger batch (None: b0 = 0). Returns
+    out [B, T, d] in x's dtype; differentiable in x and the layer's
+    weights."""
     return _FusedLayer.apply(x, lengths, seed, dropout_rate, compute_dtype,
-                             nhead, *_flatten(p))
+                             nhead, origin, *_flatten(p))
 
 
 # forward calls that launched the kernels; `bwd_launches` counts backwards;
@@ -510,7 +522,7 @@ def _prepare(ws, x, lengths):
             lengths.to(torch.int32).contiguous(), ffn)
 
 
-def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od, impl="auto"):
+def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od, impl="auto", origin=None):
     """The forward kernels of the plan's route. `impl="scalar"` reaches the
     scalar kernels with bf16 operands (the previous design, measured beside
     the tensor-core one); the model never passes it."""
@@ -532,7 +544,8 @@ def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od, impl="auto"):
         qkv.data_ptr(), out.data_ptr(), attn.data_ptr(), lse.data_ptr(),
         0 if wpack is None else wpack.data_ptr(),
         B, T, d, ffn, nhead, (1.0 / math.sqrt(d // nhead)) * LOG2E,
-        int(od == torch.bfloat16), seed, rate, plan.as_ints, stream)
+        int(od == torch.bfloat16), seed, rate, *drop_origin(origin, B, nhead),
+        plan.as_ints, stream)
     build.check(err, "fused_encoder_layer forward")
     _count(plan, "launches")
     build.credit(layer_flops(B, T, d, ffn))
@@ -579,7 +592,7 @@ def bwd_scratch_floats(B, T, d, ffn, nhead, plan=None):
 
 
 def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
-                    scratch_out=None, impl="auto"):
+                    scratch_out=None, impl="auto", origin=None):
     """dx and the 12 weight gradients through the backward kernels of the
     plan's route; every intermediate buffer is allocated here and listed by
     `bwd_scratch`. A dict passed as `scratch_out` receives those buffers
@@ -615,7 +628,7 @@ def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
         dx.data_ptr(), dw_in.data_ptr(), dwo.data_ptr(), dw1.data_ptr(),
         dw2.data_ptr(), vec.data_ptr(), B, T, d, ffn, nhead, WGRAD_CHUNK,
         1.0 / math.sqrt(d // nhead), int(od == torch.bfloat16), seed, rate,
-        plan.as_ints, stream)
+        *drop_origin(origin, B, nhead), plan.as_ints, stream)
     build.check(err, "fused_encoder_layer backward")
     _count(plan, "bwd_launches")
     build.credit(2 * layer_flops(B, T, d, ffn))
@@ -628,6 +641,7 @@ def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
 
 
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
 
 

@@ -19,10 +19,18 @@ flagship (raindrop) and every baseline family (baselines/adapters.py),
 with the hyperparameter groups --mtand-*, --mtgnn-*, --dgm2-* and
 --ipnet-*; a baseline runs the JAX CLI's own loop (n_runs per split, the
 best run by AUPRC, the tracker's start, epoch and finish events, no
-checkpoints). The scale-out flags (--distributed, --data-parallel,
---model-parallel > 1, --context-parallel, --pipeline-microbatches,
---edge-partition) raise NotImplementedError naming the slice they wait
-for. The knn and mice
+checkpoints). --data-parallel and --model-parallel lay the ranks out
+as a ("data", "model") mesh (parallel/mesh.py) and --distributed true
+starts the process group from torchrun's environment (NCCL on the card):
+
+  torchrun --nproc_per_node 2 -m raindrop_tpu_torch.run --distributed true \
+      --data-parallel 2 --dataset P12 --data-root ROOT
+
+Every rank writes its shard of the best parameters under
+--checkpoint-dir; only rank 0 prints and writes --out-json. A mesh of
+several ranks trains the flagship model. The scale-out routes
+(--context-parallel, --pipeline-microbatches, --edge-partition) raise
+NotImplementedError naming the slice they wait for. The knn and mice
 imputers and the information-gain ranking of --feature_removal_level set
 (without --ig-scores) need scikit-learn.
 """
@@ -31,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -84,14 +93,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="the device to train on; without CUDA the run stops "
                         "unless this is 'cpu'")
-    # scale-out: not ported yet (each raises when set)
-    p.add_argument("--data-parallel", type=int, default=0)
-    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="ranks on the mesh 'data' axis (0 = no mesh)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="ranks on the mesh 'model' axis (Megatron tensor "
+                        "parallelism)")
+    p.add_argument("--distributed", type=str2bool, default=False,
+                   help="start the process group from torchrun's environment "
+                        "(NCCL on CUDA, gloo on the CPU)")
+    # the scale-out routes: not ported yet (each raises when set)
     p.add_argument("--context-parallel", choices=["none", "sp", "ring"],
                    default="none")
     p.add_argument("--pipeline-microbatches", type=int, default=0)
     p.add_argument("--edge-partition", type=str2bool, default=False)
-    p.add_argument("--distributed", type=str2bool, default=False)
     p.add_argument("--grad-microbatches", type=int, default=1,
                    help="gradient accumulation: split each batch into N "
                         "chunks, average their gradients, one Adam update "
@@ -205,16 +219,37 @@ def make_model_fns(args, cfg, device="cuda"):
 def refuse_unported(args) -> None:
     """Raise for a flag whose route the port does not run yet."""
     scale_out = [flag for flag, on in (
-        ("--distributed", args.distributed),
-        ("--data-parallel", args.data_parallel),
-        ("--model-parallel", args.model_parallel > 1),
         ("--context-parallel", args.context_parallel != "none"),
         ("--pipeline-microbatches", args.pipeline_microbatches > 0),
         ("--edge-partition", args.edge_partition)) if on]
     if scale_out:
         raise NotImplementedError(
-            f"{', '.join(scale_out)} come(s) with the scale-out slice; the "
-            f"port trains on one device")
+            f"{', '.join(scale_out)} come(s) with slice 18, the scale-out slice "
+            f"of the model-axis routes; the port runs data and tensor parallelism")
+
+
+def start_mesh(args, device):
+    """The process group (--distributed: torchrun's environment; each rank
+    on its card, LOCAL_RANK modulo the cards) and the ("data", "model")
+    mesh of --data-parallel / --model-parallel, or None."""
+    import torch
+
+    from raindrop_tpu_torch.parallel.mesh import (
+        default_backend, initialize_distributed, make_mesh)
+
+    backend = default_backend(device)
+    if args.distributed:
+        if backend == "nccl":
+            local = int(os.environ.get("LOCAL_RANK", 0))
+            torch.cuda.set_device(local % torch.cuda.device_count())
+        initialize_distributed(auto=True, backend=backend)
+    if not (args.data_parallel or args.model_parallel > 1):
+        return None
+    mesh = make_mesh(args.data_parallel or None, args.model_parallel, backend)
+    if mesh.size() > 1 and args.model != "raindrop":
+        raise ValueError("a mesh of several ranks trains the flagship model "
+                         "(--model raindrop)")
+    return mesh
 
 
 def configs(args):
@@ -383,6 +418,8 @@ def main(argv=None) -> int:
     from raindrop_tpu_torch.utils.tracking import JSONLTracker
 
     device = resolve_device(args.device)   # no CUDA: raises, never the CPU
+    mesh = start_mesh(args, device)
+    rank0 = mesh is None or mesh.get_rank() == 0
     cfg, tcfgs = configs(args)
     all_results = {}
     for tcfg in tcfgs:
@@ -394,12 +431,14 @@ def main(argv=None) -> int:
         tracker = JSONLTracker(args.track_jsonl) if args.track_jsonl else None
         if args.model == "raindrop":
             results = run_splits(split_fn, cfg, tcfg, device=device,
-                                 resume_from=args.resume_from, tracker=tracker)
+                                 resume_from=args.resume_from, tracker=tracker,
+                                 mesh=mesh)
         else:
             results = run_baseline(args, cfg, tcfg, split_fn, device, tracker)
         all_results[f"missing_{mr}"] = results["summary"]
         for name, s in results["summary"].items():
-            print(f"[mr={mr}] {name:>9} = {s['mean']:.1f} +/- {s['std']:.1f}")
+            if rank0:
+                print(f"[mr={mr}] {name:>9} = {s['mean']:.1f} +/- {s['std']:.1f}")
 
     if args.compare_golden:
         # against the reference's saved results: only the standard
@@ -412,7 +451,7 @@ def main(argv=None) -> int:
             all_results["golden_delta"] = compare_golden(
                 args.compare_golden, all_results["missing_0.0"])
 
-    if args.out_json:
+    if args.out_json and rank0:
         with open(args.out_json, "w") as f:
             json.dump(all_results, f, indent=2)
     return 0

@@ -24,8 +24,8 @@ raw 2-byte `|V2` array of its bits (`bridge.tensor_to_array`), and a
 `|V2` array reads back as bfloat16 by its bits, so a bf16 checkpoint of
 either package loads bit-equal in the port without `ml_dtypes`.
 
-The JAX package's orbax functions (sharded checkpoints) come with the
-scale-out slice.
+The JAX package's orbax functions have no counterpart here; a mesh's
+per-rank sharded checkpoints are parallel/multihost.py's.
 """
 
 from __future__ import annotations

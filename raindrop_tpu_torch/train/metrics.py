@@ -23,7 +23,6 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
-from scipy.stats import rankdata
 
 
 def one_hot(y: np.ndarray, n_classes: int) -> np.ndarray:
@@ -67,6 +66,10 @@ def binary_auroc(y_true: np.ndarray, score: np.ndarray) -> float:
     n_neg = y_true.size - n_pos
     if n_pos == 0 or n_neg == 0:
         return float("nan")
+    # imported here: scipy.stats takes seconds to import, which every
+    # process of a mesh would pay at start
+    from scipy.stats import rankdata
+
     ranks = rankdata(np.asarray(score, np.float64).reshape(-1))   # midranks
     return float((ranks[y_true].sum() - n_pos * (n_pos + 1) / 2.0)
                  / (n_pos * n_neg))

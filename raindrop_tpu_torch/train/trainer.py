@@ -38,11 +38,29 @@ batches are gathered on the host and copied ahead of each step
 same batches, seeds and results. With `measure_mfu` one step's model FLOPs
 are counted once (`step_flops`) and every epoch record gets the achieved
 TFLOP/s and MFU.
+
+On a mesh (`mesh`, parallel/mesh.py: one process a rank) every rank
+builds the same Trainer and draws the same seeds from the same
+generators. A data rank trains on its contiguous rows of each global
+batch (the sampler's shard), the model runs Megatron's split over the
+model axis (models/raindrop.py), and the gradients are averaged over the
+data axis before the masked-Adam step, so a step equals the one-device
+step up to the order of the sums. Each rank keeps its part of the
+parameters and of Adam's moments. `predict` gathers the logits of every
+rank's rows. `train_split` on more than one rank needs a checkpoint
+path: the best parameters go to per-rank shard files
+(parallel/multihost.py) and are read back for the test; the `_last`
+state is gathered whole and written by rank 0 (the one-device format, so
+a run resumes on any mesh). Only rank 0 prints. The streaming pipeline
+runs on one rank only, as in the JAX package; `measure_mfu` counts a
+rank's step on its rows, so its MFU is the card's. The mesh trains the
+flagship model; a pluggable model runs on one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
 import time
@@ -50,6 +68,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 # torch.optim.Optimizer imports torch._dynamo lazily, at the first
 # add_param_group of a process, and on this torch that first import keeps
 # every frame then on the stack alive: the first Trainer (its __init__
@@ -63,6 +82,12 @@ from raindrop_tpu_torch.config import RaindropConfig, TrainConfig
 from raindrop_tpu_torch.data.datasets import Split
 from raindrop_tpu_torch.data.prefetch import PrefetchExecutor
 from raindrop_tpu_torch.data.sampler import balanced_batches, n_batches_per_epoch
+from raindrop_tpu_torch.parallel import tensor as tp
+from raindrop_tpu_torch.parallel.multihost import (
+    load_sharded_checkpoint, save_sharded_checkpoint)
+from raindrop_tpu_torch.parallel.mesh import (
+    batch_rows, coords, group, local_leaf, shard_blocks, shard_params,
+    tensor_parallel_specs)
 from raindrop_tpu_torch.serve import resolve_device
 from raindrop_tpu_torch.train.checkpoint import (
     flatten_params, load_checkpoint, save_checkpoint)
@@ -97,7 +122,7 @@ class Trainer:
 
     def __init__(self, cfg: RaindropConfig, tcfg: TrainConfig, device="cuda",
                  params=None, init_fn=None, apply_fn=None, draw_seeds=None,
-                 update_mask=None):
+                 update_mask=None, mesh=None):
         """`params`: a parameter tree to train (moved to `device`; its
         leaves become the trainer's own), else `init_fn(tcfg.seed)`.
         `init_fn`: seed -> parameter tree, what `train_split` starts every
@@ -110,15 +135,32 @@ class Trainer:
         Raindrop (adapters.make_flagship). `update_mask`: a tree of bools
         over the parameters, False for a leaf Adam leaves alone; by default
         the model's own: raindrop_param_mask for the flagship, every leaf
-        live for an `apply_fn` (the JAX trainer's update_mask=None)."""
+        live for an `apply_fn` (the JAX trainer's update_mask=None).
+        `mesh`: a ("data", "model") DeviceMesh (parallel/mesh.make_mesh)
+        this rank trains on; `params` and `init_fn` give the full tree,
+        of which the rank keeps its part."""
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = dev = resolve_device(device)
+        self.mesh = mesh
+        self._coords = c = coords(mesh)
+        self._data_group = group(mesh, "data")
+        self._model_group = group(mesh, "model")
+        if c.world > 1 and apply_fn is not None:
+            raise ValueError("a mesh of several ranks trains the flagship model "
+                             "only; a pluggable model runs on one device")
+        if c.n_model > 1:
+            for name, n in (("nhead", cfg.nhead), ("ffn_dim", cfg.ffn_dim),
+                            ("max_len * d_ob", cfg.max_len * cfg.d_ob)):
+                if n % c.n_model:
+                    raise ValueError(f"tensor parallelism over {c.n_model} model "
+                                     f"ranks needs {name} ({n}) divisible by it")
+        self._specs = None
         # the model's functions close over cfg and the device, not over
         # self: a cycle would keep a dropped trainer's parameters (7 GB at
         # PAM's width on a 2048-step window) alive until the cyclic
         # collector runs
-        model = (make_flagship(cfg, dev) if apply_fn is None
+        model = (make_flagship(cfg, dev, mesh) if apply_fn is None
                  else ModelFns(init_fn, apply_fn, draw_seeds))
         self._init = init_fn or model.init_fn
         self._apply, self._draw = model.apply_fn, model.draw_seeds
@@ -130,7 +172,8 @@ class Trainer:
 
     # ---- parameters and optimizer ---------------------------------------
     def set_params(self, params) -> None:
-        """Adopt `params` and start a fresh optimizer over its live leaves."""
+        """Adopt `params` (the full tree; on a model axis the rank keeps its
+        part) and start a fresh optimizer over its live leaves."""
         device = self.device      # not self: `own` is in a cycle with itself
 
         def own(tree):
@@ -140,6 +183,11 @@ class Trainer:
                 return [own(v) for v in tree]
             return tree.detach().to(device).clone()
 
+        n_model = self._coords.n_model
+        if n_model > 1:
+            self._specs = tensor_parallel_specs(params, n_model)
+            params = shard_params(params, n_model=n_model,
+                                  model_rank=self._coords.model_rank)
         self.params = own(params)
         leaves = flatten_params(self.params)
         if self._update_mask is None:
@@ -186,10 +234,82 @@ class Trainer:
                 "mu": mu, "nu": nu}
 
     def load_opt_state(self, state: Dict[str, Any]) -> None:
-        """Adopt a tree of `opt_state`'s form."""
-        bridge.adam_state_from_jax(self, state["mu"], state["nu"],
-                                   int(state["count"]))
+        """Adopt a tree of `opt_state`'s form (of the full parameters; on a
+        model axis the rank keeps its part of the moments)."""
+        mu, nu = state["mu"], state["nu"]
+        if self._coords.n_model > 1:
+            mu, nu = (self._local_tree(t) for t in (mu, nu))
+        bridge.adam_state_from_jax(self, mu, nu, int(state["count"]))
         self.learning_rate = float(state["learning_rate"])
+
+    # ---- the mesh -------------------------------------------------------
+    @property
+    def _multi(self) -> bool:
+        """More than one rank: the per-rank checkpoint path of train_split."""
+        return self._coords.world > 1
+
+    def _split_dims(self) -> Dict[str, Optional[int]]:
+        return dict(flatten_params(self._specs)) if self._specs is not None else {}
+
+    def _local_tree(self, tree):
+        """This model rank's part of a full tree of numpy arrays in the
+        parameters' layout (Adam's moments)."""
+        n, m = self._coords.n_model, self._coords.model_rank
+
+        def walk(t, path):
+            if isinstance(t, dict):
+                return {k: walk(v, path + [k]) for k, v in t.items()}
+            a = bridge.array_to_tensor(np.ascontiguousarray(t))
+            return bridge.tensor_to_array(local_leaf(path, a, n, m))
+
+        return walk(tree, [])
+
+    def _whole(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """The full leaf at `path` from every model rank's part (a new
+        tensor; `t` itself when the leaf is not split)."""
+        dim = self._split_dims().get(path)
+        if dim is None:
+            return t
+        n = self._coords.n_model
+        shape = [s * n if a == dim else s for a, s in enumerate(t.shape)]
+        blocks = shard_blocks(path.split("/"), shape, dim, n, self._coords.model_rank)
+        return tp.gather(t.detach(), blocks, dim, shape, self._model_group)
+
+    def full_params(self):
+        """The full parameter tree, gathered over the model axis (every
+        rank gets it; the trainer's own tree off a model axis)."""
+        if self._coords.n_model == 1:
+            return self.params
+
+        def walk(tree, prefix):
+            if isinstance(tree, dict):
+                return {k: walk(v, f"{prefix}/{k}" if prefix else k) for k, v in tree.items()}
+            return self._whole(prefix, tree)
+
+        return walk(self.params, "")
+
+    def full_opt_state(self) -> Dict[str, Any]:
+        """`opt_state` of the full parameters, gathered over the model axis."""
+        state = self.opt_state()
+        if self._coords.n_model == 1:
+            return state
+
+        def walk(tree, prefix):
+            if isinstance(tree, dict):
+                return {k: walk(v, f"{prefix}/{k}" if prefix else k) for k, v in tree.items()}
+            t = bridge.array_to_tensor(tree).to(self.device)
+            return bridge.tensor_to_array(self._whole(prefix, t))
+
+        state["mu"], state["nu"] = walk(state["mu"], ""), walk(state["nu"], "")
+        return state
+
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch's rows of x [rows, ...] from every data rank's
+        (no autograd)."""
+        c = self._coords
+        if self._data_group is None:
+            return x
+        return tp.gather_dim(x.detach(), c.data_rank, c.n_data, self._data_group, 0)
 
     def _snapshot(self):
         """The parameter tree with the live leaves copied; a dead leaf
@@ -281,10 +401,24 @@ class Trainer:
         (a pluggable model's: what its draw_seeds returns; a sequence of
         grad_microbatches of them when that is > 1); None draws from the
         trainer's own stream. Returns (loss, logits) on the
-        device, without synchronising."""
+        device, without synchronising. On a data axis `batch` is this
+        rank's rows of the global batch, the seeds are the global batch's,
+        the loss is the global batch's mean and the logits the rank's rows
+        (with grad_microbatches each rank splits its own rows)."""
         if seeds is None:
-            seeds = self.draw_seeds(batch["P"].shape[0])
+            seeds = self.draw_seeds(batch["P"].shape[0] * self._coords.n_data)
         loss, logits = self._backward(batch, seeds)
+        if self._data_group is not None:
+            # the mean over the data axis: the global batch's gradient and
+            # loss, in one all_reduce of the flattened f32 gradients and loss
+            n = self._coords.n_data
+            grads = [t.grad for _, t in self.live if t.grad is not None]
+            flat = tp.all_reduce(torch.cat([g.reshape(-1).to(torch.float32)
+                                            for g in (*grads, loss.reshape(1))]),
+                                 self._data_group) / n
+            for g, part in zip(grads, flat.split([g.numel() for g in grads] + [1])):
+                g.copy_(part.view_as(g))
+            loss = flat[-1]
         self.optimizer.step()
         return loss, logits
 
@@ -296,8 +430,12 @@ class Trainer:
         iterable of device batches (the streaming pipeline's
         PrefetchExecutor). Returns (losses [K] on the host, the last step's
         logits on the device); the host waits for the card once, for the
-        losses."""
+        losses. On a data axis `idx` holds the global batches and each rank
+        gathers its rows of them."""
         if idx is not None:
+            c = self._coords
+            if c.n_data > 1:
+                idx = idx[:, batch_rows(idx.shape[1], c.data_rank, c.n_data)]
             idx = idx.to(self.device)
             if seeds is not None and len(seeds) != idx.shape[0]:
                 raise ValueError(f"{len(seeds)} seed sets for {idx.shape[0]} steps")
@@ -345,6 +483,10 @@ class Trainer:
         params = self.params if params is None else params
         N = P.shape[0]
         out = np.zeros((N, self.cfg.n_classes), np.float32)
+        c = self._coords
+        if c.n_data > 1:
+            # every rank runs its rows of each chunk; the logits gathered
+            batch_size = max(batch_size // c.n_data * c.n_data, c.n_data)
 
         def dev(a):
             return torch.as_tensor(np.ascontiguousarray(a)).to(
@@ -355,12 +497,15 @@ class Trainer:
             n = end - start
             idxb = np.concatenate([np.arange(start, end),
                                    np.full(batch_size - n, end - 1, np.int64)])
+            if c.n_data > 1:
+                idxb = idxb[batch_rows(batch_size, c.data_rank, c.n_data)]
             times = dev(time[idxb]).transpose(0, 1)
             logits, _ = self._apply(
                 params, dev(P[idxb]).transpose(0, 1),
                 None if static is None else dev(static[idxb]), times,
                 (times > 0).sum(dim=0), False, None)
-            out[start:end] = logits[:n].to("cpu", torch.float32).numpy()
+            logits = self._gather_rows(logits.to(torch.float32))
+            out[start:end] = logits[:n].to("cpu").numpy()
         return out
 
     # ---- the per-split protocol ------------------------------------------
@@ -378,10 +523,23 @@ class Trainer:
         continue from exactly. on_epoch_end: callable(epoch, record),
         called once the epoch's checkpoint is written. tracker: a
         RunTracker (utils/tracking.py); its failures never reach the run.
+        On more than one rank checkpoint_path is required (the best
+        parameters persist as per-rank shard files) and only rank 0
+        prints; `verbose` must be the same on every rank.
         """
         if not isinstance(tracker, _SafeTracker):
             tracker = _SafeTracker(tracker)
         cfg, tcfg = self.cfg, self.tcfg
+        multi = self._multi
+        if multi and not checkpoint_path:
+            raise ValueError("training on several ranks requires checkpoint_path "
+                             "(the best parameters persist as per-rank shard "
+                             "files; see parallel/multihost.py)")
+        if multi and tcfg.input_pipeline == "streaming":
+            raise ValueError("input_pipeline='streaming' runs on one rank; a "
+                             "mesh keeps the split resident on every rank")
+        rank0 = not multi or dist.get_rank() == 0
+        show = verbose and rank0
         seed = tcfg.seed if seed is None else seed
         rng_np = np.random.default_rng(seed)
         self._seed_gen.manual_seed(seed)
@@ -403,7 +561,7 @@ class Trainer:
             self.learning_rate = tcfg.learning_rate
         else:
             params, opt_state, meta = load_checkpoint(
-                resume_from, self.params, self.opt_state())
+                resume_from, self.full_params(), self.full_opt_state())
             self.set_params(params)
             self.load_opt_state(opt_state)
             scheduler.load_state_dict(meta["scheduler"])
@@ -418,7 +576,9 @@ class Trainer:
             # restored AUROC would test on the final parameters
             if resume_from.endswith("_last"):
                 best_path = resume_from[: -len("_last")]
-                if os.path.exists(best_path + ".npz"):
+                if multi and glob.glob(f"{best_path}.shard*-of*.npz"):
+                    best["params"] = "__sharded__"
+                elif not multi and os.path.exists(best_path + ".npz"):
                     best["params"], _, _ = load_checkpoint(best_path, self.params)
 
         # the training split as the step reads it: on the device, or on the
@@ -442,6 +602,8 @@ class Trainer:
         if tcfg.measure_mfu:
             rows = next(balanced_batches(split.ytrain, tcfg.batch_size, strategy,
                                          np.random.default_rng(0), n_batches=1))
+            c = self._coords
+            rows = rows[batch_rows(len(rows), c.data_rank, c.n_data)]   # this rank's
             step_flops = self.step_flops({
                 k: torch.as_tensor(np.ascontiguousarray(a[rows])).to(
                     self.device, dtypes[k]) for k, a in host.items()})
@@ -471,10 +633,12 @@ class Trainer:
 
             # the last batch's train confusion matrix at the first and last
             # epoch: the reference's sanity print, labels [0, 1] hard-coded
+            # (every rank gathers, rank 0 prints)
             if verbose and epoch in (start_epoch, tcfg.num_epochs - 1):
-                print(confusion_matrix_np(
-                    split.ytrain[idx[-1]],
-                    np.argmax(logits.to("cpu", torch.float32).numpy(), 1), labels=[0, 1]))
+                lg = self._gather_rows(logits.to(torch.float32)).to("cpu").numpy()
+                if show:
+                    print(confusion_matrix_np(split.ytrain[idx[-1]], np.argmax(lg, 1),
+                                              labels=[0, 1]))
 
             if snapshot is not None:
                 for name in frozen_param_report(
@@ -507,35 +671,54 @@ class Trainer:
             if log_file:
                 log_file.write(json.dumps(rec) + "\n")
                 log_file.flush()
-            if verbose:
+            if show:
                 print(f"epoch {epoch}: loss={rec['train_loss']:.4f} "
                       f"val_auroc={val['auroc']*100:.2f} "
                       f"val_auprc={val['auprc']*100:.2f} lr={new_lr:.2e}")
 
             if val["auroc"] > best["auroc"]:
-                best.update(auroc=val["auroc"], auprc=val["auprc"],
-                            params=self._snapshot())
-                if checkpoint_path:
-                    save_checkpoint(checkpoint_path, self.params,
-                                    meta={"epoch": epoch, "val": val,
-                                          "config": dataclasses.asdict(cfg)})
+                if multi:
+                    # each rank persists its part; the test reads them back
+                    best.update(auroc=val["auroc"], auprc=val["auprc"],
+                                params="__sharded__")
+                    save_sharded_checkpoint(checkpoint_path, self.params, self.mesh,
+                                            specs=self._specs)
+                else:
+                    best.update(auroc=val["auroc"], auprc=val["auprc"],
+                                params=self._snapshot())
+                    if checkpoint_path:
+                        save_checkpoint(checkpoint_path, self.params,
+                                        meta={"epoch": epoch, "val": val,
+                                              "config": dataclasses.asdict(cfg)})
             if checkpoint_path:
-                save_checkpoint(
-                    checkpoint_path + "_last", self.params, self.opt_state(),
-                    meta={"epoch": epoch,
-                          "scheduler": scheduler.state_dict(),
-                          "np_rng_state": rng_np.bit_generator.state,
-                          "seed_generator_state":
-                              self._seed_gen.get_state().tolist(),
-                          "best_auroc": best["auroc"],
-                          "best_auprc": best["auprc"],
-                          "history": history})
+                # the whole state (gathered over the model axis), by rank 0
+                params_all, opt_all = self.full_params(), self.full_opt_state()
+                if rank0:
+                    save_checkpoint(
+                        checkpoint_path + "_last", params_all, opt_all,
+                        meta={"epoch": epoch,
+                              "scheduler": scheduler.state_dict(),
+                              "np_rng_state": rng_np.bit_generator.state,
+                              "seed_generator_state":
+                                  self._seed_gen.get_state().tolist(),
+                              "best_auroc": best["auroc"],
+                              "best_auprc": best["auprc"],
+                              "history": history})
+                del params_all, opt_all
+                if multi:
+                    tp.barrier(device=self.device)
             if on_epoch_end is not None:
                 on_epoch_end(epoch, rec)
 
         elapsed = time.time() - t0
         # test with the best parameters, on the softmax
-        test_params = self.params if best["params"] is None else best["params"]
+        if best["params"] == "__sharded__":
+            tp.barrier(device=self.device)
+            full = load_sharded_checkpoint(checkpoint_path, like=self.full_params())
+            c = self._coords
+            test_params = shard_params(full, n_model=c.n_model, model_rank=c.model_rank)
+        else:
+            test_params = self.params if best["params"] is None else best["params"]
         test_logits = self.predict(test_params, split.Ptest, split.Ptest_time,
                                    split.Ptest_static)
         test = classification_metrics(test_logits, split.ytest, cfg.n_classes,
@@ -544,7 +727,7 @@ class Trainer:
         confusion = confusion_matrix_np(split.ytest, ypred,
                                         labels=range(cfg.n_classes))
         report = classification_report_str(split.ytest, ypred)
-        if verbose:
+        if show:
             print("classification report\n" + report)
             print(confusion)
         return TrainResult(
@@ -557,7 +740,7 @@ class Trainer:
 def run_splits(make_split, cfg: RaindropConfig, tcfg: TrainConfig, *,
                device="cuda", verbose: bool = True,
                resume_from: Optional[str] = None,
-               tracker=None) -> Dict[str, Any]:
+               tracker=None, mesh=None) -> Dict[str, Any]:
     """The n_splits x n_runs protocol with the reference's aggregation:
     the best run per split by AUPRC, then mean and std over the splits (in
     percent).
@@ -565,12 +748,14 @@ def run_splits(make_split, cfg: RaindropConfig, tcfg: TrainConfig, *,
     make_split: callable split_idx (1-based) -> Split. With
     tcfg.resplit_per_run it is called as make_split(split_idx, run=m) for
     every run instead and must draw a new partition per run. resume_from
-    continues the first run of the first split."""
+    continues the first run of the first split. `mesh`: train every run
+    on it (Trainer's); only rank 0 prints."""
     tracker = _SafeTracker(tracker)
     tracker.start({"dataset": tcfg.dataset,
                    "model_config": dict(vars(cfg)),
                    "train_config": dict(vars(tcfg))})
-    trainer = Trainer(cfg, tcfg, device=device)
+    trainer = Trainer(cfg, tcfg, device=device, mesh=mesh)
+    show = verbose and (not trainer._multi or dist.get_rank() == 0)
     log_file = open(tcfg.log_path, "a") if tcfg.log_path else None
     per_split: List[Dict[str, float]] = []
     try:
@@ -578,7 +763,7 @@ def run_splits(make_split, cfg: RaindropConfig, tcfg: TrainConfig, *,
             split = None if tcfg.resplit_per_run else make_split(k)
             runs = []
             for m in range(tcfg.n_runs):
-                if verbose:
+                if show:
                     print(f"--- split {k} run {m + 1} ---")
                 split_m = (make_split(k, run=m) if tcfg.resplit_per_run
                            else split)
@@ -600,7 +785,7 @@ def run_splits(make_split, cfg: RaindropConfig, tcfg: TrainConfig, *,
         vals = np.array([m[name] for m in per_split]) * 100.0
         summary[name] = {"mean": float(vals.mean()), "std": float(vals.std()),
                          "per_split": vals.tolist()}
-    if verbose:
+    if show:
         for name, s in summary.items():
             print(f"{name:>9} = {s['mean']:.1f} +/- {s['std']:.1f}")
     tracker.finish(summary)

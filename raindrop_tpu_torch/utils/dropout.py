@@ -7,6 +7,14 @@ bit for bit. The JAX `dropout` derives its 32-bit seed from a threefry key;
 the port takes that seed as an explicit integer and does not re-implement
 `jax.random`.
 
+A rank that holds one block of a larger tensor (a shard of the batch or
+of the heads, parallel/mesh.py) passes the block's `origin` and the full
+tensor's `full_shape`: each element then hashes its index in the full
+tensor, so the shards together draw the full tensor's mask. The index is
+not one offset away from the local one (the model's tensors are T-major,
+so a batch shard is strided in the flat index); each axis adds its own
+term.
+
 The arithmetic runs in int64 masked to 32 bits (torch's uint32 lacks
 arange, shifts and comparisons on some builds); a product of two values
 below 2**32 wraps modulo 2**64, which leaves its low 32 bits right.
@@ -39,12 +47,44 @@ def finalize32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def _hash_bits(seed32: int, shape, device=None) -> torch.Tensor:
-    """uint32 hash (held in int64) of (seed, flat row-major element index)."""
+def flat_index(shape, device=None, origin=None, full_shape=None) -> torch.Tensor:
+    """int64 [shape]: each element's row-major index in a tensor of
+    `full_shape` when the block `shape` sits at `origin` in it (by
+    default the block is the whole tensor), mod 2**32."""
+    shape = tuple(int(n) for n in shape)
     size = 1
     for n in shape:
-        size *= int(n)
-    idx = torch.arange(size, dtype=torch.int64, device=device).reshape(tuple(shape))
+        size *= n
+    if origin is None:
+        return torch.arange(size, dtype=torch.int64, device=device).reshape(shape) & M32
+    if full_shape is None or not len(origin) == len(full_shape) == len(shape):
+        raise ValueError(f"origin {origin} and full_shape {full_shape} must "
+                         f"each have one entry per axis of {shape}")
+    for n, o, N in zip(shape, origin, full_shape):
+        if int(o) < 0 or int(o) + n > int(N):
+            raise ValueError(f"block {shape} at {tuple(origin)} leaves {tuple(full_shape)}")
+    if tuple(int(N) for N in full_shape[1:]) == shape[1:] and not any(origin[1:]):
+        # whole rows of axis 0 (a batch-major shard): one offset
+        start = int(origin[0]) * (size // shape[0]) if shape[0] else 0
+        return (torch.arange(start, start + size, dtype=torch.int64, device=device)
+                .reshape(shape) & M32)
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for axis in reversed(range(len(shape))):
+        n, o, N = shape[axis], int(origin[axis]), int(full_shape[axis])
+        view = [1] * len(shape)
+        view[axis] = n
+        pos = torch.arange(o, o + n, dtype=torch.int64, device=device)
+        idx = idx + (pos * stride).reshape(view)
+        stride *= N
+    return idx.expand(shape) & M32
+
+
+def _hash_bits(seed32: int, shape, device=None, origin=None,
+               full_shape=None) -> torch.Tensor:
+    """uint32 hash (held in int64) of (seed, flat row-major element index),
+    the index in `full_shape` of a block at `origin` when given."""
+    idx = flat_index(shape, device, origin, full_shape)
     return finalize32(_mul32(idx, 0x9E3779B9) ^ (int(seed32) & M32))
 
 
@@ -52,14 +92,28 @@ def threshold32(rate: float) -> int:
     return int(rate * float(2 ** 32))
 
 
-def dropout(seed32, x: torch.Tensor, rate: float, train: bool = True) -> torch.Tensor:
+def dropout(seed32, x: torch.Tensor, rate: float, train: bool = True,
+            origin=None, full_shape=None) -> torch.Tensor:
     """Zero elements with probability `rate` and scale the survivors by
     1/(1-rate), in training only. The flat index follows x's logical
-    row-major order, so call it on the layout the JAX call site uses."""
+    row-major order, so call it on the layout the JAX call site uses. x a
+    block of a larger tensor: `origin` its place in it, `full_shape` the
+    larger tensor's shape (the mask is then that tensor's, cut to x)."""
     if not train or rate <= 0.0 or seed32 is None:
         return x
-    keep = _hash_bits(seed32, x.shape, x.device) >= threshold32(rate)
+    keep = (_hash_bits(seed32, x.shape, x.device, origin, full_shape)
+            >= threshold32(rate))
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def batch_block(rows, shape):
+    """(origin, full_shape) of a batch-major block of `shape` that holds
+    rows b0 .. of a global batch of `batch` rows, rows = (b0, batch);
+    (None, None) for rows None (the block is the whole batch)."""
+    if rows is None:
+        return None, None
+    b0, batch = rows
+    return (b0,) + (0,) * (len(shape) - 1), (batch,) + tuple(shape[1:])
 
 
 def dropout_rows(seeds, x: torch.Tensor, rate: float, train: bool = True) -> torch.Tensor:

@@ -246,8 +246,11 @@ def test_moe_ffn_matches_jax():
     out, aux = expert.moe_ffn_apply(p, torch.from_numpy(x))
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        expert.moe_ffn_apply(p, torch.from_numpy(x), mesh=object())
+    # expert parallelism runs since the mesh's slice (its parity over two
+    # ranks: tests/test_torch_expert_parallel.py); off a mesh the experts stay whole
+    assert expert.shard_moe_params(p, None) is p
+    assert {k for k, v in flatten_params(expert.expert_parallel_specs())
+            if v is not None} == {"w1", "b1", "w2", "b2"}
     got = expert.moe_ffn_init(torch.Generator().manual_seed(0), 12, 20, 4, device="cpu")
     assert {k: tuple(np.shape(v)) for k, v in flatten_params(got)} == {
         k: tuple(np.shape(v)) for k, v in flatten_params(jp)}

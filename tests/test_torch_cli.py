@@ -136,8 +136,9 @@ def test_cli_track_jsonl_lifecycle(tmp_path):
 def test_cli_refuses_unknown_baseline_and_scale_out(tmp_path):
     with pytest.raises(SystemExit):
         run.main(["--model", "nope"])
-    for flags in (["--distributed", "true"], ["--data-parallel", "2"],
-                  ["--model-parallel", "2"], ["--context-parallel", "ring"],
+    # --distributed, --data-parallel and --model-parallel run since the
+    # mesh's slice (the mesh cases below); the model-axis routes still wait
+    for flags in (["--context-parallel", "ring"],
                   ["--pipeline-microbatches", "2"], ["--edge-partition", "true"]):
         with pytest.raises(NotImplementedError, match="scale-out slice"):
             run.main([*flags, "--synthetic", "8", "--device", "cpu"])
@@ -257,3 +258,35 @@ def test_same_argv_same_splits_from_files(monkeypatch, tmp_path):
     with pytest.raises(SystemExit, match="permutation"):
         run.make_split(run.build_parser().parse_args(
             [*argv[:-1], bad]), call[0], 1, 0.25)
+
+
+def test_cli_data_parallel_over_two_gloo_ranks(tmp_path):
+    """`run.main` with --data-parallel 2 on two gloo ranks (the group
+    started by the launcher, so --distributed true finds it up): both
+    ranks train, rank 0 alone writes the `_last` state and --out-json,
+    and the summary is the one-rank run's. The
+    two runs differ only in the order of the gradient sums (DP averages
+    over the ranks), so the metrics are held to 1e-6 (percent)."""
+    from raindrop_tpu_torch.parallel.launch import run_ranks
+    from tests import torch_mesh_workers as workers
+
+    argv = ["--dataset", "P19", "--synthetic", "48", "--max-len", "8",
+            "--batch-size", "8", "--epochs", "1", "--n-splits", "1", "--device", "cpu"]
+    one = _run(tmp_path, out="one.json")
+    out = str(tmp_path / "dp.json")
+    ckpt = str(tmp_path / "dp_ckpt")
+    rcs = run_ranks(workers.cli, 2, [*argv, "--distributed", "true", "--data-parallel",
+                                     "2", "--checkpoint-dir", ckpt, "--out-json", out])
+    assert rcs == [0, 0]
+    with open(out) as f:
+        dp = json.load(f)
+    for name, s in one["missing_0.0"].items():
+        np.testing.assert_allclose(dp["missing_0.0"][name]["mean"], s["mean"],
+                                   rtol=0, atol=1e-6, err_msg=name)
+    # rank 0 wrote the run's state; a best epoch (a val AUROC above 0)
+    # would have left one shard file a rank beside it
+    files = sorted(os.listdir(ckpt))
+    assert files[-2:] == ["raindrop_P19_s1_r0_last.meta.json",
+                          "raindrop_P19_s1_r0_last.npz"]
+    assert files[:-2] in ([], ["raindrop_P19_s1_r0.shard0-of2.npz",
+                               "raindrop_P19_s1_r0.shard1-of2.npz"])

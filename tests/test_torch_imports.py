@@ -72,6 +72,14 @@ def test_the_module_list_covers_the_training_slice():
                     "raindrop_tpu_torch.nn.losses"}
 
 
+def test_the_module_list_covers_the_mesh_slice():
+    assert set(_port_modules()) >= {
+        "raindrop_tpu_torch.parallel", "raindrop_tpu_torch.parallel.mesh",
+        "raindrop_tpu_torch.parallel.tensor", "raindrop_tpu_torch.parallel.multihost",
+        "raindrop_tpu_torch.parallel.elastic", "raindrop_tpu_torch.parallel.launch",
+        "raindrop_tpu_torch.parallel.expert"}
+
+
 def test_every_module_imports_with_jax_blocked():
     # pandas too: the card's machine has none (data/preprocess.py reads the
     # raw text with the csv module)

@@ -1139,3 +1139,55 @@ def test_a_baseline_step_repeats_bit_for_bit(gen, name):
     (l0, p0), (l1, p1) = runs
     assert torch.isfinite(l0) and torch.equal(l0, l1)
     assert len(p0) == len(p1) and all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("T,d,nhead", [(215, 160, 2), (65, 340, 2), (1024, 84, 2)])
+def test_packed_pair_at_a_shard_origin_is_the_full_launch(gen, T, d, nhead, cd):
+    """A batch shard at (b0, 0, H) and one head at (b0, h, H): o, lse,
+    dq, dk, dv bit-equal to those rows and heads of the full launch, and
+    the shard's launch against its plain version at its origin."""
+    od = fa.operand_dtype(cd)
+    B, hd = 6, d // nhead
+    q, k, v, g = (torch.randn(B, T, d, generator=gen, device="cuda") for _ in range(4))
+    lengths = _lengths(gen, B, T)
+    o, lse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.2, nhead, od)
+    grads = fa._packed_bwd_cuda(q, k, v, lengths, SEED, 0.2, nhead, od, o, lse, g)
+    for b0, n, h in ((2, 3, None), (1, 4, 1), (5, 1, 0)):
+        rows = slice(b0, b0 + n)
+        cols = slice(None) if h is None else slice(h * hd, (h + 1) * hd)
+        nh, origin = (nhead, (b0, 0, nhead)) if h is None else (1, (b0, h, nhead))
+        args = [x[rows][..., cols].contiguous() for x in (q, k, v)]
+        o_s, lse_s = fa._packed_fwd_cuda(*args, lengths[rows], SEED, 0.2, nh, od,
+                                         origin=origin)
+        assert torch.equal(o_s, o[rows][..., cols])
+        assert torch.equal(lse_s, lse[rows][:, slice(None) if h is None else slice(h, h + 1)])
+        g_s = fa._packed_bwd_cuda(*args, lengths[rows], SEED, 0.2, nh, od, o_s, lse_s,
+                                  g[rows][..., cols].contiguous(), origin=origin)
+        for got, want in zip(g_s, grads):
+            assert torch.equal(got, want[rows][..., cols])
+        want_o, _ = fa._packed_fwd_plain(*args, lengths[rows], nh, od, SEED, 0.2, origin)
+        assert _sample_err(o_s, want_o, lengths[rows]) < SAMPLE_TOL[cd]
+    with pytest.raises(ValueError, match="origin"):
+        fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.2, nhead, od, origin=(65535, 0, nhead))
+
+
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+def test_fused_layer_at_a_shard_origin_is_the_full_launch(gen, cd):
+    """Rows b0.. of the fused layer at (b0, 0, H): out, attn, lse and dx
+    bit-equal to the full launch's rows."""
+    od = fa.operand_dtype(cd)
+    B, T, d, ffn, H = 5, 600, 84, 136, 2
+    ws = fe._flatten(_layer_init(gen, d, ffn, device="cuda"))
+    x, g = (torch.randn(B, T, d, generator=gen, device="cuda") for _ in range(2))
+    lengths = _lengths(gen, B, T)
+    out, attn, lse = fe._fused_fwd_cuda(ws, x, lengths, SEED, 0.2, H, od)
+    dx, _ = fe._fused_bwd_cuda(ws, x, lengths, SEED, 0.2, H, od, attn, lse, g)
+    rows = slice(2, 5)
+    o_s, a_s, l_s = fe._fused_fwd_cuda(ws, x[rows], lengths[rows], SEED, 0.2, H, od,
+                                       origin=(2, 0, H))
+    assert torch.equal(o_s, out[rows]) and torch.equal(a_s, attn[rows])
+    assert torch.equal(l_s, lse[rows])
+    dx_s, _ = fe._fused_bwd_cuda(ws, x[rows], lengths[rows], SEED, 0.2, H, od, a_s, l_s,
+                                 g[rows], origin=(2, 0, H))
+    assert torch.equal(dx_s, dx[rows])
