@@ -112,6 +112,18 @@ order with that checkout's own code:
               as head 0); chip_smoke.two_rank_errors of each run against
               the one-rank steps: the readings TWO_RANK_TOL and
               TWO_RANK_BF16_TOL are set from;
+  route_faults  chip_smoke.scale_out_phase's runs on two gloo ranks, sound
+              and with a fault planted in each rank's process at run time:
+              "kv_grad_not_summed" (SP's key/value gather with gather's
+              backward: each rank keeps only its own queries' share),
+              "partial_grads_not_summed" (the trainer leaves the partial
+              leaves' gradients unsummed over the model axis: SP's and
+              ring's in_proj, the pipeline's layers), "ring_grad_dropped"
+              (the ring's rotation passes no gradient back) and
+              "edge_input_grad_not_summed" (edge partitioning's node
+              features enter without copy_to); chip_smoke.step_errors of
+              each against the sound references: the readings the routes'
+              limits are set from;
   ptxas       compile every unit of the five kernel libraries with
               `-Xptxas -v` (all nvcc processes together): registers, stack
               frame and spill bytes of each kernel, the spilling ones
@@ -979,6 +991,69 @@ def _fault_worker(rank, root, fault, device, seed, batch):
     return cs._two_rank_steps(device, seed, batch, runs)
 
 
+ROUTE_FAULTS = {"sound": None,
+                "kv_grad_not_summed": ("a sp",),
+                "partial_grads_not_summed": ("a ring", "d pipeline"),
+                "ring_grad_dropped": ("a ring",),
+                "edge_input_grad_not_summed": ("e edge partition",)}
+
+
+def _plant_route(fault):
+    """Plant a route fault in this process's modules (route_faults)."""
+    import torch
+    import raindrop_tpu_torch.parallel.tensor as tp
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    if fault == "kv_grad_not_summed":
+        class NoSum(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, local, rank, n, group, dim):
+                out = tp._GatherScatter.forward(ctx, local, rank, n, group, dim)
+                ctx.args = (rank, n, dim)
+                return out
+
+            @staticmethod
+            def backward(ctx, g):
+                rank, n, dim = ctx.args
+                size = g.shape[dim] // n
+                return g.narrow(dim, rank * size, size).contiguous(), None, None, None, None
+
+        tp.gather_scatter = lambda local, rank, n, group, dim: (
+            local if group is None else NoSum.apply(local, rank, n, group, dim))
+    elif fault == "partial_grads_not_summed":
+        Trainer._sum_partial_grads = lambda self: None
+    elif fault == "ring_grad_dropped":
+        tp._PPermute.backward = staticmethod(lambda ctx, g: (torch.zeros_like(g), None, None))
+    elif fault == "edge_input_grad_not_summed":
+        tp.copy_to = lambda x, group: x
+    elif fault != "sound":
+        raise ValueError(fault)
+
+
+def _route_fault_worker(rank, root, fault, device, seed, batch, refs):
+    cs = _load_smoke(root)
+    _plant_route(fault)
+    return cs._scale_out_worker(rank, device, seed, batch, refs, ROUTE_FAULTS[fault])
+
+
+def task_route_faults(root, cs):
+    import torch
+    from raindrop_tpu_torch.parallel.launch import run_ranks
+
+    refs = cs.scale_out_reference("cuda", 0, 128)
+    torch.cuda.empty_cache()
+    out = {}
+    for fault, keys in ROUTE_FAULTS.items():
+        t0 = time.perf_counter()
+        ranks = run_ranks(_route_fault_worker, 2, root, fault, "cuda", 0, 128, refs,
+                          backend="gloo", timeout_s=900, threads=4)
+        errors = {k: v["errors"] for k, v in ranks[0].items() if "errors" in v}
+        for name, e in errors.items():
+            print(f"[ab] {root}: route fault {fault}, {name}: {json.dumps(e)}", flush=True)
+        out[fault] = {"errors": errors, "seconds": time.perf_counter() - t0}
+    return out
+
+
 def task_mesh_faults(root, cs):
     import torch
     from raindrop_tpu_torch.parallel.launch import run_ranks
@@ -1006,7 +1081,7 @@ TASKS = {"build": task_build, "one_unit": task_one_unit, "kernels": task_kernels
          "long": task_long, "fused_step": task_fused_step,
          "bits": task_bits, "sample_err": task_sample_err, "ptxas": task_ptxas,
          "graph": task_graph, "graph_host": task_graph_host, "delta": task_delta,
-         "mesh_faults": task_mesh_faults}
+         "mesh_faults": task_mesh_faults, "route_faults": task_route_faults}
 
 
 def worker(root, tasks):

@@ -234,7 +234,9 @@ check does not hold:
      backward launches = 2 x steps, all on the tensor-core route; the first
      step's loss and gradient norm against the dense path at dropout 0 on
      DENSE_ROWS (16) samples; step ms, samples/s and the idle share;
- 20. run_splits, 2 splits of 1 epoch, for the summary's shape;
+ 20. run_splits, 2 splits of 1 epoch, for the summary's shape, at PAM's own
+     window (600 steps; a cut: at 2048 steps its checkpoints took most of a
+     minute);
  21. flash_mha past hd 128 as phase 16 does it at T=2048: PAM-sw's head
      (hd 170, d_inp * (d_ob + d_pe) = 340 over 2 heads) and hd 360, in
      bf16 on the two-warpgroup tensor-core route ("tc_wide", padded to 176
@@ -256,10 +258,10 @@ check does not hold:
      path and the falling-loss check at FIT_LR_SW on the first batch's
      first DENSE_ROWS rows, as past 1024 steps always), through flash_mha
      forward and backward, every launch on "tc_wide";
- 24. phase 19 on that configuration, 2 epochs with checkpoints and a third
-     resumed, bit-equal to the uninterrupted 3-epoch run, the launch
-     counts (all on "tc_wide"), the first step against the dense path,
-     step ms, samples/s and the idle share;
+ 24. phase 19 on that configuration, 1 epoch with checkpoints and a second
+     resumed, bit-equal to the uninterrupted 2-epoch run (a cut from 2 + 1:
+     the script's time), the launch counts (all on "tc_wide"), the first
+     step against the dense path, step ms, samples/s and the idle share;
  25. the device mesh (shard_origin_phase): rows 1-2 at P12 (bf16
      and f32) and rows 3-4 at PAM (bf16), dropout 0.2, launched on a batch
      shard at its origin (b0, 0, H) and on one head at (b0, h, H): every
@@ -270,7 +272,12 @@ check does not hold:
      Trainer(mesh=...), bit-equal to the Trainer without a mesh (losses,
      every parameter), every launch on the tensor cores (this slice's
      launch counts), step ms with and without the mesh in turns; a
-     sharded checkpoint written and read back;
+     sharded checkpoint written and read back; then the scale-out routes
+     on that mesh (route_one_rank_runs): sequence-parallel and ring
+     attention and edge partitioning at P12, 3 steps at B=128, dropout 0,
+     against the one-device Trainer on the same rung (the dense rung for
+     SP and ring, the packed pair with f32 operands for edge
+     partitioning), loss, logits and parameters within 1e-4;
  27. two_rank_phase: two gloo ranks sharing the card (NCCL refuses two
      ranks on one GPU; gloo takes all_reduce and broadcast on CUDA
      tensors, all the port uses): P12 DP 2x1 and TP 1x2 (one head a rank,
@@ -281,6 +288,22 @@ check does not hold:
      route), its first step's loss, logits and gradient at
      TWO_RANK_BF16_TOL; run_elastic with a fault at epoch 1 bit-equal to
      the uninterrupted run;
+ 27a. scale_out_phase: the scale-out routes on two gloo ranks sharing the
+     card, one group, full model width: (a) SP 1x2 and ring 1x2 at PAM
+     (T=600, hd 42), 3 steps at B=128, dropout 0, against the one-rank
+     dense step at the JAX package's mesh tolerances (loss rtol 2e-4;
+     logits and parameters rtol 1e-3, atol 1e-4) and the first step's
+     gradient at TWO_RANK_TOL; (b) at dropout 0.2 SP 1x2 against ring 1x2
+     and against SP on make_mesh(1, 1), the same limits; (c) PAM at
+     max_len 2048 through ring 1x2 against SP 1x2, one step and a predict
+     at B=32 (a cut: the 128-row scores of a 2048-step window are 4 GB a
+     tensor), dropout 0.2; (d) the pipeline 1x2 at P12, 2 microbatches,
+     against the one-rank dense step, then at dropout 0.2 finite with a
+     falling loss on a fixed batch; (e) edge partitioning 1x2 at P12
+     (1296 edges) against the one-rank packed step in bf16, the first
+     step at TWO_RANK_BF16_TOL, flash_mha_packed launched forward and
+     backward on every rank, all on the tensor cores; every error and
+     step ms printed, the ranks bit-equal;
  28. torchrun_cli_phase: the CLI through torchrun (one process, NCCL,
      --distributed true --data-parallel 1), P12 for 1 epoch from dataset
      files written from --seed.
@@ -310,9 +333,10 @@ flash_mha's, are the tensor-core ones; rows 1 and 2 also carry the
 baseline families' launches and the errors at their head dims, and rows
 1-3 the launches of phases 14h and 14i under "import_launches", rows 1-4
 those of phase 26 under "mesh_launches", rows 1-2 the TP run's of phase
-27 a rank under "tp_launches_a_rank" and the bf16 TP run's tensor-core
-launches a rank under "tp_bf16_tc_launches_a_rank"), the last line the
-result. `--out PATH` also
+27 a rank under "tp_launches_a_rank", the bf16 TP run's tensor-core
+launches a rank under "tp_bf16_tc_launches_a_rank" and the edge
+partitioning run's of phase 27a under "edge_partition_tc_launches_a_rank"),
+the last line the result. `--out PATH` also
 writes every number to PATH as JSON.
 """
 
@@ -872,14 +896,17 @@ def sass_phase():
                                                       if not f.startswith("packed")]
             pattern = re.compile(r"Function : \S*?(" + "|".join(alts) + ")")
             counts, fam = {}, None
+            # the regular expressions only on the lines that can match them
+            # (a dump holds millions of lines)
             for line in out.splitlines():
-                m = pattern.search(line)
-                if m:
-                    fam = counts.setdefault(m.group(1), {"functions": 0, "HGMMA": 0, "HMMA": 0})
-                    fam["functions"] += 1
-                elif fam is not None and "Function : " in line:
+                if "Function : " in line:
+                    m = pattern.search(line)
                     fam = None
-                elif fam is not None:
+                    if m:
+                        fam = counts.setdefault(m.group(1),
+                                                {"functions": 0, "HGMMA": 0, "HMMA": 0})
+                        fam["functions"] += 1
+                elif fam is not None and "MMA" in line:
                     for op in ("HGMMA", "HMMA"):
                         if re.search(rf"\b{op}\.", line):
                             fam[op] += 1
@@ -2691,15 +2718,17 @@ def protocol_phase(wrappers, device="cuda", seed=0, batch=128, n=320, n_batches=
 
 
 def run_splits_phase(device="cuda", seed=0, batch=128, n=320, n_batches=2):
-    """run_splits on the 2048 configuration: 2 splits of 1 epoch, for the
-    summary's shape."""
+    """run_splits, 2 splits of 1 epoch, for the summary's shape, at PAM's
+    own window (600 steps: the 2048-step window's 7 GB checkpoint files,
+    two a split, took most of a minute and more; protocol_phase trains and
+    checkpoints that window)."""
     import tempfile
 
     from raindrop_tpu_torch.config import TrainConfig, dataset_config
     from raindrop_tpu_torch.data.datasets import synthetic_split
     from raindrop_tpu_torch.train.trainer import run_splits
 
-    cfg = dataset_config("PAM", **LONG)
+    cfg = dataset_config("PAM")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         tcfg = TrainConfig(dataset="PAM", num_epochs=1, learning_rate=1e-4,
@@ -4098,6 +4127,8 @@ def _mesh_run(cfg, tcfg, params, data, idx, seeds, device, mesh=None, first=Fals
     parts = (slice(0, 1), slice(1, None)) if first else (slice(None),)
     losses, took, out = [], 0.0, None
     for i, part in enumerate(parts):
+        if not seeds[part]:     # one step: no steps after the first
+            continue
         sync()
         t0 = time.perf_counter()
         got, logits = tr.train_epoch(data, idx[part], seeds[part])
@@ -4111,9 +4142,11 @@ def _mesh_run(cfg, tcfg, params, data, idx, seeds, device, mesh=None, first=Fals
     return torch.cat(losses), tr, took * 1e3 / len(seeds), out
 
 
-def _mesh_inputs(dataset, device, seed, batch, overrides=None, n_batches=MESH_STEPS):
+def _mesh_inputs(dataset, device, seed, batch, overrides=None, n_batches=MESH_STEPS,
+                 pipeline=0):
     """(cfg, tcfg, params, split on the device, idx [steps, batch], seeds)
-    at full width, from `seed`."""
+    at full width, from `seed`; `pipeline` > 0 draws the GPipe route's
+    seeds of that many microbatches too."""
     import torch
     from raindrop_tpu_torch.config import dataset_config
     from raindrop_tpu_torch.models.raindrop import raindrop_init
@@ -4127,7 +4160,8 @@ def _mesh_inputs(dataset, device, seed, batch, overrides=None, n_batches=MESH_ST
     idx = torch.from_numpy(np.stack([rng.permutation(2 * batch)[:batch]
                                      for _ in range(n_batches)]))
     gen = torch.Generator().manual_seed(seed + 7)
-    seeds = [DropoutSeeds.draw(gen, cfg.nlayers) for _ in range(n_batches)]
+    seeds = [DropoutSeeds.draw(gen, cfg.nlayers, pipeline=pipeline)
+             for _ in range(n_batches)]
     return cfg, tcfg, params, data, idx, seeds
 
 
@@ -4142,7 +4176,8 @@ def mesh_phase(wrappers, device="cuda", seed=0, batch=128):
     slice's path; all on the tensor cores). The step ms with and without
     the mesh are taken in turns, MESH_REPEATS + 1 of each after a warm-up
     run. Then the P12 run's parameters through save_sharded_checkpoint and
-    back, bit-equal. Returns ({dataset: (forward counts, backward
+    back, bit-equal; then the scale-out routes on the same mesh
+    (route_one_rank_runs). Returns ({dataset: (forward counts, backward
     counts)}, details)."""
     import torch
     import torch.distributed as dist
@@ -4204,6 +4239,7 @@ def mesh_phase(wrappers, device="cuda", seed=0, batch=128):
             torch.cuda.empty_cache()
         check_tc("mesh P12", *counts["P12"])
         check_fused_tc("mesh PAM", *counts["PAM"])
+        details["routes"] = route_one_rank_runs(mesh, device, seed, batch)
     finally:
         dist.destroy_process_group()
     print(f"[mesh] NCCL world size 1, make_mesh(1, 1): P12 and PAM {MESH_STEPS} steps "
@@ -4492,6 +4528,415 @@ def two_rank_phase(device="cuda", seed=0, batch=128):
         # a best epoch writes both ranks' shards; a split whose val AUROC
         # never rises above 0 writes none
         print("[two ranks] no epoch improved the val AUROC: no shard file", flush=True)
+    return details
+
+
+# ------------------------------------------------------- the model-axis routes
+# The routes' limits. World size 1 (make_mesh(1, 1), route_one_rank_runs):
+# loss, the first step's logits and the parameters after MESH_STEPS steps
+# within ROUTE_ONE_RANK_TOL of the one-device Trainer on the same rung. Two
+# ranks (scale_out_phase): the JAX package's mesh tolerances
+# (tests/test_scale_out_routes.py: loss rtol 2e-4; logits and parameters
+# rtol 1e-3, atol 1e-4). The step's gradient (Adam's first moment after the
+# first step) is held by each leaf's relative norm |mu - mu_ref| / |mu_ref|
+# at TWO_RANK_TOL["grad"]. Two allowances, both from Adam's normalisation,
+# which turns a gradient's rounding noise into whole steps of lr: the
+# attention's key bias (the middle third of in_proj_b, whose true
+# gradient is zero) is held to 3 * lr; and at most ROUTE_FLIP_FRAC of a
+# leaf's elements may pass the parameter limit, each within 2 * lr a step
+# (an element whose gradient the two runs round to opposite signs). The
+# readings they rest on, on an H100: edge partitioning at world size 1
+# against the dense propagation, loss and logits within 1.2e-7, 7 parameter
+# elements over 1e-4 (at most 8.1e-6 of a leaf, the largest 2.198e-4), the
+# gradient's largest element 2.4e-3 of its leaf's largest, its relative
+# norm 7.5e-4; on two ranks (chip_ab.py's route_faults task) the sound runs'
+# relative norms at most 3.3e-4 (elements up to 1.8e-3, parameters past the
+# limit at most 5.4e-6 of a leaf), and the planted faults' (a key/value
+# gradient not summed, the partial leaves not summed, the ring's rotation
+# passing no gradient, edge partitioning's input gradient not summed)
+# 0.31 to 1.0.
+ROUTE_ONE_RANK_TOL = 1e-4
+ROUTE_TOL = {"loss_rtol": 2e-4, "rtol": 1e-3, "atol": 1e-4}
+ROUTE_FLIP_FRAC = 1e-4
+ROUTE_STEPS_LR = 1e-4
+CP_LONG_BATCH = 32      # the 2048-step window's batch (a cut: see scale_out_phase)
+
+
+def _route_result(losses, tr, ms, first):
+    """A _mesh_run's result as numpy: losses, the live parameters (whole on
+    every rank under a route; a dead one never changes), the first step's
+    logits and Adam's first moment, ms a step."""
+    return {"losses": np.asarray(losses.tolist(), np.float64),
+            "params": {p: t.detach().float().cpu().numpy() for p, t in tr.live},
+            "first": first, "step_ms": ms}
+
+
+def step_errors(got, ref, lr=ROUTE_STEPS_LR):
+    """The largest errors of a run against its reference (_route_result's
+    dicts): the losses (absolute, and relative to |loss|), the first step's
+    logits and the parameters after the steps (absolute, and the ratio to
+    atol + rtol |ref| of ROUTE_TOL), the key bias apart (absolute), and the
+    first step's gradient: the largest |mu - mu_ref| of a leaf over that
+    leaf's largest |mu_ref|. Nothing is asserted here."""
+    tol = ROUTE_TOL
+
+    def ratio(a, b):
+        return float((np.abs(a - b) / (tol["atol"] + tol["rtol"] * np.abs(b))).max())
+
+    d_loss = np.abs(got["losses"] - ref["losses"])
+    out = {"loss_err": float(d_loss.max()),
+           "loss_rel_err": float((d_loss / np.abs(ref["losses"])).max()),
+           "first_loss_err": float(d_loss[0])}
+    lg, lr_ = got["first"]["logits"], ref["first"]["logits"]
+    out["logit_err"] = float(np.abs(lg - lr_).max())
+    out["logit_ratio"] = ratio(lg, lr_)
+    p_err, p_ratio, key_err = 0.0, 0.0, 0.0
+    over = {"abs": [0, 0.0], "ratio": [0, 0.0]}     # elements past each limit
+    for path, want in ref["params"].items():
+        have = got["params"][path]
+        if path.endswith("in_proj_b"):
+            d = want.shape[0] // 3
+            key_err = max(key_err, float(np.abs(have[d:2 * d] - want[d:2 * d]).max()))
+            have, want = np.delete(have, np.s_[d:2 * d]), np.delete(want, np.s_[d:2 * d])
+        diff = np.abs(have - want)
+        p_err = max(p_err, float(diff.max()))
+        p_ratio = max(p_ratio, ratio(have, want))
+        for kind, past in (("abs", diff > ROUTE_ONE_RANK_TOL),
+                           ("ratio", diff > tol["atol"] + tol["rtol"] * np.abs(want))):
+            n = int(past.sum())
+            over[kind][0] += n
+            over[kind][1] = max(over[kind][1], n / diff.size)
+    steps = len(got["losses"])
+    out.update(param_err=p_err, param_ratio=p_ratio, key_bias_err=key_err,
+               key_bias_limit=3 * lr, flip_limit=2 * lr * steps,
+               params_over=over["abs"][0], params_over_frac=over["abs"][1],
+               params_over_ratio=over["ratio"][0],
+               params_over_ratio_frac=over["ratio"][1])
+    grad, leaf, fro, fro_leaf = 0.0, None, 0.0, None
+    for path, m in ref["first"]["mu"].items():
+        d = got["first"]["mu"][path] - m
+        rel = float(np.abs(d).max()) / max(float(np.abs(m).max()), 1e-30)
+        if rel > grad:
+            grad, leaf = rel, path
+        rf = float(np.linalg.norm(d)) / max(float(np.linalg.norm(m)), 1e-30)
+        if rf > fro:
+            fro, fro_leaf = rf, path
+    out.update(grad_rel_err=grad, grad_worst_leaf=leaf, grad_fro_err=fro,
+               grad_fro_leaf=fro_leaf)
+    return out
+
+
+def hold_route(name, e, how):
+    """Raise unless the errors (step_errors) are within the limits: how =
+    "one rank" (ROUTE_ONE_RANK_TOL, world size 1), "mesh" (ROUTE_TOL) or
+    "bf16 first step" (TWO_RANK_BF16_TOL on the first step's loss and
+    logits, the losses of every step at ROUTE_TOL's loss rtol, the
+    parameters at ROUTE_TOL); the gradient's relative norm, the key bias and
+    the elements past the parameter limit as the comment above
+    ROUTE_ONE_RANK_TOL says."""
+    grad = ("grad", e["grad_fro_err"], TWO_RANK_TOL["grad"])
+    key = ("key bias", e["key_bias_err"], e["key_bias_limit"])
+    flips = ("parameters past the limit, within 2 lr a step", e["param_err"],
+             e["flip_limit"])
+    if how == "one rank":
+        checks = (("loss", e["loss_err"], ROUTE_ONE_RANK_TOL),
+                  ("logits", e["logit_err"], ROUTE_ONE_RANK_TOL),
+                  ("parameters past 1e-4, share of a leaf", e["params_over_frac"],
+                   ROUTE_FLIP_FRAC), flips, key, grad)
+    else:
+        params = (("parameters past the limit, share of a leaf",
+                   e["params_over_ratio_frac"], ROUTE_FLIP_FRAC), flips, key, grad)
+        if how == "mesh":
+            checks = (("loss", e["loss_rel_err"], ROUTE_TOL["loss_rtol"]),
+                      ("logits", e["logit_ratio"], 1.0), *params)
+        else:
+            tol = TWO_RANK_BF16_TOL
+            checks = (("first loss", e["first_loss_err"], tol["loss"]),
+                      ("logits", e["logit_err"], tol["logits"]),
+                      ("loss", e["loss_rel_err"], ROUTE_TOL["loss_rtol"]), *params)
+    for what, err, limit in checks:
+        if not err <= limit:
+            raise AssertionError(f"route {name}: {what} error {err:.3e} over "
+                                 f"{limit:.3e}: {e}")
+
+
+def _route_line(tag, name, e, ms=None):
+    print(f"[{tag}] {name}: loss error {e['loss_err']:.3e} (relative "
+          f"{e['loss_rel_err']:.3e}, first step {e['first_loss_err']:.3e}), first "
+          f"logits {e['logit_err']:.3e} (ratio to atol + rtol |ref| "
+          f"{e['logit_ratio']:.3f}), parameters {e['param_err']:.3e} (ratio "
+          f"{e['param_ratio']:.3f}; {e['params_over']} elements over "
+          f"{ROUTE_ONE_RANK_TOL}, at most {e['params_over_frac']:.2e} of a leaf; "
+          f"{e['params_over_ratio']} past atol + rtol |ref|, at most "
+          f"{e['params_over_ratio_frac']:.2e} of a leaf), key "
+          f"bias {e['key_bias_err']:.3e}, gradient {e['grad_rel_err']:.3e} of the "
+          f"leaf's largest ({e['grad_worst_leaf']}), its relative norm "
+          f"{e['grad_fro_err']:.3e} ({e['grad_fro_leaf']})"
+          + ("" if ms is None else f"; step ms {ms}"), flush=True)
+
+
+# (name, TrainConfig route, configuration overrides) at P12, world size 1:
+# sequence-parallel and ring attention held to the dense rung, edge
+# partitioning to the packed pair's rung (f32 operands, so 1e-4 can hold)
+ROUTES_ONE_RANK = (
+    ("sp", {"context_parallel": "sp"}, {"dropout": 0.0, "attention_backend": "dense"}),
+    ("ring", {"context_parallel": "ring"}, {"dropout": 0.0, "attention_backend": "dense"}),
+    ("edge partition", {"edge_partition": True},
+     {"dropout": 0.0, "attention_score_dtype": "float32"}))
+
+
+def route_one_rank_runs(mesh, device="cuda", seed=0, batch=128):
+    """The routes on make_mesh(1, 1) (the caller's process group of one
+    rank): each of ROUTES_ONE_RANK at P12, MESH_STEPS steps at full width
+    (B=128, dropout 0) through Trainer(mesh=...) against the Trainer
+    without a mesh on the same rung, from the same parameters, batches and
+    seeds, held at ROUTE_ONE_RANK_TOL. Returns {name: errors and step ms}."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+    for name, route, overrides in ROUTES_ONE_RANK:
+        cfg, tcfg, params, data, idx, seeds = _mesh_inputs("P12", device, seed, batch,
+                                                           overrides)
+        ref = _route_result(*_mesh_run(cfg, tcfg, params, data, idx, seeds, device,
+                                       first=True))
+        got = _route_result(*_mesh_run(cfg, dataclasses.replace(tcfg, **route), params,
+                                       data, idx, seeds, device, mesh, first=True))
+        e = step_errors(got, ref)
+        _route_line("routes, world size 1", f"P12 {name}", e,
+                    f"{got['step_ms']:.3f} (without the route {ref['step_ms']:.3f})")
+        out[name] = {**e, "step_ms": got["step_ms"], "ref_step_ms": ref["step_ms"]}
+        del params, data, ref, got
+        torch.cuda.empty_cache()
+    for name, _, _ in ROUTES_ONE_RANK:
+        hold_route(name, out[name], "one rank")
+    return out
+
+
+def _digest(res):
+    """A hash of a run's losses, parameters and first moment: the ranks of
+    a route hold the same ones bit for bit."""
+    import hashlib
+
+    h = hashlib.sha1(res["losses"].tobytes())
+    for tree in (res["params"], res["first"]["mu"]):
+        for path in sorted(tree):
+            h.update(np.ascontiguousarray(tree[path]).tobytes())
+    return h.hexdigest()
+
+
+def _route_run(dataset, route, overrides, mesh, device, seed, batch, n_batches=MESH_STEPS,
+               lr=ROUTE_STEPS_LR, pipeline=0, fixed=False, predict=False):
+    """n_batches steps of a route (TrainConfig fields `route`) at full width
+    on `mesh` (None: the one-rank run without a mesh): a _route_result;
+    `fixed` repeats the first batch and its seeds (one objective), `predict`
+    adds the trained model's predict on `batch` rows of new requests."""
+    import dataclasses
+
+    cfg, tcfg, params, data, idx, seeds = _mesh_inputs(dataset, device, seed, batch,
+                                                       overrides, n_batches, pipeline)
+    if fixed:
+        idx, seeds = idx[:1].repeat(n_batches, 1), seeds[:1] * n_batches
+    tcfg = dataclasses.replace(tcfg, learning_rate=lr, **route)
+    losses, tr, ms, first = _mesh_run(cfg, tcfg, params, data, idx, seeds, device, mesh,
+                                      first=True)
+    out = _route_result(losses, tr, ms, first)
+    if predict:
+        P, times, static = make_requests(cfg, batch, seed + 5)
+        out["predict"] = tr.predict(None, P, times, static, batch_size=batch)
+    return out
+
+
+PAM_0 = {"dropout": 0.0}
+# the pipeline at dropout 0.2 on one batch and one set of masks at lr 1e-3,
+# as train_phase's fit: P12's loss there moves up and down over the first
+# steps (it fell from 0.703 to 0.693 over 5 steps, on an H100)
+PIPELINE_FIT_STEPS = 10
+P12_0 = {"dropout": 0.0, "attention_backend": "dense"}
+LONG_CP = {"max_len": 2048}
+
+
+def scale_out_reference(device="cuda", seed=0, batch=128):
+    """The one-rank runs scale_out_phase holds the two-rank ones to: PAM on
+    the dense rung at dropout 0 (for SP and ring), PAM through SP on
+    make_mesh(1, 1) at dropout 0.2 (a process group of one rank, NCCL), P12
+    on the dense rung at dropout 0 (the pipeline) and P12 on the packed
+    pair at dropout 0.2 (edge partitioning)."""
+    import torch
+    import torch.distributed as dist
+    from raindrop_tpu_torch.parallel.mesh import (
+        default_backend, free_port, initialize_distributed, make_mesh)
+
+    refs = {"PAM dense": _route_run("PAM", {}, {**PAM_0, "attention_backend": "dense"},
+                                    None, device, seed, batch),
+            "P12 dense": _route_run("P12", {}, P12_0, None, device, seed, batch),
+            "P12 packed": _route_run("P12", {}, {}, None, device, seed, batch)}
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                           backend=default_backend(device), timeout_s=300)
+    try:
+        refs["PAM sp one rank"] = _route_run("PAM", {"context_parallel": "sp"}, {},
+                                             make_mesh(1, 1), device, seed, batch)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _scale_out_worker(rank, device, seed, batch, refs, keys=None):
+    """One of two gloo ranks sharing the card, a 1 x 2 mesh: (a) SP and ring
+    at PAM, dropout 0, against the one-rank dense run; (b) SP and ring at
+    dropout 0.2, SP against ring and against SP on one rank; (c) PAM at
+    max_len 2048 through ring and SP, one step and a predict of
+    CP_LONG_BATCH rows at dropout 0.2, ring against SP; (d) the pipeline
+    at P12 (2 microbatches) at dropout 0 against the one-rank dense run,
+    then at dropout 0.2 PIPELINE_FIT_STEPS steps on one batch and one set
+    of masks at lr 1e-3; (e) edge partitioning at
+    P12 (the packed pair in bf16, dropout 0.2) against the one-rank run,
+    flash_mha_packed's launches counted. `keys`: only those runs (None:
+    all). Every comparison is made here (step_errors); the parent gets the
+    errors, the step ms and each run's digest."""
+    import torch
+    from raindrop_tpu_torch.ops.flash_attention import flash_mha_packed
+    from raindrop_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(1, 2)
+    out = {}
+
+    def want(key):
+        return keys is None or key in keys
+
+    def run(key, *args, **kw):
+        t0 = time.perf_counter()
+        res = _route_run(*args, mesh=mesh, device=device, seed=seed, **kw)
+        out[key] = {"digest": _digest(res), "step_ms": res["step_ms"],
+                    "losses": res["losses"].tolist(),
+                    "seconds": time.perf_counter() - t0}
+        return res
+
+    sp = {"context_parallel": "sp"}
+    ring = {"context_parallel": "ring"}
+    for name, route in (("sp", sp), ("ring", ring)):
+        if want(f"a {name}"):
+            res = run(f"a {name}", "PAM", route, PAM_0, batch=batch)
+            out[f"a {name}"]["errors"] = step_errors(res, refs["PAM dense"])
+    if want("b sp"):
+        got_sp = run("b sp", "PAM", sp, {}, batch=batch)
+        got_ring = run("b ring", "PAM", ring, {}, batch=batch)
+        out["b ring"]["errors"] = step_errors(got_ring, got_sp)
+        out["b sp"]["errors"] = step_errors(got_sp, refs["PAM sp one rank"])
+        del got_sp, got_ring
+        torch.cuda.empty_cache()
+    if want("c ring"):
+        long_sp = run("c sp", "PAM", sp, LONG_CP, batch=CP_LONG_BATCH, n_batches=1,
+                      predict=True)
+        long_ring = run("c ring", "PAM", ring, LONG_CP, batch=CP_LONG_BATCH,
+                        n_batches=1, predict=True)
+        out["c ring"]["errors"] = step_errors(long_ring, long_sp)
+        a, b = long_ring["predict"], long_sp["predict"]
+        out["c predict"] = {
+            "logit_err": float(np.abs(a - b).max()),
+            "logit_ratio": float((np.abs(a - b) / (ROUTE_TOL["atol"]
+                                                   + ROUTE_TOL["rtol"] * np.abs(b))).max()),
+            "finite": bool(np.isfinite(a).all() and np.isfinite(b).all())}
+        del long_sp, long_ring
+        torch.cuda.empty_cache()
+    if want("d pipeline"):
+        res = run("d pipeline", "P12", {"pipeline_microbatches": 2}, P12_0, batch=batch)
+        out["d pipeline"]["errors"] = step_errors(res, refs["P12 dense"])
+        run("d pipeline 0.2", "P12", {"pipeline_microbatches": 2}, {}, batch=batch,
+            n_batches=PIPELINE_FIT_STEPS, lr=1e-3, pipeline=2, fixed=True)
+    if want("e edge partition"):
+        reset_counts([flash_mha_packed])
+        res = run("e edge partition", "P12", {"edge_partition": True}, {}, batch=batch)
+        out["e edge partition"]["errors"] = step_errors(res, refs["P12 packed"])
+        out["e edge partition"]["launches"] = {
+            a: read_counts([flash_mha_packed], a) for a in ("launches", "bwd_launches")}
+    return out
+
+
+# (result key, what it is held to, how)
+SCALE_OUT_HELD = (("a sp", "the one-rank dense run", "mesh"),
+                  ("a ring", "the one-rank dense run", "mesh"),
+                  ("b sp", "SP on make_mesh(1, 1)", "mesh"),
+                  ("b ring", "SP 1x2", "mesh"),
+                  ("c ring", "SP 1x2", "mesh"),
+                  ("d pipeline", "the one-rank dense run", "mesh"),
+                  ("e edge partition", "the one-rank packed run", "bf16 first step"))
+
+
+def scale_out_phase(device="cuda", seed=0, batch=128):
+    """The model-axis routes on two gloo ranks sharing the card
+    (parallel/launch.run_ranks: NCCL refuses two ranks on one GPU; gloo
+    takes all_reduce and broadcast on CUDA tensors, all the routes use), in
+    one group, at full model width (_scale_out_worker's runs (a)-(e)): SP
+    1x2 and ring 1x2 at PAM (T=600, hd 42), MESH_STEPS steps at B=128,
+    dropout 0, against the one-rank dense step; at dropout 0.2 SP against
+    ring and against SP on one rank (the coordinate hash does not depend on
+    the sharding); PAM at max_len 2048 through ring against SP, one step
+    and a predict at B=CP_LONG_BATCH (32, not 128: a cut, the dense scores
+    of a 2048-step window take 4 GB a tensor at 128 rows), dropout 0.2; the
+    pipeline 1x2 at P12 (2 microbatches) against the one-rank dense step,
+    then at dropout 0.2 finite with a falling loss on a fixed batch; edge
+    partitioning 1x2 at P12 (1296 edges, 648 a rank) against the one-rank
+    packed step, flash_mha_packed launched forward and backward on every
+    rank, all on the tensor cores. Held at SCALE_OUT_HELD's limits
+    (hold_route); the ranks agree bit for bit. Returns the details."""
+    import torch
+    from raindrop_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    refs = scale_out_reference(device, seed, batch)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(_scale_out_worker, 2, device, seed, batch, refs, backend="gloo",
+                      timeout_s=900, threads=4)
+    took = time.perf_counter() - t0
+    details = {"reference_seconds": ref_s, "ranks_seconds": took,
+               "one_rank_step_ms": {k: v["step_ms"] for k, v in refs.items()}}
+    r0 = ranks[0]
+    for key, res in r0.items():
+        if key == "c predict":
+            continue
+        if any(r[key]["digest"] != res["digest"] for r in ranks[1:]):
+            raise AssertionError(f"route {key}: the ranks disagree")
+        if not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"route {key}: losses {res['losses']}")
+    for key, against, how in SCALE_OUT_HELD:
+        e = r0[key]["errors"]
+        _route_line("scale out", f"{key} against {against}", e,
+                    [r[key]["step_ms"] for r in ranks])
+    pred = r0["c predict"]
+    print(f"[scale out] c predict, PAM-2048 ring against SP on {CP_LONG_BATCH} rows: "
+          f"logit error {pred['logit_err']:.3e} (ratio {pred['logit_ratio']:.3f})",
+          flush=True)
+    pipe = r0["d pipeline 0.2"]["losses"]
+    print(f"[scale out] d pipeline at dropout 0.2, lr 1e-3, one batch and one set of "
+          f"masks: losses {pipe}; "
+          f"step ms {[r['d pipeline 0.2']['step_ms'] for r in ranks]}", flush=True)
+    edge = [r["e edge partition"]["launches"] for r in ranks]
+    print(f"[scale out] e edge partition: flash_mha_packed launches a rank {edge}",
+          flush=True)
+    print(f"[scale out] one-rank step ms {details['one_rank_step_ms']}; the references "
+          f"{ref_s:.1f} s, the two ranks {took:.1f} s "
+          f"({ {k: round(v['seconds'], 1) for k, v in r0.items() if 'seconds' in v} })",
+          flush=True)
+    for key, _, how in SCALE_OUT_HELD:
+        hold_route(key, r0[key]["errors"], how)
+    if not (pred["finite"] and pred["logit_ratio"] <= 1.0):
+        raise AssertionError(f"route c predict: {pred}")
+    if not pipe[-1] < pipe[0]:
+        raise AssertionError(f"route d pipeline at dropout 0.2: losses {pipe} do not fall")
+    for c in edge:
+        check_tc("edge partition", c["launches"], c["bwd_launches"])
+    details.update({k: v for k, v in r0.items()})
+    details["edge_launches"] = edge
+    del refs
+    torch.cuda.empty_cache()
     return details
 
 
@@ -4799,7 +5244,7 @@ def main(argv=None) -> int:
         # joined the script: the 7 GB checkpoint files take most of it)
         long_tf, long_tb, long_train = protocol_phase(wrappers, epochs=2, route="tc")
     torch.cuda.empty_cache()
-    with phase(phase_s, "run_splits PAM-2048"):
+    with phase(phase_s, "run_splits PAM"):
         splits = run_splits_phase()
     torch.cuda.empty_cache()
 
@@ -4829,8 +5274,12 @@ def main(argv=None) -> int:
     check_split_route("PAM-sw-2048 training", "tc_wide", sw_long_tf, sw_long_tb)
     torch.cuda.empty_cache()
     with phase(phase_s, "protocol PAM-sw-2048"):
+        # two epochs, the second resumed, as PAM-2048's (a cut: at three the
+        # whole script ran past 1080 s on a slower card host; the 7 GB
+        # checkpoint files take most of each epoch)
         sw_long_pf, sw_long_pb, sw_long_protocol = protocol_phase(
-            wrappers, overrides=sw_long, label="PAM-sw-2048", route="tc_wide")
+            wrappers, overrides=sw_long, label="PAM-sw-2048", epochs=2,
+            route="tc_wide")
     torch.cuda.empty_cache()
 
     # the mesh: rows 1-4 at shard origins, the NCCL world-size-1
@@ -4845,12 +5294,16 @@ def main(argv=None) -> int:
     with phase(phase_s, "two gloo ranks"):
         two_ranks = two_rank_phase()
     torch.cuda.empty_cache()
+    with phase(phase_s, "model-axis routes, two gloo ranks"):
+        scale_out = scale_out_phase()
+    torch.cuda.empty_cache()
     with phase(phase_s, "CLI torchrun"):
         torchrun_summary, torchrun_s = torchrun_cli_phase(args.seed)
     print(f"[mesh phases] shard origins {phase_s['shard origins']:.1f} s, mesh "
-          f"{phase_s['mesh NCCL world size 1']:.1f} s, two gloo ranks "
-          f"{phase_s['two gloo ranks']:.1f} s, CLI torchrun {phase_s['CLI torchrun']:.1f} s",
-          flush=True)
+          f"{phase_s['mesh NCCL world size 1']:.1f} s (of it the routes at world size 1), "
+          f"two gloo ranks {phase_s['two gloo ranks']:.1f} s, the routes on two gloo "
+          f"ranks {phase_s['model-axis routes, two gloo ranks']:.1f} s, CLI torchrun "
+          f"{phase_s['CLI torchrun']:.1f} s", flush=True)
 
     # the kernels' record at the main paths' shapes and operand dtype
     # (attention_score_dtype defaults to bfloat16; training runs the shipped
@@ -4909,6 +5362,8 @@ def main(argv=None) -> int:
          "mesh_launches": p12_mesh[0]["flash_mha_packed"],
          "tp_launches_a_rank": tp_runs["launches"],
          "tp_bf16_tc_launches_a_rank": two_ranks["1x2_bf16"]["tc_launches"],
+         "edge_partition_tc_launches_a_rank": [
+             c["launches"]["flash_mha_packed.tc"] for c in scale_out["edge_launches"]],
          "origin_sample_err": packed_origin_err},
         {**with_baselines(record(
             "flash_mha_packed_bwd", "raindrop_tpu_torch/csrc/flash_packed.cu",
@@ -4919,6 +5374,8 @@ def main(argv=None) -> int:
          "mesh_launches": p12_mesh[1]["flash_mha_packed"],
          "tp_launches_a_rank": tp_runs["bwd_launches"],
          "tp_bf16_tc_launches_a_rank": two_ranks["1x2_bf16"]["tc_bwd_launches"],
+         "edge_partition_tc_launches_a_rank": [
+             c["bwd_launches"]["flash_mha_packed.tc"] for c in scale_out["edge_launches"]],
          "origin_sample_err": packed_origin_err},
         {**record("fused_encoder_layer_fwd", "raindrop_tpu_torch/csrc/fused_encoder.cu",
                   "raindrop_tpu/ops/fused_encoder.py:131",
@@ -5101,6 +5558,7 @@ def main(argv=None) -> int:
                   "protocol": {"launches": sw_long_pf, "bwd_launches": sw_long_pb,
                                **sw_long_protocol}},
               "mesh": {"origins": origins, "mesh": mesh_runs, "two_ranks": two_ranks,
+                       "scale_out": scale_out,
                        "torchrun_cli": {"summary": torchrun_summary,
                                         "seconds": torchrun_s}},
               "phase_s": phase_s, "total_s": time.perf_counter() - t_start,

@@ -48,32 +48,39 @@ class ModelFns(NamedTuple):
     update_mask: Any = None
 
 
-def make_flagship(cfg: RaindropConfig, device="cuda", mesh=None) -> ModelFns:
+def make_flagship(cfg: RaindropConfig, device="cuda", mesh=None, *,
+                  context_parallel: str = "none", pipeline_parallel: int = 0,
+                  edge_partition: bool = False) -> ModelFns:
     """Raindrop (models/raindrop.py) in the adapters' form: the Trainer's
     and the InferenceServer's model when they are given no apply_fn. Its
     update mask is raindrop_param_mask's (the leaves the forward never
     reads stay dead); only the COO propagation branch with prop_dropout
-    reads per-sample seeds, and only the dense use_beta block the two of
-    its own. The sensor graph is sorted for the kernels here, not in the
-    first forward (warm_propagation). `mesh`: the forward runs this
-    rank's rows and part of the model (raindrop_apply's mesh)."""
+    reads per-sample seeds, only the dense use_beta block the two of its
+    own, and only the pipeline route its per-microbatch ones. The sensor
+    graph is sorted for the kernels here, not in the first forward
+    (warm_propagation). `mesh`: the forward runs this rank's rows and part
+    of the model (raindrop_apply's mesh); the routes are raindrop_apply's."""
     from raindrop_tpu_torch.models.raindrop import (
-        prop_branch, raindrop_apply, raindrop_init, raindrop_param_mask,
+        check_routes, prop_branch, raindrop_apply, raindrop_init, raindrop_param_mask,
         warm_propagation)
 
+    check_routes(context_parallel, pipeline_parallel, edge_partition, mesh)
     warm_propagation(cfg, device)
     drops = cfg.prop_dropout > 0.0
     branch = prop_branch(cfg, True, False)
     per_sample = drops and branch == "coo"
     beta = drops and branch == "dense" and cfg.use_beta
+    routes = dict(context_parallel=context_parallel, pipeline_parallel=pipeline_parallel,
+                  edge_partition=edge_partition)
 
     def draw_seeds(gen, rows):
-        return DropoutSeeds.draw(gen, cfg.nlayers, rows if per_sample else 0, beta)
+        return DropoutSeeds.draw(gen, cfg.nlayers, rows if per_sample else 0, beta,
+                                 pipeline_parallel)
 
     return ModelFns(
         lambda seed: raindrop_init(seed, cfg, device=device),
         lambda p, src, st, tm, ln, train, seeds: raindrop_apply(
-            p, cfg, src, st, tm, ln, train=train, seeds=seeds, mesh=mesh),
+            p, cfg, src, st, tm, ln, train=train, seeds=seeds, mesh=mesh, **routes),
         draw_seeds if cfg.dropout > 0.0 or drops else None,
         raindrop_param_mask(cfg))
 

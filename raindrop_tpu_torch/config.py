@@ -161,7 +161,12 @@ class TrainConfig:
     aux_loss_weight: float = 0.0
     diag_frozen_params: bool = False
     resplit_per_run: bool = False
-    # the scale-out routes over the mesh's model axis: not ported yet
+    # the scale-out routes of the flagship over the Trainer's mesh model
+    # axis (parallel/; each needs a mesh): context_parallel 'sp' (the keys
+    # and values gathered) or 'ring' (their blocks rotated) splits the
+    # temporal attention's T axis; pipeline_microbatches > 0 runs the
+    # encoder layers as GPipe stages (one layer a model rank) with that
+    # many microbatches; edge_partition splits the propagation's edges
     context_parallel: str = "none"
     pipeline_microbatches: int = 0
     edge_partition: bool = False
@@ -170,11 +175,6 @@ class TrainConfig:
     grad_microbatches: int = 1
 
     def __post_init__(self):
-        if (self.context_parallel != "none" or self.pipeline_microbatches > 0
-                or self.edge_partition):
-            raise NotImplementedError(
-                "context_parallel, pipeline_microbatches and edge_partition "
-                "come with slice 18, the scale-out slice of the model-axis routes")
         if self.input_pipeline not in ("resident", "streaming"):
             raise ValueError(
                 f"unknown input_pipeline {self.input_pipeline!r} "

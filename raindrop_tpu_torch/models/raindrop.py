@@ -53,9 +53,18 @@ encoder runs Megatron's split (nn/transformer.py) and each propagation
 layer's lin_value is column-parallel, its output gathered whole. The
 logits are the rank's rows.
 
-What the port does not run yet raises NotImplementedError naming the
-slice that brings it: the scale-out routes (context parallelism, the
-pipeline and edge partitioning).
+The scale-out routes (the JAX package's, over the mesh's model axis; each
+needs a mesh, world size 1 included): `context_parallel` 'sp' | 'ring'
+splits the temporal attention's T axis (parallel/sequence.py),
+`pipeline_parallel` > 0 runs the encoder layers as GPipe stages with that
+many microbatches (parallel/pipeline.py), `edge_partition` splits the
+propagation's edges (parallel/edge_partition.py: two layers of
+relu(lin_value) and the segment softmax over the rank's edges in f32,
+alpha the pre-softmax edge weights, the encoder on its rung; not with
+use_beta or with propagation dropout in training, which take the other
+branches). Under a route tensor parallelism's split is off: the
+parameters are whole on every rank and everything outside the route runs
+as on one device on the rank's rows.
 """
 
 from __future__ import annotations
@@ -79,7 +88,10 @@ from raindrop_tpu_torch.nn.transformer import (
 from raindrop_tpu_torch.ops.pe import time_positional_encoding
 from raindrop_tpu_torch.ops.sparse import spmm_segment_softmax, topology
 from raindrop_tpu_torch.parallel import tensor as tp
-from raindrop_tpu_torch.parallel.mesh import Shard
+from raindrop_tpu_torch.parallel.edge_partition import (
+    edge_shard, spmm_segment_softmax_sharded)
+from raindrop_tpu_torch.parallel.mesh import Shard, data_only
+from raindrop_tpu_torch.parallel.pipeline import pipeline_transformer_encoder
 from raindrop_tpu_torch.utils.dropout import DropoutSeeds, dropout
 
 
@@ -263,11 +275,21 @@ def warm_propagation(cfg: RaindropConfig, device) -> None:
         topology(*_complete_edges(cfg.d_inp, device), cfg.d_inp)
 
 
-def _refuse(scale_out: bool):
-    if scale_out:
-        raise NotImplementedError(
-            "context_parallel, pipeline_parallel and edge_partition come "
-            "with slice 18, the scale-out slice of the model-axis routes")
+def check_routes(context_parallel: str, pipeline_parallel: int,
+                 edge_partition: bool, mesh) -> bool:
+    """The JAX package's refusals of a combination of scale-out routes;
+    True when any route is on."""
+    if context_parallel not in ("none", "sp", "ring"):
+        raise ValueError(f"context_parallel must be 'none', 'sp' or 'ring', "
+                         f"got {context_parallel!r}")
+    if context_parallel != "none" and pipeline_parallel:
+        raise ValueError("context_parallel and pipeline_parallel both "
+                         "claim the temporal transformer; pick one")
+    route = context_parallel != "none" or bool(pipeline_parallel) or edge_partition
+    if route and mesh is None:
+        raise ValueError("scale-out routes need a mesh "
+                         "(parallel.make_mesh(n_data, n_model))")
+    return route
 
 
 def raindrop_apply(
@@ -290,8 +312,9 @@ def raindrop_apply(
     train=True needs `seeds` when the config has any dropout; `global_adj`
     [F, F] is a tensor on the parameters' device. On a `mesh` the inputs
     are this rank's rows of the global batch and `params` its part of the
-    tree (parallel/mesh.shard_params)."""
-    _refuse(context_parallel != "none" or bool(pipeline_parallel) or edge_partition)
+    tree (parallel/mesh.shard_params), or under a scale-out route the
+    whole tree."""
+    route = check_routes(context_parallel, pipeline_parallel, edge_partition, mesh)
     if train and seeds is None and (cfg.dropout > 0.0 or cfg.prop_dropout > 0.0):
         raise ValueError("train=True with dropout needs seeds=DropoutSeeds "
                          "(DropoutSeeds.draw(generator, cfg.nlayers))")
@@ -304,6 +327,10 @@ def raindrop_apply(
     observed = src[:, :, F_:2 * F_].to(dtype)             # [T, B, F]
     B = values.shape[1]
     shard = Shard.of(mesh, B)
+    if route:
+        # the route's model axis (of one rank at world size 1); the rest of
+        # the forward runs whole on every model rank, on the rank's rows
+        axis, shard = shard or Shard(0, B), data_only(shard)
     rows = None if shard is None else (shard.b0, shard.batch)
     if shard is not None and shard.n_model > 1:
         # propagation's lin_value column-parallel, its output gathered
@@ -329,8 +356,25 @@ def raindrop_apply(
     # pre-softmax alpha, which are the input edge weights again
     x_nodes = _to_node_features(h_b, F_, d_ob)             # [B, F, T*d_ob]
     branch = prop_branch(cfg, train, global_adj is not None)
+    if edge_partition and not cfg.use_beta and not (train and cfg.prop_dropout > 0.0):
+        branch = "edge_partition"
     p1, p2 = params["ob_propagation"], params["ob_propagation_layer2"]
-    if branch == "pallas":
+    if branch == "edge_partition":
+        # the sensor graph's edges split over the model axis: each rank's
+        # segment softmax and partial sums, combined by collectives
+        f32 = torch.float32
+        e_src, e_dst, edge_weights = _edge_list(F_, global_adj, dtype, src.device)
+        gamma = edge_weights[None].expand(B, -1).to(f32)
+        e_src, e_dst, gamma_loc = edge_shard(e_src, e_dst, gamma, axis)
+        v1 = torch.relu(lin_value(p1, x_nodes)).to(f32)
+        out1, _ = spmm_segment_softmax_sharded(v1, gamma_loc, e_src, e_dst, axis,
+                                               gather_target=True)
+        v2 = torch.relu(lin_value(p2, out1.to(dtype))).to(f32)
+        out2, _ = spmm_segment_softmax_sharded(v2, gamma_loc, e_src, e_dst, axis,
+                                               gather_target=True)
+        out2 = out2.to(dtype)
+        alpha_all = gamma.to(dtype)                         # pre-softmax alpha
+    elif branch == "pallas":
         # each layer is the use_beta=False step on the kernel: messages
         # gather the TARGET's features, the softmax groups by target; the
         # kernel runs in f32, cast around it as the JAX model does
@@ -410,12 +454,20 @@ def raindrop_apply(
         output = torch.cat([output, pe_b], dim=-1)         # [B, T, F*d_ob+d_pe]
 
     mask = padding_mask(lengths, T)                        # [B, T] True = pad
-    r_out = transformer_encoder_apply(
-        params["transformer_encoder"], output, mask, cfg.nhead,
-        dropout_rate=cfg.dropout, train=train,
-        backend=cfg.attention_backend,
-        score_dtype=cfg.attention_score_dtype,
-        seeds=None if seeds is None else seeds.layers, shard=shard)
+    if pipeline_parallel:
+        r_out = pipeline_transformer_encoder(
+            params["transformer_encoder"], output, mask, cfg.nhead, pipeline_parallel,
+            axis, dropout_rate=cfg.dropout, train=train,
+            seeds=None if seeds is None else seeds.pipeline)
+    else:
+        cp = context_parallel != "none"
+        r_out = transformer_encoder_apply(
+            params["transformer_encoder"], output, mask, cfg.nhead,
+            dropout_rate=cfg.dropout, train=train,
+            backend=context_parallel if cp else cfg.attention_backend,
+            score_dtype=cfg.attention_score_dtype,
+            seeds=None if seeds is None else seeds.layers,
+            shard=axis if cp else shard)
 
     if cfg.sensor_wise_mask:
         pooled = sensor_wise_pool(r_out.reshape(B, T, F_, d_ob + cfg.d_pe),

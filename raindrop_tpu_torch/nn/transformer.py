@@ -7,8 +7,18 @@ keys are all padded, where this encoder gives zero attention. Layout
 (utils/dropout.py): the dense rung drops the attention probabilities
 [B, H, T, T] and the three sites of the unfused layer with the counter-hash
 dropout, the flash and fused-layer rungs hand their int32 seed to the
-kernels. Without seeds, or in eval, the rate is 0. The context-parallel
-backends raise.
+kernels. Without seeds, or in eval, the rate is 0.
+
+The context-parallel backends 'sp' and 'ring' (parallel/sequence.py) split
+the attention's T axis over the model axis of the rank's `Shard`: the
+rank projects its T rows of q, k and v from the input (whole on every
+model rank, entering through `copy_to`), runs sequence-parallel or ring
+attention on them with the JAX package's seed draw (LayerSeeds.kernel,
+the flash rung's), and the output is gathered over T before out_proj; the
+LayerNorms and the FFN run as on one device, on the rank's rows of the
+batch. Under these backends tensor parallelism's split is off: the
+layer's parameters are whole on every rank. Without a shard they raise,
+as the JAX package does without a mesh.
 
 On a mesh (parallel/mesh.py) a layer takes its rank's `Shard`: the
 rank's rows b0.. of the global batch, and on a model axis of n ranks its
@@ -56,10 +66,13 @@ from raindrop_tpu_torch.ops.flash_attention import (
     MAX_FUSED_T, flash_mha, flash_mha_packed)
 from raindrop_tpu_torch.ops.fused_encoder import fused_encoder_layer
 from raindrop_tpu_torch.parallel import tensor as tp
-from raindrop_tpu_torch.parallel.mesh import Shard, shard_blocks
+from raindrop_tpu_torch.parallel.mesh import Shard, data_only, shard_blocks
+from raindrop_tpu_torch.parallel.sequence import (
+    ring_attention, sequence_parallel_attention, time_shard)
 from raindrop_tpu_torch.utils.dropout import LayerSeeds, dropout
 
-BACKENDS = ("auto", "dense", "flash", "fused_layer")
+CONTEXT_PARALLEL = ("sp", "ring")
+BACKENDS = ("auto", "dense", "flash", "fused_layer") + CONTEXT_PARALLEL
 
 
 def _layer_init(gen, d_model: int, ffn_dim: int, device="cuda",
@@ -111,10 +124,6 @@ def _score_dtype(score_dtype):
 
 def _refuse(backend: str):
     if backend not in BACKENDS:
-        if backend in ("sp", "ring"):
-            raise NotImplementedError(
-                f"the context-parallel backend {backend!r} comes with the "
-                f"slice 18, the scale-out slice of the model-axis routes")
         raise ValueError(f"unknown attention backend {backend!r}")
 
 
@@ -174,8 +183,10 @@ def _fits(T: int) -> bool:
 def _attention_rung(backend: str, T: int, on_cuda: bool) -> str:
     """The attention of an unfused layer: 'flash' (the packed-heads
     kernel), 'flash_mha' (the split-head one, beyond the packed kernel's
-    T) or 'dense'."""
+    T), 'dense', or the context-parallel backend itself."""
     _refuse(backend)
+    if backend in CONTEXT_PARALLEL:
+        return backend
     if backend == "flash" or (backend == "auto" and on_cuda and T >= 128):
         return "flash" if _fits(T) else "flash_mha"
     return "dense"
@@ -183,12 +194,38 @@ def _attention_rung(backend: str, T: int, on_cuda: bool) -> str:
 
 def encoder_rung(backend: str, T: int, d: int, nhead: int, on_cuda: bool) -> str:
     """The rung of the ladder one layer takes: 'fused_layer', 'flash',
-    'flash_mha' or 'dense'."""
+    'flash_mha', 'dense', 'sp' or 'ring'."""
     _refuse(backend)
     if d % nhead == 0 and (backend == "fused_layer" or (
             backend == "auto" and on_cuda and T >= 384 and _fits(T))):
         return "fused_layer"
     return _attention_rung(backend, T, on_cuda)
+
+
+def _context_parallel(p, x, key_padding_mask, nhead, rate, seeds, backend,
+                      shard: Optional[Shard]):
+    """Attention with T split over the model axis (backend 'sp' | 'ring'):
+    this rank's T rows of q, k, v, the attention of parallel/sequence.py,
+    the output gathered over T, then out_proj."""
+    if shard is None:
+        raise ValueError(f"backend {backend!r} needs a mesh")
+    B, T, d = x.shape
+    hd = d // nhead
+    t0, t_loc = time_shard(T, shard)
+    xs = tp.copy_to(x, shard.model_group)[:, t0:t0 + t_loc]
+    xw, w_in = promoted(xs, p["in_proj_w"])
+    qkv = xw @ w_in.T + p["in_proj_b"]                      # [B, t_loc, 3d]
+
+    def heads(t):  # [B, t_loc, d] -> [B, nhead, t_loc, hd]
+        return t.reshape(B, t_loc, nhead, hd).transpose(1, 2)
+
+    q, k, v = (heads(t) for t in qkv.split(d, dim=-1))
+    fn = sequence_parallel_attention if backend == "sp" else ring_attention
+    out = fn(q, k, v, _lengths(key_padding_mask, B, T, x.device), shard,
+             dropout_rate=rate, seed=seeds.kernel if rate > 0.0 else None)
+    out = out.transpose(1, 2).reshape(B, t_loc, d)
+    out = tp.gather_dim(out, shard.model_rank, shard.n_model, shard.model_group, 1)
+    return linear_apply(p["out_proj"], out)
 
 
 def multihead_self_attention(
@@ -204,11 +241,15 @@ def multihead_self_attention(
     shard: Optional[Shard] = None,
 ) -> torch.Tensor:
     """On a model axis (`shard`) the rank's heads: qkv from its rows of
-    in_proj (q, k, v of its heads), out_proj row-parallel."""
+    in_proj (q, k, v of its heads), out_proj row-parallel; under 'sp' or
+    'ring' the rank's T rows instead."""
     B, T, d = x.shape
     hd = d // nhead
     rung = _attention_rung(backend, T, x.is_cuda)
     rate = dropout_rate if (train and seeds is not None) else 0.0
+    if rung in CONTEXT_PARALLEL:
+        return _context_parallel(p, x, key_padding_mask, nhead, rate, seeds, rung,
+                                 shard)
     origin = _kernel_origin(shard, nhead)
     if _tp(shard):
         # this rank's heads: its parts of q, k and v, d / n columns each
@@ -286,6 +327,8 @@ def transformer_encoder_layer_apply(
     attn = multihead_self_attention(p, x, key_padding_mask, nhead,
                                     dropout_rate, train, backend, score_dtype,
                                     seeds, shard)
+    if backend in CONTEXT_PARALLEL:     # the rest of the layer: no model split
+        shard = data_only(shard)
     if rate > 0.0:
         attn = _drop(seeds.post_attn, attn, rate, shard)
     x = _layer_norm(p["ln1"], x + attn)

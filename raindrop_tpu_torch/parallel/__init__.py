@@ -19,3 +19,8 @@ from raindrop_tpu_torch.parallel.mesh import (  # noqa: F401
     shard_params,
     tensor_parallel_specs,
 )
+from raindrop_tpu_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_apply,
+    pipeline_transformer_encoder,
+    stack_stage_params,
+)

@@ -29,6 +29,7 @@ a rank's attention runs on its own heads without moving q, k, v.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import socket
 from dataclasses import dataclass
@@ -174,6 +175,16 @@ class Shard:
                              f"{self.n_model} model ranks")
         size = n // self.n_model
         return self.model_rank * size, size
+
+
+def data_only(shard: Optional[Shard]) -> Optional[Shard]:
+    """`shard` with its model axis folded away (the rank's rows of the
+    batch alone), None where that leaves one rank: the work a route runs
+    whole on every model rank (a scale-out route's model axis carries the
+    route's split, not tensor parallelism's)."""
+    if shard is None or shard.n_data == 1:
+        return None
+    return dataclasses.replace(shard, model_rank=0, n_model=1, model_group=None)
 
 
 def batch_rows(batch: int, data_rank: int, n_data: int) -> slice:

@@ -9,12 +9,31 @@ inserts for raindrop_tpu/parallel/mesh.py's shardings).
                        identity: the output of a row-parallel product;
   gather(x, ...)       forward the full tensor from each rank's blocks
                        (an all_reduce into a zeroed buffer), backward the
-                       rank's blocks of the gradient, scaled by `grad_scale`.
+                       rank's blocks of the gradient, scaled by `grad_scale`;
+  gather_scatter(x, ...)  forward `gather_dim`'s, backward the true
+                       transpose of an all-gather, a reduce-scatter (an
+                       all_reduce of the gradient, then the rank's block):
+                       for a gathered tensor each rank uses only in part
+                       (sequence parallelism's keys and values);
+  psum(x, g)           forward and backward an all_reduce: a sum each rank
+                       uses only in part (edge partitioning's softmax
+                       denominators);
+  ppermute(x, g, shift)  rank r receives rank r - shift's block (mod the
+                       group's size), backward the reverse shift; built on
+                       shift_blocks, which also shifts without wrap-around
+                       (the first ranks receive zeros: the pipeline's);
+  all_reduce_max(x, g) the element-wise maximum over g, outside autograd.
 
-Every collective is an all_reduce, one of the two that gloo takes on
-CUDA tensors (with broadcast), so the same code runs over NCCL and over
-gloo ranks that share one card. A group of None is one rank: each of these is
-then the identity.
+Every collective is an all_reduce or a broadcast, the two that gloo takes
+on CUDA tensors, so the same code runs over NCCL and over gloo ranks that
+share one card. A group of None is one rank: each of these is then the
+identity.
+
+A collective in a backward runs when autograd reaches its node, and
+autograd orders independent branches as it likes; the ranks must meet in
+the same collectives in the same order, so every caller chains its
+backward collectives through data dependence (one collective for keys and
+values together, each ring hop's input the previous hop's output).
 """
 
 from __future__ import annotations
@@ -117,6 +136,119 @@ def gather_dim(local: torch.Tensor, rank: int, n: int, group, dim: int,
     sl = tuple(slice(rank * size, (rank + 1) * size) if a == dim else slice(0, m)
                for a, m in enumerate(shape))
     return gather(local, [(None, sl)], dim, shape, group, grad_scale)
+
+
+class _GatherScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, rank, n, group, dim):
+        ctx.args = (rank, n, group, dim)
+        shape = list(local.shape)
+        size = shape[dim]
+        shape[dim] = size * n
+        full = torch.zeros(shape, dtype=local.dtype, device=local.device)
+        full.narrow(dim, rank * size, size).copy_(local)
+        return all_reduce(full, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        rank, n, group, dim = ctx.args
+        full = all_reduce(g.contiguous().clone(), group)
+        size = full.shape[dim] // n
+        return full.narrow(dim, rank * size, size).contiguous(), None, None, None, None
+
+
+def gather_scatter(local: torch.Tensor, rank: int, n: int, group, dim: int) -> torch.Tensor:
+    """The full tensor from every rank's equal contiguous part of `dim`
+    (this rank's at `rank`), whose gradient each rank computes only in
+    part: the backward sums the ranks' gradients and gives this rank its
+    block (a reduce-scatter), where `gather`'s gives the rank its block of
+    a gradient every rank computes whole."""
+    if group is None:
+        return local
+    return _GatherScatter.apply(local, rank, n, group, dim)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over `group` where each rank uses the sum only for its
+    own part of the work: the gradient is the sum of the ranks' too."""
+    return x if group is None else _PSum.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The element-wise maximum of x over `group` (a new tensor, no
+    gradient)."""
+    out = x.detach().contiguous().clone()
+    if group is not None:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def _source(rank: int, n: int, shift: int, wrap: bool):
+    src = rank - shift
+    if wrap:
+        return src % n
+    return src if 0 <= src < n else None
+
+
+def shift_blocks(x: torch.Tensor, group, shift: int = 1, wrap: bool = True) -> torch.Tensor:
+    """Rank r's result is rank (r - shift)'s x (all of one shape and
+    dtype); without wrap-around a rank with no such source gets zeros.
+    Built from one broadcast per sending rank: each rank keeps only its
+    source's block, so at most one block besides its own and the result
+    is alive. No autograd (`ppermute` is the differentiable form)."""
+    if group is None:
+        return x.clone() if wrap else torch.zeros_like(x)
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    mine = _source(rank, n, shift, wrap)
+    # a copy: gloo's broadcast of a CUDA tensor writes the result back into
+    # the sender's tensor too, which would bump the version of x (and of
+    # every view autograd saved of it)
+    x = x.detach().clone(memory_format=torch.contiguous_format)
+    out = torch.zeros_like(x)
+    scratch = None
+    for src in range(n):
+        if _source((src + shift) % n, n, shift, wrap) != src:
+            continue        # no rank receives this block (no wrap-around)
+        if src == rank:
+            buf = x
+        elif src == mine:
+            buf = out
+        else:
+            if scratch is None:
+                scratch = torch.empty_like(x)
+            buf = scratch
+        dist.broadcast(buf, dist.get_global_rank(group, src), group=group)
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.args = (group, shift)
+        return shift_blocks(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, shift = ctx.args
+        return shift_blocks(g, group, -shift), None, None
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """jax.lax.ppermute with the permutation r -> r + shift mod the group's
+    size: rank r receives rank r - shift's x. The backward sends the
+    gradient the reverse way."""
+    return x if group is None else _PPermute.apply(x, group, shift)
 
 
 def column_parallel_linear(p, x: torch.Tensor, shard) -> torch.Tensor:

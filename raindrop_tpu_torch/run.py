@@ -28,9 +28,19 @@ starts the process group from torchrun's environment (NCCL on the card):
 
 Every rank writes its shard of the best parameters under
 --checkpoint-dir; only rank 0 prints and writes --out-json. A mesh of
-several ranks trains the flagship model. The scale-out routes
-(--context-parallel, --pipeline-microbatches, --edge-partition) raise
-NotImplementedError naming the slice they wait for. The knn and mice
+several ranks trains the flagship model. The scale-out routes ride the
+mesh's model axis (parallel/): --context-parallel sp|ring splits the
+temporal attention's T axis (T must divide by --model-parallel),
+--pipeline-microbatches N runs the encoder layers as GPipe stages
+(--model-parallel must equal nlayers, 2; the global batch must divide by
+N), --edge-partition true splits the propagation's edges (the d_inp^2
+edges must divide by --model-parallel); each needs a mesh, and the errors
+where one does not apply are the JAX CLI's (the Trainer's):
+
+  torchrun --nproc_per_node 2 -m raindrop_tpu_torch.run --distributed true \
+      --data-parallel 1 --model-parallel 2 --context-parallel ring --dataset PAM ...
+
+The knn and mice
 imputers and the information-gain ranking of --feature_removal_level set
 (without --ig-scores) need scikit-learn.
 """
@@ -97,15 +107,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ranks on the mesh 'data' axis (0 = no mesh)")
     p.add_argument("--model-parallel", type=int, default=1,
                    help="ranks on the mesh 'model' axis (Megatron tensor "
-                        "parallelism)")
+                        "parallelism, or the scale-out route's split)")
     p.add_argument("--distributed", type=str2bool, default=False,
                    help="start the process group from torchrun's environment "
                         "(NCCL on CUDA, gloo on the CPU)")
-    # the scale-out routes: not ported yet (each raises when set)
     p.add_argument("--context-parallel", choices=["none", "sp", "ring"],
-                   default="none")
-    p.add_argument("--pipeline-microbatches", type=int, default=0)
-    p.add_argument("--edge-partition", type=str2bool, default=False)
+                   default="none",
+                   help="shard the temporal attention's T axis over the mesh "
+                        "'model' axis: 'sp' gathers K/V, 'ring' rotates K/V "
+                        "blocks (parallel/sequence.py)")
+    p.add_argument("--pipeline-microbatches", type=int, default=0,
+                   help="run the encoder layers as GPipe stages over the "
+                        "'model' axis with N microbatches (parallel/pipeline.py); "
+                        "needs model-parallel == nlayers")
+    p.add_argument("--edge-partition", type=str2bool, default=False,
+                   help="shard the propagation layer's edge set over the "
+                        "'model' axis (parallel/edge_partition.py)")
     p.add_argument("--grad-microbatches", type=int, default=1,
                    help="gradient accumulation: split each batch into N "
                         "chunks, average their gradients, one Adam update "
@@ -216,18 +233,6 @@ def make_model_fns(args, cfg, device="cuda"):
     return make_baseline(args.model, cfg, baseline_hp(args), device)
 
 
-def refuse_unported(args) -> None:
-    """Raise for a flag whose route the port does not run yet."""
-    scale_out = [flag for flag, on in (
-        ("--context-parallel", args.context_parallel != "none"),
-        ("--pipeline-microbatches", args.pipeline_microbatches > 0),
-        ("--edge-partition", args.edge_partition)) if on]
-    if scale_out:
-        raise NotImplementedError(
-            f"{', '.join(scale_out)} come(s) with slice 18, the scale-out slice "
-            f"of the model-axis routes; the port runs data and tensor parallelism")
-
-
 def start_mesh(args, device):
     """The process group (--distributed: torchrun's environment; each rank
     on its card, LOCAL_RANK modulo the cards) and the ("data", "model")
@@ -283,6 +288,9 @@ def configs(args):
         log_path=args.log_path,
         resplit_per_run=args.resplit_per_run,
         diag_frozen_params=args.diag_frozen_params,
+        context_parallel=args.context_parallel,
+        pipeline_microbatches=args.pipeline_microbatches,
+        edge_partition=args.edge_partition,
         grad_microbatches=args.grad_microbatches) for mr in missing_ratios]
     return cfg, tcfgs
 
@@ -411,7 +419,6 @@ def run_baseline(args, cfg, tcfg, split_fn, device, tracker=None):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
 
     from raindrop_tpu_torch.serve import resolve_device
     from raindrop_tpu_torch.train.trainer import run_splits

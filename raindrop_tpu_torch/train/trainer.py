@@ -55,6 +55,18 @@ a run resumes on any mesh). Only rank 0 prints. The streaming pipeline
 runs on one rank only, as in the JAX package; `measure_mfu` counts a
 rank's step on its rows, so its MFU is the card's. The mesh trains the
 flagship model; a pluggable model runs on one device.
+
+The scale-out routes (TrainConfig's context_parallel, pipeline_microbatches,
+edge_partition; the JAX trainer's) need a mesh and the flagship model. The
+mesh's model axis then carries the route's split instead of tensor
+parallelism's: every rank holds the whole parameters and Adam's whole
+moments, and the step's gradient is the one-device gradient on every rank
+before the masked-Adam step, which runs replicated. The leaves a model
+rank computes only in part are summed over the model axis first: under
+'sp' / 'ring' the attention's in_proj (a rank projects its T rows), under
+the pipeline every encoder leaf (a rank runs its layer); edge partitioning
+leaves none partial. Checkpoints, `full_params` and `predict` are then
+the one-device ones (rank 0's shard file holds the whole tree).
 """
 
 from __future__ import annotations
@@ -143,13 +155,27 @@ class Trainer:
         self.tcfg = tcfg
         self.device = dev = resolve_device(device)
         self.mesh = mesh
+        routes = dict(context_parallel=tcfg.context_parallel,
+                      pipeline_parallel=tcfg.pipeline_microbatches,
+                      edge_partition=tcfg.edge_partition)
+        self._route = (tcfg.context_parallel != "none"
+                       or tcfg.pipeline_microbatches > 0 or tcfg.edge_partition)
+        if self._route and mesh is None:
+            raise ValueError(
+                "context_parallel/pipeline_microbatches/edge_partition "
+                "need a mesh (Trainer(..., mesh=make_mesh(n_data, n_model)))")
+        if self._route and apply_fn is not None:
+            raise ValueError("scale-out routes apply to the flagship "
+                             "raindrop model only")
         self._coords = c = coords(mesh)
         self._data_group = group(mesh, "data")
         self._model_group = group(mesh, "model")
         if c.world > 1 and apply_fn is not None:
             raise ValueError("a mesh of several ranks trains the flagship model "
                              "only; a pluggable model runs on one device")
-        if c.n_model > 1:
+        # tensor parallelism's split of the parameters: off under a route
+        self._n_split = 1 if self._route else c.n_model
+        if self._n_split > 1:
             for name, n in (("nhead", cfg.nhead), ("ffn_dim", cfg.ffn_dim),
                             ("max_len * d_ob", cfg.max_len * cfg.d_ob)):
                 if n % c.n_model:
@@ -160,7 +186,7 @@ class Trainer:
         # self: a cycle would keep a dropped trainer's parameters (7 GB at
         # PAM's width on a 2048-step window) alive until the cyclic
         # collector runs
-        model = (make_flagship(cfg, dev, mesh) if apply_fn is None
+        model = (make_flagship(cfg, dev, mesh, **routes) if apply_fn is None
                  else ModelFns(init_fn, apply_fn, draw_seeds))
         self._init = init_fn or model.init_fn
         self._apply, self._draw = model.apply_fn, model.draw_seeds
@@ -183,11 +209,13 @@ class Trainer:
                 return [own(v) for v in tree]
             return tree.detach().to(device).clone()
 
-        n_model = self._coords.n_model
+        n_model = self._n_split
         if n_model > 1:
             self._specs = tensor_parallel_specs(params, n_model)
             params = shard_params(params, n_model=n_model,
                                   model_rank=self._coords.model_rank)
+        elif self._route and self._multi:   # every leaf whole on a route's mesh
+            self._specs = tensor_parallel_specs(params, 1)
         self.params = own(params)
         leaves = flatten_params(self.params)
         if self._update_mask is None:
@@ -237,7 +265,7 @@ class Trainer:
         """Adopt a tree of `opt_state`'s form (of the full parameters; on a
         model axis the rank keeps its part of the moments)."""
         mu, nu = state["mu"], state["nu"]
-        if self._coords.n_model > 1:
+        if self._n_split > 1:
             mu, nu = (self._local_tree(t) for t in (mu, nu))
         bridge.adam_state_from_jax(self, mu, nu, int(state["count"]))
         self.learning_rate = float(state["learning_rate"])
@@ -254,7 +282,7 @@ class Trainer:
     def _local_tree(self, tree):
         """This model rank's part of a full tree of numpy arrays in the
         parameters' layout (Adam's moments)."""
-        n, m = self._coords.n_model, self._coords.model_rank
+        n, m = self._n_split, self._coords.model_rank
 
         def walk(t, path):
             if isinstance(t, dict):
@@ -270,7 +298,7 @@ class Trainer:
         dim = self._split_dims().get(path)
         if dim is None:
             return t
-        n = self._coords.n_model
+        n = self._n_split
         shape = [s * n if a == dim else s for a, s in enumerate(t.shape)]
         blocks = shard_blocks(path.split("/"), shape, dim, n, self._coords.model_rank)
         return tp.gather(t.detach(), blocks, dim, shape, self._model_group)
@@ -278,7 +306,7 @@ class Trainer:
     def full_params(self):
         """The full parameter tree, gathered over the model axis (every
         rank gets it; the trainer's own tree off a model axis)."""
-        if self._coords.n_model == 1:
+        if self._n_split == 1:
             return self.params
 
         def walk(tree, prefix):
@@ -291,7 +319,7 @@ class Trainer:
     def full_opt_state(self) -> Dict[str, Any]:
         """`opt_state` of the full parameters, gathered over the model axis."""
         state = self.opt_state()
-        if self._coords.n_model == 1:
+        if self._n_split == 1:
             return state
 
         def walk(tree, prefix):
@@ -408,6 +436,8 @@ class Trainer:
         if seeds is None:
             seeds = self.draw_seeds(batch["P"].shape[0] * self._coords.n_data)
         loss, logits = self._backward(batch, seeds)
+        if self._route and self._model_group is not None:
+            self._sum_partial_grads()
         if self._data_group is not None:
             # the mean over the data axis: the global batch's gradient and
             # loss, in one all_reduce of the flattened f32 gradients and loss
@@ -421,6 +451,33 @@ class Trainer:
             loss = flat[-1]
         self.optimizer.step()
         return loss, logits
+
+    def _partial(self, path: str) -> bool:
+        """Whether a model rank computes the gradient of the leaf at `path`
+        only in part under the trainer's route (its sum over the model axis
+        is the one-device gradient)."""
+        parts = path.split("/")
+        if parts[0] != "transformer_encoder":
+            return False
+        if self.tcfg.pipeline_microbatches > 0:
+            return True          # a stage runs one layer
+        return self.tcfg.context_parallel != "none" and parts[-1] in (
+            "in_proj_w", "in_proj_b")   # a rank projects its T rows
+
+    def _sum_partial_grads(self) -> None:
+        """Sum the partial leaves' gradients over the model axis (one
+        all_reduce of them flattened in f32; a leaf the rank never reached
+        contributes zeros)."""
+        live = [t for path, t in self.live if self._partial(path)]
+        if not live:
+            return
+        for t in live:
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+        flat = tp.all_reduce(torch.cat([t.grad.reshape(-1).to(torch.float32)
+                                        for t in live]), self._model_group)
+        for t, part in zip(live, flat.split([t.numel() for t in live])):
+            t.grad.copy_(part.view_as(t.grad))
 
     def train_epoch(self, data, idx: Optional[torch.Tensor] = None,
                     seeds: Optional[Sequence[Seeds]] = None):
@@ -716,7 +773,8 @@ class Trainer:
             tp.barrier(device=self.device)
             full = load_sharded_checkpoint(checkpoint_path, like=self.full_params())
             c = self._coords
-            test_params = shard_params(full, n_model=c.n_model, model_rank=c.model_rank)
+            test_params = shard_params(full, n_model=self._n_split,
+                                       model_rank=c.model_rank)
         else:
             test_params = self.params if best["params"] is None else best["params"]
         test_logits = self.predict(test_params, split.Ptest, split.Ptest_time,

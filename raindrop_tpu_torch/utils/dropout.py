@@ -154,7 +154,10 @@ class DropoutSeeds:
     per-sample seeds (empty unless asked for). `beta` holds the two seeds
     of the dense use_beta block (its layer-1 and layer-2 softmax weights,
     which the JAX package draws from a key split off the first propagation
-    layer's), empty unless asked for."""
+    layer's), empty unless asked for. `pipeline` holds, under the GPipe
+    route (parallel/pipeline.py), one LayerSeeds per microbatch and stage,
+    `pipeline[m][s]` (the JAX package's fold_in(fold_in(key, m), s) split
+    in 4), empty unless asked for."""
     embed: int
     prop1: int
     prop2: int
@@ -162,14 +165,17 @@ class DropoutSeeds:
     prop1_rows: Tuple[int, ...] = ()
     prop2_rows: Tuple[int, ...] = ()
     beta: Tuple[int, ...] = ()
+    pipeline: Tuple[Tuple[LayerSeeds, ...], ...] = ()
 
     @staticmethod
     def draw(generator: torch.Generator, nlayers: int,
-             rows: int = 0, beta: bool = False) -> "DropoutSeeds":
+             rows: int = 0, beta: bool = False, pipeline: int = 0) -> "DropoutSeeds":
         """Fill every field from `generator` (a CPU generator draws
         without touching the card); `rows` > 0 also draws that many
         per-sample seeds for each propagation layer, `beta` the two seeds
-        of the dense use_beta block (drawn after the others)."""
+        of the dense use_beta block, `pipeline` > 0 that many microbatches'
+        LayerSeeds a stage (each drawn after the ones before it, so a draw
+        without them is what it was)."""
         n = 3 + 5 * nlayers
         raw = torch.randint(0, 2 ** 32, (n + 2 * rows,), generator=generator,
                             dtype=torch.int64, device=generator.device).tolist()
@@ -180,8 +186,18 @@ class DropoutSeeds:
                                     dtype=torch.int64,
                                     device=generator.device).tolist())
                 if beta else ())
+        stages = ()
+        if pipeline:
+            more = torch.randint(0, 2 ** 32, (5 * pipeline * nlayers,),
+                                 generator=generator, dtype=torch.int64,
+                                 device=generator.device).tolist()
+            stages = tuple(
+                tuple(LayerSeeds(more[j] % (2 ** 31 - 1), *more[j + 1:j + 5])
+                      for j in range(5 * nlayers * m, 5 * nlayers * (m + 1), 5))
+                for m in range(pipeline))
         return DropoutSeeds(raw[0], raw[1], raw[2], layers,
-                            tuple(raw[n: n + rows]), tuple(raw[n + rows:]), pair)
+                            tuple(raw[n: n + rows]), tuple(raw[n + rows:]), pair,
+                            stages)
 
 
 @dataclass(frozen=True)

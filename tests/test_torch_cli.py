@@ -137,10 +137,13 @@ def test_cli_refuses_unknown_baseline_and_scale_out(tmp_path):
     with pytest.raises(SystemExit):
         run.main(["--model", "nope"])
     # --distributed, --data-parallel and --model-parallel run since the
-    # mesh's slice (the mesh cases below); the model-axis routes still wait
+    # mesh's slice, the model-axis routes since theirs
+    # (tests/test_torch_scale_out_routes.py); without a mesh, or for a
+    # baseline family, a route raises the JAX CLI's errors
     for flags in (["--context-parallel", "ring"],
-                  ["--pipeline-microbatches", "2"], ["--edge-partition", "true"]):
-        with pytest.raises(NotImplementedError, match="scale-out slice"):
+                  ["--pipeline-microbatches", "2"], ["--edge-partition", "true"],
+                  ["--edge-partition", "true", "--model", "transformer"]):
+        with pytest.raises(ValueError, match="need a mesh"):
             run.main([*flags, "--synthetic", "8", "--device", "cpu"])
 
 

@@ -80,6 +80,12 @@ def test_the_module_list_covers_the_mesh_slice():
         "raindrop_tpu_torch.parallel.expert"}
 
 
+def test_the_module_list_covers_the_model_axis_routes():
+    assert set(_port_modules()) >= {
+        "raindrop_tpu_torch.parallel.sequence", "raindrop_tpu_torch.parallel.pipeline",
+        "raindrop_tpu_torch.parallel.edge_partition"}
+
+
 def test_every_module_imports_with_jax_blocked():
     # pandas too: the card's machine has none (data/preprocess.py reads the
     # raw text with the csv module)

@@ -23,6 +23,7 @@ from raindrop_tpu_torch.nn import aggregate as agg
 from raindrop_tpu_torch.nn import linear as lin
 from raindrop_tpu_torch.nn import transformer as tr
 from raindrop_tpu_torch.ops import pe
+from raindrop_tpu_torch.parallel.mesh import Shard
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -145,7 +146,14 @@ def test_encoder_refuses_what_this_slice_does_not_serve():
     with pytest.raises(ValueError, match="layer seeds"):
         tr.transformer_encoder_apply(p, x, None, 2, dropout_rate=0.5, train=True,
                                      seeds=seeds * 2)
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        tr.transformer_encoder_apply(p, x, None, 2, backend="ring")
+    # the context-parallel backends run since the model-axis routes'
+    # slice: without a shard (a mesh) they raise JAX's error; on one rank
+    # they are the dense rung's function
+    for backend in ("sp", "ring"):
+        with pytest.raises(ValueError, match="needs a mesh"):
+            tr.transformer_encoder_apply(p, x, None, 2, backend=backend)
+        one = tr.transformer_encoder_apply(p, x, None, 2, backend=backend,
+                                           shard=Shard(0, 1))
+        assert torch.allclose(one, ev, rtol=1e-5, atol=1e-6), backend
     with pytest.raises(ValueError):
         tr.transformer_encoder_apply(p, x, None, 2, backend="bogus")

@@ -79,9 +79,11 @@ def test_eval_forward_matches_jax(preset, backend):
 @pytest.mark.parametrize("change,kw", [
     ("train", {}),
     # use_beta, use_beta with sensor_wise_mask and compute_dtype are served
-    # now (tests/test_torch_beta.py, tests/test_torch_mixed_precision.py);
-    # these cases hold what still raises: the other two scale-out routes,
-    # and a parameter dtype neither package runs
+    # now (tests/test_torch_beta.py, tests/test_torch_mixed_precision.py),
+    # and the scale-out routes (tests/test_torch_scale_out_routes.py); these
+    # cases hold what raises: a route without a mesh or two routes on the
+    # temporal encoder (the JAX package's errors), and a parameter dtype
+    # neither package runs
     pytest.param("call", {"pipeline_parallel": 2}, id="cfg-kw1"),
     pytest.param("call", {"edge_partition": True}, id="cfg-kw2"),
     ("cfg", {"dtype": "int8"}),
@@ -114,8 +116,12 @@ def test_refuses_what_this_slice_does_not_serve(change, kw):
                                    seeds=seeds, **call)
         assert torch.isfinite(logits).all()
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="need a mesh"):
         raindrop_apply(params, cfg, src, static, times, lengths, **call)
+    if change == "scale_out":
+        with pytest.raises(ValueError, match="pick one"):
+            raindrop_apply(params, cfg, src, static, times, lengths,
+                           pipeline_parallel=2, **call)
 
 
 @pytest.mark.parametrize("train", [False, True])

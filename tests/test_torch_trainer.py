@@ -273,14 +273,19 @@ def test_sampler_copy_draws_the_same_batches():
 def test_what_the_protocol_slice_brings_raises():
     # train_split and run_splits are served (tests/test_torch_protocol.py
     # holds them against JAX), and so are measure_mfu and the streaming
-    # pipeline (tests/test_torch_diagnostics.py, test_torch_prefetch.py);
-    # the scale-out routes still wait
+    # pipeline (tests/test_torch_diagnostics.py, test_torch_prefetch.py),
+    # and the scale-out routes (tests/test_torch_scale_out_routes.py): a
+    # route needs a mesh and the flagship model, as in the JAX trainer
     assert not hasattr(Trainer, "run_splits")       # module-level, as in JAX
     TrainConfig(measure_mfu=True, input_pipeline="streaming")
+    cfg = dataset_config("P19", max_len=8)
     for kw in ({"context_parallel": "ring"}, {"pipeline_microbatches": 2},
                {"edge_partition": True}):
-        with pytest.raises(NotImplementedError, match="scale-out slice"):
-            TrainConfig(**kw)
+        with pytest.raises(ValueError, match="need a mesh"):
+            Trainer(cfg, TrainConfig(**kw), device="cpu")
+        with pytest.raises(ValueError, match="flagship"):
+            Trainer(cfg, TrainConfig(**kw), device="cpu", mesh=object(),
+                    apply_fn=lambda *a: None)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(dataset_config("P19", max_len=8), TrainConfig())

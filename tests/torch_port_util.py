@@ -29,12 +29,25 @@ def layer_seeds(keys) -> LayerSeeds:
     return LayerSeeds(kernel_seed(keys[0]), *(seed32(k) for k in keys))
 
 
-def seeds_from_jax_key(rng, nlayers: int, rows: int = 0) -> DropoutSeeds:
+def pipeline_seeds(r_trans, nlayers: int, microbatches: int):
+    """DropoutSeeds.pipeline from the encoder's key: microbatch m's stage s
+    draws from fold_in(fold_in(r_trans, m), s) split in 4
+    (raindrop_tpu/parallel/pipeline.py)."""
+    return tuple(
+        tuple(layer_seeds(jax.random.split(
+            jax.random.fold_in(jax.random.fold_in(r_trans, m), s), 4))
+            for s in range(nlayers))
+        for m in range(microbatches))
+
+
+def seeds_from_jax_key(rng, nlayers: int, rows: int = 0,
+                       pipeline: int = 0) -> DropoutSeeds:
     """The seeds `raindrop_apply(train=True, rng=rng)` of the JAX package
     consumes, by the same splits. `rows` = the batch size also reads the
     per-sample seeds of the COO propagation branch (one key per sample,
     split off each propagation layer's key); the dense use_beta block's
-    two seeds come from fold_in(r_prop1, 1) split in two."""
+    two seeds come from fold_in(r_prop1, 1) split in two; `pipeline` > 0
+    reads the GPipe route's seeds of that many microbatches."""
     r_drop, r_prop1, r_prop2, r_trans = jax.random.split(rng, 4)
     keys = jax.random.split(r_trans, 4 * nlayers)
 
@@ -45,7 +58,8 @@ def seeds_from_jax_key(rng, nlayers: int, rows: int = 0) -> DropoutSeeds:
     return DropoutSeeds(
         seed32(r_drop), seed32(r_prop1), seed32(r_prop2),
         tuple(layer_seeds(keys[4 * i: 4 * i + 4]) for i in range(nlayers)),
-        per_sample(r_prop1), per_sample(r_prop2), beta)
+        per_sample(r_prop1), per_sample(r_prop2), beta,
+        pipeline_seeds(r_trans, nlayers, pipeline) if pipeline else ())
 
 
 def random_layer(seed: int, d: int, ffn: int):
