@@ -9,8 +9,12 @@ check does not hold:
 
   1. set-up: TF32 off for matmuls and cuDNN (the reference semantics are
      full f32), the card's name and power limit, the kernels built from
-     raindrop_tpu_torch/csrc/ with nvcc (build seconds printed); then the
-     SASS check: cuobjdump -sass on the flash_packed library and the fused
+     raindrop_tpu_torch/csrc/ with nvcc (build seconds printed); the data
+     layer's C++ host runtime built with g++ and its seven functions held
+     against numpy on the host, bit-equal (get_stats within 1e-12
+     relative), the producer's gather of one PAM-2048 batch and load_split's
+     normalization at P12's size timed both ways (host_runtime_phase); then
+     the SASS check: cuobjdump -sass on the flash_packed library and the fused
      layer's two must find HGMMA (wgmma) instructions in each tensor-core
      kernel family (SASS_FAMILIES: the attention's three on one warpgroup
      and three on two (past hd_pad 144), which flash_mha_packed and
@@ -148,11 +152,14 @@ check does not hold:
      the ranking (--ig-scores), 2 epochs of one split with --measure-mfu:
      rc 0, finite metrics, every flash_mha_packed launch (forward and
      backward) on the tensor cores, every epoch record's MFU in (0, 1);
- 14d. the CLI on synthetic PAM (640 samples) through the streaming input
-     pipeline with --measure-mfu: the fused layer's tensor-core launches
-     counted both ways, every epoch record's MFU in (0, 1); the summary and
-     the epoch records equal to those of the same command line with the
-     resident pipeline;
+ 14d. the CLI on synthetic PAM (640 samples, 1 epoch) through
+     the streaming input pipeline with --measure-mfu: the fused layer's
+     tensor-core launches counted both ways, every epoch record's MFU in
+     (0, 1), its batches gathered by the C++ host runtime (counted); the
+     summary and the epoch record equal to those of the same command line
+     with the resident pipeline; the same command on the numpy path
+     (RAINDROP_TPU_NATIVE=0) beside, the two streaming runs profiled (wall
+     and device ms a step, the idle share);
  14e. train_split at P12 (2560 samples, ~22 batches an epoch) and PAM (640,
      30 batches), 3 epochs, resident and streaming, with measure_mfu off and
      on, from the same parameters and seed: parameters, best parameters,
@@ -306,7 +313,24 @@ check does not hold:
      step ms printed, the ranks bit-equal;
  28. torchrun_cli_phase: the CLI through torchrun (one process, NCCL,
      --distributed true --data-parallel 1), P12 for 1 epoch from dataset
-     files written from --seed.
+     files written from --seed;
+ 29. wide_head_phase, attention past head dim 368 (route "hd_stream"):
+     flash_mha_packed at hd 372, 720 and 1023 (B=8, T=215) and flash_mha at
+     hd 720 and 1024 on T=600 and 2048 (B=8), forward and backward, f32 and
+     bf16, dropout 0 and 0.2, against the plain versions, every launch on
+     the route; impl="hd_stream" at hd 360 bit-equal to the scalar Wide
+     kernels; P12-sw at one head (hd 720) served at buckets 1, 8, 32 and 128
+     and trained 3 steps (B=128), with f32 attention operands and with
+     compute_dtype='bfloat16', every packed launch on "hd_stream", served
+     probabilities and the first step's loss and gradient norm held to the
+     plain path (1e-4 f32, 2e-2 bf16); the route timed at that shape and at
+     T=2048 beside the plain versions and SDPA (its backend named); the
+     public op flash_mha through autograd at hd 720 and 1024;
+ 30. big_batch_phase: every kernel row at B=70000 (two launches a call, the
+     second at sample origin 65535), dropout 0.2 where the op has it, f32
+     and bf16: flash_mha_packed, flash_mha (and 70000 heads), the fused
+     layer at PAM's width, spmm_segment_softmax and sddmm, against the plain
+     versions (so the masks past sample 65535 are compared).
 
 Every phase's seconds are printed as `[phase] name: s` and kept under
 "phase_s" in the --out file.
@@ -323,11 +347,13 @@ gradients, sums over every row, to TOL relative to max(1, the plain
 gradient's largest value), its plain backward taking the kernel's relu
 branches (fused_bwd_phase says why). The sparse-graph kernels are
 f32 throughout and are held to 1e-5 relative to max(1, |plain|).
-The line before the last is the kernels' JSON record (twenty-three
+The line before the last is the kernels' JSON record (twenty-seven
 records: twelve kernels at the main paths' shapes, the packed pair and the
 fused layer again at the sensor-wise widths, the fused layer's three
-attention launchers on "tc_wide" at PAM-sw, and flash_mha forward and
-backward at PAM-sw-2048's hd 170; the fused layer's list the CUDA kernels
+attention launchers on "tc_wide" at PAM-sw, flash_mha forward and
+backward at PAM-sw-2048's hd 170, and both ops' forward and backward on
+"hd_stream" past hd 368, rows 1-11 with the launches of their B=70000
+call under "big_batch_launches"; the fused layer's list the CUDA kernels
 of its tensor-core route and of the previous design, and its launches, and
 flash_mha's, are the tensor-core ones; rows 1 and 2 also carry the
 baseline families' launches and the errors at their head dims, and rows
@@ -1983,16 +2009,17 @@ PLAIN_ALL = {"attention_backend": "dense", "prop_backend": "auto"}
 
 
 COUNTS = ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches",
-          "tc_wide_launches", "tc_wide_bwd_launches")
+          "tc_wide_launches", "tc_wide_bwd_launches", "hd_stream_launches",
+          "hd_stream_bwd_launches")
 # the sparse-graph wrappers' routes (ops/sparse.py graph_plan), counted apart
 GRAPH_ROUTES = ("row", "tile", "csr")
 GRAPH_COUNTS = ("launches", "bwd_launches",
                 *(f"{r}_{a}" for r in GRAPH_ROUTES for a in ("launches", "bwd_launches")))
 # the routes a wrapper counts apart: "<name>.tc" from tc_<attr>; and
 # flash_mha_packed's and flash_mha's two-warpgroup route past hd_pad 144,
-# "<name>.tc_wide"; spmm_segment_softmax's and sddmm's "<name>.row",
-# "<name>.tile", "<name>.csr"
-ROUTE_COUNTS = ("tc", "tc_wide", *GRAPH_ROUTES)
+# "<name>.tc_wide", and their route past hd 368, "<name>.hd_stream";
+# spmm_segment_softmax's and sddmm's "<name>.row", "<name>.tile", "<name>.csr"
+ROUTE_COUNTS = ("tc", "tc_wide", "hd_stream", *GRAPH_ROUTES)
 
 
 def reset_counts(wrappers):
@@ -3175,6 +3202,9 @@ def bf16_storage_phase(wrappers, device="cuda", seed=0, batch=128):
 # ------------------------------------------------- the experiment CLI (PR 14)
 CLI_N = 640          # samples of the dataset files and the synthetic runs
 CLI_EPOCHS = 2
+# the streaming CLI phase's epochs: one of 30 batches, as it runs a third,
+# profiled command (a cut for the script's time)
+CLI_STREAM_EPOCHS = 1
 MFU_TOL = 0.02       # step FLOPs with the kernels against the plain count
 
 
@@ -3287,18 +3317,40 @@ def cli_files_phase(wrappers, seed=0):
 
 def cli_stream_phase(wrappers, seed=0):
     """The CLI on synthetic PAM (640 samples, full width and depth) through
-    the streaming input pipeline with MFU telemetry, 2 epochs of one split
-    (30 batches each), then the same command line with the resident
-    pipeline. Checks: rc 0, finite metrics, the fused layer's tensor-core
-    launches counted forward and backward, every epoch record's MFU in
-    (0, 1); the two runs' summaries and epoch records (but their wall-clock
-    and MFU fields) equal."""
+    the streaming input pipeline with MFU telemetry, CLI_STREAM_EPOCHS
+    epochs of one split (30 batches each), then the same command line with
+    the resident
+    pipeline, and the streaming one again on the numpy gathers
+    (RAINDROP_TPU_NATIVE=0). Checks: rc 0, finite metrics, the fused layer's
+    tensor-core launches counted forward and backward, every epoch record's
+    MFU in (0, 1); the streaming run's batches gathered by the C++ host
+    runtime (native.gather_rows' calls counted) and the numpy run's not;
+    the streaming and resident runs' summaries and epoch records (but
+    their wall-clock and MFU fields) equal. (The variable switches the
+    normalization to numpy too, whose stats are 1e-15 apart from the
+    runtime's: that run's losses part from the others' in the fourth or
+    fifth digit, printed.) The two streaming runs are profiled: the CLI's
+    wall ms and device ms a training step, and the device's idle share."""
+    from raindrop_tpu_torch import native
+
     argv = ["--dataset", "PAM", "--synthetic", str(CLI_N), "--measure-mfu", "true",
-            "--epochs", str(CLI_EPOCHS), "--n-splits", "1", "--seed", str(seed + 1)]
-    summary, records, fwd, bwd, took = run_cli(
-        wrappers, argv + ["--input-pipeline", "streaming"], "PAM streaming")
-    check_cli("PAM streaming", summary, records, "missing_0.0")
+            "--epochs", str(CLI_STREAM_EPOCHS), "--n-splits", "1", "--seed", str(seed + 1)]
+    steps = 30 * CLI_STREAM_EPOCHS
+    runs = {}
+    for name, flag in (("streaming", None), ("streaming_numpy", "0")):
+        calls = native.gather_rows.calls
+        box = []
+        with native_flag(flag) if flag else contextlib.nullcontext():
+            prof = profile_device(lambda: box.append(run_cli(
+                wrappers, argv + ["--input-pipeline", "streaming"], f"PAM {name}")), steps)
+        runs[name] = (*box[0], native.gather_rows.calls - calls, prof)
+    summary, records, fwd, bwd, took, gathers, prof = runs["streaming"]
+    check_cli("PAM streaming", summary, records, "missing_0.0", CLI_STREAM_EPOCHS)
     check_fused_tc("PAM streaming (CLI)", fwd, bwd)
+    np_gathers = runs["streaming_numpy"][5]
+    if gathers < steps or np_gathers:
+        raise AssertionError(f"PAM streaming (CLI): {gathers} C++ gathers for {steps} "
+                             f"steps, {np_gathers} under RAINDROP_TPU_NATIVE=0")
     res_summary, res_records, _, _, res_took = run_cli(
         wrappers, argv + ["--input-pipeline", "resident"], "PAM resident")
     timing = ("elapsed_s", "train_tflops_per_sec", "mfu")
@@ -3310,10 +3362,19 @@ def cli_stream_phase(wrappers, seed=0):
         raise AssertionError(f"PAM streaming (CLI): not equal to the resident run: "
                              f"{summary} against {res_summary}; "
                              f"{untimed(records)} against {untimed(res_records)}")
+    np_losses = [r["train_loss"] for r in runs["streaming_numpy"][1]]
+    profiled = {name: dict(wall_ms_a_step=r[6][0], device_ms_a_step=r[6][1],
+                           idle_share=r[6][2], seconds=r[4]) for name, r in runs.items()}
     print(f"[cli] PAM streaming in {took:.1f} s (resident {res_took:.1f} s, summary "
-          f"and epoch records equal); launches {fwd}, backward {bwd}", flush=True)
+          f"and epoch records equal); launches {fwd}, backward {bwd}; C++ gathers "
+          f"{gathers}; epoch losses {[r['train_loss'] for r in records]}, on the numpy "
+          f"path {np_losses}; profiled, C++ / numpy path: "
+          + ", ".join(f"{k} {profiled['streaming'][k]} / {profiled['streaming_numpy'][k]}"
+                      for k in ("wall_ms_a_step", "device_ms_a_step", "idle_share")),
+          flush=True)
     return dict(seconds=took, resident_seconds=res_took, summary=summary,
-                records=records, launches=fwd, bwd_launches=bwd)
+                records=records, launches=fwd, bwd_launches=bwd, cpp_gathers=gathers,
+                numpy_path_losses=np_losses, profiled=profiled)
 
 
 def _train_config(dataset, **kw):
@@ -4978,6 +5039,664 @@ def torchrun_cli_phase(seed=0):
     return summary, took
 
 
+# ------------------------------------------------------------- host runtime
+PAM_2048_BATCH = (128, 2048, 34)   # one PAM-2048 batch: B, T, 2F (float32)
+P12_SIZE = (11988, 215, 36, 9)     # P12's samples, steps, sensors, statics
+
+
+def _delta_numpy(mask, times):
+    """The GRU-D deltas in float64 numpy, rounded to float32 at each step as
+    the host runtime's loop rounds them (data/preprocess.py's deltas)."""
+    N, T, F = mask.shape
+    d = np.zeros((N, T, F), np.float32)
+    for t in range(1, T):
+        gap = (times[:, t] - times[:, t - 1])[:, None]
+        d[:, t] = (gap + (1.0 - mask[:, t - 1].astype(np.float64))
+                   * d[:, t - 1].astype(np.float64)).astype(np.float32)
+    return d
+
+
+@contextlib.contextmanager
+def native_flag(value):
+    """RAINDROP_TPU_NATIVE set to `value` in the scope ("0": the numpy
+    functions), restored after."""
+    old = os.environ.get("RAINDROP_TPU_NATIVE")
+    os.environ["RAINDROP_TPU_NATIVE"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("RAINDROP_TPU_NATIVE")
+        else:
+            os.environ["RAINDROP_TPU_NATIVE"] = old
+
+
+def _host_ms(fn, reps):
+    """Median host-clock ms of fn() over `reps` calls after one warm-up."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ts))
+
+
+def host_runtime_phase(seed=0):
+    """The C++ host runtime (raindrop_tpu_torch/native.py over
+    csrc/host/raindrop_host.cpp) on the card's host: built once with g++
+    (seconds printed), each of its seven functions held against the numpy
+    path on the same arrays (bit-equal; get_stats within 1e-12 relative;
+    build_delta against the float64 recurrence it computes, and beside the
+    port's float32 torch deltas), the OpenMP runtimes mapped in the
+    process, and the times of the producer's gather of one PAM-2048 batch
+    and of load_split's normalization at P12's size, numpy against C++."""
+    import torch
+    from raindrop_tpu_torch import native
+    from raindrop_tpu_torch.baselines.grud import build_delta as torch_delta
+    from raindrop_tpu_torch.data import normalize as norm
+    from raindrop_tpu_torch.data.settings import remove_sensors_fixed
+
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    with open("/proc/self/maps") as f:
+        gomp = sorted({line.split()[-1] for line in f if "gomp" in line})
+    print(f"[host] built {native.library_path().name} in {build_s:.2f} s; OpenMP "
+          f"runtimes mapped: {gomp}", flush=True)
+    rng = np.random.default_rng(seed)
+    P = np.abs(rng.normal(3.0, 2.0, size=(300, 60, 17))) * (rng.uniform(size=(300, 60, 17)) > 0.5)
+    P[:, :, 4] = 0.0
+    Ps = rng.normal(1.0, 2.0, size=(300, 9))
+    with native_flag("0"):
+        mf_n, sd_n = norm.get_stats(P)
+        mf0 = np.nan_to_num(mf_n)
+        norm_n = norm.mask_normalize(P.astype(np.float64), mf0, sd_n).astype(np.float32)
+        ms, ss = norm.get_stats_static(Ps, "P12", compat=False)
+        stat_n = norm.mask_normalize_static(Ps, ms, ss).astype(np.float32)
+    mf_c, sd_c = native.get_stats(P)
+    fin = np.isfinite(mf_n)
+    stats_err = float(max(np.abs(mf_c[fin] / mf_n[fin] - 1).max(),
+                          np.abs(sd_c[fin] / sd_n[fin] - 1).max()))
+    mask = (P > 0).astype(np.float32)
+    times = np.cumsum(rng.uniform(0.1, 1.5, size=(300, 60)), axis=1)
+    delta = native.build_delta(mask, times)
+    torch_err = float((torch.from_numpy(delta) - torch_delta(
+        torch.from_numpy(mask), torch.from_numpy(times.astype(np.float32)))).abs().max())
+    X = rng.normal(size=(300, 60, 34)).astype(np.float32)
+    ranked = rng.permutation(17)
+    idx = rng.integers(0, 300, size=128)
+    # bit-equal, NaN where numpy gives NaN (the never-observed sensor's std)
+    equal = {
+        "mask_normalize": np.array_equal(native.mask_normalize(P, mf0, sd_n), norm_n,
+                                         equal_nan=True),
+        "mask_normalize_static": np.array_equal(native.mask_normalize_static(Ps, ms, ss),
+                                                stat_n),
+        "build_delta": np.array_equal(delta, _delta_numpy(mask, times)),
+        "zero_sensors": np.array_equal(native.zero_sensors(X.copy(), ranked[:5]),
+                                       remove_sensors_fixed(X, ranked, 5 / 17)),
+        "gather_rows": np.array_equal(native.gather_rows(X, idx), X[idx]),
+        "gather_time_major": np.array_equal(native.gather_time_major(X, idx),
+                                            np.moveaxis(X[idx], 0, 1)),
+        "get_stats_nan": bool(np.isnan(mf_c[4]) and np.isnan(sd_c[4])),
+    }
+    print(f"[host] against numpy: get_stats {stats_err:.3e} relative (limit 1e-12); "
+          f"bit-equal {equal}; build_delta against the float32 torch recurrence "
+          f"{torch_err:.3e}", flush=True)
+    if stats_err > 1e-12 or not all(equal.values()):
+        raise AssertionError(f"the host runtime disagrees with numpy: get_stats "
+                             f"{stats_err}, {equal}")
+
+    # the producer's gather of one PAM-2048 batch from a split on the host
+    B, T, C = PAM_2048_BATCH
+    src = rng.normal(size=(4 * B, T, C)).astype(np.float32)
+    rows = rng.permutation(4 * B)[:B]
+    gather = {"numpy": _host_ms(lambda: np.ascontiguousarray(src[rows]), 10),
+              "cpp": _host_ms(lambda: native.gather_rows(src, rows), 10)}
+    del src
+    # load_split's normalization at P12's size: the train portion's stats,
+    # then every sample normalized (data/normalize.tensorize_normalize)
+    N, T12, F, S = P12_SIZE
+    arrs = np.abs(rng.normal(2.0, 1.0, size=(N, T12, F)))   # float64, as parse writes
+    arrs *= rng.uniform(size=arrs.shape) > 0.8
+    tms = np.cumsum(rng.uniform(1, 20, size=(N, T12)), axis=1)
+    statics = rng.normal(size=(N, S))
+    y = rng.integers(0, 2, size=N)
+    train = int(0.8 * N)
+
+    def normalize():
+        mf, sd = norm.get_stats(arrs[:train])
+        ms_, ss_ = norm.get_stats_static(statics[:train], "P12")
+        return norm.tensorize_normalize(arrs, tms, statics, y, np.nan_to_num(mf), sd,
+                                        ms_, ss_)
+
+    with native_flag("0"):
+        t0 = time.perf_counter()
+        want = normalize()
+        numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = normalize()
+    cpp_s = time.perf_counter() - t0
+    # numpy's pairwise sums and the runtime's compensated ones give stats
+    # 1e-15 apart, which move the last float32 digits of the z-scores
+    diff = max(float(np.abs(a.astype(np.float64) - b).max()) / max(1.0, float(np.abs(b).max()))
+               for a, b in zip(got, want))
+    same = diff <= 1e-6
+    mb = B * T * C * 4 / 1e6
+    print(f"[host] gather of one PAM-2048 batch ({B} x {T} x {C} float32, {mb:.1f} MB): "
+          f"numpy {gather['numpy']:.3f} ms, C++ {gather['cpp']:.3f} ms (medians of 10); "
+          f"load_split's normalization at P12's size ({N} x {T12} x {F}): numpy "
+          f"{numpy_s:.3f} s, C++ {cpp_s:.3f} s, the arrays {diff:.3e} apart relative "
+          f"(limit 1e-6)", flush=True)
+    if not same:
+        raise AssertionError(f"load_split's normalization: numpy and C++ {diff} apart")
+    del arrs, got, want
+    return dict(build_s=build_s, library=native.library_path().name, openmp=gomp,
+                get_stats_rel_err=stats_err, bit_equal=equal,
+                delta_vs_torch_f32=torch_err, gather_ms=gather, gather_mb=mb,
+                normalize_s={"numpy": numpy_s, "cpp": cpp_s}, normalize_rel_diff=diff)
+
+
+# ------------------------------------------------------------ past hd 368
+WIDE_HEAD = {"sensor_wise_mask": True, "nhead": 1}   # P12-sw at one head: hd 720
+HD_STREAM_PACKED = (372, 720, 1023)
+HD_STREAM_SPLIT = (720, 1024)
+
+
+def _hd_stream_counts(fn):
+    return {a: getattr(fn, a) for a in ("launches", "bwd_launches", "hd_stream_launches",
+                                         "hd_stream_bwd_launches")}
+
+
+def _check_hd_stream(what, fn, before, fwd, bwd):
+    """fwd forward and bwd backward launches of `fn` since `before`, every
+    one on the "hd_stream" route."""
+    now = _hd_stream_counts(fn)
+    got = {a: now[a] - before[a] for a in now}
+    want = {"launches": fwd, "bwd_launches": bwd, "hd_stream_launches": fwd,
+            "hd_stream_bwd_launches": bwd}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def check_hd_stream(what, *counts):
+    """Every flash_mha_packed launch in these counts past hd 368 took the
+    "hd_stream" route."""
+    for c in counts:
+        n = c["flash_mha_packed"]
+        if n <= 0 or c["flash_mha_packed.hd_stream"] != n:
+            raise AssertionError(f"{what}: flash_mha_packed launches off the hd_stream "
+                                 f"route: {c}")
+
+
+def sdpa_backend(q, k, v, mask):
+    """The first of PyTorch's SDPA backends (flash, memory-efficient,
+    cuDNN, math) that takes these operands with a key mask and dropout,
+    forward and backward: (its name, a callable running SDPA on it)."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                out = sdpa(q, k, v, attn_mask=mask, dropout_p=0.2)
+                torch.autograd.grad(out.sum(), (q, k, v))
+        except RuntimeError:
+            continue
+
+        def run(dropout_p=0.0, b=b):
+            with sdpa_kernel([b]):
+                return sdpa(q, k, v, attn_mask=mask, dropout_p=dropout_p)
+        return b.name, run
+    raise AssertionError("no SDPA backend takes these operands")
+
+
+def hd_stream_kernel_phase(device="cuda", seed=0):
+    """The route past hd 368 against the plain versions: flash_mha_packed at
+    hd 372, 720 and 1023 (B=8, T=215, one head) and flash_mha at hd 720 and
+    1024 on T=600 and T=2048 (B=8, H=1), forward and backward, f32 and
+    bf16, dropout 0 and 0.2, ragged lengths with 0 and 1 (zeros for the
+    length-0 sample); every launch counted on "hd_stream"; and at hd 360
+    impl="hd_stream" bit-equal to the scalar Wide kernels it mirrors."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    runs = []
+    for kind, dims, Ts in (("packed", HD_STREAM_PACKED, (215,)),
+                           ("split", HD_STREAM_SPLIT, (600, 2048))):
+        fn = fa.flash_mha_packed if kind == "packed" else fa.flash_mha
+        for hd in dims:
+            for T in Ts:
+                B = 8
+                shape = (B, T, hd) if kind == "packed" else (B, 1, T, hd)
+                q, k, v, g = (torch.randn(shape, generator=gen, device=device)
+                              for _ in range(4))
+                lengths = ragged_lengths(gen, B, T, device)
+                for dtype, rate in [(dt, r) for dt in ("float32", "bfloat16")
+                                    for r in (0.0, 0.2)]:
+                    cd = None if dtype == "float32" else dtype
+                    od = fa.operand_dtype(cd)
+                    before = _hd_stream_counts(fn)
+                    if kind == "packed":
+                        o, lse = fa._packed_fwd(q, k, v, lengths, SEED, rate, cd, 1)
+                        grads = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, 1, od, o,
+                                                    lse, g)
+                        po, plse = fa._packed_fwd_plain(q, k, v, lengths, 1, od, SEED, rate)
+                        want = fa._packed_bwd_plain(q, k, v, lengths, SEED, rate, 1, od, o,
+                                                    lse, g)
+                    else:
+                        o, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
+                        grads = fa._flash_bwd_cuda(q, k, v, lengths, SEED, rate, od, o, lse,
+                                                   g)
+                        po, plse = fa._flash_fwd_plain(q, k, v, lengths, od, SEED, rate)
+                        want = fa._flash_bwd_plain(q, k, v, lengths, SEED, rate, od, o, lse,
+                                                   g)
+                    _check_hd_stream(f"{kind} hd {hd} T={T}", fn, before, 1, 1)
+                    torch.cuda.synchronize()
+                    fwd_err = max(max_err(o, po), max_err(lse, plse))
+                    errs = [sample_err(a, b, lengths) for a, b in zip(grads, want)]
+                    zero = all(bool((x[0] == 0).all()) for x in (o, *grads))
+                    finite = all(bool(torch.isfinite(x).all()) for x in (o, *grads))
+                    ok = (fwd_err <= TOL[dtype] and max(errs) <= SAMPLE_TOL[dtype]
+                          and zero and finite)
+                    runs.append(dict(kind=kind, hd=hd, T=T, dtype=dtype, rate=rate,
+                                     max_abs_err=fwd_err, grad_sample_err=max(errs)))
+                    print(f"[hd_stream] {kind} hd {hd} T={T} {dtype} dropout {rate}: "
+                          f"forward max_abs_err {fwd_err:.3e} (tol {TOL[dtype]:g}), "
+                          f"gradients sample_err {max(errs):.3e} (tol "
+                          f"{SAMPLE_TOL[dtype]:g})", flush=True)
+                    if not ok:
+                        raise AssertionError(f"hd_stream {kind} disagrees at hd {hd} T={T} "
+                                             f"{dtype} {rate} (zeros {zero}, finite {finite})")
+    # below 369 the route is the scalar Wide kernels' bits
+    q, k, v, g = (torch.randn((8, 215, 720), generator=gen, device=device) for _ in range(4))
+    lengths = ragged_lengths(gen, 8, 215, device)
+    for cd in (None, "bfloat16"):
+        od = fa.operand_dtype(cd)
+        outs = []
+        for impl in ("scalar", "hd_stream"):
+            o, lse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.2, 2, od, impl)
+            outs.append((o, lse, *fa._packed_bwd_cuda(q, k, v, lengths, SEED, 0.2, 2, od,
+                                                      o, lse, g, impl)))
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"hd_stream at hd 360 ({cd}) is not the scalar Wide "
+                                 f"kernels' bits")
+    print("[hd_stream] hd 360, dropout 0.2: impl='hd_stream' bit-equal to the scalar Wide "
+          "kernels in f32 and bf16 (o, lse, dq, dk, dv)", flush=True)
+    return runs
+
+
+def hd_stream_timing(label, kind, B, T, hd, dtype, device="cuda", seed=0, reps=5):
+    """The route's forward and backward at one shape (one head, dropout
+    0.2 in the backward, the model's): CUDA-event ms, the plain versions',
+    SDPA's with a key mask on the first backend that takes the head dim
+    (named), and the bounds (bytes of attention_bytes; 4 and 10 T hd
+    FLOPs a live key)."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cd = None if dtype == "float32" else dtype
+    od = fa.operand_dtype(cd)
+    shape = (B, T, hd) if kind == "packed" else (B, 1, T, hd)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=device).to(od)
+                  for _ in range(4))
+    lengths = ragged_lengths(gen, B, T, device)
+    if kind == "packed":
+        fwd = lambda: fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.0, 1, od)  # noqa: E731
+        plain_fwd = lambda: fa._packed_fwd_plain(q, k, v, lengths, 1, od)  # noqa: E731
+        o, lse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.2, 1, od)
+        bargs = (q, k, v, lengths, SEED, 0.2, 1, od, o, lse, g)
+        bwd = lambda: fa._packed_bwd_cuda(*bargs)  # noqa: E731
+        plain_bwd = lambda: fa._packed_bwd_plain(*bargs)  # noqa: E731
+    else:
+        fwd = lambda: fa._flash_fwd_cuda(q, k, v, lengths, SEED, 0.0, od)  # noqa: E731
+        plain_fwd = lambda: fa._flash_fwd_plain(q, k, v, lengths, od)  # noqa: E731
+        o, lse = fa._flash_fwd_cuda(q, k, v, lengths, SEED, 0.2, od)
+        bargs = (q, k, v, lengths, SEED, 0.2, od, o, lse, g)
+        bwd = lambda: fa._flash_bwd_cuda(*bargs)  # noqa: E731
+        plain_bwd = lambda: fa._flash_bwd_plain(*bargs)  # noqa: E731
+    ms, bwd_ms = time_ms(fwd, reps, 1), time_ms(bwd, reps, 1)
+    plain_ms, bwd_plain_ms = time_ms(plain_fwd, 3, 1), time_ms(plain_bwd, 3, 1)
+    live = lengths > 0
+    qh, kh, vh = (x[live].reshape(-1, T, 1, hd).transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    keep = (torch.arange(T, device=device)[None, :]
+            < lengths[live][:, None])[:, None, None, :]
+    backend, sdpa = sdpa_backend(qh, kh, vh, keep)
+    library_ms = time_ms(sdpa, reps, 1)
+    out = sdpa(0.2)
+    gh = g[live].reshape(-1, T, 1, hd).transpose(1, 2)
+    bwd_library_ms = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
+                                                         retain_graph=True), reps, 1)
+    esize = 2 if dtype == "bfloat16" else 4
+    keys = float(lengths.sum())
+    fb = bound(attention_bytes(lengths, T, hd, 1, esize), 4.0 * T * hd * keys, dtype)
+    bb = bound(attention_bytes(lengths, T, hd, 1, esize, backward=True),
+               10.0 * T * hd * keys, dtype)
+    print(f"[hd_stream] {label} {kind} B={B} T={T} hd {hd} {dtype}: forward {ms:.4f} ms "
+          f"(bound {fb[0]:.4f} ms, {fb[1]}; plain {plain_ms:.4f}; SDPA ({backend}) "
+          f"{library_ms:.4f}); backward, dropout 0.2 {bwd_ms:.4f} ms (bound {bb[0]:.4f} ms, "
+          f"{bb[1]}; plain {bwd_plain_ms:.4f}; SDPA backward {bwd_library_ms:.4f})",
+          flush=True)
+    return dict(label=label, kind=kind, B=B, T=T, hd=hd, dtype=dtype, ms=ms, bwd_ms=bwd_ms,
+                plain_ms=plain_ms, bwd_plain_ms=bwd_plain_ms, library_ms=library_ms,
+                bwd_library_ms=bwd_library_ms, sdpa_backend=backend, bound_ms=fb[0],
+                bound_by=fb[1], bwd_bound_ms=bb[0], bwd_bound_by=bb[1])
+
+
+def wide_head_model(wrappers, overrides, label, device="cuda", seed=0, batch=128,
+                    buckets=(1, 8, 32, 128), steps=3):
+    """P12-sw at one head (d = hd = 720, T=215, 2 layers, dropout 0.2) with
+    `overrides`: served at the four buckets, then trained `steps` steps at
+    B=128; the counts set to 0 before each and read after, every
+    flash_mha_packed launch on "hd_stream". Served probabilities and the
+    first step's loss and gradient norm (dropout 0) held against the same
+    configuration on the kernels' plain versions: 1e-4 with f32 attention
+    operands, 2e-2 with bf16."""
+    import torch
+    from raindrop_tpu_torch.config import TrainConfig, dataset_config
+    from raindrop_tpu_torch.data.sampler import balanced_batches
+    from raindrop_tpu_torch.models.raindrop import raindrop_init
+    from raindrop_tpu_torch.serve import InferenceServer
+    from raindrop_tpu_torch.train.trainer import Trainer
+
+    cfg = dataset_config("P12", **WIDE_HEAD, **overrides)
+    if (cfg.d_transformer, cfg.nhead) != (720, 1):
+        raise AssertionError(f"{label}: d {cfg.d_transformer}, {cfg.nhead} heads")
+    tol = 2e-2 if "bfloat16" in (cfg.compute_dtype, cfg.attention_score_dtype) else 1e-4
+    params = raindrop_init(seed, cfg, device=device)
+    server = InferenceServer(cfg, params, buckets=buckets, device=device)
+    top = buckets[-1]
+    P, times, static = make_requests(cfg, top, seed + 1)
+    reset_counts(wrappers)
+    outs = {n: server.predict(P[:n], times[:n], _rows(static, slice(0, n)))
+            for n in buckets}
+    launches = read_counts(wrappers, "launches")
+    check_hd_stream(f"{label} serving", launches)
+    for n, pr in outs.items():
+        _probs_ok(f"{label} served {n}", pr)
+    with plain_kernels():
+        plain = server.predict(P[:top], times[:top], _rows(static, slice(0, top)))
+    checks = {"kernel_vs_plain": float(np.abs(outs[top] - plain).max()),
+              "alone_vs_full_bucket": float(np.abs(outs[1][0] - outs[top][0]).max())}
+    latency = {}
+    for n in buckets:
+        args = (P[:n], times[:n], _rows(static, slice(0, n)))
+        latency[n] = _host_ms(lambda: server.predict(*args), 3)
+    server.close()
+
+    tcfg = TrainConfig(dataset="P12", learning_rate=1e-4, batch_size=batch,
+                       batching_strategy=2, seed=seed + 1)
+    data, y = make_split(cfg, 4 * batch, seed + 2, device)
+    idx = torch.from_numpy(np.stack(list(balanced_batches(
+        y, batch, 2, np.random.default_rng(seed)))[:steps])).to(device)
+    trainer = Trainer(cfg, tcfg, device=device, params=params)
+    reset_counts(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, _ = trainer.train_epoch(data, idx)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    tf, tb = (read_counts(wrappers, a) for a in ("launches", "bwd_launches"))
+    check_hd_stream(f"{label} training", tf, tb)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{label}: a training loss is not finite: {losses}")
+    del trainer
+    first = {k: v[idx[0]] for k, v in data.items()}
+    c0 = dataset_config("P12", **WIDE_HEAD, **overrides, dropout=0.0)
+    (lk, gk, _), (lp, gp, _) = (_first_step(c0, tcfg, params, first, device, plain)
+                                for plain in (False, True))
+    checks["loss_vs_plain"] = abs(lk - lp) / abs(lp)
+    checks["grad_norm_vs_plain"] = abs(gk - gp) / gp
+    print(f"[wide head] {label}: served launches {launches}; trained {steps} steps, "
+          f"losses {[round(float(x), 6) for x in losses]}, {step_ms:.1f} ms a step (host "
+          f"clock), launches {tf}, backward {tb}; latency ms by bucket {latency}; first "
+          f"step at dropout 0: loss {lk:.7f} (plain {lp:.7f}), gradient norm {gk:.7f} "
+          f"(plain {gp:.7f}); checks {checks} (limit {tol:g})", flush=True)
+    bad = {k: v for k, v in checks.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"{label}: checks over {tol:g}: {bad}")
+    return dict(serve_launches=launches, train_launches=tf, train_bwd_launches=tb,
+                checks=checks, limit=tol, losses=[float(x) for x in losses],
+                step_ms=step_ms, latency_ms=latency)
+
+
+def wide_head_phase(wrappers, device="cuda", seed=0):
+    """Attention past head dim 368: the route's kernel checks
+    (hd_stream_kernel_phase); P12-sw at one head (hd 720) served and
+    trained with f32 attention operands and with compute_dtype='bfloat16'
+    (wide_head_model); the route's times at the model's shape (B=128,
+    T=215, hd 720, bf16) and flash_mha's at T=2048, hd 720 (B=8); and the
+    public op flash_mha at hd 720 and 1024 through autograd, the counts
+    set to 0 before and read after (its launches in the record)."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+
+    kernel_runs = hd_stream_kernel_phase(device, seed)
+    models = {"float32": wide_head_model(wrappers, {"attention_score_dtype": "float32"},
+                                         "P12-sw-1h f32", device, seed),
+              "bfloat16": wide_head_model(wrappers, MIXED, "P12-sw-1h bf16", device, seed)}
+    torch.cuda.empty_cache()
+    timing = {"packed": hd_stream_timing("P12-sw-1h", "packed", 128, 215, 720, "bfloat16",
+                                         device, seed),
+              "packed_f32": hd_stream_timing("P12-sw-1h", "packed", 128, 215, 720,
+                                             "float32", device, seed),
+              "split": hd_stream_timing("hd720-2048", "split", 8, 2048, 720, "bfloat16",
+                                        device, seed, reps=3)}
+    # the public op through autograd at hd 720 and 1024, T=600, B=8, 2 heads
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    reset_counts(wrappers)
+    for D in HD_STREAM_SPLIT:
+        q, k, v = (torch.randn((8, 600, 2 * D), generator=gen, device=device)
+                   .reshape(8, 600, 2, D).transpose(1, 2).requires_grad_()
+                   for _ in range(3))
+        lengths = ragged_lengths(gen, 8, 600, device)
+        o = fa.flash_mha(q, k, v, lengths, SEED, 0.2, "bfloat16")
+        o.backward(torch.ones_like(o))
+        if not all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v)):
+            raise AssertionError(f"flash_mha at hd {D}: a gradient is not finite")
+    op = {a: getattr(fa.flash_mha, a) for a in ("launches", "bwd_launches",
+                                                "hd_stream_launches",
+                                                "hd_stream_bwd_launches")}
+    if op != {"launches": 2, "bwd_launches": 2, "hd_stream_launches": 2,
+              "hd_stream_bwd_launches": 2}:
+        raise AssertionError(f"flash_mha past hd 368 through autograd: launches {op}")
+    print(f"[wide head] flash_mha through autograd at hd 720 and 1024: launches {op}",
+          flush=True)
+    return dict(kernels=kernel_runs, models=models, timing=timing, op_launches=op)
+
+
+# ------------------------------------------------------- past 65535 samples
+BIG_B = 70000
+
+
+def big_batch_phase(wrappers, device="cuda", seed=0):
+    """Every kernel row at B=70000 samples (two launches a call, the second
+    at sample origin 65535), dropout 0.2 where the op has it: flash_mha_packed
+    (T=16, 2 heads of 32) and flash_mha (T=16, 2 heads of 32; and 2
+    samples of 70000 heads), the fused layer at PAM's width (d=84, ffn=136,
+    2 heads) and T=16, f32 and bf16, and spmm_segment_softmax (both
+    gathers) and sddmm on P12's sensor graph (N=36, E=1296, D=8), forward
+    and backward. Each call must launch twice forward and twice backward
+    (the counts set to 0 before it), its second launch's rows must equal,
+    bit for bit, those of a call over the last 4465 samples alone at their
+    origin, and it is held against the plain versions (so the masks past
+    sample 65535 are compared): the attention's outputs and gradients and
+    the fused layer's out, attn and dx sample by sample at SAMPLE_TOL, in
+    f32 over every sample, in bf16 over the 128 samples at each end of
+    either launch (SAMPLE_TOL is set from B=128 readings; the largest over
+    all 70000 and the count past it are printed), lse at TOL, the fused
+    weight gradients at TOL relative to max(1, |plain|), the graph kernels
+    at GRAPH_TOL relative."""
+    import torch
+    from raindrop_tpu_torch.ops import flash_attention as fa
+    from raindrop_tpu_torch.ops import fused_encoder as fe
+    from raindrop_tpu_torch.ops import sparse as sp
+    from raindrop_tpu_torch.nn.transformer import _layer_init
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    B, T, S = BIG_B, 16, fa.MAX_BATCH
+    lengths = ragged_lengths(gen, B, T, device)
+    lengths[S], lengths[S + 1] = 0, T
+    ends = torch.cat([torch.arange(0, 128), torch.arange(S - 128, S + 128),
+                      torch.arange(B - 128, B)]).to(device)
+    out = {}
+
+    def rel(a, b):
+        return max_err(a, b) / max(1.0, float(b.abs().max()))
+
+    def per_sample(a, b, ls, dtype):
+        """sample_err over every sample (f32) or the launches' ends (bf16),
+        and (the largest over all, how many samples pass SAMPLE_TOL)."""
+        errs = ((a - b).abs().reshape(a.shape[0], -1).amax(1)
+                / b.abs().reshape(b.shape[0], -1).amax(1).clamp(min=1e-30))
+        tail = (float(errs[ls > 1].max()), int((errs[ls > 1] > SAMPLE_TOL[dtype]).sum()))
+        if dtype == "float32" or a.shape[0] < B:
+            return sample_err(a, b, ls), tail
+        return sample_err(a[ends], b[ends], ls[ends]), tail
+
+    def held(name, n, errs, tails, same):
+        """errs: {what: (error, limit)}; n the call's (forward, backward)
+        launches, two each; `same` the second launch's rows bit-equal to a
+        call over them alone."""
+        out[name] = dict(errs={k: e for k, (e, _) in errs.items()}, launches=n,
+                         all_samples=tails, second_launch_bit_equal=same)
+        print(f"[big batch] {name}: launches {n}; the second launch's rows bit-equal "
+              f"alone: {same}; " + ", ".join(
+                  f"{k} {e:.3e} (limit {lim:g})" for k, (e, lim) in errs.items())
+              + (f"; over all samples (largest, count past SAMPLE_TOL) {tails}"
+                 if tails else ""), flush=True)
+        if n != (2, 2) or not same or any(not e <= lim for e, lim in errs.values()):
+            raise AssertionError(f"{name} at B={B}: launches {n}, alone {same}, "
+                                 f"errors {errs}")
+
+    for dtype in ("float32", "bfloat16"):
+        cd = None if dtype == "float32" else dtype
+        od = fa.operand_dtype(cd)
+        st, tl = SAMPLE_TOL[dtype], TOL[dtype]
+        q, k, v, g = (torch.randn((B, T, 64), generator=gen, device=device) for _ in range(4))
+        reset_counts(wrappers)
+        o, lse = fa._packed_fwd(q, k, v, lengths, SEED, 0.2, cd, 2)
+        grads = fa._packed_bwd_cuda(q, k, v, lengths, SEED, 0.2, 2, od, o, lse, g)
+        n = (fa.flash_mha_packed.launches, fa.flash_mha_packed.bwd_launches)
+        tail_args = [x[S:].contiguous() for x in (q, k, v, lengths)]
+        o2, lse2 = fa._packed_fwd_cuda(*tail_args, SEED, 0.2, 2, od, origin=(S, 0, 2))
+        g2 = fa._packed_bwd_cuda(*tail_args, SEED, 0.2, 2, od, o2, lse2, g[S:].contiguous(),
+                                 origin=(S, 0, 2))
+        same = (torch.equal(o2, o[S:]) and torch.equal(lse2, lse[S:])
+                and all(torch.equal(a, b[S:]) for a, b in zip(g2, grads)))
+        po, plse = fa._packed_fwd_plain(q, k, v, lengths, 2, od, SEED, 0.2)
+        want = fa._packed_bwd_plain(q, k, v, lengths, SEED, 0.2, 2, od, o, lse, g)
+        res = {n_: per_sample(a, b, lengths, dtype)
+               for n_, a, b in zip(("o", "dq", "dk", "dv"), (o, *grads), (po, *want))}
+        held(f"flash_mha_packed {dtype}", n,
+             {**{k_: (e, st) for k_, (e, _) in res.items()}, "lse": (max_err(lse, plse), tl)},
+             {k_: t for k_, (_, t) in res.items()}, same)
+        del q, k, v, g, o, lse, grads, po, plse, want, o2, lse2, g2, tail_args
+
+        for Bs, H in ((B, 2), (2, B)):
+            ls = lengths if Bs == B else torch.tensor([T, 5], dtype=torch.int32,
+                                                      device=device)
+            q, k, v = (torch.randn((Bs, T, H * 32), generator=gen, device=device)
+                       .reshape(Bs, T, H, 32).transpose(1, 2) for _ in range(3))
+            g = torch.randn((Bs, H, T, 32), generator=gen, device=device)
+            reset_counts(wrappers)
+            o, lse = fa._flash_fwd(q, k, v, ls, SEED, 0.2, cd)
+            grads = fa._flash_bwd_cuda(q, k, v, ls, SEED, 0.2, od, o, lse, g)
+            n = (fa.flash_mha.launches, fa.flash_mha.bwd_launches)
+            if Bs == B:
+                sl = [x[S:] for x in (q, k, v)]
+                origin = (S, 0, H)
+            else:
+                sl = [x[:, S:] for x in (q, k, v)]
+                origin = (0, S, H)
+            o2, lse2 = fa._flash_fwd_cuda(*sl, ls[S:] if Bs == B else ls, SEED, 0.2, od,
+                                          origin=origin)
+            rows = (slice(S, None),) if Bs == B else (slice(None), slice(S, None))
+            g2 = fa._flash_bwd_cuda(*sl, ls[S:] if Bs == B else ls, SEED, 0.2, od, o2, lse2,
+                                    g[rows], origin=origin)
+            same = (torch.equal(o2, o[rows]) and torch.equal(lse2, lse[rows])
+                    and all(torch.equal(a, b[rows]) for a, b in zip(g2, grads)))
+            po, plse = fa._flash_fwd_plain(q, k, v, ls, od, SEED, 0.2)
+            want = fa._flash_bwd_plain(q, k, v, ls, SEED, 0.2, od, o, lse, g)
+            res = {n_: per_sample(a, b, ls, dtype)
+                   for n_, a, b in zip(("o", "dq", "dk", "dv"), (o, *grads), (po, *want))}
+            held(f"flash_mha B={Bs} H={H} {dtype}", n,
+                 {**{k_: (e, st) for k_, (e, _) in res.items()},
+                  "lse": (max_err(lse, plse), tl)},
+                 {k_: t for k_, (_, t) in res.items()} if Bs == B else None, same)
+            del q, k, v, g, o, lse, grads, po, plse, want, o2, lse2, g2, sl
+
+        d, ffn = 84, 136
+        p = _layer_init(gen, d, ffn, device)
+        ws = fe._flatten(p)
+        x, g = (torch.randn((B, T, d), generator=gen, device=device) for _ in range(2))
+        reset_counts(wrappers)
+        fo, attn, flse = fe._fused_fwd_cuda(ws, x, lengths, SEED, 0.2, 2, od)
+        scratch = {}
+        dx, dws = fe._fused_bwd_cuda(ws, x, lengths, SEED, 0.2, 2, od, attn, flse, g,
+                                     scratch_out=scratch)
+        n = (fe.fused_encoder_layer.launches, fe.fused_encoder_layer.bwd_launches)
+        fo2, attn2, flse2 = fe._fused_fwd_cuda(ws, x[S:], lengths[S:], SEED, 0.2, 2, od,
+                                               origin=(S, 0, 2))
+        dx2, _ = fe._fused_bwd_cuda(ws, x[S:], lengths[S:], SEED, 0.2, 2, od, attn2, flse2,
+                                    g[S:], origin=(S, 0, 2))
+        same = (torch.equal(fo2, fo[S:]) and torch.equal(attn2, attn[S:])
+                and torch.equal(flse2, flse[S:]) and torch.equal(dx2, dx[S:]))
+        pout, pattn, plse = fe._fused_fwd_plain(p, x, lengths, 2, od, SEED, 0.2)
+        # the plain backward takes the kernel's relu branches (fused_bwd_phase)
+        pdx, pdws = fe._fused_bwd_plain(p, x, lengths, SEED, 0.2, 2, od, attn, flse, g,
+                                        relu_on=scratch["f"].reshape(B, T, ffn) > 0)
+        res = {n_: per_sample(a, b, lengths, dtype)
+               for n_, a, b in (("out", fo, pout), ("attn", attn, pattn), ("dx", dx, pdx))}
+        held(f"fused_encoder_layer {dtype}", n,
+             {**{k_: (e, st) for k_, (e, _) in res.items()},
+              "lse": (max_err(flse, plse), tl),
+              "weights": (max(rel(a, b) for a, b in zip(dws, pdws)), tl)},
+             {k_: t for k_, (_, t) in res.items()}, same)
+        del x, g, fo, attn, flse, dx, dws, pout, pattn, plse, pdx, pdws, scratch
+        del fo2, attn2, flse2, dx2
+        torch.cuda.empty_cache()
+
+    N, D = 36, 8
+    src = torch.arange(N, device=device).repeat_interleave(N)
+    dst = torch.arange(N, device=device).repeat(N)
+    x, k_, g_out = (torch.randn((B, N, D), generator=gen, device=device) for _ in range(3))
+    gamma, g_w = (torch.randn((B, N * N), generator=gen, device=device) for _ in range(2))
+    topo = sp.topology(src, dst, N)
+    for gather_target in (True, False):
+        reset_counts(wrappers)
+        o, w = sp._spmm_fwd_cuda(x, gamma, topo, gather_target)
+        dx, dgamma = sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gather_target)
+        n = (sp.spmm_segment_softmax.launches, sp.spmm_segment_softmax.bwd_launches)
+        o2, w2 = sp._spmm_fwd_cuda(x[S:], gamma[S:], topo, gather_target)
+        dx2, dg2 = sp._spmm_bwd_cuda(g_out[S:], g_w[S:], x[S:], w2, topo, gather_target)
+        same = all(torch.equal(a, b[S:]) for a, b in ((o2, o), (w2, w), (dx2, dx),
+                                                      (dg2, dgamma)))
+        po, pw = sp._spmm_fwd_plain(x, gamma, src, dst, N, gather_target)
+        pdx, pdg = sp._spmm_bwd_plain(g_out, g_w, x, w, src, dst, N, gather_target)
+        held(f"spmm_segment_softmax gather_target={gather_target}", n,
+             {n_: (rel(a, b), GRAPH_TOL) for n_, a, b in (
+                 ("out", o, po), ("w", w, pw), ("dx", dx, pdx), ("dgamma", dgamma, pdg))},
+             None, same)
+    reset_counts(wrappers)
+    alpha = sp._sddmm_fwd_cuda(x, k_, topo, D ** -0.5)
+    dq, dk = sp._sddmm_bwd_cuda(gamma, x, k_, topo, D ** -0.5)
+    n = (sp.sddmm.launches, sp.sddmm.bwd_launches)
+    alpha2 = sp._sddmm_fwd_cuda(x[S:], k_[S:], topo, D ** -0.5)
+    dq2, dk2 = sp._sddmm_bwd_cuda(gamma[S:], x[S:], k_[S:], topo, D ** -0.5)
+    same = all(torch.equal(a, b[S:]) for a, b in ((alpha2, alpha), (dq2, dq), (dk2, dk)))
+    pa = sp._sddmm_fwd_plain(x, k_, src, dst, D ** -0.5)
+    pdq, pdk = sp._sddmm_bwd_plain(gamma, x, k_, src, dst, D ** -0.5)
+    held("sddmm", n, {n_: (rel(a, b), GRAPH_TOL) for n_, a, b in (
+        ("alpha", alpha, pa), ("dq", dq, pdq), ("dk", dk, pdk))}, None, same)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5021,6 +5740,10 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s for {list(build.SOURCES)}", flush=True)
     phase_s = {}
+    # the data layer's C++ host runtime: its g++ build and its seven
+    # functions against numpy, then the gather and normalization times
+    with phase(phase_s, "host runtime"):
+        host = host_runtime_phase(args.seed)
     with phase(phase_s, "sass"):
         sass = sass_phase()
 
@@ -5299,6 +6022,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with phase(phase_s, "CLI torchrun"):
         torchrun_summary, torchrun_s = torchrun_cli_phase(args.seed)
+    torch.cuda.empty_cache()
+
+    # attention past head dim 368 (P12-sw at one head, the public op) and
+    # every kernel row at 70000 samples
+    with phase(phase_s, "attention past hd 368"):
+        wide = wide_head_phase(wrappers)
+    torch.cuda.empty_cache()
+    with phase(phase_s, "calls past 65535 samples"):
+        big = big_batch_phase(wrappers)
+    torch.cuda.empty_cache()
+    print(f"[slice 19] host runtime {phase_s['host runtime']:.1f} s, attention past hd "
+          f"368 {phase_s['attention past hd 368']:.1f} s, calls past 65535 samples "
+          f"{phase_s['calls past 65535 samples']:.1f} s", flush=True)
     print(f"[mesh phases] shard origins {phase_s['shard origins']:.1f} s, mesh "
           f"{phase_s['mesh NCCL world size 1']:.1f} s (of it the routes at world size 1), "
           f"two gloo ranks {phase_s['two gloo ranks']:.1f} s, the routes on two gloo "
@@ -5507,6 +6243,58 @@ def main(argv=None) -> int:
          "sources_also": [f"{csrc}/flash_packed_dkv_wide.cu", f"{csrc}/attention_tc_wide.cuh",
                           split_src]},
     ]
+    # past hd 368 ("hd_stream"): the packed pair's launches from
+    # P12-sw at one head (served forward, trained forward and backward, f32
+    # and bf16), flash_mha's from the public op at hd 720 and 1024; times at
+    # the model's shape (bf16, B=128, T=215, hd 720) and at T=2048, hd 720
+    # (B=8); max_abs_err the forward's, the backward's the gradients'
+    # sample_err, over every checked hd
+    hds = wide["kernels"]
+    models = wide["models"].values()
+
+    def hds_record(name, replaces, launches, kind, t, bwd, also=()):
+        runs = [r for r in hds if r["kind"] == kind]
+        pre = "bwd_" if bwd else ""
+        return {"name": name, "route": "cuda", "source": f"{csrc}/flash_packed_hds.cu",
+                "replaces": f"{jax_flash}:{replaces}", "launches": launches,
+                "max_abs_err": max(r["grad_sample_err" if bwd else "max_abs_err"]
+                                   for r in runs),
+                "ms": t[f"{pre}ms"], "plan_route": "hd_stream",
+                "plain_ms": t[f"{pre}plain_ms"], "bound_ms": t[f"{pre}bound_ms"],
+                "bound_by": t[f"{pre}bound_by"], "library_ms": t[f"{pre}library_ms"],
+                "library": f"SDPA, {t['sdpa_backend']} backend", "shape": {
+                    k: t[k] for k in ("B", "T", "hd", "dtype")},
+                **({"replaces_also": [f"{jax_flash}:{x}" for x in also]} if also else {}),
+                "sources_also": [f"{csrc}/attention_hd_stream.cuh",
+                                 f"{csrc}/flash_packed.cu", split_src]}
+
+    t_packed, t_split = wide["timing"]["packed"], wide["timing"]["split"]
+    kernels += [
+        hds_record("flash_mha_packed_fwd_hd_stream", 566,
+                   sum(m["serve_launches"]["flash_mha_packed.hd_stream"]
+                       + m["train_launches"]["flash_mha_packed.hd_stream"] for m in models),
+                   "packed", t_packed, False),
+        hds_record("flash_mha_packed_bwd_hd_stream", 610,
+                   sum(m["train_bwd_launches"]["flash_mha_packed.hd_stream"]
+                       for m in models), "packed", t_packed, True),
+        hds_record("flash_mha_fwd_hd_stream", 191, wide["op_launches"]["hd_stream_launches"],
+                   "split", t_split, False, (121,)),
+        hds_record("flash_mha_bwd_hd_stream", 237,
+                   wide["op_launches"]["hd_stream_bwd_launches"], "split", t_split, True,
+                   (275, 146)),
+    ]
+    # rows 1-11 at 70000 samples: the launches of each row's bf16 call there
+    # (forward or backward), two a call
+    big_rows = {"flash_mha_packed": "flash_mha_packed bfloat16",
+                "fused_encoder_layer": "fused_encoder_layer bfloat16",
+                "flash_mha": f"flash_mha B={BIG_B} H=2 bfloat16",
+                "flash_mha_fused_regime": f"flash_mha B={BIG_B} H=2 bfloat16",
+                "spmm_segment_softmax": "spmm_segment_softmax gather_target=True",
+                "sddmm": "sddmm"}
+    for rec in kernels:
+        op, _, way = rec["name"].rpartition("_")
+        if op in big_rows and way in ("fwd", "bwd"):
+            rec["big_batch_launches"] = big[big_rows[op]]["launches"][way == "bwd"]
     for rec in kernels:
         if rec["launches"] <= 0 or rec.get("mesh_launches", 1) <= 0:
             raise AssertionError(f"{rec['name']} was never launched on its path")
@@ -5561,6 +6349,7 @@ def main(argv=None) -> int:
                        "scale_out": scale_out,
                        "torchrun_cli": {"summary": torchrun_summary,
                                         "seconds": torchrun_s}},
+              "host_runtime": host, "wide_heads": wide, "big_batch": big,
               "phase_s": phase_s, "total_s": time.perf_counter() - t_start,
               "kernels": kernels}
     if args.out:

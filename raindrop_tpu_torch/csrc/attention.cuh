@@ -1,8 +1,8 @@
 // Device code shared by the forward kernels: streaming packed-heads
 // attention over one block of query rows, a row-block matrix product
 // against a weight in global memory, a row LayerNorm, and the counter
-// hash of the dropout masks. Scalar f32 FMA throughout; tensor cores are
-// later work.
+// hash of the dropout masks. Scalar f32 FMA throughout (the tensor-core
+// routines are attention_tc*.cuh and rows_tc.cuh).
 #pragma once
 
 #include <cstdint>
@@ -30,7 +30,8 @@ constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
 // keeps the per-thread work the same (TPR doubles) and the register count
 // bounded: a thread owns ceil(hd / TPR) output columns, at most 48 either
 // way. Narrow is what every head dim up to 128 has always run, so those
-// results keep their bits.
+// results keep their bits. Past hd 368 attention_hd_stream.cuh computes
+// the Wide routines' function in shared memory that does not grow with hd.
 template <int ROWS_, int KEYS_>
 struct Geom {
   static constexpr int ROWS = ROWS_, KEYS = KEYS_, TPR = NT / ROWS_;
@@ -120,11 +121,14 @@ inline Drop make_drop(double rate, Origin o) {
   return dr;
 }
 
-// An origin that does not place B samples and H heads inside the grid's
-// 65535 samples of at most 65535 heads (the entry points refuse it).
+// An origin that does not place B samples and H heads inside a batch whose
+// hashed (sample, head) index (b0 + b) * heads + h0 + h fits 32 bits, the
+// JAX package's uint32 bh (the entry points refuse it). A launch holds at
+// most 65535 samples on its grid; the wrappers split a larger call into
+// launches at their origins.
 inline bool bad_origin(Origin o, int B, int H) {
-  return o.b0 < 0 || o.h0 < 0 || o.heads < H || o.heads > 65535 || o.h0 > o.heads - H ||
-         o.b0 > 65535 - B;
+  return o.b0 < 0 || o.h0 < 0 || o.heads < H || o.h0 > o.heads - H ||
+         ((long long)o.b0 + B) * o.heads > 4294967296LL;
 }
 
 // Shared floats attend_rows needs for head dim hd.

@@ -37,6 +37,11 @@
 //   the Narrow geometry up to hd 192 and the Wide one (32-row blocks and
 //   tiles, attention.cuh says why) up to hd 368. TF32 would not hold the
 //   f32 route's 1e-4.
+// - "hd_stream", f32 or bf16 operands past hd 368 (and on request at any
+//   hd): attention_hd_stream.cuh, launched from flash_packed_hds.cu. The
+//   scalar Wide routines' function and bits in shared memory that does not
+//   grow with hd: the head dim streamed in chunks through the score
+//   products, the outputs' columns split over the grid's x axis.
 //
 // Design: the TPU kernels hold one sample's [T, T] score tile in VMEM and
 // isolate heads with lane masks. Neither carries over. Here one CTA takes
@@ -152,6 +157,8 @@ Plan expected_plan(int B, int T, int d, int nhead, int bf16, int route) {
     p.smem_dq = rd::tc::wide_dq_smem_bytes(hd);
     p.smem_dkv = rd::tc::wide_dkv_smem_bytes(hd);
     p.threads_fwd = p.threads_dq = p.threads_dkv = rd::tc::WIDE_THREADS;
+  } else if (route == 3) {
+    rd::packed::hds_plan(p, hd, bf16);
   } else {
     p.hd_pad = hd;
     p.copy_bytes = bf16 ? 2 : 4;
@@ -163,7 +170,7 @@ Plan expected_plan(int B, int T, int d, int nhead, int bf16, int route) {
     p.threads_fwd = p.threads_dq = p.threads_dkv = rd::NT;
   }
   p.cols = hd;
-  p.grid_x = (T + p.rows - 1) / p.rows;
+  p.grid_x = (T + p.rows - 1) / p.rows * (route == 3 ? rd::hs::slices(hd) : 1);
   p.grid_y = nhead;
   p.grid_z = B;
   return p;
@@ -184,6 +191,7 @@ bool route_ok(int route, int hd, int bf16) {
     return bf16 && rd::tc::pad16(hd) > rd::packed::TC_MAX_HD_PAD &&
            hd <= rd::tc::WIDE_MAX_HD_PAD;
   }
+  if (route == 3) return hd >= 1;
   return route == 0 && hd <= rd::SCALAR_MAX_HD;
 }
 
@@ -196,7 +204,7 @@ bool make_plan(const int* ints, int B, int T, int d, int nhead, int bf16,
   const int route = ints[0];
   if (!route_ok(route, d / nhead, bf16)) return false;
   Plan e = expected_plan(B, T, d, nhead, bf16, route);
-  if (route != 0) {
+  if (route == 1 || route == 2) {
     if (!copy_ok(ints[2], d / nhead, d, operands)) return false;
     e.copy_bytes = ints[2];
   }
@@ -245,6 +253,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* d_o,
   return (int)cudaGetLastError();
 }
 
+// A launch holds at most 65535 samples and heads (the grid's z and y axes);
+// the wrapper splits a larger batch into launches at their sample origins.
 bool bad_shape(int B, int T, int d, int nhead, double rate) {
   return B <= 0 || B > 65535 || T <= 0 || nhead <= 0 || nhead > 65535 ||
          d % nhead != 0 || !(rate >= 0.0 && rate < 1.0);
@@ -269,7 +279,8 @@ rd::packed::Strides packed_strides(int T, int d, int nhead) {
   })
 
 // The shared bytes of the forward, dq and dk/dv kernels on a route (0
-// scalar, 1 tensor cores, 2 tensor cores past hd_pad 144) for [B, T, d]
+// scalar, 1 tensor cores, 2 tensor cores past hd_pad 144, 3 past hd 368
+// or on request) for [B, T, d]
 // operands, as the entry points below
 // launch them; cudaErrorInvalidValue for a route the call cannot take or
 // a kernel that would not fit a block.
@@ -299,10 +310,14 @@ extern "C" int rd_packed_fwd(const void* q, const void* k, const void* v,
   if (!make_plan(plan, B, T, d, nhead, bf16, {q, k, v}, &p))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const rd::packed::Strides st = packed_strides(T, d, nhead);
   if (p.route == 1 || p.route == 2) {
-    const rd::packed::Strides st = packed_strides(T, d, nhead);
     return (p.route == 1 ? rd::packed::launch_fwd_tc : rd::packed::launch_fwd_wide)(
         q, k, v, lengths, o, lse, st, st, p, nhead, T, d / nhead, scale2, seed, rate, org, s);
+  }
+  if (p.route == 3) {
+    return rd::packed::launch_fwd_hds(q, k, v, lengths, o, lse, st, st, p, nhead, T,
+                                      d / nhead, scale2, bf16, seed, rate, org, s);
   }
   const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_fwd, d / nhead, rate, bf16, q, k, v, lengths, o, lse, p, T,
@@ -336,6 +351,13 @@ extern "C" int rd_packed_bwd(const void* q, const void* k, const void* v,
     return (tc ? rd::packed::launch_dkv_tc : rd::packed::launch_dkv_wide)(
         q, k, v, d_o, lse, delta, lengths, dk, dv, st, st, st, p, nhead, T, d / nhead, scale,
         seed, rate, org, s);
+  }
+  if (p.route == 3) {
+    err = rd::packed::launch_dq_hds(q, k, v, d_o, lse, delta, lengths, dq, st, st, st, p,
+                                    nhead, T, d / nhead, scale, bf16, seed, rate, org, s);
+    if (err != 0) return err;
+    return rd::packed::launch_dkv_hds(q, k, v, d_o, lse, delta, lengths, dk, dv, st, st, st,
+                                      p, nhead, T, d / nhead, scale, bf16, seed, rate, org, s);
   }
   const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_bwd, d / nhead, rate, bf16, q, k, v, d_o, lse, delta,

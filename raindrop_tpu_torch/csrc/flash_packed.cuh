@@ -8,11 +8,13 @@
 // flash_packed_{fwd,dq,dkv}_tc.cu (18 instantiations each: 9 padded head
 // dims, with and without dropout), past it flash_packed_{fwd,dq,dkv}_wide.cu
 // (14 each: 7 padded head dims), so nvcc builds the six beside the two
-// entry-point files.
+// entry-point files; flash_packed_hds.cu holds the route past head dim 368
+// (attention_hd_stream.cuh, f32 and bf16 operands, 4 kernels a pass).
 #pragma once
 
 #include <type_traits>
 
+#include "attention_hd_stream.cuh"
 #include "attention_tc_wide.cuh"
 
 namespace rd {
@@ -32,12 +34,13 @@ __host__ __device__ __forceinline__ long head_base(const Strides& s, int b, int 
 // the first PLAN_INTS fields), which the entry points check against the
 // call, the columns a copy reads and the shared bytes of each kernel.
 struct Plan {
-  int route;       // 0 scalar, 1 tensor cores, 2 tensor cores past hd_pad 144
-  int hd_pad;      // head dim padded to 16 (route 1), to 176 + 32 j (route 2), hd (0)
-  int copy_bytes;  // width of one tile copy
-  int rows;        // rows of a CTA's block: 64, or 32 (scalar, Wide geometry)
+  int route;       // 0 scalar, 1 tensor cores, 2 tensor cores past hd_pad 144,
+                   // 3 past head dim 368 (attention_hd_stream.cuh)
+  int hd_pad;      // head dim padded to 16 (route 1), to 176 + 32 j (route 2), hd (0, 3)
+  int copy_bytes;  // width of one tile copy (routes 0 and 3: one element)
+  int rows;        // rows of a CTA's block: 64, or 32 (scalar, Wide geometry; route 3)
   int threads_fwd, threads_dq, threads_dkv;
-  int grid_x, grid_y, grid_z;
+  int grid_x, grid_y, grid_z;  // route 3: x the row blocks times the column slices
   int cols;        // columns a copy reads from each row: hd; for flash_mha the
                    // wrapper's int after the first PLAN_INTS (SplitPlan.cols):
                    // hd, or hd padded to 8 where its cast zeroed the pad columns
@@ -113,6 +116,33 @@ int launch_dkv_wide(const void* q, const void* k, const void* v, const void* d_o
                     const void* lse, const void* delta, const void* lengths, void* dk,
                     void* dv, Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H,
                     int T, int D, float scale, int seed, double rate, rd::Origin org, cudaStream_t stream);
+// The route past head dim 368 (flash_packed_hds.cu), either operand type:
+int launch_fwd_hds(const void* q, const void* k, const void* v, const void* lengths, void* o,
+                   void* lse, Strides s_in, Strides s_out, const Plan& p, int H, int T, int D,
+                   float scale2, int bf16, int seed, double rate, rd::Origin org,
+                   cudaStream_t stream);
+int launch_dq_hds(const void* q, const void* k, const void* v, const void* d_o,
+                  const void* lse, const void* delta, const void* lengths, void* dq,
+                  Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H, int T, int D,
+                  float scale, int bf16, int seed, double rate, rd::Origin org,
+                  cudaStream_t stream);
+int launch_dkv_hds(const void* q, const void* k, const void* v, const void* d_o,
+                   const void* lse, const void* delta, const void* lengths, void* dk, void* dv,
+                   Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H, int T,
+                   int D, float scale, int bf16, int seed, double rate, rd::Origin org,
+                   cudaStream_t stream);
+
+// The plan fields of route 3 at head dim hd but the grid (both entry files;
+// its x axis is the row blocks times hs::slices(hd))
+inline void hds_plan(Plan& p, int hd, int bf16) {
+  p.hd_pad = hd;
+  p.copy_bytes = bf16 ? 2 : 4;
+  p.rows = hs::ROWS;
+  p.smem_fwd = hs::fwd_smem_bytes();
+  p.smem_dq = hs::dq_smem_bytes();
+  p.smem_dkv = hs::dkv_smem_bytes();
+  p.threads_fwd = p.threads_dq = p.threads_dkv = NT;
+}
 
 }  // namespace packed
 }  // namespace rd

@@ -47,6 +47,11 @@
 //   element at a time, so a head may start at any element offset of a row.
 //   TF32 would not hold the f32 route's 1e-4.
 //
+// - "hd_stream", f32 or bf16 operands past hd 368 (and on request at any
+//   hd): the packed pair's kernels in flash_packed_hds.cu on these strides
+//   (attention_hd_stream.cuh: the scalar Wide routines' function and bits
+//   in shared memory that does not grow with hd).
+//
 // Design: the TPU's two regimes exist because its fast memory holds a
 // whole [1024, 1024] tile; an SM's 227 KB holds none the model uses, so
 // there is one regime. One CTA takes one (block of rows, head, sample) and
@@ -198,7 +203,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* d_o,
   return (int)cudaGetLastError();
 }
 
-// grid.y = H and grid.z = B are capped at 65535
+// grid.y = H and grid.z = B are capped at 65535: the wrapper splits a larger
+// call into launches at their sample and head origins
 bool bad_shape(int B, int H, int T, int D, double rate) {
   return B <= 0 || B > 65535 || H <= 0 || H > 65535 || T <= 0 || D <= 0 ||
          !(rate >= 0.0 && rate < 1.0);
@@ -228,6 +234,11 @@ Plan expected_plan(int B, int H, int T, int D, int bf16, int route) {
     bytes[1] = rd::tc::wide_dq_smem_bytes(D);
     bytes[2] = rd::tc::wide_dkv_smem_bytes(D);
     p.threads_fwd = p.threads_dq = p.threads_dkv = rd::tc::WIDE_THREADS;
+  } else if (route == 3) {
+    rd::packed::hds_plan(p, D, bf16);
+    bytes[0] = p.smem_fwd;
+    bytes[1] = p.smem_dq;
+    bytes[2] = p.smem_dkv;
   } else {
     p.hd_pad = D;
     p.copy_bytes = bf16 ? 2 : 4;
@@ -244,7 +255,7 @@ Plan expected_plan(int B, int H, int T, int D, int bf16, int route) {
   p.smem_dq = bytes[1];
   p.smem_dkv = bytes[2];
   p.cols = D;
-  p.grid_x = (T + p.rows - 1) / p.rows;
+  p.grid_x = (T + p.rows - 1) / p.rows * (route == 3 ? rd::hs::slices(D) : 1);
   p.grid_y = H;
   p.grid_z = B;
   return p;
@@ -256,6 +267,7 @@ bool route_ok(int route, int D, int bf16) {
     return bf16 && rd::tc::pad16(D) > rd::packed::TC_MAX_HD_PAD &&
            D <= rd::tc::WIDE_MAX_HD_PAD;
   }
+  if (route == 3) return D >= 1;
   return route == 0 && D <= rd::SCALAR_MAX_HD;
 }
 
@@ -289,7 +301,7 @@ bool make_plan(const int* ints, int B, int H, int T, int D, int bf16,
   if (!route_ok(route, D, bf16)) return false;
   Plan e = expected_plan(B, H, T, D, bf16, route);
   const int cols = ints[rd::packed::PLAN_INTS];
-  if (route != 0) {
+  if (route == 1 || route == 2) {
     if (!copy_ok(ints[2], cols, D, H, strides, operands)) return false;
     e.copy_bytes = ints[2];
     e.cols = cols;
@@ -316,7 +328,8 @@ bool make_plan(const int* ints, int B, int H, int T, int D, int bf16,
   })
 
 // The shared bytes of the forward, dq and dk/dv kernels at head dim D on a
-// route (0 scalar, 1 tensor cores, 2 tensor cores past hd_pad 144), as the
+// route (0 scalar, 1 tensor cores, 2 tensor cores past hd_pad 144, 3 past
+// hd 368 or on request), as the
 // entry points below launch them; cudaErrorInvalidValue for a route the
 // head dim cannot take or a kernel that would not fit a block.
 extern "C" int rd_split_smem(int D, int route, int* out) {
@@ -348,6 +361,10 @@ extern "C" int rd_split_fwd(const void* q, const void* k, const void* v,
   if (p.route == 1 || p.route == 2) {
     return (p.route == 1 ? rd::packed::launch_fwd_tc : rd::packed::launch_fwd_wide)(
         q, k, v, lengths, o, lse, s_in, s_out, p, H, T, D, scale2, seed, rate, org, s);
+  }
+  if (p.route == 3) {
+    return rd::packed::launch_fwd_hds(q, k, v, lengths, o, lse, s_in, s_out, p, H, T, D,
+                                      scale2, bf16, seed, rate, org, s);
   }
   const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_fwd, D, rate, bf16, q, k, v, lengths, o, lse, s_in, s_out,
@@ -382,6 +399,13 @@ extern "C" int rd_split_bwd(const void* q, const void* k, const void* v,
     return (tc ? rd::packed::launch_dkv_tc : rd::packed::launch_dkv_wide)(
         q, k, v, d_o, lse, delta, lengths, dk, dv, s_in, s_do, s_out, p, H, T, D, scale, seed,
         rate, org, s);
+  }
+  if (p.route == 3) {
+    err = rd::packed::launch_dq_hds(q, k, v, d_o, lse, delta, lengths, dq, s_in, s_do, s_out,
+                                    p, H, T, D, scale, bf16, seed, rate, org, s);
+    if (err != 0) return err;
+    return rd::packed::launch_dkv_hds(q, k, v, d_o, lse, delta, lengths, dk, dv, s_in, s_do,
+                                      s_out, p, H, T, D, scale, bf16, seed, rate, org, s);
   }
   const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_bwd, D, rate, bf16, q, k, v, d_o, lse, delta, lengths, dq,

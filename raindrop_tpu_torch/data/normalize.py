@@ -1,6 +1,8 @@
-"""Host-side normalization with the reference's semantics, vectorised
-(the port's own numpy copy of raindrop_tpu/data/normalize.py; the JAX
-package's optional C++ host runtime is not carried over).
+"""Host-side normalization with the reference's semantics (the port of
+raindrop_tpu/data/normalize.py). The numpy functions below define the
+semantics; `get_stats`, `mask_normalize` (on [N, T, F]) and
+`mask_normalize_static` hand their arrays to the C++ host runtime
+(native.py) unless RAINDROP_TPU_NATIVE=0, and a failed build of it raises.
 
 Conventions:
   * a value is "observed" iff it is > 0;
@@ -20,6 +22,15 @@ from typing import Tuple
 
 import numpy as np
 
+from raindrop_tpu_torch import native
+
+
+def _native():
+    """The C++ host runtime, or None under RAINDROP_TPU_NATIVE=0 (read at
+    every call)."""
+    return native if native.enabled() else None
+
+
 # Which static features are categorical, per dataset.
 STATIC_CATEGORICAL = {
     "P12": np.array([0, 1, 1, 0, 1, 1, 1, 1, 0], bool),
@@ -31,6 +42,9 @@ STATIC_CATEGORICAL = {
 def get_stats(P: np.ndarray, eps: float = 1e-7) -> Tuple[np.ndarray, np.ndarray]:
     """Per-sensor mean and std over the strictly positive entries of
     P [N, T, F]. Returns (mf [F], stdf [F]); stdf floored at eps."""
+    nat = _native()
+    if nat is not None:
+        return nat.get_stats(P, eps)
     F = P.shape[-1]
     flat = P.reshape(-1, F)
     obs = flat > 0
@@ -43,7 +57,11 @@ def get_stats(P: np.ndarray, eps: float = 1e-7) -> Tuple[np.ndarray, np.ndarray]
 
 
 def mask_normalize(P: np.ndarray, mf: np.ndarray, stdf: np.ndarray) -> np.ndarray:
-    """z-score, zero the missing entries, concatenate the mask -> [N, T, 2F]."""
+    """z-score, zero the missing entries, concatenate the mask -> [N, T, 2F]
+    (float32 from the host runtime, P's dtype from numpy)."""
+    nat = _native()
+    if nat is not None and P.ndim == 3:
+        return nat.mask_normalize(P, np.asarray(mf), np.asarray(stdf))
     M = (P > 0).astype(P.dtype)
     Pn = (P - mf[None, None]) / (stdf[None, None] + 1e-18) * M
     return np.concatenate([Pn, M], axis=2)
@@ -68,7 +86,11 @@ def get_stats_static(Ps: np.ndarray, dataset: str = "P12", compat: bool = True
 
 def mask_normalize_static(Ps: np.ndarray, ms: np.ndarray, ss: np.ndarray) -> np.ndarray:
     """z-score the statics, then zero the entries that END UP <= 0 (the
-    reference zeroes after normalising, not the entries missing before)."""
+    reference zeroes after normalising, not the entries missing before);
+    float32 from the host runtime, float64 from numpy."""
+    nat = _native()
+    if nat is not None:
+        return nat.mask_normalize_static(Ps, np.asarray(ms), np.asarray(ss))
     Pn = (Ps - ms[None]) / (ss[None] + 1e-18)
     return np.where(Pn <= 0, 0.0, Pn)
 

@@ -4,10 +4,11 @@ raindrop_tpu/data/prefetch.py).
 The trainer's default keeps the whole split on the card and gathers each
 batch there (train/trainer.py). This is the regime for a split that does
 not fit in device memory: a bounded producer / consumer executor that
-gathers batches from host arrays on a worker thread (numpy fancy indexing,
-the path that defines the semantics; the JAX package's optional C++ host
-runtime is not ported) and, with `device=` a CUDA device, stages them onto
-the card there: each batch goes through pinned host buffers and a
+gathers batches from host arrays on a worker thread (the C++ host
+runtime's gather for float32 arrays, native.gather_rows, as in the JAX
+package; numpy fancy indexing, which defines the semantics, for the rest
+and under RAINDROP_TPU_NATIVE=0) and, with `device=` a CUDA device,
+stages them onto the card there: each batch goes through pinned host buffers and a
 non-blocking copy on a CUDA stream of the executor's own, so the copy of
 batch k+1 overlaps the compute of batch k. The consumer's stream waits on
 each batch's copy (an event recorded after it) before it reads the batch,
@@ -36,6 +37,8 @@ from typing import Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from raindrop_tpu_torch import native
+
 _SENTINEL = object()
 
 
@@ -43,9 +46,14 @@ def assemble_batch(data: Dict[str, np.ndarray],
                    idx: np.ndarray) -> Dict[str, np.ndarray]:
     """Gather one batch-major batch from host arrays keyed e.g. {"P"
     [N, T, C], "time" [N, T], "static" [N, S], "y" [N]}; every array comes
-    out C-contiguous. (The JAX package's time-major option has no caller
-    here: the trainer transposes at the model's boundary.)"""
-    return {k: np.ascontiguousarray(arr[idx]) for k, arr in data.items()}
+    out C-contiguous; the float32 arrays through the C++ host runtime's
+    gather unless RAINDROP_TPU_NATIVE=0. (The JAX package's time-major
+    option has no caller here: the trainer transposes at the model's
+    boundary.)"""
+    use_native = native.enabled()
+    return {k: (native.gather_rows(arr, idx) if use_native and arr.dtype == np.float32
+                else np.ascontiguousarray(arr[idx]))
+            for k, arr in data.items()}
 
 
 def _numpy_dtype(dt: torch.dtype) -> Optional[np.dtype]:

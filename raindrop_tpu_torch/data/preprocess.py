@@ -285,19 +285,24 @@ def sanity_check(root: str) -> dict:
 def grud_tensors(PTdict_list):
     """GRU-D (x, mask, delta) tensors [N, 3, F, T]
     (reference GRU-D_data_preparation.py:55-200 df_to_x_m_d). The deltas
-    are the port's `baselines/grud.build_delta` on the CPU in float32, the
-    JAX package's numpy-path semantics (its optional C++ host runtime is
-    not ported)."""
-    import torch
-
-    from raindrop_tpu_torch.baselines.grud import build_delta
+    come from the C++ host runtime (native.build_delta, as in the JAX
+    package); under RAINDROP_TPU_NATIVE=0 from the port's
+    `baselines/grud.build_delta` on the CPU in float32."""
+    from raindrop_tpu_torch import native
 
     arrs = np.stack([p["arr"] for p in PTdict_list])        # [N, T, F]
     times = np.stack([np.asarray(p["time"]).reshape(-1)
                       for p in PTdict_list]) / 60.0          # hours
     mask = (arrs > 0).astype(np.float32)
-    delta = build_delta(torch.from_numpy(mask),
-                        torch.from_numpy(times.astype(np.float32))).numpy()
+    if native.enabled():
+        delta = native.build_delta(mask, times)
+    else:
+        import torch
+
+        from raindrop_tpu_torch.baselines.grud import build_delta
+
+        delta = build_delta(torch.from_numpy(mask),
+                            torch.from_numpy(times.astype(np.float32))).numpy()
     x = arrs.transpose(0, 2, 1)
     return np.stack([x, mask.transpose(0, 2, 1),
                      delta.transpose(0, 2, 1)], axis=1).astype(np.float32)

@@ -39,14 +39,15 @@ SOURCES = ("flash_packed", "fused_encoder", "fused_encoder_bwd", "sparse_graph")
 # libraries built from several units: flash_packed's 48 tensor-core
 # kernels take nvcc far longer in one process than as three units in
 # parallel (chip_ab.py, task one_unit), and its 42 kernels past hd_pad 144
-# are three units more; flash_mha's entry points (flash_split) launch the
+# are three units more, its 12 past head dim 368 one more
+# (flash_packed_hds); flash_mha's entry points (flash_split) launch the
 # same tensor-core kernels on their own strides, so they are a unit of this
 # library too; the fused layer's tensor-core attention kernels (18 a
 # family on one warpgroup, 4 on two) are units of their own the same way
 PARTS = {"flash_packed": ("flash_packed", "flash_split", "flash_packed_fwd_tc",
                           "flash_packed_dq_tc", "flash_packed_dkv_tc",
                           "flash_packed_fwd_wide", "flash_packed_dq_wide",
-                          "flash_packed_dkv_wide"),
+                          "flash_packed_dkv_wide", "flash_packed_hds"),
          "fused_encoder": ("fused_encoder", "fused_encoder_attn_tc",
                            "fused_encoder_attn_wide"),
          "fused_encoder_bwd": ("fused_encoder_bwd", "fused_encoder_dq_tc",

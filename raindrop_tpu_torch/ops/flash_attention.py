@@ -24,10 +24,15 @@ backward launch the hand-written kernels in `csrc/flash_packed.cu` and
 `csrc/flash_split.cu` (or raise), each on the route of its launch plan
 (`packed_plan`, `split_plan`): for bf16 operands the tensor-core kernels
 on one warpgroup up to a padded head dim of 144 and on two past it (up to
-368, the sensor-wise P12's 360), the scalar ones for f32. `flash_mha`
-casts f32 operands into heads zero-padded to a multiple of 8 columns
-(`_padded_cast`), so its tensor-core copies move 16 bytes at hd 42 and
-170. On CPU tensors they run
+368, the sensor-wise P12's 360), the scalar ones for f32, and past head
+dim 368 in either dtype the "hd_stream" kernels (csrc/attention_hd_stream.cuh:
+the head dim streamed in chunks, the output's columns split over CTAs,
+shared memory that does not grow with it). `flash_mha` casts f32 operands
+into heads zero-padded to a multiple of 8 columns (`_padded_cast`), so its
+tensor-core copies move 16 bytes at hd 42 and 170. A call over more than
+MAX_BATCH samples (or, for `flash_mha`, heads) is split into launches of
+at most that many, each at its sample and head origin, so its dropout
+masks are the whole call's (`batch_chunks`). On CPU tensors they run
 `_packed_fwd_plain` / `_packed_bwd_plain` and `_flash_fwd_plain` /
 `_flash_bwd_plain`, the same functions in plain PyTorch, which the CPU
 tests hold against the JAX package and `chip_smoke.py` holds the kernels
@@ -64,9 +69,10 @@ MAX_FUSED_T = 1024
 # The launch plan's routing limits, the widths the kernels are instantiated
 # for (the C entry points refuse a plan past them; the shared memory of
 # each launch is theirs to compute, `packed_smem`, `split_smem`). The
-# largest head dim flash_mha_packed's and flash_mha's kernels take
-# (csrc/attention.cuh SCALAR_MAX_HD): the scalar kernels in the Wide
-# geometry. No preset reaches past it (the widest is P12-sw's 360).
+# largest head dim of the scalar and tensor-core kernels (csrc/attention.cuh
+# SCALAR_MAX_HD, the Wide geometry; the fused layer's attention stops
+# there): past it both operand dtypes take the "hd_stream" route. The
+# widest preset head is P12-sw's 360; P12-sw at one head is 720.
 MAX_HEAD_DIM = 368
 # The scalar kernels' Narrow geometry (64-row blocks and tiles) up to this
 # head dim (attention.cuh NARROW_MAX_HD); the Wide one (32) beyond.
@@ -79,11 +85,17 @@ TC_MAX_HD_PAD = 144
 # csrc/attention_tc_wide.cuh): bf16 heads padded to 176, 208, ..., 368
 # (hd 145-176 to 176; P12's sensor-wise 360 to 368).
 TC_WIDE_MIN_HD_PAD, TC_WIDE_STEP, TC_WIDE_MAX_HD_PAD = 176, 32, 368
-_ROUTES = {"scalar": 0, "tc": 1, "tc_wide": 2}
+# The route past MAX_HEAD_DIM (csrc/attention_hd_stream.cuh): 32-row blocks,
+# each CTA owning HD_STREAM_SLICE columns of the outputs
+HD_STREAM_ROWS, HD_STREAM_SLICE = 32, 256
+_ROUTES = {"scalar": 0, "tc": 1, "tc_wide": 2, "hd_stream": 3}
 _ROWS = 64              # rows of a CTA's block (and of a streamed tile on "tc")
-# samples and heads on the kernels' grid (its y and z axes); a dropout
-# origin places a launch inside that many
+# samples and heads a launch puts on the kernels' grid (its z and y axes): a
+# larger call is split into launches of at most this many (batch_chunks)
 MAX_BATCH = 65535
+# the hashed (sample, head) index b * heads + h is a uint32, as in the JAX
+# package: a call's origin places its samples and heads below this
+HASH_SPAN = 2 ** 32
 
 
 def operand_dtype(compute_dtype) -> torch.dtype:
@@ -118,15 +130,19 @@ class PackedPlan:
 
     route: "tc" (tensor cores, bf16 operands, one warpgroup a CTA),
     "tc_wide" (the same past hd_pad 144 on two warpgroups, each owning
-    half of the output's columns) or "scalar" (f32 FMA);
+    half of the output's columns), "scalar" (f32 FMA) or "hd_stream" (f32
+    FMA past hd MAX_HEAD_DIM, either dtype: a CTA a 32-row block and
+    HD_STREAM_SLICE columns of the output);
     hd_pad: the head dim padded to 16 ("tc") or to 176 + 32 j
     ("tc_wide"), the K depth of the score products and the N width of the
     output products (each warpgroup's half of it on "tc_wide"), hd itself
-    on the scalar route; copy_bytes: the width of one tile copy; rows: the
-    rows of a CTA's block (64; 32 in the scalar kernels' Wide geometry,
-    past hd 192); threads: the forward's, dq's and dk/dv's block sizes;
-    grid: (query or key blocks, heads, samples); the tensor-core dk/dv pass
-    runs two CTAs a key block (dv and dk), 2 * grid[0] along x."""
+    on the scalar and "hd_stream" routes; copy_bytes: the width of one tile
+    copy; rows: the rows of a CTA's block (64; 32 in the scalar kernels'
+    Wide geometry, past hd 192, and on "hd_stream"); threads: the
+    forward's, dq's and dk/dv's block sizes; grid: (query or key blocks,
+    heads, samples), on "hd_stream" the blocks times the column slices
+    along x; the tensor-core dk/dv pass runs two CTAs a key block (dv and
+    dk), 2 * grid[0] along x."""
 
     route: str
     hd: int
@@ -139,8 +155,8 @@ class PackedPlan:
     @property
     def dkv_grid(self):
         """The dk/dv pass's grid: two CTAs a key block on a tensor-core
-        route (dv and dk), one on the scalar route."""
-        if self.route == "scalar":
+        route (dv and dk), one on the scalar and "hd_stream" routes."""
+        if self.route in ("scalar", "hd_stream"):
             return self.grid
         return (2 * self.grid[0], *self.grid[1:])
 
@@ -170,26 +186,38 @@ def scalar_rows(hd):
     return _ROWS if hd <= NARROW_MAX_HD else _ROWS // 2
 
 
+def hd_stream_grid_x(T, hd):
+    """The "hd_stream" route's grid along x: 32-row blocks times the
+    slices of HD_STREAM_SLICE columns."""
+    return -(-T // HD_STREAM_ROWS) * -(-hd // HD_STREAM_SLICE)
+
+
+def _check_impl(impl):
+    if impl not in ("auto", "scalar", "hd_stream"):
+        raise ValueError(f"impl must be 'auto', 'scalar' or 'hd_stream', got {impl!r}")
+
+
 @functools.lru_cache(maxsize=256)
 def packed_plan(B, T, d, nhead, od, impl="auto", align=16) -> PackedPlan:
     """The launch plan of flash_mha_packed's kernels for [B, T, d] operands
     of dtype `od` on the card: bf16 takes the tensor-core route "tc" while
     the head dim padded to 16 is at most TC_MAX_HD_PAD and "tc_wide" past
     it; f32 (TF32 would miss its 1e-4) takes the scalar one, in the Narrow
-    geometry up to hd NARROW_MAX_HD and the Wide one beyond; impl="scalar"
-    asks for the scalar kernels in bf16 too (the previous design, for
-    measurement). `align` is the operands' address alignment in bytes:
-    with the row stride (2 d bytes) and the head offset (2 hd bytes per
-    head) it bounds the copy width, 16, 8, 4 or 2 bytes (eICU, hd 36: 8;
-    hd 42: 4). Raises for a head dim past MAX_HEAD_DIM."""
-    if impl not in ("auto", "scalar"):
-        raise ValueError(f"impl must be 'auto' or 'scalar', got {impl!r}")
+    geometry up to hd NARROW_MAX_HD and the Wide one beyond; past hd
+    MAX_HEAD_DIM both take "hd_stream". impl="scalar" asks for the scalar
+    kernels in bf16 too (the previous design, for measurement), and
+    impl="hd_stream" for the route past MAX_HEAD_DIM at any hd (whose bits
+    are the scalar Wide kernels', a check on the card). `align` is the
+    operands' address alignment in bytes: with the row stride (2 d bytes)
+    and the head offset (2 hd bytes per head) it bounds the copy width,
+    16, 8, 4 or 2 bytes (eICU, hd 36: 8; hd 42: 4)."""
+    _check_impl(impl)
     if d % nhead:
         raise ValueError(f"d={d} not divisible by nhead={nhead}")
     hd = d // nhead
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"the flash_mha_packed kernels take head dims up to "
-                         f"{MAX_HEAD_DIM}, got hd={hd}")
+    if hd > MAX_HEAD_DIM or impl == "hd_stream":
+        return PackedPlan("hd_stream", hd, hd, od.itemsize, HD_STREAM_ROWS, (256,) * 3,
+                          (hd_stream_grid_x(T, hd), nhead, B))
     hd_pad = -(-hd // 16) * 16
     if od == torch.bfloat16 and impl == "auto":
         width = 16
@@ -241,8 +269,8 @@ def split_plan(B, H, T, D, od, strides=(), align=16, impl="auto", padded=False):
     dtype `od` on the card: bf16 takes the tensor-core route "tc" while D
     padded to 16 is at most TC_MAX_HD_PAD and "tc_wide" past it (as
     packed_plan does); f32 the scalar kernels, in the Narrow geometry up
-    to hd NARROW_MAX_HD and the Wide one beyond; impl="scalar" asks for the
-    scalar kernels in bf16 too (the previous design, for measurement).
+    to hd NARROW_MAX_HD and the Wide one beyond; past MAX_HEAD_DIM both
+    "hd_stream"; impl as in packed_plan.
     `strides`: the (batch, head, row) element strides of each operand set
     (q, k, v; and do in the backward); `align`: the operands' address
     alignment in bytes; `padded`: the operands are heads zero-padded to
@@ -250,12 +278,12 @@ def split_plan(B, H, T, D, od, strides=(), align=16, impl="auto", padded=False):
     largest of 16, 8, 4, 2 bytes dividing the columns' bytes, every stride
     in bytes and `align` (the model's dense bf16 cast at hd 42 or 170: 4;
     padded: 16). The tensor-core dk/dv pass runs two CTAs a key block, so
-    its grid is 2 * grid[0] along x. Raises for D past MAX_HEAD_DIM."""
-    if impl not in ("auto", "scalar"):
-        raise ValueError(f"impl must be 'auto' or 'scalar', got {impl!r}")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"the flash_mha kernels take head dims up to "
-                         f"{MAX_HEAD_DIM}, got D={D}")
+    its grid is 2 * grid[0] along x. The "hd_stream" route reads one
+    element at a time: its copy width is the element's and `cols` is D."""
+    _check_impl(impl)
+    if D > MAX_HEAD_DIM or impl == "hd_stream":
+        return SplitPlan("hd_stream", D, D, od.itemsize, HD_STREAM_ROWS, (256,) * 3,
+                         (hd_stream_grid_x(T, D), H, B), D)
     hd_pad = -(-D // 16) * 16
     if od == torch.bfloat16 and impl == "auto":
         cols = pad8_cols(D) if padded else D
@@ -308,17 +336,22 @@ def _dropout_keep_hash(seed, bh, iq: int, ik: int, shape, rate: float,
 
 
 def drop_origin(origin, B, H):
-    """(b0, h0, heads) of a launch over B samples and H heads: `origin` as
-    given, or (0, 0, H) for None. The hashed (sample, head) index
-    (b0 + B) * heads must fit the kernels' grid and 32 bits."""
-    if origin is None:
-        return 0, 0, H
-    b0, h0, heads = (int(v) for v in origin)
-    if b0 < 0 or h0 < 0 or h0 + H > heads or b0 + B > MAX_BATCH or heads > MAX_BATCH:
-        raise ValueError(f"origin {tuple(origin)} does not place {B} samples "
-                         f"and {H} heads inside {MAX_BATCH} samples of "
-                         f"at most {MAX_BATCH} heads")
+    """(b0, h0, heads) of a call over B samples and H heads: `origin` as
+    given, or (0, 0, H) for None. Every hashed (sample, head) index
+    (b0 + b) * heads + h0 + h must fit the uint32 of the JAX package's
+    hash: (b0 + B) * heads <= HASH_SPAN."""
+    b0, h0, heads = (0, 0, H) if origin is None else (int(v) for v in origin)
+    if b0 < 0 or h0 < 0 or h0 + H > heads or (b0 + B) * heads > HASH_SPAN:
+        raise ValueError(f"origin {(b0, h0, heads)} does not place {B} samples and "
+                         f"{H} heads where every (sample, head) index "
+                         f"b * heads + h fits 32 bits")
     return b0, h0, heads
+
+
+def batch_chunks(n, step=MAX_BATCH):
+    """The (start, stop) ranges a call over n samples (or heads) splits
+    into, each at most `step` long: one launch each, at its origin."""
+    return [(i, min(n, i + step)) for i in range(0, n, step)]
 
 
 def _attn_keep(seed, B, T, nhead, rate, device, origin=None) -> torch.Tensor:
@@ -543,13 +576,13 @@ def flash_mha_packed(q, k, v, lengths, seed=None, dropout_rate=0.0,
 
 # forward launches; `bwd_launches` counts the backward's; the tc_ counts
 # those of the two on the tensor-core route up to hd_pad 144, the tc_wide_
-# counts those on the route past it
-flash_mha_packed.launches = 0
-flash_mha_packed.bwd_launches = 0
-flash_mha_packed.tc_launches = 0
-flash_mha_packed.tc_bwd_launches = 0
-flash_mha_packed.tc_wide_launches = 0
-flash_mha_packed.tc_wide_bwd_launches = 0
+# counts those on the route past it, the hd_stream_ counts those past head
+# dim 368 (a call split by batch_chunks counts each launch)
+ROUTE_COUNTS = ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches",
+                "tc_wide_launches", "tc_wide_bwd_launches", "hd_stream_launches",
+                "hd_stream_bwd_launches")
+for _attr in ROUTE_COUNTS:
+    setattr(flash_mha_packed, _attr, 0)
 
 
 def _same_device(dev, **tensors):
@@ -577,20 +610,22 @@ def _packed_fwd_cuda(q, k, v, lengths, seed, rate, nhead, od, impl="auto",
     for x in (q, k, v):
         if not x.is_floating_point():
             raise TypeError(f"q, k, v must be floating point, got {x.dtype}")
+    b0, h0, heads = drop_origin(origin, B, nhead)
     q, k, v = (x.detach().to(od).contiguous() for x in (q, k, v))
-    plan = packed_plan(B, T, d, nhead, od, impl,
-                       _align(*(x.data_ptr() for x in (q, k, v))))
     lens = lengths.to(torch.int32).contiguous()
     o = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     lse = torch.empty((B, nhead, T), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().rd_packed_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), B, T, d, nhead,
-        (1.0 / math.sqrt(d // nhead)) * LOG2E, int(od == torch.bfloat16),
-        seed, rate, *drop_origin(origin, B, nhead), plan.as_ints, stream)
-    build.check(err, "flash_mha_packed forward")
-    _count(plan, "launches")
+    for c0, c1 in batch_chunks(B):
+        xs = [x[c0:c1] for x in (q, k, v, lens, o, lse)]
+        plan = packed_plan(c1 - c0, T, d, nhead, od, impl,
+                           _align(*(x.data_ptr() for x in xs[:3])))
+        err = _lib().rd_packed_fwd(
+            *(x.data_ptr() for x in xs), c1 - c0, T, d, nhead,
+            (1.0 / math.sqrt(d // nhead)) * LOG2E, int(od == torch.bfloat16),
+            seed, rate, b0 + c0, h0, heads, plan.as_ints, stream)
+        build.check(err, "flash_mha_packed forward")
+        _count(plan, "launches")
     build.credit(attention_flops(B, T, d))
     return o, lse
 
@@ -609,10 +644,9 @@ def _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead, od, o, lse, g,
         raise ValueError(f"the incoming gradient is {tuple(g.shape)}, "
                          f"expected {tuple(q.shape)}")
     hd = d // nhead
+    b0, h0, heads = drop_origin(origin, B, nhead)
     q, k, v = (x.detach().to(od).contiguous() for x in (q, k, v))
     do = g.detach().to(od).contiguous()
-    plan = packed_plan(B, T, d, nhead, od, impl,
-                       _align(*(x.data_ptr() for x in (q, k, v, do))))
     o = o.detach().to(torch.float32).contiguous()
     delta = torch.empty((B, nhead, T), dtype=torch.float32, device=dev)
     lens = lengths.to(torch.int32).contiguous()
@@ -621,14 +655,16 @@ def _packed_bwd_cuda(q, k, v, lengths, seed, rate, nhead, od, o, lse, g,
                   for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
     scale = 1.0 / math.sqrt(hd)
-    err = _lib().rd_packed_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), lens.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, T, d, nhead, scale,
-        int(od == torch.bfloat16), seed, rate, *drop_origin(origin, B, nhead),
-        plan.as_ints, stream)
-    build.check(err, "flash_mha_packed backward")
-    _count(plan, "bwd_launches")
+    for c0, c1 in batch_chunks(B):
+        xs = [x[c0:c1] for x in (q, k, v, do, o, lse, delta, lens, dq, dk, dv)]
+        plan = packed_plan(c1 - c0, T, d, nhead, od, impl,
+                           _align(*(x.data_ptr() for x in xs[:4])))
+        err = _lib().rd_packed_bwd(
+            *(x.data_ptr() for x in xs), c1 - c0, T, d, nhead, scale,
+            int(od == torch.bfloat16), seed, rate, b0 + c0, h0, heads,
+            plan.as_ints, stream)
+        build.check(err, "flash_mha_packed backward")
+        _count(plan, "bwd_launches")
     build.credit(2 * attention_flops(B, T, d))
     return dq, dk, dv
 
@@ -745,15 +781,11 @@ def flash_mha(q, k, v, lengths, seed=None, dropout_rate=0.0,
                              compute_dtype, origin)
 
 
-# forward launches; `bwd_launches` counts the backward's; the tc_ counts
-# those of the two on the tensor-core route up to hd_pad 144, the tc_wide_
-# counts those on the route past it (the rest ran the scalar kernels)
-flash_mha.launches = 0
-flash_mha.bwd_launches = 0
-flash_mha.tc_launches = 0
-flash_mha.tc_bwd_launches = 0
-flash_mha.tc_wide_launches = 0
-flash_mha.tc_wide_bwd_launches = 0
+# the counts of flash_mha_packed (ROUTE_COUNTS); the launches that no
+# route count takes ran the scalar kernels
+for _attr in ROUTE_COUNTS:
+    setattr(flash_mha, _attr, 0)
+del _attr
 
 
 def _padded_cast(xs, od):
@@ -781,11 +813,12 @@ def _flash_operands(xs, od, impl="auto"):
     tensor-core route goes through `_padded_cast` (pad8_cols(D) columns);
     operands already in `od` stay as they are, and f32 and impl="scalar"
     (the previous design) take a plain cast (D columns: their copy width
-    is what their strides allow)."""
+    is what their strides allow; past MAX_HEAD_DIM "hd_stream" reads one
+    element at a time)."""
     D = xs[0].shape[-1]
     if all(x.dtype == od for x in xs):
         return tuple(xs), D
-    if od == torch.bfloat16 and impl == "auto":
+    if od == torch.bfloat16 and impl == "auto" and D <= MAX_HEAD_DIM:
         return _padded_cast(xs, od), pad8_cols(D)
     return tuple(x.detach().to(od) for x in xs), D
 
@@ -807,18 +840,15 @@ def _empty_heads(B, H, T, D, device):
 
 
 def _check_flash_cuda(q, k, v):
-    B, H, T, D = q.shape
-    if D > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"the flash_mha kernels take head dims up to {MAX_HEAD_DIM} on the "
-            f"card, got D={D}; no preset's head is that wide (P12 with "
-            f"sensor_wise_mask, the widest, is 360)")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"the flash_mha kernels take up to 65535 samples "
-                         f"and heads (grid dimensions), got B={B}, H={H}")
     for x in (q, k, v):
         if not x.is_floating_point():
             raise TypeError(f"q, k, v must be floating point, got {x.dtype}")
+
+
+def _head_chunks(B, H):
+    """(b0, b1, h0, h1) of each launch of a [B, H, ...] call: at most
+    MAX_BATCH samples and heads a launch (batch_chunks)."""
+    return [(b0, b1, h0, h1) for b0, b1 in batch_chunks(B) for h0, h1 in batch_chunks(H)]
 
 
 def _flash_plan(xs, od, impl, strides, B, H, T, D, cols):
@@ -840,22 +870,30 @@ def _flash_fwd_cuda(q, k, v, lengths, seed, rate, od, impl="auto", cols=None,
     dev = q.device
     _same_device(dev, k=k, v=v, lengths=lengths)
     _check_flash_cuda(q, k, v)
+    b0, h0, heads = drop_origin(origin, B, H)
     if cols is None:
         (q, k, v), cols = _flash_operands((q, k, v), od, impl)
     (q, k, v), s_in, cols = _head_strides((q, k, v), cols)
-    plan = _flash_plan((q, k, v), od, impl, (s_in,), B, H, T, D, cols)
     lens = lengths.to(torch.int32).contiguous()
     o = _empty_heads(B, H, T, D, dev)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     strides = (ctypes.c_int64 * 6)(*s_in, *o.stride()[:3])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _split_lib().rd_split_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), strides, B, H, T, D,
-        (1.0 / math.sqrt(D)) * LOG2E, int(od == torch.bfloat16), seed, rate,
-        *drop_origin(origin, B, H), plan.as_ints, stream)
-    build.check(err, "flash_mha forward")
-    _count(plan, "launches", flash_mha)
+    for c0, c1, g0, g1 in _head_chunks(B, H):
+        qc, kc, vc, oc = (x[c0:c1, g0:g1] for x in (q, k, v, o))
+        # lse's chunk is dense unless the heads are split (past MAX_BATCH)
+        lse_c = lse[c0:c1] if g1 - g0 == H else torch.empty(
+            (c1 - c0, g1 - g0, T), dtype=torch.float32, device=dev)
+        plan = _flash_plan((qc, kc, vc), od, impl, (s_in,), c1 - c0, g1 - g0, T, D, cols)
+        err = _split_lib().rd_split_fwd(
+            qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens[c0:c1].data_ptr(),
+            oc.data_ptr(), lse_c.data_ptr(), strides, c1 - c0, g1 - g0, T, D,
+            (1.0 / math.sqrt(D)) * LOG2E, int(od == torch.bfloat16), seed, rate,
+            b0 + c0, h0 + g0, heads, plan.as_ints, stream)
+        build.check(err, "flash_mha forward")
+        if g1 - g0 != H:
+            lse[c0:c1, g0:g1] = lse_c
+        _count(plan, "launches", flash_mha)
     build.credit(attention_flops(B, T, H * D))
     return o, lse
 
@@ -880,12 +918,10 @@ def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g, impl="auto",
     if g_cols is None:
         (g,), g_cols = _flash_operands((g,), od, impl)
     (do,), s_do, g_cols = _head_strides((g,), g_cols)
-    plan = _flash_plan((q, k, v, do), od, impl, (s_in, s_do), B, H, T, D,
-                       min(cols, g_cols))
+    b0, h0, heads = drop_origin(origin, B, H)
     o = o.detach().to(torch.float32)
     if o.stride(-1) != 1:
         o = o.contiguous()
-    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     lens = lengths.to(torch.int32).contiguous()
     lse = lse.contiguous()
     # one allocation, so the three gradients share their strides
@@ -893,14 +929,20 @@ def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g, impl="auto",
     dq, dk, dv = (x.transpose(1, 2) for x in grads.unbind(0))
     strides = (ctypes.c_int64 * 12)(*s_in, *s_do, *dq.stride()[:3], *o.stride()[:3])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _split_lib().rd_split_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), lens.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), strides, B, H, T, D,
-        1.0 / math.sqrt(D), int(od == torch.bfloat16), seed, rate,
-        *drop_origin(origin, B, H), plan.as_ints, stream)
-    build.check(err, "flash_mha backward")
-    _count(plan, "bwd_launches", flash_mha)
+    for c0, c1, g0, g1 in _head_chunks(B, H):
+        xs = [x[c0:c1, g0:g1] for x in (q, k, v, do, o)]
+        gs = [x[c0:c1, g0:g1] for x in (dq, dk, dv)]
+        lse_c = lse[c0:c1, g0:g1].contiguous()
+        delta = torch.empty((c1 - c0, g1 - g0, T), dtype=torch.float32, device=dev)
+        plan = _flash_plan(xs[:4], od, impl, (s_in, s_do), c1 - c0, g1 - g0, T, D,
+                           min(cols, g_cols))
+        err = _split_lib().rd_split_bwd(
+            *(x.data_ptr() for x in xs), lse_c.data_ptr(), delta.data_ptr(),
+            lens[c0:c1].data_ptr(), *(x.data_ptr() for x in gs), strides, c1 - c0,
+            g1 - g0, T, D, 1.0 / math.sqrt(D), int(od == torch.bfloat16), seed, rate,
+            b0 + c0, h0 + g0, heads, plan.as_ints, stream)
+        build.check(err, "flash_mha backward")
+        _count(plan, "bwd_launches", flash_mha)
     build.credit(2 * attention_flops(B, T, H * D))
     return dq, dk, dv
 
@@ -908,7 +950,7 @@ def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g, impl="auto",
 @functools.lru_cache(maxsize=64)
 def split_smem(D, route="scalar"):
     """Shared bytes of flash_mha's forward, dq and dk/dv kernels at head dim
-    D on a route ("scalar", "tc", "tc_wide"), as csrc/flash_split.cu
+    D on a route ("scalar", "tc", "tc_wide", "hd_stream"), as csrc/flash_split.cu
     computes them for its launches (it builds the kernels: on the card
     only). Raises ValueError for a head dim the route does not take."""
     out = (ctypes.c_int * 3)()

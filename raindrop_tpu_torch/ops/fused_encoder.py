@@ -14,7 +14,9 @@ with t8 = T padded to 8. These are the masks the JAX package draws off the
 TPU; its two-heads-per-draw hardware generator has no counterpart here. A
 launch over rows b0.. of a larger batch (a data-parallel rank's shard)
 passes `origin` = (b0, 0, nhead): its sample b then hashes as sample
-b0 + b, so the shards draw the full batch's masks.
+b0 + b, so the shards draw the full batch's masks. A call over more than
+MAX_BATCH samples runs as launches of at most that many at their origins
+(`batch_chunks`), the backward summing the chunks' weight gradients.
 
 `fused_encoder_layer` is a `torch.autograd.Function` over x and the 12
 weights. On CUDA tensors forward and backward launch the hand-written
@@ -44,7 +46,7 @@ from raindrop_tpu_torch.kernels import build
 from raindrop_tpu_torch.ops.flash_attention import (
     LOG2E, MAX_FUSED_T, MAX_HEAD_DIM, NARROW_MAX_HD, TC_MAX_HD_PAD, _ROUTES, _align,
     _attention_bwd_plain, _check_rate, _dropout_keep_hash, _packed_fwd_plain,
-    _seed_int, drop_origin, operand_dtype, pad8, wide_pad)
+    _seed_int, batch_chunks, drop_origin, operand_dtype, pad8, wide_pad)
 
 _EPS = 1e-5
 SITE_ATTN_OUT, SITE_FFN_MID, SITE_FFN_OUT = 101, 102, 103
@@ -529,25 +531,27 @@ def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od, impl="auto", origin=N
     B, T, d = x.shape
     dev = x.device
     ws, xf, lens, ffn = _prepare(ws, x, lengths)
+    b0, h0, heads = drop_origin(origin, B, nhead)
     tc = fused_plan(d, ffn, nhead, od, impl).route == "tc"   # raises for a width no route takes
-    qkv = torch.empty((B, T, 3 * d), dtype=torch.bfloat16 if tc else torch.float32,
-                      device=dev)
-    plan = fused_plan(d, ffn, nhead, od, impl, _align(qkv.data_ptr()))
     wpack = (torch.empty((_packed_elems(d, ffn, 4),), dtype=torch.bfloat16, device=dev)
              if tc else None)
     out = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     attn = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     lse = torch.empty((B, nhead, T), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().rd_fused_layer_fwd(
-        xf.data_ptr(), *(w.data_ptr() for w in ws), lens.data_ptr(),
-        qkv.data_ptr(), out.data_ptr(), attn.data_ptr(), lse.data_ptr(),
-        0 if wpack is None else wpack.data_ptr(),
-        B, T, d, ffn, nhead, (1.0 / math.sqrt(d // nhead)) * LOG2E,
-        int(od == torch.bfloat16), seed, rate, *drop_origin(origin, B, nhead),
-        plan.as_ints, stream)
-    build.check(err, "fused_encoder_layer forward")
-    _count(plan, "launches")
+    for c0, c1 in batch_chunks(B):
+        qkv = torch.empty((c1 - c0, T, 3 * d), dtype=torch.bfloat16 if tc else torch.float32,
+                          device=dev)
+        plan = fused_plan(d, ffn, nhead, od, impl, _align(qkv.data_ptr()))
+        err = _lib().rd_fused_layer_fwd(
+            xf[c0:c1].data_ptr(), *(w.data_ptr() for w in ws), lens[c0:c1].data_ptr(),
+            qkv.data_ptr(), out[c0:c1].data_ptr(), attn[c0:c1].data_ptr(),
+            lse[c0:c1].data_ptr(), 0 if wpack is None else wpack.data_ptr(),
+            c1 - c0, T, d, ffn, nhead, (1.0 / math.sqrt(d // nhead)) * LOG2E,
+            int(od == torch.bfloat16), seed, rate, b0 + c0, h0, heads,
+            plan.as_ints, stream)
+        build.check(err, "fused_encoder_layer forward")
+        _count(plan, "launches")
     build.credit(layer_flops(B, T, d, ffn))
     return out, attn, lse
 
@@ -596,8 +600,9 @@ def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
     """dx and the 12 weight gradients through the backward kernels of the
     plan's route; every intermediate buffer is allocated here and listed by
     `bwd_scratch`. A dict passed as `scratch_out` receives those buffers
-    (flat, in their dtypes), for a check that wants to look at them.
-    `impl` as in `_fused_fwd_cuda`."""
+    (flat, in their dtypes), for a check that wants to look at them (where
+    the call is split, batch_chunks, each buffer of the launches
+    concatenated in order). `impl` as in `_fused_fwd_cuda`."""
     B, T, d = x.shape
     dev = x.device
     if g.shape != x.shape:
@@ -607,33 +612,43 @@ def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
     ws, xf, lens, ffn = _prepare(ws, x, lengths)
+    b0, h0, heads = drop_origin(origin, B, nhead)
     route = fused_plan(d, ffn, nhead, od, impl)
     gf = g.detach().to(torch.float32).contiguous()
     attn, lse = attn.contiguous(), lse.contiguous()
-    sizes = bwd_scratch(B, T, d, ffn, nhead, route)
-    scratch = {k: torch.empty((n,), dtype=dt, device=dev) for k, (n, dt) in sizes.items()}
-    plan = fused_plan(d, ffn, nhead, od, impl,
-                      _align(scratch["qkv"].data_ptr(), scratch["d_attn"].data_ptr()))
     dx = torch.empty((B, T, d), dtype=torch.float32, device=dev)
-    dw_in, dwo, dw1, dw2 = (torch.empty(ws[i].shape, dtype=torch.float32, device=dev)
-                            for i in (0, 2, 6, 8))
-    # the bias and LayerNorm gradients come back in one buffer:
-    # [dg2, dbe2, dbf2, dbf1 (ffn), dg1, dbe1, dbo, db_in (3d)]
-    vec = torch.empty((9 * d + ffn,), dtype=torch.float32, device=dev)
+    # the weight gradients, and the bias and LayerNorm gradients in one
+    # buffer: [dg2, dbe2, dbf2, dbf1 (ffn), dg1, dbe1, dbo, db_in (3d)]
+    wgrads = [torch.empty(ws[i].shape, dtype=torch.float32, device=dev)
+              for i in (0, 2, 6, 8)] + [torch.empty((9 * d + ffn,), dtype=torch.float32,
+                                                    device=dev)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib_bwd().rd_fused_layer_bwd(
-        xf.data_ptr(), *(w.data_ptr() for w in ws), lens.data_ptr(),
-        attn.data_ptr(), lse.data_ptr(), gf.data_ptr(),
-        *(scratch[k].data_ptr() if k in scratch else 0 for k in _SCRATCH),
-        dx.data_ptr(), dw_in.data_ptr(), dwo.data_ptr(), dw1.data_ptr(),
-        dw2.data_ptr(), vec.data_ptr(), B, T, d, ffn, nhead, WGRAD_CHUNK,
-        1.0 / math.sqrt(d // nhead), int(od == torch.bfloat16), seed, rate,
-        *drop_origin(origin, B, nhead), plan.as_ints, stream)
-    build.check(err, "fused_encoder_layer backward")
-    _count(plan, "bwd_launches")
+    kept = []
+    for c0, c1 in batch_chunks(B):
+        sizes = bwd_scratch(c1 - c0, T, d, ffn, nhead, route)
+        scratch = {k: torch.empty((n,), dtype=dt, device=dev) for k, (n, dt) in sizes.items()}
+        plan = fused_plan(d, ffn, nhead, od, impl,
+                          _align(scratch["qkv"].data_ptr(), scratch["d_attn"].data_ptr()))
+        # a split call sums its launches' weight gradients
+        part = wgrads if c0 == 0 else [torch.empty_like(w) for w in wgrads]
+        err = _lib_bwd().rd_fused_layer_bwd(
+            xf[c0:c1].data_ptr(), *(w.data_ptr() for w in ws), lens[c0:c1].data_ptr(),
+            attn[c0:c1].data_ptr(), lse[c0:c1].data_ptr(), gf[c0:c1].data_ptr(),
+            *(scratch[k].data_ptr() if k in scratch else 0 for k in _SCRATCH),
+            dx[c0:c1].data_ptr(), *(w.data_ptr() for w in part), c1 - c0, T, d, ffn,
+            nhead, WGRAD_CHUNK, 1.0 / math.sqrt(d // nhead), int(od == torch.bfloat16),
+            seed, rate, b0 + c0, h0, heads, plan.as_ints, stream)
+        build.check(err, "fused_encoder_layer backward")
+        _count(plan, "bwd_launches")
+        if c0:
+            for w, dw in zip(wgrads, part):
+                w += dw
+        if scratch_out is not None:
+            kept.append(scratch)
     build.credit(2 * layer_flops(B, T, d, ffn))
     if scratch_out is not None:
-        scratch_out.update(scratch)
+        scratch_out.update({k: torch.cat([sc[k] for sc in kept]) for k in kept[0]})
+    dw_in, dwo, dw1, dw2, vec = wgrads
     dg2, dbe2, dbf2, dbf1, dg1, dbe1, dbo, db_in = vec.split(
         [d, d, d, ffn, d, d, d, 3 * d])
     return dx, [dw_in, db_in, dwo, dbo, dg1, dbe1, dw1, dbf1, dw2, dbf2, dg2,

@@ -30,7 +30,9 @@ segment's own row (the model's `gather_target=True`, forward and dx),
 "tile" for every other gather (a sample's rows staged in shared memory),
 "csr" where a sample's rows do not fit a tile (the previous design). The
 wrappers count their launches on each route apart (`row_launches`,
-`tile_bwd_launches`, ...).
+`tile_bwd_launches`, ...). A call over more than 65535 samples (the
+grid's y axis) runs as launches of at most that many (batch_chunks; the
+samples are independent), each counted.
 """
 
 from __future__ import annotations
@@ -45,10 +47,9 @@ from typing import Tuple
 import torch
 
 from raindrop_tpu_torch.kernels import build
-from raindrop_tpu_torch.ops.flash_attention import _align
+from raindrop_tpu_torch.ops.flash_attention import _align, batch_chunks
 from raindrop_tpu_torch.ops.segment import segment_max, segment_softmax, segment_sum
 
-MAX_BATCH = 65535       # the kernels put the sample on the grid's y axis
 # the launch plan's constants (csrc/sparse_graph.cu)
 ROUTES = ("row", "tile", "csr")
 KINDS = ("fwd_target", "fwd_source", "bwd_target", "bwd_source", "sddmm_fwd",
@@ -176,8 +177,6 @@ def _check_nodes(name, x, edge_src, n_nodes=None) -> None:
         raise ValueError(f"{name} is on {x.device}, the edges on {edge_src.device}")
     if x.is_cuda and x.dtype != torch.float32:
         raise TypeError(f"the kernels take float32, {name} is {x.dtype}")
-    if x.is_cuda and x.shape[0] > MAX_BATCH:
-        raise ValueError(f"the kernels take at most {MAX_BATCH} samples a call")
 
 
 # ---------------------------------------------------------------- plain
@@ -397,15 +396,17 @@ def _spmm_fwd_cuda(x, gamma, topo: Topology, gather_target):
         g_stride = E
     out = torch.empty((B, N, D), dtype=torch.float32, device=x.device)
     w = torch.empty((B, E), dtype=torch.float32, device=x.device)
-    # the C entry point also holds the outputs, allocated here, to the
-    # alignment: a misaligned one is refused, not misread
-    plan = graph_plan(B, N, E, D, "fwd_target" if gather_target else "fwd_source",
-                      _align(x.data_ptr()))
-    err = _lib().rd_spmm_fwd(
-        x.data_ptr(), gamma.data_ptr(), g_stride, topo.table, out.data_ptr(),
-        w.data_ptr(), B, N, E, D, int(gather_target), plan.address, _stream(x))
-    build.check(err, "spmm_segment_softmax forward")
-    _count(spmm_segment_softmax, plan, "launches")
+    for c0, c1 in batch_chunks(B):
+        # the C entry point also holds the outputs, allocated here, to the
+        # alignment: a misaligned one is refused, not misread
+        plan = graph_plan(c1 - c0, N, E, D, "fwd_target" if gather_target else "fwd_source",
+                          _align(x[c0:c1].data_ptr()))
+        err = _lib().rd_spmm_fwd(
+            x[c0:c1].data_ptr(), gamma[c0:c1].data_ptr(), g_stride, topo.table,
+            out[c0:c1].data_ptr(), w[c0:c1].data_ptr(), c1 - c0, N, E, D,
+            int(gather_target), plan.address, _stream(x))
+        build.check(err, "spmm_segment_softmax forward")
+        _count(spmm_segment_softmax, plan, "launches")
     build.credit(edge_flops(B, E, D))
     return out, w
 
@@ -421,15 +422,17 @@ def _spmm_bwd_cuda(g_out, g_w, x, w, topo: Topology, gather_target,
     dx = torch.empty((B, N, D), dtype=torch.float32, device=x.device)
     dgamma = (torch.empty((B, E), dtype=torch.float32, device=x.device)
               if need_dgamma else None)
-    plan = graph_plan(B, N, E, D, "bwd_target" if gather_target else "bwd_source",
-                      _align(g_out.data_ptr(), x.data_ptr()))
-    err = _lib().rd_spmm_bwd(
-        g_out.data_ptr(), None if g_w is None else g_w.data_ptr(), x.data_ptr(),
-        w.data_ptr(), topo.table, dx.data_ptr(),
-        None if dgamma is None else dgamma.data_ptr(), B, N, E, D,
-        int(gather_target), plan.address, _stream(x))
-    build.check(err, "spmm_segment_softmax backward")
-    _count(spmm_segment_softmax, plan, "bwd_launches")
+    for c0, c1 in batch_chunks(B):
+        g_c, x_c = g_out[c0:c1], x[c0:c1]
+        plan = graph_plan(c1 - c0, N, E, D, "bwd_target" if gather_target else "bwd_source",
+                          _align(g_c.data_ptr(), x_c.data_ptr()))
+        err = _lib().rd_spmm_bwd(
+            g_c.data_ptr(), None if g_w is None else g_w[c0:c1].data_ptr(), x_c.data_ptr(),
+            w[c0:c1].data_ptr(), topo.table, dx[c0:c1].data_ptr(),
+            None if dgamma is None else dgamma[c0:c1].data_ptr(), c1 - c0, N, E, D,
+            int(gather_target), plan.address, _stream(x))
+        build.check(err, "spmm_segment_softmax backward")
+        _count(spmm_segment_softmax, plan, "bwd_launches")
     build.credit((1 + need_dgamma) * edge_flops(B, E, D))
     return dx, dgamma
 
@@ -439,12 +442,14 @@ def _sddmm_fwd_cuda(q, k, topo: Topology, scale):
     E = topo.src.shape[0]
     q, k = q.contiguous(), k.contiguous()
     alpha = torch.empty((B, E), dtype=torch.float32, device=q.device)
-    plan = graph_plan(B, N, E, D, "sddmm_fwd", _align(q.data_ptr(), k.data_ptr()))
-    err = _lib().rd_sddmm_fwd(
-        q.data_ptr(), k.data_ptr(), topo.table, alpha.data_ptr(), B, N, E, D,
-        float(scale), plan.address, _stream(q))
-    build.check(err, "sddmm forward")
-    _count(sddmm, plan, "launches")
+    for c0, c1 in batch_chunks(B):
+        q_c, k_c = q[c0:c1], k[c0:c1]
+        plan = graph_plan(c1 - c0, N, E, D, "sddmm_fwd", _align(q_c.data_ptr(), k_c.data_ptr()))
+        err = _lib().rd_sddmm_fwd(
+            q_c.data_ptr(), k_c.data_ptr(), topo.table, alpha[c0:c1].data_ptr(), c1 - c0,
+            N, E, D, float(scale), plan.address, _stream(q))
+        build.check(err, "sddmm forward")
+        _count(sddmm, plan, "launches")
     build.credit(edge_flops(B, E, D))
     return alpha
 
@@ -456,12 +461,15 @@ def _sddmm_bwd_cuda(d_alpha, q, k, topo: Topology, scale):
     q, k = q.contiguous(), k.contiguous()
     dq = torch.empty((B, N, D), dtype=torch.float32, device=q.device)
     dk = torch.empty((B, N, D), dtype=torch.float32, device=q.device)
-    plan = graph_plan(B, N, E, D, "sddmm_bwd", _align(q.data_ptr(), k.data_ptr()))
-    err = _lib().rd_sddmm_bwd(
-        d_alpha.data_ptr(), q.data_ptr(), k.data_ptr(), topo.table, dq.data_ptr(),
-        dk.data_ptr(), B, N, E, D, float(scale), plan.address, _stream(q))
-    build.check(err, "sddmm backward")
-    _count(sddmm, plan, "bwd_launches")
+    for c0, c1 in batch_chunks(B):
+        q_c, k_c = q[c0:c1], k[c0:c1]
+        plan = graph_plan(c1 - c0, N, E, D, "sddmm_bwd", _align(q_c.data_ptr(), k_c.data_ptr()))
+        err = _lib().rd_sddmm_bwd(
+            d_alpha[c0:c1].data_ptr(), q_c.data_ptr(), k_c.data_ptr(), topo.table,
+            dq[c0:c1].data_ptr(), dk[c0:c1].data_ptr(), c1 - c0, N, E, D, float(scale),
+            plan.address, _stream(q))
+        build.check(err, "sddmm backward")
+        _count(sddmm, plan, "bwd_launches")
     build.credit(2 * edge_flops(B, E, D))
     return dq, dk
 

@@ -1,11 +1,11 @@
 """The port's synthetic splits and normalization against the JAX
 package's: the same seed gives the same arrays.
 
-The JAX package hands its large-array loops to an optional C++ host
-runtime whose results differ from numpy's in the last float32 digits; the
-port is numpy throughout. So the comparison runs the JAX package on its
-numpy path (RAINDROP_TPU_NATIVE=0), where the arrays are equal, and once
-with the runtime on (where it is built), within 1e-5.
+Both packages hand their large-array loops to a C++ host runtime whose
+results differ from numpy's in the last float32 digits. So the comparison
+runs both on their numpy paths (RAINDROP_TPU_NATIVE=0), where the arrays
+are equal, and once with the runtimes on, within 1e-5
+(tests/test_torch_native.py holds the two runtimes bit for bit).
 """
 
 import dataclasses

@@ -86,6 +86,11 @@ def test_the_module_list_covers_the_model_axis_routes():
         "raindrop_tpu_torch.parallel.edge_partition"}
 
 
+def test_the_module_list_covers_the_host_runtime():
+    assert "raindrop_tpu_torch.native" in set(_port_modules())
+    assert (PKG / "csrc" / "host" / "raindrop_host.cpp").exists()
+
+
 def test_every_module_imports_with_jax_blocked():
     # pandas too: the card's machine has none (data/preprocess.py reads the
     # raw text with the csv module)
@@ -110,7 +115,7 @@ def test_every_module_imports_with_jax_blocked():
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PKG.rglob("*")
-     if p.suffix in (".py", ".cu", ".cuh")] + ["chip_smoke.py", "chip_ab.py"]))
+     if p.suffix in (".py", ".cu", ".cuh", ".cpp")] + ["chip_smoke.py", "chip_ab.py"]))
 def test_source_names_no_jax(path):
     text = (ROOT / path).read_text()
     assert "raindrop_tpu." not in text.replace("raindrop_tpu_torch.", "")

@@ -26,7 +26,7 @@ from raindrop_tpu_torch.ops import fused_encoder as fe
 from raindrop_tpu_torch.ops import sparse as sp
 from raindrop_tpu_torch.nn.transformer import _layer_init
 from test_torch_packed_plan import wide_smem
-from test_torch_split_plan import split_smem_mirror
+from test_torch_split_plan import hd_stream_smem, split_smem_mirror
 
 TOL = {None: 1e-4, "bfloat16": 2e-2}
 SAMPLE_TOL = {None: 1e-5, "bfloat16": 5e-3}
@@ -437,15 +437,16 @@ def test_wrappers_refuse_bad_inputs(gen):
     with pytest.raises(ValueError):
         fa._packed_fwd(q, q[:, :4], q, torch.tensor([8, 8], device="cuda"),
                        None, 0.0, None, 2)
-    # head dims up to 368 are taken (hd 136 was refused before the
-    # sensor-wise slice); past it the packed kernels refuse
+    # every head dim is taken (hd 136 was refused before the sensor-wise
+    # slice, hd 369 before the "hd_stream" route)
     lens = torch.tensor([16], device="cuda")
-    taken = torch.randn((1, 16, 272), generator=gen, device="cuda")
-    assert torch.isfinite(fa._packed_fwd(taken, taken, taken, lens, None, 0.0,
-                                         "bfloat16", 2)[0]).all()
-    wide = torch.randn((1, 16, 2 * (fa.MAX_HEAD_DIM + 8)), generator=gen, device="cuda")
-    with pytest.raises(ValueError, match=str(fa.MAX_HEAD_DIM)):
-        fa._packed_fwd(wide, wide, wide, lens, None, 0.0, "bfloat16", 2)
+    for d in (272, 2 * (fa.MAX_HEAD_DIM + 8)):
+        taken = torch.randn((1, 16, d), generator=gen, device="cuda")
+        assert torch.isfinite(fa._packed_fwd(taken, taken, taken, lens, None, 0.0,
+                                             "bfloat16", 2)[0]).all()
+    with pytest.raises(ValueError, match="32 bits"):
+        fa._packed_fwd(q, q, q, torch.tensor([8, 8], device="cuda"), None, 0.0, None, 2,
+                       origin=(2 ** 31, 0, 2))
 
 
 def test_fused_layer_fits_pam_sensor_wise_on_the_card(gen):
@@ -522,7 +523,8 @@ def _want(fwd_route, fwd, bwd_route, bwd):
 
 def _check_spmm(gen, src, dst, N, B, D, gather_target):
     """Both spmm kernels against the plain versions, bit-equal on a
-    repeat, every launch on the plan's route."""
+    repeat, every launch on the plan's route (one a pass, or one for each
+    MAX_BATCH samples)."""
     E = src.numel()
     x, g_out = (torch.randn((B, N, D), generator=gen, device="cuda") for _ in range(2))
     gamma, g_w = (torch.randn((B, E), generator=gen, device="cuda") for _ in range(2))
@@ -534,7 +536,8 @@ def _check_spmm(gen, src, dst, N, B, D, gather_target):
     before = _graph_counts(sp.spmm_segment_softmax)
     out, w = sp._spmm_fwd_cuda(x, gamma, topo, gather_target)
     dx, dgamma = sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gather_target)
-    assert _launched(sp.spmm_segment_softmax, before) == _want(routes[0], 1, routes[1], 1)
+    n = len(fa.batch_chunks(B))
+    assert _launched(sp.spmm_segment_softmax, before) == _want(routes[0], n, routes[1], n)
     out2, w2 = sp._spmm_fwd_cuda(x, gamma, topo, gather_target)
     dx2, dgamma2 = sp._spmm_bwd_cuda(g_out, g_w, x, w, topo, gather_target)
     p_out, p_w = sp._spmm_fwd_plain(x, gamma, src, dst, N, gather_target)
@@ -569,7 +572,8 @@ def _check_sddmm(gen, src, dst, N, B, D):
     before = _graph_counts(sp.sddmm)
     alpha = sp._sddmm_fwd_cuda(q, k, topo, scale)
     dq, dk = sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale)
-    assert _launched(sp.sddmm, before) == _want(routes[0], 1, routes[1], 1)
+    n = len(fa.batch_chunks(B))
+    assert _launched(sp.sddmm, before) == _want(routes[0], n, routes[1], n)
     alpha2 = sp._sddmm_fwd_cuda(q, k, topo, scale)
     dq2, dk2 = sp._sddmm_bwd_cuda(d_alpha, q, k, topo, scale)
     p_alpha = sp._sddmm_fwd_plain(q, k, src, dst, scale)
@@ -937,17 +941,19 @@ def test_flash_mha_matches_the_packed_kernel_at_wide_heads(gen, D):
 
 
 def test_flash_mha_refuses_a_head_dim_past_the_kernels(gen):
-    """flash_mha takes head dims up to MAX_HEAD_DIM (368) on the card; above
-    it raises NotImplementedError naming the head dim, forward and
-    backward (the plain version on the CPU takes any hd)."""
-    q = torch.randn((1, 1, 16, 376), generator=gen, device="cuda")
+    """flash_mha refused head dims past MAX_HEAD_DIM (368) on the card with
+    NotImplementedError; now the "hd_stream" route takes them, forward and
+    backward, as the plain version does."""
+    q = torch.randn((1, 1, 16, 376), generator=gen, device="cuda").requires_grad_()
     lengths = torch.tensor([16], device="cuda")
-    with pytest.raises(NotImplementedError, match="D=376; no preset"):
-        fa.flash_mha(q, q, q, lengths)
-    o = torch.zeros_like(q)
-    lse = torch.zeros((1, 1, 16), device="cuda")
-    with pytest.raises(NotImplementedError, match="D=376; no preset"):
-        fa._flash_bwd_cuda(q, q, q, lengths, 0, 0.0, torch.float32, o, lse, q)
+    before = fa.flash_mha.hd_stream_launches, fa.flash_mha.hd_stream_bwd_launches
+    o = fa.flash_mha(q, q, q, lengths)
+    o.backward(torch.ones_like(o))
+    assert (fa.flash_mha.hd_stream_launches, fa.flash_mha.hd_stream_bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    po, _ = fa._flash_fwd_plain(q.detach(), q.detach(), q.detach(), lengths, torch.float32)
+    assert (o - po).abs().max().item() <= TOL[None]
+    assert torch.isfinite(q.grad).all()
 
 
 def _plain_rungs(monkeypatch):
@@ -1168,8 +1174,11 @@ def test_packed_pair_at_a_shard_origin_is_the_full_launch(gen, T, d, nhead, cd):
             assert torch.equal(got, want[rows][..., cols])
         want_o, _ = fa._packed_fwd_plain(*args, lengths[rows], nh, od, SEED, 0.2, origin)
         assert _sample_err(o_s, want_o, lengths[rows]) < SAMPLE_TOL[cd]
+    # a launch's origin may pass sample 65535 (a split call's later
+    # launches); an index past 32 bits is refused
     with pytest.raises(ValueError, match="origin"):
-        fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.2, nhead, od, origin=(65535, 0, nhead))
+        fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.2, nhead, od,
+                            origin=(2 ** 32 // nhead, 0, nhead))
 
 
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
@@ -1191,3 +1200,203 @@ def test_fused_layer_at_a_shard_origin_is_the_full_launch(gen, cd):
     dx_s, _ = fe._fused_bwd_cuda(ws, x[rows], lengths[rows], SEED, 0.2, H, od, a_s, l_s,
                                  g[rows], origin=(2, 0, H))
     assert torch.equal(dx_s, dx[rows])
+
+
+# ------------------------------------------------------------------ past hd 368
+HD_STREAM_HD = [372, 720, 1023, 1024]
+
+
+def _hd_stream_counts(fn):
+    return fn.hd_stream_launches, fn.hd_stream_bwd_launches
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("hd", HD_STREAM_HD)
+def test_hd_stream_packed_pair_matches_plain(gen, hd, cd, rate):
+    """flash_mha_packed past hd 368 ("hd_stream", both dtypes), one and two
+    heads, T=65 (a block ending one row past 64): o, lse and the three
+    gradients against the plain versions, bit-equal on a repeat, zeros for
+    the length-0 sample, every launch counted on the route."""
+    od = fa.operand_dtype(cd)
+    for nhead, T in ((1, 65), (2, 33)):
+        B, d = 4, nhead * hd
+        q, k, v, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(4))
+        lengths = _lengths(gen, B, T)
+        before = _hd_stream_counts(fa.flash_mha_packed)
+        o, lse = fa._packed_fwd(q, k, v, lengths, SEED, rate, cd, nhead)
+        grads = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
+        grads2 = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
+        assert _hd_stream_counts(fa.flash_mha_packed) == (before[0] + 1, before[1] + 2)
+        po, plse = fa._packed_fwd_plain(q, k, v, lengths, nhead, od, SEED, rate)
+        want = fa._packed_bwd_plain(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
+        torch.cuda.synchronize()
+        assert (o - po).abs().max().item() <= TOL[cd]
+        assert (lse - plse).abs().max().item() <= TOL[cd]
+        assert (o[0] == 0).all()
+        for a, a2, b in zip(grads, grads2, want):
+            assert torch.isfinite(a).all() and torch.equal(a, a2) and (a[0] == 0).all()
+            assert _sample_err(a, b, lengths) <= SAMPLE_TOL[cd]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("layout", ["contiguous", "projection"])
+@pytest.mark.parametrize("hd", HD_STREAM_HD)
+def test_hd_stream_flash_mha_matches_plain(gen, hd, layout, cd, rate):
+    """flash_mha past hd 368 through the autograd function at T=130, H=2,
+    on contiguous heads and on the model's strided views."""
+    B, H, T = 3, 2, 130
+    q, k, v = (x.requires_grad_() for x in _head_inputs(gen, B, H, T, hd, layout))
+    g = torch.randn((B, H, T, hd), generator=gen, device="cuda")
+    lengths = _lengths(gen, B, T)
+    od = fa.operand_dtype(cd)
+    before = _hd_stream_counts(fa.flash_mha)
+    o = fa.flash_mha(q, k, v, lengths, SEED, rate, cd)
+    got = torch.autograd.grad(o, (q, k, v), g)
+    assert _hd_stream_counts(fa.flash_mha) == (before[0] + 1, before[1] + 1)
+    _, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
+    po, _ = fa._flash_fwd_plain(q, k, v, lengths, od, SEED, rate)
+    want = fa._flash_bwd_plain(q.detach(), k.detach(), v.detach(), lengths, SEED, rate,
+                               od, o.detach(), lse, g)
+    torch.cuda.synchronize()
+    assert _sample_err(o, po, lengths) <= SAMPLE_TOL[cd]
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and (a[0] == 0).all()
+        assert _sample_err(a, b, lengths) <= SAMPLE_TOL[cd]
+
+
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("hd", [200, 360, 368])
+def test_hd_stream_is_the_wide_scalar_kernels_bits(gen, hd, cd):
+    """Below 369 impl="hd_stream" reaches the new route: its forward and
+    gradients are the scalar Wide kernels' bits (the same geometry and
+    summation orders in shared memory that does not grow with hd)."""
+    od = fa.operand_dtype(cd)
+    B, T, nhead = 3, 100, 2
+    q, k, v, g = (torch.randn((B, T, nhead * hd), generator=gen, device="cuda")
+                  for _ in range(4))
+    lengths = _lengths(gen, B, T)
+    runs = []
+    for impl in ("scalar", "hd_stream"):
+        o, lse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.2, nhead, od, impl)
+        runs.append((o, lse, *fa._packed_bwd_cuda(q, k, v, lengths, SEED, 0.2, nhead, od,
+                                                  o, lse, g, impl)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [369, 720, 1024, 4096])
+def test_hd_stream_shared_memory_is_the_mirror(gen, D):
+    """The shared bytes of the route's three launches, as both C entry
+    files compute them, are the mirror's at every hd."""
+    assert fa.split_smem(D, "hd_stream") == hd_stream_smem()
+    assert fa.packed_smem(2, 64, 2 * D, 2, torch.float32) == hd_stream_smem()
+    assert fa.packed_smem(2, 64, D, 1, torch.bfloat16) == hd_stream_smem()
+
+
+# ------------------------------------------------------------ past 65535 samples
+BIG_B = 70000
+
+
+def _big_lengths(gen, B, T):
+    lengths = _lengths(gen, B, T)
+    lengths[65535], lengths[65536] = 0, T
+    return lengths
+
+
+def _big_err(got, want, lengths, cd):
+    """_sample_err over every sample in f32; in bf16 over the 128 samples
+    at each end of either launch (SAMPLE_TOL comes from readings at B=128:
+    the largest of 70000 bf16 samples passes it, chip_smoke.big_batch_phase
+    prints how far)."""
+    if cd is None or got.shape[0] < BIG_B:
+        return _sample_err(got, want, lengths)
+    ends = torch.cat([torch.arange(0, 128), torch.arange(65535 - 128, 65535 + 128),
+                      torch.arange(BIG_B - 128, BIG_B)]).to(got.device)
+    return _sample_err(got[ends], want[ends], lengths[ends])
+
+
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+def test_packed_pair_takes_70000_samples(gen, cd):
+    """Two launches a pass at origins 0 and 65535, dropout 0.2: the masks
+    past sample 65535 are the plain version's (JAX's hash at that bh)."""
+    B, T, d, nhead = BIG_B, 8, 64, 2
+    od = fa.operand_dtype(cd)
+    q, k, v, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(4))
+    lengths = _big_lengths(gen, B, T)
+    before = fa.flash_mha_packed.launches, fa.flash_mha_packed.bwd_launches
+    o, lse = fa._packed_fwd(q, k, v, lengths, SEED, 0.2, cd, nhead)
+    grads = fa._packed_bwd_cuda(q, k, v, lengths, SEED, 0.2, nhead, od, o, lse, g)
+    assert (fa.flash_mha_packed.launches, fa.flash_mha_packed.bwd_launches) == (
+        before[0] + 2, before[1] + 2)
+    po, plse = fa._packed_fwd_plain(q, k, v, lengths, nhead, od, SEED, 0.2)
+    want = fa._packed_bwd_plain(q, k, v, lengths, SEED, 0.2, nhead, od, o, lse, g)
+    tail = [x[65535:].contiguous() for x in (q, k, v, lengths)]
+    o2, lse2 = fa._packed_fwd_cuda(*tail, SEED, 0.2, nhead, od, origin=(65535, 0, nhead))
+    assert torch.equal(o2, o[65535:]) and torch.equal(lse2, lse[65535:])
+    torch.cuda.synchronize()
+    assert _big_err(o, po, lengths, cd) <= SAMPLE_TOL[cd]
+    assert (lse - plse).abs().max().item() <= TOL[cd]
+    for a, b in zip(grads, want):
+        assert _big_err(a, b, lengths, cd) <= SAMPLE_TOL[cd]
+
+
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("B,H", [(BIG_B, 2), (2, BIG_B)])
+def test_flash_mha_takes_70000_samples_or_heads(gen, B, H, cd):
+    T, D = 8, 16
+    od = fa.operand_dtype(cd)
+    q, k, v = (x.requires_grad_() for x in _head_inputs(gen, B, H, T, D, "projection"))
+    g = torch.randn((B, H, T, D), generator=gen, device="cuda")
+    lengths = _lengths(gen, B, T)
+    before = fa.flash_mha.launches, fa.flash_mha.bwd_launches
+    o = fa.flash_mha(q, k, v, lengths, SEED, 0.2, cd)
+    got = torch.autograd.grad(o, (q, k, v), g)
+    assert (fa.flash_mha.launches, fa.flash_mha.bwd_launches) == (before[0] + 2,
+                                                                  before[1] + 2)
+    _, lse = fa._flash_fwd(q, k, v, lengths, SEED, 0.2, cd)
+    po, plse = fa._flash_fwd_plain(q, k, v, lengths, od, SEED, 0.2)
+    want = fa._flash_bwd_plain(q.detach(), k.detach(), v.detach(), lengths, SEED, 0.2,
+                               od, o.detach(), lse, g)
+    torch.cuda.synchronize()
+    assert (lse - plse).abs().max().item() <= TOL[cd]
+    assert _big_err(o, po, lengths, cd) <= SAMPLE_TOL[cd]
+    for a, b in zip(got, want):
+        assert _big_err(a, b, lengths, cd) <= SAMPLE_TOL[cd]
+
+
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+def test_fused_layer_takes_70000_samples(gen, cd):
+    """PAM's width at T=16, dropout 0.2: out, attn, lse and dx sample by
+    sample, the weight gradients (the two launches' sums added) relative."""
+    B, T, d, ffn, nhead = BIG_B, 16, 84, 136, 2
+    od = fa.operand_dtype(cd)
+    p = _random_layer(gen, d, ffn)
+    x, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(2))
+    lengths = _big_lengths(gen, B, T)
+    ws = fe._flatten(p)
+    before = fe.fused_encoder_layer.launches, fe.fused_encoder_layer.bwd_launches
+    out, attn, lse = fe._fused_fwd_cuda(ws, x, lengths, SEED, 0.2, nhead, od)
+    scratch = {}
+    dx, dws = fe._fused_bwd_cuda(ws, x, lengths, SEED, 0.2, nhead, od, attn, lse, g,
+                                 scratch_out=scratch)
+    assert (fe.fused_encoder_layer.launches, fe.fused_encoder_layer.bwd_launches) == (
+        before[0] + 2, before[1] + 2)
+    pout, pattn, plse = fe._fused_fwd_plain(p, x, lengths, nhead, od, SEED, 0.2)
+    relu_on = scratch["f"].reshape(B, T, ffn) > 0
+    pdx, pdws = fe._fused_bwd_plain(p, x, lengths, SEED, 0.2, nhead, od, attn, lse, g,
+                                    relu_on=relu_on)
+    torch.cuda.synchronize()
+    for a, b in ((out, pout), (attn, pattn), (dx, pdx)):
+        assert torch.isfinite(a).all() and _big_err(a, b, lengths, cd) <= SAMPLE_TOL[cd]
+    assert (lse - plse).abs().max().item() <= TOL[cd]
+    for a, b in zip(dws, pdws):
+        assert _rel_err(a, b) <= TOL[cd]
+
+
+def test_graph_kernels_take_70000_samples(gen):
+    src, dst, N = _graph(gen, "knn")
+    for gather_target in (False, True):
+        _check_spmm(gen, src, dst, N, BIG_B, 8, gather_target)
+    _check_sddmm(gen, src, dst, N, BIG_B, 8)

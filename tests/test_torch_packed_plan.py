@@ -126,13 +126,17 @@ def test_alignment_of_addresses():
 
 
 def test_head_dim_past_the_limit_raises():
-    # the limit was 128 before the sensor-wise slice; it is 368 now
-    with pytest.raises(ValueError, match="368"):
-        fa.packed_plan(1, 16, 2 * 369, 2, BF16)
-    with pytest.raises(ValueError, match="368"):
-        fa.packed_plan(1, 16, 369, 1, F32)
-    fa.packed_plan(1, 16, 2 * 368, 2, BF16)   # hd = 368 is taken
-    fa.packed_plan(1, 16, 129, 1, F32)        # and so is hd = 129
+    # the limit was 128 before the sensor-wise slice and 368 before the
+    # "hd_stream" route: past 368 both dtypes take it, and what raises is a
+    # route the plan does not know or a width nhead does not divide
+    assert fa.packed_plan(1, 16, 2 * 369, 2, BF16).route == "hd_stream"
+    assert fa.packed_plan(1, 16, 369, 1, F32).route == "hd_stream"
+    assert fa.packed_plan(1, 16, 2 * 368, 2, BF16).route == "tc_wide"   # hd = 368
+    assert fa.packed_plan(1, 16, 129, 1, F32).route == "scalar"         # and hd = 129
+    with pytest.raises(ValueError, match="impl"):
+        fa.packed_plan(1, 16, 720, 1, F32, "tc")
+    with pytest.raises(ValueError, match="divisible"):
+        fa.packed_plan(1, 16, 721, 2, F32)
 
 
 @pytest.mark.parametrize("od", [BF16, F32])

@@ -153,9 +153,10 @@ def test_parse_equals_the_jax_package(raw):
 
 def test_the_cli_artifacts_equal_the_jax_package(raw, tmp_path, monkeypatch):
     """parse, splits (seeded), sanity and grud through both packages' main;
-    the port's with pandas blocked. grud's deltas: the JAX package's numpy
-    path (its C++ host runtime is not the port's semantics)."""
+    the port's with pandas blocked. grud's deltas: both packages' numpy
+    paths (tests/test_torch_native.py holds their C++ host runtimes)."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setenv("RAINDROP_TPU_NATIVE", "0")
     out = {}
     for name, main in (("port", pre.main), ("jax", jpre.main)):
         root = tmp_path / name
@@ -181,6 +182,7 @@ def test_the_cli_artifacts_equal_the_jax_package(raw, tmp_path, monkeypatch):
 
 def test_grud_tensors_equal_the_jax_numpy_path(raw, monkeypatch):
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setenv("RAINDROP_TPU_NATIVE", "0")
     P_list, ts = pre.parse_patients(raw)
     pt = pre.irregular_sampling(P_list, ts, max_len=60)
     got = pre.grud_tensors(pt)

@@ -159,7 +159,12 @@ def _tcfg(cls, **kw):
     return cls(**{**base, **kw})
 
 
-def test_train_split_follows_the_jax_trainer():
+def test_train_split_follows_the_jax_trainer(monkeypatch):
+    # both packages' splits on their numpy path, the port's inputs as before
+    # its C++ host runtime existed: on the runtime's splits (1e-15 apart in
+    # the stats) the two trainings part by 4e-5 in the loss by epoch 2 and
+    # one of the 35 validation pairs flips (ROADMAP queue 3)
+    monkeypatch.setenv("RAINDROP_TPU_NATIVE", "0")
     jcfg, cfg = _cfgs()
     jsplit = jax_synthetic_split("P19", 120, 2, T=T)
     split = synthetic_split("P19", 120, 2, T=T)

@@ -216,11 +216,13 @@ def test_shared_memory_mirror_fits_a_block(route):
 
 
 def test_head_dim_past_the_kernels_raises():
-    with pytest.raises(ValueError, match="368"):
-        fa.split_plan(1, 1, 16, 369, BF16)
-    with pytest.raises(ValueError, match="368"):
-        fa.split_plan(1, 1, 16, 400, F32)
+    # past 368 the "hd_stream" route takes both dtypes (it raised before);
+    # an unknown impl still raises
+    assert fa.split_plan(1, 1, 16, 369, BF16).route == "hd_stream"
+    assert fa.split_plan(1, 1, 16, 400, F32).route == "hd_stream"
     assert fa.split_plan(1, 1, 16, 368, BF16).route == "tc_wide"
+    with pytest.raises(ValueError, match="impl"):
+        fa.split_plan(1, 1, 16, 400, F32, impl="tc")
 
 
 def test_impl_is_checked():
@@ -228,3 +230,16 @@ def test_impl_is_checked():
         fa.split_plan(1, 1, 16, 42, BF16, impl="wgmma")
     assert fa.split_plan(1, 1, 16, 42, BF16, impl="scalar").route == "scalar"
     assert fa.split_plan(1, 1, 16, 42, F32, impl="scalar").route == "scalar"
+
+
+def hd_stream_smem():
+    """Shared bytes of the "hd_stream" forward, dq and dk/dv kernels, as
+    csrc/attention_hd_stream.cuh sizes them (the card tests hold
+    split_smem and packed_smem to it): 32-row blocks and streamed tiles,
+    head-dim chunks of 32 columns and output slices of HD_STREAM_SLICE,
+    each row one float longer; probabilities (and dp) 32 x 33; the dk/dv
+    pass its tile's lse and delta besides."""
+    R = fa.HD_STREAM_ROWS
+    chunk, probs, slice_ = R * 33, R * (R + 1), R * (fa.HD_STREAM_SLICE + 1)
+    return (4 * (2 * chunk + probs + slice_), 4 * (4 * chunk + probs + slice_),
+            4 * (4 * chunk + 2 * probs + 2 * R + 2 * slice_))
