@@ -330,7 +330,16 @@ check does not hold:
      second at sample origin 65535), dropout 0.2 where the op has it, f32
      and bf16: flash_mha_packed, flash_mha (and 70000 heads), the fused
      layer at PAM's width, spmm_segment_softmax and sddmm, against the plain
-     versions (so the masks past sample 65535 are compared).
+     versions (so the masks past sample 65535 are compared);
+ 31. fused_wide_phase, the fused layer past the widths its tile-resident
+     routes take (route "stream"): P12-sw on a 600-step window (d 720, ffn
+     288) at 2 heads (hd 360) and at 1 (hd 720, its attention on
+     "hd_stream"), B=128, f32 and bf16: phases 3 and 6 there (dropout 0.2
+     in 6), then the model served at buckets 1-128 and trained 3 steps at
+     B=128 with f32 attention operands and in bf16 compute, served
+     probabilities and the first step against the plain path (1e-4 / 2e-2),
+     and the CLI for one epoch of one split on 256 synthetic samples; every
+     fused launch counted on "stream".
 
 Every phase's seconds are printed as `[phase] name: s` and kept under
 "phase_s" in the --out file.
@@ -347,12 +356,13 @@ gradients, sums over every row, to TOL relative to max(1, the plain
 gradient's largest value), its plain backward taking the kernel's relu
 branches (fused_bwd_phase says why). The sparse-graph kernels are
 f32 throughout and are held to 1e-5 relative to max(1, |plain|).
-The line before the last is the kernels' JSON record (twenty-seven
+The line before the last is the kernels' JSON record (twenty-nine
 records: twelve kernels at the main paths' shapes, the packed pair and the
 fused layer again at the sensor-wise widths, the fused layer's three
 attention launchers on "tc_wide" at PAM-sw, flash_mha forward and
-backward at PAM-sw-2048's hd 170, and both ops' forward and backward on
-"hd_stream" past hd 368, rows 1-11 with the launches of their B=70000
+backward at PAM-sw-2048's hd 170, both ops' forward and backward on
+"hd_stream" past hd 368, and the fused layer's forward and backward on
+"stream" at P12-sw T=600 (phase 31), rows 1-11 with the launches of their B=70000
 call under "big_batch_launches"; the fused layer's list the CUDA kernels
 of its tensor-core route and of the previous design, and its launches, and
 flash_mha's, are the tensor-core ones; rows 1 and 2 also carry the
@@ -454,14 +464,16 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def time_designs(run, dtype, reps=20):
+def time_designs(run, dtype, reps=20, previous=True):
     """Times of run(impl): the plan's route ("auto") and, in bf16, the
     previous design (the scalar kernels, "scalar"), timed in turns scalar,
     tc, tc, scalar so that the card's clocks favour neither. f32 takes the
-    scalar route either way: its prev_ms is None. ms are CUDA-event means
-    over `reps` calls; device_ms the profiler's device time of a call
-    (the kernels alone, without the host's gaps between launches)."""
-    if dtype != "bfloat16":
+    scalar route either way, and where no previous design takes the width
+    (previous=False: the "stream" route) there is none to time: prev_ms is
+    None. ms are CUDA-event means over `reps` calls; device_ms the
+    profiler's device time of a call (the kernels alone, without the
+    host's gaps between launches)."""
+    if dtype != "bfloat16" or not previous:
         return dict(ms=time_ms(lambda: run("auto"), reps), prev_ms=None,
                     device_ms=device_ms(lambda: run("auto")), prev_device_ms=None)
     t = {"auto": [], "scalar": []}
@@ -638,7 +650,8 @@ def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
 
     ws = fe._flatten(p)
     times = time_designs(
-        lambda impl: fe._fused_fwd_cuda(ws, x, lengths, 0, 0.0, H, od, impl), dtype)
+        lambda impl: fe._fused_fwd_cuda(ws, x, lengths, 0, 0.0, H, od, impl), dtype,
+        previous=plan.route != "stream")
     ms, prev_ms = times["ms"], times["prev_ms"]
     plain_ms = time_ms(lambda: fe._fused_fwd_plain(p, x, lengths, H, od))
     layer = torch.nn.TransformerEncoderLayer(
@@ -668,8 +681,9 @@ def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
     dense = 2.0 * B * T * (3 * d * d + d * d + 2 * d * ffn)
     flops = dense + 4.0 * T * hd * H * float(lengths.sum())
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    # the qkv intermediate A writes and B reads back (bf16 on the tensor cores)
-    qkv_bytes = 2 * B * T * 3 * d * (2 if plan.route == "tc" else 4)
+    # the qkv intermediate A writes and B reads back (bf16 where the
+    # attention runs on the tensor cores)
+    qkv_bytes = 2 * B * T * 3 * d * (2 if plan.attn_route in ("tc", "tc_wide") else 4)
     print(f"[fused] {label} {dtype}: kernel {ms:.4f} ms, {design_line(ms, prev_ms, bound_ms)}, "
           f"plain {plain_ms:.4f} ms, TransformerEncoderLayer {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}); device time {device_line(times)}; qkv round "
@@ -844,15 +858,15 @@ def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
 # on the fused layer's bf16 route, every row
 # product (qkv, the forward's tail, the backward's row kernel, dx, the
 # weight gradients) and the attention on one warpgroup (PAM's head dim) and
-# on two (PAM-sw's)
+# on two (PAM-sw's), and the "stream" route's bf16 products
 SASS_FAMILIES = {
     "flash_packed": ("packed_fwd_tc", "packed_dq_tc", "packed_dkv_tc",
                      "packed_fwd_wide", "packed_dq_wide", "packed_dkv_wide"),
     "fused_encoder": ("qkv_rows_tc_kernel", "layer_tail_tc", "fused_attn_fwd_tc",
-                      "fused_attn_fwd_wide"),
+                      "fused_attn_fwd_wide", "stream_rows_tc"),
     "fused_encoder_bwd": ("qkv_rows_tc_kernel", "layer_bwd_rows_tc", "dx_rows_tc",
                           "wgrad_tc", "fused_dq_tc", "fused_dkv_tc", "fused_dq_wide",
-                          "fused_dkv_wide"),
+                          "fused_dkv_wide", "stream_rows_tc"),
 }
 
 
@@ -1027,7 +1041,7 @@ def fused_bwd_phase(label, B, T, d, ffn, H, dtype, rate, device="cuda", seed=0):
     del pdx, pdws, fwd_p
 
     times = time_designs(lambda impl: fe._fused_bwd_cuda(ws, *args, impl=impl), dtype,
-                         reps=10)
+                         reps=10, previous=plan.route != "stream")
     ms, prev_ms = times["ms"], times["prev_ms"]
     plain_ms = time_ms(lambda: fe._fused_bwd_plain(p, *args), reps=3, warmup=1)
     layer = torch.nn.TransformerEncoderLayer(
@@ -1267,14 +1281,14 @@ def _in_chunks(fn, B, step):
 def _split_counts():
     from raindrop_tpu_torch.ops import flash_attention as fa
 
-    return {a: getattr(fa.flash_mha, a) for a in COUNTS}
+    return {a: getattr(fa.flash_mha, a) for a in COUNTS if hasattr(fa.flash_mha, a)}
 
 
 def _check_split_launches(before, route, fwd, bwd, what):
     """fwd forward and bwd backward flash_mha launches since `before`, every
     one counted on `route` (none on a tensor-core route for "scalar")."""
     got = {a: n - before[a] for a, n in _split_counts().items()}
-    want = {a: 0 for a in COUNTS}
+    want = {a: 0 for a in got}
     want.update(launches=fwd, bwd_launches=bwd)
     if route != "scalar":
         want.update({f"{route}_launches": fwd, f"{route}_bwd_launches": bwd})
@@ -2010,16 +2024,18 @@ PLAIN_ALL = {"attention_backend": "dense", "prop_backend": "auto"}
 
 COUNTS = ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches",
           "tc_wide_launches", "tc_wide_bwd_launches", "hd_stream_launches",
-          "hd_stream_bwd_launches")
+          "hd_stream_bwd_launches", "stream_launches", "stream_bwd_launches")
 # the sparse-graph wrappers' routes (ops/sparse.py graph_plan), counted apart
 GRAPH_ROUTES = ("row", "tile", "csr")
 GRAPH_COUNTS = ("launches", "bwd_launches",
                 *(f"{r}_{a}" for r in GRAPH_ROUTES for a in ("launches", "bwd_launches")))
 # the routes a wrapper counts apart: "<name>.tc" from tc_<attr>; and
 # flash_mha_packed's and flash_mha's two-warpgroup route past hd_pad 144,
-# "<name>.tc_wide", and their route past hd 368, "<name>.hd_stream";
-# spmm_segment_softmax's and sddmm's "<name>.row", "<name>.tile", "<name>.csr"
-ROUTE_COUNTS = ("tc", "tc_wide", "hd_stream", *GRAPH_ROUTES)
+# "<name>.tc_wide", and their route past hd 368, "<name>.hd_stream" (the
+# fused layer's attention past it too); the fused layer's "stream" route,
+# "<name>.stream"; spmm_segment_softmax's and sddmm's "<name>.row",
+# "<name>.tile", "<name>.csr"
+ROUTE_COUNTS = ("tc", "tc_wide", "hd_stream", "stream", *GRAPH_ROUTES)
 
 
 def reset_counts(wrappers):
@@ -5389,14 +5405,17 @@ def hd_stream_timing(label, kind, B, T, hd, dtype, device="cuda", seed=0, reps=5
 
 
 def wide_head_model(wrappers, overrides, label, device="cuda", seed=0, batch=128,
-                    buckets=(1, 8, 32, 128), steps=3):
-    """P12-sw at one head (d = hd = 720, T=215, 2 layers, dropout 0.2) with
-    `overrides`: served at the four buckets, then trained `steps` steps at
-    B=128; the counts set to 0 before each and read after, every
-    flash_mha_packed launch on "hd_stream". Served probabilities and the
-    first step's loss and gradient norm (dropout 0) held against the same
-    configuration on the kernels' plain versions: 1e-4 with f32 attention
-    operands, 2e-2 with bf16."""
+                    buckets=(1, 8, 32, 128), steps=3, base=WIDE_HEAD,
+                    check=check_hd_stream):
+    """P12-sw at one head (`base`; d = hd = 720, T=215, 2 layers, dropout
+    0.2) with `overrides`: served at the four buckets, then trained `steps`
+    steps at B=128; the counts set to 0 before each and read after, every
+    launch on the route `check` holds them to (flash_mha_packed's on
+    "hd_stream"). Served probabilities and the first step's loss and
+    gradient norm (dropout 0) held against the same configuration on the
+    kernels' plain versions: 1e-4 with f32 attention operands, 2e-2 with
+    bf16. Another `base` (P12-sw at T=600: the fused layer) and `check`
+    drive another path the same way."""
     import torch
     from raindrop_tpu_torch.config import TrainConfig, dataset_config
     from raindrop_tpu_torch.data.sampler import balanced_batches
@@ -5404,8 +5423,8 @@ def wide_head_model(wrappers, overrides, label, device="cuda", seed=0, batch=128
     from raindrop_tpu_torch.serve import InferenceServer
     from raindrop_tpu_torch.train.trainer import Trainer
 
-    cfg = dataset_config("P12", **WIDE_HEAD, **overrides)
-    if (cfg.d_transformer, cfg.nhead) != (720, 1):
+    cfg = dataset_config("P12", **base, **overrides)
+    if (cfg.d_transformer, cfg.nhead) != (720, base["nhead"]):
         raise AssertionError(f"{label}: d {cfg.d_transformer}, {cfg.nhead} heads")
     tol = 2e-2 if "bfloat16" in (cfg.compute_dtype, cfg.attention_score_dtype) else 1e-4
     params = raindrop_init(seed, cfg, device=device)
@@ -5416,7 +5435,7 @@ def wide_head_model(wrappers, overrides, label, device="cuda", seed=0, batch=128
     outs = {n: server.predict(P[:n], times[:n], _rows(static, slice(0, n)))
             for n in buckets}
     launches = read_counts(wrappers, "launches")
-    check_hd_stream(f"{label} serving", launches)
+    check(f"{label} serving", launches)
     for n, pr in outs.items():
         _probs_ok(f"{label} served {n}", pr)
     with plain_kernels():
@@ -5442,12 +5461,12 @@ def wide_head_model(wrappers, overrides, label, device="cuda", seed=0, batch=128
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / steps
     tf, tb = (read_counts(wrappers, a) for a in ("launches", "bwd_launches"))
-    check_hd_stream(f"{label} training", tf, tb)
+    check(f"{label} training", tf, tb)
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"{label}: a training loss is not finite: {losses}")
     del trainer
     first = {k: v[idx[0]] for k, v in data.items()}
-    c0 = dataset_config("P12", **WIDE_HEAD, **overrides, dropout=0.0)
+    c0 = dataset_config("P12", **base, **overrides, dropout=0.0)
     (lk, gk, _), (lp, gp, _) = (_first_step(c0, tcfg, params, first, device, plain)
                                 for plain in (False, True))
     checks["loss_vs_plain"] = abs(lk - lp) / abs(lp)
@@ -5695,6 +5714,69 @@ def big_batch_phase(wrappers, device="cuda", seed=0):
     held("sddmm", n, {n_: (rel(a, b), GRAPH_TOL) for n_, a, b in (
         ("alpha", alpha, pa), ("dq", dq, pdq), ("dk", dk, pdk))}, None, same)
     return out
+
+
+# ------------------------------------------- the fused layer past its tiles
+# P12-sw at a 600-step window (d 720 = 36 x (4 + 16), ffn 288, 2 layers): the
+# fused rung at 2 heads (hd 360) and at 1 (hd 720), past the widths the
+# tile-resident routes take: the "stream" route
+FUSED_WIDE = {"sensor_wise_mask": True, "max_len": 600}
+FUSED_WIDE_HEADS = ((2, "P12-sw"), (1, "P12-sw-1h"))
+
+
+def check_fused_stream(what, *counts):
+    """Every fused_encoder_layer launch in these counts took the "stream"
+    route."""
+    for c in counts:
+        n = c["fused_encoder_layer"]
+        if n <= 0 or c["fused_encoder_layer.stream"] != n:
+            raise AssertionError(f"{what}: fused_encoder_layer launches off the stream "
+                                 f"route: {c}")
+
+
+def fused_wide_phase(wrappers, device="cuda", seed=0, seed_cli=0):
+    """The fused layer at P12-sw's width on a 600-step window, 2 heads and
+    1, f32 and bf16 operands (B=128): the kernels against their plain
+    versions (fused_phase: the forward, timed as served; fused_bwd_phase:
+    forward and backward at dropout 0.2, timed as trained, with
+    nn.TransformerEncoderLayer's times beside); the model served at buckets
+    1-128 and trained 3 steps at B=128 with f32 attention operands and with
+    compute_dtype='bfloat16' (wide_head_model, every fused launch on the
+    "stream" route); the CLI for one epoch of one split on 256 synthetic
+    samples, its launches counted there."""
+    layers = {}
+    for H, label in FUSED_WIDE_HEADS:
+        for dtype in ("float32", "bfloat16"):
+            layers[(label, dtype, "fwd")] = fused_phase(label, 128, 600, 720, 288, H, dtype,
+                                                        device, seed)
+            layers[(label, dtype, "bwd")] = fused_bwd_phase(label, 128, 600, 720, 288, H,
+                                                            dtype, 0.2, device, seed)
+    for (label, dtype, _), r in layers.items():
+        if r["route"] != "stream" or r["attn_route"] != (
+                "hd_stream" if label.endswith("1h") else
+                "tc_wide" if dtype == "bfloat16" else "scalar"):
+            raise AssertionError(f"fused layer {label} {dtype} took the {r['route']}/"
+                                 f"{r['attn_route']} routes")
+    models = {}
+    for H, label in FUSED_WIDE_HEADS:
+        base = {**FUSED_WIDE, "nhead": H}
+        models[f"{label} f32"] = wide_head_model(
+            wrappers, {"attention_score_dtype": "float32"}, f"{label} f32", device, seed,
+            base=base, check=check_fused_stream)
+        models[f"{label} bf16"] = wide_head_model(
+            wrappers, MIXED, f"{label} bf16", device, seed, base=base,
+            check=check_fused_stream)
+    argv = ["--dataset", "P12", "--sensor-wise-mask", "true", "--max-len", "600",
+            "--synthetic", "256", "--epochs", "1", "--n-splits", "1", "--measure-mfu",
+            "true", "--seed", str(seed_cli + 1)]
+    summary, records, fwd, bwd, took = run_cli(wrappers, argv, "P12-sw T=600")
+    check_cli("P12-sw T=600", summary, records, "missing_0.0", 1)
+    check_fused_stream("P12-sw T=600 (CLI)", fwd, bwd)
+    print(f"[fused wide] the CLI in {took:.1f} s; launches {fwd}, backward {bwd}",
+          flush=True)
+    return dict(layers=[{**r, "way": k[2]} for k, r in layers.items()], models=models,
+                cli=dict(seconds=took, summary=summary, records=records, launches=fwd,
+                         bwd_launches=bwd))
 
 
 def main(argv=None) -> int:
@@ -6032,6 +6114,13 @@ def main(argv=None) -> int:
     with phase(phase_s, "calls past 65535 samples"):
         big = big_batch_phase(wrappers)
     torch.cuda.empty_cache()
+    # the fused layer past its tiles: P12-sw at T=600, 2 heads and 1, on
+    # the "stream" route
+    with phase(phase_s, "fused layer P12-sw T=600"):
+        fused_wide = fused_wide_phase(wrappers, seed_cli=args.seed)
+    torch.cuda.empty_cache()
+    print(f"[fused wide] the phase took {phase_s['fused layer P12-sw T=600']:.1f} s",
+          flush=True)
     print(f"[slice 19] host runtime {phase_s['host runtime']:.1f} s, attention past hd "
           f"368 {phase_s['attention past hd 368']:.1f} s, calls past 65535 samples "
           f"{phase_s['calls past 65535 samples']:.1f} s", flush=True)
@@ -6283,6 +6372,40 @@ def main(argv=None) -> int:
                    wide["op_launches"]["hd_stream_bwd_launches"], "split", t_split, True,
                    (275, 146)),
     ]
+    # the fused layer past its tiles ("stream"): launches from P12-sw at
+    # T=600 served (forward) and trained (forward and backward), 2 heads
+    # and 1, f32 and bf16 operands; times at the model's shape (B=128, 2
+    # heads, bf16), the one-head times beside; max_abs_err over all four
+    fw_models = fused_wide["models"].values()
+    fw_runs = {way: [r for r in fused_wide["layers"] if r["way"] == way]
+               for way in ("fwd", "bwd")}
+    stream_srcs = [f"{csrc}/fused_encoder.cu", f"{csrc}/fused_encoder_bwd.cu",
+                   f"{csrc}/fused_plan.cuh", f"{csrc}/fused_encoder_attn_hds.cu",
+                   f"{csrc}/fused_encoder_bwd_hds.cu", f"{csrc}/attention_hd_stream.cuh"]
+
+    def one_head(way):
+        r = next(x for x in fw_runs[way] if x["label"] == "P12-sw-1h"
+                 and x["dtype"] == "bfloat16")
+        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "attn_route")}
+
+    kernels += [
+        {**record("fused_encoder_layer_fwd_stream", f"{csrc}/rows_stream.cuh",
+                  "raindrop_tpu/ops/fused_encoder.py:131",
+                  sum(m["serve_launches"]["fused_encoder_layer.stream"]
+                      + m["train_launches"]["fused_encoder_layer.stream"] for m in fw_models),
+                  fw_runs["fwd"], "P12-sw"),
+         "one_head": one_head("fwd"), "shape": {"B": 128, "T": 600, "d": 720, "ffn": 288},
+         "sources_also": stream_srcs},
+        {**record("fused_encoder_layer_bwd_stream", f"{csrc}/rows_stream.cuh",
+                  "raindrop_tpu/ops/fused_encoder.py:183",
+                  sum(m["train_bwd_launches"]["fused_encoder_layer.stream"]
+                      for m in fw_models), fw_runs["bwd"], "P12-sw", 0.2),
+         "one_head": one_head("bwd"), "shape": {"B": 128, "T": 600, "d": 720, "ffn": 288},
+         "cli_launches": [fused_wide["cli"]["launches"]["fused_encoder_layer.stream"],
+                          fused_wide["cli"]["bwd_launches"]["fused_encoder_layer.stream"]],
+         "sources_also": stream_srcs},
+    ]
     # rows 1-11 at 70000 samples: the launches of each row's bf16 call there
     # (forward or backward), two a call
     big_rows = {"flash_mha_packed": "flash_mha_packed bfloat16",
@@ -6350,6 +6473,7 @@ def main(argv=None) -> int:
                        "torchrun_cli": {"summary": torchrun_summary,
                                         "seconds": torchrun_s}},
               "host_runtime": host, "wide_heads": wide, "big_batch": big,
+              "fused_wide": fused_wide,
               "phase_s": phase_s, "total_s": time.perf_counter() - t_start,
               "kernels": kernels}
     if args.out:

@@ -51,7 +51,13 @@
 //   (PAM-sw's 170 pads to 176);
 // - scalar (f32, and bf16 on request): A in 32-row blocks, B attend_rows in
 //   the geometry of the head dim, C row_gemm, every product scalar FMA.
-//   The f32 route keeps these kernels bit for bit.
+//   The f32 route keeps these kernels bit for bit;
+// - stream (every width the two above do not take: P12's sensor-wise d 720,
+//   any head past 368; rows_stream.cuh says why and how): C becomes its
+//   products and row kernels, each a launch over rows in device memory,
+//   A a product of the same kernel (tensor cores in bf16, scalar in f32),
+//   B the attention of the plan (in bf16 on the tensor cores to hd 368,
+//   past it attend_rows_hs, in fused_encoder_attn_hds.cu).
 //
 // Dropout (training) is a template flag; with rate 0 the kernels carry no
 // mask code. The attention probabilities are keyed (seed, b * nhead + h),
@@ -59,6 +65,7 @@
 // padded to 8 (the reference's padded row count), sites 101 (attention
 // out), 102 (FFN hidden, after relu) and 103 (FFN out).
 #include "fused_plan.cuh"
+#include "rows_stream.cuh"
 
 namespace {
 
@@ -209,7 +216,24 @@ cudaError_t allow_smem(K kern, int bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int MAXD, typename G, bool BF, bool DROP>
+// Launch B on the scalar kernels in the geometry of the head dim (up to hd
+// 368), on f32 qkv.
+template <bool BF, bool DROP>
+int attn_scalar(const float* qkv, const int* lengths, float* attn, float* lse, int bytes,
+                int B, int T, int d, int nhead, float scale2, int seed, rd::Drop dr,
+                cudaStream_t stream) {
+  RD_DISPATCH_GEOM(d / nhead, {
+    auto kb = attn_rows_kernel<MAXD, G, BF, DROP>;
+    cudaError_t err = allow_smem(kb, bytes);
+    if (err != cudaSuccess) return (int)err;
+    dim3 blocks((T + G::ROWS - 1) / G::ROWS, nhead, B);
+    kb<<<blocks, rd::NT, bytes, stream>>>(qkv, lengths, attn, lse, T, d, nhead, scale2, seed,
+                                          dr);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <bool BF, bool DROP>
 int launch(const float* x, const float* w_in, const float* b_in,
            const float* wo, const float* bo, const float* g1, const float* be1,
            const float* w1, const float* bf1, const float* w2, const float* bf2,
@@ -221,21 +245,17 @@ int launch(const float* x, const float* w_in, const float* b_in,
   const int bytes_a = p.l[rd::fused::QKV].smem, bytes_b = p.l[rd::fused::ATTN_FWD].smem,
             bytes_c = p.l[rd::fused::TAIL].smem;
   auto ka = rd::qkv_rows_kernel<BF>;
-  auto kb = attn_rows_kernel<MAXD, G, BF, DROP>;
   auto kc = layer_tail_kernel<BF, DROP>;
   cudaError_t err = allow_smem(ka, bytes_a);
-  if (err == cudaSuccess) err = allow_smem(kb, bytes_b);
   if (err == cudaSuccess) err = allow_smem(kc, bytes_c);
   if (err != cudaSuccess) return (int)err;
   ka<<<(unsigned)((M + rd::BR - 1) / rd::BR), rd::NT, bytes_a, stream>>>(
       x, w_in, b_in, qkv, M, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 blocks((T + G::ROWS - 1) / G::ROWS, nhead, B);
-  kb<<<blocks, rd::NT, bytes_b, stream>>>(qkv, lengths, attn, lse, T, d, nhead, scale2,
-                                          seed, dr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int e = attn_scalar<BF, DROP>(qkv, lengths, attn, lse, bytes_b, B, T, d, nhead,
+                                      scale2, seed, dr, stream);
+  if (e != 0) return e;
   dim3 rows((T + rd::BQ - 1) / rd::BQ, B);
   kc<<<rows, rd::NT, bytes_c, stream>>>(x, attn, wo, bo, g1, be1, w1, bf1, w2, bf2, g2,
                                         be2, out, T, d, ffn, seed, dr);
@@ -279,16 +299,72 @@ int launch_tc(const float* const* w, const float* b_in, const float* bo, const f
   return (int)cudaGetLastError();
 }
 
+// The "stream" route: the four weights packed (bf16: the products on the
+// tensor cores; f32 reads them as given), then A, B and C's products and
+// row kernels. rows: x1 [M, d], then the FFN hidden [M, ffn]; out holds
+// the out-projection and the FFN's output before LN1 and LN2 read them.
+template <bool DROP>
+int launch_stream(const float* const* w, const float* b_in, const float* bo,
+                  const float* g1, const float* be1, const float* bf1, const float* bf2,
+                  const float* g2, const float* be2, const float* x, const int* lengths,
+                  void* qkv, float* out, float* attn, float* lse, bf16* wpack, float* rows,
+                  int B, int T, int d, int ffn, int nhead, float scale2, int bf, int seed,
+                  double rate, rd::Origin org, const Plan& p, cudaStream_t stream) {
+  using namespace rd::fused;
+  const rd::Drop dr = rd::make_drop(rate, org);
+  const Packed pk = packed_layout(d, ffn);
+  if (bf) RD_TRY(pack_weights(pack_jobs(pk, w, P_W2T), wpack, stream));
+  const long M = (long)B * T;
+  auto prod = [&](const float* A, int K, int slot, int N, const float* bias, void* o,
+                  int out_bf16, int round) {
+    return stream_product(A, M, K, bf ? wpack + pk.off[slot] : nullptr, w[slot], 0, N, bias,
+                          nullptr, o, out_bf16, round, stream);
+  };
+  const Launch& lb = p.l[ATTN_FWD];
+  const bool attn_tc = lb.route == R_TC || lb.route == R_TC_WIDE;
+  float* x1 = rows;
+  float* f = rows + M * d;
+  const dim3 row_grid = stream_row_grid(M);
+  RD_TRY(prod(x, d, P_IN, 3 * d, b_in, qkv, attn_tc, bf && !attn_tc));
+  int err;
+  if (lb.route == R_TC) {
+    err = launch_attn_fwd_tc(qkv, lengths, attn, lse, lb, B, T, d, nhead, scale2, seed, rate,
+                             org, stream);
+  } else if (lb.route == R_TC_WIDE) {
+    err = launch_attn_fwd_wide(qkv, lengths, attn, lse, lb, B, T, d, nhead, scale2, seed,
+                               rate, org, stream);
+  } else if (lb.route == R_HD_STREAM) {
+    err = launch_attn_fwd_hds(qkv, lengths, attn, lse, lb, B, T, d, nhead, scale2, bf, seed,
+                              rate, org, stream);
+  } else {
+    err = (bf ? attn_scalar<true, DROP> : attn_scalar<false, DROP>)(
+        (const float*)qkv, lengths, attn, lse, lb.smem, B, T, d, nhead, scale2, seed, dr,
+        stream);
+  }
+  if (err != 0) return err;
+  RD_TRY(prod(attn, d, P_WO, d, bo, out, 0, 0));
+  stream_ln_rows<DROP><<<row_grid, rd::NT, 0, stream>>>(x, out, 101u, g1, be1, x1, nullptr,
+                                                        nullptr, M, T, d, seed, dr);
+  RD_TRY(cudaGetLastError());
+  RD_TRY(prod(x1, d, P_W1, ffn, bf1, f, 0, 0));
+  stream_relu<DROP><<<stream_elem_grid(M * ffn), rd::NT, 0, stream>>>(f, nullptr, M * ffn,
+                                                                     ffn, T, seed, dr);
+  RD_TRY(cudaGetLastError());
+  RD_TRY(prod(f, ffn, P_W2, d, bf2, out, 0, 0));
+  stream_ln_rows<DROP><<<row_grid, rd::NT, 0, stream>>>(x1, out, 103u, g2, be2, out, nullptr,
+                                                        nullptr, M, T, d, seed, dr);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The plan of route tc (1) or scalar (0) at one width, as the entry points
-// check it: PLAN_INTS ints into out (rd::fused::Plan); W is the tensor-core
-// attention's copy width. cudaErrorInvalidValue where the route does not
-// take the width (out then holds what it would need, where a geometry
-// takes the head dim).
-extern "C" int rd_fused_plan(int d, int ffn, int nhead, int bf16, int tc, int W, int* out) {
+// The plan of route tc (1), scalar (0) or stream (4) at one width, as the
+// entry points check it: PLAN_INTS ints into out (rd::fused::Plan); W is
+// the tensor-core attention's copy width. cudaErrorInvalidValue (out all
+// zeros) where the route does not take the width.
+extern "C" int rd_fused_plan(int d, int ffn, int nhead, int bf16, int route, int W, int* out) {
   Plan p;
-  if (rd::fused::expected_plan(d, ffn, nhead, bf16, tc, W, &p)) {
+  if (rd::fused::expected_plan(d, ffn, nhead, bf16, route, W, &p)) {
     std::memcpy(out, &p, sizeof(Plan));
     return 0;
   }
@@ -296,15 +372,16 @@ extern "C" int rd_fused_plan(int d, int ffn, int nhead, int bf16, int tc, int W,
   return (int)cudaErrorInvalidValue;
 }
 
-// qkv: [B, T, 3d] scratch, f32 on the scalar route, bf16 on the tensor-core
-// one; wpack: the packed weights (tensor cores; rd::fused::packed_layout's
-// first four); plan: the wrapper's PLAN_INTS ints.
+// qkv: [B, T, 3d] scratch, bf16 where the attention runs on the tensor
+// cores, f32 otherwise; wpack: the packed weights (tensor cores;
+// rd::fused::packed_layout's first four); rows: the "stream" route's x1
+// and FFN hidden, B T (d + ffn) floats; plan: the wrapper's PLAN_INTS ints.
 extern "C" int rd_fused_layer_fwd(
     const void* x, const void* w_in, const void* b_in, const void* wo,
     const void* bo, const void* g1, const void* be1, const void* w1,
     const void* bf1, const void* w2, const void* bf2, const void* g2,
     const void* be2, const void* lengths, void* qkv, void* out, void* attn,
-    void* lse, void* wpack, int B, int T, int d, int ffn, int nhead, float scale2,
+    void* lse, void* wpack, void* rows, int B, int T, int d, int ffn, int nhead, float scale2,
     int bf16, int seed, double rate, int b0, int h0, int heads, const int* plan,
     void* stream) {
   const rd::Origin org{b0, h0, heads};
@@ -316,6 +393,20 @@ extern "C" int rd_fused_layer_fwd(
   if (!rd::fused::check_plan(plan, d, ffn, nhead, bf16, {qkv}, &p))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (p.l[rd::fused::QKV].route == rd::fused::R_STREAM) {
+    if (rows == nullptr || (bf16 && wpack == nullptr)) return (int)cudaErrorInvalidValue;
+    const float* w[4] = {(const float*)w_in, (const float*)wo, (const float*)w1,
+                         (const float*)w2};
+#define RD_STREAM_ARGS                                                          \
+  w, (const float*)b_in, (const float*)bo, (const float*)g1, (const float*)be1, \
+      (const float*)bf1, (const float*)bf2, (const float*)g2, (const float*)be2, \
+      (const float*)x, (const int*)lengths, qkv, (float*)out, (float*)attn,     \
+      (float*)lse, (__nv_bfloat16*)wpack, (float*)rows, B, T, d, ffn, nhead,    \
+      scale2, bf16, seed, rate, org, p, s
+    return rate > 0.0 ? launch_stream<true>(RD_STREAM_ARGS)
+                      : launch_stream<false>(RD_STREAM_ARGS);
+#undef RD_STREAM_ARGS
+  }
   if (p.l[rd::fused::QKV].route == 1) {
     const float* w[4] = {(const float*)w_in, (const float*)wo, (const float*)w1,
                          (const float*)w2};
@@ -336,13 +427,7 @@ extern "C" int rd_fused_layer_fwd(
       (const float*)w2, (const float*)bf2, (const float*)g2,               \
       (const float*)be2, (const int*)lengths, (float*)qkv, (float*)out,    \
       (float*)attn, (float*)lse, B, T, d, ffn, nhead, scale2, seed, dr, p, s
-  RD_DISPATCH_GEOM(d / nhead, {
-    if (rate > 0.0) {
-      return bf16 ? launch<MAXD, G, true, true>(RD_ARGS)
-                  : launch<MAXD, G, false, true>(RD_ARGS);
-    }
-    return bf16 ? launch<MAXD, G, true, false>(RD_ARGS)
-                : launch<MAXD, G, false, false>(RD_ARGS);
-  });
+  if (rate > 0.0) return bf16 ? launch<true, true>(RD_ARGS) : launch<false, true>(RD_ARGS);
+  return bf16 ? launch<true, false>(RD_ARGS) : launch<false, false>(RD_ARGS);
 #undef RD_ARGS
 }

@@ -2,8 +2,9 @@
 // (bf16 qkv [B, T, 3d], route 2 "tc_wide"): two warpgroups per (64-row
 // query block, head, sample) running attend_rows_tc_wide
 // (attention_tc_wide.cuh) on the head's strided view of qkv, and its
-// launcher. A unit of its own (4 instantiations: hd_pad 176 and 208, with
-// and without dropout) so that nvcc builds it beside fused_encoder.cu;
+// launcher. A unit of its own (14 instantiations: hd_pad 176, 208, ...,
+// 368, with and without dropout; past 208 the "stream" route's) so that
+// nvcc builds it beside fused_encoder.cu;
 // fused_encoder.cu says what the layer replaces and what bounds it.
 #include "fused_plan.cuh"
 

@@ -46,11 +46,19 @@
 //   [32, d] buffers in shared memory, 218,496 bytes at d = 340), C the two
 //   kernels of attention_bwd.cuh in the geometry of the head dim (Narrow up
 //   to hd 192, Wide to 368), E a 64 x 64 scalar tile; every product scalar
-//   FMA. The f32 route keeps these kernels bit for bit.
+//   FMA. The f32 route keeps these kernels bit for bit;
+// - stream (every width the two above do not take; rows_stream.cuh): A, B's
+//   six products and D are products of one kernel over rows in device
+//   memory (tensor cores in bf16, scalar in f32), B's LayerNorms, dropout
+//   sites, relu and delta row kernels, the column sums a column a thread
+//   over the 512-row chunks; C the attention of the plan (in bf16 on the
+//   tensor cores to hd 368, past it attn_dq_rows_hs and attn_dkv_rows_hs,
+//   in fused_encoder_bwd_hds.cu), E as on the other routes.
 // No atomics anywhere: two runs give the same bits. The buffers that reach
 // device memory between launches are allocated by the wrapper, which lists
 // them (ops/fused_encoder.py: bwd_scratch).
 #include "fused_plan.cuh"
+#include "rows_stream.cuh"
 
 namespace {
 
@@ -782,8 +790,12 @@ struct Args {
   float *qkv, *x1, *f, *df2, *dfpre, *dao, *dattn, *dh1, *dqkv, *delta, *rowpart,
       *wpart, *h1;
   bf16* wpack;
+  // the "stream" route's: xhat1, xhat2, 1/std of both LayerNorms ([2, M]),
+  // dh2, dx1, d_attn in bf16 (where its attention runs on the tensor cores)
+  float *xhat1, *xhat2, *rstd, *dh2, *dx1;
+  bf16* dattn_op;
   float *dx, *dw_in, *dwo, *dw1, *dw2, *vec;
-  int B, T, d, ffn, nhead, seed, chunk;
+  int B, T, d, ffn, nhead, seed, chunk, bf;  // bf: bf16 operands
   float scale;
   double rate;
   rd::Origin org;
@@ -827,24 +839,40 @@ int weight_grad_tc(const Args& a, const rd::fused::Launch& l, const TG* G, int l
   return (int)cudaGetLastError();
 }
 
+// Launch C on the scalar kernels in the geometry of the head dim (up to hd
+// 368), on f32 qkv and d_attn.
+template <bool BF, bool DROP>
+int attn_bwd_scalar(const Args& a, const Plan& p) {
+  using namespace rd::fused;
+  RD_DISPATCH_GEOM(a.d / a.nhead, {
+    auto kq = fused_dq_kernel<MAXD, G, BF, DROP>;
+    auto kkv = fused_dkv_kernel<MAXD, G, BF, DROP>;
+    RD_TRY(allow_smem(kq, p.l[ATTN_DQ].smem));
+    RD_TRY(allow_smem(kkv, p.l[ATTN_DKV].smem));
+    dim3 blocks((a.T + G::ROWS - 1) / G::ROWS, a.nhead, a.B);
+    kq<<<blocks, rd::NT, p.l[ATTN_DQ].smem, a.stream>>>(a.qkv, a.dattn, a.lse, a.delta,
+                                                        a.lengths, a.dqkv, a.T, a.d,
+                                                        a.nhead, a.scale, a.seed, a.dr);
+    RD_TRY(cudaGetLastError());
+    kkv<<<blocks, rd::NT, p.l[ATTN_DKV].smem, a.stream>>>(a.qkv, a.dattn, a.lse, a.delta,
+                                                          a.lengths, a.dqkv, a.T, a.d,
+                                                          a.nhead, a.scale, a.seed, a.dr);
+    return (int)cudaGetLastError();
+  });
+}
+
 // The scalar route: launches A-E of PRs 2-7, shared bytes from the plan.
-template <int MAXD, typename G, bool BF, bool DROP>
+template <bool BF, bool DROP>
 int launch(const Args& a, const Plan& p) {
   using namespace rd::fused;
   const int d = a.d, ffn = a.ffn, T = a.T, B = a.B;
   const long M = (long)B * T;
-  const int bytes_a = p.l[QKV].smem, bytes_b = p.l[BWD_ROWS].smem,
-            bytes_q = p.l[ATTN_DQ].smem, bytes_kv = p.l[ATTN_DKV].smem,
-            bytes_d = p.l[DX].smem;
+  const int bytes_a = p.l[QKV].smem, bytes_b = p.l[BWD_ROWS].smem, bytes_d = p.l[DX].smem;
   auto ka = qkv_rows_kernel<BF>;
   auto kb = layer_bwd_rows_kernel<BF, DROP>;
-  auto kq = fused_dq_kernel<MAXD, G, BF, DROP>;
-  auto kkv = fused_dkv_kernel<MAXD, G, BF, DROP>;
   auto kd = dx_rows_kernel<BF>;
   RD_TRY(allow_smem(ka, bytes_a));
   RD_TRY(allow_smem(kb, bytes_b));
-  RD_TRY(allow_smem(kq, bytes_q));
-  RD_TRY(allow_smem(kkv, bytes_kv));
   RD_TRY(allow_smem(kd, bytes_d));
 
   ka<<<(unsigned)((M + BR - 1) / BR), rd::NT, bytes_a, a.stream>>>(
@@ -856,20 +884,13 @@ int launch(const Args& a, const Plan& p) {
       a.x1, a.f, a.df2, a.dfpre, a.dao, a.dattn, a.dh1, a.delta, a.rowpart, T, d,
       ffn, a.nhead, a.seed, a.dr);
   RD_TRY(cudaGetLastError());
-  dim3 blocks((T + G::ROWS - 1) / G::ROWS, a.nhead, B);
-  kq<<<blocks, rd::NT, bytes_q, a.stream>>>(a.qkv, a.dattn, a.lse, a.delta,
-                                            a.lengths, a.dqkv, T, d, a.nhead,
-                                            a.scale, a.seed, a.dr);
-  RD_TRY(cudaGetLastError());
-  kkv<<<blocks, rd::NT, bytes_kv, a.stream>>>(a.qkv, a.dattn, a.lse, a.delta,
-                                              a.lengths, a.dqkv, T, d, a.nhead,
-                                              a.scale, a.seed, a.dr);
-  RD_TRY(cudaGetLastError());
+  int err = attn_bwd_scalar<BF, DROP>(a, p);
+  if (err) return err;
   kd<<<rows, rd::NT, bytes_d, a.stream>>>(a.dqkv, a.dh1, a.w_in, a.dx, a.rowpart,
                                           T, d, ffn);
   RD_TRY(cudaGetLastError());
 
-  int err = weight_grad<BF>(a, a.dqkv, 3 * d, 3 * d, a.x, d, d, a.dw_in);
+  err = weight_grad<BF>(a, a.dqkv, 3 * d, 3 * d, a.x, d, d, a.dw_in);
   if (err) return err;
   err = weight_grad<BF>(a, a.dao, d, d, a.attn, d, d, a.dwo);
   if (err) return err;
@@ -953,14 +974,138 @@ int launch_tc(const Args& a, const Plan& p) {
   return (int)cudaGetLastError();
 }
 
+// vec[off ..] = the column sums of P (* Q) [M, n] over every row: partials
+// over the 512-row chunks into the weight-gradient partials' buffer, added
+// in chunk order.
+int col_sum(const Args& a, const float* P, const float* Q, int n, int off) {
+  const long M = (long)a.B * a.T;
+  const int S = (int)((M + a.chunk - 1) / a.chunk);
+  stream_col_sums<<<dim3((n + rd::NT - 1) / rd::NT, S), rd::NT, 0, a.stream>>>(
+      P, Q, n, M, a.chunk, a.wpart);
+  RD_TRY(cudaGetLastError());
+  reduce_kernel<<<(n + rd::NT - 1) / rd::NT, rd::NT, 0, a.stream>>>(a.wpart, S, (long)n, n,
+                                                                     a.vec + off);
+  return (int)cudaGetLastError();
+}
+
+// The "stream" route: the eight weights packed (bf16: the products on the
+// tensor cores; f32 reads them as given), then A, B's recompute and
+// backward, C, D, E and the column sums, in the order of the plain
+// backward (ops/fused_encoder.py _fused_bwd_plain).
+template <bool DROP>
+int launch_stream(const Args& a, const Plan& p) {
+  using namespace rd::fused;
+  const int d = a.d, ffn = a.ffn, T = a.T, B = a.B, bf = a.bf;
+  const long M = (long)B * T;
+  const Packed pk = packed_layout(d, ffn);
+  const float* w[NPACK] = {a.w_in, a.wo, a.w1, a.w2, a.w2, a.w1, a.wo, a.w_in};
+  if (bf) RD_TRY(pack_weights(pack_jobs(pk, w, NPACK), a.wpack, a.stream));
+  // out [M, N] = A [M, K] times the weight of `slot` (+ bias) (+ add); the
+  // backward's slots read their weight transposed
+  auto prod = [&](const float* A, int K, int slot, int N, const float* bias, const float* add,
+                  void* out, int out_bf16, int round) {
+    return stream_product(A, M, K, bf ? a.wpack + pk.off[slot] : nullptr, w[slot],
+                          slot >= P_W2T, N, bias, add, out, out_bf16, round, a.stream);
+  };
+  const Launch& lq = p.l[ATTN_DQ];
+  const bool attn_tc = lq.route == R_TC || lq.route == R_TC_WIDE;
+  const dim3 rows = stream_row_grid(M);
+  float* rstd1 = a.rstd;
+  float* rstd2 = a.rstd + M;
+  const int sd = a.seed;
+  // A: qkv; the forward's row-local part: ao (in dh1) -> x1, xhat1; the FFN
+  // hidden f; f2 (in dh2) -> xhat2
+  RD_TRY(prod(a.x, d, P_IN, 3 * d, a.b_in, nullptr, a.qkv, attn_tc, bf && !attn_tc));
+  RD_TRY(prod(a.attn, d, P_WO, d, a.bo, nullptr, a.dh1, 0, 0));
+  stream_ln_rows<DROP><<<rows, rd::NT, 0, a.stream>>>(a.x, a.dh1, 101u, a.g1, a.be1, a.x1,
+                                                      a.xhat1, rstd1, M, T, d, sd, a.dr);
+  RD_TRY(cudaGetLastError());
+  RD_TRY(prod(a.x1, d, P_W1, ffn, a.bf1, nullptr, a.f, 0, 0));
+  stream_relu<DROP><<<stream_elem_grid(M * ffn), rd::NT, 0, a.stream>>>(
+      a.f, nullptr, M * ffn, ffn, T, sd, a.dr);
+  RD_TRY(cudaGetLastError());
+  RD_TRY(prod(a.f, ffn, P_W2, d, a.bf2, nullptr, a.dh2, 0, 0));
+  stream_ln_rows<DROP><<<rows, rd::NT, 0, a.stream>>>(a.x1, a.dh2, 103u, nullptr, nullptr,
+                                                      nullptr, a.xhat2, rstd2, M, T, d, sd,
+                                                      a.dr);
+  RD_TRY(cudaGetLastError());
+  // B: LN2 backward -> dh2, df2; df = df2 W2 -> dfpre; dx1 = dh2 + dfpre W1;
+  // LN1 backward -> dh1, dao; d_attn = dao Wo; delta
+  stream_ln_bwd_rows<DROP><<<rows, rd::NT, 0, a.stream>>>(a.g, a.xhat2, rstd2, a.g2, 103u,
+                                                          a.dh2, a.df2, M, T, d, sd, a.dr);
+  RD_TRY(cudaGetLastError());
+  RD_TRY(prod(a.df2, d, P_W2T, ffn, nullptr, nullptr, a.dfpre, 0, 0));
+  stream_relu<DROP><<<stream_elem_grid(M * ffn), rd::NT, 0, a.stream>>>(
+      a.dfpre, a.f, M * ffn, ffn, T, sd, a.dr);
+  RD_TRY(cudaGetLastError());
+  RD_TRY(prod(a.dfpre, ffn, P_W1T, d, nullptr, a.dh2, a.dx1, 0, 0));
+  stream_ln_bwd_rows<DROP><<<rows, rd::NT, 0, a.stream>>>(a.dx1, a.xhat1, rstd1, a.g1, 101u,
+                                                          a.dh1, a.dao, M, T, d, sd, a.dr);
+  RD_TRY(cudaGetLastError());
+  RD_TRY(prod(a.dao, d, P_WOT, d, nullptr, nullptr, a.dattn, 0, 0));
+  stream_delta_rows<<<rows, rd::NT, 0, a.stream>>>(a.dattn, a.attn, a.delta,
+                                                   attn_tc ? a.dattn_op : nullptr, M, T, d,
+                                                   a.nhead);
+  RD_TRY(cudaGetLastError());
+  // C
+  int err;
+  if (attn_tc) {
+    const bool one_wg = lq.route == R_TC;
+    bf16* qkv = reinterpret_cast<bf16*>(a.qkv);
+    err = (one_wg ? launch_dq_tc : launch_dq_wide)(qkv, a.dattn_op, a.lse, a.delta, a.lengths,
+                                                   a.dqkv, lq, B, T, d, a.nhead, a.scale,
+                                                   a.seed, a.rate, a.org, a.stream);
+    if (err) return err;
+    err = (one_wg ? launch_dkv_tc : launch_dkv_wide)(qkv, a.dattn_op, a.lse, a.delta,
+                                                     a.lengths, a.dqkv, p.l[ATTN_DKV], B, T, d,
+                                                     a.nhead, a.scale, a.seed, a.rate, a.org,
+                                                     a.stream);
+  } else if (lq.route == R_HD_STREAM) {
+    err = launch_dq_hds(a.qkv, a.dattn, a.lse, a.delta, a.lengths, a.dqkv, lq, B, T, d,
+                        a.nhead, a.scale, bf, a.seed, a.rate, a.org, a.stream);
+    if (err) return err;
+    err = launch_dkv_hds(a.qkv, a.dattn, a.lse, a.delta, a.lengths, a.dqkv, p.l[ATTN_DKV], B,
+                         T, d, a.nhead, a.scale, bf, a.seed, a.rate, a.org, a.stream);
+  } else {
+    err = (bf ? attn_bwd_scalar<true, DROP> : attn_bwd_scalar<false, DROP>)(a, p);
+  }
+  if (err) return err;
+  // D: dx = dh1 + dqkv W_in
+  RD_TRY(prod(a.dqkv, 3 * d, P_INT, d, nullptr, a.dh1, a.dx, 0, 0));
+  // E: the weight gradients, then the bias and LayerNorm gradients
+  const Launch& le = p.l[WGRAD];
+  const float* ga[4][2] = {{a.dqkv, a.x}, {a.dao, a.attn}, {a.dfpre, a.x1}, {a.df2, a.f}};
+  const int gn[4][2] = {{3 * d, d}, {d, d}, {ffn, d}, {d, ffn}};
+  float* gout[4] = {a.dw_in, a.dwo, a.dw1, a.dw2};
+  for (int i = 0; i < 4; ++i) {
+    const int N = gn[i][0], K = gn[i][1];
+    err = bf ? weight_grad_tc(a, le, ga[i][0], N, N, ga[i][1], K, K, gout[i])
+             : weight_grad<false>(a, ga[i][0], N, N, ga[i][1], K, K, gout[i]);
+    if (err) return err;
+  }
+  // [dg2 d][dbe2 d][dbf2 d][dbf1 ffn][dg1 d][dbe1 d][dbo d][db_in 3d]
+  const struct { const float *P, *Q; int n, off; } sums[] = {
+      {a.g, a.xhat2, d, 0}, {a.g, nullptr, d, d}, {a.df2, nullptr, d, 2 * d},
+      {a.dfpre, nullptr, ffn, 3 * d}, {a.dx1, a.xhat1, d, 3 * d + ffn},
+      {a.dx1, nullptr, d, 4 * d + ffn}, {a.dao, nullptr, d, 5 * d + ffn},
+      {a.dqkv, nullptr, 3 * d, 6 * d + ffn}};
+  for (const auto& c : sums) {
+    err = col_sum(a, c.P, c.Q, c.n, c.off);
+    if (err) return err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // Pointers: x, the 12 weights (in_proj_w, in_proj_b, out_proj w, b, ln1
 // scale, bias, lin1 w, b, lin2 w, b, ln2 scale, bias), lengths, attn, lse,
-// g; 14 scratch buffers (qkv, x1, f, df2, dfpre, dao, d_attn, dh1, dqkv,
+// g; 20 scratch buffers (qkv, x1, f, df2, dfpre, dao, d_attn, dh1, dqkv,
 // delta, row partials, weight-gradient partials, h1, the packed weights;
-// the last two on the tensor-core route only, which keeps the first seven
-// in bf16); outputs dx, dw_in, dwo, dw1, dw2 and vec = [dg2, dbe2, dbf2,
+// h1 on the tensor-core route only, which keeps the first seven in bf16;
+// the packed weights on it and on the "stream" route in bf16; then the
+// "stream" route's xhat1, xhat2, rstd, dh2, dx1 and bf16 d_attn, Args
+// says which); outputs dx, dw_in, dwo, dw1, dw2 and vec = [dg2, dbe2, dbf2,
 // dbf1, dg1, dbe1, dbo, db_in]. scale = 1/sqrt(hd); chunk = rows per
 // weight-gradient partial; plan: the wrapper's PLAN_INTS ints.
 extern "C" int rd_fused_layer_bwd(
@@ -970,7 +1115,8 @@ extern "C" int rd_fused_layer_bwd(
     const void* be2, const void* lengths, const void* attn, const void* lse,
     const void* g, void* qkv, void* x1, void* f, void* df2, void* dfpre,
     void* dao, void* dattn, void* dh1, void* dqkv, void* delta, void* rowpart,
-    void* wpart, void* h1, void* wpack, void* dx, void* dw_in, void* dwo, void* dw1,
+    void* wpart, void* h1, void* wpack, void* xhat1, void* xhat2, void* rstd, void* dh2,
+    void* dx1, void* dattn_op, void* dx, void* dw_in, void* dwo, void* dw1,
     void* dw2, void* vec, int B, int T, int d, int ffn, int nhead, int chunk, float scale,
     int bf16, int seed, double rate, int b0, int h0, int heads, const int* plan,
     void* stream) {
@@ -981,7 +1127,9 @@ extern "C" int rd_fused_layer_bwd(
       rd::bad_origin(org, B, nhead))
     return (int)cudaErrorInvalidValue;
   Plan p;
-  if (!rd::fused::check_plan(plan, d, ffn, nhead, bf16, {qkv, dattn}, &p))
+  const bool stream_route = plan[0] == rd::fused::R_STREAM;
+  if (!rd::fused::check_plan(plan, d, ffn, nhead, bf16,
+                             {qkv, stream_route ? dattn_op : dattn}, &p))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = (const float*)x; a.w_in = (const float*)w_in; a.b_in = (const float*)b_in;
@@ -995,19 +1143,28 @@ extern "C" int rd_fused_layer_bwd(
   a.dh1 = (float*)dh1; a.dqkv = (float*)dqkv; a.delta = (float*)delta;
   a.rowpart = (float*)rowpart; a.wpart = (float*)wpart; a.h1 = (float*)h1;
   a.wpack = (__nv_bfloat16*)wpack;
+  a.xhat1 = (float*)xhat1; a.xhat2 = (float*)xhat2; a.rstd = (float*)rstd;
+  a.dh2 = (float*)dh2; a.dx1 = (float*)dx1; a.dattn_op = (__nv_bfloat16*)dattn_op;
   a.dx = (float*)dx; a.dw_in = (float*)dw_in; a.dwo = (float*)dwo;
   a.dw1 = (float*)dw1; a.dw2 = (float*)dw2; a.vec = (float*)vec;
   a.B = B; a.T = T; a.d = d; a.ffn = ffn; a.nhead = nhead; a.seed = seed;
-  a.chunk = chunk; a.scale = scale; a.rate = rate; a.org = org;
+  a.chunk = chunk; a.scale = scale; a.rate = rate; a.org = org; a.bf = bf16;
   a.dr = rd::make_drop(rate, org);
   a.stream = (cudaStream_t)stream;
+  if (stream_route) {
+    const bool attn_tc = p.l[rd::fused::ATTN_DQ].route == rd::fused::R_TC ||
+                         p.l[rd::fused::ATTN_DQ].route == rd::fused::R_TC_WIDE;
+    for (const void* ptr : {xhat1, xhat2, rstd, dh2, dx1, x1, f, df2, dfpre, dao, dattn, dh1,
+                            dqkv, delta, wpart, qkv}) {
+      if (ptr == nullptr) return (int)cudaErrorInvalidValue;
+    }
+    if ((bf16 && wpack == nullptr) || (attn_tc && dattn_op == nullptr))
+      return (int)cudaErrorInvalidValue;
+    return rate > 0.0 ? launch_stream<true>(a, p) : launch_stream<false>(a, p);
+  }
   if (p.l[rd::fused::QKV].route == 1) {
     return rate > 0.0 ? launch_tc<true>(a, p) : launch_tc<false>(a, p);
   }
-  RD_DISPATCH_GEOM(d / nhead, {
-    if (rate > 0.0) {
-      return bf16 ? launch<MAXD, G, true, true>(a, p) : launch<MAXD, G, false, true>(a, p);
-    }
-    return bf16 ? launch<MAXD, G, true, false>(a, p) : launch<MAXD, G, false, false>(a, p);
-  });
+  if (rate > 0.0) return bf16 ? launch<true, true>(a, p) : launch<false, true>(a, p);
+  return bf16 ? launch<true, false>(a, p) : launch<false, false>(a, p);
 }

@@ -3,7 +3,7 @@
 // (64-row key block, head, sample) two CTAs of two warpgroups each, dv and
 // dk (blockIdx.x = 2 * block + role), running attn_dkv_rows_tc_wide
 // (attention_tc_wide.cuh) into dqkv [B, T, 3d] f32, and its launcher. A
-// unit of its own (4 instantiations); fused_encoder_bwd.cu says what the
+// unit of its own (14 instantiations, hd_pad 176-368); fused_encoder_bwd.cu says what the
 // backward replaces and what bounds it.
 #include "fused_plan.cuh"
 

@@ -2,7 +2,8 @@
 // (bf16 qkv [B, T, 3d] and d_attn [B, T, d], route 2 "tc_wide"): two
 // warpgroups per (64-row query block, head, sample) running
 // attn_dq_rows_tc_wide (attention_tc_wide.cuh) into dqkv [B, T, 3d] f32,
-// and its launcher. A unit of its own (4 instantiations) so that nvcc
+// and its launcher. A unit of its own (14 instantiations, hd_pad 176-368)
+// so that nvcc
 // builds it beside fused_encoder_bwd.cu, which says what the backward
 // replaces and what bounds it.
 #include "fused_plan.cuh"

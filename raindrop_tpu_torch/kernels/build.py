@@ -43,16 +43,17 @@ SOURCES = ("flash_packed", "fused_encoder", "fused_encoder_bwd", "sparse_graph")
 # (flash_packed_hds); flash_mha's entry points (flash_split) launch the
 # same tensor-core kernels on their own strides, so they are a unit of this
 # library too; the fused layer's tensor-core attention kernels (18 a
-# family on one warpgroup, 4 on two) are units of their own the same way
+# family on one warpgroup, 4 on two, and the route past head dim 368's 4 a
+# pass) are units of their own the same way
 PARTS = {"flash_packed": ("flash_packed", "flash_split", "flash_packed_fwd_tc",
                           "flash_packed_dq_tc", "flash_packed_dkv_tc",
                           "flash_packed_fwd_wide", "flash_packed_dq_wide",
                           "flash_packed_dkv_wide", "flash_packed_hds"),
          "fused_encoder": ("fused_encoder", "fused_encoder_attn_tc",
-                           "fused_encoder_attn_wide"),
+                           "fused_encoder_attn_wide", "fused_encoder_attn_hds"),
          "fused_encoder_bwd": ("fused_encoder_bwd", "fused_encoder_dq_tc",
                                "fused_encoder_dkv_tc", "fused_encoder_dq_wide",
-                               "fused_encoder_dkv_wide")}
+                               "fused_encoder_dkv_wide", "fused_encoder_bwd_hds")}
 
 _lock = threading.Lock()          # guards builds and _libs
 _count_lock = threading.Lock()    # guards the launch counts and credits

@@ -51,7 +51,10 @@ on a TPU v5e, not on the H100: the card's own crossover is an open
 question (PERF.md). On a CPU tensor `auto` is dense, as the JAX ladder is
 off the TPU. An explicit "dense" | "flash" | "fused_layer" works on both
 devices (on the CPU the kernels' plain versions run); "fused_layer" beyond
-T = 1024 raises, as in the JAX package.
+T = 1024 raises, as in the JAX package. The fused rung takes every width
+the JAX kernel takes: its kernels' launch plan has a route for any d
+divisible by nhead, any ffn and head dim (ops/fused_encoder.py
+fused_plan; P12's sensor-wise d = 720 at T = 600 on its "stream" route).
 """
 
 from __future__ import annotations

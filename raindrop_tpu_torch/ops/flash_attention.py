@@ -88,7 +88,9 @@ TC_WIDE_MIN_HD_PAD, TC_WIDE_STEP, TC_WIDE_MAX_HD_PAD = 176, 32, 368
 # The route past MAX_HEAD_DIM (csrc/attention_hd_stream.cuh): 32-row blocks,
 # each CTA owning HD_STREAM_SLICE columns of the outputs
 HD_STREAM_ROWS, HD_STREAM_SLICE = 32, 256
-_ROUTES = {"scalar": 0, "tc": 1, "tc_wide": 2, "hd_stream": 3}
+# the routes' ints in the C entry points' plans; 4 ("stream") is the fused
+# layer's row products at any width (ops/fused_encoder.py fused_plan)
+_ROUTES = {"scalar": 0, "tc": 1, "tc_wide": 2, "hd_stream": 3, "stream": 4}
 _ROWS = 64              # rows of a CTA's block (and of a streamed tile on "tc")
 # samples and heads a launch puts on the kernels' grid (its z and y axes): a
 # larger call is split into launches of at most this many (batch_chunks)

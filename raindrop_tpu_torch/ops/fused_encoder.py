@@ -21,16 +21,22 @@ MAX_BATCH samples runs as launches of at most that many at their origins
 `fused_encoder_layer` is a `torch.autograd.Function` over x and the 12
 weights. On CUDA tensors forward and backward launch the hand-written
 kernels in `csrc/fused_encoder.cu` and `csrc/fused_encoder_bwd.cu` (or
-raise) by the route of their launch plan (`fused_plan`): with bf16
+raise) by the route of their launch plan (`fused_plan`), at every width
+the JAX kernel takes (any d divisible by nhead, any ffn and head dim):
+where a whole tile of the layer's rows fits a block (to d = 360 at ffn
+136, 226 at ffn 2d; PAM's sensor-wise 340 among them), with bf16
 operands every row product on the tensor cores (`csrc/rows_tc.cuh`) and
 the attention too, on one warpgroup up to a padded head dim of 144 and on
-two past it (`csrc/attention_tc_wide.cuh`, PAM's sensor-wise hd 170), with
-f32 operands (and where a tensor-core tile would not fit) the scalar
-kernels; the widths
-they take are those whose kernels fit a block's shared memory, d = 340
-with ffn = 136 and 2 heads at PAM's sensor-wise width among them. On CPU
-tensors they run `_fused_fwd_plain` and `_fused_bwd_plain`, the same
-functions in plain PyTorch.
+two past it to hd 192 (`csrc/attention_tc_wide.cuh`, PAM's sensor-wise hd
+170), with f32 operands (and bf16 where a tensor-core tile would not
+fit) the scalar kernels; past those widths (P12's sensor-wise d = 720,
+P19's 680, any head past 368) the "stream" route
+(`csrc/rows_stream.cuh`): every product a launch with its activation
+streamed through K (tensor cores in bf16, scalar in f32), the LayerNorms
+and dropout sites as row kernels, the attention past hd 368 on
+`csrc/attention_hd_stream.cuh`. On CPU tensors they run
+`_fused_fwd_plain` and `_fused_bwd_plain`, the same functions in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -44,9 +50,10 @@ import torch
 
 from raindrop_tpu_torch.kernels import build
 from raindrop_tpu_torch.ops.flash_attention import (
-    LOG2E, MAX_FUSED_T, MAX_HEAD_DIM, NARROW_MAX_HD, TC_MAX_HD_PAD, _ROUTES, _align,
-    _attention_bwd_plain, _check_rate, _dropout_keep_hash, _packed_fwd_plain,
-    _seed_int, batch_chunks, drop_origin, operand_dtype, pad8, wide_pad)
+    HD_STREAM_ROWS, LOG2E, MAX_FUSED_T, MAX_HEAD_DIM, NARROW_MAX_HD, TC_MAX_HD_PAD,
+    _ROUTES, _align, _attention_bwd_plain, _check_rate, _dropout_keep_hash,
+    _packed_fwd_plain, _seed_int, batch_chunks, drop_origin, operand_dtype, pad8,
+    wide_pad)
 
 _EPS = 1e-5
 SITE_ATTN_OUT, SITE_FFN_MID, SITE_FFN_OUT = 101, 102, 103
@@ -289,20 +296,29 @@ def fused_encoder_layer(p, x, lengths, seed=None, dropout_rate=0.0,
 
 # forward calls that launched the kernels; `bwd_launches` counts backwards;
 # the tc_ counts those of the two on the tensor-core route, the tc_wide_
-# counts those whose attention ran on two warpgroups (past hd_pad 144)
+# counts those whose attention ran on two warpgroups (past hd_pad 144), the
+# stream_ counts those on the "stream" route and the hd_stream_ counts
+# those whose attention ran past hd 368
 fused_encoder_layer.launches = 0
 fused_encoder_layer.bwd_launches = 0
 fused_encoder_layer.tc_launches = 0
 fused_encoder_layer.tc_bwd_launches = 0
 fused_encoder_layer.tc_wide_launches = 0
 fused_encoder_layer.tc_wide_bwd_launches = 0
+fused_encoder_layer.stream_launches = 0
+fused_encoder_layer.stream_bwd_launches = 0
+fused_encoder_layer.hd_stream_launches = 0
+fused_encoder_layer.hd_stream_bwd_launches = 0
 
 
 SMEM = 232448             # shared bytes a block may use on sm_90
 # The fused layer's launches, in the order of the plan
 # (csrc/fused_plan.cuh): the qkv projection, the attention forward, the
 # forward's row-local tail, the backward's row kernel, dq, dk/dv, dx and
-# the weight gradients.
+# the weight gradients. On the "stream" route "qkv" is every product of the
+# forward and "dx" every product of the backward (one kernel, each call its
+# own weight), "tail" and "bwd_rows" the row kernels (LayerNorms, dropout
+# sites, relu, delta, column sums) of either direction.
 LAUNCHES = ("qkv", "attn_fwd", "tail", "bwd_rows", "attn_dq", "attn_dkv",
             "dx", "wgrad")
 # rows of [B*T] one CTA of the weight-gradient kernel sums; the split is a
@@ -317,15 +333,26 @@ _RING = 2 * 2 * 64 * 64 * 2    # two steps of two 64 x 64 bf16 weight panels
 _STAGE = 64 * 132 * 4          # a step's two 64-column chunks, f32, staged
 _WGRAD = 2 * 2 * 64 * 64 * 2   # two stages of a G^T and an A^T tile (one warpgroup)
 _WIDE_KEYS = 32                # rows of a streamed tile on "tc_wide"
+# The "stream" route (csrc/rows_stream.cuh): a tensor-core product's two
+# [64, 64] bf16 chunks of A and the weight ring; a scalar product's 16-deep
+# steps of a 64 x 64 A and weight tile; a row kernel's rows (a warp each)
+STREAM_TC_SMEM = 2 * 64 * 64 * 2 + _RING
+STREAM_SCALAR_SMEM = 2 * 16 * 64 * 4
+STREAM_ROW_WARPS = 8
+# the route past hd 368's shared bytes, forward, dq, dk/dv
+# (csrc/attention_hd_stream.cuh)
+_HD_STREAM_SMEM = (45568, 54016, 91392)
 
 
 @dataclass(frozen=True)
 class FusedLaunch:
     """One launch of the plan: its route ("tc", "tc_wide" for the attention
-    on two warpgroups past hd_pad 144, or "scalar"), the rows of a CTA's
-    tile (the output tile's rows for the weight gradients), the copy width
-    in bytes (16 for the tensor cores' weight panels, the attention tiles'
-    width on its tensor-core routes, the operand size on the scalar one),
+    on two warpgroups past hd_pad 144, "scalar", "stream" for the row
+    products and row kernels at any width, "hd_stream" for the attention
+    past hd 368), the rows of a CTA's tile (the output tile's rows for the
+    weight gradients, the rows of a row kernel's CTA), the copy width in
+    bytes (16 for the tensor cores' weight panels, the attention tiles'
+    width on its tensor-core routes, the operand size on the scalar ones),
     the threads of a CTA and its shared bytes."""
 
     route: str
@@ -353,7 +380,8 @@ class FusedPlan:
     @functools.cached_property
     def as_ints(self):
         """The plan as the C entry points take it: 5 ints a launch, the
-        route 0 (scalar), 1 (tc) or 2 (tc_wide); KeyError for another."""
+        route 0 (scalar), 1 (tc), 2 (tc_wide), 3 (hd_stream) or 4
+        (stream); KeyError for another."""
         vals = [v for l in self.launches
                 for v in (_ROUTES[l.route], l.rows, l.copy_bytes, l.threads, l.smem)]
         return (ctypes.c_int * len(vals))(*vals)
@@ -382,6 +410,30 @@ def _scalar_attn(hd, es):
                         (2 * (r + k) * (hd + 1) + 2 * r * (k + 1) + 2 * k) * 4))
 
 
+def _tc_attn(hd, copy):
+    """The tensor-core attention's three launches: one warpgroup up to
+    hd_pad TC_MAX_HD_PAD, two past it."""
+    hdk = _pad(hd, 16)
+    if hdk <= TC_MAX_HD_PAD:
+        tile = 64 * hdk * 2
+        return (FusedLaunch("tc", 64, copy, 128, 5 * tile),
+                FusedLaunch("tc", 64, copy, 128, 6 * tile),
+                FusedLaunch("tc", 64, copy, 128, 6 * tile + 2 * 2 * 64 * 4))
+    # two warpgroups: 64-row tiles of the own side (Q; Q and dO; K and V),
+    # a two-stage ring of 32-row tiles of the streamed side, and in the
+    # dk/dv pass two stages of 32 lse and delta floats
+    # (csrc/attention_tc_wide.cuh wide_*_smem_bytes)
+    own, streamed = 64 * wide_pad(hd) * 2, _WIDE_KEYS * wide_pad(hd) * 2
+    return (FusedLaunch("tc_wide", 64, copy, 256, own + 4 * streamed),
+            FusedLaunch("tc_wide", 64, copy, 256, 2 * own + 4 * streamed),
+            FusedLaunch("tc_wide", 64, copy, 256,
+                        2 * own + 4 * streamed + 2 * 2 * _WIDE_KEYS * 4))
+
+
+def _scalar_wgrad(es):
+    return FusedLaunch("scalar", 64, es, 256, 2 * 16 * 64 * 4)
+
+
 def _launches(d, ffn, nhead, es, tc, copy):
     """The eight launches of a route, or None where one would not fit."""
     hd = d // nhead
@@ -401,30 +453,39 @@ def _launches(d, ffn, nhead, es, tc, copy):
                                                            + 4 * BWD_ROWS * (d + 1)
                                                            + 2 * BWD_ROWS) * 4),
                 FusedLaunch("scalar", BWD_ROWS, es, 256, BWD_ROWS * (3 * d + 1) * 4),
-                FusedLaunch("scalar", 64, es, 256, 2 * 16 * 64 * 4))
-    hdk = _pad(hd, 16)
-    if tc and hdk <= TC_MAX_HD_PAD:
-        tile = 64 * hdk * 2
-        attn = (FusedLaunch("tc", 64, copy, 128, 5 * tile),
-                FusedLaunch("tc", 64, copy, 128, 6 * tile),
-                FusedLaunch("tc", 64, copy, 128, 6 * tile + 2 * 2 * 64 * 4))
-    elif tc:
-        # two warpgroups: 64-row tiles of the own side (Q; Q and dO; K and
-        # V), a two-stage ring of 32-row tiles of the streamed side, and in
-        # the dk/dv pass two stages of 32 lse and delta floats
-        # (csrc/attention_tc_wide.cuh wide_*_smem_bytes)
-        own, streamed = 64 * wide_pad(hd) * 2, _WIDE_KEYS * wide_pad(hd) * 2
-        attn = (FusedLaunch("tc_wide", 64, copy, 256, own + 4 * streamed),
-                FusedLaunch("tc_wide", 64, copy, 256, 2 * own + 4 * streamed),
-                FusedLaunch("tc_wide", 64, copy, 256,
-                            2 * own + 4 * streamed + 2 * 2 * _WIDE_KEYS * 4))
-    else:
-        attn = _scalar_attn(hd, es)
+                _scalar_wgrad(es))
+    attn = _tc_attn(hd, copy) if tc else _scalar_attn(hd, es)
     qkv, tail, bwd_rows, dx, wgrad = rows
     launches = (qkv, attn[0], tail, bwd_rows, attn[1], attn[2], dx, wgrad)
     if max(l.smem for l in launches) > SMEM:
         return None
     return launches
+
+
+def _stream_launches(d, ffn, nhead, es, copy):
+    """The eight launches of the "stream" route, whose shared bytes do not
+    grow with d or ffn: the products (bf16 on the tensor cores, f32
+    scalar) and the row kernels; the weight gradients on the kernels of the
+    other routes (fixed tiles); the attention up to hd MAX_HEAD_DIM in bf16
+    on "tc" or "tc_wide" (as the packed pair's, two warpgroups past hd_pad
+    144), in f32 on the scalar kernels, and on "hd_stream" past it."""
+    hd = d // nhead
+    bf = es == 2
+    if bf:
+        prod = FusedLaunch("stream", _TC_ROWS, 16, _TC_THREADS, STREAM_TC_SMEM)
+        wgrad = FusedLaunch("tc", 64, 16, 128, _WGRAD)
+    else:
+        prod = FusedLaunch("stream", 64, es, 256, STREAM_SCALAR_SMEM)
+        wgrad = _scalar_wgrad(es)
+    rows = FusedLaunch("stream", STREAM_ROW_WARPS, 4, 256, 0)
+    if bf and hd <= MAX_HEAD_DIM:
+        attn = _tc_attn(hd, copy)
+    elif hd <= MAX_HEAD_DIM:
+        attn = _scalar_attn(hd, es)
+    else:
+        attn = tuple(FusedLaunch("hd_stream", HD_STREAM_ROWS, es, 256, b)
+                     for b in _HD_STREAM_SMEM)
+    return (prod, attn[0], rows, rows, attn[1], attn[2], prod, wgrad)
 
 
 @functools.lru_cache(maxsize=256)
@@ -436,43 +497,46 @@ def fused_plan(d, ffn, nhead, od, impl="auto", align=16) -> FusedPlan:
     row product on the tensor cores, the attention on one warpgroup ("tc")
     up to a padded head dim of TC_MAX_HD_PAD and on two ("tc_wide",
     padded to 176 or 208) past it, PAM-sw's hd 170 among them. f32 and
-    other bf16 widths take the scalar route (every product scalar FMA);
-    impl="scalar" asks for the scalar kernels in bf16 too (the previous
-    design, for measurement). `align` is the alignment in bytes of the qkv and d_attn
-    buffers: with the head's offset in a row (2 hd bytes) and the row
-    strides (6 d and 2 d) it bounds the tensor-core attention's copy
-    width, 16, 8, 4 or 2 bytes (PAM, hd 42, and PAM-sw, hd 170: 4). Raises
-    ValueError for a width no route takes, as the kernels' shared memory
-    decides (d = 680 at 2 heads)."""
-    if impl not in ("auto", "scalar"):
-        raise ValueError(f"impl must be 'auto' or 'scalar', got {impl!r}")
+    other bf16 widths take the scalar route (every product scalar FMA)
+    where its tiles fit; impl="scalar" asks for the scalar kernels in bf16
+    too (the previous design, for measurement). Every width neither takes
+    (P12-sw at d = 720, P19-sw at 680, any head past MAX_HEAD_DIM) runs
+    the "stream" route (`_stream_launches`), whose shared bytes do not
+    grow with the width; impl="stream" forces it at any width. `align` is
+    the alignment in bytes of the qkv and d_attn buffers: with the head's
+    offset in a row (2 hd bytes) and the row strides (6 d and 2 d) it
+    bounds the tensor-core attention's copy width, 16, 8, 4 or 2 bytes
+    (PAM, hd 42, and PAM-sw, hd 170: 4). Raises ValueError only where d
+    is not divisible by nhead, or ffn or nhead is below 1."""
+    if impl not in ("auto", "scalar", "stream"):
+        raise ValueError(f"impl must be 'auto', 'scalar' or 'stream', got {impl!r}")
     if nhead <= 0 or d % nhead or ffn <= 0:
         raise ValueError(f"d={d} not divisible by nhead={nhead}, or ffn={ffn} < 1")
     hd = d // nhead
     es = od.itemsize
-    if hd <= MAX_HEAD_DIM:
+    copy = 16
+    while copy > 2 and ((2 * hd) % copy or (2 * d) % copy or align % copy):
+        copy //= 2
+    if impl != "stream" and hd <= MAX_HEAD_DIM:
         if od == torch.bfloat16 and impl == "auto" and hd <= NARROW_MAX_HD:
-            copy = 16
-            while copy > 2 and ((2 * hd) % copy or (2 * d) % copy or align % copy):
-                copy //= 2
             launches = _launches(d, ffn, nhead, es, True, copy)
             if launches is not None:
                 return FusedPlan("tc", launches[1].route, launches)
         launches = _launches(d, ffn, nhead, es, False, es)
         if launches is not None:
             return FusedPlan("scalar", "scalar", launches)
-    raise ValueError(f"the fused layer's kernels do not take d={d}, ffn={ffn}, "
-                     f"{nhead} heads (hd {hd}; at most {MAX_HEAD_DIM}, and every "
-                     f"launch within {SMEM} shared bytes)")
+    launches = _stream_launches(d, ffn, nhead, es, copy)
+    return FusedPlan("stream", launches[1].route, launches)
 
 
 def c_plan(d, ffn, nhead, od, route, copy_bytes):
-    """(the C library's plan ints for a route, whether it takes the width):
-    rd_fused_plan in csrc/fused_encoder.cu, which both entry points check
-    FusedPlan.as_ints against (it builds the kernels: on the card only)."""
+    """(the C library's plan ints for a route, "scalar", "tc" or "stream",
+    whether it takes the width): rd_fused_plan in csrc/fused_encoder.cu,
+    which both entry points check FusedPlan.as_ints against (it builds the
+    kernels: on the card only)."""
     out = (ctypes.c_int * (5 * len(LAUNCHES)))()
     err = _lib().rd_fused_plan(d, ffn, nhead, int(od == torch.bfloat16),
-                               int(route == "tc"), copy_bytes, out)
+                               _ROUTES[route], copy_bytes, out)
     return tuple(out), err == 0
 
 
@@ -495,12 +559,14 @@ def _packed_elems(d, ffn, n):
 
 def _count(plan, attr):
     """One launch on `attr` and, on the tensor-core route, on tc_<attr>
-    (and on tc_wide_<attr> where the attention ran on two warpgroups)."""
+    (and on tc_wide_<attr> where the attention ran on two warpgroups); on
+    the "stream" route on stream_<attr> (and on hd_stream_<attr> where the
+    attention ran past hd 368)."""
     build.count_launch(fused_encoder_layer, attr)
-    if plan.route == "tc":
-        build.count_launch(fused_encoder_layer, f"tc_{attr}")
-    if plan.attn_route == "tc_wide":
-        build.count_launch(fused_encoder_layer, f"tc_wide_{attr}")
+    if plan.route in ("tc", "stream"):
+        build.count_launch(fused_encoder_layer, f"{plan.route}_{attr}")
+    if plan.attn_route in ("tc_wide", "hd_stream"):
+        build.count_launch(fused_encoder_layer, f"{plan.attn_route}_{attr}")
 
 
 def _prepare(ws, x, lengths):
@@ -524,29 +590,46 @@ def _prepare(ws, x, lengths):
             lengths.to(torch.int32).contiguous(), ffn)
 
 
+def _qkv_dtype(plan):
+    """The dtype of the qkv (and the attention's d_attn) buffer: bf16 where
+    the attention runs on the tensor cores, f32 (each value rounded to the
+    operand dtype) on the scalar kernels and "hd_stream"."""
+    return torch.bfloat16 if plan.attn_route in ("tc", "tc_wide") else torch.float32
+
+
+def _packs(plan, od):
+    """Whether the route runs the row products on the tensor cores, which
+    stream the weights as packed bf16 panels."""
+    return plan.route == "tc" or (plan.route == "stream" and od == torch.bfloat16)
+
+
 def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od, impl="auto", origin=None):
     """The forward kernels of the plan's route. `impl="scalar"` reaches the
     scalar kernels with bf16 operands (the previous design, measured beside
-    the tensor-core one); the model never passes it."""
+    the tensor-core one), `impl="stream"` the "stream" route at any width;
+    the model never passes either."""
     B, T, d = x.shape
     dev = x.device
     ws, xf, lens, ffn = _prepare(ws, x, lengths)
     b0, h0, heads = drop_origin(origin, B, nhead)
-    tc = fused_plan(d, ffn, nhead, od, impl).route == "tc"   # raises for a width no route takes
+    route = fused_plan(d, ffn, nhead, od, impl)
     wpack = (torch.empty((_packed_elems(d, ffn, 4),), dtype=torch.bfloat16, device=dev)
-             if tc else None)
+             if _packs(route, od) else None)
     out = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     attn = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     lse = torch.empty((B, nhead, T), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for c0, c1 in batch_chunks(B):
-        qkv = torch.empty((c1 - c0, T, 3 * d), dtype=torch.bfloat16 if tc else torch.float32,
-                          device=dev)
+        qkv = torch.empty((c1 - c0, T, 3 * d), dtype=_qkv_dtype(route), device=dev)
+        # the "stream" route's x1 [M, d] and FFN hidden [M, ffn] rows
+        rows = (torch.empty(((c1 - c0) * T * (d + ffn),), dtype=torch.float32, device=dev)
+                if route.route == "stream" else None)
         plan = fused_plan(d, ffn, nhead, od, impl, _align(qkv.data_ptr()))
         err = _lib().rd_fused_layer_fwd(
             xf[c0:c1].data_ptr(), *(w.data_ptr() for w in ws), lens[c0:c1].data_ptr(),
             qkv.data_ptr(), out[c0:c1].data_ptr(), attn[c0:c1].data_ptr(),
             lse[c0:c1].data_ptr(), 0 if wpack is None else wpack.data_ptr(),
+            0 if rows is None else rows.data_ptr(),
             c1 - c0, T, d, ffn, nhead, (1.0 / math.sqrt(d // nhead)) * LOG2E,
             int(od == torch.bfloat16), seed, rate, b0 + c0, h0, heads,
             plan.as_ints, stream)
@@ -559,9 +642,13 @@ def _fused_fwd_cuda(ws, x, lengths, seed, rate, nhead, od, impl="auto", origin=N
 # what the backward keeps in device memory between its launches, in the
 # order the C entry point takes it; on the tensor-core route the first
 # seven are bf16 where a product alone reads them (qkv, x1, f, df2, dfpre,
-# dao, d_attn) and h1 and the packed weights join
+# dao, d_attn) and h1 and the packed weights join; the "stream" route's
+# rows are f32 (its products read A in f32), with xhat1 and xhat2, both
+# LayerNorms' 1/std, dh2, dx1 and, where its attention runs on the tensor
+# cores, a bf16 copy of d_attn
 _SCRATCH = ("qkv", "x1", "f", "df2", "dfpre", "dao", "d_attn", "dh1", "dqkv",
-            "delta", "row_partials", "wgrad_partials", "h1", "wpack")
+            "delta", "row_partials", "wgrad_partials", "h1", "wpack", "xhat1",
+            "xhat2", "rstd", "dh2", "dx1", "d_attn_op")
 
 
 def bwd_scratch(B, T, d, ffn, nhead, plan=None):
@@ -569,12 +656,26 @@ def bwd_scratch(B, T, d, ffn, nhead, plan=None):
     memory between its launches on the plan's route (the scalar route's
     f32 buffers when plan is None)."""
     M = B * T
+    chunks = -(-M // WGRAD_CHUNK)
+    f32 = torch.float32
+    if plan is not None and plan.route == "stream":
+        out = {name: (M * d, f32) for name in ("x1", "df2", "dao", "d_attn", "dh1",
+                                                "xhat1", "xhat2", "dh2", "dx1")}
+        q = _qkv_dtype(plan)
+        # the column sums' partials share the weight gradients' buffer
+        out.update({"qkv": (M * 3 * d, q), "f": (M * ffn, f32), "dfpre": (M * ffn, f32),
+                    "dqkv": (M * 3 * d, f32), "delta": (B * nhead * T, f32),
+                    "wgrad_partials": (chunks * max(3 * d * d, d * ffn), f32),
+                    "rstd": (2 * M, f32)})
+        if q == torch.bfloat16:
+            out["d_attn_op"] = (M * d, q)
+        if plan["qkv"].copy_bytes == 16:      # the products on the tensor cores
+            out["wpack"] = (_packed_elems(d, ffn, 8), torch.bfloat16)
+        return out
     tc = plan is not None and plan.route == "tc"
     rows = _TC_ROWS if tc else BWD_ROWS
     blocks = B * (-(-T // rows))
-    chunks = -(-M // WGRAD_CHUNK)
     op = torch.bfloat16 if tc else torch.float32
-    f32 = torch.float32
     out = {
         "qkv": (M * 3 * d, op), "x1": (M * d, op), "f": (M * ffn, op),
         "df2": (M * d, op), "dfpre": (M * ffn, op), "dao": (M * d, op),
@@ -627,8 +728,8 @@ def _fused_bwd_cuda(ws, x, lengths, seed, rate, nhead, od, attn, lse, g,
     for c0, c1 in batch_chunks(B):
         sizes = bwd_scratch(c1 - c0, T, d, ffn, nhead, route)
         scratch = {k: torch.empty((n,), dtype=dt, device=dev) for k, (n, dt) in sizes.items()}
-        plan = fused_plan(d, ffn, nhead, od, impl,
-                          _align(scratch["qkv"].data_ptr(), scratch["d_attn"].data_ptr()))
+        plan = fused_plan(d, ffn, nhead, od, impl, _align(*(
+            scratch[k].data_ptr() for k in ("qkv", "d_attn", "d_attn_op") if k in scratch)))
         # a split call sums its launches' weight gradients
         part = wgrads if c0 == 0 else [torch.empty_like(w) for w in wgrads]
         err = _lib_bwd().rd_fused_layer_bwd(
@@ -664,9 +765,9 @@ def _lib():
     lib = build.load("fused_encoder")
     fn = lib.rd_fused_layer_fwd
     if fn.argtypes is None:
-        # x, 12 weights, lengths, qkv, out, attn, lse, packed weights; B, T,
-        # d, ffn, nhead
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + _TAIL
+        # x, 12 weights, lengths, qkv, out, attn, lse, packed weights, the
+        # "stream" route's rows; B, T, d, ffn, nhead
+        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5 + _TAIL
         fn.restype = ctypes.c_int
         lib.rd_fused_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
         lib.rd_fused_plan.restype = ctypes.c_int
@@ -677,8 +778,8 @@ def _lib_bwd():
     lib = build.load("fused_encoder_bwd")
     fn = lib.rd_fused_layer_bwd
     if fn.argtypes is None:
-        # x, 12 weights, lengths, attn, lse, g; 14 scratch; dx, 4 weight
+        # x, 12 weights, lengths, attn, lse, g; 20 scratch; dx, 4 weight
         # gradients, vec; B, T, d, ffn, nhead, chunk
-        fn.argtypes = [ctypes.c_void_p] * 37 + [ctypes.c_int] * 6 + _TAIL
+        fn.argtypes = [ctypes.c_void_p] * 43 + [ctypes.c_int] * 6 + _TAIL
         fn.restype = ctypes.c_int
     return lib

@@ -6,7 +6,10 @@ that differs in any field, so these tests hold the rules the card relies
 on without a card:
     python -m pytest tests/test_torch_fused_plan.py -q
 The C library's own plan is held against this one on the card
-(tests/test_torch_kernels_cuda.py, marker `cuda`).
+(tests/test_torch_kernels_cuda.py, marker `cuda`). `_previous_plan` is
+the plan as it stood before the "stream" route (every width either
+tile-resident route took, None elsewhere), frozen here: at every width it
+took the plan is the same, field for field.
 """
 
 import pytest
@@ -29,6 +32,77 @@ ROUTE_INTS = {"scalar": 0, "tc": 1, "tc_wide": 2}
 # pad to 176), 177 (the first to pad to 208) and 192 (the last the
 # tensor-core route takes)
 WIDE_WIDTHS = [(290, 136, 2), (340, 136, 2), (352, 136, 2), (177, 64, 1), (192, 64, 1)]
+
+
+def _previous_plan(d, ffn, nhead, od, impl="auto", align=16):
+    """The plan before the "stream" route (the tile-resident routes "tc"
+    and "scalar"), as (route, attention route, launches as tuples), or
+    None where it raised."""
+    hd = d // nhead
+    es = od.itemsize
+
+    def pad(x, m):
+        return -(-x // m) * m
+
+    def tile(k):
+        return 64 * pad(k, 64) * 2
+
+    def f32_rows(n):
+        return pad(64 * n * 4, 128)
+
+    ring, stage, wgrad = 2 * 2 * 64 * 64 * 2, 64 * 132 * 4, 2 * 2 * 64 * 64 * 2
+
+    def launches(tc, copy):
+        if tc:
+            rows = (("tc", 64, 16, 256, tile(d) + ring + stage),
+                    ("tc", 64, 16, 256, f32_rows(d) + tile(d) + tile(ffn) + ring),
+                    ("tc", 64, 16, 256, f32_rows(d) + tile(d) + tile(ffn) + f32_rows(ffn)
+                     + ring + 4 * 64 * 4),
+                    ("tc", 64, 16, 256, tile(3 * d) + ring + stage),
+                    ("tc", 64, 16, 128, wgrad))
+        else:
+            rows = (("scalar", 32, es, 256, 32 * (d + 1) * 4),
+                    ("scalar", 64, es, 256, (2 * 64 * (d + 1) + 64 * (ffn + 1)) * 4),
+                    ("scalar", 32, es, 256, (32 * max(d + 1, ffn + 1) + 4 * 32 * (d + 1)
+                                             + 2 * 32) * 4),
+                    ("scalar", 32, es, 256, 32 * (3 * d + 1) * 4),
+                    ("scalar", 64, es, 256, 2 * 16 * 64 * 4))
+        hdk = pad(hd, 16)
+        if tc and hdk <= 144:
+            t = 64 * hdk * 2
+            attn = (("tc", 64, copy, 128, 5 * t), ("tc", 64, copy, 128, 6 * t),
+                    ("tc", 64, copy, 128, 6 * t + 2 * 2 * 64 * 4))
+        elif tc:
+            own, streamed = 64 * wide_pad(hd) * 2, 32 * wide_pad(hd) * 2
+            attn = (("tc_wide", 64, copy, 256, own + 4 * streamed),
+                    ("tc_wide", 64, copy, 256, 2 * own + 4 * streamed),
+                    ("tc_wide", 64, copy, 256, 2 * own + 4 * streamed + 2 * 2 * 32 * 4))
+        else:
+            r = k = 64 if hd <= 192 else 32
+            attn = (("scalar", r, es, 256, ((r + 2 * k) * (hd + 1) + r * (k + 1)) * 4),
+                    ("scalar", r, es, 256, (2 * (r + k) * (hd + 1) + r * (k + 1)) * 4),
+                    ("scalar", r, es, 256,
+                     (2 * (r + k) * (hd + 1) + 2 * r * (k + 1) + 2 * k) * 4))
+        qkv, tail, bwd_rows, dx, wg = rows
+        out = (qkv, attn[0], tail, bwd_rows, attn[1], attn[2], dx, wg)
+        return None if max(l[4] for l in out) > SMEM else out
+
+    if d % nhead or hd > 368:
+        return None
+    if od == BF16 and impl == "auto" and hd <= 192:
+        copy = 16
+        while copy > 2 and ((2 * hd) % copy or (2 * d) % copy or align % copy):
+            copy //= 2
+        got = launches(True, copy)
+        if got is not None:
+            return ("tc", got[1][0], got)
+    got = launches(False, es)
+    return None if got is None else ("scalar", "scalar", got)
+
+
+def _as_previous(plan):
+    return (plan.route, plan.attn_route,
+            tuple((l.route, l.rows, l.copy_bytes, l.threads, l.smem) for l in plan.launches))
 
 
 def _parent_takes(d, ffn, nhead):
@@ -150,30 +224,31 @@ def test_copy_width_divides_head_offsets_strides_and_alignment(hd, align, want):
 
 @pytest.mark.parametrize("nhead", [1, 2, 3, 4])
 def test_every_width_the_previous_design_took_is_still_taken(nhead):
-    """A sweep of widths: every width the previous design's kernels took is
-    taken in both dtypes (in bf16 on the scalar route where a tensor-core
-    tile would not fit); f32 raises exactly where they did not fit, and bf16
-    there either raises or takes the tensor cores, whose tiles may fit
-    where the scalar ones did not."""
-    seen_scalar_bf16 = 0
+    """A sweep of widths: every width is taken in both dtypes, by "auto"
+    and by impl="scalar". Where the design before the "stream" route took
+    it (the first scalar kernels' widths, `_parent_takes`, in bf16 also
+    the tensor cores' where their tiles fit) the plan is that design's,
+    field for field (`_previous_plan`), in bf16 on the scalar route where a
+    tensor-core tile would not fit; elsewhere it is the "stream" route,
+    every launch within a block's shared memory."""
+    seen = {"scalar bf16": 0, "stream": 0}
     for d in range(nhead, 720 + 1, nhead * 7):
         for ffn in (16, 136, 272, 600):
-            if _parent_takes(d, ffn, nhead):
-                for od in (BF16, F32):
-                    plan = fe.fused_plan(d, ffn, nhead, od)
+            for od in (BF16, F32):
+                for impl in ("auto", "scalar"):
+                    plan = fe.fused_plan(d, ffn, nhead, od, impl)
                     assert max(l.smem for l in plan.launches) <= SMEM
-                seen_scalar_bf16 += fe.fused_plan(d, ffn, nhead, BF16).route == "scalar"
-            else:
-                with pytest.raises(ValueError, match="do not take"):
-                    fe.fused_plan(d, ffn, nhead, F32)
-                try:
-                    plan = fe.fused_plan(d, ffn, nhead, BF16)
-                except ValueError as e:
-                    assert "do not take" in str(e)
-                else:
-                    assert plan.route == "tc"
-                    assert max(l.smem for l in plan.launches) <= SMEM
-    assert seen_scalar_bf16 > 0     # the fall-back was exercised
+                    previous = _previous_plan(d, ffn, nhead, od, impl)
+                    if previous is None:
+                        assert plan.route == "stream"
+                        seen["stream"] += 1
+                    else:
+                        assert _as_previous(plan) == previous
+            assert (_previous_plan(d, ffn, nhead, F32) is not None) == \
+                _parent_takes(d, ffn, nhead)
+            seen["scalar bf16"] += (_parent_takes(d, ffn, nhead) and
+                                    fe.fused_plan(d, ffn, nhead, BF16).route == "scalar")
+    assert min(seen.values()) > 0     # the fall-back and the new route were exercised
 
 
 def test_tc_scratch_listing():
@@ -202,12 +277,62 @@ def test_tc_scratch_listing():
 
 
 def test_refuses_what_no_route_takes():
-    with pytest.raises(ValueError, match="do not take"):
-        fe.fused_plan(680, 272, 2, BF16)          # P19's sensor-wise width
-    with pytest.raises(ValueError, match="do not take"):
-        fe.fused_plan(2 * 369, 64, 2, BF16)       # a head past 368
-    with pytest.raises(ValueError):
-        fe.fused_plan(85, 136, 2, BF16)           # d not divisible by nhead
+    """Since the "stream" route a plan is refused only for d not divisible
+    by nhead, or ffn or nhead below 1: P19's sensor-wise width and a head
+    past 368 are taken (they raised "do not take" before)."""
+    for od in (BF16, F32):
+        plan = fe.fused_plan(680, 272, 2, od)     # P19's sensor-wise width
+        assert (plan.route, plan.attn_route) == (
+            "stream", "tc_wide" if od == BF16 else "scalar")
+        plan = fe.fused_plan(2 * 369, 64, 2, od)  # a head past 368
+        assert (plan.route, plan.attn_route) == ("stream", "hd_stream")
+    for d, ffn, nhead in ((85, 136, 2), (84, 0, 2), (84, 136, 0), (84, 136, -2)):
+        with pytest.raises(ValueError, match="not divisible"):
+            fe.fused_plan(d, ffn, nhead, BF16)    # d not divisible by nhead
+
+
+@pytest.mark.parametrize("od", [BF16, F32])
+@pytest.mark.parametrize("nhead", [1, 2, 3, 8])
+def test_the_stream_route_s_shared_bytes_do_not_grow_with_the_width(nhead, od):
+    """Every launch of the "stream" route at d up to 2048 and ffn up to
+    4096 fits a block; the products', the row kernels' and the weight
+    gradients' shared bytes are one value at every width, the attention's
+    bounded by the head dim's route (fixed past hd 368, "hd_stream")."""
+    prod = (fe.STREAM_TC_SMEM if od == BF16 else fe.STREAM_SCALAR_SMEM)
+    fixed = {"qkv": prod, "dx": prod, "tail": 0, "bwd_rows": 0,
+             "wgrad": 32768 if od == BF16 else 8192}
+    for d in range(nhead, 2048 + 1, nhead * 37):
+        for ffn in (1, 64, 288, 1000, 4096):
+            for impl in ("auto", "stream"):
+                plan = fe.fused_plan(d, ffn, nhead, od, impl)
+                assert max(l.smem for l in plan.launches) <= SMEM
+                if plan.route != "stream":
+                    continue
+                assert {n: plan[n].smem for n in fixed} == fixed
+                assert {plan[n].route for n in ("qkv", "dx", "tail", "bwd_rows")} == {"stream"}
+                if d // nhead > 368:
+                    assert plan.attn_route == "hd_stream"
+                    assert [plan[n].smem for n in ("attn_fwd", "attn_dq", "attn_dkv")] == \
+                        [45568, 54016, 91392]
+                ints = list(plan.as_ints)
+                assert ints[0::5][0] == 4 and len(ints) == 5 * len(fe.LAUNCHES)
+
+
+def test_impl_stream_forces_the_route_at_pam_and_pam_sw():
+    """impl="stream" takes the new route at PAM's and PAM-sw's widths, its
+    attention as the "auto" plan's (the tensor cores in bf16, one
+    warpgroup at hd 42 and two at hd 170; scalar in f32), so the card can
+    time the route against the tile-resident ones."""
+    for d, attn in ((84, "tc"), (340, "tc_wide")):
+        auto, stream = (fe.fused_plan(d, 136, 2, BF16, impl) for impl in ("auto", "stream"))
+        assert (stream.route, stream.attn_route) == ("stream", attn)
+        assert [stream[n] for n in ATTN_LAUNCHES] == [auto[n] for n in ATTN_LAUNCHES]
+        f32 = fe.fused_plan(d, 136, 2, F32, "stream")
+        assert (f32.route, f32.attn_route) == ("stream", "scalar")
+        assert [f32[n] for n in ATTN_LAUNCHES] == \
+            [fe.fused_plan(d, 136, 2, F32)[n] for n in ATTN_LAUNCHES]
+    assert fe.bwd_scratch(2, 8, 84, 136, 2, fe.fused_plan(84, 136, 2, BF16, "stream"))[
+        "d_attn_op"] == (2 * 8 * 84, BF16)
 
 
 def test_tensor_cores_stop_at_hd_192():
@@ -326,5 +451,25 @@ def test_tc_wide_launches_are_counted_apart():
     after = {a: getattr(layer, a) - before[a] for a in attrs}
     assert after == {"launches": 1, "tc_launches": 1, "tc_wide_launches": 1,
                      "bwd_launches": 2, "tc_bwd_launches": 1, "tc_wide_bwd_launches": 0}
+    for a in attrs:
+        setattr(layer, a, before[a])
+
+
+def test_stream_launches_are_counted_apart():
+    """A call on the "stream" route adds one to stream_<attr> beside <attr>
+    (and to hd_stream_<attr> where its attention ran past hd 368); no
+    tc_ count moves."""
+    layer = fe.fused_encoder_layer
+    attrs = ("launches", "tc_launches", "stream_launches", "hd_stream_launches",
+             "bwd_launches", "tc_bwd_launches", "stream_bwd_launches",
+             "hd_stream_bwd_launches")
+    before = {a: getattr(layer, a) for a in attrs}
+    fe._count(fe.fused_plan(720, 288, 2, BF16), "launches")
+    fe._count(fe.fused_plan(720, 288, 1, F32), "launches")
+    fe._count(fe.fused_plan(720, 288, 1, BF16), "bwd_launches")
+    after = {a: getattr(layer, a) - before[a] for a in attrs}
+    assert after == {"launches": 2, "tc_launches": 0, "stream_launches": 2,
+                     "hd_stream_launches": 1, "bwd_launches": 1, "tc_bwd_launches": 0,
+                     "stream_bwd_launches": 1, "hd_stream_bwd_launches": 1}
     for a in attrs:
         setattr(layer, a, before[a])

@@ -404,8 +404,9 @@ def test_fused_plan_is_the_c_librarys(gen, d, ffn, nhead, od, impl):
 def test_fused_entry_points_refuse_another_attention_route(gen, monkeypatch, route):
     """At PAM-sw (hd 170) the C entry points take the attention on route 2
     (tc_wide) alone: a plan whose three attention launches carry route 0, 1
-    or a value they do not know (3), every other field as it was, is
-    refused by the forward and the backward."""
+    or 3 (when this test was written a value they did not know; now
+    "hd_stream", which no plan at hd 170 holds), every other field as it
+    was, is refused by the forward and the backward."""
     B, T, d, ffn, nhead, od = 2, 33, 340, 136, 2, torch.bfloat16
     p = _random_layer(gen, d, ffn)
     x, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(2))
@@ -428,6 +429,84 @@ def test_fused_entry_points_refuse_another_attention_route(gen, monkeypatch, rou
         fe._fused_fwd_cuda(ws, x, lengths, SEED, 0.0, nhead, od)
     with pytest.raises(RuntimeError, match="backward"):
         fe._fused_bwd_cuda(ws, x, lengths, SEED, 0.0, nhead, od, attn, lse, g)
+
+
+# the "stream" route: forced (impl="stream") at the widths of the other
+# routes' tests, where every attention route below hd 368 is reached (in
+# bf16 hd 8 and 42 on "tc", 170, 192 and 200 on "tc_wide"; the scalar
+# kernels in f32), and taken by itself past them: P12-sw at T=600 with 2
+# heads (hd 360, "tc_wide" at hd_pad 368 in bf16) and 1 (hd 720,
+# "hd_stream"), P19-sw (d 680), a head of 400 at 3 heads, and T = 100, 33
+# and 65 rows ending inside a tile
+STREAM_SHAPES = [(13, 16, 32, 2, "stream"), (100, 84, 136, 2, "stream"),
+                 (33, 340, 136, 2, "stream"), (100, 192, 64, 1, "stream"),
+                 (65, 400, 136, 2, "stream"), (64, 720, 288, 2, "auto"),
+                 (100, 720, 288, 1, "auto"), (33, 680, 272, 2, "auto"),
+                 (65, 1200, 96, 3, "auto"), (600, 720, 288, 1, "auto")]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("T,d,ffn,nhead,impl", STREAM_SHAPES)
+def test_fused_stream_route_matches_plain(gen, T, d, ffn, nhead, impl, cd, rate):
+    """The "stream" route's forward and backward against the plain versions
+    (held as the other routes are), every launch counted on it (and on
+    "hd_stream" past hd 368), and a repeat bit-equal."""
+    B = 3 if T == 600 else 4
+    od = fa.operand_dtype(cd)
+    plan = fe.fused_plan(d, ffn, nhead, od, impl)
+    hd = d // nhead
+    assert plan.route == "stream"
+    assert plan.attn_route == ("hd_stream" if hd > fa.MAX_HEAD_DIM else "scalar" if cd is None
+                               else "tc" if -(-hd // 16) * 16 <= 144 else "tc_wide")
+    p = _random_layer(gen, d, ffn)
+    x, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(2))
+    lengths = _fused_lengths(gen, B, T)
+    ws = fe._flatten(p)
+    layer = fe.fused_encoder_layer
+    attrs = ("launches", "stream_launches", "hd_stream_launches", "bwd_launches",
+             "stream_bwd_launches", "hd_stream_bwd_launches")
+    before = {a: getattr(layer, a) for a in attrs}
+    got = fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, nhead, od, impl)
+    again = fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, nhead, od, impl)
+    scratch = {}
+    dx, dws = fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, nhead, od, *got[1:], g,
+                                 scratch_out=scratch, impl=impl)
+    dx2, dws2 = fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, nhead, od, *got[1:], g,
+                                   impl=impl)
+    hds = plan.attn_route == "hd_stream"
+    assert {a: getattr(layer, a) - before[a] for a in attrs} == {
+        "launches": 2, "stream_launches": 2, "hd_stream_launches": 2 * hds,
+        "bwd_launches": 2, "stream_bwd_launches": 2, "hd_stream_bwd_launches": 2 * hds}
+    want = fe._fused_fwd_plain(p, x, lengths, nhead, od, SEED, rate)
+    relu_on = scratch["f"].reshape(B, T, ffn) > 0
+    pdx, pdws = fe._fused_bwd_plain(p, x, lengths, SEED, rate, nhead, od, *got[1:], g,
+                                    relu_on=relu_on)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _sample_err(got[0], want[0], lengths) <= SAMPLE_TOL[cd]
+    assert _sample_err(got[1], want[1], lengths) <= SAMPLE_TOL[cd]
+    assert (got[2] - want[2]).abs().max().item() <= TOL[cd]
+    assert (got[1][0] == 0).all() and (got[2][0] == fa.NEG_INF).all()
+    assert torch.isfinite(dx).all() and torch.equal(dx, dx2)
+    assert _sample_err(dx, pdx, lengths) <= SAMPLE_TOL[cd]
+    assert (scratch["dqkv"].reshape(B, T, 3 * d)[0] == 0).all()
+    for name, a, a2, b in zip(["/".join(path) for path in fe._WEIGHTS], dws, dws2, pdws):
+        assert torch.isfinite(a).all() and torch.equal(a, a2), name
+        assert _rel_err(a, b) <= TOL[cd], (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("od", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,ffn,nhead", [(16, 32, 2), (84, 136, 2), (340, 136, 2),
+                                         (400, 136, 1), (720, 288, 2), (720, 288, 1),
+                                         (680, 272, 2), (2048, 4096, 8)])
+def test_fused_stream_plan_is_the_c_librarys(gen, d, ffn, nhead, od):
+    """The "stream" route's plan (forced, and where it is the only route) is
+    the one the C entry points recompute, field for field."""
+    for impl in ("stream", "auto"):
+        plan = fe.fused_plan(d, ffn, nhead, od, impl)
+        ints, ok = fe.c_plan(d, ffn, nhead, od, plan.route, plan["attn_fwd"].copy_bytes)
+        assert ok and ints == tuple(plan.as_ints)
 
 
 def test_wrappers_refuse_bad_inputs(gen):
@@ -458,8 +537,8 @@ def test_fused_layer_fits_pam_sensor_wise_on_the_card(gen):
     panels, four row statistics) takes 229,376; the scalar route's forward
     attention and tail in one CTA, as before their split, would need
     322,560. P19's
-    sensor-wise width (d = 680) fits neither: the model runs the dense rung
-    there."""
+    sensor-wise width (d = 680) fits neither: the "stream" route takes it
+    (its launches' shared bytes do not grow with d)."""
     bf16 = torch.bfloat16
     smem, fits = fe.fused_smem(340, 136, 2, bf16, "tc", 2)
     assert fits and max(smem.values()) <= 232448
@@ -471,11 +550,16 @@ def test_fused_layer_fits_pam_sensor_wise_on_the_card(gen):
     assert smem["bwd_rows"] == 218496
     assert not fe.fused_smem(680, 272, 2)[1]
     assert not fe.fused_smem(680, 272, 2, bf16, "tc", 16)[1]
+    for od in (torch.float32, bf16):
+        smem, fits = fe.fused_smem(680, 272, 2, od, "stream", od.itemsize)
+        assert fits and max(smem.values()) <= 232448
     x = torch.randn((1, 8, 680), generator=gen, device="cuda")
     p = _random_layer(gen, 680, 272)
     for cd in (None, "bfloat16"):
-        with pytest.raises(ValueError, match="do not take"):
-            fe._fused_fwd(p, x, torch.tensor([8], device="cuda"), None, 0.0, cd, 2)
+        before = fe.fused_encoder_layer.stream_launches
+        out = fe._fused_fwd(p, x, torch.tensor([8], device="cuda"), None, 0.0, cd, 2)[0]
+        assert torch.isfinite(out).all()
+        assert fe.fused_encoder_layer.stream_launches == before + 1
 
 
 def _graph(gen, kind):

@@ -43,6 +43,7 @@ from raindrop_tpu_torch.ops import fused_encoder as fe
 from raindrop_tpu_torch.train.trainer import flatten_params
 
 from tests.test_torch_model import _batch
+from tests.test_torch_fused_plan import _as_previous, _previous_plan
 from tests.test_torch_split_plan import hd_stream_smem
 from tests.torch_port_util import seeds_from_jax_key
 
@@ -290,12 +291,17 @@ FUSED_WIDEST = {(1, "136"): 361, (2, "136"): 360, (4, "136"): 360,
 @pytest.mark.parametrize("od", [F32, BF16])
 @pytest.mark.parametrize("nhead,ffn", list(FUSED_WIDEST))
 def test_the_fused_layer_s_widest_layers(nhead, ffn, od):
-    """The widths the fused layer's tiles fit, all below hd 368 (its
-    attention has no "hd_stream" route); past them fused_plan raises, where
-    the JAX package's fused kernel takes any width (ROADMAP queue 2)."""
+    """The widest widths the fused layer's tile-resident routes fit, all
+    below hd 368: up to them the plan is the one those routes took before
+    the "stream" route (tests/test_torch_fused_plan.py `_previous_plan`,
+    field for field); past them, where fused_plan raised and the JAX
+    package's fused kernel takes any width, the "stream" route takes the
+    width (ROADMAP queue 2, closed)."""
     widest = FUSED_WIDEST[(nhead, ffn)]
     for d in range(nhead, widest + 1, nhead):
-        fe.fused_plan(d, 136 if ffn == "136" else 2 * d, nhead, od)
+        width = (d, 136 if ffn == "136" else 2 * d, nhead)
+        assert _as_previous(fe.fused_plan(*width, od)) == _previous_plan(*width, od)
     d = widest + nhead
-    with pytest.raises(ValueError, match="do not take"):
-        fe.fused_plan(d, 136 if ffn == "136" else 2 * d, nhead, od)
+    width = (d, 136 if ffn == "136" else 2 * d, nhead)
+    assert _previous_plan(*width, od) is None
+    assert fe.fused_plan(*width, od).route == "stream"
