@@ -130,8 +130,9 @@ order with that checkout's own code:
               printed, and every flash_mha kernel (split_*_kernel, each
               geometry and column count; split_*_tc and split_*_wide
               counted apart), every tensor-core kernel of
-              the fused layer (*_tc*, *_wide, pack_weights_kernel) and
-              every two-warpgroup packed kernel (packed_*_wide) printed.
+              the fused layer (*_tc*, *_wide, pack_weights_kernel), every
+              two-warpgroup packed kernel (packed_*_wide) and every one
+              past hd 368 on the tensor cores (packed_*_tcc) printed.
 
 Give the runs in an order that favours no checkout (A B B A). Each task
 prints `TASK name {...}` when it ends and each run `RESULT {...}`; --out
@@ -796,7 +797,8 @@ def task_ptxas(root, cs):
     import re
     from raindrop_tpu_torch.kernels import build
 
-    units = [u for name in build.SOURCES for u in build._units(name)]
+    # a unit several libraries link (the tensor-core route past hd 368) once
+    units = list(dict.fromkeys(u for name in build.SOURCES for u in build._units(name)))
     flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen([build._nvcc(), *flags, "-Xptxas", "-v", "-I",
@@ -846,6 +848,9 @@ def task_ptxas(root, cs):
             if v["unit"].startswith("flash_packed_") and v["unit"].endswith("_wide")}
     for k, v in wide.items():
         print(f"[ptxas] packed past hd_pad 144: {v} {k[:160]}", flush=True)
+    cluster = {k: v for k, v in kernels.items() if v["unit"].endswith("_tcc")}
+    for k, v in cluster.items():
+        print(f"[ptxas] packed past hd 368 (tc_cluster): {v} {k[:160]}", flush=True)
     return {"kernels": len(kernels), "spilling": len(spilling),
             "max_registers": max(v.get("registers", 0) for v in kernels.values()),
             "split_kernels": len(split),

@@ -314,18 +314,21 @@ check does not hold:
  28. torchrun_cli_phase: the CLI through torchrun (one process, NCCL,
      --distributed true --data-parallel 1), P12 for 1 epoch from dataset
      files written from --seed;
- 29. wide_head_phase, attention past head dim 368 (route "hd_stream"):
-     flash_mha_packed at hd 372, 720 and 1023 (B=8, T=215) and flash_mha at
-     hd 720 and 1024 on T=600 and 2048 (B=8), forward and backward, f32 and
-     bf16, dropout 0 and 0.2, against the plain versions, every launch on
-     the route; impl="hd_stream" at hd 360 bit-equal to the scalar Wide
-     kernels; P12-sw at one head (hd 720) served at buckets 1, 8, 32 and 128
-     and trained 3 steps (B=128), with f32 attention operands and with
-     compute_dtype='bfloat16', every packed launch on "hd_stream", served
-     probabilities and the first step's loss and gradient norm held to the
-     plain path (1e-4 f32, 2e-2 bf16); the route timed at that shape and at
-     T=2048 beside the plain versions and SDPA (its backend named); the
-     public op flash_mha through autograd at hd 720 and 1024;
+ 29. wide_head_phase, attention past head dim 368 (routes "tc_cluster" in
+     bf16, "hd_stream" in f32): flash_mha_packed at hd 372, 720 and 1023
+     (B=8, T=215) and flash_mha at hd 720 and 1024 on T=600 and 2048 (B=8),
+     forward and backward, f32 and bf16, dropout 0 and 0.2, against the
+     plain versions, every launch on its dtype's route, a bf16 repeat
+     bit-equal; impl="hd_stream" at hd 360 bit-equal to the scalar Wide
+     kernels; the clusters the card holds at once; P12-sw at one head (hd
+     720) served at buckets 1, 8, 32 and 128 and trained 3 steps (B=128),
+     with f32 attention operands (every packed launch on "hd_stream") and
+     with compute_dtype='bfloat16' (on "tc_cluster"), served probabilities
+     and the first step's loss and gradient norm held to the plain path
+     (1e-4 f32, 2e-2 bf16); in bf16 the new route timed in turns with the
+     previous design (impl="hd_stream") at that shape and at T=2048 beside
+     the plain versions and SDPA (its backend named); the public op
+     flash_mha through autograd at hd 720 and 1024 in bf16 and f32;
  30. big_batch_phase: every kernel row at B=70000 (two launches a call, the
      second at sample origin 65535), dropout 0.2 where the op has it, f32
      and bf16: flash_mha_packed, flash_mha (and 70000 heads), the fused
@@ -334,12 +337,14 @@ check does not hold:
  31. fused_wide_phase, the fused layer past the widths its tile-resident
      routes take (route "stream"): P12-sw on a 600-step window (d 720, ffn
      288) at 2 heads (hd 360) and at 1 (hd 720, its attention on
-     "hd_stream"), B=128, f32 and bf16: phases 3 and 6 there (dropout 0.2
+     "tc_cluster" in bf16, "hd_stream" in f32), B=128, f32 and bf16: phases
+     3 and 6 there (dropout 0.2
      in 6), then the model served at buckets 1-128 and trained 3 steps at
      B=128 with f32 attention operands and in bf16 compute, served
      probabilities and the first step against the plain path (1e-4 / 2e-2),
      and the CLI for one epoch of one split on 256 synthetic samples; every
-     fused launch counted on "stream".
+     fused launch counted on "stream", the one-head bf16 model's on
+     "tc_cluster" too.
 
 Every phase's seconds are printed as `[phase] name: s` and kept under
 "phase_s" in the --out file.
@@ -356,13 +361,14 @@ gradients, sums over every row, to TOL relative to max(1, the plain
 gradient's largest value), its plain backward taking the kernel's relu
 branches (fused_bwd_phase says why). The sparse-graph kernels are
 f32 throughout and are held to 1e-5 relative to max(1, |plain|).
-The line before the last is the kernels' JSON record (twenty-nine
+The line before the last is the kernels' JSON record (thirty-three
 records: twelve kernels at the main paths' shapes, the packed pair and the
 fused layer again at the sensor-wise widths, the fused layer's three
 attention launchers on "tc_wide" at PAM-sw, flash_mha forward and
 backward at PAM-sw-2048's hd 170, both ops' forward and backward on
-"hd_stream" past hd 368, and the fused layer's forward and backward on
-"stream" at P12-sw T=600 (phase 31), rows 1-11 with the launches of their B=70000
+"tc_cluster" and on "hd_stream" past hd 368, and the fused layer's forward
+and backward on "stream" at P12-sw T=600 (phase 31), rows 1-11 with the
+launches of their B=70000
 call under "big_batch_launches"; the fused layer's list the CUDA kernels
 of its tensor-core route and of the previous design, and its launches, and
 flash_mha's, are the tensor-core ones; rows 1 and 2 also carry the
@@ -683,7 +689,8 @@ def fused_phase(label, B, T, d, ffn, H, dtype, device="cuda", seed=0):
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     # the qkv intermediate A writes and B reads back (bf16 where the
     # attention runs on the tensor cores)
-    qkv_bytes = 2 * B * T * 3 * d * (2 if plan.attn_route in ("tc", "tc_wide") else 4)
+    qkv_bytes = 2 * B * T * 3 * d * (
+        2 if plan.attn_route in ("tc", "tc_wide", "tc_cluster") else 4)
     print(f"[fused] {label} {dtype}: kernel {ms:.4f} ms, {design_line(ms, prev_ms, bound_ms)}, "
           f"plain {plain_ms:.4f} ms, TransformerEncoderLayer {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}); device time {device_line(times)}; qkv round "
@@ -861,12 +868,14 @@ def flash_edge_phase(hd, T, rate, B=4, H=2, device="cuda", seed=0):
 # on two (PAM-sw's), and the "stream" route's bf16 products
 SASS_FAMILIES = {
     "flash_packed": ("packed_fwd_tc", "packed_dq_tc", "packed_dkv_tc",
-                     "packed_fwd_wide", "packed_dq_wide", "packed_dkv_wide"),
+                     "packed_fwd_wide", "packed_dq_wide", "packed_dkv_wide",
+                     "packed_fwd_tcc", "packed_dq_tcc", "packed_dkv_tcc"),
     "fused_encoder": ("qkv_rows_tc_kernel", "layer_tail_tc", "fused_attn_fwd_tc",
-                      "fused_attn_fwd_wide", "stream_rows_tc"),
+                      "fused_attn_fwd_wide", "stream_rows_tc", "packed_fwd_tcc"),
     "fused_encoder_bwd": ("qkv_rows_tc_kernel", "layer_bwd_rows_tc", "dx_rows_tc",
                           "wgrad_tc", "fused_dq_tc", "fused_dkv_tc", "fused_dq_wide",
-                          "fused_dkv_wide", "stream_rows_tc"),
+                          "fused_dkv_wide", "stream_rows_tc", "packed_dq_tcc",
+                          "packed_dkv_tcc"),
 }
 
 
@@ -932,7 +941,7 @@ def sass_phase():
                 raise RuntimeError(f"cuobjdump -sass failed on {lib}")
             with open(os.path.join(tmp.name, name)) as f:
                 out = f.read()
-            alts = [r"packed_\w+?_(?:tc|wide|kernel)"] + [f for f in families
+            alts = [r"packed_\w+?_(?:tcc|tc|wide|kernel)"] + [f for f in families
                                                       if not f.startswith("packed")]
             pattern = re.compile(r"Function : \S*?(" + "|".join(alts) + ")")
             counts, fam = {}, None
@@ -2023,19 +2032,20 @@ PLAIN_ALL = {"attention_backend": "dense", "prop_backend": "auto"}
 
 
 COUNTS = ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches",
-          "tc_wide_launches", "tc_wide_bwd_launches", "hd_stream_launches",
-          "hd_stream_bwd_launches", "stream_launches", "stream_bwd_launches")
+          "tc_wide_launches", "tc_wide_bwd_launches", "tc_cluster_launches",
+          "tc_cluster_bwd_launches", "hd_stream_launches", "hd_stream_bwd_launches",
+          "stream_launches", "stream_bwd_launches")
 # the sparse-graph wrappers' routes (ops/sparse.py graph_plan), counted apart
 GRAPH_ROUTES = ("row", "tile", "csr")
 GRAPH_COUNTS = ("launches", "bwd_launches",
                 *(f"{r}_{a}" for r in GRAPH_ROUTES for a in ("launches", "bwd_launches")))
 # the routes a wrapper counts apart: "<name>.tc" from tc_<attr>; and
 # flash_mha_packed's and flash_mha's two-warpgroup route past hd_pad 144,
-# "<name>.tc_wide", and their route past hd 368, "<name>.hd_stream" (the
-# fused layer's attention past it too); the fused layer's "stream" route,
-# "<name>.stream"; spmm_segment_softmax's and sddmm's "<name>.row",
-# "<name>.tile", "<name>.csr"
-ROUTE_COUNTS = ("tc", "tc_wide", "hd_stream", "stream", *GRAPH_ROUTES)
+# "<name>.tc_wide", and their routes past hd 368, "<name>.tc_cluster" (bf16)
+# and "<name>.hd_stream" (f32; the fused layer's attention past it too);
+# the fused layer's "stream" route, "<name>.stream"; spmm_segment_softmax's
+# and sddmm's "<name>.row", "<name>.tile", "<name>.csr"
+ROUTE_COUNTS = ("tc", "tc_wide", "tc_cluster", "hd_stream", "stream", *GRAPH_ROUTES)
 
 
 def reset_counts(wrappers):
@@ -5219,30 +5229,40 @@ HD_STREAM_PACKED = (372, 720, 1023)
 HD_STREAM_SPLIT = (720, 1024)
 
 
-def _hd_stream_counts(fn):
-    return {a: getattr(fn, a) for a in ("launches", "bwd_launches", "hd_stream_launches",
-                                         "hd_stream_bwd_launches")}
+def _route_counts(fn, route):
+    return {a: getattr(fn, a) for a in ("launches", "bwd_launches", f"{route}_launches",
+                                         f"{route}_bwd_launches")}
 
 
-def _check_hd_stream(what, fn, before, fwd, bwd):
-    """fwd forward and bwd backward launches of `fn` since `before`, every
-    one on the "hd_stream" route."""
-    now = _hd_stream_counts(fn)
+def _check_route_launches(what, fn, route, before, fwd, bwd):
+    """fwd forward and bwd backward launches of `fn` since `before`
+    (_route_counts), every one on `route`."""
+    now = _route_counts(fn, route)
     got = {a: now[a] - before[a] for a in now}
-    want = {"launches": fwd, "bwd_launches": bwd, "hd_stream_launches": fwd,
-            "hd_stream_bwd_launches": bwd}
+    want = {"launches": fwd, "bwd_launches": bwd, f"{route}_launches": fwd,
+            f"{route}_bwd_launches": bwd}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
-def check_hd_stream(what, *counts):
-    """Every flash_mha_packed launch in these counts past hd 368 took the
-    "hd_stream" route."""
+def _check_packed_route(what, route, counts):
     for c in counts:
         n = c["flash_mha_packed"]
-        if n <= 0 or c["flash_mha_packed.hd_stream"] != n:
-            raise AssertionError(f"{what}: flash_mha_packed launches off the hd_stream "
+        if n <= 0 or c[f"flash_mha_packed.{route}"] != n:
+            raise AssertionError(f"{what}: flash_mha_packed launches off the {route} "
                                  f"route: {c}")
+
+
+def check_hd_stream(what, *counts):
+    """Every flash_mha_packed launch in these counts past hd 368 took the
+    "hd_stream" route (f32 attention operands)."""
+    _check_packed_route(what, "hd_stream", counts)
+
+
+def check_tc_cluster(what, *counts):
+    """Every flash_mha_packed launch in these counts past hd 368 took the
+    "tc_cluster" route (bf16 attention operands)."""
+    _check_packed_route(what, "tc_cluster", counts)
 
 
 def sdpa_backend(q, k, v, mask):
@@ -5270,12 +5290,14 @@ def sdpa_backend(q, k, v, mask):
 
 
 def hd_stream_kernel_phase(device="cuda", seed=0):
-    """The route past hd 368 against the plain versions: flash_mha_packed at
-    hd 372, 720 and 1023 (B=8, T=215, one head) and flash_mha at hd 720 and
-    1024 on T=600 and T=2048 (B=8, H=1), forward and backward, f32 and
+    """The routes past hd 368 against the plain versions: flash_mha_packed
+    at hd 372, 720 and 1023 (B=8, T=215, one head) and flash_mha at hd 720
+    and 1024 on T=600 and T=2048 (B=8, H=1), forward and backward, f32 and
     bf16, dropout 0 and 0.2, ragged lengths with 0 and 1 (zeros for the
-    length-0 sample); every launch counted on "hd_stream"; and at hd 360
-    impl="hd_stream" bit-equal to the scalar Wide kernels it mirrors."""
+    length-0 sample); every bf16 launch counted on "tc_cluster", every f32
+    one on "hd_stream"; each bf16 call at dropout 0.2 repeated, bit-equal;
+    at hd 360 impl="hd_stream" bit-equal to the scalar Wide kernels it
+    mirrors; and the clusters of the new route the card holds at once."""
     import torch
     from raindrop_tpu_torch.ops import flash_attention as fa
 
@@ -5295,38 +5317,55 @@ def hd_stream_kernel_phase(device="cuda", seed=0):
                                     for r in (0.0, 0.2)]:
                     cd = None if dtype == "float32" else dtype
                     od = fa.operand_dtype(cd)
-                    before = _hd_stream_counts(fn)
+                    route = "hd_stream" if dtype == "float32" else "tc_cluster"
+                    before = _route_counts(fn, route)
+
+                    def run():
+                        if kind == "packed":
+                            o, lse = fa._packed_fwd(q, k, v, lengths, SEED, rate, cd, 1)
+                            return o, lse, *fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate,
+                                                                1, od, o, lse, g)
+                        o, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
+                        return o, lse, *fa._flash_bwd_cuda(q, k, v, lengths, SEED, rate, od,
+                                                           o, lse, g)
+                    o, lse, *grads = run()
+                    _check_route_launches(f"{kind} hd {hd} T={T} {dtype}", fn, route, before,
+                                          1, 1)
                     if kind == "packed":
-                        o, lse = fa._packed_fwd(q, k, v, lengths, SEED, rate, cd, 1)
-                        grads = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, 1, od, o,
-                                                    lse, g)
                         po, plse = fa._packed_fwd_plain(q, k, v, lengths, 1, od, SEED, rate)
                         want = fa._packed_bwd_plain(q, k, v, lengths, SEED, rate, 1, od, o,
                                                     lse, g)
                     else:
-                        o, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
-                        grads = fa._flash_bwd_cuda(q, k, v, lengths, SEED, rate, od, o, lse,
-                                                   g)
                         po, plse = fa._flash_fwd_plain(q, k, v, lengths, od, SEED, rate)
                         want = fa._flash_bwd_plain(q, k, v, lengths, SEED, rate, od, o, lse,
                                                    g)
-                    _check_hd_stream(f"{kind} hd {hd} T={T}", fn, before, 1, 1)
                     torch.cuda.synchronize()
                     fwd_err = max(max_err(o, po), max_err(lse, plse))
                     errs = [sample_err(a, b, lengths) for a, b in zip(grads, want)]
                     zero = all(bool((x[0] == 0).all()) for x in (o, *grads))
                     finite = all(bool(torch.isfinite(x).all()) for x in (o, *grads))
+                    repeat = None
+                    if dtype == "bfloat16" and rate > 0:
+                        again = run()
+                        repeat = all(torch.equal(a, b) for a, b in zip((o, lse, *grads),
+                                                                       again))
                     ok = (fwd_err <= TOL[dtype] and max(errs) <= SAMPLE_TOL[dtype]
-                          and zero and finite)
+                          and zero and finite and repeat is not False)
                     runs.append(dict(kind=kind, hd=hd, T=T, dtype=dtype, rate=rate,
-                                     max_abs_err=fwd_err, grad_sample_err=max(errs)))
-                    print(f"[hd_stream] {kind} hd {hd} T={T} {dtype} dropout {rate}: "
-                          f"forward max_abs_err {fwd_err:.3e} (tol {TOL[dtype]:g}), "
-                          f"gradients sample_err {max(errs):.3e} (tol "
-                          f"{SAMPLE_TOL[dtype]:g})", flush=True)
+                                     route=route, max_abs_err=fwd_err,
+                                     grad_sample_err=max(errs), grad_errs=errs,
+                                     bit_equal_repeat=repeat))
+                    print(f"[past hd 368] {kind} hd {hd} T={T} {dtype} dropout {rate} "
+                          f"({route}): forward max_abs_err {fwd_err:.3e} (tol "
+                          f"{TOL[dtype]:g}), gradients sample_err dq/dk/dv "
+                          f"{', '.join(f'{e:.3e}' for e in errs)} (tol "
+                          f"{SAMPLE_TOL[dtype]:g})"
+                          + ("" if repeat is None else f", repeat bit-equal {repeat}"),
+                          flush=True)
                     if not ok:
-                        raise AssertionError(f"hd_stream {kind} disagrees at hd {hd} T={T} "
-                                             f"{dtype} {rate} (zeros {zero}, finite {finite})")
+                        raise AssertionError(f"{route} {kind} disagrees at hd {hd} T={T} "
+                                             f"{dtype} {rate} (zeros {zero}, finite {finite}, "
+                                             f"repeat {repeat})")
     # below 369 the route is the scalar Wide kernels' bits
     q, k, v, g = (torch.randn((8, 215, 720), generator=gen, device=device) for _ in range(4))
     lengths = ragged_lengths(gen, 8, 215, device)
@@ -5340,17 +5379,30 @@ def hd_stream_kernel_phase(device="cuda", seed=0):
         if not all(torch.equal(a, b) for a, b in zip(*outs)):
             raise AssertionError(f"hd_stream at hd 360 ({cd}) is not the scalar Wide "
                                  f"kernels' bits")
-    print("[hd_stream] hd 360, dropout 0.2: impl='hd_stream' bit-equal to the scalar Wide "
+    print("[past hd 368] hd 360, dropout 0.2: impl='hd_stream' bit-equal to the scalar Wide "
           "kernels in f32 and bf16 (o, lse, dq, dk, dv)", flush=True)
-    return runs
+    occupancy = {}
+    for hd in (372, 720, 1024, 2048):
+        n, W = fa.tc_cluster_size(hd)
+        occ = fa.tc_cluster_occupancy(hd)
+        occupancy[hd] = dict(cluster=n, slice=W, smem=fa.tc_cluster_smem(W),
+                             max_active_clusters=occ)
+        print(f"[past hd 368] tc_cluster at hd {hd}: clusters of {n} CTAs x {W} columns, "
+              f"shared bytes {fa.tc_cluster_smem(W)}; the card holds {occ} clusters of the "
+              f"forward, dq and dk/dv at once (cudaOccupancyMaxActiveClusters)", flush=True)
+        if min(occ) <= 0:
+            raise AssertionError(f"tc_cluster at hd {hd}: a cluster does not fit the card")
+    return dict(runs=runs, occupancy=occupancy)
 
 
 def hd_stream_timing(label, kind, B, T, hd, dtype, device="cuda", seed=0, reps=5):
-    """The route's forward and backward at one shape (one head, dropout
-    0.2 in the backward, the model's): CUDA-event ms, the plain versions',
-    SDPA's with a key mask on the first backend that takes the head dim
-    (named), and the bounds (bytes of attention_bytes; 4 and 10 T hd
-    FLOPs a live key)."""
+    """The forward and backward past hd 368 at one shape (one head, dropout
+    0.2 in the backward, the model's): CUDA-event ms of the plan's route
+    ("tc_cluster" in bf16) and, in bf16, of the previous design
+    (impl="hd_stream"), timed in turns previous, new, new, previous; the
+    plain versions', SDPA's with a key mask on the first backend that takes
+    the head dim (named), and the bounds (bytes of attention_bytes; 4 and
+    10 T hd FLOPs a live key)."""
     import torch
     from raindrop_tpu_torch.ops import flash_attention as fa
 
@@ -5361,21 +5413,37 @@ def hd_stream_timing(label, kind, B, T, hd, dtype, device="cuda", seed=0, reps=5
     q, k, v, g = (torch.randn(shape, generator=gen, device=device).to(od)
                   for _ in range(4))
     lengths = ragged_lengths(gen, B, T, device)
+
+    def calls(impl):
+        if kind == "packed":
+            o, lse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.2, 1, od, impl)
+            return (lambda: fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.0, 1, od, impl),
+                    lambda: fa._packed_bwd_cuda(q, k, v, lengths, SEED, 0.2, 1, od, o, lse,
+                                                g, impl))
+        o, lse = fa._flash_fwd_cuda(q, k, v, lengths, SEED, 0.2, od, impl)
+        return (lambda: fa._flash_fwd_cuda(q, k, v, lengths, SEED, 0.0, od, impl),
+                lambda: fa._flash_bwd_cuda(q, k, v, lengths, SEED, 0.2, od, o, lse, g, impl))
+
+    route = fa.packed_plan(B, T, hd, 1, od).route
+    impls = ("hd_stream", "auto", "auto", "hd_stream") if dtype == "bfloat16" else ("auto",)
+    t = {}
+    for impl in impls:
+        fwd, bwd = calls(impl)
+        t.setdefault(impl, []).append((time_ms(fwd, reps, 1), time_ms(bwd, reps, 1)))
+    ms, bwd_ms = (sum(x[i] for x in t["auto"]) / len(t["auto"]) for i in (0, 1))
+    prev = t.get("hd_stream")
+    prev_ms, prev_bwd_ms = ((sum(x[i] for x in prev) / len(prev) for i in (0, 1)) if prev
+                            else (None, None))
     if kind == "packed":
-        fwd = lambda: fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.0, 1, od)  # noqa: E731
-        plain_fwd = lambda: fa._packed_fwd_plain(q, k, v, lengths, 1, od)  # noqa: E731
         o, lse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, 0.2, 1, od)
-        bargs = (q, k, v, lengths, SEED, 0.2, 1, od, o, lse, g)
-        bwd = lambda: fa._packed_bwd_cuda(*bargs)  # noqa: E731
-        plain_bwd = lambda: fa._packed_bwd_plain(*bargs)  # noqa: E731
+        plain_fwd = lambda: fa._packed_fwd_plain(q, k, v, lengths, 1, od)  # noqa: E731
+        plain_bwd = lambda: fa._packed_bwd_plain(  # noqa: E731
+            q, k, v, lengths, SEED, 0.2, 1, od, o, lse, g)
     else:
-        fwd = lambda: fa._flash_fwd_cuda(q, k, v, lengths, SEED, 0.0, od)  # noqa: E731
-        plain_fwd = lambda: fa._flash_fwd_plain(q, k, v, lengths, od)  # noqa: E731
         o, lse = fa._flash_fwd_cuda(q, k, v, lengths, SEED, 0.2, od)
-        bargs = (q, k, v, lengths, SEED, 0.2, od, o, lse, g)
-        bwd = lambda: fa._flash_bwd_cuda(*bargs)  # noqa: E731
-        plain_bwd = lambda: fa._flash_bwd_plain(*bargs)  # noqa: E731
-    ms, bwd_ms = time_ms(fwd, reps, 1), time_ms(bwd, reps, 1)
+        plain_fwd = lambda: fa._flash_fwd_plain(q, k, v, lengths, od)  # noqa: E731
+        plain_bwd = lambda: fa._flash_bwd_plain(  # noqa: E731
+            q, k, v, lengths, SEED, 0.2, od, o, lse, g)
     plain_ms, bwd_plain_ms = time_ms(plain_fwd, 3, 1), time_ms(plain_bwd, 3, 1)
     live = lengths > 0
     qh, kh, vh = (x[live].reshape(-1, T, 1, hd).transpose(1, 2).contiguous().requires_grad_()
@@ -5393,12 +5461,16 @@ def hd_stream_timing(label, kind, B, T, hd, dtype, device="cuda", seed=0, reps=5
     fb = bound(attention_bytes(lengths, T, hd, 1, esize), 4.0 * T * hd * keys, dtype)
     bb = bound(attention_bytes(lengths, T, hd, 1, esize, backward=True),
                10.0 * T * hd * keys, dtype)
-    print(f"[hd_stream] {label} {kind} B={B} T={T} hd {hd} {dtype}: forward {ms:.4f} ms "
-          f"(bound {fb[0]:.4f} ms, {fb[1]}; plain {plain_ms:.4f}; SDPA ({backend}) "
-          f"{library_ms:.4f}); backward, dropout 0.2 {bwd_ms:.4f} ms (bound {bb[0]:.4f} ms, "
-          f"{bb[1]}; plain {bwd_plain_ms:.4f}; SDPA backward {bwd_library_ms:.4f})",
-          flush=True)
-    return dict(label=label, kind=kind, B=B, T=T, hd=hd, dtype=dtype, ms=ms, bwd_ms=bwd_ms,
+    prev_line = ("" if prev is None else
+                 f"; previous design (hd_stream) {prev_ms:.4f} / {prev_bwd_ms:.4f} ms, "
+                 f"{prev_ms / ms:.2f}x / {prev_bwd_ms / bwd_ms:.2f}x")
+    print(f"[past hd 368] {label} {kind} B={B} T={T} hd {hd} {dtype} ({route}): forward "
+          f"{ms:.4f} ms (bound {fb[0]:.4f} ms, {fb[1]}; plain {plain_ms:.4f}; SDPA "
+          f"({backend}) {library_ms:.4f}); backward, dropout 0.2 {bwd_ms:.4f} ms (bound "
+          f"{bb[0]:.4f} ms, {bb[1]}; plain {bwd_plain_ms:.4f}; SDPA backward "
+          f"{bwd_library_ms:.4f}){prev_line}; turns {t}", flush=True)
+    return dict(label=label, kind=kind, B=B, T=T, hd=hd, dtype=dtype, route=route, ms=ms,
+                bwd_ms=bwd_ms, prev_ms=prev_ms, prev_bwd_ms=prev_bwd_ms, turns=t,
                 plain_ms=plain_ms, bwd_plain_ms=bwd_plain_ms, library_ms=library_ms,
                 bwd_library_ms=bwd_library_ms, sdpa_backend=backend, bound_ms=fb[0],
                 bound_by=fb[1], bwd_bound_ms=bb[0], bwd_bound_by=bb[1])
@@ -5411,10 +5483,10 @@ def wide_head_model(wrappers, overrides, label, device="cuda", seed=0, batch=128
     0.2) with `overrides`: served at the four buckets, then trained `steps`
     steps at B=128; the counts set to 0 before each and read after, every
     launch on the route `check` holds them to (flash_mha_packed's on
-    "hd_stream"). Served probabilities and the first step's loss and
-    gradient norm (dropout 0) held against the same configuration on the
-    kernels' plain versions: 1e-4 with f32 attention operands, 2e-2 with
-    bf16. Another `base` (P12-sw at T=600: the fused layer) and `check`
+    "hd_stream"; check_tc_cluster: on "tc_cluster"). Served probabilities
+    and the first step's loss and gradient norm (dropout 0) held against
+    the same configuration on the kernels' plain versions: 1e-4 with f32
+    attention operands, 2e-2 with bf16. Another `base` (P12-sw at T=600: the fused layer) and `check`
     drive another path the same way."""
     import torch
     from raindrop_tpu_torch.config import TrainConfig, dataset_config
@@ -5485,20 +5557,23 @@ def wide_head_model(wrappers, overrides, label, device="cuda", seed=0, batch=128
 
 
 def wide_head_phase(wrappers, device="cuda", seed=0):
-    """Attention past head dim 368: the route's kernel checks
+    """Attention past head dim 368: the routes' kernel checks
     (hd_stream_kernel_phase); P12-sw at one head (hd 720) served and
-    trained with f32 attention operands and with compute_dtype='bfloat16'
-    (wide_head_model); the route's times at the model's shape (B=128,
-    T=215, hd 720, bf16) and flash_mha's at T=2048, hd 720 (B=8); and the
-    public op flash_mha at hd 720 and 1024 through autograd, the counts
-    set to 0 before and read after (its launches in the record)."""
+    trained with f32 attention operands ("hd_stream") and with
+    compute_dtype='bfloat16' ("tc_cluster") (wide_head_model); the bf16
+    route's times at the model's shape (B=128, T=215, hd 720) in turns with
+    the previous design, the f32 route's there, and flash_mha's at T=2048,
+    hd 720 (B=8); and the public op flash_mha at hd 720 and 1024 through
+    autograd in bf16 and f32, the counts set to 0 before and read after
+    (its launches in the record)."""
     import torch
     from raindrop_tpu_torch.ops import flash_attention as fa
 
-    kernel_runs = hd_stream_kernel_phase(device, seed)
+    kernels = hd_stream_kernel_phase(device, seed)
     models = {"float32": wide_head_model(wrappers, {"attention_score_dtype": "float32"},
                                          "P12-sw-1h f32", device, seed),
-              "bfloat16": wide_head_model(wrappers, MIXED, "P12-sw-1h bf16", device, seed)}
+              "bfloat16": wide_head_model(wrappers, MIXED, "P12-sw-1h bf16", device, seed,
+                                          check=check_tc_cluster)}
     torch.cuda.empty_cache()
     timing = {"packed": hd_stream_timing("P12-sw-1h", "packed", 128, 215, 720, "bfloat16",
                                          device, seed),
@@ -5509,24 +5584,27 @@ def wide_head_phase(wrappers, device="cuda", seed=0):
     # the public op through autograd at hd 720 and 1024, T=600, B=8, 2 heads
     gen = torch.Generator(device=device).manual_seed(seed + 5)
     reset_counts(wrappers)
-    for D in HD_STREAM_SPLIT:
-        q, k, v = (torch.randn((8, 600, 2 * D), generator=gen, device=device)
-                   .reshape(8, 600, 2, D).transpose(1, 2).requires_grad_()
-                   for _ in range(3))
-        lengths = ragged_lengths(gen, 8, 600, device)
-        o = fa.flash_mha(q, k, v, lengths, SEED, 0.2, "bfloat16")
-        o.backward(torch.ones_like(o))
-        if not all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v)):
-            raise AssertionError(f"flash_mha at hd {D}: a gradient is not finite")
-    op = {a: getattr(fa.flash_mha, a) for a in ("launches", "bwd_launches",
-                                                "hd_stream_launches",
-                                                "hd_stream_bwd_launches")}
-    if op != {"launches": 2, "bwd_launches": 2, "hd_stream_launches": 2,
+    for cd in ("bfloat16", None):
+        for D in HD_STREAM_SPLIT:
+            q, k, v = (torch.randn((8, 600, 2 * D), generator=gen, device=device)
+                       .reshape(8, 600, 2, D).transpose(1, 2).requires_grad_()
+                       for _ in range(3))
+            lengths = ragged_lengths(gen, 8, 600, device)
+            o = fa.flash_mha(q, k, v, lengths, SEED, 0.2, cd)
+            o.backward(torch.ones_like(o))
+            if not all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v)):
+                raise AssertionError(f"flash_mha at hd {D} ({cd}): a gradient is not finite")
+    op = {a: getattr(fa.flash_mha, a) for a in (
+        "launches", "bwd_launches", "tc_cluster_launches", "tc_cluster_bwd_launches",
+        "hd_stream_launches", "hd_stream_bwd_launches")}
+    if op != {"launches": 4, "bwd_launches": 4, "tc_cluster_launches": 2,
+              "tc_cluster_bwd_launches": 2, "hd_stream_launches": 2,
               "hd_stream_bwd_launches": 2}:
         raise AssertionError(f"flash_mha past hd 368 through autograd: launches {op}")
-    print(f"[wide head] flash_mha through autograd at hd 720 and 1024: launches {op}",
-          flush=True)
-    return dict(kernels=kernel_runs, models=models, timing=timing, op_launches=op)
+    print(f"[wide head] flash_mha through autograd at hd 720 and 1024, bf16 and f32: "
+          f"launches {op}", flush=True)
+    return dict(kernels=kernels["runs"], occupancy=kernels["occupancy"], models=models,
+                timing=timing, op_launches=op)
 
 
 # ------------------------------------------------------- past 65535 samples
@@ -5734,6 +5812,15 @@ def check_fused_stream(what, *counts):
                                  f"route: {c}")
 
 
+def check_fused_tc_cluster(what, *counts):
+    """check_fused_stream, and every launch's attention on "tc_cluster"."""
+    check_fused_stream(what, *counts)
+    for c in counts:
+        if c["fused_encoder_layer.tc_cluster"] != c["fused_encoder_layer"]:
+            raise AssertionError(f"{what}: fused_encoder_layer attention off the "
+                                 f"tc_cluster route: {c}")
+
+
 def fused_wide_phase(wrappers, device="cuda", seed=0, seed_cli=0):
     """The fused layer at P12-sw's width on a 600-step window, 2 heads and
     1, f32 and bf16 operands (B=128): the kernels against their plain
@@ -5742,8 +5829,9 @@ def fused_wide_phase(wrappers, device="cuda", seed=0, seed_cli=0):
     nn.TransformerEncoderLayer's times beside); the model served at buckets
     1-128 and trained 3 steps at B=128 with f32 attention operands and with
     compute_dtype='bfloat16' (wide_head_model, every fused launch on the
-    "stream" route); the CLI for one epoch of one split on 256 synthetic
-    samples, its launches counted there."""
+    "stream" route, at one head in bf16 its attention on "tc_cluster");
+    the CLI for one epoch of one split on 256 synthetic samples, its
+    launches counted there."""
     layers = {}
     for H, label in FUSED_WIDE_HEADS:
         for dtype in ("float32", "bfloat16"):
@@ -5752,9 +5840,10 @@ def fused_wide_phase(wrappers, device="cuda", seed=0, seed_cli=0):
             layers[(label, dtype, "bwd")] = fused_bwd_phase(label, 128, 600, 720, 288, H,
                                                             dtype, 0.2, device, seed)
     for (label, dtype, _), r in layers.items():
+        bf = dtype == "bfloat16"
         if r["route"] != "stream" or r["attn_route"] != (
-                "hd_stream" if label.endswith("1h") else
-                "tc_wide" if dtype == "bfloat16" else "scalar"):
+                ("tc_cluster" if bf else "hd_stream") if label.endswith("1h") else
+                "tc_wide" if bf else "scalar"):
             raise AssertionError(f"fused layer {label} {dtype} took the {r['route']}/"
                                  f"{r['attn_route']} routes")
     models = {}
@@ -5765,7 +5854,7 @@ def fused_wide_phase(wrappers, device="cuda", seed=0, seed_cli=0):
             base=base, check=check_fused_stream)
         models[f"{label} bf16"] = wide_head_model(
             wrappers, MIXED, f"{label} bf16", device, seed, base=base,
-            check=check_fused_stream)
+            check=check_fused_tc_cluster if H == 1 else check_fused_stream)
     argv = ["--dataset", "P12", "--sensor-wise-mask", "true", "--max-len", "600",
             "--synthetic", "256", "--epochs", "1", "--n-splits", "1", "--measure-mfu",
             "true", "--seed", str(seed_cli + 1)]
@@ -6332,45 +6421,71 @@ def main(argv=None) -> int:
          "sources_also": [f"{csrc}/flash_packed_dkv_wide.cu", f"{csrc}/attention_tc_wide.cuh",
                           split_src]},
     ]
-    # past hd 368 ("hd_stream"): the packed pair's launches from
-    # P12-sw at one head (served forward, trained forward and backward, f32
-    # and bf16), flash_mha's from the public op at hd 720 and 1024; times at
-    # the model's shape (bf16, B=128, T=215, hd 720) and at T=2048, hd 720
-    # (B=8); max_abs_err the forward's, the backward's the gradients'
-    # sample_err, over every checked hd
+    # past hd 368: the packed pair's launches from P12-sw at one head
+    # (served forward, trained forward and backward; bf16 on "tc_cluster",
+    # f32 on "hd_stream"), flash_mha's from the public op at hd 720 and 1024
+    # (bf16 and f32); times at the model's shape (B=128, T=215, hd 720) and
+    # at T=2048, hd 720 (B=8), in bf16, the new route and the previous
+    # design ("hd_stream", impl="hd_stream") in turns; max_abs_err the
+    # forward's, the backward's the gradients' sample_err, over every
+    # checked hd of the record's dtype
     hds = wide["kernels"]
-    models = wide["models"].values()
+    models = wide["models"]
 
-    def hds_record(name, replaces, launches, kind, t, bwd, also=()):
-        runs = [r for r in hds if r["kind"] == kind]
+    def past_record(name, route, replaces, launches, kind, t, bwd, also=()):
+        runs = [r for r in hds if r["kind"] == kind and r["route"] == route]
         pre = "bwd_" if bwd else ""
-        return {"name": name, "route": "cuda", "source": f"{csrc}/flash_packed_hds.cu",
-                "replaces": f"{jax_flash}:{replaces}", "launches": launches,
+        ms = t[f"{pre}ms"] if route == "tc_cluster" else t[f"prev_{pre}ms"]
+        unit = ("flash_packed_hds.cu" if route == "hd_stream" else
+                f"flash_packed_{'dq' if bwd else 'fwd'}_tcc.cu")
+        header = f"attention_{'hd_stream' if route == 'hd_stream' else 'tc_cluster'}.cuh"
+        timed = ({"timed": "bf16 operands on impl='hd_stream' (the previous design), in "
+                           "turns with tc_cluster; the main path's launches are f32"}
+                 if route == "hd_stream" else {})
+        return {"name": name, "route": "cuda", "source": f"{csrc}/{unit}",
+                "replaces": f"{jax_flash}:{replaces}", "launches": launches, **timed,
                 "max_abs_err": max(r["grad_sample_err" if bwd else "max_abs_err"]
                                    for r in runs),
-                "ms": t[f"{pre}ms"], "plan_route": "hd_stream",
+                "ms": ms, "plan_route": route,
                 "plain_ms": t[f"{pre}plain_ms"], "bound_ms": t[f"{pre}bound_ms"],
                 "bound_by": t[f"{pre}bound_by"], "library_ms": t[f"{pre}library_ms"],
                 "library": f"SDPA, {t['sdpa_backend']} backend", "shape": {
                     k: t[k] for k in ("B", "T", "hd", "dtype")},
                 **({"replaces_also": [f"{jax_flash}:{x}" for x in also]} if also else {}),
-                "sources_also": [f"{csrc}/attention_hd_stream.cuh",
-                                 f"{csrc}/flash_packed.cu", split_src]}
+                "sources_also": ([f"{csrc}/flash_packed_dkv_tcc.cu"] if bwd and route ==
+                                 "tc_cluster" else []) + [
+                    f"{csrc}/{header}", f"{csrc}/flash_packed.cu", split_src]}
 
     t_packed, t_split = wide["timing"]["packed"], wide["timing"]["split"]
+    bf, f32 = models["bfloat16"], models["float32"]
+    op = wide["op_launches"]
     kernels += [
-        hds_record("flash_mha_packed_fwd_hd_stream", 566,
-                   sum(m["serve_launches"]["flash_mha_packed.hd_stream"]
-                       + m["train_launches"]["flash_mha_packed.hd_stream"] for m in models),
-                   "packed", t_packed, False),
-        hds_record("flash_mha_packed_bwd_hd_stream", 610,
-                   sum(m["train_bwd_launches"]["flash_mha_packed.hd_stream"]
-                       for m in models), "packed", t_packed, True),
-        hds_record("flash_mha_fwd_hd_stream", 191, wide["op_launches"]["hd_stream_launches"],
-                   "split", t_split, False, (121,)),
-        hds_record("flash_mha_bwd_hd_stream", 237,
-                   wide["op_launches"]["hd_stream_bwd_launches"], "split", t_split, True,
-                   (275, 146)),
+        {**past_record("flash_mha_packed_fwd_tc_cluster", "tc_cluster", 566,
+                       bf["serve_launches"]["flash_mha_packed.tc_cluster"]
+                       + bf["train_launches"]["flash_mha_packed.tc_cluster"], "packed",
+                       t_packed, False),
+         "fused_launches": fused_wide["models"]["P12-sw-1h bf16"]["train_launches"][
+             "fused_encoder_layer.tc_cluster"], "occupancy": wide["occupancy"]},
+        {**past_record("flash_mha_packed_bwd_tc_cluster", "tc_cluster", 610,
+                       bf["train_bwd_launches"]["flash_mha_packed.tc_cluster"], "packed",
+                       t_packed, True),
+         "fused_launches": fused_wide["models"]["P12-sw-1h bf16"]["train_bwd_launches"][
+             "fused_encoder_layer.tc_cluster"]},
+        past_record("flash_mha_fwd_tc_cluster", "tc_cluster", 191, op["tc_cluster_launches"],
+                    "split", t_split, False, (121,)),
+        past_record("flash_mha_bwd_tc_cluster", "tc_cluster", 237,
+                    op["tc_cluster_bwd_launches"], "split", t_split, True, (275, 146)),
+        {**past_record("flash_mha_packed_fwd_hd_stream", "hd_stream", 566,
+                       f32["serve_launches"]["flash_mha_packed.hd_stream"]
+                       + f32["train_launches"]["flash_mha_packed.hd_stream"], "packed",
+                       t_packed, False), "f32_ms": wide["timing"]["packed_f32"]["ms"]},
+        {**past_record("flash_mha_packed_bwd_hd_stream", "hd_stream", 610,
+                       f32["train_bwd_launches"]["flash_mha_packed.hd_stream"], "packed",
+                       t_packed, True), "f32_ms": wide["timing"]["packed_f32"]["bwd_ms"]},
+        past_record("flash_mha_fwd_hd_stream", "hd_stream", 191, op["hd_stream_launches"],
+                    "split", t_split, False, (121,)),
+        past_record("flash_mha_bwd_hd_stream", "hd_stream", 237, op["hd_stream_bwd_launches"],
+                    "split", t_split, True, (275, 146)),
     ]
     # the fused layer past its tiles ("stream"): launches from P12-sw at
     # T=600 served (forward) and trained (forward and backward), 2 heads
@@ -6381,7 +6496,8 @@ def main(argv=None) -> int:
                for way in ("fwd", "bwd")}
     stream_srcs = [f"{csrc}/fused_encoder.cu", f"{csrc}/fused_encoder_bwd.cu",
                    f"{csrc}/fused_plan.cuh", f"{csrc}/fused_encoder_attn_hds.cu",
-                   f"{csrc}/fused_encoder_bwd_hds.cu", f"{csrc}/attention_hd_stream.cuh"]
+                   f"{csrc}/fused_encoder_bwd_hds.cu", f"{csrc}/attention_hd_stream.cuh",
+                   f"{csrc}/attention_tc_cluster.cuh"]
 
     def one_head(way):
         r = next(x for x in fw_runs[way] if x["label"] == "P12-sw-1h"

@@ -25,7 +25,9 @@
 // outputs over the streamed rows in turn. So at a head dim both take
 // (impl="hd_stream" reaches this route at any hd) the results are the
 // Wide kernels' bits. Scalar f32 FMA: slow (the scores are computed once a
-// slice), and simple; the tensor-core route past 368 is later work.
+// slice), and simple. It serves f32 operands, and bf16 past hd 2048 or on
+// request (impl="hd_stream", the previous design); bf16 at hd 369-2048
+// takes the tensor cores (attention_tc_cluster.cuh).
 //
 // Dropout hashes (query row, key column) under the (sample, head)'s base,
 // as every route does: the column slice does not enter the mask.

@@ -37,10 +37,15 @@
 //   the Narrow geometry up to hd 192 and the Wide one (32-row blocks and
 //   tiles, attention.cuh says why) up to hd 368. TF32 would not hold the
 //   f32 route's 1e-4.
-// - "hd_stream", f32 or bf16 operands past hd 368 (and on request at any
-//   hd): attention_hd_stream.cuh, launched from flash_packed_hds.cu. The
-//   scalar Wide routines' function and bits in shared memory that does not
-//   grow with hd: the head dim streamed in chunks through the score
+// - "tc_cluster", bf16 operands past hd 368 up to 2048 (P12's sensor-wise
+//   model at one head, hd 720): attention_tc_cluster.cuh, launched from
+//   flash_packed_{fwd,dq,dkv}_tcc.cu. The same products on a cluster of
+//   ceil(hd / 256) CTAs, each owning a slice of the head's columns; the
+//   partial scores of the slices meet in distributed shared memory.
+// - "hd_stream", f32 operands past hd 368, bf16 past 2048 (and on request
+//   at any hd): attention_hd_stream.cuh, launched from flash_packed_hds.cu.
+//   The scalar Wide routines' function and bits in shared memory that does
+//   not grow with hd: the head dim streamed in chunks through the score
 //   products, the outputs' columns split over the grid's x axis.
 //
 // Design: the TPU kernels hold one sample's [T, T] score tile in VMEM and
@@ -159,6 +164,8 @@ Plan expected_plan(int B, int T, int d, int nhead, int bf16, int route) {
     p.threads_fwd = p.threads_dq = p.threads_dkv = rd::tc::WIDE_THREADS;
   } else if (route == 3) {
     rd::packed::hds_plan(p, hd, bf16);
+  } else if (route == 5) {
+    rd::packed::tcc_plan(p, hd);
   } else {
     p.hd_pad = hd;
     p.copy_bytes = bf16 ? 2 : 4;
@@ -170,7 +177,8 @@ Plan expected_plan(int B, int T, int d, int nhead, int bf16, int route) {
     p.threads_fwd = p.threads_dq = p.threads_dkv = rd::NT;
   }
   p.cols = hd;
-  p.grid_x = (T + p.rows - 1) / p.rows * (route == 3 ? rd::hs::slices(hd) : 1);
+  p.grid_x = (T + p.rows - 1) / p.rows *
+             (route == 3 ? rd::hs::slices(hd) : route == 5 ? rd::tcc::cluster_size(hd) : 1);
   p.grid_y = nhead;
   p.grid_z = B;
   return p;
@@ -192,6 +200,7 @@ bool route_ok(int route, int hd, int bf16) {
            hd <= rd::tc::WIDE_MAX_HD_PAD;
   }
   if (route == 3) return hd >= 1;
+  if (route == 5) return bf16 && hd > rd::SCALAR_MAX_HD && hd <= rd::tcc::MAX_HD;
   return route == 0 && hd <= rd::SCALAR_MAX_HD;
 }
 
@@ -204,7 +213,7 @@ bool make_plan(const int* ints, int B, int T, int d, int nhead, int bf16,
   const int route = ints[0];
   if (!route_ok(route, d / nhead, bf16)) return false;
   Plan e = expected_plan(B, T, d, nhead, bf16, route);
-  if (route == 1 || route == 2) {
+  if (route == 1 || route == 2 || route == 5) {
     if (!copy_ok(ints[2], d / nhead, d, operands)) return false;
     e.copy_bytes = ints[2];
   }
@@ -280,7 +289,7 @@ rd::packed::Strides packed_strides(int T, int d, int nhead) {
 
 // The shared bytes of the forward, dq and dk/dv kernels on a route (0
 // scalar, 1 tensor cores, 2 tensor cores past hd_pad 144, 3 past hd 368
-// or on request) for [B, T, d]
+// or on request, 5 tensor cores past hd 368) for [B, T, d]
 // operands, as the entry points below
 // launch them; cudaErrorInvalidValue for a route the call cannot take or
 // a kernel that would not fit a block.
@@ -294,6 +303,17 @@ extern "C" int rd_packed_smem(int B, int T, int d, int nhead, int bf16, int rout
   out[2] = e.smem_dkv;
   return std::max({e.smem_fwd, e.smem_dq, e.smem_dkv}) > rd::MAX_SMEM
              ? (int)cudaErrorInvalidValue : 0;
+}
+
+// How many clusters of the "tc_cluster" route's forward, dq and dk/dv
+// kernels at head dim D the card holds at once: out[0..2];
+// cudaErrorInvalidValue past the route's head dims.
+extern "C" int rd_tcc_clusters(int D, int* out) {
+  if (D <= rd::SCALAR_MAX_HD || D > rd::tcc::MAX_HD) return (int)cudaErrorInvalidValue;
+  int err = rd::packed::clusters_fwd_tcc(D, out);
+  if (err == 0) err = rd::packed::clusters_dq_tcc(D, out + 1);
+  if (err == 0) err = rd::packed::clusters_dkv_tcc(D, out + 2);
+  return err;
 }
 
 // plan: the wrapper's launch plan, PLAN_INTS ints (flash_packed.cuh struct
@@ -318,6 +338,10 @@ extern "C" int rd_packed_fwd(const void* q, const void* k, const void* v,
   if (p.route == 3) {
     return rd::packed::launch_fwd_hds(q, k, v, lengths, o, lse, st, st, p, nhead, T,
                                       d / nhead, scale2, bf16, seed, rate, org, s);
+  }
+  if (p.route == 5) {
+    return rd::packed::launch_fwd_tcc(q, k, v, lengths, o, lse, st, st, p, nhead, T,
+                                      d / nhead, scale2, seed, rate, org, s);
   }
   const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_fwd, d / nhead, rate, bf16, q, k, v, lengths, o, lse, p, T,
@@ -358,6 +382,13 @@ extern "C" int rd_packed_bwd(const void* q, const void* k, const void* v,
     if (err != 0) return err;
     return rd::packed::launch_dkv_hds(q, k, v, d_o, lse, delta, lengths, dk, dv, st, st, st,
                                       p, nhead, T, d / nhead, scale, bf16, seed, rate, org, s);
+  }
+  if (p.route == 5) {
+    err = rd::packed::launch_dq_tcc(q, k, v, d_o, lse, delta, lengths, dq, st, st, st, p,
+                                    nhead, T, d / nhead, scale, seed, rate, org, s);
+    if (err != 0) return err;
+    return rd::packed::launch_dkv_tcc(q, k, v, d_o, lse, delta, lengths, dk, dv, st, st, st,
+                                      p, nhead, T, d / nhead, scale, seed, rate, org, s);
   }
   const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_bwd, d / nhead, rate, bf16, q, k, v, d_o, lse, delta,

@@ -8,13 +8,18 @@
 // flash_packed_{fwd,dq,dkv}_tc.cu (18 instantiations each: 9 padded head
 // dims, with and without dropout), past it flash_packed_{fwd,dq,dkv}_wide.cu
 // (14 each: 7 padded head dims), so nvcc builds the six beside the two
-// entry-point files; flash_packed_hds.cu holds the route past head dim 368
-// (attention_hd_stream.cuh, f32 and bf16 operands, 4 kernels a pass).
+// entry-point files; flash_packed_hds.cu holds the scalar route past head
+// dim 368 (attention_hd_stream.cuh, f32 and bf16 operands, 4 kernels a
+// pass), and flash_packed_{fwd,dq,dkv}_tcc.cu the tensor-core route past it
+// for bf16 (attention_tc_cluster.cuh, 6 kernels each: 3 column slices, with
+// and without dropout; the fused layer's libraries link them too).
 #pragma once
 
 #include <type_traits>
+#include <utility>
 
 #include "attention_hd_stream.cuh"
+#include "attention_tc_cluster.cuh"
 #include "attention_tc_wide.cuh"
 
 namespace rd {
@@ -35,12 +40,14 @@ __host__ __device__ __forceinline__ long head_base(const Strides& s, int b, int 
 // call, the columns a copy reads and the shared bytes of each kernel.
 struct Plan {
   int route;       // 0 scalar, 1 tensor cores, 2 tensor cores past hd_pad 144,
-                   // 3 past head dim 368 (attention_hd_stream.cuh)
-  int hd_pad;      // head dim padded to 16 (route 1), to 176 + 32 j (route 2), hd (0, 3)
+                   // 3 past head dim 368 (attention_hd_stream.cuh), 5 tensor
+                   // cores past it (attention_tc_cluster.cuh)
+  int hd_pad;      // head dim padded to 16 (route 1), to 176 + 32 j (route 2), hd (0, 3),
+                   // the cluster's columns n W (5)
   int copy_bytes;  // width of one tile copy (routes 0 and 3: one element)
   int rows;        // rows of a CTA's block: 64, or 32 (scalar, Wide geometry; route 3)
   int threads_fwd, threads_dq, threads_dkv;
-  int grid_x, grid_y, grid_z;  // route 3: x the row blocks times the column slices
+  int grid_x, grid_y, grid_z;  // routes 3 and 5: x the row blocks times the column slices
   int cols;        // columns a copy reads from each row: hd; for flash_mha the
                    // wrapper's int after the first PLAN_INTS (SplitPlan.cols):
                    // hd, or hd padded to 8 where its cast zeroed the pad columns
@@ -131,6 +138,99 @@ int launch_dkv_hds(const void* q, const void* k, const void* v, const void* d_o,
                    Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H, int T,
                    int D, float scale, int bf16, int seed, double rate, rd::Origin org,
                    cudaStream_t stream);
+
+// The tensor-core route past head dim 368 (flash_packed_{fwd,dq,dkv}_tcc.cu),
+// bf16 operands on any strides, launched in clusters of
+// tcc::cluster_size(D) CTAs (the grid's x axis: the plan's row blocks times
+// it, the rank fastest). dq and dk/dv write into dq, and into dk and dv,
+// at s_out. Each returns the launch's error, or cudaGetLastError().
+int launch_fwd_tcc(const void* q, const void* k, const void* v, const void* lengths, void* o,
+                   void* lse, Strides s_in, Strides s_out, const Plan& p, int H, int T, int D,
+                   float scale2, int seed, double rate, rd::Origin org, cudaStream_t stream);
+int launch_dq_tcc(const void* q, const void* k, const void* v, const void* d_o,
+                  const void* lse, const void* delta, const void* lengths, void* dq,
+                  Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H, int T, int D,
+                  float scale, int seed, double rate, rd::Origin org, cudaStream_t stream);
+int launch_dkv_tcc(const void* q, const void* k, const void* v, const void* d_o,
+                   const void* lse, const void* delta, const void* lengths, void* dk, void* dv,
+                   Strides s_in, Strides s_do, Strides s_out, const Plan& p, int H, int T,
+                   int D, float scale, int seed, double rate, rd::Origin org,
+                   cudaStream_t stream);
+// How many clusters of that route's forward, dq and dk/dv kernels at head
+// dim D (the dropout instantiations, the training path's; the shared bytes
+// that bound it are the same without) the card holds at once
+// (cudaOccupancyMaxActiveClusters).
+int clusters_fwd_tcc(int D, int* out);
+int clusters_dq_tcc(int D, int* out);
+int clusters_dkv_tcc(int D, int* out);
+
+// f(std::integral_constant<int, W>) for the route's columns a CTA, W =
+// 192, 224 or 256.
+template <typename F>
+int with_slice(int W, F&& f) {
+  switch (W) {
+    case 192: return f(std::integral_constant<int, 192>{});
+    case 224: return f(std::integral_constant<int, 224>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The configuration of a launch in clusters of n CTAs along x; `attr`
+// holds its one attribute.
+inline cudaLaunchConfig_t cluster_config(dim3 grid, int threads, int smem, int n,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = n;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// kern<<<grid, threads, smem, stream>>>(args...) in clusters of n CTAs
+// along x; the launch's error, or cudaGetLastError().
+template <typename... P, typename... A>
+int launch_cluster(void (*kern)(P...), dim3 grid, int threads, int smem, int n,
+                   cudaStream_t stream, A&&... args) {
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(grid, threads, smem, n, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kern, std::forward<A>(args)...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of n CTAs of kern (threads, smem) fit the card at once.
+template <typename... P>
+int max_clusters(void (*kern)(P...), int threads, int smem, int n, int* out) {
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(64 * n), threads, smem, n, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, kern, &cfg);
+}
+
+// The plan fields of route 5 at head dim hd but the copy width, the
+// columns a copy reads and the grid
+inline void tcc_plan(Plan& p, int hd) {
+  const int W = tcc::slice_cols(hd);
+  p.hd_pad = tcc::cluster_size(hd) * W;
+  p.rows = tc::ROWS;
+  p.smem_fwd = tcc::fwd_smem_bytes(W);
+  p.smem_dq = tcc::dq_smem_bytes(W);
+  p.smem_dkv = tcc::dkv_smem_bytes(W);
+  p.threads_fwd = tcc::FWD_THREADS;
+  p.threads_dq = tcc::DQ_THREADS;
+  p.threads_dkv = tcc::DKV_THREADS;
+}
 
 // The plan fields of route 3 at head dim hd but the grid (both entry files;
 // its x axis is the row blocks times hs::slices(hd))

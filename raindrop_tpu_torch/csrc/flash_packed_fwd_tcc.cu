@@ -1,0 +1,59 @@
+// The tensor-core forward past head dim 368 (bf16 operands, the
+// "tc_cluster" route) of flash_mha_packed, flash_mha and the fused layer's
+// attention: the kernel over one (64-row query block, head, sample) and
+// one column slice, in clusters of tcc::cluster_size(D) CTAs, on strided
+// operands as in flash_packed_fwd_tc.cu, and its launcher. A unit of its
+// own (6 instantiations: W = 192, 224, 256, with and without dropout) so
+// that nvcc builds it beside the others; attention_tc_cluster.cuh holds the
+// device code and says what bounds it.
+#include "flash_packed.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using rd::packed::Strides;
+using rd::packed::head_base;
+
+template <int W, bool DROP>
+__global__ void __launch_bounds__(rd::tcc::FWD_THREADS)
+packed_fwd_tcc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const int* __restrict__ lengths,
+               float* __restrict__ o, float* __restrict__ lse, Strides s_in, Strides s_out,
+               int H, int T, int D, int cols, float scale2, int seed, rd::Drop dr, int CW) {
+  extern __shared__ __align__(128) uint8_t smem_tc[];
+  const int q0 = (int)(blockIdx.x / rd::tcc::cluster_size(D)) * rd::tc::ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int length = min(max(lengths[b], 0), T);
+  const long in = head_base(s_in, b, h);
+  dr.base = rd::drop_base(seed, dr.bh(b, h));
+  rd::tcc::attend_rows_cluster<W, DROP>(
+      q + in, k + in, v + in, s_in.t, T, length, q0, D, CW, scale2, smem_tc,
+      o + head_base(s_out, b, h) + (long)q0 * s_out.t, s_out.t, lse + ((long)b * H + h) * T, dr,
+      cols);
+}
+
+}  // namespace
+
+int rd::packed::launch_fwd_tcc(const void* q, const void* k, const void* v,
+                               const void* lengths, void* o, void* lse, Strides s_in,
+                               Strides s_out, const Plan& p, int H, int T, int D, float scale2,
+                               int seed, double rate, rd::Origin org, cudaStream_t stream) {
+  const Drop dr = make_drop(rate, org);
+  return with_slice(tcc::slice_cols(D), [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    auto kern = rate > 0.0 ? packed_fwd_tcc<W, true> : packed_fwd_tcc<W, false>;
+    return launch_cluster(kern, dim3(p.grid_x, p.grid_y, p.grid_z), p.threads_fwd,
+                          p.smem_fwd, tcc::cluster_size(D), stream, (const bf16*)q,
+                          (const bf16*)k, (const bf16*)v, (const int*)lengths, (float*)o,
+                          (float*)lse, s_in, s_out, H, T, D, p.cols, scale2, seed, dr,
+                          p.copy_bytes);
+  });
+}
+
+int rd::packed::clusters_fwd_tcc(int D, int* out) {
+  return with_slice(tcc::slice_cols(D), [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return max_clusters(packed_fwd_tcc<W, true>, tcc::FWD_THREADS, tcc::fwd_smem_bytes(W),
+                        tcc::cluster_size(D), out);
+  });
+}

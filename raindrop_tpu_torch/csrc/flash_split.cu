@@ -47,10 +47,15 @@
 //   element at a time, so a head may start at any element offset of a row.
 //   TF32 would not hold the f32 route's 1e-4.
 //
-// - "hd_stream", f32 or bf16 operands past hd 368 (and on request at any
-//   hd): the packed pair's kernels in flash_packed_hds.cu on these strides
-//   (attention_hd_stream.cuh: the scalar Wide routines' function and bits
-//   in shared memory that does not grow with hd).
+// - "tc_cluster", bf16 operands past hd 368 up to 2048: the packed pair's
+//   kernels in flash_packed_{fwd,dq,dkv}_tcc.cu on these strides
+//   (attention_tc_cluster.cuh: a cluster of CTAs a block, each owning a
+//   slice of the head's columns, their partial scores summed in
+//   distributed shared memory), on the padded cast as "tc".
+// - "hd_stream", f32 operands past hd 368, bf16 past 2048 (and on request
+//   at any hd): the packed pair's kernels in flash_packed_hds.cu on these
+//   strides (attention_hd_stream.cuh: the scalar Wide routines' function
+//   and bits in shared memory that does not grow with hd).
 //
 // Design: the TPU's two regimes exist because its fast memory holds a
 // whole [1024, 1024] tile; an SM's 227 KB holds none the model uses, so
@@ -234,8 +239,12 @@ Plan expected_plan(int B, int H, int T, int D, int bf16, int route) {
     bytes[1] = rd::tc::wide_dq_smem_bytes(D);
     bytes[2] = rd::tc::wide_dkv_smem_bytes(D);
     p.threads_fwd = p.threads_dq = p.threads_dkv = rd::tc::WIDE_THREADS;
-  } else if (route == 3) {
-    rd::packed::hds_plan(p, D, bf16);
+  } else if (route == 3 || route == 5) {
+    if (route == 3) {
+      rd::packed::hds_plan(p, D, bf16);
+    } else {
+      rd::packed::tcc_plan(p, D);
+    }
     bytes[0] = p.smem_fwd;
     bytes[1] = p.smem_dq;
     bytes[2] = p.smem_dkv;
@@ -255,7 +264,8 @@ Plan expected_plan(int B, int H, int T, int D, int bf16, int route) {
   p.smem_dq = bytes[1];
   p.smem_dkv = bytes[2];
   p.cols = D;
-  p.grid_x = (T + p.rows - 1) / p.rows * (route == 3 ? rd::hs::slices(D) : 1);
+  p.grid_x = (T + p.rows - 1) / p.rows *
+             (route == 3 ? rd::hs::slices(D) : route == 5 ? rd::tcc::cluster_size(D) : 1);
   p.grid_y = H;
   p.grid_z = B;
   return p;
@@ -268,6 +278,7 @@ bool route_ok(int route, int D, int bf16) {
            D <= rd::tc::WIDE_MAX_HD_PAD;
   }
   if (route == 3) return D >= 1;
+  if (route == 5) return bf16 && D > rd::SCALAR_MAX_HD && D <= rd::tcc::MAX_HD;
   return route == 0 && D <= rd::SCALAR_MAX_HD;
 }
 
@@ -301,7 +312,7 @@ bool make_plan(const int* ints, int B, int H, int T, int D, int bf16,
   if (!route_ok(route, D, bf16)) return false;
   Plan e = expected_plan(B, H, T, D, bf16, route);
   const int cols = ints[rd::packed::PLAN_INTS];
-  if (route == 1 || route == 2) {
+  if (route == 1 || route == 2 || route == 5) {
     if (!copy_ok(ints[2], cols, D, H, strides, operands)) return false;
     e.copy_bytes = ints[2];
     e.cols = cols;
@@ -329,7 +340,7 @@ bool make_plan(const int* ints, int B, int H, int T, int D, int bf16,
 
 // The shared bytes of the forward, dq and dk/dv kernels at head dim D on a
 // route (0 scalar, 1 tensor cores, 2 tensor cores past hd_pad 144, 3 past
-// hd 368 or on request), as the
+// hd 368 or on request, 5 tensor cores past hd 368), as the
 // entry points below launch them; cudaErrorInvalidValue for a route the
 // head dim cannot take or a kernel that would not fit a block.
 extern "C" int rd_split_smem(int D, int route, int* out) {
@@ -365,6 +376,10 @@ extern "C" int rd_split_fwd(const void* q, const void* k, const void* v,
   if (p.route == 3) {
     return rd::packed::launch_fwd_hds(q, k, v, lengths, o, lse, s_in, s_out, p, H, T, D,
                                       scale2, bf16, seed, rate, org, s);
+  }
+  if (p.route == 5) {
+    return rd::packed::launch_fwd_tcc(q, k, v, lengths, o, lse, s_in, s_out, p, H, T, D,
+                                      scale2, seed, rate, org, s);
   }
   const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_fwd, D, rate, bf16, q, k, v, lengths, o, lse, s_in, s_out,
@@ -406,6 +421,13 @@ extern "C" int rd_split_bwd(const void* q, const void* k, const void* v,
     if (err != 0) return err;
     return rd::packed::launch_dkv_hds(q, k, v, d_o, lse, delta, lengths, dk, dv, s_in, s_do,
                                       s_out, p, H, T, D, scale, bf16, seed, rate, org, s);
+  }
+  if (p.route == 5) {
+    err = rd::packed::launch_dq_tcc(q, k, v, d_o, lse, delta, lengths, dq, s_in, s_do, s_out,
+                                    p, H, T, D, scale, seed, rate, org, s);
+    if (err != 0) return err;
+    return rd::packed::launch_dkv_tcc(q, k, v, d_o, lse, delta, lengths, dk, dv, s_in, s_do,
+                                      s_out, p, H, T, D, scale, seed, rate, org, s);
   }
   const rd::Drop dr = rd::make_drop(rate, org);
   RD_DISPATCH(launch_bwd, D, rate, bf16, q, k, v, d_o, lse, delta, lengths, dq,

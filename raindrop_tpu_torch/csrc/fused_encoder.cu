@@ -321,7 +321,7 @@ int launch_stream(const float* const* w, const float* b_in, const float* bo,
                           nullptr, o, out_bf16, round, stream);
   };
   const Launch& lb = p.l[ATTN_FWD];
-  const bool attn_tc = lb.route == R_TC || lb.route == R_TC_WIDE;
+  const bool attn_tc = lb.route == R_TC || lb.route == R_TC_WIDE || lb.route == R_TC_CLUSTER;
   float* x1 = rows;
   float* f = rows + M * d;
   const dim3 row_grid = stream_row_grid(M);
@@ -333,6 +333,9 @@ int launch_stream(const float* const* w, const float* b_in, const float* bo,
   } else if (lb.route == R_TC_WIDE) {
     err = launch_attn_fwd_wide(qkv, lengths, attn, lse, lb, B, T, d, nhead, scale2, seed,
                                rate, org, stream);
+  } else if (lb.route == R_TC_CLUSTER) {
+    err = launch_attn_fwd_tcc(qkv, lengths, attn, lse, lb, B, T, d, nhead, scale2, seed, rate,
+                              org, stream);
   } else if (lb.route == R_HD_STREAM) {
     err = launch_attn_fwd_hds(qkv, lengths, attn, lse, lb, B, T, d, nhead, scale2, bf, seed,
                               rate, org, stream);

@@ -1008,7 +1008,7 @@ int launch_stream(const Args& a, const Plan& p) {
                           slot >= P_W2T, N, bias, add, out, out_bf16, round, a.stream);
   };
   const Launch& lq = p.l[ATTN_DQ];
-  const bool attn_tc = lq.route == R_TC || lq.route == R_TC_WIDE;
+  const bool attn_tc = lq.route == R_TC || lq.route == R_TC_WIDE || lq.route == R_TC_CLUSTER;
   const dim3 rows = stream_row_grid(M);
   float* rstd1 = a.rstd;
   float* rstd2 = a.rstd + M;
@@ -1049,7 +1049,13 @@ int launch_stream(const Args& a, const Plan& p) {
   RD_TRY(cudaGetLastError());
   // C
   int err;
-  if (attn_tc) {
+  if (lq.route == R_TC_CLUSTER) {
+    err = launch_dq_tcc(a.qkv, a.dattn_op, a.lse, a.delta, a.lengths, a.dqkv, lq, B, T, d,
+                        a.nhead, a.scale, a.seed, a.rate, a.org, a.stream);
+    if (err) return err;
+    err = launch_dkv_tcc(a.qkv, a.dattn_op, a.lse, a.delta, a.lengths, a.dqkv, p.l[ATTN_DKV],
+                         B, T, d, a.nhead, a.scale, a.seed, a.rate, a.org, a.stream);
+  } else if (attn_tc) {
     const bool one_wg = lq.route == R_TC;
     bf16* qkv = reinterpret_cast<bf16*>(a.qkv);
     err = (one_wg ? launch_dq_tc : launch_dq_wide)(qkv, a.dattn_op, a.lse, a.delta, a.lengths,
@@ -1152,8 +1158,9 @@ extern "C" int rd_fused_layer_bwd(
   a.dr = rd::make_drop(rate, org);
   a.stream = (cudaStream_t)stream;
   if (stream_route) {
-    const bool attn_tc = p.l[rd::fused::ATTN_DQ].route == rd::fused::R_TC ||
-                         p.l[rd::fused::ATTN_DQ].route == rd::fused::R_TC_WIDE;
+    const int ar = p.l[rd::fused::ATTN_DQ].route;
+    const bool attn_tc = ar == rd::fused::R_TC || ar == rd::fused::R_TC_WIDE ||
+                         ar == rd::fused::R_TC_CLUSTER;
     for (const void* ptr : {xhat1, xhat2, rstd, dh2, dx1, x1, f, df2, dfpre, dao, dattn, dh1,
                             dqkv, delta, wpart, qkv}) {
       if (ptr == nullptr) return (int)cudaErrorInvalidValue;

@@ -3,7 +3,8 @@
 // both entry points (fused_encoder.cu, fused_encoder_bwd.cu) recompute and
 // check it field for field: per launch the route (0 scalar, 1 tensor
 // cores, 2 the attention on two warpgroups past hd_pad 144, 3 the attention
-// past hd 368, 4 "stream"), the rows of a CTA's tile, the copy width, the
+// past hd 368, 4 "stream", 5 the attention on the tensor cores past hd 368),
+// the rows of a CTA's tile, the copy width, the
 // threads and the shared bytes. Three routes for the row products:
 // - tensor cores (bf16 operands, head dims up to 192, where every tile
 //   fits): the row products (qkv, the forward's tail, the backward's row
@@ -21,7 +22,9 @@
 //   rows in device memory between them, the LayerNorms and dropout sites
 //   as row kernels; the attention up to hd 368 in bf16 on route 1 or 2 (as
 //   the packed pair's: two warpgroups past hd_pad 144), in f32 on the
-//   scalar kernels, and past hd 368 on attention_hd_stream.cuh (route 3,
+//   scalar kernels, and past hd 368 in bf16 on attention_tc_cluster.cuh
+//   (route 5, "tc_cluster": a cluster of CTAs a block, to hd 2048), in f32
+//   (and bf16 past 2048) on attention_hd_stream.cuh (route 3,
 //   "hd_stream"); the weight gradients on the kernels of the two routes
 //   above. No launch's shared bytes grow with d or ffn.
 #pragma once
@@ -57,7 +60,7 @@ namespace fused {
 
 enum { QKV, ATTN_FWD, TAIL, BWD_ROWS, ATTN_DQ, ATTN_DKV, DX, WGRAD, NLAUNCH };
 // the routes' ints (ops/flash_attention.py _ROUTES)
-enum { R_SCALAR, R_TC, R_TC_WIDE, R_HD_STREAM, R_STREAM };
+enum { R_SCALAR, R_TC, R_TC_WIDE, R_HD_STREAM, R_STREAM, R_TC_CLUSTER };
 struct Launch {
   int route, rows, copy_bytes, threads, smem;
 };
@@ -128,6 +131,11 @@ inline Plan stream_plan(int d, int nhead, int bf16, int W) {
                     : scalar_wgrad(es);
   if (bf16 && hd <= SCALAR_MAX_HD) {
     tc_attn(p, hd, W);
+  } else if (bf16 && hd <= tcc::MAX_HD) {
+    const int S = tcc::slice_cols(hd);
+    p.l[ATTN_FWD] = {R_TC_CLUSTER, tc::ROWS, W, tcc::FWD_THREADS, tcc::fwd_smem_bytes(S)};
+    p.l[ATTN_DQ] = {R_TC_CLUSTER, tc::ROWS, W, tcc::DQ_THREADS, tcc::dq_smem_bytes(S)};
+    p.l[ATTN_DKV] = {R_TC_CLUSTER, tc::ROWS, W, tcc::DKV_THREADS, tcc::dkv_smem_bytes(S)};
   } else if (hd <= NARROW_MAX_HD) {
     scalar_attn<Narrow>(p, hd, es);
   } else if (hd <= SCALAR_MAX_HD) {
@@ -210,7 +218,9 @@ inline bool check_plan(const int* ints, int d, int ffn, int nhead, int bf16,
   Plan e;
   if (!expected_plan(d, ffn, nhead, bf16, route, W, &e)) return false;
   const int ar = e.l[ATTN_FWD].route;
-  if ((ar == R_TC || ar == R_TC_WIDE) && !copy_ok(W, d / nhead, d, attn_operands)) return false;
+  if ((ar == R_TC || ar == R_TC_WIDE || ar == R_TC_CLUSTER) &&
+      !copy_ok(W, d / nhead, d, attn_operands))
+    return false;
   if (std::memcmp(&e, ints, sizeof(Plan)) != 0) return false;
   *p = e;
   return true;
@@ -292,6 +302,61 @@ int launch_dkv_hds(const void* qkv, const void* dattn, const void* lse, const vo
                    const void* lengths, void* dqkv, const Launch& l, int B, int T, int d,
                    int nhead, float scale, int bf16, int seed, double rate, rd::Origin org,
                    cudaStream_t stream);
+
+// The attention past hd 368 on the tensor cores (route 5, "tc_cluster") on
+// the fused layer's bf16 qkv [B, T, 3d] and d_attn [B, T, d]: the packed
+// pair's kernels (flash_packed_{fwd,dq,dkv}_tcc.cu, units of the fused
+// layer's libraries too) on the head's view of the rows, row stride 3 d,
+// into attn [B, T, d] and dqkv [B, T, 3d] f32.
+inline packed::Plan tcc_launch_plan(const Launch& l, int B, int T, int d, int nhead) {
+  const int hd = d / nhead;
+  packed::Plan p{};
+  p.route = R_TC_CLUSTER;
+  packed::tcc_plan(p, hd);
+  p.copy_bytes = l.copy_bytes;
+  p.cols = hd;
+  p.grid_x = (T + l.rows - 1) / l.rows * tcc::cluster_size(hd);
+  p.grid_y = nhead;
+  p.grid_z = B;
+  return p;
+}
+inline packed::Strides rows_strides(int T, int n, int hd) {
+  return packed::Strides{(long)T * n, (long)hd, (long)n};
+}
+inline int launch_attn_fwd_tcc(const void* qkv, const void* lengths, void* attn, void* lse,
+                               const Launch& l, int B, int T, int d, int nhead, float scale2,
+                               int seed, double rate, rd::Origin org, cudaStream_t stream) {
+  const __nv_bfloat16* q = (const __nv_bfloat16*)qkv;
+  const int hd = d / nhead;
+  return packed::launch_fwd_tcc(q, q + d, q + 2 * d, lengths, attn, lse,
+                                rows_strides(T, 3 * d, hd), rows_strides(T, d, hd),
+                                tcc_launch_plan(l, B, T, d, nhead), nhead, T, hd, scale2, seed,
+                                rate, org, stream);
+}
+inline int launch_dq_tcc(const void* qkv, const void* dattn, const void* lse,
+                         const void* delta, const void* lengths, void* dqkv, const Launch& l,
+                         int B, int T, int d, int nhead, float scale, int seed, double rate,
+                         rd::Origin org, cudaStream_t stream) {
+  const __nv_bfloat16* q = (const __nv_bfloat16*)qkv;
+  const int hd = d / nhead;
+  const packed::Strides rows3 = rows_strides(T, 3 * d, hd);
+  return packed::launch_dq_tcc(q, q + d, q + 2 * d, dattn, lse, delta, lengths, dqkv, rows3,
+                               rows_strides(T, d, hd), rows3, tcc_launch_plan(l, B, T, d, nhead),
+                               nhead, T, hd, scale, seed, rate, org, stream);
+}
+inline int launch_dkv_tcc(const void* qkv, const void* dattn, const void* lse,
+                          const void* delta, const void* lengths, void* dqkv, const Launch& l,
+                          int B, int T, int d, int nhead, float scale, int seed, double rate,
+                          rd::Origin org, cudaStream_t stream) {
+  const __nv_bfloat16* q = (const __nv_bfloat16*)qkv;
+  float* dq = (float*)dqkv;
+  const int hd = d / nhead;
+  const packed::Strides rows3 = rows_strides(T, 3 * d, hd);
+  return packed::launch_dkv_tcc(q, q + d, q + 2 * d, dattn, lse, delta, lengths, dq + d,
+                                dq + 2 * d, rows3, rows_strides(T, d, hd), rows3,
+                                tcc_launch_plan(l, B, T, d, nhead), nhead, T, hd, scale, seed,
+                                rate, org, stream);
+}
 
 }  // namespace fused
 }  // namespace rd

@@ -40,20 +40,27 @@ SOURCES = ("flash_packed", "fused_encoder", "fused_encoder_bwd", "sparse_graph")
 # kernels take nvcc far longer in one process than as three units in
 # parallel (chip_ab.py, task one_unit), and its 42 kernels past hd_pad 144
 # are three units more, its 12 past head dim 368 one more
-# (flash_packed_hds); flash_mha's entry points (flash_split) launch the
-# same tensor-core kernels on their own strides, so they are a unit of this
-# library too; the fused layer's tensor-core attention kernels (18 a
-# family on one warpgroup, 4 on two, and the route past head dim 368's 4 a
-# pass) are units of their own the same way
+# (flash_packed_hds) and its 18 on the tensor cores past it three more
+# (flash_packed_{fwd,dq,dkv}_tcc); flash_mha's entry points (flash_split)
+# launch the same tensor-core kernels on their own strides, so they are a
+# unit of this library too; the fused layer's tensor-core attention kernels
+# (18 a family on one warpgroup, 4 on two, and the route past head dim
+# 368's 4 a pass) are units of their own the same way, and its libraries
+# link the units of the tensor-core route past 368 as they are (its
+# attention runs the packed pair's kernels on the rows' strides)
 PARTS = {"flash_packed": ("flash_packed", "flash_split", "flash_packed_fwd_tc",
                           "flash_packed_dq_tc", "flash_packed_dkv_tc",
                           "flash_packed_fwd_wide", "flash_packed_dq_wide",
-                          "flash_packed_dkv_wide", "flash_packed_hds"),
+                          "flash_packed_dkv_wide", "flash_packed_hds",
+                          "flash_packed_fwd_tcc", "flash_packed_dq_tcc",
+                          "flash_packed_dkv_tcc"),
          "fused_encoder": ("fused_encoder", "fused_encoder_attn_tc",
-                           "fused_encoder_attn_wide", "fused_encoder_attn_hds"),
+                           "fused_encoder_attn_wide", "fused_encoder_attn_hds",
+                           "flash_packed_fwd_tcc"),
          "fused_encoder_bwd": ("fused_encoder_bwd", "fused_encoder_dq_tc",
                                "fused_encoder_dkv_tc", "fused_encoder_dq_wide",
-                               "fused_encoder_dkv_wide", "fused_encoder_bwd_hds")}
+                               "fused_encoder_dkv_wide", "fused_encoder_bwd_hds",
+                               "flash_packed_dq_tcc", "flash_packed_dkv_tcc")}
 
 _lock = threading.Lock()          # guards builds and _libs
 _count_lock = threading.Lock()    # guards the launch counts and credits
@@ -85,11 +92,13 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start_build(name: str):
+def _start_build(name: str, started: Dict[Path, tuple]):
     """Start one nvcc process per unit of the library: straight to the
     shared library for one unit, to object files for several (linked in
-    _finish_build). Returns (processes, their outputs, the temporary
-    library, the library), or None when it is built already."""
+    _finish_build). `started` maps a unit to its (process, object) for the
+    libraries of one build(): a unit that several link compiles once.
+    Returns (processes, their outputs, the temporary library, the
+    library), or None when it is built already."""
     out = _lib_path(name)
     if out.exists():
         return None
@@ -97,25 +106,30 @@ def _start_build(name: str):
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     units = _units(name)
     if len(units) == 1:
-        outs = [tmp]
-        cmds = [[_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                 str(units[0])]]
-    else:
-        outs = [tmp.with_name(f"{tmp.name}.{u.stem}.o") for u in units]
-        flags = [f for f in NVCC_FLAGS if f != "-shared"]
-        cmds = [[_nvcc(), *flags, "-I", str(CSRC), "-c", "-o", str(o), str(u)]
-                for u, o in zip(units, outs)]
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for c in cmds]
-    return procs, outs, tmp, out
+        return [_nvcc_proc([*NVCC_FLAGS, "-o", str(tmp), str(units[0])])], [tmp], tmp, out
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    for u in units:
+        if u not in started:
+            o = tmp.with_name(f"{tmp.name}.{u.stem}.o")
+            started[u] = (_nvcc_proc([*flags, "-c", "-o", str(o), str(u)]), o)
+    return [started[u][0] for u in units], [started[u][1] for u in units], tmp, out
 
 
-def _finish_build(job) -> None:
+def _nvcc_proc(args):
+    return subprocess.Popen([_nvcc(), "-I", str(CSRC), *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish_build(job, logs) -> None:
+    """Wait for the job's processes (`logs` keeps each one's output: a unit
+    another library shares was read already) and link its objects."""
     if job is None:
         return
     procs, outs, tmp, out = job
     for proc in procs:
-        log, _ = proc.communicate()
+        if proc not in logs:
+            logs[proc] = proc.communicate()[0]
+        log = logs[proc]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
     if outs != [tmp]:
@@ -129,12 +143,12 @@ def _finish_build(job) -> None:
 def build(names: Iterable[str] = SOURCES) -> None:
     """Compile the named libraries, all nvcc processes started together."""
     with _lock:
-        jobs = []
+        jobs, started, logs = [], {}, {}
         try:
             for n in names:
-                jobs.append(_start_build(n))
+                jobs.append(_start_build(n, started))
             for job in jobs:
-                _finish_build(job)
+                _finish_build(job, logs)
         finally:
             for job in filter(None, jobs):
                 procs, outs, tmp, _ = job

@@ -24,8 +24,12 @@ backward launch the hand-written kernels in `csrc/flash_packed.cu` and
 `csrc/flash_split.cu` (or raise), each on the route of its launch plan
 (`packed_plan`, `split_plan`): for bf16 operands the tensor-core kernels
 on one warpgroup up to a padded head dim of 144 and on two past it (up to
-368, the sensor-wise P12's 360), the scalar ones for f32, and past head
-dim 368 in either dtype the "hd_stream" kernels (csrc/attention_hd_stream.cuh:
+368, the sensor-wise P12's 360), the scalar ones for f32; past head dim
+368 for bf16 the tensor-core route "tc_cluster" (csrc/attention_tc_cluster.cuh:
+a cluster of ceil(hd / 256) CTAs a block of rows, each owning a slice of
+the head's columns, their partial scores summed in distributed shared
+memory; up to hd 2048, the sensor-wise P12's 720 at one head), and for f32
+(and bf16 past 2048) the "hd_stream" kernels (csrc/attention_hd_stream.cuh:
 the head dim streamed in chunks, the output's columns split over CTAs,
 shared memory that does not grow with it). `flash_mha` casts f32 operands
 into heads zero-padded to a multiple of 8 columns (`_padded_cast`), so its
@@ -71,8 +75,8 @@ MAX_FUSED_T = 1024
 # each launch is theirs to compute, `packed_smem`, `split_smem`). The
 # largest head dim of the scalar and tensor-core kernels (csrc/attention.cuh
 # SCALAR_MAX_HD, the Wide geometry; the fused layer's attention stops
-# there): past it both operand dtypes take the "hd_stream" route. The
-# widest preset head is P12-sw's 360; P12-sw at one head is 720.
+# there): past it bf16 takes the "tc_cluster" route and f32 "hd_stream".
+# The widest preset head is P12-sw's 360; P12-sw at one head is 720.
 MAX_HEAD_DIM = 368
 # The scalar kernels' Narrow geometry (64-row blocks and tiles) up to this
 # head dim (attention.cuh NARROW_MAX_HD); the Wide one (32) beyond.
@@ -85,12 +89,19 @@ TC_MAX_HD_PAD = 144
 # csrc/attention_tc_wide.cuh): bf16 heads padded to 176, 208, ..., 368
 # (hd 145-176 to 176; P12's sensor-wise 360 to 368).
 TC_WIDE_MIN_HD_PAD, TC_WIDE_STEP, TC_WIDE_MAX_HD_PAD = 176, 32, 368
-# The route past MAX_HEAD_DIM (csrc/attention_hd_stream.cuh): 32-row blocks,
-# each CTA owning HD_STREAM_SLICE columns of the outputs
+# The scalar route past MAX_HEAD_DIM (csrc/attention_hd_stream.cuh): 32-row
+# blocks, each CTA owning HD_STREAM_SLICE columns of the outputs
 HD_STREAM_ROWS, HD_STREAM_SLICE = 32, 256
+# The tensor-core route past MAX_HEAD_DIM for bf16 ("tc_cluster",
+# csrc/attention_tc_cluster.cuh): a cluster of ceil(hd / 256) CTAs a block
+# of 64 rows, each owning W columns of the head (the share rounded up to
+# 32: 192, 224 or 256), 32-row streamed tiles; to hd TC_CLUSTER_MAX_HD (8
+# CTAs, the portable cluster size); bf16 past it stays on "hd_stream"
+TC_CLUSTER_SLICE, TC_CLUSTER_KEYS, TC_CLUSTER_MAX_HD = 256, 32, 2048
 # the routes' ints in the C entry points' plans; 4 ("stream") is the fused
 # layer's row products at any width (ops/fused_encoder.py fused_plan)
-_ROUTES = {"scalar": 0, "tc": 1, "tc_wide": 2, "hd_stream": 3, "stream": 4}
+_ROUTES = {"scalar": 0, "tc": 1, "tc_wide": 2, "hd_stream": 3, "stream": 4,
+           "tc_cluster": 5}
 _ROWS = 64              # rows of a CTA's block (and of a streamed tile on "tc")
 # samples and heads a launch puts on the kernels' grid (its z and y axes): a
 # larger call is split into launches of at most this many (batch_chunks)
@@ -132,19 +143,22 @@ class PackedPlan:
 
     route: "tc" (tensor cores, bf16 operands, one warpgroup a CTA),
     "tc_wide" (the same past hd_pad 144 on two warpgroups, each owning
-    half of the output's columns), "scalar" (f32 FMA) or "hd_stream" (f32
-    FMA past hd MAX_HEAD_DIM, either dtype: a CTA a 32-row block and
-    HD_STREAM_SLICE columns of the output);
+    half of the output's columns), "tc_cluster" (the same past hd
+    MAX_HEAD_DIM on a cluster of CTAs, each owning W columns), "scalar"
+    (f32 FMA) or "hd_stream" (f32 FMA past hd MAX_HEAD_DIM, f32 operands
+    and bf16 on request: a CTA a 32-row block and HD_STREAM_SLICE columns
+    of the output);
     hd_pad: the head dim padded to 16 ("tc") or to 176 + 32 j
     ("tc_wide"), the K depth of the score products and the N width of the
-    output products (each warpgroup's half of it on "tc_wide"), hd itself
-    on the scalar and "hd_stream" routes; copy_bytes: the width of one tile
-    copy; rows: the rows of a CTA's block (64; 32 in the scalar kernels'
-    Wide geometry, past hd 192, and on "hd_stream"); threads: the
-    forward's, dq's and dk/dv's block sizes; grid: (query or key blocks,
-    heads, samples), on "hd_stream" the blocks times the column slices
-    along x; the tensor-core dk/dv pass runs two CTAs a key block (dv and
-    dk), 2 * grid[0] along x."""
+    output products (each warpgroup's half of it on "tc_wide"), the
+    cluster's columns n W on "tc_cluster", hd itself on the scalar and
+    "hd_stream" routes; copy_bytes: the width of one tile copy; rows: the
+    rows of a CTA's block (64; 32 in the scalar kernels' Wide geometry,
+    past hd 192, and on "hd_stream"); threads: the forward's, dq's and
+    dk/dv's block sizes; grid: (query or key blocks, heads, samples), on
+    "hd_stream" and "tc_cluster" the blocks times the column slices along
+    x; the dk/dv pass on "tc" and "tc_wide" runs two CTAs a key block (dv
+    and dk), 2 * grid[0] along x."""
 
     route: str
     hd: int
@@ -156,9 +170,10 @@ class PackedPlan:
 
     @property
     def dkv_grid(self):
-        """The dk/dv pass's grid: two CTAs a key block on a tensor-core
-        route (dv and dk), one on the scalar and "hd_stream" routes."""
-        if self.route in ("scalar", "hd_stream"):
+        """The dk/dv pass's grid: two CTAs a key block on "tc" and
+        "tc_wide" (dv and dk), one on the others ("tc_cluster" holds both
+        on two warpgroups)."""
+        if self.route in ("scalar", "hd_stream", "tc_cluster"):
             return self.grid
         return (2 * self.grid[0], *self.grid[1:])
 
@@ -194,6 +209,31 @@ def hd_stream_grid_x(T, hd):
     return -(-T // HD_STREAM_ROWS) * -(-hd // HD_STREAM_SLICE)
 
 
+def tc_cluster_size(hd):
+    """The CTAs of a "tc_cluster" cluster at head dim hd and the columns W
+    each owns (csrc/attention_tc_cluster.cuh cluster_size, slice_cols)."""
+    n = -(-hd // TC_CLUSTER_SLICE)
+    return n, -(-(-(-hd // n)) // 32) * 32
+
+
+def tc_cluster_smem(W):
+    """Shared bytes of the "tc_cluster" forward, dq and dk/dv kernels at W
+    columns a CTA (csrc/attention_tc_cluster.cuh *_smem_bytes): the own
+    64-row tiles, a two-stage ring of 32-row tiles, two buffers of f32
+    partial score tiles [64, 32] (one forward, S and dP backward), and in
+    the dk/dv pass two stages of 32 lse and delta floats."""
+    own, streamed, part = 64 * W * 2, TC_CLUSTER_KEYS * W * 2, 64 * TC_CLUSTER_KEYS * 4
+    ring = 4 * streamed
+    dq = 2 * own + ring + 4 * part
+    return own + ring + 2 * part, dq, dq + 2 * 2 * TC_CLUSTER_KEYS * 4
+
+
+def _tc_cluster_plan(hd, T, heads, B):
+    """(hd_pad, threads, grid) of the "tc_cluster" route."""
+    n, W = tc_cluster_size(hd)
+    return n * W, (128, 128, 256), (-(-T // _ROWS) * n, heads, B)
+
+
 def _check_impl(impl):
     if impl not in ("auto", "scalar", "hd_stream"):
         raise ValueError(f"impl must be 'auto', 'scalar' or 'hd_stream', got {impl!r}")
@@ -206,26 +246,32 @@ def packed_plan(B, T, d, nhead, od, impl="auto", align=16) -> PackedPlan:
     the head dim padded to 16 is at most TC_MAX_HD_PAD and "tc_wide" past
     it; f32 (TF32 would miss its 1e-4) takes the scalar one, in the Narrow
     geometry up to hd NARROW_MAX_HD and the Wide one beyond; past hd
-    MAX_HEAD_DIM both take "hd_stream". impl="scalar" asks for the scalar
-    kernels in bf16 too (the previous design, for measurement), and
-    impl="hd_stream" for the route past MAX_HEAD_DIM at any hd (whose bits
-    are the scalar Wide kernels', a check on the card). `align` is the
-    operands' address alignment in bytes: with the row stride (2 d bytes)
+    MAX_HEAD_DIM bf16 takes "tc_cluster" up to hd TC_CLUSTER_MAX_HD and f32
+    (and bf16 past that) "hd_stream". impl="scalar" asks for the scalar
+    kernels in bf16 too (the previous design, for measurement; past
+    MAX_HEAD_DIM "hd_stream"), and impl="hd_stream" for the f32 route past
+    MAX_HEAD_DIM at any hd and dtype (whose bits are the scalar Wide
+    kernels', a check on the card; the previous design past it). `align`
+    is the operands' address alignment in bytes: with the row stride (2 d bytes)
     and the head offset (2 hd bytes per head) it bounds the copy width,
     16, 8, 4 or 2 bytes (eICU, hd 36: 8; hd 42: 4)."""
     _check_impl(impl)
     if d % nhead:
         raise ValueError(f"d={d} not divisible by nhead={nhead}")
     hd = d // nhead
-    if hd > MAX_HEAD_DIM or impl == "hd_stream":
+    tc = od == torch.bfloat16 and impl == "auto" and hd <= TC_CLUSTER_MAX_HD
+    if impl == "hd_stream" or (hd > MAX_HEAD_DIM and not tc):
         return PackedPlan("hd_stream", hd, hd, od.itemsize, HD_STREAM_ROWS, (256,) * 3,
                           (hd_stream_grid_x(T, hd), nhead, B))
     hd_pad = -(-hd // 16) * 16
-    if od == torch.bfloat16 and impl == "auto":
+    if tc:
         width = 16
         while width > 2 and ((2 * hd) % width or (2 * d) % width
                              or align % width):
             width //= 2
+        if hd > MAX_HEAD_DIM:
+            hd_pad, threads, grid = _tc_cluster_plan(hd, T, nhead, B)
+            return PackedPlan("tc_cluster", hd, hd_pad, width, _ROWS, threads, grid)
         grid = (-(-T // _ROWS), nhead, B)
         if hd_pad <= TC_MAX_HD_PAD:
             return PackedPlan("tc", hd, hd_pad, width, _ROWS, (128,) * 3, grid)
@@ -270,9 +316,10 @@ def split_plan(B, H, T, D, od, strides=(), align=16, impl="auto", padded=False):
     """The launch plan of flash_mha's kernels for [B, H, T, D] operands of
     dtype `od` on the card: bf16 takes the tensor-core route "tc" while D
     padded to 16 is at most TC_MAX_HD_PAD and "tc_wide" past it (as
-    packed_plan does); f32 the scalar kernels, in the Narrow geometry up
-    to hd NARROW_MAX_HD and the Wide one beyond; past MAX_HEAD_DIM both
-    "hd_stream"; impl as in packed_plan.
+    packed_plan does) and "tc_cluster" past MAX_HEAD_DIM up to
+    TC_CLUSTER_MAX_HD; f32 the scalar kernels, in the Narrow geometry up
+    to hd NARROW_MAX_HD and the Wide one beyond, and "hd_stream" past
+    MAX_HEAD_DIM (bf16 too past TC_CLUSTER_MAX_HD); impl as in packed_plan.
     `strides`: the (batch, head, row) element strides of each operand set
     (q, k, v; and do in the backward); `align`: the operands' address
     alignment in bytes; `padded`: the operands are heads zero-padded to
@@ -283,16 +330,20 @@ def split_plan(B, H, T, D, od, strides=(), align=16, impl="auto", padded=False):
     its grid is 2 * grid[0] along x. The "hd_stream" route reads one
     element at a time: its copy width is the element's and `cols` is D."""
     _check_impl(impl)
-    if D > MAX_HEAD_DIM or impl == "hd_stream":
+    tc = od == torch.bfloat16 and impl == "auto" and D <= TC_CLUSTER_MAX_HD
+    if impl == "hd_stream" or (D > MAX_HEAD_DIM and not tc):
         return SplitPlan("hd_stream", D, D, od.itemsize, HD_STREAM_ROWS, (256,) * 3,
                          (hd_stream_grid_x(T, D), H, B), D)
     hd_pad = -(-D // 16) * 16
-    if od == torch.bfloat16 and impl == "auto":
+    if tc:
         cols = pad8_cols(D) if padded else D
         width = 16
         while width > 2 and ((2 * cols) % width or align % width
                              or any((2 * x) % width for s3 in strides for x in s3)):
             width //= 2
+        if D > MAX_HEAD_DIM:
+            hd_pad, threads, grid = _tc_cluster_plan(D, T, H, B)
+            return SplitPlan("tc_cluster", D, hd_pad, width, _ROWS, threads, grid, cols)
         grid = (-(-T // _ROWS), H, B)
         if hd_pad <= TC_MAX_HD_PAD:
             return SplitPlan("tc", D, hd_pad, width, _ROWS, (128,) * 3, grid, cols)
@@ -315,6 +366,16 @@ def packed_smem(B, T, d, nhead, od, impl="auto"):
     if err:
         raise ValueError(f"flash_mha_packed's {plan.route} kernels do not fit "
                          f"hd={plan.hd}: shared bytes {tuple(out)}")
+    return tuple(out)
+
+
+def tc_cluster_occupancy(hd):
+    """How many clusters of the "tc_cluster" forward, dq and dk/dv kernels
+    at head dim hd the card holds at once (cudaOccupancyMaxActiveClusters,
+    csrc/flash_packed.cu rd_tcc_clusters; on the card only)."""
+    out = (ctypes.c_int * 3)()
+    build.check(_lib().rd_tcc_clusters(hd, out),
+                "cudaOccupancyMaxActiveClusters")
     return tuple(out)
 
 
@@ -578,10 +639,12 @@ def flash_mha_packed(q, k, v, lengths, seed=None, dropout_rate=0.0,
 
 # forward launches; `bwd_launches` counts the backward's; the tc_ counts
 # those of the two on the tensor-core route up to hd_pad 144, the tc_wide_
-# counts those on the route past it, the hd_stream_ counts those past head
-# dim 368 (a call split by batch_chunks counts each launch)
+# counts those on the route past it, the tc_cluster_ counts those on the
+# tensor cores past head dim 368 and the hd_stream_ counts those on the
+# scalar route past it (a call split by batch_chunks counts each launch)
 ROUTE_COUNTS = ("launches", "bwd_launches", "tc_launches", "tc_bwd_launches",
-                "tc_wide_launches", "tc_wide_bwd_launches", "hd_stream_launches",
+                "tc_wide_launches", "tc_wide_bwd_launches", "tc_cluster_launches",
+                "tc_cluster_bwd_launches", "hd_stream_launches",
                 "hd_stream_bwd_launches")
 for _attr in ROUTE_COUNTS:
     setattr(flash_mha_packed, _attr, 0)
@@ -594,8 +657,9 @@ def _same_device(dev, **tensors):
 
 
 def _count(plan, attr, fn=flash_mha_packed):
-    """One launch of the wrapper `fn` on `attr` and, on a tensor-core
-    route, on <route>_<attr> (tc_<attr>, tc_wide_<attr>)."""
+    """One launch of the wrapper `fn` on `attr` and, on a route other than
+    "scalar", on <route>_<attr> (tc_<attr>, tc_wide_<attr>,
+    tc_cluster_<attr>, hd_stream_<attr>)."""
     build.count_launch(fn, attr)
     if plan.route != "scalar":
         build.count_launch(fn, f"{plan.route}_{attr}")
@@ -686,6 +750,8 @@ def _lib():
         lib.rd_packed_smem.argtypes = ([ctypes.c_int] * 6
                                        + [ctypes.POINTER(ctypes.c_int)])
         lib.rd_packed_smem.restype = ctypes.c_int
+        lib.rd_tcc_clusters.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.rd_tcc_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -812,15 +878,15 @@ def _padded_cast(xs, od):
 def _flash_operands(xs, od, impl="auto"):
     """The operands `xs` in `od` for the kernels, and the columns a kernel
     copy may read from each of their rows: f32 cast to bf16 on the
-    tensor-core route goes through `_padded_cast` (pad8_cols(D) columns);
-    operands already in `od` stay as they are, and f32 and impl="scalar"
-    (the previous design) take a plain cast (D columns: their copy width
-    is what their strides allow; past MAX_HEAD_DIM "hd_stream" reads one
-    element at a time)."""
+    tensor-core routes ("tc", "tc_wide", "tc_cluster") goes through
+    `_padded_cast` (pad8_cols(D) columns); operands already in `od` stay as
+    they are, and f32 and impl="scalar" (the previous design) take a plain
+    cast (D columns: their copy width is what their strides allow;
+    "hd_stream" reads one element at a time)."""
     D = xs[0].shape[-1]
     if all(x.dtype == od for x in xs):
         return tuple(xs), D
-    if od == torch.bfloat16 and impl == "auto" and D <= MAX_HEAD_DIM:
+    if od == torch.bfloat16 and impl == "auto" and D <= TC_CLUSTER_MAX_HD:
         return _padded_cast(xs, od), pad8_cols(D)
     return tuple(x.detach().to(od) for x in xs), D
 
@@ -952,7 +1018,8 @@ def _flash_bwd_cuda(q, k, v, lengths, seed, rate, od, o, lse, g, impl="auto",
 @functools.lru_cache(maxsize=64)
 def split_smem(D, route="scalar"):
     """Shared bytes of flash_mha's forward, dq and dk/dv kernels at head dim
-    D on a route ("scalar", "tc", "tc_wide", "hd_stream"), as csrc/flash_split.cu
+    D on a route ("scalar", "tc", "tc_wide", "tc_cluster", "hd_stream"), as
+    csrc/flash_split.cu
     computes them for its launches (it builds the kernels: on the card
     only). Raises ValueError for a head dim the route does not take."""
     out = (ctypes.c_int * 3)()

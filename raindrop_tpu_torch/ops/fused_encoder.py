@@ -33,10 +33,11 @@ fit) the scalar kernels; past those widths (P12's sensor-wise d = 720,
 P19's 680, any head past 368) the "stream" route
 (`csrc/rows_stream.cuh`): every product a launch with its activation
 streamed through K (tensor cores in bf16, scalar in f32), the LayerNorms
-and dropout sites as row kernels, the attention past hd 368 on
-`csrc/attention_hd_stream.cuh`. On CPU tensors they run
-`_fused_fwd_plain` and `_fused_bwd_plain`, the same functions in plain
-PyTorch.
+and dropout sites as row kernels, the attention past hd 368 in bf16 on
+the tensor cores (`csrc/attention_tc_cluster.cuh`, a cluster of CTAs a
+block of rows, to hd 2048) and in f32 on `csrc/attention_hd_stream.cuh`.
+On CPU tensors they run `_fused_fwd_plain` and `_fused_bwd_plain`, the
+same functions in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -50,10 +51,10 @@ import torch
 
 from raindrop_tpu_torch.kernels import build
 from raindrop_tpu_torch.ops.flash_attention import (
-    HD_STREAM_ROWS, LOG2E, MAX_FUSED_T, MAX_HEAD_DIM, NARROW_MAX_HD, TC_MAX_HD_PAD,
-    _ROUTES, _align, _attention_bwd_plain, _check_rate, _dropout_keep_hash,
-    _packed_fwd_plain, _seed_int, batch_chunks, drop_origin, operand_dtype, pad8,
-    wide_pad)
+    HD_STREAM_ROWS, LOG2E, MAX_FUSED_T, MAX_HEAD_DIM, NARROW_MAX_HD, TC_CLUSTER_MAX_HD,
+    TC_MAX_HD_PAD, _ROUTES, _align, _attention_bwd_plain, _check_rate,
+    _dropout_keep_hash, _packed_fwd_plain, _seed_int, batch_chunks, drop_origin,
+    operand_dtype, pad8, tc_cluster_size, tc_cluster_smem, wide_pad)
 
 _EPS = 1e-5
 SITE_ATTN_OUT, SITE_FFN_MID, SITE_FFN_OUT = 101, 102, 103
@@ -297,8 +298,9 @@ def fused_encoder_layer(p, x, lengths, seed=None, dropout_rate=0.0,
 # forward calls that launched the kernels; `bwd_launches` counts backwards;
 # the tc_ counts those of the two on the tensor-core route, the tc_wide_
 # counts those whose attention ran on two warpgroups (past hd_pad 144), the
-# stream_ counts those on the "stream" route and the hd_stream_ counts
-# those whose attention ran past hd 368
+# stream_ counts those on the "stream" route, the tc_cluster_ counts those
+# whose attention ran past hd 368 on the tensor cores and the hd_stream_
+# counts those whose attention ran past it on the scalar kernels
 fused_encoder_layer.launches = 0
 fused_encoder_layer.bwd_launches = 0
 fused_encoder_layer.tc_launches = 0
@@ -307,6 +309,8 @@ fused_encoder_layer.tc_wide_launches = 0
 fused_encoder_layer.tc_wide_bwd_launches = 0
 fused_encoder_layer.stream_launches = 0
 fused_encoder_layer.stream_bwd_launches = 0
+fused_encoder_layer.tc_cluster_launches = 0
+fused_encoder_layer.tc_cluster_bwd_launches = 0
 fused_encoder_layer.hd_stream_launches = 0
 fused_encoder_layer.hd_stream_bwd_launches = 0
 
@@ -348,9 +352,10 @@ _HD_STREAM_SMEM = (45568, 54016, 91392)
 class FusedLaunch:
     """One launch of the plan: its route ("tc", "tc_wide" for the attention
     on two warpgroups past hd_pad 144, "scalar", "stream" for the row
-    products and row kernels at any width, "hd_stream" for the attention
-    past hd 368), the rows of a CTA's tile (the output tile's rows for the
-    weight gradients, the rows of a row kernel's CTA), the copy width in
+    products and row kernels at any width, "tc_cluster" for the attention
+    past hd 368 in bf16, "hd_stream" for it in f32), the rows of a CTA's
+    tile (the output tile's rows for the weight gradients, the rows of a
+    row kernel's CTA), the copy width in
     bytes (16 for the tensor cores' weight panels, the attention tiles'
     width on its tensor-core routes, the operand size on the scalar ones),
     the threads of a CTA and its shared bytes."""
@@ -380,8 +385,8 @@ class FusedPlan:
     @functools.cached_property
     def as_ints(self):
         """The plan as the C entry points take it: 5 ints a launch, the
-        route 0 (scalar), 1 (tc), 2 (tc_wide), 3 (hd_stream) or 4
-        (stream); KeyError for another."""
+        route 0 (scalar), 1 (tc), 2 (tc_wide), 3 (hd_stream), 4 (stream)
+        or 5 (tc_cluster); KeyError for another."""
         vals = [v for l in self.launches
                 for v in (_ROUTES[l.route], l.rows, l.copy_bytes, l.threads, l.smem)]
         return (ctypes.c_int * len(vals))(*vals)
@@ -468,7 +473,9 @@ def _stream_launches(d, ffn, nhead, es, copy):
     scalar) and the row kernels; the weight gradients on the kernels of the
     other routes (fixed tiles); the attention up to hd MAX_HEAD_DIM in bf16
     on "tc" or "tc_wide" (as the packed pair's, two warpgroups past hd_pad
-    144), in f32 on the scalar kernels, and on "hd_stream" past it."""
+    144), in f32 on the scalar kernels; past it in bf16 on "tc_cluster" (to
+    hd TC_CLUSTER_MAX_HD, the packed pair's kernels on the qkv rows) and in
+    f32 (and bf16 past that) on "hd_stream"."""
     hd = d // nhead
     bf = es == 2
     if bf:
@@ -480,6 +487,9 @@ def _stream_launches(d, ffn, nhead, es, copy):
     rows = FusedLaunch("stream", STREAM_ROW_WARPS, 4, 256, 0)
     if bf and hd <= MAX_HEAD_DIM:
         attn = _tc_attn(hd, copy)
+    elif bf and hd <= TC_CLUSTER_MAX_HD:
+        attn = tuple(FusedLaunch("tc_cluster", 64, copy, th, b) for th, b in
+                     zip((128, 128, 256), tc_cluster_smem(tc_cluster_size(hd)[1])))
     elif hd <= MAX_HEAD_DIM:
         attn = _scalar_attn(hd, es)
     else:
@@ -502,8 +512,9 @@ def fused_plan(d, ffn, nhead, od, impl="auto", align=16) -> FusedPlan:
     too (the previous design, for measurement). Every width neither takes
     (P12-sw at d = 720, P19-sw at 680, any head past MAX_HEAD_DIM) runs
     the "stream" route (`_stream_launches`), whose shared bytes do not
-    grow with the width; impl="stream" forces it at any width. `align` is
-    the alignment in bytes of the qkv and d_attn buffers: with the head's
+    grow with the width (its attention past MAX_HEAD_DIM on "tc_cluster"
+    in bf16, "hd_stream" in f32); impl="stream" forces it at any width.
+    `align` is the alignment in bytes of the qkv and d_attn buffers: with the head's
     offset in a row (2 hd bytes) and the row strides (6 d and 2 d) it
     bounds the tensor-core attention's copy width, 16, 8, 4 or 2 bytes
     (PAM, hd 42, and PAM-sw, hd 170: 4). Raises ValueError only where d
@@ -560,12 +571,12 @@ def _packed_elems(d, ffn, n):
 def _count(plan, attr):
     """One launch on `attr` and, on the tensor-core route, on tc_<attr>
     (and on tc_wide_<attr> where the attention ran on two warpgroups); on
-    the "stream" route on stream_<attr> (and on hd_stream_<attr> where the
-    attention ran past hd 368)."""
+    the "stream" route on stream_<attr> (and on tc_cluster_<attr> or
+    hd_stream_<attr> where the attention ran past hd 368)."""
     build.count_launch(fused_encoder_layer, attr)
     if plan.route in ("tc", "stream"):
         build.count_launch(fused_encoder_layer, f"{plan.route}_{attr}")
-    if plan.attn_route in ("tc_wide", "hd_stream"):
+    if plan.attn_route in ("tc_wide", "tc_cluster", "hd_stream"):
         build.count_launch(fused_encoder_layer, f"{plan.attn_route}_{attr}")
 
 
@@ -592,9 +603,11 @@ def _prepare(ws, x, lengths):
 
 def _qkv_dtype(plan):
     """The dtype of the qkv (and the attention's d_attn) buffer: bf16 where
-    the attention runs on the tensor cores, f32 (each value rounded to the
-    operand dtype) on the scalar kernels and "hd_stream"."""
-    return torch.bfloat16 if plan.attn_route in ("tc", "tc_wide") else torch.float32
+    the attention runs on the tensor cores ("tc", "tc_wide", "tc_cluster"),
+    f32 (each value rounded to the operand dtype) on the scalar kernels and
+    "hd_stream"."""
+    return (torch.bfloat16 if plan.attn_route in ("tc", "tc_wide", "tc_cluster")
+            else torch.float32)
 
 
 def _packs(plan, od):

@@ -279,13 +279,15 @@ def test_tc_scratch_listing():
 def test_refuses_what_no_route_takes():
     """Since the "stream" route a plan is refused only for d not divisible
     by nhead, or ffn or nhead below 1: P19's sensor-wise width and a head
-    past 368 are taken (they raised "do not take" before)."""
+    past 368 are taken (they raised "do not take" before; the head past 368
+    on "tc_cluster" in bf16 since the tensor-core route past it)."""
     for od in (BF16, F32):
         plan = fe.fused_plan(680, 272, 2, od)     # P19's sensor-wise width
         assert (plan.route, plan.attn_route) == (
             "stream", "tc_wide" if od == BF16 else "scalar")
         plan = fe.fused_plan(2 * 369, 64, 2, od)  # a head past 368
-        assert (plan.route, plan.attn_route) == ("stream", "hd_stream")
+        assert (plan.route, plan.attn_route) == (
+            "stream", "tc_cluster" if od == BF16 else "hd_stream")
     for d, ffn, nhead in ((85, 136, 2), (84, 0, 2), (84, 136, 0), (84, 136, -2)):
         with pytest.raises(ValueError, match="not divisible"):
             fe.fused_plan(d, ffn, nhead, BF16)    # d not divisible by nhead
@@ -297,7 +299,8 @@ def test_the_stream_route_s_shared_bytes_do_not_grow_with_the_width(nhead, od):
     """Every launch of the "stream" route at d up to 2048 and ffn up to
     4096 fits a block; the products', the row kernels' and the weight
     gradients' shared bytes are one value at every width, the attention's
-    bounded by the head dim's route (fixed past hd 368, "hd_stream")."""
+    bounded by the head dim's route (past hd 368 fixed in f32, "hd_stream",
+    and one of three values in bf16, "tc_cluster")."""
     prod = (fe.STREAM_TC_SMEM if od == BF16 else fe.STREAM_SCALAR_SMEM)
     fixed = {"qkv": prod, "dx": prod, "tail": 0, "bwd_rows": 0,
              "wgrad": 32768 if od == BF16 else 8192}
@@ -311,9 +314,14 @@ def test_the_stream_route_s_shared_bytes_do_not_grow_with_the_width(nhead, od):
                 assert {n: plan[n].smem for n in fixed} == fixed
                 assert {plan[n].route for n in ("qkv", "dx", "tail", "bwd_rows")} == {"stream"}
                 if d // nhead > 368:
-                    assert plan.attn_route == "hd_stream"
-                    assert [plan[n].smem for n in ("attn_fwd", "attn_dq", "attn_dkv")] == \
-                        [45568, 54016, 91392]
+                    attn = [plan[n].smem for n in ("attn_fwd", "attn_dq", "attn_dkv")]
+                    if od == BF16:
+                        assert plan.attn_route == "tc_cluster"
+                        assert attn in ([90112, 131072, 131584], [102400, 147456, 147968],
+                                        [114688, 163840, 164352])
+                    else:
+                        assert plan.attn_route == "hd_stream"
+                        assert attn == [45568, 54016, 91392]
                 ints = list(plan.as_ints)
                 assert ints[0::5][0] == 4 and len(ints) == 5 * len(fe.LAUNCHES)
 
@@ -457,12 +465,12 @@ def test_tc_wide_launches_are_counted_apart():
 
 def test_stream_launches_are_counted_apart():
     """A call on the "stream" route adds one to stream_<attr> beside <attr>
-    (and to hd_stream_<attr> where its attention ran past hd 368); no
-    tc_ count moves."""
+    (and to hd_stream_<attr> where its attention ran past hd 368 in f32,
+    to tc_cluster_<attr> in bf16); no tc_ count moves."""
     layer = fe.fused_encoder_layer
     attrs = ("launches", "tc_launches", "stream_launches", "hd_stream_launches",
              "bwd_launches", "tc_bwd_launches", "stream_bwd_launches",
-             "hd_stream_bwd_launches")
+             "hd_stream_bwd_launches", "tc_cluster_launches", "tc_cluster_bwd_launches")
     before = {a: getattr(layer, a) for a in attrs}
     fe._count(fe.fused_plan(720, 288, 2, BF16), "launches")
     fe._count(fe.fused_plan(720, 288, 1, F32), "launches")
@@ -470,6 +478,7 @@ def test_stream_launches_are_counted_apart():
     after = {a: getattr(layer, a) - before[a] for a in attrs}
     assert after == {"launches": 2, "tc_launches": 0, "stream_launches": 2,
                      "hd_stream_launches": 1, "bwd_launches": 1, "tc_bwd_launches": 0,
-                     "stream_bwd_launches": 1, "hd_stream_bwd_launches": 1}
+                     "stream_bwd_launches": 1, "hd_stream_bwd_launches": 0,
+                     "tc_cluster_launches": 0, "tc_cluster_bwd_launches": 1}
     for a in attrs:
         setattr(layer, a, before[a])

@@ -2,7 +2,7 @@
 on the CPU: P12's sensor-wise width (d 720, ffn 288) at 2 heads (hd 360)
 and at 1 (hd 720), and P19's (d 680, ffn 272, hd 340), which the card
 runs on the "stream" route (csrc/rows_stream.cuh; past hd 368 its
-attention on "hd_stream"). The port's wrappers run their plain versions
+attention on "tc_cluster" in bf16, "hd_stream" in f32). The port's wrappers run their plain versions
 here (a CPU tensor never reaches CUDA); the JAX kernel runs in Pallas
 interpret mode, as its own tests run it off the TPU. Inputs from a numpy
 seed, B=2, T=16, one sample shorter than T.
@@ -55,13 +55,15 @@ def _leaf(tree, path):
 
 @pytest.mark.parametrize("d,ffn,nhead", WIDTHS)
 def test_the_card_takes_these_widths_on_the_stream_route(d, ffn, nhead):
-    """Past hd 368 the attention runs on "hd_stream"; below it on the
-    scalar kernels in f32 and on two warpgroups of tensor cores in bf16."""
+    """Past hd 368 the attention runs on "tc_cluster" in bf16 and on
+    "hd_stream" in f32; below it on two warpgroups of tensor cores in bf16
+    and on the scalar kernels in f32."""
     for od in (torch.float32, torch.bfloat16):
         plan = fe.fused_plan(d, ffn, nhead, od)
         assert plan.route == "stream"
-        assert plan.attn_route == ("hd_stream" if d // nhead > 368 else
-                                   "tc_wide" if od == torch.bfloat16 else "scalar")
+        bf = od == torch.bfloat16
+        assert plan.attn_route == (("tc_cluster" if bf else "hd_stream") if d // nhead > 368
+                                   else "tc_wide" if bf else "scalar")
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])

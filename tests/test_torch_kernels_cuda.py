@@ -436,7 +436,8 @@ def test_fused_entry_points_refuse_another_attention_route(gen, monkeypatch, rou
 # bf16 hd 8 and 42 on "tc", 170, 192 and 200 on "tc_wide"; the scalar
 # kernels in f32), and taken by itself past them: P12-sw at T=600 with 2
 # heads (hd 360, "tc_wide" at hd_pad 368 in bf16) and 1 (hd 720,
-# "hd_stream"), P19-sw (d 680), a head of 400 at 3 heads, and T = 100, 33
+# "tc_cluster" in bf16, "hd_stream" in f32), P19-sw (d 680), a head of 400
+# at 3 heads, and T = 100, 33
 # and 65 rows ending inside a tile
 STREAM_SHAPES = [(13, 16, 32, 2, "stream"), (100, 84, 136, 2, "stream"),
                  (33, 340, 136, 2, "stream"), (100, 192, 64, 1, "stream"),
@@ -450,14 +451,16 @@ STREAM_SHAPES = [(13, 16, 32, 2, "stream"), (100, 84, 136, 2, "stream"),
 @pytest.mark.parametrize("T,d,ffn,nhead,impl", STREAM_SHAPES)
 def test_fused_stream_route_matches_plain(gen, T, d, ffn, nhead, impl, cd, rate):
     """The "stream" route's forward and backward against the plain versions
-    (held as the other routes are), every launch counted on it (and on
-    "hd_stream" past hd 368), and a repeat bit-equal."""
+    (held as the other routes are), every launch counted on it (and past hd
+    368 on "tc_cluster" in bf16, "hd_stream" in f32), and a repeat
+    bit-equal."""
     B = 3 if T == 600 else 4
     od = fa.operand_dtype(cd)
     plan = fe.fused_plan(d, ffn, nhead, od, impl)
     hd = d // nhead
     assert plan.route == "stream"
-    assert plan.attn_route == ("hd_stream" if hd > fa.MAX_HEAD_DIM else "scalar" if cd is None
+    past = "hd_stream" if cd is None else "tc_cluster"
+    assert plan.attn_route == (past if hd > fa.MAX_HEAD_DIM else "scalar" if cd is None
                                else "tc" if -(-hd // 16) * 16 <= 144 else "tc_wide")
     p = _random_layer(gen, d, ffn)
     x, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(2))
@@ -465,7 +468,8 @@ def test_fused_stream_route_matches_plain(gen, T, d, ffn, nhead, impl, cd, rate)
     ws = fe._flatten(p)
     layer = fe.fused_encoder_layer
     attrs = ("launches", "stream_launches", "hd_stream_launches", "bwd_launches",
-             "stream_bwd_launches", "hd_stream_bwd_launches")
+             "stream_bwd_launches", "hd_stream_bwd_launches", "tc_cluster_launches",
+             "tc_cluster_bwd_launches")
     before = {a: getattr(layer, a) for a in attrs}
     got = fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, nhead, od, impl)
     again = fe._fused_fwd_cuda(ws, x, lengths, SEED, rate, nhead, od, impl)
@@ -474,10 +478,11 @@ def test_fused_stream_route_matches_plain(gen, T, d, ffn, nhead, impl, cd, rate)
                                  scratch_out=scratch, impl=impl)
     dx2, dws2 = fe._fused_bwd_cuda(ws, x, lengths, SEED, rate, nhead, od, *got[1:], g,
                                    impl=impl)
-    hds = plan.attn_route == "hd_stream"
+    hds, tcc = plan.attn_route == "hd_stream", plan.attn_route == "tc_cluster"
     assert {a: getattr(layer, a) - before[a] for a in attrs} == {
         "launches": 2, "stream_launches": 2, "hd_stream_launches": 2 * hds,
-        "bwd_launches": 2, "stream_bwd_launches": 2, "hd_stream_bwd_launches": 2 * hds}
+        "bwd_launches": 2, "stream_bwd_launches": 2, "hd_stream_bwd_launches": 2 * hds,
+        "tc_cluster_launches": 2 * tcc, "tc_cluster_bwd_launches": 2 * tcc}
     want = fe._fused_fwd_plain(p, x, lengths, nhead, od, SEED, rate)
     relu_on = scratch["f"].reshape(B, T, ffn) > 0
     pdx, pdws = fe._fused_bwd_plain(p, x, lengths, SEED, rate, nhead, od, *got[1:], g,
@@ -517,7 +522,8 @@ def test_wrappers_refuse_bad_inputs(gen):
         fa._packed_fwd(q, q[:, :4], q, torch.tensor([8, 8], device="cuda"),
                        None, 0.0, None, 2)
     # every head dim is taken (hd 136 was refused before the sensor-wise
-    # slice, hd 369 before the "hd_stream" route)
+    # slice, hd 369 before the "hd_stream" route; bf16 past 368 runs
+    # "tc_cluster" since)
     lens = torch.tensor([16], device="cuda")
     for d in (272, 2 * (fa.MAX_HEAD_DIM + 8)):
         taken = torch.randn((1, 16, d), generator=gen, device="cuda")
@@ -1287,6 +1293,8 @@ def test_fused_layer_at_a_shard_origin_is_the_full_launch(gen, cd):
 
 
 # ------------------------------------------------------------------ past hd 368
+# The scalar route past 368 ("hd_stream": f32, and bf16 on request, the
+# previous design) and the tensor-core one ("tc_cluster": bf16 by default)
 HD_STREAM_HD = [372, 720, 1023, 1024]
 
 
@@ -1298,19 +1306,20 @@ def _hd_stream_counts(fn):
 @pytest.mark.parametrize("cd", [None, "bfloat16"])
 @pytest.mark.parametrize("hd", HD_STREAM_HD)
 def test_hd_stream_packed_pair_matches_plain(gen, hd, cd, rate):
-    """flash_mha_packed past hd 368 ("hd_stream", both dtypes), one and two
-    heads, T=65 (a block ending one row past 64): o, lse and the three
-    gradients against the plain versions, bit-equal on a repeat, zeros for
-    the length-0 sample, every launch counted on the route."""
+    """flash_mha_packed past hd 368 ("hd_stream", both dtypes: bf16 on
+    impl="hd_stream"), one and two heads, T=65 (a block ending one row
+    past 64): o, lse and the three gradients against the plain versions,
+    bit-equal on a repeat, zeros for the length-0 sample, every launch
+    counted on the route."""
     od = fa.operand_dtype(cd)
     for nhead, T in ((1, 65), (2, 33)):
         B, d = 4, nhead * hd
         q, k, v, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(4))
         lengths = _lengths(gen, B, T)
         before = _hd_stream_counts(fa.flash_mha_packed)
-        o, lse = fa._packed_fwd(q, k, v, lengths, SEED, rate, cd, nhead)
-        grads = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
-        grads2 = fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
+        o, lse = fa._packed_fwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, "hd_stream")
+        grads, grads2 = (fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead, od, o, lse,
+                                             g, "hd_stream") for _ in range(2))
         assert _hd_stream_counts(fa.flash_mha_packed) == (before[0] + 1, before[1] + 2)
         po, plse = fa._packed_fwd_plain(q, k, v, lengths, nhead, od, SEED, rate)
         want = fa._packed_bwd_plain(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
@@ -1328,21 +1337,19 @@ def test_hd_stream_packed_pair_matches_plain(gen, hd, cd, rate):
 @pytest.mark.parametrize("layout", ["contiguous", "projection"])
 @pytest.mark.parametrize("hd", HD_STREAM_HD)
 def test_hd_stream_flash_mha_matches_plain(gen, hd, layout, cd, rate):
-    """flash_mha past hd 368 through the autograd function at T=130, H=2,
-    on contiguous heads and on the model's strided views."""
+    """flash_mha past hd 368 on "hd_stream" (bf16 on impl="hd_stream") at
+    T=130, H=2, on contiguous heads and on the model's strided views."""
     B, H, T = 3, 2, 130
-    q, k, v = (x.requires_grad_() for x in _head_inputs(gen, B, H, T, hd, layout))
+    q, k, v = _head_inputs(gen, B, H, T, hd, layout)
     g = torch.randn((B, H, T, hd), generator=gen, device="cuda")
     lengths = _lengths(gen, B, T)
     od = fa.operand_dtype(cd)
     before = _hd_stream_counts(fa.flash_mha)
-    o = fa.flash_mha(q, k, v, lengths, SEED, rate, cd)
-    got = torch.autograd.grad(o, (q, k, v), g)
+    o, lse = fa._flash_fwd_cuda(q, k, v, lengths, SEED, rate, od, "hd_stream")
+    got = fa._flash_bwd_cuda(q, k, v, lengths, SEED, rate, od, o, lse, g, "hd_stream")
     assert _hd_stream_counts(fa.flash_mha) == (before[0] + 1, before[1] + 1)
-    _, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, cd)
     po, _ = fa._flash_fwd_plain(q, k, v, lengths, od, SEED, rate)
-    want = fa._flash_bwd_plain(q.detach(), k.detach(), v.detach(), lengths, SEED, rate,
-                               od, o.detach(), lse, g)
+    want = fa._flash_bwd_plain(q, k, v, lengths, SEED, rate, od, o, lse, g)
     torch.cuda.synchronize()
     assert _sample_err(o, po, lengths) <= SAMPLE_TOL[cd]
     for a, b in zip(got, want):
@@ -1376,7 +1383,96 @@ def test_hd_stream_shared_memory_is_the_mirror(gen, D):
     files compute them, are the mirror's at every hd."""
     assert fa.split_smem(D, "hd_stream") == hd_stream_smem()
     assert fa.packed_smem(2, 64, 2 * D, 2, torch.float32) == hd_stream_smem()
-    assert fa.packed_smem(2, 64, D, 1, torch.bfloat16) == hd_stream_smem()
+    assert fa.packed_smem(2, 64, D, 1, torch.bfloat16, "hd_stream") == hd_stream_smem()
+
+
+TC_CLUSTER_PACKED = [372, 720, 1023]
+TC_CLUSTER_SPLIT = [720, 1024]
+
+
+def _tc_cluster_counts(fn):
+    return fn.tc_cluster_launches, fn.tc_cluster_bwd_launches
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("hd", TC_CLUSTER_PACKED)
+def test_tc_cluster_packed_pair_matches_plain(gen, hd, rate):
+    """flash_mha_packed past hd 368 in bf16 ("tc_cluster": 2 CTAs of 192
+    columns at hd 372, 3 of 256 at 720, 4 of 256 at 1023, its odd rows
+    copied by 2-byte loads), one head at T=215 and two at T=65 (a block
+    ending one row past 64), lengths with 0, 1 and T: o, lse and the three
+    gradients against the plain versions, a repeat bit-equal, exact zeros
+    for the length-0 sample, every launch counted on the route."""
+    od = torch.bfloat16
+    for nhead, T in ((1, 215), (2, 65)):
+        B, d = 5, nhead * hd
+        q, k, v, g = (torch.randn((B, T, d), generator=gen, device="cuda") for _ in range(4))
+        lengths = _lengths(gen, B, T)
+        assert fa.packed_plan(B, T, d, nhead, od).route == "tc_cluster"
+        before = _tc_cluster_counts(fa.flash_mha_packed)
+        runs = []
+        for _ in range(2):
+            o, lse = fa._packed_fwd(q, k, v, lengths, SEED, rate, "bfloat16", nhead)
+            runs.append((o, lse, *fa._packed_bwd_cuda(q, k, v, lengths, SEED, rate, nhead,
+                                                      od, o, lse, g)))
+        assert _tc_cluster_counts(fa.flash_mha_packed) == (before[0] + 2, before[1] + 2)
+        o, lse, *grads = runs[0]
+        po, plse = fa._packed_fwd_plain(q, k, v, lengths, nhead, od, SEED, rate)
+        want = fa._packed_bwd_plain(q, k, v, lengths, SEED, rate, nhead, od, o, lse, g)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        assert (o - po).abs().max().item() <= TOL["bfloat16"]
+        assert (lse - plse).abs().max().item() <= TOL["bfloat16"]
+        assert (o[0] == 0).all() and (lse[0] == fa.NEG_INF).all()
+        for a, b in zip(grads, want):
+            assert torch.isfinite(a).all() and (a[0] == 0).all()
+            assert _sample_err(a, b, lengths) <= SAMPLE_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("layout", ["contiguous", "projection"])
+@pytest.mark.parametrize("hd", TC_CLUSTER_SPLIT)
+def test_tc_cluster_flash_mha_matches_plain(gen, hd, layout, rate):
+    """flash_mha past hd 368 in bf16 through the autograd function
+    ("tc_cluster", the operands' padded cast), T=600, one head on
+    contiguous heads and on the model's strided views: o and the three
+    gradients against the plain versions, a repeat bit-equal, zeros for
+    the length-0 sample, one launch each way on the route."""
+    B, H, T = 3, 1, 600
+    q, k, v = (x.requires_grad_() for x in _head_inputs(gen, B, H, T, hd, layout))
+    g = torch.randn((B, H, T, hd), generator=gen, device="cuda")
+    lengths = _lengths(gen, B, T)
+    od = torch.bfloat16
+    runs = []
+    for _ in range(2):
+        before = _tc_cluster_counts(fa.flash_mha)
+        o = fa.flash_mha(q, k, v, lengths, SEED, rate, "bfloat16")
+        runs.append((o, *torch.autograd.grad(o, (q, k, v), g)))
+        assert _tc_cluster_counts(fa.flash_mha) == (before[0] + 1, before[1] + 1)
+    o, *got = runs[0]
+    _, lse = fa._flash_fwd(q, k, v, lengths, SEED, rate, "bfloat16")
+    po, _ = fa._flash_fwd_plain(q, k, v, lengths, od, SEED, rate)
+    want = fa._flash_bwd_plain(q.detach(), k.detach(), v.detach(), lengths, SEED, rate,
+                               od, o.detach(), lse, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert _sample_err(o, po, lengths) <= SAMPLE_TOL["bfloat16"]
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and (a[0] == 0).all()
+        assert _sample_err(a, b, lengths) <= SAMPLE_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("D", [369, 720, 769, 1024, 1793, 2048])
+def test_tc_cluster_shared_memory_and_occupancy(gen, D):
+    """The shared bytes of the route's three launches, as both C entry
+    files compute them, are the Python mirror's (fa.tc_cluster_smem, which
+    tests/test_torch_tc_cluster.py holds to the header's sizes), and the
+    card holds at least one cluster of each kernel at once."""
+    smem = fa.tc_cluster_smem(fa.tc_cluster_size(D)[1])
+    assert fa.split_smem(D, "tc_cluster") == smem
+    assert fa.packed_smem(2, 64, D, 1, torch.bfloat16) == smem
+    assert fa.packed_smem(2, 64, 3 * D, 3, torch.bfloat16) == smem
+    assert min(fa.tc_cluster_occupancy(D)) >= 1
 
 
 # ------------------------------------------------------------ past 65535 samples

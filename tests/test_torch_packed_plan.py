@@ -127,9 +127,10 @@ def test_alignment_of_addresses():
 
 def test_head_dim_past_the_limit_raises():
     # the limit was 128 before the sensor-wise slice and 368 before the
-    # "hd_stream" route: past 368 both dtypes take it, and what raises is a
-    # route the plan does not know or a width nhead does not divide
-    assert fa.packed_plan(1, 16, 2 * 369, 2, BF16).route == "hd_stream"
+    # "hd_stream" route: past 368 f32 takes it and bf16 "tc_cluster" (to hd
+    # 2048), and what raises is a route the plan does not know or a width
+    # nhead does not divide
+    assert fa.packed_plan(1, 16, 2 * 369, 2, BF16).route == "tc_cluster"
     assert fa.packed_plan(1, 16, 369, 1, F32).route == "hd_stream"
     assert fa.packed_plan(1, 16, 2 * 368, 2, BF16).route == "tc_wide"   # hd = 368
     assert fa.packed_plan(1, 16, 129, 1, F32).route == "scalar"         # and hd = 129

@@ -216,9 +216,9 @@ def test_shared_memory_mirror_fits_a_block(route):
 
 
 def test_head_dim_past_the_kernels_raises():
-    # past 368 the "hd_stream" route takes both dtypes (it raised before);
-    # an unknown impl still raises
-    assert fa.split_plan(1, 1, 16, 369, BF16).route == "hd_stream"
+    # past 368 the "hd_stream" route takes f32 and "tc_cluster" bf16 (it
+    # raised before); an unknown impl still raises
+    assert fa.split_plan(1, 1, 16, 369, BF16).route == "tc_cluster"
     assert fa.split_plan(1, 1, 16, 400, F32).route == "hd_stream"
     assert fa.split_plan(1, 1, 16, 368, BF16).route == "tc_wide"
     with pytest.raises(ValueError, match="impl"):

@@ -1,10 +1,12 @@
 """Attention past head dim 368 and calls past 65535 samples, on the CPU.
 
 Past MAX_HEAD_DIM (368) flash_mha_packed and flash_mha take the
-"hd_stream" route on the card (csrc/attention_hd_stream.cuh) in both
-operand dtypes: its launch plan is held here at every hd 369-1024, its
-shared bytes (a mirror of the header's sizes) are the same at every hd
-and fit a block. The functions the kernels compute, the plain versions,
+"hd_stream" route on the card (csrc/attention_hd_stream.cuh) with f32
+operands, and with bf16 on request (impl="hd_stream", the previous design;
+bf16 takes the tensor-core route "tc_cluster" by default,
+tests/test_torch_tc_cluster.py): its launch plan is held here at every hd
+369-1024, its shared bytes (a mirror of the header's sizes) are the same
+at every hd and fit a block. The functions the kernels compute, the plain versions,
 are held against the JAX kernels (Pallas in interpret mode) at hd 400:
 the packed pair, flash_mha in both JAX regimes, and a one-head sensor-wise
 model (d_inp 20 x (d_ob 4 + d_pe 16) = 400) on the packed rung: eval
@@ -55,20 +57,23 @@ SMEM = 232448        # a block's shared bytes on the H100
 
 @pytest.mark.parametrize("hd", range(fa.MAX_HEAD_DIM + 1, 1025))
 def test_every_head_dim_past_368_takes_the_new_route(hd):
-    """Both plans, both dtypes, one and three heads: the route, its rows,
-    the grid (the 32-row blocks times the 256-column slices along x), one
-    element a copy; the shared bytes the same at every hd."""
+    """Both plans, both dtypes (bf16 on request, impl="hd_stream"; by
+    default it takes "tc_cluster"), one and three heads: the route, its
+    rows, the grid (the 32-row blocks times the 256-column slices along
+    x), one element a copy; the shared bytes the same at every hd."""
     slices = -(-hd // fa.HD_STREAM_SLICE)
     for od in (BF16, F32):
+        impl = "hd_stream" if od == BF16 else "auto"
+        assert fa.packed_plan(7, 215, hd, 1, od).route == (
+            "tc_cluster" if od == BF16 else "hd_stream")
         for nhead in (1, 3):
-            p = fa.packed_plan(7, 215, nhead * hd, nhead, od)
+            p = fa.packed_plan(7, 215, nhead * hd, nhead, od, impl)
             assert (p.route, p.hd, p.hd_pad, p.rows, p.copy_bytes, p.threads) == (
                 "hd_stream", hd, hd, 32, od.itemsize, (256,) * 3)
             assert p.grid == (7 * slices, nhead, 7) == p.dkv_grid
             assert tuple(p.as_ints) == (3, hd, od.itemsize, 32, 256, 256, 256,
                                         7 * slices, nhead, 7)
-        s = fa.split_plan(5, 2, 2048, hd, od, ((2048 * 2 * hd, hd, 2 * hd),), 16,
-                          padded=od == BF16)
+        s = fa.split_plan(5, 2, 2048, hd, od, ((2048 * 2 * hd, hd, 2 * hd),), 16, impl)
         assert (s.route, s.hd_pad, s.rows, s.copy_bytes, s.cols) == (
             "hd_stream", hd, 32, od.itemsize, hd)
         assert s.grid == (64 * slices, 2, 5)
@@ -88,7 +93,8 @@ def test_below_369_the_routes_are_unchanged():
     assert fa.packed_plan(4, 64, 2 * 200, 2, F32).grid == (2, 2, 4)   # Wide, 32 rows
     x = torch.zeros(1, 1, 4, 400)
     (y,), cols = fa._flash_operands((x,), BF16)
-    assert cols == 400 and y.shape == x.shape and y.dtype == BF16   # no padded cast
+    # the tensor-core routes' padded cast: 400 columns are a multiple of 8
+    assert cols == 400 and y.shape == x.shape and y.dtype == BF16
 
 
 def _packed(q, k, v, g, lengths, rate, cd, nhead, port):
